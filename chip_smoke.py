@@ -1,0 +1,559 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``langstream_tpu_torch``) on one NVIDIA H100.
+
+Run from the root of a checkout, with no arguments, on a machine with one
+CUDA card:
+
+    python3 chip_smoke.py
+
+Phases (``--phases`` picks a subset, comma-separated, for a partial run):
+
+1. ``build``   — compiles every CUDA kernel of the port from the sources in
+   the checkout (one ``nvcc`` per source, all started together, into
+   ``build/kernels/``) and prints the build time, each kernel's ptxas
+   register / spill report, and the card's name and power limit.
+2. ``kernels`` — each kernel against its plain PyTorch version on the card
+   at the main path's shapes (H 32, Hkv 8, D 128, page 64; prefill S 200
+   and 1024 at B 2; paged decode at B 8 with ragged lengths 1..1500, bf16
+   and int8 pages): max abs error against a stated tolerance, the kernel's
+   time, the plain version's time, the bound of the card, and one library
+   call as a yardstick where one computes the same function.
+3. ``e2e``     — the port's ``ServingEngine`` serving llama-3-8b at full
+   width and depth (32 layers, bf16, random weights from ``--seed``):
+   8 requests of 21..1501 byte tokens, greedy, 64 new tokens each, with
+   every kernel count set to 0 just before and read just after. Then a
+   reference check on the same weights: prefill and paged decode logits of
+   the kernel path against the reference attention path.
+4. ``int8``    — a shorter end-to-end run over the int8 page pool (the
+   int8 paged decode kernel), counts read the same way.
+5. ``profile`` — (not run by default) a short llama-3-8b burst traced with
+   torch.profiler: the device's busy share of the wall and the top kernels.
+
+Every check raises on failure, so any failure exits non-zero. On success
+the last three lines are the ``{"kernels": [...]}`` record, the card's
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``;
+a run that left out a default phase ends with ``{"partial": true, ...}``
+instead, and never says ok.
+Without a CUDA card, or outside a checkout of the repository, it exits 2
+and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import random
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PHASES = ("build", "kernels", "e2e", "int8", "profile")
+DEFAULT_PHASES = PHASES[:4]
+
+# H100 SXM published peaks (dense), the denominators of every bound below
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+# tolerances of kernel vs plain version on the card: bf16 outputs round at
+# 2^-8 relative, and the kernels round p to bf16 against the RUNNING max
+# where the plain version uses the row's final max
+PREFILL_TOL = 2e-2
+DECODE_TOL = 1e-2
+# kernel path vs reference attention path, end-to-end logits at 32 layers
+# in bf16: relative to the largest reference logit
+MODEL_REL_TOL = 5e-2
+
+H, HKV, D, PAGE = 32, 8, 128, 64
+DECODE_LENGTHS = (1, 64, 200, 511, 700, 1024, 1280, 1500)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+class Timer:
+    """Per-launch device time with CUDA events, the 50 MB L2 flushed before
+    every launch (the main path finds each layer's K/V cold). A spin kernel
+    queued ahead of the start event keeps the stream busy while the host
+    enqueues the launch, so host-side wrapper time never reads as device
+    time."""
+
+    SPIN_CYCLES = 6_000_000  # ~3 ms at the H100's clocks
+
+    def __init__(self, torch) -> None:
+        self.torch = torch
+        self.flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+
+    def ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        pairs = []
+        for _ in range(iters):
+            self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        times = sorted(s.elapsed_time(e) for s, e in pairs)
+        return times[len(times) // 2]
+
+
+def phase_build(ctx: dict) -> None:
+    from langstream_tpu_torch.ops import _build
+
+    t0 = time.monotonic()
+    seconds = _build.build_all()
+    ctx["build_s"] = time.monotonic() - t0
+    log(f"build: {ctx['build_s']:.1f}s total; per source {json.dumps(seconds)}")
+    for name in _build.SOURCES:
+        report = _build.library_path(name).with_suffix(".log")
+        if report.exists():
+            for line in report.read_text().splitlines():
+                if "registers" in line or "spill" in line or "error" in line.lower():
+                    log(f"  ptxas[{name}] {line.strip()}")
+        _build.library(name)  # loads and binds every symbol
+    log(f"card: {smi_line()}")
+
+
+def _prefill_case(torch, ctx, timer, b: int, s: int) -> dict:
+    import torch.nn.functional as F
+
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.ops.attention import (
+        flash_prefill_attention,
+        flash_prefill_reference,
+    )
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + s)
+    q = torch.randn((b, s, H, D), generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn((b, HKV, s, D), generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn((b, HKV, s, D), generator=g, device="cuda").to(torch.bfloat16)
+    out = flash_prefill_attention(q, k, v, cfg)
+    ref = flash_prefill_reference(q, k, v, cfg)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not math.isfinite(err) or err > PREFILL_TOL:
+        raise AssertionError(f"flash_prefill S={s}: max abs err {err} > {PREFILL_TOL}")
+    qh = q.transpose(1, 2)
+    try:
+        F.scaled_dot_product_attention(qh, k, v, is_causal=True, enable_gqa=True)
+
+        def library():
+            return F.scaled_dot_product_attention(qh, k, v, is_causal=True, enable_gqa=True)
+    except TypeError:  # no enable_gqa: expand K/V once, outside the timing
+        ke = k.repeat_interleave(H // HKV, dim=1)
+        ve = v.repeat_interleave(H // HKV, dim=1)
+
+        def library():
+            return F.scaled_dot_product_attention(qh, ke, ve, is_causal=True)
+
+    flops = 2.0 * b * H * s * (s + 1) * D  # QK^T and PV over the lower triangle
+    nbytes = 2 * (2 * b * s * H * D + 2 * b * HKV * s * D)  # q, out, k, v in bf16
+    bound = max(flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    rec = {
+        "shape": f"B={b} S={s} H={H} Hkv={HKV} D={D} bf16",
+        "max_abs_err": err,
+        "tolerance": PREFILL_TOL,
+        "ms": timer.ms(lambda: flash_prefill_attention(q, k, v, cfg)),
+        "plain_ms": timer.ms(lambda: flash_prefill_reference(q, k, v, cfg), iters=5),
+        "library_ms": timer.ms(library),
+        "bound_ms": bound,
+        "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes",
+    }
+    rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+    log(f"kernel flash_prefill {json.dumps(rec)}")
+    return rec
+
+
+def _decode_case(torch, ctx, timer, int8: bool) -> dict:
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.ops.attention import (
+        paged_decode_reference,
+        ragged_paged_decode_attention,
+        ragged_paged_decode_attention_int8,
+    )
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    b = len(DECODE_LENGTHS)
+    rng = random.Random(ctx["seed"] + (1 if int8 else 0))
+    need = [math.ceil(n / PAGE) for n in DECODE_LENGTHS]
+    tp = max(need)
+    num_pages = sum(need) + 16
+    perm = list(range(num_pages))
+    rng.shuffle(perm)
+    table = torch.full((b, tp), num_pages, dtype=torch.int32)  # sentinel past each row
+    cursor = 0
+    for row, n in enumerate(need):
+        table[row, :n] = torch.tensor(perm[cursor:cursor + n], dtype=torch.int32)
+        cursor += n
+    table = table.cuda()
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 7)
+    q = torch.randn((b, H, D), generator=g, device="cuda").to(torch.bfloat16)
+    shape = (num_pages + 1, HKV, PAGE, D)  # + the sink page
+    if int8:
+        def entry():
+            return {
+                "q": torch.randint(-127, 128, shape, generator=g, device="cuda").to(torch.int8),
+                "s": torch.rand(shape[:-1], generator=g, device="cuda") * 0.01 + 0.005,
+            }
+        k, v = entry(), entry()
+        kernel = ragged_paged_decode_attention_int8
+    else:
+        k = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        v = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+        kernel = ragged_paged_decode_attention
+    out = kernel(q, k, v, lengths, table, cfg, PAGE)
+    ref = paged_decode_reference(q, k, v, lengths, table, cfg, PAGE)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    name = "paged_decode_int8" if int8 else "paged_decode"
+    if not math.isfinite(err) or err > DECODE_TOL:
+        raise AssertionError(f"{name}: max abs err {err} > {DECODE_TOL}")
+    tokens = sum(DECODE_LENGTHS)
+    item = 1 if int8 else 2
+    nbytes = (
+        tokens * HKV * D * 2 * item  # K and V rows inside each length
+        + (tokens * HKV * 2 * 4 if int8 else 0)  # their f32 scales
+        + 2 * b * H * D * 2  # q in, out
+        + b * 4 + sum(need) * 4  # lengths, the table entries read
+    )
+    flops = 4.0 * tokens * H * D  # q.k and p.v per (token, query head)
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3
+    rec = {
+        "shape": f"B={b} lengths={list(DECODE_LENGTHS)} H={H} Hkv={HKV} D={D} page={PAGE} "
+                 + ("int8 pages, bf16 q" if int8 else "bf16"),
+        "max_abs_err": err,
+        "tolerance": DECODE_TOL,
+        "ms": timer.ms(lambda: kernel(q, k, v, lengths, table, cfg, PAGE)),
+        "plain_ms": timer.ms(
+            lambda: paged_decode_reference(q, k, v, lengths, table, cfg, PAGE), iters=5
+        ),
+        "library_ms": None,  # no single PyTorch call reads a paged pool
+        "bound_ms": bound,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_F32_FLOPS else "operations",
+    }
+    rec["gbps"] = nbytes / (rec["ms"] * 1e-3) / 1e9
+    log(f"kernel {name} {json.dumps(rec)}")
+    return rec
+
+
+def phase_kernels(ctx: dict) -> None:
+    import torch
+
+    timer = Timer(torch)
+    ctx["kernel_runs"] = {
+        "flash_prefill": [_prefill_case(torch, ctx, timer, 2, s) for s in (200, 1024)],
+        "paged_decode": [_decode_case(torch, ctx, timer, int8=False)],
+        "paged_decode_int8": [_decode_case(torch, ctx, timer, int8=True)],
+    }
+    del timer
+
+
+def _prompts(n_bytes: list[int], seed: int) -> list[str]:
+    rng = random.Random(seed)
+    alphabet = "abcdefghijklmnopqrstuvwxyz     ,.ABCDEFGHIJ0123456789"
+    return ["".join(rng.choice(alphabet) for _ in range(n)) for n in n_bytes]
+
+
+def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int) -> dict:
+    """Warm the engine with one short request, zero the kernel counts, serve
+    the batch, read the counts; checks every request's tokens."""
+    import torch
+
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+    from langstream_tpu_torch.serving.engine import GenerationRequest, ServingEngine
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    engine = ServingEngine(
+        cfg, params, max_batch=8, decode_chunk=16, page_size=PAGE,
+        eos_token_id=tok.eos_token_id, rng_seed=ctx["seed"], device="cuda",
+    )
+    engine.start()
+    try:
+        engine.generate(tok.encode("warm up"), GenerationOptions(max_new_tokens=4), timeout=600)
+        prompts = [tok.encode(p) for p in _prompts(n_bytes, ctx["seed"])]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = engine.stats()
+        opts = GenerationOptions(max_new_tokens=new_tokens, temperature=0.0)
+        reset_kernel_counts()
+        t0 = time.monotonic()
+        reqs = [engine.submit(GenerationRequest(prompt_tokens=p, options=opts)) for p in prompts]
+        results = [r.result(timeout=900) for r in reqs]
+        wall = time.monotonic() - t0
+        counts = kernel_counts()
+        after = engine.stats()
+    finally:
+        engine.stop()
+    for p, r in zip(prompts, results):
+        if r.error is not None or r.finish_reason not in ("length", "stop"):
+            raise AssertionError(f"request of {len(p)} tokens ended {r.finish_reason}: {r.error}")
+        if r.finish_reason == "length" and len(r.tokens) != new_tokens:
+            raise AssertionError(f"request of {len(p)} tokens gave {len(r.tokens)} tokens")
+        if any(t < 0 or t >= cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"request of {len(p)} tokens has out-of-range tokens")
+    groups = after["admit-groups-total"] - before["admit-groups-total"]
+    steps = after["decode-steps-total"] - before["decode-steps-total"]
+    generated = sum(len(r.tokens) for r in results)
+    ttfts = sorted(r.ttft_s for r in results)
+    return {
+        "requests": len(results),
+        "prompt_tokens": [len(p) for p in prompts],
+        "generated_tokens": generated,
+        "wall_s": wall,
+        "tokens_per_s": generated / wall,
+        "ttft_p50_s": ttfts[len(ttfts) // 2],
+        "ttft_max_s": ttfts[-1],
+        "admit_groups": groups,
+        "decode_steps": steps,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "kernel_launches": {k: v["launches"] for k, v in counts.items()},
+        "finish_reasons": sorted({r.finish_reason for r in results}),
+    }
+
+
+def _require_launches(run: dict, kernel: str, per_unit: str, layers: int) -> None:
+    got = run["kernel_launches"][kernel]
+    want = layers * run[per_unit]
+    if got <= 0 or got < want:
+        raise AssertionError(f"{kernel}: {got} launches < {layers} x {per_unit} {run[per_unit]}")
+
+
+def _model_check(ctx, cfg, params) -> dict:
+    """Kernel path vs reference attention path on the same weights: prefill
+    logits of a 200-token prompt, then 4 paged decode steps over a pool
+    filled by that prefill."""
+    import torch
+
+    from langstream_tpu_torch.models import transformer as tf
+
+    ref_cfg = dataclasses.replace(cfg, attention_impl="jnp")
+    prompt = [256] + [(37 * i + 11) % 250 for i in range(199)]
+    tokens = torch.tensor([prompt], dtype=torch.long, device="cuda")
+    lengths = torch.tensor([len(prompt)], device="cuda")
+    s = tokens.shape[1]
+    out = {}
+    logits = {}
+    pools = {}
+    table = torch.arange(math.ceil((s + 8) / PAGE), dtype=torch.int32, device="cuda")[None]
+    for name, c in (("kernel", cfg), ("reference", ref_cfg)):
+        cache = tf.make_kv_cache(c, 1, s, device="cuda")
+        lg, cache = tf.prefill(params, tokens, lengths, cache, c)
+        pool = tf.make_page_pool(c, table.shape[1], PAGE, device="cuda")
+        tf.paged_insert_cache(pool, cache, table, PAGE)
+        logits[name] = [lg.float()]
+        pools[name] = pool
+    # both paths decode the SAME token chain (the reference path's greedy)
+    tok = torch.argmax(logits["reference"][0], dim=-1)
+    for step in range(4):
+        pos = torch.tensor([s + step], device="cuda")
+        for name, c in (("kernel", cfg), ("reference", ref_cfg)):
+            lg, _ = tf.paged_decode_step_inplace(params, tok, pos, pools[name], table, c, PAGE)
+            logits[name].append(lg.float())
+        tok = torch.argmax(logits["reference"][-1], dim=-1)
+    for i, (a, b) in enumerate(zip(logits["kernel"], logits["reference"])):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"model check step {i}: non-finite kernel-path logits")
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        out[f"step{i}_rel_err"] = rel
+        out[f"step{i}_top1_equal"] = bool(torch.argmax(a) == torch.argmax(b))
+        if rel > MODEL_REL_TOL:
+            raise AssertionError(f"model check step {i}: rel err {rel} > {MODEL_REL_TOL}")
+    out["tolerance"] = MODEL_REL_TOL
+    return out
+
+
+def _llama_params(ctx):
+    import torch
+
+    from langstream_tpu_torch.models.bridge import init_params
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+
+    if "params" not in ctx:
+        cfg = MODEL_PRESETS["llama-3-8b"]
+        g = torch.Generator(device="cuda").manual_seed(ctx["seed"])
+        t0 = time.monotonic()
+        ctx["params"] = init_params(cfg, g, device="cuda")
+        torch.cuda.synchronize()
+        log(f"llama-3-8b random weights on the card in {time.monotonic() - t0:.1f}s "
+            f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+    return ctx["params"]
+
+
+def phase_e2e(ctx: dict) -> None:
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    params = _llama_params(ctx)
+    run = _serve(ctx, cfg, params, [20, 90, 150, 300, 600, 900, 1200, 1500], 64)
+    _require_launches(run, "flash_prefill", "admit_groups", cfg.n_layers)
+    _require_launches(run, "paged_decode", "decode_steps", cfg.n_layers)
+    log(f"e2e llama-3-8b bf16 {json.dumps(run)}")
+    ctx["e2e"] = run
+    check = _model_check(ctx, cfg, params)
+    log(f"model check llama-3-8b bf16 {json.dumps(check)}")
+
+
+def phase_int8(ctx: dict) -> None:
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+
+    cfg = dataclasses.replace(MODEL_PRESETS["llama-3-8b"], kv_cache_dtype="int8")
+    params = _llama_params(ctx)
+    run = _serve(ctx, cfg, params, [40, 300, 700, 1100], 32)
+    _require_launches(run, "flash_prefill", "admit_groups", cfg.n_layers)
+    _require_launches(run, "paged_decode_int8", "decode_steps", cfg.n_layers)
+    log(f"e2e llama-3-8b int8-kv {json.dumps(run)}")
+    ctx["int8"] = run
+
+
+def phase_profile(ctx: dict) -> None:
+    """One traced burst (8 short prompts, 32 new tokens each) under
+    torch.profiler: wall time, the summed device time of CUDA kernels, the
+    device's busy share of the wall, and the kernels that took the most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS, GenerationOptions
+    from langstream_tpu_torch.serving.engine import GenerationRequest, ServingEngine
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    tok = ByteTokenizer()
+    engine = ServingEngine(cfg, _llama_params(ctx), max_batch=8, decode_chunk=16,
+                           page_size=PAGE, device="cuda")
+    engine.start()
+    try:
+        prompts = [tok.encode(p) for p in _prompts([100] * 8, ctx["seed"] + 1)]
+        opts = GenerationOptions(max_new_tokens=32)
+        engine.generate(prompts[0], opts, timeout=600)  # warm
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            reqs = [engine.submit(GenerationRequest(prompt_tokens=p, options=opts))
+                    for p in prompts]
+            for r in reqs:
+                r.result(timeout=600)
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        engine.stop()
+    # device activity (kernels, copies, fills) carries self device time;
+    # the host-side ops that launched it carry none
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    log("profile llama-3-8b bf16 decode burst " + json.dumps({
+        "wall_ms": wall_ms,
+        "device_kernel_ms": busy_ms,
+        "device_busy_share": busy_ms / wall_ms,
+        "top_kernels": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top],
+    }))
+
+
+def kernel_record(ctx: dict) -> dict:
+    sources = {
+        "flash_prefill": ("flash_prefill.cu", "langstream_tpu/ops/attention.py:143", "e2e"),
+        "paged_decode": ("paged_decode.cu", "langstream_tpu/ops/attention.py:849", "e2e"),
+        "paged_decode_int8": ("paged_decode.cu", "langstream_tpu/ops/attention.py:979", "int8"),
+    }
+    out = []
+    for name, (src, replaces, path) in sources.items():
+        runs = ctx.get("kernel_runs", {}).get(name)
+        if not runs:
+            continue
+        main = runs[-1]  # the widest shape measured
+        run = ctx.get(path)
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"langstream_tpu_torch/ops/csrc/{src}",
+            "replaces": replaces,
+            "launches": run["kernel_launches"][name] if run else None,
+            "max_abs_err": max(r["max_abs_err"] for r in runs),
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "shape": main["shape"],
+            "tolerance": main["tolerance"],
+        })
+    return {"kernels": out}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
+                    help=f"comma-separated subset of {PHASES} (default: {DEFAULT_PHASES})")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+    if not (ROOT / "langstream_tpu_torch" / "ops" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository "
+              "(langstream_tpu_torch/ not found beside this script)", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    ctx: dict = {"seed": args.seed}
+    t_all = time.monotonic()
+    for phase in PHASES:
+        if phase in phases:
+            t0 = time.monotonic()
+            globals()[f"phase_{phase}"](ctx)
+            log(f"phase {phase}: {time.monotonic() - t0:.1f}s")
+    log(f"all phases: {time.monotonic() - t_all:.1f}s")
+    complete = set(DEFAULT_PHASES) <= set(phases)
+    record = kernel_record(ctx)
+    if complete:
+        for k in record["kernels"]:
+            if not k["launches"]:
+                raise AssertionError(f"{k['name']} was never launched on its path")
+    print(json.dumps(record))
+    print(smi_line())
+    device = {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }
+    # only a run of every default phase may say ok: a partial run checked
+    # less, and says so instead
+    if complete:
+        print(json.dumps({"ok": True, "device": device}))
+    else:
+        print(json.dumps({"partial": True, "phases": phases, "device": device}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

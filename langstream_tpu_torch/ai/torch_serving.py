@@ -1,0 +1,221 @@
+"""Local serving on an NVIDIA card: the port's counterpart of the
+``tpu-serving`` resource (``langstream_tpu/ai/tpu_serving.py``).
+
+``TorchCompletionsService`` takes a ``tpu-serving`` resource config and
+honours the keys this slice serves:
+
+  model: preset name (models.configs.MODEL_PRESETS), default tiny-test
+  weights: "random" (the only value yet; checkpoint loading waits for the
+    loader slice) — drawn on the device from ``seed`` (default 0)
+  max-batch / decode-chunk / page-size: engine knobs (8 / 16 / 64)
+  kv-cache-quantization: "int8" → int8 page pool with per-token per-head
+    scales (the int8 paged decode kernel); "" / "none" → model dtype
+  tokenizer: "byte" (the only value yet)
+  device: "cuda" (default) or "cpu"
+
+Completions stream text through the tokenizer with the reference
+provider's growth batching (1, 2, 4, … tokens per chunk). Wiring into the
+pipeline runtime and the gateway waits until those modules exist in the
+port.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import threading
+import uuid
+from typing import Any, Optional
+
+import torch
+
+from langstream_tpu_torch.ai.provider import (
+    ChatChunk,
+    ChatCompletionsResult,
+    ChatMessage,
+    CompletionsService,
+    StreamingChunksConsumer,
+)
+from langstream_tpu_torch.device import resolve_device
+from langstream_tpu_torch.models.bridge import init_params
+from langstream_tpu_torch.models.configs import MODEL_PRESETS, GenerationOptions, ModelConfig
+from langstream_tpu_torch.serving.engine import GenerationRequest, ServingEngine
+from langstream_tpu_torch.serving.tokenizer import get_tokenizer
+
+
+def model_config_from(resource: dict[str, Any]) -> ModelConfig:
+    """The preset named by ``model``, with ``kv-cache-quantization`` applied."""
+    name = resource.get("model", "tiny-test")
+    if name not in MODEL_PRESETS:
+        raise ValueError(f"unknown model preset {name!r}; known: {sorted(MODEL_PRESETS)}")
+    mc = MODEL_PRESETS[name]
+    kv_mode = str(resource.get("kv-cache-quantization", "") or "").lower()
+    if kv_mode not in ("", "none", "int8"):
+        raise ValueError(f"unknown kv-cache-quantization {kv_mode!r}; supported: int8, none")
+    if kv_mode == "int8":
+        mc = dataclasses.replace(mc, kv_cache_dtype="int8")
+    return mc
+
+
+class _StreamState:
+    """Growth batching: flush after 1 raw token, then 2, 4, … capped at
+    ``min_chunks`` — the reference provider's schedule."""
+
+    def __init__(self, tokenizer, consumer: StreamingChunksConsumer, min_chunks: int):
+        self.tokenizer = tokenizer
+        self.consumer = consumer
+        self.min_chunks = max(1, min_chunks)
+        self.threshold = 1
+        self.pending = 0
+        self.tokens: list[int] = []
+        self.emitted_text = ""
+        self.index = 0
+        self.answer_id = str(uuid.uuid4())
+
+    def on_token(self, token: int) -> None:
+        self.tokens.append(token)
+        self.pending += 1
+        if self.pending >= self.threshold:
+            self._flush(last=False)
+            self.threshold = min(self.threshold * 2, self.min_chunks)
+
+    def _flush(self, last: bool) -> None:
+        if last:
+            text = self.tokenizer.decode(self.tokens)
+        else:
+            # a token boundary may split a multibyte char: hold back the
+            # undecodable tail so the next flush re-emits it whole
+            text = self.tokenizer.decode_stream_prefix(self.tokens)
+            if not text.startswith(self.emitted_text):
+                self.pending = 0
+                return
+        delta = text[len(self.emitted_text):]
+        if delta or last:
+            self.consumer(
+                ChatChunk(content=delta, index=self.index, last=last, answer_id=self.answer_id)
+            )
+            self.index += 1
+            self.emitted_text = text
+        self.pending = 0
+
+    def finish(self) -> None:
+        self._flush(last=True)
+
+
+class TorchCompletionsService(CompletionsService):
+    """Completions from a local ``ServingEngine``, built lazily on first use."""
+
+    def __init__(self, resource: dict[str, Any]) -> None:
+        self.resource = dict(resource)
+        weights = self.resource.get("weights", "random")
+        if weights != "random":
+            raise NotImplementedError(
+                f"weights {weights!r}: the PyTorch port serves random weights only "
+                "(checkpoint loading waits for the loader slice)"
+            )
+        layout = self.resource.get("kv-layout", "paged")
+        if layout != "paged":
+            raise NotImplementedError(f"kv-layout {layout!r}: the PyTorch port serves paged only")
+        self.model_config = model_config_from(self.resource)
+        self.device = resolve_device(self.resource.get("device", "cuda"))
+        self.tokenizer = get_tokenizer(self.resource.get("tokenizer", "byte"))
+        self._lock = threading.Lock()
+        self._engine: Optional[ServingEngine] = None
+
+    def engine(self) -> ServingEngine:
+        with self._lock:
+            if self._engine is None:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(int(self.resource.get("seed", 0)))
+                params = init_params(self.model_config, gen, device=self.device)
+                engine = ServingEngine(
+                    self.model_config,
+                    params,
+                    max_batch=int(self.resource.get("max-batch", 8)),
+                    eos_token_id=self.tokenizer.eos_token_id,
+                    decode_chunk=int(self.resource.get("decode-chunk", 16)),
+                    page_size=int(self.resource.get("page-size", 64)),
+                    device=self.device,
+                )
+                engine.start()
+                self._engine = engine
+            return self._engine
+
+    def engine_stats(self) -> dict[str, Any]:
+        return self._engine.stats() if self._engine is not None else {}
+
+    def close(self) -> None:
+        with self._lock:
+            if self._engine is not None:
+                self._engine.stop()
+                self._engine = None
+
+    def _render_prompt(self, messages: list[ChatMessage]) -> str:
+        lines = [f"{m.role}: {m.content}" for m in messages]
+        lines.append("assistant:")
+        return "\n".join(lines)
+
+    async def get_chat_completions(
+        self,
+        messages: list[ChatMessage],
+        options: dict[str, Any],
+        chunks_consumer: Optional[StreamingChunksConsumer] = None,
+    ) -> ChatCompletionsResult:
+        return await self._generate(self._render_prompt(messages), options, chunks_consumer)
+
+    async def get_text_completions(
+        self,
+        prompt: list[str],
+        options: dict[str, Any],
+        chunks_consumer: Optional[StreamingChunksConsumer] = None,
+    ) -> ChatCompletionsResult:
+        return await self._generate("\n".join(prompt), options, chunks_consumer)
+
+    async def _generate(
+        self,
+        prompt: str,
+        options: dict[str, Any],
+        chunks_consumer: Optional[StreamingChunksConsumer],
+    ) -> ChatCompletionsResult:
+        loop = asyncio.get_running_loop()
+        engine = await loop.run_in_executor(None, self.engine)
+        stream = None
+        if chunks_consumer is not None:
+            stream = _StreamState(
+                self.tokenizer, chunks_consumer, int(options.get("min-chunks-per-message", 20))
+            )
+        done: asyncio.Future = loop.create_future()
+
+        def on_done(res) -> None:  # engine thread → event loop
+            loop.call_soon_threadsafe(lambda: done.done() or done.set_result(res))
+
+        request = GenerationRequest(
+            prompt_tokens=self.tokenizer.encode(prompt),
+            options=GenerationOptions.from_dict(options),
+            on_token=stream.on_token if stream is not None else None,
+            on_done=on_done,
+        )
+        await loop.run_in_executor(None, engine.submit, request)
+        try:
+            result = await asyncio.wait_for(done, 600.0)
+        except (asyncio.TimeoutError, asyncio.CancelledError):
+            request.cancel()
+            raise
+        if result.error is not None:
+            raise result.error
+        if stream is not None:
+            stream.finish()
+        content = self.tokenizer.decode(result.tokens)
+        # string-level stop sequences (token-level stops are in-engine)
+        for stop in options.get("stop") or []:
+            cut = content.find(stop)
+            if cut >= 0:
+                content = content[:cut]
+        return ChatCompletionsResult(
+            content=content,
+            finish_reason=result.finish_reason,
+            prompt_tokens=result.prompt_tokens,
+            completion_tokens=len(result.tokens),
+            ttft_ms=result.ttft_s * 1000.0,
+            total_ms=result.total_s * 1000.0,
+        )

@@ -1,0 +1,561 @@
+"""Decoder-only transformer (Llama family) in PyTorch — the port of
+``langstream_tpu/models/transformer.py`` for the serving main path.
+
+Layout follows the JAX package so the two can be compared tensor for tensor:
+stacked per-layer params ``[L, ...]`` in a dict (a Python loop over layers
+replaces ``lax.scan``), head-major KV caches ``[L, B, Hkv, T, D]`` and a
+page pool ``[L, P + 1, Hkv, page_size, D]`` (int8 caches are
+``{"q": int8, "s": f32}`` dicts with per-token scales).
+
+Differences from the JAX package, all forced by PyTorch:
+
+- caches and pools are updated IN PLACE (the JAX functions return new
+  arrays; donation makes that in place there too). The entry points still
+  return the cache so call sites read alike.
+- JAX drops out-of-bounds scatters (``mode="drop"``). PyTorch has no such
+  mode, so the page pool carries one extra physical page at index
+  ``num_pages`` — the WRITE SINK. The out-of-bounds sentinel of the page
+  tables (= ``num_pages``) lands there instead of being dropped; nothing
+  ever reads it as valid data (every read stays inside a row's length,
+  and the length mask makes the rest harmless), so the sink is the drop
+  without a host sync.
+
+Not ported yet: MoE, the dense-decode / segment / verify entry points,
+LoRA, ring attention and ``encode``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from langstream_tpu_torch.device import DeviceLike, resolve_device
+from langstream_tpu_torch.models.bridge import torch_dtype
+from langstream_tpu_torch.models.configs import ModelConfig
+from langstream_tpu_torch.models.quant import dequantize_weight, is_quantized, quantized_matmul
+from langstream_tpu_torch.ops.attention import (
+    flash_prefill_attention,
+    kernel_path_ok,
+    ragged_paged_decode_attention,
+    ragged_paged_decode_attention_int8,
+    softcap,
+)
+
+Params = dict
+KVCache = dict
+
+_NEG = -1e30
+
+
+def _check_dense(config: ModelConfig) -> None:
+    if config.is_moe:
+        raise NotImplementedError("MoE configs are not ported to PyTorch yet")
+
+
+def _map(fn, entry):
+    """Apply ``fn`` to a cache entry: a tensor, or each leaf of an int8 dict."""
+    if isinstance(entry, dict):
+        return {k: fn(v) for k, v in entry.items()}
+    return fn(entry)
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    normed = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (normed * weight.float()).to(x.dtype)
+
+
+def _rope_freqs(
+    positions: torch.Tensor, config: ModelConfig
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions [B, S] → sin/cos [B, S, head_dim/2], f32."""
+    half = config.resolved_head_dim // 2
+    exponent = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    # f32 pow correctly rounded (as XLA computes it): PyTorch's f32 pow can
+    # land 1 ulp off, which moves angles at long positions by p * ulp
+    freqs = torch.pow(
+        torch.tensor(config.rope_theta, dtype=torch.float64, device=positions.device),
+        exponent.double(),
+    ).float()
+    if config.rope_scaling_factor:
+        freqs = _llama3_rope_scale(freqs, config)
+    angles = positions.float()[..., None] * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
+def _llama3_rope_scale(freqs: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+    """NTK-by-parts scaling (HF rope_scaling type "llama3"): low-frequency
+    components slow down by ``factor``; a smooth ramp interpolates through
+    the transition wavelength band."""
+
+    def f32(x: float) -> torch.Tensor:
+        return torch.tensor(x, dtype=torch.float32, device=freqs.device)
+
+    factor = f32(config.rope_scaling_factor)
+    low = f32(config.rope_scaling_low_freq_factor)
+    high = f32(config.rope_scaling_high_freq_factor)
+    original = f32(config.rope_scaling_original_max_seq_len)
+
+    wavelen = 2.0 * math.pi / freqs
+    low_wavelen = original / low
+    high_wavelen = original / high
+    smooth = ((original / wavelen - low) / (high - low)).clamp(0.0, 1.0)
+    scaled = freqs / factor
+    interpolated = (1.0 - smooth) * scaled + smooth * freqs
+    return torch.where(
+        wavelen > low_wavelen,
+        scaled,
+        torch.where(wavelen < high_wavelen, freqs, interpolated),
+    )
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, D]; half-rotation convention (HF llama/gemma)."""
+    half = x.shape[-1] // 2
+    sin, cos = sin[:, :, None, :], cos[:, :, None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out1 = xf1 * cos - xf2 * sin
+    out2 = xf2 * cos + xf1 * sin
+    return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., D] → int8 values + f32 scale per leading index (symmetric);
+    bit-exact with the JAX package (true division, half-to-even rounding)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequantize_kv(c, dtype: torch.dtype) -> torch.Tensor:
+    if isinstance(c, dict):
+        return (c["q"].float() * c["s"][..., None]).to(dtype)
+    return c
+
+
+def cache_width(cache: KVCache) -> int:
+    leaf = cache["k"]
+    return (leaf["q"] if isinstance(leaf, dict) else leaf).shape[3]
+
+
+def _int_dot(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """An int8 x int8 contraction with an exact integer result, as f32.
+    Products of int8 summed over the contracted axis are integers below
+    2^53, so float64 holds them exactly on every device (PyTorch has no
+    integer matmul on CUDA); the JAX package dots in s8 with s32 accum."""
+    return torch.einsum(equation, a.double(), b.double()).float()
+
+
+def attention(
+    q: torch.Tensor,  # [B, S, H, D]
+    k,  # [B, Hkv, T, D] head-major tensor, or int8 {"q","s"} cache entry
+    v,
+    mask: torch.Tensor,  # [B, S, T] bool — True = attend
+    config: ModelConfig,
+) -> torch.Tensor:
+    """GQA attention, f32 softmax — the gathered reference path
+    (``attention_impl="jnp"``). int8 caches take the JAX package's
+    hoisted-scale math: q and the probabilities are quantized per vector
+    and dotted in integers, with the scales applied to the scores."""
+    h, hkv = config.n_heads, config.n_kv_heads
+    group = h // hkv
+    b, s, _, d = q.shape
+    qg = q.reshape(b, s, hkv, group, d)
+    if isinstance(k, dict):
+        qq, qs = _quantize_kv(qg)  # [B,S,Hkv,G,D] int8, [B,S,Hkv,G] f32
+        scores = _int_dot("bshgd,bhtd->bhgst", qq, k["q"])
+        scores = scores * qs.permute(0, 2, 3, 1)[:, :, :, :, None]
+        scores = scores * k["s"][:, :, None, None, :]
+    else:
+        scores = torch.einsum("bshgd,bhtd->bhgst", qg, k).float()
+    scores = scores / torch.sqrt(torch.tensor(float(d), dtype=torch.float32, device=q.device))
+    scores = softcap(scores, config.attn_logit_softcap)
+    scores = torch.where(mask[:, None, None, :, :], scores, torch.full_like(scores, _NEG))
+    probs = torch.softmax(scores, dim=-1)
+    if isinstance(v, dict):
+        pv = probs * v["s"][:, :, None, None, :]
+        pq, ps = _quantize_kv(pv)  # int8 [B,Hkv,G,S,T], f32 [B,Hkv,G,S]
+        out = _int_dot("bhgst,bhtd->bshgd", pq, v["q"])
+        out = (out * ps.permute(0, 3, 1, 2)[..., None]).to(q.dtype)
+    else:
+        out = torch.einsum("bhgst,bhtd->bshgd", probs.to(q.dtype), v)
+    return out.reshape(b, s, h * d)
+
+
+def _dispatch_attention(
+    q: torch.Tensor,  # [B, S, H, D]
+    k_all,  # [B, Hkv, T, D] tensor, or int8 {"q","s"} dict
+    v_all,
+    mask: Optional[torch.Tensor],
+    config: ModelConfig,
+    causal: bool,
+) -> torch.Tensor:
+    """Prompt attention: the flash prefill kernel (causal over the first S
+    cache columns — int8 caches dequantize just that slice) when the gate
+    allows it, else the reference ``attention``."""
+    s = q.shape[1]
+    if s > 1 and causal and kernel_path_ok(config, q.device):
+        ksl = _map(lambda x: x[:, :, :s], k_all)
+        vsl = _map(lambda x: x[:, :, :s], v_all)
+        return flash_prefill_attention(
+            q.contiguous(),
+            _dequantize_kv(ksl, q.dtype).contiguous(),
+            _dequantize_kv(vsl, q.dtype).contiguous(),
+            config,
+        )
+    return attention(q, k_all, v_all, mask, config)
+
+
+def _activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
+
+
+def dense_ffn(x: torch.Tensor, lp: dict, config: ModelConfig) -> torch.Tensor:
+    gate = _activation(quantized_matmul(x, lp["w_gate"]), config.activation)
+    up = quantized_matmul(x, lp["w_up"])
+    return quantized_matmul(gate * up, lp["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# KV caches and the paged pool
+# ---------------------------------------------------------------------------
+
+
+def make_kv_cache(
+    config: ModelConfig, batch: int, max_len: int, device: DeviceLike = "cuda"
+) -> KVCache:
+    """Head-major cache ``[L, B, Hkv, T, D]``; with ``kv_cache_dtype ==
+    "int8"`` each entry is ``{"q": int8 [L,B,Hkv,T,D], "s": f32 [L,B,Hkv,T]}``
+    with the JAX package's scale init ``1e-8 / 127``."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(config.dtype)
+    shape = (config.n_layers, batch, config.n_kv_heads, max_len, config.resolved_head_dim)
+    if config.kv_cache_dtype == "int8":
+
+        def entry() -> dict:
+            return {
+                "q": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "s": torch.full(shape[:-1], 1e-8 / 127.0, dtype=torch.float32, device=dev),
+            }
+
+        return {"k": entry(), "v": entry()}
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=dev),
+        "v": torch.zeros(shape, dtype=dtype, device=dev),
+    }
+
+
+def make_page_pool(
+    config: ModelConfig, num_pages: int, page_size: int, device: DeviceLike = "cuda"
+) -> KVCache:
+    """Device page pool: leaves ``[L, num_pages + 1, Hkv, ps, D]`` (int8:
+    ``{"q","s"}`` with scales ``[L, num_pages + 1, Hkv, ps]``). Pages
+    ``0 .. num_pages - 1`` are real; page ``num_pages`` is the write sink
+    that takes the out-of-bounds sentinel's writes (see the module note)."""
+    return make_kv_cache(config, num_pages + 1, page_size, device=device)
+
+
+def pool_pages(pool: KVCache) -> int:
+    """Real pages of a pool (its sentinel / sink index)."""
+    leaf = pool["k"]
+    return (leaf["q"] if isinstance(leaf, dict) else leaf).shape[1] - 1
+
+
+def _page_index(
+    table: torch.Tensor, positions: torch.Tensor, page_size: int, num_pages: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Logical position → (physical page, in-page offset). Positions past
+    the table map to the sentinel ``num_pages`` (the sink)."""
+    lidx = positions // page_size  # [B, S]
+    pages = torch.gather(table.long(), 1, lidx.clamp(0, table.shape[1] - 1))
+    pages = torch.where(lidx >= table.shape[1], torch.full_like(pages, num_pages), pages)
+    return pages, positions % page_size
+
+
+def _scatter_index(
+    table: torch.Tensor, positions: torch.Tensor, page_size: int, sink: int, n_kv_heads: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(page [B, 1, S], kv head [1, Hkv, 1], offset [B, 1, S]) indices of
+    every token's pool row; sentinel pages are the sink page."""
+    pages, offs = _page_index(table, positions, page_size, sink)
+    hidx = torch.arange(n_kv_heads, device=positions.device)[None, :, None]
+    return pages.clamp(0, sink)[:, None, :], hidx, offs[:, None, :]
+
+
+def _scatter_at(entry, vals: torch.Tensor, index: tuple) -> None:
+    """Write ``vals`` [B, Hkv, S, D] into ``entry`` at ``index`` in place
+    (int8 entries are quantized per token and head first)."""
+    if isinstance(entry, dict):
+        q, s = _quantize_kv(vals)
+        entry["q"][index] = q
+        entry["s"][index] = s
+    else:
+        entry[index] = vals.to(entry.dtype)
+
+
+def _paged_scatter_entry(entry, vals: torch.Tensor, table: torch.Tensor,
+                         positions: torch.Tensor, page_size: int):
+    """Scatter per-token K/V ``vals`` [B, Hkv, S, D] IN PLACE into a
+    per-layer pool entry [P + 1, Hkv, ps, D] (or its int8 dict) at pages
+    ``table[b, pos // ps]``, offset ``pos % ps``. Unmapped (sentinel) pages
+    write into the sink page — the port's ``mode="drop"``."""
+    leaf = entry["q"] if isinstance(entry, dict) else entry
+    index = _scatter_index(table, positions, page_size, leaf.shape[0] - 1, vals.shape[1])
+    _scatter_at(entry, vals, index)
+    return entry
+
+
+def _paged_gather_entry(entry, table: torch.Tensor, page_size: int):
+    """Dense head-major view of every slot's logical columns: a pool entry
+    [P + 1, Hkv, ps, D] gathered through ``table`` [B, Tp] →
+    [B, Hkv, Tp*ps, D] (physical pages clamped into range; int8 dicts
+    gather q and s alike). The reference read of ``attention_impl="jnp"``."""
+
+    def gather(a: torch.Tensor) -> torch.Tensor:
+        b, tp = table.shape
+        g = a[table.long().clamp(0, a.shape[0] - 1)]  # [B, Tp, Hkv, ps, ...]
+        g = g.movedim(2, 1)  # [B, Hkv, Tp, ps, ...]
+        return g.reshape((b, a.shape[1], tp * page_size) + tuple(a.shape[3:]))
+
+    return _map(gather, entry)
+
+
+def _paged_mask(table: torch.Tensor, page_size: int, positions: torch.Tensor) -> torch.Tensor:
+    """Causal mask over the gathered paged view: logical column t of slot b
+    is visible to query j iff t <= positions[b, j]."""
+    t = table.shape[1] * page_size
+    kv_pos = torch.arange(t, device=positions.device)[None, None, :]
+    return kv_pos <= positions[:, :, None]
+
+
+# ---------------------------------------------------------------------------
+# Layer + model
+# ---------------------------------------------------------------------------
+
+
+def _layer_params(layers: dict, i: int) -> dict:
+    return {k: _map(lambda a: a[i], v) for k, v in layers.items()}
+
+
+def _layer(
+    x: torch.Tensor,
+    lp: dict,
+    sin: torch.Tensor,
+    cos: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    config: ModelConfig,
+    cache_kv: Optional[tuple] = None,
+    cache_positions: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    paged: Optional[tuple] = None,  # (table [B, Tp] i32, page_size, lengths, scatter index)
+) -> torch.Tensor:
+    """One transformer block. With ``cache_kv`` (dense, the admit group's
+    local cache) K/V are written at ``cache_positions`` and attention runs
+    over the cache. With ``paged`` the cache entries are per-layer page-pool
+    entries: K/V scatter into the slot's pages and single-token steps read
+    through the table with the paged decode kernel (else the gathered
+    reference view)."""
+    b, s, _ = x.shape
+    hd = config.resolved_head_dim
+
+    attn_in = rms_norm(x, lp["attn_norm"], config.rms_norm_eps)
+    q = quantized_matmul(attn_in, lp["wq"]).reshape(b, s, config.n_heads, hd)
+    k = quantized_matmul(attn_in, lp["wk"]).reshape(b, s, config.n_kv_heads, hd)
+    v = quantized_matmul(attn_in, lp["wv"]).reshape(b, s, config.n_kv_heads, hd)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # [B, Hkv, S, D]
+
+    if paged is not None:
+        table, page_size, lengths, index = paged
+        ck, cv = cache_kv
+        _scatter_at(ck, kt, index)
+        _scatter_at(cv, vt, index)
+        if s == 1 and kernel_path_ok(config, x.device):
+            kernel = (
+                ragged_paged_decode_attention_int8
+                if isinstance(ck, dict)
+                else ragged_paged_decode_attention
+            )
+            attn = kernel(q[:, 0].contiguous(), ck, cv, lengths, table, config, page_size)
+            attn = attn[:, None, :]
+        else:
+            k_all = _paged_gather_entry(ck, table, page_size)
+            v_all = _paged_gather_entry(cv, table, page_size)
+            attn = attention(q, k_all, v_all, mask, config)
+    else:
+        if cache_kv is not None:
+            ck, cv = cache_kv  # [B, Hkv, T, D] head-major (maybe int8)
+            bidx = torch.arange(b, device=x.device)[:, None, None]
+            hidx = torch.arange(config.n_kv_heads, device=x.device)[None, :, None]
+            pidx = cache_positions[:, None, :]  # [B, 1, S]
+            for c, vals in ((ck, kt), (cv, vt)):
+                if isinstance(c, dict):
+                    vq, vs = _quantize_kv(vals)
+                    c["q"][bidx, hidx, pidx] = vq
+                    c["s"][bidx, hidx, pidx] = vs
+                else:
+                    c[bidx, hidx, pidx] = vals.to(c.dtype)
+            k_all, v_all = ck, cv
+        else:
+            k_all, v_all = kt, vt
+        attn = _dispatch_attention(q, k_all, v_all, mask, config, causal)
+    x = x + quantized_matmul(attn, lp["wo"])
+    ffn_in = rms_norm(x, lp["ffn_norm"], config.rms_norm_eps)
+    return x + dense_ffn(ffn_in, lp, config)
+
+
+def _embed(params: Params, tokens: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+    table = params["embed"]
+    tokens = tokens.long()
+    if is_quantized(table):
+        x = (table["q"][tokens].float() * table["s"][tokens]).to(torch_dtype(config.dtype))
+    else:
+        x = table[tokens]
+    if config.embedding_scale:
+        scale = torch.sqrt(torch.tensor(float(config.d_model), dtype=torch.float32))
+        x = x * scale.to(x.dtype).to(x.device)
+    return x
+
+
+def _unembed(params: Params, x: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    if config.tie_embeddings:
+        table = params["embed"]
+        head = dequantize_weight(table, x.dtype) if is_quantized(table) else table
+        logits = (x @ head.T).float()
+    else:
+        logits = quantized_matmul(x, params["lm_head"]).float()
+    return softcap(logits, config.final_logit_softcap)
+
+
+def _cache_layer(cache: KVCache, i: int) -> tuple:
+    return (_map(lambda a: a[i], cache["k"]), _map(lambda a: a[i], cache["v"]))
+
+
+# ---------------------------------------------------------------------------
+# Public entry points
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def forward(params: Params, tokens: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+    """Full-sequence causal forward → logits [B, S, V] (scoring)."""
+    _check_dense(config)
+    b, s = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(s, device=dev).expand(b, s)
+    sin, cos = _rope_freqs(positions, config)
+    mask = None
+    if not kernel_path_ok(config, dev) or s == 1:
+        mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=dev))[None].expand(b, s, s)
+    x = _embed(params, tokens, config)
+    for i in range(config.n_layers):
+        x = _layer(x, _layer_params(params["layers"], i), sin, cos, mask, config)
+    return _unembed(params, x, config)
+
+
+@torch.no_grad()
+def prefill(
+    params: Params,
+    tokens: torch.Tensor,  # [B, S] padded prompts
+    lengths: torch.Tensor,  # [B] true prompt lengths
+    cache: KVCache,
+    config: ModelConfig,
+) -> tuple[torch.Tensor, KVCache]:
+    """Process prompts, fill cache columns 0..S (in place), return logits at
+    the last real token of each prompt ([B, V])."""
+    _check_dense(config)
+    b, s = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(s, device=dev).expand(b, s)
+    sin, cos = _rope_freqs(positions, config)
+    mask = None
+    if not kernel_path_ok(config, dev) or s == 1:
+        t = cache_width(cache)
+        kv_pos = torch.arange(t, device=dev)[None, None, :]
+        mask = (kv_pos <= positions[:, :, None]) & (kv_pos < s)
+    x = _embed(params, tokens, config)
+    for i in range(config.n_layers):
+        x = _layer(
+            x, _layer_params(params["layers"], i), sin, cos, mask, config,
+            cache_kv=_cache_layer(cache, i), cache_positions=positions,
+        )
+    last = (lengths.long() - 1).clamp(0, s - 1)
+    x_last = x[torch.arange(b, device=dev), last]  # [B, D]
+    logits = _unembed(params, x_last[:, None, :], config)[:, 0]
+    return logits, cache
+
+
+@torch.no_grad()
+def paged_decode_step_inplace(
+    params: Params,
+    tokens: torch.Tensor,  # [B]
+    positions: torch.Tensor,  # [B]
+    pool: KVCache,  # page pool [L, P + 1, Hkv, ps, D]
+    table: torch.Tensor,  # [B, Tp] physical page per logical page
+    config: ModelConfig,
+    page_size: int,
+) -> tuple[torch.Tensor, KVCache]:
+    """One decode step through the page table → logits [B, V]; the pool is
+    updated in place. Each row reads exactly its mapped pages up to its
+    length (position + 1)."""
+    _check_dense(config)
+    positions = positions.long()
+    pos2 = positions[:, None]
+    sin, cos = _rope_freqs(pos2, config)
+    table = table.to(torch.int32).contiguous()
+    mask = None
+    if not kernel_path_ok(config, tokens.device):
+        mask = _paged_mask(table, page_size, pos2)
+    lengths = (positions + 1).to(torch.int32)
+    # one page lookup per step serves every layer's K/V scatter
+    index = _scatter_index(table, pos2, page_size, pool_pages(pool), config.n_kv_heads)
+    x = _embed(params, tokens[:, None], config)
+    for i in range(config.n_layers):
+        x = _layer(
+            x, _layer_params(params["layers"], i), sin, cos, mask, config,
+            cache_kv=_cache_layer(pool, i), cache_positions=pos2,
+            paged=(table, page_size, lengths, index),
+        )
+    return _unembed(params, x, config)[:, 0], pool
+
+
+@torch.no_grad()
+def paged_insert_cache(
+    pool: KVCache, local_cache: KVCache, tables: torch.Tensor, page_size: int
+) -> KVCache:
+    """Scatter a batched prefill's local cache ([L, n, Hkv, W, D], the admit
+    group's temporary) into each row's pages, in place. Positions are
+    [0, W) per row; sentinel table entries (padding rows, logical pages the
+    row does not own) write into the sink page."""
+    n = tables.shape[0]
+
+    def put(pl_entry: torch.Tensor, loc: torch.Tensor) -> None:
+        w = loc.shape[3]
+        sink = pl_entry.shape[1] - 1
+        positions = torch.arange(w, device=loc.device)[None, :].expand(n, w)
+        pages, offs = _page_index(tables, positions, page_size, sink)
+        pidx = pages.clamp(0, sink)[:, None, :]  # [n, 1, W]
+        oidx = offs[:, None, :]
+        hidx = torch.arange(loc.shape[2], device=loc.device)[None, :, None]
+        pl_entry[:, pidx, hidx, oidx] = loc.to(pl_entry.dtype)
+
+    for name in ("k", "v"):
+        if isinstance(pool[name], dict):
+            for leaf in ("q", "s"):
+                put(pool[name][leaf], local_cache[name][leaf])
+        else:
+            put(pool[name], local_cache[name])
+    return pool

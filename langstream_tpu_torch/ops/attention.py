@@ -1,0 +1,361 @@
+"""Attention kernels of the port (answers to ``langstream_tpu/ops/attention.py``).
+
+Three kernels carry the serving main path, each a hand-written CUDA C++
+kernel for Hopper (``csrc/*.cu``, built by ``_build``) with a plain PyTorch
+version beside it:
+
+- ``flash_prefill_attention``: causal GQA prefill attention
+  (``csrc/flash_prefill.cu``; replaces the Pallas ``_prefill_kernel``);
+- ``ragged_paged_decode_attention``: one query per row against the page
+  pool through a page table (``csrc/paged_decode.cu``; replaces
+  ``_paged_decode_kernel``);
+- ``ragged_paged_decode_attention_int8``: the same over int8 pages with
+  per-token scales (``csrc/paged_decode.cu``; replaces
+  ``_paged_decode_int8_kernel``).
+
+A wrapper takes its plain version only because the tensor it was given lies
+on the CPU; on a CUDA tensor it launches the kernel or raises — there is no
+fallback. Each wrapper counts its kernel launches in a plain int attribute
+(``wrapper.launches``, bumped only where the kernel is launched) and its
+plain-version calls on the CPU (``wrapper.cpu_calls``).
+
+Layouts are the JAX package's: queries ``[B, S, H, D]``, head-major K/V
+``[B, Hkv, S, D]``, page-pool entries ``[P, Hkv, page_size, D]`` (int8:
+``{"q": i8 [P, Hkv, ps, D], "s": f32 [P, Hkv, ps]}``).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Callable, Optional, Union
+
+import torch
+
+from langstream_tpu_torch.models.configs import ModelConfig
+from langstream_tpu_torch.ops import _build
+
+_NEG = -1e30
+# head dims and query heads per kv head the CUDA kernels are built for
+KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_GROUPS = (1, 2, 4, 8)
+# tokens of one row that one CTA of the paged decode kernel covers
+SPLIT_TOKENS = 256
+PagedEntry = Union[torch.Tensor, dict]
+
+
+def kernel_path_ok(config: ModelConfig, device: torch.device) -> bool:
+    """The dispatch gate that replaces ``pallas_ok`` / ``paged_pallas_ok``
+    for prompt attention and single-token paged decode alike.
+    ``"jnp"`` takes the gathered reference ``attention``. ``"auto"`` and
+    ``"pallas"`` take the kernel path: the kernel's plain version on the
+    CPU, and on the card the CUDA kernel at ANY prompt length (the TPU's
+    128-multiple tiling rule does not apply) — which needs compute
+    capability >= 9.0 and a head dim the kernels are built for. A card
+    that cannot take the kernel raises instead of quietly running the
+    reference path; ask for ``attention_impl="jnp"`` to run it there.
+    Every layer of every step asks, so the answer is decided once per
+    (config fields, device) and cached."""
+    return _kernel_gate(
+        config.attention_impl, config.resolved_head_dim, config.n_heads,
+        config.n_kv_heads, torch.device(device),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_gate(impl: str, head_dim: int, h: int, hkv: int, device: torch.device) -> bool:
+    if impl not in ("auto", "pallas", "jnp"):
+        raise ValueError(f"unknown attention_impl {impl!r}; supported: auto, pallas, jnp")
+    if impl == "jnp":
+        return False
+    if device.type == "cpu":
+        return True
+    what = f"attention_impl={impl!r}"
+    _require_cuda_kernel(device, head_dim, what)
+    _require_group(h, hkv, what)
+    return True
+
+
+# The two requirements below are checked on every launch; they are cached
+# (a raise is not) so the capability query runs once per device.
+@functools.lru_cache(maxsize=None)
+def _require_cuda_kernel(device: torch.device, head_dim: int, what: str) -> None:
+    """A CUDA tensor goes to the kernel or raises: sm_90+ and a head dim the
+    kernels are instantiated for."""
+    if device.type != "cuda":
+        raise ValueError(f"{what}: tensors on {device} are not supported")
+    cap = torch.cuda.get_device_capability(device)
+    if cap < (9, 0):
+        raise RuntimeError(f"{what}: the CUDA kernels need compute capability >= 9.0, got {cap}")
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {head_dim} not in {KERNEL_HEAD_DIMS}")
+
+
+@functools.lru_cache(maxsize=None)
+def _require_group(h: int, hkv: int, what: str) -> None:
+    if h % hkv or h // hkv not in KERNEL_GROUPS:
+        raise ValueError(f"{what}: {h} query heads over {hkv} kv heads; groups {KERNEL_GROUPS}")
+
+
+def _check(t: torch.Tensor, name: str, dtypes: tuple, device: torch.device) -> None:
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# Prefill: causal flash attention
+# ---------------------------------------------------------------------------
+
+
+def flash_prefill_reference(
+    q: torch.Tensor,  # [B, S, H, D]
+    k: torch.Tensor,  # [B, Hkv, S, D] head-major
+    v: torch.Tensor,
+    config: ModelConfig,
+) -> torch.Tensor:
+    """Plain version of the prefill kernel → [B, S, H*D]: f32 scores of the
+    model-dtype operands, the -1e30 causal mask, f32 softmax statistics, p
+    rounded to v's dtype before PV, l clamped to 1e-30."""
+    b, s, h, d = q.shape
+    hkv = k.shape[1]
+    group = h // hkv
+    qg = q.reshape(b, s, hkv, group, d).permute(0, 2, 3, 1, 4).float()  # [B,Hkv,G,S,D]
+    scores = torch.matmul(qg, k.float().transpose(-1, -2)[:, :, None]) * (1.0 / math.sqrt(d))
+    scores = softcap(scores, config.attn_logit_softcap)
+    pos = torch.arange(s, device=q.device)
+    causal = pos[None, :] <= pos[:, None]  # [S(q), S(k)]
+    scores = torch.where(causal, scores, torch.full_like(scores, _NEG))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    p = torch.where(scores <= _NEG, torch.zeros_like(p), p)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    pv = torch.matmul(p.to(v.dtype).float(), v.float()[:, :, None])  # [B,Hkv,G,S,D]
+    out = (pv / l).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h * d)
+
+
+def flash_prefill_attention(
+    q: torch.Tensor,  # [B, S, H, D]
+    k: torch.Tensor,  # [B, Hkv, S, D] head-major
+    v: torch.Tensor,
+    config: ModelConfig,
+) -> torch.Tensor:
+    """Causal GQA attention → [B, S, H*D]; the CUDA kernel on a CUDA
+    tensor (bf16, contiguous), the plain version on a CPU tensor."""
+    b, s, h, d = q.shape
+    hkv = k.shape[1]
+    if k.shape != (b, hkv, s, d) or v.shape != k.shape or h % hkv:
+        raise ValueError(f"flash_prefill: q {tuple(q.shape)} vs k/v {tuple(k.shape)}")
+    if q.device.type == "cpu":
+        flash_prefill_attention.cpu_calls += 1
+        return flash_prefill_reference(q, k, v, config)
+    _require_cuda_kernel(q.device, d, "flash_prefill")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _check(t, name, (torch.bfloat16,), q.device)
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    if s == 0:
+        return out.reshape(b, s, h * d)
+    lib = _build.library("flash_prefill")
+    cap = config.attn_logit_softcap
+    err = lib.lstpu_flash_prefill_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, s, h, hkv, d, 1.0 / math.sqrt(d), float(cap) if cap else 0.0,
+        _stream(q.device),
+    )
+    _build.check(err, "flash_prefill")
+    flash_prefill_attention.launches += 1
+    return out.reshape(b, s, h * d)
+
+
+flash_prefill_attention.launches = 0
+flash_prefill_attention.cpu_calls = 0
+
+
+# ---------------------------------------------------------------------------
+# Ragged PAGED decode: one query per row through the page table
+# ---------------------------------------------------------------------------
+
+
+def _gather_pages_f32(entry: PagedEntry, pages: torch.Tensor) -> torch.Tensor:
+    """Pool entry [P, Hkv, ps, D] (int8 dicts dequantized q*s in f32)
+    gathered through ``pages`` [B, Tp] → [B, Hkv, Tp*ps, D] f32."""
+    if isinstance(entry, dict):
+        g = entry["q"][pages].float() * entry["s"][pages][..., None]
+    else:
+        g = entry[pages].float()
+    b, tp, hkv, ps, d = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(b, hkv, tp * ps, d)
+
+
+def paged_decode_reference(
+    q: torch.Tensor,  # [B, H, D]
+    k: PagedEntry,  # [P, Hkv, ps, D] (or int8 dict)
+    v: PagedEntry,
+    lengths: torch.Tensor,  # [B]
+    table: torch.Tensor,  # [B, Tp]
+    config: ModelConfig,
+    page_size: int,
+) -> torch.Tensor:
+    """Plain version of both paged decode kernels → [B, H*D]: pages gathered
+    through the table with the physical index clamped into [0, P-1], K/V in
+    f32 (int8 dequantized), keys past each row's length masked to -1e30 and
+    never accumulated, f32 softmax, l clamped to 1e-30."""
+    b, h, d = q.shape
+    leaf = k["q"] if isinstance(k, dict) else k
+    num_pages, hkv = leaf.shape[0], leaf.shape[1]
+    group = h // hkv
+    pages = table.long().clamp(0, num_pages - 1)
+    kk = _gather_pages_f32(k, pages)
+    vv = _gather_pages_f32(v, pages)
+    t = kk.shape[2]
+    valid = torch.arange(t, device=q.device)[None, :] < lengths.long()[:, None]  # [B, T]
+    vv = vv.masked_fill(~valid[:, None, :, None], 0.0)
+    qf = q.float().reshape(b, hkv, group, d)
+    scores = torch.matmul(qf, kk.transpose(-1, -2)) * (1.0 / math.sqrt(d))  # [B,Hkv,G,T]
+    scores = softcap(scores, config.attn_logit_softcap)
+    scores = torch.where(valid[:, None, None, :], scores, torch.full_like(scores, _NEG))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    p = torch.where(scores <= _NEG, torch.zeros_like(p), p)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.matmul(p, vv) / l
+    return out.to(q.dtype).reshape(b, h * d)
+
+
+def _paged_decode_launch(
+    q: torch.Tensor, k: PagedEntry, v: PagedEntry, lengths: torch.Tensor,
+    table: torch.Tensor, page_size: int, config: ModelConfig, what: str,
+) -> torch.Tensor:
+    b, h, d = q.shape
+    quant = isinstance(k, dict)
+    kq, vq = (k["q"], v["q"]) if quant else (k, v)
+    num_pages, hkv = kq.shape[0], kq.shape[1]
+    tp = table.shape[1]
+    if kq.shape != (num_pages, hkv, page_size, d) or vq.shape != kq.shape or h % hkv:
+        raise ValueError(f"{what}: q {tuple(q.shape)} vs pool {tuple(kq.shape)}")
+    if lengths.shape != (b,) or table.shape != (b, tp):
+        raise ValueError(f"{what}: lengths {tuple(lengths.shape)} / table {tuple(table.shape)}")
+    _require_cuda_kernel(q.device, d, what)
+    _require_group(h, hkv, what)
+    dev = q.device
+    _check(q, "q", (torch.bfloat16,), dev)
+    _check(lengths, "lengths", (torch.int32,), dev)
+    _check(table, "table", (torch.int32,), dev)
+    kv_types = (torch.int8,) if quant else (torch.bfloat16,)
+    _check(kq, "k", kv_types, dev)
+    _check(vq, "v", kv_types, dev)
+    ks = vs = None
+    if quant:
+        ks, vs = k["s"], v["s"]
+        _check(ks, "k scales", (torch.float32,), dev)
+        _check(vs, "v scales", (torch.float32,), dev)
+        if ks.shape != kq.shape[:-1] or vs.shape != ks.shape:
+            raise ValueError(f"{what}: scales {tuple(ks.shape)} vs pool {tuple(kq.shape)}")
+    out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
+    # split-K scratch: each CTA covers pps pages of one row; the partial
+    # softmax statistics and accumulators of every split meet in a merge
+    pps = max(1, SPLIT_TOKENS // page_size)
+    splits = -(-tp // pps)
+    group = h // hkv
+    m_part = torch.empty((b, hkv, splits, group), dtype=torch.float32, device=dev)
+    l_part = torch.empty_like(m_part)
+    acc_part = torch.empty((b, hkv, splits, group, d), dtype=torch.float32, device=dev)
+    lib = _build.library("paged_decode")
+    cap = config.attn_logit_softcap
+    err = lib.lstpu_paged_decode(
+        q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
+        ks.data_ptr() if quant else None, vs.data_ptr() if quant else None,
+        lengths.data_ptr(), table.data_ptr(), out.data_ptr(),
+        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+        b, h, hkv, d, num_pages, page_size, tp, pps,
+        1.0 / math.sqrt(d), float(cap) if cap else 0.0,
+        int(quant), _stream(dev),
+    )
+    _build.check(err, what)
+    return out.reshape(b, h * d)
+
+
+def ragged_paged_decode_attention(
+    q: torch.Tensor,  # [B, H, D] single query per row
+    k: torch.Tensor,  # page pool entry [P, Hkv, ps, D]
+    v: torch.Tensor,
+    lengths: torch.Tensor,  # [B] int32 valid logical columns per row
+    table: torch.Tensor,  # [B, Tp] int32 physical page per logical page
+    config: ModelConfig,
+    page_size: int,
+) -> torch.Tensor:
+    """GQA paged decode attention → [B, H*D]; the CUDA kernel on CUDA
+    tensors (bf16 q and pool), the plain version on CPU."""
+    if q.device.type == "cpu":
+        ragged_paged_decode_attention.cpu_calls += 1
+        return paged_decode_reference(q, k, v, lengths, table, config, page_size)
+    out = _paged_decode_launch(
+        q, k, v, lengths, table, page_size, config, "paged_decode"
+    )
+    ragged_paged_decode_attention.launches += 1
+    return out
+
+
+ragged_paged_decode_attention.launches = 0
+ragged_paged_decode_attention.cpu_calls = 0
+
+
+def ragged_paged_decode_attention_int8(
+    q: torch.Tensor,  # [B, H, D]
+    k: dict,  # int8 pool entry {"q": [P,Hkv,ps,D] i8, "s": [P,Hkv,ps] f32}
+    v: dict,
+    lengths: torch.Tensor,  # [B] int32
+    table: torch.Tensor,  # [B, Tp] int32
+    config: ModelConfig,
+    page_size: int,
+) -> torch.Tensor:
+    """GQA paged decode attention over the int8 page pool → [B, H*D]; pages
+    are dequantized to f32 in registers, as the TPU kernel does in VMEM."""
+    if q.device.type == "cpu":
+        ragged_paged_decode_attention_int8.cpu_calls += 1
+        return paged_decode_reference(q, k, v, lengths, table, config, page_size)
+    out = _paged_decode_launch(
+        q, k, v, lengths, table, page_size, config, "paged_decode_int8"
+    )
+    ragged_paged_decode_attention_int8.launches += 1
+    return out
+
+
+ragged_paged_decode_attention_int8.launches = 0
+ragged_paged_decode_attention_int8.cpu_calls = 0
+
+
+# name → wrapper, the set chip_smoke.py and stats() report
+KERNELS: dict[str, Callable] = {
+    "flash_prefill": flash_prefill_attention,
+    "paged_decode": ragged_paged_decode_attention,
+    "paged_decode_int8": ragged_paged_decode_attention_int8,
+}
+
+
+def kernel_counts() -> dict[str, dict[str, int]]:
+    """Per kernel: CUDA launches and CPU plain-version calls so far."""
+    return {
+        name: {"launches": fn.launches, "cpu_calls": fn.cpu_calls}
+        for name, fn in KERNELS.items()
+    }
+
+
+def reset_kernel_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+        fn.cpu_calls = 0

@@ -1,0 +1,620 @@
+"""Continuous-batching serving engine on the paged KV pool — the main-path
+slice of ``langstream_tpu/serving/engine.py``'s ``ServingEngine``.
+
+One engine thread owns the device. Each iteration (``_iterate``) admits a
+token-budgeted slice of queued requests — batched per prompt bucket into
+admit groups: a dense prefill into a local cache, the first sample, and the
+insert of that cache into each row's reserved pages — then dispatches one
+decode chunk of ``decode_chunk`` fused decode+sample steps over the page
+pool. Sampled tokens stay on the device and feed the next step; the host
+receives them through a pinned-memory copy fenced by a CUDA event, so chunk
+k+1 is queued on the stream while chunk k's tokens are still on their way
+(the JAX engine's depth-1 pipeline). Pages are reserved in full at
+admission and released when a request finishes.
+
+Not ported yet (later slices): chunked prefill of prompts wider than the
+largest bucket (such prompts raise at ``submit``), the dense KV layout,
+request lifecycle (deadlines, drain, crash recovery), prefix reuse,
+speculation, tenancy, adapters, grammars, SPMD and the fetch thread.
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from langstream_tpu_torch.device import DeviceLike, resolve_device
+from langstream_tpu_torch.models.configs import GenerationOptions, ModelConfig
+from langstream_tpu_torch.models.transformer import (
+    make_kv_cache,
+    paged_decode_step_inplace,
+    paged_insert_cache,
+    prefill,
+)
+from langstream_tpu_torch.ops.attention import kernel_counts
+from langstream_tpu_torch.serving.pagepool import PagePool, default_num_pages
+from langstream_tpu_torch.serving.sampling import sample
+
+log = logging.getLogger(__name__)
+
+
+class ShedError(RuntimeError):
+    """A request the engine can never serve (it needs more KV pages than
+    the whole pool holds)."""
+
+
+class LogitsNaNError(RuntimeError):
+    """A slot's logits went non-finite; its request fails."""
+
+
+@dataclass
+class GenerationRequest:
+    prompt_tokens: list[int]
+    options: GenerationOptions
+    # called from the engine thread with each new token id (stream path)
+    on_token: Optional[Callable[[int], None]] = None
+    # called from the engine thread once, with the final GenerationResult
+    on_done: Optional[Callable[["GenerationResult"], None]] = None
+    submitted_at: float = field(default_factory=time.monotonic)
+    _done: threading.Event = field(default_factory=threading.Event)
+    _result: Optional["GenerationResult"] = None
+    _cancelled: threading.Event = field(default_factory=threading.Event)
+
+    def cancel(self) -> None:
+        """Cancel from any thread; honoured at the next chunk boundary."""
+        self._cancelled.set()
+
+    @property
+    def cancelled(self) -> bool:
+        return self._cancelled.is_set()
+
+    def result(self, timeout: Optional[float] = None) -> "GenerationResult":
+        if not self._done.wait(timeout):
+            raise TimeoutError("generation did not complete in time")
+        assert self._result is not None
+        if self._result.error is not None:
+            raise self._result.error
+        return self._result
+
+    def _finish(self, result: "GenerationResult") -> None:
+        if self._done.is_set():
+            return
+        self._result = result
+        self._done.set()
+        if self.on_done is not None:
+            try:
+                self.on_done(result)
+            except Exception:  # noqa: BLE001 — a callback must not kill the loop
+                log.exception("on_done callback failed")
+
+
+@dataclass
+class GenerationResult:
+    tokens: list[int]
+    finish_reason: str  # stop | length | cancelled | error
+    prompt_tokens: int
+    ttft_s: float
+    total_s: float
+    error: Optional[BaseException] = None
+
+
+@dataclass
+class _Slot:
+    request: Optional[GenerationRequest] = None
+    position: int = 0  # next write position (= prompt len + generated so far)
+    generated: list[int] = field(default_factory=list)
+    started_at: float = 0.0
+    first_token_at: float = 0.0
+
+    @property
+    def active(self) -> bool:
+        return self.request is not None
+
+
+class _Fetch:
+    """A device tensor on its way to the host: a pinned copy queued on the
+    current stream and fenced by an event, so waiting for it never waits
+    for work queued after it."""
+
+    def __init__(self, tensor: torch.Tensor) -> None:
+        if tensor.device.type == "cuda":
+            self._host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+            self._host.copy_(tensor, non_blocking=True)
+            self._event: Optional[torch.cuda.Event] = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = tensor.clone()
+            self._event = None
+
+    def ready(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def result(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+class ServingEngine:
+    """One engine per model; owns the device loop (paged KV layout)."""
+
+    # rows per admit group (one prefill call)
+    PREFILL_BATCH = 8
+
+    def __init__(
+        self,
+        config: ModelConfig,
+        params: Any,
+        max_batch: int = 8,
+        max_seq_len: Optional[int] = None,
+        eos_token_id: Optional[int] = None,
+        prefill_buckets: tuple[int, ...] = (32, 64, 128, 256, 512, 1024, 2048),
+        rng_seed: int = 0,
+        decode_chunk: int = 16,
+        page_size: int = 64,
+        kv_pages: Optional[int] = None,
+        device: DeviceLike = "cuda",
+    ) -> None:
+        if config.is_moe:
+            raise NotImplementedError("MoE configs are not ported to PyTorch yet")
+        self.device = resolve_device(device)
+        self.config = config
+        self.params = params
+        self.max_batch = int(max_batch)
+        self.max_seq_len = int(max_seq_len or config.max_seq_len)
+        self.eos_token_id = eos_token_id
+        self.prefill_buckets = tuple(
+            b for b in prefill_buckets if b <= self.max_seq_len
+        ) or (self.max_seq_len,)
+        self.decode_chunk = max(1, int(decode_chunk))
+        # each iteration admits at most one widest bucket of prompt tokens
+        # (floored at one full admit group) before its decode chunk, so a
+        # burst of admissions overlaps the running batch's decode
+        self.prefill_token_budget = self.prefill_buckets[-1]
+        self.page_size = max(1, int(page_size))
+        num_pages = (
+            int(kv_pages)
+            if kv_pages is not None
+            else default_num_pages(self.max_batch, self.max_seq_len, self.page_size)
+        )
+        self._pagepool = PagePool(
+            config, num_pages, self.page_size, self.max_batch, self.max_seq_len,
+            device=self.device,
+        )
+        self._slots = [_Slot() for _ in range(self.max_batch)]
+        # bounded as in the JAX engine: a full queue blocks ``submit``
+        self._queue: queue.Queue = queue.Queue(maxsize=self.max_batch * 4)
+        # admissions popped from the queue but waiting for pool pages;
+        # retried ahead of the queue every iteration
+        self._page_deferred: deque[GenerationRequest] = deque()
+        # device-resident decode chain: last sampled token and next write
+        # position per slot, plus the per-slot sampling params (they only
+        # change on admit)
+        dev = self.device
+        self._tokens_dev = torch.zeros(self.max_batch, dtype=torch.long, device=dev)
+        self._positions_dev = torch.zeros(self.max_batch, dtype=torch.long, device=dev)
+        self._temp_dev = torch.zeros(self.max_batch, dtype=torch.float32, device=dev)
+        self._top_k_dev = torch.zeros(self.max_batch, dtype=torch.long, device=dev)
+        self._top_p_dev = torch.ones(self.max_batch, dtype=torch.float32, device=dev)
+        self._generator = torch.Generator(device=dev)
+        self._generator.manual_seed(int(rng_seed))
+        # slots freed since the last dispatch: their device temperature is
+        # zeroed so a dead slot never keeps the sampling path on
+        self._freed_slots: list[int] = []
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._dead: Optional[BaseException] = None
+        self._stats_lock = threading.Lock()
+        self.total_requests = 0
+        self.total_generated = 0
+        self.admit_groups_total = 0
+        self.prefill_tokens_total = 0
+        self.decode_chunks_total = 0
+        self.decode_steps_total = 0
+        self.nan_guard_total = 0
+        self.cancelled_total = 0
+
+    # -- lifecycle -------------------------------------------------------------
+
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._thread = threading.Thread(target=self._run, name="serving-engine", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        self._fail_all(RuntimeError("serving engine stopped"))
+
+    # -- public API ------------------------------------------------------------
+
+    def submit(self, request: GenerationRequest) -> GenerationRequest:
+        """Thread-safe enqueue; a full queue blocks."""
+        if self._dead is not None:
+            raise RuntimeError("serving engine is stopped") from self._dead
+        request.submitted_at = time.monotonic()
+        n = len(request.prompt_tokens)
+        limit = self.max_seq_len - 1
+        if n > limit:
+            raise ValueError(
+                f"prompt of {n} tokens exceeds the engine limit of {limit} (max_seq_len - 1)"
+            )
+        widest = self.prefill_buckets[-1]
+        if n > widest:
+            raise ValueError(
+                f"prompt of {n} tokens is wider than the largest prefill bucket "
+                f"({widest}); chunked prefill is not ported to PyTorch yet"
+            )
+        self._queue.put(request)
+        return request
+
+    def generate(
+        self,
+        prompt_tokens: list[int],
+        options: Optional[GenerationOptions] = None,
+        on_token: Optional[Callable[[int], None]] = None,
+        timeout: float = 300.0,
+    ) -> GenerationResult:
+        """Blocking submit + wait; a wait timeout cancels the request."""
+        req = GenerationRequest(
+            prompt_tokens=list(prompt_tokens),
+            options=options or GenerationOptions(),
+            on_token=on_token,
+        )
+        self.submit(req)
+        try:
+            return req.result(timeout)
+        except TimeoutError:
+            req.cancel()
+            raise
+
+    def stats(self) -> dict[str, Any]:
+        pool = self._pagepool
+        with self._stats_lock:
+            return {
+                "device": str(self.device),
+                "max-batch": self.max_batch,
+                "active-slots": sum(1 for s in self._slots if s.active),
+                "queued": self._queue.qsize() + len(self._page_deferred),
+                "total-requests": self.total_requests,
+                "total-generated-tokens": self.total_generated,
+                "admit-groups-total": self.admit_groups_total,
+                "prefill-tokens-total": self.prefill_tokens_total,
+                "decode-chunks-total": self.decode_chunks_total,
+                "decode-steps-total": self.decode_steps_total,
+                "nan-guard-total": self.nan_guard_total,
+                "cancelled-total": self.cancelled_total,
+                "kv-layout": "paged",
+                "kv-page-size": self.page_size,
+                "kv-pages-total": pool.num_pages,
+                "kv-pages-in-use": pool.pages_in_use,
+                "kv-pages-free": pool.free_pages,
+                "kv-pool-bytes": pool.bytes_total,
+                # launches of each attention kernel in this process (CUDA)
+                # and calls of its plain version (CPU)
+                "kernels": kernel_counts(),
+            }
+
+    # -- the loop --------------------------------------------------------------
+
+    def _run(self) -> None:
+        pending: deque[list[tuple]] = deque()
+        try:
+            with torch.no_grad():
+                while not self._stop.is_set():
+                    self._iterate(pending)
+                while pending:
+                    for entry in pending.popleft():
+                        self._process_entry(entry)
+        except BaseException as e:  # noqa: BLE001 — crash-only: fail everything
+            log.exception("serving engine loop crashed")
+            self._fail_all(e)
+
+    def _iterate(self, pending: deque) -> None:
+        """One fused iteration: a token-budgeted slice of admissions, then
+        the decode chunk — back-to-back on the in-order stream — then host
+        processing of whatever batch of earlier dispatches has landed."""
+        had_active = any(s.active for s in self._slots)
+        new_pending = self._admit(self.prefill_token_budget)
+        if new_pending and not had_active:
+            # cold start: nothing to overlap the first-token fetch with
+            for entry in new_pending:
+                self._process_entry(entry)
+            new_pending = []
+        if any(s.active for s in self._slots):
+            new_pending.append(self._dispatch_chunk())
+        elif not new_pending and not pending:
+            time.sleep(0.001)
+        pending.append(new_pending)
+        # depth-1 pipeline: at most one dispatched batch waits unprocessed
+        while pending and (
+            len(pending) > 1
+            or not new_pending
+            or all(e[1].ready() for e in pending[0])
+        ):
+            for entry in pending.popleft():
+                self._process_entry(entry)
+
+    def _bucket(self, n: int) -> int:
+        for b in self.prefill_buckets:
+            if n <= b:
+                return b
+        return self.prefill_buckets[-1]
+
+    def _pop_admission(self, allow_new: bool) -> GenerationRequest:
+        if self._page_deferred:
+            return self._page_deferred.popleft()
+        if not allow_new:
+            raise queue.Empty
+        return self._queue.get_nowait()
+
+    def _admit(self, budget: int) -> list[tuple]:
+        """Move queued requests into free slots, batched per prompt bucket
+        into admit groups; returns the deferred first-token fetch entries.
+        ``budget`` caps this iteration's prefill tokens, floored at one
+        full admission group."""
+        free = [i for i, slot in enumerate(self._slots) if not slot.active]
+        pairs: list[tuple[int, GenerationRequest]] = []
+        admitted_tokens = 0
+        # while deferred admissions wait for pages, only they retry
+        allow_new = not self._page_deferred
+        pool = self._pagepool
+        for idx in free:
+            got = False
+            while not got:
+                if admitted_tokens >= budget and len(pairs) >= self.PREFILL_BATCH:
+                    break
+                try:
+                    request = self._pop_admission(allow_new)
+                except queue.Empty:
+                    break
+                if request._done.is_set():
+                    continue
+                if request.cancelled:
+                    with self._stats_lock:
+                        self.cancelled_total += 1
+                    request._finish(self._result(request, [], "cancelled"))
+                    continue
+                n = len(request.prompt_tokens)
+                need = pool.pages_needed(n, max(1, request.options.max_new_tokens))
+                if need > pool.num_pages:
+                    request._finish(self._result(
+                        request, [], "error",
+                        error=ShedError(
+                            f"request needs {need} KV pages but the pool has only "
+                            f"{pool.num_pages}; raise kv-pages (or lower max-new-tokens)"
+                        ),
+                    ))
+                    continue
+                if not pool.reserve(idx, need):
+                    # pool exhausted: defer (retried first next iteration)
+                    self._page_deferred.appendleft(request)
+                    allow_new = False
+                    break
+                pairs.append((idx, request))
+                admitted_tokens += self._bucket(n)
+                got = True
+            if not got:
+                break
+        groups: dict[int, list[tuple[int, GenerationRequest]]] = {}
+        for idx, request in pairs:
+            groups.setdefault(self._bucket(len(request.prompt_tokens)), []).append(
+                (idx, request)
+            )
+        entries: list[tuple] = []
+        for width, group in sorted(groups.items()):
+            for start in range(0, len(group), self.PREFILL_BATCH):
+                entries.extend(self._prefill_group(width, group[start:start + self.PREFILL_BATCH]))
+        return entries
+
+    def _prefill_group(self, width: int, group: list[tuple[int, GenerationRequest]]) -> list[tuple]:
+        """One admit group: every (slot, request) pair of one prompt bucket,
+        prompts right-padded with zeros to the bucket width."""
+        n = len(group)
+        tokens = np.zeros((n, width), np.int64)
+        lengths = np.ones(n, np.int64)
+        temps = np.zeros(n, np.float32)
+        top_ks = np.zeros(n, np.int64)
+        top_ps = np.ones(n, np.float32)
+        slots = np.zeros(n, np.int64)
+        started = time.monotonic()
+        for j, (idx, request) in enumerate(group):
+            prompt = request.prompt_tokens
+            tokens[j, : len(prompt)] = prompt
+            lengths[j] = len(prompt)
+            temps[j] = request.options.temperature
+            top_ks[j] = request.options.top_k
+            top_ps[j] = request.options.top_p
+            slots[j] = idx
+        tables = self._pagepool.tables[slots]
+        first = self._dev_paged_prefill(tokens, lengths, temps, top_ks, top_ps, slots, tables)
+        for idx, request in group:
+            slot = self._slots[idx]
+            slot.request = request
+            slot.position = len(request.prompt_tokens)
+            slot.generated = []
+            slot.started_at = started
+            slot.first_token_at = 0.0
+        with self._stats_lock:
+            self.total_requests += n
+            self.admit_groups_total += 1
+            self.prefill_tokens_total += int(lengths.sum())
+        return [("prefill", _Fetch(first), list(group), 0)]
+
+    def _dev_paged_prefill(self, tokens, lengths, temps, top_ks, top_ps, slots, tables):
+        """Device layer of an admit group: local-cache prefill, first
+        sample, page insert, and the decode-chain seeding of each slot."""
+        dev = self.device
+        n, width = tokens.shape
+
+        def up(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(a).to(dev)
+
+        tok_t, len_t, slots_t = up(tokens), up(lengths), up(slots)
+        temp_t, topk_t, topp_t = up(temps), up(top_ks), up(top_ps)
+        local = make_kv_cache(self.config, n, width, device=dev)
+        logits, local = prefill(self.params, tok_t, len_t, local, self.config)
+        samples = bool((temps > 0).any())
+        filters = bool(((temps > 0) & ((top_ks > 0) | (top_ps < 1.0))).any())
+        first = sample(logits, self._generator, temp_t, topk_t, topp_t, samples, filters)
+        paged_insert_cache(self._pagepool.dev, local, up(tables), self.page_size)
+        self._tokens_dev[slots_t] = first
+        self._positions_dev[slots_t] = len_t
+        self._temp_dev[slots_t] = temp_t
+        self._top_k_dev[slots_t] = topk_t
+        self._top_p_dev[slots_t] = topp_t
+        return first
+
+    def _dispatch_chunk(self) -> tuple:
+        """Queue one decode chunk: ``steps`` x (paged decode step + sample)
+        from the device-resident chain. Inactive slots' table rows are the
+        sentinel, so their (discarded) steps write only into the sink."""
+        steps = self.decode_chunk
+        dev = self.device
+        stale = [i for i in set(self._freed_slots) if not self._slots[i].active]
+        self._freed_slots.clear()
+        if stale:
+            self._temp_dev[torch.as_tensor(stale, device=dev)] = 0.0
+        pool = self._pagepool
+        tables = pool.tables.copy()
+        active = [s.active for s in self._slots]
+        tables[[i for i, a in enumerate(active) if not a]] = pool.oob
+        table_t = torch.from_numpy(tables).to(dev)
+        opts = [s.request.options for s in self._slots if s.active]
+        samples = any(o.temperature > 0 for o in opts)
+        filters = any(o.temperature > 0 and (o.top_k > 0 or o.top_p < 1.0) for o in opts)
+        chunk = torch.empty((steps, self.max_batch), dtype=torch.long, device=dev)
+        tokens, positions = self._tokens_dev, self._positions_dev
+        for step in range(steps):
+            logits, _ = paged_decode_step_inplace(
+                self.params, tokens, positions, pool.dev, table_t, self.config, self.page_size
+            )
+            tokens = sample(
+                logits, self._generator, self._temp_dev, self._top_k_dev, self._top_p_dev,
+                samples, filters,
+            )
+            positions = positions + 1
+            chunk[step] = tokens
+        self._tokens_dev, self._positions_dev = tokens, positions
+        snapshot = [(i, s.request) for i, s in enumerate(self._slots) if s.active]
+        with self._stats_lock:
+            self.decode_chunks_total += 1
+            self.decode_steps_total += steps
+        return ("chunk", _Fetch(chunk), snapshot, steps)
+
+    # -- host processing -------------------------------------------------------
+
+    def _process_entry(self, entry: tuple) -> None:
+        if entry[0] == "prefill":
+            _, fetch, group, _ = entry
+            first = fetch.result()
+            now = time.monotonic()
+            for j, (idx, request) in enumerate(group):
+                slot = self._slots[idx]
+                if slot.request is not request:
+                    continue
+                slot.first_token_at = now
+                self._deliver_token(idx, int(first[j]))
+            return
+        _, fetch, snapshot, steps = entry
+        host = fetch.result()  # [steps, B]
+        for idx, request in snapshot:
+            slot = self._slots[idx]
+            if slot.request is not request:  # freed / reassigned meanwhile
+                continue
+            for s in range(steps):
+                slot.position += 1
+                self._deliver_token(idx, int(host[s, idx]))
+                if slot.request is not request:  # finished mid-chunk
+                    break
+
+    def _deliver_token(self, idx: int, token: int) -> None:
+        slot = self._slots[idx]
+        request = slot.request
+        assert request is not None
+        opts = request.options
+        if token < 0:
+            # sampling's NaN-guard sentinel: fail only this slot
+            with self._stats_lock:
+                self.nan_guard_total += 1
+            self._finish_slot(
+                idx, "error",
+                error=LogitsNaNError(f"non-finite logits for slot {idx}; request failed"),
+            )
+            return
+        if request.cancelled:
+            with self._stats_lock:
+                self.cancelled_total += 1
+            self._finish_slot(idx, "cancelled")
+            return
+        if (self.eos_token_id is not None and token == self.eos_token_id) or (
+            token in opts.stop_tokens
+        ):
+            self._finish_slot(idx, "stop")
+            return
+        slot.generated.append(token)
+        with self._stats_lock:
+            self.total_generated += 1
+        if request.on_token is not None:
+            try:
+                request.on_token(token)
+            except Exception:  # noqa: BLE001 — a stream consumer must not kill the loop
+                log.exception("on_token callback failed")
+        if len(slot.generated) >= opts.max_new_tokens or slot.position >= self.max_seq_len - 1:
+            self._finish_slot(idx, "length")
+
+    def _result(
+        self, request: GenerationRequest, tokens: list[int], reason: str,
+        first_token_at: float = 0.0, error: Optional[BaseException] = None,
+    ) -> GenerationResult:
+        return GenerationResult(
+            tokens=list(tokens),
+            finish_reason=reason,
+            prompt_tokens=len(request.prompt_tokens),
+            ttft_s=first_token_at - request.submitted_at if first_token_at else 0.0,
+            total_s=time.monotonic() - request.submitted_at,
+            error=error,
+        )
+
+    def _finish_slot(self, idx: int, reason: str, error: Optional[BaseException] = None) -> None:
+        """Resolve the slot's request and free the slot and its pages —
+        freed BEFORE the waiter wakes, so what it reads is current."""
+        slot = self._slots[idx]
+        request = slot.request
+        assert request is not None
+        result = self._result(request, slot.generated, reason, slot.first_token_at, error)
+        slot.request = None
+        slot.generated = []
+        slot.position = 0
+        self._freed_slots.append(idx)
+        self._pagepool.free_slot(idx)
+        request._finish(result)
+
+    def _fail_all(self, error: BaseException) -> None:
+        self._dead = error
+        doomed: list[GenerationRequest] = list(self._page_deferred)
+        self._page_deferred.clear()
+        for i, slot in enumerate(self._slots):
+            if slot.request is not None:
+                doomed.append(slot.request)
+                slot.request = None
+                slot.generated = []
+                self._pagepool.free_slot(i)
+        while True:
+            try:
+                doomed.append(self._queue.get_nowait())
+            except queue.Empty:
+                break
+        for request in doomed:
+            request._finish(self._result(request, [], "error", error=error))
