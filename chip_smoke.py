@@ -13,21 +13,44 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    ``build/kernels/``) and prints the build time, each kernel's ptxas
    register / spill report, and the card's name and power limit.
 2. ``kernels`` — each kernel against its plain PyTorch version on the card
-   at the main path's shapes (H 32, Hkv 8, D 128, page 64; prefill S 200
+   at the main paths' shapes (H 32, Hkv 8, D 128, page 64; prefill S 200
    and 1024 at B 2; paged decode at B 8 with ragged lengths 1..1500, bf16
-   and int8 pages): max abs error against a stated tolerance, the kernel's
-   time, the plain version's time, the bound of the card, and one library
-   call as a yardstick where one computes the same function.
+   and int8 pages; segment S 200 at offset 1000 and S 2048 at offset 6144
+   in a T 8192 cache, bf16 and int8; dense decode at B 8, lengths
+   1..1500, through a [..., :2048] view of a T 8192 cache, bf16 and int8):
+   every output element within ``atol + rtol * |ref|`` of the plain
+   version (and the same check shown to reject planted faults: a zeroed
+   64-key V tile, a causal frontier or lengths one off), the max abs
+   error, the kernel's time, the plain
+   version's time, the bound of the card, and one library call as a
+   yardstick where one computes the same function (SDPA, with an explicit
+   mask where the kernel masks). Dense decode is also timed against the
+   masked read the JAX package takes there under ``auto`` (the port's
+   reference ``attention`` over the bounded view).
 3. ``e2e``     — the port's ``ServingEngine`` serving llama-3-8b at full
-   width and depth (32 layers, bf16, random weights from ``--seed``):
-   8 requests of 21..1501 byte tokens, greedy, 64 new tokens each, with
-   every kernel count set to 0 just before and read just after. Then a
-   reference check on the same weights: prefill and paged decode logits of
-   the kernel path against the reference attention path.
+   width and depth (32 layers, bf16, random weights from ``--seed``) on the
+   paged layout: 8 requests of 21..1501 byte tokens, greedy, 64 new tokens
+   each, with every kernel count set to 0 just before and read just after.
+   Then a reference check on the same weights: prefill and paged decode
+   logits of the kernel path against the reference attention path.
 4. ``int8``    — a shorter end-to-end run over the int8 page pool (the
    int8 paged decode kernel), counts read the same way.
-5. ``profile`` — (not run by default) a short llama-3-8b burst traced with
+5. ``dense``   — the same engine on the dense layout, max_seq_len 8192 (an
+   8 GiB big cache): 8 requests of 21..7001 byte tokens, greedy, 32 new
+   tokens each; the 3001- and 7001-token prompts prefill in 2 and 4
+   segments of 2048 (the segment kernel), decode runs the dense decode
+   kernel. Then a dense reference check: a 3000-token prompt through 2
+   ``prefill_segment`` calls and 4 ``decode_step_inplace`` steps, kernel
+   path against reference path.
+6. ``dense_int8`` — 4 requests (one of 3001 tokens), 16 new tokens, over an
+   int8 dense cache (the int8 segment and dense decode kernels).
+7. ``profile`` — (not run by default) a short llama-3-8b burst traced with
    torch.profiler: the device's busy share of the wall and the top kernels.
+
+``--ab PARENT`` runs none of these: it compares the kernel times of another
+checkout (say the parent commit, unpacked with ``git archive <commit> | tar
+-x -C build/parent``) with this one's, running ``--phases build,kernels``
+from each in the order parent, change, change, parent.
 
 Every check raises on failure, so any failure exits non-zero. On success
 the last three lines are the ``{"kernels": [...]}`` record, the card's
@@ -45,35 +68,85 @@ import dataclasses
 import json
 import math
 import random
+import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "e2e", "int8", "profile")
-DEFAULT_PHASES = PHASES[:4]
+PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "profile")
+DEFAULT_PHASES = PHASES[:6]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 
-# tolerances of kernel vs plain version on the card: bf16 outputs round at
-# 2^-8 relative, and the kernels round p to bf16 against the RUNNING max
-# where the plain version uses the row's final max
-PREFILL_TOL = 2e-2
-DECODE_TOL = 1e-2
+# kernel vs plain version on the card: every element must satisfy
+# |out - ref| <= atol + rtol * |ref|. bf16 outputs round at 2^-8 relative;
+# the flash kernels also round p to bf16 against the RUNNING max where the
+# plain version uses the row's final max, while the decode kernels keep p
+# in f32. Each check must also reject planted faults — the plain version
+# with one 64-key V tile zeroed, or with the causal frontier or the
+# lengths one off — or the run fails: the 8k-token segment's outputs
+# average ~7000 keys (rms ~0.02), so a tolerance of that size sees nothing.
+FLASH_TOL = {"atol": 3e-3, "rtol": 2e-2}
+DECODE_TOL = {"atol": 1e-3, "rtol": 2e-2}
 # kernel path vs reference attention path, end-to-end logits at 32 layers
 # in bf16: relative to the largest reference logit
 MODEL_REL_TOL = 5e-2
 
 H, HKV, D, PAGE = 32, 8, 128, 64
 DECODE_LENGTHS = (1, 64, 200, 511, 700, 1024, 1280, 1500)
+# dense cases: the cache width, and the decode chunk's readable view of it
+DENSE_T, DENSE_VIEW = 8192, 2048
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _excess(out, ref, tol: dict) -> float:
+    """max |out - ref| / (atol + rtol |ref|): at most 1 passes."""
+    ref = ref.float()
+    return ((out.float() - ref).abs() / (tol["atol"] + tol["rtol"] * ref.abs())).max().item()
+
+
+def hold(name: str, out, ref, tol: dict, planted: dict | None = None) -> dict:
+    """Hold a kernel's output against its plain version's within ``tol``;
+    with ``planted`` ({fault: the plain version's output with that fault}),
+    also require the same check to reject every planted fault. Returns the
+    readings for the record."""
+    err = (out.float() - ref.float()).abs().max().item()
+    ratio = _excess(out, ref, tol)
+    if not math.isfinite(err) or not ratio <= 1.0:
+        raise AssertionError(f"{name}: max abs err {err}, {ratio:.3g}x the tolerance {tol}")
+    rec = {"max_abs_err": err, "tolerance": tol, "tolerance_used": ratio}
+    if planted:
+        rec["planted"] = {}
+        for fault, wrong in planted.items():
+            seen = _excess(wrong, ref, tol)
+            rec["planted"][fault] = {
+                "max_abs_err": (wrong.float() - ref.float()).abs().max().item(),
+                "tolerance_used": seen,
+            }
+            if not seen > 1.0:
+                raise AssertionError(f"{name}: the check cannot see the planted fault {fault} "
+                                     f"({seen:.3g}x the tolerance)")
+    return rec
+
+
+def _zero_rows(entry, index):
+    """A copy of a cache entry (tensor, or int8 dict) with ``entry[index]``
+    zeroed (int8: its values, so the dequantized rows are 0)."""
+    if isinstance(entry, dict):
+        entry = {n: a.clone() for n, a in entry.items()}
+        entry["q"][index] = 0
+    else:
+        entry = entry.clone()
+        entry[index] = 0
+    return entry
 
 
 def smi_line() -> str:
@@ -140,6 +213,7 @@ def _prefill_case(torch, ctx, timer, b: int, s: int) -> dict:
     from langstream_tpu_torch.ops.attention import (
         flash_prefill_attention,
         flash_prefill_reference,
+        flash_segment_reference,
     )
 
     cfg = MODEL_PRESETS["llama-3-8b"]
@@ -149,10 +223,17 @@ def _prefill_case(torch, ctx, timer, b: int, s: int) -> dict:
     v = torch.randn((b, HKV, s, D), generator=g, device="cuda").to(torch.bfloat16)
     out = flash_prefill_attention(q, k, v, cfg)
     ref = flash_prefill_reference(q, k, v, cfg)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    if not math.isfinite(err) or err > PREFILL_TOL:
-        raise AssertionError(f"flash_prefill S={s}: max abs err {err} > {PREFILL_TOL}")
+    tile = (s // 2) // 64 * 64  # a 64-key tile in the middle of the prompt
+    planted = {
+        "v_tile_zeroed": flash_prefill_reference(
+            q, k, _zero_rows(v, (0, 0, slice(tile, tile + 64))), cfg
+        ),
+        "causal_off_by_one": flash_segment_reference(
+            q, k, v, torch.ones(b, dtype=torch.int32, device="cuda"), cfg
+        ),
+    }
+    check = hold(f"flash_prefill S={s}", out, ref, FLASH_TOL, planted)
+    del planted
     qh = q.transpose(1, 2)
     try:
         F.scaled_dot_product_attention(qh, k, v, is_causal=True, enable_gqa=True)
@@ -171,8 +252,7 @@ def _prefill_case(torch, ctx, timer, b: int, s: int) -> dict:
     bound = max(flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
     rec = {
         "shape": f"B={b} S={s} H={H} Hkv={HKV} D={D} bf16",
-        "max_abs_err": err,
-        "tolerance": PREFILL_TOL,
+        **check,
         "ms": timer.ms(lambda: flash_prefill_attention(q, k, v, cfg)),
         "plain_ms": timer.ms(lambda: flash_prefill_reference(q, k, v, cfg), iters=5),
         "library_ms": timer.ms(library),
@@ -224,11 +304,17 @@ def _decode_case(torch, ctx, timer, int8: bool) -> dict:
         kernel = ragged_paged_decode_attention
     out = kernel(q, k, v, lengths, table, cfg, PAGE)
     ref = paged_decode_reference(q, k, v, lengths, table, cfg, PAGE)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
     name = "paged_decode_int8" if int8 else "paged_decode"
-    if not math.isfinite(err) or err > DECODE_TOL:
-        raise AssertionError(f"{name}: max abs err {err} > {DECODE_TOL}")
+    mid_page = int(table[b - 1, need[-1] // 2])  # a page in the middle of the longest row
+    planted = {
+        "v_page_zeroed": paged_decode_reference(
+            q, k, _zero_rows(v, mid_page), lengths, table, cfg, PAGE
+        ),
+        "lengths_one_short": paged_decode_reference(
+            q, k, v, (lengths - 1).clamp_min(0), table, cfg, PAGE
+        ),
+    }
+    check = hold(name, out, ref, DECODE_TOL, planted)
     tokens = sum(DECODE_LENGTHS)
     item = 1 if int8 else 2
     nbytes = (
@@ -242,8 +328,7 @@ def _decode_case(torch, ctx, timer, int8: bool) -> dict:
     rec = {
         "shape": f"B={b} lengths={list(DECODE_LENGTHS)} H={H} Hkv={HKV} D={D} page={PAGE} "
                  + ("int8 pages, bf16 q" if int8 else "bf16"),
-        "max_abs_err": err,
-        "tolerance": DECODE_TOL,
+        **check,
         "ms": timer.ms(lambda: kernel(q, k, v, lengths, table, cfg, PAGE)),
         "plain_ms": timer.ms(
             lambda: paged_decode_reference(q, k, v, lengths, table, cfg, PAGE), iters=5
@@ -257,6 +342,217 @@ def _decode_case(torch, ctx, timer, int8: bool) -> dict:
     return rec
 
 
+def _sdpa(torch, q, k, v, mask):
+    """One scaled_dot_product_attention call over q [B, H, S, D] and GQA
+    k/v [B, Hkv, T, D] with a boolean mask (True = attend); K/V are
+    expanded to H heads once, outside the timed call, where this PyTorch
+    has no enable_gqa."""
+    import torch.nn.functional as F
+
+    try:
+        F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+    except TypeError:
+        ke = k.repeat_interleave(H // HKV, dim=1)
+        ve = v.repeat_interleave(H // HKV, dim=1)
+        return lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
+
+
+def _dense_cache(torch, g, b: int, t: int, int8: bool, hkv: int = HKV, d: int = D):
+    shape = (b, hkv, t, d)
+    if int8:
+        return {
+            "q": torch.randint(-127, 128, shape, generator=g, device="cuda").to(torch.int8),
+            "s": torch.rand(shape[:-1], generator=g, device="cuda") * 0.01 + 0.005,
+        }
+    return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+
+def _bf16(torch, entry):
+    """The bf16 cache the int8 segment kernel computes with (dequantized
+    as it does), for the library yardstick."""
+    if isinstance(entry, dict):
+        return (entry["q"].float() * entry["s"][..., None]).to(torch.bfloat16)
+    return entry
+
+
+def _segment_case(torch, ctx, timer, int8: bool, s: int, offset: int) -> dict:
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.ops.attention import (
+        flash_segment_attention,
+        flash_segment_attention_int8,
+        flash_segment_int8_reference,
+        flash_segment_reference,
+    )
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 11 + s + int8)
+    q = torch.randn((1, s, H, D), generator=g, device="cuda").to(torch.bfloat16)
+    k = _dense_cache(torch, g, 1, DENSE_T, int8)
+    v = _dense_cache(torch, g, 1, DENSE_T, int8)
+    off = torch.tensor([offset], dtype=torch.int32, device="cuda")
+    kernel = flash_segment_attention_int8 if int8 else flash_segment_attention
+    plain = flash_segment_int8_reference if int8 else flash_segment_reference
+    out = kernel(q, k, v, off, cfg)
+    ref = plain(q, k, v, off, cfg)
+    name = "flash_segment_int8" if int8 else "flash_segment"
+    tile = (offset // 2) // 64 * 64  # a 64-key tile in the middle of the prefix
+    planted = {
+        "v_tile_zeroed": plain(q, k, _zero_rows(v, (0, 0, slice(tile, tile + 64))), off, cfg),
+        "causal_off_by_one": plain(q, k, v, off + 1, cfg),
+    }
+    check = hold(f"{name} S={s} offset={offset}", out, ref, FLASH_TOL, planted)
+    del planted
+    pos = offset + torch.arange(s, device="cuda")
+    mask = torch.arange(DENSE_T, device="cuda")[None, :] <= pos[:, None]  # [S, T]
+    library = _sdpa(torch, q.transpose(1, 2), _bf16(torch, k), _bf16(torch, v), mask)
+    # work this input needs: query i sees keys [0, offset + i]; the cache
+    # rows below offset + S are read once, q read and out written once
+    pairs = sum(min(offset + i + 1, DENSE_T) for i in range(s))
+    flops = 4.0 * H * D * pairs
+    rows = min(offset + s, DENSE_T)
+    item = 1 if int8 else 2
+    nbytes = 2 * 2 * s * H * D + rows * HKV * D * 2 * item + (rows * HKV * 2 * 4 if int8 else 0) + 4
+    rec = {
+        "shape": f"B=1 S={s} offset={offset} T={DENSE_T} H={H} Hkv={HKV} D={D} "
+                 + ("int8 cache, bf16 q; SDPA over the dequantized cache" if int8 else "bf16"),
+        **check,
+        "ms": timer.ms(lambda: kernel(q, k, v, off, cfg)),
+        "plain_ms": timer.ms(lambda: plain(q, k, v, off, cfg), iters=5),
+        "library_ms": timer.ms(library),
+        "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": (
+            "operations" if flops / PEAK_BF16_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
+        ),
+    }
+    rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+    log(f"kernel {name} {json.dumps(rec)}")
+    return rec
+
+
+def _dense_decode_case(torch, ctx, timer, int8: bool) -> dict:
+    from langstream_tpu_torch.models import transformer as tf
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.ops.attention import (
+        ragged_decode_attention,
+        ragged_decode_attention_int8,
+        ragged_decode_reference,
+    )
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    b = len(DECODE_LENGTHS)
+    g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 21 + int8)
+    q = torch.randn((b, H, D), generator=g, device="cuda").to(torch.bfloat16)
+
+    def view(entry):
+        if isinstance(entry, dict):
+            return {n: a[:, :, :DENSE_VIEW] for n, a in entry.items()}
+        return entry[:, :, :DENSE_VIEW]
+
+    k = view(_dense_cache(torch, g, b, DENSE_T, int8))
+    v = view(_dense_cache(torch, g, b, DENSE_T, int8))
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    kernel = ragged_decode_attention_int8 if int8 else ragged_decode_attention
+    out = kernel(q, k, v, lengths, cfg)
+    ref = ragged_decode_reference(q, k, v, lengths, cfg)
+    name = "dense_decode_int8" if int8 else "dense_decode"
+    tile = (DECODE_LENGTHS[-1] // 2) // 64 * 64  # mid-row tile of the longest row
+    planted = {
+        "v_tile_zeroed": ragged_decode_reference(
+            q, k, _zero_rows(v, (b - 1, slice(None), slice(tile, tile + 64))), lengths, cfg
+        ),
+        "lengths_one_short": ragged_decode_reference(
+            q, k, v, (lengths - 1).clamp_min(0), cfg
+        ),
+    }
+    check = hold(name, out, ref, DECODE_TOL, planted)
+    mask = torch.arange(DENSE_VIEW, device="cuda")[None, :] < lengths.long()[:, None]  # [B, T]
+    library = _sdpa(
+        torch, q[:, :, None], _bf16(torch, k), _bf16(torch, v), mask[:, None, None, :]
+    )
+    # the masked read the JAX package takes under "auto" (reference attention
+    # over the bounded view, int8 through its hoisted-scale path)
+    masked_cfg = dataclasses.replace(cfg, kv_cache_dtype="int8" if int8 else "model")
+    masked = mask[:, None, :]  # [B, S=1, T]
+    tokens = sum(min(n, DENSE_VIEW) for n in DECODE_LENGTHS)
+    item = 1 if int8 else 2
+    nbytes = (
+        tokens * HKV * D * 2 * item  # K and V rows inside each length
+        + (tokens * HKV * 2 * 4 if int8 else 0)  # their f32 scales
+        + 2 * b * H * D * 2  # q in, out
+        + b * 4  # lengths
+    )
+    flops = 4.0 * tokens * H * D  # q.k and p.v per (token, query head)
+    rec = {
+        "shape": f"B={b} lengths={list(DECODE_LENGTHS)} view T={DENSE_VIEW} of {DENSE_T} "
+                 f"H={H} Hkv={HKV} D={D} " + ("int8 cache, bf16 q" if int8 else "bf16"),
+        **check,
+        "ms": timer.ms(lambda: kernel(q, k, v, lengths, cfg)),
+        "plain_ms": timer.ms(lambda: ragged_decode_reference(q, k, v, lengths, cfg), iters=5),
+        "library_ms": timer.ms(library),
+        "masked_path_ms": timer.ms(
+            lambda: tf.attention(q[:, None], k, v, masked, masked_cfg), iters=5
+        ),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_F32_FLOPS else "operations",
+    }
+    rec["gbps"] = nbytes / (rec["ms"] * 1e-3) / 1e9
+    log(f"kernel {name} {json.dumps(rec)}")
+    return rec
+
+
+def _edge_cases(torch, ctx) -> dict:
+    """The segment and dense decode kernels against their plain versions
+    away from llama's shape: head dims 64 / 128 / 256 with groups 1 / 4 /
+    8, a soft cap, per-row offsets 0 and unaligned, a segment whose queries
+    run past the cache width, strided [..., :T] views, and decode lengths
+    0 and past the view. Each within its tolerance."""
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.ops.attention import (
+        flash_segment_attention,
+        flash_segment_attention_int8,
+        flash_segment_int8_reference,
+        flash_segment_reference,
+        ragged_decode_attention,
+        ragged_decode_attention_int8,
+        ragged_decode_reference,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 31)
+    errs = {}
+    for h, hkv, d, cap in ((8, 8, 64, None), (32, 8, 128, 30.0), (16, 2, 256, None)):
+        cfg = dataclasses.replace(
+            MODEL_PRESETS["llama-3-8b"], n_heads=h, n_kv_heads=hkv, head_dim=d,
+            attn_logit_softcap=cap,
+        )
+        for int8 in (False, True):
+            # [..., :300] views of 301-column caches
+            k = _dense_cache(torch, g, 3, 301, int8, hkv, d)
+            v = _dense_cache(torch, g, 3, 301, int8, hkv, d)
+            k, v = ({n: a[:, :, :300] for n, a in e.items()} if int8 else e[:, :, :300]
+                    for e in (k, v))
+            # segment: 77 queries at offsets 0, 37 and 260 (the last row's
+            # queries run past the 300-column view)
+            q = torch.randn((3, 77, h, d), generator=g, device="cuda").to(torch.bfloat16)
+            off = torch.tensor([0, 37, 260], dtype=torch.int32, device="cuda")
+            seg = flash_segment_attention_int8 if int8 else flash_segment_attention
+            plain = flash_segment_int8_reference if int8 else flash_segment_reference
+            name = f"{seg.__name__} H={h} Hkv={hkv} D={d} softcap={cap}"
+            errs[name] = hold(name, seg(q, k, v, off, cfg), plain(q, k, v, off, cfg), FLASH_TOL)
+            # decode: lengths 0, 1 and one past the view
+            qd = torch.randn((3, h, d), generator=g, device="cuda").to(torch.bfloat16)
+            lengths = torch.tensor([0, 1, 1000], dtype=torch.int32, device="cuda")
+            dec = ragged_decode_attention_int8 if int8 else ragged_decode_attention
+            out = dec(qd, k, v, lengths, cfg)
+            name = f"{dec.__name__} H={h} Hkv={hkv} D={d} softcap={cap}"
+            errs[name] = hold(name, out, ragged_decode_reference(qd, k, v, lengths, cfg), DECODE_TOL)
+            if bool(out[0].abs().max() != 0):
+                raise AssertionError(f"{name}: a length-0 row is not 0")
+    torch.cuda.synchronize()
+    log(f"kernel edge cases {json.dumps(errs)}")
+    return errs
+
+
 def phase_kernels(ctx: dict) -> None:
     import torch
 
@@ -266,6 +562,14 @@ def phase_kernels(ctx: dict) -> None:
         "paged_decode": [_decode_case(torch, ctx, timer, int8=False)],
         "paged_decode_int8": [_decode_case(torch, ctx, timer, int8=True)],
     }
+    for int8 in (False, True):
+        name = "flash_segment_int8" if int8 else "flash_segment"
+        ctx["kernel_runs"][name] = [
+            _segment_case(torch, ctx, timer, int8, s, off) for s, off in ((200, 1000), (2048, 6144))
+        ]
+        name = "dense_decode_int8" if int8 else "dense_decode"
+        ctx["kernel_runs"][name] = [_dense_decode_case(torch, ctx, timer, int8)]
+    _edge_cases(torch, ctx)
     del timer
 
 
@@ -275,7 +579,7 @@ def _prompts(n_bytes: list[int], seed: int) -> list[str]:
     return ["".join(rng.choice(alphabet) for _ in range(n)) for n in n_bytes]
 
 
-def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int) -> dict:
+def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int, **engine_kw) -> dict:
     """Warm the engine with one short request, zero the kernel counts, serve
     the batch, read the counts; checks every request's tokens."""
     import torch
@@ -288,7 +592,7 @@ def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int) -> dict:
     tok = ByteTokenizer()
     engine = ServingEngine(
         cfg, params, max_batch=8, decode_chunk=16, page_size=PAGE,
-        eos_token_id=tok.eos_token_id, rng_seed=ctx["seed"], device="cuda",
+        eos_token_id=tok.eos_token_id, rng_seed=ctx["seed"], device="cuda", **engine_kw,
     )
     engine.start()
     try:
@@ -315,6 +619,7 @@ def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int) -> dict:
         if any(t < 0 or t >= cfg.vocab_size for t in r.tokens):
             raise AssertionError(f"request of {len(p)} tokens has out-of-range tokens")
     groups = after["admit-groups-total"] - before["admit-groups-total"]
+    segments = after["prefill-segments-total"] - before["prefill-segments-total"]
     steps = after["decode-steps-total"] - before["decode-steps-total"]
     generated = sum(len(r.tokens) for r in results)
     ttfts = sorted(r.ttft_s for r in results)
@@ -326,7 +631,9 @@ def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int) -> dict:
         "tokens_per_s": generated / wall,
         "ttft_p50_s": ttfts[len(ttfts) // 2],
         "ttft_max_s": ttfts[-1],
+        "ttft_longest_prompt_s": max(zip(prompts, results), key=lambda pr: len(pr[0]))[1].ttft_s,
         "admit_groups": groups,
+        "segments": segments,
         "decode_steps": steps,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "kernel_launches": {k: v["launches"] for k, v in counts.items()},
@@ -428,6 +735,83 @@ def phase_int8(ctx: dict) -> None:
     ctx["int8"] = run
 
 
+def _dense_model_check(ctx, cfg, params) -> dict:
+    """Kernel path vs reference attention path on the dense layout, same
+    weights: a 3000-token prompt through 2 segments of 2048 (the engine's
+    kv_bound rule: 2048, then 4096) into a 4096-column local cache, then 4
+    decode steps over it."""
+    import torch
+
+    from langstream_tpu_torch.models import transformer as tf
+
+    ref_cfg = dataclasses.replace(cfg, attention_impl="jnp")
+    n, width, cols = 3000, 2048, 4096
+    prompt = torch.tensor([[256] + [(37 * i + 11) % 250 for i in range(n - 1)]], device="cuda")
+    logits = {}
+    caches = {}
+    for name, c in (("kernel", cfg), ("reference", ref_cfg)):
+        cache = tf.make_kv_cache(c, 1, cols + 1, device="cuda")
+        for s0, bound in ((0, width), (width, cols)):
+            seg = torch.zeros((1, width), dtype=torch.long, device="cuda")
+            real = min(width, n - s0)
+            seg[0, :real] = prompt[0, s0 : s0 + real]
+            lg, _ = tf.prefill_segment(
+                params, seg, torch.tensor([s0], device="cuda"),
+                torch.tensor([real], device="cuda"), cache, c, kv_bound=bound,
+            )
+        logits[name] = [lg.float()]
+        caches[name] = cache
+    # both paths decode the SAME token chain (the reference path's greedy)
+    tok = torch.argmax(logits["reference"][0], dim=-1)
+    for step in range(4):
+        pos = torch.tensor([n + step], device="cuda")
+        for name, c in (("kernel", cfg), ("reference", ref_cfg)):
+            lg, _ = tf.decode_step_inplace(params, tok, pos, caches[name], c, kv_bound=cols)
+            logits[name].append(lg.float())
+        tok = torch.argmax(logits["reference"][-1], dim=-1)
+    out = {}
+    for i, (a, b) in enumerate(zip(logits["kernel"], logits["reference"])):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"dense model check step {i}: non-finite kernel-path logits")
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        out[f"step{i}_rel_err"] = rel
+        out[f"step{i}_top1_equal"] = bool(torch.argmax(a) == torch.argmax(b))
+        if rel > MODEL_REL_TOL:
+            raise AssertionError(f"dense model check step {i}: rel err {rel} > {MODEL_REL_TOL}")
+    out["tolerance"] = MODEL_REL_TOL
+    return out
+
+
+DENSE_KW = {"kv_layout": "dense", "max_seq_len": 8192}
+
+
+def phase_dense(ctx: dict) -> None:
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    params = _llama_params(ctx)
+    run = _serve(ctx, cfg, params, [20, 90, 300, 600, 1200, 1500, 3000, 7000], 32, **DENSE_KW)
+    _require_launches(run, "flash_prefill", "admit_groups", cfg.n_layers)
+    _require_launches(run, "flash_segment", "segments", cfg.n_layers)
+    _require_launches(run, "dense_decode", "decode_steps", cfg.n_layers)
+    log(f"dense llama-3-8b bf16 {json.dumps(run)}")
+    ctx["dense"] = run
+    check = _dense_model_check(ctx, cfg, params)
+    log(f"dense model check llama-3-8b bf16 {json.dumps(check)}")
+
+
+def phase_dense_int8(ctx: dict) -> None:
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+
+    cfg = dataclasses.replace(MODEL_PRESETS["llama-3-8b"], kv_cache_dtype="int8")
+    params = _llama_params(ctx)
+    run = _serve(ctx, cfg, params, [40, 300, 1100, 3000], 16, **DENSE_KW)
+    _require_launches(run, "flash_segment_int8", "segments", cfg.n_layers)
+    _require_launches(run, "dense_decode_int8", "decode_steps", cfg.n_layers)
+    log(f"dense llama-3-8b int8-kv {json.dumps(run)}")
+    ctx["dense_int8"] = run
+
+
 def phase_profile(ctx: dict) -> None:
     """One traced burst (8 short prompts, 32 new tokens each) under
     torch.profiler: wall time, the summed device time of CUDA kernels, the
@@ -472,10 +856,20 @@ def phase_profile(ctx: dict) -> None:
 
 
 def kernel_record(ctx: dict) -> dict:
+    # kernel → (source, the TPU kernel it replaces, the phase whose path
+    # counts its launches)
     sources = {
-        "flash_prefill": ("flash_prefill.cu", "langstream_tpu/ops/attention.py:143", "e2e"),
-        "paged_decode": ("paged_decode.cu", "langstream_tpu/ops/attention.py:849", "e2e"),
-        "paged_decode_int8": ("paged_decode.cu", "langstream_tpu/ops/attention.py:979", "int8"),
+        "flash_prefill": ("flash_segment.cu", "langstream_tpu/ops/attention.py:143", "e2e"),
+        "paged_decode": ("ragged_decode.cu", "langstream_tpu/ops/attention.py:849", "e2e"),
+        "paged_decode_int8": ("ragged_decode.cu", "langstream_tpu/ops/attention.py:979", "int8"),
+        "flash_segment": ("flash_segment.cu", "langstream_tpu/ops/attention.py:289", "dense"),
+        "flash_segment_int8": (
+            "flash_segment.cu", "langstream_tpu/ops/attention.py:383", "dense_int8"
+        ),
+        "dense_decode": ("ragged_decode.cu", "langstream_tpu/ops/attention.py:526", "dense"),
+        "dense_decode_int8": (
+            "ragged_decode.cu", "langstream_tpu/ops/attention.py:670", "dense_int8"
+        ),
     }
     out = []
     for name, (src, replaces, path) in sources.items():
@@ -502,11 +896,36 @@ def kernel_record(ctx: dict) -> dict:
     return {"kernels": out}
 
 
+def ab_times(parent: Path) -> dict[str, list]:
+    """Kernel times of another checkout (``parent``) and this one on one
+    card: ``chip_smoke.py --phases build,kernels`` run from each, in the
+    order parent, change, change, parent → {kernel and shape: [(label,
+    ms), ...]}."""
+    times: dict[str, list] = {}
+    for label, tree in (("parent", parent), ("change", ROOT), ("change", ROOT),
+                        ("parent", parent)):
+        run = subprocess.run(
+            [sys.executable, "chip_smoke.py", "--phases", "build,kernels"],
+            cwd=tree, capture_output=True, text=True, timeout=900,
+        )
+        if run.returncode != 0:
+            raise RuntimeError(f"{label} run in {tree} failed:\n{run.stderr[-3000:]}")
+        for line in run.stdout.splitlines():
+            m = re.match(r"kernel (\S+) (\{.*\})$", line)
+            if m:
+                rec = json.loads(m.group(2))
+                times.setdefault(f"{m.group(1)} {rec['shape']}", []).append((label, rec["ms"]))
+    return times
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help=f"comma-separated subset of {PHASES} (default: {DEFAULT_PHASES})")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ab", type=Path, metavar="PARENT",
+                    help="instead of the phases, compare the kernel times of the checkout "
+                         "PARENT with this one's (parent, change, change, parent)")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -525,6 +944,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    if args.ab is not None:
+        for key, runs in ab_times(args.ab.resolve()).items():
+            log(f"ab {key}: " + " ".join(f"{label}={ms:.5f}" for label, ms in runs))
+        print(smi_line())
+        print(json.dumps({"partial": True, "ab": str(args.ab)}))
+        return 0
     ctx: dict = {"seed": args.seed}
     t_all = time.monotonic()
     for phase in PHASES:

@@ -8,8 +8,17 @@ honours the keys this slice serves:
   weights: "random" (the only value yet; checkpoint loading waits for the
     loader slice) — drawn on the device from ``seed`` (default 0)
   max-batch / decode-chunk / page-size: engine knobs (8 / 16 / 64)
-  kv-cache-quantization: "int8" → int8 page pool with per-token per-head
-    scales (the int8 paged decode kernel); "" / "none" → model dtype
+  max-seq-len: the engine's sequence limit (default min(2048, the preset's
+    max_seq_len), as in the JAX provider)
+  prefill-buckets: admit-group prompt widths (default 32, 64, …, 2048);
+    the widest is also the chunked-prefill segment width
+  kv-layout: "paged" (default) → one page pool; prompts wider than the
+    widest bucket are refused. "dense" → a per-slot big cache; prompts
+    wider than the widest bucket (up to max-seq-len - 1) prefill in
+    segments of that width (the segment kernels), decode reads the cache
+    with the dense decode kernels. Any other value raises ValueError.
+  kv-cache-quantization: "int8" → int8 KV with per-token per-head scales
+    (the int8 decode / segment kernels); "" / "none" → model dtype
   tokenizer: "byte" (the only value yet)
   device: "cuda" (default) or "cpu"
 
@@ -39,7 +48,7 @@ from langstream_tpu_torch.ai.provider import (
 from langstream_tpu_torch.device import resolve_device
 from langstream_tpu_torch.models.bridge import init_params
 from langstream_tpu_torch.models.configs import MODEL_PRESETS, GenerationOptions, ModelConfig
-from langstream_tpu_torch.serving.engine import GenerationRequest, ServingEngine
+from langstream_tpu_torch.serving.engine import PREFILL_BUCKETS, GenerationRequest, ServingEngine
 from langstream_tpu_torch.serving.tokenizer import get_tokenizer
 
 
@@ -113,10 +122,17 @@ class TorchCompletionsService(CompletionsService):
                 f"weights {weights!r}: the PyTorch port serves random weights only "
                 "(checkpoint loading waits for the loader slice)"
             )
-        layout = self.resource.get("kv-layout", "paged")
-        if layout != "paged":
-            raise NotImplementedError(f"kv-layout {layout!r}: the PyTorch port serves paged only")
+        layout = str(self.resource.get("kv-layout", "paged")).lower()
+        if layout not in ("paged", "dense"):
+            raise ValueError(f"unknown kv-layout {layout!r}; supported: paged, dense")
+        self.kv_layout = layout
         self.model_config = model_config_from(self.resource)
+        self.max_seq_len = int(
+            self.resource.get("max-seq-len", min(2048, self.model_config.max_seq_len))
+        )
+        self.prefill_buckets = tuple(
+            int(b) for b in self.resource.get("prefill-buckets", PREFILL_BUCKETS)
+        )
         self.device = resolve_device(self.resource.get("device", "cuda"))
         self.tokenizer = get_tokenizer(self.resource.get("tokenizer", "byte"))
         self._lock = threading.Lock()
@@ -132,9 +148,12 @@ class TorchCompletionsService(CompletionsService):
                     self.model_config,
                     params,
                     max_batch=int(self.resource.get("max-batch", 8)),
+                    max_seq_len=self.max_seq_len,
                     eos_token_id=self.tokenizer.eos_token_id,
+                    prefill_buckets=self.prefill_buckets,
                     decode_chunk=int(self.resource.get("decode-chunk", 16)),
                     page_size=int(self.resource.get("page-size", 64)),
+                    kv_layout=self.kv_layout,
                     device=self.device,
                 )
                 engine.start()

@@ -5,23 +5,37 @@ Layout follows the JAX package so the two can be compared tensor for tensor:
 stacked per-layer params ``[L, ...]`` in a dict (a Python loop over layers
 replaces ``lax.scan``), head-major KV caches ``[L, B, Hkv, T, D]`` and a
 page pool ``[L, P + 1, Hkv, page_size, D]`` (int8 caches are
-``{"q": int8, "s": f32}`` dicts with per-token scales).
+``{"q": int8, "s": f32}`` dicts with per-token scales). Two KV layouts are
+served: the paged pool (``paged_decode_step_inplace``) and the dense
+per-slot cache (``prefill_segment`` for chunked prefill,
+``decode_step_inplace`` for decode).
 
-Differences from the JAX package, all forced by PyTorch:
+Differences from the JAX package:
 
 - caches and pools are updated IN PLACE (the JAX functions return new
   arrays; donation makes that in place there too). The entry points still
-  return the cache so call sites read alike.
-- JAX drops out-of-bounds scatters (``mode="drop"``). PyTorch has no such
-  mode, so the page pool carries one extra physical page at index
+  return the cache so call sites read alike, and ``decode_step`` is
+  ``decode_step_inplace`` without a bound.
+- JAX drops out-of-bounds scatters (``mode="drop"``); PyTorch raises on
+  them. So the page pool carries one extra physical page at index
   ``num_pages`` — the WRITE SINK. The out-of-bounds sentinel of the page
   tables (= ``num_pages``) lands there instead of being dropped; nothing
   ever reads it as valid data (every read stays inside a row's length,
   and the length mask makes the rest harmless), so the sink is the drop
-  without a host sync.
+  without a host sync. A dense cache that may be written past its end
+  (the engine's big cache, where a slot that finished mid-chunk keeps
+  advancing; a long prompt's local cache, whose last padded segment can
+  overrun it) is allocated with one extra last column, the SINK COLUMN:
+  dense scatter positions clamp into the cache, so those writes land
+  there, and reads go through ``[..., :kv_bound]`` views that stop short
+  of it.
+- The dense decode kernel is taken under ``attention_impl="auto"`` too
+  (on the card, and its plain version on the CPU). The JAX package keeps
+  it opt-in (``"pallas"``) because XLA's masked read beat it on a TPU;
+  ``chip_smoke.py`` times that masked read beside the kernel on the H100.
 
-Not ported yet: MoE, the dense-decode / segment / verify entry points,
-LoRA, ring attention and ``encode``.
+Not ported yet: MoE, the verify entry points, LoRA, ring attention and
+``encode``.
 """
 
 from __future__ import annotations
@@ -38,7 +52,11 @@ from langstream_tpu_torch.models.configs import ModelConfig
 from langstream_tpu_torch.models.quant import dequantize_weight, is_quantized, quantized_matmul
 from langstream_tpu_torch.ops.attention import (
     flash_prefill_attention,
+    flash_segment_attention,
+    flash_segment_attention_int8,
     kernel_path_ok,
+    ragged_decode_attention,
+    ragged_decode_attention_int8,
     ragged_paged_decode_attention,
     ragged_paged_decode_attention_int8,
     softcap,
@@ -195,23 +213,41 @@ def _dispatch_attention(
     q: torch.Tensor,  # [B, S, H, D]
     k_all,  # [B, Hkv, T, D] tensor, or int8 {"q","s"} dict
     v_all,
-    mask: Optional[torch.Tensor],
+    mask: Optional[torch.Tensor],  # [B, S, T'] over the readable columns
     config: ModelConfig,
     causal: bool,
+    kv_offset: Optional[torch.Tensor] = None,  # [B] i32: segment prefill at an offset
+    kv_bound: Optional[int] = None,  # readable cache columns
+    lengths: Optional[torch.Tensor] = None,  # [B] i32: single-token decode
 ) -> torch.Tensor:
-    """Prompt attention: the flash prefill kernel (causal over the first S
-    cache columns — int8 caches dequantize just that slice) when the gate
-    allows it, else the reference ``attention``."""
+    """Route attention over a dense cache (or the prompt's own K/V) to a
+    kernel when the gate allows it, else to the reference ``attention``.
+    ``kv_bound`` cuts the cache to a ``[..., :kv_bound]`` view first (read
+    in place by the kernels). Then: decode (``lengths``) → the dense decode
+    kernel; a segment (``kv_offset``) → the segment kernel; a causal prompt
+    → the flash prefill kernel over the first S columns (int8 caches
+    dequantize just that slice)."""
+    if kv_bound is not None:
+        k_all = _map(lambda x: x[:, :, :kv_bound], k_all)
+        v_all = _map(lambda x: x[:, :, :kv_bound], v_all)
     s = q.shape[1]
-    if s > 1 and causal and kernel_path_ok(config, q.device):
-        ksl = _map(lambda x: x[:, :, :s], k_all)
-        vsl = _map(lambda x: x[:, :, :s], v_all)
-        return flash_prefill_attention(
-            q.contiguous(),
-            _dequantize_kv(ksl, q.dtype).contiguous(),
-            _dequantize_kv(vsl, q.dtype).contiguous(),
-            config,
-        )
+    if kernel_path_ok(config, q.device):
+        quantized = isinstance(k_all, dict)
+        if lengths is not None:
+            kernel = ragged_decode_attention_int8 if quantized else ragged_decode_attention
+            return kernel(q[:, 0].contiguous(), k_all, v_all, lengths, config)[:, None, :]
+        if kv_offset is not None:
+            kernel = flash_segment_attention_int8 if quantized else flash_segment_attention
+            return kernel(q.contiguous(), k_all, v_all, kv_offset, config)
+        if s > 1 and causal:
+            ksl = _map(lambda x: x[:, :, :s], k_all)
+            vsl = _map(lambda x: x[:, :, :s], v_all)
+            return flash_prefill_attention(
+                q.contiguous(),
+                _dequantize_kv(ksl, q.dtype).contiguous(),
+                _dequantize_kv(vsl, q.dtype).contiguous(),
+                config,
+            )
     return attention(q, k_all, v_all, mask, config)
 
 
@@ -254,6 +290,18 @@ def make_kv_cache(
         "k": torch.zeros(shape, dtype=dtype, device=dev),
         "v": torch.zeros(shape, dtype=dtype, device=dev),
     }
+
+
+def _dense_index(positions: torch.Tensor, width: int, n_kv_heads: int) -> tuple:
+    """(row [B, 1, 1], kv head [1, Hkv, 1], column [B, 1, S]) indices of
+    every token's row in a dense cache of ``width`` columns; positions past
+    the last column land in it (the sink column, see the module note)."""
+    dev = positions.device
+    return (
+        torch.arange(positions.shape[0], device=dev)[:, None, None],
+        torch.arange(n_kv_heads, device=dev)[None, :, None],
+        positions.long().clamp(0, width - 1)[:, None, :],
+    )
 
 
 def make_page_pool(
@@ -356,16 +404,21 @@ def _layer(
     mask: Optional[torch.Tensor],
     config: ModelConfig,
     cache_kv: Optional[tuple] = None,
-    cache_positions: Optional[torch.Tensor] = None,
+    cache_index: Optional[tuple] = None,  # dense scatter index (_dense_index)
     causal: bool = True,
     paged: Optional[tuple] = None,  # (table [B, Tp] i32, page_size, lengths, scatter index)
+    kv_offset: Optional[torch.Tensor] = None,
+    kv_bound: Optional[int] = None,
+    lengths: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One transformer block. With ``cache_kv`` (dense, the admit group's
-    local cache) K/V are written at ``cache_positions`` and attention runs
-    over the cache. With ``paged`` the cache entries are per-layer page-pool
-    entries: K/V scatter into the slot's pages and single-token steps read
-    through the table with the paged decode kernel (else the gathered
-    reference view)."""
+    """One transformer block. With ``cache_kv`` (a dense cache: an admit
+    group's local cache, a long prompt's local cache or the big cache) K/V
+    are written at ``cache_index`` and attention runs over the cache
+    (``_dispatch_attention``: ``kv_offset`` for a segment, ``lengths`` for
+    decode, ``kv_bound`` readable columns). With ``paged`` the cache entries
+    are per-layer page-pool entries: K/V scatter into the slot's pages and
+    single-token steps read through the table with the paged decode kernel
+    (else the gathered reference view)."""
     b, s, _ = x.shape
     hd = config.resolved_head_dim
 
@@ -397,20 +450,14 @@ def _layer(
     else:
         if cache_kv is not None:
             ck, cv = cache_kv  # [B, Hkv, T, D] head-major (maybe int8)
-            bidx = torch.arange(b, device=x.device)[:, None, None]
-            hidx = torch.arange(config.n_kv_heads, device=x.device)[None, :, None]
-            pidx = cache_positions[:, None, :]  # [B, 1, S]
-            for c, vals in ((ck, kt), (cv, vt)):
-                if isinstance(c, dict):
-                    vq, vs = _quantize_kv(vals)
-                    c["q"][bidx, hidx, pidx] = vq
-                    c["s"][bidx, hidx, pidx] = vs
-                else:
-                    c[bidx, hidx, pidx] = vals.to(c.dtype)
+            _scatter_at(ck, kt, cache_index)
+            _scatter_at(cv, vt, cache_index)
             k_all, v_all = ck, cv
         else:
             k_all, v_all = kt, vt
-        attn = _dispatch_attention(q, k_all, v_all, mask, config, causal)
+        attn = _dispatch_attention(
+            q, k_all, v_all, mask, config, causal, kv_offset, kv_bound, lengths
+        )
     x = x + quantized_matmul(attn, lp["wo"])
     ffn_in = rms_norm(x, lp["ffn_norm"], config.rms_norm_eps)
     return x + dense_ffn(ffn_in, lp, config)
@@ -486,16 +533,119 @@ def prefill(
         t = cache_width(cache)
         kv_pos = torch.arange(t, device=dev)[None, None, :]
         mask = (kv_pos <= positions[:, :, None]) & (kv_pos < s)
+    index = _dense_index(positions, cache_width(cache), config.n_kv_heads)
     x = _embed(params, tokens, config)
     for i in range(config.n_layers):
         x = _layer(
             x, _layer_params(params["layers"], i), sin, cos, mask, config,
-            cache_kv=_cache_layer(cache, i), cache_positions=positions,
+            cache_kv=_cache_layer(cache, i), cache_index=index,
         )
     last = (lengths.long() - 1).clamp(0, s - 1)
     x_last = x[torch.arange(b, device=dev), last]  # [B, D]
     logits = _unembed(params, x_last[:, None, :], config)[:, 0]
     return logits, cache
+
+
+@torch.no_grad()
+def prefill_segment(
+    params: Params,
+    tokens: torch.Tensor,  # [B, W] one padded prompt segment per row
+    offsets: torch.Tensor,  # [B] global position of each row's segment start
+    seg_lengths: torch.Tensor,  # [B] true token count within the segment
+    cache: KVCache,
+    config: ModelConfig,
+    kv_bound: Optional[int] = None,  # readable cache columns (>= offset + W where it fits)
+) -> tuple[torch.Tensor, KVCache]:
+    """Chunked prefill: one segment of a longer prompt against a dense cache
+    whose columns [0, offsets) were written by earlier segments. Writes the
+    segment's K/V at global positions [offsets, offsets + W) in place
+    (positions past the cache land in its last, sink column) and attends
+    causally over prefix + segment. Returns logits at the last real token
+    of the segment ([B, V]) — meaningful only on the final segment."""
+    _check_dense(config)
+    b, s = tokens.shape
+    dev = tokens.device
+    positions = offsets.long()[:, None] + torch.arange(s, device=dev)[None, :]  # [B, W]
+    sin, cos = _rope_freqs(positions, config)
+    t = cache_width(cache)
+    view = t if kv_bound is None else min(kv_bound, t)
+    mask = None
+    if not kernel_path_ok(config, dev):
+        mask = torch.arange(view, device=dev)[None, None, :] <= positions[:, :, None]
+    index = _dense_index(positions, t, config.n_kv_heads)
+    kv_offset = offsets.to(torch.int32).contiguous()
+    x = _embed(params, tokens, config)
+    for i in range(config.n_layers):
+        x = _layer(
+            x, _layer_params(params["layers"], i), sin, cos, mask, config,
+            cache_kv=_cache_layer(cache, i), cache_index=index,
+            kv_offset=kv_offset, kv_bound=kv_bound,
+        )
+    last = (seg_lengths.long() - 1).clamp(0, s - 1)
+    x_last = x[torch.arange(b, device=dev), last]  # [B, D]
+    logits = _unembed(params, x_last[:, None, :], config)[:, 0]
+    return logits, cache
+
+
+@torch.no_grad()
+def decode_step_inplace(
+    params: Params,
+    tokens: torch.Tensor,  # [B]
+    positions: torch.Tensor,  # [B]
+    cache: KVCache,  # dense [L, B, Hkv, T, D]
+    config: ModelConfig,
+    kv_bound: Optional[int] = None,  # readable cache columns
+) -> tuple[torch.Tensor, KVCache]:
+    """One decode step over the dense cache → logits [B, V]; the cache is
+    updated in place (positions past it land in its sink column). Each row
+    attends to columns [0, position] of the ``[..., :kv_bound]`` view; the
+    kernel reads exactly that (its length is clamped to the view), so the
+    bound only narrows the reference path's masked read."""
+    _check_dense(config)
+    pos2 = positions.long()[:, None]  # [B, 1]
+    dev = tokens.device
+    sin, cos = _rope_freqs(pos2, config)
+    t = cache_width(cache)
+    view = t if kv_bound is None else min(kv_bound, t)
+    mask = None
+    if not kernel_path_ok(config, dev):
+        mask = torch.arange(view, device=dev)[None, None, :] <= pos2[:, :, None]
+    lengths = (pos2[:, 0] + 1).to(torch.int32)
+    # one index per step serves every layer's K/V scatter
+    index = _dense_index(pos2, t, config.n_kv_heads)
+    x = _embed(params, tokens[:, None], config)
+    for i in range(config.n_layers):
+        x = _layer(
+            x, _layer_params(params["layers"], i), sin, cos, mask, config,
+            cache_kv=_cache_layer(cache, i), cache_index=index,
+            kv_bound=kv_bound, lengths=lengths,
+        )
+    return _unembed(params, x, config)[:, 0], cache
+
+
+def decode_step(
+    params: Params, tokens: torch.Tensor, positions: torch.Tensor, cache: KVCache,
+    config: ModelConfig,
+) -> tuple[torch.Tensor, KVCache]:
+    """One decode step for every slot → logits [B, V], the cache updated in
+    place: ``decode_step_inplace`` over the whole width."""
+    return decode_step_inplace(params, tokens, positions, cache, config)
+
+
+@torch.no_grad()
+def dense_insert_cache(cache: KVCache, local_cache: KVCache, slots: torch.Tensor) -> KVCache:
+    """Copy a prefill's local cache ([L, n, Hkv, W, D], int8 dicts leaf by
+    leaf) into rows ``slots`` [n] of the big dense cache, columns [0, W),
+    in place — the dense admit group's row insert."""
+    for name in ("k", "v"):
+        big, small = cache[name], local_cache[name]
+        if isinstance(big, dict):
+            pairs = [(big[leaf], small[leaf]) for leaf in ("q", "s")]
+        else:
+            pairs = [(big, small)]
+        for dst, src in pairs:
+            dst[:, slots, :, : src.shape[3]] = src.to(dst.dtype)
+    return cache
 
 
 @torch.no_grad()
@@ -526,8 +676,7 @@ def paged_decode_step_inplace(
     for i in range(config.n_layers):
         x = _layer(
             x, _layer_params(params["layers"], i), sin, cos, mask, config,
-            cache_kv=_cache_layer(pool, i), cache_positions=pos2,
-            paged=(table, page_size, lengths, index),
+            cache_kv=_cache_layer(pool, i), paged=(table, page_size, lengths, index),
         )
     return _unembed(params, x, config)[:, 0], pool
 

@@ -30,16 +30,24 @@ NVCC_FLAGS = (
 _p = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
+_ll = ctypes.c_longlong
 
 # source stem → {C symbol: argtypes}; every symbol returns a cudaError_t as int
 SOURCES: dict[str, dict[str, list]] = {
-    "flash_prefill": {
-        "lstpu_flash_prefill_bf16": [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _f, _p],
+    "flash_segment": {
+        "lstpu_flash_segment": [
+            _p, _p, _p, _p, _p, _p, _p,
+            _i, _i, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _f, _f, _i, _p,
+        ],
     },
-    "paged_decode": {
+    "ragged_decode": {
         "lstpu_paged_decode": [
             _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
             _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _i, _p,
+        ],
+        "lstpu_dense_decode": [
+            _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
+            _i, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _i, _f, _f, _i, _p,
         ],
     },
 }

@@ -1,16 +1,22 @@
 """Attention kernels of the port (answers to ``langstream_tpu/ops/attention.py``).
 
-Three kernels carry the serving main path, each a hand-written CUDA C++
-kernel for Hopper (``csrc/*.cu``, built by ``_build``) with a plain PyTorch
-version beside it:
+Seven kernels, each a hand-written CUDA C++ kernel for Hopper
+(``csrc/*.cu``, built by ``_build``) with a plain PyTorch version beside it:
 
-- ``flash_prefill_attention``: causal GQA prefill attention
-  (``csrc/flash_prefill.cu``; replaces the Pallas ``_prefill_kernel``);
-- ``ragged_paged_decode_attention``: one query per row against the page
-  pool through a page table (``csrc/paged_decode.cu``; replaces
-  ``_paged_decode_kernel``);
-- ``ragged_paged_decode_attention_int8``: the same over int8 pages with
-  per-token scales (``csrc/paged_decode.cu``; replaces
+- ``flash_segment_attention`` / ``flash_segment_attention_int8``: a
+  chunked-prefill segment at a per-row global offset against the dense
+  cache prefix plus its own lower triangle, over a model-dtype or an int8
+  cache (``csrc/flash_segment.cu``; replaces ``_segment_kernel`` /
+  ``_segment_int8_kernel``);
+- ``flash_prefill_attention``: causal GQA prefill attention, the same
+  kernel at offset 0 over the prompt's own K/V (replaces the Pallas
+  ``_prefill_kernel``);
+- ``ragged_decode_attention`` / ``ragged_decode_attention_int8``: one query
+  per row against a dense head-major cache (``csrc/ragged_decode.cu``;
+  replaces ``_decode_kernel`` / ``_decode_int8_kernel``);
+- ``ragged_paged_decode_attention`` / ``ragged_paged_decode_attention_int8``:
+  one query per row against the page pool through a page table
+  (``csrc/ragged_decode.cu``; replaces ``_paged_decode_kernel`` /
   ``_paged_decode_int8_kernel``).
 
 A wrapper takes its plain version only because the tensor it was given lies
@@ -20,8 +26,10 @@ fallback. Each wrapper counts its kernel launches in a plain int attribute
 plain-version calls on the CPU (``wrapper.cpu_calls``).
 
 Layouts are the JAX package's: queries ``[B, S, H, D]``, head-major K/V
-``[B, Hkv, S, D]``, page-pool entries ``[P, Hkv, page_size, D]`` (int8:
-``{"q": i8 [P, Hkv, ps, D], "s": f32 [P, Hkv, ps]}``).
+``[B, Hkv, S, D]``, dense caches ``[B, Hkv, T, D]`` (int8: ``{"q": i8
+[B, Hkv, T, D], "s": f32 [B, Hkv, T]}``), page-pool entries ``[P, Hkv,
+page_size, D]`` (int8 likewise). A dense cache may be a ``[..., :T]`` view
+of a wider one: the kernels read it in place through its strides.
 """
 
 from __future__ import annotations
@@ -39,9 +47,11 @@ _NEG = -1e30
 # head dims and query heads per kv head the CUDA kernels are built for
 KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_GROUPS = (1, 2, 4, 8)
-# tokens of one row that one CTA of the paged decode kernel covers
+# tokens of one row that one CTA of the decode kernels covers
 SPLIT_TOKENS = 256
-PagedEntry = Union[torch.Tensor, dict]
+# rows of a dense cache that the decode kernel stages at a time (its "page")
+DENSE_TILE = 64
+CacheEntry = Union[torch.Tensor, dict]
 
 
 def kernel_path_ok(config: ModelConfig, device: torch.device) -> bool:
@@ -106,6 +116,45 @@ def _check(t: torch.Tensor, name: str, dtypes: tuple, device: torch.device) -> N
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _check_rows(t: torch.Tensor, name: str, dtypes: tuple, device: torch.device) -> None:
+    """A cache leaf the kernels read through its strides: rows of its last
+    dimension contiguous (``[..., T, D]`` with T stride D; scales ``[..., T]``
+    with T stride 1), every other stride a whole number of rows, 16-byte
+    aligned — a ``[..., :T]`` view of a contiguous cache qualifies."""
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    row = t.shape[-1] if t.dim() == 4 else 1
+    inner = (t.stride(-1), t.stride(-2)) if t.dim() == 4 else (t.stride(-1), 1)
+    if inner != (1, row) or t.stride(0) % row or t.stride(1) % row:
+        raise ValueError(f"{name}: strides {t.stride()} do not keep rows contiguous")
+    if t.dim() == 4 and t.data_ptr() % 16:
+        raise ValueError(f"{name}: not 16-byte aligned")
+
+
+def _check_cache(k: CacheEntry, v: CacheEntry, device: torch.device, what: str) -> tuple:
+    """Validate a dense cache pair (tensors, or int8 dicts with scales) for
+    the kernels that read it through its strides → (k, v, k scales, v
+    scales, scale strides (batch, kv head)); the scales are None and their
+    strides 0 for a model-dtype cache."""
+    quant = isinstance(k, dict)
+    kq, vq = (k["q"], v["q"]) if quant else (k, v)
+    kv_types = (torch.int8,) if quant else (torch.bfloat16,)
+    _check_rows(kq, "k", kv_types, device)
+    _check_rows(vq, "v", kv_types, device)
+    if vq.shape != kq.shape or vq.stride() != kq.stride():
+        raise ValueError(f"{what}: k {tuple(kq.shape)} and v {tuple(vq.shape)} differ in layout")
+    if not quant:
+        return kq, vq, None, None, (0, 0)
+    ks, vs = k["s"], v["s"]
+    _check_rows(ks, "k scales", (torch.float32,), device)
+    _check_rows(vs, "v scales", (torch.float32,), device)
+    if ks.shape != kq.shape[:-1] or vs.shape != ks.shape or vs.stride() != ks.stride():
+        raise ValueError(f"{what}: scales {tuple(ks.shape)} vs cache {tuple(kq.shape)}")
+    return kq, vq, ks, vs, (ks.stride(0), ks.stride(1))
+
+
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x
@@ -121,24 +170,27 @@ def _stream(device: torch.device) -> int:
 # ---------------------------------------------------------------------------
 
 
-def flash_prefill_reference(
+def _flash_reference(
     q: torch.Tensor,  # [B, S, H, D]
-    k: torch.Tensor,  # [B, Hkv, S, D] head-major
+    k: torch.Tensor,  # [B, Hkv, T, D] head-major, model dtype
     v: torch.Tensor,
+    offset: torch.Tensor,  # [B] global position of query 0
     config: ModelConfig,
 ) -> torch.Tensor:
-    """Plain version of the prefill kernel → [B, S, H*D]: f32 scores of the
-    model-dtype operands, the -1e30 causal mask, f32 softmax statistics, p
-    rounded to v's dtype before PV, l clamped to 1e-30."""
+    """The math of the prefill and segment kernels → [B, S, H*D]: f32
+    scores of the model-dtype operands, key k visible to query i of row b
+    iff k <= offset[b] + i, the -1e30 mask, f32 softmax statistics, p
+    rounded to v's dtype before PV (l sums the unrounded p), l clamped to
+    1e-30 so a row that sees no key gives 0."""
     b, s, h, d = q.shape
-    hkv = k.shape[1]
+    hkv, t = k.shape[1], k.shape[2]
     group = h // hkv
     qg = q.reshape(b, s, hkv, group, d).permute(0, 2, 3, 1, 4).float()  # [B,Hkv,G,S,D]
     scores = torch.matmul(qg, k.float().transpose(-1, -2)[:, :, None]) * (1.0 / math.sqrt(d))
     scores = softcap(scores, config.attn_logit_softcap)
-    pos = torch.arange(s, device=q.device)
-    causal = pos[None, :] <= pos[:, None]  # [S(q), S(k)]
-    scores = torch.where(causal, scores, torch.full_like(scores, _NEG))
+    qpos = offset.long()[:, None] + torch.arange(s, device=q.device)[None, :]  # [B, S]
+    visible = torch.arange(t, device=q.device)[None, None, :] <= qpos[:, :, None]  # [B, S, T]
+    scores = torch.where(visible[:, None, None], scores, torch.full_like(scores, _NEG))
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     p = torch.where(scores <= _NEG, torch.zeros_like(p), p)
@@ -148,14 +200,27 @@ def flash_prefill_reference(
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h * d)
 
 
+def flash_prefill_reference(
+    q: torch.Tensor,  # [B, S, H, D]
+    k: torch.Tensor,  # [B, Hkv, S, D] head-major
+    v: torch.Tensor,
+    config: ModelConfig,
+) -> torch.Tensor:
+    """Plain version of the prefill kernel → [B, S, H*D]: the segment math
+    at offset 0 over the prompt's own S keys (causal)."""
+    offset = torch.zeros(q.shape[0], dtype=torch.long, device=q.device)
+    return _flash_reference(q, k, v, offset, config)
+
+
 def flash_prefill_attention(
     q: torch.Tensor,  # [B, S, H, D]
     k: torch.Tensor,  # [B, Hkv, S, D] head-major
     v: torch.Tensor,
     config: ModelConfig,
 ) -> torch.Tensor:
-    """Causal GQA attention → [B, S, H*D]; the CUDA kernel on a CUDA
-    tensor (bf16, contiguous), the plain version on a CPU tensor."""
+    """Causal GQA attention → [B, S, H*D]; on a CUDA tensor (bf16) the
+    segment kernel at offset 0 with the prompt's own K/V as its cache, the
+    plain version on a CPU tensor."""
     b, s, h, d = q.shape
     hkv = k.shape[1]
     if k.shape != (b, hkv, s, d) or v.shape != k.shape or h % hkv:
@@ -163,22 +228,9 @@ def flash_prefill_attention(
     if q.device.type == "cpu":
         flash_prefill_attention.cpu_calls += 1
         return flash_prefill_reference(q, k, v, config)
-    _require_cuda_kernel(q.device, d, "flash_prefill")
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _check(t, name, (torch.bfloat16,), q.device)
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    if s == 0:
-        return out.reshape(b, s, h * d)
-    lib = _build.library("flash_prefill")
-    cap = config.attn_logit_softcap
-    err = lib.lstpu_flash_prefill_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, h, hkv, d, 1.0 / math.sqrt(d), float(cap) if cap else 0.0,
-        _stream(q.device),
-    )
-    _build.check(err, "flash_prefill")
+    out = _segment_launch(q, k, v, None, config, "flash_prefill")
     flash_prefill_attention.launches += 1
-    return out.reshape(b, s, h * d)
+    return out
 
 
 flash_prefill_attention.launches = 0
@@ -186,42 +238,147 @@ flash_prefill_attention.cpu_calls = 0
 
 
 # ---------------------------------------------------------------------------
-# Ragged PAGED decode: one query per row through the page table
+# Chunked-prefill segment: queries at a per-row global offset against the
+# dense cache prefix plus their own lower triangle
 # ---------------------------------------------------------------------------
 
 
-def _gather_pages_f32(entry: PagedEntry, pages: torch.Tensor) -> torch.Tensor:
-    """Pool entry [P, Hkv, ps, D] (int8 dicts dequantized q*s in f32)
-    gathered through ``pages`` [B, Tp] → [B, Hkv, Tp*ps, D] f32."""
+def _dequantize(entry: CacheEntry, dtype: torch.dtype) -> torch.Tensor:
+    """An int8 cache entry dequantized as the int8 segment kernel does:
+    (float(q) * s) rounded to ``dtype``; a tensor passes through."""
     if isinstance(entry, dict):
-        g = entry["q"][pages].float() * entry["s"][pages][..., None]
-    else:
-        g = entry[pages].float()
-    b, tp, hkv, ps, d = g.shape
-    return g.permute(0, 2, 1, 3, 4).reshape(b, hkv, tp * ps, d)
+        return (entry["q"].float() * entry["s"][..., None]).to(dtype)
+    return entry
 
 
-def paged_decode_reference(
-    q: torch.Tensor,  # [B, H, D]
-    k: PagedEntry,  # [P, Hkv, ps, D] (or int8 dict)
-    v: PagedEntry,
-    lengths: torch.Tensor,  # [B]
-    table: torch.Tensor,  # [B, Tp]
+def flash_segment_reference(
+    q: torch.Tensor,  # [B, S, H, D]
+    k: torch.Tensor,  # [B, Hkv, T, D] cache
+    v: torch.Tensor,
+    offset: torch.Tensor,  # [B]
     config: ModelConfig,
-    page_size: int,
 ) -> torch.Tensor:
-    """Plain version of both paged decode kernels → [B, H*D]: pages gathered
-    through the table with the physical index clamped into [0, P-1], K/V in
-    f32 (int8 dequantized), keys past each row's length masked to -1e30 and
-    never accumulated, f32 softmax, l clamped to 1e-30."""
+    """Plain version of the segment kernel → [B, S, H*D]."""
+    return _flash_reference(q, k, v, offset, config)
+
+
+def flash_segment_int8_reference(
+    q: torch.Tensor,  # [B, S, H, D]
+    k: dict,  # {"q": i8 [B, Hkv, T, D], "s": f32 [B, Hkv, T]}
+    v: dict,
+    offset: torch.Tensor,  # [B]
+    config: ModelConfig,
+) -> torch.Tensor:
+    """Plain version of the int8 segment kernel → [B, S, H*D]: K/V are
+    dequantized to the MODEL dtype (q's) before the dots, as on the TPU."""
+    return _flash_reference(q, _dequantize(k, q.dtype), _dequantize(v, q.dtype), offset, config)
+
+
+def _segment_launch(
+    q: torch.Tensor, k: CacheEntry, v: CacheEntry, offset: Optional[torch.Tensor],
+    config: ModelConfig, what: str,
+) -> torch.Tensor:
+    """Launch csrc/flash_segment.cu; ``offset`` None is offset 0 for every
+    row (a prefill)."""
+    b, s, h, d = q.shape
+    dev = q.device
+    _require_cuda_kernel(dev, d, what)
+    kq, vq, ks, vs, sc_strides = _check_cache(k, v, dev, what)
+    hkv, t = kq.shape[1], kq.shape[2]
+    if kq.shape != (b, hkv, t, d) or (offset is not None and offset.shape != (b,)):
+        raise ValueError(f"{what}: q {tuple(q.shape)} / offset "
+                         f"{None if offset is None else tuple(offset.shape)} "
+                         f"vs cache {tuple(kq.shape)}")
+    _require_group(h, hkv, what)
+    _check(q, "q", (torch.bfloat16,), dev)
+    if offset is not None:
+        _check(offset, "offset", (torch.int32,), dev)
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
+    if s == 0:
+        return out.reshape(b, s, h * d)
+    lib = _build.library("flash_segment")
+    cap = config.attn_logit_softcap
+    err = lib.lstpu_flash_segment(
+        q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
+        ks.data_ptr() if ks is not None else None, vs.data_ptr() if vs is not None else None,
+        offset.data_ptr() if offset is not None else None, out.data_ptr(),
+        b, s, h, hkv, d, t, kq.stride(0), kq.stride(1), *sc_strides,
+        1.0 / math.sqrt(d), float(cap) if cap else 0.0, int(ks is not None), _stream(dev),
+    )
+    _build.check(err, what)
+    return out.reshape(b, s, h * d)
+
+
+def flash_segment_attention(
+    q: torch.Tensor,  # [B, S, H, D] segment queries
+    k: torch.Tensor,  # [B, Hkv, T, D] cache, the segment's K/V already written
+    v: torch.Tensor,
+    offset: torch.Tensor,  # [B] int32 global position of each row's segment start
+    config: ModelConfig,
+) -> torch.Tensor:
+    """Causal GQA attention of a segment against the cache prefix plus
+    itself → [B, S, H*D]; the CUDA kernel on CUDA tensors (bf16 q and
+    cache, int32 offsets on the card), the plain version on the CPU."""
+    if q.device.type == "cpu":
+        flash_segment_attention.cpu_calls += 1
+        return flash_segment_reference(q, k, v, offset, config)
+    out = _segment_launch(q, k, v, offset, config, "flash_segment")
+    flash_segment_attention.launches += 1
+    return out
+
+
+flash_segment_attention.launches = 0
+flash_segment_attention.cpu_calls = 0
+
+
+def flash_segment_attention_int8(
+    q: torch.Tensor,  # [B, S, H, D]
+    k: dict,  # int8 cache entry {"q": [B,Hkv,T,D] i8, "s": [B,Hkv,T] f32}
+    v: dict,
+    offset: torch.Tensor,  # [B] int32
+    config: ModelConfig,
+) -> torch.Tensor:
+    """``flash_segment_attention`` over the int8 cache → [B, S, H*D]; the
+    int8 tiles are dequantized to bf16 on the chip, so no cache-sized bf16
+    copy is ever made."""
+    if q.device.type == "cpu":
+        flash_segment_attention_int8.cpu_calls += 1
+        return flash_segment_int8_reference(q, k, v, offset, config)
+    out = _segment_launch(q, k, v, offset, config, "flash_segment_int8")
+    flash_segment_attention_int8.launches += 1
+    return out
+
+
+flash_segment_attention_int8.launches = 0
+flash_segment_attention_int8.cpu_calls = 0
+
+
+# ---------------------------------------------------------------------------
+# Ragged decode: one query per row against its dense cache row, or against
+# the page pool through a page table
+# ---------------------------------------------------------------------------
+
+
+def _f32(entry: CacheEntry) -> torch.Tensor:
+    """A cache entry in f32 (int8 dicts dequantized q*s)."""
+    if isinstance(entry, dict):
+        return entry["q"].float() * entry["s"][..., None]
+    return entry.float()
+
+
+def _decode_f32(
+    q: torch.Tensor,  # [B, H, D]
+    kk: torch.Tensor,  # [B, Hkv, T, D] f32
+    vv: torch.Tensor,
+    lengths: torch.Tensor,  # [B]
+    config: ModelConfig,
+) -> torch.Tensor:
+    """The math of every decode kernel → [B, H*D]: keys past each row's
+    length (clamped to T) masked to -1e30 and never accumulated, f32
+    softmax, l clamped to 1e-30."""
     b, h, d = q.shape
-    leaf = k["q"] if isinstance(k, dict) else k
-    num_pages, hkv = leaf.shape[0], leaf.shape[1]
+    hkv, t = kk.shape[1], kk.shape[2]
     group = h // hkv
-    pages = table.long().clamp(0, num_pages - 1)
-    kk = _gather_pages_f32(k, pages)
-    vv = _gather_pages_f32(v, pages)
-    t = kk.shape[2]
     valid = torch.arange(t, device=q.device)[None, :] < lengths.long()[:, None]  # [B, T]
     vv = vv.masked_fill(~valid[:, None, :, None], 0.0)
     qf = q.float().reshape(b, hkv, group, d)
@@ -236,8 +393,135 @@ def paged_decode_reference(
     return out.to(q.dtype).reshape(b, h * d)
 
 
+def ragged_decode_reference(
+    q: torch.Tensor,  # [B, H, D]
+    k: CacheEntry,  # [B, Hkv, T, D] cache (or int8 dict)
+    v: CacheEntry,
+    lengths: torch.Tensor,  # [B]
+    config: ModelConfig,
+) -> torch.Tensor:
+    """Plain version of both dense decode kernels → [B, H*D]: K/V in f32
+    (int8 dequantized, f32 throughout as on the TPU)."""
+    return _decode_f32(q, _f32(k), _f32(v), lengths, config)
+
+
+def _dense_decode_launch(
+    q: torch.Tensor, k: CacheEntry, v: CacheEntry, lengths: torch.Tensor,
+    config: ModelConfig, what: str,
+) -> torch.Tensor:
+    b, h, d = q.shape
+    dev = q.device
+    _require_cuda_kernel(dev, d, what)
+    kq, vq, ks, vs, sc_strides = _check_cache(k, v, dev, what)
+    hkv, t = kq.shape[1], kq.shape[2]
+    if kq.shape != (b, hkv, t, d) or t == 0 or lengths.shape != (b,):
+        raise ValueError(f"{what}: q {tuple(q.shape)} / lengths {tuple(lengths.shape)} "
+                         f"vs cache {tuple(kq.shape)}")
+    _require_group(h, hkv, what)
+    _check(q, "q", (torch.bfloat16,), dev)
+    _check(lengths, "lengths", (torch.int32,), dev)
+    out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
+    # split-K scratch, as for the paged kernel: DENSE_TILE rows per tile
+    pps = max(1, SPLIT_TOKENS // DENSE_TILE)
+    tiles = -(-t // DENSE_TILE)
+    splits = -(-tiles // pps)
+    group = h // hkv
+    m_part = torch.empty((b, hkv, splits, group), dtype=torch.float32, device=dev)
+    l_part = torch.empty_like(m_part)
+    acc_part = torch.empty((b, hkv, splits, group, d), dtype=torch.float32, device=dev)
+    lib = _build.library("ragged_decode")
+    cap = config.attn_logit_softcap
+    err = lib.lstpu_dense_decode(
+        q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
+        ks.data_ptr() if ks is not None else None, vs.data_ptr() if vs is not None else None,
+        lengths.data_ptr(), out.data_ptr(),
+        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
+        b, h, hkv, d, t, kq.stride(0), kq.stride(1), *sc_strides, DENSE_TILE, pps,
+        1.0 / math.sqrt(d), float(cap) if cap else 0.0, int(ks is not None), _stream(dev),
+    )
+    _build.check(err, what)
+    return out.reshape(b, h * d)
+
+
+def ragged_decode_attention(
+    q: torch.Tensor,  # [B, H, D] single query per row
+    k: torch.Tensor,  # [B, Hkv, T, D] dense cache (a [..., :T] view is read in place)
+    v: torch.Tensor,
+    lengths: torch.Tensor,  # [B] int32 valid cache prefix per row (clamped to T)
+    config: ModelConfig,
+) -> torch.Tensor:
+    """GQA decode attention over a dense cache → [B, H*D]; the CUDA kernel
+    on CUDA tensors (bf16 q and cache), the plain version on the CPU."""
+    if q.device.type == "cpu":
+        ragged_decode_attention.cpu_calls += 1
+        return ragged_decode_reference(q, k, v, lengths, config)
+    out = _dense_decode_launch(q, k, v, lengths, config, "dense_decode")
+    ragged_decode_attention.launches += 1
+    return out
+
+
+ragged_decode_attention.launches = 0
+ragged_decode_attention.cpu_calls = 0
+
+
+def ragged_decode_attention_int8(
+    q: torch.Tensor,  # [B, H, D]
+    k: dict,  # int8 cache entry {"q": [B,Hkv,T,D] i8, "s": [B,Hkv,T] f32}
+    v: dict,
+    lengths: torch.Tensor,  # [B] int32
+    config: ModelConfig,
+) -> torch.Tensor:
+    """GQA decode attention over an int8 dense cache → [B, H*D]; rows are
+    dequantized to f32 in registers, as the TPU kernel does in VMEM."""
+    if q.device.type == "cpu":
+        ragged_decode_attention_int8.cpu_calls += 1
+        return ragged_decode_reference(q, k, v, lengths, config)
+    out = _dense_decode_launch(q, k, v, lengths, config, "dense_decode_int8")
+    ragged_decode_attention_int8.launches += 1
+    return out
+
+
+ragged_decode_attention_int8.launches = 0
+ragged_decode_attention_int8.cpu_calls = 0
+
+
+# ---------------------------------------------------------------------------
+# Ragged PAGED decode: one query per row through the page table
+# ---------------------------------------------------------------------------
+
+
+def _gather_pages_f32(entry: CacheEntry, pages: torch.Tensor) -> torch.Tensor:
+    """Pool entry [P, Hkv, ps, D] (int8 dicts dequantized q*s in f32)
+    gathered through ``pages`` [B, Tp] → [B, Hkv, Tp*ps, D] f32."""
+    if isinstance(entry, dict):
+        g = entry["q"][pages].float() * entry["s"][pages][..., None]
+    else:
+        g = entry[pages].float()
+    b, tp, hkv, ps, d = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(b, hkv, tp * ps, d)
+
+
+def paged_decode_reference(
+    q: torch.Tensor,  # [B, H, D]
+    k: CacheEntry,  # [P, Hkv, ps, D] (or int8 dict)
+    v: CacheEntry,
+    lengths: torch.Tensor,  # [B]
+    table: torch.Tensor,  # [B, Tp]
+    config: ModelConfig,
+    page_size: int,
+) -> torch.Tensor:
+    """Plain version of both paged decode kernels → [B, H*D]: pages gathered
+    through the table with the physical index clamped into [0, P-1], then
+    the dense decode math."""
+    num_pages = (k["q"] if isinstance(k, dict) else k).shape[0]
+    pages = table.long().clamp(0, num_pages - 1)
+    return _decode_f32(
+        q, _gather_pages_f32(k, pages), _gather_pages_f32(v, pages), lengths, config
+    )
+
+
 def _paged_decode_launch(
-    q: torch.Tensor, k: PagedEntry, v: PagedEntry, lengths: torch.Tensor,
+    q: torch.Tensor, k: CacheEntry, v: CacheEntry, lengths: torch.Tensor,
     table: torch.Tensor, page_size: int, config: ModelConfig, what: str,
 ) -> torch.Tensor:
     b, h, d = q.shape
@@ -274,7 +558,7 @@ def _paged_decode_launch(
     m_part = torch.empty((b, hkv, splits, group), dtype=torch.float32, device=dev)
     l_part = torch.empty_like(m_part)
     acc_part = torch.empty((b, hkv, splits, group, d), dtype=torch.float32, device=dev)
-    lib = _build.library("paged_decode")
+    lib = _build.library("ragged_decode")
     cap = config.attn_logit_softcap
     err = lib.lstpu_paged_decode(
         q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
@@ -344,6 +628,10 @@ KERNELS: dict[str, Callable] = {
     "flash_prefill": flash_prefill_attention,
     "paged_decode": ragged_paged_decode_attention,
     "paged_decode_int8": ragged_paged_decode_attention_int8,
+    "flash_segment": flash_segment_attention,
+    "flash_segment_int8": flash_segment_attention_int8,
+    "dense_decode": ragged_decode_attention,
+    "dense_decode_int8": ragged_decode_attention_int8,
 }
 
 

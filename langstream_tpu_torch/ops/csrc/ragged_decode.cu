@@ -1,41 +1,52 @@
-// Ragged paged decode attention: one query per row against a page pool
-// through a page table, sm_90a. bf16 queries; bf16 pages and int8 pages
-// with per-token f32 scales are instantiations of one template.
+// Ragged decode attention: one query per row against its first `length`
+// cache rows, sm_90a. The rows come from a page pool through a page table
+// (paged layout) or from a dense head-major cache through its strides
+// (dense layout): an addressing template flag (kDense) of one kernel. bf16
+// queries; a bf16 cache and an int8 cache with per-token f32 scales are
+// instantiations of one template.
 //
 // Replaces: langstream_tpu/ops/attention.py,
 //   - ragged_paged_decode_attention (wrapper :849, pallas_call :892),
 //     kernel body _paged_decode_kernel (:766), index map _paged_kv_index (:833);
 //   - ragged_paged_decode_attention_int8 (wrapper :979, pallas_call :1026),
-//     kernel body _paged_decode_int8_kernel (:907).
-// Same math: q and the page rows are widened to f32 (int8 pages are
+//     kernel body _paged_decode_int8_kernel (:907);
+//   - ragged_decode_attention (wrapper :526, pallas_call :577), kernel body
+//     _decode_kernel (:464) — the dense layout;
+//   - ragged_decode_attention_int8 (wrapper :670, pallas_call :731), kernel
+//     body _decode_int8_kernel (:596).
+// Same math: q and the cache rows are widened to f32 (int8 rows are
 // dequantized q*s to f32 in registers: the K scale multiplies the row's
 // dot, the V scale the row's probability), scores and softmax in f32 with
 // the -1e30 mask constant, p = 0 where s <= -1e30, l clamped to 1e-30,
-// output rounded to bf16. Logical pages past a row's length
-// are never visited (the TPU kernel re-references the last valid page and
-// skips its body), and the physical page is clamped into [0, P-1], so an
-// unmapped sentinel entry reads some page instead of faulting.
+// output rounded to bf16. Rows past a row's length are never visited (the
+// TPU kernels re-reference the last valid block and skip its body). Paged:
+// the physical page is clamped into [0, P-1], so an unmapped sentinel entry
+// reads some page instead of faulting. Dense: the length is clamped to the
+// cache width T, so a row whose position ran past a [..., :T] view reads
+// the view and nothing beyond it.
 //
 // Bound on an H100: device-memory bytes. A step reads every valid K/V
 // element once — sum(lengths) * Hkv * D * 2 * itemsize per layer (plus the
 // int8 scales) at 3.35 TB/s — and does ~4 flops per element read.
 //
-// Design. The TPU grid walks a row's pages in order carrying m/l/acc in
-// scratch; here the pages of a row are SPLIT across CTAs (split-K), so a
-// batch of a few long rows still fills the SMs: one CTA per (kv head, row,
-// split of `pps` pages) runs the online softmax over its pages and writes
-// its partial (m, l, acc) to scratch, and a second small kernel merges the
-// splits of each row (exp(m_s - M) weights). Inside a CTA each page's K
-// and V rows inside the length are first copied into shared memory with
-// 16-byte loads (all 128 threads, many loads in flight — the bandwidth
-// lever), K with one padding word per row so that threads reading
-// neighbouring rows hit distinct banks. The G query heads of the kv head
-// share every K/V byte read: scores are computed by one thread per (row,
-// half of D) for all G heads at once, then one warp per head updates the
-// online softmax, then each thread accumulates its own output columns
-// over the page's V rows. Keys past the length are neither loaded nor
-// accumulated, so bytes scale with sum(lengths), not with Tp * page_size.
-// Not yet: double-buffered (cp.async / TMA) page loads, wgmma.
+// Design. The TPU grid walks a row's blocks in order carrying m/l/acc in
+// scratch; here the tiles of a row (a page, or `ps` consecutive dense rows)
+// are SPLIT across CTAs (split-K), so a batch of a few long rows still
+// fills the SMs: one CTA per (kv head, row, split of `pps` tiles) runs the
+// online softmax over its tiles and writes its partial (m, l, acc) to
+// scratch, and a second small kernel merges the splits of each row
+// (exp(m_s - M) weights). Inside a CTA each tile's K and V rows inside the
+// length are first copied into shared memory with 16-byte loads (all 128
+// threads, many loads in flight — the bandwidth lever), K with one padding
+// word per row so that threads reading neighbouring rows hit distinct
+// banks. The G query heads of the kv head share every K/V byte read:
+// scores are computed by one thread per (row, half of D) for all G heads at
+// once, then one warp per head updates the online softmax, then each thread
+// accumulates its own output columns over the tile's V rows. Keys past the
+// length are neither loaded nor accumulated, so bytes scale with
+// sum(lengths), not with the cache width. The dense cache is read in place
+// through its strides: a [..., :T] view of a wider cache is never copied.
+// Not yet: double-buffered (cp.async / TMA) tile loads, wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,20 +106,27 @@ __host__ __device__ inline Layout layout(int G, int D, int ps, int item) {
   return L;
 }
 
-template <typename TKV, int D, int G>
+// Paged (kDense false): tile j of row b is logical page j, found through
+// the table — its first row is (page * Hkv + kvh) * ps of the pool [P, Hkv,
+// ps, D]. Dense: tile j of row b is rows [j * ps, (j + 1) * ps) of the
+// head-major cache, whose batch / kv-head strides are rsb / rsh rows (of D
+// elements) for K/V and ssb / ssh for the scales; the length is clamped
+// to the cache width T, and the table, P and Tp are unused.
+template <typename TKV, int D, int G, bool kDense>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_split_kernel(const bf16* __restrict__ q,         // [B, H, D]
-                          const TKV* __restrict__ kp,         // [P, Hkv, ps, D]
-                          const TKV* __restrict__ vp,         // [P, Hkv, ps, D]
-                          const float* __restrict__ k_scale,  // [P, Hkv, ps] (int8 only)
-                          const float* __restrict__ v_scale,
-                          const int* __restrict__ lengths,    // [B]
-                          const int* __restrict__ table,      // [B, Tp]
-                          float* __restrict__ m_out,          // [B, Hkv, NS, G]
-                          float* __restrict__ l_out,          // [B, Hkv, NS, G]
-                          float* __restrict__ acc_out,        // [B, Hkv, NS, G, D]
-                          int H, int Hkv, int P, int ps, int Tp, int pps, int NS, float scale,
-                          float softcap) {
+decode_split_kernel(const bf16* __restrict__ q,         // [B, H, D]
+                    const TKV* __restrict__ kp,         // pool or cache (see above)
+                    const TKV* __restrict__ vp,
+                    const float* __restrict__ k_scale,  // per-row scales (int8 only)
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ lengths,    // [B]
+                    const int* __restrict__ table,      // [B, Tp] (paged)
+                    float* __restrict__ m_out,          // [B, Hkv, NS, G]
+                    float* __restrict__ l_out,          // [B, Hkv, NS, G]
+                    float* __restrict__ acc_out,        // [B, Hkv, NS, G, D]
+                    int H, int Hkv, int P, int ps, int Tp, int pps, int NS, float scale,
+                    float softcap, int T, long long rsb, long long rsh, long long ssb,
+                    long long ssh) {
   constexpr bool kInt8 = sizeof(TKV) == 1;
   constexpr int kCols = (D + kThreads - 1) / kThreads;
   constexpr int kRowVecs = D * int(sizeof(TKV)) / 16;  // 16-byte vectors per row
@@ -133,8 +151,8 @@ paged_decode_split_kernel(const bf16* __restrict__ q,         // [B, H, D]
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int h0 = kvh * G;
-  const int length = max(lengths[b], 0);
-  const int n_pages = min((length + ps - 1) / ps, Tp);
+  const int length = kDense ? min(max(lengths[b], 0), T) : max(lengths[b], 0);
+  const int n_pages = kDense ? (length + ps - 1) / ps : min((length + ps - 1) / ps, Tp);
   const int p_begin = split * pps;
   const int p_end = min(p_begin + pps, n_pages);
   const size_t pidx = (size_t(b) * Hkv + kvh) * NS + split;
@@ -152,9 +170,16 @@ paged_decode_split_kernel(const bf16* __restrict__ q,         // [B, H, D]
   __syncthreads();
 
   for (int j = p_begin; j < p_end; ++j) {
-    const int page = min(max(table[size_t(b) * Tp + j], 0), P - 1);
-    const size_t row0 = (size_t(page) * Hkv + kvh) * ps;  // first token row of this page/head
-    const int valid = min(ps, length - j * ps);           // rows of this page inside the length
+    size_t row0, sc0;  // the tile's first cache row and the index of its scale
+    if constexpr (kDense) {
+      row0 = size_t(b * rsb + kvh * rsh) + size_t(j) * ps;
+      sc0 = size_t(b * ssb + kvh * ssh) + size_t(j) * ps;
+    } else {
+      const int page = min(max(table[size_t(b) * Tp + j], 0), P - 1);
+      row0 = (size_t(page) * Hkv + kvh) * ps;
+      sc0 = row0;
+    }
+    const int valid = min(ps, length - j * ps);  // rows of this tile inside the length
 
     // stage the page's valid K/V rows in shared memory: 16-byte loads,
     // kBatch of each tensor in flight per thread before any store
@@ -187,8 +212,8 @@ paged_decode_split_kernel(const bf16* __restrict__ q,         // [B, H, D]
     }
     if (kInt8) {
       for (int t = tid; t < valid; t += kThreads) {
-        ksc[t] = k_scale[row0 + t];
-        vsc[t] = v_scale[row0 + t];
+        ksc[t] = k_scale[sc0 + t];
+        vsc[t] = v_scale[sc0 + t];
       }
     }
     __syncthreads();
@@ -298,10 +323,9 @@ paged_decode_split_kernel(const bf16* __restrict__ q,         // [B, H, D]
 // sums load their accumulators back to back.
 template <int D, int G>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_combine_kernel(const float* __restrict__ m_in, const float* __restrict__ l_in,
-                            const float* __restrict__ acc_in, const int* __restrict__ lengths,
-                            bf16* __restrict__ out, int H, int Hkv, int ps, int Tp, int pps,
-                            int NS) {
+decode_combine_kernel(const float* __restrict__ m_in, const float* __restrict__ l_in,
+                      const float* __restrict__ acc_in, const int* __restrict__ lengths,
+                      bf16* __restrict__ out, int H, int Hkv, int ps, int Tp, int pps, int NS) {
   extern __shared__ float wsm[];  // [NS][G] split weights, then [G] inverse denominators
   float* inv = wsm + NS * G;
   const int kvh = blockIdx.x;
@@ -335,71 +359,73 @@ paged_decode_combine_kernel(const float* __restrict__ m_in, const float* __restr
   }
 }
 
-template <typename TKV, int D, int G>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-                   const int* lengths, const int* table, void* out, float* m_s, float* l_s,
-                   float* acc_s, int B, int H, int Hkv, int P, int ps, int Tp, int pps,
-                   float scale, float softcap, cudaStream_t stream) {
-  const int NS = (Tp + pps - 1) / pps;
-  const size_t smem = layout(G, D, ps, int(sizeof(TKV))).total;
+struct Launch {
+  const void *q, *k, *v, *k_scale, *v_scale;
+  const int *lengths, *table;
+  void* out;
+  float *m, *l, *acc;  // split scratch
+  int B, H, Hkv, P, ps, Tp, pps;  // Tp: tiles of a full row (table width, or ceil(T / ps))
+  float scale, softcap;
+  int T;                               // dense: cache width
+  long long rsb, rsh, ssb, ssh;        // dense: strides (see decode_split_kernel)
+};
+
+template <typename TKV, int D, int G, bool kDense>
+cudaError_t launch(const Launch& a, cudaStream_t stream) {
+  const int NS = (a.Tp + a.pps - 1) / a.pps;
+  const size_t smem = layout(G, D, a.ps, int(sizeof(TKV))).total;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto split = paged_decode_split_kernel<TKV, D, G>;
+  auto split = decode_split_kernel<TKV, D, G, kDense>;
   if (smem > 48 * 1024) {
     cudaError_t err =
         cudaFuncSetAttribute(split, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
   }
-  split<<<dim3(Hkv, B, NS), kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-      static_cast<const float*>(ks), static_cast<const float*>(vs), lengths, table, m_s, l_s,
-      acc_s, H, Hkv, P, ps, Tp, pps, NS, scale, softcap);
+  split<<<dim3(a.Hkv, a.B, NS), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const TKV*>(a.k), static_cast<const TKV*>(a.v),
+      static_cast<const float*>(a.k_scale), static_cast<const float*>(a.v_scale), a.lengths,
+      a.table, a.m, a.l, a.acc, a.H, a.Hkv, a.P, a.ps, a.Tp, a.pps, NS, a.scale, a.softcap, a.T,
+      a.rsb, a.rsh, a.ssb, a.ssh);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t combine_smem = sizeof(float) * (size_t(NS) * G + G);
   if (combine_smem > 48 * 1024) return cudaErrorInvalidValue;
-  paged_decode_combine_kernel<D, G><<<dim3(Hkv, B), kThreads, combine_smem, stream>>>(
-      m_s, l_s, acc_s, lengths, static_cast<bf16*>(out), H, Hkv, ps, Tp, pps, NS);
+  decode_combine_kernel<D, G><<<dim3(a.Hkv, a.B), kThreads, combine_smem, stream>>>(
+      a.m, a.l, a.acc, a.lengths, static_cast<bf16*>(a.out), a.H, a.Hkv, a.ps, a.Tp, a.pps, NS);
   return cudaGetLastError();
 }
 
-template <typename TKV, int D>
-cudaError_t launch_g(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-                     const int* lengths, const int* table, void* out, float* m_s, float* l_s,
-                     float* acc_s, int B, int H, int Hkv, int P, int ps, int Tp, int pps,
-                     float scale, float softcap, cudaStream_t stream) {
-  switch (H / Hkv) {
+template <typename TKV, int D, bool kDense>
+cudaError_t launch_g(const Launch& a, cudaStream_t stream) {
+  switch (a.H / a.Hkv) {
     case 1:
-      return launch<TKV, D, 1>(q, k, v, ks, vs, lengths, table, out, m_s, l_s, acc_s, B, H,
-                                   Hkv, P, ps, Tp, pps, scale, softcap, stream);
+      return launch<TKV, D, 1, kDense>(a, stream);
     case 2:
-      return launch<TKV, D, 2>(q, k, v, ks, vs, lengths, table, out, m_s, l_s, acc_s, B, H,
-                                   Hkv, P, ps, Tp, pps, scale, softcap, stream);
+      return launch<TKV, D, 2, kDense>(a, stream);
     case 4:
-      return launch<TKV, D, 4>(q, k, v, ks, vs, lengths, table, out, m_s, l_s, acc_s, B, H,
-                                   Hkv, P, ps, Tp, pps, scale, softcap, stream);
+      return launch<TKV, D, 4, kDense>(a, stream);
     case 8:
-      return launch<TKV, D, 8>(q, k, v, ks, vs, lengths, table, out, m_s, l_s, acc_s, B, H,
-                                   Hkv, P, ps, Tp, pps, scale, softcap, stream);
+      return launch<TKV, D, 8, kDense>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename TKV>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const void* ks,
-                     const void* vs, const int* lengths, const int* table, void* out, float* m_s,
-                     float* l_s, float* acc_s, int B, int H, int Hkv, int P, int ps, int Tp,
-                     int pps, float scale, float softcap, cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch_g<TKV, 64>(q, k, v, ks, vs, lengths, table, out, m_s, l_s, acc_s, B, H,
-                                   Hkv, P, ps, Tp, pps, scale, softcap, stream);
+template <bool kDense>
+cudaError_t launch_d(int D, int kv_int8, const Launch& a, cudaStream_t stream) {
+  switch (D * 2 + (kv_int8 != 0)) {
     case 128:
-      return launch_g<TKV, 128>(q, k, v, ks, vs, lengths, table, out, m_s, l_s, acc_s, B, H,
-                                    Hkv, P, ps, Tp, pps, scale, softcap, stream);
+      return launch_g<bf16, 64, kDense>(a, stream);
+    case 129:
+      return launch_g<int8_t, 64, kDense>(a, stream);
     case 256:
-      return launch_g<TKV, 256>(q, k, v, ks, vs, lengths, table, out, m_s, l_s, acc_s, B, H,
-                                    Hkv, P, ps, Tp, pps, scale, softcap, stream);
+      return launch_g<bf16, 128, kDense>(a, stream);
+    case 257:
+      return launch_g<int8_t, 128, kDense>(a, stream);
+    case 512:
+      return launch_g<bf16, 256, kDense>(a, stream);
+    case 513:
+      return launch_g<int8_t, 256, kDense>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -421,15 +447,31 @@ extern "C" int lstpu_paged_decode(const void* q, const void* k, const void* v, c
                                   float scale, float softcap, int kv_int8, void* stream) {
   if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || P <= 0 || ps <= 0 || Tp <= 0 || pps <= 0)
     return int(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* lens = static_cast<const int*>(lengths);
-  const int* tab = static_cast<const int*>(table);
-  float* m_s = static_cast<float*>(m_scratch);
-  float* l_s = static_cast<float*>(l_scratch);
-  float* acc_s = static_cast<float*>(acc_scratch);
-  if (kv_int8)
-    return int(launch_d<int8_t>(D, q, k, v, k_scale, v_scale, lens, tab, out, m_s, l_s, acc_s, B,
-                                H, Hkv, P, ps, Tp, pps, scale, softcap, st));
-  return int(launch_d<bf16>(D, q, k, v, k_scale, v_scale, lens, tab, out, m_s, l_s, acc_s, B, H,
-                            Hkv, P, ps, Tp, pps, scale, softcap, st));
+  const Launch a{q, k, v, k_scale, v_scale, static_cast<const int*>(lengths),
+                 static_cast<const int*>(table), out, static_cast<float*>(m_scratch),
+                 static_cast<float*>(l_scratch), static_cast<float*>(acc_scratch), B, H, Hkv, P,
+                 ps, Tp, pps, scale, softcap, 0, 0, 0, 0, 0};
+  return int(launch_d<false>(D, kv_int8, a, static_cast<cudaStream_t>(stream)));
+}
+
+// q [B, H, D] bf16; k/v cache [B, Hkv, T, D] with rows of D contiguous
+// elements at element strides kv_sb (batch) / kv_sh (kv head), bf16 or
+// (kv_int8 != 0) int8 with k_scale/v_scale [B, Hkv, T] f32 at strides
+// sc_sb / sc_sh (else null); lengths [B] i32, clamped to T; out [B, H, D]
+// bf16. The cache is split into tiles of ps rows, pps tiles per split;
+// scratch as for lstpu_paged_decode with NS = ceil(ceil(T / ps) / pps).
+extern "C" int lstpu_dense_decode(const void* q, const void* k, const void* v, const void* k_scale,
+                                  const void* v_scale, const void* lengths, void* out,
+                                  void* m_scratch, void* l_scratch, void* acc_scratch, int B, int H,
+                                  int Hkv, int D, int T, long long kv_sb, long long kv_sh,
+                                  long long sc_sb, long long sc_sh, int ps, int pps, float scale,
+                                  float softcap, int kv_int8, void* stream) {
+  if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || T <= 0 || ps <= 0 || pps <= 0)
+    return int(cudaErrorInvalidValue);
+  if (kv_sb % D != 0 || kv_sh % D != 0) return int(cudaErrorInvalidValue);
+  const Launch a{q, k, v, k_scale, v_scale, static_cast<const int*>(lengths), nullptr, out,
+                 static_cast<float*>(m_scratch), static_cast<float*>(l_scratch),
+                 static_cast<float*>(acc_scratch), B, H, Hkv, 1, ps, (T + ps - 1) / ps, pps,
+                 scale, softcap, T, kv_sb / D, kv_sh / D, sc_sb, sc_sh};
+  return int(launch_d<true>(D, kv_int8, a, static_cast<cudaStream_t>(stream)));
 }

@@ -1,19 +1,31 @@
-"""Continuous-batching serving engine on the paged KV pool — the main-path
-slice of ``langstream_tpu/serving/engine.py``'s ``ServingEngine``.
+"""Continuous-batching serving engine — the paged and dense KV layouts of
+``langstream_tpu/serving/engine.py``'s ``ServingEngine``.
 
-One engine thread owns the device. Each iteration (``_iterate``) admits a
+One engine thread owns the device. Each iteration (``_iterate``) first
+drives the chunked-prefill streams (dense layout), then admits a
 token-budgeted slice of queued requests — batched per prompt bucket into
-admit groups: a dense prefill into a local cache, the first sample, and the
-insert of that cache into each row's reserved pages — then dispatches one
-decode chunk of ``decode_chunk`` fused decode+sample steps over the page
-pool. Sampled tokens stay on the device and feed the next step; the host
-receives them through a pinned-memory copy fenced by a CUDA event, so chunk
-k+1 is queued on the stream while chunk k's tokens are still on their way
-(the JAX engine's depth-1 pipeline). Pages are reserved in full at
-admission and released when a request finishes.
+admit groups: a prefill into a local cache, the first sample, and the
+insert of that cache into each row's reserved pages (paged) or into the
+slot's row of the big cache (dense) — then dispatches one decode chunk of
+``decode_chunk`` fused decode+sample steps. Sampled tokens stay on the
+device and feed the next step; the host receives them through a
+pinned-memory copy fenced by a CUDA event, so chunk k+1 is queued on the
+stream while chunk k's tokens are still on their way (the JAX engine's
+depth-1 pipeline).
 
-Not ported yet (later slices): chunked prefill of prompts wider than the
-largest bucket (such prompts raise at ``submit``), the dense KV layout,
+``kv_layout="paged"`` (default): one page pool; pages are reserved in full
+at admission and released when a request finishes; prompts wider than the
+largest bucket raise at ``submit``. ``kv_layout="dense"``: a big cache
+``[L, max_batch, Hkv, max_seq_len + 1, D]`` (the extra column is the write
+sink of slots that ran past ``max_seq_len``); decode chunks read it through
+a ``[..., :kv_bound]`` view; prompts wider than the largest bucket go to a
+long queue and prefill in segments of that width into a batch-1 local
+cache (``prefill_segment``), at most ``MAX_PREFILL_STREAMS`` streams at
+once, one segment per stream per iteration, with decode chunks
+interleaving; the final segment samples the first token and inserts the
+local cache into the slot's row.
+
+Not ported yet (later slices): chunked prefill on the paged layout,
 request lifecycle (deadlines, drain, crash recovery), prefix reuse,
 speculation, tenancy, adapters, grammars, SPMD and the fetch thread.
 """
@@ -34,16 +46,24 @@ import torch
 from langstream_tpu_torch.device import DeviceLike, resolve_device
 from langstream_tpu_torch.models.configs import GenerationOptions, ModelConfig
 from langstream_tpu_torch.models.transformer import (
+    KVCache,
+    decode_step_inplace,
+    dense_insert_cache,
     make_kv_cache,
     paged_decode_step_inplace,
     paged_insert_cache,
     prefill,
+    prefill_segment,
 )
 from langstream_tpu_torch.ops.attention import kernel_counts
 from langstream_tpu_torch.serving.pagepool import PagePool, default_num_pages
 from langstream_tpu_torch.serving.sampling import sample
 
 log = logging.getLogger(__name__)
+
+# default prompt buckets (token widths of the admit-group prefills); the
+# widest is also the chunked-prefill segment width
+PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 
 
 class ShedError(RuntimeError):
@@ -144,10 +164,15 @@ class _Fetch:
 
 
 class ServingEngine:
-    """One engine per model; owns the device loop (paged KV layout)."""
+    """One engine per model; owns the device loop (paged or dense KV layout)."""
 
     # rows per admit group (one prefill call)
     PREFILL_BATCH = 8
+    # dense layout: long prompts waiting for a chunked-prefill stream before
+    # the next one is held back (so submit's queue bound still engages), and
+    # streams prefilling at once (each holds one long local cache)
+    LONG_QUEUE_CAP = 8
+    MAX_PREFILL_STREAMS = 2
 
     def __init__(
         self,
@@ -156,15 +181,18 @@ class ServingEngine:
         max_batch: int = 8,
         max_seq_len: Optional[int] = None,
         eos_token_id: Optional[int] = None,
-        prefill_buckets: tuple[int, ...] = (32, 64, 128, 256, 512, 1024, 2048),
+        prefill_buckets: tuple[int, ...] = PREFILL_BUCKETS,
         rng_seed: int = 0,
         decode_chunk: int = 16,
         page_size: int = 64,
         kv_pages: Optional[int] = None,
+        kv_layout: str = "paged",
         device: DeviceLike = "cuda",
     ) -> None:
         if config.is_moe:
             raise NotImplementedError("MoE configs are not ported to PyTorch yet")
+        if kv_layout not in ("paged", "dense"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}; supported: paged, dense")
         self.device = resolve_device(device)
         self.config = config
         self.params = params
@@ -179,16 +207,38 @@ class ServingEngine:
         # (floored at one full admit group) before its decode chunk, so a
         # burst of admissions overlaps the running batch's decode
         self.prefill_token_budget = self.prefill_buckets[-1]
+        self.kv_layout = kv_layout
+        self._paged = kv_layout == "paged"
         self.page_size = max(1, int(page_size))
-        num_pages = (
-            int(kv_pages)
-            if kv_pages is not None
-            else default_num_pages(self.max_batch, self.max_seq_len, self.page_size)
-        )
-        self._pagepool = PagePool(
-            config, num_pages, self.page_size, self.max_batch, self.max_seq_len,
-            device=self.device,
-        )
+        self._pagepool: Optional[PagePool] = None
+        self._cache: Optional[KVCache] = None
+        if self._paged:
+            num_pages = (
+                int(kv_pages)
+                if kv_pages is not None
+                else default_num_pages(self.max_batch, self.max_seq_len, self.page_size)
+            )
+            self._pagepool = PagePool(
+                config, num_pages, self.page_size, self.max_batch, self.max_seq_len,
+                device=self.device,
+            )
+        else:
+            # + one sink column: a slot that finished mid-chunk keeps
+            # advancing on the device, and its writes past max_seq_len land
+            # there (JAX drops them)
+            self._cache = make_kv_cache(
+                config, self.max_batch, self.max_seq_len + 1, device=self.device
+            )
+        # chunked-prefill streams (dense): queued long requests, one held
+        # back when that queue is full, and the active streams by slot
+        # (request, next segment, local cache)
+        self._long_queue: list[GenerationRequest] = []
+        self._held_back: Optional[GenerationRequest] = None
+        self._longs: dict[int, dict] = {}
+        self._long_rr = -1
+        # decode steps dispatched but not yet processed on the host: device
+        # positions lead host positions by this much
+        self._inflight_steps = 0
         self._slots = [_Slot() for _ in range(self.max_batch)]
         # bounded as in the JAX engine: a full queue blocks ``submit``
         self._queue: queue.Queue = queue.Queue(maxsize=self.max_batch * 4)
@@ -217,6 +267,7 @@ class ServingEngine:
         self.total_generated = 0
         self.admit_groups_total = 0
         self.prefill_tokens_total = 0
+        self.prefill_segments_total = 0
         self.decode_chunks_total = 0
         self.decode_steps_total = 0
         self.nan_guard_total = 0
@@ -251,10 +302,10 @@ class ServingEngine:
                 f"prompt of {n} tokens exceeds the engine limit of {limit} (max_seq_len - 1)"
             )
         widest = self.prefill_buckets[-1]
-        if n > widest:
+        if n > widest and self._paged:
             raise ValueError(
                 f"prompt of {n} tokens is wider than the largest prefill bucket "
-                f"({widest}); chunked prefill is not ported to PyTorch yet"
+                f"({widest}); chunked prefill runs on the dense KV layout only"
             )
         self._queue.put(request)
         return request
@@ -282,7 +333,7 @@ class ServingEngine:
     def stats(self) -> dict[str, Any]:
         pool = self._pagepool
         with self._stats_lock:
-            return {
+            out = {
                 "device": str(self.device),
                 "max-batch": self.max_batch,
                 "active-slots": sum(1 for s in self._slots if s.active),
@@ -291,20 +342,35 @@ class ServingEngine:
                 "total-generated-tokens": self.total_generated,
                 "admit-groups-total": self.admit_groups_total,
                 "prefill-tokens-total": self.prefill_tokens_total,
+                "prefill-segments-total": self.prefill_segments_total,
                 "decode-chunks-total": self.decode_chunks_total,
                 "decode-steps-total": self.decode_steps_total,
                 "nan-guard-total": self.nan_guard_total,
                 "cancelled-total": self.cancelled_total,
-                "kv-layout": "paged",
+                "kv-layout": self.kv_layout,
+                # launches of each attention kernel in this process (CUDA)
+                # and calls of its plain version (CPU)
+                "kernels": kernel_counts(),
+            }
+        if pool is not None:
+            out.update({
                 "kv-page-size": self.page_size,
                 "kv-pages-total": pool.num_pages,
                 "kv-pages-in-use": pool.pages_in_use,
                 "kv-pages-free": pool.free_pages,
                 "kv-pool-bytes": pool.bytes_total,
-                # launches of each attention kernel in this process (CUDA)
-                # and calls of its plain version (CPU)
-                "kernels": kernel_counts(),
-            }
+            })
+        else:
+            out.update({
+                "kv-cache-bytes": sum(
+                    t.numel() * t.element_size()
+                    for e in self._cache.values()
+                    for t in (e.values() if isinstance(e, dict) else (e,))
+                ),
+                "long-prefill-queued": len(self._long_queue) + (self._held_back is not None),
+                "long-prefill-streams": len(self._longs),
+            })
+        return out
 
     # -- the loop --------------------------------------------------------------
 
@@ -322,11 +388,15 @@ class ServingEngine:
             self._fail_all(e)
 
     def _iterate(self, pending: deque) -> None:
-        """One fused iteration: a token-budgeted slice of admissions, then
-        the decode chunk — back-to-back on the in-order stream — then host
-        processing of whatever batch of earlier dispatches has landed."""
+        """One fused iteration: a token-budgeted slice of prefill work
+        (chunked-prefill segments first, so a long prompt cannot starve
+        under short traffic, then admissions), then the decode chunk —
+        back-to-back on the in-order stream — then host processing of
+        whatever batch of earlier dispatches has landed."""
+        self._inflight_steps = sum(e[3] for batch in pending for e in batch if e[0] == "chunk")
         had_active = any(s.active for s in self._slots)
-        new_pending = self._admit(self.prefill_token_budget)
+        new_pending, spent = self._long_step(self.prefill_token_budget)
+        new_pending.extend(self._admit(max(0, self.prefill_token_budget - spent)))
         if new_pending and not had_active:
             # cold start: nothing to overlap the first-token fetch with
             for entry in new_pending:
@@ -334,7 +404,7 @@ class ServingEngine:
             new_pending = []
         if any(s.active for s in self._slots):
             new_pending.append(self._dispatch_chunk())
-        elif not new_pending and not pending:
+        elif not new_pending and not pending and not spent:
             time.sleep(0.001)
         pending.append(new_pending)
         # depth-1 pipeline: at most one dispatched batch waits unprocessed
@@ -364,15 +434,22 @@ class ServingEngine:
         into admit groups; returns the deferred first-token fetch entries.
         ``budget`` caps this iteration's prefill tokens, floored at one
         full admission group."""
-        free = [i for i, slot in enumerate(self._slots) if not slot.active]
+        free = [
+            i for i, slot in enumerate(self._slots) if not slot.active and i not in self._longs
+        ]
         pairs: list[tuple[int, GenerationRequest]] = []
         admitted_tokens = 0
         # while deferred admissions wait for pages, only they retry
         allow_new = not self._page_deferred
         pool = self._pagepool
+        widest = self.prefill_buckets[-1]
+        # a held-back long request gets first claim on freed long-queue room
+        if self._held_back is not None and len(self._long_queue) < self.LONG_QUEUE_CAP:
+            self._long_queue.append(self._held_back)
+            self._held_back = None
         for idx in free:
             got = False
-            while not got:
+            while not got and self._held_back is None:
                 if admitted_tokens >= budget and len(pairs) >= self.PREFILL_BATCH:
                     break
                 try:
@@ -387,6 +464,19 @@ class ServingEngine:
                     request._finish(self._result(request, [], "cancelled"))
                     continue
                 n = len(request.prompt_tokens)
+                if n > widest:
+                    # dense: the chunked-prefill path, its queue bounded so
+                    # submit's backpressure still engages under long traffic
+                    if len(self._long_queue) >= self.LONG_QUEUE_CAP:
+                        self._held_back = request
+                        break
+                    self._long_queue.append(request)
+                    continue
+                if not self._paged:
+                    pairs.append((idx, request))
+                    admitted_tokens += self._bucket(n)
+                    got = True
+                    continue
                 need = pool.pages_needed(n, max(1, request.options.max_new_tokens))
                 if need > pool.num_pages:
                     request._finish(self._result(
@@ -437,8 +527,7 @@ class ServingEngine:
             top_ks[j] = request.options.top_k
             top_ps[j] = request.options.top_p
             slots[j] = idx
-        tables = self._pagepool.tables[slots]
-        first = self._dev_paged_prefill(tokens, lengths, temps, top_ks, top_ps, slots, tables)
+        first = self._dev_prefill(tokens, lengths, temps, top_ks, top_ps, slots)
         for idx, request in group:
             slot = self._slots[idx]
             slot.request = request
@@ -452,54 +541,187 @@ class ServingEngine:
             self.prefill_tokens_total += int(lengths.sum())
         return [("prefill", _Fetch(first), list(group), 0)]
 
-    def _dev_paged_prefill(self, tokens, lengths, temps, top_ks, top_ps, slots, tables):
-        """Device layer of an admit group: local-cache prefill, first
-        sample, page insert, and the decode-chain seeding of each slot."""
+    def _dev_prefill(self, tokens, lengths, temps, top_ks, top_ps, slots):
+        """Device layer of an admit group: local-cache prefill, the insert of
+        that cache into each row's pages (paged) or its slot's row of the
+        big cache (dense), then the first sample and the chain seeding."""
         dev = self.device
         n, width = tokens.shape
+        local = make_kv_cache(self.config, n, width, device=dev)
+        logits, local = prefill(
+            self.params, torch.from_numpy(tokens).to(dev), torch.from_numpy(lengths).to(dev),
+            local, self.config,
+        )
+        if self._paged:
+            tables = torch.from_numpy(self._pagepool.tables[slots]).to(dev)
+            paged_insert_cache(self._pagepool.dev, local, tables, self.page_size)
+        else:
+            dense_insert_cache(self._cache, local, torch.from_numpy(slots).to(dev))
+        return self._seed_chain(logits, slots, lengths, temps, top_ks, top_ps)
+
+    def _seed_chain(self, logits, slots, lengths, temps, top_ks, top_ps) -> torch.Tensor:
+        """Sample the first token of each admitted row and seed its slot's
+        device decode chain: token, next position, sampling params."""
+        dev = self.device
 
         def up(a: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(a).to(dev)
 
-        tok_t, len_t, slots_t = up(tokens), up(lengths), up(slots)
         temp_t, topk_t, topp_t = up(temps), up(top_ks), up(top_ps)
-        local = make_kv_cache(self.config, n, width, device=dev)
-        logits, local = prefill(self.params, tok_t, len_t, local, self.config)
         samples = bool((temps > 0).any())
         filters = bool(((temps > 0) & ((top_ks > 0) | (top_ps < 1.0))).any())
         first = sample(logits, self._generator, temp_t, topk_t, topp_t, samples, filters)
-        paged_insert_cache(self._pagepool.dev, local, up(tables), self.page_size)
+        slots_t = up(slots)
         self._tokens_dev[slots_t] = first
-        self._positions_dev[slots_t] = len_t
+        self._positions_dev[slots_t] = up(lengths)
         self._temp_dev[slots_t] = temp_t
         self._top_k_dev[slots_t] = topk_t
         self._top_p_dev[slots_t] = topp_t
         return first
 
+    # -- chunked prefill (dense layout) ----------------------------------------
+
+    def _long_width(self, prompt_len: int) -> int:
+        """Local-cache width of a long prompt: the whole segments that hold
+        it, clamped to max_seq_len (the JAX engine doubles the widest
+        bucket instead, to bound the programs XLA compiles)."""
+        width = self.prefill_buckets[-1]
+        return min(-(-prompt_len // width) * width, self.max_seq_len)
+
+    def _long_step(self, budget: int) -> tuple[list[tuple], int]:
+        """Drive the chunked-prefill streams: start streams for queued long
+        requests while free slots and stream capacity allow, then dispatch
+        ONE segment per stream, round-robin, under the iteration's token
+        ``budget`` (at least one segment rides when a stream is active).
+        Returns (first-token fetch entries of finished prompts, prefill
+        tokens dispatched — a segment counts its full width)."""
+        entries: list[tuple] = []
+        spent = 0
+        while self._long_queue and len(self._longs) < self.MAX_PREFILL_STREAMS:
+            free = next(
+                (i for i, s in enumerate(self._slots) if not s.active and i not in self._longs),
+                None,
+            )
+            if free is None:
+                break
+            self._longs[free] = {"idx": free, "request": self._long_queue.pop(0), "seg": 0}
+        # round-robin, so two streams alternate when the budget covers one
+        order = sorted(self._longs)
+        start_at = next((j for j, i in enumerate(order) if i > self._long_rr), 0)
+        for idx in order[start_at:] + order[:start_at]:
+            if spent and spent >= budget:
+                break
+            self._long_rr = idx
+            entries.extend(self._segment_step(self._longs[idx]))
+            spent += self.prefill_buckets[-1]
+        return entries, spent
+
+    def _segment_step(self, st: dict) -> list[tuple]:
+        """Dispatch one segment of one stream: a fresh batch-1 local cache of
+        ``_long_width`` columns plus a sink column on the first segment (the
+        last, padded segment may run past that width), then the segment
+        forward. The final segment also inserts the local cache into the
+        slot's row of the big cache, samples the first token (only the
+        final segment samples: its logits are the prompt's last token's),
+        seeds the decode chain and activates the slot host-side. A
+        cancelled stream ends here, before another segment is spent on it."""
+        request: GenerationRequest = st["request"]
+        idx = st["idx"]
+        if request.cancelled:
+            del self._longs[idx]
+            with self._stats_lock:
+                self.cancelled_total += 1
+            request._finish(self._result(request, [], "cancelled"))
+            return []
+        dev = self.device
+        prompt = request.prompt_tokens
+        width = self.prefill_buckets[-1]
+        s0 = st["seg"] * width
+        seg = prompt[s0 : s0 + width]
+        tokens = torch.zeros((1, width), dtype=torch.long)
+        tokens[0, : len(seg)] = torch.tensor(seg)
+        # readable columns: segment i never attends past s0 + width (the
+        # exact bound, as for decode chunks)
+        t_long = self._long_width(len(prompt))
+        kv_bound = min(s0 + width, t_long)
+        if st["seg"] == 0:
+            st["cache"] = make_kv_cache(self.config, 1, t_long + 1, device=dev)
+        logits, _ = prefill_segment(
+            self.params, tokens.to(dev), torch.tensor([s0], device=dev),
+            torch.tensor([len(seg)], device=dev), st["cache"], self.config, kv_bound=kv_bound,
+        )
+        st["seg"] += 1
+        with self._stats_lock:
+            self.prefill_tokens_total += len(seg)
+            self.prefill_segments_total += 1
+        if s0 + width < len(prompt):
+            return []  # more segments to go
+        del self._longs[idx]
+        slots = np.array([idx], np.int64)
+        dense_insert_cache(self._cache, st["cache"], torch.from_numpy(slots).to(dev))
+        opts = request.options
+        first = self._seed_chain(
+            logits, slots, np.array([len(prompt)], np.int64),
+            np.array([opts.temperature], np.float32), np.array([opts.top_k], np.int64),
+            np.array([opts.top_p], np.float32),
+        )
+        slot = self._slots[idx]
+        slot.request = request
+        slot.position = len(prompt)
+        slot.generated = []
+        slot.started_at = time.monotonic()
+        slot.first_token_at = 0.0
+        with self._stats_lock:
+            self.total_requests += 1
+        return [("prefill", _Fetch(first), [(idx, request)], 0)]
+
+    def _decode_kv_bound(self, steps: int) -> int:
+        """Readable columns of the big cache for this chunk: the highest host
+        position, plus the steps in flight, plus this chunk (the JAX
+        engine's rule, without its pow2 ladder: that bounds the programs
+        XLA compiles, and PyTorch compiles none per width). The kernel path
+        reads each row to its length whatever the bound; the bound narrows
+        the reference path's masked read."""
+        highest = max((s.position for s in self._slots if s.active), default=0)
+        return min(self.max_seq_len, highest + self._inflight_steps + steps)
+
     def _dispatch_chunk(self) -> tuple:
-        """Queue one decode chunk: ``steps`` x (paged decode step + sample)
-        from the device-resident chain. Inactive slots' table rows are the
-        sentinel, so their (discarded) steps write only into the sink."""
+        """Queue one decode chunk: ``steps`` x (decode step + sample) from
+        the device-resident chain. Paged: inactive slots' table rows are the
+        sentinel, so their (discarded) steps write only into the sink page.
+        Dense: they write into their own rows (past max_seq_len, into the
+        sink column) and read at most the chunk's bound."""
         steps = self.decode_chunk
         dev = self.device
         stale = [i for i in set(self._freed_slots) if not self._slots[i].active]
         self._freed_slots.clear()
         if stale:
             self._temp_dev[torch.as_tensor(stale, device=dev)] = 0.0
-        pool = self._pagepool
-        tables = pool.tables.copy()
-        active = [s.active for s in self._slots]
-        tables[[i for i, a in enumerate(active) if not a]] = pool.oob
-        table_t = torch.from_numpy(tables).to(dev)
+        if self._paged:
+            pool = self._pagepool
+            tables = pool.tables.copy()
+            tables[[i for i, s in enumerate(self._slots) if not s.active]] = pool.oob
+            table_t = torch.from_numpy(tables).to(dev)
+
+            def step_fn(tokens, positions):
+                return paged_decode_step_inplace(
+                    self.params, tokens, positions, pool.dev, table_t, self.config,
+                    self.page_size,
+                )
+        else:
+            kv_bound = self._decode_kv_bound(steps)
+
+            def step_fn(tokens, positions):
+                return decode_step_inplace(
+                    self.params, tokens, positions, self._cache, self.config, kv_bound
+                )
         opts = [s.request.options for s in self._slots if s.active]
         samples = any(o.temperature > 0 for o in opts)
         filters = any(o.temperature > 0 and (o.top_k > 0 or o.top_p < 1.0) for o in opts)
         chunk = torch.empty((steps, self.max_batch), dtype=torch.long, device=dev)
         tokens, positions = self._tokens_dev, self._positions_dev
         for step in range(steps):
-            logits, _ = paged_decode_step_inplace(
-                self.params, tokens, positions, pool.dev, table_t, self.config, self.page_size
-            )
+            logits, _ = step_fn(tokens, positions)
             tokens = sample(
                 logits, self._generator, self._temp_dev, self._top_k_dev, self._top_p_dev,
                 samples, filters,
@@ -598,19 +820,27 @@ class ServingEngine:
         slot.generated = []
         slot.position = 0
         self._freed_slots.append(idx)
-        self._pagepool.free_slot(idx)
+        if self._paged:
+            self._pagepool.free_slot(idx)
         request._finish(result)
 
     def _fail_all(self, error: BaseException) -> None:
         self._dead = error
-        doomed: list[GenerationRequest] = list(self._page_deferred)
+        doomed: list[GenerationRequest] = list(self._page_deferred) + self._long_queue
+        doomed += [st["request"] for st in self._longs.values()]
+        if self._held_back is not None:
+            doomed.append(self._held_back)
         self._page_deferred.clear()
+        self._long_queue.clear()
+        self._longs.clear()
+        self._held_back = None
         for i, slot in enumerate(self._slots):
             if slot.request is not None:
                 doomed.append(slot.request)
                 slot.request = None
                 slot.generated = []
-                self._pagepool.free_slot(i)
+                if self._paged:
+                    self._pagepool.free_slot(i)
         while True:
             try:
                 doomed.append(self._queue.get_nowait())

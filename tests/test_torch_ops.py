@@ -162,7 +162,10 @@ def test_kernel_gates():
 
 def test_kernel_counts_report_every_kernel():
     counts = port_attn.kernel_counts()
-    assert set(counts) == {"flash_prefill", "paged_decode", "paged_decode_int8"}
+    assert set(counts) == {
+        "flash_prefill", "paged_decode", "paged_decode_int8", "flash_segment",
+        "flash_segment_int8", "dense_decode", "dense_decode_int8",
+    }
     for c in counts.values():
         assert set(c) == {"launches", "cpu_calls"}
 
@@ -171,7 +174,7 @@ def test_build_is_lazy_and_keyed_by_source(monkeypatch, tmp_path):
     """Importing the port builds nothing; a library's path names a hash of
     its source and flags; a machine without nvcc raises a clear error."""
     assert _build._libs == {}
-    assert set(_build.SOURCES) == {"flash_prefill", "paged_decode"}
+    assert set(_build.SOURCES) == {"flash_segment", "ragged_decode"}
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
         path = _build.library_path(name)

@@ -97,10 +97,29 @@ def test_completions_service_refuses_what_it_cannot_serve():
 
     with pytest.raises(NotImplementedError):
         TorchCompletionsService({"model": "tiny-test", "device": "cpu", "weights": "/ckpt"})
-    with pytest.raises(NotImplementedError):
-        TorchCompletionsService({"model": "tiny-test", "device": "cpu", "kv-layout": "dense"})
+    with pytest.raises(ValueError, match="kv-layout"):
+        TorchCompletionsService({"model": "tiny-test", "device": "cpu", "kv-layout": "ring"})
     with pytest.raises(ValueError):
         TorchCompletionsService({"model": "no-such-model", "device": "cpu"})
     with pytest.raises(ValueError):
         TorchCompletionsService({"model": "tiny-test", "device": "cpu",
                                  "kv-cache-quantization": "int4"})
+
+
+def test_completions_service_default_max_seq_len():
+    """max-seq-len defaults to min(2048, the preset's max_seq_len), as in
+    the JAX provider: tiny-test's own cap at tiny-test (engine built),
+    2048 for llama-3-8b (resolved only, nothing allocated)."""
+    from langstream_tpu_torch.ai.torch_serving import TorchCompletionsService
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+
+    tiny = MODEL_PRESETS["tiny-test"]
+    svc = TorchCompletionsService({"model": "tiny-test", "device": "cpu"})
+    try:
+        assert svc.max_seq_len == min(2048, tiny.max_seq_len)
+        assert svc.engine().max_seq_len == min(2048, tiny.max_seq_len)
+    finally:
+        svc.close()
+    llama = TorchCompletionsService({"model": "llama-3-8b", "device": "cpu"})
+    assert MODEL_PRESETS["llama-3-8b"].max_seq_len == 8192 and llama.max_seq_len == 2048
+    assert llama._engine is None
