@@ -10,21 +10,26 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
 
 1. ``build``   — compiles every CUDA kernel of the port from the sources in
    the checkout (one ``nvcc`` per source, all started together, into
-   ``build/kernels/``) and prints the build time, each kernel's ptxas
-   register / spill report, and the card's name and power limit.
+   ``build/kernels/``) and prints the build time, each kernel
+   instantiation's ptxas register / spill report (and any wgmma
+   serialization warning), the segment kernel's SASS instruction mix
+   (HGMMA, UTMALDG, ...), and the card's name and power limit.
 2. ``kernels`` — each kernel against its plain PyTorch version on the card
    at the main paths' shapes (H 32, Hkv 8, D 128, page 64; prefill S 200
    and 1024 at B 2; paged decode at B 8 with ragged lengths 1..1500, bf16
-   and int8 pages; segment S 200 at offset 1000 and S 2048 at offset 6144
-   in a T 8192 cache, bf16 and int8; dense decode at B 8, lengths
-   1..1500, through a [..., :2048] view of a T 8192 cache, bf16 and int8):
-   every output element within ``atol + rtol * |ref|`` of the plain
-   version (and the same check shown to reject planted faults: a zeroed
-   64-key V tile, a causal frontier or lengths one off), the max abs
-   error, the kernel's time, the plain
+   and int8 pages; segment S 200 at offset 1000, S 1024 at offsets 0 and
+   5000 (B 2, through a [..., :6024] view) and S 2048 at offset 6144, in
+   a T 8192 cache, bf16 and int8; dense decode at B 8, lengths 1..1500,
+   through a [..., :2048] view of a T 8192 cache, bf16 and int8): every
+   output element within ``atol + rtol * |ref|`` of the plain version
+   (and the same check shown to reject planted faults: a zeroed 64-key V
+   tile, a 64-key K tile holding the tile before it, a causal frontier or
+   lengths one off), the max abs error, the kernel's time, the plain
    version's time, the bound of the card, and one library call as a
    yardstick where one computes the same function (SDPA, with an explicit
-   mask where the kernel masks). Dense decode is also timed against the
+   mask where the kernel masks); the flash rows also give their TFLOP/s
+   and bound share, and the segment rows their grid and the K/V bytes it
+   streams from L2. Dense decode is also timed against the
    masked read the JAX package takes there under ``auto`` (the port's
    reference ``attention`` over the bounded view).
 3. ``e2e``     — the port's ``ServingEngine`` serving llama-3-8b at full
@@ -101,6 +106,8 @@ H, HKV, D, PAGE = 32, 8, 128, 64
 DECODE_LENGTHS = (1, 64, 200, 511, 700, 1024, 1280, 1500)
 # dense cases: the cache width, and the decode chunk's readable view of it
 DENSE_T, DENSE_VIEW = 8192, 2048
+# the batched segment case reads the T = 8192 cache through this view
+SEGMENT_VIEW = 6024
 
 
 def log(msg: str) -> None:
@@ -147,6 +154,26 @@ def _zero_rows(entry, index):
         entry = entry.clone()
         entry[index] = 0
     return entry
+
+
+def _stale_tile(entry, row: int, tile: int):
+    """A copy of a cache entry (tensor, or int8 dict) whose 64-key tile
+    [tile, tile + 64) of batch row ``row`` holds the tile before it — what a
+    producer that refilled a ring stage late, or from the wrong tile, would
+    leave."""
+    def stale(a):
+        a = a.clone()
+        a[row, :, tile:tile + 64] = a[row, :, tile - 64:tile]
+        return a
+    if isinstance(entry, dict):
+        return {n: stale(a) for n, a in entry.items()}
+    return stale(entry)
+
+
+def _flash_rates(rec: dict, flops: float) -> None:
+    """The flash rows' rate and their share of the bound, from this run."""
+    rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
 
 
 def smi_line() -> str:
@@ -200,10 +227,29 @@ def phase_build(ctx: dict) -> None:
         report = _build.library_path(name).with_suffix(".log")
         if report.exists():
             for line in report.read_text().splitlines():
-                if "registers" in line or "spill" in line or "error" in line.lower():
-                    log(f"  ptxas[{name}] {line.strip()}")
+                if "Compiling entry" in line:  # which instantiation the next lines report
+                    m = re.search(r"(flash_segment|decode_\w+?)_kernel(I\w+?)E", line)
+                    line = f"entry {m.group(1)}<{m.group(2)}>" if m else line
+                elif not re.search(r"registers|spill|error|C75\d\d", line, re.I):
+                    continue
+                log(f"  ptxas[{name}] {line.strip()[:220]}")
         _build.library(name)  # loads and binds every symbol
+    log(f"sass[flash_segment] {json.dumps(sass_mix(_build.library_path('flash_segment')))}")
     log(f"card: {smi_line()}")
+
+
+def sass_mix(lib: Path) -> dict:
+    """Counts of the instructions that show the segment kernel's design in
+    a library's SASS (cuobjdump from the toolkit): HGMMA (wgmma), UTMALDG
+    (TMA loads), SYNCS (mbarrier operations), HMMA (mma.sync, none
+    expected), MUFU (ex2 and the rest)."""
+    from langstream_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", sass)
+    return {op: ops.count(op) for op in ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "MUFU")}
 
 
 def _prefill_case(torch, ctx, timer, b: int, s: int) -> dict:
@@ -231,6 +277,7 @@ def _prefill_case(torch, ctx, timer, b: int, s: int) -> dict:
         "causal_off_by_one": flash_segment_reference(
             q, k, v, torch.ones(b, dtype=torch.int32, device="cuda"), cfg
         ),
+        "k_tile_stale": flash_prefill_reference(q, _stale_tile(k, 0, tile), v, cfg),
     }
     check = hold(f"flash_prefill S={s}", out, ref, FLASH_TOL, planted)
     del planted
@@ -259,7 +306,7 @@ def _prefill_case(torch, ctx, timer, b: int, s: int) -> dict:
         "bound_ms": bound,
         "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes",
     }
-    rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+    _flash_rates(rec, flops)
     log(f"kernel flash_prefill {json.dumps(rec)}")
     return rec
 
@@ -376,45 +423,79 @@ def _bf16(torch, entry):
     return entry
 
 
-def _segment_case(torch, ctx, timer, int8: bool, s: int, offset: int) -> dict:
+def kv_stream_bytes(s: int, offsets, t: int, item: int, positions_per_item: int) -> float:
+    """Bytes of K and V (and int8 scales) that a segment launch streams from
+    L2 into shared memory, computed from its work items: every item of
+    ``positions_per_item`` query positions of one kv head reads the keys up
+    to its causal frontier min(T, offset + item end), once for its whole
+    group of heads."""
+    row = HKV * D * 2 * item + (HKV * 2 * 4 if item == 1 else 0)  # K, V (and scales) of a key
+    keys = sum(min(t, off + min(s, q0 + positions_per_item))
+               for off in offsets for q0 in range(0, s, positions_per_item))
+    return float(keys * row)
+
+
+def _segment_case(torch, ctx, timer, int8: bool, s: int, offsets: tuple,
+                  view: int | None = None) -> dict:
+    """The segment kernel against its plain version: rows of S queries at
+    ``offsets`` in a T = 8192 cache (read through a [..., :view] view where
+    given), planted faults in the last row's mid-prefix, times, bound."""
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
     from langstream_tpu_torch.ops.attention import (
         flash_segment_attention,
         flash_segment_attention_int8,
         flash_segment_int8_reference,
         flash_segment_reference,
+        segment_launch_plan,
     )
 
     cfg = MODEL_PRESETS["llama-3-8b"]
-    g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 11 + s + int8)
-    q = torch.randn((1, s, H, D), generator=g, device="cuda").to(torch.bfloat16)
-    k = _dense_cache(torch, g, 1, DENSE_T, int8)
-    v = _dense_cache(torch, g, 1, DENSE_T, int8)
-    off = torch.tensor([offset], dtype=torch.int32, device="cuda")
+    b = len(offsets)
+    seed = ctx["seed"] + 11 + s + int8 + (100 * b if b > 1 else 0)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, s, H, D), generator=g, device="cuda").to(torch.bfloat16)
+    k = _dense_cache(torch, g, b, DENSE_T, int8)
+    v = _dense_cache(torch, g, b, DENSE_T, int8)
+    t = view or DENSE_T
+    if view:
+        k, v = ({n: a[:, :, :view] for n, a in e.items()} if int8 else e[:, :, :view]
+                for e in (k, v))
+    off = torch.tensor(offsets, dtype=torch.int32, device="cuda")
     kernel = flash_segment_attention_int8 if int8 else flash_segment_attention
     plain = flash_segment_int8_reference if int8 else flash_segment_reference
     out = kernel(q, k, v, off, cfg)
     ref = plain(q, k, v, off, cfg)
     name = "flash_segment_int8" if int8 else "flash_segment"
-    tile = (offset // 2) // 64 * 64  # a 64-key tile in the middle of the prefix
+    last = b - 1
+    tile = (offsets[last] // 2) // 64 * 64  # a 64-key tile in the middle of the last row's prefix
     planted = {
-        "v_tile_zeroed": plain(q, k, _zero_rows(v, (0, 0, slice(tile, tile + 64))), off, cfg),
+        "v_tile_zeroed": plain(q, k, _zero_rows(v, (last, 0, slice(tile, tile + 64))), off, cfg),
         "causal_off_by_one": plain(q, k, v, off + 1, cfg),
+        "k_tile_stale": plain(q, _stale_tile(k, last, tile), v, off, cfg),
     }
-    check = hold(f"{name} S={s} offset={offset}", out, ref, FLASH_TOL, planted)
+    where = f"S={s} offset={offsets[0]}" if b == 1 else f"B={b} S={s} offsets={list(offsets)}"
+    check = hold(f"{name} {where}", out, ref, FLASH_TOL, planted)
     del planted
-    pos = offset + torch.arange(s, device="cuda")
-    mask = torch.arange(DENSE_T, device="cuda")[None, :] <= pos[:, None]  # [S, T]
-    library = _sdpa(torch, q.transpose(1, 2), _bf16(torch, k), _bf16(torch, v), mask)
-    # work this input needs: query i sees keys [0, offset + i]; the cache
-    # rows below offset + S are read once, q read and out written once
-    pairs = sum(min(offset + i + 1, DENSE_T) for i in range(s))
+    pos = off.long()[:, None] + torch.arange(s, device="cuda")[None, :]  # [B, S]
+    mask = torch.arange(t, device="cuda")[None, None, :] <= pos[:, :, None]  # [B, S, T]
+    library = _sdpa(torch, q.transpose(1, 2), _bf16(torch, k), _bf16(torch, v),
+                    mask[0] if b == 1 else mask[:, None])
+    # work this input needs: query i of row r sees keys [0, offset_r + i];
+    # the cache rows below offset_r + S are read once, q read and out
+    # written once
+    pairs = sum(min(o + i + 1, t) for o in offsets for i in range(s))
     flops = 4.0 * H * D * pairs
-    rows = min(offset + s, DENSE_T)
+    rows = sum(min(o + s, t) for o in offsets)
     item = 1 if int8 else 2
-    nbytes = 2 * 2 * s * H * D + rows * HKV * D * 2 * item + (rows * HKV * 2 * 4 if int8 else 0) + 4
+    nbytes = (2 * 2 * b * s * H * D + rows * HKV * D * 2 * item
+              + (rows * HKV * 2 * 4 if int8 else 0) + 4 * b)
+    plan = segment_launch_plan(q.shape, (b, HKV, t, D), (k["q"] if int8 else k).stride(),
+                               torch.int8 if int8 else torch.bfloat16,
+                               scale_strides=k["s"].stride() if int8 else None)
+    shape = (f"B=1 S={s} offset={offsets[0]} T={DENSE_T}" if b == 1 else
+             f"B={b} S={s} offsets={list(offsets)} view T={t} of {DENSE_T}")
     rec = {
-        "shape": f"B=1 S={s} offset={offset} T={DENSE_T} H={H} Hkv={HKV} D={D} "
+        "shape": f"{shape} H={H} Hkv={HKV} D={D} "
                  + ("int8 cache, bf16 q; SDPA over the dequantized cache" if int8 else "bf16"),
         **check,
         "ms": timer.ms(lambda: kernel(q, k, v, off, cfg)),
@@ -424,8 +505,12 @@ def _segment_case(torch, ctx, timer, int8: bool, s: int, offset: int) -> dict:
         "bound_by": (
             "operations" if flops / PEAK_BF16_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
         ),
+        "grid": plan["grid"],
+        "work_items": plan["work_items"],
+        "l2_kv_gb": kv_stream_bytes(s, offsets, t, item, plan["positions_per_item"]) / 1e9,
     }
-    rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+    _flash_rates(rec, flops)
+    rec["l2_kv_tb_per_s"] = rec["l2_kv_gb"] / rec["ms"]  # GB per ms is TB/s
     log(f"kernel {name} {json.dumps(rec)}")
     return rec
 
@@ -503,8 +588,8 @@ def _dense_decode_case(torch, ctx, timer, int8: bool) -> dict:
 
 def _edge_cases(torch, ctx) -> dict:
     """The segment and dense decode kernels against their plain versions
-    away from llama's shape: head dims 64 / 128 / 256 with groups 1 / 4 /
-    8, a soft cap, per-row offsets 0 and unaligned, a segment whose queries
+    away from llama's shape: head dims 64 / 64 / 128 / 256 with groups 1 /
+    2 / 4 / 8, a soft cap, per-row offsets 0 and unaligned, a segment whose queries
     run past the cache width, strided [..., :T] views, and decode lengths
     0 and past the view. Each within its tolerance."""
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
@@ -520,7 +605,8 @@ def _edge_cases(torch, ctx) -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 31)
     errs = {}
-    for h, hkv, d, cap in ((8, 8, 64, None), (32, 8, 128, 30.0), (16, 2, 256, None)):
+    for h, hkv, d, cap in ((8, 8, 64, None), (16, 8, 64, None), (32, 8, 128, 30.0),
+                           (16, 2, 256, None)):
         cfg = dataclasses.replace(
             MODEL_PRESETS["llama-3-8b"], n_heads=h, n_kv_heads=hkv, head_dim=d,
             attn_logit_softcap=cap,
@@ -565,7 +651,9 @@ def phase_kernels(ctx: dict) -> None:
     for int8 in (False, True):
         name = "flash_segment_int8" if int8 else "flash_segment"
         ctx["kernel_runs"][name] = [
-            _segment_case(torch, ctx, timer, int8, s, off) for s, off in ((200, 1000), (2048, 6144))
+            _segment_case(torch, ctx, timer, int8, s, offs, view)
+            for s, offs, view in (((200, (1000,), None), (1024, (0, 5000), SEGMENT_VIEW),
+                                   (2048, (6144,), None)))
         ]
         name = "dense_decode_int8" if int8 else "dense_decode"
         ctx["kernel_runs"][name] = [_dense_decode_case(torch, ctx, timer, int8)]
@@ -892,6 +980,8 @@ def kernel_record(ctx: dict) -> dict:
             "library_ms": main["library_ms"],
             "shape": main["shape"],
             "tolerance": main["tolerance"],
+            # the flash rows' rate and share of their bound at that shape
+            **{key: main[key] for key in ("tflops", "bound_share") if key in main},
         })
     return {"kernels": out}
 
@@ -906,7 +996,7 @@ def ab_times(parent: Path) -> dict[str, list]:
                         ("parent", parent)):
         run = subprocess.run(
             [sys.executable, "chip_smoke.py", "--phases", "build,kernels"],
-            cwd=tree, capture_output=True, text=True, timeout=900,
+            cwd=tree, capture_output=True, text=True, timeout=300,
         )
         if run.returncode != 0:
             raise RuntimeError(f"{label} run in {tree} failed:\n{run.stderr[-3000:]}")

@@ -274,6 +274,100 @@ def flash_segment_int8_reference(
     return _flash_reference(q, _dequantize(k, q.dtype), _dequantize(v, q.dtype), offset, config)
 
 
+# The segment kernel's launch (csrc/flash_segment.cu, which computes the
+# same plan again on the host): work items of 128 (query position, head)
+# rows of one kv-head group, a persistent grid of at most one CTA per SM,
+# each of two consumer warpgroups and a producer.
+SEGMENT_ROWS = 128
+SEGMENT_THREADS = 384
+H100_SMS = 132
+_SWIZZLE_ATOM = 64  # bf16 columns of one 128-byte swizzle row
+_TMA_MAX_DIM = 2**32
+_TMA_MAX_STRIDE = 2**40
+
+
+def segment_launch_plan(
+    q_shape: tuple, kv_shape: tuple, kv_strides: tuple, kv_dtype: torch.dtype,
+    kv_ptr: int = 0, q_ptr: int = 0, scale_strides: Optional[tuple] = None,
+) -> dict:
+    """The launch of the segment kernel for these shapes, element strides,
+    dtypes and base addresses → {"work_items" (query tiles, kv heads,
+    batch rows), "grid" (CTAs on an H100: one per SM, or one per item
+    where there are fewer; the kernel asks the card), "threads",
+    "positions_per_item", "keys_per_tile", "tma": {q, k, v: {"dims",
+    "strides", "box", "swizzle"}} (innermost dim first, byte strides of
+    dims 1..3, swizzle in bytes or 0), "plain_loads" (tensors the producer
+    reads without TMA: the int8 scales, whose rows — 8,193 floats in a
+    sink-column cache — need not be 16-byte multiples), "smem_bytes"}.
+    Raises ValueError for what the kernel cannot take: a
+    head dim, group or dtype it is not built for, K/V rows that are not
+    contiguous, or a K/V byte stride or base address that is not a
+    multiple of 16 (TMA's rule)."""
+    b, s, h, d = q_shape
+    kb, hkv, t, kd = kv_shape
+    if kd != d or kb != b or hkv <= 0 or h % hkv or s <= 0 or t <= 0:
+        raise ValueError(f"segment kernel: q {tuple(q_shape)} vs cache {tuple(kv_shape)}")
+    g = h // hkv
+    if d not in KERNEL_HEAD_DIMS or g not in KERNEL_GROUPS:
+        raise ValueError(f"segment kernel: head dim {d} / group {g}; built for "
+                         f"{KERNEL_HEAD_DIMS} / {KERNEL_GROUPS}")
+    if kv_dtype not in (torch.bfloat16, torch.int8):
+        raise ValueError(f"segment kernel: cache dtype {kv_dtype}")
+    int8 = kv_dtype == torch.int8
+    item = 1 if int8 else 2
+    sb, sh, st, sd = kv_strides
+    if (sd, st) != (1, d):
+        raise ValueError(f"segment kernel: cache strides {tuple(kv_strides)} do not keep "
+                         f"rows of {d} contiguous")
+    kv_bytes = (d * item, sh * item, sb * item)
+    if any(x % 16 or not 0 < x < _TMA_MAX_STRIDE for x in kv_bytes) or kv_ptr % 16:
+        raise ValueError(f"segment kernel: cache byte strides {kv_bytes} and base "
+                         f"{kv_ptr:#x} must be positive multiples of 16 (TMA)")
+    if q_ptr % 16:
+        raise ValueError(f"segment kernel: q base {q_ptr:#x} is not 16-byte aligned")
+    if max(t, s, h, b) >= _TMA_MAX_DIM:
+        raise ValueError("segment kernel: a dimension past TMA's 2^32")
+    if int8 and (scale_strides is None or scale_strides[-1] != 1):
+        raise ValueError(f"segment kernel: int8 scales need rows of stride 1, "
+                         f"got {scale_strides}")
+    p = SEGMENT_ROWS // g
+    # keys per tile, and the depth of the bf16 ring and of the int8 TMA
+    # ring (flash_segment.cu's Layout)
+    bk = 64 if int8 or d == 256 else 128
+    stages = 2 if d == 256 else (3 if bk == 128 and d == 128 else 4)
+    raw_stages = (1 if d == 256 else 2) if int8 else 0
+    kv_map = {
+        "dims": (d, t, hkv, b),
+        "strides": kv_bytes,
+        # bf16 tiles land swizzled for wgmma; int8 tiles land plain for
+        # the producer's dequantize pass
+        "box": (d if int8 else _SWIZZLE_ATOM, bk, 1, 1),
+        "swizzle": 0 if int8 else 128,
+    }
+    smem = (SEGMENT_ROWS * d * 2 + 2 * stages * bk * d * 2 + raw_stages * 2 * bk * d
+            + (2 * 2 * bk * 4 if int8 else 0) + 8 * (2 * stages + raw_stages + 2) + 1024)
+    items = (-(-s // p), hkv, b)
+    return {
+        "work_items": items,
+        "grid": min(math.prod(items), H100_SMS),
+        "threads": SEGMENT_THREADS,
+        "positions_per_item": p,
+        "keys_per_tile": bk,
+        "tma": {
+            "q": {
+                "dims": (d, h, s, b),
+                "strides": (d * 2, h * d * 2, s * h * d * 2),
+                "box": (_SWIZZLE_ATOM, g, p, 1),
+                "swizzle": 128,
+            },
+            "k": kv_map,
+            "v": dict(kv_map),
+        },
+        "plain_loads": ("k_scale", "v_scale") if int8 else (),
+        "smem_bytes": smem,
+    }
+
+
 def _segment_launch(
     q: torch.Tensor, k: CacheEntry, v: CacheEntry, offset: Optional[torch.Tensor],
     config: ModelConfig, what: str,
@@ -296,6 +390,12 @@ def _segment_launch(
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
     if s == 0:
         return out.reshape(b, s, h * d)
+    # raises before the launch on a tensor TMA cannot read (v shares k's
+    # shape and strides, so only its base differs)
+    segment_launch_plan(
+        q.shape, kq.shape, kq.stride(), kq.dtype, kq.data_ptr() | vq.data_ptr(),
+        q.data_ptr(), ks.stride() if ks is not None else None,
+    )
     lib = _build.library("flash_segment")
     cap = config.attn_logit_softcap
     err = lib.lstpu_flash_segment(

@@ -25,33 +25,51 @@
 // Bound on an H100: tensor-core operations. A segment of S queries at
 // offset o does about 4 * H * D * (S * o + S * (S + 1) / 2) flops per row
 // against 989 TFLOP/s bf16; it reads the cache prefix once per head group
-// (O((o + S) * Hkv * D) bytes), so past a few hundred tokens the bound is
-// operations.
+// (O((o + S) * Hkv * D) bytes from device memory), so past a few hundred
+// tokens the bound is operations. Each CTA streams its K/V prefix from L2,
+// so the kernel keeps the tensor cores fed and makes each K/V tile in
+// shared memory feed as many rows as it can.
 //
-// Design: the FlashAttention-2 shape on mma.sync. A CTA of 4 warps owns one
-// query tile of one (row, kv head) for HPC heads of its group (HPC = 4, 2
-// or 1, the largest that divides the group; each warp owns 16 rows of one
-// head), so each K/V tile is loaded once per group of heads. The key loop
-// runs over [0, min(o + tile end, T)) — the tile's causal frontier — in
-// tiles of BK keys, read from the cache through its batch and kv-head
-// strides (a [..., :T] view of a wider cache is read in place, never
-// copied), with cp.async double buffering. Keys past the frontier are
-// zero-filled and masked, so the unwritten part of the cache is never read.
-// Scores (QK^T) and the output accumulator live in registers as m16n8k16
-// fragments; ldmatrix feeds Q and K, ldmatrix.trans feeds V, and the score
-// accumulators are PV's A operand, so p goes to PV without passing through
-// shared memory. Shared-memory rows are padded by 16 bytes (ldmatrix
-// without bank conflicts). Past the mma the loop is bound by its scalar
-// work, so the softmax runs in the log2 domain (the scale folded with
-// log2(e), one ex2.approx per probability) and the per-element causal
-// mask over global positions runs only on the tiles that cross a warp's
-// diagonal or the frontier. int8 tiles and their scales stream into a second
-// double-buffered staging area and are dequantized into the bf16 tile that
-// ldmatrix reads. Offsets come from a device int32 array (no host sync per
-// segment). Any S, any offset and any cache width: queries past S are not
-// written. The heaviest (last) query tiles start first. Not yet: wgmma,
-// TMA, warp specialisation.
+// Design: the FlashAttention-3 shape. A work item is 128 (query position,
+// head) rows of one kv-head group, position-major (G = 4: 32 positions x 4
+// heads), so each K/V tile in shared memory feeds every head of the group.
+// The grid is persistent: one CTA per SM walks its items, heaviest first.
+// Three warpgroups:
+//   - a producer: one thread issues TMA loads (cp.async.bulk.tensor) of each
+//     item's Q tile and of its K and V tiles (128 keys; 64 at D = 256) into
+//     a ring of stages with a full and an empty mbarrier each. It runs ahead
+//     into the next item while the consumers finish the current one. The
+//     tensor maps take the cache view's own dims and byte strides, so a
+//     [..., :T] view of a wider cache is read in place; TMA zero-fills rows
+//     past T.
+//   - two consumers of 64 rows each run wgmma: S = Q K^T with both operands
+//     in shared memory (128-byte swizzle, K-major), O += P V with P in
+//     registers as the A operand and V as a transposed (MN-major) B operand.
+//     setmaxnreg moves registers from the producer to them.
+// The softmax overlaps the products twice: the consumers take turns
+// (ping-pong through two named barriers) issuing their wgmmas, so one
+// warpgroup's softmax runs under the other's products; and each issues
+// QK^T of tile j together with PV of tile j - 1, so its own PV runs while
+// it takes the softmax of tile j. The scalar work stays lean: the log2
+// domain with one ex2.approx per probability, 1/l once, and the causal
+// mask only on tiles that cross a warp's first diagonal or the frontier;
+// the rescale of O is skipped where no row max of the warp moved. Each
+// item loops only to its causal frontier min(T, offset + tile end); keys
+// past the frontier inside the last tile are read (they lie in the view,
+// in the engine inside the segment's own rows) and masked. Offsets come
+// from a device int32 array (no host sync per segment).
+// int8: the producer warpgroup is also a transform stage. TMA brings the
+// int8 K/V tiles (64 keys, half the bytes) into a ring of their own; the
+// producer's 128 threads read the f32 scales with plain loads (scale rows
+// of a sink-column cache are 8,193 floats, not the 16-byte multiple TMA
+// needs), dequantize bf16(float(q) * s) — the TPU kernel's rounding — into
+// the swizzled bf16 stage the consumers read (zeroing rows past the
+// frontier), and arrive on its full barrier. So the dequantize runs beside
+// the products instead of between them; it still takes issue slots from
+// the softmax. Not yet: TMA multicast of K/V across a cluster (halving the
+// L2 traffic), a TMA store of the output, fp8.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: nothing links -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,45 +80,164 @@ constexpr float kNeg = -1e30f;
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+constexpr int kConsumerWGs = 2;
+constexpr int kThreads = 128 * (kConsumerWGs + 1);  // the consumers, then the producer
+constexpr int kRows = 64 * kConsumerWGs;            // (position, head) rows of one CTA
+// registers per thread at launch: __launch_bounds__(kThreads, 1) caps them
+// at the register file over the threads, in steps of 8
+constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;
+constexpr int kAtom = 64;     // bf16 columns of one 128-byte swizzle atom row
+
+template <typename TKV, int D>
+struct Layout {
+  static constexpr bool kInt8 = sizeof(TKV) == 1;
+  static constexpr int kAtoms = D / kAtom;
+  // keys per K/V tile: 128 where shared memory holds a ring of them, else 64
+  static constexpr int kBK = kInt8 || D == 256 ? 64 : 128;
+  static constexpr int kStages = D == 256 ? 2 : (kBK == 128 && D == 128 ? 3 : 4);  // bf16 ring
+  static constexpr int kRawStages = kInt8 ? (D == 256 ? 1 : 2) : 0;  // int8 TMA ring
+  // registers per thread after setmaxnreg: a bf16 producer is one thread
+  // issuing TMA; an int8 one also dequantizes. setmaxnreg.inc only takes
+  // what setmaxnreg.dec gave back, so the split must fit the CTA's launch
+  // allocation (kLaunchRegs x kThreads), or the consumers wait forever.
+  static constexpr int kProducerRegs = kInt8 ? (D == 256 ? 40 : 56) : 24;
+  static constexpr int kConsumerRegs = kInt8 ? (D == 256 ? 232 : 224) : 240;
+  static_assert(2 * 128 * kConsumerRegs + 128 * kProducerRegs <= kLaunchRegs * kThreads,
+                "register split past the CTA's launch allocation");
+  static constexpr uint32_t kQBytes = uint32_t(kRows) * D * 2;
+  static constexpr uint32_t kTileBytes = uint32_t(kBK) * D * 2;  // one bf16 K (or V) tile
+  static constexpr uint32_t kRawBytes = uint32_t(kBK) * D;       // one int8 K (or V) tile
+  // byte offsets from the 1024-aligned base (the 128-byte swizzle repeats
+  // every 1024 bytes, and wgmma descriptors assume tiles aligned to it)
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kQ + kQBytes;
+  static constexpr uint32_t kV = kK + kStages * kTileBytes;
+  static constexpr uint32_t kRaw = kV + kStages * kTileBytes;  // [kRawStages][K, V] int8
+  static constexpr uint32_t kScales = kRaw + kRawStages * 2 * kRawBytes;  // [2][K, V][kBK] f32
+  static constexpr uint32_t kBars = kScales + (kInt8 ? 2 * 2 * kBK * 4 : 0);
+  // mbarriers: full[kStages], empty[kStages], raw_full[kRawStages], q_full, q_empty
+  static constexpr uint32_t kEnd = kBars + 8 * (2 * kStages + kRawStages + 2);
+  static constexpr uint32_t kSmem = kEnd + 1024;  // + the slack that aligns the base
+  static_assert(kSmem <= 232448, "shared memory of one CTA");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b) {
+// 4-d TMA tile load into shared memory, completion counted in bytes on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
 }
 
-// 16-byte global → shared copy; a false `valid` zero-fills the destination
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
-// 4-byte global → shared copy (sources only 4-byte aligned), zero-fill as above
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// generic-proxy shared-memory writes made visible to wgmma and TMA
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// pin register values at this point of the program: the compiler may not
+// move their reads or writes across (wgmma reads and writes them
+// asynchronously between issue and wait)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
+}
+
+// wgmma wrappers: d (f32, 64 x N over the warpgroup) += A (64 x 16 bf16) *
+// B (16 x N bf16). qk: A and B from shared memory, both K-major;
+// pv: A from registers, B transposed (MN-major, the V tile's rows are
+// keys). The operand lists are written out, as PTX wants them.
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_pv(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // 2^x in one MUFU op (relative error ~2^-22, far below p's bf16 rounding);
@@ -116,301 +253,416 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-
-template <typename TKV, int D, int BK, int HPC>
-struct Tile {
-  static constexpr bool kInt8 = sizeof(TKV) == 1;
-  static constexpr int kRowBlocks = kWarps / HPC;  // 16-row blocks per head
-  static constexpr int kBQ = 16 * kRowBlocks;      // query positions per CTA
-  static constexpr int kStride = D + 8;            // padded shared-memory row (bf16)
-  // bf16 K/V tiles: double-buffered for a bf16 cache (cp.async lands there),
-  // one for an int8 cache (the dequantize pass writes it)
-  static constexpr int kBufs = kInt8 ? 1 : 2;
-  static constexpr size_t kQElems = size_t(HPC) * kBQ * kStride;
-  static constexpr size_t kKVElems = size_t(BK) * kStride;
-  static constexpr size_t kRaw = kInt8 ? size_t(BK) * D : 0;    // bytes of one int8 tile
-  static constexpr size_t kScales = kInt8 ? size_t(BK) : 0;     // its f32 scales
-  // Q + bf16 K/V tiles + 2 x (int8 K, int8 V, K scales, V scales)
-  static constexpr size_t kSmem = sizeof(bf16) * (kQElems + 2 * kBufs * kKVElems) +
-                                  2 * 2 * (kRaw + sizeof(float) * kScales);
-};
-
-// four int8 values (one 32-bit word) * scale → four bf16, packed in pairs
-__device__ __forceinline__ uint2 dequant4(uint32_t w, float s) {
-  float f[4];
+// eight int8 values (two 32-bit words) * scale → eight bf16, rounded once.
+// No int-to-float conversion (a quarter-rate op): with its sign bit
+// flipped, byte q becomes q + 128 in [0, 255]; placed in the low mantissa of
+// 2^23 it reads 2^23 + q + 128, and one exact subtraction gives float(q).
+__device__ __forceinline__ uint4 dequant8(uint2 w, float s) {
+  const uint32_t u[2] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u};
+  float f[8];
 #pragma unroll
-  for (int e = 0; e < 4; ++e) f[e] = float(int8_t((w >> (8 * e)) & 0xffu)) * s;
-  return make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
+  for (int e = 0; e < 8; ++e) {
+    // bytes (u_e, 0, 0, 0x4B) from {0x4B000000 : u}
+    const float biased = __uint_as_float(__byte_perm(u[e / 4], 0x4B000000u, 0x7540 | (e % 4)));
+    f[e] = (biased - 8388736.f) * s;
+  }
+  return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
+                    pack_bf16(f[6], f[7]));
 }
 
-template <typename TKV, int D, int BK, int HPC>
-__global__ void __launch_bounds__(kThreads)
-flash_segment_kernel(const bf16* __restrict__ q,         // [B, S, H, D]
-                     const TKV* __restrict__ k,          // [B, Hkv, T, D], strides kv_sb / kv_sh
-                     const TKV* __restrict__ v,
+template <typename TKV, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_segment_kernel(const __grid_constant__ CUtensorMap q_map,  // [B, S, H, D] bf16
+                     const __grid_constant__ CUtensorMap k_map,  // [B, Hkv, T, D] view
+                     const __grid_constant__ CUtensorMap v_map,
                      const float* __restrict__ k_scale,  // [B, Hkv, T], strides sc_sb / sc_sh
                      const float* __restrict__ v_scale,
-                     const int* __restrict__ offsets,    // [B] global position of q row 0
-                     bf16* __restrict__ out,             // [B, S, H, D]
-                     int S, int H, int Hkv, int G, int T, long long kv_sb, long long kv_sh,
-                     long long sc_sb, long long sc_sh, float scale, float softcap) {
-  using TL = Tile<TKV, D, BK, HPC>;
-  constexpr bool kInt8 = TL::kInt8;
-  constexpr int kBQ = TL::kBQ;
-  constexpr int kStride = TL::kStride;
-  constexpr int kDT = D / 8;                           // output n-tiles
-  constexpr int kKT = BK / 8;                          // score n-tiles
-  constexpr int kRowVecs = D / 8;                      // 16-byte vectors per bf16 row
-  constexpr int kSrcVecs = D * int(sizeof(TKV)) / 16;  // 16-byte vectors per cache row
-  constexpr int kVecElems = 16 / int(sizeof(TKV));     // cache elements per vector
-  constexpr bool kQInRegs = D <= 128;  // D = 256 re-reads Q fragments from shared memory
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);     // [HPC][kBQ][kStride]
-  bf16* ks = qs + TL::kQElems;                  // [kBufs][BK][kStride]
-  bf16* vs = ks + TL::kBufs * TL::kKVElems;     // [kBufs][BK][kStride]
-  unsigned char* staging = reinterpret_cast<unsigned char*>(vs + TL::kBufs * TL::kKVElems);
-  TKV* kraw = reinterpret_cast<TKV*>(staging);                  // [2][BK][D] (int8 only)
-  TKV* vraw = reinterpret_cast<TKV*>(staging + 2 * TL::kRaw);   // [2][BK][D]
-  float* ksc = reinterpret_cast<float*>(staging + 4 * TL::kRaw);  // [2][BK]
-  float* vsc = ksc + 2 * TL::kScales;                             // [2][BK]
+                     const int* __restrict__ offsets,  // [B] global position of q row 0
+                     bf16* __restrict__ out,           // [B, S, H, D]
+                     int B, int S, int H, int Hkv, int lg, int T, long long sc_sb,
+                     long long sc_sh, float scale, float softcap) {
+  using L = Layout<TKV, D>;
+  constexpr int kBK = L::kBK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw0 = smem_u32(smem_raw);
+  const uint32_t base = (raw0 + 1023u) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw0);
+  const uint32_t bars = base + L::kBars;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (L::kStages + s); };
+  auto raw_full = [&](int s) { return bars + 8u * (2 * L::kStages + s); };
+  const uint32_t q_full = bars + 8u * (2 * L::kStages + L::kRawStages);
+  const uint32_t q_empty = q_full + 8u;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g8 = lane >> 2;  // fragment row (and +8)
-  const int tig = lane & 3;  // fragment column pair
-  const int b = blockIdx.z;
-  const int groups = G / HPC;
-  const int kvh = blockIdx.y / groups;
-  const int h0 = kvh * G + (blockIdx.y % groups) * HPC;
-  const int q_start = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest tiles first
-  const int hw = warp % HPC;                               // this warp's head in the CTA
-  const int row0 = q_start + (warp / HPC) * 16;            // its first query (segment-local)
-  const int off = offsets != nullptr ? max(offsets[b], 0) : 0;
-  const TKV* kb = k + b * kv_sb + kvh * kv_sh;
-  const TKV* vb = v + b * kv_sb + kvh * kv_sh;
-  const float* ksb = kInt8 ? k_scale + b * sc_sb + kvh * sc_sh : nullptr;
-  const float* vsb = kInt8 ? v_scale + b * sc_sb + kvh * sc_sh : nullptr;
-
-  // Q tile → shared memory, rows past S zero-filled
-  for (int i = tid; i < HPC * kBQ * kRowVecs; i += kThreads) {
-    const int hh = i / (kBQ * kRowVecs);
-    const int r = (i / kRowVecs) % kBQ;
-    const int c = i % kRowVecs;
-    const int pos = q_start + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (pos < S) {
-      val = *reinterpret_cast<const uint4*>(q + ((size_t(b) * S + pos) * H + h0 + hh) * D + c * 8);
-    }
-    *reinterpret_cast<uint4*>(qs + (size_t(hh) * kBQ + r) * kStride + c * 8) = val;
-  }
-
-  // the tile's causal frontier: keys past its last query are never visited
-  const int k_end = min(T, off + min(S, q_start + kBQ));
-  const int n_tiles = k_end > 0 ? (k_end + BK - 1) / BK : 0;
-
-  auto load_kv = [&](int buf, int k0) {
-    for (int i = tid; i < BK * kSrcVecs; i += kThreads) {
-      const int r = i / kSrcVecs;
-      const int c = i % kSrcVecs;
-      const int pos = k0 + r;
-      const bool ok = pos < k_end;
-      const size_t src = size_t(ok ? pos : 0) * D + c * kVecElems;
-      if constexpr (kInt8) {
-        const size_t dst = (size_t(buf) * BK + r) * D + c * kVecElems;
-        cp_async16(kraw + dst, kb + src, ok);
-        cp_async16(vraw + dst, vb + src, ok);
-      } else {
-        const size_t dst = (size_t(buf) * BK + r) * kStride + c * kVecElems;
-        cp_async16(ks + dst, kb + src, ok);
-        cp_async16(vs + dst, vb + src, ok);
-      }
-    }
-    if constexpr (kInt8) {
-      for (int r = tid; r < BK; r += kThreads) {
-        const int pos = k0 + r;
-        const bool ok = pos < k_end;
-        cp_async4(ksc + buf * BK + r, ksb + (ok ? pos : 0), ok);
-        cp_async4(vsc + buf * BK + r, vsb + (ok ? pos : 0), ok);
-      }
-    }
-    cp_async_commit();
+  // Work items: (query tile, batch row, kv head). The grid is persistent
+  // (one CTA per SM); CTA c takes items in rounds of gridDim.x, snaking
+  // (c, then 2 x grid - 1 - c, ...) through an order that puts the heaviest
+  // (last) query tiles first, so the rounds even out. Every role of the
+  // CTA walks the same items, so rings and barriers stay in step.
+  const int P = kRows >> lg;  // query positions per item (G = 1 << lg heads each)
+  const int n_qt = (S + P - 1) / P;
+  const int per_qt = B * Hkv;
+  const int n_items = n_qt * per_qt;
+  struct Item {
+    int q_start, b, kvh, off, k_end, n_tiles;
   };
+  auto item_at = [&](int round, Item& it) -> bool {
+    const int c = (round & 1) ? int(gridDim.x) - 1 - int(blockIdx.x) : int(blockIdx.x);
+    const int w = round * int(gridDim.x) + c;
+    if (w >= n_items) return false;
+    it.q_start = (n_qt - 1 - w / per_qt) * P;
+    it.b = (w % per_qt) / Hkv;
+    it.kvh = w % Hkv;
+    it.off = offsets != nullptr ? max(offsets[it.b], 0) : 0;
+    // the item's causal frontier: keys past its last query are never visited
+    it.k_end = min(T, it.off + min(S, it.q_start + P));
+    it.n_tiles = (it.k_end + kBK - 1) / kBK;
+    return true;
+  };
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
 
-  if (n_tiles > 0) load_kv(0, 0);
-  __syncthreads();  // the Q tile is in shared memory
-
-  const bf16* qw = qs + (size_t(hw) * kBQ + (warp / HPC) * 16) * kStride;
-  uint32_t qf[kQInRegs ? D / 16 : 1][4];
-  if constexpr (kQInRegs) {
+  if (tid == 0) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      ldmatrix_x4(qf[kk], qw + (lane % 16) * kStride + kk * 16 + (lane / 16) * 8);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full(s), L::kInt8 ? 128 : 1);  // int8: every transform thread arrives
+      mbar_init(empty(s), 4 * kConsumerWGs);   // one arrive per consumer warp
+    }
+#pragma unroll
+    for (int s = 0; s < L::kRawStages; ++s) mbar_init(raw_full(s), 1);
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 4 * kConsumerWGs);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float o[kDT][4];
+  if (wg == kConsumerWGs) {
+    // ---------------- producer (and, for int8, transform) warpgroup ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::kProducerRegs));
+    const int ptid = tid - 128 * kConsumerWGs;
+    // the Q tile of item number `round`, once the consumers are done with
+    // the previous item's. From the second item on it is loaded after the
+    // item's first kStages - 1 tiles, which take ring stages the consumers
+    // free while they finish the previous item.
+    auto q_after = [&](int round, const Item& it) {
+      return round == 0 ? 0 : min(it.n_tiles, L::kStages - 1);
+    };
+    auto load_q = [&](int round, const Item& it) {
+      if (round > 0) mbar_wait(q_empty, (round - 1) & 1);
+      mbar_expect_tx(q_full, L::kQBytes);
 #pragma unroll
-  for (int t = 0; t < kDT; ++t)
+      for (int a = 0; a < L::kAtoms; ++a)
+        tma_load(base + L::kQ + a * (kRows * 128), &q_map, q_full, a * kAtom, it.kvh << lg,
+                 it.q_start, it.b);
+    };
+    Item it{};
+    int g = 0;  // tiles through the bf16 ring so far, over every item
+    if constexpr (!L::kInt8) {
+      if (ptid != 0) return;
+      for (int round = 0; item_at(round, it); ++round) {
+        const int qa = q_after(round, it);
+        if (qa == 0) load_q(round, it);
+        for (int j = 0; j < it.n_tiles; ++j, ++g) {
+          const int s = g % L::kStages;
+          if (g >= L::kStages) mbar_wait(empty(s), (g / L::kStages - 1) & 1);
+          mbar_expect_tx(full(s), 2 * L::kTileBytes);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
-  // scores in the log2 domain: exp(x - m) == 2^(x log2(e) - m log2(e))
-  constexpr float kLog2e = 1.4426950408889634f;
-  const float scale_log2 = scale * kLog2e;
-  const float scale_cap = softcap > 0.f ? scale / softcap : 0.f;
-  const float cap_log2 = softcap * kLog2e;
-  float m_r[2] = {kNeg, kNeg};  // running max of rows g8 and g8 + 8
-  float l_r[2] = {0.f, 0.f};    // this thread's share of the running sums
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_kv(buf ^ 1, (j + 1) * BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kt = ks;
-    const bf16* vt = vs;
-    if constexpr (kInt8) {
-      // dequantize the staged int8 tile into the bf16 tile: 8 values a step
-      const TKV* kr = kraw + size_t(buf) * BK * D;
-      const TKV* vr = vraw + size_t(buf) * BK * D;
-      for (int i = tid; i < BK * kRowVecs; i += kThreads) {
-        const int r = i / kRowVecs;
-        const int c = i % kRowVecs;
-        const uint2 kw = *reinterpret_cast<const uint2*>(kr + r * D + c * 8);
-        const uint2 vw = *reinterpret_cast<const uint2*>(vr + r * D + c * 8);
-        const float sk = ksc[buf * BK + r];
-        const float sv = vsc[buf * BK + r];
-        const uint2 ka = dequant4(kw.x, sk), kc = dequant4(kw.y, sk);
-        const uint2 va = dequant4(vw.x, sv), vc = dequant4(vw.y, sv);
-        *reinterpret_cast<uint4*>(ks + size_t(r) * kStride + c * 8) = make_uint4(ka.x, ka.y, kc.x, kc.y);
-        *reinterpret_cast<uint4*>(vs + size_t(r) * kStride + c * 8) = make_uint4(va.x, va.y, vc.x, vc.y);
-      }
-      __syncthreads();
-    } else {
-      kt = ks + size_t(buf) * TL::kKVElems;
-      vt = vs + size_t(buf) * TL::kKVElems;
-    }
-    const int k0 = j * BK;
-
-    // S = Q K^T for this warp's 16 rows x BK keys
-    float s[kKT][4];
-#pragma unroll
-    for (int t = 0; t < kKT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      if constexpr (kQInRegs) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
-      } else {
-        ldmatrix_x4(a, qw + (lane % 16) * kStride + kk * 16 + (lane / 16) * 8);
-      }
-#pragma unroll
-      for (int np = 0; np < kKT / 2; ++np) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, kt + (np * 16 + (lane / 16) * 8 + lane % 8) * kStride + kk * 16 +
-                            ((lane / 8) & 1) * 8);
-        mma_16816(s[2 * np], a, kf);
-        mma_16816(s[2 * np + 1], a, kf + 2);
-      }
-    }
-
-    // scale, soft cap, row maxima (over the quad); the global causal mask
-    // and the frontier only on a tile that crosses this warp's first
-    // query's diagonal or the frontier (warp-uniform: the rest see every key)
-    const bool edge = k0 + BK - 1 > off + row0 || k0 + BK > k_end;
-    float mx[2] = {kNeg, kNeg};
-#pragma unroll
-    for (int t = 0; t < kKT; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = softcap > 0.f ? tanhf(s[t][e] * scale_cap) * cap_log2 : s[t][e] * scale_log2;
-        if (edge) {
-          const int qpos = off + row0 + g8 + (e >> 1) * 8;
-          const int kpos = k0 + t * 8 + tig * 2 + (e & 1);
-          if (kpos > qpos || kpos >= k_end) x = kNeg;
+          for (int a = 0; a < L::kAtoms; ++a) {
+            const uint32_t at = s * L::kTileBytes + a * (kBK * 128);
+            tma_load(base + L::kK + at, &k_map, full(s), a * kAtom, j * kBK, it.kvh, it.b);
+            tma_load(base + L::kV + at, &v_map, full(s), a * kAtom, j * kBK, it.kvh, it.b);
+          }
+          if (j + 1 == qa) load_q(round, it);
         }
-        s[t][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    } else {
+      // TMA brings int8 tiles into their own ring (raw stage r of tile g
+      // is g % kRawStages, like the bf16 ring's); the 128 threads
+      // dequantize each into the bf16 stage the consumers read
+      auto issue_raw = [&](const Item& it, int j, int gr) {
+        const int r = gr % L::kRawStages;
+        const uint32_t dst = base + L::kRaw + r * 2 * L::kRawBytes;
+        mbar_expect_tx(raw_full(r), 2 * L::kRawBytes);
+        tma_load(dst, &k_map, raw_full(r), 0, j * kBK, it.kvh, it.b);
+        tma_load(dst + L::kRawBytes, &v_map, raw_full(r), 0, j * kBK, it.kvh, it.b);
+      };
+      // the scales of a tile: thread i < kBK reads K's of key i, the rest
+      // V's, one tile ahead, into a double-buffered [2][K, V][kBK] array;
+      // keys past the frontier get scale 0, so their rows become zeros
+      static_assert(2 * kBK == 128, "one scale per transform thread");
+      float* scales = reinterpret_cast<float*>(sbase + L::kScales);
+      constexpr int kChunks = D / 8;           // 16-byte bf16 chunks per row
+      constexpr int kRowStep = 128 / kChunks;  // rows one pass of the threads covers
+      constexpr int kIters = kBK / kRowStep;
+      const int c = ptid % kChunks;
+      for (int round = 0; item_at(round, it); ++round) {
+        const int qa = q_after(round, it);
+        if (ptid == 0) {
+          for (int j = 0; j < min(L::kRawStages, it.n_tiles); ++j) issue_raw(it, j, g + j);
+          if (qa == 0) load_q(round, it);
+        }
+        const float* scb =
+            (ptid < kBK ? k_scale : v_scale) + it.b * sc_sb + it.kvh * sc_sh;
+        auto load_scale = [&](int j) {
+          const int pos = j * kBK + ptid % kBK;
+          return pos < it.k_end ? __ldg(scb + pos) : 0.f;
+        };
+        scales[ptid] = load_scale(0);
+        named_sync(3, 128);
+        for (int j = 0; j < it.n_tiles; ++j, ++g) {
+          const int r = g % L::kRawStages;
+          const int s = g % L::kStages;
+          const float next = j + 1 < it.n_tiles ? load_scale(j + 1) : 0.f;
+          mbar_wait(raw_full(r), (g / L::kRawStages) & 1);
+          if (g >= L::kStages) mbar_wait(empty(s), (g / L::kStages - 1) & 1);
+          const unsigned char* kr = sbase + L::kRaw + r * 2 * L::kRawBytes;
+          const unsigned char* vr = kr + L::kRawBytes;
+          unsigned char* kd = sbase + L::kK + s * L::kTileBytes;
+          unsigned char* vd = sbase + L::kV + s * L::kTileBytes;
+          const float* sct = scales + (j & 1) * 2 * kBK;
+#pragma unroll
+          for (int i = 0; i < kIters; ++i) {
+            const int row = ptid / kChunks + i * kRowStep;
+            const uint2 kw = *reinterpret_cast<const uint2*>(kr + row * D + c * 8);
+            const uint2 vw = *reinterpret_cast<const uint2*>(vr + row * D + c * 8);
+            // the 128-byte swizzle TMA would have applied: chunk ^ (row % 8)
+            const uint32_t at = (c / 8) * (kBK * 128) + row * 128 + (((c % 8) ^ (row % 8)) * 16);
+            *reinterpret_cast<uint4*>(kd + at) = dequant8(kw, sct[row]);
+            *reinterpret_cast<uint4*>(vd + at) = dequant8(vw, sct[kBK + row]);
+          }
+          fence_proxy_async_shared();
+          mbar_arrive(full(s));
+          if (ptid == 0 && j + 1 == qa) load_q(round, it);
+          scales[((j + 1) & 1) * 2 * kBK + ptid] = next;
+          named_sync(3, 128);  // raw stage r and this tile's scales are free again
+          if (ptid == 0 && j + L::kRawStages < it.n_tiles)
+            issue_raw(it, j + L::kRawStages, g + L::kRawStages);
+        }
       }
     }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_r[i], mx[i]);
-      corr[i] = exp2_approx(m_r[i] - m_new);
-      m_r[i] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int t = 0; t < kKT; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = s[t][e];
-        const float p = (x <= kNeg) ? 0.f : exp2_approx(x - m_r[e >> 1]);
-        s[t][e] = p;
-        rs[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * corr[i] + rs[i];
-#pragma unroll
-    for (int t = 0; t < kDT; ++t) {
-      o[t][0] *= corr[0];
-      o[t][1] *= corr[0];
-      o[t][2] *= corr[1];
-      o[t][3] *= corr[1];
-    }
+  } else {
+    // ---------------- consumer warpgroups: 64 rows each ----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::kConsumerRegs));
+    const int w = wg;
+    const int t = tid % 128;
+    const int warp = t / 32;
+    const int lane = t % 32;
+    const int g8 = lane >> 2;  // fragment row (and +8)
+    const int tig = lane & 3;  // fragment column pair
+    const int r0 = 64 * w + 16 * warp + g8;  // this thread's item rows r0 and r0 + 8
+    const uint32_t q_tile = base + L::kQ + w * (64 * 128);
 
-    // O += P V, p rounded to bf16 straight from the score accumulators
+    constexpr float kLog2e = 1.4426950408889634f;
+    const float scale_log2 = scale * kLog2e;
+    const float scale_cap = softcap > 0.f ? scale / softcap : 0.f;
+    const float cap_log2 = softcap * kLog2e;
+
+    float o[D / 2];
+    float sc[kBK / 2];          // scores, then probabilities, of this tile
+    uint32_t pf[kBK / 16][4];   // p in bf16: the A operand of P V
+    float m_r[2];               // running max of rows g8 and g8 + 8
+    float l_r[2];               // this thread's share of the running sums
+    int qpos[2];                // global positions of those rows' queries
+    int diag = 0;               // this warp's first query
+    Item it{};
+    int g = 0;  // tiles through the bf16 ring so far, over every item
+
+    auto issue_qk = [&](int s) {
+      const uint32_t kt = base + L::kK + s * L::kTileBytes;
 #pragma unroll
-    for (int kb16 = 0; kb16 < BK / 16; ++kb16) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kb16][0], s[2 * kb16][1]);
-      a[1] = pack_bf16(s[2 * kb16][2], s[2 * kb16][3]);
-      a[2] = pack_bf16(s[2 * kb16 + 1][0], s[2 * kb16 + 1][1]);
-      a[3] = pack_bf16(s[2 * kb16 + 1][2], s[2 * kb16 + 1][3]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t in_atom = (kk % 4) * 32;  // 16 columns into the atom
+        wgmma_qk(sc, gmma_desc(q_tile + (kk / 4) * (kRows * 128) + in_atom, 16, 1024),
+                 gmma_desc(kt + (kk / 4) * (kBK * 128) + in_atom, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+    };
+    auto issue_pv = [&](int s) {
+      const uint32_t vt = base + L::kV + s * L::kTileBytes;
 #pragma unroll
-      for (int dp = 0; dp < kDT / 2; ++dp) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vt + (kb16 * 16 + ((lane / 8) & 1) * 8 + lane % 8) * kStride +
-                                  dp * 16 + (lane / 16) * 8);
-        mma_16816(o[2 * dp], a, vf);
-        mma_16816(o[2 * dp + 1], a, vf + 2);
+      for (int kb = 0; kb < kBK / 16; ++kb)
+        wgmma_pv(o, pf[kb], gmma_desc(vt + kb * 16 * 128, kBK * 128, 1024));
+      wgmma_commit();
+    };
+    auto release = [&](int s) {
+      if (lane == 0) mbar_arrive(empty(s));
+    };
+    // scale, soft cap, row maxima (over the quad) and probabilities of tile
+    // j; the global causal mask and the frontier only on a tile that
+    // crosses this warp's first query's diagonal or the frontier (the rest
+    // see every key)
+    auto softmax = [&](int j, float (&corr)[2]) {
+      const int k0 = j * kBK;
+      const bool edge = k0 + kBK - 1 > diag || k0 + kBK > it.k_end;
+      float mx[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int e = 0; e < kBK / 2; ++e) {
+        float x = softcap > 0.f ? tanhf(sc[e] * scale_cap) * cap_log2 : sc[e] * scale_log2;
+        const int row = (e % 4) / 2;
+        if (edge) {
+          const int kpos = k0 + 8 * (e / 4) + 2 * tig + (e & 1);
+          if (kpos > qpos[row] || kpos >= it.k_end) x = kNeg;
+        }
+        sc[e] = x;
+        mx[row] = fmaxf(mx[row], x);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m_r[i], mx[i]);
+        corr[i] = exp2_approx(m_r[i] - m_new);
+        m_r[i] = m_new;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < kBK / 2; ++e) {
+        const int row = (e % 4) / 2;
+        const float x = sc[e];
+        const float p = (x <= kNeg) ? 0.f : exp2_approx(x - m_r[row]);
+        sc[e] = p;
+        rs[row] += p;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * corr[i] + rs[i];
+    };
+    // p rounded to bf16 straight from the score accumulators
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kb = 0; kb < kBK / 16; ++kb) {
+        pf[kb][0] = pack_bf16(sc[8 * kb + 0], sc[8 * kb + 1]);
+        pf[kb][1] = pack_bf16(sc[8 * kb + 2], sc[8 * kb + 3]);
+        pf[kb][2] = pack_bf16(sc[8 * kb + 4], sc[8 * kb + 5]);
+        pf[kb][3] = pack_bf16(sc[8 * kb + 6], sc[8 * kb + 7]);
+      }
+    };
+
+    if (w == 1) named_arrive(1, 256);  // warpgroup 0 issues first
+    for (int round = 0; item_at(round, it); ++round) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        qpos[i] = it.off + it.q_start + ((r0 + 8 * i) >> lg);
+        m_r[i] = kNeg;
+        l_r[i] = 0.f;
+      }
+      diag = it.off + it.q_start + ((64 * w + 16 * warp) >> lg);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+      // Every iteration below has the same shape (QK^T of tile j and PV of
+      // tile j - 1 in flight, then wait for 1, then for 0), so ptxas can
+      // follow which accumulators are in flight and keeps the wgmmas
+      // asynchronous; tile 0 (QK^T alone) is peeled off for that.
+      float corr[2];
+      mbar_wait(q_full, round & 1);
+      int s = g % L::kStages;
+      mbar_wait(full(s), (g / L::kStages) & 1);
+      named_sync(1 + w, 256);  // this warpgroup's turn on the tensor cores
+      fence_regs(o);
+      wgmma_fence();
+      issue_qk(s);
+      named_arrive(2 - w, 256);  // the other warpgroup's turn
+      wgmma_wait<0>();
+      fence_regs(sc);
+      softmax(0, corr);  // O is still 0: nothing to rescale
+      pack_p();
+      for (int j = 1; j < it.n_tiles; ++j) {
+        const int prev = s;
+        s = (g + j) % L::kStages;
+        mbar_wait(full(s), ((g + j) / L::kStages) & 1);
+        named_sync(1 + w, 256);
+        fence_regs(sc);
+        fence_regs(o);
+        wgmma_fence();
+        issue_qk(s);
+        issue_pv(prev);
+        named_arrive(2 - w, 256);
+        wgmma_wait<1>();  // QK^T of tile j is done
+        fence_regs(sc);
+        softmax(j, corr);
+        wgmma_wait<0>();  // P V of tile j - 1 is done: its stage is free, O is ours
+        release(prev);
+        fence_regs(o);
+        // past the first tiles a row's max rarely moves: skip the rescale
+        // where no row of the warp moved (corr is exactly 1 there)
+        if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+          for (int e = 0; e < D / 2; ++e) o[e] *= corr[(e % 4) / 2];
+        }
+        pack_p();
+      }
+      // every QK^T of the item is done: the producer may bring the next Q
+      if (lane == 0) mbar_arrive(q_empty);
+      // P V of the last tile
+      fence_regs(o);
+      wgmma_fence();
+      issue_pv(s);
+      wgmma_wait<0>();
+      fence_regs(o);
+      release(s);
+      g += it.n_tiles;
+
+      // finish the row sums over the quad (l_r becomes 1 / l) and write
+      // the rows inside S
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+        l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+        l_r[i] = 1.f / fmaxf(l_r[i], 1e-30f);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = r0 + 8 * i;
+        const int pos = it.q_start + (r >> lg);
+        if (pos >= S) continue;
+        const int h = (it.kvh << lg) + (r & ((1 << lg) - 1));
+        bf16* dst = out + ((size_t(it.b) * S + pos) * H + h) * D + tig * 2;
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c) {
+          *reinterpret_cast<__nv_bfloat162*>(dst + c * 8) =
+              __floats2bfloat162_rn(o[4 * c + 2 * i] * l_r[i], o[4 * c + 2 * i + 1] * l_r[i]);
+        }
       }
     }
-    __syncthreads();  // the tiles (and their staging buffer) are refilled from here on
+    if (w == 0) named_sync(1, 256);  // take warpgroup 1's last turn signal
   }
+}
 
-  // finish the row sums over the quad (l_r becomes 1 / l) and write rows
-  // inside S
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
-    l_r[i] = 1.f / fmaxf(l_r[i], 1e-30f);
-  }
-  const int h = h0 + hw;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int pos = row0 + g8 + i * 8;
-    if (pos >= S) continue;
-    bf16* dst = out + ((size_t(b) * S + pos) * H + h) * D + tig * 2;
-#pragma unroll
-    for (int t = 0; t < kDT; ++t) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + t * 8) =
-          __floats2bfloat162_rn(o[t][2 * i] * l_r[i], o[t][2 * i + 1] * l_r[i]);
-    }
-  }
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so
+// nothing links -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a 4-d tensor map: dims innermost first, byte strides of dims 1..3, box;
+// rows past a dim's end are zero-filled
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, const uint64_t* dims,
+              const uint64_t* strides, const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 struct Args {
@@ -422,40 +674,61 @@ struct Args {
   float scale, softcap;
 };
 
-template <typename TKV, int D, int BK, int HPC>
+template <typename TKV, int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  using TL = Tile<TKV, D, BK, HPC>;
+  using L = Layout<TKV, D>;
   const int G = a.H / a.Hkv;
-  auto kernel = flash_segment_kernel<TKV, D, BK, HPC>;
+  int lg = 0;
+  while ((1 << lg) < G) ++lg;
+  if ((1 << lg) != G || G > 8) return cudaErrorInvalidValue;
+  const int P = kRows / G;
+  const uint64_t item = sizeof(TKV);
+  CUtensorMap qm, km, vm;
+  const uint64_t q_dims[4] = {uint64_t(D), uint64_t(a.H), uint64_t(a.S), uint64_t(a.B)};
+  const uint64_t q_strides[3] = {2ull * D, 2ull * a.H * D, 2ull * a.S * a.H * D};
+  const uint32_t q_box[4] = {uint32_t(kAtom), uint32_t(G), uint32_t(P), 1};
+  const uint64_t kv_dims[4] = {uint64_t(D), uint64_t(a.T), uint64_t(a.Hkv), uint64_t(a.B)};
+  const uint64_t kv_strides[3] = {item * D, item * uint64_t(a.kv_sh), item * uint64_t(a.kv_sb)};
+  // bf16 tiles land swizzled, as wgmma reads them; int8 tiles land plain
+  // for the transform threads
+  const uint32_t kv_box[4] = {uint32_t(L::kInt8 ? D : kAtom), uint32_t(L::kBK), 1, 1};
+  const CUtensorMapDataType kv_type =
+      L::kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle kv_swizzle =
+      L::kInt8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!make_map(&qm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.q, q_dims, q_strides, q_box,
+                CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map(&km, kv_type, a.k, kv_dims, kv_strides, kv_box, kv_swizzle) ||
+      !make_map(&vm, kv_type, a.v, kv_dims, kv_strides, kv_box, kv_swizzle)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = flash_segment_kernel<TKV, D>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(TL::kSmem));
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(L::kSmem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + TL::kBQ - 1) / TL::kBQ, a.Hkv * (G / HPC), a.B);
-  kernel<<<grid, kThreads, TL::kSmem, stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const TKV*>(a.k), static_cast<const TKV*>(a.v),
-      static_cast<const float*>(a.k_scale), static_cast<const float*>(a.v_scale), a.offsets,
-      static_cast<bf16*>(a.out), a.S, a.H, a.Hkv, G, a.T, a.kv_sb, a.kv_sh, a.sc_sb, a.sc_sh,
+  // persistent: one CTA per SM, or one per item where there are fewer
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long items = (long long)((a.S + P - 1) / P) * a.B * a.Hkv;
+  const int grid = int(items < sms ? items : sms);
+  kernel<<<grid, kThreads, L::kSmem, stream>>>(
+      qm, km, vm, static_cast<const float*>(a.k_scale), static_cast<const float*>(a.v_scale),
+      a.offsets, static_cast<bf16*>(a.out), a.B, a.S, a.H, a.Hkv, lg, a.T, a.sc_sb, a.sc_sh,
       a.scale, a.softcap);
   return cudaGetLastError();
-}
-
-template <typename TKV, int D, int BK>
-cudaError_t launch_hpc(const Args& a, cudaStream_t stream) {
-  const int G = a.H / a.Hkv;
-  if (G % 4 == 0) return launch<TKV, D, BK, 4>(a, stream);
-  if (G % 2 == 0) return launch<TKV, D, BK, 2>(a, stream);
-  return launch<TKV, D, BK, 1>(a, stream);
 }
 
 template <typename TKV>
 cudaError_t launch_d(int D, const Args& a, cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch_hpc<TKV, 64, 64>(a, stream);
+      return launch<TKV, 64>(a, stream);
     case 128:
-      return launch_hpc<TKV, 128, 64>(a, stream);
+      return launch<TKV, 128>(a, stream);
     case 256:
-      return launch_hpc<TKV, 256, 32>(a, stream);
+      return launch<TKV, 256>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -468,8 +741,9 @@ cudaError_t launch_d(int D, const Args& a, cudaStream_t stream) {
 // bf16 or (kv_int8 != 0) int8 with k_scale/v_scale [B, Hkv, T] f32 of
 // strides sc_sb / sc_sh (else null); offsets [B] i32 on the device, or
 // null for offset 0 (a prefill); out [B, S, H, D] bf16. softcap <= 0
-// disables the soft cap. Returns the cudaError_t of the launch (0 =
-// success).
+// disables the soft cap. Every K/V byte stride and base must be a multiple
+// of 16 (TMA); the wrapper's launch plan checks this before the call.
+// Returns the cudaError_t of the launch (0 = success).
 extern "C" int lstpu_flash_segment(const void* q, const void* k, const void* v,
                                    const void* k_scale, const void* v_scale, const void* offsets,
                                    void* out, int B, int S, int H, int Hkv, int D, int T,

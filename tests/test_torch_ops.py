@@ -186,3 +186,116 @@ def test_build_is_lazy_and_keyed_by_source(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build_all()
+
+
+# ---------------------------------------------------------------------------
+# The segment kernel's launch plan (pure: shapes, strides, dtypes, bases)
+# ---------------------------------------------------------------------------
+
+SMEM_PER_CTA = 232448  # an H100 CTA's shared memory
+
+
+def _contiguous_strides(shape):
+    strides, acc = [], 1
+    for n in reversed(shape):
+        strides.append(acc)
+        acc *= n
+    return tuple(reversed(strides))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_segment_plan_prompt_cache(d, group, int8):
+    """A contiguous prompt cache [B, Hkv, S, D]: TMA maps over the view's own
+    dims and byte strides, 128-row work items of one kv-head group, a
+    persistent grid, and the int8 scales read without TMA."""
+    b, s, hkv = 2, 300, 2
+    h = hkv * group
+    kv_shape = (b, hkv, s, d)
+    dtype = torch.int8 if int8 else torch.bfloat16
+    item = 1 if int8 else 2
+    plan = port_attn.segment_launch_plan(
+        (b, s, h, d), kv_shape, _contiguous_strides(kv_shape), dtype,
+        scale_strides=_contiguous_strides(kv_shape[:-1]) if int8 else None,
+    )
+    p = 128 // group
+    assert plan["positions_per_item"] == p
+    assert plan["work_items"] == (-(-s // p), hkv, b)
+    assert plan["grid"] == min(-(-s // p) * hkv * b, port_attn.H100_SMS)
+    assert plan["threads"] == 384
+    q = plan["tma"]["q"]
+    assert q["dims"] == (d, h, s, b)
+    assert q["strides"] == (2 * d, 2 * h * d, 2 * s * h * d)
+    assert q["box"] == (64, group, p, 1) and q["swizzle"] == 128
+    bk = 64 if int8 or d == 256 else 128
+    assert plan["keys_per_tile"] == bk
+    for name in ("k", "v"):
+        m = plan["tma"][name]
+        assert m["dims"] == (d, s, hkv, b)
+        assert m["strides"] == (d * item, s * d * item, hkv * s * d * item)
+        assert m["box"] == ((d if int8 else 64), bk, 1, 1)
+        assert m["swizzle"] == (0 if int8 else 128)
+        assert all(x % 16 == 0 for x in m["strides"])
+    assert set(plan["tma"]) == {"q", "k", "v"}
+    assert plan["plain_loads"] == (("k_scale", "v_scale") if int8 else ())
+    assert plan["smem_bytes"] <= SMEM_PER_CTA
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_segment_plan_reads_big_cache_view_in_place(d, int8):
+    """A [..., :kv_bound] view of the dense big cache, whose sink column
+    makes rows of max_seq_len + 1 = 8,193: the K/V maps take the view's
+    width and the big cache's byte strides (no copy); the scale rows of
+    8,193 f32 (32,772 bytes, not a multiple of 16) never go to TMA."""
+    b, hkv, width, bound = 2, 8, 8193, 6024
+    big = (b, hkv, width, d)
+    strides = _contiguous_strides(big)
+    scale_strides = _contiguous_strides(big[:-1])
+    dtype = torch.int8 if int8 else torch.bfloat16
+    item = 1 if int8 else 2
+    plan = port_attn.segment_launch_plan(
+        (b, 1024, 4 * hkv, d), (b, hkv, bound, d), strides, dtype,
+        kv_ptr=1 << 20, q_ptr=1 << 21, scale_strides=scale_strides if int8 else None,
+    )
+    for name in ("k", "v"):
+        assert plan["tma"][name]["dims"] == (d, bound, hkv, b)
+        assert plan["tma"][name]["strides"] == (d * item, width * d * item, hkv * width * d * item)
+    assert (width * 4) % 16 != 0
+    assert "k_scale" not in plan["tma"] and "v_scale" not in plan["tma"]
+    assert plan["plain_loads"] == (("k_scale", "v_scale") if int8 else ())
+    # the same strides as torch gives a real view of a (small) sink-column cache
+    small = torch.empty((1, 2, 17 + 1, d), dtype=dtype)[:, :, :17]
+    plan = port_attn.segment_launch_plan(
+        (1, 17, 8, d), tuple(small.shape), small.stride(), dtype, small.data_ptr(),
+        scale_strides=torch.empty((1, 2, 18))[:, :, :17].stride() if int8 else None,
+    )
+    assert plan["tma"]["k"]["strides"] == (d * item, 18 * d * item, 2 * 18 * d * item)
+
+
+_REFUSED = {
+    # a batch stride of 8 bytes past a multiple of 16 (TMA's stride rule)
+    "batch_stride_not_16": dict(kv_strides=(2 * 300 * 64 + 4, 300 * 64, 64, 1)),
+    "head_stride_not_16": dict(kv_strides=(4 * 300 * 64, 300 * 64 + 4, 64, 1)),
+    "misaligned_base": dict(kv_ptr=(1 << 20) + 8),
+    "misaligned_q": dict(q_ptr=(1 << 20) + 2),
+    "rows_not_contiguous": dict(kv_strides=(2 * 300 * 128, 300 * 128, 128, 1)),
+    "head_dim_96": dict(q_shape=(1, 300, 4, 96), kv_shape=(1, 2, 300, 96)),
+    "group_3": dict(q_shape=(1, 300, 6, 64)),
+    "float16_cache": dict(kv_dtype=torch.float16),
+    "int8_without_scales": dict(kv_dtype=torch.int8),
+    "q_and_cache_batches_differ": dict(q_shape=(2, 300, 4, 64)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_REFUSED))
+def test_segment_plan_refuses_what_the_kernel_cannot_take(case):
+    args = dict(
+        q_shape=(1, 300, 4, 64), kv_shape=(1, 2, 300, 64),
+        kv_strides=_contiguous_strides((1, 2, 300, 64)), kv_dtype=torch.bfloat16,
+        kv_ptr=1 << 20, q_ptr=1 << 21,
+    )
+    args.update(_REFUSED[case])
+    with pytest.raises(ValueError, match="segment kernel"):
+        port_attn.segment_launch_plan(**args)
