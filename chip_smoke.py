@@ -13,18 +13,24 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    ``build/kernels/``) and prints the build time, each kernel
    instantiation's ptxas register / spill report (and any wgmma
    serialization warning), the segment kernel's SASS instruction mix
-   (HGMMA, UTMALDG, ...), and the card's name and power limit.
+   (HGMMA, UTMALDG, ...) and the decode kernel's (UBLKCP bulk copies,
+   SYNCS mbarriers, UCGABAR cluster barriers, ...), and the card's name
+   and power limit.
 2. ``kernels`` — each kernel against its plain PyTorch version on the card
    at the main paths' shapes (H 32, Hkv 8, D 128, page 64; prefill S 200
-   and 1024 at B 2; paged decode at B 8 with ragged lengths 1..1500, bf16
-   and int8 pages; segment S 200 at offset 1000, S 1024 at offsets 0 and
-   5000 (B 2, through a [..., :6024] view) and S 2048 at offset 6144, in
-   a T 8192 cache, bf16 and int8; dense decode at B 8, lengths 1..1500,
-   through a [..., :2048] view of a T 8192 cache, bf16 and int8): every
-   output element within ``atol + rtol * |ref|`` of the plain version
-   (and the same check shown to reject planted faults: a zeroed 64-key V
-   tile, a 64-key K tile holding the tile before it, a causal frontier or
-   lengths one off), the max abs error, the kernel's time, the plain
+   and 1024 at B 2; paged decode at B 8 with ragged lengths 1..1500 and
+   at B 32 with lengths 256, 512, ..., 8192, bf16 and int8 pages; segment
+   S 200 at offset 1000, S 1024 at offsets 0 and 5000 (B 2, through a
+   [..., :6024] view) and S 2048 at offset 6144, in a T 8192 cache, bf16
+   and int8; dense decode at B 8, lengths 1..1500, through a [..., :2048]
+   view of a T 8192 cache, and at B 32, lengths 256..8192, through the
+   whole cache, bf16 and int8): every output element within ``atol +
+   rtol * |ref|`` of the plain version (and the same check shown to
+   reject planted faults: a zeroed 64-key V tile, a K tile or page
+   holding the one before it, a causal frontier or lengths one off, and
+   for decode one split's keys dropped — a cluster rank's share, or an
+   int8 split), NaN past every decode row's length leaving the output
+   bit-equal, the max abs error, the kernel's time, the plain
    version's time, the bound of the card, and one library call as a
    yardstick where one computes the same function (SDPA, with an explicit
    mask where the kernel masks); the flash rows also give their TFLOP/s
@@ -104,6 +110,10 @@ MODEL_REL_TOL = 5e-2
 
 H, HKV, D, PAGE = 32, 8, 128, 64
 DECODE_LENGTHS = (1, 64, 200, 511, 700, 1024, 1280, 1500)
+# the second decode shape: B = 32 rows of 256, 512, ..., 8192 keys (dense
+# through a T = 8192 cache, paged through a pool of exactly their pages
+# plus the sink)
+DECODE_LENGTHS_LONG = tuple(256 * i for i in range(1, 33))
 # dense cases: the cache width, and the decode chunk's readable view of it
 DENSE_T, DENSE_VIEW = 8192, 2048
 # the batched segment case reads the T = 8192 cache through this view
@@ -156,14 +166,15 @@ def _zero_rows(entry, index):
     return entry
 
 
-def _stale_tile(entry, row: int, tile: int):
-    """A copy of a cache entry (tensor, or int8 dict) whose 64-key tile
-    [tile, tile + 64) of batch row ``row`` holds the tile before it — what a
-    producer that refilled a ring stage late, or from the wrong tile, would
-    leave."""
+def _stale_tile(entry, row: int, tile: int, rows: int = 64):
+    """A copy of a cache entry (tensor, or int8 dict) whose ``rows``-key
+    tile [tile, tile + rows) of batch row ``row`` holds the tile before it —
+    what a producer that refilled a ring stage late, or from the wrong
+    tile, would leave. (Indexed on the leading dim: a dense row, or a
+    page of a pool.)"""
     def stale(a):
         a = a.clone()
-        a[row, :, tile:tile + 64] = a[row, :, tile - 64:tile]
+        a[row, :, tile:tile + rows] = a[row, :, tile - rows:tile]
         return a
     if isinstance(entry, dict):
         return {n: stale(a) for n, a in entry.items()}
@@ -228,28 +239,37 @@ def phase_build(ctx: dict) -> None:
         if report.exists():
             for line in report.read_text().splitlines():
                 if "Compiling entry" in line:  # which instantiation the next lines report
-                    m = re.search(r"(flash_segment|decode_\w+?)_kernel(I\w+?)E", line)
+                    m = re.search(r"(flash_segment|decode_\w+?)_kernel(I\w+?E)E", line)
                     line = f"entry {m.group(1)}<{m.group(2)}>" if m else line
                 elif not re.search(r"registers|spill|error|C75\d\d", line, re.I):
                     continue
                 log(f"  ptxas[{name}] {line.strip()[:220]}")
         _build.library(name)  # loads and binds every symbol
-    log(f"sass[flash_segment] {json.dumps(sass_mix(_build.library_path('flash_segment')))}")
+    for name, ops in SASS_OPS.items():
+        log(f"sass[{name}] {json.dumps(sass_mix(_build.library_path(name), ops))}")
     log(f"card: {smi_line()}")
 
 
-def sass_mix(lib: Path) -> dict:
-    """Counts of the instructions that show the segment kernel's design in
-    a library's SASS (cuobjdump from the toolkit): HGMMA (wgmma), UTMALDG
-    (TMA loads), SYNCS (mbarrier operations), HMMA (mma.sync, none
-    expected), MUFU (ex2 and the rest)."""
+# the instruction families that show each library's design in its SASS:
+# HGMMA (wgmma), UTMALDG (TMA tensor loads), UBLKCP (bulk copies), SYNCS
+# (mbarrier operations), UCGABAR (cluster barriers), HMMA (mma.sync, none
+# expected), SHFL (warp shuffles), MUFU (ex2 and the rest)
+SASS_OPS = {
+    "flash_segment": ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "MUFU"),
+    "ragged_decode": ("UBLKCP", "SYNCS", "UCGABAR", "SHFL", "HMMA", "MUFU"),
+}
+
+
+def sass_mix(lib: Path, families: tuple) -> dict:
+    """Counts of the instructions of each family (an opcode prefix) in a
+    library's SASS (cuobjdump from the toolkit)."""
     from langstream_tpu_torch.ops import _build
 
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           timeout=120, check=True).stdout
-    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", sass)
-    return {op: ops.count(op) for op in ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "MUFU")}
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", sass)
+    return {f: sum(op.startswith(f) for op in ops) for f in families}
 
 
 def _prefill_case(torch, ctx, timer, b: int, s: int) -> dict:
@@ -311,48 +331,113 @@ def _prefill_case(torch, ctx, timer, b: int, s: int) -> dict:
     return rec
 
 
-def _decode_case(torch, ctx, timer, int8: bool) -> dict:
+def _drop_keys(entry, row: int, a: int, b: int):
+    """A copy of a dense cache entry (tensor, or int8 dict) whose batch row
+    ``row`` lacks keys [a, b): the keys after b move up by b - a (pair it
+    with that row's length cut by b - a)."""
+    def drop(x):
+        x = x.clone()
+        x[row, :, a:x.shape[2] - (b - a)] = x[row, :, b:].clone()
+        return x
+    if isinstance(entry, dict):
+        return {n: drop(x) for n, x in entry.items()}
+    return drop(entry)
+
+
+def _pages_dense(entry, table):
+    """A pool entry (tensor, or int8 dict) gathered through the table into a
+    dense cache [B, Hkv, Tp * page, ...], pages clamped as the kernels do."""
+    def gather(a):
+        x = a[table.long().clamp(0, a.shape[0] - 1)].transpose(1, 2)  # [B, Hkv, Tp, page, ...]
+        return x.reshape(x.shape[0], x.shape[1], -1, *x.shape[4:])
+    if isinstance(entry, dict):
+        return {n: gather(a) for n, a in entry.items()}
+    return gather(entry)
+
+
+def _split_share(int8: bool, length: int, plan: dict | None) -> tuple[int, int]:
+    """The keys [a, b) that one split of a row reads: for the bf16 kernel
+    the share of cluster rank 1 in ``plan``, for the int8 kernel its
+    second split of SPLIT_TOKENS keys."""
+    from langstream_tpu_torch.ops.attention import SPLIT_TOKENS, decode_rank_tiles
+
+    if int8:
+        return SPLIT_TOKENS, min(length, 2 * SPLIT_TOKENS)
+    share = decode_rank_tiles(length, plan, 1)
+    tr = plan["tile_rows"]
+    return share.start * tr, min(length, share.stop * tr)
+
+
+def _paged_table(torch, rng, lengths, spare: int):
+    """A ragged page table over a shuffled pool of exactly the rows' pages
+    plus ``spare`` unmapped ones; unmapped entries carry the sentinel (the
+    sink page's index) → (table on the host, number of pages)."""
+    need = [math.ceil(n / PAGE) for n in lengths]
+    num_pages = sum(need) + spare
+    perm = list(range(num_pages))
+    rng.shuffle(perm)
+    table = torch.full((len(lengths), max(need)), num_pages, dtype=torch.int32)
+    cursor = 0
+    for row, n in enumerate(need):
+        table[row, :n] = torch.tensor(perm[cursor:cursor + n], dtype=torch.int32)
+        cursor += n
+    return table, num_pages
+
+
+def _pool_entry(torch, g, shape, int8: bool):
+    if int8:
+        return {
+            "q": torch.randint(-127, 128, shape, generator=g, device="cuda").to(torch.int8),
+            "s": torch.rand(shape[:-1], generator=g, device="cuda") * 0.01 + 0.005,
+        }
+    return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+
+def _decode_case(torch, ctx, timer, int8: bool, lengths_list: tuple) -> dict:
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
     from langstream_tpu_torch.ops.attention import (
+        decode_launch_plan,
         paged_decode_reference,
+        ragged_decode_reference,
         ragged_paged_decode_attention,
         ragged_paged_decode_attention_int8,
     )
 
     cfg = MODEL_PRESETS["llama-3-8b"]
-    b = len(DECODE_LENGTHS)
-    rng = random.Random(ctx["seed"] + (1 if int8 else 0))
-    need = [math.ceil(n / PAGE) for n in DECODE_LENGTHS]
-    tp = max(need)
-    num_pages = sum(need) + 16
-    perm = list(range(num_pages))
-    rng.shuffle(perm)
-    table = torch.full((b, tp), num_pages, dtype=torch.int32)  # sentinel past each row
-    cursor = 0
-    for row, n in enumerate(need):
-        table[row, :n] = torch.tensor(perm[cursor:cursor + n], dtype=torch.int32)
-        cursor += n
+    b = len(lengths_list)
+    long = b > len(DECODE_LENGTHS)
+    rng = random.Random(ctx["seed"] + (1 if int8 else 0) + (100 if long else 0))
+    # the short case keeps 16 unmapped pages; the long one a pool of exactly
+    # its rows' pages (plus the sink)
+    table, num_pages = _paged_table(torch, rng, lengths_list, 0 if long else 16)
     table = table.cuda()
-    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
-    g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 7)
+    tp = table.shape[1]
+    lengths = torch.tensor(lengths_list, dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 7 + (100 if long else 0))
     q = torch.randn((b, H, D), generator=g, device="cuda").to(torch.bfloat16)
     shape = (num_pages + 1, HKV, PAGE, D)  # + the sink page
-    if int8:
-        def entry():
-            return {
-                "q": torch.randint(-127, 128, shape, generator=g, device="cuda").to(torch.int8),
-                "s": torch.rand(shape[:-1], generator=g, device="cuda") * 0.01 + 0.005,
-            }
-        k, v = entry(), entry()
-        kernel = ragged_paged_decode_attention_int8
-    else:
-        k = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
-        v = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
-        kernel = ragged_paged_decode_attention
+    k, v = _pool_entry(torch, g, shape, int8), _pool_entry(torch, g, shape, int8)
+    kernel = ragged_paged_decode_attention_int8 if int8 else ragged_paged_decode_attention
     out = kernel(q, k, v, lengths, table, cfg, PAGE)
     ref = paged_decode_reference(q, k, v, lengths, table, cfg, PAGE)
     name = "paged_decode_int8" if int8 else "paged_decode"
-    mid_page = int(table[b - 1, need[-1] // 2])  # a page in the middle of the longest row
+    # faults in the row of 1024 keys, whose every tile weighs in its output
+    row = lengths_list.index(1024)
+    n_row = math.ceil(1024 / PAGE)
+    mid_page = int(table[row, n_row // 2])
+    plan = None if int8 else decode_launch_plan(
+        q.shape, k.shape, k.stride(), k.dtype, "paged", table_width=tp)
+    a, z = _split_share(int8, 1024, plan)
+    short = lengths.clone()
+    short[row] -= z - a
+
+    def stale_page(entry):
+        def stale(x):
+            x = x.clone()
+            x[mid_page] = x[int(table[row, n_row // 2 - 1])]
+            return x
+        return {n: stale(x) for n, x in entry.items()} if isinstance(entry, dict) else stale(entry)
+
     planted = {
         "v_page_zeroed": paged_decode_reference(
             q, k, _zero_rows(v, mid_page), lengths, table, cfg, PAGE
@@ -360,20 +445,28 @@ def _decode_case(torch, ctx, timer, int8: bool) -> dict:
         "lengths_one_short": paged_decode_reference(
             q, k, v, (lengths - 1).clamp_min(0), table, cfg, PAGE
         ),
+        "k_tile_stale": paged_decode_reference(q, stale_page(k), v, lengths, table, cfg, PAGE),
+        "split_dropped": ragged_decode_reference(
+            q, _drop_keys(_pages_dense(k, table), row, a, z),
+            _drop_keys(_pages_dense(v, table), row, a, z), short, cfg,
+        ),
     }
-    check = hold(name, out, ref, DECODE_TOL, planted)
-    tokens = sum(DECODE_LENGTHS)
+    check = hold(f"{name} B={b}", out, ref, DECODE_TOL, planted)
+    del planted
+    tokens = sum(lengths_list)
     item = 1 if int8 else 2
     nbytes = (
         tokens * HKV * D * 2 * item  # K and V rows inside each length
         + (tokens * HKV * 2 * 4 if int8 else 0)  # their f32 scales
         + 2 * b * H * D * 2  # q in, out
-        + b * 4 + sum(need) * 4  # lengths, the table entries read
+        + b * 4 + sum(math.ceil(n / PAGE) for n in lengths_list) * 4  # lengths, table entries
     )
     flops = 4.0 * tokens * H * D  # q.k and p.v per (token, query head)
     bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3
+    lens = (f"lengths={list(lengths_list)}" if not long
+            else f"lengths=256..{lengths_list[-1]} step 256")
     rec = {
-        "shape": f"B={b} lengths={list(DECODE_LENGTHS)} H={H} Hkv={HKV} D={D} page={PAGE} "
+        "shape": f"B={b} {lens} H={H} Hkv={HKV} D={D} page={PAGE} "
                  + ("int8 pages, bf16 q" if int8 else "bf16"),
         **check,
         "ms": timer.ms(lambda: kernel(q, k, v, lengths, table, cfg, PAGE)),
@@ -385,6 +478,9 @@ def _decode_case(torch, ctx, timer, int8: bool) -> dict:
         "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_F32_FLOPS else "operations",
     }
     rec["gbps"] = nbytes / (rec["ms"] * 1e-3) / 1e9
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    if plan is not None:
+        rec["plan"] = {key: plan[key] for key in ("cluster", "tile_rows", "stages", "smem_bytes")}
     log(f"kernel {name} {json.dumps(rec)}")
     return rec
 
@@ -515,51 +611,66 @@ def _segment_case(torch, ctx, timer, int8: bool, s: int, offsets: tuple,
     return rec
 
 
-def _dense_decode_case(torch, ctx, timer, int8: bool) -> dict:
+def _dense_decode_case(torch, ctx, timer, int8: bool, lengths_list: tuple, view: int) -> dict:
+    """Dense decode against its plain version: rows of ``lengths_list`` keys
+    through a [..., :view] view of a T = 8192 cache (view 8192: the whole
+    cache), planted faults in the row of 1024 keys, times, bound."""
     from langstream_tpu_torch.models import transformer as tf
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
     from langstream_tpu_torch.ops.attention import (
+        decode_launch_plan,
         ragged_decode_attention,
         ragged_decode_attention_int8,
         ragged_decode_reference,
     )
 
     cfg = MODEL_PRESETS["llama-3-8b"]
-    b = len(DECODE_LENGTHS)
-    g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 21 + int8)
+    b = len(lengths_list)
+    long = b > len(DECODE_LENGTHS)
+    g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 21 + int8 + (100 if long else 0))
     q = torch.randn((b, H, D), generator=g, device="cuda").to(torch.bfloat16)
 
-    def view(entry):
+    def cut(entry):
         if isinstance(entry, dict):
-            return {n: a[:, :, :DENSE_VIEW] for n, a in entry.items()}
-        return entry[:, :, :DENSE_VIEW]
+            return {n: a[:, :, :view] for n, a in entry.items()}
+        return entry[:, :, :view]
 
-    k = view(_dense_cache(torch, g, b, DENSE_T, int8))
-    v = view(_dense_cache(torch, g, b, DENSE_T, int8))
-    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    k = cut(_dense_cache(torch, g, b, DENSE_T, int8))
+    v = cut(_dense_cache(torch, g, b, DENSE_T, int8))
+    lengths = torch.tensor(lengths_list, dtype=torch.int32, device="cuda")
     kernel = ragged_decode_attention_int8 if int8 else ragged_decode_attention
     out = kernel(q, k, v, lengths, cfg)
     ref = ragged_decode_reference(q, k, v, lengths, cfg)
     name = "dense_decode_int8" if int8 else "dense_decode"
-    tile = (DECODE_LENGTHS[-1] // 2) // 64 * 64  # mid-row tile of the longest row
+    # faults in the row of 1024 keys, whose every tile weighs in its output
+    row = lengths_list.index(1024)
+    tile = 512  # a mid-row tile of that row
+    kq = k["q"] if int8 else k
+    plan = None if int8 else decode_launch_plan(q.shape, kq.shape, kq.stride(), kq.dtype, "dense")
+    a, z = _split_share(int8, 1024, plan)
+    short = lengths.clone()
+    short[row] -= z - a
     planted = {
         "v_tile_zeroed": ragged_decode_reference(
-            q, k, _zero_rows(v, (b - 1, slice(None), slice(tile, tile + 64))), lengths, cfg
+            q, k, _zero_rows(v, (row, slice(None), slice(tile, tile + 64))), lengths, cfg
         ),
         "lengths_one_short": ragged_decode_reference(
             q, k, v, (lengths - 1).clamp_min(0), cfg
         ),
+        "k_tile_stale": ragged_decode_reference(
+            q, _stale_tile(k, row, tile, plan["tile_rows"] if plan else 64), v, lengths, cfg
+        ),
+        "split_dropped": ragged_decode_reference(
+            q, _drop_keys(k, row, a, z), _drop_keys(v, row, a, z), short, cfg
+        ),
     }
-    check = hold(name, out, ref, DECODE_TOL, planted)
-    mask = torch.arange(DENSE_VIEW, device="cuda")[None, :] < lengths.long()[:, None]  # [B, T]
+    check = hold(f"{name} B={b}", out, ref, DECODE_TOL, planted)
+    del planted
+    mask = torch.arange(view, device="cuda")[None, :] < lengths.long()[:, None]  # [B, T]
     library = _sdpa(
         torch, q[:, :, None], _bf16(torch, k), _bf16(torch, v), mask[:, None, None, :]
     )
-    # the masked read the JAX package takes under "auto" (reference attention
-    # over the bounded view, int8 through its hoisted-scale path)
-    masked_cfg = dataclasses.replace(cfg, kv_cache_dtype="int8" if int8 else "model")
-    masked = mask[:, None, :]  # [B, S=1, T]
-    tokens = sum(min(n, DENSE_VIEW) for n in DECODE_LENGTHS)
+    tokens = sum(min(n, view) for n in lengths_list)
     item = 1 if int8 else 2
     nbytes = (
         tokens * HKV * D * 2 * item  # K and V rows inside each length
@@ -568,39 +679,128 @@ def _dense_decode_case(torch, ctx, timer, int8: bool) -> dict:
         + b * 4  # lengths
     )
     flops = 4.0 * tokens * H * D  # q.k and p.v per (token, query head)
+    lens = (f"lengths={list(lengths_list)}" if not long
+            else f"lengths=256..{lengths_list[-1]} step 256")
+    where = f"view T={view} of {DENSE_T}" if view < DENSE_T else f"T={DENSE_T}"
     rec = {
-        "shape": f"B={b} lengths={list(DECODE_LENGTHS)} view T={DENSE_VIEW} of {DENSE_T} "
-                 f"H={H} Hkv={HKV} D={D} " + ("int8 cache, bf16 q" if int8 else "bf16"),
+        "shape": f"B={b} {lens} {where} H={H} Hkv={HKV} D={D} "
+                 + ("int8 cache, bf16 q" if int8 else "bf16"),
         **check,
         "ms": timer.ms(lambda: kernel(q, k, v, lengths, cfg)),
         "plain_ms": timer.ms(lambda: ragged_decode_reference(q, k, v, lengths, cfg), iters=5),
         "library_ms": timer.ms(library),
-        "masked_path_ms": timer.ms(
-            lambda: tf.attention(q[:, None], k, v, masked, masked_cfg), iters=5
-        ),
         "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3,
         "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_F32_FLOPS else "operations",
     }
+    if not long:
+        # the masked read the JAX package takes under "auto" (reference
+        # attention over the bounded view, int8 through its hoisted-scale path)
+        masked_cfg = dataclasses.replace(cfg, kv_cache_dtype="int8" if int8 else "model")
+        rec["masked_path_ms"] = timer.ms(
+            lambda: tf.attention(q[:, None], k, v, mask[:, None, :], masked_cfg), iters=5
+        )
     rec["gbps"] = nbytes / (rec["ms"] * 1e-3) / 1e9
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    if plan is not None:
+        rec["plan"] = {key: plan[key] for key in ("cluster", "tile_rows", "stages", "smem_bytes")}
     log(f"kernel {name} {json.dumps(rec)}")
     return rec
 
 
+def _nan_past_length(torch, ctx) -> dict:
+    """NaN written where no row may read — past each row's length inside its
+    last page or tile and beyond it, and in every unmapped page (the sink
+    included) — must leave each decode kernel's output bit-equal to the
+    clean run: rows past a row's valid ones never reach the sums, not even
+    as 0 * NaN. (The card's twin of tests/test_torch_ops.py::
+    test_paged_decode_ignores_pages_past_the_length; int8 caches take the
+    NaN in their scales.)"""
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.ops.attention import (
+        ragged_decode_attention,
+        ragged_decode_attention_int8,
+        ragged_paged_decode_attention,
+        ragged_paged_decode_attention_int8,
+    )
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    b = len(DECODE_LENGTHS)
+    g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 41)
+    q = torch.randn((b, H, D), generator=g, device="cuda").to(torch.bfloat16)
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    nan = float("nan")
+
+    def values(entry):  # where the NaN goes: bf16 values, or int8 scales
+        return entry["s"] if isinstance(entry, dict) else entry
+
+    def clone(entry):
+        return {n: a.clone() for n, a in entry.items()} if isinstance(entry, dict) else entry.clone()
+
+    seen = {}
+    for int8 in (False, True):
+        table, num_pages = _paged_table(torch, random.Random(ctx["seed"] + 43), DECODE_LENGTHS, 16)
+        shape = (num_pages + 1, HKV, PAGE, D)
+        k, v = _pool_entry(torch, g, shape, int8), _pool_entry(torch, g, shape, int8)
+        paged = ragged_paged_decode_attention_int8 if int8 else ragged_paged_decode_attention
+        clean = paged(q, k, v, lengths, table.cuda(), cfg, PAGE)
+        mapped = {int(p) for p in table.flatten() if int(p) < num_pages}
+        unmapped = [p for p in range(num_pages + 1) if p not in mapped]
+        dirty = []
+        for entry in (k, v):
+            entry = clone(entry)
+            for row, n in enumerate(DECODE_LENGTHS):
+                if n % PAGE:
+                    values(entry)[int(table[row, (n - 1) // PAGE]), :, n % PAGE:] = nan
+            values(entry)[unmapped] = nan
+            dirty.append(entry)
+        out = paged(q, *dirty, lengths, table.cuda(), cfg, PAGE)
+        seen[paged.__name__] = bool(torch.equal(clean, out))
+        del k, v, dirty
+        big_k = _dense_cache(torch, g, b, DENSE_T, int8)
+        big_v = _dense_cache(torch, g, b, DENSE_T, int8)
+
+        def cut(entry):
+            if isinstance(entry, dict):
+                return {n: a[:, :, :DENSE_VIEW] for n, a in entry.items()}
+            return entry[:, :, :DENSE_VIEW]
+
+        dense = ragged_decode_attention_int8 if int8 else ragged_decode_attention
+        clean = dense(q, cut(big_k), cut(big_v), lengths, cfg)
+        for entry in (big_k, big_v):
+            for row, n in enumerate(DECODE_LENGTHS):
+                values(entry)[row, :, n:] = nan  # inside the view and beyond it
+        out = dense(q, cut(big_k), cut(big_v), lengths, cfg)
+        seen[dense.__name__] = bool(torch.equal(clean, out))
+        del big_k, big_v
+    bad = [n for n, ok in seen.items() if not ok]
+    if bad:
+        raise AssertionError(f"NaN past the lengths changed the output of {bad}")
+    log(f"kernel nan past the length: bit-equal {json.dumps(seen)}")
+    return seen
+
+
 def _edge_cases(torch, ctx) -> dict:
-    """The segment and dense decode kernels against their plain versions
-    away from llama's shape: head dims 64 / 64 / 128 / 256 with groups 1 /
-    2 / 4 / 8, a soft cap, per-row offsets 0 and unaligned, a segment whose queries
-    run past the cache width, strided [..., :T] views, and decode lengths
-    0 and past the view. Each within its tolerance."""
+    """The segment and decode kernels against their plain versions away
+    from llama's shape: head dims 64 / 64 / 128 / 256 with groups 1 / 2 / 4
+    / 8, a soft cap, per-row offsets 0 and unaligned, a segment whose
+    queries run past the cache width, strided [..., :T] views; dense decode
+    lengths 0, 1, a tile - 1, a tile, a tile + 1, exactly the view and past
+    it; paged decode over pages of 16 (a tile each) and 128 (two tiles of
+    64) with lengths 0, 1, page - 1, page, page + 1, the table's width and
+    past it, unmapped entries and rows whose cluster ranks have no tiles.
+    Each within its tolerance."""
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
     from langstream_tpu_torch.ops.attention import (
         flash_segment_attention,
         flash_segment_attention_int8,
         flash_segment_int8_reference,
         flash_segment_reference,
+        paged_decode_reference,
         ragged_decode_attention,
         ragged_decode_attention_int8,
         ragged_decode_reference,
+        ragged_paged_decode_attention,
+        ragged_paged_decode_attention_int8,
     )
 
     g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 31)
@@ -625,15 +825,37 @@ def _edge_cases(torch, ctx) -> dict:
             plain = flash_segment_int8_reference if int8 else flash_segment_reference
             name = f"{seg.__name__} H={h} Hkv={hkv} D={d} softcap={cap}"
             errs[name] = hold(name, seg(q, k, v, off, cfg), plain(q, k, v, off, cfg), FLASH_TOL)
-            # decode: lengths 0, 1 and one past the view
-            qd = torch.randn((3, h, d), generator=g, device="cuda").to(torch.bfloat16)
-            lengths = torch.tensor([0, 1, 1000], dtype=torch.int32, device="cuda")
+            # dense decode over [..., :300] views of 301-column caches
+            lengths = torch.tensor([0, 1, 63, 64, 65, 300, 1000], dtype=torch.int32,
+                                   device="cuda")
+            kd = _dense_cache(torch, g, len(lengths), 301, int8, hkv, d)
+            vd = _dense_cache(torch, g, len(lengths), 301, int8, hkv, d)
+            kd, vd = ({n: a[:, :, :300] for n, a in e.items()} if int8 else e[:, :, :300]
+                      for e in (kd, vd))
+            qd = torch.randn((len(lengths), h, d), generator=g, device="cuda").to(torch.bfloat16)
             dec = ragged_decode_attention_int8 if int8 else ragged_decode_attention
-            out = dec(qd, k, v, lengths, cfg)
+            out = dec(qd, kd, vd, lengths, cfg)
             name = f"{dec.__name__} H={h} Hkv={hkv} D={d} softcap={cap}"
-            errs[name] = hold(name, out, ragged_decode_reference(qd, k, v, lengths, cfg), DECODE_TOL)
+            errs[name] = hold(name, out, ragged_decode_reference(qd, kd, vd, lengths, cfg),
+                              DECODE_TOL)
             if bool(out[0].abs().max() != 0):
                 raise AssertionError(f"{name}: a length-0 row is not 0")
+            # paged decode: a table 6 pages wide over a pool of 40 (+ sink)
+            paged = ragged_paged_decode_attention_int8 if int8 else ragged_paged_decode_attention
+            for ps in (16, 128):
+                pk, pv = (_pool_entry(torch, g, (41, hkv, ps, d), int8) for _ in range(2))
+                lengths = torch.tensor([0, 1, ps - 1, ps, ps + 1, 6 * ps, 1000],
+                                       dtype=torch.int32, device="cuda")
+                table = torch.randint(0, 40, (len(lengths), 6), generator=g, device="cuda",
+                                      dtype=torch.int32)
+                table[0, 1:] = 40  # unmapped: the sentinel (the sink page)
+                table[2, 1:] = 40
+                out = paged(qd, pk, pv, lengths, table, cfg, ps)
+                name = f"{paged.__name__} page={ps} H={h} Hkv={hkv} D={d} softcap={cap}"
+                errs[name] = hold(
+                    name, out, paged_decode_reference(qd, pk, pv, lengths, table, cfg, ps),
+                    DECODE_TOL,
+                )
     torch.cuda.synchronize()
     log(f"kernel edge cases {json.dumps(errs)}")
     return errs
@@ -645,9 +867,11 @@ def phase_kernels(ctx: dict) -> None:
     timer = Timer(torch)
     ctx["kernel_runs"] = {
         "flash_prefill": [_prefill_case(torch, ctx, timer, 2, s) for s in (200, 1024)],
-        "paged_decode": [_decode_case(torch, ctx, timer, int8=False)],
-        "paged_decode_int8": [_decode_case(torch, ctx, timer, int8=True)],
     }
+    for int8 in (False, True):
+        name = "paged_decode_int8" if int8 else "paged_decode"
+        ctx["kernel_runs"][name] = [_decode_case(torch, ctx, timer, int8, lengths)
+                                    for lengths in (DECODE_LENGTHS, DECODE_LENGTHS_LONG)]
     for int8 in (False, True):
         name = "flash_segment_int8" if int8 else "flash_segment"
         ctx["kernel_runs"][name] = [
@@ -656,7 +880,11 @@ def phase_kernels(ctx: dict) -> None:
                                    (2048, (6144,), None)))
         ]
         name = "dense_decode_int8" if int8 else "dense_decode"
-        ctx["kernel_runs"][name] = [_dense_decode_case(torch, ctx, timer, int8)]
+        ctx["kernel_runs"][name] = [
+            _dense_decode_case(torch, ctx, timer, int8, lengths, view)
+            for lengths, view in ((DECODE_LENGTHS, DENSE_VIEW), (DECODE_LENGTHS_LONG, DENSE_T))
+        ]
+    _nan_past_length(torch, ctx)
     _edge_cases(torch, ctx)
     del timer
 
@@ -980,8 +1208,14 @@ def kernel_record(ctx: dict) -> dict:
             "library_ms": main["library_ms"],
             "shape": main["shape"],
             "tolerance": main["tolerance"],
-            # the flash rows' rate and share of their bound at that shape
-            **{key: main[key] for key in ("tflops", "bound_share") if key in main},
+            # the flash rows' rate, and every row's share of its bound, at that shape
+            **{key: main[key] for key in ("tflops", "bound_share", "gbps") if key in main},
+            # the decode rows at each of their shapes
+            **({"by_shape": [
+                {key: r[key] for key in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                                         "bound_share", "gbps")}
+                for r in runs
+            ]} if "decode" in name else {}),
         })
     return {"kernels": out}
 
@@ -996,7 +1230,7 @@ def ab_times(parent: Path) -> dict[str, list]:
                         ("parent", parent)):
         run = subprocess.run(
             [sys.executable, "chip_smoke.py", "--phases", "build,kernels"],
-            cwd=tree, capture_output=True, text=True, timeout=300,
+            cwd=tree, capture_output=True, text=True, timeout=420,
         )
         if run.returncode != 0:
             raise RuntimeError(f"{label} run in {tree} failed:\n{run.stderr[-3000:]}")

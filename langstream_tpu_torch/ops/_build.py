@@ -49,6 +49,10 @@ SOURCES: dict[str, dict[str, list]] = {
             _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
             _i, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _i, _f, _f, _i, _p,
         ],
+        "lstpu_decode_bf16": [
+            _p, _p, _p, _p, _p, _p,
+            _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll, _ll, _i, _i, _i, _i, _f, _f, _p,
+        ],
     },
 }
 

@@ -459,6 +459,156 @@ flash_segment_attention_int8.cpu_calls = 0
 # ---------------------------------------------------------------------------
 
 
+# The bf16 decode kernel's launch (csrc/ragged_decode.cu,
+# decode_cluster_kernel, whose cluster_layout computes the shared memory
+# again and refuses a launch whose plan disagrees): one cluster of CTAs per
+# (kv head, row), four consumer warps and a producer warp each, and a ring
+# of bulk-copied tiles.
+DECODE_THREADS = 160
+DECODE_WARPS = 4
+DECODE_MAX_CLUSTER = 8  # the portable cluster size
+DECODE_TILE_ROWS = 64  # rows of a tile (a paged tile is a page, or a part of one)
+DECODE_RING_BYTES = 96 * 1024  # the ring's budget: 3 tiles of 64 rows at D = 128
+DECODE_STAGES = (3, 8)  # the ring's least and most stages
+SMEM_PER_CTA = 232448  # an H100 CTA's shared memory
+
+
+def _a16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def _cluster_smem(g: int, d: int, tile_rows: int, stages: int) -> int:
+    """Shared memory of one CTA of the decode kernel (its cluster_layout):
+    the ring — or, once drained, the warps' f32 accumulators — then the
+    warps' and the CTA's softmax statistics, rank 0's merge weights, and
+    a full and an empty mbarrier per stage."""
+    region = _a16(max(stages * 2 * tile_rows * d * 2, DECODE_WARPS * g * d * 4))
+    stats = 2 * DECODE_WARPS * g * 4 + 2 * g * 4 + DECODE_MAX_CLUSTER * g * 4 + g * 4
+    return _a16(region + stats) + 16 * stages
+
+
+def decode_launch_plan(
+    q_shape: tuple, kv_shape: tuple, kv_strides: tuple, kv_dtype: torch.dtype, layout: str,
+    table_width: Optional[int] = None, kv_ptr: int = 0, q_ptr: int = 0,
+) -> dict:
+    """The launch of the bf16 decode kernel for these shapes, element
+    strides, dtype and base addresses. ``layout`` "paged": ``kv_shape`` is
+    the pool (P, Hkv, page_size, D), read through the ``table_width``-wide
+    table, and a tile is the largest part of a page of at most
+    ``DECODE_TILE_ROWS`` rows that divides it; "dense": the cache (B, Hkv,
+    T, D), read through its strides (a ``[..., :T]`` view in place), in
+    tiles of ``DECODE_TILE_ROWS`` rows. → {"layout", "cluster" (CTAs
+    splitting one (row, kv head): min(8, tiles)), "grid" (Hkv, B, cluster),
+    "threads", "page_rows", "table_width" (0 when dense), "tile_rows",
+    "tiles" (of a full row), "width"
+    (the rows a row can reach), "tiles_per_rank" (of a full row),
+    "stages", "smem_bytes",
+    "row_bytes", "copy_bytes" (one bulk copy of a whole tile; a row's last
+    tile copies only its valid rows, a whole number of rows)}. Raises
+    ValueError for what the kernel cannot take: a head dim or group it is
+    not built for, a cache dtype other than bf16, rows that are not
+    contiguous (a pool that is not contiguous), or a base, stride or copy
+    size that is not a multiple of 16 bytes (the bulk copies' rule)."""
+    b, h, d = q_shape
+    n0, hkv, rows, kd = kv_shape
+    if layout not in ("paged", "dense"):
+        raise ValueError(f"decode kernel: layout {layout!r}")
+    if kd != d or hkv <= 0 or h % hkv or rows <= 0 or n0 <= 0 or b <= 0:
+        raise ValueError(f"decode kernel: q {tuple(q_shape)} vs cache {tuple(kv_shape)}")
+    g = h // hkv
+    if d not in KERNEL_HEAD_DIMS or g not in KERNEL_GROUPS:
+        raise ValueError(f"decode kernel: head dim {d} / group {g}; built for "
+                         f"{KERNEL_HEAD_DIMS} / {KERNEL_GROUPS}")
+    if kv_dtype != torch.bfloat16:
+        raise ValueError(f"decode kernel: cache dtype {kv_dtype} (bf16 only)")
+    sb, sh, st, sd = kv_strides
+    if (sd, st) != (1, d):
+        raise ValueError(f"decode kernel: cache strides {tuple(kv_strides)} do not keep "
+                         f"rows of {d} contiguous")
+    if layout == "paged":
+        if (sb, sh) != (hkv * rows * d, rows * d):
+            raise ValueError(f"decode kernel: pool strides {tuple(kv_strides)} are not "
+                             f"contiguous (a page is one bulk copy)")
+        if not table_width or table_width <= 0:
+            raise ValueError(f"decode kernel: table width {table_width}")
+        tile_rows = max(t for t in range(1, min(rows, DECODE_TILE_ROWS) + 1) if rows % t == 0)
+        tiles = table_width * (rows // tile_rows)
+    else:
+        if n0 != b:
+            raise ValueError(f"decode kernel: q {tuple(q_shape)} vs cache {tuple(kv_shape)}")
+        if sb <= 0 or sh <= 0 or sb % d or sh % d:
+            raise ValueError(f"decode kernel: cache strides {tuple(kv_strides)} are not "
+                             f"whole rows of {d}")
+        tile_rows = DECODE_TILE_ROWS
+        tiles = -(-rows // tile_rows)
+    row_bytes = d * 2
+    if row_bytes % 16 or (sb * 2) % 16 or (sh * 2) % 16 or kv_ptr % 16:
+        raise ValueError(f"decode kernel: cache byte strides {(row_bytes, sh * 2, sb * 2)} "
+                         f"and base {kv_ptr:#x} must be multiples of 16 (bulk copies)")
+    if q_ptr % 16:
+        raise ValueError(f"decode kernel: q base {q_ptr:#x} is not 16-byte aligned")
+    cluster = min(DECODE_MAX_CLUSTER, tiles)
+    stage = 2 * tile_rows * row_bytes
+    stages = max(DECODE_STAGES[0], min(DECODE_STAGES[1], DECODE_RING_BYTES // stage))
+    smem = _cluster_smem(g, d, tile_rows, stages)
+    if smem > SMEM_PER_CTA:
+        raise ValueError(f"decode kernel: {stages} stages of {tile_rows}-row tiles need "
+                         f"{smem} bytes of shared memory (a CTA has {SMEM_PER_CTA})")
+    return {
+        "layout": layout,
+        "cluster": cluster,
+        "grid": (hkv, b, cluster),
+        "threads": DECODE_THREADS,
+        "page_rows": rows if layout == "paged" else tile_rows,
+        "table_width": table_width if layout == "paged" else 0,
+        "tile_rows": tile_rows,
+        "tiles": tiles,
+        "width": rows if layout == "dense" else table_width * rows,
+        "tiles_per_rank": -(-tiles // cluster),
+        "stages": stages,
+        "smem_bytes": smem,
+        "row_bytes": row_bytes,
+        "copy_bytes": tile_rows * row_bytes,
+    }
+
+
+def decode_rank_tiles(length: int, plan: dict, rank: int) -> range:
+    """The tiles of a row of ``length`` keys that cluster rank ``rank``
+    reads, as the kernel computes them on the device: the length clamped to
+    [0, width], its n = ceil(length / tile_rows) valid tiles cut into
+    contiguous shares of ceil(n / cluster); a rank past the last share
+    gets none."""
+    n = -(-min(max(length, 0), plan["width"]) // plan["tile_rows"])
+    per = -(-n // plan["cluster"])
+    t0 = min(rank * per, n)
+    return range(t0, min(t0 + per, n))
+
+
+def _decode_bf16_launch(
+    q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor, lengths: torch.Tensor,
+    table: Optional[torch.Tensor], plan: dict, config: ModelConfig, what: str,
+) -> torch.Tensor:
+    """One launch of decode_cluster_kernel (inputs already checked); the
+    output is the only allocation."""
+    b, h, d = q.shape
+    dev = q.device
+    out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
+    dense = plan["layout"] == "dense"
+    cap = config.attn_logit_softcap
+    err = _build.library("ragged_decode").lstpu_decode_bf16(
+        q.data_ptr(), kq.data_ptr(), vq.data_ptr(), lengths.data_ptr(),
+        None if dense else table.data_ptr(), out.data_ptr(),
+        b, h, kq.shape[1], d, 0 if dense else kq.shape[0], plan["page_rows"], plan["tile_rows"],
+        plan["table_width"],
+        kq.shape[2] if dense else 0,
+        kq.stride(0) if dense else 0, kq.stride(1) if dense else 0, int(dense),
+        plan["cluster"], plan["stages"], plan["smem_bytes"],
+        1.0 / math.sqrt(d), float(cap) if cap else 0.0, _stream(dev),
+    )
+    _build.check(err, what)
+    return out.reshape(b, h * d)
+
+
 def _f32(entry: CacheEntry) -> torch.Tensor:
     """A cache entry in f32 (int8 dicts dequantized q*s)."""
     if isinstance(entry, dict):
@@ -520,8 +670,14 @@ def _dense_decode_launch(
     _require_group(h, hkv, what)
     _check(q, "q", (torch.bfloat16,), dev)
     _check(lengths, "lengths", (torch.int32,), dev)
+    if ks is None:
+        plan = decode_launch_plan(
+            q.shape, kq.shape, kq.stride(), kq.dtype, "dense",
+            kv_ptr=kq.data_ptr() | vq.data_ptr(), q_ptr=q.data_ptr(),
+        )
+        return _decode_bf16_launch(q, kq, vq, lengths, None, plan, config, what)
     out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
-    # split-K scratch, as for the paged kernel: DENSE_TILE rows per tile
+    # int8: split-K scratch, as for the paged kernel: DENSE_TILE rows per tile
     pps = max(1, SPLIT_TOKENS // DENSE_TILE)
     tiles = -(-t // DENSE_TILE)
     splits = -(-tiles // pps)
@@ -532,12 +688,11 @@ def _dense_decode_launch(
     lib = _build.library("ragged_decode")
     cap = config.attn_logit_softcap
     err = lib.lstpu_dense_decode(
-        q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
-        ks.data_ptr() if ks is not None else None, vs.data_ptr() if vs is not None else None,
+        q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(), vs.data_ptr(),
         lengths.data_ptr(), out.data_ptr(),
         m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
         b, h, hkv, d, t, kq.stride(0), kq.stride(1), *sc_strides, DENSE_TILE, pps,
-        1.0 / math.sqrt(d), float(cap) if cap else 0.0, int(ks is not None), _stream(dev),
+        1.0 / math.sqrt(d), float(cap) if cap else 0.0, 1, _stream(dev),
     )
     _build.check(err, what)
     return out.reshape(b, h * d)
@@ -649,9 +804,16 @@ def _paged_decode_launch(
         _check(vs, "v scales", (torch.float32,), dev)
         if ks.shape != kq.shape[:-1] or vs.shape != ks.shape:
             raise ValueError(f"{what}: scales {tuple(ks.shape)} vs pool {tuple(kq.shape)}")
+    if not quant:
+        plan = decode_launch_plan(
+            q.shape, kq.shape, kq.stride(), kq.dtype, "paged", table_width=tp,
+            kv_ptr=kq.data_ptr() | vq.data_ptr(), q_ptr=q.data_ptr(),
+        )
+        return _decode_bf16_launch(q, kq, vq, lengths, table, plan, config, what)
     out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
-    # split-K scratch: each CTA covers pps pages of one row; the partial
-    # softmax statistics and accumulators of every split meet in a merge
+    # int8: split-K scratch — each CTA covers pps pages of one row; the
+    # partial softmax statistics and accumulators of every split meet in a
+    # merge
     pps = max(1, SPLIT_TOKENS // page_size)
     splits = -(-tp // pps)
     group = h // hkv
@@ -661,13 +823,11 @@ def _paged_decode_launch(
     lib = _build.library("ragged_decode")
     cap = config.attn_logit_softcap
     err = lib.lstpu_paged_decode(
-        q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
-        ks.data_ptr() if quant else None, vs.data_ptr() if quant else None,
+        q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(), vs.data_ptr(),
         lengths.data_ptr(), table.data_ptr(), out.data_ptr(),
         m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
         b, h, hkv, d, num_pages, page_size, tp, pps,
-        1.0 / math.sqrt(d), float(cap) if cap else 0.0,
-        int(quant), _stream(dev),
+        1.0 / math.sqrt(d), float(cap) if cap else 0.0, 1, _stream(dev),
     )
     _build.check(err, what)
     return out.reshape(b, h * d)
