@@ -15,7 +15,8 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    serialization warning), the segment kernel's SASS instruction mix
    (HGMMA, UTMALDG, ...) and the decode kernel's (UBLKCP bulk copies,
    SYNCS mbarriers, UCGABAR cluster barriers, ...), and the card's name
-   and power limit.
+   and power limit (the decode library's mix also per cache type, with
+   its I2F and F2F: int8 widens by prmt and one FADD, not by conversions).
 2. ``kernels`` — each kernel against its plain PyTorch version on the card
    at the main paths' shapes (H 32, Hkv 8, D 128, page 64; prefill S 200
    and 1024 at B 2; paged decode at B 8 with ragged lengths 1..1500 and
@@ -23,13 +24,16 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    S 200 at offset 1000, S 1024 at offsets 0 and 5000 (B 2, through a
    [..., :6024] view) and S 2048 at offset 6144, in a T 8192 cache, bf16
    and int8; dense decode at B 8, lengths 1..1500, through a [..., :2048]
-   view of a T 8192 cache, and at B 32, lengths 256..8192, through the
-   whole cache, bf16 and int8): every output element within ``atol +
+   view of a T 8192 cache — int8 also through a [..., :2048] view of the
+   engine's 8,193-wide sink-column cache, whose scale rows are not 16-byte
+   aligned — and at B 32, lengths 256..8192, through the whole cache, bf16
+   and int8): every output element within ``atol +
    rtol * |ref|`` of the plain version (and the same check shown to
    reject planted faults: a zeroed 64-key V tile, a K tile or page
    holding the one before it, a causal frontier or lengths one off, and
-   for decode one split's keys dropped — a cluster rank's share, or an
-   int8 split), NaN past every decode row's length leaving the output
+   for decode one cluster rank's share of keys dropped, and for int8 a
+   64-row tile's K scales taken from another tile), NaN past every decode
+   row's length (int8: in the scales) leaving the output
    bit-equal, the max abs error, the kernel's time, the plain
    version's time, the bound of the card, and one library call as a
    yardstick where one computes the same function (SDPA, with an explicit
@@ -55,8 +59,10 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    path against reference path.
 6. ``dense_int8`` — 4 requests (one of 3001 tokens), 16 new tokens, over an
    int8 dense cache (the int8 segment and dense decode kernels).
-7. ``profile`` — (not run by default) a short llama-3-8b burst traced with
-   torch.profiler: the device's busy share of the wall and the top kernels.
+7. ``profile`` — (not run by default) two short llama-3-8b bursts, bf16
+   and int8 page pools, traced with torch.profiler: the device's busy
+   share of the wall and the top kernels (no split-K decode kernel may
+   appear).
 
 ``--ab PARENT`` runs none of these: it compares the kernel times of another
 checkout (say the parent commit, unpacked with ``git archive <commit> | tar
@@ -181,6 +187,16 @@ def _stale_tile(entry, row: int, tile: int, rows: int = 64):
     return stale(entry)
 
 
+def _stale_scales(entry: dict, row: int, tile: int, rows: int = 64) -> dict:
+    """A copy of an int8 cache entry whose ``rows``-key tile [tile, tile +
+    rows) of batch row ``row`` keeps its values but holds the K scales of
+    the tile before it — what a scale copy from the wrong tile would leave.
+    (Indexed on the leading dim: a dense row, or a page of a pool.)"""
+    s = entry["s"].clone()
+    s[row, :, tile:tile + rows] = s[row, :, tile - rows:tile]
+    return {"q": entry["q"], "s": s}
+
+
 def _flash_rates(rec: dict, flops: float) -> None:
     """The flash rows' rate and their share of the bound, from this run."""
     rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
@@ -239,37 +255,61 @@ def phase_build(ctx: dict) -> None:
         if report.exists():
             for line in report.read_text().splitlines():
                 if "Compiling entry" in line:  # which instantiation the next lines report
-                    m = re.search(r"(flash_segment|decode_\w+?)_kernel(I\w+?E)E", line)
-                    line = f"entry {m.group(1)}<{m.group(2)}>" if m else line
+                    m = re.search(r"(flash_segment|decode_cluster)_kernel(I\w+?E)E", line)
+                    line = f"entry {m.group(1)}<{_template_args(m.group(2))}>" if m else line
                 elif not re.search(r"registers|spill|error|C75\d\d", line, re.I):
                     continue
                 log(f"  ptxas[{name}] {line.strip()[:220]}")
         _build.library(name)  # loads and binds every symbol
     for name, ops in SASS_OPS.items():
-        log(f"sass[{name}] {json.dumps(sass_mix(_build.library_path(name), ops))}")
+        mix = sass_mix(_build.library_path(name), ops)
+        log(f"sass[{name}] {json.dumps(mix['all'])}")
+        for kind in ("bf16", "int8"):  # the instantiations of each cache type
+            log(f"sass[{name} {kind}] {json.dumps(mix[kind])}")
     log(f"card: {smi_line()}")
+
+
+def _template_args(mangled: str) -> str:
+    """'IaLi128ELi4E' → 'int8, 128, 4' (the kernels' template arguments)."""
+    names = {"a": "int8", "13__nv_bfloat16": "bf16"}
+    return ", ".join(names.get(t, t.strip("LiE"))
+                     for t in re.findall(r"Li\d+E|13__nv_bfloat16|a", mangled[1:]))
 
 
 # the instruction families that show each library's design in its SASS:
 # HGMMA (wgmma), UTMALDG (TMA tensor loads), UBLKCP (bulk copies), SYNCS
 # (mbarrier operations), UCGABAR (cluster barriers), HMMA (mma.sync, none
-# expected), SHFL (warp shuffles), MUFU (ex2 and the rest)
+# expected), SHFL (warp shuffles), MUFU (ex2 and the rest), I2F and F2F
+# (quarter-rate conversions; the decode kernel widens int8 with PRMT and an
+# FADD instead)
 SASS_OPS = {
     "flash_segment": ("HGMMA", "UTMALDG", "SYNCS", "HMMA", "MUFU"),
-    "ragged_decode": ("UBLKCP", "SYNCS", "UCGABAR", "SHFL", "HMMA", "MUFU"),
+    "ragged_decode": ("UBLKCP", "SYNCS", "UCGABAR", "SHFL", "HMMA", "MUFU", "I2F", "F2F",
+                      "PRMT"),
 }
 
 
 def sass_mix(lib: Path, families: tuple) -> dict:
-    """Counts of the instructions of each family (an opcode prefix) in a
-    library's SASS (cuobjdump from the toolkit)."""
+    """Counts of the instructions of each family in a library's SASS
+    (cuobjdump from the toolkit) → {"all": counts, "bf16": counts of the
+    bf16-cache instantiations, "int8": of the int8 ones}. A family is the
+    opcode itself, or the opcode and a suffix after "_" (UCGABAR_ARV) — so
+    F2F counts no F2FP, I2F no I2FP."""
     from langstream_tpu_torch.ops import _build
 
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           timeout=120, check=True).stdout
-    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", sass)
-    return {f: sum(op.startswith(f) for op in ops) for f in families}
+    counts = {key: dict.fromkeys(families, 0) for key in ("all", "bf16", "int8")}
+    parts = re.split(r"Function : (\S+)", sass)
+    for name, body in zip(parts[1::2], parts[2::2]):
+        kind = "int8" if re.search(r"_kernelIa", name) else "bf16"
+        for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body):
+            for f in families:
+                if op == f or op.startswith(f + "_"):
+                    counts["all"][f] += 1
+                    counts[kind][f] += 1
+    return counts
 
 
 def _prefill_case(torch, ctx, timer, b: int, s: int) -> dict:
@@ -355,14 +395,11 @@ def _pages_dense(entry, table):
     return gather(entry)
 
 
-def _split_share(int8: bool, length: int, plan: dict | None) -> tuple[int, int]:
-    """The keys [a, b) that one split of a row reads: for the bf16 kernel
-    the share of cluster rank 1 in ``plan``, for the int8 kernel its
-    second split of SPLIT_TOKENS keys."""
-    from langstream_tpu_torch.ops.attention import SPLIT_TOKENS, decode_rank_tiles
+def _rank_share(length: int, plan: dict) -> tuple[int, int]:
+    """The keys [a, b) of a row of ``length`` keys that cluster rank 1 of
+    the decode kernel reads under ``plan``."""
+    from langstream_tpu_torch.ops.attention import decode_rank_tiles
 
-    if int8:
-        return SPLIT_TOKENS, min(length, 2 * SPLIT_TOKENS)
     share = decode_rank_tiles(length, plan, 1)
     tr = plan["tile_rows"]
     return share.start * tr, min(length, share.stop * tr)
@@ -425,9 +462,10 @@ def _decode_case(torch, ctx, timer, int8: bool, lengths_list: tuple) -> dict:
     row = lengths_list.index(1024)
     n_row = math.ceil(1024 / PAGE)
     mid_page = int(table[row, n_row // 2])
-    plan = None if int8 else decode_launch_plan(
-        q.shape, k.shape, k.stride(), k.dtype, "paged", table_width=tp)
-    a, z = _split_share(int8, 1024, plan)
+    kq = k["q"] if int8 else k
+    plan = decode_launch_plan(q.shape, kq.shape, kq.stride(), kq.dtype, "paged", table_width=tp,
+                              scale_strides=k["s"].stride() if int8 else None)
+    a, z = _rank_share(1024, plan)
     short = lengths.clone()
     short[row] -= z - a
 
@@ -451,6 +489,13 @@ def _decode_case(torch, ctx, timer, int8: bool, lengths_list: tuple) -> dict:
             _drop_keys(_pages_dense(v, table), row, a, z), short, cfg,
         ),
     }
+    if int8:
+        # the mid page's K scales from the page before it (one 64-row tile)
+        stale = k["s"].clone()
+        stale[mid_page] = stale[int(table[row, n_row // 2 - 1])]
+        planted["scale_tile_stale"] = paged_decode_reference(
+            q, {"q": k["q"], "s": stale}, v, lengths, table, cfg, PAGE
+        )
     check = hold(f"{name} B={b}", out, ref, DECODE_TOL, planted)
     del planted
     tokens = sum(lengths_list)
@@ -479,8 +524,7 @@ def _decode_case(torch, ctx, timer, int8: bool, lengths_list: tuple) -> dict:
     }
     rec["gbps"] = nbytes / (rec["ms"] * 1e-3) / 1e9
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-    if plan is not None:
-        rec["plan"] = {key: plan[key] for key in ("cluster", "tile_rows", "stages", "smem_bytes")}
+    rec["plan"] = {key: plan[key] for key in ("cluster", "tile_rows", "stages", "smem_bytes")}
     log(f"kernel {name} {json.dumps(rec)}")
     return rec
 
@@ -611,9 +655,11 @@ def _segment_case(torch, ctx, timer, int8: bool, s: int, offsets: tuple,
     return rec
 
 
-def _dense_decode_case(torch, ctx, timer, int8: bool, lengths_list: tuple, view: int) -> dict:
+def _dense_decode_case(torch, ctx, timer, int8: bool, lengths_list: tuple, view: int,
+                       width: int = DENSE_T) -> dict:
     """Dense decode against its plain version: rows of ``lengths_list`` keys
-    through a [..., :view] view of a T = 8192 cache (view 8192: the whole
+    through a [..., :view] view of a cache ``width`` columns wide (8192, or
+    the engine's 8193 with its sink column; view == width: the whole
     cache), planted faults in the row of 1024 keys, times, bound."""
     from langstream_tpu_torch.models import transformer as tf
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
@@ -635,8 +681,8 @@ def _dense_decode_case(torch, ctx, timer, int8: bool, lengths_list: tuple, view:
             return {n: a[:, :, :view] for n, a in entry.items()}
         return entry[:, :, :view]
 
-    k = cut(_dense_cache(torch, g, b, DENSE_T, int8))
-    v = cut(_dense_cache(torch, g, b, DENSE_T, int8))
+    k = cut(_dense_cache(torch, g, b, width, int8))
+    v = cut(_dense_cache(torch, g, b, width, int8))
     lengths = torch.tensor(lengths_list, dtype=torch.int32, device="cuda")
     kernel = ragged_decode_attention_int8 if int8 else ragged_decode_attention
     out = kernel(q, k, v, lengths, cfg)
@@ -646,8 +692,9 @@ def _dense_decode_case(torch, ctx, timer, int8: bool, lengths_list: tuple, view:
     row = lengths_list.index(1024)
     tile = 512  # a mid-row tile of that row
     kq = k["q"] if int8 else k
-    plan = None if int8 else decode_launch_plan(q.shape, kq.shape, kq.stride(), kq.dtype, "dense")
-    a, z = _split_share(int8, 1024, plan)
+    plan = decode_launch_plan(q.shape, kq.shape, kq.stride(), kq.dtype, "dense",
+                              scale_strides=k["s"].stride() if int8 else None)
+    a, z = _rank_share(1024, plan)
     short = lengths.clone()
     short[row] -= z - a
     planted = {
@@ -658,12 +705,16 @@ def _dense_decode_case(torch, ctx, timer, int8: bool, lengths_list: tuple, view:
             q, k, v, (lengths - 1).clamp_min(0), cfg
         ),
         "k_tile_stale": ragged_decode_reference(
-            q, _stale_tile(k, row, tile, plan["tile_rows"] if plan else 64), v, lengths, cfg
+            q, _stale_tile(k, row, tile, plan["tile_rows"]), v, lengths, cfg
         ),
         "split_dropped": ragged_decode_reference(
             q, _drop_keys(k, row, a, z), _drop_keys(v, row, a, z), short, cfg
         ),
     }
+    if int8:
+        planted["scale_tile_stale"] = ragged_decode_reference(
+            q, _stale_scales(k, row, tile, plan["tile_rows"]), v, lengths, cfg
+        )
     check = hold(f"{name} B={b}", out, ref, DECODE_TOL, planted)
     del planted
     mask = torch.arange(view, device="cuda")[None, :] < lengths.long()[:, None]  # [B, T]
@@ -681,7 +732,7 @@ def _dense_decode_case(torch, ctx, timer, int8: bool, lengths_list: tuple, view:
     flops = 4.0 * tokens * H * D  # q.k and p.v per (token, query head)
     lens = (f"lengths={list(lengths_list)}" if not long
             else f"lengths=256..{lengths_list[-1]} step 256")
-    where = f"view T={view} of {DENSE_T}" if view < DENSE_T else f"T={DENSE_T}"
+    where = f"view T={view} of {width}" if view < width else f"T={width}"
     rec = {
         "shape": f"B={b} {lens} {where} H={H} Hkv={HKV} D={D} "
                  + ("int8 cache, bf16 q" if int8 else "bf16"),
@@ -701,8 +752,7 @@ def _dense_decode_case(torch, ctx, timer, int8: bool, lengths_list: tuple, view:
         )
     rec["gbps"] = nbytes / (rec["ms"] * 1e-3) / 1e9
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-    if plan is not None:
-        rec["plan"] = {key: plan[key] for key in ("cluster", "tile_rows", "stages", "smem_bytes")}
+    rec["plan"] = {key: plan[key] for key in ("cluster", "tile_rows", "stages", "smem_bytes")}
     log(f"kernel {name} {json.dumps(rec)}")
     return rec
 
@@ -756,8 +806,9 @@ def _nan_past_length(torch, ctx) -> dict:
         out = paged(q, *dirty, lengths, table.cuda(), cfg, PAGE)
         seen[paged.__name__] = bool(torch.equal(clean, out))
         del k, v, dirty
-        big_k = _dense_cache(torch, g, b, DENSE_T, int8)
-        big_v = _dense_cache(torch, g, b, DENSE_T, int8)
+        # the engine's sink-column width: int8 scale rows off the 16-byte grid
+        big_k = _dense_cache(torch, g, b, DENSE_T + 1, int8)
+        big_v = _dense_cache(torch, g, b, DENSE_T + 1, int8)
 
         def cut(entry):
             if isinstance(entry, dict):
@@ -880,9 +931,14 @@ def phase_kernels(ctx: dict) -> None:
                                    (2048, (6144,), None)))
         ]
         name = "dense_decode_int8" if int8 else "dense_decode"
+        # int8 also reads the engine's 8,193-wide cache, whose scale rows
+        # are not 16-byte aligned; the widest shape stays last (the record's)
+        cases = ((DECODE_LENGTHS, DENSE_VIEW, DENSE_T),)
+        if int8:
+            cases += ((DECODE_LENGTHS, DENSE_VIEW, DENSE_T + 1),)
         ctx["kernel_runs"][name] = [
-            _dense_decode_case(torch, ctx, timer, int8, lengths, view)
-            for lengths, view in ((DECODE_LENGTHS, DENSE_VIEW), (DECODE_LENGTHS_LONG, DENSE_T))
+            _dense_decode_case(torch, ctx, timer, int8, lengths, view, width)
+            for lengths, view, width in cases + ((DECODE_LENGTHS_LONG, DENSE_T, DENSE_T),)
         ]
     _nan_past_length(torch, ctx)
     _edge_cases(torch, ctx)
@@ -1129,9 +1185,11 @@ def phase_dense_int8(ctx: dict) -> None:
 
 
 def phase_profile(ctx: dict) -> None:
-    """One traced burst (8 short prompts, 32 new tokens each) under
-    torch.profiler: wall time, the summed device time of CUDA kernels, the
-    device's busy share of the wall, and the kernels that took the most."""
+    """Two traced bursts (8 short prompts, 32 new tokens each; bf16 and int8
+    page pools) under torch.profiler: wall time, the summed device time of
+    CUDA kernels, the device's busy share of the wall, and the kernels that
+    took the most. Every decode launch must be the one cluster kernel: a
+    split-K kernel or its merge launch fails the phase."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1139,36 +1197,41 @@ def phase_profile(ctx: dict) -> None:
     from langstream_tpu_torch.serving.engine import GenerationRequest, ServingEngine
     from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
 
-    cfg = MODEL_PRESETS["llama-3-8b"]
     tok = ByteTokenizer()
-    engine = ServingEngine(cfg, _llama_params(ctx), max_batch=8, decode_chunk=16,
-                           page_size=PAGE, device="cuda")
-    engine.start()
-    try:
-        prompts = [tok.encode(p) for p in _prompts([100] * 8, ctx["seed"] + 1)]
-        opts = GenerationOptions(max_new_tokens=32)
-        engine.generate(prompts[0], opts, timeout=600)  # warm
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            reqs = [engine.submit(GenerationRequest(prompt_tokens=p, options=opts))
-                    for p in prompts]
-            for r in reqs:
-                r.result(timeout=600)
-            torch.cuda.synchronize()
-            wall_ms = (time.monotonic() - t0) * 1e3
-    finally:
-        engine.stop()
-    # device activity (kernels, copies, fills) carries self device time;
-    # the host-side ops that launched it carry none
-    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    log("profile llama-3-8b bf16 decode burst " + json.dumps({
-        "wall_ms": wall_ms,
-        "device_kernel_ms": busy_ms,
-        "device_busy_share": busy_ms / wall_ms,
-        "top_kernels": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top],
-    }))
+    base = MODEL_PRESETS["llama-3-8b"]
+    for label, cfg in (("bf16", base),
+                       ("int8-kv", dataclasses.replace(base, kv_cache_dtype="int8"))):
+        engine = ServingEngine(cfg, _llama_params(ctx), max_batch=8, decode_chunk=16,
+                               page_size=PAGE, device="cuda")
+        engine.start()
+        try:
+            prompts = [tok.encode(p) for p in _prompts([100] * 8, ctx["seed"] + 1)]
+            opts = GenerationOptions(max_new_tokens=32)
+            engine.generate(prompts[0], opts, timeout=600)  # warm
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.monotonic()
+                reqs = [engine.submit(GenerationRequest(prompt_tokens=p, options=opts))
+                        for p in prompts]
+                for r in reqs:
+                    r.result(timeout=600)
+                torch.cuda.synchronize()
+                wall_ms = (time.monotonic() - t0) * 1e3
+        finally:
+            engine.stop()
+        # device activity (kernels, copies, fills) carries self device time;
+        # the host-side ops that launched it carry none
+        kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        log(f"profile llama-3-8b {label} decode burst " + json.dumps({
+            "wall_ms": wall_ms,
+            "device_kernel_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "top_kernels": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top],
+        }))
+        stale = [e.key for e in kernels if "decode_split" in e.key or "decode_combine" in e.key]
+        if stale:
+            raise AssertionError(f"profile {label}: split-K decode kernels launched: {stale}")
 
 
 def kernel_record(ctx: dict) -> dict:

@@ -41,17 +41,10 @@ SOURCES: dict[str, dict[str, list]] = {
         ],
     },
     "ragged_decode": {
-        "lstpu_paged_decode": [
-            _p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
-            _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _i, _p,
-        ],
-        "lstpu_dense_decode": [
-            _p, _p, _p, _p, _p, _p, _p, _p, _p, _p,
-            _i, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _i, _f, _f, _i, _p,
-        ],
-        "lstpu_decode_bf16": [
-            _p, _p, _p, _p, _p, _p,
-            _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll, _ll, _i, _i, _i, _i, _f, _f, _p,
+        "lstpu_decode": [
+            _p, _p, _p, _p, _p, _p, _p, _p,
+            _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll, _ll, _ll, _ll,
+            _i, _i, _i, _i, _i, _f, _f, _p,
         ],
     },
 }

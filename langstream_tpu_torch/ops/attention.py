@@ -47,10 +47,6 @@ _NEG = -1e30
 # head dims and query heads per kv head the CUDA kernels are built for
 KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_GROUPS = (1, 2, 4, 8)
-# tokens of one row that one CTA of the decode kernels covers
-SPLIT_TOKENS = 256
-# rows of a dense cache that the decode kernel stages at a time (its "page")
-DENSE_TILE = 64
 CacheEntry = Union[torch.Tensor, dict]
 
 
@@ -459,56 +455,81 @@ flash_segment_attention_int8.cpu_calls = 0
 # ---------------------------------------------------------------------------
 
 
-# The bf16 decode kernel's launch (csrc/ragged_decode.cu,
-# decode_cluster_kernel, whose cluster_layout computes the shared memory
-# again and refuses a launch whose plan disagrees): one cluster of CTAs per
-# (kv head, row), four consumer warps and a producer warp each, and a ring
-# of bulk-copied tiles.
+# The decode kernel's launch (csrc/ragged_decode.cu, decode_cluster_kernel,
+# whose cluster_layout computes the shared memory again and refuses a
+# launch whose plan disagrees): one cluster of CTAs per (kv head, row),
+# four consumer warps and a producer warp each, and a ring of bulk-copied
+# tiles — for a bf16 and an int8 cache alike.
 DECODE_THREADS = 160
 DECODE_WARPS = 4
-DECODE_MAX_CLUSTER = 8  # the portable cluster size
+# CTAs splitting one (row, kv head), at most: on an H100, 4 beat 8 at both
+# shapes chip_smoke.py measures (PERF.md)
+DECODE_MAX_CLUSTER = 4
 DECODE_TILE_ROWS = 64  # rows of a tile (a paged tile is a page, or a part of one)
-DECODE_RING_BYTES = 96 * 1024  # the ring's budget: 3 tiles of 64 rows at D = 128
+# the ring's budget: bf16 3 stages of 64 rows at D = 128 (two CTAs an SM);
+# int8 4 stages, so that three CTAs share an SM (the kernel's min_ctas)
+DECODE_RING_BYTES = {torch.bfloat16: 96 * 1024, torch.int8: 72 * 1024}
 DECODE_STAGES = (3, 8)  # the ring's least and most stages
 SMEM_PER_CTA = 232448  # an H100 CTA's shared memory
+# How an int8 tile's f32 scales reach its ring stage: the producer warp's
+# lanes copy each valid row's K and V scale with a 4-byte cp.async counted
+# on the stage's full mbarrier. A scale row of the engine's sink-column
+# cache (max_seq_len + 1 floats) is not 16-byte aligned, so no bulk copy
+# could take it; 4-byte copies take any layout.
+DECODE_SCALE_COPY = "cp.async 4-byte per row, producer lanes"
 
 
 def _a16(x: int) -> int:
     return (x + 15) & ~15
 
 
-def _cluster_smem(g: int, d: int, tile_rows: int, stages: int) -> int:
+def _decode_stage_bytes(d: int, tile_rows: int, item: int) -> int:
+    """One ring stage of the decode kernel: a tile's K rows, its V rows and
+    (int8) their f32 scales."""
+    return _a16(2 * tile_rows * d * item + (2 * tile_rows * 4 if item == 1 else 0))
+
+
+def _cluster_smem(g: int, d: int, tile_rows: int, stages: int, item: int = 2) -> int:
     """Shared memory of one CTA of the decode kernel (its cluster_layout):
     the ring — or, once drained, the warps' f32 accumulators — then the
-    warps' and the CTA's softmax statistics, rank 0's merge weights, and
-    a full and an empty mbarrier per stage."""
-    region = _a16(max(stages * 2 * tile_rows * d * 2, DECODE_WARPS * g * d * 4))
-    stats = 2 * DECODE_WARPS * g * 4 + 2 * g * 4 + DECODE_MAX_CLUSTER * g * 4 + g * 4
+    warps' and the CTA's softmax statistics, rank 0's merge weights, the
+    batch row the cluster takes, and a full and an empty mbarrier per
+    stage."""
+    ring = stages * _decode_stage_bytes(d, tile_rows, item)
+    region = _a16(max(ring, DECODE_WARPS * g * d * 4))
+    stats = 2 * DECODE_WARPS * g * 4 + 2 * g * 4 + DECODE_MAX_CLUSTER * g * 4 + g * 4 + 4
     return _a16(region + stats) + 16 * stages
 
 
 def decode_launch_plan(
     q_shape: tuple, kv_shape: tuple, kv_strides: tuple, kv_dtype: torch.dtype, layout: str,
     table_width: Optional[int] = None, kv_ptr: int = 0, q_ptr: int = 0,
+    scale_strides: Optional[tuple] = None,
 ) -> dict:
-    """The launch of the bf16 decode kernel for these shapes, element
-    strides, dtype and base addresses. ``layout`` "paged": ``kv_shape`` is
-    the pool (P, Hkv, page_size, D), read through the ``table_width``-wide
-    table, and a tile is the largest part of a page of at most
+    """The launch of the decode kernel for these shapes, element strides,
+    dtype and base addresses. ``layout`` "paged": ``kv_shape`` is the pool
+    (P, Hkv, page_size, D), read through the ``table_width``-wide table,
+    and a tile is the largest part of a page of at most
     ``DECODE_TILE_ROWS`` rows that divides it; "dense": the cache (B, Hkv,
     T, D), read through its strides (a ``[..., :T]`` view in place), in
-    tiles of ``DECODE_TILE_ROWS`` rows. → {"layout", "cluster" (CTAs
-    splitting one (row, kv head): min(8, tiles)), "grid" (Hkv, B, cluster),
-    "threads", "page_rows", "table_width" (0 when dense), "tile_rows",
-    "tiles" (of a full row), "width"
-    (the rows a row can reach), "tiles_per_rank" (of a full row),
-    "stages", "smem_bytes",
-    "row_bytes", "copy_bytes" (one bulk copy of a whole tile; a row's last
-    tile copies only its valid rows, a whole number of rows)}. Raises
-    ValueError for what the kernel cannot take: a head dim or group it is
-    not built for, a cache dtype other than bf16, rows that are not
-    contiguous (a pool that is not contiguous), or a base, stride or copy
-    size that is not a multiple of 16 bytes (the bulk copies' rule)."""
+    tiles of ``DECODE_TILE_ROWS`` rows. An int8 cache also takes its f32
+    scales' element strides (``scale_strides``: rows of stride 1, a paged
+    scale pool contiguous; any f32 base is aligned for their 4-byte
+    copies).
+    → {"layout", "cluster" (CTAs splitting one (row, kv head): min(4,
+    tiles)), "grid" (Hkv, B, cluster), "threads", "page_rows",
+    "table_width" (0 when dense), "tile_rows", "tiles" (of a full row),
+    "width" (the rows a row can reach), "tiles_per_rank" (of a full row),
+    "stages", "stage_bytes", "smem_bytes", "row_bytes", "copy_bytes" (one
+    bulk copy of a whole tile; a row's last tile copies only its valid
+    rows, a whole number of rows), "scale_copy" (``DECODE_SCALE_COPY`` for
+    int8, None for bf16), "scale_strides" ((batch, kv head) elements, or
+    (page, kv head); (0, 0) for bf16)}. Raises ValueError for what the
+    kernel cannot take: a head dim or group it is not built for, a cache
+    dtype other than bf16 and int8, an int8 cache without its scales' row
+    layout, rows that are not contiguous (a pool that is not contiguous),
+    or a K/V base, stride or copy size that is not a multiple of 16 bytes
+    (the bulk copies' rule)."""
     b, h, d = q_shape
     n0, hkv, rows, kd = kv_shape
     if layout not in ("paged", "dense"):
@@ -519,16 +540,25 @@ def decode_launch_plan(
     if d not in KERNEL_HEAD_DIMS or g not in KERNEL_GROUPS:
         raise ValueError(f"decode kernel: head dim {d} / group {g}; built for "
                          f"{KERNEL_HEAD_DIMS} / {KERNEL_GROUPS}")
-    if kv_dtype != torch.bfloat16:
-        raise ValueError(f"decode kernel: cache dtype {kv_dtype} (bf16 only)")
+    if kv_dtype not in (torch.bfloat16, torch.int8):
+        raise ValueError(f"decode kernel: cache dtype {kv_dtype} (bf16 or int8)")
+    int8 = kv_dtype == torch.int8
+    item = 1 if int8 else 2
     sb, sh, st, sd = kv_strides
     if (sd, st) != (1, d):
         raise ValueError(f"decode kernel: cache strides {tuple(kv_strides)} do not keep "
                          f"rows of {d} contiguous")
+    if int8:
+        if scale_strides is None or len(scale_strides) != 3 or scale_strides[-1] != 1:
+            raise ValueError(f"decode kernel: an int8 cache needs scales with rows of "
+                             f"stride 1, got strides {scale_strides}")
     if layout == "paged":
         if (sb, sh) != (hkv * rows * d, rows * d):
             raise ValueError(f"decode kernel: pool strides {tuple(kv_strides)} are not "
                              f"contiguous (a page is one bulk copy)")
+        if int8 and tuple(scale_strides[:2]) != (hkv * rows, rows):
+            raise ValueError(f"decode kernel: scale pool strides {tuple(scale_strides)} are "
+                             f"not contiguous")
         if not table_width or table_width <= 0:
             raise ValueError(f"decode kernel: table width {table_width}")
         tile_rows = max(t for t in range(1, min(rows, DECODE_TILE_ROWS) + 1) if rows % t == 0)
@@ -541,16 +571,17 @@ def decode_launch_plan(
                              f"whole rows of {d}")
         tile_rows = DECODE_TILE_ROWS
         tiles = -(-rows // tile_rows)
-    row_bytes = d * 2
-    if row_bytes % 16 or (sb * 2) % 16 or (sh * 2) % 16 or kv_ptr % 16:
-        raise ValueError(f"decode kernel: cache byte strides {(row_bytes, sh * 2, sb * 2)} "
-                         f"and base {kv_ptr:#x} must be multiples of 16 (bulk copies)")
+    row_bytes = d * item
+    if row_bytes % 16 or (sb * item) % 16 or (sh * item) % 16 or kv_ptr % 16:
+        raise ValueError(f"decode kernel: cache byte strides "
+                         f"{(row_bytes, sh * item, sb * item)} and base {kv_ptr:#x} must be "
+                         f"multiples of 16 (bulk copies)")
     if q_ptr % 16:
         raise ValueError(f"decode kernel: q base {q_ptr:#x} is not 16-byte aligned")
     cluster = min(DECODE_MAX_CLUSTER, tiles)
-    stage = 2 * tile_rows * row_bytes
-    stages = max(DECODE_STAGES[0], min(DECODE_STAGES[1], DECODE_RING_BYTES // stage))
-    smem = _cluster_smem(g, d, tile_rows, stages)
+    stage = _decode_stage_bytes(d, tile_rows, item)
+    stages = max(DECODE_STAGES[0], min(DECODE_STAGES[1], DECODE_RING_BYTES[kv_dtype] // stage))
+    smem = _cluster_smem(g, d, tile_rows, stages, item)
     if smem > SMEM_PER_CTA:
         raise ValueError(f"decode kernel: {stages} stages of {tile_rows}-row tiles need "
                          f"{smem} bytes of shared memory (a CTA has {SMEM_PER_CTA})")
@@ -566,9 +597,12 @@ def decode_launch_plan(
         "width": rows if layout == "dense" else table_width * rows,
         "tiles_per_rank": -(-tiles // cluster),
         "stages": stages,
+        "stage_bytes": stage,
         "smem_bytes": smem,
         "row_bytes": row_bytes,
         "copy_bytes": tile_rows * row_bytes,
+        "scale_copy": DECODE_SCALE_COPY if int8 else None,
+        "scale_strides": tuple(scale_strides[:2]) if int8 else (0, 0),
     }
 
 
@@ -584,25 +618,33 @@ def decode_rank_tiles(length: int, plan: dict, rank: int) -> range:
     return range(t0, min(t0 + per, n))
 
 
-def _decode_bf16_launch(
-    q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor, lengths: torch.Tensor,
-    table: Optional[torch.Tensor], plan: dict, config: ModelConfig, what: str,
+def _decode_launch(
+    q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor, ks: Optional[torch.Tensor],
+    vs: Optional[torch.Tensor], lengths: torch.Tensor, table: Optional[torch.Tensor],
+    config: ModelConfig, what: str,
 ) -> torch.Tensor:
-    """One launch of decode_cluster_kernel (inputs already checked); the
-    output is the only allocation."""
+    """One launch of decode_cluster_kernel for all four decode wrappers
+    (inputs already checked; ``ks``/``vs`` None for a bf16 cache, ``table``
+    None for the dense layout); the plan raises before a launch the copies
+    cannot take, and the output is the only allocation."""
     b, h, d = q.shape
     dev = q.device
+    dense = table is None
+    plan = decode_launch_plan(
+        q.shape, kq.shape, kq.stride(), kq.dtype, "dense" if dense else "paged",
+        table_width=None if dense else table.shape[1], kv_ptr=kq.data_ptr() | vq.data_ptr(),
+        q_ptr=q.data_ptr(), scale_strides=None if ks is None else ks.stride(),
+    )
     out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
-    dense = plan["layout"] == "dense"
     cap = config.attn_logit_softcap
-    err = _build.library("ragged_decode").lstpu_decode_bf16(
-        q.data_ptr(), kq.data_ptr(), vq.data_ptr(), lengths.data_ptr(),
-        None if dense else table.data_ptr(), out.data_ptr(),
+    err = _build.library("ragged_decode").lstpu_decode(
+        q.data_ptr(), kq.data_ptr(), vq.data_ptr(),
+        None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
+        lengths.data_ptr(), None if dense else table.data_ptr(), out.data_ptr(),
         b, h, kq.shape[1], d, 0 if dense else kq.shape[0], plan["page_rows"], plan["tile_rows"],
-        plan["table_width"],
-        kq.shape[2] if dense else 0,
-        kq.stride(0) if dense else 0, kq.stride(1) if dense else 0, int(dense),
-        plan["cluster"], plan["stages"], plan["smem_bytes"],
+        plan["table_width"], kq.shape[2] if dense else 0,
+        kq.stride(0) if dense else 0, kq.stride(1) if dense else 0, *plan["scale_strides"],
+        int(ks is not None), int(dense), plan["cluster"], plan["stages"], plan["smem_bytes"],
         1.0 / math.sqrt(d), float(cap) if cap else 0.0, _stream(dev),
     )
     _build.check(err, what)
@@ -662,7 +704,7 @@ def _dense_decode_launch(
     b, h, d = q.shape
     dev = q.device
     _require_cuda_kernel(dev, d, what)
-    kq, vq, ks, vs, sc_strides = _check_cache(k, v, dev, what)
+    kq, vq, ks, vs, _ = _check_cache(k, v, dev, what)
     hkv, t = kq.shape[1], kq.shape[2]
     if kq.shape != (b, hkv, t, d) or t == 0 or lengths.shape != (b,):
         raise ValueError(f"{what}: q {tuple(q.shape)} / lengths {tuple(lengths.shape)} "
@@ -670,32 +712,7 @@ def _dense_decode_launch(
     _require_group(h, hkv, what)
     _check(q, "q", (torch.bfloat16,), dev)
     _check(lengths, "lengths", (torch.int32,), dev)
-    if ks is None:
-        plan = decode_launch_plan(
-            q.shape, kq.shape, kq.stride(), kq.dtype, "dense",
-            kv_ptr=kq.data_ptr() | vq.data_ptr(), q_ptr=q.data_ptr(),
-        )
-        return _decode_bf16_launch(q, kq, vq, lengths, None, plan, config, what)
-    out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
-    # int8: split-K scratch, as for the paged kernel: DENSE_TILE rows per tile
-    pps = max(1, SPLIT_TOKENS // DENSE_TILE)
-    tiles = -(-t // DENSE_TILE)
-    splits = -(-tiles // pps)
-    group = h // hkv
-    m_part = torch.empty((b, hkv, splits, group), dtype=torch.float32, device=dev)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((b, hkv, splits, group, d), dtype=torch.float32, device=dev)
-    lib = _build.library("ragged_decode")
-    cap = config.attn_logit_softcap
-    err = lib.lstpu_dense_decode(
-        q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(), vs.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(),
-        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        b, h, hkv, d, t, kq.stride(0), kq.stride(1), *sc_strides, DENSE_TILE, pps,
-        1.0 / math.sqrt(d), float(cap) if cap else 0.0, 1, _stream(dev),
-    )
-    _build.check(err, what)
-    return out.reshape(b, h * d)
+    return _decode_launch(q, kq, vq, ks, vs, lengths, None, config, what)
 
 
 def ragged_decode_attention(
@@ -804,33 +821,7 @@ def _paged_decode_launch(
         _check(vs, "v scales", (torch.float32,), dev)
         if ks.shape != kq.shape[:-1] or vs.shape != ks.shape:
             raise ValueError(f"{what}: scales {tuple(ks.shape)} vs pool {tuple(kq.shape)}")
-    if not quant:
-        plan = decode_launch_plan(
-            q.shape, kq.shape, kq.stride(), kq.dtype, "paged", table_width=tp,
-            kv_ptr=kq.data_ptr() | vq.data_ptr(), q_ptr=q.data_ptr(),
-        )
-        return _decode_bf16_launch(q, kq, vq, lengths, table, plan, config, what)
-    out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
-    # int8: split-K scratch — each CTA covers pps pages of one row; the
-    # partial softmax statistics and accumulators of every split meet in a
-    # merge
-    pps = max(1, SPLIT_TOKENS // page_size)
-    splits = -(-tp // pps)
-    group = h // hkv
-    m_part = torch.empty((b, hkv, splits, group), dtype=torch.float32, device=dev)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((b, hkv, splits, group, d), dtype=torch.float32, device=dev)
-    lib = _build.library("ragged_decode")
-    cap = config.attn_logit_softcap
-    err = lib.lstpu_paged_decode(
-        q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(), vs.data_ptr(),
-        lengths.data_ptr(), table.data_ptr(), out.data_ptr(),
-        m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
-        b, h, hkv, d, num_pages, page_size, tp, pps,
-        1.0 / math.sqrt(d), float(cap) if cap else 0.0, 1, _stream(dev),
-    )
-    _build.check(err, what)
-    return out.reshape(b, h * d)
+    return _decode_launch(q, kq, vq, ks, vs, lengths, table, config, what)
 
 
 def ragged_paged_decode_attention(

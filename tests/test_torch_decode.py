@@ -1,13 +1,15 @@
-"""The bf16 decode kernel's launch plan and its partition of a row's tiles.
+"""The decode kernel's launch plan and its partition of a row's tiles.
 
 ``decode_launch_plan`` (pure: shapes, strides, dtypes, bases) for the paged
-and dense layouts, and a plain-torch emulation of what the kernel computes
-with that plan — each cluster rank's share of a row's valid tiles, its
-partial (m, l, acc), then rank 0's merge with weights exp(m_r - M) — held
-against the JAX package's ``ragged_decode_attention`` and
-``ragged_paged_decode_attention`` in interpret mode, on the same numpy
-inputs. f32 on both sides, summed in different orders: agreement to ~1e-6,
-held to 1e-5.
+and dense layouts and the bf16 and int8 caches, and a plain-torch emulation
+of what the kernel computes with that plan — each cluster rank's share of a
+row's valid tiles, its partial (m, l, acc), then rank 0's merge with
+weights exp(m_r - M); for an int8 cache the K scale multiplies each row's
+dot and the V scale its probability, as the kernel does — held against the
+JAX package's ``ragged_decode_attention`` / ``ragged_paged_decode_attention``
+and their ``_int8`` twins in interpret mode, on the same numpy inputs. f32
+on both sides, summed (and, for int8, scaled) in different orders:
+agreement to ~1e-6, held to 1e-5.
 """
 
 import math
@@ -44,7 +46,7 @@ def _contiguous_strides(shape):
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_decode_plan_paged(d, group, ps):
     """A contiguous page pool [P, Hkv, ps, D] read through a 24-wide table:
-    tiles of 64 rows (a page of 64, or half a page of 128), a cluster of 8
+    tiles of 64 rows (a page of 64, or half a page of 128), a cluster of 4
     CTAs per (row, kv head), a ring of at least 3 stages, whole-row copies
     of 16-byte multiples, and the kernel's shared-memory layout within a
     CTA's."""
@@ -58,8 +60,8 @@ def test_decode_plan_paged(d, group, ps):
     assert plan["page_rows"] == ps and plan["table_width"] == tp
     assert plan["tile_rows"] == 64 and plan["tiles"] == tp * ps // 64
     assert plan["width"] == tp * ps
-    assert plan["cluster"] == 8 and plan["grid"] == (hkv, 3, 8)
-    assert plan["tiles_per_rank"] == math.ceil(plan["tiles"] / 8)
+    assert plan["cluster"] == 4 and plan["grid"] == (hkv, 3, 4)
+    assert plan["tiles_per_rank"] == math.ceil(plan["tiles"] / 4)
     assert plan["threads"] == 160
     assert plan["row_bytes"] == 2 * d and plan["copy_bytes"] == 64 * 2 * d
     assert plan["copy_bytes"] % 16 == 0 and plan["row_bytes"] % 16 == 0
@@ -86,9 +88,10 @@ def test_decode_plan_reads_big_cache_view_in_place(d, group):
     assert plan["layout"] == "dense" and plan["table_width"] == 0
     assert plan["tile_rows"] == 64 and plan["tiles"] == math.ceil(300 / 64)
     assert plan["width"] == 300
-    assert plan["cluster"] == 5 and plan["grid"] == (hkv, 2, 5)
+    assert plan["cluster"] == 4 and plan["grid"] == (hkv, 2, 4)
+    assert plan["tiles_per_rank"] == 2
     assert plan["smem_bytes"] <= port_attn.SMEM_PER_CTA
-    # a short cache: fewer tiles than the portable cluster size
+    # a short cache: fewer tiles than the cluster size
     short = port_attn.decode_launch_plan(
         (2, hkv * group, d), (2, hkv, 70, d), _contiguous_strides((2, hkv, 70, d)),
         torch.bfloat16, "dense",
@@ -98,7 +101,7 @@ def test_decode_plan_reads_big_cache_view_in_place(d, group):
         (2, hkv * group, d), (2, hkv, 2048, d), (hkv * 8193 * d, 8193 * d, d, 1),
         torch.bfloat16, "dense",
     )
-    assert wide["tiles"] == 32 and wide["cluster"] == 8 and wide["tiles_per_rank"] == 4
+    assert wide["tiles"] == 32 and wide["cluster"] == 4 and wide["tiles_per_rank"] == 8
 
 
 def test_decode_plan_page_tiles():
@@ -118,6 +121,8 @@ _PAGED = dict(q_shape=(2, 8, 64), kv_shape=(10, 2, 64, 64),
               kv_strides=_contiguous_strides((10, 2, 64, 64)), layout="paged", table_width=4)
 _DENSE = dict(q_shape=(2, 8, 64), kv_shape=(2, 2, 300, 64),
               kv_strides=(2 * 301 * 64, 301 * 64, 64, 1), layout="dense")
+_DENSE_I8 = dict(_DENSE, kv_dtype=torch.int8, scale_strides=(2 * 301, 301, 1))
+_PAGED_I8 = dict(_PAGED, kv_dtype=torch.int8, scale_strides=_contiguous_strides((10, 2, 64)))
 _REFUSED = {
     "misaligned_base": dict(_DENSE, kv_ptr=(1 << 20) + 8),
     "misaligned_q": dict(_DENSE, q_ptr=(1 << 20) + 2),
@@ -128,13 +133,17 @@ _REFUSED = {
     "head_dim_96": dict(_DENSE, q_shape=(2, 8, 96), kv_shape=(2, 2, 300, 96),
                         kv_strides=_contiguous_strides((2, 2, 300, 96))),
     "group_3": dict(_DENSE, q_shape=(2, 6, 64)),
-    "int8_cache": dict(_DENSE, kv_dtype=torch.int8),
+    "int8_cache": dict(_DENSE, kv_dtype=torch.int8),  # without its scales' strides
     "float16_cache": dict(_DENSE, kv_dtype=torch.float16),
     "no_table": dict(_PAGED, table_width=0),
     "batches_differ": dict(_DENSE, q_shape=(3, 8, 64)),
     "unknown_layout": dict(_DENSE, layout="ring"),
     "pages_too_big": dict(_PAGED, q_shape=(2, 16, 256), kv_shape=(10, 2, 1024, 256),
                           kv_strides=_contiguous_strides((10, 2, 1024, 256))),
+    "int8_scale_rows_strided": dict(_DENSE_I8, scale_strides=(2 * 301 * 2, 301 * 2, 2)),
+    "int8_scale_strides_short": dict(_DENSE_I8, scale_strides=(2 * 301, 301)),
+    "int8_scale_pool_not_contiguous": dict(_PAGED_I8, scale_strides=(2 * 65, 65, 1)),
+    "int8_misaligned_base": dict(_DENSE_I8, kv_ptr=(1 << 20) + 8),
 }
 
 
@@ -152,6 +161,71 @@ def test_decode_plan_refuses_what_the_kernel_cannot_take(case, monkeypatch):
 def test_plan_accepts_both_default_examples():
     for base in (_PAGED, _DENSE):
         port_attn.decode_launch_plan(kv_dtype=torch.bfloat16, **base)
+    for base in (_PAGED_I8, _DENSE_I8):
+        port_attn.decode_launch_plan(**base)
+
+
+# ring stages of an int8 tile of 64 rows (2 x 64 x D bytes + 2 x 64 f32
+# scales) within the 72 KB int8 ring, at least 3 and at most 8
+INT8_STAGES = {64: 8, 128: 4, 256: 3}
+
+
+@pytest.mark.parametrize("ps", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_decode_plan_paged_int8(d, group, ps):
+    """An int8 pool [P, Hkv, ps, D] with its scale pool [P, Hkv, ps]: the
+    bf16 plan's tiles, cluster and grid; a stage of half the bf16 bytes
+    plus the tile's K and V scales, so a smaller ring holds as many stages; the
+    scales copied 4 bytes a row."""
+    hkv, tp = 2, 24
+    pool = (40, hkv, ps, d)
+    args = dict(q_shape=(3, hkv * group, d), kv_shape=pool, kv_strides=_contiguous_strides(pool),
+                layout="paged", table_width=tp, kv_ptr=1 << 20, q_ptr=1 << 21)
+    plan = port_attn.decode_launch_plan(
+        kv_dtype=torch.int8, scale_strides=_contiguous_strides(pool[:-1]), **args,
+    )
+    bf16 = port_attn.decode_launch_plan(kv_dtype=torch.bfloat16, **args)
+    for key in ("cluster", "grid", "threads", "page_rows", "table_width", "tile_rows", "tiles",
+                "width", "tiles_per_rank"):
+        assert plan[key] == bf16[key], key
+    assert plan["row_bytes"] == d and plan["copy_bytes"] == 64 * d
+    assert plan["copy_bytes"] % 16 == 0
+    assert plan["stage_bytes"] == 2 * 64 * d + 2 * 64 * 4
+    assert bf16["stage_bytes"] == 2 * 64 * 2 * d
+    assert plan["stages"] == INT8_STAGES[d] >= bf16["stages"]
+    assert plan["scale_copy"] == port_attn.DECODE_SCALE_COPY and bf16["scale_copy"] is None
+    assert plan["scale_strides"] == (hkv * ps, ps) and bf16["scale_strides"] == (0, 0)
+    assert plan["stages"] * plan["stage_bytes"] <= plan["smem_bytes"] <= port_attn.SMEM_PER_CTA
+    assert plan["smem_bytes"] == port_attn._cluster_smem(group, d, 64, plan["stages"], 1)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_decode_plan_int8_reads_sink_column_view(d, group):
+    """The engine's dense int8 cache is max_seq_len + 1 columns wide: the
+    scale rows of a [..., :T] view start (T + 1) * 4 bytes apart, off the
+    16-byte grid, and the plan takes them in place (4-byte scale copies),
+    with the view's width and the big cache's strides; 8,193 wide is the
+    engine's own shape."""
+    hkv = 2
+    for t in (300, 2048, 8192):
+        kv_strides = (hkv * (t + 1) * d, (t + 1) * d, d, 1)
+        scale_strides = (hkv * (t + 1), t + 1, 1)
+        assert (scale_strides[1] * 4) % 16
+        plan = port_attn.decode_launch_plan(
+            (2, hkv * group, d), (2, hkv, t, d), kv_strides, torch.int8, "dense",
+            kv_ptr=1 << 20, q_ptr=1 << 21, scale_strides=scale_strides,
+        )
+        tiles = math.ceil(t / 64)
+        assert plan["layout"] == "dense" and plan["table_width"] == 0
+        assert plan["width"] == t and plan["tile_rows"] == 64 and plan["tiles"] == tiles
+        assert plan["cluster"] == min(4, tiles) and plan["grid"] == (hkv, 2, min(4, tiles))
+        assert plan["scale_strides"] == scale_strides[:2]
+        assert plan["scale_copy"] == port_attn.DECODE_SCALE_COPY
+        assert plan["stages"] == INT8_STAGES[d]
+        assert plan["smem_bytes"] == port_attn._cluster_smem(group, d, 64, plan["stages"], 1)
+        assert plan["smem_bytes"] <= port_attn.SMEM_PER_CTA
 
 
 # ---------------------------------------------------------------------------
@@ -178,7 +252,10 @@ def _emulate(q, tile_kv, lengths, plan, scale, cap):
     """What the kernel computes with ``plan``, in plain f32 torch: per (row,
     kv head), each rank's online softmax over its share of the valid tiles
     (``tile_kv(b, kvh, j, valid)`` → the tile's first ``valid`` K and V
-    rows), then rank 0's merge. → [B, H * D]."""
+    rows, and for an int8 cache their K and V scales), then rank 0's merge.
+    int8 rows stay integers: each row's dot is scaled by its K scale times
+    1/sqrt(D), and its probability by its V scale in PV (l sums the
+    unscaled p), where the kernel does. → [B, H * D]."""
     b_n, h, d = q.shape
     hkv = plan["grid"][0]
     g = h // hkv
@@ -195,15 +272,15 @@ def _emulate(q, tile_kv, lengths, plan, scale, cap):
                 acc = torch.zeros((g, d))
                 for j in port_attn.decode_rank_tiles(length, plan, rank):
                     valid = min(tr, length - j * tr)
-                    kk, vv = tile_kv(b, kvh, j, valid)
-                    s = (qg @ kk.T) * scale
+                    kk, vv, *scales = tile_kv(b, kvh, j, valid)
+                    s = (qg @ kk.T) * (scales[0] * scale if scales else scale)
                     if cap is not None:
                         s = torch.tanh(s / cap) * cap
                     m_new = torch.maximum(m, s.max(dim=-1).values)
                     corr = torch.exp(m - m_new)
                     p = torch.exp(s - m_new[:, None])
                     l = l * corr + p.sum(dim=-1)
-                    acc = acc * corr[:, None] + p @ vv
+                    acc = acc * corr[:, None] + (p * scales[1] if scales else p) @ vv
                     m = m_new
                 parts.append((m, l, acc))
             big_m = torch.stack([p[0] for p in parts]).max(dim=0).values
@@ -228,6 +305,25 @@ def _configs(cap):
     return JaxModelConfig(**fields), ModelConfig(**fields)
 
 
+def _ragged_table(rng):
+    """Ragged tables of distinct pages; unmapped entries carry the sentinel
+    POOL (clamped to POOL - 1, as both kernels do)."""
+    table = np.full((len(LENGTHS), TP), POOL, np.int32)
+    perm = rng.permutation(POOL)
+    cursor = 0
+    for row, n in enumerate(np.minimum(-(-LENGTHS // PS), TP)):
+        table[row, :n] = perm[cursor:cursor + n]
+        cursor += n
+    return table
+
+
+def _int8_entry(rng, shape):
+    """An int8 cache entry as numpy: values in [-127, 127], f32 scales in
+    [0.005, 0.015)."""
+    return (rng.integers(-127, 128, shape).astype(np.int8),
+            (rng.random(shape[:-1]) * 0.01 + 0.005).astype(np.float32))
+
+
 @pytest.mark.parametrize("cap", [None, 30.0])
 def test_dense_partition_matches_pallas(cap):
     rng = np.random.default_rng(11 + (cap is not None))
@@ -246,7 +342,7 @@ def test_dense_partition_matches_pallas(cap):
     plan = port_attn.decode_launch_plan(
         (b, H, D), tuple(kt.shape), kt.stride(), torch.bfloat16, "dense",
     )
-    assert plan["cluster"] == 5 and plan["tile_rows"] == 64
+    assert plan["cluster"] == 4 and plan["tile_rows"] == 64
     tr = plan["tile_rows"]
 
     def tile_kv(b_, kvh, j, valid):
@@ -265,14 +361,7 @@ def test_paged_partition_matches_pallas(cap):
     q = rng.standard_normal((b, H, D)).astype(np.float32)
     k = rng.standard_normal((POOL, HKV, PS, D)).astype(np.float32)
     v = rng.standard_normal((POOL, HKV, PS, D)).astype(np.float32)
-    # ragged tables of distinct pages; unmapped entries carry the sentinel
-    # POOL (clamped to POOL - 1, as both kernels do)
-    table = np.full((b, TP), POOL, np.int32)
-    perm = rng.permutation(POOL)
-    cursor = 0
-    for row, n in enumerate(np.minimum(-(-LENGTHS // PS), TP)):
-        table[row, :n] = perm[cursor:cursor + n]
-        cursor += n
+    table = _ragged_table(rng)
     jcfg, _ = _configs(cap)
     ref = jax_attn.ragged_paged_decode_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(LENGTHS),
@@ -283,13 +372,93 @@ def test_paged_partition_matches_pallas(cap):
         (b, H, D), tuple(kt.shape), kt.stride(), torch.bfloat16, "paged", table_width=TP,
     )
     # pages of 128 rows: two tiles each
-    assert plan["cluster"] == 6 and plan["tile_rows"] == 64 and plan["tiles"] == 2 * TP
+    assert plan["cluster"] == 4 and plan["tile_rows"] == 64 and plan["tiles"] == 2 * TP
     tr, spp = plan["tile_rows"], PS // plan["tile_rows"]
 
     def tile_kv(b_, kvh, j, valid):
         page = min(max(int(table[b_, j // spp]), 0), POOL - 1)
         rows = slice((j % spp) * tr, (j % spp) * tr + valid)
         return kt[page, kvh, rows], vt[page, kvh, rows]
+
+    out = _emulate(torch.from_numpy(q), tile_kv, LENGTHS, plan, 1.0 / math.sqrt(D), cap)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=TOL, atol=TOL)
+    assert np.all(out.numpy()[0] == 0.0)
+
+
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_dense_int8_partition_matches_pallas(cap):
+    """The int8 kernel's arithmetic over a [..., :T] view of a sink-column
+    cache, whose scale rows are not 16-byte aligned, against the JAX int8
+    kernel over the contiguous [..., :T]; NaN scales past every row's
+    length leave the emulation's output bit-equal (no tile reads them)."""
+    rng = np.random.default_rng(31 + (cap is not None))
+    b = len(LENGTHS)
+    q = rng.standard_normal((b, H, D)).astype(np.float32)
+    kq, ks = _int8_entry(rng, (b, HKV, T + 1, D))
+    vq, vs = _int8_entry(rng, (b, HKV, T + 1, D))
+    jcfg, _ = _configs(cap)
+    ref = jax_attn.ragged_decode_attention_int8(
+        jnp.asarray(q), {"q": jnp.asarray(kq[:, :, :T]), "s": jnp.asarray(ks[:, :, :T])},
+        {"q": jnp.asarray(vq[:, :, :T]), "s": jnp.asarray(vs[:, :, :T])},
+        jnp.asarray(LENGTHS), jcfg, interpret=True,
+    )
+    kt, vt, kst, vst = (torch.from_numpy(a)[:, :, :T] for a in (kq, vq, ks, vs))
+    assert (kst.stride(1) * 4) % 16  # scale rows off the 16-byte grid
+    plan = port_attn.decode_launch_plan(
+        (b, H, D), tuple(kt.shape), kt.stride(), torch.int8, "dense",
+        scale_strides=kst.stride(),
+    )
+    assert plan["cluster"] == 4 and plan["tile_rows"] == 64 and plan["stages"] == INT8_STAGES[D]
+    tr = plan["tile_rows"]
+
+    def run(ksc, vsc):
+        def tile_kv(b_, kvh, j, valid):
+            rows = slice(j * tr, j * tr + valid)
+            return (kt[b_, kvh, rows].float(), vt[b_, kvh, rows].float(), ksc[b_, kvh, rows],
+                    vsc[b_, kvh, rows])
+
+        return _emulate(torch.from_numpy(q), tile_kv, LENGTHS, plan, 1.0 / math.sqrt(D), cap)
+
+    out = run(kst, vst)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=TOL, atol=TOL)
+    assert np.all(out.numpy()[0] == 0.0)  # length 0 gives 0
+    dirty = [a.clone() for a in (kst, vst)]
+    for a in dirty:
+        for row, n in enumerate(LENGTHS):
+            a[row, :, n:] = float("nan")
+    assert torch.equal(run(*dirty), out)
+
+
+@pytest.mark.parametrize("cap", [None, 30.0])
+def test_paged_int8_partition_matches_pallas(cap):
+    """The int8 kernel's arithmetic over pages of 128 rows (two tiles each)
+    through ragged tables with unmapped sentinel entries, against the JAX
+    paged int8 kernel."""
+    rng = np.random.default_rng(41 + (cap is not None))
+    b = len(LENGTHS)
+    q = rng.standard_normal((b, H, D)).astype(np.float32)
+    kq, ks = _int8_entry(rng, (POOL, HKV, PS, D))
+    vq, vs = _int8_entry(rng, (POOL, HKV, PS, D))
+    table = _ragged_table(rng)
+    jcfg, _ = _configs(cap)
+    ref = jax_attn.ragged_paged_decode_attention_int8(
+        jnp.asarray(q), {"q": jnp.asarray(kq), "s": jnp.asarray(ks)},
+        {"q": jnp.asarray(vq), "s": jnp.asarray(vs)}, jnp.asarray(LENGTHS),
+        jnp.asarray(table), jcfg, PS, interpret=True,
+    )
+    kt, vt, kst, vst = (torch.from_numpy(a) for a in (kq, vq, ks, vs))
+    plan = port_attn.decode_launch_plan(
+        (b, H, D), tuple(kt.shape), kt.stride(), torch.int8, "paged", table_width=TP,
+        scale_strides=kst.stride(),
+    )
+    assert plan["cluster"] == 4 and plan["tile_rows"] == 64 and plan["tiles"] == 2 * TP
+    tr, spp = plan["tile_rows"], PS // plan["tile_rows"]
+
+    def tile_kv(b_, kvh, j, valid):
+        page = min(max(int(table[b_, j // spp]), 0), POOL - 1)
+        rows = slice((j % spp) * tr, (j % spp) * tr + valid)
+        return (kt[page, kvh, rows].float(), vt[page, kvh, rows].float(), kst[page, kvh, rows],
+                vst[page, kvh, rows])
 
     out = _emulate(torch.from_numpy(q), tile_kv, LENGTHS, plan, 1.0 / math.sqrt(D), cap)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=TOL, atol=TOL)
