@@ -59,7 +59,27 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    path against reference path.
 6. ``dense_int8`` — 4 requests (one of 3001 tokens), 16 new tokens, over an
    int8 dense cache (the int8 segment and dense decode kernels).
-7. ``profile`` — (not run by default) two short llama-3-8b bursts, bf16
+7. ``paged_long`` — llama-3-8b on the paged layout with max_seq_len 8192:
+   the ``dense`` phase's 8 requests, whose 3001- and 7001-token prompts
+   prefill in 2 and 4 segments of 2048 straight into their pages (the
+   segment kernel over the gathered pages), decode through the paged
+   decode kernel; then 4 requests (41..3001 tokens, 16 new) over int8
+   pages (the int8 segment kernel). Then a paged reference check (a
+   3000-token prompt through 2 ``paged_prefill_segment_inplace`` calls
+   and 4 paged decode steps, kernel path against reference path), NaN
+   planted past a segment's frontier and in the sink page (the kernel
+   path's logits must stay bit-equal), and the page gather's time beside
+   the segment kernel's for the 2048-token segment at offset 6144.
+8. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
+   experts, top-2) with int8 weights drawn on the card (46.9 GB; the
+   llama weights are dropped first), paged bf16 KV, max_seq_len 4096: 9
+   requests of 21..3001 tokens, 32 new each (the 3001-token prompt takes 2
+   paged segments through ``moe_ffn``); tokens/s, TTFT, peak memory (under
+   80 GB) and the mean decode step. Then the kernel path against the
+   reference path (a 200-token prompt, 4 paged decode steps) and one
+   layer's ``moe_ffn`` timed at decode (8 tokens) and at a 2048-token
+   segment beside its weight-byte bound.
+9. ``profile`` — (not run by default) two short llama-3-8b bursts, bf16
    and int8 page pools, traced with torch.profiler: the device's busy
    share of the wall and the top kernels (no split-K decode kernel may
    appear).
@@ -92,8 +112,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "profile")
-DEFAULT_PHASES = PHASES[:6]
+PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "moe",
+          "profile")
+DEFAULT_PHASES = PHASES[:8]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -953,7 +974,8 @@ def _prompts(n_bytes: list[int], seed: int) -> list[str]:
 
 def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int, **engine_kw) -> dict:
     """Warm the engine with one short request, zero the kernel counts, serve
-    the batch, read the counts; checks every request's tokens."""
+    the batch, read the counts; checks every request's tokens, and that no
+    kernel's plain version ran."""
     import torch
 
     from langstream_tpu_torch.models.configs import GenerationOptions
@@ -983,6 +1005,9 @@ def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int, **engine_kw) -
         after = engine.stats()
     finally:
         engine.stop()
+    plain = {k: v["cpu_calls"] for k, v in counts.items() if v["cpu_calls"]}
+    if plain:
+        raise AssertionError(f"plain versions ran on the card's main path: {plain}")
     for p, r in zip(prompts, results):
         if r.error is not None or r.finish_reason not in ("length", "stop"):
             raise AssertionError(f"request of {len(p)} tokens ended {r.finish_reason}: {r.error}")
@@ -1020,6 +1045,25 @@ def _require_launches(run: dict, kernel: str, per_unit: str, layers: int) -> Non
         raise AssertionError(f"{kernel}: {got} launches < {layers} x {per_unit} {run[per_unit]}")
 
 
+def _hold_logits(label: str, logits: dict) -> dict:
+    """Kernel-path logits against reference-path logits, step by step:
+    finite, within MODEL_REL_TOL of the largest reference logit, and the
+    top-1 of each step (recorded)."""
+    import torch
+
+    out = {}
+    for i, (a, b) in enumerate(zip(logits["kernel"], logits["reference"])):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{label} step {i}: non-finite kernel-path logits")
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        out[f"step{i}_rel_err"] = rel
+        out[f"step{i}_top1_equal"] = bool(torch.argmax(a) == torch.argmax(b))
+        if rel > MODEL_REL_TOL:
+            raise AssertionError(f"{label} step {i}: rel err {rel} > {MODEL_REL_TOL}")
+    out["tolerance"] = MODEL_REL_TOL
+    return out
+
+
 def _model_check(ctx, cfg, params) -> dict:
     """Kernel path vs reference attention path on the same weights: prefill
     logits of a 200-token prompt, then 4 paged decode steps over a pool
@@ -1033,7 +1077,6 @@ def _model_check(ctx, cfg, params) -> dict:
     tokens = torch.tensor([prompt], dtype=torch.long, device="cuda")
     lengths = torch.tensor([len(prompt)], device="cuda")
     s = tokens.shape[1]
-    out = {}
     logits = {}
     pools = {}
     table = torch.arange(math.ceil((s + 8) / PAGE), dtype=torch.int32, device="cuda")[None]
@@ -1052,16 +1095,7 @@ def _model_check(ctx, cfg, params) -> dict:
             lg, _ = tf.paged_decode_step_inplace(params, tok, pos, pools[name], table, c, PAGE)
             logits[name].append(lg.float())
         tok = torch.argmax(logits["reference"][-1], dim=-1)
-    for i, (a, b) in enumerate(zip(logits["kernel"], logits["reference"])):
-        if not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"model check step {i}: non-finite kernel-path logits")
-        rel = ((a - b).abs().max() / b.abs().max()).item()
-        out[f"step{i}_rel_err"] = rel
-        out[f"step{i}_top1_equal"] = bool(torch.argmax(a) == torch.argmax(b))
-        if rel > MODEL_REL_TOL:
-            raise AssertionError(f"model check step {i}: rel err {rel} > {MODEL_REL_TOL}")
-    out["tolerance"] = MODEL_REL_TOL
-    return out
+    return _hold_logits(f"model check {cfg.name}", logits)
 
 
 def _llama_params(ctx):
@@ -1141,17 +1175,7 @@ def _dense_model_check(ctx, cfg, params) -> dict:
             lg, _ = tf.decode_step_inplace(params, tok, pos, caches[name], c, kv_bound=cols)
             logits[name].append(lg.float())
         tok = torch.argmax(logits["reference"][-1], dim=-1)
-    out = {}
-    for i, (a, b) in enumerate(zip(logits["kernel"], logits["reference"])):
-        if not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"dense model check step {i}: non-finite kernel-path logits")
-        rel = ((a - b).abs().max() / b.abs().max()).item()
-        out[f"step{i}_rel_err"] = rel
-        out[f"step{i}_top1_equal"] = bool(torch.argmax(a) == torch.argmax(b))
-        if rel > MODEL_REL_TOL:
-            raise AssertionError(f"dense model check step {i}: rel err {rel} > {MODEL_REL_TOL}")
-    out["tolerance"] = MODEL_REL_TOL
-    return out
+    return _hold_logits("dense model check", logits)
 
 
 DENSE_KW = {"kv_layout": "dense", "max_seq_len": 8192}
@@ -1182,6 +1206,307 @@ def phase_dense_int8(ctx: dict) -> None:
     _require_launches(run, "dense_decode_int8", "decode_steps", cfg.n_layers)
     log(f"dense llama-3-8b int8-kv {json.dumps(run)}")
     ctx["dense_int8"] = run
+
+
+PAGED_LONG_KW = {"max_seq_len": 8192}
+
+
+def _segment_tokens(torch, prompt, s0: int, width: int):
+    """One segment of ``prompt`` [1, n] at ``s0``, padded to ``width`` → (tokens
+    [1, width], its true length)."""
+    seg = torch.zeros((1, width), dtype=torch.long, device="cuda")
+    real = min(width, prompt.shape[1] - s0)
+    seg[0, :real] = prompt[0, s0:s0 + real]
+    return seg, real
+
+
+def _long_prompt(torch, n: int):
+    return torch.tensor([[256] + [(37 * i + 11) % 250 for i in range(n - 1)]], device="cuda")
+
+
+def _paged_model_check(ctx, cfg, params) -> dict:
+    """Kernel path vs reference attention path on the paged layout, same
+    weights: a 3000-token prompt through 2 ``paged_prefill_segment_inplace``
+    calls of 2048 straight into its 47 pages (the engine's kv_bound rule:
+    2048, then 4096), then 4 paged decode steps through the same table."""
+    import torch
+
+    from langstream_tpu_torch.models import transformer as tf
+
+    ref_cfg = dataclasses.replace(cfg, attention_impl="jnp")
+    n, width = 3000, 2048
+    prompt = _long_prompt(torch, n)
+    table = torch.arange(math.ceil((n + 4) / PAGE), dtype=torch.int32, device="cuda")[None]
+    logits, pools = {}, {}
+    for name, c in (("kernel", cfg), ("reference", ref_cfg)):
+        pool = tf.make_page_pool(c, table.shape[1], PAGE, device="cuda")
+        for s0 in (0, width):
+            seg, real = _segment_tokens(torch, prompt, s0, width)
+            lg, _ = tf.paged_prefill_segment_inplace(
+                params, seg, torch.tensor([s0], device="cuda"), torch.tensor([real], device="cuda"),
+                pool, table, c, PAGE, kv_bound=s0 + width,
+            )
+        logits[name] = [lg.float()]
+        pools[name] = pool
+    # both paths decode the SAME token chain (the reference path's greedy)
+    tok = torch.argmax(logits["reference"][0], dim=-1)
+    for step in range(4):
+        pos = torch.tensor([n + step], device="cuda")
+        for name, c in (("kernel", cfg), ("reference", ref_cfg)):
+            lg, _ = tf.paged_decode_step_inplace(params, tok, pos, pools[name], table, c, PAGE)
+            logits[name].append(lg.float())
+        tok = torch.argmax(logits["reference"][-1], dim=-1)
+    return _hold_logits("paged model check", logits)
+
+
+def _paged_nan_check(ctx, cfg, params) -> dict:
+    """NaN written into the slot's pages past a segment's frontier — the
+    rest of the frontier's page and every later page of its 8192-token
+    table — and into the pool's sink page leaves the kernel path's segment
+    logits bit-equal: the 2048-token segment at offset 1000 (a mid-page
+    frontier, 3048) gathers only its first 48 pages and reads them through
+    a [..., :3048] view."""
+    import torch
+
+    from langstream_tpu_torch.models import transformer as tf
+
+    width, s0 = 2048, 1000
+    frontier = s0 + width
+    pages = 8192 // PAGE
+    table = torch.arange(pages, dtype=torch.int32, device="cuda")[None]
+    pool = tf.make_page_pool(cfg, pages, PAGE, device="cuda")
+    prompt = _long_prompt(torch, frontier)
+    seg, real = _segment_tokens(torch, prompt[:, :s0], 0, width)  # the prefix [0, 1000)
+    tf.paged_prefill_segment_inplace(
+        params, seg, torch.tensor([0], device="cuda"), torch.tensor([real], device="cuda"),
+        pool, table, cfg, PAGE, kv_bound=width,
+    )
+    seg, real = _segment_tokens(torch, prompt, s0, width)
+
+    def segment():
+        return tf.paged_prefill_segment_inplace(
+            params, seg, torch.tensor([s0], device="cuda"), torch.tensor([real], device="cuda"),
+            pool, table, cfg, PAGE, kv_bound=frontier,
+        )[0]
+
+    clean = segment()
+    page, row = divmod(frontier, PAGE)
+    for name in ("k", "v"):
+        pool[name][:, page, :, row:] = float("nan")
+        pool[name][:, page + 1:] = float("nan")  # later pages and the sink
+    planted = segment()
+    same = bool(torch.equal(clean, planted)) and bool(torch.isfinite(clean).all())
+    if not same:
+        raise AssertionError("NaN past the paged segment's frontier changed its logits")
+    return {"frontier": frontier, "pages_gathered": math.ceil(frontier / PAGE),
+            "table_pages": pages, "bit_equal": same}
+
+
+def _gather_cost(torch, ctx, timer) -> dict:
+    """The page gather of the 2048-token segment at offset 6144 (one layer,
+    128 pages of 64 through a shuffled table, bf16 and int8 pages) beside
+    the segment kernel over what it gathered: ms, the gather's byte bound
+    and its share of the two; and, as a yardstick, the same gather by
+    PyTorch advanced indexing (``pool[pages, heads]``)."""
+    from langstream_tpu_torch.models import transformer as tf
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.ops.attention import (
+        flash_segment_attention,
+        flash_segment_attention_int8,
+    )
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    s, off = 2048, 6144
+    n_pages = (off + s) // PAGE
+    rng = random.Random(ctx["seed"] + 51)
+    perm = list(range(n_pages))
+    rng.shuffle(perm)
+    pages = torch.tensor([perm], dtype=torch.long, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 53)
+    q = torch.randn((1, s, H, D), generator=g, device="cuda").to(torch.bfloat16)
+    offset = torch.tensor([off], dtype=torch.int32, device="cuda")
+    out = {}
+    for int8 in (False, True):
+        shape = (n_pages + 1, HKV, PAGE, D)
+        k, v = _pool_entry(torch, g, shape, int8), _pool_entry(torch, g, shape, int8)
+        rows = tf._page_rows(pages, HKV)
+        kg, vg = tf._gather_pages(k, rows, 1), tf._gather_pages(v, rows, 1)
+        hidx = torch.arange(HKV, device="cuda")[None, :, None]
+        indexed = {n: a[pages[:, None, :], hidx].flatten(2, 3) for n, a in
+                   (k.items() if int8 else (("k", k),))}
+        got = kg if int8 else {"k": kg}
+        if not all(torch.equal(got[n], indexed[n]) for n in indexed):
+            raise AssertionError("the page gather differs from advanced indexing")
+        kernel = flash_segment_attention_int8 if int8 else flash_segment_attention
+        item = 1 if int8 else 2
+        row = HKV * D * item + (HKV * 4 if int8 else 0)  # a token's K (or V) bytes
+        nbytes = 2 * 2 * (off + s) * row  # K and V read once, written once
+
+        def by_indexing():
+            return [tf._map(lambda a: a[pages[:, None, :], hidx], e) for e in (k, v)]
+
+        rec = {
+            "gather_ms": timer.ms(lambda: (tf._gather_pages(k, rows, 1),
+                                           tf._gather_pages(v, rows, 1))),
+            "gather_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "indexing_ms": timer.ms(by_indexing),
+            "segment_ms": timer.ms(lambda: kernel(q, kg, vg, offset, cfg)),
+        }
+        rec["gather_share"] = rec["gather_ms"] / (rec["gather_ms"] + rec["segment_ms"])
+        out["int8" if int8 else "bf16"] = rec
+        del k, v, kg, vg
+    return out
+
+
+def phase_paged_long(ctx: dict) -> None:
+    import torch
+
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    params = _llama_params(ctx)
+    run = _serve(ctx, cfg, params, [20, 90, 300, 600, 1200, 1500, 3000, 7000], 32, **PAGED_LONG_KW)
+    if run["segments"] != 2 + 4:
+        raise AssertionError(f"paged_long: {run['segments']} segments, expected 6")
+    _require_launches(run, "flash_segment", "segments", cfg.n_layers)
+    _require_launches(run, "paged_decode", "decode_steps", cfg.n_layers)
+    if run["kernel_launches"]["dense_decode"]:
+        raise AssertionError("paged_long: the dense decode kernel ran on the paged layout")
+    log(f"paged_long llama-3-8b bf16 {json.dumps(run)}")
+    ctx["paged_long"] = run
+    int8_cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    run8 = _serve(ctx, int8_cfg, params, [40, 300, 1100, 3000], 16, **PAGED_LONG_KW)
+    _require_launches(run8, "flash_segment_int8", "segments", cfg.n_layers)
+    _require_launches(run8, "paged_decode_int8", "decode_steps", cfg.n_layers)
+    log(f"paged_long llama-3-8b int8-kv {json.dumps(run8)}")
+    ctx["paged_long_int8"] = run8
+    log(f"paged model check llama-3-8b bf16 {json.dumps(_paged_model_check(ctx, cfg, params))}")
+    log(f"paged segment nan past the frontier {json.dumps(_paged_nan_check(ctx, cfg, params))}")
+    timer = Timer(torch)
+    log(f"paged segment gather S=2048 offset=6144 {json.dumps(_gather_cost(torch, ctx, timer))}")
+    del timer
+
+
+MOE_KW = {"max_seq_len": 4096}
+# a layer's int8 expert weights: gate, up and down of mixtral-8x7b's 8
+# experts (1.41 GB), each read once at the least
+MOE_EXPERT_BYTES = 3 * 8 * 4096 * 14336
+
+
+def _decode_step_ms(torch, cfg, params, batch: int = 8, steps: int = 8) -> float:
+    """Mean wall of one paged decode step at ``batch`` rows (positions
+    300..307, pages of 64) on the stream, host dispatch included."""
+    from langstream_tpu_torch.models import transformer as tf
+
+    per_row = math.ceil((300 + batch + steps + 2) / PAGE)
+    pool = tf.make_page_pool(cfg, batch * per_row, PAGE, device="cuda")
+    table = torch.arange(batch * per_row, dtype=torch.int32, device="cuda").reshape(batch, per_row)
+    tokens = torch.zeros(batch, dtype=torch.long, device="cuda")
+    pos = 300 + torch.arange(batch, device="cuda")
+    for i in range(2):  # warm
+        tf.paged_decode_step_inplace(params, tokens, pos + i, pool, table, cfg, PAGE)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(steps):
+        tf.paged_decode_step_inplace(params, tokens, pos + 2 + i, pool, table, cfg, PAGE)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def _moe_ffn_times(torch, ctx, cfg, params) -> dict:
+    """One layer's ``moe_ffn`` at decode (8 tokens) and at a 2048-token
+    segment, each beside the time to read the layer's int8 expert weights
+    once at the card's memory rate; the segment also beside its operations
+    bound (2 experts a token, three products, at the bf16 peak)."""
+    from langstream_tpu_torch.models import transformer as tf
+    from langstream_tpu_torch.models.bridge import torch_dtype
+
+    timer = Timer(torch)
+    lp = tf._layer_params(params["layers"], 0)
+    g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 61)
+    weight_ms = MOE_EXPERT_BYTES / HBM_BYTES_PER_S * 1e3
+    out = {}
+    for label, shape in (("decode T=8", (8, 1, cfg.d_model)), ("segment T=2048", (1, 2048, cfg.d_model))):
+        x = torch.randn(shape, generator=g, device="cuda").to(torch_dtype(cfg.dtype))
+        tokens = shape[0] * shape[1]
+        flops = 2.0 * tokens * cfg.n_experts_per_tok * 3 * cfg.d_model * cfg.d_ff
+        out[label] = {
+            "ms": timer.ms(lambda: tf.moe_ffn(x, lp, cfg), iters=5, warmup=2),
+            "weight_bytes_bound_ms": weight_ms,
+            "operations_bound_ms": flops / PEAK_BF16_FLOPS * 1e3,
+            "capacity": tf.moe_capacity(tokens, cfg),
+        }
+    del timer
+    return out
+
+
+def _moe_model_check(ctx, cfg, params) -> dict:
+    """``_model_check`` on the MoE model, with each ``moe_ffn`` call's expert
+    choice recorded per path (recomputed from its input): the (token,
+    layer) pairs whose top-k set differs between the kernel and the
+    reference path are counted beside the logits' error — a near-tied
+    router choice that flips sends a token through another expert."""
+    import torch
+
+    from langstream_tpu_torch.models import transformer as tf
+
+    routes = {"auto": [], "jnp": []}
+    moe = tf.moe_ffn
+
+    def recording(x, lp, c):
+        logits = torch.matmul(x.reshape(-1, x.shape[-1]), lp["router"]).float()
+        top = torch.topk(logits, c.n_experts_per_tok, dim=-1).indices
+        routes[c.attention_impl].append(top.sort(dim=-1).values)
+        return moe(x, lp, c)
+
+    tf.moe_ffn = recording
+    try:
+        check = _model_check(ctx, cfg, params)
+    finally:
+        tf.moe_ffn = moe
+    pairs = list(zip(routes["auto"], routes["jnp"]))
+    check["routing_flips"] = sum(int((a != b).any(dim=-1).sum()) for a, b in pairs)
+    check["routed_token_layers"] = sum(a.shape[0] for a, _ in pairs)
+    return check
+
+
+def phase_moe(ctx: dict) -> None:
+    import gc
+
+    import torch
+
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.models.quant import init_random_quantized_params
+
+    cfg = MODEL_PRESETS["mixtral-8x7b"]
+    ctx.pop("params", None)  # the llama weights: the card holds one model at a time
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated() / 2**30
+    g = torch.Generator(device="cuda").manual_seed(ctx["seed"])
+    t0 = time.monotonic()
+    params = init_random_quantized_params(cfg, g, device="cuda")
+    torch.cuda.synchronize()
+    log(f"mixtral-8x7b random int8 weights on the card in {time.monotonic() - t0:.1f}s "
+        f"({before:.2f} GiB allocated before, {torch.cuda.memory_allocated() / 2**30:.2f} after)")
+    run = _serve(ctx, cfg, params, [20, 90, 150, 300, 600, 900, 1200, 1500, 3000], 32, **MOE_KW)
+    if run["segments"] != 2:
+        raise AssertionError(f"moe: {run['segments']} segments, expected 2")
+    _require_launches(run, "flash_prefill", "admit_groups", cfg.n_layers)
+    _require_launches(run, "flash_segment", "segments", cfg.n_layers)
+    _require_launches(run, "paged_decode", "decode_steps", cfg.n_layers)
+    if run["peak_memory_gib"] * 2**30 >= 80e9:
+        raise AssertionError(f"moe: peak memory {run['peak_memory_gib']:.2f} GiB is not under 80 GB")
+    run["decode_step_ms"] = _decode_step_ms(torch, cfg, params)
+    log(f"moe mixtral-8x7b int8 weights {json.dumps(run)}")
+    ctx["moe"] = run
+    log(f"model check mixtral-8x7b int8 weights {json.dumps(_moe_model_check(ctx, cfg, params))}")
+    log(f"moe_ffn mixtral-8x7b layer 0 {json.dumps(_moe_ffn_times(torch, ctx, cfg, params))}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_profile(ctx: dict) -> None:
@@ -1250,6 +1575,8 @@ def kernel_record(ctx: dict) -> dict:
             "ragged_decode.cu", "langstream_tpu/ops/attention.py:670", "dense_int8"
         ),
     }
+    # every serving run's launches of each kernel (counts zeroed before each)
+    served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "moe")
     out = []
     for name, (src, replaces, path) in sources.items():
         runs = ctx.get("kernel_runs", {}).get(name)
@@ -1263,6 +1590,7 @@ def kernel_record(ctx: dict) -> dict:
             "source": f"langstream_tpu_torch/ops/csrc/{src}",
             "replaces": replaces,
             "launches": run["kernel_launches"][name] if run else None,
+            "launches_by_phase": {p: ctx[p]["kernel_launches"][name] for p in served if p in ctx},
             "max_abs_err": max(r["max_abs_err"] for r in runs),
             "ms": main["ms"],
             "plain_ms": main["plain_ms"],

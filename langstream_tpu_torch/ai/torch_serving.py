@@ -4,23 +4,32 @@
 ``TorchCompletionsService`` takes a ``tpu-serving`` resource config and
 honours the keys this slice serves:
 
-  model: preset name (models.configs.MODEL_PRESETS), default tiny-test
+  model: preset name (models.configs.MODEL_PRESETS), default tiny-test;
+    Llama-family and Mixtral (MoE) presets
   weights: "random" (the only value yet; checkpoint loading waits for the
     loader slice) — drawn on the device from ``seed`` (default 0)
+  quantization: "int8" → weight-only int8 (per-output-channel scales; the
+    random int8 tree is drawn straight on the device, so a model whose
+    bf16 tree would not fit — mixtral-8x7b — never exists in bf16);
+    "" / "none" → model dtype. Any other value raises ValueError
   max-batch / decode-chunk / page-size: engine knobs (8 / 16 / 64)
   max-seq-len: the engine's sequence limit (default min(2048, the preset's
     max_seq_len), as in the JAX provider)
   prefill-buckets: admit-group prompt widths (default 32, 64, …, 2048);
     the widest is also the chunked-prefill segment width
-  kv-layout: "paged" (default) → one page pool; prompts wider than the
-    widest bucket are refused. "dense" → a per-slot big cache; prompts
+  kv-layout: "paged" (default) → one page pool; "dense" → a per-slot big
+    cache, decode reads it with the dense decode kernels. On both, prompts
     wider than the widest bucket (up to max-seq-len - 1) prefill in
-    segments of that width (the segment kernels), decode reads the cache
-    with the dense decode kernels. Any other value raises ValueError.
+    segments of that width (the segment kernels; paged: straight into the
+    request's pages). Any other value raises ValueError.
   kv-cache-quantization: "int8" → int8 KV with per-token per-head scales
     (the int8 decode / segment kernels); "" / "none" → model dtype
   tokenizer: "byte" (the only value yet)
   device: "cuda" (default) or "cpu"
+
+A config the CUDA kernels cannot take on the device (a model dtype other
+than bfloat16 on the card, unless ``attention_impl`` is "jnp") raises
+ValueError when the service is built, before any request.
 
 Completions stream text through the tokenizer with the reference
 provider's growth batching (1, 2, 4, … tokens per chunk). Wiring into the
@@ -48,6 +57,8 @@ from langstream_tpu_torch.ai.provider import (
 from langstream_tpu_torch.device import resolve_device
 from langstream_tpu_torch.models.bridge import init_params
 from langstream_tpu_torch.models.configs import MODEL_PRESETS, GenerationOptions, ModelConfig
+from langstream_tpu_torch.models.quant import init_random_quantized_params
+from langstream_tpu_torch.ops.attention import kernel_path_ok
 from langstream_tpu_torch.serving.engine import PREFILL_BUCKETS, GenerationRequest, ServingEngine
 from langstream_tpu_torch.serving.tokenizer import get_tokenizer
 
@@ -126,6 +137,10 @@ class TorchCompletionsService(CompletionsService):
         if layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv-layout {layout!r}; supported: paged, dense")
         self.kv_layout = layout
+        quant = str(self.resource.get("quantization", "") or "").lower()
+        if quant not in ("", "none", "int8"):
+            raise ValueError(f"unknown quantization {quant!r}; supported: int8, none")
+        self.quantize = quant == "int8"
         self.model_config = model_config_from(self.resource)
         self.max_seq_len = int(
             self.resource.get("max-seq-len", min(2048, self.model_config.max_seq_len))
@@ -134,6 +149,7 @@ class TorchCompletionsService(CompletionsService):
             int(b) for b in self.resource.get("prefill-buckets", PREFILL_BUCKETS)
         )
         self.device = resolve_device(self.resource.get("device", "cuda"))
+        kernel_path_ok(self.model_config, self.device)  # raises for what the kernels refuse
         self.tokenizer = get_tokenizer(self.resource.get("tokenizer", "byte"))
         self._lock = threading.Lock()
         self._engine: Optional[ServingEngine] = None
@@ -143,7 +159,8 @@ class TorchCompletionsService(CompletionsService):
             if self._engine is None:
                 gen = torch.Generator(device=self.device)
                 gen.manual_seed(int(self.resource.get("seed", 0)))
-                params = init_params(self.model_config, gen, device=self.device)
+                init = init_random_quantized_params if self.quantize else init_params
+                params = init(self.model_config, gen, device=self.device)
                 engine = ServingEngine(
                     self.model_config,
                     params,

@@ -44,10 +44,8 @@ def _tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
 def params_from_numpy(tree: Any, config: ModelConfig, device: DeviceLike = "cuda") -> Params:
     """JAX param pytree as numpy arrays → the port's dict of tensors on
     ``device``, same nesting and layout (int8 ``{"q","s"}`` leaves stay
-    dicts)."""
+    dicts; an MoE tree keeps its ``router`` and 4-D stacked experts)."""
     dev = resolve_device(device)
-    if config.is_moe:
-        raise NotImplementedError("MoE configs are not ported yet")
 
     def convert(node: Any) -> Any:
         if isinstance(node, dict):
@@ -70,10 +68,10 @@ def init_params(
 ) -> Params:
     """Random-init params with the JAX ``init_params`` shapes and scales
     (N(0,1)·fan_in^-0.5, norms at one), drawn layer by layer straight into
-    the model dtype so no full-size float32 temporary is ever live."""
+    the model dtype so no full-size float32 temporary is ever live. An MoE
+    config draws a ``router`` [L, D, E] (model dtype) and stacked experts
+    ``w_gate`` / ``w_up`` [L, E, D, F], ``w_down`` [L, E, F, D]."""
     dev = resolve_device(device)
-    if config.is_moe:
-        raise NotImplementedError("MoE configs are not ported yet")
     dtype = torch_dtype(config.dtype)
     d, h, hkv = config.d_model, config.n_heads, config.n_kv_heads
     hd = config.resolved_head_dim
@@ -85,23 +83,28 @@ def init_params(
             * scale**-0.5
         ).to(dtype)
 
-    def stacked(rows: int, cols: int, scale: int) -> torch.Tensor:
-        out = torch.empty((n_layers, rows, cols), dtype=dtype, device=dev)
+    def stacked(*shape: int, scale: int) -> torch.Tensor:
+        out = torch.empty((n_layers,) + shape, dtype=dtype, device=dev)
         for layer in range(n_layers):
-            out[layer] = norm((rows, cols), scale)
+            out[layer] = norm(shape, scale)
         return out
+
+    # an MoE layer's FFN weights carry a leading expert axis
+    experts = (config.n_experts,) if config.is_moe else ()
 
     layers = {
         "attn_norm": torch.ones((n_layers, d), dtype=dtype, device=dev),
-        "wq": stacked(d, h * hd, d),
-        "wk": stacked(d, hkv * hd, d),
-        "wv": stacked(d, hkv * hd, d),
-        "wo": stacked(h * hd, d, h * hd),
+        "wq": stacked(d, h * hd, scale=d),
+        "wk": stacked(d, hkv * hd, scale=d),
+        "wv": stacked(d, hkv * hd, scale=d),
+        "wo": stacked(h * hd, d, scale=h * hd),
         "ffn_norm": torch.ones((n_layers, d), dtype=dtype, device=dev),
-        "w_gate": stacked(d, f, d),
-        "w_up": stacked(d, f, d),
-        "w_down": stacked(f, d, f),
+        "w_gate": stacked(*experts, d, f, scale=d),
+        "w_up": stacked(*experts, d, f, scale=d),
+        "w_down": stacked(*experts, f, d, scale=f),
     }
+    if config.is_moe:
+        layers["router"] = stacked(d, config.n_experts, scale=d)
     params: Params = {
         "embed": norm((v, d), d),
         "layers": layers,

@@ -33,10 +33,11 @@ class ModelConfig:
     embedding_scale: bool = False  # multiply embeddings by sqrt(d_model)
     attn_logit_softcap: Optional[float] = None
     final_logit_softcap: Optional[float] = None
-    # MoE (mixtral-style); n_experts=0 → dense FFN. The port raises
-    # NotImplementedError for MoE configs until moe_ffn is ported.
+    # MoE (mixtral-style); n_experts=0 → dense FFN
     n_experts: int = 0
     n_experts_per_tok: int = 2
+    # expert capacity = ceil(T*k*factor/E) (≤0 → lossless C=T)
+    moe_capacity_factor: float = 2.0
     dtype: str = "bfloat16"
     # "auto" | "pallas" → kernel path; "jnp" → gathered reference attention
     attention_impl: str = "auto"

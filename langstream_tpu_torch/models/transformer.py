@@ -1,14 +1,16 @@
-"""Decoder-only transformer (Llama family) in PyTorch — the port of
-``langstream_tpu/models/transformer.py`` for the serving main path.
+"""Decoder-only transformer (Llama and Mixtral families) in PyTorch — the
+port of ``langstream_tpu/models/transformer.py`` for the serving main path.
 
 Layout follows the JAX package so the two can be compared tensor for tensor:
 stacked per-layer params ``[L, ...]`` in a dict (a Python loop over layers
 replaces ``lax.scan``), head-major KV caches ``[L, B, Hkv, T, D]`` and a
 page pool ``[L, P + 1, Hkv, page_size, D]`` (int8 caches are
 ``{"q": int8, "s": f32}`` dicts with per-token scales). Two KV layouts are
-served: the paged pool (``paged_decode_step_inplace``) and the dense
-per-slot cache (``prefill_segment`` for chunked prefill,
-``decode_step_inplace`` for decode).
+served: the paged pool (``paged_prefill_segment_inplace`` for chunked
+prefill, ``paged_decode_step_inplace`` for decode) and the dense per-slot
+cache (``prefill_segment`` for chunked prefill, ``decode_step_inplace`` for
+decode). A config with ``n_experts > 0`` takes ``moe_ffn`` (Mixtral-style
+top-k routing with a capacity limit) in place of the dense FFN.
 
 Differences from the JAX package:
 
@@ -33,8 +35,14 @@ Differences from the JAX package:
   (on the card, and its plain version on the CPU). The JAX package keeps
   it opt-in (``"pallas"``) because XLA's masked read beat it on a TPU;
   ``chip_smoke.py`` times that masked read beside the kernel on the H100.
+- A paged segment on the kernel path gathers the pages it can read into a
+  contiguous temporary and runs the segment kernel on it; the JAX package
+  reads the whole gathered table with its reference attention there.
+- ``moe_ffn`` computes the JAX package's function without its ``[T, k, E,
+  C]`` one-hots: rows scatter into per-expert buffers, the expert FFN runs
+  as batched matmuls over the experts, outputs gather back.
 
-Not ported yet: MoE, the verify entry points, LoRA, ring attention and
+Not ported yet: the verify entry points, LoRA, ring attention and
 ``encode``.
 """
 
@@ -66,11 +74,6 @@ Params = dict
 KVCache = dict
 
 _NEG = -1e30
-
-
-def _check_dense(config: ModelConfig) -> None:
-    if config.is_moe:
-        raise NotImplementedError("MoE configs are not ported to PyTorch yet")
 
 
 def _map(fn, entry):
@@ -263,6 +266,66 @@ def dense_ffn(x: torch.Tensor, lp: dict, config: ModelConfig) -> torch.Tensor:
     return quantized_matmul(gate * up, lp["w_down"])
 
 
+def moe_capacity(tokens: int, config: ModelConfig) -> int:
+    """Rows of each expert's buffer for ``tokens`` routed tokens: ``ceil(T *
+    k * factor / E)``, floored at ``min(T, 64)`` so small decode batches
+    drop nothing, at most T; ``factor <= 0`` is lossless (C = T)."""
+    factor = config.moe_capacity_factor
+    if not factor or factor <= 0:
+        return tokens
+    e, k = config.n_experts, config.n_experts_per_tok
+    return min(tokens, max(math.ceil(tokens * k * factor / e), min(tokens, 64)))
+
+
+def _expert_matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """``x [E, C, in] @ w [E, in, out]`` batched over the experts. An int8
+    ``w`` multiplies its integer values (exact in the activation dtype) and
+    applies the per-output-channel scale after the product — ``(x @ q) *
+    s`` is ``x @ (q * s)`` up to rounding — so the layer's experts are
+    widened to the activation dtype, never to an f32 copy."""
+    if is_quantized(w):
+        return (torch.bmm(x, w["q"].to(x.dtype)) * w["s"]).to(x.dtype)
+    return torch.bmm(x, w)
+
+
+def moe_ffn(x: torch.Tensor, lp: dict, config: ModelConfig) -> torch.Tensor:
+    """Mixture of experts, the function of the JAX package's ``moe_ffn``:
+    f32 router logits, top-k experts per token with a softmax over their k
+    logits, and a capacity of ``moe_capacity(T)`` rows per expert filled in
+    token-major order — a (token, slot) past its expert's capacity is
+    dropped and adds 0. Each kept row is scattered into its expert's buffer
+    ``[E, C + 1, D]`` (row C takes the dropped ones and is never read), the
+    expert FFN runs as three batched matmuls over the experts, and each
+    token sums its kept outputs weighted by their routing weights (in f32,
+    rounded once). Linear in T; the same value as the JAX package's
+    one-hot einsums up to summation order."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = config.n_experts, config.n_experts_per_tok
+    xf = x.reshape(t, d)
+    logits = torch.matmul(xf, lp["router"]).float()  # [T, E]
+    weights, chosen = torch.topk(logits, k, dim=-1)  # [T, k]
+    weights = torch.softmax(weights, dim=-1)
+    capacity = moe_capacity(t, config)
+    # place of each (token, slot) in its expert's buffer: earlier (token,
+    # slot)s routed to the same expert, in token-major order
+    flat = chosen.reshape(t * k, 1)
+    onehot = torch.zeros((t * k, e), dtype=torch.int32, device=x.device).scatter_(1, flat, 1)
+    pos = (onehot.cumsum(0) - 1).gather(1, flat).reshape(t, k).long()
+    keep = pos < capacity
+    slot = torch.where(keep, pos, torch.full_like(pos, capacity))  # dropped → row C
+    buf = xf.new_zeros((e, capacity + 1, d))
+    buf[chosen, slot] = xf[:, None, :].expand(t, k, d)
+    expert_in = buf[:, :capacity]
+    gate = _activation(_expert_matmul(expert_in, lp["w_gate"]), config.activation)
+    up = _expert_matmul(expert_in, lp["w_up"])
+    expert_out = _expert_matmul(gate * up, lp["w_down"])  # [E, C, D]
+    picked = expert_out[chosen, slot.clamp_max(capacity - 1)]  # [T, k, D]
+    combine = weights.to(x.dtype).float()[..., None]  # the weights in the model dtype
+    mixed = torch.where(keep[..., None], picked.float() * combine, torch.zeros((), device=x.device))
+    return mixed.sum(dim=1).to(x.dtype).reshape(b, s, d)
+
+
 # ---------------------------------------------------------------------------
 # KV caches and the paged pool
 # ---------------------------------------------------------------------------
@@ -379,6 +442,29 @@ def _paged_gather_entry(entry, table: torch.Tensor, page_size: int):
     return _map(gather, entry)
 
 
+def _page_rows(pages: torch.Tensor, n_kv_heads: int) -> torch.Tensor:
+    """Rows of a pool entry viewed as ``[(P + 1) * Hkv, ps, ...]`` (one row:
+    one kv head's slice of a page) that hold the pages ``pages`` [B, n]
+    (physical, in range), flattened in [B, Hkv, n] order."""
+    hidx = torch.arange(n_kv_heads, device=pages.device)[None, :, None]
+    return (pages.long()[:, None, :] * n_kv_heads + hidx).reshape(-1)
+
+
+def _gather_pages(entry, rows: torch.Tensor, batch: int):
+    """The pool rows ``rows`` (``_page_rows``) of a pool entry [P + 1, Hkv,
+    ps, D] (or its int8 dict, scales alike) copied into one contiguous
+    [B, Hkv, n*ps, D] temporary: the kernel path's read of a paged
+    segment's prefix. One ``index_select`` of whole contiguous rows per
+    leaf (a page of one head: 16 KB in bf16 at ps 64, D 128), no copy of
+    the table's other pages."""
+
+    def gather(a: torch.Tensor) -> torch.Tensor:
+        g = a.reshape((-1,) + tuple(a.shape[2:])).index_select(0, rows)  # [B*Hkv*n, ps, ...]
+        return g.reshape((batch, a.shape[1], -1) + tuple(a.shape[3:]))
+
+    return _map(gather, entry)
+
+
 def _paged_mask(table: torch.Tensor, page_size: int, positions: torch.Tensor) -> torch.Tensor:
     """Causal mask over the gathered paged view: logical column t of slot b
     is visible to query j iff t <= positions[b, j]."""
@@ -406,7 +492,8 @@ def _layer(
     cache_kv: Optional[tuple] = None,
     cache_index: Optional[tuple] = None,  # dense scatter index (_dense_index)
     causal: bool = True,
-    paged: Optional[tuple] = None,  # (table [B, Tp] i32, page_size, lengths, scatter index)
+    # (table [B, Tp] i32, page_size, lengths, scatter index, segment read)
+    paged: Optional[tuple] = None,
     kv_offset: Optional[torch.Tensor] = None,
     kv_bound: Optional[int] = None,
     lengths: Optional[torch.Tensor] = None,
@@ -416,9 +503,13 @@ def _layer(
     are written at ``cache_index`` and attention runs over the cache
     (``_dispatch_attention``: ``kv_offset`` for a segment, ``lengths`` for
     decode, ``kv_bound`` readable columns). With ``paged`` the cache entries
-    are per-layer page-pool entries: K/V scatter into the slot's pages and
-    single-token steps read through the table with the paged decode kernel
-    (else the gathered reference view)."""
+    are per-layer page-pool entries and K/V scatter into the slot's pages;
+    on the kernel path a segment (a segment read: the pool rows of the
+    pages it can read, ``_page_rows``, and its readable columns) runs the
+    segment kernel over those pages gathered at ``kv_offset``, a
+    single-token step reads through the table with the paged decode
+    kernel; the reference path reads the gathered table. The FFN is
+    ``moe_ffn`` for an MoE config, else ``dense_ffn``."""
     b, s, _ = x.shape
     hd = config.resolved_head_dim
 
@@ -431,11 +522,17 @@ def _layer(
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # [B, Hkv, S, D]
 
     if paged is not None:
-        table, page_size, lengths, index = paged
+        table, page_size, lengths, index, segment = paged
         ck, cv = cache_kv
         _scatter_at(ck, kt, index)
         _scatter_at(cv, vt, index)
-        if s == 1 and kernel_path_ok(config, x.device):
+        if segment is not None:
+            rows, bound = segment
+            attn = _dispatch_attention(
+                q, _gather_pages(ck, rows, b), _gather_pages(cv, rows, b), None, config, True,
+                kv_offset=kv_offset, kv_bound=bound,
+            )
+        elif s == 1 and kernel_path_ok(config, x.device):
             kernel = (
                 ragged_paged_decode_attention_int8
                 if isinstance(ck, dict)
@@ -460,7 +557,8 @@ def _layer(
         )
     x = x + quantized_matmul(attn, lp["wo"])
     ffn_in = rms_norm(x, lp["ffn_norm"], config.rms_norm_eps)
-    return x + dense_ffn(ffn_in, lp, config)
+    ffn = moe_ffn if config.is_moe else dense_ffn
+    return x + ffn(ffn_in, lp, config)
 
 
 def _embed(params: Params, tokens: torch.Tensor, config: ModelConfig) -> torch.Tensor:
@@ -499,7 +597,6 @@ def _cache_layer(cache: KVCache, i: int) -> tuple:
 @torch.no_grad()
 def forward(params: Params, tokens: torch.Tensor, config: ModelConfig) -> torch.Tensor:
     """Full-sequence causal forward → logits [B, S, V] (scoring)."""
-    _check_dense(config)
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, device=dev).expand(b, s)
@@ -523,7 +620,6 @@ def prefill(
 ) -> tuple[torch.Tensor, KVCache]:
     """Process prompts, fill cache columns 0..S (in place), return logits at
     the last real token of each prompt ([B, V])."""
-    _check_dense(config)
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, device=dev).expand(b, s)
@@ -562,7 +658,6 @@ def prefill_segment(
     (positions past the cache land in its last, sink column) and attends
     causally over prefix + segment. Returns logits at the last real token
     of the segment ([B, V]) — meaningful only on the final segment."""
-    _check_dense(config)
     b, s = tokens.shape
     dev = tokens.device
     positions = offsets.long()[:, None] + torch.arange(s, device=dev)[None, :]  # [B, W]
@@ -601,7 +696,6 @@ def decode_step_inplace(
     attends to columns [0, position] of the ``[..., :kv_bound]`` view; the
     kernel reads exactly that (its length is clamped to the view), so the
     bound only narrows the reference path's masked read."""
-    _check_dense(config)
     pos2 = positions.long()[:, None]  # [B, 1]
     dev = tokens.device
     sin, cos = _rope_freqs(pos2, config)
@@ -661,7 +755,6 @@ def paged_decode_step_inplace(
     """One decode step through the page table → logits [B, V]; the pool is
     updated in place. Each row reads exactly its mapped pages up to its
     length (position + 1)."""
-    _check_dense(config)
     positions = positions.long()
     pos2 = positions[:, None]
     sin, cos = _rope_freqs(pos2, config)
@@ -676,9 +769,65 @@ def paged_decode_step_inplace(
     for i in range(config.n_layers):
         x = _layer(
             x, _layer_params(params["layers"], i), sin, cos, mask, config,
-            cache_kv=_cache_layer(pool, i), paged=(table, page_size, lengths, index),
+            cache_kv=_cache_layer(pool, i), paged=(table, page_size, lengths, index, None),
         )
     return _unembed(params, x, config)[:, 0], pool
+
+
+@torch.no_grad()
+def paged_prefill_segment_inplace(
+    params: Params,
+    tokens: torch.Tensor,  # [B, W] one padded prompt segment per row
+    offsets: torch.Tensor,  # [B] global position of each row's segment start
+    seg_lengths: torch.Tensor,  # [B] true token count within the segment
+    pool: KVCache,  # page pool [L, P + 1, Hkv, ps, D]
+    table: torch.Tensor,  # [B, Tp] physical page per logical page
+    config: ModelConfig,
+    page_size: int,
+    kv_bound: Optional[int] = None,  # readable columns: max(offsets) + W when None
+) -> tuple[torch.Tensor, KVCache]:
+    """Chunked prefill straight into the slots' pages: the segment's K/V
+    scatter at global positions [offsets, offsets + W) through the table
+    (unmapped pages into the sink) and attention reads the prefix through
+    the table; the pool is updated in place. Returns logits at the last
+    real token of each row's segment ([B, V]) — meaningful only on a
+    prompt's final segment. On the kernel path the pages below
+    ``min(kv_bound, Tp * ps)`` are gathered and the segment kernel reads
+    them through a ``[..., :bound]`` view, so nothing past the widest
+    row's frontier is read; ``kv_bound`` None derives it from ``offsets``
+    (a device sync where they lie on the card). The reference path reads
+    the whole gathered table under the causal mask."""
+    b, s = tokens.shape
+    dev = tokens.device
+    offsets = offsets.long()
+    positions = offsets[:, None] + torch.arange(s, device=dev)[None, :]  # [B, W]
+    sin, cos = _rope_freqs(positions, config)
+    table = table.to(torch.int32).contiguous()
+    sink = pool_pages(pool)
+    mask, segment = None, None
+    if kernel_path_ok(config, dev):
+        if kv_bound is None:
+            kv_bound = int(offsets.max()) + s
+        bound = min(kv_bound, table.shape[1] * page_size)
+        pages = table[:, : -(-bound // page_size)].long().clamp(0, sink)
+        # one row index per segment serves every layer's gather
+        segment = (_page_rows(pages, config.n_kv_heads), bound)
+    else:
+        mask = _paged_mask(table, page_size, positions)
+    # one page lookup per segment serves every layer's K/V scatter
+    index = _scatter_index(table, positions, page_size, sink, config.n_kv_heads)
+    kv_offset = offsets.to(torch.int32).contiguous()
+    x = _embed(params, tokens, config)
+    for i in range(config.n_layers):
+        x = _layer(
+            x, _layer_params(params["layers"], i), sin, cos, mask, config,
+            cache_kv=_cache_layer(pool, i), paged=(table, page_size, None, index, segment),
+            kv_offset=kv_offset,
+        )
+    last = (seg_lengths.long() - 1).clamp(0, s - 1)
+    x_last = x[torch.arange(b, device=dev), last]  # [B, D]
+    logits = _unembed(params, x_last[:, None, :], config)[:, 0]
+    return logits, pool
 
 
 @torch.no_grad()

@@ -57,19 +57,24 @@ def kernel_path_ok(config: ModelConfig, device: torch.device) -> bool:
     ``"pallas"`` take the kernel path: the kernel's plain version on the
     CPU, and on the card the CUDA kernel at ANY prompt length (the TPU's
     128-multiple tiling rule does not apply) — which needs compute
-    capability >= 9.0 and a head dim the kernels are built for. A card
+    capability >= 9.0, a head dim the kernels are built for and a bf16
+    model (the kernels take bf16 activations only). A card or a config
     that cannot take the kernel raises instead of quietly running the
-    reference path; ask for ``attention_impl="jnp"`` to run it there.
-    Every layer of every step asks, so the answer is decided once per
-    (config fields, device) and cached."""
+    reference path; ask for ``attention_impl="jnp"`` to run it there. The
+    engine and the provider ask once when they are built, so such a
+    config is refused before any request. Every layer of every step asks
+    too, so the answer is decided once per (config fields, device) and
+    cached."""
     return _kernel_gate(
         config.attention_impl, config.resolved_head_dim, config.n_heads,
-        config.n_kv_heads, torch.device(device),
+        config.n_kv_heads, str(config.dtype), torch.device(device),
     )
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_gate(impl: str, head_dim: int, h: int, hkv: int, device: torch.device) -> bool:
+def _kernel_gate(
+    impl: str, head_dim: int, h: int, hkv: int, dtype: str, device: torch.device
+) -> bool:
     if impl not in ("auto", "pallas", "jnp"):
         raise ValueError(f"unknown attention_impl {impl!r}; supported: auto, pallas, jnp")
     if impl == "jnp":
@@ -77,6 +82,12 @@ def _kernel_gate(impl: str, head_dim: int, h: int, hkv: int, device: torch.devic
     if device.type == "cpu":
         return True
     what = f"attention_impl={impl!r}"
+    if dtype != "bfloat16":
+        raise ValueError(
+            f"{what}: the CUDA kernels take bfloat16 models, this config's dtype is "
+            f"{dtype!r}; serve it with attention_impl=\"jnp\" (the reference attention) "
+            "or in bfloat16"
+        )
     _require_cuda_kernel(device, head_dim, what)
     _require_group(h, hkv, what)
     return True

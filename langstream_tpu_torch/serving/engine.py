@@ -2,32 +2,42 @@
 ``langstream_tpu/serving/engine.py``'s ``ServingEngine``.
 
 One engine thread owns the device. Each iteration (``_iterate``) first
-drives the chunked-prefill streams (dense layout), then admits a
-token-budgeted slice of queued requests — batched per prompt bucket into
-admit groups: a prefill into a local cache, the first sample, and the
-insert of that cache into each row's reserved pages (paged) or into the
-slot's row of the big cache (dense) — then dispatches one decode chunk of
-``decode_chunk`` fused decode+sample steps. Sampled tokens stay on the
-device and feed the next step; the host receives them through a
-pinned-memory copy fenced by a CUDA event, so chunk k+1 is queued on the
-stream while chunk k's tokens are still on their way (the JAX engine's
-depth-1 pipeline).
+drives the chunked-prefill streams, then admits a token-budgeted slice of
+queued requests — batched per prompt bucket into admit groups: a prefill
+into a local cache, the first sample, and the insert of that cache into
+each row's reserved pages (paged) or into the slot's row of the big cache
+(dense) — then dispatches one decode chunk of ``decode_chunk`` fused
+decode+sample steps. Sampled tokens stay on the device and feed the next
+step; the host receives them through a pinned-memory copy fenced by a CUDA
+event, so chunk k+1 is queued on the stream while chunk k's tokens are
+still on their way (the JAX engine's depth-1 pipeline).
+
+On both layouts a prompt wider than the largest bucket (up to
+``max_seq_len - 1`` tokens) goes to a long queue and prefills in segments
+of that width, at most ``MAX_PREFILL_STREAMS`` streams at once, one
+segment per stream per iteration, with decode chunks interleaving; the
+final segment samples the first token and seeds the slot's decode chain.
 
 ``kv_layout="paged"`` (default): one page pool; pages are reserved in full
-at admission and released when a request finishes; prompts wider than the
-largest bucket raise at ``submit``. ``kv_layout="dense"``: a big cache
-``[L, max_batch, Hkv, max_seq_len + 1, D]`` (the extra column is the write
-sink of slots that ran past ``max_seq_len``); decode chunks read it through
-a ``[..., :kv_bound]`` view; prompts wider than the largest bucket go to a
-long queue and prefill in segments of that width into a batch-1 local
-cache (``prefill_segment``), at most ``MAX_PREFILL_STREAMS`` streams at
-once, one segment per stream per iteration, with decode chunks
-interleaving; the final segment samples the first token and inserts the
-local cache into the slot's row.
+(prompt plus ``max_new_tokens``) at admission, or when a long prompt's
+stream starts, and released when a request finishes or is cancelled; a
+reservation the pool cannot cover now waits, one it can never cover ends
+with ``ShedError``. A long prompt's segments write straight into the
+slot's pages (``paged_prefill_segment_inplace``). ``kv_layout="dense"``: a
+big cache ``[L, max_batch, Hkv, max_seq_len + 1, D]`` (the extra column is
+the write sink of slots that ran past ``max_seq_len``); decode chunks read
+it through a ``[..., :kv_bound]`` view; a long prompt's segments go into a
+batch-1 local cache (``prefill_segment``), inserted into the slot's row
+after the final one.
 
-Not ported yet (later slices): chunked prefill on the paged layout,
-request lifecycle (deadlines, drain, crash recovery), prefix reuse,
-speculation, tenancy, adapters, grammars, SPMD and the fetch thread.
+An MoE model's logits depend on the other rows of its batch (the experts'
+capacity is shared), so its admit groups are padded to ``PREFILL_BATCH``
+rows with the JAX engine's pad rows (token 0, length 1): the same groups
+give the same tokens.
+
+Not ported yet (later slices): request lifecycle (deadlines, drain, crash
+recovery), prefix reuse, speculation, tenancy, adapters, grammars, SPMD
+and the fetch thread.
 """
 
 from __future__ import annotations
@@ -52,10 +62,11 @@ from langstream_tpu_torch.models.transformer import (
     make_kv_cache,
     paged_decode_step_inplace,
     paged_insert_cache,
+    paged_prefill_segment_inplace,
     prefill,
     prefill_segment,
 )
-from langstream_tpu_torch.ops.attention import kernel_counts
+from langstream_tpu_torch.ops.attention import kernel_counts, kernel_path_ok
 from langstream_tpu_torch.serving.pagepool import PagePool, default_num_pages
 from langstream_tpu_torch.serving.sampling import sample
 
@@ -73,6 +84,13 @@ class ShedError(RuntimeError):
 
 class LogitsNaNError(RuntimeError):
     """A slot's logits went non-finite; its request fails."""
+
+
+def _rows(entry, n: int):
+    """The first ``n`` batch rows of a cache [L, B, ...] (or its int8 dict)."""
+    if isinstance(entry, dict):
+        return {k: v[:, :n] for k, v in entry.items()}
+    return entry[:, :n]
 
 
 @dataclass
@@ -166,11 +184,12 @@ class _Fetch:
 class ServingEngine:
     """One engine per model; owns the device loop (paged or dense KV layout)."""
 
-    # rows per admit group (one prefill call)
+    # rows per admit group (one prefill call; an MoE model's groups are
+    # padded to it)
     PREFILL_BATCH = 8
-    # dense layout: long prompts waiting for a chunked-prefill stream before
-    # the next one is held back (so submit's queue bound still engages), and
-    # streams prefilling at once (each holds one long local cache)
+    # long prompts waiting for a chunked-prefill stream before the next one
+    # is held back (so submit's queue bound still engages), and streams
+    # prefilling at once (dense: each holds one long local cache)
     LONG_QUEUE_CAP = 8
     MAX_PREFILL_STREAMS = 2
 
@@ -189,11 +208,12 @@ class ServingEngine:
         kv_layout: str = "paged",
         device: DeviceLike = "cuda",
     ) -> None:
-        if config.is_moe:
-            raise NotImplementedError("MoE configs are not ported to PyTorch yet")
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; supported: paged, dense")
         self.device = resolve_device(device)
+        # a config the kernels cannot take on this device (a non-bf16 model
+        # on the card) raises here, before anything is allocated
+        kernel_path_ok(config, self.device)
         self.config = config
         self.params = params
         self.max_batch = int(max_batch)
@@ -229,9 +249,9 @@ class ServingEngine:
             self._cache = make_kv_cache(
                 config, self.max_batch, self.max_seq_len + 1, device=self.device
             )
-        # chunked-prefill streams (dense): queued long requests, one held
-        # back when that queue is full, and the active streams by slot
-        # (request, next segment, local cache)
+        # chunked-prefill streams: queued long requests, one held back when
+        # that queue is full, and the active streams by slot (request, next
+        # segment; dense: its local cache)
         self._long_queue: list[GenerationRequest] = []
         self._held_back: Optional[GenerationRequest] = None
         self._longs: dict[int, dict] = {}
@@ -301,12 +321,6 @@ class ServingEngine:
             raise ValueError(
                 f"prompt of {n} tokens exceeds the engine limit of {limit} (max_seq_len - 1)"
             )
-        widest = self.prefill_buckets[-1]
-        if n > widest and self._paged:
-            raise ValueError(
-                f"prompt of {n} tokens is wider than the largest prefill bucket "
-                f"({widest}); chunked prefill runs on the dense KV layout only"
-            )
         self._queue.put(request)
         return request
 
@@ -348,6 +362,8 @@ class ServingEngine:
                 "nan-guard-total": self.nan_guard_total,
                 "cancelled-total": self.cancelled_total,
                 "kv-layout": self.kv_layout,
+                "long-prefill-queued": len(self._long_queue) + (self._held_back is not None),
+                "long-prefill-streams": len(self._longs),
                 # launches of each attention kernel in this process (CUDA)
                 # and calls of its plain version (CPU)
                 "kernels": kernel_counts(),
@@ -367,8 +383,6 @@ class ServingEngine:
                     for e in self._cache.values()
                     for t in (e.values() if isinstance(e, dict) else (e,))
                 ),
-                "long-prefill-queued": len(self._long_queue) + (self._held_back is not None),
-                "long-prefill-streams": len(self._longs),
             })
         return out
 
@@ -441,7 +455,6 @@ class ServingEngine:
         admitted_tokens = 0
         # while deferred admissions wait for pages, only they retry
         allow_new = not self._page_deferred
-        pool = self._pagepool
         widest = self.prefill_buckets[-1]
         # a held-back long request gets first claim on freed long-queue room
         if self._held_back is not None and len(self._long_queue) < self.LONG_QUEUE_CAP:
@@ -465,7 +478,7 @@ class ServingEngine:
                     continue
                 n = len(request.prompt_tokens)
                 if n > widest:
-                    # dense: the chunked-prefill path, its queue bounded so
+                    # the chunked-prefill path, its queue bounded so
                     # submit's backpressure still engages under long traffic
                     if len(self._long_queue) >= self.LONG_QUEUE_CAP:
                         self._held_back = request
@@ -477,17 +490,10 @@ class ServingEngine:
                     admitted_tokens += self._bucket(n)
                     got = True
                     continue
-                need = pool.pages_needed(n, max(1, request.options.max_new_tokens))
-                if need > pool.num_pages:
-                    request._finish(self._result(
-                        request, [], "error",
-                        error=ShedError(
-                            f"request needs {need} KV pages but the pool has only "
-                            f"{pool.num_pages}; raise kv-pages (or lower max-new-tokens)"
-                        ),
-                    ))
-                    continue
-                if not pool.reserve(idx, need):
+                reserved = self._reserve_pages(idx, request)
+                if reserved is None:
+                    continue  # can never fit: resolved with ShedError
+                if not reserved:
                     # pool exhausted: defer (retried first next iteration)
                     self._page_deferred.appendleft(request)
                     allow_new = False
@@ -508,10 +514,33 @@ class ServingEngine:
                 entries.extend(self._prefill_group(width, group[start:start + self.PREFILL_BATCH]))
         return entries
 
+    def _reserve_pages(self, idx: int, request: GenerationRequest) -> Optional[bool]:
+        """Reserve slot ``idx``'s worst-case pages (prompt plus
+        max_new_tokens): True when bound, False when the pool cannot cover
+        them now (slot untouched), None when it never can — the request is
+        then resolved with ``ShedError``."""
+        pool = self._pagepool
+        need = pool.pages_needed(
+            len(request.prompt_tokens), max(1, request.options.max_new_tokens)
+        )
+        if need > pool.num_pages:
+            request._finish(self._result(
+                request, [], "error",
+                error=ShedError(
+                    f"request needs {need} KV pages but the pool has only "
+                    f"{pool.num_pages}; raise kv-pages (or lower max-new-tokens)"
+                ),
+            ))
+            return None
+        return pool.reserve(idx, need)
+
     def _prefill_group(self, width: int, group: list[tuple[int, GenerationRequest]]) -> list[tuple]:
         """One admit group: every (slot, request) pair of one prompt bucket,
-        prompts right-padded with zeros to the bucket width."""
-        n = len(group)
+        prompts right-padded with zeros to the bucket width. An MoE model's
+        group also gets pad rows (token 0, length 1) up to PREFILL_BATCH,
+        as the JAX engine pads every group: the rows share the experts'
+        capacity, so the same rows give the same logits."""
+        n = self.PREFILL_BATCH if self.config.is_moe else len(group)
         tokens = np.zeros((n, width), np.int64)
         lengths = np.ones(n, np.int64)
         temps = np.zeros(n, np.float32)
@@ -527,7 +556,7 @@ class ServingEngine:
             top_ks[j] = request.options.top_k
             top_ps[j] = request.options.top_p
             slots[j] = idx
-        first = self._dev_prefill(tokens, lengths, temps, top_ks, top_ps, slots)
+        first = self._dev_prefill(tokens, lengths, temps, top_ks, top_ps, slots, len(group))
         for idx, request in group:
             slot = self._slots[idx]
             slot.request = request
@@ -536,15 +565,16 @@ class ServingEngine:
             slot.started_at = started
             slot.first_token_at = 0.0
         with self._stats_lock:
-            self.total_requests += n
+            self.total_requests += len(group)
             self.admit_groups_total += 1
-            self.prefill_tokens_total += int(lengths.sum())
+            self.prefill_tokens_total += sum(len(r.prompt_tokens) for _, r in group)
         return [("prefill", _Fetch(first), list(group), 0)]
 
-    def _dev_prefill(self, tokens, lengths, temps, top_ks, top_ps, slots):
+    def _dev_prefill(self, tokens, lengths, temps, top_ks, top_ps, slots, rows: int):
         """Device layer of an admit group: local-cache prefill, the insert of
-        that cache into each row's pages (paged) or its slot's row of the
-        big cache (dense), then the first sample and the chain seeding."""
+        that cache into each real row's pages (paged) or its slot's row of
+        the big cache (dense), then the first sample and the chain seeding.
+        Rows from ``rows`` on are padding: they prefill and are dropped."""
         dev = self.device
         n, width = tokens.shape
         local = make_kv_cache(self.config, n, width, device=dev)
@@ -552,6 +582,11 @@ class ServingEngine:
             self.params, torch.from_numpy(tokens).to(dev), torch.from_numpy(lengths).to(dev),
             local, self.config,
         )
+        if rows < n:
+            local = {name: _rows(entry, rows) for name, entry in local.items()}
+            logits = logits[:rows]
+            slots, lengths, temps = slots[:rows], lengths[:rows], temps[:rows]
+            top_ks, top_ps = top_ks[:rows], top_ps[:rows]
         if self._paged:
             tables = torch.from_numpy(self._pagepool.tables[slots]).to(dev)
             paged_insert_cache(self._pagepool.dev, local, tables, self.page_size)
@@ -579,7 +614,7 @@ class ServingEngine:
         self._top_p_dev[slots_t] = topp_t
         return first
 
-    # -- chunked prefill (dense layout) ----------------------------------------
+    # -- chunked prefill -------------------------------------------------------
 
     def _long_width(self, prompt_len: int) -> int:
         """Local-cache width of a long prompt: the whole segments that hold
@@ -590,11 +625,13 @@ class ServingEngine:
 
     def _long_step(self, budget: int) -> tuple[list[tuple], int]:
         """Drive the chunked-prefill streams: start streams for queued long
-        requests while free slots and stream capacity allow, then dispatch
-        ONE segment per stream, round-robin, under the iteration's token
-        ``budget`` (at least one segment rides when a stream is active).
-        Returns (first-token fetch entries of finished prompts, prefill
-        tokens dispatched — a segment counts its full width)."""
+        requests while free slots and stream capacity allow (paged: once
+        the request's whole reservation is bound — a pool that cannot cover
+        it yet leaves the request at the front of the long queue), then
+        dispatch ONE segment per stream, round-robin, under the iteration's
+        token ``budget`` (at least one segment rides when a stream is
+        active). Returns (first-token fetch entries of finished prompts,
+        prefill tokens dispatched — a segment counts its full width)."""
         entries: list[tuple] = []
         spent = 0
         while self._long_queue and len(self._longs) < self.MAX_PREFILL_STREAMS:
@@ -604,7 +641,15 @@ class ServingEngine:
             )
             if free is None:
                 break
-            self._longs[free] = {"idx": free, "request": self._long_queue.pop(0), "seg": 0}
+            request = self._long_queue.pop(0)
+            if self._paged:
+                reserved = self._reserve_pages(free, request)
+                if reserved is None:
+                    continue  # can never fit: resolved with ShedError
+                if not reserved:
+                    self._long_queue.insert(0, request)  # waits for pages
+                    break
+            self._longs[free] = {"idx": free, "request": request, "seg": 0}
         # round-robin, so two streams alternate when the budget covers one
         order = sorted(self._longs)
         start_at = next((j for j, i in enumerate(order) if i > self._long_rr), 0)
@@ -617,18 +662,22 @@ class ServingEngine:
         return entries, spent
 
     def _segment_step(self, st: dict) -> list[tuple]:
-        """Dispatch one segment of one stream: a fresh batch-1 local cache of
-        ``_long_width`` columns plus a sink column on the first segment (the
-        last, padded segment may run past that width), then the segment
-        forward. The final segment also inserts the local cache into the
-        slot's row of the big cache, samples the first token (only the
-        final segment samples: its logits are the prompt's last token's),
-        seeds the decode chain and activates the slot host-side. A
-        cancelled stream ends here, before another segment is spent on it."""
+        """Dispatch one segment of one stream. Paged: the segment forward
+        writes into the slot's reserved pages and reads its prefix through
+        them. Dense: a fresh batch-1 local cache of ``_long_width`` columns
+        plus a sink column on the first segment (the last, padded segment
+        may run past that width), then the segment forward; the final
+        segment inserts the local cache into the slot's row of the big
+        cache. The final segment samples the first token (only it samples:
+        its logits are the prompt's last token's), seeds the decode chain
+        and activates the slot host-side. A cancelled stream ends here,
+        before another segment is spent on it, and frees its pages."""
         request: GenerationRequest = st["request"]
         idx = st["idx"]
         if request.cancelled:
             del self._longs[idx]
+            if self._paged:
+                self._pagepool.free_slot(idx)
             with self._stats_lock:
                 self.cancelled_total += 1
             request._finish(self._result(request, [], "cancelled"))
@@ -640,16 +689,24 @@ class ServingEngine:
         seg = prompt[s0 : s0 + width]
         tokens = torch.zeros((1, width), dtype=torch.long)
         tokens[0, : len(seg)] = torch.tensor(seg)
+        offsets = torch.tensor([s0], device=dev)
+        seg_len = torch.tensor([len(seg)], device=dev)
         # readable columns: segment i never attends past s0 + width (the
         # exact bound, as for decode chunks)
-        t_long = self._long_width(len(prompt))
-        kv_bound = min(s0 + width, t_long)
-        if st["seg"] == 0:
-            st["cache"] = make_kv_cache(self.config, 1, t_long + 1, device=dev)
-        logits, _ = prefill_segment(
-            self.params, tokens.to(dev), torch.tensor([s0], device=dev),
-            torch.tensor([len(seg)], device=dev), st["cache"], self.config, kv_bound=kv_bound,
-        )
+        if self._paged:
+            table = torch.from_numpy(self._pagepool.tables[idx : idx + 1]).to(dev)
+            logits, _ = paged_prefill_segment_inplace(
+                self.params, tokens.to(dev), offsets, seg_len, self._pagepool.dev, table,
+                self.config, self.page_size, kv_bound=s0 + width,
+            )
+        else:
+            t_long = self._long_width(len(prompt))
+            if st["seg"] == 0:
+                st["cache"] = make_kv_cache(self.config, 1, t_long + 1, device=dev)
+            logits, _ = prefill_segment(
+                self.params, tokens.to(dev), offsets, seg_len, st["cache"], self.config,
+                kv_bound=min(s0 + width, t_long),
+            )
         st["seg"] += 1
         with self._stats_lock:
             self.prefill_tokens_total += len(seg)
@@ -658,7 +715,8 @@ class ServingEngine:
             return []  # more segments to go
         del self._longs[idx]
         slots = np.array([idx], np.int64)
-        dense_insert_cache(self._cache, st["cache"], torch.from_numpy(slots).to(dev))
+        if not self._paged:
+            dense_insert_cache(self._cache, st["cache"], torch.from_numpy(slots).to(dev))
         opts = request.options
         first = self._seed_chain(
             logits, slots, np.array([len(prompt)], np.int64),
@@ -828,6 +886,9 @@ class ServingEngine:
         self._dead = error
         doomed: list[GenerationRequest] = list(self._page_deferred) + self._long_queue
         doomed += [st["request"] for st in self._longs.values()]
+        if self._paged:
+            for idx in self._longs:
+                self._pagepool.free_slot(idx)
         if self._held_back is not None:
             doomed.append(self._held_back)
         self._page_deferred.clear()

@@ -171,8 +171,6 @@ def test_streaming_callback_sees_every_token(params, jax_tokens):
 
 def test_cancel_and_limits(params):
     engine = ServingEngine(CFG, params[1], device="cpu", kv_pages=1, **ENGINE_KW)
-    with pytest.raises(ValueError, match="largest prefill bucket"):
-        engine.submit(GenerationRequest(prompt_tokens=[1] * 129, options=GenerationOptions()))
     with pytest.raises(ValueError, match="max_seq_len"):
         engine.submit(GenerationRequest(prompt_tokens=[1] * 256, options=GenerationOptions()))
     engine.start()
@@ -193,6 +191,11 @@ def test_cancel_and_limits(params):
     try:
         engine.submit(req)
         assert req.result(timeout=60).finish_reason == "cancelled"
+        # a prompt wider than the largest bucket (128) is served, in
+        # segments straight into its pages
+        res = engine.generate([1] * 129, GenerationOptions(max_new_tokens=4))
+        assert res.finish_reason == "length" and len(res.tokens) == 4
+        assert engine.stats()["prefill-segments-total"] == 2
     finally:
         engine.stop()
     assert engine._pagepool.pages_in_use == 0
@@ -227,3 +230,21 @@ def test_random_init_engine_runs():
     finally:
         engine.stop()
     assert len(res.tokens) == 5
+
+
+def test_non_bf16_kernel_path_on_cuda_is_refused_at_build(params, monkeypatch):
+    """The CUDA kernels take bf16 models only: a float32 kernel-path config
+    on a CUDA device (here an sm_90 card is pretended) raises when the
+    engine or the provider is built, before any request, and names the way
+    out; attention_impl="jnp" is let through."""
+    from langstream_tpu_torch.ai import torch_serving
+    from langstream_tpu_torch.ops.attention import kernel_path_ok
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda *a: (9, 0))
+    with pytest.raises(ValueError, match="'float32'.*attention_impl=\"jnp\""):
+        ServingEngine(CFG, params[1], device="cuda", **ENGINE_KW)
+    monkeypatch.setitem(torch_serving.MODEL_PRESETS, "tiny-test-f32", CFG)
+    with pytest.raises(ValueError, match="'float32'.*attention_impl=\"jnp\""):
+        torch_serving.TorchCompletionsService({"model": "tiny-test-f32", "device": "cuda"})
+    assert not kernel_path_ok(dataclasses.replace(CFG, attention_impl="jnp"), torch.device("cuda"))
