@@ -46,8 +46,13 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    width and depth (32 layers, bf16, random weights from ``--seed``) on the
    paged layout: 8 requests of 21..1501 byte tokens, greedy, 64 new tokens
    each, with every kernel count set to 0 just before and read just after.
-   Then a reference check on the same weights: prefill and paged decode
-   logits of the kernel path against the reference attention path.
+   Every serving run's decode chunks are CUDA-graph replays (``start()``
+   captures one graph per sampling branch): each run fails unless its
+   replays equal its decode chunks, and its decode kernel's launches must
+   be exactly layers x decode steps (counted per replay); its line
+   reports the captures, replays, capture seconds and the graph pool's
+   bytes. Then a reference check on the same weights: prefill and paged
+   decode logits of the kernel path against the reference attention path.
 4. ``int8``    — a shorter end-to-end run over the int8 page pool (the
    int8 paged decode kernel), counts read the same way.
 5. ``dense``   — the same engine on the dense layout, max_seq_len 8192 (an
@@ -70,7 +75,19 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    planted past a segment's frontier and in the sink page (the kernel
    path's logits must stay bit-equal), and the page gather's time beside
    the segment kernel's for the 2048-token segment at offset 6144.
-8. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
+8. ``graphs``  — the captured decode chunk at full width: for paged bf16,
+   paged int8 (max_seq_len 2048) and dense bf16 (8192 wide), 7 requests
+   admitted by hand, one chunk, an 8th admitted, then one replay against
+   a direct call of the same chunk function on a copy of the same state —
+   tokens equal and the pool or cache bit-equal afterwards; on the paged
+   layout a replay whose dispatch table was not refreshed after that
+   admission must differ (the planted fault). Then two lifecycle drills
+   on the card: ``decode@3`` on a one-slot engine (the request in flight
+   fails, the engine restarts and captures its graphs again, the queued
+   request is token-exact against a fault-free engine) and ``nan@3`` on a
+   two-slot engine (one slot quarantined, its pages read back as zeros,
+   the survivor token-exact against a fault-free run).
+9. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
    experts, top-2) with int8 weights drawn on the card (46.9 GB; the
    llama weights are dropped first), paged bf16 KV, max_seq_len 4096: 9
    requests of 21..3001 tokens, 32 new each (the 3001-token prompt takes 2
@@ -79,10 +96,10 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    reference path (a 200-token prompt, 4 paged decode steps) and one
    layer's ``moe_ffn`` timed at decode (8 tokens) and at a 2048-token
    segment beside its weight-byte bound.
-9. ``profile`` — (not run by default) two short llama-3-8b bursts, bf16
-   and int8 page pools, traced with torch.profiler: the device's busy
-   share of the wall and the top kernels (no split-K decode kernel may
-   appear).
+10. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+   and int8 page pools and the bf16 dense cache (8192 wide), traced with
+   torch.profiler: the device's busy share of the wall and the top
+   kernels (no split-K decode kernel may appear).
 
 ``--ab PARENT`` runs none of these: it compares the kernel times of another
 checkout (say the parent commit, unpacked with ``git archive <commit> | tar
@@ -112,9 +129,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "moe",
-          "profile")
-DEFAULT_PHASES = PHASES[:8]
+PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
+          "moe", "profile")
+DEFAULT_PHASES = PHASES[:9]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -1018,6 +1035,12 @@ def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int, **engine_kw) -
     groups = after["admit-groups-total"] - before["admit-groups-total"]
     segments = after["prefill-segments-total"] - before["prefill-segments-total"]
     steps = after["decode-steps-total"] - before["decode-steps-total"]
+    chunks = after["decode-chunks-total"] - before["decode-chunks-total"]
+    replays = after["graph-replays-total"] - before["graph-replays-total"]
+    # every decode chunk of the run is one replay of a graph start() captured
+    if chunks <= 0 or replays != chunks or after["graph-captures-total"] != 3:
+        raise AssertionError(f"{chunks} decode chunks but {replays} graph replays, "
+                             f"{after['graph-captures-total']} captures")
     generated = sum(len(r.tokens) for r in results)
     ttfts = sorted(r.ttft_s for r in results)
     return {
@@ -1035,13 +1058,27 @@ def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int, **engine_kw) -
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "kernel_launches": {k: v["launches"] for k, v in counts.items()},
         "finish_reasons": sorted({r.finish_reason for r in results}),
+        "decode_chunks": chunks,
+        "graph_replays": replays,
+        "graph_captures": after["graph-captures-total"],
+        "graph_capture_s": after["graph-capture-s"],
+        "graph_pool_bytes": after["graph-pool-bytes"],
     }
 
 
 def _require_launches(run: dict, kernel: str, per_unit: str, layers: int) -> None:
+    """The kernel ran on the run's path: one launch per layer per unit. The
+    decode kernels run only inside the captured chunks, whose launches are
+    counted per replay: theirs must be exactly layers x decode steps (a
+    replay that went uncounted, or a capture counted as launches, fails).
+    The prefill and segment kernels are held to the lower bound."""
     got = run["kernel_launches"][kernel]
     want = layers * run[per_unit]
-    if got <= 0 or got < want:
+    if "decode" in kernel:
+        if got != want or got <= 0:
+            raise AssertionError(f"{kernel}: {got} launches != {layers} x {per_unit} "
+                                 f"{run[per_unit]}")
+    elif got <= 0 or got < want:
         raise AssertionError(f"{kernel}: {got} launches < {layers} x {per_unit} {run[per_unit]}")
 
 
@@ -1387,6 +1424,289 @@ def phase_paged_long(ctx: dict) -> None:
     del timer
 
 
+# the graphs phase's paged engines: a 2048-token sequence limit keeps the
+# pool (and its copies) small; the dense engine is the dense phase's 8192
+GRAPHS_KW = {"max_seq_len": 2048}
+
+
+def _decode_state(engine) -> list:
+    """Every tensor a decode chunk reads or writes: the KV pool or cache,
+    the chain, the sampling params, the dispatch table and the output."""
+    tree = engine._pagepool.dev if engine._paged else engine._cache
+    leaves = [leaf for e in tree.values() for leaf in (e.values() if isinstance(e, dict) else (e,))]
+    chain = (engine._tokens_dev, engine._positions_dev, engine._temp_dev, engine._top_k_dev,
+             engine._top_p_dev, engine._table_dev, engine._chunk_out)
+    return leaves + [t for t in chain if t is not None]
+
+
+def _snapshot(engine) -> tuple:
+    memo = engine._table_uploaded
+    return [t.clone() for t in _decode_state(engine)], None if memo is None else memo.copy()
+
+
+def _restore(engine, snap: tuple) -> None:
+    tensors, memo = snap
+    for dst, src in zip(_decode_state(engine), tensors):
+        dst.copy_(src)
+    engine._table_uploaded = None if memo is None else memo.copy()
+
+
+def _differs(engine, snap: tuple) -> dict:
+    """Which of the live decode state's tensors differ from a snapshot's
+    (bit for bit): {"tokens": the output, "state": anything else}."""
+    import torch
+
+    live = _decode_state(engine)
+    out_differs = not torch.equal(live[-1], snap[0][-1])
+    rest = sum(int(not torch.equal(a, b)) for a, b in zip(live[:-1], snap[0][:-1]))
+    return {"tokens": out_differs, "state": rest}
+
+
+def _hand_admit(engine, prompts, opts) -> None:
+    """Admit ``prompts`` through the engine's own admission, driven from
+    this thread (the engine thread is not running), first tokens read."""
+    from langstream_tpu_torch.serving.engine import GenerationRequest
+
+    for prompt in prompts:
+        engine.submit(GenerationRequest(prompt_tokens=prompt, options=opts))
+    for entry in engine._admit(10**9):
+        engine._process_entry(entry)
+
+
+def _replay_check(ctx, cfg, params, plant: bool, **engine_kw) -> dict:
+    """One captured chunk against a direct call of the same chunk function
+    on a copy of the same state, hand-driven at full width: 7 requests
+    admitted, one chunk dispatched, an 8th admitted (its slot's table row
+    changes), then the chunk replayed and, from the same state, called
+    directly — the tokens must be equal and the pool or cache bit-equal.
+    With ``plant`` (the paged layout), a replay whose dispatch table was
+    not refreshed after that admission must differ, or the check cannot
+    see a stale table; and two replays of the sampled branch from one
+    state must draw different tokens (the generator advances per
+    replay)."""
+    import gc
+
+    import torch
+
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.serving.engine import ServingEngine
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    engine = ServingEngine(cfg, params, max_batch=8, decode_chunk=16, page_size=PAGE,
+                           rng_seed=ctx["seed"], device="cuda", **engine_kw)
+    engine._capture_graphs()
+    prompts = [tok.encode(p) for p in _prompts([20, 90, 150, 300, 600, 900, 1200, 1500],
+                                               ctx["seed"] + 7)]
+    opts = GenerationOptions(max_new_tokens=64)
+    rec: dict = {}
+    with torch.no_grad():
+        _hand_admit(engine, prompts[:7], opts)
+        engine._process_entry(engine._dispatch_chunk())
+        _hand_admit(engine, prompts[7:], opts)
+        branch = engine._branch()
+        if plant:
+            pre = _snapshot(engine)
+            engine._run_chunk(branch)  # the table still masks the 8th slot's row
+            stale = _snapshot(engine)
+            _restore(engine, pre)
+            del pre
+        engine._prepare_chunk()
+        prepared = _snapshot(engine)
+        engine._run_chunk(branch)
+        replayed = _snapshot(engine)
+        _restore(engine, prepared)
+        del prepared
+        engine._decode_chunk(*branch)
+        torch.cuda.synchronize()
+        rec["replay_vs_direct"] = _differs(engine, replayed)
+        if plant:
+            rec["stale_table_vs_direct"] = _differs(engine, stale)
+            del stale
+        del replayed
+        if plant:
+            # the sampled branch twice from one state: the generator is
+            # registered with the graph, so the second replay draws anew
+            engine._temp_dev.fill_(1.0)
+            state = _snapshot(engine)
+            engine._run_chunk((True, False))
+            first = engine._chunk_out.clone()
+            _restore(engine, state)
+            del state
+            engine._run_chunk((True, False))
+            rec["sampled_replays_differ"] = not torch.equal(first, engine._chunk_out)
+    stats = engine.stats()
+    rec.update({
+        "graph_captures": stats["graph-captures-total"],
+        "graph_capture_s": stats["graph-capture-s"],
+        "graph_pool_bytes": stats["graph-pool-bytes"],
+        "active_slots": stats["active-slots"],
+    })
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rec["replay_vs_direct"] != {"tokens": False, "state": 0}:
+        raise AssertionError(f"replay differs from the direct call: {rec['replay_vs_direct']}")
+    if plant and not (rec["stale_table_vs_direct"]["tokens"]
+                      or rec["stale_table_vs_direct"]["state"]):
+        raise AssertionError("a replay with a stale dispatch table was not caught")
+    if plant and not rec["sampled_replays_differ"]:
+        raise AssertionError("two replays of the sampled chunk drew the same numbers")
+    return rec
+
+
+def _first_token(engine, prompt, max_new: int):
+    """Submit and wait for the first token (the request is then in a slot)."""
+    import threading
+
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.serving.engine import GenerationRequest
+
+    got = threading.Event()
+    req = GenerationRequest(prompt_tokens=prompt, options=GenerationOptions(max_new_tokens=max_new),
+                            on_token=lambda _t: got.set())
+    engine.submit(req)
+    if not got.wait(600):
+        raise AssertionError("first token never arrived")
+    return req
+
+
+def _decode_fault_drill(ctx, cfg, params) -> dict:
+    """``decode@3`` on a one-slot paged engine: the request in flight fails
+    with the injected fault, the engine restarts (device state rebuilt,
+    the three graphs captured again), and the request queued behind it is
+    served token-exact against a fault-free engine."""
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.serving.engine import GenerationRequest, ServingEngine
+    from langstream_tpu_torch.serving.faultinject import FaultInjector, InjectedFault
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    p1, p2 = (tok.encode(p) for p in _prompts([300, 120], ctx["seed"] + 9))
+    kw = dict(max_batch=1, decode_chunk=16, page_size=PAGE, rng_seed=ctx["seed"],
+              device="cuda", **GRAPHS_KW)
+    opts = GenerationOptions(max_new_tokens=32)
+    ref_engine = ServingEngine(cfg, params, **kw)
+    ref_engine.start()
+    try:
+        ref = ref_engine.generate(p2, opts, timeout=600).tokens
+    finally:
+        ref_engine.stop()
+    engine = ServingEngine(cfg, params, fault_injector=FaultInjector("decode@3", seed=0),
+                           restart_backoff_s=0.05, **kw)
+    t0 = time.monotonic()
+    engine.start()
+    try:
+        r1 = _first_token(engine, p1, 400)
+        r2 = engine.submit(GenerationRequest(prompt_tokens=p2, options=opts))
+        try:
+            r1.result(timeout=600)
+            raise AssertionError("decode@3 did not fail the request in flight")
+        except InjectedFault:
+            pass
+        tokens = r2.result(timeout=600).tokens
+        stats = engine.stats()
+    finally:
+        engine.stop()
+    rec = {
+        "restarts": stats["engine-restarts-total"],
+        "graph_captures": stats["graph-captures-total"],
+        "graph_capture_s": stats["graph-capture-s"],
+        "quarantined": stats["quarantined-slots-total"],
+        "survivor_tokens": len(tokens),
+        "survivor_token_exact": tokens == ref,
+        "wall_s": time.monotonic() - t0,
+    }
+    if rec["restarts"] != 1 or rec["graph_captures"] != 6 or not rec["survivor_token_exact"]:
+        raise AssertionError(f"decode fault drill: {rec}")
+    return rec
+
+
+def _nan_drill(ctx, cfg, params) -> dict:
+    """``nan@3`` on a two-slot paged engine: one slot fails with
+    LogitsNaNError, its pages (recorded as the quarantine frees them) read
+    back as zeros once the next iteration zeroed them, and the survivor is
+    token-exact against the same two requests on a fault-free engine."""
+    import torch
+
+    from langstream_tpu_torch.serving.engine import LogitsNaNError, ServingEngine
+    from langstream_tpu_torch.serving.faultinject import FaultInjector
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    prompts = [tok.encode(p) for p in _prompts([200, 90], ctx["seed"] + 11)]
+    kw = dict(max_batch=2, decode_chunk=16, page_size=PAGE, rng_seed=ctx["seed"],
+              device="cuda", **GRAPHS_KW)
+    outcomes = {}
+    for label, injector in (("reference", None), ("fault", FaultInjector("nan@3", seed=0))):
+        engine = ServingEngine(cfg, params, fault_injector=injector, **kw)
+        freed: dict = {}
+        keep = engine._quarantine_pages
+
+        def recording(idx, engine=engine, keep=keep, freed=freed):
+            freed[idx] = engine._pagepool.slot_pages(idx)
+            keep(idx)
+
+        engine._quarantine_pages = recording
+        engine.start()
+        try:
+            reqs = [_first_token(engine, p, 48) for p in prompts]
+            got = []
+            for r in reqs:
+                try:
+                    got.append(r.result(timeout=600).tokens)
+                except LogitsNaNError:
+                    got.append(None)
+            deadline = time.monotonic() + 60
+            while engine._pending_page_zero and time.monotonic() < deadline:
+                time.sleep(0.01)
+            torch.cuda.synchronize()
+            leaves = [leaf for e in engine._pagepool.dev.values()
+                      for leaf in (e.values() if isinstance(e, dict) else (e,))]
+            pages = sorted(p for ps in freed.values() for p in ps)
+            zero = bool(pages) and all(
+                bool((leaf[:, torch.tensor(pages, device="cuda")] == 0).all()) for leaf in leaves
+            )
+            stats = engine.stats()
+        finally:
+            engine.stop()
+            del engine._quarantine_pages  # the recorder holds the engine
+        outcomes[label] = {"tokens": got, "pages": pages, "zero": zero, "stats": stats}
+    ref, fault = outcomes["reference"], outcomes["fault"]
+    victims = [i for i, t in enumerate(fault["tokens"]) if t is None]
+    rec = {
+        "victims": victims,
+        "quarantined_pages": len(fault["pages"]),
+        "pages_zero": fault["zero"],
+        "nan_guard_total": fault["stats"]["nan-guard-total"],
+        "survivors_token_exact": all(
+            t == r for t, r in zip(fault["tokens"], ref["tokens"]) if t is not None
+        ),
+        "pages_in_use_after": fault["stats"]["kv-pages-in-use"],
+    }
+    if (len(victims) != 1 or not rec["pages_zero"] or not rec["survivors_token_exact"]
+            or rec["nan_guard_total"] != 1 or rec["pages_in_use_after"] != 0):
+        raise AssertionError(f"nan drill: {rec}")
+    return rec
+
+
+def phase_graphs(ctx: dict) -> None:
+    """Replay against direct call at full width (paged bf16 and int8 with a
+    planted stale table, dense bf16 at 8192), then the lifecycle drills on
+    the card (a decode fault's restart and re-capture, a NaN quarantine)."""
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    params = _llama_params(ctx)
+    int8_cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    for label, c, kw, plant in (("paged bf16", cfg, GRAPHS_KW, True),
+                                ("paged int8", int8_cfg, GRAPHS_KW, True),
+                                ("dense bf16", cfg, DENSE_KW, False)):
+        log(f"graphs replay {label} {json.dumps(_replay_check(ctx, c, params, plant, **kw))}")
+    log(f"graphs drill decode@3 {json.dumps(_decode_fault_drill(ctx, cfg, params))}")
+    log(f"graphs drill nan@3 {json.dumps(_nan_drill(ctx, cfg, params))}")
+
+
 MOE_KW = {"max_seq_len": 4096}
 # a layer's int8 expert weights: gate, up and down of mixtral-8x7b's 8
 # experts (1.41 GB), each read once at the least
@@ -1509,12 +1829,36 @@ def phase_moe(ctx: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def _replay_rate(torch, engine, chunks: int = 4) -> dict:
+    """Back-to-back replays of the greedy chunk on a burst's engine (its
+    slots idle by then): the card's time per decode step, the wall's, and
+    the host's time to queue one chunk."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.monotonic()
+    start.record()
+    for _ in range(chunks):
+        engine._run_chunk((False, False))
+    end.record()
+    host_ms = (time.monotonic() - t0) * 1e3
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3
+    steps = chunks * engine.decode_chunk
+    return {
+        "device_ms_per_step": start.elapsed_time(end) / steps,
+        "wall_ms_per_step": wall_ms / steps,
+        "host_ms_per_chunk": host_ms / chunks,
+    }
+
+
 def phase_profile(ctx: dict) -> None:
-    """Two traced bursts (8 short prompts, 32 new tokens each; bf16 and int8
-    page pools) under torch.profiler: wall time, the summed device time of
-    CUDA kernels, the device's busy share of the wall, and the kernels that
-    took the most. Every decode launch must be the one cluster kernel: a
-    split-K kernel or its merge launch fails the phase."""
+    """Three traced bursts (8 short prompts, 32 new tokens each; bf16 and
+    int8 page pools, the bf16 dense cache) under torch.profiler: wall
+    time, the summed device time of CUDA kernels, the device's busy share
+    of the wall, and the kernels that took the most; then, untraced, the
+    time per decode step of back-to-back replays. Every decode launch must
+    be the one cluster kernel: a split-K kernel or its merge launch fails
+    the phase."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1524,10 +1868,11 @@ def phase_profile(ctx: dict) -> None:
 
     tok = ByteTokenizer()
     base = MODEL_PRESETS["llama-3-8b"]
-    for label, cfg in (("bf16", base),
-                       ("int8-kv", dataclasses.replace(base, kv_cache_dtype="int8"))):
+    for label, cfg, kw in (("bf16", base, {}),
+                           ("int8-kv", dataclasses.replace(base, kv_cache_dtype="int8"), {}),
+                           ("dense-bf16", base, DENSE_KW)):
         engine = ServingEngine(cfg, _llama_params(ctx), max_batch=8, decode_chunk=16,
-                               page_size=PAGE, device="cuda")
+                               page_size=PAGE, device="cuda", **kw)
         engine.start()
         try:
             prompts = [tok.encode(p) for p in _prompts([100] * 8, ctx["seed"] + 1)]
@@ -1541,8 +1886,11 @@ def phase_profile(ctx: dict) -> None:
                     r.result(timeout=600)
                 torch.cuda.synchronize()
                 wall_ms = (time.monotonic() - t0) * 1e3
+            stats = engine.stats()
         finally:
             engine.stop()
+        with torch.no_grad():
+            steady = _replay_rate(torch, engine)
         # device activity (kernels, copies, fills) carries self device time;
         # the host-side ops that launched it carry none
         kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
@@ -1552,6 +1900,8 @@ def phase_profile(ctx: dict) -> None:
             "wall_ms": wall_ms,
             "device_kernel_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
+            "graph_replays": stats["graph-replays-total"],
+            "steady_replays": steady,
             "top_kernels": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in top],
         }))
         stale = [e.key for e in kernels if "decode_split" in e.key or "decode_combine" in e.key]

@@ -26,6 +26,20 @@ honours the keys this slice serves:
     (the int8 decode / segment kernels); "" / "none" → model dtype
   tokenizer: "byte" (the only value yet)
   device: "cuda" (default) or "cpu"
+  queue-depth / shed-policy: the bounded admission queue (default
+    max-batch x 4); "block" (default) backpressures the caller, "reject"
+    sheds with ShedError and a retry-after
+  engine-restart-backoff / engine-max-restarts: loop-crash recovery —
+    quarantine the slots in flight, rebuild the device state (the decode
+    graphs are captured again), restart under bounded exponential backoff
+    (0.1 s doubling to 30 s; 5 restarts)
+  fault-injection / fault-seed / fault-stall-s: deterministic fault drills
+    (serving/faultinject.py; also through the LSTPU_FAULTS environment)
+
+Per request, the options' ``deadline`` (``deadline-s``) and
+``max-queue-wait`` (``max-queue-wait-s``) bound the wall time from submit
+and the wait for a slot (``GenerationOptions.from_dict``). On the card
+every decode chunk is a CUDA-graph replay; no key turns that off.
 
 A config the CUDA kernels cannot take on the device (a model dtype other
 than bfloat16 on the card, unless ``attention_impl`` is "jnp") raises
@@ -60,6 +74,7 @@ from langstream_tpu_torch.models.configs import MODEL_PRESETS, GenerationOptions
 from langstream_tpu_torch.models.quant import init_random_quantized_params
 from langstream_tpu_torch.ops.attention import kernel_path_ok
 from langstream_tpu_torch.serving.engine import PREFILL_BUCKETS, GenerationRequest, ServingEngine
+from langstream_tpu_torch.serving.faultinject import FaultInjector
 from langstream_tpu_torch.serving.tokenizer import get_tokenizer
 
 
@@ -150,6 +165,13 @@ class TorchCompletionsService(CompletionsService):
         )
         self.device = resolve_device(self.resource.get("device", "cuda"))
         kernel_path_ok(self.model_config, self.device)  # raises for what the kernels refuse
+        depth = self.resource.get("queue-depth")
+        self.queue_depth = int(depth) if depth is not None else None
+        self.shed_policy = str(self.resource.get("shed-policy", "block"))
+        if self.shed_policy not in ("block", "reject"):
+            raise ValueError(f"unknown shed-policy {self.shed_policy!r}; supported: block, reject")
+        self.restart_backoff_s = float(self.resource.get("engine-restart-backoff", 0.1))
+        self.max_restarts = int(self.resource.get("engine-max-restarts", 5))
         self.tokenizer = get_tokenizer(self.resource.get("tokenizer", "byte"))
         self._lock = threading.Lock()
         self._engine: Optional[ServingEngine] = None
@@ -172,10 +194,27 @@ class TorchCompletionsService(CompletionsService):
                     page_size=int(self.resource.get("page-size", 64)),
                     kv_layout=self.kv_layout,
                     device=self.device,
+                    queue_depth=self.queue_depth,
+                    shed_policy=self.shed_policy,
+                    restart_backoff_s=self.restart_backoff_s,
+                    max_restarts=self.max_restarts,
+                    fault_injector=self._fault_injector(),
                 )
                 engine.start()
                 self._engine = engine
             return self._engine
+
+    def _fault_injector(self) -> Optional[FaultInjector]:
+        """``fault-injection`` (with ``fault-seed`` / ``fault-stall-s``), else
+        the LSTPU_FAULTS environment, else none."""
+        spec = str(self.resource.get("fault-injection", "") or "").strip()
+        if not spec:
+            return FaultInjector.from_env()
+        return FaultInjector(
+            spec,
+            seed=int(self.resource.get("fault-seed", 0)),
+            stall_s=float(self.resource.get("fault-stall-s", 0.05)),
+        )
 
     def engine_stats(self) -> dict[str, Any]:
         return self._engine.stats() if self._engine is not None else {}

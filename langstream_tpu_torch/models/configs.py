@@ -173,8 +173,8 @@ MODEL_PRESETS: dict[str, ModelConfig] = {
 
 @dataclass
 class GenerationOptions:
-    """Per-request sampling options. The port honours the sampling and stop
-    knobs; the lifecycle, tenancy, adapter and grammar options of the JAX
+    """Per-request options. The port honours the sampling, stop and
+    lifecycle knobs; the tenancy, adapter and grammar options of the JAX
     package wait for the slices that port those tiers."""
 
     max_new_tokens: int = 256
@@ -182,14 +182,26 @@ class GenerationOptions:
     top_k: int = 0  # 0 → disabled
     top_p: float = 1.0
     stop_tokens: tuple[int, ...] = ()
+    # request lifecycle (serving/engine.py): wall-clock budget in seconds
+    # from submit. A request past its deadline finishes with
+    # finish_reason="deadline" at the next chunk boundary (partial tokens
+    # kept); one that expires while still queued fails with
+    # DeadlineExceededError instead of taking a slot it can no longer use.
+    deadline_s: Optional[float] = None
+    # cap on the time spent waiting for a slot; exceeded → fails in queue
+    max_queue_wait_s: Optional[float] = None
 
     @staticmethod
     def from_dict(d: dict) -> "GenerationOptions":
         stops = d.get("stop-tokens", d.get("stop_tokens", ()))
+        deadline = d.get("deadline", d.get("deadline-s", d.get("deadline_s")))
+        queue_wait = d.get("max-queue-wait", d.get("max-queue-wait-s", d.get("max_queue_wait_s")))
         return GenerationOptions(
             max_new_tokens=int(d.get("max-tokens", d.get("max_new_tokens", 256))),
             temperature=float(d.get("temperature", 0.0)),
             top_k=int(d.get("top-k", d.get("top_k", 0))),
             top_p=float(d.get("top-p", d.get("top_p", 1.0))),
             stop_tokens=tuple(int(t) for t in stops),
+            deadline_s=float(deadline) if deadline is not None else None,
+            max_queue_wait_s=float(queue_wait) if queue_wait is not None else None,
         )

@@ -94,21 +94,43 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (normed * weight.float()).to(x.dtype)
 
 
+# per (rope fields, device): the inverse frequencies, made once. A tensor
+# built from a Python number on the card is a host-to-device copy, which a
+# CUDA graph capture refuses; the decode steps a graph captures find them
+# here (the engine's warm-up call fills the entry before any capture).
+_ROPE_FREQS: dict[tuple, torch.Tensor] = {}
+_EMBED_SCALES: dict[tuple, torch.Tensor] = {}
+
+
+def _rope_inv_freqs(config: ModelConfig, device: torch.device) -> torch.Tensor:
+    """[head_dim/2] f32 inverse frequencies (llama3-scaled where the config
+    says so), cached per device."""
+    key = (
+        config.resolved_head_dim, config.rope_theta, config.rope_scaling_factor,
+        config.rope_scaling_low_freq_factor, config.rope_scaling_high_freq_factor,
+        config.rope_scaling_original_max_seq_len, str(device),
+    )
+    freqs = _ROPE_FREQS.get(key)
+    if freqs is None:
+        half = config.resolved_head_dim // 2
+        exponent = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+        # f32 pow correctly rounded (as XLA computes it): PyTorch's f32 pow
+        # can land 1 ulp off, which moves angles at long positions by p * ulp
+        freqs = torch.pow(
+            torch.tensor(config.rope_theta, dtype=torch.float64, device=device),
+            exponent.double(),
+        ).float()
+        if config.rope_scaling_factor:
+            freqs = _llama3_rope_scale(freqs, config)
+        _ROPE_FREQS[key] = freqs
+    return freqs
+
+
 def _rope_freqs(
     positions: torch.Tensor, config: ModelConfig
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """positions [B, S] → sin/cos [B, S, head_dim/2], f32."""
-    half = config.resolved_head_dim // 2
-    exponent = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    # f32 pow correctly rounded (as XLA computes it): PyTorch's f32 pow can
-    # land 1 ulp off, which moves angles at long positions by p * ulp
-    freqs = torch.pow(
-        torch.tensor(config.rope_theta, dtype=torch.float64, device=positions.device),
-        exponent.double(),
-    ).float()
-    if config.rope_scaling_factor:
-        freqs = _llama3_rope_scale(freqs, config)
-    angles = positions.float()[..., None] * freqs
+    angles = positions.float()[..., None] * _rope_inv_freqs(config, positions.device)
     return torch.sin(angles), torch.cos(angles)
 
 
@@ -569,8 +591,12 @@ def _embed(params: Params, tokens: torch.Tensor, config: ModelConfig) -> torch.T
     else:
         x = table[tokens]
     if config.embedding_scale:
-        scale = torch.sqrt(torch.tensor(float(config.d_model), dtype=torch.float32))
-        x = x * scale.to(x.dtype).to(x.device)
+        key = (config.d_model, x.dtype, str(x.device))
+        scale = _EMBED_SCALES.get(key)
+        if scale is None:  # cached for capture, as the rope frequencies
+            scale = torch.sqrt(torch.tensor(float(config.d_model), dtype=torch.float32))
+            scale = _EMBED_SCALES.setdefault(key, scale.to(x.dtype).to(x.device))
+        x = x * scale
     return x
 
 

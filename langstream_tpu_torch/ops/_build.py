@@ -130,7 +130,23 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+# cudaError_t values that leave the context unusable: every later call in
+# the process fails too (an illegal address, a device-side trap, ...)
+STICKY_ERRORS = frozenset({700, 710, 714, 715, 716, 717, 718, 719})
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel entry point returned a CUDA error; ``sticky`` when the
+    context cannot recover from it in this process."""
+
+    def __init__(self, what: str, code: int) -> None:
+        super().__init__(f"{what} failed to launch: cudaError_t {code}")
+        self.code = code
+        self.sticky = code in STICKY_ERRORS
+
+
 def check(err: int, what: str) -> None:
-    """Raise when a kernel entry point reports a CUDA error."""
+    """Raise when a kernel entry point reports a CUDA error. Host-side only
+    (it reads the returned code), so it is safe inside a graph capture."""
     if err != 0:
-        raise RuntimeError(f"{what} failed to launch: cudaError_t {err}")
+        raise KernelLaunchError(what, err)

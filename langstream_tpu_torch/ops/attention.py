@@ -23,7 +23,12 @@ A wrapper takes its plain version only because the tensor it was given lies
 on the CPU; on a CUDA tensor it launches the kernel or raises — there is no
 fallback. Each wrapper counts its kernel launches in a plain int attribute
 (``wrapper.launches``, bumped only where the kernel is launched) and its
-plain-version calls on the CPU (``wrapper.cpu_calls``).
+plain-version calls on the CPU (``wrapper.cpu_calls``). A CUDA graph runs
+no host code when it is replayed, so the engine takes each graph's
+per-kernel counts at capture (``count_snapshot`` before and after), removes
+them from the totals (the capture itself launched nothing on the card) and
+adds them back on every replay (``add_counts``): the counts stay exactly
+the launches the card ran.
 
 Layouts are the JAX package's: queries ``[B, S, H, D]``, head-major K/V
 ``[B, Hkv, S, D]``, dense caches ``[B, Hkv, T, D]`` (int8: ``{"q": i8
@@ -909,3 +914,29 @@ def reset_kernel_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
         fn.cpu_calls = 0
+
+
+def count_snapshot() -> dict[str, tuple[int, int]]:
+    """Per kernel: (launches, plain-version calls) so far."""
+    return {name: (fn.launches, fn.cpu_calls) for name, fn in KERNELS.items()}
+
+
+def count_delta(
+    before: dict[str, tuple[int, int]], after: dict[str, tuple[int, int]]
+) -> dict[str, tuple[int, int]]:
+    """The counts made between two snapshots, kernels that moved only."""
+    out = {}
+    for name, (launches, calls) in after.items():
+        d = (launches - before[name][0], calls - before[name][1])
+        if d != (0, 0):
+            out[name] = d
+    return out
+
+
+def add_counts(delta: dict[str, tuple[int, int]], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` to the counts (negative ``times`` removes):
+    a captured graph's launches, on each of its replays."""
+    for name, (launches, calls) in delta.items():
+        fn = KERNELS[name]
+        fn.launches += times * launches
+        fn.cpu_calls += times * calls

@@ -11,8 +11,9 @@ out-of-bounds sentinel (= ``num_pages``). Pages are reserved in full at
 admission, so decode never allocates: exhaustion defers an admission, it
 never corrupts a slot. All methods run on the engine thread.
 
-The prefix index, the host-RAM spill tier and the integrity drills of the
-JAX package are not ported yet.
+The table-row integrity check (``validate``, the ``page`` fault site's
+target) and the crash-recovery ``reset`` are ported; the prefix index and
+the host-RAM spill tier of the JAX package are not yet.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ class PagePool:
         self.max_batch = int(max_batch)
         self.table_len = table_len_for(max_seq_len, page_size)
         self.oob = self.num_pages  # sentinel: writes land in the sink page
+        self.device = device
         self.dev = make_page_pool(config, self.num_pages, self.page_size, device=device)
         leaves = [
             leaf
@@ -126,3 +128,31 @@ class PagePool:
         if not owned:
             return []
         return self.decref(owned)
+
+    def slot_pages(self, slot: int) -> list[int]:
+        return list(self._owned.get(slot, ()))
+
+    def validate(self, slot: int) -> bool:
+        """Table-row integrity: the device-facing row must equal the owned
+        list plus sentinel padding. A mismatch means the table was
+        corrupted (the ``page`` fault site, or a bookkeeping bug) —
+        dispatching it would read and write someone else's pages."""
+        owned = self._owned.get(slot, ())
+        row = self.tables[slot]
+        n = len(owned)
+        return bool(
+            np.array_equal(row[:n], np.asarray(owned, np.int32)) and np.all(row[n:] == self.oob)
+        )
+
+    def reset(self) -> None:
+        """Crash recovery: a fresh device pool (the old one released first,
+        so both never sit on the device together) and every binding
+        forgotten (the engine fails the slots that held them)."""
+        from langstream_tpu_torch.models.transformer import make_page_pool
+
+        self.dev = None
+        self.dev = make_page_pool(self.config, self.num_pages, self.page_size, device=self.device)
+        self.tables[:] = self.oob
+        self._refs[:] = 0
+        self._free = list(range(self.num_pages - 1, -1, -1))
+        self._owned.clear()

@@ -10,6 +10,12 @@ tensors when it does not. Random draws come from an explicit
 ``torch.Generator`` (gumbel-max, the same construction as
 ``jax.random.categorical``); the bits differ from JAX's, so sampled outputs
 agree in distribution only. Greedy is exact.
+
+``sample`` syncs with nothing when both predicates are given, so the
+engine's captured decode chunk can hold it: the engine registers its
+generator with each CUDA graph (``CUDAGraph.register_generator_state``),
+and every replay then advances the generator's Philox offset — a replay
+draws fresh numbers, never the captured ones again.
 """
 
 from __future__ import annotations
