@@ -87,7 +87,26 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    request is token-exact against a fault-free engine) and ``nan@3`` on a
    two-slot engine (one slot quarantined, its pages read back as zeros,
    the survivor token-exact against a fault-free run).
-9. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
+9. ``prefix``  — prefix KV reuse: llama-3-8b at full width and depth,
+   bf16, paged, page 64, max-batch 8, ``prefix-cache`` on. A 1024-token
+   shared preamble (a RAG or agent system prompt): request 0, the
+   preamble plus a 40-token turn, admitted alone (cold; it publishes the
+   preamble, 16 pages), then 8 requests of the preamble plus 20..120-token
+   turns together, each a warm suffix segment at offset 1024 over 16
+   aliased pages; 32 new tokens each, greedy. The same traffic with
+   reuse off (its pages in use and TTFT, and the cold first-token logits),
+   and a copy-on-write pass whose buckets include 1000 (15 aliased pages
+   and 1 copied page a hit). Each run: cold against warm TTFT, tokens/s,
+   hit rate, prefill tokens saved, alias rate, peak pages in use, page
+   copies (0 and 1 a hit, required), segment launches (32 a warm
+   admission, required), decode launches = layers x steps and replays =
+   chunks, and each admission's host milliseconds. The warm first-token
+   logits of two prompts must be within 5% of the largest cold logit,
+   top-1 equal (greedy-token agreement is printed); NaN planted in the
+   copy-on-write source page at and past the prefix's end and in the sink
+   page must leave a warm suffix's logits bit-equal; the warm admission
+   is timed (device and host) beside a cold 1024-token prefill.
+10. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
    experts, top-2) with int8 weights drawn on the card (46.9 GB; the
    llama weights are dropped first), paged bf16 KV, max_seq_len 4096: 9
    requests of 21..3001 tokens, 32 new each (the 3001-token prompt takes 2
@@ -96,7 +115,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    reference path (a 200-token prompt, 4 paged decode steps) and one
    layer's ``moe_ffn`` timed at decode (8 tokens) and at a 2048-token
    segment beside its weight-byte bound.
-10. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+11. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
    and int8 page pools and the bf16 dense cache (8192 wide), traced with
    torch.profiler: the device's busy share of the wall and the top
    kernels (no split-K decode kernel may appear).
@@ -130,8 +149,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
-          "moe", "profile")
-DEFAULT_PHASES = PHASES[:9]
+          "prefix", "moe", "profile")
+DEFAULT_PHASES = PHASES[:10]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -1707,6 +1726,324 @@ def phase_graphs(ctx: dict) -> None:
     log(f"graphs drill nan@3 {json.dumps(_nan_drill(ctx, cfg, params))}")
 
 
+# the prefix phase: a 1024-token shared preamble (16 pages of 64) and the
+# turns of the 8 requests that share it; the copy-on-write pass publishes at
+# a 1000 bucket (15 whole pages and one partial page)
+PREFIX_PREAMBLE, PREFIX_FIRST_TURN = 1024, 40
+PREFIX_TURNS = (20, 34, 48, 62, 77, 91, 105, 120)
+PREFIX_NEW = 32
+PREFIX_KW = {"max_seq_len": 2048}
+COW_BUCKETS = (32, 64, 128, 256, 512, 1000, 2048)
+
+
+def _prefix_prompts(seed: int) -> tuple[list[int], list[list[int]]]:
+    """(request 0: the preamble plus a 40-token turn, the 8 requests: the
+    preamble plus turns of 20..120 tokens), byte tokens from ``seed``."""
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    texts = _prompts([PREFIX_PREAMBLE, PREFIX_FIRST_TURN, *PREFIX_TURNS], seed + 1)
+    preamble = tok.encode(texts[0])[:PREFIX_PREAMBLE]
+    turns = [list(texts[i].encode()) for i in range(1, len(texts))]
+    return preamble + turns[0], [preamble + t for t in turns[1:]]
+
+
+def _capture_first_logits(engine) -> dict:
+    """Keep a device copy of every admission's first-token logits, keyed by
+    prompt length (the phase's prompt lengths are distinct): wraps the
+    engine's chain seeding, which every admission path calls once."""
+    seen: dict = {}
+    seed_chain = engine._seed_chain
+
+    def capture(logits, slots, lengths, *rest):
+        for j, n in enumerate(lengths):
+            seen[int(n)] = logits[j].float().clone()
+        return seed_chain(logits, slots, lengths, *rest)
+
+    engine._seed_chain = capture
+    return seen
+
+
+def _time_calls(engine, name: str) -> list:
+    """Wrap one of the engine's methods to record each call's host wall
+    (start and end, ``time.monotonic``): how long the engine thread spends
+    dispatching it."""
+    spans: list = []
+    method = getattr(engine, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.monotonic()
+        try:
+            return method(*args, **kwargs)
+        finally:
+            spans.append((t0, time.monotonic()))
+
+    setattr(engine, name, timed)
+    return spans
+
+
+def _serve_prefix(ctx, cfg, params, prefix: bool, **engine_kw) -> dict:
+    """The prefix traffic on one engine: a short warm-up (below every
+    publish boundary), every count set to 0, then request 0 alone (cold; it
+    publishes the preamble), then the 8 requests together (warm suffix
+    segments when reuse is on), counts read just after. Checks every
+    request's tokens, that no plain version ran, and the replays; polls the
+    pool's pages in use for its peak."""
+    import torch
+
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+    from langstream_tpu_torch.serving.engine import GenerationRequest, ServingEngine
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    first, batch = _prefix_prompts(ctx["seed"])
+    engine = ServingEngine(
+        cfg, params, max_batch=8, decode_chunk=16, page_size=PAGE,
+        eos_token_id=tok.eos_token_id, rng_seed=ctx["seed"], device="cuda",
+        prefix_cache="auto" if prefix else "off", **PREFIX_KW, **engine_kw,
+    )
+    logits = _capture_first_logits(engine)
+    warm_spans = _time_calls(engine, "_paged_prefill_prefix")
+    group_spans = _time_calls(engine, "_prefill_group")
+    pool = engine._pagepool
+    engine.start()
+    try:
+        engine.generate(tok.encode("warm up"), GenerationOptions(max_new_tokens=4), timeout=600)
+        torch.cuda.synchronize()
+        before = engine.stats()
+        opts = GenerationOptions(max_new_tokens=PREFIX_NEW, temperature=0.0)
+        reset_kernel_counts()
+        cold = engine.generate(first, opts, timeout=600)
+        mid = engine.stats()
+        t0 = time.monotonic()
+        del warm_spans[:], group_spans[:]
+        reqs = [engine.submit(GenerationRequest(prompt_tokens=p, options=opts)) for p in batch]
+        peak = pool.pages_in_use
+        while not all(r._done.is_set() for r in reqs):
+            peak = max(peak, pool.pages_in_use)
+            time.sleep(0.001)
+        results = [r.result(timeout=900) for r in reqs]
+        wall = time.monotonic() - t0
+        counts = kernel_counts()
+        after = engine.stats()
+    finally:
+        engine.stop()
+    plain = {k: v["cpu_calls"] for k, v in counts.items() if v["cpu_calls"]}
+    if plain:
+        raise AssertionError(f"plain versions ran on the card's prefix path: {plain}")
+    for p, r in zip([first, *batch], [cold, *results]):
+        if r.error is not None or r.finish_reason not in ("length", "stop"):
+            raise AssertionError(f"request of {len(p)} tokens ended {r.finish_reason}: {r.error}")
+        if any(t < 0 or t >= cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"request of {len(p)} tokens has out-of-range tokens")
+
+    def delta(key):
+        return after[key] - before[key]
+
+    chunks, replays = delta("decode-chunks-total"), delta("graph-replays-total")
+    if chunks <= 0 or replays != chunks or after["graph-captures-total"] != 3:
+        raise AssertionError(f"{chunks} decode chunks but {replays} graph replays, "
+                             f"{after['graph-captures-total']} captures")
+    ttfts = sorted(r.ttft_s for r in results)
+    generated = sum(len(r.tokens) for r in [cold, *results])
+    spans = sorted(warm_spans + group_spans)
+    dispatch_ms = [(b - a) * 1e3 for a, b in spans]
+    return {
+        "prefix_cache": prefix,
+        "prompt_tokens": [len(first)] + [len(p) for p in batch],
+        "cold_ttft_s": cold.ttft_s,
+        "warm_ttft_p50_s": ttfts[len(ttfts) // 2],
+        "warm_ttft_max_s": ttfts[-1],
+        "batch_wall_s": wall,
+        "tokens_per_s": sum(len(r.tokens) for r in results) / wall,
+        "generated_tokens": generated,
+        "hit_rate": after["prefix-cache-hit-rate"],
+        "prefill_tokens": delta("prefill-tokens-total"),
+        "prefill_tokens_saved": delta("prefill-tokens-saved-total"),
+        "alias_rate": after["kv-page-alias-rate"],
+        "page_copies": delta("page-copies-total"),
+        "copy_bytes_saved": delta("prefix-copy-bytes-saved-total"),
+        "pages_in_use_after_first": mid["kv-pages-in-use"],
+        "peak_kv_pages_in_use": peak,
+        "prefix_entries": after["prefix-cache-entries"],
+        "prefix_pool_bytes": after["prefix-pool-bytes-in-use"],
+        "admit_groups": delta("admit-groups-total"),
+        "warm_admissions": delta("warm-admissions-total"),
+        # the wave's admissions on the engine thread: host ms each (warm
+        # admissions or cold groups), and from the wave's submit to the
+        # first's start and the last's end
+        "admission_host_ms": dispatch_ms,
+        "admissions_start_end_s": [spans[0][0] - t0, spans[-1][1] - t0] if spans else None,
+        "decode_steps": delta("decode-steps-total"),
+        "decode_chunks": chunks,
+        "graph_replays": replays,
+        "kernel_launches": {k: v["launches"] for k, v in counts.items()},
+        "_logits": logits,
+        "_tokens": [r.tokens for r in results],
+    }
+
+
+def _require_prefix_run(run: dict, cfg, copies_per_hit: int) -> None:
+    """Every one of the 8 requests a warm hit at the preamble: one suffix
+    segment (one segment launch a layer) each and ``copies_per_hit`` page
+    copies each; request 0 alone took the cold group's prefill kernel;
+    decode launches exactly layers x steps."""
+    hits = len(PREFIX_TURNS)
+    if run["warm_admissions"] != hits or run["page_copies"] != copies_per_hit * hits:
+        raise AssertionError(f"prefix: {run['warm_admissions']} warm admissions and "
+                             f"{run['page_copies']} page copies, expected {hits} and "
+                             f"{copies_per_hit * hits}")
+    segments = run["kernel_launches"]["flash_segment"]
+    if segments != cfg.n_layers * hits:
+        raise AssertionError(f"prefix: {segments} segment launches != {cfg.n_layers} x {hits}")
+    _require_launches(run, "flash_prefill", "admit_groups", cfg.n_layers)
+    _require_launches(run, "paged_decode", "decode_steps", cfg.n_layers)
+
+
+def _warm_vs_cold(warm: dict, cold: dict, lengths: list[int]) -> dict:
+    """The warm admissions' first-token logits against the same prompts'
+    cold admissions on the reuse-off engine (same weights): within
+    MODEL_REL_TOL of the largest cold logit, top-1 equal."""
+    import torch
+
+    out = {}
+    for n in lengths:
+        a, b = warm[n], cold[n]
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"warm logits of the {n}-token prompt are not finite")
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        top1 = bool(torch.argmax(a) == torch.argmax(b))
+        out[f"len{n}"] = {"rel_err": rel, "top1_equal": top1}
+        if rel > MODEL_REL_TOL or not top1:
+            raise AssertionError(f"warm vs cold logits of the {n}-token prompt: rel err {rel} "
+                                 f"(tolerance {MODEL_REL_TOL}), top-1 equal {top1}")
+    out["tolerance"] = MODEL_REL_TOL
+    return out
+
+
+def _prefix_nan_check(ctx, cfg, params, timer) -> dict:
+    """A publisher's 1064-token prompt prefilled into pages 0..16; a reader
+    of 1024 tokens that shares its first 1000 aliases pages 0..14, copies
+    page 15 (copy-on-write) into page 17 and runs its 24-token suffix as one
+    32-wide segment at offset 1000 (pad positions past 1024 land in the
+    sink). NaN planted in page 15's columns at and past 1000 and in the
+    sink page, before the copy, must leave the suffix logits bit-equal.
+    Also times the warm admission (copy + suffix segment) beside a cold
+    prefill of the reader's whole prompt and one stream of the weights."""
+    import torch
+
+    from langstream_tpu_torch.models import transformer as tf
+
+    p, width = 1000, 32
+    publisher = _long_prompt(torch, 1064)
+    reader = torch.cat([publisher[:, :p], _long_prompt(torch, 25)[:, 1:]], dim=1)  # 1024
+    pool = tf.make_page_pool(cfg, 18, PAGE, device="cuda")
+    sink = 18
+    pub_table = torch.full((1, 32), sink, dtype=torch.int32, device="cuda")
+    pub_table[0, :17] = torch.arange(17, dtype=torch.int32, device="cuda")
+    seg, real = _segment_tokens(torch, publisher, 0, 2048)
+    tf.paged_prefill_segment_inplace(
+        params, seg, torch.tensor([0], device="cuda"), torch.tensor([real], device="cuda"),
+        pool, pub_table, cfg, PAGE, kv_bound=2048,
+    )
+    table = torch.full((1, 32), sink, dtype=torch.int32, device="cuda")
+    table[0, :15] = torch.arange(15, dtype=torch.int32, device="cuda")
+    table[0, 15] = 17
+    suffix, real = _segment_tokens(torch, reader, p, width)
+    offsets = torch.tensor([p], device="cuda")
+    seg_len = torch.tensor([real], device="cuda")
+
+    def warm():
+        tf.page_copy(pool, 15, 17)
+        return tf.paged_prefill_segment_inplace(
+            params, suffix, offsets, seg_len, pool, table, cfg, PAGE, kv_bound=p + width,
+        )[0]
+
+    clean = warm()
+    saved = {name: pool[name][:, 15].clone() for name in ("k", "v")}
+    for name in ("k", "v"):
+        pool[name][:, 15, :, p % PAGE:] = float("nan")
+        pool[name][:, sink] = float("nan")
+    planted = warm()
+    same = bool(torch.equal(clean, planted)) and bool(torch.isfinite(clean).all())
+    if not same:
+        raise AssertionError("NaN past the copy-on-write frontier or in the sink changed the "
+                             "warm suffix logits")
+    for name in ("k", "v"):
+        pool[name][:, 15] = saved[name]
+    # the default spin hides 3 ms of enqueue: a longer one hides the eager
+    # dispatch of 32 layers too, so these read device time
+    timer.SPIN_CYCLES = 160_000_000
+    warm_ms = timer.ms(warm, iters=10)
+    host_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    cold_cache = tf.make_kv_cache(cfg, 1, 1024, device="cuda")
+    lengths = torch.tensor([reader.shape[1]], device="cuda")
+    cold_ms = timer.ms(lambda: tf.prefill(params, reader, lengths, cold_cache, cfg), iters=5)
+    del timer.SPIN_CYCLES
+    weight_bytes = sum(t.numel() * t.element_size() for t in _param_leaves(params))
+    return {"p": p, "suffix": real, "width": width, "bit_equal": same,
+            "warm_admission_ms": warm_ms, "warm_admission_host_ms": sorted(host_ms)[2],
+            "cold_prefill_1024_ms": cold_ms,
+            "weight_bytes": weight_bytes,
+            "weight_stream_ms": weight_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def _param_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _param_leaves(v)]
+    return [tree]
+
+
+def phase_prefix(ctx: dict) -> None:
+    """Prefix KV reuse at llama-3-8b's full width and depth (bf16, paged,
+    page 64, max-batch 8): the preamble traffic with reuse on (16 aliased
+    pages a hit, no copy), the same traffic with reuse off (the pages and
+    TTFT it costs, and the cold logits the warm ones are held against),
+    and a copy-on-write pass (a 1000 bucket: 15 aliased pages and one
+    copied page a hit); then the planted-NaN check and the warm
+    admission's time."""
+    import torch
+
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    params = _llama_params(ctx)
+    warm = _serve_prefix(ctx, cfg, params, prefix=True)
+    _require_prefix_run(warm, cfg, copies_per_hit=0)
+    off = _serve_prefix(ctx, cfg, params, prefix=False)
+    _require_launches(off, "paged_decode", "decode_steps", cfg.n_layers)
+    cow = _serve_prefix(ctx, cfg, params, prefix=True, prefill_buckets=COW_BUCKETS)
+    _require_prefix_run(cow, cfg, copies_per_hit=1)
+    held = [warm["prompt_tokens"][1], warm["prompt_tokens"][-1]]  # shortest, longest turn
+    check = _warm_vs_cold(warm["_logits"], off["_logits"], held)
+    check_cow = _warm_vs_cold(cow["_logits"], off["_logits"], held)
+    agree = {
+        label: [sum(a == b for a, b in zip(x, y)) / len(y) for x, y in zip(run["_tokens"],
+                                                                           off["_tokens"])]
+        for label, run in (("alias", warm), ("cow", cow))
+    }
+    for label, run in (("alias", warm), ("off", off), ("cow", cow)):
+        log(f"prefix {label} llama-3-8b bf16 "
+            f"{json.dumps({k: v for k, v in run.items() if not k.startswith('_')})}")
+    log(f"prefix pages in use: reuse on {warm['peak_kv_pages_in_use']}, "
+        f"off {off['peak_kv_pages_in_use']}")
+    log(f"prefix warm vs cold logits alias {json.dumps(check)} cow {json.dumps(check_cow)}")
+    log(f"prefix greedy-token agreement with the cold run (printed, not required) "
+        f"{json.dumps(agree)}")
+    timer = Timer(torch)
+    nan_check = _prefix_nan_check(ctx, cfg, params, timer)
+    log(f"prefix copy-on-write nan check {json.dumps(nan_check)}")
+    del timer
+    ctx["prefix"] = {k: v for k, v in warm.items() if not k.startswith("_")}
+
+
 MOE_KW = {"max_seq_len": 4096}
 # a layer's int8 expert weights: gate, up and down of mixtral-8x7b's 8
 # experts (1.41 GB), each read once at the least
@@ -1926,7 +2263,8 @@ def kernel_record(ctx: dict) -> dict:
         ),
     }
     # every serving run's launches of each kernel (counts zeroed before each)
-    served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "moe")
+    served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "prefix",
+              "moe")
     out = []
     for name, (src, replaces, path) in sources.items():
         runs = ctx.get("kernel_runs", {}).get(name)

@@ -22,6 +22,18 @@ honours the keys this slice serves:
     wider than the widest bucket (up to max-seq-len - 1) prefill in
     segments of that width (the segment kernels; paged: straight into the
     request's pages). Any other value raises ValueError.
+  prefix-cache: auto | off (default off) → prefix KV reuse on the paged
+    layout: every prefill publishes its prompt's deepest bucket boundary
+    into a radix index as an alias of the slot's pages, and a later prompt
+    sharing that prefix (a chat's earlier turns, a RAG or agent preamble)
+    aliases those pages and prefills only its suffix (a prefix ending
+    mid-page costs one page copy). `prefix-cache-fraction` (default 0.25)
+    adds that share of the pool as headroom for the shared pages;
+    `prefix-cache-entries` (default 512) caps the index (0 disables reuse).
+    "auto" with kv-layout "dense" raises NotImplementedError (the dense
+    prefix pool is ROADMAP item 10). `host-kv-fraction` above 0 (a host-RAM
+    KV tier) raises NotImplementedError (ROADMAP item 9); `spill` takes
+    auto | off
   kv-cache-quantization: "int8" → int8 KV with per-token per-head scales
     (the int8 decode / segment kernels); "" / "none" → model dtype
   tokenizer: "byte" (the only value yet)
@@ -152,6 +164,24 @@ class TorchCompletionsService(CompletionsService):
         if layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv-layout {layout!r}; supported: paged, dense")
         self.kv_layout = layout
+        px = self.resource.get("prefix-cache", "off")
+        if not isinstance(px, bool) and str(px).lower() not in ("auto", "off"):
+            raise ValueError(f"unknown prefix-cache {px!r}; supported: auto, off")
+        self.prefix_cache = "auto" if px is True or str(px).lower() == "auto" else "off"
+        if self.prefix_cache == "auto" and layout == "dense":
+            raise NotImplementedError(
+                "prefix-cache on kv-layout dense: the dense prefix pool is not ported "
+                "(ROADMAP item 10); use kv-layout paged"
+            )
+        spill = self.resource.get("spill", "auto")
+        if not isinstance(spill, bool) and str(spill).lower() not in ("auto", "off"):
+            raise ValueError(f"unknown spill {spill!r}; supported: auto, off")
+        spill_off = spill is False or str(spill).lower() == "off"
+        if float(self.resource.get("host-kv-fraction", 0.0)) > 0 and not spill_off:
+            raise NotImplementedError(
+                "host-kv-fraction: the host-RAM KV tier (spill, hibernation) is not "
+                "ported (ROADMAP item 9)"
+            )
         quant = str(self.resource.get("quantization", "") or "").lower()
         if quant not in ("", "none", "int8"):
             raise ValueError(f"unknown quantization {quant!r}; supported: int8, none")
@@ -199,6 +229,13 @@ class TorchCompletionsService(CompletionsService):
                     restart_backoff_s=self.restart_backoff_s,
                     max_restarts=self.max_restarts,
                     fault_injector=self._fault_injector(),
+                    prefix_cache=self.prefix_cache,
+                    prefix_cache_fraction=float(self.resource.get("prefix-cache-fraction", 0.25)),
+                    prefix_cache_entries=(
+                        int(self.resource["prefix-cache-entries"])
+                        if self.resource.get("prefix-cache-entries") is not None
+                        else None
+                    ),
                 )
                 engine.start()
                 self._engine = engine

@@ -7,10 +7,12 @@ replaces ``lax.scan``), head-major KV caches ``[L, B, Hkv, T, D]`` and a
 page pool ``[L, P + 1, Hkv, page_size, D]`` (int8 caches are
 ``{"q": int8, "s": f32}`` dicts with per-token scales). Two KV layouts are
 served: the paged pool (``paged_prefill_segment_inplace`` for chunked
-prefill, ``paged_decode_step_inplace`` for decode) and the dense per-slot
-cache (``prefill_segment`` for chunked prefill, ``decode_step_inplace`` for
-decode). A config with ``n_experts > 0`` takes ``moe_ffn`` (Mixtral-style
-top-k routing with a capacity limit) in place of the dense FFN.
+prefill and warm prefix suffixes, ``paged_decode_step_inplace`` for
+decode, ``page_copy`` for a prefix alias's copy-on-write page) and the
+dense per-slot cache (``prefill_segment`` for chunked prefill,
+``decode_step_inplace`` for decode). A config with ``n_experts > 0``
+takes ``moe_ffn`` (Mixtral-style top-k routing with a capacity limit) in
+place of the dense FFN.
 
 Differences from the JAX package:
 
@@ -854,6 +856,22 @@ def paged_prefill_segment_inplace(
     x_last = x[torch.arange(b, device=dev), last]  # [B, D]
     logits = _unembed(params, x_last[:, None, :], config)[:, 0]
     return logits, pool
+
+
+@torch.no_grad()
+def page_copy(pool: KVCache, src: int, dst: int) -> KVCache:
+    """Copy ONE physical page across every layer and kv head, in place, for
+    every leaf (K and V; an int8 pool's codes and scales alike): the
+    copy-on-write a prefix alias needs when the cached prefix ends
+    mid-page. The page axis is axis 1 of every leaf (``[L, P + 1, Hkv, ps,
+    ...]``). Both indices clamp into ``[0, P]``, so a destination at the
+    sink (the sentinel) writes only the sink page, the port's drop."""
+    sink = pool_pages(pool)
+    src, dst = min(max(int(src), 0), sink), min(max(int(dst), 0), sink)
+    for name in ("k", "v"):
+        for leaf in (pool[name].values() if isinstance(pool[name], dict) else (pool[name],)):
+            leaf[:, dst].copy_(leaf[:, src])
+    return pool
 
 
 @torch.no_grad()

@@ -75,6 +75,24 @@ through a ``[..., :kv_bound]`` view; a long prompt's segments go into a
 batch-1 local cache (``prefill_segment``), inserted into the slot's row
 after the final one.
 
+Prefix KV reuse (``prefix_cache="auto"``, paged layout only): a radix
+index (``serving/pagepool.PrefixPageIndex``) maps bucket-aligned prompt
+prefixes to the pages that hold their KV. Every prefill that completes
+(a cold admit group, a warm admission, a long prompt's final segment)
+publishes the prompt's deepest bucket boundary by a refcount bump on the
+slot's leading pages — no device copy. An admission (``_paged_bind``)
+takes the deepest published prefix of its prompt: its full pages join the
+slot's table by a refcount bump, a prefix that ends mid-page costs one
+copy-on-write page copy (``page_copy``), and under pool pressure the LRU
+unpinned entries are evicted first. A warm short admission is then one
+batch-1 suffix segment at the reuse offset, straight into the slot's
+pages (MoE too: no pad rows, as the JAX engine runs it); a warm long
+prompt starts its segments at that offset. Decode reads the shared pages
+through every aliasing slot's table and writes only at positions past
+its prompt, never into a shared full page. A quarantined slot's published
+entries are evicted before its pages are zeroed, and a restart resets the
+index with the pool (its counters are cumulative).
+
 An MoE model's logits depend on the other rows of its batch (the experts'
 capacity is shared), so its admit groups are padded to ``PREFILL_BATCH``
 rows with the JAX engine's pad rows (token 0, length 1): the same groups
@@ -82,7 +100,8 @@ give the same tokens.
 
 Not ported yet (later slices): tenancy, brownout, priorities,
 ``max_cost_tokens``, observability spans and flight dumps, the SPMD
-watchdog, prefix reuse, speculation, adapters and grammars.
+watchdog, the host-RAM KV tier and hibernation (ROADMAP item 9), the dense
+layout's prefix pool (item 10), speculation, adapters and grammars.
 """
 
 from __future__ import annotations
@@ -106,6 +125,7 @@ from langstream_tpu_torch.models.transformer import (
     decode_step_inplace,
     dense_insert_cache,
     make_kv_cache,
+    page_copy,
     paged_decode_step_inplace,
     paged_insert_cache,
     paged_prefill_segment_inplace,
@@ -120,7 +140,7 @@ from langstream_tpu_torch.ops.attention import (
     kernel_path_ok,
 )
 from langstream_tpu_torch.serving.faultinject import FaultInjector
-from langstream_tpu_torch.serving.pagepool import PagePool, default_num_pages
+from langstream_tpu_torch.serving.pagepool import PagePool, PrefixPageIndex, pages_for_fraction
 from langstream_tpu_torch.serving.sampling import sample
 
 log = logging.getLogger(__name__)
@@ -410,6 +430,9 @@ class ServingEngine:
         restart_backoff_s: float = 0.1,
         max_restarts: int = 5,
         fault_injector: Optional[FaultInjector] = None,
+        prefix_cache: Any = "off",
+        prefix_cache_fraction: float = 0.25,
+        prefix_cache_entries: Optional[int] = None,
     ) -> None:
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; supported: paged, dense")
@@ -438,17 +461,37 @@ class ServingEngine:
         self._paged = kv_layout == "paged"
         self.page_size = max(1, int(page_size))
         self._pagepool: Optional[PagePool] = None
+        self._prefix_index: Optional[PrefixPageIndex] = None
         self._cache: Optional[KVCache] = None
+        prefix_on = prefix_cache is True or str(prefix_cache).lower() in (
+            "auto", "on", "true", "1"
+        )
+        if prefix_on and not self._paged:
+            raise NotImplementedError(
+                "prefix_cache on the dense layout: the dense prefix pool is not ported "
+                "(ROADMAP item 10); use kv_layout='paged'"
+            )
         if self._paged:
+            # the pool: every slot can reach max_seq_len, plus the prefix
+            # fraction's headroom for the pages the index holds
             num_pages = (
                 int(kv_pages)
                 if kv_pages is not None
-                else default_num_pages(self.max_batch, self.max_seq_len, self.page_size)
+                else pages_for_fraction(
+                    self.max_batch, self.max_seq_len, self.page_size,
+                    prefix_cache_fraction if prefix_on else 0.0,
+                )
             )
             self._pagepool = PagePool(
                 config, num_pages, self.page_size, self.max_batch, self.max_seq_len,
                 device=self.device,
             )
+            # prefix_cache_entries caps the index (0 disables reuse)
+            entries = (
+                int(prefix_cache_entries) if prefix_cache_entries is not None else 512
+            )
+            if prefix_on and entries > 0:
+                self._prefix_index = PrefixPageIndex(self.prefill_buckets, max_entries=entries)
         else:
             # + one sink column: a slot that finished mid-chunk keeps
             # advancing on the device, and its writes past max_seq_len land
@@ -530,6 +573,10 @@ class ServingEngine:
         self.graph_replays_total = 0
         self.graph_capture_s = 0.0
         self.graph_pool_bytes = 0
+        # prefix reuse: warm admissions (one suffix segment each) and
+        # copy-on-write page copies
+        self.warm_admissions_total = 0
+        self.page_copies_total = 0
 
     def _alloc_decode_state(self) -> None:
         """Fresh static buffers of the decode chunk: the chain (last sampled
@@ -831,7 +878,7 @@ class ServingEngine:
             self.shed_total += 1
 
     def stats(self) -> dict[str, Any]:
-        pool = self._pagepool
+        pool, index = self._pagepool, self._prefix_index
         with self._stats_lock:
             out = {
                 "device": str(self.device),
@@ -875,6 +922,26 @@ class ServingEngine:
                 # launches of each attention kernel in this process (CUDA,
                 # replays included) and calls of its plain version (CPU)
                 "kernels": kernel_counts(),
+                # prefix KV reuse (the JAX engine's keys and meanings; zeros
+                # with reuse off): a warm admission's prefill tokens count
+                # only its suffix, the saved ones count here
+                "prefix-cache": index is not None,
+                "prefix-cache-hit-rate": index.hit_rate() if index else 0.0,
+                "prefill-tokens-saved-total": index.tokens_saved if index else 0,
+                "prefix-copy-bytes-saved-total": index.copy_bytes_saved if index else 0,
+                "prefix-pool-bytes-in-use": (
+                    index.pages_held * pool.bytes_per_page if index else 0
+                ),
+                "prefix-cache-evictions-total": index.evictions if index else 0,
+                "prefix-cache-entries": index.live_entries if index else 0,
+                "kv-page-alias-rate": (
+                    round(pool.aliased_pages_total / max(1, pool.reserved_pages_total), 4)
+                    if pool else 0.0
+                ),
+                "kv-bytes-per-page": pool.bytes_per_page if pool else 0,
+                "warm-admissions-total": self.warm_admissions_total,
+                # copy-on-write page copies (one per mid-page prefix hit)
+                "page-copies-total": self.page_copies_total,
             }
         if pool is not None:
             out.update({
@@ -997,6 +1064,8 @@ class ServingEngine:
         self._graphs = {}
         if self._paged:
             self._pagepool.reset()
+            if self._prefix_index is not None:
+                self._prefix_index.reset()
         else:
             self._cache = None
             self._cache = make_kv_cache(
@@ -1160,8 +1229,13 @@ class ServingEngine:
         """Move queued requests into free slots, batched per prompt bucket
         into admit groups; returns the deferred first-token fetch entries.
         ``budget`` caps this iteration's prefill tokens, floored at one
-        full admission group. A group whose prefill fails (the ``prefill``
-        fault site) fails its own requests only."""
+        full admission group. Paged: once the slice is popped, each
+        admission binds its pages in pop order (``_paged_bind``, the JAX
+        engine's order): a prefix hit is admitted at once as a warm suffix
+        segment (which publishes before the next bind looks up), a pool
+        that cannot cover it defers it, the rest join the cold groups,
+        which publish after their prefill. A group whose prefill fails (the
+        ``prefill`` fault site) fails its own requests only."""
         free = [
             i for i, slot in enumerate(self._slots) if not slot.active and i not in self._longs
         ]
@@ -1196,30 +1270,30 @@ class ServingEngine:
                         break
                     self._long_queue.append(request)
                     continue
-                if not self._paged:
-                    pairs.append((idx, request))
-                    admitted_tokens += self._bucket(n)
-                    got = True
-                    continue
-                reserved = self._reserve_pages(idx, request)
-                if reserved is None:
-                    continue  # can never fit: resolved with ShedError
-                if not reserved:
-                    # pool exhausted: defer (retried first next iteration)
-                    self._page_deferred.appendleft(request)
-                    allow_new = False
-                    break
                 pairs.append((idx, request))
                 admitted_tokens += self._bucket(n)
                 got = True
             if not got:
                 break
+        entries: list[tuple] = []
+        if self._paged:
+            cold: list[tuple[int, GenerationRequest]] = []
+            for idx, request in pairs:
+                base = self._paged_bind(idx, request)
+                if base is None:
+                    # pool exhausted: defer (retried first next iteration)
+                    self._page_deferred.append(request)
+                elif base == 0:
+                    cold.append((idx, request))
+                elif base > 0:
+                    entries.extend(self._paged_prefill_prefix(idx, request, base))
+                # base < 0: can never fit, resolved with ShedError
+            pairs = cold
         groups: dict[int, list[tuple[int, GenerationRequest]]] = {}
         for idx, request in pairs:
             groups.setdefault(self._bucket(len(request.prompt_tokens)), []).append(
                 (idx, request)
             )
-        entries: list[tuple] = []
         for width, group in sorted(groups.items()):
             for start in range(0, len(group), self.PREFILL_BATCH):
                 sub = group[start:start + self.PREFILL_BATCH]
@@ -1235,15 +1309,20 @@ class ServingEngine:
                         request._finish(self._result(request, [], "error", error=e))
         return entries
 
-    def _reserve_pages(self, idx: int, request: GenerationRequest) -> Optional[bool]:
+    def _paged_bind(self, idx: int, request: GenerationRequest) -> Optional[int]:
         """Reserve slot ``idx``'s worst-case pages (prompt plus
-        max_new_tokens): True when bound, False when the pool cannot cover
-        them now (slot untouched), None when it never can — the request is
-        then resolved with ``ShedError``."""
-        pool = self._pagepool
-        need = pool.pages_needed(
-            len(request.prompt_tokens), max(1, request.options.max_new_tokens)
-        )
+        max_new_tokens), aliasing the deepest published prefix of the
+        prompt when the index has one: its full pages join the table by a
+        refcount bump (no copy), a prefix that ends mid-page gets one
+        copy-on-write page copy. The entry is pinned while this runs, and
+        under pool pressure the LRU unpinned entries are evicted first.
+        Returns the reuse offset (0: cold), None — slot untouched — when
+        the pool cannot cover the reservation now (the caller defers), or
+        -1 when it never can (the request is resolved with ``ShedError``).
+        The short and the long path both bind here."""
+        pool, index = self._pagepool, self._prefix_index
+        prompt = request.prompt_tokens
+        need = pool.pages_needed(len(prompt), max(1, request.options.max_new_tokens))
         if need > pool.num_pages:
             request._finish(self._result(
                 request, [], "error",
@@ -1252,8 +1331,115 @@ class ServingEngine:
                     f"{pool.num_pages}; raise kv-pages (or lower max-new-tokens)"
                 ),
             ))
-            return None
-        return pool.reserve(idx, need)
+            return -1
+        p, entry = 0, None
+        if index is not None:
+            # the deepest candidate still alive (an entry evicted since the
+            # list was built has no pages)
+            p, entry = next(
+                ((length, e) for length, e in reversed(index.candidates(prompt)) if e.pages),
+                (0, None),
+            )
+        shared: tuple[int, ...] = ()
+        cow_src = None
+        if entry is not None:
+            full = p // self.page_size
+            shared = entry.pages[:full]
+            if p % self.page_size:
+                cow_src = entry.pages[full]
+            index.acquire(entry)  # eviction below must not free it
+        try:
+            want_fresh = need - len(shared)
+            if index is not None and pool.free_pages < want_fresh:
+                index.evict_for(pool, want_fresh)
+            cow_dst = pool.reserve(idx, need, shared)
+            if cow_dst is None:
+                return None
+            if index is not None:
+                index.record_lookup(entry)
+            if entry is None:
+                return 0
+            if cow_src is not None:
+                page_copy(pool.dev, cow_src, cow_dst)
+                with self._stats_lock:
+                    self.page_copies_total += 1
+            index.tokens_saved += p
+            saved = int(p * pool.bytes_per_page / self.page_size) - (
+                pool.bytes_per_page if cow_src is not None else 0
+            )
+            index.copy_bytes_saved += max(saved, 0)
+            return p
+        finally:
+            if entry is not None:
+                index.release(entry)
+
+    def _paged_prefill_prefix(
+        self, idx: int, request: GenerationRequest, p: int
+    ) -> list[tuple]:
+        """A warm short admission: the aliased pages are already in the
+        slot's table (``_paged_bind``), so the device runs one batch-1
+        suffix segment of ``_bucket(len(suffix))`` tokens at offset ``p``
+        straight into the slot's pages (no pad rows, MoE included), then
+        samples the first token and seeds the chain. Publishes the prompt
+        before returning. A failed segment (the ``segment`` fault site)
+        fails this request only and frees its pages."""
+        prompt = request.prompt_tokens
+        suffix = prompt[p:]
+        width = self._bucket(len(suffix))
+        tokens = np.zeros((1, width), np.int64)
+        tokens[0, : len(suffix)] = suffix
+        opts = request.options
+        slots = np.array([idx], np.int64)
+        started = time.monotonic()
+        try:
+            if self._injector is not None:
+                self._injector.fire("segment")
+            logits, _ = paged_prefill_segment_inplace(
+                self.params, self._upload(tokens), self._upload(np.array([p], np.int64)),
+                self._upload(np.array([len(suffix)], np.int64)), self._pagepool.dev,
+                self._upload(self._pagepool.tables[idx : idx + 1]), self.config,
+                self.page_size, kv_bound=p + width,
+            )
+            first = self._seed_chain(
+                logits, slots, np.array([len(prompt)], np.int64),
+                np.array([opts.temperature], np.float32), np.array([opts.top_k], np.int64),
+                np.array([opts.top_p], np.float32),
+            )
+        except Exception as e:  # noqa: BLE001 — fail the request, not the engine
+            if _is_sticky(e):
+                raise
+            log.exception("warm prefix admission failed (p=%d)", p)
+            self._pagepool.free_slot(idx)
+            request._finish(self._result(request, [], "error", error=e))
+            return []
+        slot = self._slots[idx]
+        slot.request = request
+        slot.position = len(prompt)
+        slot.generated = []
+        slot.started_at = started
+        slot.first_token_at = 0.0
+        with self._stats_lock:
+            self.total_requests += 1
+            self.warm_admissions_total += 1
+            self.prefill_tokens_total += len(suffix)
+        self._maybe_publish(idx, prompt)
+        return [("prefill", self._fetcher.submit(first), [(idx, request)], 0)]
+
+    def _maybe_publish(self, idx: int, prompt: list[int]) -> None:
+        """Publish the prompt's deepest bucket boundary after its prefill:
+        host bookkeeping only — the slot's first ``ceil(p / page_size)``
+        pages join the index by a refcount bump. Skipped when reuse is
+        off, the prefix is already published, or no boundary fits."""
+        index = self._prefix_index
+        if index is None:
+            return
+        p = index.publish_length(len(prompt))
+        if p <= 0 or index.has(prompt, p):
+            return
+        n = -(-p // self.page_size)
+        owned = self._pagepool.slot_pages(idx)
+        if len(owned) >= n:
+            index.insert(self._pagepool, prompt, p, tuple(owned[:n]))
 
     def _prefill_group(self, width: int, group: list[tuple[int, GenerationRequest]]) -> list[tuple]:
         """One admit group: every (slot, request) pair of one prompt bucket,
@@ -1289,6 +1475,9 @@ class ServingEngine:
             self.total_requests += len(group)
             self.admit_groups_total += 1
             self.prefill_tokens_total += sum(len(r.prompt_tokens) for _, r in group)
+        if self._paged:
+            for idx, request in group:
+                self._maybe_publish(idx, request.prompt_tokens)
         return [("prefill", self._fetcher.submit(first), list(group), 0)]
 
     def _dev_prefill(self, tokens, lengths, temps, top_ks, top_ps, slots, rows: int):
@@ -1360,14 +1549,17 @@ class ServingEngine:
             if free is None:
                 break
             request = self._long_queue.pop(0)
+            base = 0
             if self._paged:
-                reserved = self._reserve_pages(free, request)
-                if reserved is None:
-                    continue  # can never fit: resolved with ShedError
-                if not reserved:
+                # any published boundary works: paged segments write at
+                # global positions, so the stream starts at the reuse offset
+                base = self._paged_bind(free, request)
+                if base is None:
                     self._long_queue.insert(0, request)  # waits for pages
                     break
-            self._longs[free] = {"idx": free, "request": request, "seg": 0}
+                if base < 0:
+                    continue  # can never fit: resolved with ShedError
+            self._longs[free] = {"idx": free, "request": request, "seg": 0, "base": base}
         # round-robin, so two streams alternate when the budget covers one
         order = sorted(self._longs)
         start_at = next((j for j, i in enumerate(order) if i > self._long_rr), 0)
@@ -1420,7 +1612,8 @@ class ServingEngine:
         dev = self.device
         prompt = request.prompt_tokens
         width = self.prefill_buckets[-1]
-        s0 = st["seg"] * width
+        # a warm paged stream starts at its reuse offset ``base``
+        s0 = st["base"] + st["seg"] * width
         seg = prompt[s0 : s0 + width]
         tokens = np.zeros((1, width), np.int64)
         tokens[0, : len(seg)] = seg
@@ -1475,6 +1668,8 @@ class ServingEngine:
         slot.first_token_at = 0.0
         with self._stats_lock:
             self.total_requests += 1
+        if self._paged:
+            self._maybe_publish(idx, prompt)
         return [("prefill", self._fetcher.submit(first), [(idx, request)], 0)]
 
     # -- decode dispatch -------------------------------------------------------
@@ -1523,9 +1718,14 @@ class ServingEngine:
             )
 
     def _quarantine_pages(self, idx: int) -> None:
-        """Free the slot's pages through the owned list and queue the freed
-        ones for zeroing at the top of the next iteration."""
-        self._pending_page_zero.extend(self._pagepool.free_slot(idx))
+        """Evict every prefix entry that shares the slot's pages (poisoned
+        KV is never aliased again), free the slot's pages through the owned
+        list and queue the ones no holder keeps for zeroing at the top of
+        the next iteration."""
+        pool = self._pagepool
+        if self._prefix_index is not None:
+            self._prefix_index.evict_touching(pool, pool.slot_pages(idx))
+        self._pending_page_zero.extend(pool.free_slot(idx))
 
     def _dispatch_chunk(self) -> Optional[tuple]:
         """Queue one decode chunk: the page-table integrity check (paged),
