@@ -106,7 +106,27 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    copy-on-write source page at and past the prefix's end and in the sink
    page must leave a warm suffix's logits bit-equal; the warm admission
    is timed (device and host) beside a cold 1024-token prefill.
-10. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
+10. ``spec``    — self-speculative decoding: llama-3-8b at full width and
+   depth, bf16, paged, page 64, max_seq_len 2048, max-batch 8, k 4. 8
+   requests of 400 byte tokens — 4 built to repeat (a 24-byte span cycled)
+   and 4 plain — 64 new tokens each, greedy, served with speculation on
+   (every decode iteration one verify: one graph replay, its attention the
+   paged decode kernel over the B x (k+1) queries flattened into
+   single-query rows) and then off, on fresh engines: tokens/s, TTFT, the
+   acceptance rate, accepted tokens a verify step, the draft hit rate, and
+   back-to-back replays' device and wall ms a verify step beside a decode
+   step's. Required: paged decode launches = layers x verify dispatches,
+   replays = verify dispatches, every request ending with its token count.
+   Greedy-token agreement of speculation against none is printed per
+   request, with the top-2 margin at the first diverging position (the
+   GEMMs' M differs, so exactness is not required on the card). Then a
+   verify replay against a direct call of ``_verify_chunk`` on a copy of
+   the same state (bit-equal), the kernel path's verify logits against the
+   reference path's (gathered masked read) on the same pool — within 5% of
+   the largest logit and top-1 equal at every one of the k+1 positions —
+   and NaN planted past every row's frontier and in the sink page leaving
+   the kernel path's verify logits bit-equal.
+11. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
    experts, top-2) with int8 weights drawn on the card (46.9 GB; the
    llama weights are dropped first), paged bf16 KV, max_seq_len 4096: 9
    requests of 21..3001 tokens, 32 new each (the 3001-token prompt takes 2
@@ -115,7 +135,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    reference path (a 200-token prompt, 4 paged decode steps) and one
    layer's ``moe_ffn`` timed at decode (8 tokens) and at a 2048-token
    segment beside its weight-byte bound.
-11. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+12. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
    and int8 page pools and the bf16 dense cache (8192 wide), traced with
    torch.profiler: the device's busy share of the wall and the top
    kernels (no split-K decode kernel may appear).
@@ -149,8 +169,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
-          "prefix", "moe", "profile")
-DEFAULT_PHASES = PHASES[:10]
+          "prefix", "spec", "moe", "profile")
+DEFAULT_PHASES = PHASES[:11]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -586,6 +606,92 @@ def _decode_case(torch, ctx, timer, int8: bool, lengths_list: tuple) -> dict:
     return rec
 
 
+def _verify_case(torch, ctx, timer) -> dict:
+    """The paged decode kernel at the spec phase's verify shape: B = 8 rows
+    of k + 1 = 5 queries, flattened on the card by ``verify_queries`` into
+    40 single-query rows, each row's 5 sharing its table (page 64, Tp = 32:
+    the engine's at max_seq_len 2048). Seven rows sit ~400 tokens in; the
+    last sits 3 columns before the table's end, so its last two queries'
+    lengths are capped at Tp·ps. Held against the plain version at the
+    decode tolerance, which must reject planted faults: every length one
+    long (a rejected draft's column read), one short, and the tables
+    shifted by one flattened query. Timed beside the same 40 queries over
+    pages of their own (each query its own copy of its row's pages: 5x the
+    bytes) and beside the 8 rows' first queries alone (the decode step's
+    launch at these lengths)."""
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.models.transformer import verify_queries
+    from langstream_tpu_torch.ops.attention import (
+        paged_decode_reference,
+        ragged_paged_decode_attention,
+    )
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    s, tp = SPEC_KW["speculation_tokens"] + 1, SPEC_KW["max_seq_len"] // PAGE
+    rng = random.Random(ctx["seed"] + 200)
+    positions = [SPEC_PROMPT - 1 + rng.randrange(64) for _ in range(7)] + [tp * PAGE - 3]
+    # each row's readable columns: through its last draft, at most the table
+    columns = [min(p + s, tp * PAGE) for p in positions]
+    table, num_pages = _paged_table(torch, rng, columns, 0)
+    assert table.shape[1] == tp
+    table = table.cuda()
+    flat, lengths = verify_queries(table, torch.tensor(positions, device="cuda"), s, PAGE)
+    if lengths[-3:].tolist() != [tp * PAGE] * 3:
+        raise AssertionError(f"verify lengths not capped at the table: {lengths.tolist()}")
+    g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 201)
+    q = torch.randn((len(lengths), H, D), generator=g, device="cuda").to(torch.bfloat16)
+    shape = (num_pages + 1, HKV, PAGE, D)  # + the sink page
+    k, v = _pool_entry(torch, g, shape, False), _pool_entry(torch, g, shape, False)
+    out = ragged_paged_decode_attention(q, k, v, lengths, flat, cfg, PAGE)
+    ref = paged_decode_reference(q, k, v, lengths, flat, cfg, PAGE)
+    planted = {
+        "lengths_one_long": paged_decode_reference(
+            q, k, v, (lengths + 1).clamp_max(tp * PAGE), flat, cfg, PAGE
+        ),
+        "lengths_one_short": paged_decode_reference(q, k, v, lengths - 1, flat, cfg, PAGE),
+        "tables_shifted_one_query": paged_decode_reference(
+            q, k, v, lengths, flat.roll(1, 0), cfg, PAGE
+        ),
+    }
+    check = hold(f"paged_decode verify B={len(positions)}x{s}", out, ref, DECODE_TOL, planted)
+    del planted
+    # the same 40 queries, each over its own copy of its row's pages
+    own, own_pages = _paged_table(torch, rng, lengths.tolist(), 0)
+    own = own.cuda()
+    ok, ov = (_pool_entry(torch, g, (own_pages + 1, HKV, PAGE, D), False) for _ in range(2))
+    first = torch.arange(0, len(lengths), s, device="cuda")
+    keys = sum(columns)
+    nbytes = (
+        keys * HKV * D * 2 * 2  # each row's K and V columns, read once for its 5 queries
+        + 2 * len(lengths) * H * D * 2  # q in, out
+        + len(lengths) * 4 + sum(math.ceil(n / PAGE) for n in lengths.tolist()) * 4
+    )
+    flops = 4.0 * int(lengths.sum()) * H * D  # q.k and p.v per (key, query head)
+    rec = {
+        "shape": f"verify B={len(positions)} x {s} queries (40 rows), positions "
+                 f"{positions}, table {tp} pages of {PAGE}, H={H} Hkv={HKV} D={D} bf16",
+        **check,
+        "ms": timer.ms(lambda: ragged_paged_decode_attention(q, k, v, lengths, flat, cfg, PAGE)),
+        "plain_ms": timer.ms(
+            lambda: paged_decode_reference(q, k, v, lengths, flat, cfg, PAGE), iters=5
+        ),
+        "library_ms": None,  # no single PyTorch call reads a paged pool
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3,
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_F32_FLOPS
+                     else "operations"),
+        "own_pages_ms": timer.ms(
+            lambda: ragged_paged_decode_attention(q, ok, ov, lengths, own, cfg, PAGE)
+        ),
+        "first_queries_ms": timer.ms(lambda: ragged_paged_decode_attention(
+            q[first], k, v, lengths[first], table, cfg, PAGE
+        )),
+    }
+    rec["gbps"] = nbytes / (rec["ms"] * 1e-3) / 1e9
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    log(f"kernel paged_decode verify {json.dumps(rec)}")
+    return rec
+
+
 def _sdpa(torch, q, k, v, mask):
     """One scaled_dot_product_attention call over q [B, H, S, D] and GQA
     k/v [B, Hkv, T, D] with a boolean mask (True = attend); K/V are
@@ -980,6 +1086,8 @@ def phase_kernels(ctx: dict) -> None:
         name = "paged_decode_int8" if int8 else "paged_decode"
         ctx["kernel_runs"][name] = [_decode_case(torch, ctx, timer, int8, lengths)
                                     for lengths in (DECODE_LENGTHS, DECODE_LENGTHS_LONG)]
+    # the spec phase's flattened verify shape, before the widest (the record's)
+    ctx["kernel_runs"]["paged_decode"].insert(1, _verify_case(torch, ctx, timer))
     for int8 in (False, True):
         name = "flash_segment_int8" if int8 else "flash_segment"
         ctx["kernel_runs"][name] = [
@@ -1008,10 +1116,14 @@ def _prompts(n_bytes: list[int], seed: int) -> list[str]:
     return ["".join(rng.choice(alphabet) for _ in range(n)) for n in n_bytes]
 
 
-def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int, **engine_kw) -> dict:
+def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int, prompts=None,
+           steady: bool = False, **engine_kw) -> dict:
     """Warm the engine with one short request, zero the kernel counts, serve
-    the batch, read the counts; checks every request's tokens, and that no
-    kernel's plain version ran."""
+    the batch (``prompts`` as token lists, else byte prompts of ``n_bytes``),
+    read the counts; checks every request's tokens, that no kernel's plain
+    version ran, and that every decode chunk or speculative verify was one
+    graph replay. With ``prompts`` the run keeps its tokens (``_tokens``);
+    ``steady`` adds back-to-back replays' times once the engine stopped."""
     import torch
 
     from langstream_tpu_torch.models.configs import GenerationOptions
@@ -1027,7 +1139,9 @@ def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int, **engine_kw) -
     engine.start()
     try:
         engine.generate(tok.encode("warm up"), GenerationOptions(max_new_tokens=4), timeout=600)
-        prompts = [tok.encode(p) for p in _prompts(n_bytes, ctx["seed"])]
+        keep = prompts is not None
+        if not keep:
+            prompts = [tok.encode(p) for p in _prompts(n_bytes, ctx["seed"])]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = engine.stats()
@@ -1038,7 +1152,7 @@ def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int, **engine_kw) -
         results = [r.result(timeout=900) for r in reqs]
         wall = time.monotonic() - t0
         counts = kernel_counts()
-        after = engine.stats()
+        run_replays = engine.stats()["graph-replays-total"] - before["graph-replays-total"]
     finally:
         engine.stop()
     plain = {k: v["cpu_calls"] for k, v in counts.items() if v["cpu_calls"]}
@@ -1051,17 +1165,37 @@ def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int, **engine_kw) -
             raise AssertionError(f"request of {len(p)} tokens gave {len(r.tokens)} tokens")
         if any(t < 0 or t >= cfg.vocab_size for t in r.tokens):
             raise AssertionError(f"request of {len(p)} tokens has out-of-range tokens")
+    with torch.no_grad():
+        steady_replays = _replay_rate(torch, engine) if steady else None
+        if steady:
+            steady_replays["top_kernels"] = _replay_profile(torch, engine)
+    after = engine.stats()
     groups = after["admit-groups-total"] - before["admit-groups-total"]
     segments = after["prefill-segments-total"] - before["prefill-segments-total"]
     steps = after["decode-steps-total"] - before["decode-steps-total"]
     chunks = after["decode-chunks-total"] - before["decode-chunks-total"]
-    replays = after["graph-replays-total"] - before["graph-replays-total"]
-    # every decode chunk of the run is one replay of a graph start() captured
-    if chunks <= 0 or replays != chunks or after["graph-captures-total"] != 3:
-        raise AssertionError(f"{chunks} decode chunks but {replays} graph replays, "
-                             f"{after['graph-captures-total']} captures")
+    verifies = after["spec-verify-dispatches-total"] - before["spec-verify-dispatches-total"]
+    replays = run_replays
+    # every decode chunk (with speculation: every verify) of the run is one
+    # replay of a graph start() captured
+    dispatches = chunks + verifies
+    if dispatches <= 0 or replays != dispatches or after["graph-captures-total"] != 3:
+        raise AssertionError(f"{chunks} decode chunks and {verifies} verifies but {replays} "
+                             f"graph replays, {after['graph-captures-total']} captures")
     generated = sum(len(r.tokens) for r in results)
     ttfts = sorted(r.ttft_s for r in results)
+    spec = {}
+    if after["speculation"]:
+        spec = {
+            "verify_dispatches": verifies,
+            "spec_acceptance_rate": after["spec-acceptance-rate"],
+            "spec_accepted_tokens_per_step": after["spec-accepted-tokens-per-step"],
+            "spec_draft_hit_rate": after["spec-draft-hit-rate"],
+            "spec_draft_tokens": after["spec-draft-tokens-total"]
+            - before["spec-draft-tokens-total"],
+            "spec_accepted_tokens": after["spec-accepted-tokens-total"]
+            - before["spec-accepted-tokens-total"],
+        }
     return {
         "requests": len(results),
         "prompt_tokens": [len(p) for p in prompts],
@@ -1082,6 +1216,10 @@ def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int, **engine_kw) -
         "graph_captures": after["graph-captures-total"],
         "graph_capture_s": after["graph-capture-s"],
         "graph_pool_bytes": after["graph-pool-bytes"],
+        **spec,
+        **({"steady_replays": steady_replays} if steady else {}),
+        **({"request_total_s": [r.total_s for r in results],
+            "_tokens": [r.tokens for r in results]} if keep else {}),
     }
 
 
@@ -1449,12 +1587,14 @@ GRAPHS_KW = {"max_seq_len": 2048}
 
 
 def _decode_state(engine) -> list:
-    """Every tensor a decode chunk reads or writes: the KV pool or cache,
-    the chain, the sampling params, the dispatch table and the output."""
+    """Every tensor a decode chunk (with speculation: a verify) reads or
+    writes: the KV pool or cache, the chain, the sampling params, the
+    dispatch table (and the drafts), and the output, last."""
     tree = engine._pagepool.dev if engine._paged else engine._cache
     leaves = [leaf for e in tree.values() for leaf in (e.values() if isinstance(e, dict) else (e,))]
+    out = engine._verify_out if engine._spec_enabled else engine._chunk_out
     chain = (engine._tokens_dev, engine._positions_dev, engine._temp_dev, engine._top_k_dev,
-             engine._top_p_dev, engine._table_dev, engine._chunk_out)
+             engine._top_p_dev, engine._table_dev, engine._drafts_dev, out)
     return leaves + [t for t in chain if t is not None]
 
 
@@ -2044,6 +2184,252 @@ def phase_prefix(ctx: dict) -> None:
     ctx["prefix"] = {k: v for k, v in warm.items() if not k.startswith("_")}
 
 
+SPEC_KW = {"max_seq_len": 2048, "speculation_tokens": 4}
+SPEC_PROMPT = 400
+SPEC_NEW = 64
+
+
+def _spec_prompts(seed: int) -> list[list[int]]:
+    """8 prompts of SPEC_PROMPT byte tokens (BOS first): 4 built to repeat —
+    a 24-byte span cycled — and 4 plain random text."""
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    texts = _prompts([24] * 4 + [SPEC_PROMPT] * 4, seed + 3)
+    repeated = [tok.encode(t * (SPEC_PROMPT // 24 + 1))[:SPEC_PROMPT] for t in texts[:4]]
+    return repeated + [tok.encode(t)[:SPEC_PROMPT] for t in texts[4:]]
+
+
+def _first_divergence(ctx, cfg, params, prompt, a: list, b: list):
+    """The first generated position where two greedy runs differ, with the
+    top-2 logits there on the kernel path (a prefill of the prompt and the
+    tokens both runs share): a small margin is a near-tie that rounding of
+    another GEMM shape can flip. None when the runs agree."""
+    import torch
+
+    from langstream_tpu_torch.models import transformer as tf
+
+    i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if i is None:
+        return None
+    context = torch.tensor([prompt + a[:i]], dtype=torch.long, device="cuda")
+    n = context.shape[1]
+    cache = tf.make_kv_cache(cfg, 1, n, device="cuda")
+    logits, _ = tf.prefill(params, context, torch.tensor([n], device="cuda"), cache, cfg)
+    top = torch.topk(logits[0].float(), 2)
+    return {"position": i, "spec": a[i], "off": b[i], "top2": top.indices.tolist(),
+            "margin": (top.values[0] - top.values[1]).item(),
+            "margin_rel": ((top.values[0] - top.values[1]) / logits[0].abs().max()).item()}
+
+
+def _verify_replay_check(ctx, cfg, params, prompts) -> dict:
+    """One captured verify against a direct call of ``_verify_chunk`` on a
+    copy of the same state, hand-driven at full width: the 8 prompts
+    admitted through the engine's own admission, drafts proposed from their
+    indexes, then the greedy verify replayed and, from the same state,
+    called directly — the output and the pool must be bit-equal."""
+    import gc
+
+    import torch
+
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.serving.engine import ServingEngine
+
+    engine = ServingEngine(cfg, params, max_batch=8, page_size=PAGE, rng_seed=ctx["seed"],
+                           device="cuda", speculation="auto", **SPEC_KW)
+    engine._capture_graphs()
+    with torch.no_grad():
+        _hand_admit(engine, prompts, GenerationOptions(max_new_tokens=SPEC_NEW))
+        # a few verifies first, so the indexes hold cycles to propose from
+        for _ in range(6):
+            engine._process_entry(engine._dispatch_verify())
+        proposed = engine._propose_drafts()
+        branch = engine._branch()
+        engine._prepare_chunk()
+        prepared = _snapshot(engine)
+        engine._run_chunk(branch)
+        replayed = _snapshot(engine)
+        _restore(engine, prepared)
+        del prepared
+        engine._verify_chunk(*branch)
+        torch.cuda.synchronize()
+        rec = {"replay_vs_direct": _differs(engine, replayed),
+               "proposed": proposed.tolist(),
+               "accepted": engine._verify_out[:, -1].tolist()}
+        del replayed
+    rec["graph_captures"] = engine.stats()["graph-captures-total"]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rec["replay_vs_direct"] != {"tokens": False, "state": 0}:
+        raise AssertionError(f"verify replay differs from the direct call: {rec}")
+    return rec
+
+
+def _verify_reference_check(ctx, cfg, params, prompts) -> dict:
+    """The kernel path's verify against the reference path's on the same
+    pool: the prompts' K/V prefilled (kernel path) into their pages, one
+    copy for each path; then one verify of each row's last prompt token and
+    the 4 tokens the prompt's own repetition continues with, at the row's
+    length — logits within MODEL_REL_TOL of the largest reference logit,
+    and top-1 equal at every one of the k+1 positions of every row. A
+    position whose top-1 differs passes only as a tie that both paths see
+    in the logits they emit (bf16 out of the head): the reference's logit
+    of the kernel's top-1 within one bf16 ulp (at its top's magnitude)
+    below the reference's top-1, the kernel's logit of the reference's
+    top-1 within one ulp below the kernel's; and at most 1 in 8 positions
+    so. Every such tie is printed, with the two tokens' gaps in the head's
+    f32 output (each path's last hidden states through the final norm and
+    the lm_head again in f32: whether the tie is more than the bf16
+    rounding); any other difference fails. Then NaN in every pool column
+    past each row's frontier (position + k) and in the sink page must
+    leave the kernel path's logits bit-equal."""
+    import torch
+
+    from langstream_tpu_torch.models import transformer as tf
+
+    k = SPEC_KW["speculation_tokens"]
+    ref_cfg = dataclasses.replace(cfg, attention_impl="jnp")
+    b, n = len(prompts), SPEC_PROMPT
+    per_row = math.ceil((n + k + 1) / PAGE)
+    tp = SPEC_KW["max_seq_len"] // PAGE
+    num_pages = b * per_row
+    table = torch.full((b, tp), num_pages, dtype=torch.int32, device="cuda")
+    for row in range(b):
+        table[row, :per_row] = torch.arange(row * per_row, (row + 1) * per_row,
+                                            dtype=torch.int32, device="cuda")
+    tokens = torch.tensor(prompts, dtype=torch.long, device="cuda")
+    cache = tf.make_kv_cache(cfg, b, n, device="cuda")
+    tf.prefill(params, tokens, torch.full((b,), n, device="cuda"), cache, cfg)
+    pool = tf.make_page_pool(cfg, num_pages, PAGE, device="cuda")
+    tf.paged_insert_cache(pool, cache, table, PAGE)
+    del cache
+    # the verify inputs: the last prompt token, then what the prompt's
+    # period continues with (a repeated prompt's drafts are right)
+    inputs = torch.stack([torch.tensor(p[n - 1:n] + [p[n - 24 + j] for j in range(k)])
+                          for p in prompts]).to("cuda")
+    positions = torch.full((b,), n - 1, dtype=torch.long, device="cuda")
+    ref_pool = {name: pool[name].clone() for name in ("k", "v")}
+    hidden = []  # each path's last hidden states, as the head takes them (for f32 gaps)
+    unembed = tf._unembed
+
+    def keep(p, x, c):
+        hidden.append(x)
+        return unembed(p, x, c)
+
+    tf._unembed = keep
+    try:
+        kernel = tf.paged_verify_step_inplace(params, inputs, positions, pool, table, cfg,
+                                              PAGE)[0]
+        reference = tf.paged_verify_step_inplace(params, inputs, positions, ref_pool, table,
+                                                 ref_cfg, PAGE)[0]
+    finally:
+        tf._unembed = unembed
+    head = params["lm_head"].float()
+    f32 = [tf.rms_norm(x, params["final_norm"], cfg.rms_norm_eps).float() @ head
+           for x in hidden]
+    del head, hidden
+    rec: dict = {"rows": b, "positions": k + 1, "tolerance": MODEL_REL_TOL}
+    rels, ties, flips = [], [], []
+    eps = torch.finfo(torch.bfloat16).eps
+    for row in range(b):
+        for j in range(k + 1):
+            a, r = kernel[row, j].float(), reference[row, j].float()
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"verify row {row} position {j}: non-finite logits")
+            rels.append(((a - r).abs().max() / r.abs().max()).item())
+            got, top = int(torch.argmax(a)), int(torch.argmax(r))
+            if got == top:
+                continue
+            gaps = {"reference_gap": (r[top] - r[got]).item(),
+                    "kernel_gap": (a[got] - a[top]).item()}
+            ulps = [eps * 2.0 ** math.floor(math.log2(abs(x[i].item())))
+                    for x, i in ((r, top), (a, got))]
+            fa, fr = f32[0][row, j], f32[1][row, j]
+            (ties if gaps["reference_gap"] <= ulps[0] and gaps["kernel_gap"] <= ulps[1]
+             else flips).append({
+                "row": row, "position": j, "reference_top1": top, "kernel_top1": got,
+                **gaps, "bf16_ulp": ulps[0], "reference_gap_f32": (fr[top] - fr[got]).item(),
+                "kernel_gap_f32": (fa[got] - fa[top]).item(),
+            })
+    rec.update({"max_rel_err": max(rels), "rel_err_by_row": [
+        [round(x, 5) for x in rels[i * (k + 1):(i + 1) * (k + 1)]] for i in range(b)
+    ], "top1_ties_within_one_ulp": ties, "top1_unequal": flips})
+    log(f"spec verify reference numbers {json.dumps(rec)}")
+    if max(rels) > MODEL_REL_TOL:
+        raise AssertionError(f"verify logits: rel err {max(rels)} > {MODEL_REL_TOL}")
+    if flips or 8 * len(ties) > b * (k + 1):
+        raise AssertionError(f"verify top-1 differs from the reference path: {flips}, "
+                             f"{len(ties)} one-ulp ties of {b * (k + 1)} positions")
+    # NaN past every row's frontier (its own pages past position + k, and
+    # the sink): the same verify again must give the same bits
+    for row in range(b):
+        frontier = n - 1 + k
+        for lp in range(per_row):
+            first = max(0, frontier + 1 - lp * PAGE)
+            if first < PAGE:
+                for name in ("k", "v"):
+                    pool[name][:, row * per_row + lp, :, first:] = float("nan")
+    for name in ("k", "v"):
+        pool[name][:, num_pages] = float("nan")
+    again = tf.paged_verify_step_inplace(params, inputs, positions, pool, table, cfg, PAGE)[0]
+    rec["nan_past_frontier_bit_equal"] = bool(torch.equal(again, kernel))
+    if not rec["nan_past_frontier_bit_equal"]:
+        raise AssertionError("NaN past the verify frontier or in the sink changed the logits")
+    return rec
+
+
+def phase_spec(ctx: dict) -> None:
+    """Self-speculative decoding at llama-3-8b's full width and depth (bf16,
+    paged, page 64, max-batch 8, k 4): the 8 requests with speculation on
+    and then off (fresh engines, a fresh sink), their steady replays, the
+    agreement of their greedy tokens; then the replay, reference and
+    planted-NaN checks of the verify."""
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    params = _llama_params(ctx)
+    prompts = _spec_prompts(ctx["seed"])
+    on = _serve(ctx, cfg, params, [], SPEC_NEW, prompts=prompts, steady=True,
+                speculation="auto", **SPEC_KW)
+    _require_launches(on, "paged_decode", "verify_dispatches", cfg.n_layers)
+    _require_launches(on, "flash_prefill", "admit_groups", cfg.n_layers)
+    if on["decode_chunks"] != 0:
+        raise AssertionError(f"spec: {on['decode_chunks']} decode chunks beside the verifies")
+    off = _serve(ctx, cfg, params, [], SPEC_NEW, prompts=prompts, steady=True,
+                 max_seq_len=SPEC_KW["max_seq_len"])
+    _require_launches(off, "paged_decode", "decode_steps", cfg.n_layers)
+    agree, diverge = [], []
+    for prompt, a, b in zip(prompts, on["_tokens"], off["_tokens"]):
+        agree.append(sum(x == y for x, y in zip(a, b)) / max(1, len(b)))
+        diverge.append(_first_divergence(ctx, cfg, params, prompt, a, b))
+    for label, run in (("on", on), ("off", off)):
+        log(f"spec {label} llama-3-8b bf16 "
+            f"{json.dumps({k: v for k, v in run.items() if not k.startswith('_')})}")
+    verify, decode = on["steady_replays"], off["steady_replays"]
+    log("spec summary " + json.dumps({
+        "tokens_per_s_on": on["tokens_per_s"], "tokens_per_s_off": off["tokens_per_s"],
+        "speedup": on["tokens_per_s"] / off["tokens_per_s"],
+        "verify_step_device_ms": verify["device_ms_per_step"],
+        "verify_step_wall_ms": verify["wall_ms_per_step"],
+        "decode_step_device_ms": decode["device_ms_per_step"],
+        "decode_step_wall_ms": decode["wall_ms_per_step"],
+        "acceptance_rate": on["spec_acceptance_rate"],
+        "accepted_tokens_per_step": on["spec_accepted_tokens_per_step"],
+        "draft_hit_rate": on["spec_draft_hit_rate"],
+        "verify_dispatches": on["verify_dispatches"],
+    }))
+    log(f"spec greedy-token agreement with speculation off, per request (printed, not "
+        f"required; the first 4 prompts repeat) {json.dumps(agree)}")
+    log(f"spec first divergence per request {json.dumps(diverge)}")
+    replay = _verify_replay_check(ctx, cfg, params, prompts)
+    log(f"spec verify replay check {json.dumps(replay)}")
+    reference = _verify_reference_check(ctx, cfg, params, prompts)
+    log(f"spec verify reference check: max rel err {reference['max_rel_err']}, NaN past the "
+        f"frontier bit-equal {reference['nan_past_frontier_bit_equal']}")
+    ctx["spec"] = {k: v for k, v in on.items() if not k.startswith("_")}
+
+
 MOE_KW = {"max_seq_len": 4096}
 # a layer's int8 expert weights: gate, up and down of mixtral-8x7b's 8
 # experts (1.41 GB), each read once at the least
@@ -2167,9 +2553,10 @@ def phase_moe(ctx: dict) -> None:
 
 
 def _replay_rate(torch, engine, chunks: int = 4) -> dict:
-    """Back-to-back replays of the greedy chunk on a burst's engine (its
-    slots idle by then): the card's time per decode step, the wall's, and
-    the host's time to queue one chunk."""
+    """Back-to-back replays of the greedy chunk (with speculation: the
+    greedy verify) on a burst's engine (its slots idle by then): the card's
+    time per decode step (per verify step), the wall's, and the host's time
+    to queue one chunk."""
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.monotonic()
@@ -2180,12 +2567,29 @@ def _replay_rate(torch, engine, chunks: int = 4) -> dict:
     host_ms = (time.monotonic() - t0) * 1e3
     torch.cuda.synchronize()
     wall_ms = (time.monotonic() - t0) * 1e3
-    steps = chunks * engine.decode_chunk
+    steps = chunks * (1 if engine._spec_enabled else engine.decode_chunk)
     return {
         "device_ms_per_step": start.elapsed_time(end) / steps,
         "wall_ms_per_step": wall_ms / steps,
         "host_ms_per_chunk": host_ms / chunks,
     }
+
+
+def _replay_profile(torch, engine, replays: int = 3) -> list:
+    """The device kernels of back-to-back greedy replays under
+    torch.profiler, grouped by kernel name: [name, device ms per step,
+    launches per step] of the 12 that took the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(replays):
+            engine._run_chunk((False, False))
+        torch.cuda.synchronize()
+    steps = replays * (1 if engine._spec_enabled else engine.decode_chunk)
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    return [[e.key[:70], e.self_device_time_total / 1e3 / steps, e.count / steps] for e in top]
 
 
 def phase_profile(ctx: dict) -> None:
@@ -2264,7 +2668,7 @@ def kernel_record(ctx: dict) -> dict:
     }
     # every serving run's launches of each kernel (counts zeroed before each)
     served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "prefix",
-              "moe")
+              "spec", "moe")
     out = []
     for name, (src, replaces, path) in sources.items():
         runs = ctx.get("kernel_runs", {}).get(name)

@@ -34,6 +34,16 @@ honours the keys this slice serves:
     prefix pool is ROADMAP item 10). `host-kv-fraction` above 0 (a host-RAM
     KV tier) raises NotImplementedError (ROADMAP item 9); `spill` takes
     auto | off
+  speculation: auto | off (default off) → self-speculative decoding on the
+    paged layout: a per-slot n-gram index over prompt and emitted tokens
+    proposes drafts, and each decode iteration verifies them in one
+    dispatch (one graph replay on the card; the paged decode kernel reads
+    the k + 1 queries of a row as single-query rows), so one read of the
+    weights emits up to k + 1 tokens a slot on repetitive text. Greedy
+    output is the same as without it; sampled output keeps its
+    distribution (rejection sampling). `speculation-tokens` (default 4,
+    at least 1) is k, one value engine-wide. "auto" with kv-layout "dense"
+    raises NotImplementedError (the dense verify is ROADMAP item 10)
   kv-cache-quantization: "int8" → int8 KV with per-token per-head scales
     (the int8 decode / segment kernels); "" / "none" → model dtype
   tokenizer: "byte" (the only value yet)
@@ -173,6 +183,20 @@ class TorchCompletionsService(CompletionsService):
                 "prefix-cache on kv-layout dense: the dense prefix pool is not ported "
                 "(ROADMAP item 10); use kv-layout paged"
             )
+        spec = self.resource.get("speculation", "off")
+        if not isinstance(spec, bool) and str(spec).lower() not in ("auto", "off"):
+            raise ValueError(f"unknown speculation {spec!r}; supported: auto, off")
+        self.speculation = "auto" if spec is True or str(spec).lower() == "auto" else "off"
+        self.speculation_tokens = int(self.resource.get("speculation-tokens", 4))
+        if self.speculation_tokens < 1:
+            raise ValueError(
+                f"speculation-tokens must be >= 1, got {self.speculation_tokens}"
+            )
+        if self.speculation == "auto" and layout == "dense":
+            raise NotImplementedError(
+                "speculation on kv-layout dense: the dense verify is not ported "
+                "(ROADMAP item 10); use kv-layout paged"
+            )
         spill = self.resource.get("spill", "auto")
         if not isinstance(spill, bool) and str(spill).lower() not in ("auto", "off"):
             raise ValueError(f"unknown spill {spill!r}; supported: auto, off")
@@ -236,6 +260,8 @@ class TorchCompletionsService(CompletionsService):
                         if self.resource.get("prefix-cache-entries") is not None
                         else None
                     ),
+                    speculation=self.speculation,
+                    speculation_tokens=self.speculation_tokens,
                 )
                 engine.start()
                 self._engine = engine

@@ -8,7 +8,8 @@ page pool ``[L, P + 1, Hkv, page_size, D]`` (int8 caches are
 ``{"q": int8, "s": f32}`` dicts with per-token scales). Two KV layouts are
 served: the paged pool (``paged_prefill_segment_inplace`` for chunked
 prefill and warm prefix suffixes, ``paged_decode_step_inplace`` for
-decode, ``page_copy`` for a prefix alias's copy-on-write page) and the
+decode, ``paged_verify_step_inplace`` for a speculative verify of k+1
+tokens a row, ``page_copy`` for a prefix alias's copy-on-write page) and the
 dense per-slot cache (``prefill_segment`` for chunked prefill,
 ``decode_step_inplace`` for decode). A config with ``n_experts > 0``
 takes ``moe_ffn`` (Mixtral-style top-k routing with a capacity limit) in
@@ -26,7 +27,11 @@ Differences from the JAX package:
   tables (= ``num_pages``) lands there instead of being dropped; nothing
   ever reads it as valid data (every read stays inside a row's length,
   and the length mask makes the rest harmless), so the sink is the drop
-  without a host sync. A dense cache that may be written past its end
+  without a host sync. One exception: a verify query on the card whose
+  position lies past its row's reserved pages reads its own column back
+  from the sink. Its token is never delivered, but sampling's NaN guard
+  looks at every verify position, so the sink must hold finite values
+  while speculation runs. A dense cache that may be written past its end
   (the engine's big cache, where a slot that finished mid-chunk keeps
   advancing; a long prompt's local cache, whose last padded segment can
   overrun it) is allocated with one extra last column, the SINK COLUMN:
@@ -40,12 +45,19 @@ Differences from the JAX package:
 - A paged segment on the kernel path gathers the pages it can read into a
   contiguous temporary and runs the segment kernel on it; the JAX package
   reads the whole gathered table with its reference attention there.
+- A paged verify on the card flattens its B x (k+1) queries into single-
+  query rows for the paged decode kernel (``verify_queries``); the JAX
+  package computes verify attention with its masked read, which the port
+  keeps as the reference path (the CPU's).
+- The paged reference read zeroes V (an int8 pool's V scales) at columns
+  no query of the row can see: a masked probability is exactly 0, which
+  leaves every finite result bit-equal, but 0 x NaN is NaN.
 - ``moe_ffn`` computes the JAX package's function without its ``[T, k, E,
   C]`` one-hots: rows scatter into per-expert buffers, the expert FFN runs
   as batched matmuls over the experts, outputs gather back.
 
-Not ported yet: the verify entry points, LoRA, ring attention and
-``encode``.
+Not ported yet: the dense verify (``verify_step_inplace``), LoRA, ring
+attention and ``encode``.
 """
 
 from __future__ import annotations
@@ -454,12 +466,16 @@ def _paged_scatter_entry(entry, vals: torch.Tensor, table: torch.Tensor,
 def _paged_gather_entry(entry, table: torch.Tensor, page_size: int):
     """Dense head-major view of every slot's logical columns: a pool entry
     [P + 1, Hkv, ps, D] gathered through ``table`` [B, Tp] →
-    [B, Hkv, Tp*ps, D] (physical pages clamped into range; int8 dicts
-    gather q and s alike). The reference read of ``attention_impl="jnp"``."""
+    [B, Hkv, Tp*ps, D] (int8 dicts gather q and s alike). The reference
+    read of ``attention_impl="jnp"`` (and of a verify on the CPU). Physical
+    pages clamp into the real pages [0, P - 1], as the JAX package's
+    clipped gather reads them: a sentinel entry reads the last real page,
+    never the sink, so a column past a row's reservation reads what it
+    reads in JAX (only a verify's columns can be visible there)."""
 
     def gather(a: torch.Tensor) -> torch.Tensor:
         b, tp = table.shape
-        g = a[table.long().clamp(0, a.shape[0] - 1)]  # [B, Tp, Hkv, ps, ...]
+        g = a[table.long().clamp(0, a.shape[0] - 2)]  # [B, Tp, Hkv, ps, ...]
         g = g.movedim(2, 1)  # [B, Hkv, Tp, ps, ...]
         return g.reshape((b, a.shape[1], tp * page_size) + tuple(a.shape[3:]))
 
@@ -489,6 +505,33 @@ def _gather_pages(entry, rows: torch.Tensor, batch: int):
     return _map(gather, entry)
 
 
+def _hide_columns(entry, visible: torch.Tensor):
+    """A gathered V entry [B, Hkv, T, D] (int8: its scales [B, Hkv, T])
+    with the columns ``visible`` [B, T] marks False set to 0."""
+    if isinstance(entry, dict):
+        return {"q": entry["q"], "s": entry["s"].masked_fill(~visible[:, None, :], 0.0)}
+    return entry.masked_fill(~visible[:, None, :, None], 0.0)
+
+
+def verify_queries(
+    table: torch.Tensor, positions: torch.Tensor, s: int, page_size: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel path's flattening of a paged verify: the ``s`` queries of
+    each of B rows become B*s single-query rows of the paged decode kernel.
+    Query j of row b gets row b's table and the length ``positions[b] + j +
+    1``, capped at the table's ``Tp * page_size`` columns → (table [B*s,
+    Tp] int32, lengths [B*s] int32). It then reads exactly the columns the
+    verify's causal mask shows it: its own draft and the ones before, never
+    a later (stale or rejected) draft's; the cap keeps the kernel's plan
+    from reading table entries past the row for columns past the table
+    (whose writes went to the sink)."""
+    b, tp = table.shape
+    flat = table.to(torch.int32)[:, None, :].expand(b, s, tp).reshape(b * s, tp).contiguous()
+    pos = positions.long()[:, None] + torch.arange(s, device=positions.device)[None, :]
+    lengths = (pos + 1).clamp_max(tp * page_size).to(torch.int32).reshape(b * s)
+    return flat, lengths
+
+
 def _paged_mask(table: torch.Tensor, page_size: int, positions: torch.Tensor) -> torch.Tensor:
     """Causal mask over the gathered paged view: logical column t of slot b
     is visible to query j iff t <= positions[b, j]."""
@@ -516,7 +559,8 @@ def _layer(
     cache_kv: Optional[tuple] = None,
     cache_index: Optional[tuple] = None,  # dense scatter index (_dense_index)
     causal: bool = True,
-    # (table [B, Tp] i32, page_size, lengths, scatter index, segment read)
+    # (read table [B, Tp] i32, page_size, kernel lengths, scatter index,
+    # segment read); a flattened verify's table and lengths are per query
     paged: Optional[tuple] = None,
     kv_offset: Optional[torch.Tensor] = None,
     kv_bound: Optional[int] = None,
@@ -531,9 +575,11 @@ def _layer(
     on the kernel path a segment (a segment read: the pool rows of the
     pages it can read, ``_page_rows``, and its readable columns) runs the
     segment kernel over those pages gathered at ``kv_offset``, a
-    single-token step reads through the table with the paged decode
-    kernel; the reference path reads the gathered table. The FFN is
-    ``moe_ffn`` for an MoE config, else ``dense_ffn``."""
+    single-token step — or a verify's queries flattened into single-query
+    rows (``verify_queries``) — reads through the table with the paged
+    decode kernel (``lengths`` given); the reference path reads the
+    gathered table under ``mask``, V zeroed where no query of the row can
+    see. The FFN is ``moe_ffn`` for an MoE config, else ``dense_ffn``."""
     b, s, _ = x.shape
     hd = config.resolved_head_dim
 
@@ -556,17 +602,18 @@ def _layer(
                 q, _gather_pages(ck, rows, b), _gather_pages(cv, rows, b), None, config, True,
                 kv_offset=kv_offset, kv_bound=bound,
             )
-        elif s == 1 and kernel_path_ok(config, x.device):
+        elif lengths is not None:
             kernel = (
                 ragged_paged_decode_attention_int8
                 if isinstance(ck, dict)
                 else ragged_paged_decode_attention
             )
-            attn = kernel(q[:, 0].contiguous(), ck, cv, lengths, table, config, page_size)
-            attn = attn[:, None, :]
+            flat_q = q.reshape(b * s, config.n_heads, hd).contiguous()
+            attn = kernel(flat_q, ck, cv, lengths, table, config, page_size)
+            attn = attn.reshape(b, s, config.n_heads * hd)
         else:
             k_all = _paged_gather_entry(ck, table, page_size)
-            v_all = _paged_gather_entry(cv, table, page_size)
+            v_all = _hide_columns(_paged_gather_entry(cv, table, page_size), mask.any(dim=1))
             attn = attention(q, k_all, v_all, mask, config)
     else:
         if cache_kv is not None:
@@ -787,10 +834,11 @@ def paged_decode_step_inplace(
     pos2 = positions[:, None]
     sin, cos = _rope_freqs(pos2, config)
     table = table.to(torch.int32).contiguous()
-    mask = None
-    if not kernel_path_ok(config, tokens.device):
+    mask, lengths = None, None
+    if kernel_path_ok(config, tokens.device):
+        lengths = (positions + 1).to(torch.int32)
+    else:
         mask = _paged_mask(table, page_size, pos2)
-    lengths = (positions + 1).to(torch.int32)
     # one page lookup per step serves every layer's K/V scatter
     index = _scatter_index(table, pos2, page_size, pool_pages(pool), config.n_kv_heads)
     x = _embed(params, tokens[:, None], config)
@@ -800,6 +848,56 @@ def paged_decode_step_inplace(
             cache_kv=_cache_layer(pool, i), paged=(table, page_size, lengths, index, None),
         )
     return _unembed(params, x, config)[:, 0], pool
+
+
+@torch.no_grad()
+def paged_verify_step_inplace(
+    params: Params,
+    tokens: torch.Tensor,  # [B, K+1]: each row's current token and its K drafts
+    positions: torch.Tensor,  # [B] position of each row's first token
+    pool: KVCache,  # page pool [L, P + 1, Hkv, ps, D]
+    table: torch.Tensor,  # [B, Tp] physical page per logical page
+    config: ModelConfig,
+    page_size: int,
+) -> tuple[torch.Tensor, KVCache]:
+    """Multi-token speculative verify through the page table → logits at
+    every position ``[B, K+1, V]``; the pool is updated in place. K/V of all
+    K+1 inputs scatter at ``[positions, positions + K]`` (unmapped pages and
+    columns past the table into the sink). Positions advance only past the
+    accepted tokens, so a rejected draft's column is stale until the next
+    dispatch overwrites it, before any query can reach it.
+
+    Query j of row b attends to the columns ``<= positions[b] + j``. On the
+    kernel path the B*(K+1) queries run through the paged decode kernel as
+    single-query rows (``verify_queries``): one launch a layer, the kernel
+    math of plain decode (on CPU tensors, its plain version). With
+    ``attention_impl="jnp"`` the gathered table is read under the causal
+    mask — the JAX package's ``multitoken_verify_attention``.
+
+    An MoE config sends T = B*(K+1) tokens through ``moe_ffn``: the
+    capacity floor keeps C = T while T <= 64 (max batch 8 at K 4 is 40), so
+    no verify token is dropped and a row's logits do not depend on the
+    other rows'."""
+    b, s = tokens.shape
+    dev = tokens.device
+    positions = positions.long()
+    pos = positions[:, None] + torch.arange(s, device=dev)[None, :]  # [B, K+1]
+    sin, cos = _rope_freqs(pos, config)
+    table = table.to(torch.int32).contiguous()
+    mask, lengths, read_table = None, None, table
+    if kernel_path_ok(config, dev):
+        read_table, lengths = verify_queries(table, positions, s, page_size)
+    else:
+        mask = _paged_mask(table, page_size, pos)
+    # one page lookup per verify serves every layer's K/V scatter
+    index = _scatter_index(table, pos, page_size, pool_pages(pool), config.n_kv_heads)
+    x = _embed(params, tokens, config)
+    for i in range(config.n_layers):
+        x = _layer(
+            x, _layer_params(params["layers"], i), sin, cos, mask, config,
+            cache_kv=_cache_layer(pool, i), paged=(read_table, page_size, lengths, index, None),
+        )
+    return _unembed(params, x, config), pool
 
 
 @torch.no_grad()

@@ -98,10 +98,31 @@ capacity is shared), so its admit groups are padded to ``PREFILL_BATCH``
 rows with the JAX engine's pad rows (token 0, length 1): the same groups
 give the same tokens.
 
+Self-speculative decoding (``speculation="auto"``, paged layout only):
+every admission seeds the slot's n-gram index
+(``serving/speculation.NGramIndex``) with its whole prompt, and every
+delivered token joins it. Each decode iteration is then one verify instead
+of a decode chunk: the host drains every fetch in flight (drafts must
+continue from the last accepted token), proposes up to
+``speculation_tokens`` (k) drafts a slot, copies them into the static
+``[B, k]`` draft buffer, and replays the captured ``_verify_chunk`` — one
+``paged_verify_step_inplace`` over each slot's token and its drafts, then
+``speculative_verify`` — which advances the chain in place (the token at
+the accepted length, ``positions += accept + 1``) and writes the packed
+``[B, k + 2]`` output (emitted tokens and the accepted count). The host
+delivers accept + 1 tokens a slot through the same ``_deliver_token`` as
+decode chunks, so stop, length, cancel, deadline and the NaN sentinel act
+mid-verify as they do mid-chunk. ``start()`` captures the verify once per
+sampling branch instead of the decode chunk. A slot with no proposal rides
+the verify with zero drafts: acceptance is decided against the model's own
+outputs, so a draft never changes what greedy decode emits. Publish
+boundaries stay prompt rows written by prefill, never verify columns.
+
 Not ported yet (later slices): tenancy, brownout, priorities,
 ``max_cost_tokens``, observability spans and flight dumps, the SPMD
 watchdog, the host-RAM KV tier and hibernation (ROADMAP item 9), the dense
-layout's prefix pool (item 10), speculation, adapters and grammars.
+layout's prefix pool and verify (item 10), adapters and grammars (and with
+them the constrained verify, item 8).
 """
 
 from __future__ import annotations
@@ -129,6 +150,7 @@ from langstream_tpu_torch.models.transformer import (
     paged_decode_step_inplace,
     paged_insert_cache,
     paged_prefill_segment_inplace,
+    paged_verify_step_inplace,
     prefill,
     prefill_segment,
 )
@@ -141,7 +163,8 @@ from langstream_tpu_torch.ops.attention import (
 )
 from langstream_tpu_torch.serving.faultinject import FaultInjector
 from langstream_tpu_torch.serving.pagepool import PagePool, PrefixPageIndex, pages_for_fraction
-from langstream_tpu_torch.serving.sampling import sample
+from langstream_tpu_torch.serving.sampling import sample, speculative_verify
+from langstream_tpu_torch.serving.speculation import NGramIndex
 
 log = logging.getLogger(__name__)
 
@@ -433,6 +456,8 @@ class ServingEngine:
         prefix_cache: Any = "off",
         prefix_cache_fraction: float = 0.25,
         prefix_cache_entries: Optional[int] = None,
+        speculation: Any = "off",
+        speculation_tokens: int = 4,
     ) -> None:
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; supported: paged, dense")
@@ -471,6 +496,20 @@ class ServingEngine:
                 "prefix_cache on the dense layout: the dense prefix pool is not ported "
                 "(ROADMAP item 10); use kv_layout='paged'"
             )
+        # self-speculative decoding: host-side n-gram drafts, k of them per
+        # slot and iteration, scored in one verify dispatch; one k
+        # engine-wide (its static buffers and graphs have k + 1 columns)
+        spec_on = speculation is True or str(speculation).lower() in (
+            "auto", "on", "true", "1"
+        )
+        if spec_on and not self._paged:
+            raise NotImplementedError(
+                "speculation on the dense layout: the dense verify (verify_step_inplace) "
+                "is not ported (ROADMAP item 10); use kv_layout='paged'"
+            )
+        self._spec_enabled = spec_on
+        self.spec_tokens = max(1, int(speculation_tokens)) if spec_on else 0
+        self._spec_index: dict[int, NGramIndex] = {}
         if self._paged:
             # the pool: every slot can reach max_seq_len, plus the prefix
             # fraction's headroom for the pages the index holds
@@ -577,13 +616,25 @@ class ServingEngine:
         # copy-on-write page copies
         self.warm_admissions_total = 0
         self.page_copies_total = 0
+        # speculation (the JAX engine's counters): verify dispatches, drafts
+        # proposed and accepted (capped at each proposal's length), tokens
+        # delivered by verifies, (active slot, verify) pairs, and index
+        # lookups with a proposal among them
+        self.spec_dispatches_total = 0
+        self.spec_draft_tokens_total = 0
+        self.spec_accepted_tokens_total = 0
+        self.spec_emitted_tokens_total = 0
+        self.spec_slot_steps_total = 0
+        self.spec_draft_lookups_total = 0
+        self.spec_draft_hits_total = 0
 
     def _alloc_decode_state(self) -> None:
         """Fresh static buffers of the decode chunk: the chain (last sampled
         token and next write position per slot), the per-slot sampling
         params, the dispatch page table (paged; every row the sentinel) and
-        the ``[steps, B]`` output. The graphs hold raw pointers to these:
-        they are only ever written in place."""
+        the ``[steps, B]`` output; with speculation, the verify's ``[B, k]``
+        drafts and its packed ``[B, k + 2]`` output. The graphs hold raw
+        pointers to these: they are only ever written in place."""
         dev = self.device
         b = self.max_batch
         self._tokens_dev = torch.zeros(b, dtype=torch.long, device=dev)
@@ -592,6 +643,9 @@ class ServingEngine:
         self._top_k_dev = torch.zeros(b, dtype=torch.long, device=dev)
         self._top_p_dev = torch.ones(b, dtype=torch.float32, device=dev)
         self._chunk_out = torch.zeros((self.decode_chunk, b), dtype=torch.long, device=dev)
+        k = self.spec_tokens
+        self._drafts_dev = torch.zeros((b, k), dtype=torch.long, device=dev) if k else None
+        self._verify_out = torch.zeros((b, k + 2), dtype=torch.long, device=dev) if k else None
         self._table_dev: Optional[torch.Tensor] = None
         self._table_uploaded: Optional[np.ndarray] = None
         if self._paged:
@@ -665,8 +719,9 @@ class ServingEngine:
     # -- the captured decode chunk ---------------------------------------------
 
     def _capture_graphs(self) -> None:
-        """Capture ``_decode_chunk`` once per sampling branch, in
-        ``DECODE_BRANCHES`` order, into one shared pool — on the card with
+        """Capture ``_decode_chunk`` (with speculation: ``_verify_chunk``,
+        instead) once per sampling branch, in ``DECODE_BRANCHES`` order,
+        into one shared pool — on the card with
         ``torch.cuda.CUDAGraph`` after one warm-up call of each branch on the
         side stream, off the card only with a stand-in ``_graph_factory``.
         Each graph's kernel launches are counted at capture and removed
@@ -678,6 +733,7 @@ class ServingEngine:
             return  # the CPU calls the chunk function directly
         t0 = time.monotonic()
         reserved0 = 0
+        chunk_fn = self._verify_chunk if self._spec_enabled else self._decode_chunk
         with torch.no_grad():
             if factory is None:
                 stream = torch.cuda.Stream(self.device)
@@ -685,11 +741,13 @@ class ServingEngine:
                 stream.wait_stream(torch.cuda.current_stream(self.device))
                 with torch.cuda.stream(stream):
                     for branch in DECODE_BRANCHES:
-                        self._decode_chunk(*branch)
+                        chunk_fn(*branch)
                 torch.cuda.current_stream(self.device).wait_stream(stream)
                 torch.cuda.synchronize(self.device)
                 # the graph pool's bytes: what stays reserved past the
-                # captures once every releasable block went back
+                # captures once every releasable block went back (garbage
+                # of earlier engines too, or the difference goes negative)
+                gc.collect()
                 torch.cuda.empty_cache()
                 reserved0 = torch.cuda.memory_reserved(self.device)
 
@@ -707,7 +765,7 @@ class ServingEngine:
                 for branch in DECODE_BRANCHES:
                     graph = factory()
                     before = count_snapshot()
-                    graph.capture(lambda b=branch: self._decode_chunk(*b))
+                    graph.capture(lambda b=branch: chunk_fn(*b))
                     delta = count_delta(before, count_snapshot())
                     add_counts(delta, -1)
                     graphs[branch] = (graph, delta)
@@ -723,7 +781,8 @@ class ServingEngine:
             self.graph_capture_s += time.monotonic() - t0
             if cuda:
                 self.graph_pool_bytes = torch.cuda.memory_reserved(self.device) - reserved0
-        log.info("captured %d decode graphs in %.2fs", len(graphs), time.monotonic() - t0)
+        log.info("captured %d %s graphs in %.2fs", len(graphs),
+                 "verify" if self._spec_enabled else "decode", time.monotonic() - t0)
 
     def _decode_chunk(self, samples: bool, filters: bool, kv_bound: Optional[int] = None) -> None:
         """One decode chunk over the static buffers: ``decode_chunk`` x
@@ -755,6 +814,31 @@ class ServingEngine:
             self._positions_dev.add_(1)
             self._chunk_out[step].copy_(tokens)
 
+    def _verify_chunk(self, samples: bool, filters: bool) -> None:
+        """One speculative verify over the static buffers: each slot's
+        current token and its k drafts through ``paged_verify_step_inplace``
+        at ``[position, position + k]``, then ``speculative_verify``; the
+        chain advances in place to the emitted token at the accepted length
+        (``positions += accept + 1``) and ``_verify_out`` receives the
+        emitted tokens and the accepted count — nothing rebound, no host
+        sync, so the graphs capture it as they capture ``_decode_chunk``.
+        Rows of the dispatch table that are not active are the sentinel, so
+        their (discarded) verify writes only into the sink page."""
+        k = self.spec_tokens
+        inputs = torch.cat([self._tokens_dev[:, None], self._drafts_dev], dim=1)  # [B, k+1]
+        logits, _ = paged_verify_step_inplace(
+            self.params, inputs, self._positions_dev, self._pagepool.dev, self._table_dev,
+            self.config, self.page_size,
+        )
+        out, accept = speculative_verify(
+            logits, self._drafts_dev, self._generator, self._temp_dev, self._top_k_dev,
+            self._top_p_dev, samples, filters,
+        )
+        self._tokens_dev.copy_(torch.gather(out, 1, accept[:, None])[:, 0])
+        self._positions_dev.add_(accept + 1)
+        self._verify_out[:, : k + 1].copy_(out)
+        self._verify_out[:, k + 1].copy_(accept)
+
     def _branch(self) -> tuple[bool, bool]:
         """The sampling branch the active slots need (host predicates)."""
         opts = [s.request.options for s in self._slots if s.active]
@@ -782,14 +866,17 @@ class ServingEngine:
         self._table_uploaded = tables.copy()
 
     def _run_chunk(self, branch: tuple[bool, bool]) -> None:
-        """Run one decode chunk: replay its captured graph and add the
-        graph's launches to the kernel counts — or, on the CPU without a
-        stand-in graph, call the chunk function (dense: with the exact
-        bound)."""
+        """Run one decode chunk (with speculation: one verify): replay its
+        captured graph and add the graph's launches to the kernel counts —
+        or, on the CPU without a stand-in graph, call the chunk function
+        (dense: with the exact bound)."""
         captured = self._graphs.get(branch)
         if captured is None:
             if self.device.type == "cuda" or self._graph_factory is not None:
                 raise RuntimeError("no captured decode graph: start() captures them")
+            if self._spec_enabled:
+                self._verify_chunk(*branch)
+                return
             kv_bound = None if self._paged else self._decode_kv_bound(self.decode_chunk)
             self._decode_chunk(*branch, kv_bound=kv_bound)
             return
@@ -942,6 +1029,25 @@ class ServingEngine:
                 "warm-admissions-total": self.warm_admissions_total,
                 # copy-on-write page copies (one per mid-page prefix hit)
                 "page-copies-total": self.page_copies_total,
+                # self-speculative decoding (the JAX engine's keys, rounding
+                # and meanings; zeros with speculation off)
+                "speculation": self._spec_enabled,
+                "speculation-tokens": self.spec_tokens,
+                "spec-acceptance-rate": (
+                    round(self.spec_accepted_tokens_total / self.spec_draft_tokens_total, 4)
+                    if self.spec_draft_tokens_total else 0.0
+                ),
+                "spec-accepted-tokens-per-step": (
+                    round(self.spec_emitted_tokens_total / self.spec_slot_steps_total, 4)
+                    if self.spec_slot_steps_total else 0.0
+                ),
+                "spec-draft-hit-rate": (
+                    round(self.spec_draft_hits_total / self.spec_draft_lookups_total, 4)
+                    if self.spec_draft_lookups_total else 0.0
+                ),
+                "spec-draft-tokens-total": self.spec_draft_tokens_total,
+                "spec-accepted-tokens-total": self.spec_accepted_tokens_total,
+                "spec-verify-dispatches-total": self.spec_dispatches_total,
             }
         if pool is not None:
             out.update({
@@ -1061,6 +1167,7 @@ class ServingEngine:
         self._freed_slots.clear()
         self._pending_row_resets.clear()
         self._pending_page_zero.clear()
+        self._spec_index.clear()
         self._graphs = {}
         if self._paged:
             self._pagepool.reset()
@@ -1099,7 +1206,21 @@ class ServingEngine:
             for entry in new_pending:
                 self._process_entry(entry)
             new_pending = []
-        if any(s.active for s in self._slots):
+        if self._spec_enabled and (new_pending or pending or any(s.active for s in self._slots)):
+            # a verify's drafts continue from the last accepted token, which
+            # only the fetches in flight know: drain them all first (the
+            # pipelining speculation gives up for its k + 1 tokens a read)
+            while pending:
+                for entry in pending.popleft():
+                    self._process_entry(entry)
+            for entry in new_pending:
+                self._process_entry(entry)
+            new_pending = []
+            if any(s.active for s in self._slots):
+                verify = self._dispatch_verify()
+                if verify is not None:
+                    new_pending.append(verify)
+        elif any(s.active for s in self._slots):
             chunk = self._dispatch_chunk()
             if chunk is not None:
                 new_pending.append(chunk)
@@ -1418,12 +1539,23 @@ class ServingEngine:
         slot.generated = []
         slot.started_at = started
         slot.first_token_at = 0.0
+        self._spec_admit(idx, prompt)
         with self._stats_lock:
             self.total_requests += 1
             self.warm_admissions_total += 1
             self.prefill_tokens_total += len(suffix)
         self._maybe_publish(idx, prompt)
         return [("prefill", self._fetcher.submit(first), [(idx, request)], 0)]
+
+    def _spec_admit(self, idx: int, prompt: list[int]) -> None:
+        """Give an admitted slot its draft index, seeded with the whole
+        prompt (a warm admission's aliased prefix too): the prompt is where
+        repeated spans live. Delivered tokens join it in
+        ``_deliver_token``, never a verify's rejected columns."""
+        if self._spec_enabled:
+            index = NGramIndex()
+            index.extend(prompt)
+            self._spec_index[idx] = index
 
     def _maybe_publish(self, idx: int, prompt: list[int]) -> None:
         """Publish the prompt's deepest bucket boundary after its prefill:
@@ -1471,6 +1603,7 @@ class ServingEngine:
             slot.generated = []
             slot.started_at = started
             slot.first_token_at = 0.0
+            self._spec_admit(idx, request.prompt_tokens)
         with self._stats_lock:
             self.total_requests += len(group)
             self.admit_groups_total += 1
@@ -1666,6 +1799,7 @@ class ServingEngine:
         slot.generated = []
         slot.started_at = time.monotonic()
         slot.first_token_at = 0.0
+        self._spec_admit(idx, prompt)
         with self._stats_lock:
             self.total_requests += 1
         if self._paged:
@@ -1749,9 +1883,62 @@ class ServingEngine:
             self.decode_steps_total += steps
         return ("chunk", self._fetcher.submit(self._chunk_out), snapshot, steps)
 
+    def _propose_drafts(self) -> np.ndarray:
+        """Up to k drafts per active slot from its n-gram index, counted
+        (lookups, hits, draft tokens) and copied into the static ``[B, k]``
+        buffer in place (pinned, asynchronous; zeros where a slot has no
+        proposal) → each slot's proposal length."""
+        k = self.spec_tokens
+        drafts = np.zeros((self.max_batch, k), np.int64)
+        proposed = np.zeros(self.max_batch, np.int64)
+        lookups = hits = tokens = 0
+        for i, slot in enumerate(self._slots):
+            index = self._spec_index.get(i)
+            if not slot.active or index is None:
+                continue
+            prop = index.propose(k)
+            lookups += 1
+            if prop:
+                hits += 1
+                tokens += len(prop)
+                drafts[i, : len(prop)] = prop
+                proposed[i] = len(prop)
+        with self._stats_lock:
+            self.spec_draft_lookups_total += lookups
+            self.spec_draft_hits_total += hits
+            self.spec_draft_tokens_total += tokens
+        self._drafts_dev.copy_(self._upload(drafts), non_blocking=True)
+        return proposed
+
+    def _dispatch_verify(self) -> Optional[tuple]:
+        """Queue one speculative verify: the page-table integrity check, up
+        to k drafts per active slot from its n-gram index (host-side; a
+        slot with no proposal rides with zero drafts), the drafts copied
+        into the static buffer in place (pinned, asynchronous), the
+        ``decode`` fault site (a raise crashes the loop into the restart
+        path), the host writes of a decode chunk, then the replay; the
+        packed ``[B, k + 2]`` output goes to the fetch thread right behind
+        it. None when the integrity check quarantined every active slot."""
+        self._page_integrity_check()
+        if not any(s.active for s in self._slots):
+            return None
+        proposed = self._propose_drafts()
+        if self._injector is not None:
+            self._injector.fire("decode")
+        branch = self._branch()
+        self._prepare_chunk()
+        self._run_chunk(branch)
+        snapshot = [(i, s.request) for i, s in enumerate(self._slots) if s.active]
+        with self._stats_lock:
+            self.spec_dispatches_total += 1
+        return ("verify", self._fetcher.submit(self._verify_out), snapshot, proposed)
+
     # -- host processing -------------------------------------------------------
 
     def _process_entry(self, entry: tuple) -> None:
+        if entry[0] == "verify":
+            self._process_verify(entry)
+            return
         if entry[0] == "prefill":
             _, fetch, group, _ = entry
             first = fetch.result()
@@ -1775,6 +1962,37 @@ class ServingEngine:
                 slot.position += 1
                 self._deliver_token(idx, int(host[s, idx]))
                 if slot.request is not request:  # finished mid-chunk
+                    break
+
+    def _process_verify(self, entry: tuple) -> None:
+        """Host half of a verify: the packed ``[B, k + 2]`` fetch (emitted
+        tokens, accepted count; the ``verify`` fault site may poison one
+        slot's row), then accept + 1 tokens a slot through
+        ``_deliver_token``. A slot's accepted drafts count up to its real
+        proposal's length (zero drafts that match the model are luck, not
+        drafts); emitted tokens count per token delivered."""
+        _, fetch, snapshot, proposed = entry
+        host = fetch.result()
+        if self._injector is not None:
+            host = self._injector.corrupt_verify(host, snapshot)
+        out, accept = host[:, :-1], host[:, -1]
+        for idx, request in snapshot:
+            slot = self._slots[idx]
+            if slot.request is not request:  # freed / reassigned meanwhile
+                continue
+            n_acc = int(accept[idx])
+            with self._stats_lock:
+                if proposed[idx] > 0:
+                    self.spec_accepted_tokens_total += min(n_acc, int(proposed[idx]))
+                self.spec_slot_steps_total += 1
+            for j in range(n_acc + 1):
+                slot.position += 1
+                token = int(out[idx, j])
+                if token >= 0:
+                    with self._stats_lock:
+                        self.spec_emitted_tokens_total += 1
+                self._deliver_token(idx, token)
+                if slot.request is not request:  # finished mid-verify
                     break
 
     def _deliver_token(self, idx: int, token: int) -> None:
@@ -1820,6 +2038,10 @@ class ServingEngine:
             self._finish_slot(idx, "stop")
             return
         slot.generated.append(token)
+        index = self._spec_index.get(idx)
+        if index is not None:
+            # the next verify's drafts continue from the delivered token
+            index.append(token)
         with self._stats_lock:
             self.total_generated += 1
         if request.on_token is not None:
@@ -1853,6 +2075,7 @@ class ServingEngine:
         slot.request = None
         slot.generated = []
         slot.position = 0
+        self._spec_index.pop(idx, None)
         self._freed_slots.append(idx)
         if self._paged:
             self._pagepool.free_slot(idx)
@@ -1873,6 +2096,7 @@ class ServingEngine:
         self._long_queue.clear()
         self._longs.clear()
         self._held_back = None
+        self._spec_index.clear()
         for i, slot in enumerate(self._slots):
             if slot.request is not None:
                 doomed.append(slot.request)

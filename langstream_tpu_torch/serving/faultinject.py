@@ -11,11 +11,14 @@ Sites the port's engine consults:
   prefill   raise before an admit group's dispatch (fails that group)
   segment   raise before a chunked-prefill segment's dispatch (fails that
             stream)
-  decode    raise before a decode chunk's replay (crashes the engine loop:
-            quarantine, device-state rebuild, graph re-capture, restart
-            under backoff)
+  decode    raise before a decode chunk's or a speculative verify's
+            replay (crashes the engine loop: quarantine, device-state
+            rebuild, graph re-capture, restart under backoff)
   nan       overwrite one active slot's fetched tokens with the NaN-guard
             sentinel (per-slot quarantine: dense rows or pages zeroed)
+  verify    poison one active slot's row of a fetched verify result (its
+            first emitted token the NaN-guard sentinel, accept 0): that
+            slot alone is quarantined, the others deliver untouched
   page      corrupt one active slot's host page-table row (the paged
             layout's pre-dispatch integrity check must quarantine only
             that slot and free its pages through the owned list)
@@ -23,7 +26,7 @@ Sites the port's engine consults:
   client    stall token delivery before the on_token callback (slow
             client)
 
-The other sites of the grammar (verify, adapter, spill, weight-load, the
+The other sites of the grammar (adapter, spill, weight-load, the
 durable disk sites, the fleet-wire net sites, migrate, tenant-burst and the
 SPMD sites) are accepted so a spec written for the JAX package parses, but
 no part of the port consults them until their tiers are ported.
@@ -195,6 +198,25 @@ class FaultInjector:
         host = np.array(host)
         host[:, victim] = NAN_SENTINEL
         return host, victim
+
+    def corrupt_verify(self, packed, snapshot):
+        """``verify`` site: corrupt one active slot's row of a fetched
+        verify result (``[B, k + 2]``: emitted tokens, then the accepted
+        count) so its first delivered token is the NaN-guard sentinel with
+        accept 0 — what ``speculative_verify`` emits when that slot's
+        logits go non-finite. The victim is drawn from the seeded RNG over
+        the snapshot. Returns a writable copy when the site fires, the
+        original array otherwise."""
+        import numpy as np
+
+        if not snapshot or not self.fires("verify"):
+            return packed
+        with self._lock:
+            victim = snapshot[self._rng.randrange(len(snapshot))][0]
+        packed = np.array(packed)
+        packed[victim, 0] = NAN_SENTINEL
+        packed[victim, -1] = 0
+        return packed
 
     def corrupt_page_table(self, pool, snapshot):
         """``page`` site: point one active slot's first page-table entry in

@@ -16,6 +16,12 @@ engine's captured decode chunk can hold it: the engine registers its
 generator with each CUDA graph (``CUDAGraph.register_generator_state``),
 and every replay then advances the generator's Philox offset — a replay
 draws fresh numbers, never the captured ones again.
+
+``speculative_verify`` scores the drafts of self-speculative decoding the
+same way: greedy rows accept the longest draft prefix that matches the
+argmax chain (exact), sampled rows run lossless rejection sampling against
+the point-mass draft (uniforms from the same generator for the accept
+tests, gumbel-max for the corrections), so it too can sit inside a graph.
 """
 
 from __future__ import annotations
@@ -87,3 +93,84 @@ def sample(
         sampled = torch.argmax(scaled + gumbel, dim=-1)
         out = torch.where(temperature <= 0.0, greedy, sampled)
     return torch.where(finite, out, torch.full_like(out, -1))
+
+
+def speculative_verify(
+    logits: torch.Tensor,  # [B, K+1, V] f32: next-token logits after each verify input
+    drafts: torch.Tensor,  # [B, K] int: the drafts being verified
+    generator: Optional[torch.Generator],
+    temperature: torch.Tensor,  # [B] f32
+    top_k: torch.Tensor,  # [B] int, 0 = disabled
+    top_p: torch.Tensor,  # [B] f32, 1.0 = disabled
+    any_sample: Optional[bool] = None,
+    any_filter: Optional[bool] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched draft verification → ``(out [B, K+1], accept [B])`` (int64).
+
+    Position j of ``logits`` is the model's next-token distribution after
+    verify input j (input 0: the slot's current token; 1..K: the drafts).
+    ``accept`` drafts were accepted and the emitted tokens are ``out[:,
+    :accept + 1]``: ``out[:, j] == drafts[:, j]`` for j < accept, and
+    ``out[:, accept]`` is the correction (greedy: the argmax the draft
+    missed; sampled: a draw from the residual) or, at accept == K, the
+    bonus token of the last position.
+
+    Greedy rows (temperature <= 0) accept the longest prefix matching the
+    argmax chain: token-exact with plain greedy decode. Sampled rows accept
+    draft d with probability p(d) (q(d) = 1 for the n-gram draft) and on
+    the first rejection draw from p with d removed, renormalized, so the
+    emitted marginal is exactly p. The per-row filters repeat across the
+    K+1 positions. The bonus column K is drawn unmasked: it is handled
+    apart from the draft columns instead of by an out-of-bounds scatter
+    (which torch raises on where the JAX package's ``mode="drop"``
+    discards).
+
+    NaN guard (as ``sample``): a row with any non-finite value among its
+    K+1 positions emits ``-1`` with accept 0.
+
+    ``any_sample`` / ``any_filter``: the host predicates ``sample`` takes;
+    None reads them off the tensors, which syncs with the device."""
+    b, k1, v = logits.shape
+    k = k1 - 1
+    drafts = drafts.long()
+    finite = torch.isfinite(logits.reshape(b, -1)).all(dim=-1)  # [B]
+    greedy = _greedy_argmax(logits)  # [B, K+1]
+    acc = drafts == greedy[:, :k]  # [B, K]
+    corr = greedy
+    if any_sample is None:
+        any_sample = bool((temperature > 0.0).any())
+    if any_sample:
+        temp = temperature.clamp_min(1e-6)[:, None, None]
+        flat = (logits / temp).reshape(b * k1, v)
+        if any_filter is None:
+            any_filter = bool(((temperature > 0.0) & ((top_k > 0) | (top_p < 1.0))).any())
+        if any_filter:
+            flat = _apply_filters(
+                flat, top_k[:, None].expand(b, k1).reshape(-1),
+                top_p[:, None].expand(b, k1).reshape(-1),
+            )
+        filtered = flat.reshape(b, k1, v)
+        probs = torch.softmax(filtered, dim=-1)
+        u = torch.rand((b, k), generator=generator, device=logits.device, dtype=torch.float32)
+        p_draft = torch.gather(probs[:, :k], 2, drafts[..., None])[..., 0]
+        sampled_acc = u < p_draft
+        # corrections: each draft column with its draft removed; the bonus
+        # column keeps every token. A column whose draft had p(d) = 1 is all
+        # -inf, and is read only after a rejection, which cannot happen.
+        removed = torch.zeros((b, k1, v), dtype=torch.bool, device=logits.device)
+        removed[:, :k].scatter_(2, drafts[..., None], True)
+        residual = filtered.masked_fill(removed, float("-inf"))
+        g = torch.rand((b, k1, v), generator=generator, device=logits.device, dtype=torch.float32)
+        gumbel = -torch.log(-torch.log(g.clamp_min(torch.finfo(torch.float32).tiny)))
+        sampled_corr = torch.argmax(residual + gumbel, dim=-1)
+        is_greedy = (temperature <= 0.0)[:, None]
+        acc = torch.where(is_greedy, acc, sampled_acc)
+        corr = torch.where(is_greedy, greedy, sampled_corr)
+    # accepted length: the longest all-accepted prefix
+    accept = torch.cumprod(acc.long(), dim=-1).sum(dim=-1)  # [B]
+    padded = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)  # [B, K+1]
+    cols = torch.arange(k1, device=logits.device)[None, :]
+    out = torch.where(cols < accept[:, None], padded, corr)
+    accept = torch.where(finite, accept, torch.zeros_like(accept))
+    out = torch.where(finite[:, None], out, torch.full_like(out, -1))
+    return out, accept

@@ -14,7 +14,8 @@ CPU (tiny-test, f32 unless stated).
   with pure-alias hits (page 16) and copy-on-write hits (page 64), int8 KV
   (prompts of 16 tokens or fewer, "jnp" on both sides, page 8 so both
   hits occur), the long path, pool pressure, and tiny-moe-test (every
-  request submitted before ``start()``).
+  request submitted before ``start()``); the short path with speculation
+  on both engines (spec stats equal too).
 - Quarantine and restart: a publisher hit by the ``nan`` or ``page`` fault
   site loses its entries and a later request with its preamble is admitted
   cold; a decode crash leaves the index empty with cumulative counters.
@@ -286,6 +287,35 @@ def test_warm_short_path_matches_jax(kv, page_size, buckets, prompts, copies):
     # after stop(): no pin left, and only the index holds pages
     assert engine._pagepool.pages_in_use == engine._prefix_index.pages_held
     assert all(e.pins == 0 for e in engine._prefix_index._live)
+
+
+SPEC_KEYS = (
+    "speculation", "speculation-tokens", "spec-acceptance-rate",
+    "spec-accepted-tokens-per-step", "spec-draft-hit-rate", "spec-draft-tokens-total",
+    "spec-accepted-tokens-total", "spec-verify-dispatches-total",
+)
+
+
+@pytest.mark.parametrize("kv,page_size,buckets,prompts", [
+    ("model", 16, (16, 32, 64), (SHORT_PROMPT, SHORT_PROMPT, SHORT_OTHER)),
+    ("model", 64, (16, 32, 64), (SHORT_PROMPT, SHORT_PROMPT, SHORT_OTHER)),
+    ("int8", 8, (4, 8, 16), (INT8_PROMPT, INT8_PROMPT, INT8_OTHER)),
+], ids=["f32-alias", "f32-cow", "int8-alias-and-cow"])
+def test_warm_short_path_with_speculation_matches_jax(kv, page_size, buckets, prompts):
+    """The speculation cases of test_pagepool.py's
+    ``test_warm_prefix_exact_short_path`` (k = 3): warm admissions seed the
+    draft index with the whole prompt and publish only prompt rows, so
+    tokens, prefix stats and spec stats all equal the JAX paged engine's
+    with speculation, and the tokens equal a cold run without either."""
+    kw = dict(page_size=page_size, prefill_buckets=buckets)
+    spec = dict(speculation="auto", speculation_tokens=3)
+    want, jstats = serve_in_turn(jax_engine(kv=kv, **kw, **spec), prompts, 16, jax_side=True)
+    got, stats = serve_in_turn(port_engine(kv=kv, **kw, **spec), prompts, 16, jax_side=False)
+    cold, _ = serve_in_turn(port_engine(kv=kv, prefix="off", **kw), prompts, 16, jax_side=False)
+    assert got == want == cold
+    assert prefix_stats(stats) == prefix_stats(jstats)
+    assert {k: stats[k] for k in SPEC_KEYS} == {k: jstats[k] for k in SPEC_KEYS}
+    assert stats["warm-admissions-total"] == 2 and stats["spec-verify-dispatches-total"] > 0
 
 
 def test_warm_tail_reads_nothing_past_its_frontier():
