@@ -126,7 +126,31 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    the largest logit and top-1 equal at every one of the k+1 positions —
    and NaN planted past every row's frontier and in the sink page leaving
    the kernel path's verify logits bit-equal.
-11. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
+11. ``load``    — serve a safetensors checkpoint: llama-3-8b at full width
+   and depth (the seeded tree, bf16, 16.06 GB) written by ``save_params_hf``
+   as 4 shards of at most 5 GB under ``build/ckpt/`` (with under 17 GiB
+   free there, the 4-layer ``llama-3-8b-shallow``, said in the output),
+   flushed and dropped from the page cache; loaded streamed with 4 workers
+   (first, then again) and eagerly, each tree ``torch.equal`` to the
+   written one, each load's total / read / transform / transfer seconds,
+   staging peak and GB/s beside a plain sequential read of the shards
+   (after another drop, then again) and one pinned 1 GiB host-to-device
+   copy; loaded int8 on load, bit-equal to ``quantize_params`` of the
+   written tree, with the device's peak over the load beside the int8 tree
+   plus one bf16 layer; served through the provider (``weights: <dir>``,
+   streamed) bf16 — the ``e2e`` requests, 64 new tokens, one after another
+   — and int8 on load (16 new tokens), each token-exact against an engine
+   over the in-memory tree (its ``quantize_params``) served the same way,
+   launches required as in ``e2e``, with the cold start from the provider's
+   construction to the first token split into load, engine build and graph
+   capture, and the memory plan's total beside ``max_memory_allocated``
+   after ``start()`` (the weights and pool terms exact); then a copy of the
+   last shard one byte short must raise ``WeightLoadError`` naming the shard
+   and a tensor when the index is built, before any upload, and
+   ``fault-injection: weight-load@1`` through the provider must leave no
+   engine and no params, the injector fired once. The checkpoint is
+   deleted and both trees freed before ``moe``.
+12. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
    experts, top-2) with int8 weights drawn on the card (46.9 GB; the
    llama weights are dropped first), paged bf16 KV, max_seq_len 4096: 9
    requests of 21..3001 tokens, 32 new each (the 3001-token prompt takes 2
@@ -135,7 +159,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    reference path (a 200-token prompt, 4 paged decode steps) and one
    layer's ``moe_ffn`` timed at decode (8 tokens) and at a 2048-token
    segment beside its weight-byte bound.
-12. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+13. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
    and int8 page pools and the bf16 dense cache (8192 wide), traced with
    torch.profiler: the device's busy share of the wall and the top
    kernels (no split-K decode kernel may appear).
@@ -169,8 +193,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
-          "prefix", "spec", "moe", "profile")
-DEFAULT_PHASES = PHASES[:11]
+          "prefix", "spec", "load", "moe", "profile")
+DEFAULT_PHASES = PHASES[:12]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -1117,13 +1141,17 @@ def _prompts(n_bytes: list[int], seed: int) -> list[str]:
 
 
 def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int, prompts=None,
-           steady: bool = False, **engine_kw) -> dict:
+           steady: bool = False, engine=None, sequential: bool = False, **engine_kw) -> dict:
     """Warm the engine with one short request, zero the kernel counts, serve
     the batch (``prompts`` as token lists, else byte prompts of ``n_bytes``),
     read the counts; checks every request's tokens, that no kernel's plain
     version ran, and that every decode chunk or speculative verify was one
     graph replay. With ``prompts`` the run keeps its tokens (``_tokens``);
-    ``steady`` adds back-to-back replays' times once the engine stopped."""
+    ``steady`` adds back-to-back replays' times once the engine stopped.
+    ``engine``: serve on this (started) engine instead of building one;
+    ``sequential``: each request submitted once the one before finished, so
+    every admission is a group of one whatever the timing (two engines
+    served so run the same shapes and give the same tokens)."""
     import torch
 
     from langstream_tpu_torch.models.configs import GenerationOptions
@@ -1132,10 +1160,11 @@ def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int, prompts=None,
     from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
 
     tok = ByteTokenizer()
-    engine = ServingEngine(
-        cfg, params, max_batch=8, decode_chunk=16, page_size=PAGE,
-        eos_token_id=tok.eos_token_id, rng_seed=ctx["seed"], device="cuda", **engine_kw,
-    )
+    if engine is None:
+        engine = ServingEngine(
+            cfg, params, max_batch=8, decode_chunk=16, page_size=PAGE,
+            eos_token_id=tok.eos_token_id, rng_seed=ctx["seed"], device="cuda", **engine_kw,
+        )
     engine.start()
     try:
         engine.generate(tok.encode("warm up"), GenerationOptions(max_new_tokens=4), timeout=600)
@@ -1148,8 +1177,13 @@ def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int, prompts=None,
         opts = GenerationOptions(max_new_tokens=new_tokens, temperature=0.0)
         reset_kernel_counts()
         t0 = time.monotonic()
-        reqs = [engine.submit(GenerationRequest(prompt_tokens=p, options=opts)) for p in prompts]
-        results = [r.result(timeout=900) for r in reqs]
+        if sequential:
+            results = [engine.submit(GenerationRequest(prompt_tokens=p, options=opts)).result(
+                timeout=900) for p in prompts]
+        else:
+            reqs = [engine.submit(GenerationRequest(prompt_tokens=p, options=opts))
+                    for p in prompts]
+            results = [r.result(timeout=900) for r in reqs]
         wall = time.monotonic() - t0
         counts = kernel_counts()
         run_replays = engine.stats()["graph-replays-total"] - before["graph-replays-total"]
@@ -2430,6 +2464,324 @@ def phase_spec(ctx: dict) -> None:
     ctx["spec"] = {k: v for k, v in on.items() if not k.startswith("_")}
 
 
+# the checkpoint phase: shards of at most 5 GB, as the published
+# Meta-Llama-3-8B checkpoint is sharded, written inside the checkout
+LOAD_SHARD_BYTES = 5 * 10**9
+LOAD_FREE_BYTES = 17 * 2**30
+LOAD_INT8_NEW = 16
+LOAD_SERVE_KW = {"max-seq-len": 2048, "max-batch": 8, "decode-chunk": 16, "page-size": PAGE}
+
+
+def _sequential_read(files) -> dict:
+    """The plain read bound: every shard read front to back in 256 MiB
+    pieces into one reused buffer."""
+    buf = bytearray(256 * 2**20)
+    view = memoryview(buf)
+    total = 0
+    t0 = time.monotonic()
+    for f in files:
+        with open(f, "rb", buffering=0) as fh:
+            while True:
+                n = fh.readinto(view)
+                if not n:
+                    break
+                total += n
+    s = time.monotonic() - t0
+    return {"bytes": total, "s": s, "gb_per_s": total / s / 1e9}
+
+
+def _pinned_copy(torch) -> dict:
+    """The host-to-device bound: one pinned 1 GiB copy (median of 5)."""
+    host = torch.empty(2**30, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(2**30, dtype=torch.uint8, device="cuda")
+    times = []
+    for _ in range(5):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        dev.copy_(host, non_blocking=True)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / 1e3)
+    s = sorted(times)[2]
+    del host, dev
+    return {"bytes": 2**30, "s": s, "gb_per_s": 2**30 / s / 1e9}
+
+
+def _trees_equal(torch, label: str, got, want) -> None:
+    """Leaf by leaf, same dtype, shape and bits."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise AssertionError(f"{label}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            _trees_equal(torch, f"{label}.{k}", got[k], want[k])
+        return
+    if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{label}: differs ({got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)})")
+
+
+def _report_line(report, gb: float) -> dict:
+    rep = report.as_dict()
+    keys = ("total-s", "read-s", "transform-s", "transfer-s", "staging-peak-bytes", "shards",
+            "workers", "tensors", "bytes-read")
+    out = {k: rep.get(k) for k in keys}
+    out["setup-s"] = report.setup_s
+    out["staging-alloc-s"] = report.staging_alloc_s
+    out["gb_per_s"] = gb / rep["total-s"]
+    return out
+
+
+def _served_from_disk(ctx, cfg, path, params, prompts, quantize: bool, new_tokens: int) -> dict:
+    """The provider with ``weights: <path>`` (streamed; with ``quantize``
+    int8 on load): the cold start from its construction to the first
+    token, split into load, engine build and graph capture; the memory
+    plan beside the loaded weights' allocation and the engine's own peak
+    (the weights term exact against the config's meta tree, the pool term
+    against the pool built); the e2e
+    requests served one after another, against an engine over ``params``
+    (the in-memory tree, or its ``quantize_params``) served the same way:
+    the same tokens, the kernels' launches required."""
+    import gc
+
+    import torch
+
+    from langstream_tpu_torch.ai.torch_serving import TorchCompletionsService
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.models.loader import expected_params
+    from langstream_tpu_torch.serving.engine import GenerationRequest
+    from langstream_tpu_torch.serving.memory import tree_bytes
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    resource = {"model": cfg.name, "weights": str(path), "seed": ctx["seed"], **LOAD_SERVE_KW,
+                **({"quantization": "int8"} if quantize else {})}
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    svc = TorchCompletionsService(resource)
+    loaded = svc.params()
+    t_load = time.monotonic() - t0
+    # the engine's own peak: measured from here, after the load's copies
+    # and its transient buffers are gone, so the load's peak is not in it
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()  # also frees the load's blocks held for its stream
+    weights_allocated = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    loaded_base = torch.cuda.memory_allocated()
+    t1 = time.monotonic()
+    engine = svc.engine()
+    t_engine = time.monotonic() - t1
+    engine_peak = torch.cuda.max_memory_allocated() - loaded_base
+    capture_s = engine.stats()["graph-capture-s"]
+    first = []
+    req = GenerationRequest(prompt_tokens=ByteTokenizer().encode("warm up"),
+                            options=GenerationOptions(max_new_tokens=4),
+                            on_token=lambda _: first or first.append(time.monotonic()))
+    engine.submit(req).result(timeout=600)
+    plan = engine.memory_plan
+    # the weights term against the tree the config serves (meta tensors,
+    # counted apart from the plan), the pool term against the pool built
+    weights = tree_bytes(expected_params(cfg, quantized=quantize))
+    pool = engine._pagepool.bytes_total
+    if plan.weights_bytes != weights or plan.page_pool_bytes != pool:
+        raise AssertionError(f"memory plan: weights {plan.weights_bytes} vs {weights}, "
+                             f"pool {plan.page_pool_bytes} vs {pool}")
+    cold = {
+        "load_s": t_load,
+        "engine_build_s": t_engine - capture_s,
+        "graph_capture_s": capture_s,
+        "first_token_s": first[0] - t0,
+        "weight_load": engine.stats()["weight-load-s"],
+        "plan_total_bytes": plan.total_bytes,
+        "plan_weights_bytes": plan.weights_bytes,
+        "plan_page_pool_bytes": plan.page_pool_bytes,
+        "plan_beyond_weights_bytes": plan.total_bytes - plan.weights_bytes,
+        "plan_summary": plan.summary(),
+        "weights_allocated_bytes": weights_allocated,
+        "engine_peak_bytes": engine_peak,
+        "weights_plus_engine_peak_bytes": weights_allocated + engine_peak,
+    }
+    try:
+        run = _serve(ctx, cfg, None, [], new_tokens, prompts=prompts, engine=engine,
+                     sequential=True)
+        stats = engine.stats()
+    finally:
+        svc.close()
+    run["weight_load"] = {k: v for k, v in stats.items() if k.startswith("weight-load")}
+    _require_launches(run, "flash_prefill", "admit_groups", cfg.n_layers)
+    _require_launches(run, "paged_decode", "decode_steps", cfg.n_layers)
+    del svc, engine, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = _serve(ctx, cfg, params, [], new_tokens, prompts=prompts, sequential=True,
+                 max_seq_len=LOAD_SERVE_KW["max-seq-len"])
+    if run["_tokens"] != ref["_tokens"]:
+        diff = [i for i, (a, b) in enumerate(zip(run["_tokens"], ref["_tokens"])) if a != b]
+        raise AssertionError(f"served from disk: requests {diff} differ from the in-memory tree")
+    run["cold_start"] = cold
+    run["reference_tokens_per_s"] = ref["tokens_per_s"]
+    return run
+
+
+def phase_load(ctx: dict) -> None:
+    """Serve a safetensors checkpoint: write llama-3-8b (the seeded tree) in
+    4 shards of at most 5 GB, load it streamed (twice) and eagerly
+    (each bit-equal to the written tree) beside the read and copy bounds,
+    load it int8 on load (bit-equal to ``quantize_params``, the device peak
+    beside the int8 tree plus one bf16 layer), serve it through the
+    provider (bf16 and int8 on load, token-exact against the in-memory
+    trees), and refuse a truncated shard and an injected read fault."""
+    import gc
+    import os
+    import shutil
+
+    import torch
+
+    from langstream_tpu_torch.ai.torch_serving import TorchCompletionsService
+    from langstream_tpu_torch.models.bridge import init_params
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.models.loader import load_params, save_params_hf
+    from langstream_tpu_torch.models.quant import quantize_params
+    from langstream_tpu_torch.models.streamload import (
+        ShardIndex,
+        WeightLoadError,
+        load_params_streamed,
+    )
+    from langstream_tpu_torch.serving.memory import tree_bytes
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    root = ROOT / "build" / "ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    usage = shutil.disk_usage(root)
+    full = usage.free >= LOAD_FREE_BYTES
+    log(f"load: checkpoint under {root}: {usage.free / 2**30:.1f} GiB free of "
+        f"{usage.total / 2**30:.1f} GiB; {'full depth' if full else 'CUT to 4 layers'}")
+    if full:
+        cfg = MODEL_PRESETS["llama-3-8b"]
+        params = _llama_params(ctx)
+    else:
+        cfg = MODEL_PRESETS["llama-3-8b-shallow"]
+        g = torch.Generator(device="cuda").manual_seed(ctx["seed"])
+        params = init_params(cfg, g, device="cuda")
+    path = root / cfg.name
+    nbytes = tree_bytes(params)
+    t0 = time.monotonic()
+    save_params_hf(params, cfg, path, max_shard_bytes=LOAD_SHARD_BYTES)
+    files = sorted(path.glob("*.safetensors"))
+    write_s = time.monotonic() - t0
+    log(f"load write {cfg.name}: " + json.dumps({
+        "bytes": nbytes, "shards": [f.stat().st_size for f in files], "s": write_s,
+        "gb_per_s": nbytes / write_s / 1e9}))
+    gb = nbytes / 1e9
+    loads = {}
+    # the shards were just written, so every read here may come from the
+    # host's page cache: "first" and "again" are two loads, not a cold and
+    # a warm one
+    for label in ("streamed_first", "streamed_again"):
+        torch.cuda.synchronize()
+        tree, rep = load_params_streamed(path, cfg, workers=4, device="cuda")
+        _trees_equal(torch, f"{label} {cfg.name}", tree, params)
+        loads[label] = _report_line(rep, gb)
+        del tree
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    tree = load_params(path, cfg, device="cuda")
+    torch.cuda.synchronize()
+    eager_s = time.monotonic() - t0
+    _trees_equal(torch, f"eager {cfg.name}", tree, params)
+    loads["eager"] = {"total-s": eager_s, "read-s": None, "transform-s": None,
+                      "transfer-s": None, "staging-peak-bytes": None, "gb_per_s": gb / eager_s}
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    bounds = {"sequential_read": _sequential_read(files), "pinned_h2d_1gib": _pinned_copy(torch)}
+    log(f"load {cfg.name} bf16 (4 workers; each tree torch.equal to the written one) "
+        + json.dumps({"loads": loads, "bounds": bounds}))
+
+    # int8 on load: the device's peak over the load against the int8 tree
+    # plus one bf16 layer, then bit-equal to quantize_params on the card
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    qtree, rep = load_params_streamed(path, cfg, workers=4, quantize=True, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    layer = sum(tree_bytes(v) for v in params["layers"].values()) // cfg.n_layers
+    want = quantize_params(params, cfg)
+    _trees_equal(torch, f"int8 on load {cfg.name}", qtree, want)
+    log(f"load {cfg.name} int8 on load (bit-equal to quantize_params) " + json.dumps({
+        **_report_line(rep, gb), "device_peak_bytes": peak,
+        "int8_tree_bytes": tree_bytes(qtree), "bf16_layer_bytes": layer,
+        "int8_tree_plus_one_layer": tree_bytes(qtree) + layer}))
+    del qtree
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tok = ByteTokenizer()
+    prompts = [tok.encode(p) for p in _prompts([20, 90, 150, 300, 600, 900, 1200, 1500],
+                                               ctx["seed"])]
+    run = _served_from_disk(ctx, cfg, path, params, prompts, quantize=False, new_tokens=64)
+    log(f"load served {cfg.name} bf16 from disk "
+        f"{json.dumps({k: v for k, v in run.items() if not k.startswith('_')})}")
+    ctx["load"] = {k: v for k, v in run.items() if not k.startswith("_")}
+    # 16 new tokens, not 64: the int8 weight path dequantizes every weight
+    # at every matmul (~70 ms a decode step), and these are served one
+    # request at a time
+    run8 = _served_from_disk(ctx, cfg, path, want, prompts, quantize=True,
+                             new_tokens=LOAD_INT8_NEW)
+    log(f"load served {cfg.name} int8 on load from disk "
+        f"{json.dumps({k: v for k, v in run8.items() if not k.startswith('_')})}")
+    del want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # faults: a copy of the last shard one byte short (the others linked)
+    # refused when the index is built, before any upload; an injected read
+    # fault through the provider leaves nothing behind
+    bad = root / "truncated"
+    bad.mkdir()
+    for f in files[:-1]:
+        os.symlink(f, bad / f.name)
+    with open(files[-1], "rb") as src, open(bad / files[-1].name, "wb") as dst:
+        shutil.copyfileobj(src, dst, 64 * 2**20)
+        dst.truncate(files[-1].stat().st_size - 1)
+    before = torch.cuda.memory_allocated()
+    for attempt in (lambda: ShardIndex(bad),
+                    lambda: load_params_streamed(bad, cfg, device="cuda")):
+        try:
+            attempt()
+        except WeightLoadError as e:
+            msg = str(e)
+            if files[-1].name not in msg or "tensor '" not in msg:
+                raise AssertionError(f"truncated shard: message names no shard / tensor: {msg}")
+        else:
+            raise AssertionError("a shard one byte short was not refused")
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError("the truncated checkpoint uploaded before it was refused")
+    svc = TorchCompletionsService({"model": cfg.name, "weights": str(path), **LOAD_SERVE_KW,
+                                   "fault-injection": "weight-load@1", "fault-seed": 0})
+    try:
+        svc.engine()
+    except WeightLoadError as e:
+        injected = str(e)
+    else:
+        raise AssertionError("weight-load@1 did not fire")
+    fired = svc._fault_injector().stats()
+    if svc._engine is not None or svc._params is not None or fired != {"weight-load": 1}:
+        raise AssertionError(f"weight-load@1 left engine {svc._engine}, params "
+                             f"{svc._params is not None}, fired {fired}")
+    log(f"load faults: truncated shard refused at index time ({msg}); "
+        f"weight-load@1 refused, fired {fired}, no engine, no params ({injected})")
+    del svc, params
+    shutil.rmtree(root)
+    ctx.pop("params", None)  # both trees go before moe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 MOE_KW = {"max_seq_len": 4096}
 # a layer's int8 expert weights: gate, up and down of mixtral-8x7b's 8
 # experts (1.41 GB), each read once at the least
@@ -2668,7 +3020,7 @@ def kernel_record(ctx: dict) -> dict:
     }
     # every serving run's launches of each kernel (counts zeroed before each)
     served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "prefix",
-              "spec", "moe")
+              "spec", "load", "moe")
     out = []
     for name, (src, replaces, path) in sources.items():
         runs = ctx.get("kernel_runs", {}).get(name)

@@ -6,8 +6,24 @@ honours the keys this slice serves:
 
   model: preset name (models.configs.MODEL_PRESETS), default tiny-test;
     Llama-family and Mixtral (MoE) presets
-  weights: "random" (the only value yet; checkpoint loading waits for the
-    loader slice) — drawn on the device from ``seed`` (default 0)
+  weights: "random" (default) — drawn on the device from ``seed`` (default
+    0) — or a local Hugging Face safetensors checkpoint (a directory of
+    ``*.safetensors`` shards, or one file; a path with none raises
+    FileNotFoundError when the service is built). Loaded when the engine
+    is first built; a failed load leaves no engine and no params
+  weight-streaming: auto (default) → the streamed load
+    (models/streamload.py): header-indexed shards, positioned reads by a
+    reader pool into a pinned ring of ``weight-load-workers + 1`` layers,
+    asynchronous copies on a load stream and the transpose / cast on the
+    card; the engine's build and graph capture wait on the load's last
+    event. "off" raises NotImplementedError: the provider always streams
+    (``models.loader.load_params`` stays the eager loader as a library
+    function)
+  weight-load-workers: reader threads of the streamed load (default 4,
+    at least 1); also sizes its readahead window
+  quantize-on-load: auto (default) → with ``quantization: int8``, each
+    layer is quantized on the card as it streams in, so the model-dtype
+    tree never exists. "off" raises NotImplementedError
   quantization: "int8" → weight-only int8 (per-output-channel scales; the
     random int8 tree is drawn straight on the device, so a model whose
     bf16 tree would not fit — mixtral-8x7b — never exists in bf16);
@@ -46,7 +62,8 @@ honours the keys this slice serves:
     raises NotImplementedError (the dense verify is ROADMAP item 10)
   kv-cache-quantization: "int8" → int8 KV with per-token per-head scales
     (the int8 decode / segment kernels); "" / "none" → model dtype
-  tokenizer: "byte" (the only value yet)
+  tokenizer: "byte" (default) or "hf:<local path>" (a Hugging Face
+    tokenizer directory; needs the ``transformers`` package)
   device: "cuda" (default) or "cpu"
   queue-depth / shed-policy: the bounded admission queue (default
     max-batch x 4); "block" (default) backpressures the caller, "reject"
@@ -93,7 +110,9 @@ from langstream_tpu_torch.ai.provider import (
 from langstream_tpu_torch.device import resolve_device
 from langstream_tpu_torch.models.bridge import init_params
 from langstream_tpu_torch.models.configs import MODEL_PRESETS, GenerationOptions, ModelConfig
+from langstream_tpu_torch.models.loader import _iter_safetensor_files
 from langstream_tpu_torch.models.quant import init_random_quantized_params
+from langstream_tpu_torch.models.streamload import load_params_streamed
 from langstream_tpu_torch.ops.attention import kernel_path_ok
 from langstream_tpu_torch.serving.engine import PREFILL_BUCKETS, GenerationRequest, ServingEngine
 from langstream_tpu_torch.serving.faultinject import FaultInjector
@@ -164,12 +183,21 @@ class TorchCompletionsService(CompletionsService):
 
     def __init__(self, resource: dict[str, Any]) -> None:
         self.resource = dict(resource)
-        weights = self.resource.get("weights", "random")
-        if weights != "random":
-            raise NotImplementedError(
-                f"weights {weights!r}: the PyTorch port serves random weights only "
-                "(checkpoint loading waits for the loader slice)"
-            )
+        self.weights = str(self.resource.get("weights", "random") or "random")
+        if self.weights != "random":
+            next(_iter_safetensor_files(self.weights))  # FileNotFoundError without shards
+        for key in ("weight-streaming", "quantize-on-load"):
+            value = self.resource.get(key, "auto")
+            if not isinstance(value, bool) and str(value).lower() not in ("auto", "off"):
+                raise ValueError(f"unknown {key} {value!r}; supported: auto, off")
+            if value is False or str(value).lower() == "off":
+                raise NotImplementedError(
+                    f"{key}: off is not served: the provider always streams the "
+                    "checkpoint, quantizing on load with quantization int8"
+                )
+        self.load_workers = int(self.resource.get("weight-load-workers", 4))
+        if self.load_workers < 1:
+            raise ValueError(f"weight-load-workers must be >= 1, got {self.load_workers}")
         layout = str(self.resource.get("kv-layout", "paged")).lower()
         if layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv-layout {layout!r}; supported: paged, dense")
@@ -229,14 +257,40 @@ class TorchCompletionsService(CompletionsService):
         self.tokenizer = get_tokenizer(self.resource.get("tokenizer", "byte"))
         self._lock = threading.Lock()
         self._engine: Optional[ServingEngine] = None
+        self._params: Optional[dict] = None
+        # the checkpoint load's WeightLoadReport, whose event the engine
+        # waits on; None for random weights
+        self._weight_load_report: Any = None
+        # one injector for the load and the engine: the weight-load site and
+        # the engine's sites share its seeded schedule and counters
+        self._injector: Optional[FaultInjector] = None
+        self._injector_built = False
+
+    def params(self) -> dict:
+        """The served params, loaded (or drawn) once; a load that raises
+        caches nothing."""
+        if self._params is None:
+            params, report = self._load_params()
+            self._weight_load_report = report
+            self._params = params
+        return self._params
+
+    def _load_params(self) -> tuple[dict, Any]:
+        mc, dev = self.model_config, self.device
+        if self.weights == "random":
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(self.resource.get("seed", 0)))
+            init = init_random_quantized_params if self.quantize else init_params
+            return init(mc, gen, device=dev), None
+        return load_params_streamed(
+            self.weights, mc, workers=self.load_workers, quantize=self.quantize,
+            fault_injector=self._fault_injector(), block=False, device=dev,
+        )
 
     def engine(self) -> ServingEngine:
         with self._lock:
             if self._engine is None:
-                gen = torch.Generator(device=self.device)
-                gen.manual_seed(int(self.resource.get("seed", 0)))
-                init = init_random_quantized_params if self.quantize else init_params
-                params = init(self.model_config, gen, device=self.device)
+                params = self.params()
                 engine = ServingEngine(
                     self.model_config,
                     params,
@@ -262,6 +316,7 @@ class TorchCompletionsService(CompletionsService):
                     ),
                     speculation=self.speculation,
                     speculation_tokens=self.speculation_tokens,
+                    weight_load_report=self._weight_load_report,
                 )
                 engine.start()
                 self._engine = engine
@@ -269,15 +324,16 @@ class TorchCompletionsService(CompletionsService):
 
     def _fault_injector(self) -> Optional[FaultInjector]:
         """``fault-injection`` (with ``fault-seed`` / ``fault-stall-s``), else
-        the LSTPU_FAULTS environment, else none."""
-        spec = str(self.resource.get("fault-injection", "") or "").strip()
-        if not spec:
-            return FaultInjector.from_env()
-        return FaultInjector(
-            spec,
-            seed=int(self.resource.get("fault-seed", 0)),
-            stall_s=float(self.resource.get("fault-stall-s", 0.05)),
-        )
+        the LSTPU_FAULTS environment, else none — built once per service."""
+        if not self._injector_built:
+            spec = str(self.resource.get("fault-injection", "") or "").strip()
+            self._injector = FaultInjector.from_env() if not spec else FaultInjector(
+                spec,
+                seed=int(self.resource.get("fault-seed", 0)),
+                stall_s=float(self.resource.get("fault-stall-s", 0.05)),
+            )
+            self._injector_built = True
+        return self._injector
 
     def engine_stats(self) -> dict[str, Any]:
         return self._engine.stats() if self._engine is not None else {}

@@ -78,6 +78,10 @@ def init_params(
     f, n_layers, v = config.d_ff, config.n_layers, config.vocab_size
 
     def norm(shape: tuple[int, ...], scale: int) -> torch.Tensor:
+        if dev.type == "meta":
+            # shapes only: the meta normal kernel costs seconds at its
+            # first call in a process (a load's shape check runs this)
+            return torch.empty(shape, dtype=dtype, device=dev)
         return (
             torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
             * scale**-0.5

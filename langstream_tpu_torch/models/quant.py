@@ -102,6 +102,8 @@ def init_random_quantized_params(
         return {"q": q, "s": s}
 
     def normal(*shape: int) -> torch.Tensor:
+        if dev.type == "meta":  # shapes only (see bridge.init_params)
+            return torch.empty(shape, dtype=dtype, device=dev)
         w = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
         return (w * d**-0.5).to(dtype)
 

@@ -118,6 +118,14 @@ the verify with zero drafts: acceptance is decided against the model's own
 outputs, so a draft never changes what greedy decode emits. Publish
 boundaries stay prompt rows written by prefill, never verify columns.
 
+Params streamed from a checkpoint (``models/streamload.py``) come with
+their load's report (``weight_load_report``): ``stats()`` carries it as the JAX engine's
+``weight-load-*`` keys, and a streamed load that returned with its copies
+in flight is waited on (the load stream's last event) before ``start()``'s
+warm-up and capture. The engine logs its memory plan
+(``serving/memory.plan_serving_memory``) when it is built; it is kept as
+``memory_plan``.
+
 Not ported yet (later slices): tenancy, brownout, priorities,
 ``max_cost_tokens``, observability spans and flight dumps, the SPMD
 watchdog, the host-RAM KV tier and hibernation (ROADMAP item 9), the dense
@@ -162,6 +170,7 @@ from langstream_tpu_torch.ops.attention import (
     kernel_path_ok,
 )
 from langstream_tpu_torch.serving.faultinject import FaultInjector
+from langstream_tpu_torch.serving.memory import plan_serving_memory
 from langstream_tpu_torch.serving.pagepool import PagePool, PrefixPageIndex, pages_for_fraction
 from langstream_tpu_torch.serving.sampling import sample, speculative_verify
 from langstream_tpu_torch.serving.speculation import NGramIndex
@@ -458,6 +467,7 @@ class ServingEngine:
         prefix_cache_entries: Optional[int] = None,
         speculation: Any = "off",
         speculation_tokens: int = 4,
+        weight_load_report: Optional[Any] = None,
     ) -> None:
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; supported: paged, dense")
@@ -627,6 +637,28 @@ class ServingEngine:
         self.spec_slot_steps_total = 0
         self.spec_draft_lookups_total = 0
         self.spec_draft_hits_total = 0
+        # the load these params came from (models/streamload.py's
+        # WeightLoadReport; None for random weights): its numbers feed
+        # stats() and the memory plan, and a load that returned with its
+        # copies in flight is waited on in start()
+        self._weight_load = weight_load_report
+        self._weight_load_report: dict[str, Any] = (
+            weight_load_report.as_dict() if weight_load_report is not None else {}
+        )
+        self.memory_plan = plan_serving_memory(
+            config, self.max_batch, self.max_seq_len,
+            params=params,
+            prefill_batch=self.PREFILL_BATCH,
+            prefill_bucket=self.prefill_buckets[-1],
+            prefill_streams=self.MAX_PREFILL_STREAMS,
+            speculation_tokens=self.spec_tokens,
+            kv_layout=self.kv_layout,
+            page_size=self.page_size,
+            kv_pages=self._pagepool.num_pages if self._paged else 0,
+            weight_load_staging=int(self._weight_load_report.get("staging-peak-bytes", 0)),
+        )
+        log.info("serving memory plan (%s, B=%d, T=%d, %s): %s", config.name, self.max_batch,
+                 self.max_seq_len, self.kv_layout, self.memory_plan.summary())
 
     def _alloc_decode_state(self) -> None:
         """Fresh static buffers of the decode chunk: the chain (last sampled
@@ -672,6 +704,13 @@ class ServingEngine:
         request — then start the fetch thread and the engine thread."""
         if self._thread is not None:
             return
+        if self._weight_load is not None:
+            # a load that returned with its copies in flight: this thread's
+            # stream (and with it the capture's side stream) waits for the
+            # load stream's last event before the first use of the params
+            self._weight_load.wait(
+                torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+            )
         if not self._graphs:
             self._capture_graphs()
         self._dead = None
@@ -1048,6 +1087,21 @@ class ServingEngine:
                 "spec-draft-tokens-total": self.spec_draft_tokens_total,
                 "spec-accepted-tokens-total": self.spec_accepted_tokens_total,
                 "spec-verify-dispatches-total": self.spec_dispatches_total,
+                # the checkpoint load these params came from (the JAX
+                # engine's keys; zeros for random weights)
+                "weight-load-streamed": bool(self._weight_load_report.get("streamed", False)),
+                "weight-load-s": float(self._weight_load_report.get("total-s", 0.0)),
+                "weight-load-read-s": float(self._weight_load_report.get("read-s", 0.0)),
+                "weight-load-transform-s": float(
+                    self._weight_load_report.get("transform-s", 0.0)
+                ),
+                "weight-load-transfer-s": float(self._weight_load_report.get("transfer-s", 0.0)),
+                "weight-load-bytes-total": int(self._weight_load_report.get("bytes-read", 0)),
+                "weight-load-staging-peak-bytes": int(
+                    self._weight_load_report.get("staging-peak-bytes", 0)
+                ),
+                "weight-load-shards": int(self._weight_load_report.get("shards", 0)),
+                "weight-load-workers": int(self._weight_load_report.get("workers", 0)),
             }
         if pool is not None:
             out.update({

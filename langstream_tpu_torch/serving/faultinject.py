@@ -25,11 +25,16 @@ Sites the port's engine consults:
   fetch     stall the device-to-host fetch thread (slow-fetch drill)
   client    stall token delivery before the on_token callback (slow
             client)
+  weight-load  raise WeightLoadError at a tensor read of the streamed
+            checkpoint load (models/streamload.py, consulted once per
+            tensor): the load cancels its readahead, drains its reader
+            pool and never retries, and the provider keeps no engine and
+            no params
 
-The other sites of the grammar (adapter, spill, weight-load, the
-durable disk sites, the fleet-wire net sites, migrate, tenant-burst and the
-SPMD sites) are accepted so a spec written for the JAX package parses, but
-no part of the port consults them until their tiers are ported.
+The other sites of the grammar (adapter, spill, the durable disk sites,
+the fleet-wire net sites, migrate, tenant-burst and the SPMD sites) are
+accepted so a spec written for the JAX package parses, but no part of the
+port consults them until their tiers are ported.
 
 Spec grammar (comma-separated, e.g. ``"decode@3,nan@5:4,fetch~0.1"``):
   site@N      fire exactly once, on the Nth call to that site (1-based)
@@ -44,7 +49,7 @@ or set environment variables for a drill:
   LSTPU_FAULT_SEED=0                     RNG seed
   LSTPU_FAULT_STALL_S=0.05               stall of the fetch / client sites
 The provider forwards ``fault-injection`` / ``fault-seed`` /
-``fault-stall-s`` config keys.
+``fault-stall-s`` config keys; one injector serves its load and its engine.
 """
 
 from __future__ import annotations

@@ -1,15 +1,42 @@
 """Tokenizers of the port (own copy of ``langstream_tpu/serving/tokenizer.py``).
 
-``byte`` is the dependency-free byte-level tokenizer the random-weight
-benches and tests use. Hugging Face tokenizers wait for the loader slice.
+``hf:<path>`` loads a Hugging Face tokenizer from a local directory
+(``transformers`` is imported only when one is built; nothing is
+downloaded). ``byte`` is the dependency-free byte-level tokenizer the
+random-weight benches and tests use. The provider picks one through its
+``tokenizer`` key.
 """
 
 from __future__ import annotations
 
+import abc
+from typing import Optional
+
 from langstream_tpu_torch.native import py_utf8_incomplete_tail_len
 
 
-class ByteTokenizer:
+class Tokenizer(abc.ABC):
+    eos_token_id: Optional[int] = None
+    bos_token_id: Optional[int] = None
+
+    @abc.abstractmethod
+    def encode(self, text: str) -> list[int]: ...
+
+    @abc.abstractmethod
+    def decode(self, tokens: list[int]) -> str: ...
+
+    @property
+    @abc.abstractmethod
+    def vocab_size(self) -> int: ...
+
+    def decode_stream_prefix(self, tokens: list[int]) -> str:
+        """Decode for incremental streaming: only text that cannot change as
+        more tokens arrive. Default: decode and strip a trailing replacement
+        char (lossy for models that emit U+FFFD themselves)."""
+        return self.decode(tokens).rstrip("\ufffd")
+
+
+class ByteTokenizer(Tokenizer):
     """UTF-8 bytes + 2 specials: 256=BOS, 257=EOS."""
 
     bos_token_id = 256
@@ -38,10 +65,36 @@ class ByteTokenizer:
         return data[: len(data) - tail].decode("utf-8", "replace")
 
 
-def get_tokenizer(spec: str) -> ByteTokenizer:
+class HFTokenizer(Tokenizer):
+    """A Hugging Face tokenizer from a local directory. Without the
+    ``transformers`` package this raises ImportError naming it; it never
+    falls back to another tokenizer."""
+
+    def __init__(self, name_or_path: str) -> None:
+        try:
+            from transformers import AutoTokenizer  # lazy; heavy import
+        except ImportError as e:
+            raise ImportError(
+                f"tokenizer 'hf:{name_or_path}' needs the 'transformers' package: {e}"
+            ) from e
+        self._tok = AutoTokenizer.from_pretrained(name_or_path)
+        self.eos_token_id = self._tok.eos_token_id
+        self.bos_token_id = self._tok.bos_token_id
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self._tok)
+
+    def encode(self, text: str) -> list[int]:
+        return self._tok.encode(text)
+
+    def decode(self, tokens: list[int]) -> str:
+        return self._tok.decode(tokens, skip_special_tokens=True)
+
+
+def get_tokenizer(spec: str) -> Tokenizer:
     if spec in ("byte", "bytes"):
         return ByteTokenizer()
-    raise ValueError(
-        f"unknown tokenizer spec {spec!r}: the PyTorch port supports 'byte' "
-        "(Hugging Face tokenizers wait for the loader slice)"
-    )
+    if spec.startswith("hf:"):
+        return HFTokenizer(spec[3:])
+    raise ValueError(f"unknown tokenizer spec {spec!r} (use 'byte' or 'hf:<path>')")

@@ -44,17 +44,37 @@ def test_no_jax_and_no_jax_package(path):
         assert top != "langstream_tpu", f"{path.name} imports {name}"
 
 
-def test_no_cuda_raises(monkeypatch):
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_safetensors_or_ml_dtypes(path):
+    """The card's machine has neither package: no port module imports one,
+    at module level or inside a function (the loader reads and writes the
+    safetensors format itself, bf16 through 16-bit views)."""
+    for name in imported_modules(path):
+        assert name.split(".")[0] not in ("safetensors", "ml_dtypes"), (
+            f"{path.name} imports {name}"
+        )
+
+
+def test_no_cuda_raises(monkeypatch, tmp_path):
     """Every entry point that takes a device refuses "cuda" without a card."""
     from langstream_tpu_torch.ai.torch_serving import TorchCompletionsService
     from langstream_tpu_torch.models.bridge import init_params
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.models.loader import load_params, save_params_hf
+    from langstream_tpu_torch.models.streamload import load_params_streamed
     from langstream_tpu_torch.models.transformer import make_kv_cache, make_page_pool
     from langstream_tpu_torch.serving.engine import ServingEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = dataclasses.replace(MODEL_PRESETS["tiny-test"], dtype="float32")
     params = init_params(cfg, torch.Generator(), device="cpu")
+    save_params_hf(params, cfg, tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_params(tmp_path, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_params_streamed(tmp_path, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TorchCompletionsService({"model": "tiny-test", "weights": str(tmp_path)})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingEngine(cfg, params)  # the default device is "cuda"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -95,7 +115,7 @@ def test_completions_service_streams_text():
 def test_completions_service_refuses_what_it_cannot_serve():
     from langstream_tpu_torch.ai.torch_serving import TorchCompletionsService
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError, match="safetensors"):
         TorchCompletionsService({"model": "tiny-test", "device": "cpu", "weights": "/ckpt"})
     with pytest.raises(ValueError, match="kv-layout"):
         TorchCompletionsService({"model": "tiny-test", "device": "cpu", "kv-layout": "ring"})
