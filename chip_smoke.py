@@ -125,8 +125,32 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    reference path's (gathered masked read) on the same pool — within 5% of
    the largest logit and top-1 equal at every one of the k+1 positions —
    and NaN planted past every row's frontier and in the sink page leaving
-   the kernel path's verify logits bit-equal.
-11. ``load``    — serve a safetensors checkpoint: llama-3-8b at full width
+   the kernel path's verify logits bit-equal. A speculative engine with
+   brownout on (the default) captures the decode set beside the verify
+   set: 6 graphs.
+11. ``tenancy`` — multi-tenant overload control and observability at
+   llama-3-8b's full width and depth (bf16, paged, page 64, max-batch 8,
+   max_seq_len 2048, decode chunk 16, greedy, speculation k 4; the
+   ``spec`` prompts, 32 new tokens a request). (1) 16 low-priority
+   "aggressor" requests (max-slots 6, queue share 0.5) and 4 "victim"
+   requests queued before ``start()``: every request ends with its tokens,
+   no flight frame and no polled ``tenants`` snapshot shows the aggressor
+   past 6 slots, each tenant's TTFT (from ``start()``), and the tokens
+   equal a tenant-free engine's, but for ties (``_same_or_tie``). (2)
+   Brownout pinned at levels 0, 1, 2 and 0 again, the 8 prompts one
+   after another: the same tokens but for ties; level 2 dispatches no
+   verify and replays one decode graph a chunk, levels 0 and 1 one
+   verify graph a verify; paged decode launches exactly layers x (decode
+   steps + verifies). (3) The capture's parts (warm-up, each branch of
+   each set), the graph pool and the engine's peak — live tensors and
+   the allocator's growth — against ``serving/memory.py``'s plan for one
+   set (speculation off), one set (speculation on, brownout off) and both
+   sets; a peak past the plan fails. (4) The ``e2e`` burst with
+   observability on and off (tokens/s, the same tokens but for ties), then
+   ``tenant-burst@1`` and ``nan@1`` planted in the phase's engine: the
+   burst's sheds counted against "chaos-burst", one ``nan-quarantine``
+   flight dump that validates and holds no token content.
+12. ``load``    — serve a safetensors checkpoint: llama-3-8b at full width
    and depth (the seeded tree, bf16, 16.06 GB) written by ``save_params_hf``
    as 4 shards of at most 5 GB under ``build/ckpt/`` (with under 17 GiB
    free there, the 4-layer ``llama-3-8b-shallow``, said in the output),
@@ -144,13 +168,16 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    launches required as in ``e2e``, with the cold start from the provider's
    construction to the first token split into load, engine build and graph
    capture, and the memory plan's total beside ``max_memory_allocated``
-   after ``start()`` (the weights and pool terms exact); then a copy of the
-   last shard one byte short must raise ``WeightLoadError`` naming the shard
-   and a tensor when the index is built, before any upload, and
+   after ``start()`` and after the first admission and the allocator's
+   growth (the weights and pool terms exact; a peak past the plan fails —
+   with int8 weights the plan charges the widened weights of the graph
+   pool and the eager path); then a copy of the last shard one byte
+   short must raise ``WeightLoadError`` naming the shard and a tensor
+   when the index is built, before any upload, and
    ``fault-injection: weight-load@1`` through the provider must leave no
    engine and no params, the injector fired once. The checkpoint is
    deleted and both trees freed before ``moe``.
-12. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
+13. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
    experts, top-2) with int8 weights drawn on the card (46.9 GB; the
    llama weights are dropped first), paged bf16 KV, max_seq_len 4096: 9
    requests of 21..3001 tokens, 32 new each (the 3001-token prompt takes 2
@@ -159,7 +186,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    reference path (a 200-token prompt, 4 paged decode steps) and one
    layer's ``moe_ffn`` timed at decode (8 tokens) and at a 2048-token
    segment beside its weight-byte bound.
-13. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+14. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
    and int8 page pools and the bf16 dense cache (8192 wide), traced with
    torch.profiler: the device's busy share of the wall and the top
    kernels (no split-K decode kernel may appear).
@@ -193,8 +220,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
-          "prefix", "spec", "load", "moe", "profile")
-DEFAULT_PHASES = PHASES[:12]
+          "prefix", "spec", "tenancy", "load", "moe", "profile")
+DEFAULT_PHASES = PHASES[:13]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -1213,9 +1240,13 @@ def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int, prompts=None,
     # every decode chunk (with speculation: every verify) of the run is one
     # replay of a graph start() captured
     dispatches = chunks + verifies
-    if dispatches <= 0 or replays != dispatches or after["graph-captures-total"] != 3:
+    # one graph a sampling branch, of each set start() captured (a
+    # speculative engine with brownout on: the verify and the decode set)
+    sets = len(after["graph-sets"])
+    if dispatches <= 0 or replays != dispatches or after["graph-captures-total"] != 3 * sets:
         raise AssertionError(f"{chunks} decode chunks and {verifies} verifies but {replays} "
-                             f"graph replays, {after['graph-captures-total']} captures")
+                             f"graph replays, {after['graph-captures-total']} captures of "
+                             f"{sets} sets")
     generated = sum(len(r.tokens) for r in results)
     ttfts = sorted(r.ttft_s for r in results)
     spec = {}
@@ -2250,8 +2281,13 @@ def _first_divergence(ctx, cfg, params, prompt, a: list, b: list):
     n = context.shape[1]
     cache = tf.make_kv_cache(cfg, 1, n, device="cuda")
     logits, _ = tf.prefill(params, context, torch.tensor([n], device="cuda"), cache, cfg)
-    top = torch.topk(logits[0].float(), 2)
+    row = logits[0].float()
+    top = torch.topk(row, 2)
+    chosen = [a[i], b[i]]
     return {"position": i, "spec": a[i], "off": b[i], "top2": top.indices.tolist(),
+            "top2_values": top.values.tolist(),
+            "chosen_values": row[chosen].tolist(),
+            "chosen_ranks": [int((row > row[t]).sum()) for t in chosen],
             "margin": (top.values[0] - top.values[1]).item(),
             "margin_rel": ((top.values[0] - top.values[1]) / logits[0].abs().max()).item()}
 
@@ -2464,6 +2500,384 @@ def phase_spec(ctx: dict) -> None:
     ctx["spec"] = {k: v for k, v in on.items() if not k.startswith("_")}
 
 
+# the tenancy phase: two tenants (and the drill's "chaos-burst" with a
+# small queue share, so the burst sheds), 32 new tokens a request
+TENANCY_NEW = 32
+TENANCY_TENANTS = [
+    {"name": "victim", "weight": 1},
+    {"name": "aggressor", "weight": 1, "max-slots": 6, "queue-share": 0.5},
+    {"name": "chaos-burst", "queue-share": 0.1},
+]
+TENANCY_QUEUE = 40
+
+
+def _bf16_ulp(x: float) -> float:
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def _same_or_tie(ctx, cfg, params, label: str, prompts, got, want) -> dict:
+    """Greedy tokens of two runs of the same requests: equal, or the first
+    position where a request's runs differ holds a tie — on the kernel
+    path's logits there (a prefill of the prompt and the shared tokens)
+    the two tokens the runs chose both rank first (ranks count the logits
+    strictly above: a three-way tie ranks two tokens second) and lie
+    within one bf16 ulp each way of each other (the ``spec`` phase's
+    rule): a GEMM of another shape (another admit group's rows, a decode
+    step's 8 rows against a verify's 40) rounds such a pair either way.
+    Returns the agreement per request, every divergence, and ``ok``: False
+    when one is not such a tie (the phase fails at its end)."""
+    agree, ties, bad = [], [], []
+    for prompt, a, b in zip(prompts, got, want):
+        agree.append(sum(x == y for x, y in zip(a, b)) / max(1, len(b)))
+        if a == b:
+            continue
+        d = _first_divergence(ctx, cfg, params, prompt, a, b)
+        if d is None:
+            bad.append({"lengths": [len(a), len(b)]})
+            continue
+        vals = d["chosen_values"]
+        d["ulp"] = _bf16_ulp(d["top2_values"][0])
+        tie = max(d["chosen_ranks"]) <= 1 and abs(vals[0] - vals[1]) <= 2 * d["ulp"]
+        (ties if tie else bad).append(d)
+    return {"label": label, "agreement": agree, "ties": ties, "not_ties": bad,
+            "equal": not ties and not bad, "ok": not bad}
+
+
+def _memory_reading(torch, engine, base_alloc: int, base_reserved: int) -> dict:
+    """The engine's peak beside its plan, from a reset taken before it was
+    built: the peak of live tensors and the growth of what the allocator
+    holds (the graph pool's blocks stay reserved while free), each against
+    the plan's bytes beyond the weights; fails where a peak passes it."""
+    plan = engine.memory_plan
+    beyond = plan.total_bytes - plan.weights_bytes
+    rec = {
+        "graph_sets": list(plan.graph_sets),
+        "plan_beyond_weights_bytes": beyond,
+        "plan_graph_pool_bytes": plan.graph_pool_bytes,
+        "plan_summary": plan.summary(),
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated() - base_alloc,
+        "peak_reserved_growth_bytes": torch.cuda.max_memory_reserved() - base_reserved,
+    }
+    for key in ("peak_allocated_bytes", "peak_reserved_growth_bytes"):
+        if rec[key] > beyond:
+            raise AssertionError(f"memory: {key} {rec[key]} passes the plan's {beyond} beyond "
+                                 f"the weights ({plan.summary()})")
+    return rec
+
+
+def _fresh_base(torch) -> tuple[int, int]:
+    import gc
+
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def _capture_reading(engine) -> dict:
+    stats = engine.stats()
+    return {
+        "graph_sets": stats["graph-sets"],
+        "graph_captures": stats["graph-captures-total"],
+        "graph_capture_s": stats["graph-capture-s"],
+        "graph_capture_parts_s": stats["graph-capture-parts-s"],
+        "graph_pool_bytes": stats["graph-pool-bytes"],
+    }
+
+
+def _run_all(engine, prompts, options) -> list:
+    """Every (prompt, options) submitted now → results, each required to
+    end with all its tokens."""
+    from langstream_tpu_torch.serving.engine import GenerationRequest
+
+    reqs = [engine.submit(GenerationRequest(prompt_tokens=p, options=o))
+            for p, o in zip(prompts, options)]
+    results = [r.result(timeout=900) for r in reqs]
+    for p, r in zip(prompts, results):
+        if r.finish_reason != "length" or len(r.tokens) != TENANCY_NEW:
+            raise AssertionError(f"request of {len(p)} tokens ended {r.finish_reason} with "
+                                 f"{len(r.tokens)} tokens")
+    return results
+
+
+def _tenant_traffic(prompts):
+    """16 low-priority aggressor requests, then 4 normal victim ones."""
+    from langstream_tpu_torch.models.configs import GenerationOptions
+
+    reqs = [(prompts[i % len(prompts)], GenerationOptions(
+        max_new_tokens=TENANCY_NEW, tenant="aggressor", priority="low")) for i in range(16)]
+    reqs += [(prompts[(i + 3) % len(prompts)], GenerationOptions(
+        max_new_tokens=TENANCY_NEW, tenant="victim")) for i in range(4)]
+    return [p for p, _ in reqs], [o for _, o in reqs]
+
+
+def _forced_levels(ctx, cfg, params, engine, prompts) -> dict:
+    """The 8 requests one after another at brownout levels 0, 1, 2 and 0
+    again (pinned by hand; the dwell never elapses): the same tokens in
+    every pass; level 2 dispatches no verify and replays the decode set
+    once a chunk, levels 0 and 1 replay the verify set once a verify; the
+    paged decode kernel launches exactly layers x (decode steps +
+    verifies) in each pass."""
+    import torch
+
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+    from langstream_tpu_torch.serving.engine import GenerationRequest
+
+    opts = GenerationOptions(max_new_tokens=TENANCY_NEW)
+    passes = []
+    for level in (0, 1, 2, 0):
+        engine._brownout.level = level
+        before = engine.stats()
+        reset_kernel_counts()
+        t0 = time.monotonic()
+        results = [engine.submit(GenerationRequest(prompt_tokens=p, options=opts)).result(
+            timeout=900) for p in prompts]
+        wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        after = engine.stats()
+
+        def delta(key):
+            return after[key] - before[key]
+
+        kinds = {k: after["graph-replays-by-kind"][k] - before["graph-replays-by-kind"][k]
+                 for k in ("decode", "verify")}
+        rec = {
+            "level": level,
+            "wall_s": wall,
+            "tokens_per_s": sum(len(r.tokens) for r in results) / wall,
+            "verifies": delta("spec-verify-dispatches-total"),
+            "decode_chunks": delta("decode-chunks-total"),
+            "decode_steps": delta("decode-steps-total"),
+            "draft_tokens": delta("spec-draft-tokens-total"),
+            "replays_by_kind": kinds,
+            "paged_decode_launches": counts["paged_decode"]["launches"],
+            "_tokens": [r.tokens for r in results],
+        }
+        plain = {k: v["cpu_calls"] for k, v in counts.items() if v["cpu_calls"]}
+        if plain:
+            raise AssertionError(f"brownout level {level}: plain versions ran: {plain}")
+        if any(len(r.tokens) != TENANCY_NEW for r in results):
+            raise AssertionError(f"brownout level {level}: a request ended short")
+        if level == 2 and (rec["verifies"] or kinds["decode"] != rec["decode_chunks"]
+                           or not rec["decode_chunks"]):
+            raise AssertionError(f"brownout level 2: {rec}")
+        if level < 2 and (kinds["verify"] != rec["verifies"] or not rec["verifies"]
+                          or rec["decode_chunks"]):
+            raise AssertionError(f"brownout level {level}: {rec}")
+        want = cfg.n_layers * (rec["decode_steps"] + rec["verifies"])
+        if rec["paged_decode_launches"] != want:
+            raise AssertionError(f"brownout level {level}: {rec['paged_decode_launches']} paged "
+                                 f"decode launches != {cfg.n_layers} x (steps + verifies) "
+                                 f"{want}")
+        if level == 1 and rec["draft_tokens"] > 2 * rec["verifies"] * 8:
+            raise AssertionError(f"brownout level 1 proposed more than k/2 drafts: {rec}")
+        passes.append(rec)
+    engine._brownout.level = 0
+    base = passes[0]["_tokens"]
+    for rec in passes[1:]:
+        rec["same_as_level0"] = _same_or_tie(ctx, cfg, params, f"brownout level {rec['level']}",
+                                             prompts, rec["_tokens"], base)
+    return {"passes": [{k: v for k, v in r.items() if not k.startswith("_")} for r in passes]}
+
+
+def _observability_drill(engine) -> dict:
+    """``nan@1`` and ``tenant-burst@1`` planted in the phase's engine at
+    level 2 (decode chunks, where the ``nan`` site reads): the burst's
+    max-batch requests under "chaos-burst" — its queue share takes 4, the
+    rest shed against it — and one ``nan-quarantine`` dump that passes the
+    port's ``validate_flight_dump`` and holds no token content."""
+    from langstream_tpu_torch.serving import observability as obs
+    from langstream_tpu_torch.serving.faultinject import FaultInjector
+
+    before = [d for d in obs.recent_dumps() if d["reason"] == "nan-quarantine"]
+    engine._brownout.level = 2
+    engine._injector = FaultInjector("tenant-burst@1,nan@1")
+    deadline = time.monotonic() + 120
+    while True:
+        stats = engine.stats()
+        burst = stats["tenants"].get("chaos-burst", {})
+        if burst.get("admitted-total", 0) + burst.get("shed-total", 0) >= engine.max_batch and (
+                stats["active-slots"] == 0 and stats["queued"] == 0):
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"tenant-burst drill did not settle: {burst}")
+        time.sleep(0.05)
+    engine._brownout.level = 0
+    dumps = [d for d in obs.recent_dumps() if d["reason"] == "nan-quarantine"]
+    new = dumps[len(before):]
+    if len(new) != 1:
+        raise AssertionError(f"{len(new)} nan-quarantine dumps, not 1")
+    obs.validate_flight_dump(new[0])
+    text = json.dumps(new[0])
+    if any(f'"{k}"' in text for k in ("tokens", "prompt", "generated", "drafts", "text")):
+        raise AssertionError("the nan-quarantine dump carries token content")
+    if burst.get("shed-total") != engine.max_batch - 4 or stats["fault-injection"] != {
+            "tenant-burst": 1, "nan": 1}:
+        raise AssertionError(f"tenant-burst drill: {burst}, {stats['fault-injection']}")
+    return {
+        "chaos_burst": {k: burst[k] for k in ("submitted-total", "admitted-total",
+                                              "shed-total")},
+        "nan_dump_iterations": len(new[0]["iterations"]),
+        "nan_dump_extra": new[0]["extra"],
+        "fault_injection": stats["fault-injection"],
+        "nan_guard_total": stats["nan-guard-total"],
+        "flight_dumps_total": stats["flight-dumps-total"],
+    }
+
+
+def phase_tenancy(ctx: dict) -> None:
+    """Multi-tenant overload control and observability at llama-3-8b's
+    full width and depth (bf16, paged, page 64, max-batch 8, max_seq_len
+    2048, decode chunk 16, greedy, speculation k 4; the ``spec`` phase's
+    prompts, 32 new tokens a request):
+
+    1. tenancy — 16 low-priority "aggressor" requests (max-slots 6, queue
+       share 0.5) then 4 "victim" requests, queued before ``start()``:
+       every request ends with its tokens, no flight frame and no
+       ``tenants`` snapshot shows the aggressor past 6 slots, and the
+       tokens equal a tenant-free engine's (a tie aside, ``_same_or_tie``);
+       each tenant's TTFT p50 and maximum;
+    2. brownout, forced — ``_forced_levels``;
+    3. capture and memory — the capture's parts, the graph pool and the
+       engine's peak against its plan (``_memory_reading``) for one set
+       (speculation off), one set (speculation on, brownout off) and both
+       sets;
+    4. observability — the ``e2e`` requests with observability on, off, off
+       and on (tokens/s of each; the same tokens, a tie aside), then
+       ``_observability_drill``.
+
+    Token comparisons that fail are raised at the end of the phase, after
+    every reading is printed."""
+    import gc
+
+    import torch
+
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS, GenerationOptions
+    from langstream_tpu_torch.serving.engine import GenerationRequest, ServingEngine
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    params = _llama_params(ctx)
+    prompts = _spec_prompts(ctx["seed"])
+    tok = ByteTokenizer()
+    kw = dict(max_batch=8, decode_chunk=16, page_size=PAGE, eos_token_id=tok.eos_token_id,
+              rng_seed=ctx["seed"], device="cuda", speculation="auto", **SPEC_KW)
+    traffic, options = _tenant_traffic(prompts)
+    out: dict = {"capture": {}, "memory": {}}
+
+    # 1 + 3 (both sets): the tenant engine, its traffic queued before start()
+    base = _fresh_base(torch)
+    engine = ServingEngine(cfg, params, tenants=TENANCY_TENANTS, queue_depth=TENANCY_QUEUE,
+                           brownout_dwell_s=1e9, **kw)
+    reqs = [engine.submit(GenerationRequest(prompt_tokens=p, options=o))
+            for p, o in zip(traffic, options)]
+    engine.start()
+    # the burst met an engine that had just captured its graphs: its
+    # TTFT counts from there
+    opened = time.monotonic()
+    peak_active = 0
+    while not all(r._done.is_set() for r in reqs):
+        peak_active = max(peak_active, engine.stats()["tenants"].get("aggressor", {}).get(
+            "active-slots", 0))
+        time.sleep(0.02)
+    results = [r.result(timeout=900) for r in reqs]
+    out["memory"]["both_sets"] = _memory_reading(torch, engine, *base)
+    out["capture"]["both_sets"] = _capture_reading(engine)
+    for p, r in zip(traffic, results):
+        if r.finish_reason != "length" or len(r.tokens) != TENANCY_NEW:
+            raise AssertionError(f"tenancy: request of {len(p)} tokens ended "
+                                 f"{r.finish_reason} with {len(r.tokens)} tokens")
+    frames = engine._obs.flight.iterations()
+    frame_peak = max(f["tenants"].get("aggressor", 0) for f in frames)
+    if frame_peak > 6 or peak_active > 6:
+        raise AssertionError(f"tenancy: the aggressor held {frame_peak} slots in a frame, "
+                             f"{peak_active} in a snapshot (max-slots 6)")
+    stats = engine.stats()
+    ttft = {}
+    for tenant in ("victim", "aggressor"):
+        vals = sorted(q.submitted_at + r.ttft_s - opened
+                      for q, r, o in zip(reqs, results, options) if o.tenant == tenant)
+        ttft[tenant] = {"ttft_after_start_p50_s": vals[len(vals) // 2],
+                        "ttft_after_start_max_s": vals[-1],
+                        "counters": {k: stats["tenants"][tenant][k] for k in (
+                            "submitted-total", "admitted-total", "shed-total",
+                            "generated-tokens-total")}}
+    out["tenancy"] = {"tenants": ttft, "aggressor_peak_slots_frames": frame_peak,
+                      "aggressor_peak_slots_snapshots": peak_active,
+                      "frames": len(frames)}
+
+    # 3 (one set, speculation on, brownout off) — and the tenant-free
+    # reference of part 1, its traffic queued before start() as well
+    engine.stop()  # parked while the reference serves; restarted for part 2
+    base_b = _fresh_base(torch)
+    engine_b = ServingEngine(cfg, params, brownout="off", queue_depth=TENANCY_QUEUE, **kw)
+    reqs = [engine_b.submit(GenerationRequest(prompt_tokens=p, options=GenerationOptions(
+        max_new_tokens=TENANCY_NEW))) for p in traffic]
+    engine_b.start()
+    ref = [r.result(timeout=900) for r in reqs]
+    out["memory"]["verify_set"] = _memory_reading(torch, engine_b, *base_b)
+    out["capture"]["verify_set"] = _capture_reading(engine_b)
+    engine_b.stop()
+    del engine_b
+    out["tenancy"]["same_as_no_tenants"] = _same_or_tie(
+        ctx, cfg, params, "tenancy vs no tenants", traffic, [r.tokens for r in results],
+        [r.tokens for r in ref])
+
+    # 2 + 4 (the drill) on the tenant engine
+    engine.start()
+    try:
+        out["brownout"] = _forced_levels(ctx, cfg, params, engine, prompts)
+        out["drill"] = _observability_drill(engine)
+    finally:
+        engine.stop()
+    del engine
+    gc.collect()
+
+    # 3 (one set, speculation off)
+    base_a = _fresh_base(torch)
+    engine_a = ServingEngine(cfg, params, **{**kw, "speculation": "off"})
+    engine_a.start()
+    try:
+        _run_all(engine_a, prompts, [GenerationOptions(max_new_tokens=TENANCY_NEW)] * 8)
+        out["memory"]["decode_set"] = _memory_reading(torch, engine_a, *base_a)
+        out["capture"]["decode_set"] = _capture_reading(engine_a)
+    finally:
+        engine_a.stop()
+    del engine_a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4: the e2e burst, observability on and off
+    e2e = [tok.encode(p)
+           for p in _prompts([20, 90, 150, 300, 600, 900, 1200, 1500], ctx["seed"])]
+    # in turns (on, off, off, on), each on a fresh engine, so neither side
+    # owns the card's warm-up
+    runs = [(on, _serve(ctx, cfg, params, [], 64, prompts=e2e, observability=on))
+            for on in (True, False, False, True)]
+    out["observability"] = {
+        "tokens_per_s_on": [r["tokens_per_s"] for on, r in runs if on],
+        "tokens_per_s_off": [r["tokens_per_s"] for on, r in runs if not on],
+        "ttft_p50_s_on": [r["ttft_p50_s"] for on, r in runs if on],
+        "ttft_p50_s_off": [r["ttft_p50_s"] for on, r in runs if not on],
+        "same_tokens": [
+            _same_or_tie(ctx, cfg, params, f"observability {'on' if on else 'off'} vs on", e2e,
+                         r["_tokens"], runs[0][1]["_tokens"])
+            for on, r in runs[1:]
+        ],
+    }
+    for part in ("tenancy", "brownout", "capture", "memory", "observability", "drill"):
+        log(f"tenancy {part} {json.dumps(out[part])}")
+    ctx["tenancy"] = out
+    compared = [out["tenancy"]["same_as_no_tenants"], *out["observability"]["same_tokens"]] + [
+        r["same_as_level0"] for r in out["brownout"]["passes"][1:]]
+    failed = [c for c in compared if not c["ok"]]
+    if failed:
+        raise AssertionError(f"tenancy: tokens differ, not at a tie: {json.dumps(failed)}")
+
+
 # the checkpoint phase: shards of at most 5 GB, as the published
 # Meta-Llama-3-8B checkpoint is sharded, written inside the checkout
 LOAD_SHARD_BYTES = 5 * 10**9
@@ -2570,6 +2984,7 @@ def _served_from_disk(ctx, cfg, path, params, prompts, quantize: bool, new_token
     weights_allocated = torch.cuda.memory_allocated() - base
     torch.cuda.reset_peak_memory_stats()
     loaded_base = torch.cuda.memory_allocated()
+    reserved_base = torch.cuda.memory_reserved()
     t1 = time.monotonic()
     engine = svc.engine()
     t_engine = time.monotonic() - t1
@@ -2580,6 +2995,10 @@ def _served_from_disk(ctx, cfg, path, params, prompts, quantize: bool, new_token
                             options=GenerationOptions(max_new_tokens=4),
                             on_token=lambda _: first or first.append(time.monotonic()))
     engine.submit(req).result(timeout=600)
+    # through the first admission too (int8: its eager widened weights),
+    # and what the allocator holds (the graph pool's blocks stay reserved)
+    served_peak = torch.cuda.max_memory_allocated() - loaded_base
+    served_reserved = torch.cuda.max_memory_reserved() - reserved_base
     plan = engine.memory_plan
     # the weights term against the tree the config serves (meta tensors,
     # counted apart from the plan), the pool term against the pool built
@@ -2602,7 +3021,18 @@ def _served_from_disk(ctx, cfg, path, params, prompts, quantize: bool, new_token
         "weights_allocated_bytes": weights_allocated,
         "engine_peak_bytes": engine_peak,
         "weights_plus_engine_peak_bytes": weights_allocated + engine_peak,
+        "served_peak_bytes": served_peak,
+        "served_reserved_growth_bytes": served_reserved,
+        "plan_graph_pool_bytes": plan.graph_pool_bytes,
+        "plan_eager_widened_bytes": plan.eager_widened_bytes,
+        "graph_pool_bytes": engine.stats()["graph-pool-bytes"],
     }
+    # the plan covers the engine (F4: the int8 path's widened weights in
+    # the graph pool and on the eager path)
+    for key in ("engine_peak_bytes", "served_peak_bytes", "served_reserved_growth_bytes"):
+        if weights_allocated + cold[key] > plan.total_bytes:
+            raise AssertionError(f"memory plan: weights {weights_allocated} + {key} {cold[key]} "
+                                 f"pass the plan's {plan.total_bytes} ({plan.summary()})")
     try:
         run = _serve(ctx, cfg, None, [], new_tokens, prompts=prompts, engine=engine,
                      sequential=True)

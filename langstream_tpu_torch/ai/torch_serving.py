@@ -47,8 +47,8 @@ honours the keys this slice serves:
     adds that share of the pool as headroom for the shared pages;
     `prefix-cache-entries` (default 512) caps the index (0 disables reuse).
     "auto" with kv-layout "dense" raises NotImplementedError (the dense
-    prefix pool is ROADMAP item 10). `host-kv-fraction` above 0 (a host-RAM
-    KV tier) raises NotImplementedError (ROADMAP item 9); `spill` takes
+    prefix pool is ROADMAP item 4). `host-kv-fraction` above 0 (a host-RAM
+    KV tier) raises NotImplementedError (ROADMAP item 5); `spill` takes
     auto | off
   speculation: auto | off (default off) → self-speculative decoding on the
     paged layout: a per-slot n-gram index over prompt and emitted tokens
@@ -59,7 +59,7 @@ honours the keys this slice serves:
     output is the same as without it; sampled output keeps its
     distribution (rejection sampling). `speculation-tokens` (default 4,
     at least 1) is k, one value engine-wide. "auto" with kv-layout "dense"
-    raises NotImplementedError (the dense verify is ROADMAP item 10)
+    raises NotImplementedError (the dense verify is ROADMAP item 4)
   kv-cache-quantization: "int8" → int8 KV with per-token per-head scales
     (the int8 decode / segment kernels); "" / "none" → model dtype
   tokenizer: "byte" (default) or "hf:<local path>" (a Hugging Face
@@ -68,6 +68,30 @@ honours the keys this slice serves:
   queue-depth / shed-policy: the bounded admission queue (default
     max-batch x 4); "block" (default) backpressures the caller, "reject"
     sheds with ShedError and a retry-after
+  kv-pages: the paged pool's page count (default: every slot can reach
+    max-seq-len, plus the prefix fraction's headroom)
+  prefill-token-budget: prompt tokens admitted an iteration (default the
+    widest bucket, floored at one full admit group); max-prefill-streams:
+    chunked-prefill streams at once (default 2); prefill-batch: rows of an
+    admit group, 8 only (an MoE model's groups are padded to it, as the
+    JAX engine pads them; any other value raises NotImplementedError)
+  tenants: a list of tenant specs (name, weight, max-slots, queue-share,
+    token-rate, burst-s; serving/tenancy.TenantSpec): weighted fair share
+    of the prefill budget and the slots, hard slot caps, queue shares and
+    token-rate quotas; a request names its tenant in its ``tenant`` option
+    (none: the shared "default" tenant)
+  brownout: auto (default) | off → the degradation ladder under sustained
+    load (speculative drafts halved, speculation off, low priority shed,
+    over-quota tenants shed), one step per ``brownout-dwell-s`` (0.5) at a
+    load score at or above ``brownout-enter-load`` (2.0), released at or
+    below ``brownout-exit-load`` (1.0). With speculation on and brownout
+    auto the engine captures the decode graphs beside the verify graphs
+  observability: true (default) | false → the engine's histograms,
+    request spans and flight recorder; flight-recorder-iterations (256)
+    sizes the recorder's ring, flight-dir (or LSTPU_FLIGHT_DIR) also
+    writes each flight dump there as JSON
+  drain-grace-s: how long ``close()`` lets the work in flight finish
+    (default 10) before it stops the engine
   engine-restart-backoff / engine-max-restarts: loop-crash recovery —
     quarantine the slots in flight, rebuild the device state (the decode
     graphs are captured again), restart under bounded exponential backoff
@@ -75,10 +99,27 @@ honours the keys this slice serves:
   fault-injection / fault-seed / fault-stall-s: deterministic fault drills
     (serving/faultinject.py; also through the LSTPU_FAULTS environment)
 
+Keys of the JAX provider this port refuses with NotImplementedError
+until their tiers are ported: ``adapters`` / ``adapter-*`` and
+``constrained-decoding`` / ``grammar-*`` (ROADMAP item 2), ``durable*``
+(item 5), ``fleet*``, ``disagg`` and ``cancel-key`` (item 6), ``mesh``
+(item 7) — each unless it is set to off. Keys of the JAX provider with no
+meaning here, which the port ignores:
+
+  precompile: XLA's ahead-of-time compile of the decode ladder (the port
+    captures its graphs in ``start()`` instead)
+  compile-cache-dir: XLA's persistent compile cache (nothing is compiled)
+  overlap: the JAX engine's fused prefill / decode iteration switch (the
+    port always fuses them)
+  pipeline-depth: the JAX engine's chunks in flight (the port keeps one)
+
 Per request, the options' ``deadline`` (``deadline-s``) and
 ``max-queue-wait`` (``max-queue-wait-s``) bound the wall time from submit
-and the wait for a slot (``GenerationOptions.from_dict``). On the card
-every decode chunk is a CUDA-graph replay; no key turns that off.
+and the wait for a slot, ``tenant`` / ``priority`` (low | normal | high) /
+``max-cost-tokens`` schedule and budget it (``GenerationOptions.from_dict``;
+``response-format``, ``grammar-resume-state`` and ``adapter`` raise
+NotImplementedError). On the card every decode chunk is a CUDA-graph
+replay; no key turns that off.
 
 A config the CUDA kernels cannot take on the device (a model dtype other
 than bfloat16 on the card, unless ``attention_impl`` is "jnp") raises
@@ -117,6 +158,27 @@ from langstream_tpu_torch.ops.attention import kernel_path_ok
 from langstream_tpu_torch.serving.engine import PREFILL_BUCKETS, GenerationRequest, ServingEngine
 from langstream_tpu_torch.serving.faultinject import FaultInjector
 from langstream_tpu_torch.serving.tokenizer import get_tokenizer
+
+# provider keys of the JAX package whose tiers the port does not serve yet
+# (key or key prefix → the ROADMAP item that ports it)
+_REFUSED_KEYS = (
+    ("adapters", 2), ("adapter-", 2), ("constrained-decoding", 2), ("grammar-", 2),
+    ("durable", 5), ("fleet", 6), ("disagg", 6), ("cancel-key", 6), ("mesh", 7),
+)
+
+
+def _asks_for(key: str, value: Any) -> bool:
+    """A refused key set to something other than off."""
+    if value is None or value is False or value == 0 or value in ([], {}):
+        return False
+    text = str(value).strip().lower()
+    return text not in ("", "off", "false", "none", "0") and not (
+        key == "fleet-role" and text == "mixed"
+    )
+
+
+def _int_or_none(value: Any) -> Optional[int]:
+    return int(value) if value is not None else None
 
 
 def model_config_from(resource: dict[str, Any]) -> ModelConfig:
@@ -183,6 +245,12 @@ class TorchCompletionsService(CompletionsService):
 
     def __init__(self, resource: dict[str, Any]) -> None:
         self.resource = dict(resource)
+        for key, value in self.resource.items():
+            item = next((n for k, n in _REFUSED_KEYS if key.startswith(k)), None)
+            if item is not None and _asks_for(key, value):
+                raise NotImplementedError(
+                    f"{key}: not served by the PyTorch port yet (ROADMAP item {item})"
+                )
         self.weights = str(self.resource.get("weights", "random") or "random")
         if self.weights != "random":
             next(_iter_safetensor_files(self.weights))  # FileNotFoundError without shards
@@ -209,7 +277,7 @@ class TorchCompletionsService(CompletionsService):
         if self.prefix_cache == "auto" and layout == "dense":
             raise NotImplementedError(
                 "prefix-cache on kv-layout dense: the dense prefix pool is not ported "
-                "(ROADMAP item 10); use kv-layout paged"
+                "(ROADMAP item 4); use kv-layout paged"
             )
         spec = self.resource.get("speculation", "off")
         if not isinstance(spec, bool) and str(spec).lower() not in ("auto", "off"):
@@ -223,7 +291,7 @@ class TorchCompletionsService(CompletionsService):
         if self.speculation == "auto" and layout == "dense":
             raise NotImplementedError(
                 "speculation on kv-layout dense: the dense verify is not ported "
-                "(ROADMAP item 10); use kv-layout paged"
+                "(ROADMAP item 4); use kv-layout paged"
             )
         spill = self.resource.get("spill", "auto")
         if not isinstance(spill, bool) and str(spill).lower() not in ("auto", "off"):
@@ -232,7 +300,7 @@ class TorchCompletionsService(CompletionsService):
         if float(self.resource.get("host-kv-fraction", 0.0)) > 0 and not spill_off:
             raise NotImplementedError(
                 "host-kv-fraction: the host-RAM KV tier (spill, hibernation) is not "
-                "ported (ROADMAP item 9)"
+                "ported (ROADMAP item 5)"
             )
         quant = str(self.resource.get("quantization", "") or "").lower()
         if quant not in ("", "none", "int8"):
@@ -254,6 +322,17 @@ class TorchCompletionsService(CompletionsService):
             raise ValueError(f"unknown shed-policy {self.shed_policy!r}; supported: block, reject")
         self.restart_backoff_s = float(self.resource.get("engine-restart-backoff", 0.1))
         self.max_restarts = int(self.resource.get("engine-max-restarts", 5))
+        batch = self.resource.get("prefill-batch")
+        if batch is not None and int(batch) != ServingEngine.PREFILL_BATCH:
+            raise NotImplementedError(
+                f"prefill-batch {batch}: the port's admit groups are "
+                f"{ServingEngine.PREFILL_BATCH} rows (an MoE model's groups are padded to it)"
+            )
+        bo = self.resource.get("brownout", "auto")
+        if not isinstance(bo, bool) and str(bo).lower() not in ("auto", "off"):
+            raise ValueError(f"unknown brownout {bo!r}; supported: auto, off")
+        self.brownout = "off" if bo is False or str(bo).lower() == "off" else "auto"
+        self.drain_grace_s = float(self.resource.get("drain-grace-s", 10.0))
         self.tokenizer = get_tokenizer(self.resource.get("tokenizer", "byte"))
         self._lock = threading.Lock()
         self._engine: Optional[ServingEngine] = None
@@ -317,6 +396,20 @@ class TorchCompletionsService(CompletionsService):
                     speculation=self.speculation,
                     speculation_tokens=self.speculation_tokens,
                     weight_load_report=self._weight_load_report,
+                    kv_pages=_int_or_none(self.resource.get("kv-pages")),
+                    prefill_token_budget=_int_or_none(self.resource.get("prefill-token-budget")),
+                    max_prefill_streams=_int_or_none(self.resource.get("max-prefill-streams")),
+                    tenants=list(self.resource.get("tenants") or []),
+                    brownout=self.brownout,
+                    brownout_enter_load=float(self.resource.get("brownout-enter-load", 2.0)),
+                    brownout_exit_load=float(self.resource.get("brownout-exit-load", 1.0)),
+                    brownout_dwell_s=float(self.resource.get("brownout-dwell-s", 0.5)),
+                    observability=bool(self.resource.get("observability", True)),
+                    flight_iterations=int(self.resource.get("flight-recorder-iterations", 256)),
+                    flight_dir=(
+                        str(self.resource["flight-dir"]) if self.resource.get("flight-dir")
+                        else None
+                    ),
                 )
                 engine.start()
                 self._engine = engine
@@ -339,12 +432,26 @@ class TorchCompletionsService(CompletionsService):
         return self._engine.stats() if self._engine is not None else {}
 
     def close(self) -> None:
+        """Drain, then stop: new requests shed while the work in flight
+        finishes for up to ``drain-grace-s``; what is still running then
+        fails with the stop."""
         with self._lock:
-            if self._engine is not None:
-                self._engine.stop()
-                self._engine = None
+            engine, self._engine = self._engine, None
+        if engine is not None:
+            engine.drain(self.drain_grace_s)
+            engine.stop()
 
     def _render_prompt(self, messages: list[ChatMessage]) -> str:
+        """The tokenizer's chat template when it has one (an HF tokenizer
+        of an instruct checkpoint), as the JAX provider renders it; else
+        ``role: content`` lines and an ``assistant:`` cue."""
+        hf = getattr(self.tokenizer, "_tok", None)
+        if hf is not None and getattr(hf, "chat_template", None):
+            return hf.apply_chat_template(
+                [{"role": m.role, "content": m.content} for m in messages],
+                tokenize=False,
+                add_generation_prompt=True,
+            )
         lines = [f"{m.role}: {m.content}" for m in messages]
         lines.append("assistant:")
         return "\n".join(lines)

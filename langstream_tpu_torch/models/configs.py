@@ -173,9 +173,11 @@ MODEL_PRESETS: dict[str, ModelConfig] = {
 
 @dataclass
 class GenerationOptions:
-    """Per-request options. The port honours the sampling, stop and
-    lifecycle knobs; the tenancy, adapter and grammar options of the JAX
-    package wait for the slices that port those tiers."""
+    """Per-request options: sampling, stops, the lifecycle's deadlines and
+    the tenancy knobs (tenant, priority, cost budget). The JAX package's
+    adapter and grammar options (``adapter``, ``response-format``,
+    ``grammar-resume-state``) are refused by ``from_dict`` until the agentic
+    tier is ported (ROADMAP item 2)."""
 
     max_new_tokens: int = 256
     temperature: float = 0.0  # 0 → greedy
@@ -190,12 +192,35 @@ class GenerationOptions:
     deadline_s: Optional[float] = None
     # cap on the time spent waiting for a slot; exceeded → fails in queue
     max_queue_wait_s: Optional[float] = None
+    # multi-tenant overload control (serving/tenancy.py): the tenant this
+    # request is billed and scheduled under (None: the shared "default"
+    # tenant)
+    tenant: Optional[str] = None
+    # priority WITHIN the tenant (low | normal | high): breaks ties among
+    # one tenant's queued requests; brownout level 3 sheds "low" at submit
+    priority: str = "normal"
+    # cost budget in tokens (prompt + generated): generation ends with
+    # finish_reason "length" once it is spent, and a prompt that cannot
+    # afford one generated token is refused at submit
+    max_cost_tokens: Optional[int] = None
 
     @staticmethod
     def from_dict(d: dict) -> "GenerationOptions":
+        for key, alias in (("response-format", "response_format"),
+                           ("grammar-resume-state", "grammar_resume_state"),
+                           ("adapter", "adapter")):
+            if d.get(key, d.get(alias)) not in (None, "", {}):
+                raise NotImplementedError(
+                    f"request option {key}: adapters and grammar-constrained decoding are "
+                    "not ported (ROADMAP item 2)"
+                )
         stops = d.get("stop-tokens", d.get("stop_tokens", ()))
         deadline = d.get("deadline", d.get("deadline-s", d.get("deadline_s")))
         queue_wait = d.get("max-queue-wait", d.get("max-queue-wait-s", d.get("max_queue_wait_s")))
+        priority = str(d.get("priority") or "normal").lower()
+        if priority not in ("low", "normal", "high"):
+            raise ValueError(f"unknown priority {priority!r}; supported: low, normal, high")
+        cost = d.get("max-cost-tokens", d.get("max_cost_tokens"))
         return GenerationOptions(
             max_new_tokens=int(d.get("max-tokens", d.get("max_new_tokens", 256))),
             temperature=float(d.get("temperature", 0.0)),
@@ -204,4 +229,7 @@ class GenerationOptions:
             stop_tokens=tuple(int(t) for t in stops),
             deadline_s=float(deadline) if deadline is not None else None,
             max_queue_wait_s=float(queue_wait) if queue_wait is not None else None,
+            tenant=str(d["tenant"]) if d.get("tenant") else None,
+            priority=priority,
+            max_cost_tokens=int(cost) if cost is not None else None,
         )

@@ -126,11 +126,37 @@ warm-up and capture. The engine logs its memory plan
 (``serving/memory.plan_serving_memory``) when it is built; it is kept as
 ``memory_plan``.
 
-Not ported yet (later slices): tenancy, brownout, priorities,
-``max_cost_tokens``, observability spans and flight dumps, the SPMD
-watchdog, the host-RAM KV tier and hibernation (ROADMAP item 9), the dense
-layout's prefix pool and verify (item 10), adapters and grammars (and with
-them the constrained verify, item 8).
+Multi-tenant overload control (``serving/tenancy.py``), as the JAX engine
+runs it: the admission queue is a ``TenantQueue`` (weighted deficit
+round-robin in prefill tokens across tenants, priority within a tenant,
+per-tenant queue shares), ``_admit`` holds back tenants at their
+``max_slots`` cap or their weighted share of the slots while others wait,
+submit sheds over-quota tenants first while others wait, and a request's
+``max_cost_tokens`` caps its generation (and its page reservation). Once
+per iteration the brownout controller reads the load score (queue wait
+under a backlog + slot occupancy + page-pool pressure) and walks its
+ladder: level 1 halves the drafts a verify proposes, level 2 serves decode
+chunks instead of verifies (after draining the verifies in flight), levels
+3 and 4 shed low-priority and over-quota admissions at submit. With
+speculation on and brownout not ``off``, ``start()`` therefore captures
+both graph sets — the decode chunk and the verify, once per sampling
+branch each, into the one shared pool — and each replay is counted by its
+kind; the capture is timed part by part (the warm-up, each branch of each
+set: ``graph-capture-parts-s``).
+
+Observability (``serving/observability.py``, ``observability=False``
+turns it off): host-side histograms at the JAX engine's sites (TTFT,
+inter-token, queue wait, prefill dispatch, decode or verify step, accepted
+tokens a verify, fetch), one ``engine.request`` span tree a request at
+completion (the port's ``tracing.TRACER``), and a flight recorder of the
+last ``flight_iterations`` iterations, dumped on a NaN or page quarantine,
+an engine restart, a shed burst, a brownout transition and
+``stats(dump=True)``. Nothing is recorded inside a captured chunk.
+
+Not ported yet (later slices): adapters and grammars (and with them the
+constrained verify, ROADMAP item 2), the dense layout's prefix pool and
+verify (item 4), the host-RAM KV tier and hibernation (item 5), the SPMD
+watchdog (item 7).
 """
 
 from __future__ import annotations
@@ -171,9 +197,23 @@ from langstream_tpu_torch.ops.attention import (
 )
 from langstream_tpu_torch.serving.faultinject import FaultInjector
 from langstream_tpu_torch.serving.memory import plan_serving_memory
+from langstream_tpu_torch.serving.observability import (
+    EngineObservability,
+    emit_request_spans,
+    load_score,
+)
 from langstream_tpu_torch.serving.pagepool import PagePool, PrefixPageIndex, pages_for_fraction
 from langstream_tpu_torch.serving.sampling import sample, speculative_verify
 from langstream_tpu_torch.serving.speculation import NGramIndex
+from langstream_tpu_torch.serving.tenancy import (
+    DEFAULT_TENANT,
+    BrownoutController,
+    TenantQueue,
+    TenantRegistry,
+    TenantShareExceeded,
+    TenantSpec,
+    effective_max_new_tokens,
+)
 
 log = logging.getLogger(__name__)
 
@@ -183,6 +223,12 @@ PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 # the sampling branches a decode chunk is captured for, in capture order:
 # (some row samples, some sampling row filters with top-k / top-p)
 DECODE_BRANCHES = ((False, False), (True, False), (True, True))
+# each branch's name in the capture's part timings
+BRANCH_NAMES = {(False, False): "greedy", (True, False): "sampled", (True, True): "filtered"}
+
+
+def _tenant(request: "GenerationRequest") -> str:
+    return request.options.tenant or DEFAULT_TENANT
 # CUDA errors after which the context is unusable for the whole process
 _STICKY_CUDA = (
     "illegal memory access", "illegal instruction", "misaligned address",
@@ -244,6 +290,8 @@ class GenerationRequest:
     # called from the engine thread once, with the final GenerationResult
     on_done: Optional[Callable[["GenerationResult"], None]] = None
     submitted_at: float = field(default_factory=time.monotonic)
+    # the propagated ``ls-trace-id``: the request's spans join this trace
+    trace_id: Optional[str] = None
     _done: threading.Event = field(default_factory=threading.Event)
     _result: Optional["GenerationResult"] = None
     _cancelled: threading.Event = field(default_factory=threading.Event)
@@ -303,10 +351,24 @@ class _Slot:
     generated: list[int] = field(default_factory=list)
     started_at: float = 0.0
     first_token_at: float = 0.0
+    # observability: the inter-token clock and the request span's
+    # attributes (host bookkeeping only)
+    last_token_at: float = 0.0
+    path: str = "cold"  # cold | warm | long: the admission route
+    prefill_chunks: int = 0
+    decode_iters: int = 0
+    verify_iters: int = 0
 
     @property
     def active(self) -> bool:
         return self.request is not None
+
+    def reset_obs(self, path: str, chunks: int) -> None:
+        self.last_token_at = 0.0
+        self.path = path
+        self.prefill_chunks = chunks
+        self.decode_iters = 0
+        self.verify_iters = 0
 
 
 class _Fetch:
@@ -355,12 +417,18 @@ class _Fetch:
 class _TokenFetcher:
     """The device-to-host fetch thread: one FIFO queue and one worker keep
     results in submission (= dispatch) order while the engine thread
-    dispatches the next chunk. Consults the ``fetch`` fault site."""
+    dispatches the next chunk. Consults the ``fetch`` fault site and
+    records the fetch histogram."""
 
-    def __init__(self, injector: Optional[FaultInjector] = None) -> None:
+    def __init__(
+        self,
+        injector: Optional[FaultInjector] = None,
+        obs: Optional[EngineObservability] = None,
+    ) -> None:
         self._queue: queue.SimpleQueue = queue.SimpleQueue()
         self._thread: Optional[threading.Thread] = None
         self._injector = injector
+        self._obs = obs
 
     def alive(self) -> bool:
         t = self._thread
@@ -392,7 +460,10 @@ class _TokenFetcher:
             try:
                 if self._injector is not None:
                     self._injector.stall("fetch")
+                t0 = time.monotonic()
                 handle._value = handle._materialize()
+                if self._obs is not None and self._obs.on:
+                    self._obs.record("engine_fetch_s", time.monotonic() - t0)
             except BaseException as e:  # noqa: BLE001 — surfaces at result()
                 handle._value = e
             handle._landed.set()
@@ -468,6 +539,16 @@ class ServingEngine:
         speculation: Any = "off",
         speculation_tokens: int = 4,
         weight_load_report: Optional[Any] = None,
+        prefill_token_budget: Optional[int] = None,
+        max_prefill_streams: Optional[int] = None,
+        tenants: Optional[list] = None,
+        brownout: Any = "auto",
+        brownout_enter_load: float = 2.0,
+        brownout_exit_load: float = 1.0,
+        brownout_dwell_s: float = 0.5,
+        observability: bool = True,
+        flight_iterations: int = 256,
+        flight_dir: Optional[str] = None,
     ) -> None:
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; supported: paged, dense")
@@ -491,7 +572,11 @@ class ServingEngine:
         # each iteration admits at most one widest bucket of prompt tokens
         # (floored at one full admit group) before its decode chunk, so a
         # burst of admissions overlaps the running batch's decode
-        self.prefill_token_budget = self.prefill_buckets[-1]
+        self.prefill_token_budget = max(
+            1, int(prefill_token_budget or self.prefill_buckets[-1])
+        )
+        if max_prefill_streams is not None:
+            self.MAX_PREFILL_STREAMS = max(1, int(max_prefill_streams))
         self.kv_layout = kv_layout
         self._paged = kv_layout == "paged"
         self.page_size = max(1, int(page_size))
@@ -504,7 +589,7 @@ class ServingEngine:
         if prefix_on and not self._paged:
             raise NotImplementedError(
                 "prefix_cache on the dense layout: the dense prefix pool is not ported "
-                "(ROADMAP item 10); use kv_layout='paged'"
+                "(ROADMAP item 4); use kv_layout='paged'"
             )
         # self-speculative decoding: host-side n-gram drafts, k of them per
         # slot and iteration, scored in one verify dispatch; one k
@@ -515,7 +600,7 @@ class ServingEngine:
         if spec_on and not self._paged:
             raise NotImplementedError(
                 "speculation on the dense layout: the dense verify (verify_step_inplace) "
-                "is not ported (ROADMAP item 10); use kv_layout='paged'"
+                "is not ported (ROADMAP item 4); use kv_layout='paged'"
             )
         self._spec_enabled = spec_on
         self.spec_tokens = max(1, int(speculation_tokens)) if spec_on else 0
@@ -560,9 +645,39 @@ class ServingEngine:
         self._inflight_steps = 0
         self._slots = [_Slot() for _ in range(self.max_batch)]
         self.shed_policy = shed_policy
-        self._queue: queue.Queue = queue.Queue(
-            maxsize=int(queue_depth) if queue_depth is not None else self.max_batch * 4
+        # multi-tenant overload control: per-tenant weights, slot caps,
+        # queue shares and token-rate quotas with their counters, and the
+        # admission queue itself — weighted deficit round-robin in prefill
+        # tokens (one tenant with default priorities: a FIFO)
+        self._tenants = TenantRegistry([
+            t if isinstance(t, TenantSpec) else TenantSpec.from_dict(t) for t in (tenants or [])
+        ])
+        self._queue = TenantQueue(
+            maxsize=int(queue_depth) if queue_depth is not None else self.max_batch * 4,
+            registry=self._tenants,
+            cost_fn=lambda r: float(self._bucket(len(r.prompt_tokens))),
+            quantum=float(self.prefill_buckets[-1]),
         )
+        # the brownout ladder (None: brownout "off")
+        brownout_off = brownout is False or str(brownout).lower() in ("off", "false", "0", "none")
+        self._brownout: Optional[BrownoutController] = None if brownout_off else (
+            BrownoutController(
+                enter_load=float(brownout_enter_load),
+                exit_load=float(brownout_exit_load),
+                dwell_s=float(brownout_dwell_s),
+            )
+        )
+        self.brownout_dumps_total = 0
+        self._brownout_checked_at = 0.0
+        # histograms, request spans and the flight recorder; every sample
+        # is host-side (nothing inside a captured chunk)
+        self._obs = EngineObservability(
+            enabled=observability, flight_capacity=flight_iterations, flight_dir=flight_dir,
+        )
+        # engine iterations, idle ones too (the flight recorder's clock)
+        self._iterations_total = 0
+        # decode-step clock: the ready time of the last processed chunk
+        self._last_chunk_ready_t = 0.0
         # admissions popped from the queue but waiting for pool pages;
         # retried ahead of the queue every iteration
         self._page_deferred: deque[GenerationRequest] = deque()
@@ -589,15 +704,18 @@ class ServingEngine:
         # the next iteration
         self._pending_row_resets: list[int] = []
         self._pending_page_zero: list[int] = []
-        # the captured decode chunks: sampling branch → (graph, per-kernel
-        # launches of one replay)
+        # the captured chunks: sampling branch → (graph, per-kernel
+        # launches of one replay). ``_graphs`` holds the engine's own set
+        # (the decode chunk; with speculation the verify), ``_decode_graphs``
+        # the decode chunks a speculative engine serves at brownout level 2
         self._graphs: dict[tuple[bool, bool], tuple[Any, dict]] = {}
+        self._decode_graphs: dict[tuple[bool, bool], tuple[Any, dict]] = {}
         self.restart_backoff_s = max(0.01, float(restart_backoff_s))
         self.max_restarts = max(0, int(max_restarts))
         self._injector = (
             fault_injector if fault_injector is not None else FaultInjector.from_env()
         )
-        self._fetcher = _TokenFetcher(self._injector)
+        self._fetcher = _TokenFetcher(self._injector, self._obs)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._dead: Optional[BaseException] = None
@@ -620,7 +738,11 @@ class ServingEngine:
         self.engine_restarts_total = 0
         self.graph_captures_total = 0
         self.graph_replays_total = 0
+        self.graph_replays_by_kind = {"decode": 0, "verify": 0}
         self.graph_capture_s = 0.0
+        # the last capture's seconds, part by part: the warm-up and each
+        # set's branches ("decode-greedy", "verify-sampled", ...)
+        self.graph_capture_parts_s: dict[str, float] = {}
         self.graph_pool_bytes = 0
         # prefix reuse: warm admissions (one suffix segment each) and
         # copy-on-write page copies
@@ -645,6 +767,8 @@ class ServingEngine:
         self._weight_load_report: dict[str, Any] = (
             weight_load_report.as_dict() if weight_load_report is not None else {}
         )
+        if self._weight_load_report.get("total-s"):
+            self._obs.record("engine_weight_load_s", float(self._weight_load_report["total-s"]))
         self.memory_plan = plan_serving_memory(
             config, self.max_batch, self.max_seq_len,
             params=params,
@@ -652,6 +776,7 @@ class ServingEngine:
             prefill_bucket=self.prefill_buckets[-1],
             prefill_streams=self.MAX_PREFILL_STREAMS,
             speculation_tokens=self.spec_tokens,
+            graph_sets=self._graph_kinds(),
             kv_layout=self.kv_layout,
             page_size=self.page_size,
             kv_pages=self._pagepool.num_pages if self._paged else 0,
@@ -757,30 +882,44 @@ class ServingEngine:
 
     # -- the captured decode chunk ---------------------------------------------
 
+    def _graph_kinds(self) -> tuple[str, ...]:
+        """The graph sets ``start()`` captures: the decode chunk; with
+        speculation the verify — and, unless brownout is off, the decode
+        chunk beside it, which brownout level 2 serves instead."""
+        if not self._spec_enabled:
+            return ("decode",)
+        return ("verify",) if self._brownout is None else ("verify", "decode")
+
+    def _chunk_fn(self, kind: str) -> Callable[[bool, bool], None]:
+        return self._verify_chunk if kind == "verify" else self._decode_chunk
+
     def _capture_graphs(self) -> None:
-        """Capture ``_decode_chunk`` (with speculation: ``_verify_chunk``,
-        instead) once per sampling branch, in ``DECODE_BRANCHES`` order,
-        into one shared pool — on the card with
-        ``torch.cuda.CUDAGraph`` after one warm-up call of each branch on the
-        side stream, off the card only with a stand-in ``_graph_factory``.
-        Each graph's kernel launches are counted at capture and removed
-        from the totals (the capture launched nothing); each replay adds
-        them back. Raises when a capture fails."""
+        """Capture each graph set (``_graph_kinds``: the decode chunk, the
+        verify, or both) once per sampling branch, in ``DECODE_BRANCHES``
+        order, into one shared pool — on the card with
+        ``torch.cuda.CUDAGraph`` after one warm-up call of every branch of
+        every set on the side stream, off the card only with a stand-in
+        ``_graph_factory``. Each graph's kernel launches are counted at
+        capture and removed from the totals (the capture launched nothing);
+        each replay adds them back. The warm-up and each capture are timed
+        (``graph_capture_parts_s``). Raises when a capture fails."""
         factory = self._graph_factory
         cuda = self.device.type == "cuda"
         if factory is None and not cuda:
             return  # the CPU calls the chunk function directly
         t0 = time.monotonic()
+        parts: dict[str, float] = {}
         reserved0 = 0
-        chunk_fn = self._verify_chunk if self._spec_enabled else self._decode_chunk
+        kinds = self._graph_kinds()
         with torch.no_grad():
             if factory is None:
                 stream = torch.cuda.Stream(self.device)
                 pool = torch.cuda.graph_pool_handle()
                 stream.wait_stream(torch.cuda.current_stream(self.device))
                 with torch.cuda.stream(stream):
-                    for branch in DECODE_BRANCHES:
-                        chunk_fn(*branch)
+                    for kind in kinds:
+                        for branch in DECODE_BRANCHES:
+                            self._chunk_fn(kind)(*branch)
                 torch.cuda.current_stream(self.device).wait_stream(stream)
                 torch.cuda.synchronize(self.device)
                 # the graph pool's bytes: what stays reserved past the
@@ -793,7 +932,8 @@ class ServingEngine:
                 def factory() -> _CudaGraph:
                     return _CudaGraph(pool, stream, self._generator)
 
-            graphs = {}
+            parts["warmup"] = time.monotonic() - t0
+            sets: dict[str, dict] = {kind: {} for kind in kinds}
             # a garbage collection inside a capture could destroy another
             # engine's unreachable graphs (and free their pool), which a
             # capturing stream refuses: collect first, none during
@@ -801,27 +941,37 @@ class ServingEngine:
             collecting = gc.isenabled()
             gc.disable()
             try:
-                for branch in DECODE_BRANCHES:
-                    graph = factory()
-                    before = count_snapshot()
-                    graph.capture(lambda b=branch: chunk_fn(*b))
-                    delta = count_delta(before, count_snapshot())
-                    add_counts(delta, -1)
-                    graphs[branch] = (graph, delta)
+                for kind in kinds:
+                    fn = self._chunk_fn(kind)
+                    for branch in DECODE_BRANCHES:
+                        t_part = time.monotonic()
+                        graph = factory()
+                        before = count_snapshot()
+                        graph.capture(lambda f=fn, b=branch: f(*b))
+                        delta = count_delta(before, count_snapshot())
+                        add_counts(delta, -1)
+                        sets[kind][branch] = (graph, delta)
+                        if cuda:
+                            torch.cuda.synchronize(self.device)
+                        parts[f"{kind}-{BRANCH_NAMES[branch]}"] = time.monotonic() - t_part
             finally:
                 if collecting:
                     gc.enable()
             if cuda:
                 torch.cuda.synchronize(self.device)
                 torch.cuda.empty_cache()
-        self._graphs = graphs
+        self._graphs = sets[kinds[0]]
+        self._decode_graphs = sets.get("decode", {}) if self._spec_enabled else {}
+        took = time.monotonic() - t0
         with self._stats_lock:
-            self.graph_captures_total += len(graphs)
-            self.graph_capture_s += time.monotonic() - t0
+            self.graph_captures_total += len(self._graphs) + len(self._decode_graphs)
+            self.graph_capture_s += took
+            self.graph_capture_parts_s = parts
             if cuda:
                 self.graph_pool_bytes = torch.cuda.memory_reserved(self.device) - reserved0
-        log.info("captured %d %s graphs in %.2fs", len(graphs),
-                 "verify" if self._spec_enabled else "decode", time.monotonic() - t0)
+        log.info("captured %d graphs (%s) in %.2fs: %s", len(self._graphs) + len(
+            self._decode_graphs), ", ".join(kinds), took,
+                 ", ".join(f"{k} {v:.2f}s" for k, v in parts.items()))
 
     def _decode_chunk(self, samples: bool, filters: bool, kv_bound: Optional[int] = None) -> None:
         """One decode chunk over the static buffers: ``decode_chunk`` x
@@ -904,16 +1054,19 @@ class ServingEngine:
         self._table_dev.copy_(self._upload(tables), non_blocking=True)
         self._table_uploaded = tables.copy()
 
-    def _run_chunk(self, branch: tuple[bool, bool]) -> None:
-        """Run one decode chunk (with speculation: one verify): replay its
-        captured graph and add the graph's launches to the kernel counts —
-        or, on the CPU without a stand-in graph, call the chunk function
-        (dense: with the exact bound)."""
-        captured = self._graphs.get(branch)
+    def _run_chunk(self, branch: tuple[bool, bool], kind: Optional[str] = None) -> None:
+        """Run one decode chunk or one verify (``kind``; by default the
+        engine's own: the verify with speculation, else the decode chunk):
+        replay its captured graph and add the graph's launches to the
+        kernel counts — or, on the CPU without a stand-in graph, call the
+        chunk function (dense: with the exact bound)."""
+        own = "verify" if self._spec_enabled else "decode"
+        kind = kind or own
+        captured = (self._graphs if kind == own else self._decode_graphs).get(branch)
         if captured is None:
             if self.device.type == "cuda" or self._graph_factory is not None:
-                raise RuntimeError("no captured decode graph: start() captures them")
-            if self._spec_enabled:
+                raise RuntimeError(f"no captured {kind} graph: start() captures them")
+            if kind == "verify":
                 self._verify_chunk(*branch)
                 return
             kv_bound = None if self._paged else self._decode_kv_bound(self.decode_chunk)
@@ -924,22 +1077,30 @@ class ServingEngine:
         add_counts(delta)
         with self._stats_lock:
             self.graph_replays_total += 1
+            self.graph_replays_by_kind[kind] += 1
 
     # -- public API ------------------------------------------------------------
 
     def submit(self, request: GenerationRequest) -> GenerationRequest:
-        """Thread-safe enqueue. A full queue blocks (``shed_policy``
-        "block") or sheds with ShedError and a retry-after estimate
-        ("reject"). A request whose deadline cannot survive the observed
-        queue wait is shed at once either way, as is every request once the
-        engine drains."""
+        """Thread-safe enqueue, through the JAX engine's gates in its
+        order: a draining engine sheds; a ``max_cost_tokens`` budget below
+        1, or one the prompt leaves no generated token in, is a ValueError;
+        brownout level 3 sheds low-priority requests and level 4 over-quota
+        tenants; an over-quota tenant sheds while other tenants wait; a
+        deadline that cannot survive the tenant's observed queue wait
+        sheds. Then a full queue blocks (``shed_policy`` "block") or sheds
+        ("reject"), and a tenant whose queue share is full sheds either
+        way. Every shed counts against its tenant, with a retry-after
+        estimate from the tenant's own wait."""
         if self._dead is not None:
             raise RuntimeError("serving engine is stopped") from self._dead
         # stamped on every submit attempt: a retry after ShedError reuses
         # the request, and its sleep is not queue wait
         request.submitted_at = time.monotonic()
+        tenant = _tenant(request)
+        self._tenants.note_submit(tenant)
         if self._draining:
-            self._count_shed()
+            self._count_shed(tenant)
             raise ShedError("serving engine is draining", retry_after_s=5.0)
         n = len(request.prompt_tokens)
         limit = self.max_seq_len - 1
@@ -947,11 +1108,48 @@ class ServingEngine:
             raise ValueError(
                 f"prompt of {n} tokens exceeds the engine limit of {limit} (max_seq_len - 1)"
             )
-        deadline_s = request.options.deadline_s
+        opts = request.options
+        budget = opts.max_cost_tokens
+        if budget is not None:
+            if int(budget) <= 0:
+                raise ValueError(f"max_cost_tokens must be >= 1, got {budget}")
+            if n + 1 > int(budget):
+                # a client error, not a capacity problem: never a shed
+                raise ValueError(
+                    f"prompt of {n} tokens leaves no generation room in a "
+                    f"max_cost_tokens budget of {budget}"
+                )
+        bo = self._brownout
+        if bo is not None and bo.reject_low and opts.priority == "low":
+            self._count_shed(tenant)
+            raise ShedError(
+                f"brownout level {bo.level}: low-priority admissions are shed until load clears",
+                retry_after_s=max(self._tenant_wait_estimate(tenant), 0.5),
+            )
+        over_quota = self._tenants.over_quota(tenant)
+        if bo is not None and bo.reject_quota and over_quota:
+            self._count_shed(tenant)
+            raise ShedError(
+                f"brownout level {bo.level}: tenant {tenant!r} is over its token-rate quota",
+                retry_after_s=max(self._tenants.quota_retry_after_s(tenant), 0.5),
+            )
+        # outside brownout, an over-quota tenant yields to the others under
+        # queue pressure; with nobody else waiting its work still runs
+        if over_quota and self._queue.qsize() > 0:
+            if any(t != tenant for t in self._queue.tenants_with_work()):
+                self._count_shed(tenant)
+                raise ShedError(
+                    f"tenant {tenant!r} is over its token-rate quota while other tenants wait",
+                    retry_after_s=max(self._tenants.quota_retry_after_s(tenant), 0.1),
+                )
+        deadline_s = opts.deadline_s
         if deadline_s is not None:
-            est_wait = self._queue_wait_ema_s
+            # the tenant's own observed wait decides hopelessness: a victim
+            # with an empty lane is not hopeless because an aggressor
+            # inflated the global EMA
+            est_wait = self._tenant_wait_estimate(tenant)
             if deadline_s <= 0 or (self._queue.qsize() > 0 and est_wait >= deadline_s):
-                self._count_shed()
+                self._count_shed(tenant)
                 raise ShedError(
                     f"deadline of {deadline_s:.2f}s cannot survive the current "
                     f"~{est_wait:.2f}s queue wait",
@@ -960,23 +1158,38 @@ class ServingEngine:
         with self._waiting_lock:
             self._waiting[id(request)] = request
         try:
-            if self.shed_policy == "reject":
-                self._queue.put_nowait(request)
-            else:
-                self._queue.put(request)
-        except queue.Full:
-            with self._waiting_lock:
-                self._waiting.pop(id(request), None)
-            self._count_shed()
-            raise ShedError(
-                f"admission queue full ({self._queue.maxsize} deep)",
-                retry_after_s=max(self._queue_wait_ema_s, 0.1),
-            ) from None
+            try:
+                if self.shed_policy == "reject":
+                    self._queue.put_nowait(request)
+                else:
+                    self._queue.put(request)
+            except queue.Full:
+                self._count_shed(tenant)
+                raise ShedError(
+                    f"admission queue full ({self._queue.maxsize} deep)",
+                    retry_after_s=max(self._tenant_wait_estimate(tenant), 0.1),
+                ) from None
+            except TenantShareExceeded as e:
+                # the tenant's slice is full, whatever room the queue has:
+                # a shed for that tenant, never backpressure for everyone
+                self._count_shed(tenant)
+                raise ShedError(
+                    str(e), retry_after_s=max(self._tenant_wait_estimate(tenant), 0.1),
+                ) from None
         except BaseException:
             with self._waiting_lock:
                 self._waiting.pop(id(request), None)
             raise
         return request
+
+    def _tenant_wait_estimate(self, tenant: str) -> float:
+        """The queue-wait estimate of shed decisions and retry-after: a
+        named tenant's own EMA when it has one, else the global EMA (the
+        default tenant reads the global EMA)."""
+        if tenant == DEFAULT_TENANT:
+            return self._queue_wait_ema_s
+        own = self._tenants.queue_wait_ema_s(tenant)
+        return own if own > 0 else self._queue_wait_ema_s
 
     def generate(
         self,
@@ -999,12 +1212,68 @@ class ServingEngine:
             req.cancel()
             raise
 
-    def _count_shed(self) -> None:
+    def _count_shed(self, tenant: Optional[str] = None) -> None:
+        """Count a shed (against its tenant when known); a burst of them
+        within a second leaves a ``shed-burst`` flight dump."""
         with self._stats_lock:
             self.shed_total += 1
+        if tenant is not None:
+            self._tenants.note_shed(tenant)
+        if self._obs.on and self._obs.flight.note_shed():
+            self._flight_dump("shed-burst")
 
-    def stats(self) -> dict[str, Any]:
+    def _flight_dump(
+        self, reason: str, extra: Optional[dict] = None, force: bool = False
+    ) -> Optional[dict]:
+        """Snapshot the flight ring into a dump, with the lifecycle counters
+        and the injector's recent firings; debounced per reason by the
+        recorder. Callable from any thread (sheds run on submitters)."""
+        if not self._obs.on:
+            return None
+        extra = dict(extra or {})
+        if self._injector is not None:
+            extra["injector-events"] = self._injector.events_snapshot()
+        return self._obs.flight.dump(
+            reason, counters=self._counters_snapshot(), extra=extra, force=force,
+        )
+
+    def _counters_snapshot(self) -> dict[str, Any]:
+        with self._stats_lock:
+            return {
+                "shed": self.shed_total,
+                "cancelled": self.cancelled_total,
+                "deadline-queue": self.deadline_queue_total,
+                "deadline-decode": self.deadline_decode_total,
+                "quarantined-slots": self.quarantined_slots_total,
+                "nan-guard": self.nan_guard_total,
+                "engine-restarts": self.engine_restarts_total,
+                "total-requests": self.total_requests,
+                "total-generated-tokens": self.total_generated,
+                "queued": self._queue.qsize(),
+                "active-slots": sum(1 for s in self._slots if s.active),
+            }
+
+    def reset_histograms(self) -> None:
+        """Zero the streaming histograms (their buckets stay)."""
+        self._obs.reset_histograms()
+
+    def stats(self, dump: bool = False) -> dict[str, Any]:
+        """One consistent snapshot of the counters (read under the lock
+        their writers hold), plain values only. ``dump=True`` also
+        snapshots the flight recorder (``flight-recorder``)."""
         pool, index = self._pagepool, self._prefix_index
+        # the histograms and the tenants take their own locks, never
+        # nested with the stats lock
+        hist = self._obs.histograms()
+        active_by_tenant: dict[str, int] = {}
+        for slot in self._slots:
+            request = slot.request
+            if request is not None:
+                t = _tenant(request)
+                active_by_tenant[t] = active_by_tenant.get(t, 0) + 1
+        tenants = self._tenants.snapshot(
+            queued=self._queue.depth_by_tenant(), active=active_by_tenant
+        )
         with self._stats_lock:
             out = {
                 "device": str(self.device),
@@ -1040,11 +1309,16 @@ class ServingEngine:
                 # JAX engine's compiled programs), all captures so far
                 # (restarts capture again), replays, capture wall time and
                 # the shared pool's bytes
-                "compiled_programs": len(self._graphs),
+                "compiled_programs": len(self._graphs) + len(self._decode_graphs),
+                "graph-sets": list(self._graph_kinds()),
                 "graph-captures-total": self.graph_captures_total,
                 "graph-replays-total": self.graph_replays_total,
+                "graph-replays-by-kind": dict(self.graph_replays_by_kind),
                 "graph-capture-s": self.graph_capture_s,
+                "graph-capture-parts-s": dict(self.graph_capture_parts_s),
                 "graph-pool-bytes": self.graph_pool_bytes,
+                "prefill-token-budget": self.prefill_token_budget,
+                "max-prefill-streams": self.MAX_PREFILL_STREAMS,
                 # launches of each attention kernel in this process (CUDA,
                 # replays included) and calls of its plain version (CPU)
                 "kernels": kernel_counts(),
@@ -1115,6 +1389,28 @@ class ServingEngine:
             out["kv-cache-bytes"] = sum(
                 t.numel() * t.element_size() for t in _leaves(self._cache)
             )
+        # multi-tenant overload control and observability (the JAX
+        # engine's keys)
+        bo = self._brownout
+        out["tenants"] = tenants
+        out["brownout"] = bo.snapshot() if bo is not None else None
+        out["brownout-level"] = bo.level if bo is not None else 0
+        out["brownout-transitions-total"] = bo.transitions_total if bo is not None else 0
+        out["observability"] = self._obs.on
+        out["histograms"] = hist
+        page_pressure = (
+            pool.pages_in_use / max(1, pool.num_pages)
+            if pool is not None
+            else min(1.0, out["queued"] / max(1, self._queue.maxsize))
+        )
+        out["load-score"] = load_score(
+            hist.get("engine_queue_wait_s", {}).get("p90", 0.0),
+            out["active-slots"] / max(1, self.max_batch),
+            page_pressure,
+        )
+        out["flight-dumps-total"] = self._obs.flight.dumps_total
+        if dump:
+            out["flight-recorder"] = self._flight_dump("on-demand", force=True)
         return out
 
     # -- the loop --------------------------------------------------------------
@@ -1154,6 +1450,11 @@ class ServingEngine:
                     self._recovering = True
                     with self._stats_lock:
                         self.engine_restarts_total += 1
+                    # dump before _recover clears state: the ring holds
+                    # the iterations that led to the crash
+                    self._flight_dump(
+                        "engine-restart", extra={"error": type(e).__name__, "restart": restarts},
+                    )
                     log.exception(
                         "serving engine loop crashed; quarantining %d in-flight slot(s), "
                         "restarting in %.2fs (restart %d/%d)",
@@ -1223,6 +1524,7 @@ class ServingEngine:
         self._pending_page_zero.clear()
         self._spec_index.clear()
         self._graphs = {}
+        self._decode_graphs = {}
         if self._paged:
             self._pagepool.reset()
             if self._prefix_index is not None:
@@ -1236,31 +1538,57 @@ class ServingEngine:
         self._capture_graphs()
 
     def _iterate(self, pending: deque) -> None:
-        """One fused iteration: the quarantine's zeroing and the expiry
-        sweep, then a token-budgeted slice of prefill work (chunked-prefill
-        segments first, so a long prompt cannot starve under short
-        traffic, then admissions), then the decode chunk — back-to-back on
+        """One fused iteration: the quarantine's zeroing, the expiry sweep,
+        the brownout tick and the ``tenant-burst`` site, then a
+        token-budgeted slice of prefill work (chunked-prefill segments
+        first, so a long prompt cannot starve under short traffic, then
+        admissions), then the decode chunk or the verify — back-to-back on
         the in-order stream — then host processing of whatever batch of
-        earlier dispatches has landed."""
+        earlier dispatches has landed, and one flight-recorder frame."""
+        obs_on = self._obs.on
+        self._iterations_total += 1
+        t0 = time.monotonic() if obs_on else 0.0
         if self._pending_row_resets:
             self._flush_row_resets()
         if self._pending_page_zero:
             self._flush_page_zeros()
         self._sweep_waiting()
+        if self._brownout is not None:
+            self._brownout_tick()
+        if self._injector is not None:
+            self._tenant_burst_tick()
+        t_sweep = time.monotonic() if obs_on else 0.0
         self._inflight_steps = sum(e[3] for batch in pending for e in batch if e[0] == "chunk")
         had_active = any(s.active for s in self._slots)
         self._mid_iteration = True
         try:
             new_pending, spent = self._long_step(self.prefill_token_budget)
+            n_long_entries = len(new_pending)
             new_pending.extend(self._admit(max(0, self.prefill_token_budget - spent)))
         finally:
             self._mid_iteration = False
+        # prefill dispatched this iteration runs ahead of the chunk on the
+        # stream: that chunk's step time is not sampled
+        prefill_ahead = bool(new_pending) or spent > 0
+        t_prefill = time.monotonic() if obs_on else 0.0
+        n_admitted = sum(len(e[2]) for e in new_pending if e[0] == "prefill")
+        prefill_tokens = spent + sum(
+            len(req.prompt_tokens)
+            for e in new_pending[n_long_entries:] if e[0] == "prefill"
+            for _, req in e[2]
+        )
         if new_pending and not had_active:
             # cold start: nothing to overlap the first-token fetch with
             for entry in new_pending:
                 self._process_entry(entry)
             new_pending = []
-        if self._spec_enabled and (new_pending or pending or any(s.active for s in self._slots)):
+        spec_off = self._brownout is not None and self._brownout.spec_off
+        disp_kind, disp_steps = "", 0
+        if (
+            self._spec_enabled
+            and not spec_off
+            and (new_pending or pending or any(s.active for s in self._slots))
+        ):
             # a verify's drafts continue from the last accepted token, which
             # only the fetches in flight know: drain them all first (the
             # pipelining speculation gives up for its k + 1 tokens a read)
@@ -1271,15 +1599,27 @@ class ServingEngine:
                 self._process_entry(entry)
             new_pending = []
             if any(s.active for s in self._slots):
-                verify = self._dispatch_verify()
+                verify = self._dispatch_verify(clean=not prefill_ahead)
                 if verify is not None:
                     new_pending.append(verify)
+                    disp_kind, disp_steps = "verify", self.spec_tokens + 1
         elif any(s.active for s in self._slots):
-            chunk = self._dispatch_chunk()
-            if chunk is not None:
-                new_pending.append(chunk)
+            if self._spec_enabled:
+                # brownout level 2: decode chunks instead of verifies, once
+                # the verifies in flight have delivered
+                while any(e[0] == "verify" for batch in pending for e in batch):
+                    for entry in pending.popleft():
+                        self._process_entry(entry)
+            if any(s.active for s in self._slots):
+                chunk = self._dispatch_chunk(
+                    clean=not prefill_ahead, pipelined=self._inflight_steps > 0
+                )
+                if chunk is not None:
+                    new_pending.append(chunk)
+                    disp_kind, disp_steps = "decode", chunk[3]
         elif not new_pending and not pending and not spent:
             time.sleep(0.001)
+        t_dispatch = time.monotonic() if obs_on else 0.0
         pending.append(new_pending)
         # depth-1 pipeline: at most one dispatched batch waits unprocessed
         while pending and (
@@ -1289,6 +1629,116 @@ class ServingEngine:
         ):
             for entry in pending.popleft():
                 self._process_entry(entry)
+        if obs_on and (disp_kind or n_admitted or spent or had_active):
+            # one frame a working iteration (idle ones are skipped, so the
+            # ring holds the work leading up to an incident); host only
+            t_end = time.monotonic()
+            self._obs.flight.record({
+                "i": self._iterations_total,
+                "t": round(time.time(), 3),
+                "active": sum(1 for s in self._slots if s.active),
+                "queued": self._queue.qsize(),
+                "longs": len(self._longs),
+                "admitted": n_admitted,
+                "prefill_tokens": prefill_tokens,
+                "dispatch": disp_kind,
+                "steps": disp_steps,
+                "kv_pages": self._pagepool.pages_in_use if self._pagepool else 0,
+                "host_pages": 0,  # no host KV tier in the port yet
+                # distinct captured graphs (the JAX engine's compiled programs)
+                "programs": len(self._graphs) + len(self._decode_graphs),
+                "tenants": self._active_by_tenant(),
+                "brownout": self._brownout.level if self._brownout is not None else 0,
+                "injector": dict(self._injector.fired) if self._injector is not None else {},
+                "phase_ms": {
+                    "sweep": round((t_sweep - t0) * 1e3, 3),
+                    "prefill": round((t_prefill - t_sweep) * 1e3, 3),
+                    "dispatch": round((t_dispatch - t_prefill) * 1e3, 3),
+                    "process": round((t_end - t_dispatch) * 1e3, 3),
+                    "spill": 0.0,
+                    "restore": 0.0,
+                },
+            })
+
+    def _active_by_tenant(self) -> dict[str, int]:
+        """Active slots by tenant (engine thread)."""
+        out: dict[str, int] = {}
+        for slot in self._slots:
+            if slot.request is not None:
+                t = _tenant(slot.request)
+                out[t] = out.get(t, 0) + 1
+        return out
+
+    def _current_load_score(self) -> float:
+        """The brownout controller's input: the load score over current
+        signals — the queue-wait EMA while a backlog exists (0 once the
+        queue empties, so the ladder can unwind), slot occupancy and
+        page-pool pressure."""
+        backlog_wait = self._queue_wait_ema_s if self._queue.qsize() > 0 else 0.0
+        pool = self._pagepool
+        page_pressure = (
+            pool.pages_in_use / max(1, pool.num_pages)
+            if pool is not None
+            else min(1.0, self._queue.qsize() / max(1, self._queue.maxsize))
+        )
+        occupancy = sum(1 for s in self._slots if s.active) / max(1, self.max_batch)
+        return load_score(backlog_wait, occupancy, page_pressure)
+
+    def _brownout_tick(self) -> None:
+        """Advance the brownout ladder off the current load score, at most
+        every 50 ms. A transition either way is counted, logged and dumped
+        (reason ``brownout``)."""
+        now = time.monotonic()
+        if now - self._brownout_checked_at < 0.05:
+            return
+        self._brownout_checked_at = now
+        transition = self._brownout.observe(self._current_load_score(), now)
+        if transition is None:
+            return
+        old, new = transition
+        snap = self._brownout.snapshot()
+        log.warning("brownout %s: level %d -> %d (step %s, load %.3f)",
+                    "escalated" if new > old else "released", old, new, snap["step"],
+                    snap["last-load"])
+        dumped = self._flight_dump("brownout", extra={
+            "brownout-from": old,
+            "brownout-to": new,
+            "brownout-step": snap["step"],
+            "load-score": snap["last-load"],
+        })
+        if dumped is not None:
+            with self._stats_lock:
+                self.brownout_dumps_total += 1
+
+    BURST_TENANT = "chaos-burst"
+
+    def _tenant_burst_tick(self) -> None:
+        """The ``tenant-burst`` fault site: when it fires, enqueue
+        ``max_batch`` synthetic low-priority admissions under the
+        "chaos-burst" tenant, without blocking (the engine thread never
+        parks on its own queue): a full queue or queue share sheds them,
+        counted against that tenant."""
+        if not self._injector.fires("tenant-burst"):
+            return
+        for j in range(self.max_batch):
+            request = GenerationRequest(
+                prompt_tokens=[3 + (j % 5), 5, 7, 11, 13, 17, 19, 23],
+                options=GenerationOptions(
+                    max_new_tokens=16, tenant=self.BURST_TENANT, priority="low"
+                ),
+            )
+            self._tenants.note_submit(self.BURST_TENANT)
+            if self._draining:
+                self._count_shed(self.BURST_TENANT)
+                continue
+            with self._waiting_lock:
+                self._waiting[id(request)] = request
+            try:
+                self._queue.put_nowait(request)
+            except (queue.Full, TenantShareExceeded):
+                with self._waiting_lock:
+                    self._waiting.pop(id(request), None)
+                self._count_shed(self.BURST_TENANT)
 
     def _sweep_waiting(self) -> None:
         """Resolve queued-but-unadmitted requests that died waiting
@@ -1334,15 +1784,18 @@ class ServingEngine:
         if request.cancelled:
             with self._stats_lock:
                 self.cancelled_total += 1
+            self._tenants.note_cancelled(_tenant(request))
             request._finish(GenerationResult(
                 tokens=[], finish_reason="cancelled",
                 prompt_tokens=len(request.prompt_tokens), ttft_s=0, total_s=wait,
             ))
+            self._emit_queued_death_spans(request, "cancelled", now)
             return True
         if self._expired(request, now):
             opts = request.options
             with self._stats_lock:
                 self.deadline_queue_total += 1
+            self._tenants.note_deadline(_tenant(request))
             request._finish(GenerationResult(
                 tokens=[], finish_reason="deadline",
                 prompt_tokens=len(request.prompt_tokens), ttft_s=0, total_s=wait,
@@ -1351,8 +1804,23 @@ class ServingEngine:
                     f"max-queue-wait={opts.max_queue_wait_s}"
                 ),
             ))
+            self._emit_queued_death_spans(request, "deadline", now)
             return True
         return False
+
+    def _emit_queued_death_spans(self, request: GenerationRequest, reason: str,
+                                 now: float) -> None:
+        """The span tree of a request that died before admission: the root
+        and its ``engine.queued`` child only."""
+        if not self._obs.on:
+            return
+        emit_request_spans(
+            request.trace_id,
+            {"submitted": request.submitted_at, "finished": now},
+            {"slot": -1, "path": "queued", "prompt_len": len(request.prompt_tokens),
+             "generated_tokens": 0, "finish_reason": reason},
+            status="ok" if reason == "cancelled" else f"error: {reason}",
+        )
 
     def _prequalify(self, request: GenerationRequest) -> bool:
         """The queue-exit gate: False when the request died waiting; a live
@@ -1365,6 +1833,9 @@ class ServingEngine:
             self._queue_wait_ema_s = (
                 wait if self._queue_wait_ema_s == 0 else 0.8 * self._queue_wait_ema_s + 0.2 * wait
             )
+        self._tenants.note_queue_wait(_tenant(request), wait)
+        if self._obs.on:
+            self._obs.record("engine_queue_wait_s", wait)
         return True
 
     def _flush_row_resets(self) -> None:
@@ -1393,12 +1864,56 @@ class ServingEngine:
                 return b
         return self.prefill_buckets[-1]
 
-    def _pop_admission(self, allow_new: bool) -> GenerationRequest:
+    def _pop_admission(self, allow_new: bool, skip: Optional[set] = None) -> GenerationRequest:
+        """Page-deferred admissions retry first; ``skip`` (tenants held
+        back this pop) goes to the tenant queue's round-robin only."""
         if self._page_deferred:
             return self._page_deferred.popleft()
         if not allow_new:
             raise queue.Empty
-        return self._queue.get_nowait()
+        return self._queue.get_nowait(skip=skip)
+
+    def _tenant_occupancy(self) -> dict[str, int]:
+        """Active slots and chunked-prefill streams by tenant, once an
+        ``_admit`` call (slots activate after its pop loop)."""
+        active = self._active_by_tenant()
+        for st in self._longs.values():
+            t = _tenant(st["request"])
+            active[t] = active.get(t, 0) + 1
+        return active
+
+    def _tenant_slot_skip(self, occupancy: dict[str, int],
+                          pending_counts: dict[str, int]) -> set:
+        """Tenants that must not claim another slot now: at their
+        ``max_slots`` cap, or at their weighted fair share of the slots
+        (max_batch x weight / the contenders' weights) while other tenants
+        wait. A lone tenant is never capped by fairness, and when every
+        waiting tenant is at its fair share with slots free, the fair caps
+        relax (``max_slots`` never does)."""
+        waiting = self._queue.tenants_with_work()
+        if not waiting:
+            return set()
+        active = dict(occupancy)
+        for t, n in pending_counts.items():
+            active[t] = active.get(t, 0) + n
+        hard: set = set()
+        fair_skip: set = set()
+        contending = set(waiting) | {t for t, n in active.items() if n}
+        multi = len(contending) > 1
+        total_w = sum(self._tenants.weight(t) for t in contending) or 1.0
+        for t in waiting:
+            spec = self._tenants.state(t).spec
+            n = active.get(t, 0)
+            if spec.max_slots is not None and n >= spec.max_slots:
+                hard.add(t)
+                continue
+            if multi:
+                fair = max(1, round(self.max_batch * self._tenants.weight(t) / total_w))
+                if n >= fair:
+                    fair_skip.add(t)
+        if fair_skip and set(waiting) <= (fair_skip | hard):
+            fair_skip = set()
+        return fair_skip | hard
 
     def _admit(self, budget: int) -> list[tuple]:
         """Move queued requests into free slots, batched per prompt bucket
@@ -1419,6 +1934,10 @@ class ServingEngine:
         # while deferred admissions wait for pages, only they retry
         allow_new = not self._page_deferred
         widest = self.prefill_buckets[-1]
+        # fair-share slot division: tenants admitted in this call count
+        # toward their share at once
+        pending_counts: dict[str, int] = {}
+        occupancy = self._tenant_occupancy()
         # a held-back long request gets first claim on freed long-queue room
         if self._held_back is not None and len(self._long_queue) < self.LONG_QUEUE_CAP:
             self._long_queue.append(self._held_back)
@@ -1429,7 +1948,9 @@ class ServingEngine:
                 if admitted_tokens >= budget and len(pairs) >= self.PREFILL_BATCH:
                     break
                 try:
-                    request = self._pop_admission(allow_new)
+                    request = self._pop_admission(
+                        allow_new, skip=self._tenant_slot_skip(occupancy, pending_counts)
+                    )
                 except queue.Empty:
                     break
                 with self._waiting_lock:
@@ -1437,6 +1958,7 @@ class ServingEngine:
                 if request._done.is_set() or not self._prequalify(request):
                     continue  # resolved by the sweep, or dead on its way out
                 n = len(request.prompt_tokens)
+                tenant = _tenant(request)
                 if n > widest:
                     # the chunked-prefill path, its queue bounded so
                     # submit's backpressure still engages under long traffic
@@ -1444,9 +1966,11 @@ class ServingEngine:
                         self._held_back = request
                         break
                     self._long_queue.append(request)
+                    pending_counts[tenant] = pending_counts.get(tenant, 0) + 1
                     continue
                 pairs.append((idx, request))
                 admitted_tokens += self._bucket(n)
+                pending_counts[tenant] = pending_counts.get(tenant, 0) + 1
                 got = True
             if not got:
                 break
@@ -1497,7 +2021,10 @@ class ServingEngine:
         The short and the long path both bind here."""
         pool, index = self._pagepool, self._prefix_index
         prompt = request.prompt_tokens
-        need = pool.pages_needed(len(prompt), max(1, request.options.max_new_tokens))
+        # a max_cost_tokens budget shrinks the reservation with the cap
+        need = pool.pages_needed(
+            len(prompt), max(1, effective_max_new_tokens(request.options, len(prompt)))
+        )
         if need > pool.num_pages:
             request._finish(self._result(
                 request, [], "error",
@@ -1587,17 +2114,21 @@ class ServingEngine:
             self._pagepool.free_slot(idx)
             request._finish(self._result(request, [], "error", error=e))
             return []
+        if self._obs.on:
+            self._obs.record("engine_prefill_dispatch_s", time.monotonic() - started)
         slot = self._slots[idx]
         slot.request = request
         slot.position = len(prompt)
         slot.generated = []
         slot.started_at = started
         slot.first_token_at = 0.0
+        slot.reset_obs("warm", 1)
         self._spec_admit(idx, prompt)
         with self._stats_lock:
             self.total_requests += 1
             self.warm_admissions_total += 1
             self.prefill_tokens_total += len(suffix)
+        self._note_tenant_admitted(request)
         self._maybe_publish(idx, prompt)
         return [("prefill", self._fetcher.submit(first), [(idx, request)], 0)]
 
@@ -1650,6 +2181,8 @@ class ServingEngine:
             top_ps[j] = request.options.top_p
             slots[j] = idx
         first = self._dev_prefill(tokens, lengths, temps, top_ks, top_ps, slots, len(group))
+        if self._obs.on:
+            self._obs.record("engine_prefill_dispatch_s", time.monotonic() - started)
         for idx, request in group:
             slot = self._slots[idx]
             slot.request = request
@@ -1657,7 +2190,9 @@ class ServingEngine:
             slot.generated = []
             slot.started_at = started
             slot.first_token_at = 0.0
+            slot.reset_obs("cold", 1)
             self._spec_admit(idx, request.prompt_tokens)
+            self._note_tenant_admitted(request)
         with self._stats_lock:
             self.total_requests += len(group)
             self.admit_groups_total += 1
@@ -1804,6 +2339,7 @@ class ServingEngine:
         seg = prompt[s0 : s0 + width]
         tokens = np.zeros((1, width), np.int64)
         tokens[0, : len(seg)] = seg
+        started = time.monotonic()
         try:
             if self._injector is not None:
                 self._injector.fire("segment")
@@ -1832,6 +2368,8 @@ class ServingEngine:
             self._end_stream(st, "error", error=e)
             return []
         st["seg"] += 1
+        if self._obs.on:
+            self._obs.record("engine_prefill_dispatch_s", time.monotonic() - started)
         with self._stats_lock:
             self.prefill_tokens_total += len(seg)
             self.prefill_segments_total += 1
@@ -1853,9 +2391,11 @@ class ServingEngine:
         slot.generated = []
         slot.started_at = time.monotonic()
         slot.first_token_at = 0.0
+        slot.reset_obs("long", st["seg"])
         self._spec_admit(idx, prompt)
         with self._stats_lock:
             self.total_requests += 1
+        self._note_tenant_admitted(request)
         if self._paged:
             self._maybe_publish(idx, prompt)
         return [("prefill", self._fetcher.submit(first), [(idx, request)], 0)]
@@ -1897,6 +2437,7 @@ class ServingEngine:
             with self._stats_lock:
                 self.quarantined_slots_total += 1
             self._quarantine_pages(i)
+            self._flight_dump("page-quarantine", extra={"slot": i})
             self._finish_slot(
                 i, "error",
                 error=RuntimeError(
@@ -1915,12 +2456,14 @@ class ServingEngine:
             self._prefix_index.evict_touching(pool, pool.slot_pages(idx))
         self._pending_page_zero.extend(pool.free_slot(idx))
 
-    def _dispatch_chunk(self) -> Optional[tuple]:
+    def _dispatch_chunk(self, clean: bool = False, pipelined: bool = False) -> Optional[tuple]:
         """Queue one decode chunk: the page-table integrity check (paged),
         the ``decode`` fault site (a raise crashes the loop into the restart
         path), the host writes into the static buffers, then the replay;
         the chunk's output goes to the fetch thread right behind it. None
-        when the integrity check quarantined every active slot."""
+        when the integrity check quarantined every active slot. ``clean``
+        (no prefill ahead of it on the stream) and ``pipelined`` (chunks
+        still in flight ahead of it) decide how its step time is read."""
         if self._paged:
             self._page_integrity_check()
             if not any(s.active for s in self._slots):
@@ -1930,19 +2473,26 @@ class ServingEngine:
         steps = self.decode_chunk
         branch = self._branch()
         self._prepare_chunk()
-        self._run_chunk(branch)
+        t_dispatch = time.monotonic()
+        if self._spec_enabled:
+            self._run_chunk(branch, "decode")  # brownout level 2
+        else:
+            self._run_chunk(branch)
         snapshot = [(i, s.request) for i, s in enumerate(self._slots) if s.active]
         with self._stats_lock:
             self.decode_chunks_total += 1
             self.decode_steps_total += steps
-        return ("chunk", self._fetcher.submit(self._chunk_out), snapshot, steps)
+        return ("chunk", self._fetcher.submit(self._chunk_out), snapshot, steps, t_dispatch,
+                clean, pipelined)
 
     def _propose_drafts(self) -> np.ndarray:
         """Up to k drafts per active slot from its n-gram index, counted
         (lookups, hits, draft tokens) and copied into the static ``[B, k]``
         buffer in place (pinned, asynchronous; zeros where a slot has no
-        proposal) → each slot's proposal length."""
+        proposal) → each slot's proposal length. Brownout level 1 proposes
+        half as many: drafts are data, so the buffer keeps its shape."""
         k = self.spec_tokens
+        k_prop = self._brownout.draft_k(k) if self._brownout is not None else k
         drafts = np.zeros((self.max_batch, k), np.int64)
         proposed = np.zeros(self.max_batch, np.int64)
         lookups = hits = tokens = 0
@@ -1950,7 +2500,7 @@ class ServingEngine:
             index = self._spec_index.get(i)
             if not slot.active or index is None:
                 continue
-            prop = index.propose(k)
+            prop = index.propose(k_prop)
             lookups += 1
             if prop:
                 hits += 1
@@ -1964,7 +2514,7 @@ class ServingEngine:
         self._drafts_dev.copy_(self._upload(drafts), non_blocking=True)
         return proposed
 
-    def _dispatch_verify(self) -> Optional[tuple]:
+    def _dispatch_verify(self, clean: bool = False) -> Optional[tuple]:
         """Queue one speculative verify: the page-table integrity check, up
         to k drafts per active slot from its n-gram index (host-side; a
         slot with no proposal rides with zero drafts), the drafts copied
@@ -1981,11 +2531,13 @@ class ServingEngine:
             self._injector.fire("decode")
         branch = self._branch()
         self._prepare_chunk()
+        t_dispatch = time.monotonic()
         self._run_chunk(branch)
         snapshot = [(i, s.request) for i, s in enumerate(self._slots) if s.active]
         with self._stats_lock:
             self.spec_dispatches_total += 1
-        return ("verify", self._fetcher.submit(self._verify_out), snapshot, proposed)
+        return ("verify", self._fetcher.submit(self._verify_out), snapshot, proposed,
+                t_dispatch, clean)
 
     # -- host processing -------------------------------------------------------
 
@@ -2002,21 +2554,64 @@ class ServingEngine:
                 if slot.request is not request:
                     continue
                 slot.first_token_at = now
+                slot.last_token_at = now  # the inter-token clock starts here
+                ttft = now - request.submitted_at
+                if self._obs.on:
+                    self._obs.record("engine_ttft_s", ttft)
+                self._tenants.note_ttft(_tenant(request), ttft)
                 self._deliver_token(idx, int(first[j]))
             return
-        _, fetch, snapshot, steps = entry
+        _, fetch, snapshot, steps, t_dispatch, clean, pipelined = entry
         host = fetch.result()  # [steps, B]
+        # the step time before delivery: a request finishing mid-chunk
+        # wakes its waiter inside the loop below
+        self._sample_step_time(snapshot, steps, t_dispatch, clean, pipelined)
         if self._injector is not None:
             host, _ = self._injector.corrupt_tokens(host, snapshot)
         for idx, request in snapshot:
             slot = self._slots[idx]
             if slot.request is not request:  # freed / reassigned meanwhile
                 continue
+            slot.decode_iters += 1
+            t_prev = slot.last_token_at
+            delivered = 0
             for s in range(steps):
                 slot.position += 1
                 self._deliver_token(idx, int(host[s, idx]))
+                delivered += 1
                 if slot.request is not request:  # finished mid-chunk
                     break
+            self._record_intertoken(slot, request, t_prev, delivered)
+
+    def _sample_step_time(self, snapshot, steps: int, t_dispatch: float, clean: bool,
+                          pipelined: bool) -> None:
+        """One decode-step sample when a chunk's tokens land, for chunks
+        with no prefill ahead of them on the stream: a pipelined chunk ran
+        right after its predecessor, so its steps took the interval since
+        that one landed; a chunk dispatched to an idle stream took the
+        interval since its dispatch."""
+        now = time.monotonic()
+        step_s = None
+        if snapshot and clean:
+            if pipelined and self._last_chunk_ready_t > 0:
+                step_s = (now - self._last_chunk_ready_t) / max(1, steps)
+            elif not pipelined:
+                step_s = (now - t_dispatch) / max(1, steps)
+        if step_s is not None and self._obs.on:
+            self._obs.record("engine_decode_step_s", step_s)
+        self._last_chunk_ready_t = now
+
+    def _record_intertoken(self, slot: _Slot, request: GenerationRequest, t_prev: float,
+                           delivered: int) -> None:
+        """One inter-token sample a slot a processed chunk or verify: the
+        mean gap over the tokens it delivered."""
+        if not self._obs.on or not delivered:
+            return
+        now = time.monotonic()
+        if t_prev:
+            self._obs.record("engine_intertoken_s", (now - t_prev) / delivered)
+        if slot.request is request:  # not freed mid-chunk
+            slot.last_token_at = now
 
     def _process_verify(self, entry: tuple) -> None:
         """Host half of a verify: the packed ``[B, k + 2]`` fetch (emitted
@@ -2025,15 +2620,24 @@ class ServingEngine:
         ``_deliver_token``. A slot's accepted drafts count up to its real
         proposal's length (zero drafts that match the model are luck, not
         drafts); emitted tokens count per token delivered."""
-        _, fetch, snapshot, proposed = entry
+        _, fetch, snapshot, proposed, t_dispatch, clean = entry
         host = fetch.result()
         if self._injector is not None:
             host = self._injector.corrupt_verify(host, snapshot)
+        # one verify is one read of the weights: one step sample (the host
+        # drained everything before dispatching it)
+        now = time.monotonic()
+        if snapshot and clean and self._obs.on:
+            self._obs.record("engine_decode_step_s", now - t_dispatch)
+        self._last_chunk_ready_t = now
         out, accept = host[:, :-1], host[:, -1]
         for idx, request in snapshot:
             slot = self._slots[idx]
             if slot.request is not request:  # freed / reassigned meanwhile
                 continue
+            slot.verify_iters += 1
+            t_prev = slot.last_token_at
+            delivered = 0
             n_acc = int(accept[idx])
             with self._stats_lock:
                 if proposed[idx] > 0:
@@ -2045,9 +2649,13 @@ class ServingEngine:
                 if token >= 0:
                     with self._stats_lock:
                         self.spec_emitted_tokens_total += 1
+                    delivered += 1
                 self._deliver_token(idx, token)
                 if slot.request is not request:  # finished mid-verify
                     break
+            if self._obs.on and delivered:
+                self._obs.record("engine_accepted_tokens_per_step", delivered)
+            self._record_intertoken(slot, request, t_prev, delivered)
 
     def _deliver_token(self, idx: int, token: int) -> None:
         slot = self._slots[idx]
@@ -2064,6 +2672,8 @@ class ServingEngine:
                 self._quarantine_pages(idx)
             else:
                 self._pending_row_resets.append(idx)
+            # the postmortem: the iterations that led here
+            self._flight_dump("nan-quarantine", extra={"slot": idx})
             self._finish_slot(
                 idx, "error",
                 error=LogitsNaNError(
@@ -2082,6 +2692,7 @@ class ServingEngine:
         if deadline is not None and time.monotonic() >= deadline:
             with self._stats_lock:
                 self.deadline_decode_total += 1
+            self._tenants.note_deadline(_tenant(request))
             self._finish_slot(idx, "deadline")
             return
         if self._injector is not None:
@@ -2098,13 +2709,22 @@ class ServingEngine:
             index.append(token)
         with self._stats_lock:
             self.total_generated += 1
+        self._tenants.note_generated(_tenant(request))
         if request.on_token is not None:
             try:
                 request.on_token(token)
             except Exception:  # noqa: BLE001 — a stream consumer must not kill the loop
                 log.exception("on_token callback failed")
-        if len(slot.generated) >= opts.max_new_tokens or slot.position >= self.max_seq_len - 1:
+        # max_cost_tokens (prompt + generated) caps the length too
+        if (
+            len(slot.generated) >= effective_max_new_tokens(opts, len(request.prompt_tokens))
+            or slot.position >= self.max_seq_len - 1
+        ):
             self._finish_slot(idx, "length")
+
+    def _note_tenant_admitted(self, request: GenerationRequest) -> None:
+        """An admission bills its prompt's prefill tokens to its tenant."""
+        self._tenants.note_admitted(_tenant(request), len(request.prompt_tokens))
 
     def _result(
         self, request: GenerationRequest, tokens: list[int], reason: str,
@@ -2125,15 +2745,40 @@ class ServingEngine:
         slot = self._slots[idx]
         request = slot.request
         assert request is not None
+        now = time.monotonic()
         result = self._result(request, slot.generated, reason, slot.first_token_at, error)
+        stamps = {
+            "submitted": request.submitted_at,
+            "admitted": slot.started_at or None,
+            "first_token": slot.first_token_at or None,
+            "finished": now,
+        }
+        attrs = {
+            "slot": idx,
+            "path": slot.path,
+            "prompt_len": len(request.prompt_tokens),
+            "generated_tokens": len(slot.generated),
+            "finish_reason": reason,
+            "prefill_chunks": slot.prefill_chunks,
+            "decode_iterations": slot.decode_iters,
+            "verify_dispatches": slot.verify_iters,
+            "kv_pages": len(self._pagepool.slot_pages(idx)) if self._paged else 0,
+        }
         slot.request = None
         slot.generated = []
         slot.position = 0
+        slot.last_token_at = 0.0
         self._spec_index.pop(idx, None)
         self._freed_slots.append(idx)
         if self._paged:
             self._pagepool.free_slot(idx)
         request._finish(result)
+        if self._obs.on:
+            # the request's lifecycle as one span tree, emitted once
+            emit_request_spans(
+                request.trace_id, stamps, attrs,
+                status="ok" if error is None else f"error: {type(error).__name__}",
+            )
 
     def _fail_all(self, error: BaseException) -> None:
         """Fail every request in flight or waiting; teardown first, every

@@ -30,11 +30,19 @@ Sites the port's engine consults:
             tensor): the load cancels its readahead, drains its reader
             pool and never retries, and the provider keeps no engine and
             no params
+  tenant-burst  at the top of an engine iteration, enqueue max-batch
+            synthetic low-priority admissions under the "chaos-burst"
+            tenant (the noisy-neighbor drill's aggressor); a full queue or
+            queue share sheds them against that tenant
 
 The other sites of the grammar (adapter, spill, the durable disk sites,
-the fleet-wire net sites, migrate, tenant-burst and the SPMD sites) are
-accepted so a spec written for the JAX package parses, but no part of the
-port consults them until their tiers are ported.
+the fleet-wire net sites, migrate and the SPMD sites) are accepted so a
+spec written for the JAX package parses, but no part of the port consults
+them until their tiers are ported.
+
+Every firing is kept in a ring of the last 32 (``events_snapshot``): the
+engine's flight dumps carry it, so a postmortem shows which injected fault
+came before the incident.
 
 Spec grammar (comma-separated, e.g. ``"decode@3,nan@5:4,fetch~0.1"``):
   site@N      fire exactly once, on the Nth call to that site (1-based)
@@ -59,6 +67,7 @@ import os
 import random
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass
 from typing import Optional
 
@@ -150,6 +159,8 @@ class FaultInjector:
         self._lock = threading.Lock()
         self._calls: dict[str, int] = {s: 0 for s in self._rules}
         self.fired: dict[str, int] = {s: 0 for s in self._rules}
+        # recent firings (site, call number, wall time) for flight dumps
+        self.events: deque[dict] = deque(maxlen=32)
 
     @classmethod
     def from_env(cls, env=os.environ) -> Optional["FaultInjector"]:
@@ -171,6 +182,9 @@ class FaultInjector:
             hit = rule.fires(self._calls[site], self._rng)
             if hit:
                 self.fired[site] += 1
+                self.events.append(
+                    {"site": site, "call": self._calls[site], "t": round(time.time(), 3)}
+                )
                 log.warning(
                     "fault injection: %s fires (call %d, total %d)",
                     site, self._calls[site], self.fired[site],
@@ -234,6 +248,12 @@ class FaultInjector:
             victim = snapshot[self._rng.randrange(len(snapshot))][0]
             pool.tables[victim, 0] = (pool.tables[victim, 0] + 1) % pool.num_pages
         return victim
+
+    def events_snapshot(self) -> list[dict]:
+        """A copy of the recent-firings ring, taken under the lock (the
+        engine and fetch threads append to it)."""
+        with self._lock:
+            return list(self.events)
 
     def stats(self) -> dict[str, int]:
         return dict(self.fired)

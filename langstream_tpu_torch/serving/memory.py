@@ -7,9 +7,20 @@ allocates, from tensor shapes (``meta`` tensors, or the loaded tree
 itself): the weights; the paged KV pool with its sink page, or the dense
 cache with its sink column; the admission group's local cache; on the
 dense layout the chunked-prefill streams' local caches; with speculation
-the verify chunk's logits; and a flat workspace allowance (activations,
-cuBLAS workspace, the captured graphs' pool). The streamed weight load's
+the verify chunk's logits; the captured graphs' pool, one term per graph
+set ``start()`` captures (the decode chunk, the verify, or both); with
+int8 weights the eager path's widened weights; and a flat workspace
+allowance (activations, cuBLAS workspace). The streamed weight load's
 host staging peak is host RAM and stays outside the device total.
+
+int8 weights are widened to the model dtype at every matmul
+(``models/quant.quantized_matmul``: the int8 codes to f32, times the
+scales, then the model dtype). Inside a captured chunk those temporaries
+live in the graph pool, and the pool keeps the largest of them: two f32
+copies of the LM head's weight at once, beside the segments of the
+largest layer weight's two f32 copies and its model-dtype copy. That is
+``widened_weight_bytes``; each captured set is charged it, and the eager
+admissions (outside any graph) are charged it once more.
 
 The JAX plan's XLA-only terms have no counterpart here: the port has no
 ``kv_bound`` compile ladder on the card (a captured decode chunk reads the
@@ -32,6 +43,13 @@ import torch
 
 from langstream_tpu_torch.models.configs import ModelConfig
 
+# what one captured set keeps in the graph pool for each (row, vocab
+# entry) of its logits: the filtered sampling branch's sort (values and
+# int64 indices), softmax, cumulative sum and their copies. chip_smoke.py's
+# tenancy phase read 67-71 bytes on an H100 (llama-3-8b: 69.2 MB for the
+# decode set's 8 rows, 362.8 MB for the verify set's 40); charged at 80
+GRAPH_BYTES_PER_LOGIT = 80
+
 
 def tree_bytes(tree: Any) -> int:
     """Bytes of every tensor in a (nested dict) tree, ``meta`` ones too."""
@@ -45,7 +63,7 @@ class ServingMemoryPlan:
     weights_bytes: int
     cache_bytes: int  # dense cache: max_batch x (max_seq_len + 1 sink column)
     long_cache_bytes: int  # dense chunked-prefill local caches (one prompt wide each)
-    workspace_bytes: int  # activations, cuBLAS workspace, graph pool: a flat allowance
+    workspace_bytes: int  # activations and cuBLAS workspace: a flat allowance
     # an admit group's local cache (prefill_batch rows x the widest
     # bucket), live while the decode state is
     fused_prefill_bytes: int = 0
@@ -59,6 +77,15 @@ class ServingMemoryPlan:
     # the streamed weight load's host staging high-water mark: HOST RAM,
     # transient, outside total_bytes
     weight_load_staging_bytes: int = 0
+    # the captured graphs' shared pool, one term per graph set: its rows'
+    # sampling temporaries (GRAPH_BYTES_PER_LOGIT a row and vocab entry;
+    # the verify set's less the verify-chunk term, which is in the same
+    # pool) and, with int8 weights, the widened weights its captures keep
+    graph_pool_bytes: int = 0
+    graph_sets: tuple[str, ...] = ()
+    # int8 weights: the eager admissions' widened weights, held by the
+    # caching allocator outside the graph pool
+    eager_widened_bytes: int = 0
 
     @property
     def total_bytes(self) -> int:
@@ -70,6 +97,8 @@ class ServingMemoryPlan:
             + self.fused_prefill_bytes
             + self.page_pool_bytes
             + self.verify_chunk_bytes
+            + self.graph_pool_bytes
+            + self.eager_widened_bytes
         )
 
     def fits(self, device_bytes: int) -> bool:
@@ -93,6 +122,9 @@ class ServingMemoryPlan:
             f"weights {self.weights_bytes / gib:.2f}GiB + {kv} + "
             f"fused-prefill {self.fused_prefill_bytes / gib:.2f}GiB + "
             f"verify-chunk {self.verify_chunk_bytes / gib:.2f}GiB + "
+            f"graph-pool ({'+'.join(self.graph_sets) or 'none'}) "
+            f"{self.graph_pool_bytes / gib:.2f}GiB + "
+            f"eager-widened {self.eager_widened_bytes / gib:.2f}GiB + "
             f"workspace {self.workspace_bytes / gib:.2f}GiB = "
             f"{self.total_bytes / gib:.2f}GiB{staging}"
         )
@@ -116,6 +148,7 @@ def plan_serving_memory(
     kv_pages: int = 0,
     page_fraction: float = 0.0,
     weight_load_staging: int = 0,
+    graph_sets: tuple[str, ...] = (),
 ) -> ServingMemoryPlan:
     """Account a ServingEngine's device memory from tensor shapes; nothing
     is allocated.
@@ -130,14 +163,19 @@ def plan_serving_memory(
     ``max_seq_len`` columns. ``prefill_batch`` / ``prefill_bucket``: the
     admit group's local cache (0 omits it). ``speculation_tokens``: k of
     the verify (0: speculation off). ``weight_load_staging``: the streamed
-    load's host staging peak, reported outside the total.
+    load's host staging peak, reported outside the total. ``graph_sets``:
+    the sets of captured graphs (``"decode"``, ``"verify"``; empty: none
+    captured, as on the CPU), one graph-pool term each; int8 weights (a
+    quantized ``params`` tree, or ``quantized_weights``) add the widened
+    weights to each set and once to the eager path.
     """
     from langstream_tpu_torch.models.loader import expected_params
     from langstream_tpu_torch.models.transformer import make_kv_cache, make_page_pool
 
     meta = torch.device("meta")
-    weights = tree_bytes(params if params is not None else expected_params(
-        config, quantized=quantized_weights))
+    tree = params if params is not None else expected_params(config, quantized=quantized_weights)
+    weights = tree_bytes(tree)
+    widened = widened_weight_bytes(tree, config)
     fused = (
         tree_bytes(make_kv_cache(config, prefill_batch, min(prefill_bucket, max_seq_len),
                                  device=meta))
@@ -149,6 +187,14 @@ def plan_serving_memory(
         if speculation_tokens > 0
         else 0
     )
+    logit_bytes = GRAPH_BYTES_PER_LOGIT * config.vocab_size
+    per_set = {
+        "decode": logit_bytes * max_batch + widened,
+        "verify": max(0, logit_bytes * max_batch * (speculation_tokens + 1) - verify) + widened,
+    }
+    graph_pool = sum(per_set[k] for k in graph_sets)
+    extra = dict(graph_pool_bytes=graph_pool, graph_sets=tuple(graph_sets),
+                 eager_widened_bytes=widened)
     staging = max(0, int(weight_load_staging))
     if kv_layout == "paged":
         from langstream_tpu_torch.serving.pagepool import pages_for_fraction
@@ -163,6 +209,7 @@ def plan_serving_memory(
             page_pool_bytes=tree_bytes(make_page_pool(config, pages, page_size, device=meta)),
             verify_chunk_bytes=verify,
             weight_load_staging_bytes=staging,
+            **extra,
         )
     long_bytes = (
         tree_bytes(make_kv_cache(config, 1, max_seq_len, device=meta)) * max(1, prefill_streams)
@@ -177,7 +224,28 @@ def plan_serving_memory(
         fused_prefill_bytes=fused,
         verify_chunk_bytes=verify,
         weight_load_staging_bytes=staging,
+        **extra,
     )
+
+
+def widened_weight_bytes(params: Any, config: ModelConfig) -> int:
+    """What widening int8 weights to the model dtype keeps on the card (0
+    for a tree in the model dtype): two f32 copies of the LM head's weight
+    (or of the tied row-quantized embedding) at once, plus two f32 copies
+    and one model-dtype copy of the largest layer weight (an MoE layer's
+    weight counts all its experts, as ``moe_ffn`` widens them together)."""
+    from langstream_tpu_torch.models.bridge import torch_dtype
+    from langstream_tpu_torch.models.quant import is_quantized
+
+    layers = params["layers"]
+    quantized = [v for v in layers.values() if is_quantized(v)]
+    head = params.get("lm_head", params["embed"] if config.tie_embeddings else None)
+    if not quantized and not is_quantized(head):
+        return 0
+    itemsize = torch.empty((), dtype=torch_dtype(config.dtype), device="meta").element_size()
+    layer = max((v["q"][0].numel() for v in quantized), default=0)
+    head_n = head["q"].numel() if is_quantized(head) else 0
+    return 2 * 4 * head_n + (2 * 4 + itemsize) * layer
 
 
 def max_context_single_chip(

@@ -31,6 +31,10 @@ def test_port_files_exist():
         "langstream_tpu_torch/models/transformer.py",
         "langstream_tpu_torch/ops/attention.py",
         "langstream_tpu_torch/serving/engine.py",
+        "langstream_tpu_torch/serving/tenancy.py",
+        "langstream_tpu_torch/serving/observability.py",
+        "langstream_tpu_torch/api/metrics.py",
+        "langstream_tpu_torch/tracing.py",
         "chip_smoke.py",
     ):
         assert mod in rel
@@ -124,6 +128,16 @@ def test_completions_service_refuses_what_it_cannot_serve():
     with pytest.raises(ValueError):
         TorchCompletionsService({"model": "tiny-test", "device": "cpu",
                                  "kv-cache-quantization": "int4"})
+    # the JAX provider's keys whose tiers are not ported, and an admit
+    # group size the port's MoE padding cannot take
+    for key, value in (("adapters", [{"name": "a"}]), ("constrained-decoding", "auto"),
+                       ("grammar-states", 64), ("mesh", {"model": 2}), ("durable", "auto"),
+                       ("fleet", "auto"), ("disagg", True), ("cancel-key", "k"),
+                       ("prefill-batch", 16)):
+        with pytest.raises(NotImplementedError):
+            TorchCompletionsService({"model": "tiny-test", "device": "cpu", key: value})
+    with pytest.raises(ValueError, match="brownout"):
+        TorchCompletionsService({"model": "tiny-test", "device": "cpu", "brownout": "maybe"})
 
 
 def test_completions_service_default_max_seq_len():

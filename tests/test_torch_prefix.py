@@ -535,12 +535,12 @@ def test_provider_prefix_keys():
     assert off.prefix_cache == "off"
     with pytest.raises(ValueError, match="prefix-cache"):
         TorchCompletionsService({**base, "prefix-cache": "sometimes"})
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
         TorchCompletionsService({**base, "prefix-cache": "auto", "kv-layout": "dense"})
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
         ServingEngine(configs()[1], weights()[1], device="cpu", kv_layout="dense",
                       prefix_cache="auto")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
         TorchCompletionsService({**base, "prefix-cache": "auto", "host-kv-fraction": 2.0})
     with pytest.raises(ValueError, match="spill"):
         TorchCompletionsService({**base, "spill": "sometimes"})

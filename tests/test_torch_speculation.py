@@ -578,13 +578,13 @@ def test_verify_fault_site_quarantines_only_its_victim():
 
 def test_verify_graphs_replace_decode_graphs():
     """With a stand-in graph and the kernel path's flattening, ``start()``
-    captures the verify once per sampling branch (the decode chunk never),
-    every verify is one replay, the paged decode kernel's plain version
-    counts one call a layer a verify, and the tokens equal the JAX
-    engine's."""
+    captures the verify once per sampling branch (with brownout off, the
+    decode chunk never: no ladder level can serve it), every verify is one
+    replay, the paged decode kernel's plain version counts one call a
+    layer a verify, and the tokens equal the JAX engine's."""
     prompts = (REPETITIVE, PLAIN)
     want, _ = serve_in_turn(jax_engine(), prompts, 24, jax_side=True)
-    engine = port_engine()
+    engine = port_engine(brownout="off")
     engine._graph_factory = ReplayGraph
     decode_calls = []
     engine._decode_chunk = lambda *a, **k: decode_calls.append(a)
@@ -607,11 +607,12 @@ def test_verify_graphs_replace_decode_graphs():
 
 
 def test_restart_captures_the_verify_graphs_again():
-    """``decode@3`` under speculation: the request in flight fails, the
-    loop restarts with the verify graphs captured again (6 captures), and
-    the request queued behind it is served token-exact."""
+    """``decode@3`` under speculation (brownout off: the verify set only):
+    the request in flight fails, the loop restarts with the verify graphs
+    captured again (6 captures), and the request queued behind it is
+    served token-exact."""
     engine = port_engine(max_batch=1, fault_injector=FaultInjector("decode@3"),
-                         restart_backoff_s=0.02)
+                         restart_backoff_s=0.02, brownout="off")
     engine._graph_factory = ReplayGraph
     opts = GenerationOptions(max_new_tokens=20)
     first = engine.submit(GenerationRequest(prompt_tokens=REPETITIVE, options=opts))
@@ -631,7 +632,7 @@ def test_restart_captures_the_verify_graphs_again():
 
 
 def test_dense_speculation_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
         port_engine(kv_layout="dense")
     assert port_engine(speculation_tokens=0).spec_tokens == 1
 
@@ -641,7 +642,7 @@ def test_provider_speculation_keys():
     from langstream_tpu_torch.ai.torch_serving import TorchCompletionsService
 
     base = {"model": "tiny-test", "device": "cpu", "max-batch": 2, "decode-chunk": 4}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
         TorchCompletionsService({**base, "kv-layout": "dense", "speculation": "auto"})
     with pytest.raises(ValueError, match="unknown speculation"):
         TorchCompletionsService({**base, "speculation": "eager"})
