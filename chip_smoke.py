@@ -150,7 +150,37 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    ``tenant-burst@1`` and ``nan@1`` planted in the phase's engine: the
    burst's sheds counted against "chaos-burst", one ``nan-quarantine``
    flight dump that validates and holds no token content.
-12. ``load``    — serve a safetensors checkpoint: llama-3-8b at full width
+12. ``agentic`` — the agentic tier at llama-3-8b's full width and depth
+   (bf16, paged, page 64, max-batch 8, max_seq_len 2048, buckets up to
+   512, decode chunk 16, greedy, 64 new tokens): three random rank-16
+   adapters (scale 0.5) over a pool of base + 2 rows, 4 grammar slots. The ``e2e``
+   prompt lengths (21..1501 byte tokens; past 512 they prefill in
+   segments) in two waves, each queued before the engine thread runs: 2
+   base requests, 2 for each of two adapters, then 2 for the third
+   adapter (an LRU swap); 4 of the 8 carry a JSON-schema or regex
+   ``response_format``, 3 of those with an adapter. Required: every
+   constrained output parses (``json.loads`` and the schema, or a regex
+   fullmatch) and ends with "stop", every other one with its 64 tokens,
+   paged decode launches = layers x decode steps, replays = chunks, 3
+   adapter swaps, no plain version run; the adapter and grammar pools'
+   bytes equal the plan's terms, and the engine's peak stays within the
+   plan. Then an adapter's prefill and 4 paged decode steps, kernel path
+   against reference path (within 5% of the largest logit, top-1 equal
+   at the first token), and the prefill through an adapter at scales 1,
+   0.5 (the phase's) and 0, kernel and reference path in bf16, against
+   the reference path in f32 (the kernel path no further from f32 than
+   1.25 x the bf16 reference path + 0.1%); ``adapter@1`` planted: one request fails with the
+   adapter-row corruption, one valid ``adapter-quarantine`` dump, the
+   others' tokens as a fault-free run's (but for ties), and an adapter's
+   tokens differ from the base model's on the same prompts. The same
+   traffic with speculation on (every output in its grammar; launches =
+   layers x verifies), the tier off (``constrained-decoding: off``, no
+   adapters) and grammars alone (the default engine): back-to-back
+   replays' device and wall ms a decode step (tier on: with the profiler's
+   top kernels), the capture's parts and the graph pool of each. Prints
+   each grammar's compile seconds (the first includes the 128256-entry
+   token byte table) and the swaps' host seconds.
+13. ``load``    — serve a safetensors checkpoint: llama-3-8b at full width
    and depth (the seeded tree, bf16, 16.06 GB) written by ``save_params_hf``
    as 4 shards of at most 5 GB under ``build/ckpt/`` (with under 17 GiB
    free there, the 4-layer ``llama-3-8b-shallow``, said in the output),
@@ -177,7 +207,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    ``fault-injection: weight-load@1`` through the provider must leave no
    engine and no params, the injector fired once. The checkpoint is
    deleted and both trees freed before ``moe``.
-13. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
+14. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
    experts, top-2) with int8 weights drawn on the card (46.9 GB; the
    llama weights are dropped first), paged bf16 KV, max_seq_len 4096: 9
    requests of 21..3001 tokens, 32 new each (the 3001-token prompt takes 2
@@ -186,7 +216,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    reference path (a 200-token prompt, 4 paged decode steps) and one
    layer's ``moe_ffn`` timed at decode (8 tokens) and at a 2048-token
    segment beside its weight-byte bound.
-14. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+15. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
    and int8 page pools and the bf16 dense cache (8192 wide), traced with
    torch.profiler: the device's busy share of the wall and the top
    kernels (no split-K decode kernel may appear).
@@ -220,8 +250,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
-          "prefix", "spec", "tenancy", "load", "moe", "profile")
-DEFAULT_PHASES = PHASES[:13]
+          "prefix", "spec", "tenancy", "agentic", "load", "moe", "profile")
+DEFAULT_PHASES = PHASES[:14]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -1323,10 +1353,11 @@ def _hold_logits(label: str, logits: dict) -> dict:
     return out
 
 
-def _model_check(ctx, cfg, params) -> dict:
+def _model_check(ctx, cfg, params, lora=None, adapter_row: int = 0) -> dict:
     """Kernel path vs reference attention path on the same weights: prefill
     logits of a 200-token prompt, then 4 paged decode steps over a pool
-    filled by that prefill."""
+    filled by that prefill (``lora`` / ``adapter_row``: through that
+    adapter of the pool)."""
     import torch
 
     from langstream_tpu_torch.models import transformer as tf
@@ -1339,9 +1370,11 @@ def _model_check(ctx, cfg, params) -> dict:
     logits = {}
     pools = {}
     table = torch.arange(math.ceil((s + 8) / PAGE), dtype=torch.int32, device="cuda")[None]
+    adapter = {} if lora is None else {
+        "lora": lora, "adapter_rows": torch.tensor([adapter_row], device="cuda")}
     for name, c in (("kernel", cfg), ("reference", ref_cfg)):
         cache = tf.make_kv_cache(c, 1, s, device="cuda")
-        lg, cache = tf.prefill(params, tokens, lengths, cache, c)
+        lg, cache = tf.prefill(params, tokens, lengths, cache, c, **adapter)
         pool = tf.make_page_pool(c, table.shape[1], PAGE, device="cuda")
         tf.paged_insert_cache(pool, cache, table, PAGE)
         logits[name] = [lg.float()]
@@ -1351,7 +1384,8 @@ def _model_check(ctx, cfg, params) -> dict:
     for step in range(4):
         pos = torch.tensor([s + step], device="cuda")
         for name, c in (("kernel", cfg), ("reference", ref_cfg)):
-            lg, _ = tf.paged_decode_step_inplace(params, tok, pos, pools[name], table, c, PAGE)
+            lg, _ = tf.paged_decode_step_inplace(params, tok, pos, pools[name], table, c, PAGE,
+                                                 **adapter)
             logits[name].append(lg.float())
         tok = torch.argmax(logits["reference"][-1], dim=-1)
     return _hold_logits(f"model check {cfg.name}", logits)
@@ -1654,12 +1688,14 @@ GRAPHS_KW = {"max_seq_len": 2048}
 def _decode_state(engine) -> list:
     """Every tensor a decode chunk (with speculation: a verify) reads or
     writes: the KV pool or cache, the chain, the sampling params, the
-    dispatch table (and the drafts), and the output, last."""
+    dispatch table (and the drafts), the agentic tier's per-slot rows and
+    DFA states, and the output, last."""
     tree = engine._pagepool.dev if engine._paged else engine._cache
     leaves = [leaf for e in tree.values() for leaf in (e.values() if isinstance(e, dict) else (e,))]
     out = engine._verify_out if engine._spec_enabled else engine._chunk_out
     chain = (engine._tokens_dev, engine._positions_dev, engine._temp_dev, engine._top_k_dev,
-             engine._top_p_dev, engine._table_dev, engine._drafts_dev, out)
+             engine._top_p_dev, engine._table_dev, engine._drafts_dev, engine._arows_dev,
+             engine._g_rows_dev, engine._dfa_state_dev, engine._vstates_dev, out)
     return leaves + [t for t in chain if t is not None]
 
 
@@ -2265,11 +2301,13 @@ def _spec_prompts(seed: int) -> list[list[int]]:
     return repeated + [tok.encode(t)[:SPEC_PROMPT] for t in texts[4:]]
 
 
-def _first_divergence(ctx, cfg, params, prompt, a: list, b: list):
+def _first_divergence(ctx, cfg, params, prompt, a: list, b: list, lora=None,
+                      adapter_row: int = 0):
     """The first generated position where two greedy runs differ, with the
     top-2 logits there on the kernel path (a prefill of the prompt and the
-    tokens both runs share): a small margin is a near-tie that rounding of
-    another GEMM shape can flip. None when the runs agree."""
+    tokens both runs share; ``lora`` / ``adapter_row``: through that
+    adapter): a small margin is a near-tie that rounding of another GEMM
+    shape can flip. None when the runs agree."""
     import torch
 
     from langstream_tpu_torch.models import transformer as tf
@@ -2280,7 +2318,9 @@ def _first_divergence(ctx, cfg, params, prompt, a: list, b: list):
     context = torch.tensor([prompt + a[:i]], dtype=torch.long, device="cuda")
     n = context.shape[1]
     cache = tf.make_kv_cache(cfg, 1, n, device="cuda")
-    logits, _ = tf.prefill(params, context, torch.tensor([n], device="cuda"), cache, cfg)
+    rows = torch.tensor([adapter_row], device="cuda") if lora is not None else None
+    logits, _ = tf.prefill(params, context, torch.tensor([n], device="cuda"), cache, cfg,
+                           lora=lora, adapter_rows=rows)
     row = logits[0].float()
     top = torch.topk(row, 2)
     chosen = [a[i], b[i]]
@@ -2313,7 +2353,7 @@ def _verify_replay_check(ctx, cfg, params, prompts) -> dict:
         # a few verifies first, so the indexes hold cycles to propose from
         for _ in range(6):
             engine._process_entry(engine._dispatch_verify())
-        proposed = engine._propose_drafts()
+        _, proposed = engine._propose_drafts()
         branch = engine._branch()
         engine._prepare_chunk()
         prepared = _snapshot(engine)
@@ -2515,7 +2555,8 @@ def _bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
 
 
-def _same_or_tie(ctx, cfg, params, label: str, prompts, got, want) -> dict:
+def _same_or_tie(ctx, cfg, params, label: str, prompts, got, want, lora=None,
+                 rows=None) -> dict:
     """Greedy tokens of two runs of the same requests: equal, or the first
     position where a request's runs differ holds a tie — on the kernel
     path's logits there (a prefill of the prompt and the shared tokens)
@@ -2525,13 +2566,15 @@ def _same_or_tie(ctx, cfg, params, label: str, prompts, got, want) -> dict:
     rule): a GEMM of another shape (another admit group's rows, a decode
     step's 8 rows against a verify's 40) rounds such a pair either way.
     Returns the agreement per request, every divergence, and ``ok``: False
-    when one is not such a tie (the phase fails at its end)."""
+    when one is not such a tie (the phase fails at its end). ``lora`` /
+    ``rows``: the adapter pool and each request's row in it."""
     agree, ties, bad = [], [], []
-    for prompt, a, b in zip(prompts, got, want):
+    for i, (prompt, a, b) in enumerate(zip(prompts, got, want)):
         agree.append(sum(x == y for x, y in zip(a, b)) / max(1, len(b)))
         if a == b:
             continue
-        d = _first_divergence(ctx, cfg, params, prompt, a, b)
+        d = _first_divergence(ctx, cfg, params, prompt, a, b, lora=lora,
+                              adapter_row=rows[i] if rows else 0)
         if d is None:
             bad.append({"lengths": [len(a), len(b)]})
             continue
@@ -2876,6 +2919,420 @@ def phase_tenancy(ctx: dict) -> None:
     failed = [c for c in compared if not c["ok"]]
     if failed:
         raise AssertionError(f"tenancy: tokens differ, not at a tie: {json.dumps(failed)}")
+
+
+AGENTIC_NEW = 64
+AGENTIC_KW = {"max_seq_len": 2048, "prefill_buckets": (32, 64, 128, 256, 512)}
+# three rank-16 adapters over a pool of base + 2 rows: the third needs a
+# swap. Both factors are random (a trained adapter's B starts at zero), so
+# at scale 1 a delta is as large as its base projection and the bf16
+# reference path itself lands 8.5% of the largest logit off an f32
+# reference (``_adapter_precision``): the phase serves them at 0.5
+AGENTIC_ADAPTERS = [{"name": f"tenant-{c}", "rank": 16, "scale": 0.5, "seed": 1000 + i}
+                    for i, c in enumerate("abc")]
+# the kernel path's error against an f32 reference may exceed the bf16
+# reference path's own error by at most this factor, plus 0.1% of the
+# largest logit
+PRECISION_FACTOR = 1.25
+AGENTIC_SCHEMA = {"type": "object", "properties": {
+    "name": {"type": "string", "maxLength": 8}, "n": {"type": "integer"},
+    "ok": {"type": "boolean"}}}
+AGENTIC_FORMATS = {
+    "record": {"type": "json_schema", "json_schema": {"schema": AGENTIC_SCHEMA}},
+    "verdict": {"type": "regex", "regex": "(yes|no)-[0-9]{2,4}"},
+    "words": {"type": "regex", "regex": "[a-z]{2,10}( [a-z]{2,10}){1,3}\\."},
+}
+# (prompt, adapter, response format) of the two waves: 2 base requests and
+# 2 for each adapter; 4 constrained, 3 of them with an adapter. The second
+# wave's adapter finds both usable rows taken (by idle adapters): a swap
+AGENTIC_WAVES = (
+    ((0, None, None), (1, None, "record"), (2, "tenant-a", None), (3, "tenant-a", "verdict"),
+     (4, "tenant-b", None), (5, "tenant-b", "record")),
+    ((6, "tenant-c", None), (7, "tenant-c", "words")),
+)
+
+
+def _pause(engine) -> None:
+    """Stop the engine thread without failing anything, so the requests
+    submitted next wait in the queue together (one admission, whatever the
+    timing); ``start()`` resumes it with the graphs it captured."""
+    engine._stop.set()
+    engine._thread.join(timeout=120)
+    engine._thread = None
+
+
+def _in_grammar(rf: dict, text: str) -> bool:
+    if rf["type"] == "regex":
+        return re.fullmatch(rf["regex"], text) is not None
+    try:
+        doc = json.loads(text)
+    except ValueError:
+        return False
+    return (isinstance(doc, dict) and list(doc) == ["name", "n", "ok"]
+            and isinstance(doc["name"], str) and len(doc["name"]) <= 8
+            and isinstance(doc["n"], int) and isinstance(doc["ok"], bool))
+
+
+def _agentic_waves(engine, prompts, waves, new_tokens: int) -> dict:
+    """Serve ``waves`` of (prompt, adapter, format) one after another, each
+    queued while the engine thread is paused, with the kernel counts zeroed
+    before the first; every constrained output must parse and end with
+    "stop", every other one end with its ``new_tokens`` (or at EOS, as in
+    ``_serve``); no plain version
+    may run, and every decode chunk or verify is one replay."""
+    import torch
+
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+    from langstream_tpu_torch.serving.engine import GenerationRequest
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    before = engine.stats()
+    reset_kernel_counts()
+    results: dict = {}
+    t0 = time.monotonic()
+    for wave in waves:
+        _pause(engine)
+        reqs = [(i, a, f, engine.submit(GenerationRequest(
+            prompt_tokens=prompts[i], options=GenerationOptions(
+                max_new_tokens=new_tokens, adapter=a,
+                response_format=AGENTIC_FORMATS[f] if f else None))))
+            for i, a, f in wave]
+        engine.start()
+        for i, a, f, r in reqs:
+            results[i] = (a, f, r.result(timeout=900))
+    wall = time.monotonic() - t0
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    after = engine.stats()
+    plain = {k: v["cpu_calls"] for k, v in counts.items() if v["cpu_calls"]}
+    if plain:
+        raise AssertionError(f"agentic: plain versions ran on the card's main path: {plain}")
+    outputs = []
+    for i in sorted(results):
+        a, f, r = results[i]
+        text = tok.decode(r.tokens)
+        rec = {"prompt_tokens": len(prompts[i]), "adapter": a, "format": f,
+               "finish": r.finish_reason, "tokens": len(r.tokens)}
+        if f is not None:
+            rec["text"] = text
+            if r.finish_reason != "stop" or not _in_grammar(AGENTIC_FORMATS[f], text):
+                raise AssertionError(f"agentic: constrained output {rec} is not in its grammar")
+        elif r.finish_reason not in ("length", "stop") or (
+                r.finish_reason == "length" and len(r.tokens) != new_tokens):
+            raise AssertionError(f"agentic: request {rec} ended short")
+        if any(t < 0 or t >= 256 for t in r.tokens) and f is not None:
+            raise AssertionError(f"agentic: constrained output holds a non-byte token: {rec}")
+        outputs.append(rec)
+
+    def delta(key):
+        return after[key] - before[key]
+
+    steps, verifies = delta("decode-steps-total"), delta("spec-verify-dispatches-total")
+    dispatches = delta("decode-chunks-total") + verifies
+    replays = delta("graph-replays-total")
+    launches = {k: v["launches"] for k, v in counts.items()}
+    layers = engine.config.n_layers
+    if launches["paged_decode"] != layers * (steps + verifies) or replays != dispatches:
+        raise AssertionError(f"agentic: {launches['paged_decode']} paged decode launches for "
+                             f"{steps} steps + {verifies} verifies of {layers} layers; "
+                             f"{replays} replays of {dispatches} dispatches")
+    if launches["flash_prefill"] <= 0 or launches["flash_segment"] <= 0:
+        raise AssertionError(f"agentic: prefill kernels did not run: {launches}")
+    return {
+        "outputs": outputs,
+        "wall_s": wall,
+        "tokens_per_s": sum(o["tokens"] for o in outputs) / wall,
+        "decode_steps": steps,
+        "verifies": verifies,
+        "graph_replays": replays,
+        "kernel_launches": launches,
+        "admit_groups": delta("admit-groups-total"),
+        "segments": delta("prefill-segments-total"),
+        "adapter_swaps": delta("adapter-swaps-total"),
+        "grammar_swaps": delta("grammar-swaps-total"),
+        "constrained_requests": delta("constrained-requests-total"),
+        "_tokens": {i: results[i][2].tokens for i in results},
+    }
+
+
+def _agentic_drill(ctx, cfg, params, engine, prompts) -> dict:
+    """Prompts 1 and 3, each as a base request and through "tenant-c", 32
+    new tokens, queued together: once clean, then with ``adapter@1``
+    planted (the first decode dispatch bumps one active slot's
+    dispatch-facing adapter row). Exactly one request fails with the
+    adapter-row corruption, one new ``adapter-quarantine`` dump validates
+    and names a slot, the survivors' tokens are the clean run's (but for
+    ties), no restart; and in the clean run the adapter's tokens differ
+    from the base model's on both prompts."""
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.serving import observability as obs
+    from langstream_tpu_torch.serving.engine import GenerationRequest
+    from langstream_tpu_torch.serving.faultinject import FaultInjector
+
+    items = [(1, None), (1, "tenant-c"), (3, None), (3, "tenant-c")]
+
+    def run():
+        _pause(engine)
+        reqs = [engine.submit(GenerationRequest(prompt_tokens=prompts[i], options=(
+            GenerationOptions(max_new_tokens=32, adapter=a)))) for i, a in items]
+        engine.start()
+        out = []
+        for r in reqs:
+            try:
+                out.append(r.result(timeout=900))
+            except RuntimeError as e:
+                out.append(e)
+        return out
+
+    clean = run()
+    if any(isinstance(r, Exception) for r in clean):
+        raise AssertionError(f"agentic drill: the clean run failed: {clean}")
+    for j in (0, 2):
+        if clean[j].tokens == clean[j + 1].tokens:
+            raise AssertionError(f"agentic drill: tenant-c gave the base model's tokens on "
+                                 f"prompt {items[j][0]}")
+    before = [d for d in obs.recent_dumps() if d["reason"] == "adapter-quarantine"]
+    quarantined0 = engine.stats()["quarantined-slots-total"]
+    engine._injector = FaultInjector("adapter@1")
+    try:
+        faulty = run()
+    finally:
+        engine._injector = None
+    stats = engine.stats()
+    dumps = [d for d in obs.recent_dumps() if d["reason"] == "adapter-quarantine"]
+    new = dumps[len(before):]
+    victims = [j for j, r in enumerate(faulty) if isinstance(r, Exception)]
+    if len(victims) != 1 or "adapter-row corruption" not in str(faulty[victims[0]]):
+        raise AssertionError(f"agentic drill: victims {victims}: {faulty}")
+    if len(new) != 1 or new[0]["extra"]["slot"] not in range(engine.max_batch):
+        raise AssertionError(f"agentic drill: {len(new)} adapter-quarantine dumps")
+    obs.validate_flight_dump(new[0])
+    if stats["quarantined-slots-total"] - quarantined0 != 1 or stats["engine-restarts-total"]:
+        raise AssertionError(f"agentic drill: {stats['quarantined-slots-total']} quarantined, "
+                             f"{stats['engine-restarts-total']} restarts")
+    rows = engine._adapters._by_name["tenant-c"].row
+    survivors = [j for j in range(len(items)) if j not in victims]
+    same = _same_or_tie(
+        ctx, cfg, params, "adapter drill survivors vs clean",
+        [prompts[items[j][0]] for j in survivors], [faulty[j].tokens for j in survivors],
+        [clean[j].tokens for j in survivors], lora=engine._adapters.pool,
+        rows=[rows if items[j][1] else 0 for j in survivors],
+    )
+    return {"victim": items[victims[0]], "dump_slot": new[0]["extra"]["slot"],
+            "dump_iterations": len(new[0]["iterations"]), "survivors": same,
+            "base_vs_adapter_agreement": [
+                sum(x == y for x, y in zip(clean[j].tokens, clean[j + 1].tokens)) / 32
+                for j in (0, 2)]}
+
+
+def _adapter_precision(ctx, cfg, params) -> dict:
+    """Prefill logits of ``_model_check``'s 200-token prompt through
+    "tenant-c" at scales 1.0, 0.5 (the phase's) and 0 (the base model):
+    the kernel path and the reference path in bf16, each against the
+    reference path in f32 (the weights and factors widened). Fails where
+    the kernel path's error against f32 passes PRECISION_FACTOR times the
+    bf16 reference path's plus 0.1%: the kernel path must be as exact as
+    the reference it is held to."""
+    import torch
+
+    from langstream_tpu_torch.models import transformer as tf
+    from langstream_tpu_torch.serving.adapters import AdapterRegistry
+
+    reg = AdapterRegistry(cfg, 3, 16, device="cuda")
+    for spec in AGENTIC_ADAPTERS:
+        reg.register(spec)
+    row = reg.acquire("tenant-c")
+    ref = dataclasses.replace(cfg, attention_impl="jnp")
+    f32 = dataclasses.replace(cfg, attention_impl="jnp", dtype="float32")
+    prompt = [256] + [(37 * i + 11) % 250 for i in range(199)]
+    tokens = torch.tensor([prompt], dtype=torch.long, device="cuda")
+    lengths = torch.tensor([len(prompt)], device="cuda")
+    rows = torch.tensor([row], device="cuda")
+
+    def widen(tree):
+        return {k: widen(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.float()
+
+    def logits(c, p, lora):
+        cache = tf.make_kv_cache(c, 1, len(prompt), device="cuda")
+        return tf.prefill(p, tokens, lengths, cache, c, lora=lora, adapter_rows=rows)[0].float()
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    out = {}
+    with torch.no_grad():
+        for scale in (1.0, 0.5, 0.0):
+            reg.pool["scale"][row].fill_(scale)
+            kernel, ref_bf16 = logits(cfg, params, reg.pool), logits(ref, params, reg.pool)
+            wide = widen(params)
+            ref_f32 = logits(f32, wide, widen(reg.pool))
+            del wide
+            torch.cuda.empty_cache()
+            rec = {"kernel_vs_reference": rel(kernel, ref_bf16),
+                   "kernel_vs_f32": rel(kernel, ref_f32),
+                   "reference_vs_f32": rel(ref_bf16, ref_f32),
+                   "top1": [int(kernel.argmax()), int(ref_bf16.argmax()), int(ref_f32.argmax())]}
+            out[f"scale_{scale}"] = rec
+            if rec["kernel_vs_f32"] > PRECISION_FACTOR * rec["reference_vs_f32"] + 1e-3:
+                raise AssertionError(f"agentic: at adapter scale {scale} the kernel path is "
+                                     f"further from f32 than the bf16 reference path: {rec}")
+    out["factor"] = PRECISION_FACTOR
+    return out
+
+
+def phase_agentic(ctx: dict) -> None:
+    """The agentic tier at llama-3-8b's full width and depth (module
+    docstring, phase 12): the tier-on engine's two waves, its pools and
+    memory against the plan, an adapter's model check, the ``adapter``
+    drill and back-to-back replays; the same traffic with speculation on;
+    an engine with the tier off for the replay and capture comparison.
+    Token comparisons that fail are raised at the end, after every reading
+    is printed."""
+    import gc
+
+    import torch
+
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS, GenerationOptions
+    from langstream_tpu_torch.serving.engine import GenerationRequest, ServingEngine
+    from langstream_tpu_torch.serving.memory import tree_bytes
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    params = _llama_params(ctx)
+    tok = ByteTokenizer()
+    prompts = [tok.encode(p) for p in _prompts([20, 90, 150, 300, 600, 900, 1200, 1500],
+                                               ctx["seed"] + 11)]
+    kw = dict(max_batch=8, decode_chunk=16, page_size=PAGE, eos_token_id=tok.eos_token_id,
+              rng_seed=ctx["seed"], device="cuda", brownout="off", **AGENTIC_KW)
+    tier = dict(adapters=AGENTIC_ADAPTERS, adapter_pool_rows=3, grammar_slots=4,
+                grammar_tokenizer=tok)
+    out: dict = {}
+
+    # the tier on
+    base = _fresh_base(torch)
+    engine = ServingEngine(cfg, params, **kw, **tier)
+    engine.start()
+    reg = engine._constrain_reg
+    compile_s = {}
+    for name, rf in AGENTIC_FORMATS.items():
+        t0 = time.monotonic()
+        dfa = reg.compile(rf)
+        compile_s[name] = {"s": time.monotonic() - t0, "states": dfa.n_states,
+                           "exceptions": dfa.n_exceptions}
+    run = _agentic_waves(engine, prompts, AGENTIC_WAVES, AGENTIC_NEW)
+    if run["adapter_swaps"] != 3 or run["constrained_requests"] != 4:
+        raise AssertionError(f"agentic: {run['adapter_swaps']} adapter swaps (3 expected), "
+                             f"{run['constrained_requests']} constrained requests")
+    out["serve"] = {k: v for k, v in run.items() if not k.startswith("_")}
+    out["memory"] = _memory_reading(torch, engine, *base)
+    plan = engine.memory_plan
+    pools = {
+        "adapter_pool_bytes": tree_bytes(engine._adapters.pool),
+        "plan_adapter_pool_bytes": plan.adapter_pool_bytes,
+        "adapter_row_bytes": tree_bytes(engine._adapters.pool) // engine._adapters.rows,
+        "grammar_pool_bytes": sum(t.numel() * t.element_size() for t in reg.pool),
+        "plan_grammar_pool_bytes": plan.grammar_pool_bytes,
+    }
+    out["pools"] = pools
+    if (pools["adapter_pool_bytes"] != pools["plan_adapter_pool_bytes"]
+            or pools["grammar_pool_bytes"] != pools["plan_grammar_pool_bytes"]):
+        raise AssertionError(f"agentic: pool bytes against the plan's terms: {pools}")
+    out["host"] = {
+        "compile": compile_s,
+        "adapter_swap_s": engine._adapters.swap_s_total / max(1, engine._adapters.swaps_total),
+        "grammar_swap_s": reg.swap_s_total / max(1, reg.swaps_total),
+        "constrain_overhead_ms": engine.stats()["constrain-overhead-ms"],
+    }
+    capture_on = _capture_reading(engine)
+    engine.stop()
+    with torch.no_grad():
+        replay_on = _replay_rate(torch, engine)
+        replay_on["top_kernels"] = _replay_profile(torch, engine)
+    out["model_check"] = _model_check(
+        ctx, cfg, params, lora=engine._adapters.pool,
+        adapter_row=engine._adapters._by_name["tenant-c"].row,
+    )
+    if not out["model_check"]["step0_top1_equal"]:
+        raise AssertionError(f"agentic: adapter first-token top-1 differs: {out['model_check']}")
+    engine.start()
+    try:
+        out["drill"] = _agentic_drill(ctx, cfg, params, engine, prompts)
+    finally:
+        engine.stop()
+    tokens_on = run["_tokens"]
+    del engine, reg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same traffic with speculation on
+    engine = ServingEngine(cfg, params, speculation="auto", speculation_tokens=4, **kw, **tier)
+    engine.start()
+    try:
+        spec = _agentic_waves(engine, prompts, AGENTIC_WAVES, AGENTIC_NEW)
+    finally:
+        engine.stop()
+    out["spec"] = {k: v for k, v in spec.items() if not k.startswith("_")}
+    out["spec"]["agreement_with_decode"] = [
+        sum(x == y for x, y in zip(spec["_tokens"][i], tokens_on[i])) / max(1, len(tokens_on[i]))
+        for i in sorted(tokens_on)]
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the tier off: the 8 prompts as base requests
+    engine = ServingEngine(cfg, params, constrained_decoding="off", **kw)
+    engine.start()
+    try:
+        reqs = [engine.submit(GenerationRequest(prompt_tokens=p, options=GenerationOptions(
+            max_new_tokens=AGENTIC_NEW))) for p in prompts]
+        off = [r.result(timeout=900) for r in reqs]
+    finally:
+        engine.stop()
+    with torch.no_grad():
+        replay_off = _replay_rate(torch, engine)
+    capture_off = _capture_reading(engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # grammars alone: the default engine (constrained decoding on, no
+    # adapters), its replays on idle slots
+    engine = ServingEngine(cfg, params, **kw)
+    engine.start()
+    engine.stop()
+    with torch.no_grad():
+        replay_grammar = _replay_rate(torch, engine)
+    capture_grammar = _capture_reading(engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["precision"] = _adapter_precision(ctx, cfg, params)
+    out["tier_on_off"] = {
+        "replays_on": replay_on, "replays_off": replay_off,
+        "replays_grammar_only": replay_grammar,
+        "decode_step_device_ms_added": replay_on["device_ms_per_step"]
+        - replay_off["device_ms_per_step"],
+        "grammar_step_device_ms_added": replay_grammar["device_ms_per_step"]
+        - replay_off["device_ms_per_step"],
+        "capture_on": capture_on, "capture_off": capture_off,
+        "capture_grammar_only": capture_grammar,
+        "capture_ratio": capture_on["graph_capture_s"] / capture_off["graph_capture_s"],
+        "graph_pool_bytes_added": capture_on["graph_pool_bytes"]
+        - capture_off["graph_pool_bytes"],
+        # a base request rides grammar row 0 and adapter row 0
+        "base_same_as_tier_off": _same_or_tie(ctx, cfg, params, "tier on vs off, base",
+                                              [prompts[0]], [tokens_on[0]], [off[0].tokens]),
+    }
+    for part in ("serve", "spec", "pools", "memory", "host", "model_check", "precision",
+                 "drill", "tier_on_off"):
+        log(f"agentic {part} {json.dumps(out[part])}")
+    ctx["agentic"] = run
+    compared = [out["drill"]["survivors"], out["tier_on_off"]["base_same_as_tier_off"]]
+    failed = [c for c in compared if not c["ok"]]
+    if failed:
+        raise AssertionError(f"agentic: tokens differ, not at a tie: {json.dumps(failed)}")
 
 
 # the checkpoint phase: shards of at most 5 GB, as the published
@@ -3450,7 +3907,7 @@ def kernel_record(ctx: dict) -> dict:
     }
     # every serving run's launches of each kernel (counts zeroed before each)
     served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "prefix",
-              "spec", "load", "moe")
+              "spec", "agentic", "load", "moe")
     out = []
     for name, (src, replaces, path) in sources.items():
         runs = ctx.get("kernel_runs", {}).get(name)

@@ -90,6 +90,21 @@ honours the keys this slice serves:
     request spans and flight recorder; flight-recorder-iterations (256)
     sizes the recorder's ring, flight-dir (or LSTPU_FLIGHT_DIR) also
     writes each flight dump there as JSON
+  adapters: LoRA adapters registered at start — each entry {name, rank
+    (8), scale (1.0), path (a peft safetensors dir) | seed (random
+    factors)}. One engine then serves base and every adapter mixed in one
+    decode dispatch (serving/adapters.py); a request picks one with its
+    ``adapter`` option. `adapter-pool-fraction` (default 0.1) sizes the
+    device pool as a fraction of the weights' bytes (more adapters than
+    rows swap in LRU: ``adapter-swaps-total``); `adapter-rank` pads every
+    adapter to one pool rank; `adapter-pool-rows` sets the row count
+  constrained-decoding: auto (default) | off → grammar-constrained
+    decoding (serving/constrain.py): a request's ``response-format``
+    ({type: json_schema | regex, ...}) compiles against the provider's
+    tokenizer to a token DFA and every sampled token is masked by it on the
+    card, the speculative verify included. `grammar-slots` (default 64; 0
+    turns the tier off), `grammar-states` (128) and `grammar-exceptions`
+    (65536) size the device pool (the memory plan logs it)
   drain-grace-s: how long ``close()`` lets the work in flight finish
     (default 10) before it stops the engine
   engine-restart-backoff / engine-max-restarts: loop-crash recovery —
@@ -100,10 +115,9 @@ honours the keys this slice serves:
     (serving/faultinject.py; also through the LSTPU_FAULTS environment)
 
 Keys of the JAX provider this port refuses with NotImplementedError
-until their tiers are ported: ``adapters`` / ``adapter-*`` and
-``constrained-decoding`` / ``grammar-*`` (ROADMAP item 2), ``durable*``
-(item 5), ``fleet*``, ``disagg`` and ``cancel-key`` (item 6), ``mesh``
-(item 7) — each unless it is set to off. Keys of the JAX provider with no
+until their tiers are ported: ``durable*`` (ROADMAP item 5), ``fleet*``,
+``disagg`` and ``cancel-key`` (item 6), ``mesh`` (item 7) — each unless it
+is set to off. Keys of the JAX provider with no
 meaning here, which the port ignores:
 
   precompile: XLA's ahead-of-time compile of the decode ladder (the port
@@ -116,10 +130,11 @@ meaning here, which the port ignores:
 Per request, the options' ``deadline`` (``deadline-s``) and
 ``max-queue-wait`` (``max-queue-wait-s``) bound the wall time from submit
 and the wait for a slot, ``tenant`` / ``priority`` (low | normal | high) /
-``max-cost-tokens`` schedule and budget it (``GenerationOptions.from_dict``;
-``response-format``, ``grammar-resume-state`` and ``adapter`` raise
-NotImplementedError). On the card every decode chunk is a CUDA-graph
-replay; no key turns that off.
+``max-cost-tokens`` schedule and budget it, ``adapter`` names the adapter
+serving it, ``response-format`` constrains its output and
+``grammar-resume-state`` continues a cut constrained stream from its DFA
+state (``GenerationOptions.from_dict``). On the card every decode chunk is
+a CUDA-graph replay; no key turns that off.
 
 A config the CUDA kernels cannot take on the device (a model dtype other
 than bfloat16 on the card, unless ``attention_impl`` is "jnp") raises
@@ -162,7 +177,6 @@ from langstream_tpu_torch.serving.tokenizer import get_tokenizer
 # provider keys of the JAX package whose tiers the port does not serve yet
 # (key or key prefix → the ROADMAP item that ports it)
 _REFUSED_KEYS = (
-    ("adapters", 2), ("adapter-", 2), ("constrained-decoding", 2), ("grammar-", 2),
     ("durable", 5), ("fleet", 6), ("disagg", 6), ("cancel-key", 6), ("mesh", 7),
 )
 
@@ -333,6 +347,13 @@ class TorchCompletionsService(CompletionsService):
             raise ValueError(f"unknown brownout {bo!r}; supported: auto, off")
         self.brownout = "off" if bo is False or str(bo).lower() == "off" else "auto"
         self.drain_grace_s = float(self.resource.get("drain-grace-s", 10.0))
+        constrained = self.resource.get("constrained-decoding", "auto")
+        if not isinstance(constrained, bool) and str(constrained).lower() not in ("auto", "off"):
+            raise ValueError(
+                f"unknown constrained-decoding {constrained!r}; supported: auto, off"
+            )
+        off = constrained is False or str(constrained).lower() == "off"
+        self.constrained = "off" if off else "auto"
         self.tokenizer = get_tokenizer(self.resource.get("tokenizer", "byte"))
         self._lock = threading.Lock()
         self._engine: Optional[ServingEngine] = None
@@ -410,6 +431,17 @@ class TorchCompletionsService(CompletionsService):
                         str(self.resource["flight-dir"]) if self.resource.get("flight-dir")
                         else None
                     ),
+                    adapters=list(self.resource.get("adapters") or []),
+                    adapter_pool_fraction=float(
+                        self.resource.get("adapter-pool-fraction", 0.1)
+                    ),
+                    adapter_rank=_int_or_none(self.resource.get("adapter-rank")),
+                    adapter_pool_rows=_int_or_none(self.resource.get("adapter-pool-rows")),
+                    constrained_decoding=self.constrained,
+                    grammar_slots=int(self.resource.get("grammar-slots", 64)),
+                    grammar_states=int(self.resource.get("grammar-states", 128)),
+                    grammar_exceptions=int(self.resource.get("grammar-exceptions", 65536)),
+                    grammar_tokenizer=self.tokenizer,
                 )
                 engine.start()
                 self._engine = engine

@@ -173,11 +173,9 @@ MODEL_PRESETS: dict[str, ModelConfig] = {
 
 @dataclass
 class GenerationOptions:
-    """Per-request options: sampling, stops, the lifecycle's deadlines and
-    the tenancy knobs (tenant, priority, cost budget). The JAX package's
-    adapter and grammar options (``adapter``, ``response-format``,
-    ``grammar-resume-state``) are refused by ``from_dict`` until the agentic
-    tier is ported (ROADMAP item 2)."""
+    """Per-request options: sampling, stops, the lifecycle's deadlines, the
+    agentic tier (adapter, response format, grammar resume state) and the
+    tenancy knobs (tenant, priority, cost budget)."""
 
     max_new_tokens: int = 256
     temperature: float = 0.0  # 0 → greedy
@@ -192,6 +190,19 @@ class GenerationOptions:
     deadline_s: Optional[float] = None
     # cap on the time spent waiting for a slot; exceeded → fails in queue
     max_queue_wait_s: Optional[float] = None
+    # multi-LoRA (serving/adapters.py): the registered adapter serving this
+    # request; None / "" = the base model (pool row 0)
+    adapter: Optional[str] = None
+    # constrained decoding (serving/constrain.py): an OpenAI-style
+    # response_format — {"type": "json_schema", "json_schema": {...}} or
+    # {"type": "regex", "regex": "..."}; compiled at submit, the completion
+    # stays inside it
+    response_format: Optional[dict] = None
+    # the DFA state a constrained stream had reached when it was cut: the
+    # prompt carries the partial derivation and generation continues from
+    # this state of the SAME response_format's grammar (checked at
+    # admission)
+    grammar_resume_state: Optional[int] = None
     # multi-tenant overload control (serving/tenancy.py): the tenant this
     # request is billed and scheduled under (None: the shared "default"
     # tenant)
@@ -206,14 +217,6 @@ class GenerationOptions:
 
     @staticmethod
     def from_dict(d: dict) -> "GenerationOptions":
-        for key, alias in (("response-format", "response_format"),
-                           ("grammar-resume-state", "grammar_resume_state"),
-                           ("adapter", "adapter")):
-            if d.get(key, d.get(alias)) not in (None, "", {}):
-                raise NotImplementedError(
-                    f"request option {key}: adapters and grammar-constrained decoding are "
-                    "not ported (ROADMAP item 2)"
-                )
         stops = d.get("stop-tokens", d.get("stop_tokens", ()))
         deadline = d.get("deadline", d.get("deadline-s", d.get("deadline_s")))
         queue_wait = d.get("max-queue-wait", d.get("max-queue-wait-s", d.get("max_queue_wait_s")))
@@ -221,6 +224,8 @@ class GenerationOptions:
         if priority not in ("low", "normal", "high"):
             raise ValueError(f"unknown priority {priority!r}; supported: low, normal, high")
         cost = d.get("max-cost-tokens", d.get("max_cost_tokens"))
+        response_format = d.get("response-format", d.get("response_format"))
+        resume = d.get("grammar-resume-state", d.get("grammar_resume_state"))
         return GenerationOptions(
             max_new_tokens=int(d.get("max-tokens", d.get("max_new_tokens", 256))),
             temperature=float(d.get("temperature", 0.0)),
@@ -229,6 +234,9 @@ class GenerationOptions:
             stop_tokens=tuple(int(t) for t in stops),
             deadline_s=float(deadline) if deadline is not None else None,
             max_queue_wait_s=float(queue_wait) if queue_wait is not None else None,
+            adapter=str(d["adapter"]) if d.get("adapter") else None,
+            response_format=dict(response_format) if response_format else None,
+            grammar_resume_state=int(resume) if resume is not None else None,
             tenant=str(d["tenant"]) if d.get("tenant") else None,
             priority=priority,
             max_cost_tokens=int(cost) if cost is not None else None,

@@ -20,7 +20,8 @@ neither ``ml_dtypes`` nor ``safetensors`` is needed on any path of the
 port. ``save_params_hf`` writes files that the ``safetensors`` package and
 the JAX loader read bit-equal.
 
-``load_lora_params`` is not ported yet (the adapters slice).
+``load_lora_params`` reads a peft LoRA checkpoint into the numpy factor
+trees the adapter registry (``serving/adapters.py``) uploads.
 """
 
 from __future__ import annotations
@@ -227,6 +228,81 @@ def load_params(
         log.warning("checkpoint tensors unused by %s: %s", config.name, sorted(raw)[:10])
     _check_shapes(params, config)
     return params
+
+
+# our projection name → the peft module path inside a layer
+_LORA_PROJ_HF = {
+    "wq": "self_attn.q_proj",
+    "wk": "self_attn.k_proj",
+    "wv": "self_attn.v_proj",
+    "wo": "self_attn.o_proj",
+    "w_gate": "mlp.gate_proj",
+    "w_up": "mlp.up_proj",
+    "w_down": "mlp.down_proj",
+}
+
+
+def load_lora_params(
+    path: Union[str, Path], config: ModelConfig, rank: int
+) -> dict[str, dict[str, np.ndarray]]:
+    """A peft LoRA checkpoint → per projection ``{"a": [L, din, rank], "b":
+    [L, rank, dout]}`` f32 numpy, the trees the adapter registry uploads.
+
+    peft stores ``...layers.{i}.{proj}.lora_A.weight`` as [r, in] and
+    ``lora_B.weight`` as [out, r]; the port's product is ``(x @ A) @ B``, so
+    both transpose on load (the rule of ``load_params``). Keys match on
+    their suffix from the last ``layers.`` on (peft's prefix depends on the
+    export); two keys with one suffix raise ValueError. Projections absent
+    from the checkpoint (a q/v-only adapter) load as zeros, which add
+    nothing; MoE configs load attention projections only. A rank below
+    ``rank`` is zero-padded, above it raises."""
+    from langstream_tpu_torch.serving.adapters import _proj_dims
+
+    raw = load_raw_tensors(path)
+    n_layers = config.n_layers
+    suffix_to_key: dict[str, str] = {}
+    for key in raw:
+        pos = key.rfind("layers.")
+        if pos < 0:
+            continue  # a tensor outside the layers is never a factor
+        suffix = key[pos:]
+        other = suffix_to_key.get(suffix)
+        if other is not None:
+            raise ValueError(
+                f"ambiguous LoRA checkpoint under {path}: {other!r} and "
+                f"{key!r} both end in {suffix!r}"
+            )
+        suffix_to_key[suffix] = key
+
+    def find(i: int, hf_proj: str, factor: str) -> Optional[np.ndarray]:
+        key = suffix_to_key.get(f"layers.{i}.{hf_proj}.{factor}.weight")
+        return raw[key].float().numpy() if key is not None else None
+
+    out: dict[str, dict[str, np.ndarray]] = {}
+    found_any = False
+    for proj, (din, dout) in _proj_dims(config).items():
+        a = np.zeros((n_layers, din, rank), np.float32)
+        b = np.zeros((n_layers, rank, dout), np.float32)
+        for i in range(n_layers):
+            raw_a = find(i, _LORA_PROJ_HF[proj], "lora_A")
+            raw_b = find(i, _LORA_PROJ_HF[proj], "lora_B")
+            if raw_a is None or raw_b is None:
+                continue
+            found_any = True
+            r = raw_a.shape[0]
+            if r > rank:
+                raise ValueError(
+                    f"{proj} layer {i}: checkpoint rank {r} exceeds the "
+                    f"requested rank {rank}"
+                )
+            a[i, :, :r] = raw_a.T
+            b[i, :r, :] = raw_b.T
+        out[proj] = {"a": a, "b": b}
+    if not found_any:
+        raise ValueError(
+            f"no lora_A/lora_B tensors under {path}; found e.g. {sorted(raw)[:6]}"
+        )
+    return out
 
 
 def expected_params(config: ModelConfig, quantized: bool = False) -> Params:

@@ -56,8 +56,16 @@ Differences from the JAX package:
   C]`` one-hots: rows scatter into per-expert buffers, the expert FFN runs
   as batched matmuls over the experts, outputs gather back.
 
-Not ported yet: the dense verify (``verify_step_inplace``), LoRA, ring
-attention and ``encode``.
+Multi-LoRA (``lora`` / ``adapter_rows`` on every serving entry point): the
+adapter pool of ``serving/adapters.py`` is gathered by each batch row's
+adapter row at every adapted projection (``_lora_delta``: two batched f32
+matmuls, cast to the activation dtype), so base rows (row 0, all zeros)
+and N adapters share one call. K/V written to a cache include the
+``wk`` / ``wv`` deltas; a verify applies a row's adapter to all k+1 of its
+queries before the kernel path flattens them.
+
+Not ported yet: the dense verify (``verify_step_inplace``), ring attention
+and ``encode``.
 """
 
 from __future__ import annotations
@@ -296,10 +304,63 @@ def _activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     return F.silu(x)
 
 
-def dense_ffn(x: torch.Tensor, lp: dict, config: ModelConfig) -> torch.Tensor:
-    gate = _activation(quantized_matmul(x, lp["w_gate"]), config.activation)
-    up = quantized_matmul(x, lp["w_up"])
-    return quantized_matmul(gate * up, lp["w_down"])
+# ---------------------------------------------------------------------------
+# Multi-LoRA: each batch row gathers ITS adapter's factors from the pool, so
+# one call serves base + N adapters; the low-rank product runs in f32 and
+# adds onto the base projection: W_i = W + scale_i * A_i @ B_i, never merged
+# ---------------------------------------------------------------------------
+
+LORA_PROJS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+# one layer's adapter inputs: ({proj: {"a": [R, din, r], "b": [R, r, dout]}},
+# scale [R] f32, rows [B] pool row per batch row)
+LayerLora = tuple
+
+
+def _lora_delta(
+    x: torch.Tensor,  # [B, S, din]
+    entry: dict,  # {"a": [R, din, r], "b": [R, r, dout]}: one layer's slice
+    scale: torch.Tensor,  # [R]
+    rows: torch.Tensor,  # [B] pool row per batch row (0 = base, all zeros)
+) -> torch.Tensor:
+    """Per-row low-rank correction ``scale_i * (x @ A_i) @ B_i`` with the
+    factors gathered by each row's adapter row, accumulated in f32 and cast
+    to the activation dtype (the JAX package's two einsums)."""
+    rows = rows.long()
+    ag = entry["a"].index_select(0, rows).float()  # [B, din, r]
+    bg = entry["b"].index_select(0, rows).float()  # [B, r, dout]
+    out = torch.bmm(torch.bmm(x.float(), ag), bg)  # [B, S, dout]
+    return (out * scale.index_select(0, rows)[:, None, None]).to(x.dtype)
+
+
+def _lora_proj(x: torch.Tensor, base: torch.Tensor, proj: str,
+               lora: Optional[LayerLora]) -> torch.Tensor:
+    """``base`` (x's projection) plus its adapter delta; ``base`` alone
+    without adapters or when the pool has no such projection (MoE layers
+    carry attention-only adapters)."""
+    if lora is None or proj not in lora[0]:
+        return base
+    entries, scale, rows = lora
+    return base + _lora_delta(x, entries[proj], scale, rows)
+
+
+def _lora_layer(lora: Optional[dict], rows: Optional[torch.Tensor], i: int) -> Optional[LayerLora]:
+    """Layer ``i``'s slice of the stacked pool ``{proj: {"a": [L, R, din,
+    r], "b": [L, R, r, dout]}, "scale": [R]}`` with the rows, or None."""
+    if lora is None or rows is None:
+        return None
+    entries = {k: {f: v[f][i] for f in ("a", "b")} for k, v in lora.items() if k != "scale"}
+    return entries, lora["scale"], rows
+
+
+def dense_ffn(x: torch.Tensor, lp: dict, config: ModelConfig,
+              lora: Optional[LayerLora] = None) -> torch.Tensor:
+    gate = _activation(
+        _lora_proj(x, quantized_matmul(x, lp["w_gate"]), "w_gate", lora), config.activation
+    )
+    up = _lora_proj(x, quantized_matmul(x, lp["w_up"]), "w_up", lora)
+    h = gate * up
+    return _lora_proj(h, quantized_matmul(h, lp["w_down"]), "w_down", lora)
 
 
 def moe_capacity(tokens: int, config: ModelConfig) -> int:
@@ -565,6 +626,7 @@ def _layer(
     kv_offset: Optional[torch.Tensor] = None,
     kv_bound: Optional[int] = None,
     lengths: Optional[torch.Tensor] = None,
+    lora: Optional[LayerLora] = None,
 ) -> torch.Tensor:
     """One transformer block. With ``cache_kv`` (a dense cache: an admit
     group's local cache, a long prompt's local cache or the big cache) K/V
@@ -579,14 +641,21 @@ def _layer(
     rows (``verify_queries``) — reads through the table with the paged
     decode kernel (``lengths`` given); the reference path reads the
     gathered table under ``mask``, V zeroed where no query of the row can
-    see. The FFN is ``moe_ffn`` for an MoE config, else ``dense_ffn``."""
+    see. The FFN is ``moe_ffn`` for an MoE config, else ``dense_ffn``.
+    ``lora`` (``_lora_layer``) adds each row's adapter delta at every
+    adapted projection, before K/V are written."""
     b, s, _ = x.shape
     hd = config.resolved_head_dim
 
     attn_in = rms_norm(x, lp["attn_norm"], config.rms_norm_eps)
-    q = quantized_matmul(attn_in, lp["wq"]).reshape(b, s, config.n_heads, hd)
-    k = quantized_matmul(attn_in, lp["wk"]).reshape(b, s, config.n_kv_heads, hd)
-    v = quantized_matmul(attn_in, lp["wv"]).reshape(b, s, config.n_kv_heads, hd)
+
+    def project(name: str, heads: int) -> torch.Tensor:
+        out = _lora_proj(attn_in, quantized_matmul(attn_in, lp[name]), name, lora)
+        return out.reshape(b, s, heads, hd)
+
+    q = project("wq", config.n_heads)
+    k = project("wk", config.n_kv_heads)
+    v = project("wv", config.n_kv_heads)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # [B, Hkv, S, D]
@@ -626,10 +695,11 @@ def _layer(
         attn = _dispatch_attention(
             q, k_all, v_all, mask, config, causal, kv_offset, kv_bound, lengths
         )
-    x = x + quantized_matmul(attn, lp["wo"])
+    x = x + _lora_proj(attn, quantized_matmul(attn, lp["wo"]), "wo", lora)
     ffn_in = rms_norm(x, lp["ffn_norm"], config.rms_norm_eps)
-    ffn = moe_ffn if config.is_moe else dense_ffn
-    return x + ffn(ffn_in, lp, config)
+    if config.is_moe:
+        return x + moe_ffn(ffn_in, lp, config)
+    return x + dense_ffn(ffn_in, lp, config, lora)
 
 
 def _embed(params: Params, tokens: torch.Tensor, config: ModelConfig) -> torch.Tensor:
@@ -692,6 +762,8 @@ def prefill(
     lengths: torch.Tensor,  # [B] true prompt lengths
     cache: KVCache,
     config: ModelConfig,
+    lora: Optional[dict] = None,  # the adapter pool (serving/adapters.py)
+    adapter_rows: Optional[torch.Tensor] = None,  # [B] pool row per prompt
 ) -> tuple[torch.Tensor, KVCache]:
     """Process prompts, fill cache columns 0..S (in place), return logits at
     the last real token of each prompt ([B, V])."""
@@ -710,6 +782,7 @@ def prefill(
         x = _layer(
             x, _layer_params(params["layers"], i), sin, cos, mask, config,
             cache_kv=_cache_layer(cache, i), cache_index=index,
+            lora=_lora_layer(lora, adapter_rows, i),
         )
     last = (lengths.long() - 1).clamp(0, s - 1)
     x_last = x[torch.arange(b, device=dev), last]  # [B, D]
@@ -726,6 +799,8 @@ def prefill_segment(
     cache: KVCache,
     config: ModelConfig,
     kv_bound: Optional[int] = None,  # readable cache columns (>= offset + W where it fits)
+    lora: Optional[dict] = None,
+    adapter_rows: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Chunked prefill: one segment of a longer prompt against a dense cache
     whose columns [0, offsets) were written by earlier segments. Writes the
@@ -749,7 +824,7 @@ def prefill_segment(
         x = _layer(
             x, _layer_params(params["layers"], i), sin, cos, mask, config,
             cache_kv=_cache_layer(cache, i), cache_index=index,
-            kv_offset=kv_offset, kv_bound=kv_bound,
+            kv_offset=kv_offset, kv_bound=kv_bound, lora=_lora_layer(lora, adapter_rows, i),
         )
     last = (seg_lengths.long() - 1).clamp(0, s - 1)
     x_last = x[torch.arange(b, device=dev), last]  # [B, D]
@@ -765,6 +840,8 @@ def decode_step_inplace(
     cache: KVCache,  # dense [L, B, Hkv, T, D]
     config: ModelConfig,
     kv_bound: Optional[int] = None,  # readable cache columns
+    lora: Optional[dict] = None,
+    adapter_rows: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """One decode step over the dense cache → logits [B, V]; the cache is
     updated in place (positions past it land in its sink column). Each row
@@ -787,7 +864,7 @@ def decode_step_inplace(
         x = _layer(
             x, _layer_params(params["layers"], i), sin, cos, mask, config,
             cache_kv=_cache_layer(cache, i), cache_index=index,
-            kv_bound=kv_bound, lengths=lengths,
+            kv_bound=kv_bound, lengths=lengths, lora=_lora_layer(lora, adapter_rows, i),
         )
     return _unembed(params, x, config)[:, 0], cache
 
@@ -826,6 +903,8 @@ def paged_decode_step_inplace(
     table: torch.Tensor,  # [B, Tp] physical page per logical page
     config: ModelConfig,
     page_size: int,
+    lora: Optional[dict] = None,
+    adapter_rows: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """One decode step through the page table → logits [B, V]; the pool is
     updated in place. Each row reads exactly its mapped pages up to its
@@ -846,6 +925,7 @@ def paged_decode_step_inplace(
         x = _layer(
             x, _layer_params(params["layers"], i), sin, cos, mask, config,
             cache_kv=_cache_layer(pool, i), paged=(table, page_size, lengths, index, None),
+            lora=_lora_layer(lora, adapter_rows, i),
         )
     return _unembed(params, x, config)[:, 0], pool
 
@@ -859,6 +939,8 @@ def paged_verify_step_inplace(
     table: torch.Tensor,  # [B, Tp] physical page per logical page
     config: ModelConfig,
     page_size: int,
+    lora: Optional[dict] = None,
+    adapter_rows: Optional[torch.Tensor] = None,  # [B]: a row's adapter serves all K+1
 ) -> tuple[torch.Tensor, KVCache]:
     """Multi-token speculative verify through the page table → logits at
     every position ``[B, K+1, V]``; the pool is updated in place. K/V of all
@@ -896,6 +978,7 @@ def paged_verify_step_inplace(
         x = _layer(
             x, _layer_params(params["layers"], i), sin, cos, mask, config,
             cache_kv=_cache_layer(pool, i), paged=(read_table, page_size, lengths, index, None),
+            lora=_lora_layer(lora, adapter_rows, i),
         )
     return _unembed(params, x, config), pool
 
@@ -911,6 +994,8 @@ def paged_prefill_segment_inplace(
     config: ModelConfig,
     page_size: int,
     kv_bound: Optional[int] = None,  # readable columns: max(offsets) + W when None
+    lora: Optional[dict] = None,
+    adapter_rows: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Chunked prefill straight into the slots' pages: the segment's K/V
     scatter at global positions [offsets, offsets + W) through the table
@@ -948,7 +1033,7 @@ def paged_prefill_segment_inplace(
         x = _layer(
             x, _layer_params(params["layers"], i), sin, cos, mask, config,
             cache_kv=_cache_layer(pool, i), paged=(table, page_size, None, index, segment),
-            kv_offset=kv_offset,
+            kv_offset=kv_offset, lora=_lora_layer(lora, adapter_rows, i),
         )
     last = (seg_lengths.long() - 1).clamp(0, s - 1)
     x_last = x[torch.arange(b, device=dev), last]  # [B, D]

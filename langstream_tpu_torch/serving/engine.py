@@ -144,6 +144,35 @@ branch each, into the one shared pool — and each replay is counted by its
 kind; the capture is timed part by part (the warm-up, each branch of each
 set: ``graph-capture-parts-s``).
 
+The agentic tier, as the JAX engine runs it, on both layouts. Multi-LoRA
+(``adapters``): a fixed device pool of stacked low-rank factors
+(``serving/adapters.py``); every prefill, decode step and verify gathers
+each row's factors by its adapter row (``models/transformer.py``
+``_lora_delta``), so base slots (row 0, zeros) and N adapters share one
+captured program. Grammar-constrained decoding (``constrained_decoding``,
+on by default as in the JAX engine; ``grammar_slots`` <= 0 turns it off):
+a request's ``response_format`` compiles to a token DFA on the submitter's
+thread (``serving/constrain.py``); the packed grammar pool lives on the
+card, and every sample is masked by the bits of the row's (grammar row,
+DFA state) and advances the state on the card (``_dfa_mask``,
+``_dfa_advance``) — in the admit groups, a long prompt's final segment,
+the captured decode chunk and the captured verify (whose per-position
+states the host computes from the drafts, ``verify_states``). Base slots
+ride grammar row 0 (all legal, a self-loop at state 0). The host mirrors
+the state per delivered token: an illegal token fails the slot, a
+complete state finishes it with ``"stop"``. With the tier on, every
+captured set carries the LoRA gather, the mask and the advance: one graph
+set, whatever the mix. Adapter and grammar rows are resolved (refcounted,
+swapped in LRU on the engine thread's stream, behind the chunks in
+flight) when a request leaves the queue; a pool pinned full sheds it with
+a retry-after, and the request's finalize hook releases both when it ends,
+on every path. The per-slot rows and DFA states are static buffers
+written in place; the pools are never reallocated, a restart included.
+An adapter request never reuses nor publishes a shared prefix (its K/V
+hold its ``wk`` / ``wv`` deltas). The ``adapter`` fault site corrupts the
+dispatch-facing row array; the check before every dispatch quarantines
+that slot alone.
+
 Observability (``serving/observability.py``, ``observability=False``
 turns it off): host-side histograms at the JAX engine's sites (TTFT,
 inter-token, queue wait, prefill dispatch, decode or verify step, accepted
@@ -153,9 +182,8 @@ last ``flight_iterations`` iterations, dumped on a NaN or page quarantine,
 an engine restart, a shed burst, a brownout transition and
 ``stats(dump=True)``. Nothing is recorded inside a captured chunk.
 
-Not ported yet (later slices): adapters and grammars (and with them the
-constrained verify, ROADMAP item 2), the dense layout's prefix pool and
-verify (item 4), the host-RAM KV tier and hibernation (item 5), the SPMD
+Not ported yet (later slices): the dense layout's prefix pool and verify
+(ROADMAP item 4), the host-RAM KV tier and hibernation (item 5), the SPMD
 watchdog (item 7).
 """
 
@@ -195,8 +223,15 @@ from langstream_tpu_torch.ops.attention import (
     kernel_counts,
     kernel_path_ok,
 )
+from langstream_tpu_torch.serving.adapters import (
+    AdapterPoolExhausted,
+    AdapterRegistry,
+    AdapterSpec,
+    rows_for_fraction,
+)
+from langstream_tpu_torch.serving.constrain import GrammarRegistry, verify_states
 from langstream_tpu_torch.serving.faultinject import FaultInjector
-from langstream_tpu_torch.serving.memory import plan_serving_memory
+from langstream_tpu_torch.serving.memory import plan_serving_memory, tree_bytes
 from langstream_tpu_torch.serving.observability import (
     EngineObservability,
     emit_request_spans,
@@ -205,6 +240,7 @@ from langstream_tpu_torch.serving.observability import (
 from langstream_tpu_torch.serving.pagepool import PagePool, PrefixPageIndex, pages_for_fraction
 from langstream_tpu_torch.serving.sampling import sample, speculative_verify
 from langstream_tpu_torch.serving.speculation import NGramIndex
+from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
 from langstream_tpu_torch.serving.tenancy import (
     DEFAULT_TENANT,
     BrownoutController,
@@ -295,6 +331,19 @@ class GenerationRequest:
     _done: threading.Event = field(default_factory=threading.Event)
     _result: Optional["GenerationResult"] = None
     _cancelled: threading.Event = field(default_factory=threading.Event)
+    # the engine's teardown hook (adapter and grammar refcount release),
+    # run once inside ``_finish`` before the waiter wakes: every way a
+    # request ends funnels through there
+    _finalize: Optional[Callable[[], None]] = None
+    # the compiled grammar (constrain.TokenDFA), attached at submit when
+    # the options carry a response_format
+    _dfa: Optional[Any] = None
+    # the host-mirrored DFA state after the latest delivered token, set
+    # before ``on_token`` fires for that token
+    dfa_state: Optional[int] = None
+    # (adapter row, grammar row, initial DFA state) once resolved when the
+    # request left the queue (a page-deferred retry resolves nothing again)
+    _agentic_rows: Optional[tuple[int, int, int]] = None
 
     def cancel(self) -> None:
         """Cancel from any thread: an active slot frees at the next chunk
@@ -323,6 +372,12 @@ class GenerationRequest:
     def _finish(self, result: "GenerationResult") -> None:
         if self._done.is_set():
             return  # the first resolution wins (sweep vs admission races)
+        if self._finalize is not None:
+            fin, self._finalize = self._finalize, None
+            try:
+                fin()
+            except Exception:  # noqa: BLE001 — teardown must not eat the result
+                log.exception("request finalize hook failed")
         self._result = result
         self._done.set()
         if self.on_done is not None:
@@ -469,6 +524,32 @@ class _TokenFetcher:
             handle._landed.set()
 
 
+def _dfa_mask(pool: tuple, g: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """Each row's packed legality bits for one sample: the bitmask plane
+    gathered by (grammar row, DFA state) → [B, ceil(V/32)] int32
+    (``sampling._expand_allowed`` unpacks it)."""
+    return pool[0][g, state]
+
+
+def _dfa_advance(pool: tuple, g: torch.Tensor, tokens: torch.Tensor, state: torch.Tensor,
+                 vocab_size: int) -> torch.Tensor:
+    """Each row's DFA state past its sampled token, on the device: the
+    state's default successor unless the row's sorted exception keys hold
+    the composite key ``state · V + token`` (a row-wise ``searchsorted``;
+    every legal non-modal transition is an exception, so legal tokens
+    advance exactly as the dense table). The NaN sentinel (-1) clamps to
+    token 0 and the result to >= 0; rows on grammar row 0 stay at 0."""
+    _, defaults, exc_key, exc_next = pool
+    state = state.long()
+    key = (state * vocab_size + tokens.long().clamp(0, vocab_size - 1)).to(torch.int32)
+    rows_k = exc_key[g]  # [B, E] sorted, sentinel-padded
+    idx = torch.searchsorted(rows_k, key[:, None]).clamp_max(rows_k.shape[-1] - 1)  # [B, 1]
+    hit_key = torch.gather(rows_k, 1, idx)[:, 0]
+    hit_next = exc_next[g, idx[:, 0]]
+    nxt = torch.where(hit_key == key, hit_next, defaults[g, state])
+    return nxt.clamp_min(0).long()
+
+
 class _CudaGraph:
     """One captured decode chunk on the card: a ``torch.cuda.CUDAGraph`` in
     the engine's shared pool, captured on a side stream with the engine's
@@ -549,6 +630,15 @@ class ServingEngine:
         observability: bool = True,
         flight_iterations: int = 256,
         flight_dir: Optional[str] = None,
+        adapters: Optional[list] = None,
+        adapter_pool_fraction: float = 0.1,
+        adapter_rank: Optional[int] = None,
+        adapter_pool_rows: Optional[int] = None,
+        constrained_decoding: Any = "auto",
+        grammar_slots: int = 64,
+        grammar_states: int = 128,
+        grammar_exceptions: int = 65536,
+        grammar_tokenizer: Optional[Any] = None,
     ) -> None:
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; supported: paged, dense")
@@ -694,6 +784,48 @@ class ServingEngine:
         self._mid_iteration = False
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(int(rng_seed))
+        # the agentic tier: the adapter pool and the grammar pool, their
+        # per-slot rows (host: dispatch-facing and authoritative adapter
+        # rows, for the ``adapter`` site's integrity check) and the host
+        # mirror of each constrained slot's DFA state
+        self._adapters: Optional[AdapterRegistry] = None
+        self._constrain_reg: Optional[GrammarRegistry] = None
+        self._adapter_rows = np.zeros(self.max_batch, np.int64)
+        self._adapter_rows_auth = np.zeros(self.max_batch, np.int64)
+        self._g_rows = np.zeros(self.max_batch, np.int64)
+        self._slot_dfa: dict[int, Any] = {}
+        self._dfa_host_state: dict[int, int] = {}
+        self.constrained_requests_total = 0
+        self._constrain_host_ema_ms = 0.0
+        specs = [a if isinstance(a, AdapterSpec) else AdapterSpec.from_dict(a)
+                 for a in (adapters or [])]
+        if specs:
+            rank = int(adapter_rank or max(s.rank for s in specs))
+            rows = (
+                int(adapter_pool_rows) if adapter_pool_rows is not None
+                else rows_for_fraction(config, rank, tree_bytes(params), adapter_pool_fraction,
+                                       n_registered=len(specs))
+            )
+            self._adapters = AdapterRegistry(config, rows, rank, device=self.device)
+            for spec in specs:
+                self._adapters.register(spec)
+        constrain_on = constrained_decoding is True or str(constrained_decoding).lower() in (
+            "auto", "on", "true", "1"
+        )
+        if constrain_on and int(grammar_slots) <= 0:
+            # the disabled contract grammar_pool_bytes shares: no rows, no tier
+            log.info("grammar-slots <= 0: constrained decoding disabled")
+            constrain_on = False
+        if constrain_on:
+            self._constrain_reg = GrammarRegistry(
+                grammar_tokenizer if grammar_tokenizer is not None else ByteTokenizer(),
+                config.vocab_size, eos_token_id,
+                slots=int(grammar_slots),
+                max_states=max(2, int(grammar_states)),
+                max_exceptions=max(1, int(grammar_exceptions)),
+                device=self.device,
+            )
+        self._agentic = self._adapters is not None or self._constrain_reg is not None
         # the device-resident decode state the graphs read and write
         # (_alloc_decode_state): chain, sampling params, table, output
         self._alloc_decode_state()
@@ -781,6 +913,13 @@ class ServingEngine:
             page_size=self.page_size,
             kv_pages=self._pagepool.num_pages if self._paged else 0,
             weight_load_staging=int(self._weight_load_report.get("staging-peak-bytes", 0)),
+            adapter_pool_rows=self._adapters.rows if self._adapters else 0,
+            adapter_rank=self._adapters.rank if self._adapters else 0,
+            grammar_slots=self._constrain_reg.slots if self._constrain_reg else 0,
+            grammar_states=self._constrain_reg.max_states if self._constrain_reg else 0,
+            grammar_exceptions=(
+                self._constrain_reg.max_exceptions if self._constrain_reg else 0
+            ),
         )
         log.info("serving memory plan (%s, B=%d, T=%d, %s): %s", config.name, self.max_batch,
                  self.max_seq_len, self.kv_layout, self.memory_plan.summary())
@@ -790,8 +929,11 @@ class ServingEngine:
         token and next write position per slot), the per-slot sampling
         params, the dispatch page table (paged; every row the sentinel) and
         the ``[steps, B]`` output; with speculation, the verify's ``[B, k]``
-        drafts and its packed ``[B, k + 2]`` output. The graphs hold raw
-        pointers to these: they are only ever written in place."""
+        drafts and its packed ``[B, k + 2]`` output; with the agentic tier,
+        each slot's adapter row, grammar row and DFA state (and with
+        speculation the verify's per-position states ``[B, k + 1]``). The
+        graphs hold raw pointers to these: they are only ever written in
+        place (a restart allocates them anew before it captures again)."""
         dev = self.device
         b = self.max_batch
         self._tokens_dev = torch.zeros(b, dtype=torch.long, device=dev)
@@ -805,6 +947,18 @@ class ServingEngine:
         self._verify_out = torch.zeros((b, k + 2), dtype=torch.long, device=dev) if k else None
         self._table_dev: Optional[torch.Tensor] = None
         self._table_uploaded: Optional[np.ndarray] = None
+        reg = self._constrain_reg
+        self._arows_dev = (
+            torch.zeros(b, dtype=torch.long, device=dev) if self._adapters is not None else None
+        )
+        self._g_rows_dev = torch.zeros(b, dtype=torch.long, device=dev) if reg else None
+        self._dfa_state_dev = torch.zeros(b, dtype=torch.long, device=dev) if reg else None
+        self._vstates_dev = (
+            torch.zeros((b, k + 1), dtype=torch.long, device=dev) if reg and k else None
+        )
+        # what the row buffers hold, so an unchanged array is not uploaded
+        self._arows_uploaded = np.zeros(b, np.int64)
+        self._g_rows_uploaded = np.zeros(b, np.int64)
         if self._paged:
             pool = self._pagepool
             self._table_dev = torch.full(
@@ -983,22 +1137,34 @@ class ServingEngine:
         only into the sink page. Dense: inactive rows write into their own
         rows (past max_seq_len, into the sink column); the kernels read
         each row to its length, ``kv_bound`` (the CPU's reference path)
-        narrows the masked read."""
+        narrows the masked read. With the agentic tier each step gathers
+        the slots' adapter rows, masks the sample by each slot's (grammar
+        row, DFA state) and advances the state in place."""
+        reg = self._constrain_reg
+        lora = self._lora_kw(self._arows_dev)
         for step in range(self.decode_chunk):
             if self._paged:
                 logits, _ = paged_decode_step_inplace(
                     self.params, self._tokens_dev, self._positions_dev, self._pagepool.dev,
-                    self._table_dev, self.config, self.page_size,
+                    self._table_dev, self.config, self.page_size, **lora,
                 )
             else:
                 logits, _ = decode_step_inplace(
                     self.params, self._tokens_dev, self._positions_dev, self._cache,
-                    self.config, kv_bound,
+                    self.config, kv_bound, **lora,
                 )
+            allowed = (
+                _dfa_mask(reg.pool, self._g_rows_dev, self._dfa_state_dev) if reg else None
+            )
             tokens = sample(
                 logits, self._generator, self._temp_dev, self._top_k_dev, self._top_p_dev,
-                samples, filters,
+                samples, filters, allowed,
             )
+            if reg is not None:
+                self._dfa_state_dev.copy_(_dfa_advance(
+                    reg.pool, self._g_rows_dev, tokens, self._dfa_state_dev,
+                    self.config.vocab_size,
+                ))
             self._tokens_dev.copy_(tokens)
             self._positions_dev.add_(1)
             self._chunk_out[step].copy_(tokens)
@@ -1012,18 +1178,30 @@ class ServingEngine:
         emitted tokens and the accepted count — nothing rebound, no host
         sync, so the graphs capture it as they capture ``_decode_chunk``.
         Rows of the dispatch table that are not active are the sentinel, so
-        their (discarded) verify writes only into the sink page."""
+        their (discarded) verify writes only into the sink page. With the
+        agentic tier each row's adapter serves all k + 1 of its inputs,
+        position j is masked by the host-computed state ``_vstates_dev[:,
+        j]`` (``verify_states``), and the DFA state advances from the
+        state at the accepted length past the emitted token."""
         k = self.spec_tokens
+        reg = self._constrain_reg
         inputs = torch.cat([self._tokens_dev[:, None], self._drafts_dev], dim=1)  # [B, k+1]
         logits, _ = paged_verify_step_inplace(
             self.params, inputs, self._positions_dev, self._pagepool.dev, self._table_dev,
-            self.config, self.page_size,
+            self.config, self.page_size, **self._lora_kw(self._arows_dev),
         )
+        allowed = reg.pool[0][self._g_rows_dev[:, None], self._vstates_dev] if reg else None
         out, accept = speculative_verify(
             logits, self._drafts_dev, self._generator, self._temp_dev, self._top_k_dev,
-            self._top_p_dev, samples, filters,
+            self._top_p_dev, samples, filters, allowed,
         )
-        self._tokens_dev.copy_(torch.gather(out, 1, accept[:, None])[:, 0])
+        emitted = torch.gather(out, 1, accept[:, None])[:, 0]
+        if reg is not None:
+            pre = torch.gather(self._vstates_dev, 1, accept[:, None])[:, 0]
+            self._dfa_state_dev.copy_(_dfa_advance(
+                reg.pool, self._g_rows_dev, emitted, pre, self.config.vocab_size
+            ))
+        self._tokens_dev.copy_(emitted)
         self._positions_dev.add_(accept + 1)
         self._verify_out[:, : k + 1].copy_(out)
         self._verify_out[:, k + 1].copy_(accept)
@@ -1038,13 +1216,36 @@ class ServingEngine:
     def _prepare_chunk(self) -> None:
         """Host writes into the static buffers before a chunk: zero the
         temperature of slots freed since the last dispatch (and not
-        re-admitted), and copy up the masked page table when it changed."""
+        re-admitted), copy up the masked page table and the slots' adapter
+        and grammar rows when they changed."""
         stale = [i for i in set(self._freed_slots) if not self._slots[i].active]
         self._freed_slots.clear()
         for i in stale:
             self._temp_dev[i] = 0.0
         if self._paged:
             self._refresh_table(self._dispatch_tables())
+        if self._arows_dev is not None:
+            self._refresh_rows(self._adapter_rows, self._arows_dev, self._arows_uploaded)
+        if self._g_rows_dev is not None:
+            self._refresh_rows(self._g_rows, self._g_rows_dev, self._g_rows_uploaded)
+
+    def _refresh_rows(self, host: np.ndarray, dev: torch.Tensor, uploaded: np.ndarray) -> None:
+        """Copy a per-slot row array into its static buffer when it differs
+        from what the buffer holds (``uploaded``, updated in place)."""
+        if np.array_equal(host, uploaded):
+            return
+        dev.copy_(self._upload(host), non_blocking=True)
+        uploaded[:] = host
+
+    def _lora_kw(self, rows) -> dict:
+        """The adapter keywords of a model call: the pool and the rows
+        (a device tensor, or a host array uploaded here); none without
+        adapters."""
+        if self._adapters is None:
+            return {}
+        if isinstance(rows, np.ndarray):
+            rows = self._upload(rows)
+        return {"lora": self._adapters.pool, "adapter_rows": rows}
 
     def _refresh_table(self, tables: np.ndarray) -> None:
         """Copy the dispatch table into the static ``[B, Tp]`` buffer when it
@@ -1142,6 +1343,31 @@ class ServingEngine:
                     f"tenant {tenant!r} is over its token-rate quota while other tenants wait",
                     retry_after_s=max(self._tenants.quota_retry_after_s(tenant), 0.1),
                 )
+        if opts.adapter and self._adapters is None:
+            raise ValueError(
+                f"request names adapter {opts.adapter!r} but this engine has no adapter "
+                "registry (configure `adapters`)"
+            )
+        if opts.response_format and self._constrain_reg is None:
+            raise ValueError(
+                "request carries response_format but constrained decoding is off on this "
+                "engine (constrained-decoding: off, or grammar-slots 0)"
+            )
+        if opts.response_format and request._dfa is None:
+            # compiled (or a cache hit) on the submitter's thread: an
+            # unsupported schema fails here, loudly, never the engine loop
+            request._dfa = self._constrain_reg.compile(dict(opts.response_format))
+        resume = opts.grammar_resume_state
+        if request._dfa is not None and resume is not None and request._dfa.is_complete(
+            int(resume)
+        ):
+            # the derivation had already finished when its stream was cut:
+            # nothing is left to generate
+            request.dfa_state = int(resume)
+            request._finish(GenerationResult(
+                tokens=[], finish_reason="stop", prompt_tokens=n, ttft_s=0.0, total_s=0.0,
+            ))
+            return request
         deadline_s = opts.deadline_s
         if deadline_s is not None:
             # the tenant's own observed wait decides hopelessness: a victim
@@ -1274,6 +1500,7 @@ class ServingEngine:
         tenants = self._tenants.snapshot(
             queued=self._queue.depth_by_tenant(), active=active_by_tenant
         )
+        adapters, reg = self._adapters, self._constrain_reg
         with self._stats_lock:
             out = {
                 "device": str(self.device),
@@ -1376,6 +1603,19 @@ class ServingEngine:
                 ),
                 "weight-load-shards": int(self._weight_load_report.get("shards", 0)),
                 "weight-load-workers": int(self._weight_load_report.get("workers", 0)),
+                # the agentic tier (the JAX engine's keys; zeros when off)
+                "adapters": adapters is not None,
+                "adapters-registered": adapters.stats()["registered"] if adapters else 0,
+                "adapters-resident": adapters.resident if adapters else 0,
+                "adapter-pool-rows": adapters.rows - 1 if adapters else 0,
+                "adapter-swaps-total": adapters.swaps_total if adapters else 0,
+                "adapter-pool-bytes": adapters.pool_bytes if adapters else 0,
+                "constrained-decoding": reg is not None,
+                "constrained-requests-total": self.constrained_requests_total,
+                "grammars-resident": reg.resident if reg else 0,
+                "grammar-swaps-total": reg.swaps_total if reg else 0,
+                "grammar-pool-bytes": reg.pool_bytes if reg else 0,
+                "constrain-overhead-ms": round(self._constrain_host_ema_ms, 4),
             }
         if pool is not None:
             out.update({
@@ -1491,7 +1731,7 @@ class ServingEngine:
         and are served after the restart. Every device buffer is rebuilt
         and the graphs are captured again."""
         finished: list[tuple[GenerationRequest, GenerationResult]] = []
-        for slot in self._slots:
+        for i, slot in enumerate(self._slots):
             request = slot.request
             if request is not None:
                 finished.append((request, self._result(
@@ -1500,6 +1740,7 @@ class ServingEngine:
                 slot.request = None
                 slot.generated = []
                 slot.position = 0
+                self._slot_clear_agentic(i)
         for idx in list(self._longs):
             st = self._longs.pop(idx)
             finished.append((st["request"], self._result(st["request"], [], "error", error=error)))
@@ -1968,6 +2209,8 @@ class ServingEngine:
                     self._long_queue.append(request)
                     pending_counts[tenant] = pending_counts.get(tenant, 0) + 1
                     continue
+                if self._agentic and not self._resolve_agentic(request):
+                    continue  # unknown adapter / pinned-full pool: resolved
                 pairs.append((idx, request))
                 admitted_tokens += self._bucket(n)
                 pending_counts[tenant] = pending_counts.get(tenant, 0) + 1
@@ -2035,9 +2278,10 @@ class ServingEngine:
             ))
             return -1
         p, entry = 0, None
-        if index is not None:
+        if index is not None and not request.options.adapter:
             # the deepest candidate still alive (an entry evicted since the
-            # list was built has no pages)
+            # list was built has no pages); an adapter request never aliases
+            # the shared prefixes — its K/V carry its wk / wv deltas
             p, entry = next(
                 ((length, e) for length, e in reversed(index.candidates(prompt)) if e.pages),
                 (0, None),
@@ -2092,6 +2336,7 @@ class ServingEngine:
         tokens[0, : len(suffix)] = suffix
         opts = request.options
         slots = np.array([idx], np.int64)
+        agentic = self._row_agentic([request], 1)
         started = time.monotonic()
         try:
             if self._injector is not None:
@@ -2101,11 +2346,12 @@ class ServingEngine:
                 self._upload(np.array([len(suffix)], np.int64)), self._pagepool.dev,
                 self._upload(self._pagepool.tables[idx : idx + 1]), self.config,
                 self.page_size, kv_bound=p + width,
+                **self._lora_kw(agentic[0] if agentic is not None else None),
             )
             first = self._seed_chain(
                 logits, slots, np.array([len(prompt)], np.int64),
                 np.array([opts.temperature], np.float32), np.array([opts.top_k], np.int64),
-                np.array([opts.top_p], np.float32),
+                np.array([opts.top_p], np.float32), agentic,
             )
         except Exception as e:  # noqa: BLE001 — fail the request, not the engine
             if _is_sticky(e):
@@ -2123,6 +2369,7 @@ class ServingEngine:
         slot.started_at = started
         slot.first_token_at = 0.0
         slot.reset_obs("warm", 1)
+        self._slot_bind_agentic(idx, request)
         self._spec_admit(idx, prompt)
         with self._stats_lock:
             self.total_requests += 1
@@ -2146,9 +2393,10 @@ class ServingEngine:
         """Publish the prompt's deepest bucket boundary after its prefill:
         host bookkeeping only — the slot's first ``ceil(p / page_size)``
         pages join the index by a refcount bump. Skipped when reuse is
-        off, the prefix is already published, or no boundary fits."""
+        off, the prefix is already published, or no boundary fits — and for
+        an adapter slot, whose K/V carry its adapter's deltas."""
         index = self._prefix_index
-        if index is None:
+        if index is None or self._adapter_rows_auth[idx] != 0:
             return
         p = index.publish_length(len(prompt))
         if p <= 0 or index.has(prompt, p):
@@ -2180,7 +2428,10 @@ class ServingEngine:
             top_ks[j] = request.options.top_k
             top_ps[j] = request.options.top_p
             slots[j] = idx
-        first = self._dev_prefill(tokens, lengths, temps, top_ks, top_ps, slots, len(group))
+        # pad rows ride as base rows (adapter row 0, grammar row 0)
+        agentic = self._row_agentic([r for _, r in group], n)
+        first = self._dev_prefill(tokens, lengths, temps, top_ks, top_ps, slots, len(group),
+                                  agentic)
         if self._obs.on:
             self._obs.record("engine_prefill_dispatch_s", time.monotonic() - started)
         for idx, request in group:
@@ -2191,6 +2442,7 @@ class ServingEngine:
             slot.started_at = started
             slot.first_token_at = 0.0
             slot.reset_obs("cold", 1)
+            self._slot_bind_agentic(idx, request)
             self._spec_admit(idx, request.prompt_tokens)
             self._note_tenant_admitted(request)
         with self._stats_lock:
@@ -2202,10 +2454,12 @@ class ServingEngine:
                 self._maybe_publish(idx, request.prompt_tokens)
         return [("prefill", self._fetcher.submit(first), list(group), 0)]
 
-    def _dev_prefill(self, tokens, lengths, temps, top_ks, top_ps, slots, rows: int):
-        """Device layer of an admit group: local-cache prefill, the insert of
-        that cache into each real row's pages (paged) or its slot's row of
-        the big cache (dense), then the first sample and the chain seeding.
+    def _dev_prefill(self, tokens, lengths, temps, top_ks, top_ps, slots, rows: int,
+                     agentic: Optional[np.ndarray] = None):
+        """Device layer of an admit group: local-cache prefill (with each
+        row's adapter, ``agentic``: ``_row_agentic``), the insert of that
+        cache into each real row's pages (paged) or its slot's row of the
+        big cache (dense), then the first sample and the chain seeding.
         Rows from ``rows`` on are padding: they prefill and are dropped.
         The ``prefill`` fault site fires before any state changes."""
         if self._injector is not None:
@@ -2213,29 +2467,44 @@ class ServingEngine:
         dev = self.device
         n, width = tokens.shape
         local = make_kv_cache(self.config, n, width, device=dev)
-        logits, local = prefill(self.params, self._upload(tokens), self._upload(lengths), local,
-                                self.config)
+        logits, local = prefill(
+            self.params, self._upload(tokens), self._upload(lengths), local, self.config,
+            **self._lora_kw(agentic[0] if agentic is not None else None),
+        )
         if rows < n:
             local = {name: _rows(entry, rows) for name, entry in local.items()}
             logits = logits[:rows]
             slots, lengths, temps = slots[:rows], lengths[:rows], temps[:rows]
             top_ks, top_ps = top_ks[:rows], top_ps[:rows]
+            agentic = agentic[:, :rows] if agentic is not None else None
         if self._paged:
             tables = self._upload(self._pagepool.tables[slots])
             paged_insert_cache(self._pagepool.dev, local, tables, self.page_size)
         else:
             dense_insert_cache(self._cache, local, self._upload(slots))
-        return self._seed_chain(logits, slots, lengths, temps, top_ks, top_ps)
+        return self._seed_chain(logits, slots, lengths, temps, top_ks, top_ps, agentic)
 
-    def _seed_chain(self, logits, slots, lengths, temps, top_ks, top_ps) -> torch.Tensor:
+    def _seed_chain(self, logits, slots, lengths, temps, top_ks, top_ps,
+                    agentic: Optional[np.ndarray] = None) -> torch.Tensor:
         """Sample the first token of each admitted row and seed its slot's
         device decode chain in place: token, next position, sampling
-        params."""
+        params. With constrained decoding the sample is masked by each
+        row's (grammar row, initial state) — ``agentic`` rows 1 and 2 — and
+        the state past it seeds the slot's DFA state."""
         temp_t, topk_t, topp_t = self._upload(temps), self._upload(top_ks), self._upload(top_ps)
         samples = bool((temps > 0).any())
         filters = bool(((temps > 0) & ((top_ks > 0) | (top_ps < 1.0))).any())
-        first = sample(logits, self._generator, temp_t, topk_t, topp_t, samples, filters)
+        reg = self._constrain_reg
+        allowed = None
+        if reg is not None:
+            g_t, s0_t = self._upload(agentic[1]), self._upload(agentic[2])
+            allowed = _dfa_mask(reg.pool, g_t, s0_t)
+        first = sample(logits, self._generator, temp_t, topk_t, topp_t, samples, filters, allowed)
         slots_t = self._upload(slots)
+        if reg is not None:
+            self._dfa_state_dev[slots_t] = _dfa_advance(
+                reg.pool, g_t, first, s0_t, self.config.vocab_size
+            )
         self._tokens_dev[slots_t] = first
         self._positions_dev[slots_t] = self._upload(lengths)
         self._temp_dev[slots_t] = temp_t
@@ -2271,6 +2540,8 @@ class ServingEngine:
             if free is None:
                 break
             request = self._long_queue.pop(0)
+            if self._agentic and not self._resolve_agentic(request):
+                continue  # unknown adapter / pinned-full pool: resolved
             base = 0
             if self._paged:
                 # any published boundary works: paged segments write at
@@ -2339,6 +2610,8 @@ class ServingEngine:
         seg = prompt[s0 : s0 + width]
         tokens = np.zeros((1, width), np.int64)
         tokens[0, : len(seg)] = seg
+        agentic = self._row_agentic([request], 1)
+        lora = self._lora_kw(agentic[0] if agentic is not None else None)
         started = time.monotonic()
         try:
             if self._injector is not None:
@@ -2351,7 +2624,7 @@ class ServingEngine:
                 table = self._upload(self._pagepool.tables[idx : idx + 1])
                 logits, _ = paged_prefill_segment_inplace(
                     self.params, self._upload(tokens), offsets, seg_len, self._pagepool.dev,
-                    table, self.config, self.page_size, kv_bound=s0 + width,
+                    table, self.config, self.page_size, kv_bound=s0 + width, **lora,
                 )
             else:
                 t_long = self._long_width(len(prompt))
@@ -2359,7 +2632,7 @@ class ServingEngine:
                     st["cache"] = make_kv_cache(self.config, 1, t_long + 1, device=dev)
                 logits, _ = prefill_segment(
                     self.params, self._upload(tokens), offsets, seg_len, st["cache"],
-                    self.config, kv_bound=min(s0 + width, t_long),
+                    self.config, kv_bound=min(s0 + width, t_long), **lora,
                 )
         except Exception as e:  # noqa: BLE001 — fail the stream, not the engine
             if _is_sticky(e):
@@ -2383,7 +2656,7 @@ class ServingEngine:
         first = self._seed_chain(
             logits, slots, np.array([len(prompt)], np.int64),
             np.array([opts.temperature], np.float32), np.array([opts.top_k], np.int64),
-            np.array([opts.top_p], np.float32),
+            np.array([opts.top_p], np.float32), agentic,
         )
         slot = self._slots[idx]
         slot.request = request
@@ -2392,6 +2665,7 @@ class ServingEngine:
         slot.started_at = time.monotonic()
         slot.first_token_at = 0.0
         slot.reset_obs("long", st["seg"])
+        self._slot_bind_agentic(idx, request)
         self._spec_admit(idx, prompt)
         with self._stats_lock:
             self.total_requests += 1
@@ -2466,8 +2740,9 @@ class ServingEngine:
         still in flight ahead of it) decide how its step time is read."""
         if self._paged:
             self._page_integrity_check()
-            if not any(s.active for s in self._slots):
-                return None
+        self._adapter_integrity_check()
+        if not any(s.active for s in self._slots):
+            return None
         if self._injector is not None:
             self._injector.fire("decode")
         steps = self.decode_chunk
@@ -2485,12 +2760,13 @@ class ServingEngine:
         return ("chunk", self._fetcher.submit(self._chunk_out), snapshot, steps, t_dispatch,
                 clean, pipelined)
 
-    def _propose_drafts(self) -> np.ndarray:
+    def _propose_drafts(self) -> tuple[np.ndarray, np.ndarray]:
         """Up to k drafts per active slot from its n-gram index, counted
         (lookups, hits, draft tokens) and copied into the static ``[B, k]``
         buffer in place (pinned, asynchronous; zeros where a slot has no
-        proposal) → each slot's proposal length. Brownout level 1 proposes
-        half as many: drafts are data, so the buffer keeps its shape."""
+        proposal) → (the drafts, each slot's proposal length). Brownout
+        level 1 proposes half as many: drafts are data, so the buffer keeps
+        its shape."""
         k = self.spec_tokens
         k_prop = self._brownout.draft_k(k) if self._brownout is not None else k
         drafts = np.zeros((self.max_batch, k), np.int64)
@@ -2512,7 +2788,21 @@ class ServingEngine:
             self.spec_draft_hits_total += hits
             self.spec_draft_tokens_total += tokens
         self._drafts_dev.copy_(self._upload(drafts), non_blocking=True)
-        return proposed
+        return drafts, proposed
+
+    def _upload_verify_states(self, drafts: np.ndarray) -> None:
+        """Each constrained slot's DFA state at every verify position, from
+        its host mirror (current: the host drained every fetch before the
+        drafts were proposed) over its drafts (``verify_states``), copied
+        into the static ``[B, k + 1]`` buffer; other rows ride state 0."""
+        t0 = time.monotonic()
+        vstates = np.zeros(self._vstates_dev.shape, np.int64)
+        for i, slot in enumerate(self._slots):
+            dfa = self._slot_dfa.get(i)
+            if slot.active and dfa is not None:
+                vstates[i] = verify_states(dfa, self._dfa_host_state.get(i, 0), drafts[i])
+        self._note_constrain_host((time.monotonic() - t0) * 1e3)
+        self._vstates_dev.copy_(self._upload(vstates), non_blocking=True)
 
     def _dispatch_verify(self, clean: bool = False) -> Optional[tuple]:
         """Queue one speculative verify: the page-table integrity check, up
@@ -2524,9 +2814,12 @@ class ServingEngine:
         packed ``[B, k + 2]`` output goes to the fetch thread right behind
         it. None when the integrity check quarantined every active slot."""
         self._page_integrity_check()
+        self._adapter_integrity_check()
         if not any(s.active for s in self._slots):
             return None
-        proposed = self._propose_drafts()
+        drafts, proposed = self._propose_drafts()
+        if self._vstates_dev is not None:
+            self._upload_verify_states(drafts)
         if self._injector is not None:
             self._injector.fire("decode")
         branch = self._branch()
@@ -2707,6 +3000,27 @@ class ServingEngine:
         if index is not None:
             # the next verify's drafts continue from the delivered token
             index.append(token)
+        finished = None
+        dfa = self._slot_dfa.get(idx)
+        if dfa is not None:
+            # the host half of constrained decoding: the device's advance
+            # mirrored per delivered token (same table, so in lockstep);
+            # a complete grammar finishes the request, and what the sink's
+            # self-loop generated after it is dropped by the snapshot check
+            state = self._dfa_host_state.get(idx, 0)
+            nxt = dfa.advance(state, token)
+            if nxt < 0:
+                # unreachable while host and device share the table: off-
+                # grammar output fails loudly, it never streams on
+                self._finish_slot(idx, "error", error=RuntimeError(
+                    f"constrained decode diverged at slot {idx}: token {token} is illegal "
+                    f"in DFA state {state}"
+                ))
+                return
+            self._dfa_host_state[idx] = nxt
+            request.dfa_state = nxt  # before on_token: a callback reads the token's state
+            if dfa.is_complete(nxt):
+                finished = "stop"
         with self._stats_lock:
             self.total_generated += 1
         self._tenants.note_generated(_tenant(request))
@@ -2716,15 +3030,167 @@ class ServingEngine:
             except Exception:  # noqa: BLE001 — a stream consumer must not kill the loop
                 log.exception("on_token callback failed")
         # max_cost_tokens (prompt + generated) caps the length too
-        if (
+        if finished is None and (
             len(slot.generated) >= effective_max_new_tokens(opts, len(request.prompt_tokens))
             or slot.position >= self.max_seq_len - 1
         ):
-            self._finish_slot(idx, "length")
+            finished = "length"
+        if finished is not None:
+            self._finish_slot(idx, finished)
 
     def _note_tenant_admitted(self, request: GenerationRequest) -> None:
         """An admission bills its prompt's prefill tokens to its tenant."""
         self._tenants.note_admitted(_tenant(request), len(request.prompt_tokens))
+
+    # -- the agentic tier ------------------------------------------------------
+
+    def _resolve_agentic(self, request: GenerationRequest) -> bool:
+        """Resolve a request's adapter name and grammar to their pool rows,
+        refcounting both (a swap-in is enqueued on this thread's stream);
+        idempotent, so a page-deferred retry resolves nothing again. A
+        failure fails the request, never the engine: an unknown adapter
+        with its KeyError; a pool pinned full by active requests
+        (``AdapterPoolExhausted``, every grammar row pinned) sheds it with a
+        retry-after; a resume state outside the grammar is a ValueError.
+        Installs the finalize hook that releases both rows once, however
+        the request ends."""
+        if request._agentic_rows is not None:
+            return True
+        opts = request.options
+        name = opts.adapter
+        arow, grow = 0, 0
+        try:
+            if name:
+                arow = self._adapters.acquire(name)
+            if request._dfa is not None:
+                t0 = time.monotonic()
+                try:
+                    grow = self._constrain_reg.acquire(request._dfa)
+                except Exception:
+                    if name:
+                        self._adapters.release(name)
+                    raise
+                self._note_constrain_host((time.monotonic() - t0) * 1e3)
+                with self._stats_lock:
+                    self.constrained_requests_total += 1
+        except Exception as e:  # noqa: BLE001 — fail the request, not the loop
+            log.warning("agentic resolution failed: %s", e)
+            if isinstance(e, AdapterPoolExhausted) or (
+                request._dfa is not None and "pinned" in str(e)
+            ):
+                # every row pinned by active requests: a transient
+                # saturation, shed with a retry-after
+                self._count_shed(_tenant(request))
+                e = ShedError(str(e), retry_after_s=max(self._queue_wait_ema_s, 0.25))
+            request._finish(self._result(request, [], "error", error=e))
+            return False
+        state0 = 0
+        if request._dfa is not None and opts.grammar_resume_state is not None:
+            state0 = int(opts.grammar_resume_state)
+            if not 0 <= state0 < request._dfa.n_states:
+                # the carried state indexes another grammar: continuing
+                # would emit off-grammar output dressed as valid
+                if name:
+                    self._adapters.release(name)
+                self._constrain_reg.release(request._dfa)
+                request._finish(self._result(request, [], "error", error=ValueError(
+                    f"grammar-resume-state {state0} is out of range for this grammar "
+                    f"({request._dfa.n_states} states) — the resumed stream's grammar "
+                    "does not match"
+                )))
+                return False
+        request._agentic_rows = (arow, grow, state0)
+
+        def release() -> None:
+            if name:
+                self._adapters.release(name)
+            if request._dfa is not None:
+                self._constrain_reg.release(request._dfa)
+
+        request._finalize = release
+        return True
+
+    def _row_agentic(self, requests: list, n: int) -> Optional[np.ndarray]:
+        """Per-row (adapter row, grammar row, initial DFA state) of an
+        admission of ``n`` rows as a ``[3, n]`` array (row j serves
+        ``requests[j]``; pad rows are base rows at state 0); None with the
+        tier off."""
+        if not self._agentic:
+            return None
+        out = np.zeros((3, n), np.int64)
+        for j, request in enumerate(requests[:n]):
+            out[:, j] = request._agentic_rows or (0, 0, 0)
+        return out
+
+    def _slot_bind_agentic(self, idx: int, request: GenerationRequest) -> None:
+        """Copy the request's resolved rows into the slot's host state when
+        the slot activates; the device buffers follow at the next
+        dispatch."""
+        arow, grow, state0 = request._agentic_rows or (0, 0, 0)
+        self._adapter_rows[idx] = arow
+        self._adapter_rows_auth[idx] = arow
+        self._g_rows[idx] = grow
+        if request._dfa is not None:
+            # a resumed derivation starts at its carried state: the
+            # admission seeded the device state from the same one
+            self._slot_dfa[idx] = request._dfa
+            self._dfa_host_state[idx] = state0
+            request.dfa_state = state0
+
+    def _slot_clear_agentic(self, idx: int) -> None:
+        self._adapter_rows[idx] = 0
+        self._adapter_rows_auth[idx] = 0
+        self._g_rows[idx] = 0
+        self._slot_dfa.pop(idx, None)
+        self._dfa_host_state.pop(idx, None)
+
+    def _note_constrain_host(self, ms: float) -> None:
+        """EMA of the host's constrained-decoding work (grammar swap-ins,
+        verify state tables): ``constrain-overhead-ms``."""
+        self._constrain_host_ema_ms = (
+            ms if self._constrain_host_ema_ms == 0
+            else 0.9 * self._constrain_host_ema_ms + 0.1 * ms
+        )
+
+    def _adapter_integrity_check(self) -> None:
+        """Hold every active slot's dispatch-facing adapter row against the
+        authoritative copy before a decode or verify dispatch (the
+        ``adapter`` fault site's detection path: a corrupted row would serve
+        a slot with another tenant's weights). A mismatch quarantines only
+        that slot: its row is restored, its KV reset, its request failed,
+        and an ``adapter-quarantine`` flight dump is left."""
+        if self._adapters is None:
+            return
+        if self._injector is not None:
+            snapshot = [(i, s.request) for i, s in enumerate(self._slots) if s.active]
+            self._injector.corrupt_adapter_rows(self._adapter_rows, snapshot)
+        for i, slot in enumerate(self._slots):
+            if not slot.active or self._adapter_rows[i] == self._adapter_rows_auth[i]:
+                continue
+            with self._stats_lock:
+                self.quarantined_slots_total += 1
+            self._adapter_rows[i] = self._adapter_rows_auth[i]
+            if self._paged:
+                self._quarantine_pages(i)
+            else:
+                self._pending_row_resets.append(i)
+            self._flight_dump("adapter-quarantine", extra={"slot": i})
+            self._finish_slot(i, "error", error=RuntimeError(
+                f"adapter-row corruption detected for slot {i}; slot quarantined"
+            ))
+
+    def adapter_advertisement(self) -> tuple[str, ...]:
+        """Resident adapter names (never weights), for a router's adapter
+        affinity."""
+        return self._adapters.advertised() if self._adapters is not None else ()
+
+    def register_adapter(self, spec) -> None:
+        """Register an adapter at run time (host work; it becomes resident
+        at its first request). Call while the engine serves only other
+        adapters' traffic, or quiesce first."""
+        if self._adapters is None:
+            raise RuntimeError("this engine has no adapter registry")
+        self._adapters.register(spec)
 
     def _result(
         self, request: GenerationRequest, tokens: list[int], reason: str,
@@ -2769,6 +3235,7 @@ class ServingEngine:
         slot.position = 0
         slot.last_token_at = 0.0
         self._spec_index.pop(idx, None)
+        self._slot_clear_agentic(idx)
         self._freed_slots.append(idx)
         if self._paged:
             self._pagepool.free_slot(idx)
@@ -2802,6 +3269,7 @@ class ServingEngine:
                 slot.request = None
                 slot.generated = []
                 slot.position = 0
+                self._slot_clear_agentic(i)
                 if self._paged:
                     self._pagepool.free_slot(i)
         while True:

@@ -34,8 +34,11 @@ Sites the port's engine consults:
             synthetic low-priority admissions under the "chaos-burst"
             tenant (the noisy-neighbor drill's aggressor); a full queue or
             queue share sheds them against that tenant
+  adapter   bump one active slot's entry in the engine's dispatch-facing
+            adapter-row array, leaving the authoritative copy intact: the
+            pre-dispatch integrity check must quarantine that slot alone
 
-The other sites of the grammar (adapter, spill, the durable disk sites,
+The other sites of the grammar (spill, the durable disk sites,
 the fleet-wire net sites, migrate and the SPMD sites) are accepted so a
 spec written for the JAX package parses, but no part of the port consults
 them until their tiers are ported.
@@ -236,6 +239,18 @@ class FaultInjector:
         packed[victim, 0] = NAN_SENTINEL
         packed[victim, -1] = 0
         return packed
+
+    def corrupt_adapter_rows(self, rows, snapshot):
+        """``adapter`` site: bump one active slot's entry of the engine's
+        dispatch-facing adapter-row array ``rows`` (host numpy), leaving the
+        authoritative copy intact — the host-corruption drill for the
+        multi-LoRA gather index. Returns the victim slot or None."""
+        if not snapshot or not self.fires("adapter"):
+            return None
+        with self._lock:
+            victim = snapshot[self._rng.randrange(len(snapshot))][0]
+            rows[victim] = rows[victim] + 1  # any mismatch will do
+        return victim
 
     def corrupt_page_table(self, pool, snapshot):
         """``page`` site: point one active slot's first page-table entry in

@@ -9,8 +9,9 @@ cache with its sink column; the admission group's local cache; on the
 dense layout the chunked-prefill streams' local caches; with speculation
 the verify chunk's logits; the captured graphs' pool, one term per graph
 set ``start()`` captures (the decode chunk, the verify, or both); with
-int8 weights the eager path's widened weights; and a flat workspace
-allowance (activations, cuBLAS workspace). The streamed weight load's
+int8 weights the eager path's widened weights; the agentic tier's two
+pools (the multi-LoRA adapter pool, the packed grammar pool); and a flat
+workspace allowance (activations, cuBLAS workspace). The streamed weight load's
 host staging peak is host RAM and stays outside the device total.
 
 int8 weights are widened to the model dtype at every matmul
@@ -27,8 +28,8 @@ The JAX plan's XLA-only terms have no counterpart here: the port has no
 dense cache at full width, the kernels read each row to its length), so
 there is no ``bound_slice_bytes``; and the layer loop updates the cache in
 place, so there is no ``scan_buffer_bytes``. The prefix pool of the dense
-layout, the host KV tier, adapters, grammars, migration and the durable
-tier are not ported, so neither are their terms.
+layout, the host KV tier, migration and the durable tier are not ported,
+so neither are their terms.
 
 ``max_context_single_chip`` inverts the plan to the largest power-of-two
 context a device budget serves. The engine logs its plan when it is built.
@@ -86,6 +87,14 @@ class ServingMemoryPlan:
     # int8 weights: the eager admissions' widened weights, held by the
     # caching allocator outside the graph pool
     eager_widened_bytes: int = 0
+    # the multi-LoRA adapter pool (serving/adapters.py): rows x per-row
+    # factor bytes + the f32 scales, for the engine's lifetime; 0 without
+    # adapters
+    adapter_pool_bytes: int = 0
+    # the packed grammar pool (serving/constrain.py): bits [G+1, S,
+    # ceil(V/32)] + defaults [G+1, S] + exception key / next [G+1, E],
+    # int32; 0 with constrained decoding off
+    grammar_pool_bytes: int = 0
 
     @property
     def total_bytes(self) -> int:
@@ -99,6 +108,8 @@ class ServingMemoryPlan:
             + self.verify_chunk_bytes
             + self.graph_pool_bytes
             + self.eager_widened_bytes
+            + self.adapter_pool_bytes
+            + self.grammar_pool_bytes
         )
 
     def fits(self, device_bytes: int) -> bool:
@@ -118,8 +129,14 @@ class ServingMemoryPlan:
             if self.weight_load_staging_bytes
             else ""
         )
+        agentic = "".join(
+            f"{name} {n / gib:.2f}GiB + "
+            for name, n in (("adapter-pool", self.adapter_pool_bytes),
+                            ("grammar-pool", self.grammar_pool_bytes))
+            if n
+        )
         return (
-            f"weights {self.weights_bytes / gib:.2f}GiB + {kv} + "
+            f"weights {self.weights_bytes / gib:.2f}GiB + {kv} + {agentic}"
             f"fused-prefill {self.fused_prefill_bytes / gib:.2f}GiB + "
             f"verify-chunk {self.verify_chunk_bytes / gib:.2f}GiB + "
             f"graph-pool ({'+'.join(self.graph_sets) or 'none'}) "
@@ -149,6 +166,11 @@ def plan_serving_memory(
     page_fraction: float = 0.0,
     weight_load_staging: int = 0,
     graph_sets: tuple[str, ...] = (),
+    adapter_pool_rows: int = 0,
+    adapter_rank: int = 0,
+    grammar_slots: int = 0,
+    grammar_states: int = 0,
+    grammar_exceptions: int = 65536,
 ) -> ServingMemoryPlan:
     """Account a ServingEngine's device memory from tensor shapes; nothing
     is allocated.
@@ -168,6 +190,10 @@ def plan_serving_memory(
     captured, as on the CPU), one graph-pool term each; int8 weights (a
     quantized ``params`` tree, or ``quantized_weights``) add the widened
     weights to each set and once to the eager path.
+    ``adapter_pool_rows`` / ``adapter_rank``: the adapter pool's shape (0
+    omits the term); ``grammar_slots`` / ``grammar_states`` /
+    ``grammar_exceptions``: the grammar pool's (``grammar_slots`` 0 omits
+    it).
     """
     from langstream_tpu_torch.models.loader import expected_params
     from langstream_tpu_torch.models.transformer import make_kv_cache, make_page_pool
@@ -193,8 +219,18 @@ def plan_serving_memory(
         "verify": max(0, logit_bytes * max_batch * (speculation_tokens + 1) - verify) + widened,
     }
     graph_pool = sum(per_set[k] for k in graph_sets)
-    extra = dict(graph_pool_bytes=graph_pool, graph_sets=tuple(graph_sets),
-                 eager_widened_bytes=widened)
+    from langstream_tpu_torch.serving.adapters import lora_pool_bytes
+    from langstream_tpu_torch.serving.constrain import grammar_pool_bytes
+
+    extra = dict(
+        graph_pool_bytes=graph_pool, graph_sets=tuple(graph_sets), eager_widened_bytes=widened,
+        adapter_pool_bytes=lora_pool_bytes(config, adapter_pool_rows, adapter_rank),
+        grammar_pool_bytes=(
+            grammar_pool_bytes(grammar_slots, grammar_states, config.vocab_size,
+                               grammar_exceptions)
+            if grammar_states > 0 else 0
+        ),
+    )
     staging = max(0, int(weight_load_staging))
     if kv_layout == "paged":
         from langstream_tpu_torch.serving.pagepool import pages_for_fraction

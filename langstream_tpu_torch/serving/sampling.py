@@ -22,6 +22,13 @@ same way: greedy rows accept the longest draft prefix that matches the
 argmax chain (exact), sampled rows run lossless rejection sampling against
 the point-mass draft (uniforms from the same generator for the accept
 tests, gumbel-max for the corrections), so it too can sit inside a graph.
+
+Both take a grammar mask (``allowed``, constrained decoding): the packed
+legality bitmask of ``serving/constrain.py`` — int32 words holding the JAX
+package's uint32 bit pattern, expanded on the device by
+``_expand_allowed`` — or a ``[..., V]`` bool mask. Illegal tokens drop to
+-inf after the NaN guard's finite check and before the argmax and the
+filters.
 """
 
 from __future__ import annotations
@@ -37,6 +44,20 @@ def _greedy_argmax(logits: torch.Tensor) -> torch.Tensor:
     package's two-stage form (a TPU lane-layout device, padding ragged
     vocabs with -inf) is one call here; an all -inf row resolves to 0."""
     return torch.argmax(logits, dim=-1)
+
+
+def _expand_allowed(allowed: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Grammar mask → ``[..., V]`` bool. A packed ``[..., ceil(V/32)]``
+    int32 bitmask (token t → bit t % 32 of word t // 32, LSB first) is
+    expanded with one shift and AND: an arithmetic shift sign-extends, but
+    ``& 1`` reads only bit 0, so the bits are the uint32 pattern's. A bool
+    mask passes through."""
+    if allowed.dtype == torch.bool:
+        return allowed
+    shifts = torch.arange(32, dtype=allowed.dtype, device=allowed.device)
+    bits = (allowed[..., None] >> shifts) & 1  # [..., W, 32]
+    flat = bits.reshape(*allowed.shape[:-1], allowed.shape[-1] * 32)
+    return flat[..., :vocab].bool()
 
 
 def _apply_filters(s: torch.Tensor, top_k: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
@@ -66,16 +87,23 @@ def sample(
     top_p: torch.Tensor,  # [B] f32, 1.0 = disabled
     any_sample: Optional[bool] = None,
     any_filter: Optional[bool] = None,
+    allowed: Optional[torch.Tensor] = None,  # [B, W] packed int32 / [B, V] bool
 ) -> torch.Tensor:
     """Sampled token ids [B] (int64). Temperature 0 → greedy for that row.
 
     NaN guard: a row whose logits hold any non-finite value returns the
     sentinel ``-1`` instead of a token; the engine fails that request.
+    ``allowed`` masks illegal tokens to -inf AFTER that check (a grammar's
+    own -inf columns are not a fault) and before the argmax and the
+    filters; the DFA's no-dead-end invariant leaves every row a legal
+    token.
 
     ``any_sample`` / ``any_filter``: whether some row samples (temperature
     > 0) and whether some sampling row filters (top-k / top-p). None reads
     them off the tensors, which syncs with the device."""
     finite = torch.isfinite(logits).all(dim=-1)
+    if allowed is not None:
+        logits = logits.masked_fill(~_expand_allowed(allowed, logits.shape[-1]), float("-inf"))
     greedy = _greedy_argmax(logits)
     if any_sample is None:
         any_sample = bool((temperature > 0.0).any())
@@ -104,6 +132,7 @@ def speculative_verify(
     top_p: torch.Tensor,  # [B] f32, 1.0 = disabled
     any_sample: Optional[bool] = None,
     any_filter: Optional[bool] = None,
+    allowed: Optional[torch.Tensor] = None,  # [B, K+1, W] packed int32 / [B, K+1, V] bool
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched draft verification → ``(out [B, K+1], accept [B])`` (int64).
 
@@ -128,12 +157,20 @@ def speculative_verify(
     NaN guard (as ``sample``): a row with any non-finite value among its
     K+1 positions emits ``-1`` with accept 0.
 
+    ``allowed``: position j's grammar mask, from the DFA state after drafts
+    0..j-1 (``constrain.verify_states``), applied after the finite check as
+    in ``sample``: an illegal draft's -inf logit never matches the argmax
+    and has p(d) = 0, so it is rejected exactly where masked decode would
+    have emitted something else.
+
     ``any_sample`` / ``any_filter``: the host predicates ``sample`` takes;
     None reads them off the tensors, which syncs with the device."""
     b, k1, v = logits.shape
     k = k1 - 1
     drafts = drafts.long()
     finite = torch.isfinite(logits.reshape(b, -1)).all(dim=-1)  # [B]
+    if allowed is not None:
+        logits = logits.masked_fill(~_expand_allowed(allowed, v), float("-inf"))
     greedy = _greedy_argmax(logits)  # [B, K+1]
     acc = drafts == greedy[:, :k]  # [B, K]
     corr = greedy

@@ -130,14 +130,16 @@ def test_completions_service_refuses_what_it_cannot_serve():
                                  "kv-cache-quantization": "int4"})
     # the JAX provider's keys whose tiers are not ported, and an admit
     # group size the port's MoE padding cannot take
-    for key, value in (("adapters", [{"name": "a"}]), ("constrained-decoding", "auto"),
-                       ("grammar-states", 64), ("mesh", {"model": 2}), ("durable", "auto"),
+    for key, value in (("mesh", {"model": 2}), ("durable", "auto"),
                        ("fleet", "auto"), ("disagg", True), ("cancel-key", "k"),
                        ("prefill-batch", 16)):
         with pytest.raises(NotImplementedError):
             TorchCompletionsService({"model": "tiny-test", "device": "cpu", key: value})
     with pytest.raises(ValueError, match="brownout"):
         TorchCompletionsService({"model": "tiny-test", "device": "cpu", "brownout": "maybe"})
+    with pytest.raises(ValueError, match="constrained-decoding"):
+        TorchCompletionsService({"model": "tiny-test", "device": "cpu",
+                                 "constrained-decoding": "maybe"})
 
 
 def test_completions_service_default_max_seq_len():

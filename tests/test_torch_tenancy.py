@@ -299,11 +299,28 @@ def test_generation_options_tenancy_fields_match_jax():
 
 @pytest.mark.parametrize("option", [
     {"response-format": {"type": "json_object"}}, {"response_format": {"type": "json"}},
-    {"grammar-resume-state": 3}, {"adapter": "support-bot"},
+    {"grammar-resume-state": 3, "response-format": {"type": "regex", "regex": "ab"}},
+    {"adapter": "support-bot"},
 ])
 def test_refused_request_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
-        GenerationOptions.from_dict(option)
+    """The agentic options parse as the JAX package parses them, and an
+    engine that cannot serve one refuses it as the JAX engine does: an
+    unsupported response format at submit (GrammarError), a resume state
+    outside its grammar's 3 states at admission, an adapter on an engine
+    without adapters at submit."""
+    ours, ref = GenerationOptions.from_dict(option), JaxOptions.from_dict(option)
+    assert (ours.response_format, ours.grammar_resume_state, ours.adapter) == (
+        ref.response_format, ref.grammar_resume_state, ref.adapter)
+    match = ("out of range" if ours.grammar_resume_state is not None
+             else "no adapter registry" if ours.adapter
+             else "unsupported response_format type")
+    engine = port_engine(max_batch=1)
+    engine.start()
+    try:
+        with pytest.raises(ValueError, match=match):
+            engine.generate([5, 6], dataclasses.replace(ours, max_new_tokens=2), timeout=WAIT)
+    finally:
+        engine.stop()
 
 
 # -- the engine against JAX's ---------------------------------------------------
@@ -613,9 +630,7 @@ def test_provider_passes_the_tenancy_and_sizing_keys():
 
 
 @pytest.mark.parametrize("key, value, item", [
-    ("adapters", [{"name": "a", "path": "/a"}], 2), ("adapter-rank", 8, 2),
-    ("adapter-pool-fraction", 0.2, 2), ("constrained-decoding", "auto", 2),
-    ("grammar-slots", 64, 2), ("mesh", {"model": 2}, 7), ("durable", "auto", 5),
+    ("mesh", {"model": 2}, 7), ("durable", "auto", 5),
     ("durable-dir", "/d", 5), ("fleet", "auto", 6), ("fleet-replicas", ["h:1"], 6),
     ("fleet-role", "prefill", 6), ("disagg", True, 6), ("cancel-key", "x", 6),
     ("prefill-batch", 4, None),
@@ -629,12 +644,15 @@ def test_provider_refuses_what_it_cannot_serve_yet(key, value, item):
 
 
 def test_provider_refuses_refused_request_options():
+    """A response format the grammar compiler does not support fails the
+    completion with GrammarError (the JAX provider's refusal)."""
     from langstream_tpu_torch.ai.provider import ChatMessage
     from langstream_tpu_torch.ai.torch_serving import TorchCompletionsService
+    from langstream_tpu_torch.serving.constrain import GrammarError
 
     svc = TorchCompletionsService(BASE)
     try:
-        with pytest.raises(NotImplementedError, match="response-format"):
+        with pytest.raises(GrammarError, match="unsupported response_format type"):
             asyncio.run(svc.get_chat_completions(
                 [ChatMessage(role="user", content="hi")],
                 {"max-tokens": 2, "response-format": {"type": "json_object"}},
