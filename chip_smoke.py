@@ -41,7 +41,13 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    and bound share, and the segment rows their grid and the K/V bytes it
    streams from L2. Dense decode is also timed against the
    masked read the JAX package takes there under ``auto`` (the port's
-   reference ``attention`` over the bounded view).
+   reference ``attention`` over the bounded view), and run at the dense
+   verify's flattened shape: 8 cache rows x 5 queries (``queries_per_row``
+   5) ~400 tokens in and one row at 2045, through a [..., :2048] view of a
+   T 8192 cache, bf16 and int8 — its planted faults include the row map
+   off by one (query row q reading cache row q / 5 + 1), NaN past every
+   row's longest query leaves it bit-equal, and it is timed beside the 8
+   first queries at qpr 1 and SDPA with a per-query length mask.
 3. ``e2e``     — the port's ``ServingEngine`` serving llama-3-8b at full
    width and depth (32 layers, bf16, random weights from ``--seed``) on the
    paged layout: 8 requests of 21..1501 byte tokens, greedy, 64 new tokens
@@ -180,7 +186,40 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    top kernels), the capture's parts and the graph pool of each. Prints
    each grammar's compile seconds (the first includes the 128256-entry
    token byte table) and the swaps' host seconds.
-13. ``load``    — serve a safetensors checkpoint: llama-3-8b at full width
+13. ``embed``   — RAG on the card through ``TorchServingProvider``
+   (llama-3-8b drawn by the provider from ``--seed``, bf16; later phases
+   serve the same tree): 32 byte-tokenized texts of 16..512 tokens (one
+   of them twice) embedded by its embeddings service — wall and device ms
+   a call and the peak growth, each vector within ``EMBED_TOL`` (L2) of an
+   f32 ``encode`` on the card (weights widened a layer at a time), unit
+   norms, the duplicate's vectors equal; one layer's attention of the
+   port beside SDPA with a key-padding mask (a yardstick). Then the
+   ``local-vector`` store on the card: 262,144 seeded rows of 4096 f32
+   plus the 32 embeddings, 64 queries (the embeddings and 32 seeded) at
+   top-k 5 and 64, each list held to a numpy f64 reference's (neighbours
+   within ``VECTOR_TIE`` may swap), each text ranking its own row first,
+   device and wall ms a query beside the byte bound of one read of the
+   rows. Then one batch embedded again and again on another thread while
+   the provider's engine is built, captures its graphs and serves the
+   ``e2e`` requests (one wave): every such batch within
+   ``EMBED_CONCURRENT_TOL`` of the idle one, the tokens equal to the same
+   wave served after.
+14. ``dense_tiers`` — the rest of the dense layout at llama-3-8b's full
+   width and depth (max_seq_len 8192): the ``spec`` traffic with
+   speculation on and off (acceptance, the verify step's device / wall ms
+   against the decode step's from back-to-back replays, dense decode
+   launches exactly layers x verifies, replays = verifies, tokens on vs
+   off equal or one-ulp ties); the verify's kernel path against its
+   reference path on one cache (5%, top-1 equal but for one-ulp ties);
+   two requests with a JSON-schema response format served with
+   speculation, each in its grammar; brownout pinned at level 2 with both graph sets captured
+   (decode chunks only, tokens as speculation off's or ties); then the
+   ``prefix`` traffic with reuse on and off, bf16 and int8 KV: 8 warm
+   admissions of one suffix segment a layer, 8 x 1024 prefill tokens
+   saved, the pool as allocated equal to the plan's term, warm TTFT
+   beside cold, warm first-token logits within 5% of the cold ones,
+   top-1 equal.
+15. ``load``    — serve a safetensors checkpoint: llama-3-8b at full width
    and depth (the seeded tree, bf16, 16.06 GB) written by ``save_params_hf``
    as 4 shards of at most 5 GB under ``build/ckpt/`` (with under 17 GiB
    free there, the 4-layer ``llama-3-8b-shallow``, said in the output),
@@ -207,7 +246,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    ``fault-injection: weight-load@1`` through the provider must leave no
    engine and no params, the injector fired once. The checkpoint is
    deleted and both trees freed before ``moe``.
-14. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
+16. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
    experts, top-2) with int8 weights drawn on the card (46.9 GB; the
    llama weights are dropped first), paged bf16 KV, max_seq_len 4096: 9
    requests of 21..3001 tokens, 32 new each (the 3001-token prompt takes 2
@@ -216,7 +255,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    reference path (a 200-token prompt, 4 paged decode steps) and one
    layer's ``moe_ffn`` timed at decode (8 tokens) and at a 2048-token
    segment beside its weight-byte bound.
-15. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+17. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
    and int8 page pools and the bf16 dense cache (8192 wide), traced with
    torch.profiler: the device's busy share of the wall and the top
    kernels (no split-K decode kernel may appear).
@@ -250,8 +289,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
-          "prefix", "spec", "tenancy", "agentic", "load", "moe", "profile")
-DEFAULT_PHASES = PHASES[:14]
+          "prefix", "spec", "tenancy", "agentic", "embed", "dense_tiers", "load", "moe",
+          "profile")
+DEFAULT_PHASES = PHASES[:16]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -1001,6 +1041,126 @@ def _dense_decode_case(torch, ctx, timer, int8: bool, lengths_list: tuple, view:
     return rec
 
 
+def _rows_shifted(entry):
+    """A copy of a dense cache entry (tensor, or int8 dict) whose row r
+    holds row r + 1 (the last row wraps to row 0): the cache a flattened
+    verify reads when query row q takes cache row q / qpr + 1."""
+    if isinstance(entry, dict):
+        return {n: a.roll(-1, 0) for n, a in entry.items()}
+    return entry.roll(-1, 0)
+
+
+def _dense_verify_case(torch, ctx, timer, int8: bool) -> dict:
+    """The dense decode kernel at the dense verify's flattened shape: 8
+    cache rows of k + 1 = 5 queries (``queries_per_row`` 5, 40 query rows),
+    seven rows ~400 tokens in and one at 2045, through a [..., :2048] view
+    of a T 8192 cache (the last row's last two lengths capped at the
+    view). Held against the plain version at the decode tolerance, which
+    must reject planted faults: every length one long (a rejected draft's
+    column), one short, the row map off by one (query row q reading cache
+    row q / 5 + 1), a zeroed V tile of the long row (int8: a stale scale
+    tile too). NaN past every row's longest length leaves the output
+    bit-equal. Timed beside the 8 rows' first queries alone at qpr 1 (the
+    decode step's launch at these lengths) and SDPA over the same queries
+    with a per-query length mask."""
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.models.transformer import dense_verify_queries
+    from langstream_tpu_torch.ops.attention import (
+        decode_launch_plan,
+        ragged_decode_attention,
+        ragged_decode_attention_int8,
+        ragged_decode_reference,
+    )
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    s = SPEC_KW["speculation_tokens"] + 1
+    rng = random.Random(ctx["seed"] + 300 + int8)
+    positions = [SPEC_PROMPT - 1 + rng.randrange(64) for _ in range(7)] + [DENSE_VIEW - 3]
+    b = len(positions)
+    lengths = dense_verify_queries(torch.tensor(positions, device="cuda"), s, DENSE_VIEW)
+    if lengths[-2:].tolist() != [DENSE_VIEW] * 2:
+        raise AssertionError(f"dense verify lengths not capped at the view: {lengths.tolist()}")
+    g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 301 + int8)
+    q = torch.randn((b * s, H, D), generator=g, device="cuda").to(torch.bfloat16)
+    full_k, full_v = (_dense_cache(torch, g, b, DENSE_T, int8) for _ in range(2))
+
+    def view(entry):
+        if isinstance(entry, dict):
+            return {n: a[:, :, :DENSE_VIEW] for n, a in entry.items()}
+        return entry[:, :, :DENSE_VIEW]
+
+    k, v = view(full_k), view(full_v)
+    kernel = ragged_decode_attention_int8 if int8 else ragged_decode_attention
+    name = "dense_decode_int8" if int8 else "dense_decode"
+    out = kernel(q, k, v, lengths, cfg, queries_per_row=s)
+    ref = ragged_decode_reference(q, k, v, lengths, cfg, s)
+    kq = k["q"] if int8 else k
+    plan = decode_launch_plan((b * s, H, D), kq.shape, kq.stride(), kq.dtype, "dense",
+                              scale_strides=k["s"].stride() if int8 else None,
+                              queries_per_row=s)
+    row, tile = b - 1, 1024  # the long row, a mid-row tile
+    planted = {
+        "lengths_one_long": ragged_decode_reference(
+            q, k, v, (lengths + 1).clamp_max(DENSE_VIEW), cfg, s),
+        "lengths_one_short": ragged_decode_reference(q, k, v, lengths - 1, cfg, s),
+        "row_map_off_by_one": ragged_decode_reference(
+            q, _rows_shifted(k), _rows_shifted(v), lengths, cfg, s),
+        "v_tile_zeroed": ragged_decode_reference(
+            q, k, _zero_rows(v, (row, slice(None), slice(tile, tile + 64))), lengths, cfg, s),
+    }
+    if int8:
+        planted["scale_tile_stale"] = ragged_decode_reference(
+            q, _stale_scales(k, row, tile, plan["tile_rows"]), v, lengths, cfg, s)
+    check = hold(f"{name} verify {b}x{s}", out, ref, DECODE_TOL, planted)
+    del planted
+    # NaN past every row's longest query, inside the view and beyond it
+    longest = lengths.view(b, s).max(dim=1).values.tolist()
+
+    def poisoned(entry):
+        entry = {n: a.clone() for n, a in entry.items()} if int8 else entry.clone()
+        leaf = entry["s"] if int8 else entry  # int8 codes cannot hold NaN: the scales
+        for r, n in enumerate(longest):
+            leaf[r, :, n:] = float("nan")
+        return entry
+
+    nk, nv = poisoned(full_k), poisoned(full_v)
+    again = kernel(q, view(nk), view(nv), lengths, cfg, queries_per_row=s)
+    if not torch.equal(again, out):
+        raise AssertionError(f"{name} verify: NaN past the rows' lengths changed the output")
+    del nk, nv
+    first = torch.arange(0, b * s, s, device="cuda")
+    mask = (torch.arange(DENSE_VIEW, device="cuda")[None, None, :]
+            < lengths.view(b, s).long()[:, :, None])  # [B, S, T]
+    library = _sdpa(torch, q.view(b, s, H, D).transpose(1, 2), _bf16(torch, k), _bf16(torch, v),
+                    mask[:, None])
+    item = 1 if int8 else 2
+    keys = sum(longest)  # each row's K and V, read once for its 5 queries
+    nbytes = (keys * HKV * D * 2 * item + (keys * HKV * 2 * 4 if int8 else 0)
+              + 2 * b * s * H * D * 2 + b * s * 4)
+    flops = 4.0 * int(lengths.sum()) * H * D
+    rec = {
+        "shape": f"verify {b} rows x {s} queries (qpr {s}, 40 query rows), positions "
+                 f"{positions}, view T={DENSE_VIEW} of {DENSE_T} H={H} Hkv={HKV} D={D} "
+                 + ("int8 cache, bf16 q" if int8 else "bf16"),
+        **check,
+        "nan_past_lengths_bit_equal": True,
+        "ms": timer.ms(lambda: kernel(q, k, v, lengths, cfg, queries_per_row=s)),
+        "plain_ms": timer.ms(lambda: ragged_decode_reference(q, k, v, lengths, cfg, s), iters=5),
+        "library_ms": timer.ms(library),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3,
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_F32_FLOPS
+                     else "operations"),
+        "first_queries_qpr1_ms": timer.ms(
+            lambda: kernel(q[first].contiguous(), k, v, lengths[first].contiguous(), cfg)),
+        "plan": {key: plan[key] for key in ("queries_per_row", "grid", "cluster", "tile_rows",
+                                            "stages", "smem_bytes")},
+    }
+    rec["gbps"] = nbytes / (rec["ms"] * 1e-3) / 1e9
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    log(f"kernel {name} verify {json.dumps(rec)}")
+    return rec
+
+
 def _nan_past_length(torch, ctx) -> dict:
     """NaN written where no row may read — past each row's length inside its
     last page or tile and beyond it, and in every unmapped page (the sink
@@ -1186,6 +1346,8 @@ def phase_kernels(ctx: dict) -> None:
             _dense_decode_case(torch, ctx, timer, int8, lengths, view, width)
             for lengths, view, width in cases + ((DECODE_LENGTHS_LONG, DENSE_T, DENSE_T),)
         ]
+        # the dense verify's flattened shape (qpr 5), before the widest
+        ctx["kernel_runs"][name].insert(-1, _dense_verify_case(torch, ctx, timer, int8))
     _nan_past_length(torch, ctx)
     _edge_cases(torch, ctx)
     del timer
@@ -2042,12 +2204,13 @@ def _serve_prefix(ctx, cfg, params, prefix: bool, **engine_kw) -> dict:
     engine = ServingEngine(
         cfg, params, max_batch=8, decode_chunk=16, page_size=PAGE,
         eos_token_id=tok.eos_token_id, rng_seed=ctx["seed"], device="cuda",
-        prefix_cache="auto" if prefix else "off", **PREFIX_KW, **engine_kw,
+        prefix_cache="auto" if prefix else "off", **{**PREFIX_KW, **engine_kw},
     )
     logits = _capture_first_logits(engine)
-    warm_spans = _time_calls(engine, "_paged_prefill_prefix")
+    warm_spans = _time_calls(
+        engine, "_paged_prefill_prefix" if engine._paged else "_dense_prefill_prefix")
     group_spans = _time_calls(engine, "_prefill_group")
-    pool = engine._pagepool
+    pool = engine._pagepool  # None on the dense layout: no pages to poll
     engine.start()
     try:
         engine.generate(tok.encode("warm up"), GenerationOptions(max_new_tokens=4), timeout=600)
@@ -2060,9 +2223,10 @@ def _serve_prefix(ctx, cfg, params, prefix: bool, **engine_kw) -> dict:
         t0 = time.monotonic()
         del warm_spans[:], group_spans[:]
         reqs = [engine.submit(GenerationRequest(prompt_tokens=p, options=opts)) for p in batch]
-        peak = pool.pages_in_use
+        peak = pool.pages_in_use if pool else None
         while not all(r._done.is_set() for r in reqs):
-            peak = max(peak, pool.pages_in_use)
+            if pool:
+                peak = max(peak, pool.pages_in_use)
             time.sleep(0.001)
         results = [r.result(timeout=900) for r in reqs]
         wall = time.monotonic() - t0
@@ -2105,10 +2269,15 @@ def _serve_prefix(ctx, cfg, params, prefix: bool, **engine_kw) -> dict:
         "alias_rate": after["kv-page-alias-rate"],
         "page_copies": delta("page-copies-total"),
         "copy_bytes_saved": delta("prefix-copy-bytes-saved-total"),
-        "pages_in_use_after_first": mid["kv-pages-in-use"],
+        "pages_in_use_after_first": mid.get("kv-pages-in-use"),
         "peak_kv_pages_in_use": peak,
         "prefix_entries": after["prefix-cache-entries"],
         "prefix_pool_bytes": after["prefix-pool-bytes-in-use"],
+        # the dense pool's rows as allocated, beside the plan's term
+        "prefix_pool_allocated_bytes": (
+            sum(t.numel() * t.element_size() for t in _param_leaves(engine._prefix_pool.dev))
+            if engine._prefix_pool else 0),
+        "plan_prefix_pool_bytes": engine.memory_plan.prefix_pool_bytes,
         "admit_groups": delta("admit-groups-total"),
         "warm_admissions": delta("warm-admissions-total"),
         # the wave's admissions on the engine thread: host ms each (warm
@@ -3337,6 +3506,546 @@ def phase_agentic(ctx: dict) -> None:
 
 # the checkpoint phase: shards of at most 5 GB, as the published
 # Meta-Llama-3-8B checkpoint is sharded, written inside the checkout
+# the embed phase: 32 byte-tokenized texts of 16..512 tokens (the sizes of
+# RAG ingestion chunks), one of them twice
+EMBED_TEXTS = 32
+EMBED_SIZES = tuple(16 + (496 * i) // (EMBED_TEXTS - 1) for i in range(EMBED_TEXTS))
+EMBED_DUPLICATE = (15, 16)  # text 16 is a copy of text 15
+# each embedding (a unit vector) against an f32 reference computed on the
+# card: ||bf16 - f32|| at most MODEL_REL_TOL (the 5% of every model check),
+# stated before the phase's first run
+EMBED_TOL = MODEL_REL_TOL
+# the batch embedded while the engine captures and serves, against the
+# same batch embedded with the engine idle: max |a - b|
+EMBED_CONCURRENT_TOL = 1e-6
+# the local-vector store: seeded rows of llama-3-8b's width, f32
+VECTOR_ROWS, VECTOR_QUERIES = 262_144, 64
+# a top-k list may hold two neighbours in the other order than the numpy
+# f64 reference's only where the reference's scores of the two rows lie
+# within this: an f32 product of two unit vectors of 4096 elements rounds
+# at ~1e-9, so a gap this small is a tie the f32 product cannot order
+VECTOR_TIE = 1e-7
+E2E_BYTES = [20, 90, 150, 300, 600, 900, 1200, 1500]
+
+
+def _embed_texts(seed: int) -> list[str]:
+    """EMBED_SIZES tokens each with the byte tokenizer's BOS (n - 1 bytes)."""
+    texts = _prompts([n - 1 for n in EMBED_SIZES], seed + 7)
+    a, b = EMBED_DUPLICATE
+    texts[b] = texts[a]
+    return texts
+
+
+def _encode_flops(cfg, params, lengths: list) -> float:
+    """The operations of ``encode`` over rows of ``lengths`` tokens: two a
+    layer weight and token, and the attention's 4 x S^2 x H x D a row and
+    layer (the embedding lookup and the norms not counted)."""
+    layer_weights = sum(v.numel() for v in params["layers"].values()
+                        if v.dim() > 2)  # the projections, not the norms
+    attn = 4.0 * sum(n * n for n in lengths) * cfg.n_heads * cfg.resolved_head_dim
+    return 2.0 * layer_weights * sum(lengths) + attn * cfg.n_layers
+
+
+def _encode_f32(torch, params, tokens, lengths, cfg):
+    """``encode`` in f32 on the card, each layer's weights widened to f32
+    just before its use (the reference the bf16 embeddings are held to)."""
+    from langstream_tpu_torch.models import transformer as tf
+
+    c32 = dataclasses.replace(cfg, dtype="float32", attention_impl="jnp")
+    b, s = tokens.shape
+    positions = torch.arange(s, device="cuda").expand(b, s)
+    sin, cos = tf._rope_freqs(positions, c32)
+    valid = positions < lengths.long()[:, None]
+    mask = valid[:, None, :] & valid[:, :, None]
+    x = tf._embed(params, tokens, cfg).float()
+    for i in range(c32.n_layers):
+        lp = {k: v[i].float() for k, v in params["layers"].items()}
+        x = tf._layer(x, lp, sin, cos, mask, c32, causal=False)
+        del lp
+    x = tf.rms_norm(x, params["final_norm"].float(), c32.rms_norm_eps)
+    w = valid[:, :, None].float()
+    pooled = (x * w).sum(1) / w.sum(1).clamp_min(1.0)
+    return pooled / torch.linalg.vector_norm(pooled, dim=-1, keepdim=True).clamp_min(1e-9)
+
+
+def _attention_yardstick(torch, ctx, cfg, timer) -> dict:
+    """One layer's bidirectional attention at the batch's shape (32 x 512,
+    random q/k/v, the batch's lengths): the port's ``attention`` (what
+    ``encode`` runs) beside SDPA with a key-padding mask — a yardstick,
+    not a path of the port."""
+    import torch.nn.functional as F
+
+    from langstream_tpu_torch.models import transformer as tf
+
+    g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 71)
+    b, s = EMBED_TEXTS, max(EMBED_SIZES)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = torch.randn((b, s, h, d), generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, hkv, s, d), generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    lengths = torch.tensor(EMBED_SIZES, device="cuda")
+    valid = torch.arange(s, device="cuda")[None, :] < lengths[:, None]
+    mask = valid[:, None, :] & valid[:, :, None]
+    port_ms = timer.ms(lambda: tf.attention(q, k, v, mask, cfg), iters=5)
+    ke, ve = (x.repeat_interleave(h // hkv, dim=1) for x in (k, v))
+    qh = q.transpose(1, 2)
+    sdpa_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+        qh, ke, ve, attn_mask=valid[:, None, None, :]), iters=5)
+    flops = 4.0 * b * s * s * h * d
+    return {"port_attention_ms": port_ms, "sdpa_key_padding_ms": sdpa_ms,
+            "operations_bound_ms": flops / PEAK_BF16_FLOPS * 1e3}
+
+
+def _ranked_rows(np, scores, k: int):
+    """The reference top-k of each row of ``scores`` [Q, N]: by score
+    descending, the lower row first among equal scores (``lax.top_k``)."""
+    out = []
+    for row in scores:
+        cand = np.argpartition(-row, k)[: k + 8]
+        order = np.lexsort((cand, -row[cand]))[:k]
+        out.append(cand[order])
+    return out
+
+
+def _vector_store_check(torch, ctx, vectors) -> dict:
+    """The local-vector store on the card: VECTOR_ROWS seeded rows of
+    4096 f32 plus the 32 embeddings, searched by the 32 embeddings and 32
+    seeded queries at top-k 5 and 64. Each list is held to a numpy f64
+    reference's (equal, but for neighbours within VECTOR_TIE); each
+    embedded text ranks its own row first (a duplicate text: tied for
+    first); the search's device time and wall a query beside the byte
+    bound of one read of the rows."""
+    import numpy as np
+
+    from langstream_tpu_torch.agents.vector import LocalVectorDataSource
+
+    dim = vectors.shape[1]
+    rng = np.random.default_rng(ctx["seed"] + 11)
+    t0 = time.monotonic()
+    data = rng.standard_normal((VECTOR_ROWS, dim), dtype=np.float32)
+    gen_s = time.monotonic() - t0
+    store = LocalVectorDataSource({})
+    t0 = time.monotonic()
+    store.upsert_many("docs", [f"doc-{i}" for i in range(VECTOR_ROWS)], data,
+                      [{"chunk": i} for i in range(VECTOR_ROWS)])
+    store.upsert_many("docs", [f"text-{i}" for i in range(len(vectors))], vectors,
+                      [{"text": i} for i in range(len(vectors))])
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    idx = store._indexes["docs"]
+    n = len(idx["ids"])
+    queries = np.concatenate([vectors, rng.standard_normal((VECTOR_QUERIES - len(vectors), dim),
+                                                           dtype=np.float32)])
+    # the f64 reference over the same rows
+    t0 = time.monotonic()
+    qn = queries.astype(np.float64)
+    qn /= np.linalg.norm(qn, axis=1, keepdims=True) + 1e-9
+    scores = np.empty((len(queries), n))
+    for a in range(0, n, 32768):
+        blk = idx["matrix"][a:min(a + 32768, n)].astype(np.float64)
+        blk /= np.linalg.norm(blk, axis=1, keepdims=True) + 1e-9
+        scores[:, a:a + len(blk)] = qn @ blk.T
+    ref_s = time.monotonic() - t0
+    rec = {"rows": n, "dim": dim, "capacity": idx["matrix"].shape[0],
+           "device_copy_bytes": idx["dev"].numel() * 4, "valid_bytes": n * dim * 4,
+           "generate_s": gen_s, "upsert_s": load_s, "f64_reference_s": ref_s}
+    bound_ms = n * dim * 4 / HBM_BYTES_PER_S * 1e3
+    for k in (5, 64):
+        want = _ranked_rows(np, scores, k)
+        t0 = time.monotonic()
+        results = [store.search("docs", q.tolist(), k) for q in queries]
+        wall_ms = (time.monotonic() - t0) * 1e3 / len(queries)
+        swaps = []
+        for qi, (res, ref) in enumerate(zip(results, want)):
+            got = [idx["pos"][r["id"]] for r in res]
+            if len(got) != k:
+                raise AssertionError(f"top-{k} of query {qi}: {len(got)} results")
+            for j, (a, b) in enumerate(zip(got, ref.tolist())):
+                if a != b:
+                    gap = abs(scores[qi, a] - scores[qi, b])
+                    swaps.append({"query": qi, "rank": j, "f64_gap": gap})
+                    if gap > VECTOR_TIE:
+                        raise AssertionError(f"top-{k} of query {qi} rank {j}: row {a} vs the "
+                                             f"f64 reference's {b} (gap {gap})")
+        for i in range(len(vectors)):
+            own = n - len(vectors) + i
+            first = idx["pos"][results[i][0]["id"]]
+            if first != own and scores[i, first] != scores[i, own]:
+                raise AssertionError(f"text {i} ranks row {first} first, not its own {own}")
+        q_dev = torch.from_numpy(queries).cuda()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for q in q_dev:
+            store._search(q, idx["dev"][:n], None, k, normalized=True)
+        end.record()
+        torch.cuda.synchronize()
+        device_ms = start.elapsed_time(end) / len(queries)
+        rec[f"top{k}"] = {"device_ms_per_query": device_ms, "wall_ms_per_query": wall_ms,
+                          "bound_ms": bound_ms, "bound_share": bound_ms / device_ms,
+                          "swapped_ties": swaps}
+    del store, data, scores
+    return rec
+
+
+def _served_tokens(engine, prompts, opts) -> list:
+    """The prompts served as one wave: the engine thread paused while all
+    are queued (one admission whatever the timing), then resumed."""
+    from langstream_tpu_torch.serving.engine import GenerationRequest
+
+    _pause(engine)
+    reqs = [engine.submit(GenerationRequest(prompt_tokens=p, options=opts)) for p in prompts]
+    engine.start()
+    return [r.result(timeout=900).tokens for r in reqs]
+
+
+def phase_embed(ctx: dict) -> None:
+    """RAG on the card (module docstring, phase 13): the provider's
+    embeddings service over llama-3-8b, the local-vector store's top-k, and
+    an embedding batch run while the provider's engine captures and
+    serves."""
+    import asyncio
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from langstream_tpu_torch.ai.torch_serving import TorchServingProvider
+    from langstream_tpu_torch.models import transformer as tf
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS, GenerationOptions
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    # the provider draws the tree itself (the same seed: the same tree as
+    # _llama_params); later phases serve it
+    ctx.pop("params", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    provider = TorchServingProvider({
+        "model": "llama-3-8b", "seed": ctx["seed"], "max-seq-len": 2048, "max-batch": 8,
+        "decode-chunk": 16, "page-size": PAGE,
+    })
+    holder = provider.get_completions_service({})
+    svc = provider.get_embeddings_service({})  # max-text-tokens 512
+    t0 = time.monotonic()
+    params = holder.params()
+    ctx["params"] = params
+    log(f"embed: llama-3-8b drawn by the provider in {time.monotonic() - t0:.1f}s")
+    texts = _embed_texts(ctx["seed"])
+    tokens, lengths = svc.batch(texts)
+    sizes = list(EMBED_SIZES)
+    sizes[EMBED_DUPLICATE[1]] = sizes[EMBED_DUPLICATE[0]]
+    if tokens.shape != (EMBED_TEXTS, 512) or lengths.tolist() != sizes:
+        raise AssertionError(f"embed batch {tokens.shape}, lengths {lengths.tolist()}")
+    idle = svc.embed(texts)  # the first call, then timed ones
+    walls = []
+    for _ in range(3):
+        t0 = time.monotonic()
+        svc.embed(texts)
+        walls.append((time.monotonic() - t0) * 1e3)
+    tok_t, len_t = torch.from_numpy(tokens).cuda(), torch.from_numpy(lengths).cuda()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    device_ms = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = tf.encode(params, tok_t, len_t, cfg)
+        end.record()
+        torch.cuda.synchronize()
+        device_ms.append(start.elapsed_time(end))
+    growth = torch.cuda.max_memory_allocated() - base
+    stream_diff = float(np.abs(out.cpu().numpy() - idle).max())
+    if stream_diff > EMBED_CONCURRENT_TOL:
+        raise AssertionError(f"embed: the service's vectors (its own stream) differ from "
+                             f"encode's on the default stream by {stream_diff}")
+    ref = _encode_f32(torch, params, tok_t, len_t, cfg).cpu().numpy()
+    err = np.linalg.norm(idle - ref, axis=1)
+    cos = (idle * ref).sum(1) / np.linalg.norm(ref, axis=1)
+    norms = np.linalg.norm(idle, axis=1)
+    a, b = EMBED_DUPLICATE
+    dup = float(np.abs(idle[a] - idle[b]).max())
+    rec = {
+        "texts": EMBED_TEXTS, "tokens": int(lengths.sum()), "padded_tokens": int(tokens.size),
+        "wall_ms_per_call": walls, "device_ms_per_call": device_ms,
+        "peak_growth_bytes": growth,
+        # 2 x the layers' weights x tokens, plus the attention's 4 x S x S
+        # x H x D a row and layer, at the bf16 peak: over the padded batch
+        # (the work the call does) and over the real tokens
+        "flop_bound_ms_padded": _encode_flops(cfg, params, [tokens.shape[1]] * len(texts))
+        / PEAK_BF16_FLOPS * 1e3,
+        "flop_bound_ms_real": _encode_flops(cfg, params, lengths.tolist())
+        / PEAK_BF16_FLOPS * 1e3,
+        "f32_max_l2_err": float(err.max()), "f32_min_cosine": float(cos.min()),
+        "tolerance_l2": EMBED_TOL, "max_norm_err": float(np.abs(norms - 1).max()),
+        "duplicate_max_abs_diff": dup, "duplicate_bit_equal": dup == 0.0,
+        "service_stream_vs_default_stream_max_abs_diff": stream_diff,
+    }
+    if err.max() > EMBED_TOL or np.abs(norms - 1).max() > 1e-5 or dup > 1e-6:
+        raise AssertionError(f"embed: {rec}")
+    timer = Timer(torch)
+    rec["one_layer_attention"] = _attention_yardstick(torch, ctx, cfg, timer)
+    del timer, out, tok_t, len_t
+    log(f"embed llama-3-8b bf16 {json.dumps(rec)}")
+    store = _vector_store_check(torch, ctx, idle)
+    log(f"embed local-vector store {json.dumps(store)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one batch again and again on the service's thread while the engine
+    # of the same provider captures its graphs, then serves the e2e burst
+    tok = ByteTokenizer()
+    prompts = [tok.encode(p) for p in _prompts(E2E_BYTES, ctx["seed"])]
+    opts = GenerationOptions(max_new_tokens=64, temperature=0.0)
+    runs: list = []
+    started, done = threading.Event(), threading.Event()
+
+    def embed_loop():
+        while not done.is_set():
+            t0 = time.monotonic()
+            vectors = svc.embed(texts)
+            runs.append((t0, time.monotonic(), vectors))
+            started.set()
+
+    thread = threading.Thread(target=embed_loop, name="embed-loop")
+    thread.start()
+    started.wait(600)
+    t_build = time.monotonic()
+    engine = holder.engine()  # built and captured now, beside the embeddings
+    t_captured = time.monotonic()
+    reset_kernel_counts()
+    served = _served_tokens(engine, prompts, opts)
+    t_served = time.monotonic()
+    counts = kernel_counts()
+    done.set()
+    thread.join(600)
+    quiet = _served_tokens(engine, prompts, opts)
+    asyncio.run(provider.close())
+    plain = {k: v["cpu_calls"] for k, v in counts.items() if v["cpu_calls"]}
+    if plain:
+        raise AssertionError(f"embed: plain versions ran while serving: {plain}")
+    overlap = {
+        "during_capture": sum(1 for s, e, _ in runs if s < t_captured and e > t_build),
+        "during_serving": sum(1 for s, e, _ in runs if s < t_served and e > t_captured),
+    }
+    diffs = [float(np.abs(v - idle).max()) for s, e, v in runs if s < t_served and e > t_build]
+    conc = {"batches": len(runs), **overlap,
+            # each batch's wall and its start from the engine's build
+            "batch_s": [[round(s - t_build, 3), round(e - s, 3)] for s, e, _ in runs],
+            "max_abs_diff": max(diffs, default=None),
+            "bit_equal": all(d == 0.0 for d in diffs), "tolerance": EMBED_CONCURRENT_TOL,
+            "tokens_equal": served == quiet, "capture_s": t_captured - t_build,
+            "launches": {k: v["launches"] for k, v in counts.items() if v["launches"]}}
+    log(f"embed concurrent with the engine {json.dumps(conc)}")
+    if not overlap["during_capture"] or not overlap["during_serving"]:
+        raise AssertionError(f"embed: no batch overlapped the capture and the serving: {conc}")
+    if max(diffs) > EMBED_CONCURRENT_TOL or served != quiet:
+        raise AssertionError(f"embed: concurrent vectors or tokens changed: {conc}")
+    ctx["embed"] = {**rec, "store": store, "concurrent": conc}
+
+
+def _dense_verify_model_check(ctx, cfg, params, prompts) -> dict:
+    """The dense verify's kernel path (the flattened queries through the
+    dense decode kernel) against its reference path on the same cache:
+    the prompts prefilled into a [8, ..., 8193] cache (one copy a path),
+    then one verify of each row's last prompt token and the 4 tokens its
+    repetition continues with — logits within MODEL_REL_TOL of the largest
+    reference logit; a position whose top-1 differs passes only as a tie
+    within one bf16 ulp each way (the spec phase's rule), at most 1 in 8."""
+    import torch
+
+    from langstream_tpu_torch.models import transformer as tf
+
+    k = SPEC_KW["speculation_tokens"]
+    ref_cfg = dataclasses.replace(cfg, attention_impl="jnp")
+    b, n = len(prompts), SPEC_PROMPT
+    t = DENSE_KW["max_seq_len"]
+    tokens = torch.tensor(prompts, dtype=torch.long, device="cuda")
+    local = tf.make_kv_cache(cfg, b, n, device="cuda")
+    tf.prefill(params, tokens, torch.full((b,), n, device="cuda"), local, cfg)
+    cache = tf.make_kv_cache(cfg, b, t + 1, device="cuda")
+    tf.dense_insert_cache(cache, local, torch.arange(b, device="cuda"))
+    del local
+    ref_cache = {name: cache[name].clone() for name in ("k", "v")}
+    inputs = torch.stack([torch.tensor(p[n - 1:n] + [p[n - 24 + j] for j in range(k)])
+                          for p in prompts]).to("cuda")
+    positions = torch.full((b,), n - 1, dtype=torch.long, device="cuda")
+    kernel = tf.verify_step_inplace(params, inputs, positions, cache, cfg, t)[0]
+    reference = tf.verify_step_inplace(params, inputs, positions, ref_cache, ref_cfg, t)[0]
+    del cache, ref_cache
+    rels, ties, flips = [], [], []
+    for row in range(b):
+        for j in range(k + 1):
+            a, r = kernel[row, j].float(), reference[row, j].float()
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"dense verify row {row} position {j}: non-finite logits")
+            rels.append(((a - r).abs().max() / r.abs().max()).item())
+            got, top = int(torch.argmax(a)), int(torch.argmax(r))
+            if got == top:
+                continue
+            tie = ((r[top] - r[got]).item() <= _bf16_ulp(r[top].item())
+                   and (a[got] - a[top]).item() <= _bf16_ulp(a[got].item()))
+            (ties if tie else flips).append({"row": row, "position": j, "kernel": got,
+                                             "reference": top})
+    rec = {"max_rel_err": max(rels), "tolerance": MODEL_REL_TOL, "ties": ties, "flips": flips}
+    if max(rels) > MODEL_REL_TOL or flips or 8 * len(ties) > b * (k + 1):
+        raise AssertionError(f"dense verify model check: {rec}")
+    return rec
+
+
+def _dense_constrained_and_level2(ctx, cfg, params, prompts, off_tokens) -> dict:
+    """A speculative dense engine with brownout on (both graph sets
+    captured): two requests with a JSON-schema response format served
+    with speculation, each output in its grammar; then brownout pinned at level
+    2 (the dwell never elapses) and the spec prompts served by the decode
+    set — no verify, one replay a chunk, dense decode launches exactly
+    layers x steps — their tokens the speculation-off run's or ties."""
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+    from langstream_tpu_torch.serving.engine import GenerationRequest, ServingEngine
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    engine = ServingEngine(cfg, params, max_batch=8, decode_chunk=16, page_size=PAGE,
+                           eos_token_id=tok.eos_token_id, rng_seed=ctx["seed"], device="cuda",
+                           speculation="auto", speculation_tokens=SPEC_KW["speculation_tokens"],
+                           brownout_dwell_s=1e9, grammar_tokenizer=tok, **DENSE_KW)
+    engine.start()
+    try:
+        outputs = []
+        for name, text in (("record", "Reply with a JSON record for the order: "),
+                           ("record", "Describe the last shipment as JSON: ")):
+            rf = AGENTIC_FORMATS[name]
+            res = engine.submit(GenerationRequest(
+                prompt_tokens=tok.encode(text),
+                options=GenerationOptions(max_new_tokens=64, response_format=rf),
+            )).result(timeout=600)
+            out = tok.decode(res.tokens)
+            outputs.append({"format": name, "text": out, "finish": res.finish_reason,
+                            "in_grammar": _in_grammar(rf, out)})
+        stats = engine.stats()
+        engine._brownout.level = 2
+        before = engine.stats()
+        reset_kernel_counts()
+        level2 = _served_tokens(engine, prompts, GenerationOptions(max_new_tokens=SPEC_NEW))
+        counts = kernel_counts()
+        after = engine.stats()
+    finally:
+        engine.stop()
+    rec = {
+        "graph_sets": stats["graph-sets"], "constrained": outputs,
+        "spec_verifies_constrained": stats["spec-verify-dispatches-total"],
+        "level2_verifies": after["spec-verify-dispatches-total"]
+        - before["spec-verify-dispatches-total"],
+        "level2_decode_chunks": after["decode-chunks-total"] - before["decode-chunks-total"],
+        "level2_decode_steps": after["decode-steps-total"] - before["decode-steps-total"],
+        "level2_decode_replays": after["graph-replays-by-kind"]["decode"]
+        - before["graph-replays-by-kind"]["decode"],
+        "level2_dense_decode_launches": counts["dense_decode"]["launches"],
+    }
+    if sorted(stats["graph-sets"]) != ["decode", "verify"] or not rec["spec_verifies_constrained"]:
+        raise AssertionError(f"dense tiers: both graph sets and verifies expected: {rec}")
+    if not all(o["in_grammar"] and o["finish"] == "stop" for o in outputs):
+        raise AssertionError(f"dense tiers: a constrained output does not parse: {outputs}")
+    if (rec["level2_verifies"] or not rec["level2_decode_chunks"]
+            or rec["level2_decode_replays"] != rec["level2_decode_chunks"]
+            or rec["level2_dense_decode_launches"] != cfg.n_layers * rec["level2_decode_steps"]):
+        raise AssertionError(f"dense tiers: brownout level 2: {rec}")
+    rec["level2_vs_off"] = _same_or_tie(ctx, cfg, params, "dense level 2 vs off", prompts,
+                                        level2, off_tokens)
+    if not rec["level2_vs_off"]["ok"]:
+        raise AssertionError(f"dense tiers: level 2 tokens: {rec['level2_vs_off']}")
+    return rec
+
+
+def _require_dense_prefix_run(run: dict, cfg, segment: str) -> None:
+    """Every one of the 8 requests a warm hit at the preamble: one suffix
+    segment a layer each (``segment``: the segment kernel of the KV type),
+    the preamble's tokens saved each; request 0 alone took the cold group's
+    prefill kernel; dense decode launches exactly layers x steps; the
+    pool's rows as allocated equal the plan's term."""
+    hits = len(PREFIX_TURNS)
+    if run["warm_admissions"] != hits or run["prefill_tokens_saved"] != hits * PREFIX_PREAMBLE:
+        raise AssertionError(f"dense prefix: {run['warm_admissions']} warm admissions, "
+                             f"{run['prefill_tokens_saved']} tokens saved")
+    if run["kernel_launches"][segment] != cfg.n_layers * hits:
+        raise AssertionError(f"dense prefix: {run['kernel_launches'][segment]} {segment} "
+                             f"launches != {cfg.n_layers} x {hits}")
+    if run["plan_prefix_pool_bytes"] != run["prefix_pool_allocated_bytes"]:
+        raise AssertionError(f"dense prefix: pool {run['prefix_pool_allocated_bytes']} bytes "
+                             f"vs the plan's {run['plan_prefix_pool_bytes']}")
+    _require_launches(run, "flash_prefill", "admit_groups", cfg.n_layers)
+    decode = "dense_decode_int8" if segment.endswith("int8") else "dense_decode"
+    _require_launches(run, decode, "decode_steps", cfg.n_layers)
+
+
+def phase_dense_tiers(ctx: dict) -> None:
+    """The rest of the dense layout at llama-3-8b's full width and depth
+    (module docstring, phase 14): speculation (the spec traffic on and off,
+    the verify's model check, two constrained requests, brownout pinned at
+    level 2) and prefix reuse (the prefix traffic on and off, bf16 and int8
+    KV)."""
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    params = _llama_params(ctx)
+    prompts = _spec_prompts(ctx["seed"])
+    spec = {"speculation_tokens": SPEC_KW["speculation_tokens"], **DENSE_KW}
+    on = _serve(ctx, cfg, params, [], SPEC_NEW, prompts=prompts, steady=True,
+                speculation="auto", **spec)
+    if on["decode_chunks"] != 0:
+        raise AssertionError(f"dense spec: {on['decode_chunks']} decode chunks beside verifies")
+    _require_launches(on, "dense_decode", "verify_dispatches", cfg.n_layers)
+    _require_launches(on, "flash_prefill", "admit_groups", cfg.n_layers)
+    off = _serve(ctx, cfg, params, [], SPEC_NEW, prompts=prompts, steady=True, **DENSE_KW)
+    _require_launches(off, "dense_decode", "decode_steps", cfg.n_layers)
+    same = _same_or_tie(ctx, cfg, params, "dense spec on vs off", prompts, on["_tokens"],
+                        off["_tokens"])
+    for label, run in (("on", on), ("off", off)):
+        log(f"dense spec {label} llama-3-8b bf16 "
+            f"{json.dumps({k: v for k, v in run.items() if not k.startswith('_')})}")
+    verify, decode = on["steady_replays"], off["steady_replays"]
+    summary = {
+        "tokens_per_s_on": on["tokens_per_s"], "tokens_per_s_off": off["tokens_per_s"],
+        "verify_step_device_ms": verify["device_ms_per_step"],
+        "verify_step_wall_ms": verify["wall_ms_per_step"],
+        "decode_step_device_ms": decode["device_ms_per_step"],
+        "decode_step_wall_ms": decode["wall_ms_per_step"],
+        "acceptance_rate": on["spec_acceptance_rate"],
+        "accepted_tokens_per_step": on["spec_accepted_tokens_per_step"],
+        "verify_dispatches": on["verify_dispatches"],
+        "dense_decode_launches": on["kernel_launches"]["dense_decode"],
+        "graph_replays": on["graph_replays"],
+        "tokens_on_vs_off": same,
+    }
+    log(f"dense spec summary {json.dumps(summary)}")
+    if not same["ok"]:
+        raise AssertionError(f"dense spec: tokens on vs off: {same}")
+    check = _dense_verify_model_check(ctx, cfg, params, prompts)
+    log(f"dense verify model check {json.dumps(check)}")
+    tiers = _dense_constrained_and_level2(ctx, cfg, params, prompts, off["_tokens"])
+    log(f"dense constrained and brownout level 2 {json.dumps(tiers)}")
+    prefix = {}
+    for kv in ("model", "int8"):
+        c = cfg if kv == "model" else dataclasses.replace(cfg, kv_cache_dtype="int8")
+        segment = "flash_segment_int8" if kv == "int8" else "flash_segment"
+        warm = _serve_prefix(ctx, c, params, prefix=True, **DENSE_KW)
+        _require_dense_prefix_run(warm, c, segment)
+        cold = _serve_prefix(ctx, c, params, prefix=False, **DENSE_KW)
+        held = [warm["prompt_tokens"][1], warm["prompt_tokens"][-1]]
+        check = _warm_vs_cold(warm["_logits"], cold["_logits"], held)
+        for label, run in (("on", warm), ("off", cold)):
+            log(f"dense prefix {kv} {label} llama-3-8b "
+                f"{json.dumps({k: v for k, v in run.items() if not k.startswith('_')})}")
+        log(f"dense prefix {kv} warm vs cold logits {json.dumps(check)}")
+        prefix[kv] = {k: v for k, v in warm.items() if not k.startswith("_")}
+    ctx["dense_tiers"] = {"spec": summary, "prefix": prefix}
+    ctx["dense_spec"] = {k: v for k, v in on.items() if not k.startswith("_")}
+    ctx["dense_prefix"], ctx["dense_prefix_int8"] = prefix["model"], prefix["int8"]
+
+
 LOAD_SHARD_BYTES = 5 * 10**9
 LOAD_FREE_BYTES = 17 * 2**30
 LOAD_INT8_NEW = 16
@@ -3907,7 +4616,8 @@ def kernel_record(ctx: dict) -> dict:
     }
     # every serving run's launches of each kernel (counts zeroed before each)
     served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "prefix",
-              "spec", "agentic", "load", "moe")
+              "spec", "agentic", "dense_spec", "dense_prefix", "dense_prefix_int8", "load",
+              "moe")
     out = []
     for name, (src, replaces, path) in sources.items():
         runs = ctx.get("kernel_runs", {}).get(name)

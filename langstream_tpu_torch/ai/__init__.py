@@ -1,1 +1,2 @@
-"""Completions SPI of the port and its PyTorch serving provider."""
+"""The AI service SPI of the port and its PyTorch serving provider
+(completions and embeddings)."""

@@ -1,7 +1,9 @@
-"""Completions SPI types the port needs (own copy of the completions half of
-``langstream_tpu/ai/provider.py``: reference ``CompletionsService.java:22-33``
-with a streaming chunks consumer). The provider registry and the
-embeddings SPI wait for the slices that port the pipeline runtime."""
+"""The AI service SPI types the port needs (own copy of
+``langstream_tpu/ai/provider.py``'s): ``CompletionsService`` (reference
+``CompletionsService.java:22-33``, with a streaming chunks consumer),
+``EmbeddingsService`` (``EmbeddingsService.java:24-36``) and the
+``ServiceProvider`` that hands out both. The provider registry waits for
+the slice that ports the pipeline runtime."""
 
 from __future__ import annotations
 
@@ -65,3 +67,23 @@ class CompletionsService(abc.ABC):
     ) -> ChatCompletionsResult:
         messages = [ChatMessage(role="user", content=p) for p in prompt]
         return await self.get_chat_completions(messages, options, chunks_consumer)
+
+
+class EmbeddingsService(abc.ABC):
+    """Reference EmbeddingsService.java:24-36."""
+
+    @abc.abstractmethod
+    async def compute_embeddings(self, texts: list[str]) -> list[list[float]]: ...
+
+
+class ServiceProvider(abc.ABC):
+    """Reference ServiceProvider.java:24."""
+
+    @abc.abstractmethod
+    def get_completions_service(self, config: dict[str, Any]) -> CompletionsService: ...
+
+    @abc.abstractmethod
+    def get_embeddings_service(self, config: dict[str, Any]) -> EmbeddingsService: ...
+
+    async def close(self) -> None:  # noqa: B027
+        pass

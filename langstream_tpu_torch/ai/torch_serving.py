@@ -1,8 +1,11 @@
 """Local serving on an NVIDIA card: the port's counterpart of the
 ``tpu-serving`` resource (``langstream_tpu/ai/tpu_serving.py``).
 
-``TorchCompletionsService`` takes a ``tpu-serving`` resource config and
-honours the keys this slice serves:
+``TorchServingProvider`` takes a ``tpu-serving`` resource config and hands
+out a completions service (``TorchCompletionsService``, which holds the
+weights and the engine and can be built on its own) and an embeddings
+service (``TorchEmbeddingsService``: ``encode`` over the same weight tree,
+step key ``max-text-tokens``). The resource keys served:
 
   model: preset name (models.configs.MODEL_PRESETS), default tiny-test;
     Llama-family and Mixtral (MoE) presets
@@ -38,28 +41,30 @@ honours the keys this slice serves:
     wider than the widest bucket (up to max-seq-len - 1) prefill in
     segments of that width (the segment kernels; paged: straight into the
     request's pages). Any other value raises ValueError.
-  prefix-cache: auto | off (default off) → prefix KV reuse on the paged
-    layout: every prefill publishes its prompt's deepest bucket boundary
-    into a radix index as an alias of the slot's pages, and a later prompt
-    sharing that prefix (a chat's earlier turns, a RAG or agent preamble)
-    aliases those pages and prefills only its suffix (a prefix ending
-    mid-page costs one page copy). `prefix-cache-fraction` (default 0.25)
-    adds that share of the pool as headroom for the shared pages;
-    `prefix-cache-entries` (default 512) caps the index (0 disables reuse).
-    "auto" with kv-layout "dense" raises NotImplementedError (the dense
-    prefix pool is ROADMAP item 4). `host-kv-fraction` above 0 (a host-RAM
+  prefix-cache: auto | off (default off) → prefix KV reuse. Paged: every
+    prefill publishes its prompt's deepest bucket boundary into a radix
+    index as an alias of the slot's pages, and a later prompt sharing that
+    prefix (a chat's earlier turns, a RAG or agent preamble) aliases those
+    pages and prefills only its suffix (a prefix ending mid-page costs one
+    page copy); `prefix-cache-fraction` (default 0.25) adds that share of
+    the pool as headroom for the shared pages; `prefix-cache-entries`
+    (default 512) caps the index (0 disables reuse). Dense: a pool of rows
+    of the widest bucket's columns (as many as `prefix-cache-fraction` of
+    the cache's tokens, or `prefix-cache-entries`); every prefill copies its
+    prompt's deepest boundary into a row, and a later prompt sharing it
+    starts from a copy of that row and prefills only its suffix (a long
+    prompt reuses a full segment width). `host-kv-fraction` above 0 (a host-RAM
     KV tier) raises NotImplementedError (ROADMAP item 5); `spill` takes
     auto | off
-  speculation: auto | off (default off) → self-speculative decoding on the
-    paged layout: a per-slot n-gram index over prompt and emitted tokens
+  speculation: auto | off (default off) → self-speculative decoding on
+    both layouts: a per-slot n-gram index over prompt and emitted tokens
     proposes drafts, and each decode iteration verifies them in one
-    dispatch (one graph replay on the card; the paged decode kernel reads
-    the k + 1 queries of a row as single-query rows), so one read of the
-    weights emits up to k + 1 tokens a slot on repetitive text. Greedy
-    output is the same as without it; sampled output keeps its
-    distribution (rejection sampling). `speculation-tokens` (default 4,
-    at least 1) is k, one value engine-wide. "auto" with kv-layout "dense"
-    raises NotImplementedError (the dense verify is ROADMAP item 4)
+    dispatch (one graph replay on the card; the paged or the dense decode
+    kernel reads the k + 1 queries of a row as single-query rows), so one
+    read of the weights emits up to k + 1 tokens a slot on repetitive
+    text. Greedy output is the same as without it; sampled output keeps
+    its distribution (rejection sampling). `speculation-tokens` (default
+    4, at least 1) is k, one value engine-wide
   kv-cache-quantization: "int8" → int8 KV with per-token per-head scales
     (the int8 decode / segment kernels); "" / "none" → model dtype
   tokenizer: "byte" (default) or "hf:<local path>" (a Hugging Face
@@ -156,11 +161,15 @@ from typing import Any, Optional
 
 import torch
 
+import numpy as np
+
 from langstream_tpu_torch.ai.provider import (
     ChatChunk,
     ChatCompletionsResult,
     ChatMessage,
     CompletionsService,
+    EmbeddingsService,
+    ServiceProvider,
     StreamingChunksConsumer,
 )
 from langstream_tpu_torch.device import resolve_device
@@ -169,6 +178,7 @@ from langstream_tpu_torch.models.configs import MODEL_PRESETS, GenerationOptions
 from langstream_tpu_torch.models.loader import _iter_safetensor_files
 from langstream_tpu_torch.models.quant import init_random_quantized_params
 from langstream_tpu_torch.models.streamload import load_params_streamed
+from langstream_tpu_torch.models.transformer import encode
 from langstream_tpu_torch.ops.attention import kernel_path_ok
 from langstream_tpu_torch.serving.engine import PREFILL_BUCKETS, GenerationRequest, ServingEngine
 from langstream_tpu_torch.serving.faultinject import FaultInjector
@@ -288,11 +298,6 @@ class TorchCompletionsService(CompletionsService):
         if not isinstance(px, bool) and str(px).lower() not in ("auto", "off"):
             raise ValueError(f"unknown prefix-cache {px!r}; supported: auto, off")
         self.prefix_cache = "auto" if px is True or str(px).lower() == "auto" else "off"
-        if self.prefix_cache == "auto" and layout == "dense":
-            raise NotImplementedError(
-                "prefix-cache on kv-layout dense: the dense prefix pool is not ported "
-                "(ROADMAP item 4); use kv-layout paged"
-            )
         spec = self.resource.get("speculation", "off")
         if not isinstance(spec, bool) and str(spec).lower() not in ("auto", "off"):
             raise ValueError(f"unknown speculation {spec!r}; supported: auto, off")
@@ -301,11 +306,6 @@ class TorchCompletionsService(CompletionsService):
         if self.speculation_tokens < 1:
             raise ValueError(
                 f"speculation-tokens must be >= 1, got {self.speculation_tokens}"
-            )
-        if self.speculation == "auto" and layout == "dense":
-            raise NotImplementedError(
-                "speculation on kv-layout dense: the dense verify is not ported "
-                "(ROADMAP item 4); use kv-layout paged"
             )
         spill = self.resource.get("spill", "auto")
         if not isinstance(spill, bool) and str(spill).lower() not in ("auto", "off"):
@@ -355,7 +355,9 @@ class TorchCompletionsService(CompletionsService):
         off = constrained is False or str(constrained).lower() == "off"
         self.constrained = "off" if off else "auto"
         self.tokenizer = get_tokenizer(self.resource.get("tokenizer", "byte"))
-        self._lock = threading.Lock()
+        # the engine's build and the params' load, from any thread (the
+        # engine's build loads the params under it)
+        self._lock = threading.RLock()
         self._engine: Optional[ServingEngine] = None
         self._params: Optional[dict] = None
         # the checkpoint load's WeightLoadReport, whose event the engine
@@ -367,13 +369,31 @@ class TorchCompletionsService(CompletionsService):
         self._injector_built = False
 
     def params(self) -> dict:
-        """The served params, loaded (or drawn) once; a load that raises
-        caches nothing."""
-        if self._params is None:
-            params, report = self._load_params()
-            self._weight_load_report = report
-            self._params = params
-        return self._params
+        """The served params, loaded (or drawn) once — the one tree every
+        service of the provider reads (completions and embeddings); a load
+        that raises caches nothing. Random weights drawn on the card are
+        complete when this returns (their stream is synchronized), so any
+        stream may read them; a streamed load's copies may still be in
+        flight (``wait_for_weights``). Once loaded it is read without the
+        lock, which the engine's build holds through its graph capture."""
+        params = self._params
+        if params is not None:
+            return params
+        with self._lock:
+            if self._params is None:
+                params, report = self._load_params()
+                if report is None and self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+                self._weight_load_report = report
+                self._params = params
+            return self._params
+
+    def wait_for_weights(self, stream: Any) -> None:
+        """Make ``stream`` wait for a streamed load's last copy (a no-op
+        for drawn weights or on the CPU)."""
+        report = self._weight_load_report
+        if report is not None and self.device.type == "cuda":
+            report.wait(stream)
 
     def _load_params(self) -> tuple[dict, Any]:
         mc, dev = self.model_config, self.device
@@ -552,3 +572,89 @@ class TorchCompletionsService(CompletionsService):
             ttft_ms=result.ttft_s * 1000.0,
             total_ms=result.total_s * 1000.0,
         )
+
+
+class TorchEmbeddingsService(EmbeddingsService):
+    """Embeddings from the provider's model: the port's counterpart of the
+    JAX provider's ``TpuEmbeddingsService`` (and ``embed_fn``). Each text is
+    tokenized and cut at ``max-text-tokens`` (default 512), the batch
+    padded to a power of two from 16 (a row's length ``max(1, len)``: an
+    empty text pools its one pad token), and ``models/transformer.encode``
+    gives one L2-normalised f32 vector a text. The call runs off the event
+    loop, in an executor.
+
+    It reads the weight tree of the completions service it was given (one
+    load for both services). On the card it runs on a stream of its own —
+    never the legacy default stream — waits on that stream only (no
+    device-wide synchronize) and calls no ``gc.collect()``, so it may run
+    while the engine captures its graphs (a thread-local capture on
+    another thread) or replays them. The JAX provider refuses embeddings on
+    a multi-host replica; the port has no multi-host tier (ROADMAP item 7),
+    so there is nothing to refuse."""
+
+    def __init__(self, holder: TorchCompletionsService, step_config: dict[str, Any]) -> None:
+        self.holder = holder
+        self.max_len = int(step_config.get("max-text-tokens", 512))
+        self._stream: Optional[Any] = None
+
+    def batch(self, texts: list[str]) -> tuple[np.ndarray, np.ndarray]:
+        """(tokens [n, width] int64, lengths [n] int64): each text cut at
+        ``max-text-tokens``, right-padded with 0 to the power of two from 16
+        that holds the longest."""
+        token_lists = [self.holder.tokenizer.encode(t)[: self.max_len] for t in texts]
+        width = 16
+        longest = max((len(t) for t in token_lists), default=1)
+        while width < longest:
+            width *= 2
+        tokens = np.zeros((len(texts), width), np.int64)
+        lengths = np.zeros(len(texts), np.int64)
+        for i, toks in enumerate(token_lists):
+            tokens[i, : len(toks)] = toks
+            lengths[i] = max(1, len(toks))
+        return tokens, lengths
+
+    def embed(self, texts: list[str]) -> np.ndarray:
+        """[n, d_model] f32 embeddings of ``texts``, computed on the calling
+        thread (on the card: on the service's own stream)."""
+        tokens, lengths = self.batch(texts)
+        holder = self.holder
+        params = holder.params()
+        dev = holder.device
+        if dev.type != "cuda":
+            return encode(params, torch.from_numpy(tokens), torch.from_numpy(lengths),
+                          holder.model_config).numpy()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        stream = self._stream
+        with torch.cuda.stream(stream):
+            holder.wait_for_weights(stream)
+            out = encode(params, torch.from_numpy(tokens).to(dev),
+                         torch.from_numpy(lengths).to(dev), holder.model_config)
+            host = out.cpu()  # synchronizes this stream only
+        return host.numpy()
+
+    async def compute_embeddings(self, texts: list[str]) -> list[list[float]]:
+        loop = asyncio.get_running_loop()
+        vectors = await loop.run_in_executor(None, self.embed, list(texts))
+        return [v.tolist() for v in vectors]
+
+
+class TorchServingProvider(ServiceProvider):
+    """The ``tpu-serving`` resource as a provider (the JAX package's
+    ``TpuServingProvider``): one ``TorchCompletionsService`` holds the
+    weight tree and the engine, and both services read it — a replica that
+    serves completions and embeddings loads its model once."""
+
+    def __init__(self, resource_config: dict[str, Any]) -> None:
+        self.holder = TorchCompletionsService(resource_config)
+
+    def get_completions_service(self, config: dict[str, Any]) -> CompletionsService:
+        return self.holder
+
+    def get_embeddings_service(self, config: dict[str, Any]) -> EmbeddingsService:
+        return TorchEmbeddingsService(self.holder, config)
+
+    async def close(self) -> None:
+        # close() drains for up to drain-grace-s: off the event loop
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(None, self.holder.close)

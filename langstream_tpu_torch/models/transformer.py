@@ -11,7 +11,10 @@ prefill and warm prefix suffixes, ``paged_decode_step_inplace`` for
 decode, ``paged_verify_step_inplace`` for a speculative verify of k+1
 tokens a row, ``page_copy`` for a prefix alias's copy-on-write page) and the
 dense per-slot cache (``prefill_segment`` for chunked prefill,
-``decode_step_inplace`` for decode). A config with ``n_experts > 0``
+``decode_step_inplace`` for decode, ``verify_step_inplace`` for a
+speculative verify). ``encode`` is the embedding model: bidirectional
+attention over each row's real tokens, mean-pooled and L2-normalised. A
+config with ``n_experts > 0``
 takes ``moe_ffn`` (Mixtral-style top-k routing with a capacity limit) in
 place of the dense FFN.
 
@@ -45,10 +48,12 @@ Differences from the JAX package:
 - A paged segment on the kernel path gathers the pages it can read into a
   contiguous temporary and runs the segment kernel on it; the JAX package
   reads the whole gathered table with its reference attention there.
-- A paged verify on the card flattens its B x (k+1) queries into single-
-  query rows for the paged decode kernel (``verify_queries``); the JAX
-  package computes verify attention with its masked read, which the port
-  keeps as the reference path (the CPU's).
+- A verify on the kernel path flattens its B x (k+1) queries into single-
+  query rows: the paged decode kernel through each row's table
+  (``verify_queries``), the dense decode kernel with k + 1 query rows a
+  cache row (``dense_verify_queries``). The JAX package computes verify
+  attention with its masked read, which the port keeps as the reference
+  path (``attention_impl="jnp"``).
 - The paged reference read zeroes V (an int8 pool's V scales) at columns
   no query of the row can see: a masked probability is exactly 0, which
   leaves every finite result bit-equal, but 0 x NaN is NaN.
@@ -64,8 +69,7 @@ and N adapters share one call. K/V written to a cache include the
 ``wk`` / ``wv`` deltas; a verify applies a row's adapter to all k+1 of its
 queries before the kernel path flattens them.
 
-Not ported yet: the dense verify (``verify_step_inplace``), ring attention
-and ``encode``.
+Not ported yet: ring attention.
 """
 
 from __future__ import annotations
@@ -85,6 +89,7 @@ from langstream_tpu_torch.ops.attention import (
     flash_segment_attention,
     flash_segment_attention_int8,
     kernel_path_ok,
+    multitoken_verify_attention,
     ragged_decode_attention,
     ragged_decode_attention_int8,
     ragged_paged_decode_attention,
@@ -126,7 +131,10 @@ _EMBED_SCALES: dict[tuple, torch.Tensor] = {}
 
 def _rope_inv_freqs(config: ModelConfig, device: torch.device) -> torch.Tensor:
     """[head_dim/2] f32 inverse frequencies (llama3-scaled where the config
-    says so), cached per device."""
+    says so), cached per device. On the card the table is made on the
+    calling thread's stream, which is synchronized before the entry is
+    published: another thread's stream (the engine's, an embedding's) may
+    read it next."""
     key = (
         config.resolved_head_dim, config.rope_theta, config.rope_scaling_factor,
         config.rope_scaling_low_freq_factor, config.rope_scaling_high_freq_factor,
@@ -144,7 +152,9 @@ def _rope_inv_freqs(config: ModelConfig, device: torch.device) -> torch.Tensor:
         ).float()
         if config.rope_scaling_factor:
             freqs = _llama3_rope_scale(freqs, config)
-        _ROPE_FREQS[key] = freqs
+        if freqs.device.type == "cuda":
+            torch.cuda.current_stream(freqs.device).synchronize()
+        freqs = _ROPE_FREQS.setdefault(key, freqs)
     return freqs
 
 
@@ -265,18 +275,23 @@ def _dispatch_attention(
     causal: bool,
     kv_offset: Optional[torch.Tensor] = None,  # [B] i32: segment prefill at an offset
     kv_bound: Optional[int] = None,  # readable cache columns
-    lengths: Optional[torch.Tensor] = None,  # [B] i32: single-token decode
+    lengths: Optional[torch.Tensor] = None,  # [B] i32: single-token decode ([B*S]: a verify)
+    verify: bool = False,  # a speculative verify's S queries a row
 ) -> torch.Tensor:
     """Route attention over a dense cache (or the prompt's own K/V) to a
     kernel when the gate allows it, else to the reference ``attention``.
     ``kv_bound`` cuts the cache to a ``[..., :kv_bound]`` view first (read
-    in place by the kernels). Then: decode (``lengths``) → the dense decode
+    in place by the kernels). Then: a verify → ``multitoken_verify_attention``
+    (the dense decode kernel over its flattened queries with ``lengths``,
+    else the masked read); decode (``lengths``) → the dense decode
     kernel; a segment (``kv_offset``) → the segment kernel; a causal prompt
     → the flash prefill kernel over the first S columns (int8 caches
     dequantize just that slice)."""
     if kv_bound is not None:
         k_all = _map(lambda x: x[:, :, :kv_bound], k_all)
         v_all = _map(lambda x: x[:, :, :kv_bound], v_all)
+    if verify:
+        return multitoken_verify_attention(q, k_all, v_all, mask, config, lengths)
     s = q.shape[1]
     if kernel_path_ok(config, q.device):
         quantized = isinstance(k_all, dict)
@@ -627,12 +642,14 @@ def _layer(
     kv_bound: Optional[int] = None,
     lengths: Optional[torch.Tensor] = None,
     lora: Optional[LayerLora] = None,
+    verify: bool = False,
 ) -> torch.Tensor:
     """One transformer block. With ``cache_kv`` (a dense cache: an admit
     group's local cache, a long prompt's local cache or the big cache) K/V
     are written at ``cache_index`` and attention runs over the cache
     (``_dispatch_attention``: ``kv_offset`` for a segment, ``lengths`` for
-    decode, ``kv_bound`` readable columns). With ``paged`` the cache entries
+    decode, ``kv_bound`` readable columns; ``verify``: a dense verify's
+    queries, ``lengths`` one a query on the kernel path). With ``paged`` the cache entries
     are per-layer page-pool entries and K/V scatter into the slot's pages;
     on the kernel path a segment (a segment read: the pool rows of the
     pages it can read, ``_page_rows``, and its readable columns) runs the
@@ -693,7 +710,7 @@ def _layer(
         else:
             k_all, v_all = kt, vt
         attn = _dispatch_attention(
-            q, k_all, v_all, mask, config, causal, kv_offset, kv_bound, lengths
+            q, k_all, v_all, mask, config, causal, kv_offset, kv_bound, lengths, verify
         )
     x = x + _lora_proj(attn, quantized_matmul(attn, lp["wo"]), "wo", lora)
     ffn_in = rms_norm(x, lp["ffn_norm"], config.rms_norm_eps)
@@ -714,7 +731,10 @@ def _embed(params: Params, tokens: torch.Tensor, config: ModelConfig) -> torch.T
         scale = _EMBED_SCALES.get(key)
         if scale is None:  # cached for capture, as the rope frequencies
             scale = torch.sqrt(torch.tensor(float(config.d_model), dtype=torch.float32))
-            scale = _EMBED_SCALES.setdefault(key, scale.to(x.dtype).to(x.device))
+            scale = scale.to(x.dtype).to(x.device)
+            if scale.device.type == "cuda":  # read by other threads' streams too
+                torch.cuda.current_stream(scale.device).synchronize()
+            scale = _EMBED_SCALES.setdefault(key, scale)
         x = x * scale
     return x
 
@@ -753,6 +773,39 @@ def forward(params: Params, tokens: torch.Tensor, config: ModelConfig) -> torch.
     for i in range(config.n_layers):
         x = _layer(x, _layer_params(params["layers"], i), sin, cos, mask, config)
     return _unembed(params, x, config)
+
+
+@torch.no_grad()
+def encode(
+    params: Params,
+    tokens: torch.Tensor,  # [B, S] padded
+    lengths: torch.Tensor,  # [B] true lengths
+    config: ModelConfig,
+) -> torch.Tensor:
+    """Mean-pooled, L2-normalised final hidden states → [B, D] f32
+    embeddings (the embeddings service's model; the JAX package's
+    ``encode``). Each row's real tokens attend to each other both ways
+    (``valid[:, None, :] & valid[:, :, None]``) through the reference
+    ``attention`` on every device, as the JAX package computes it outside
+    any Pallas kernel (the segment kernel is causal); the final norm, then
+    an f32 mean over the valid positions (divided by ``max(count, 1)``)
+    and ``pooled / max(||pooled||, 1e-9)``. The layers are the serving
+    ones: int8 weights through ``quantized_matmul``, MoE configs through
+    ``moe_ffn``; no adapter applies."""
+    b, s = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(s, device=dev).expand(b, s)
+    sin, cos = _rope_freqs(positions, config)
+    valid = positions < lengths.long()[:, None]  # [B, S]
+    mask = valid[:, None, :] & valid[:, :, None]
+    x = _embed(params, tokens, config)
+    for i in range(config.n_layers):
+        lp = _layer_params(params["layers"], i)
+        x = _layer(x, lp, sin, cos, mask, config, causal=False)
+    x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    w = valid[:, :, None].float()
+    pooled = (x.float() * w).sum(1) / w.sum(1).clamp_min(1.0)
+    return pooled / torch.linalg.vector_norm(pooled, dim=-1, keepdim=True).clamp_min(1e-9)
 
 
 @torch.no_grad()
@@ -867,6 +920,70 @@ def decode_step_inplace(
             kv_bound=kv_bound, lengths=lengths, lora=_lora_layer(lora, adapter_rows, i),
         )
     return _unembed(params, x, config)[:, 0], cache
+
+
+def dense_verify_queries(positions: torch.Tensor, s: int, width: int) -> torch.Tensor:
+    """The kernel path's flattening of a dense verify: the ``s`` queries of
+    each of B rows become B*s single-query rows of the dense decode kernel,
+    ``s`` a cache row (``queries_per_row``); query j of row b gets the
+    length ``positions[b] + j + 1``, capped at the ``width`` columns the
+    kernel reads → lengths [B*s] int32. It reads exactly the columns the
+    verify's causal mask shows it: its own draft and the ones before, never
+    a later (stale or rejected) draft's."""
+    pos = positions.long()[:, None] + torch.arange(s, device=positions.device)[None, :]
+    return (pos + 1).clamp_max(width).to(torch.int32).reshape(-1)
+
+
+@torch.no_grad()
+def verify_step_inplace(
+    params: Params,
+    tokens: torch.Tensor,  # [B, K+1]: each row's current token and its K drafts
+    positions: torch.Tensor,  # [B] position of each row's first token
+    cache: KVCache,  # dense [L, B, Hkv, T, D]
+    config: ModelConfig,
+    kv_bound: Optional[int] = None,  # readable cache columns
+    lora: Optional[dict] = None,
+    adapter_rows: Optional[torch.Tensor] = None,  # [B]: a row's adapter serves all K+1
+) -> tuple[torch.Tensor, KVCache]:
+    """Multi-token speculative verify over the dense cache → logits at
+    every position ``[B, K+1, V]``; the cache is updated in place. K/V of
+    all K+1 inputs are written at ``[positions, positions + K]`` (columns
+    past the cache land in its last, sink column). Positions advance only
+    past the accepted tokens, so a rejected draft's column is stale until
+    the next dispatch overwrites it, before any query can reach it.
+
+    Query j of row b attends to the columns ``<= positions[b] + j`` of the
+    ``[..., :kv_bound]`` view (``multitoken_verify_attention``). On the
+    kernel path the B*(K+1) queries run through the dense decode kernel as
+    single-query rows, K+1 a cache row (``dense_verify_queries``; one
+    launch a layer, on CPU tensors its plain version); with
+    ``attention_impl="jnp"`` the view is read under the per-slot causal
+    mask — what the JAX package's ``verify_step_inplace`` computes.
+
+    An MoE config sends T = B*(K+1) tokens through ``moe_ffn``, as the
+    paged verify does."""
+    b, s = tokens.shape
+    dev = tokens.device
+    positions = positions.long()
+    pos = positions[:, None] + torch.arange(s, device=dev)[None, :]  # [B, K+1]
+    sin, cos = _rope_freqs(pos, config)
+    t = cache_width(cache)
+    view = t if kv_bound is None else min(kv_bound, t)
+    mask, lengths = None, None
+    if kernel_path_ok(config, dev):
+        lengths = dense_verify_queries(positions, s, view)
+    else:
+        mask = torch.arange(view, device=dev)[None, None, :] <= pos[:, :, None]
+    # one index per verify serves every layer's K/V scatter
+    index = _dense_index(pos, t, config.n_kv_heads)
+    x = _embed(params, tokens, config)
+    for i in range(config.n_layers):
+        x = _layer(
+            x, _layer_params(params["layers"], i), sin, cos, mask, config,
+            cache_kv=_cache_layer(cache, i), cache_index=index, kv_bound=kv_bound,
+            lengths=lengths, lora=_lora_layer(lora, adapter_rows, i), verify=True,
+        )
+    return _unembed(params, x, config), cache
 
 
 def decode_step(

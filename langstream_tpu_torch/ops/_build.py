@@ -44,7 +44,7 @@ SOURCES: dict[str, dict[str, list]] = {
         "lstpu_decode": [
             _p, _p, _p, _p, _p, _p, _p, _p,
             _i, _i, _i, _i, _i, _i, _i, _i, _i, _ll, _ll, _ll, _ll,
-            _i, _i, _i, _i, _i, _f, _f, _p,
+            _i, _i, _i, _i, _i, _i, _f, _f, _p,
         ],
     },
 }

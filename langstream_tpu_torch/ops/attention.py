@@ -13,7 +13,9 @@ Seven kernels, each a hand-written CUDA C++ kernel for Hopper
   ``_prefill_kernel``);
 - ``ragged_decode_attention`` / ``ragged_decode_attention_int8``: one query
   per row against a dense head-major cache (``csrc/ragged_decode.cu``;
-  replaces ``_decode_kernel`` / ``_decode_int8_kernel``);
+  replaces ``_decode_kernel`` / ``_decode_int8_kernel``); several query
+  rows may share a cache row (``queries_per_row``: a verify's k + 1
+  queries, routed by ``multitoken_verify_attention``);
 - ``ragged_paged_decode_attention`` / ``ragged_paged_decode_attention_int8``:
   one query per row against the page pool through a page table
   (``csrc/ragged_decode.cu``; replaces ``_paged_decode_kernel`` /
@@ -520,7 +522,7 @@ def _cluster_smem(g: int, d: int, tile_rows: int, stages: int, item: int = 2) ->
 def decode_launch_plan(
     q_shape: tuple, kv_shape: tuple, kv_strides: tuple, kv_dtype: torch.dtype, layout: str,
     table_width: Optional[int] = None, kv_ptr: int = 0, q_ptr: int = 0,
-    scale_strides: Optional[tuple] = None,
+    scale_strides: Optional[tuple] = None, queries_per_row: int = 1,
 ) -> dict:
     """The launch of the decode kernel for these shapes, element strides,
     dtype and base addresses. ``layout`` "paged": ``kv_shape`` is the pool
@@ -531,8 +533,10 @@ def decode_launch_plan(
     tiles of ``DECODE_TILE_ROWS`` rows. An int8 cache also takes its f32
     scales' element strides (``scale_strides``: rows of stride 1, a paged
     scale pool contiguous; any f32 base is aligned for their 4-byte
-    copies).
-    → {"layout", "cluster" (CTAs splitting one (row, kv head): min(4,
+    copies). ``queries_per_row`` (dense only): query row r reads cache row
+    ``r // queries_per_row`` — a flattened verify's k + 1 queries share
+    their cache row; 1 is one query a row.
+    → {"layout", "queries_per_row", "cluster" (CTAs splitting one (row, kv head): min(4,
     tiles)), "grid" (Hkv, B, cluster), "threads", "page_rows",
     "table_width" (0 when dense), "tile_rows", "tiles" (of a full row),
     "width" (the rows a row can reach), "tiles_per_rank" (of a full row),
@@ -558,6 +562,10 @@ def decode_launch_plan(
                          f"{KERNEL_HEAD_DIMS} / {KERNEL_GROUPS}")
     if kv_dtype not in (torch.bfloat16, torch.int8):
         raise ValueError(f"decode kernel: cache dtype {kv_dtype} (bf16 or int8)")
+    qpr = int(queries_per_row)
+    if qpr < 1 or (layout == "paged" and qpr != 1):
+        raise ValueError(f"decode kernel: {qpr} queries a cache row ({layout}); a paged "
+                         "launch gives each query its own table row")
     int8 = kv_dtype == torch.int8
     item = 1 if int8 else 2
     sb, sh, st, sd = kv_strides
@@ -580,8 +588,9 @@ def decode_launch_plan(
         tile_rows = max(t for t in range(1, min(rows, DECODE_TILE_ROWS) + 1) if rows % t == 0)
         tiles = table_width * (rows // tile_rows)
     else:
-        if n0 != b:
-            raise ValueError(f"decode kernel: q {tuple(q_shape)} vs cache {tuple(kv_shape)}")
+        if n0 * qpr != b:
+            raise ValueError(f"decode kernel: q {tuple(q_shape)} ({qpr} a cache row) vs "
+                             f"cache {tuple(kv_shape)}")
         if sb <= 0 or sh <= 0 or sb % d or sh % d:
             raise ValueError(f"decode kernel: cache strides {tuple(kv_strides)} are not "
                              f"whole rows of {d}")
@@ -603,6 +612,7 @@ def decode_launch_plan(
                          f"{smem} bytes of shared memory (a CTA has {SMEM_PER_CTA})")
     return {
         "layout": layout,
+        "queries_per_row": qpr,
         "cluster": cluster,
         "grid": (hkv, b, cluster),
         "threads": DECODE_THREADS,
@@ -637,12 +647,13 @@ def decode_rank_tiles(length: int, plan: dict, rank: int) -> range:
 def _decode_launch(
     q: torch.Tensor, kq: torch.Tensor, vq: torch.Tensor, ks: Optional[torch.Tensor],
     vs: Optional[torch.Tensor], lengths: torch.Tensor, table: Optional[torch.Tensor],
-    config: ModelConfig, what: str,
+    config: ModelConfig, what: str, qpr: int = 1,
 ) -> torch.Tensor:
     """One launch of decode_cluster_kernel for all four decode wrappers
     (inputs already checked; ``ks``/``vs`` None for a bf16 cache, ``table``
-    None for the dense layout); the plan raises before a launch the copies
-    cannot take, and the output is the only allocation."""
+    None for the dense layout, ``qpr`` query rows a dense cache row); the
+    plan raises before a launch the copies cannot take, and the output is
+    the only allocation."""
     b, h, d = q.shape
     dev = q.device
     dense = table is None
@@ -650,6 +661,7 @@ def _decode_launch(
         q.shape, kq.shape, kq.stride(), kq.dtype, "dense" if dense else "paged",
         table_width=None if dense else table.shape[1], kv_ptr=kq.data_ptr() | vq.data_ptr(),
         q_ptr=q.data_ptr(), scale_strides=None if ks is None else ks.stride(),
+        queries_per_row=qpr,
     )
     out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
     cap = config.attn_logit_softcap
@@ -660,8 +672,9 @@ def _decode_launch(
         b, h, kq.shape[1], d, 0 if dense else kq.shape[0], plan["page_rows"], plan["tile_rows"],
         plan["table_width"], kq.shape[2] if dense else 0,
         kq.stride(0) if dense else 0, kq.stride(1) if dense else 0, *plan["scale_strides"],
-        int(ks is not None), int(dense), plan["cluster"], plan["stages"], plan["smem_bytes"],
-        1.0 / math.sqrt(d), float(cap) if cap else 0.0, _stream(dev),
+        int(ks is not None), int(dense), plan["queries_per_row"], plan["cluster"],
+        plan["stages"], plan["smem_bytes"], 1.0 / math.sqrt(d), float(cap) if cap else 0.0,
+        _stream(dev),
     )
     _build.check(err, what)
     return out.reshape(b, h * d)
@@ -675,75 +688,87 @@ def _f32(entry: CacheEntry) -> torch.Tensor:
 
 
 def _decode_f32(
-    q: torch.Tensor,  # [B, H, D]
-    kk: torch.Tensor,  # [B, Hkv, T, D] f32
+    q: torch.Tensor,  # [B, H, D], B = cache rows x qpr
+    kk: torch.Tensor,  # [B / qpr, Hkv, T, D] f32
     vv: torch.Tensor,
     lengths: torch.Tensor,  # [B]
     config: ModelConfig,
+    qpr: int = 1,
 ) -> torch.Tensor:
-    """The math of every decode kernel → [B, H*D]: keys past each row's
-    length (clamped to T) masked to -1e30 and never accumulated, f32
-    softmax, l clamped to 1e-30."""
+    """The math of every decode kernel → [B, H*D]: query row r reads cache
+    row r // qpr, keys past its length (clamped to T) masked to -1e30 and
+    never accumulated, f32 softmax, l clamped to 1e-30. The qpr queries of
+    a cache row run as one [qpr * G, T] product (V zeroed past the longest
+    of their lengths; a shorter query's masked p is exactly 0)."""
     b, h, d = q.shape
-    hkv, t = kk.shape[1], kk.shape[2]
+    rows, hkv, t = kk.shape[0], kk.shape[1], kk.shape[2]
     group = h // hkv
     valid = torch.arange(t, device=q.device)[None, :] < lengths.long()[:, None]  # [B, T]
-    vv = vv.masked_fill(~valid[:, None, :, None], 0.0)
-    qf = q.float().reshape(b, hkv, group, d)
-    scores = torch.matmul(qf, kk.transpose(-1, -2)) * (1.0 / math.sqrt(d))  # [B,Hkv,G,T]
+    vv = vv.masked_fill(~valid.reshape(rows, qpr, t).any(1)[:, None, :, None], 0.0)
+    qf = (q.float().reshape(rows, qpr, hkv, group, d).transpose(1, 2)
+          .reshape(rows, hkv, qpr * group, d))
+    scores = torch.matmul(qf, kk.transpose(-1, -2)) * (1.0 / math.sqrt(d))  # [R,Hkv,qG,T]
     scores = softcap(scores, config.attn_logit_softcap)
-    scores = torch.where(valid[:, None, None, :], scores, torch.full_like(scores, _NEG))
+    seen = valid.reshape(rows, qpr, 1, t).expand(rows, qpr, group, t).reshape(rows, 1, -1, t)
+    scores = torch.where(seen, scores, torch.full_like(scores, _NEG))
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     p = torch.where(scores <= _NEG, torch.zeros_like(p), p)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.matmul(p, vv) / l
+    out = torch.matmul(p, vv) / l  # [R, Hkv, qpr * G, D]
+    out = out.reshape(rows, hkv, qpr, group, d).transpose(1, 2)
     return out.to(q.dtype).reshape(b, h * d)
 
 
 def ragged_decode_reference(
-    q: torch.Tensor,  # [B, H, D]
-    k: CacheEntry,  # [B, Hkv, T, D] cache (or int8 dict)
+    q: torch.Tensor,  # [B, H, D], B = cache rows x queries_per_row
+    k: CacheEntry,  # [B / queries_per_row, Hkv, T, D] cache (or int8 dict)
     v: CacheEntry,
     lengths: torch.Tensor,  # [B]
     config: ModelConfig,
+    queries_per_row: int = 1,
 ) -> torch.Tensor:
     """Plain version of both dense decode kernels → [B, H*D]: K/V in f32
-    (int8 dequantized, f32 throughout as on the TPU)."""
-    return _decode_f32(q, _f32(k), _f32(v), lengths, config)
+    (int8 dequantized, f32 throughout as on the TPU); query row r reads
+    cache row ``r // queries_per_row``."""
+    return _decode_f32(q, _f32(k), _f32(v), lengths, config, queries_per_row)
 
 
 def _dense_decode_launch(
     q: torch.Tensor, k: CacheEntry, v: CacheEntry, lengths: torch.Tensor,
-    config: ModelConfig, what: str,
+    config: ModelConfig, what: str, qpr: int,
 ) -> torch.Tensor:
     b, h, d = q.shape
     dev = q.device
     _require_cuda_kernel(dev, d, what)
     kq, vq, ks, vs, _ = _check_cache(k, v, dev, what)
     hkv, t = kq.shape[1], kq.shape[2]
-    if kq.shape != (b, hkv, t, d) or t == 0 or lengths.shape != (b,):
-        raise ValueError(f"{what}: q {tuple(q.shape)} / lengths {tuple(lengths.shape)} "
-                         f"vs cache {tuple(kq.shape)}")
+    if (qpr < 1 or b % qpr or kq.shape != (b // qpr, hkv, t, d) or t == 0
+            or lengths.shape != (b,)):
+        raise ValueError(f"{what}: q {tuple(q.shape)} ({qpr} a cache row) / lengths "
+                         f"{tuple(lengths.shape)} vs cache {tuple(kq.shape)}")
     _require_group(h, hkv, what)
     _check(q, "q", (torch.bfloat16,), dev)
     _check(lengths, "lengths", (torch.int32,), dev)
-    return _decode_launch(q, kq, vq, ks, vs, lengths, None, config, what)
+    return _decode_launch(q, kq, vq, ks, vs, lengths, None, config, what, qpr)
 
 
 def ragged_decode_attention(
     q: torch.Tensor,  # [B, H, D] single query per row
-    k: torch.Tensor,  # [B, Hkv, T, D] dense cache (a [..., :T] view is read in place)
+    k: torch.Tensor,  # [B / qpr, Hkv, T, D] dense cache (a [..., :T] view is read in place)
     v: torch.Tensor,
     lengths: torch.Tensor,  # [B] int32 valid cache prefix per row (clamped to T)
     config: ModelConfig,
+    queries_per_row: int = 1,
 ) -> torch.Tensor:
     """GQA decode attention over a dense cache → [B, H*D]; the CUDA kernel
-    on CUDA tensors (bf16 q and cache), the plain version on the CPU."""
+    on CUDA tensors (bf16 q and cache), the plain version on the CPU. Query
+    row r reads cache row ``r // queries_per_row`` (a flattened verify's
+    k + 1 queries share their row; ``dense_verify_queries``)."""
     if q.device.type == "cpu":
         ragged_decode_attention.cpu_calls += 1
-        return ragged_decode_reference(q, k, v, lengths, config)
-    out = _dense_decode_launch(q, k, v, lengths, config, "dense_decode")
+        return ragged_decode_reference(q, k, v, lengths, config, queries_per_row)
+    out = _dense_decode_launch(q, k, v, lengths, config, "dense_decode", queries_per_row)
     ragged_decode_attention.launches += 1
     return out
 
@@ -754,17 +779,20 @@ ragged_decode_attention.cpu_calls = 0
 
 def ragged_decode_attention_int8(
     q: torch.Tensor,  # [B, H, D]
-    k: dict,  # int8 cache entry {"q": [B,Hkv,T,D] i8, "s": [B,Hkv,T] f32}
+    k: dict,  # int8 cache entry {"q": [B/qpr,Hkv,T,D] i8, "s": [B/qpr,Hkv,T] f32}
     v: dict,
     lengths: torch.Tensor,  # [B] int32
     config: ModelConfig,
+    queries_per_row: int = 1,
 ) -> torch.Tensor:
     """GQA decode attention over an int8 dense cache → [B, H*D]; rows are
-    dequantized to f32 in registers, as the TPU kernel does in VMEM."""
+    dequantized to f32 in registers, as the TPU kernel does in VMEM. Query
+    row r reads cache row ``r // queries_per_row``."""
     if q.device.type == "cpu":
         ragged_decode_attention_int8.cpu_calls += 1
-        return ragged_decode_reference(q, k, v, lengths, config)
-    out = _dense_decode_launch(q, k, v, lengths, config, "dense_decode_int8")
+        return ragged_decode_reference(q, k, v, lengths, config, queries_per_row)
+    out = _dense_decode_launch(q, k, v, lengths, config, "dense_decode_int8",
+                               queries_per_row)
     ragged_decode_attention_int8.launches += 1
     return out
 
@@ -888,6 +916,37 @@ def ragged_paged_decode_attention_int8(
 
 ragged_paged_decode_attention_int8.launches = 0
 ragged_paged_decode_attention_int8.cpu_calls = 0
+
+
+# ---------------------------------------------------------------------------
+# Multi-token verify over the dense cache: the seam of the JAX package's
+# ``multitoken_verify_attention`` (a routing over the kernels, not a kernel)
+# ---------------------------------------------------------------------------
+
+
+def multitoken_verify_attention(
+    q: torch.Tensor,  # [B, S, H, D]: each row's current token and its S - 1 drafts
+    k: CacheEntry,  # [B, Hkv, T, D] dense cache (or int8 dict), the drafts' K/V written
+    v: CacheEntry,
+    mask: Optional[torch.Tensor],  # [B, S, T] per-slot causal mask (reference path)
+    config: ModelConfig,
+    lengths: Optional[torch.Tensor] = None,  # [B*S] int32 (kernel path)
+) -> torch.Tensor:
+    """Per-slot causal attention of a verify's queries against the dense
+    cache → [B, S, H*D]: query j of row b sees the columns ``<= positions[b]
+    + j``. With ``lengths`` (the kernel path, ``dense_verify_queries``) the
+    B*S queries run as single-query rows of the dense decode kernel, S a
+    cache row — one launch, each query read to its own length (the plain
+    version on CPU tensors); without, the masked reference ``attention``
+    under ``mask``, which is what the JAX package computes."""
+    b, s, h, d = q.shape
+    if lengths is None:
+        from langstream_tpu_torch.models.transformer import attention
+
+        return attention(q, k, v, mask, config)
+    kernel = ragged_decode_attention_int8 if isinstance(k, dict) else ragged_decode_attention
+    out = kernel(q.reshape(b * s, h, d).contiguous(), k, v, lengths, config, queries_per_row=s)
+    return out.reshape(b, s, h * d)
 
 
 # name → wrapper, the set chip_smoke.py and stats() report

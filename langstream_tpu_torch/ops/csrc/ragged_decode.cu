@@ -28,7 +28,9 @@
 // page is clamped into [0, P-1], so an unmapped sentinel entry reads some
 // page instead of faulting. Dense: the length is clamped to the cache width
 // T, so a row whose position ran past a [..., :T] view reads the view and
-// nothing beyond it.
+// nothing beyond it; query row b reads cache row b / qpr, so the k + 1
+// queries of a flattened dense verify share their row (qpr = k + 1; the
+// decode step's launch is qpr = 1).
 //
 // Bound on an H100: device-memory bytes. A step reads every valid K/V
 // element once — sum(lengths) * Hkv * D * 2 * itemsize per layer, plus 8
@@ -271,9 +273,10 @@ __device__ __forceinline__ void widen(const int8_t* p, float* f) {
 // tr), whose rows start at (clamp(table[b, page]) * Hkv + kvh) * ps of the
 // pool [P, Hkv, ps, D], and whose scales start at the same index of the
 // scale pool [P, Hkv, ps]. Dense: tile j is rows [j * tr, (j + 1) * tr) of
-// the cache, whose batch / kv-head strides are rsb / rsh rows, and of the
-// scales, whose strides are ssb / ssh elements; the length is clamped to
-// T, and the table, P, ps and Tp are unused. k_scale / v_scale are read
+// cache row b / qpr (qpr query rows share a cache row: a flattened
+// verify's k + 1 queries), whose batch / kv-head strides are rsb / rsh
+// rows, and of the scales, whose strides are ssb / ssh elements; the
+// length is clamped to T, and the table, P, ps and Tp are unused. k_scale / v_scale are read
 // for an int8 cache only.
 template <typename TKV, int D, int G>
 __global__ void __launch_bounds__(kCThreads, min_ctas<TKV>(D, G))
@@ -286,8 +289,8 @@ decode_cluster_kernel(const bf16* __restrict__ q,         // [B, H, D]
                       const int* __restrict__ table,      // [B, Tp] (paged)
                       bf16* __restrict__ out,             // [B, H, D]
                       int H, int Hkv, int P, int ps, int tr, int Tp, int T, long long rsb,
-                      long long rsh, long long ssb, long long ssh, int dense, int stages,
-                      float scale, float softcap) {
+                      long long rsh, long long ssb, long long ssh, int dense, int qpr,
+                      int stages, float scale, float softcap) {
   constexpr bool kInt8 = sizeof(TKV) == 1;
   constexpr int kLPR = lanes_per_row<TKV>(D, G);
   constexpr int kE = chunk_elems<TKV>(D, G);  // elements of a chunk (one load)
@@ -351,6 +354,7 @@ decode_cluster_kernel(const bf16* __restrict__ q,         // [B, H, D]
   __syncthreads();
   const int b = *row_of;
   const int length = dense ? min(max(lengths[b], 0), T) : max(lengths[b], 0);
+  const long long cb = dense ? b / qpr : 0;  // the dense cache row query row b reads
   const int spp = ps / tr;  // tiles per page
   const int n_tiles = dense ? (length + tr - 1) / tr : min((length + tr - 1) / tr, Tp * spp);
   const int per = (n_tiles + n_ranks - 1) / n_ranks;
@@ -370,7 +374,7 @@ decode_cluster_kernel(const bf16* __restrict__ q,         // [B, H, D]
       // every lane: an int8 tile's lanes write the stage too
       if (k >= stages) mbar_wait(empty0 + 8 * s, uint32_t((k / stages) - 1) & 1u);
       const int j = t0 + k;
-      const size_t row0 = dense ? size_t(b * rsb + kvh * rsh) + size_t(j) * tr
+      const size_t row0 = dense ? size_t(cb * rsb + kvh * rsh) + size_t(j) * tr
                                 : (size_t(pg) * Hkv + kvh) * ps + size_t(j % spp) * tr;
       const int valid = min(tr, length - j * tr);
       const uint32_t dst = smem_u32(smem) + uint32_t(s) * L.stage;
@@ -381,7 +385,7 @@ decode_cluster_kernel(const bf16* __restrict__ q,         // [B, H, D]
         bulk_load(dst + L.v, vp + row0 * D, bytes, full0 + 8 * s);
       }
       if constexpr (kInt8) {
-        const size_t sc0 = dense ? size_t(b * ssb + kvh * ssh) + size_t(j) * tr : row0;
+        const size_t sc0 = dense ? size_t(cb * ssb + kvh * ssh) + size_t(j) * tr : row0;
         for (int i = lane; i < valid; i += 32) {
           copy4_async(dst + L.ksc + 4 * i, k_scale + sc0 + i);
           copy4_async(dst + L.vsc + 4 * i, v_scale + sc0 + i);
@@ -635,7 +639,7 @@ struct ClusterArgs {
   int B, H, Hkv, P, ps, tr, Tp, T;
   long long rsb, rsh;  // dense: K/V strides in rows
   long long ssb, ssh;  // dense int8: scale strides in elements
-  int dense, cluster, stages, smem;
+  int dense, qpr, cluster, stages, smem;
   float scale, softcap;
 };
 
@@ -664,7 +668,7 @@ cudaError_t launch_cluster(const ClusterArgs& a, cudaStream_t stream) {
                             static_cast<const TKV*>(a.k), static_cast<const TKV*>(a.v),
                             a.k_scale, a.v_scale, a.lengths, a.table, static_cast<bf16*>(a.out),
                             a.H, a.Hkv, a.P, a.ps, a.tr, a.Tp, a.T, a.rsb, a.rsh, a.ssb, a.ssh,
-                            a.dense, a.stages, a.scale, a.softcap);
+                            a.dense, a.qpr, a.stages, a.scale, a.softcap);
 }
 
 template <typename TKV, int D>
@@ -708,7 +712,8 @@ cudaError_t launch_cluster_d(int D, const ClusterArgs& a, cudaStream_t stream) {
 // Dense: k/v cache [B, Hkv, T, D] with rows of D contiguous elements at
 // element strides kv_sb / kv_sh (whole rows), scales [B, Hkv, T] at element
 // strides sc_sb / sc_sh with rows of stride 1, lengths clamped to T, table
-// null, page_rows unused. cluster (1..8), stages and smem come from
+// null, page_rows unused; qpr (>= 1) query rows share a cache row (query
+// row r reads cache row r / qpr, B a multiple of qpr; 1 when paged). cluster (1..8), stages and smem come from
 // decode_launch_plan; smem must equal cluster_layout's total. Every K/V
 // base, and every row, must be 16-byte aligned (the bulk copies' rule);
 // scales need only their own 4-byte alignment. softcap <= 0 disables the
@@ -717,7 +722,8 @@ extern "C" int lstpu_decode(const void* q, const void* k, const void* v, const v
                             const void* v_scale, const void* lengths, const void* table,
                             void* out, int B, int H, int Hkv, int D, int P, int page_rows,
                             int tile_rows, int Tp, int T, long long kv_sb, long long kv_sh,
-                            long long sc_sb, long long sc_sh, int kv_int8, int dense, int cluster,
+                            long long sc_sb, long long sc_sh, int kv_int8, int dense, int qpr,
+                            int cluster,
                             int stages, int smem, float scale, float softcap, void* stream) {
   if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || tile_rows <= 0 || cluster < 1 ||
       cluster > kMaxCluster || stages < 1)
@@ -726,11 +732,12 @@ extern "C" int lstpu_decode(const void* q, const void* k, const void* v, const v
             : (P <= 0 || Tp <= 0 || !table || page_rows % tile_rows != 0))
     return int(cudaErrorInvalidValue);
   if (kv_int8 && (!k_scale || !v_scale)) return int(cudaErrorInvalidValue);
+  if (qpr < 1 || B % qpr != 0 || (!dense && qpr != 1)) return int(cudaErrorInvalidValue);
   const ClusterArgs a{q, k, v, static_cast<const float*>(k_scale),
                       static_cast<const float*>(v_scale), static_cast<const int*>(lengths),
                       static_cast<const int*>(table), out, B, H, Hkv, P,
                       dense ? tile_rows : page_rows, tile_rows, Tp, T, kv_sb / D, kv_sh / D,
-                      sc_sb, sc_sh, dense, cluster, stages, smem, scale, softcap};
+                      sc_sb, sc_sh, dense, qpr, cluster, stages, smem, scale, softcap};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return int(kv_int8 ? launch_cluster_d<int8_t>(D, a, st) : launch_cluster_d<bf16>(D, a, st));
 }

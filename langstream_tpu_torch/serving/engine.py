@@ -75,7 +75,7 @@ through a ``[..., :kv_bound]`` view; a long prompt's segments go into a
 batch-1 local cache (``prefill_segment``), inserted into the slot's row
 after the final one.
 
-Prefix KV reuse (``prefix_cache="auto"``, paged layout only): a radix
+Prefix KV reuse (``prefix_cache="auto"``), paged layout: a radix
 index (``serving/pagepool.PrefixPageIndex``) maps bucket-aligned prompt
 prefixes to the pages that hold their KV. Every prefill that completes
 (a cold admit group, a warm admission, a long prompt's final segment)
@@ -91,14 +91,24 @@ prompt starts its segments at that offset. Decode reads the shared pages
 through every aliasing slot's table and writes only at positions past
 its prompt, never into a shared full page. A quarantined slot's published
 entries are evicted before its pages are zeroed, and a restart resets the
-index with the pool (its counters are cumulative).
+index with the pool (its counters are cumulative). Dense layout (the JAX
+engine's dense pool, ``serving/prefix_cache.PrefixCachePool``): every
+completed prefill copies the slot's row into a pool row of the widest
+bucket's columns (``ops/kvcopy.publish_prefix_rows``; LRU eviction of
+unpinned rows when full, skipped when all are pinned); a short admission
+whose deepest cached prefix leaves a suffix bucket inside the pool width
+gathers that row into a pool-width local cache
+(``gather_prefix_local``), prefills the suffix as one segment at the reuse
+offset and inserts the local cache into its row; a long prompt reuses
+only a full segment width, starting its stream's local cache from the
+pool row. A restart resets the pool.
 
 An MoE model's logits depend on the other rows of its batch (the experts'
 capacity is shared), so its admit groups are padded to ``PREFILL_BATCH``
 rows with the JAX engine's pad rows (token 0, length 1): the same groups
 give the same tokens.
 
-Self-speculative decoding (``speculation="auto"``, paged layout only):
+Self-speculative decoding (``speculation="auto"``, both layouts):
 every admission seeds the slot's n-gram index
 (``serving/speculation.NGramIndex``) with its whole prompt, and every
 delivered token joins it. Each decode iteration is then one verify instead
@@ -106,7 +116,9 @@ of a decode chunk: the host drains every fetch in flight (drafts must
 continue from the last accepted token), proposes up to
 ``speculation_tokens`` (k) drafts a slot, copies them into the static
 ``[B, k]`` draft buffer, and replays the captured ``_verify_chunk`` — one
-``paged_verify_step_inplace`` over each slot's token and its drafts, then
+``paged_verify_step_inplace`` (dense: ``verify_step_inplace``, the dense
+decode kernel reading each row's k + 1 queries) over each slot's token
+and its drafts, then
 ``speculative_verify`` — which advances the chain in place (the token at
 the accepted length, ``positions += accept + 1``) and writes the packed
 ``[B, k + 2]`` output (emitted tokens and the accepted count). The host
@@ -182,9 +194,8 @@ last ``flight_iterations`` iterations, dumped on a NaN or page quarantine,
 an engine restart, a shed burst, a brownout transition and
 ``stats(dump=True)``. Nothing is recorded inside a captured chunk.
 
-Not ported yet (later slices): the dense layout's prefix pool and verify
-(ROADMAP item 4), the host-RAM KV tier and hibernation (item 5), the SPMD
-watchdog (item 7).
+Not ported yet (later slices): the host-RAM KV tier and hibernation
+(ROADMAP item 5), the SPMD watchdog (item 7).
 """
 
 from __future__ import annotations
@@ -215,6 +226,7 @@ from langstream_tpu_torch.models.transformer import (
     paged_verify_step_inplace,
     prefill,
     prefill_segment,
+    verify_step_inplace,
 )
 from langstream_tpu_torch.ops.attention import (
     add_counts,
@@ -237,7 +249,13 @@ from langstream_tpu_torch.serving.observability import (
     emit_request_spans,
     load_score,
 )
+from langstream_tpu_torch.ops.kvcopy import gather_prefix_local, publish_prefix_rows
 from langstream_tpu_torch.serving.pagepool import PagePool, PrefixPageIndex, pages_for_fraction
+from langstream_tpu_torch.serving.prefix_cache import (
+    PrefixCachePool,
+    PrefixEntry,
+    pool_entries_for_fraction,
+)
 from langstream_tpu_torch.serving.sampling import sample, speculative_verify
 from langstream_tpu_torch.serving.speculation import NGramIndex
 from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
@@ -672,26 +690,17 @@ class ServingEngine:
         self.page_size = max(1, int(page_size))
         self._pagepool: Optional[PagePool] = None
         self._prefix_index: Optional[PrefixPageIndex] = None
+        self._prefix_pool: Optional[PrefixCachePool] = None
         self._cache: Optional[KVCache] = None
         prefix_on = prefix_cache is True or str(prefix_cache).lower() in (
             "auto", "on", "true", "1"
         )
-        if prefix_on and not self._paged:
-            raise NotImplementedError(
-                "prefix_cache on the dense layout: the dense prefix pool is not ported "
-                "(ROADMAP item 4); use kv_layout='paged'"
-            )
         # self-speculative decoding: host-side n-gram drafts, k of them per
         # slot and iteration, scored in one verify dispatch; one k
         # engine-wide (its static buffers and graphs have k + 1 columns)
         spec_on = speculation is True or str(speculation).lower() in (
             "auto", "on", "true", "1"
         )
-        if spec_on and not self._paged:
-            raise NotImplementedError(
-                "speculation on the dense layout: the dense verify (verify_step_inplace) "
-                "is not ported (ROADMAP item 4); use kv_layout='paged'"
-            )
         self._spec_enabled = spec_on
         self.spec_tokens = max(1, int(speculation_tokens)) if spec_on else 0
         self._spec_index: dict[int, NGramIndex] = {}
@@ -722,6 +731,18 @@ class ServingEngine:
             # there (JAX drops them)
             self._cache = make_kv_cache(
                 config, self.max_batch, self.max_seq_len + 1, device=self.device
+            )
+        # the dense prefix pool: rows of the widest bucket's columns, as
+        # many as the fraction of the cache's tokens (an explicit entry
+        # count wins, 0 disables it); allocated after the memory plan
+        pool_entries, pool_width = 0, 0
+        if prefix_on and not self._paged:
+            pool_width = self.prefill_buckets[-1]
+            pool_entries = (
+                int(prefix_cache_entries) if prefix_cache_entries is not None
+                else pool_entries_for_fraction(
+                    self.max_batch, self.max_seq_len, pool_width, prefix_cache_fraction
+                )
             )
         # chunked-prefill streams: queued long requests, one held back when
         # that queue is full, and the active streams by slot (request, next
@@ -759,6 +780,7 @@ class ServingEngine:
         )
         self.brownout_dumps_total = 0
         self._brownout_checked_at = 0.0
+        self._brownout_lock = threading.Lock()
         # histograms, request spans and the flight recorder; every sample
         # is host-side (nothing inside a captured chunk)
         self._obs = EngineObservability(
@@ -912,6 +934,8 @@ class ServingEngine:
             kv_layout=self.kv_layout,
             page_size=self.page_size,
             kv_pages=self._pagepool.num_pages if self._paged else 0,
+            prefix_pool_entries=pool_entries,
+            prefix_pool_width=pool_width,
             weight_load_staging=int(self._weight_load_report.get("staging-peak-bytes", 0)),
             adapter_pool_rows=self._adapters.rows if self._adapters else 0,
             adapter_rank=self._adapters.rank if self._adapters else 0,
@@ -923,6 +947,11 @@ class ServingEngine:
         )
         log.info("serving memory plan (%s, B=%d, T=%d, %s): %s", config.name, self.max_batch,
                  self.max_seq_len, self.kv_layout, self.memory_plan.summary())
+        if pool_entries > 0:
+            self._prefix_pool = PrefixCachePool(
+                config, pool_entries, pool_width, boundaries=self.prefill_buckets,
+                device=self.device,
+            )
 
     def _alloc_decode_state(self) -> None:
         """Fresh static buffers of the decode chunk: the chain (last sampled
@@ -1169,16 +1198,20 @@ class ServingEngine:
             self._positions_dev.add_(1)
             self._chunk_out[step].copy_(tokens)
 
-    def _verify_chunk(self, samples: bool, filters: bool) -> None:
+    def _verify_chunk(self, samples: bool, filters: bool, kv_bound: Optional[int] = None) -> None:
         """One speculative verify over the static buffers: each slot's
         current token and its k drafts through ``paged_verify_step_inplace``
-        at ``[position, position + k]``, then ``speculative_verify``; the
+        (dense: ``verify_step_inplace``, reading a ``[..., :kv_bound]`` view
+        of the big cache — ``max_seq_len`` by default, so no query reads
+        the sink column; the CPU passes the exact bound) at ``[position,
+        position + k]``, then ``speculative_verify``; the
         chain advances in place to the emitted token at the accepted length
         (``positions += accept + 1``) and ``_verify_out`` receives the
         emitted tokens and the accepted count — nothing rebound, no host
         sync, so the graphs capture it as they capture ``_decode_chunk``.
-        Rows of the dispatch table that are not active are the sentinel, so
-        their (discarded) verify writes only into the sink page. With the
+        Paged: rows of the dispatch table that are not active are the
+        sentinel, so their (discarded) verify writes only into the sink
+        page; dense: inactive rows write into their own rows. With the
         agentic tier each row's adapter serves all k + 1 of its inputs,
         position j is masked by the host-computed state ``_vstates_dev[:,
         j]`` (``verify_states``), and the DFA state advances from the
@@ -1186,10 +1219,17 @@ class ServingEngine:
         k = self.spec_tokens
         reg = self._constrain_reg
         inputs = torch.cat([self._tokens_dev[:, None], self._drafts_dev], dim=1)  # [B, k+1]
-        logits, _ = paged_verify_step_inplace(
-            self.params, inputs, self._positions_dev, self._pagepool.dev, self._table_dev,
-            self.config, self.page_size, **self._lora_kw(self._arows_dev),
-        )
+        lora = self._lora_kw(self._arows_dev)
+        if self._paged:
+            logits, _ = paged_verify_step_inplace(
+                self.params, inputs, self._positions_dev, self._pagepool.dev, self._table_dev,
+                self.config, self.page_size, **lora,
+            )
+        else:
+            logits, _ = verify_step_inplace(
+                self.params, inputs, self._positions_dev, self._cache, self.config,
+                self.max_seq_len if kv_bound is None else kv_bound, **lora,
+            )
         allowed = reg.pool[0][self._g_rows_dev[:, None], self._vstates_dev] if reg else None
         out, accept = speculative_verify(
             logits, self._drafts_dev, self._generator, self._temp_dev, self._top_k_dev,
@@ -1268,7 +1308,8 @@ class ServingEngine:
             if self.device.type == "cuda" or self._graph_factory is not None:
                 raise RuntimeError(f"no captured {kind} graph: start() captures them")
             if kind == "verify":
-                self._verify_chunk(*branch)
+                kv_bound = None if self._paged else self._decode_kv_bound(self.spec_tokens + 1)
+                self._verify_chunk(*branch, kv_bound=kv_bound)
                 return
             kv_bound = None if self._paged else self._decode_kv_bound(self.decode_chunk)
             self._decode_chunk(*branch, kv_bound=kv_bound)
@@ -1487,7 +1528,8 @@ class ServingEngine:
         """One consistent snapshot of the counters (read under the lock
         their writers hold), plain values only. ``dump=True`` also
         snapshots the flight recorder (``flight-recorder``)."""
-        pool, index = self._pagepool, self._prefix_index
+        pool, index, dense_pool = self._pagepool, self._prefix_index, self._prefix_pool
+        reuse = dense_pool if dense_pool is not None else index
         # the histograms and the tenants take their own locks, never
         # nested with the stats lock
         hist = self._obs.histograms()
@@ -1552,15 +1594,17 @@ class ServingEngine:
                 # prefix KV reuse (the JAX engine's keys and meanings; zeros
                 # with reuse off): a warm admission's prefill tokens count
                 # only its suffix, the saved ones count here
-                "prefix-cache": index is not None,
-                "prefix-cache-hit-rate": index.hit_rate() if index else 0.0,
-                "prefill-tokens-saved-total": index.tokens_saved if index else 0,
+                # (from the dense pool or the paged index, whichever is live)
+                "prefix-cache": reuse is not None,
+                "prefix-cache-hit-rate": reuse.hit_rate() if reuse else 0.0,
+                "prefill-tokens-saved-total": reuse.tokens_saved if reuse else 0,
                 "prefix-copy-bytes-saved-total": index.copy_bytes_saved if index else 0,
                 "prefix-pool-bytes-in-use": (
-                    index.pages_held * pool.bytes_per_page if index else 0
+                    dense_pool.bytes_in_use() if dense_pool
+                    else index.pages_held * pool.bytes_per_page if index else 0
                 ),
-                "prefix-cache-evictions-total": index.evictions if index else 0,
-                "prefix-cache-entries": index.live_entries if index else 0,
+                "prefix-cache-evictions-total": reuse.evictions if reuse else 0,
+                "prefix-cache-entries": reuse.live_entries if reuse else 0,
                 "kv-page-alias-rate": (
                     round(pool.aliased_pages_total / max(1, pool.reserved_pages_total), 4)
                     if pool else 0.0
@@ -1626,16 +1670,18 @@ class ServingEngine:
                 "kv-pool-bytes": pool.bytes_total,
             })
         else:
-            out["kv-cache-bytes"] = sum(
-                t.numel() * t.element_size() for t in _leaves(self._cache)
-            )
+            # the plan's term is the cache's bytes (a restart rebuilding
+            # the cache leaves nothing to read meanwhile)
+            out["kv-cache-bytes"] = self.memory_plan.cache_bytes
         # multi-tenant overload control and observability (the JAX
         # engine's keys)
         bo = self._brownout
         out["tenants"] = tenants
-        out["brownout"] = bo.snapshot() if bo is not None else None
-        out["brownout-level"] = bo.level if bo is not None else 0
-        out["brownout-transitions-total"] = bo.transitions_total if bo is not None else 0
+        with self._brownout_lock:  # a transition's level, dump and counters together
+            out["brownout"] = bo.snapshot() if bo is not None else None
+            out["brownout-level"] = bo.level if bo is not None else 0
+            out["brownout-transitions-total"] = bo.transitions_total if bo is not None else 0
+            out["flight-dumps-total"] = self._obs.flight.dumps_total
         out["observability"] = self._obs.on
         out["histograms"] = hist
         page_pressure = (
@@ -1648,7 +1694,6 @@ class ServingEngine:
             out["active-slots"] / max(1, self.max_batch),
             page_pressure,
         )
-        out["flight-dumps-total"] = self._obs.flight.dumps_total
         if dump:
             out["flight-recorder"] = self._flight_dump("on-demand", force=True)
         return out
@@ -1775,6 +1820,9 @@ class ServingEngine:
             self._cache = make_kv_cache(
                 self.config, self.max_batch, self.max_seq_len + 1, device=self.device
             )
+            if self._prefix_pool is not None:
+                # rows may hold prefixes published from the poisoned cache
+                self._prefix_pool.reset()
         self._alloc_decode_state()
         self._capture_graphs()
 
@@ -1933,23 +1981,27 @@ class ServingEngine:
         if now - self._brownout_checked_at < 0.05:
             return
         self._brownout_checked_at = now
-        transition = self._brownout.observe(self._current_load_score(), now)
-        if transition is None:
-            return
-        old, new = transition
-        snap = self._brownout.snapshot()
-        log.warning("brownout %s: level %d -> %d (step %s, load %.3f)",
-                    "escalated" if new > old else "released", old, new, snap["step"],
-                    snap["last-load"])
-        dumped = self._flight_dump("brownout", extra={
-            "brownout-from": old,
-            "brownout-to": new,
-            "brownout-step": snap["step"],
-            "load-score": snap["last-load"],
-        })
-        if dumped is not None:
-            with self._stats_lock:
-                self.brownout_dumps_total += 1
+        load = self._current_load_score()
+        # the new level, its dump and its counters become visible to
+        # stats() together (it reads them under the same lock)
+        with self._brownout_lock:
+            transition = self._brownout.observe(load, now)
+            if transition is None:
+                return
+            old, new = transition
+            snap = self._brownout.snapshot()
+            log.warning("brownout %s: level %d -> %d (step %s, load %.3f)",
+                        "escalated" if new > old else "released", old, new, snap["step"],
+                        snap["last-load"])
+            dumped = self._flight_dump("brownout", extra={
+                "brownout-from": old,
+                "brownout-to": new,
+                "brownout-step": snap["step"],
+                "load-score": snap["last-load"],
+            })
+            if dumped is not None:
+                with self._stats_lock:
+                    self.brownout_dumps_total += 1
 
     BURST_TENANT = "chaos-burst"
 
@@ -2231,6 +2283,21 @@ class ServingEngine:
                     entries.extend(self._paged_prefill_prefix(idx, request, base))
                 # base < 0: can never fit, resolved with ShedError
             pairs = cold
+        elif self._prefix_pool is not None:
+            # dense: in pop order, a request whose cached prefix extends in
+            # place is admitted at once as a warm suffix segment (which
+            # publishes before the next lookup); an adapter request neither
+            # looks up nor publishes — its K/V carry its wk / wv deltas
+            cold = []
+            for idx, request in pairs:
+                hit = None if request.options.adapter else self._dense_prefix_lookup(
+                    request.prompt_tokens
+                )
+                if hit is None:
+                    cold.append((idx, request))
+                else:
+                    entries.extend(self._dense_prefill_prefix(idx, request, *hit))
+            pairs = cold
         groups: dict[int, list[tuple[int, GenerationRequest]]] = {}
         for idx, request in pairs:
             groups.setdefault(self._bucket(len(request.prompt_tokens)), []).append(
@@ -2379,6 +2446,93 @@ class ServingEngine:
         self._maybe_publish(idx, prompt)
         return [("prefill", self._fetcher.submit(first), [(idx, request)], 0)]
 
+    def _dense_prefix_lookup(
+        self, prompt: list[int], full_width_only: bool = False
+    ) -> Optional[tuple[int, PrefixEntry]]:
+        """The deepest usable cached prefix of ``prompt`` as ``(p, entry)``
+        (``p`` may be shorter than the entry: its row's first p columns),
+        the lookup counted in the pool's hit rate — the JAX engine's
+        ``_prefix_lookup``. A short prompt takes only a ``p`` whose suffix
+        bucket fits the pool-width local cache; a long one
+        (``full_width_only``) only a full segment width, so its segments
+        stay on the segment grid."""
+        pool = self._prefix_pool
+        best = None
+        for p, entry in pool.candidates(prompt):  # ascending by p
+            if full_width_only:
+                if p == pool.width:
+                    best = (p, entry)
+            elif p + self._bucket(len(prompt) - p) <= pool.width:
+                best = (p, entry)
+        pool.record_lookup(best[1] if best else None)
+        return best
+
+    def _dense_prefill_prefix(
+        self, idx: int, request: GenerationRequest, p: int, entry: PrefixEntry
+    ) -> list[tuple]:
+        """A warm short admission on the dense layout: pool row → a
+        pool-width batch-1 local cache (``gather_prefix_local``), one
+        suffix segment of ``_bucket(len(suffix))`` tokens at offset ``p``
+        (the segment kernels on the kernel path), the insert into the
+        slot's row, the first sample and the chain — the cold path without
+        the prefix's prefill. The entry is pinned while it is read.
+        Publishes the prompt before returning. A failed segment (the
+        ``segment`` fault site) fails this request only."""
+        pool = self._prefix_pool
+        prompt = request.prompt_tokens
+        suffix = prompt[p:]
+        width = self._bucket(len(suffix))
+        tokens = np.zeros((1, width), np.int64)
+        tokens[0, : len(suffix)] = suffix
+        opts = request.options
+        slots = np.array([idx], np.int64)
+        agentic = self._row_agentic([request], 1)
+        started = time.monotonic()
+        pool.acquire(entry)
+        try:
+            if self._injector is not None:
+                self._injector.fire("segment")
+            local = gather_prefix_local(pool.dev, entry.row, self.config, pool.width,
+                                        device=self.device)
+            logits, _ = prefill_segment(
+                self.params, self._upload(tokens), self._upload(np.array([p], np.int64)),
+                self._upload(np.array([len(suffix)], np.int64)), local, self.config,
+                kv_bound=p + width, **self._lora_kw(agentic[0] if agentic is not None else None),
+            )
+            dense_insert_cache(self._cache, local, self._upload(slots))
+            first = self._seed_chain(
+                logits, slots, np.array([len(prompt)], np.int64),
+                np.array([opts.temperature], np.float32), np.array([opts.top_k], np.int64),
+                np.array([opts.top_p], np.float32), agentic,
+            )
+        except Exception as e:  # noqa: BLE001 — fail the request, not the engine
+            if _is_sticky(e):
+                raise
+            log.exception("warm prefix admission failed (p=%d)", p)
+            request._finish(self._result(request, [], "error", error=e))
+            return []
+        finally:
+            pool.release(entry)
+        pool.tokens_saved += p
+        if self._obs.on:
+            self._obs.record("engine_prefill_dispatch_s", time.monotonic() - started)
+        slot = self._slots[idx]
+        slot.request = request
+        slot.position = len(prompt)
+        slot.generated = []
+        slot.started_at = started
+        slot.first_token_at = 0.0
+        slot.reset_obs("warm", 1)
+        self._slot_bind_agentic(idx, request)
+        self._spec_admit(idx, prompt)
+        with self._stats_lock:
+            self.total_requests += 1
+            self.warm_admissions_total += 1
+            self.prefill_tokens_total += len(suffix)
+        self._note_tenant_admitted(request)
+        self._maybe_publish(idx, prompt)
+        return [("prefill", self._fetcher.submit(first), [(idx, request)], 0)]
+
     def _spec_admit(self, idx: int, prompt: list[int]) -> None:
         """Give an admitted slot its draft index, seeded with the whole
         prompt (a warm admission's aliased prefix too): the prompt is where
@@ -2390,13 +2544,31 @@ class ServingEngine:
             self._spec_index[idx] = index
 
     def _maybe_publish(self, idx: int, prompt: list[int]) -> None:
-        """Publish the prompt's deepest bucket boundary after its prefill:
-        host bookkeeping only — the slot's first ``ceil(p / page_size)``
-        pages join the index by a refcount bump. Skipped when reuse is
-        off, the prefix is already published, or no boundary fits — and for
-        an adapter slot, whose K/V carry its adapter's deltas."""
+        """Publish the prompt's deepest bucket boundary after its prefill.
+        Paged: host bookkeeping only — the slot's first ``ceil(p /
+        page_size)`` pages join the index by a refcount bump. Dense: the
+        slot's row (its first pool-width columns) is copied into a pool
+        row (``publish_prefix_rows``), the LRU unpinned entry evicted when
+        the pool is full; skipped when every row is pinned. Skipped when
+        reuse is off, the prefix is already published, or no boundary fits
+        — and for an adapter slot, whose K/V carry its adapter's deltas.
+        Boundaries are prompt rows written by prefill, never verify
+        columns."""
+        if self._adapter_rows_auth[idx] != 0:
+            return
+        pool = self._prefix_pool
+        if pool is not None:
+            p = pool.publish_length(len(prompt))
+            if p <= 0 or pool.has(prompt, p):
+                return
+            row = pool.allocate()
+            if row is None:
+                return  # every row pinned: skip, never stall an admission
+            publish_prefix_rows(pool.dev, self._cache, idx, row)
+            pool.insert(prompt, p, row)
+            return
         index = self._prefix_index
-        if index is None or self._adapter_rows_auth[idx] != 0:
+        if index is None:
             return
         p = index.publish_length(len(prompt))
         if p <= 0 or index.has(prompt, p):
@@ -2449,9 +2621,8 @@ class ServingEngine:
             self.total_requests += len(group)
             self.admit_groups_total += 1
             self.prefill_tokens_total += sum(len(r.prompt_tokens) for _, r in group)
-        if self._paged:
-            for idx, request in group:
-                self._maybe_publish(idx, request.prompt_tokens)
+        for idx, request in group:
+            self._maybe_publish(idx, request.prompt_tokens)
         return [("prefill", self._fetcher.submit(first), list(group), 0)]
 
     def _dev_prefill(self, tokens, lengths, temps, top_ks, top_ps, slots, rows: int,
@@ -2543,6 +2714,7 @@ class ServingEngine:
             if self._agentic and not self._resolve_agentic(request):
                 continue  # unknown adapter / pinned-full pool: resolved
             base = 0
+            st: dict = {"idx": free, "request": request, "seg": 0}
             if self._paged:
                 # any published boundary works: paged segments write at
                 # global positions, so the stream starts at the reuse offset
@@ -2552,7 +2724,16 @@ class ServingEngine:
                     break
                 if base < 0:
                     continue  # can never fit: resolved with ShedError
-            self._longs[free] = {"idx": free, "request": request, "seg": 0, "base": base}
+            elif self._prefix_pool is not None and not request.options.adapter:
+                # dense: a cached full segment width starts the stream at
+                # the reuse point (the segment grid stays aligned); the
+                # entry is pinned until the first segment has gathered it
+                hit = self._dense_prefix_lookup(request.prompt_tokens, full_width_only=True)
+                if hit is not None:
+                    base, st["prefix"] = hit
+                    self._prefix_pool.acquire(st["prefix"])
+            st["base"] = base
+            self._longs[free] = st
         # round-robin, so two streams alternate when the budget covers one
         order = sorted(self._longs)
         start_at = next((j for j, i in enumerate(order) if i > self._long_rr), 0)
@@ -2572,6 +2753,9 @@ class ServingEngine:
         del self._longs[idx]
         if self._paged:
             self._pagepool.free_slot(idx)
+        entry = st.pop("prefix", None)
+        if entry is not None:
+            self._prefix_pool.release(entry)
         with self._stats_lock:
             if reason == "cancelled":
                 self.cancelled_total += 1
@@ -2629,7 +2813,13 @@ class ServingEngine:
             else:
                 t_long = self._long_width(len(prompt))
                 if st["seg"] == 0:
-                    st["cache"] = make_kv_cache(self.config, 1, t_long + 1, device=dev)
+                    entry = st.get("prefix")
+                    # a warm stream's local cache starts as its pool row
+                    st["cache"] = (
+                        make_kv_cache(self.config, 1, t_long + 1, device=dev) if entry is None
+                        else gather_prefix_local(self._prefix_pool.dev, entry.row, self.config,
+                                                 t_long + 1, device=dev)
+                    )
                 logits, _ = prefill_segment(
                     self.params, self._upload(tokens), offsets, seg_len, st["cache"],
                     self.config, kv_bound=min(s0 + width, t_long), **lora,
@@ -2641,6 +2831,10 @@ class ServingEngine:
             self._end_stream(st, "error", error=e)
             return []
         st["seg"] += 1
+        entry = st.pop("prefix", None)
+        if entry is not None:  # gathered: unpinned, its columns counted saved
+            self._prefix_pool.release(entry)
+            self._prefix_pool.tokens_saved += st["base"]
         if self._obs.on:
             self._obs.record("engine_prefill_dispatch_s", time.monotonic() - started)
         with self._stats_lock:
@@ -2670,8 +2864,7 @@ class ServingEngine:
         with self._stats_lock:
             self.total_requests += 1
         self._note_tenant_admitted(request)
-        if self._paged:
-            self._maybe_publish(idx, prompt)
+        self._maybe_publish(idx, prompt)
         return [("prefill", self._fetcher.submit(first), [(idx, request)], 0)]
 
     # -- decode dispatch -------------------------------------------------------
@@ -2813,7 +3006,8 @@ class ServingEngine:
         path), the host writes of a decode chunk, then the replay; the
         packed ``[B, k + 2]`` output goes to the fetch thread right behind
         it. None when the integrity check quarantined every active slot."""
-        self._page_integrity_check()
+        if self._paged:
+            self._page_integrity_check()
         self._adapter_integrity_check()
         if not any(s.active for s in self._slots):
             return None

@@ -10,8 +10,9 @@ dense layout the chunked-prefill streams' local caches; with speculation
 the verify chunk's logits; the captured graphs' pool, one term per graph
 set ``start()`` captures (the decode chunk, the verify, or both); with
 int8 weights the eager path's widened weights; the agentic tier's two
-pools (the multi-LoRA adapter pool, the packed grammar pool); and a flat
-workspace allowance (activations, cuBLAS workspace). The streamed weight load's
+pools (the multi-LoRA adapter pool, the packed grammar pool); on the
+dense layout with prefix reuse the prefix pool; and a flat workspace
+allowance (activations, cuBLAS workspace). The streamed weight load's
 host staging peak is host RAM and stays outside the device total.
 
 int8 weights are widened to the model dtype at every matmul
@@ -27,9 +28,8 @@ The JAX plan's XLA-only terms have no counterpart here: the port has no
 ``kv_bound`` compile ladder on the card (a captured decode chunk reads the
 dense cache at full width, the kernels read each row to its length), so
 there is no ``bound_slice_bytes``; and the layer loop updates the cache in
-place, so there is no ``scan_buffer_bytes``. The prefix pool of the dense
-layout, the host KV tier, migration and the durable tier are not ported,
-so neither are their terms.
+place, so there is no ``scan_buffer_bytes``. The host KV tier, migration
+and the durable tier are not ported, so neither are their terms.
 
 ``max_context_single_chip`` inverts the plan to the largest power-of-two
 context a device budget serves. The engine logs its plan when it is built.
@@ -71,6 +71,11 @@ class ServingMemoryPlan:
     # the paged pool ``[L, P + 1, Hkv, page_size, D]`` (the extra page is
     # the write sink); when set, cache and long_cache are 0
     page_pool_bytes: int = 0
+    # the dense layout's prefix pool (serving/prefix_cache.py): entries + 1
+    # rows (the sink row) of the widest bucket's columns, resident for the
+    # engine's lifetime; 0 with reuse off or on the paged layout, whose
+    # one page pool holds the shared prefixes
+    prefix_pool_bytes: int = 0
     # speculation: the verify's f32 logits for all k + 1 positions of every
     # slot, charged at 5 such buffers (the sampler's filtered peak), as the
     # JAX plan charges them; 0 with speculation off
@@ -105,6 +110,7 @@ class ServingMemoryPlan:
             + self.workspace_bytes
             + self.fused_prefill_bytes
             + self.page_pool_bytes
+            + self.prefix_pool_bytes
             + self.verify_chunk_bytes
             + self.graph_pool_bytes
             + self.eager_widened_bytes
@@ -138,6 +144,7 @@ class ServingMemoryPlan:
         return (
             f"weights {self.weights_bytes / gib:.2f}GiB + {kv} + {agentic}"
             f"fused-prefill {self.fused_prefill_bytes / gib:.2f}GiB + "
+            f"prefix-pool {self.prefix_pool_bytes / gib:.2f}GiB + "
             f"verify-chunk {self.verify_chunk_bytes / gib:.2f}GiB + "
             f"graph-pool ({'+'.join(self.graph_sets) or 'none'}) "
             f"{self.graph_pool_bytes / gib:.2f}GiB + "
@@ -159,6 +166,8 @@ def plan_serving_memory(
     prefill_batch: int = 0,
     prefill_bucket: int = 0,
     prefill_streams: int = 1,
+    prefix_pool_entries: int = 0,
+    prefix_pool_width: int = 0,
     speculation_tokens: int = 0,
     kv_layout: str = "dense",
     page_size: int = 64,
@@ -183,7 +192,9 @@ def plan_serving_memory(
     the ``[L, max_batch, Hkv, max_seq_len + 1, D]`` cache and, with
     ``long_prefill``, ``prefill_streams`` one-row local caches of
     ``max_seq_len`` columns. ``prefill_batch`` / ``prefill_bucket``: the
-    admit group's local cache (0 omits it). ``speculation_tokens``: k of
+    admit group's local cache (0 omits it). ``prefix_pool_entries`` /
+    ``prefix_pool_width``: the dense layout's prefix pool (0 omits it; the
+    paged layout's prefixes live in its page pool). ``speculation_tokens``: k of
     the verify (0: speculation off). ``weight_load_staging``: the streamed
     load's host staging peak, reported outside the total. ``graph_sets``:
     the sets of captured graphs (``"decode"``, ``"verify"``; empty: none
@@ -252,9 +263,17 @@ def plan_serving_memory(
         if long_prefill
         else 0
     )
+    prefix = 0
+    if prefix_pool_entries > 0 and prefix_pool_width > 0:
+        from langstream_tpu_torch.ops.kvcopy import make_prefix_pool
+
+        prefix = tree_bytes(
+            make_prefix_pool(config, prefix_pool_entries, prefix_pool_width, device=meta)
+        )
     return ServingMemoryPlan(
         weights_bytes=weights,
         cache_bytes=tree_bytes(make_kv_cache(config, max_batch, max_seq_len + 1, device=meta)),
+        prefix_pool_bytes=prefix,
         long_cache_bytes=long_bytes,
         workspace_bytes=workspace_bytes,
         fused_prefill_bytes=fused,

@@ -35,6 +35,9 @@ def test_port_files_exist():
         "langstream_tpu_torch/serving/observability.py",
         "langstream_tpu_torch/api/metrics.py",
         "langstream_tpu_torch/tracing.py",
+        "langstream_tpu_torch/agents/vector/__init__.py",
+        "langstream_tpu_torch/serving/prefix_cache.py",
+        "langstream_tpu_torch/ops/kvcopy.py",
         "chip_smoke.py",
     ):
         assert mod in rel
@@ -89,6 +92,38 @@ def test_no_cuda_raises(monkeypatch, tmp_path):
         make_page_pool(cfg, 4, 8, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TorchCompletionsService({"model": "tiny-test"})
+
+
+def test_no_cuda_raises_at_the_rag_entry_points(monkeypatch):
+    """The provider, its embeddings service, the vector store and the dense
+    prefix pool refuse "cuda" without a card, and serve the CPU when the
+    caller asks for it."""
+    from langstream_tpu_torch.agents.vector import LocalVectorDataSource
+    from langstream_tpu_torch.ai.torch_serving import TorchServingProvider
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.ops.kvcopy import gather_prefix_local, make_prefix_pool
+    from langstream_tpu_torch.serving.prefix_cache import PrefixCachePool
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = MODEL_PRESETS["tiny-test"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TorchServingProvider({"model": "tiny-test"})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LocalVectorDataSource({"path": None})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PrefixCachePool(cfg, 2, 16, (8, 16))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_prefix_pool(cfg, 2, 16)
+    pool = make_prefix_pool(cfg, 2, 16, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gather_prefix_local(pool, 0, cfg, 16)
+    provider = TorchServingProvider({"model": "tiny-test", "device": "cpu", "max-seq-len": 64})
+    vectors = asyncio.run(provider.get_embeddings_service({}).compute_embeddings(["a", "b"]))
+    assert len(vectors) == 2 and len(vectors[0]) == cfg.d_model
+    store = LocalVectorDataSource({"device": "cpu"})
+    store.upsert("i", "a", vectors[0], {})
+    assert store.search("i", vectors[0], 1)[0]["id"] == "a"
+    asyncio.run(provider.close())
 
 
 def test_completions_service_streams_text():

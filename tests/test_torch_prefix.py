@@ -535,11 +535,14 @@ def test_provider_prefix_keys():
     assert off.prefix_cache == "off"
     with pytest.raises(ValueError, match="prefix-cache"):
         TorchCompletionsService({**base, "prefix-cache": "sometimes"})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        TorchCompletionsService({**base, "prefix-cache": "auto", "kv-layout": "dense"})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        ServingEngine(configs()[1], weights()[1], device="cpu", kv_layout="dense",
-                      prefix_cache="auto")
+    # the dense layout's prefix pool is served since it was ported
+    dense = TorchCompletionsService({**base, "prefix-cache": "auto", "kv-layout": "dense",
+                                     "prefix-cache-entries": 7})
+    assert dense.prefix_cache == "auto" and dense.kv_layout == "dense"
+    engine = ServingEngine(configs()[1], weights()[1], device="cpu", kv_layout="dense",
+                           prefix_cache="auto", prefix_cache_entries=7, max_seq_len=128)
+    assert engine._prefix_pool.entries == 7 and engine._prefix_index is None
+    engine.stop()
     with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
         TorchCompletionsService({**base, "prefix-cache": "auto", "host-kv-fraction": 2.0})
     with pytest.raises(ValueError, match="spill"):

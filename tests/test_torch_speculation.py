@@ -632,8 +632,12 @@ def test_restart_captures_the_verify_graphs_again():
 
 
 def test_dense_speculation_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        port_engine(kv_layout="dense")
+    """Refused until the dense verify was ported; now served: a dense engine
+    with speculation builds its verify buffers (tests/test_torch_dense_verify.py
+    holds it against the JAX dense engine)."""
+    dense = port_engine(kv_layout="dense")
+    assert dense._spec_enabled and dense.spec_tokens == K and dense._drafts_dev.shape == (2, K)
+    dense.stop()
     assert port_engine(speculation_tokens=0).spec_tokens == 1
 
 
@@ -642,8 +646,8 @@ def test_provider_speculation_keys():
     from langstream_tpu_torch.ai.torch_serving import TorchCompletionsService
 
     base = {"model": "tiny-test", "device": "cpu", "max-batch": 2, "decode-chunk": 4}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        TorchCompletionsService({**base, "kv-layout": "dense", "speculation": "auto"})
+    assert TorchCompletionsService(
+        {**base, "kv-layout": "dense", "speculation": "auto"}).speculation == "auto"
     with pytest.raises(ValueError, match="unknown speculation"):
         TorchCompletionsService({**base, "speculation": "eager"})
     with pytest.raises(ValueError, match="speculation-tokens must be >= 1"):
