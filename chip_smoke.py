@@ -219,7 +219,55 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    saved, the pool as allocated equal to the plan's term, warm TTFT
    beside cold, warm first-token logits within 5% of the cold ones,
    top-1 equal.
-15. ``load``    — serve a safetensors checkpoint: llama-3-8b at full width
+15. ``tiered``  — the host KV tier and the durable tier at llama-3-8b's
+   full width and depth (bf16, paged, page 64, max-batch 8, max_seq_len
+   2048, ``prefix-cache`` auto). 24 sessions, each a seeded 1024-token
+   history: round 1 (history + a 40-token turn, 16 new tokens, greedy, all
+   24 queued at once) publishes 16 pages a session — 384 pages, more than
+   the pool's prefix headroom — then round 2 (history + a new 20..120-token
+   turn, one session at a time) hits at 1024. Three engines serve it: a
+   pool of 640 pages nothing is evicted from (the tokens' reference), the
+   default pool (320 pages) with the tier off (evicted prefixes
+   re-prefill), and the default pool with ``host-kv-fraction`` 2.0 and
+   ``spill-idle-s`` 0 (a 5 GiB pinned arena; its bytes and allocation
+   seconds printed): every round of each ends with its tokens, no plain
+   version, replays = chunks, paged decode launches = layers x steps and
+   segment launches = layers x warm admissions. Between the rounds, on the
+   stopped tiered engine, one entry's 16 pages read to the host are held
+   against its arena copy, then demoted and restored by the engine and held
+   bit-equal again; the restore's ms, its checksum's host ms (the
+   engine's threads, and one thread), its upload's device ms and a 128 MiB
+   pinned host-to-device copy (the bound), and the spill's copy of those
+   pages, are timed. Required: round 1 demotes,
+   round 2 restores with no restore failure and no recompute fallback,
+   both rounds' tokens the reference's (or one-ulp ties,
+   ``_same_or_tie``), the restored turns' first-token logits bit-equal to
+   the no-eviction engine's warm hits and within 5% of the tier-off
+   engine's cold admissions of the same prompts (top-1 equal, or a tie
+   both logits show within one bf16 ulp: the cold group's GEMMs have other
+   shapes), the engine's peak within its memory plan. Printed: the spill /
+   restore / demotion totals, the spill worker's GB/s, round-2 TTFT p50 /
+   max beside the tier-off and no-eviction engines', a captured decode
+   step's device ms alone and with 4 x 2 GiB of spill copies in flight
+   (the engine's DMA, and the same copies staged through torch's strided
+   ``copy_``), 4 concurrent decoders' largest gap between token bursts
+   when a hibernated session's turn arrives and restores against the
+   same turn as a device hit, the launches. Then ``spill@1``: a hibernated session's restore meets a
+   flipped arena byte, refuses it, re-prefills cold with the reference's
+   tokens (or ties). The int8 pass: 8 sessions one at a time through a
+   64-page int8 pool (bytes a page printed): the bit-equal restore, round
+   2 restores, tokens as a no-eviction int8 run's, the same drill. The
+   durable pass: the first 8 sessions' first turns through a provider
+   with ``durable-dir`` (a directory under ``build/``, removed after) and
+   ``fault-injection: disk-corrupt@1``, then ``hibernate()`` (entries,
+   bytes, the checkpoints' GB/s); a second provider on the same directory
+   in the same process must rehydrate all 8 and serve their second turns
+   from disk: 7 durable restores, each session's pages bit-equal to its
+   checkpoint, the corrupted one a ``durable-restore-failed`` dump and a
+   cold prefill, every turn's tokens the reference's (or ties); a
+   restore's ms beside a sequential read of one checkpoint file (from the
+   host's page cache, just written).
+16. ``load``    — serve a safetensors checkpoint: llama-3-8b at full width
    and depth (the seeded tree, bf16, 16.06 GB) written by ``save_params_hf``
    as 4 shards of at most 5 GB under ``build/ckpt/`` (with under 17 GiB
    free there, the 4-layer ``llama-3-8b-shallow``, said in the output),
@@ -246,7 +294,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    ``fault-injection: weight-load@1`` through the provider must leave no
    engine and no params, the injector fired once. The checkpoint is
    deleted and both trees freed before ``moe``.
-16. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
+17. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
    experts, top-2) with int8 weights drawn on the card (46.9 GB; the
    llama weights are dropped first), paged bf16 KV, max_seq_len 4096: 9
    requests of 21..3001 tokens, 32 new each (the 3001-token prompt takes 2
@@ -255,7 +303,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    reference path (a 200-token prompt, 4 paged decode steps) and one
    layer's ``moe_ffn`` timed at decode (8 tokens) and at a 2048-token
    segment beside its weight-byte bound.
-17. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+18. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
    and int8 page pools and the bf16 dense cache (8192 wide), traced with
    torch.profiler: the device's busy share of the wall and the top
    kernels (no split-K decode kernel may appear).
@@ -289,9 +337,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
-          "prefix", "spec", "tenancy", "agentic", "embed", "dense_tiers", "load", "moe",
+          "prefix", "spec", "tenancy", "agentic", "embed", "dense_tiers", "tiered", "load", "moe",
           "profile")
-DEFAULT_PHASES = PHASES[:16]
+DEFAULT_PHASES = PHASES[:17]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -4598,6 +4646,705 @@ def phase_profile(ctx: dict) -> None:
             raise AssertionError(f"profile {label}: split-K decode kernels launched: {stale}")
 
 
+TIERED_SESSIONS = 24
+TIERED_HISTORY = 1024
+TIERED_FIRST_TURN = 40
+TIERED_SECOND_TURNS = (20, 120)  # the shortest and the longest second turn
+TIERED_NEW = 16
+TIERED_KW = {"max_seq_len": 2048, "prefix_cache": "auto"}
+# the arena: twice the pool's pages (320 at llama-3-8b's default: 5 GiB
+# pinned), every published prefix hibernating as soon as it is idle
+TIERED_TIER = {"host_kv_fraction": 2.0, "spill_idle_s": 0.0}
+# a pool no session's prefix is ever evicted from (24 x 16 + 8 x 19 pages)
+TIERED_BIG_POOL = 640
+# the int8 pass: 8 sessions one at a time through a pool of 64 pages, so
+# all but the last two hibernate and demote
+TIERED_INT8_SESSIONS = 8
+TIERED_INT8_POOL = 64
+# the durable pass: the first 8 sessions through two providers on one
+# directory under build/ (git-ignored, removed at the end)
+TIERED_DURABLE_SESSIONS = 8
+
+
+def _tiered_prompts(seed: int) -> tuple[list, list, list]:
+    """24 sessions' seeded 1024-token histories (byte tokens, BOS first),
+    their first turns (history + 40 tokens) and their second turns
+    (history + 20..120 tokens, every length distinct)."""
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    n = TIERED_SESSIONS
+    lo, hi = TIERED_SECOND_TURNS
+    second = [lo + round((hi - lo) * i / (n - 1)) for i in range(n)]
+    texts = _prompts([TIERED_HISTORY] * n + [TIERED_FIRST_TURN] * n + second, seed + 7)
+    histories = [tok.encode(t)[:TIERED_HISTORY] for t in texts[:n]]
+    first = [h + list(texts[n + i].encode()) for i, h in enumerate(histories)]
+    again = [h + list(texts[2 * n + i].encode()) for i, h in enumerate(histories)]
+    return histories, first, again
+
+
+def _tiered_engine(ctx, cfg, params, **kw):
+    from langstream_tpu_torch.serving.engine import ServingEngine
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    return ServingEngine(
+        cfg, params, max_batch=8, decode_chunk=16, page_size=PAGE,
+        eos_token_id=ByteTokenizer().eos_token_id, rng_seed=ctx["seed"], device="cuda",
+        **{**TIERED_KW, **kw},
+    )
+
+
+def _admission_routes(engine) -> dict:
+    """Record each admission's route by prompt length: a warm suffix
+    segment (restored from the host tier or not) or a cold group's row."""
+    routes: dict = {}
+    warm, group = engine._paged_prefill_prefix, engine._prefill_group
+
+    def warm_call(idx, request, p):
+        routes[len(request.prompt_tokens)] = "restored" if request._tier_restored else "warm"
+        return warm(idx, request, p)
+
+    def group_call(width, rows):
+        for _, request in rows:
+            routes[len(request.prompt_tokens)] = "cold"
+        return group(width, rows)
+
+    engine._paged_prefill_prefix, engine._prefill_group = warm_call, group_call
+    return routes
+
+
+def _tier_round(ctx, cfg, params, engine, prompts, sequential: bool) -> dict:
+    """One round of turns on a tiered (or reference) engine through
+    ``_serve`` (every request ends with its tokens, no plain version,
+    replays = chunks), with the tier's and the prefix index's counters over
+    the round and the segment and decode launches required."""
+    before = engine.stats()
+    run = _serve(ctx, cfg, params, [], TIERED_NEW, prompts=prompts, engine=engine,
+                 sequential=sequential)
+    engine._drain_spills()
+    after = engine.stats()
+    keys = ("warm-admissions-total", "admit-groups-total", "spill-pages-total",
+            "spill-bytes-total", "host-demotions-total", "host-evictions-total",
+            "restored-hits-total", "restore-failures-total", "recompute-fallbacks-total",
+            "restore-pages-total", "restore-bytes-total", "durable-restored-hits-total",
+            "prefix-cache-evictions-total")
+    run["tier"] = {k: after[k] - before[k] for k in keys}
+    run["warm_admissions"] = run["tier"]["warm-admissions-total"]
+    segments = run["kernel_launches"].get(_kernel_name("flash_segment", cfg), 0)
+    if segments != cfg.n_layers * run["warm_admissions"]:
+        raise AssertionError(f"tiered: {segments} segment launches != {cfg.n_layers} x "
+                             f"{run['warm_admissions']} warm admissions")
+    _require_launches(run, _kernel_name("paged_decode", cfg), "decode_steps", cfg.n_layers)
+    if run["tier"]["recompute-fallbacks-total"] or run["tier"]["restore-failures-total"]:
+        raise AssertionError(f"tiered: a clean round fell back: {run['tier']}")
+    return run
+
+
+def _restored_logits(logits: dict, ref_logits: dict, cold_logits: dict, restored: list,
+                     cold: list) -> dict:
+    """The restored turns' first-token logits: bit-equal to the same
+    prompts' on the no-eviction engine (a warm suffix segment over pages
+    that never left the card: the restore changed nothing), and — for the
+    shortest and longest of them that the tier-off engine re-prefilled —
+    within MODEL_REL_TOL of that cold admission's, top-1 equal or a tie
+    both logits show within one bf16 ulp each way (the cold group's GEMMs
+    have other shapes; ``_same_or_tie``'s rule)."""
+    import torch
+
+    unequal = [n for n in restored if not torch.equal(logits[n], ref_logits[n])]
+    if unequal:
+        raise AssertionError(f"tiered: restored logits of {unequal}-token prompts differ from "
+                             "the no-eviction engine's")
+    out = {"bit_equal_to_no_eviction": len(restored)}
+    for n in cold[:1] + cold[-1:]:
+        a, b = logits[n], cold_logits[n]
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        ta, tb = int(torch.argmax(a)), int(torch.argmax(b))
+        gaps = [abs((x[ta] - x[tb]).item()) for x in (a, b)]
+        ulps = [2 * _bf16_ulp(x.max().item()) for x in (a, b)]
+        tie = ta != tb and all(g <= u for g, u in zip(gaps, ulps))
+        out[f"len{n}"] = {"rel_err": rel, "top1_equal": ta == tb, "tie": tie,
+                          "top1": [ta, tb], "gaps": gaps}
+        if rel > MODEL_REL_TOL or not (ta == tb or tie):
+            raise AssertionError(f"tiered: restored vs cold logits of the {n}-token prompt: "
+                                 f"{out[f'len{n}']} (tolerance {MODEL_REL_TOL})")
+    out["tolerance"] = MODEL_REL_TOL
+    return out
+
+
+def _kernel_name(base: str, cfg) -> str:
+    return f"{base}_int8" if cfg.kv_cache_dtype == "int8" else base
+
+
+def _entry_for(engine, prompt):
+    """The live prefix entry covering ``prompt``'s history, or None."""
+    for _, entry in reversed(engine._prefix_index.candidates(prompt)):
+        if not entry.dropped:
+            return entry
+    return None
+
+
+def _page_image(torch, engine, pages) -> list:
+    """The pool pages' byte images (``join_page_bytes`` of their leaves,
+    read with ``page_read``: no device temporaries)."""
+    from langstream_tpu_torch.serving.pagepool import join_page_bytes, page_read, pool_leaves
+
+    leaves = pool_leaves(engine._pagepool.dev)
+    out = []
+    for p in pages:
+        blocks = [torch.empty((leaf.shape[0],) + tuple(leaf.shape[2:]), dtype=leaf.dtype)
+                  for leaf in leaves]
+        page_read(engine._pagepool.dev, p, blocks)
+        out.append(join_page_bytes(blocks))
+    return out
+
+
+def _restore_check(torch, engine, timer) -> dict:
+    """On a stopped engine: one entry holding device pages and its host
+    copy — its 16 pages read to the host, held against the arena's copy;
+    the entry demoted and restored by the engine (``_restore_entry``,
+    timed) and its new pages held against the first read; then the
+    restore's parts timed alone: the checksum of the 16 slots (host; the
+    engine's parallel ``read_slots``, and one slot after another on one
+    thread), their upload into free pages (device), and a 128 MiB pinned
+    host-to-device copy (the bound); and the spill's copy of the same pages
+    (device). The entry is left hibernated."""
+    from langstream_tpu_torch.serving.pagepool import HASH_THREADS, page_write
+
+    pool, index, tier = engine._pagepool, engine._prefix_index, engine._host_tier
+    engine._drain_spills()
+    # a device-only entry (read, then spilled here), else one spilled already
+    entry = min((e for e in index._live if e.pages and e.spilling is None),
+                key=lambda e: bool(e.host), default=None)
+    if entry is None:
+        raise AssertionError("tiered: no entry holds device pages")
+    n = len(entry.pages)
+    before = _page_image(torch, engine, entry.pages)
+    if not entry.host:
+        engine._spill_worker.start()  # start() would; the stopped engine's is idle
+        if not engine._ensure_spilled(entry) or not entry.spilling.event.wait(120):
+            raise AssertionError("tiered: the entry's spill did not complete")
+        engine._drain_spills()
+    arena = [tier.page_bytes(s) for s in entry.host]
+    if arena != before:
+        raise AssertionError("tiered: the arena's copy differs from the device pages")
+    index.release_device_pages(pool, entry)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok = engine._restore_entry(entry, entry.length)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if not ok or _page_image(torch, engine, entry.pages) != before:
+        raise AssertionError(f"tiered: the restore (ok {ok}) is not bit-equal to the pages "
+                             "read before the spill")
+    t0 = time.perf_counter()
+    one_by_one = [tier.read(s) for s in entry.host]
+    checksum_one_thread_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    blocks = tier.read_slots(entry.host)
+    checksum_ms = (time.perf_counter() - t0) * 1e3
+    if blocks is None or any(b is None for b in one_by_one):
+        raise AssertionError("tiered: an arena slot failed its checksum")
+    dst = pool.alloc_pages(n)
+    if dst is None:
+        raise AssertionError("tiered: no free pages to time the upload")
+
+    def upload():
+        for d, b in zip(dst, blocks):
+            page_write(pool.dev, d, b, non_blocking=True)
+
+    upload_ms = timer.ms(upload, iters=5, warmup=1)
+    pool.decref(dst)
+    nbytes = n * tier.bytes_per_page
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    bound_ms = timer.ms(lambda: dev.copy_(pinned, non_blocking=True), iters=5, warmup=1)
+    # the spill's copy of the same pages, into the entry's own slots (the
+    # same bytes, so their stamps stay true)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine._spill_copy(entry.pages, entry.host).synchronize()
+    spill_copy_ms = (time.perf_counter() - t0) * 1e3
+    if [tier.page_bytes(s) for s in entry.host] != before:
+        raise AssertionError("tiered: the spill copy of the restored pages changed the arena")
+    # the timing buffers are the phase's, not the engine's: give their
+    # blocks back before the engine's peak is read
+    del pinned, dev, blocks, one_by_one
+    torch.cuda.empty_cache()
+    index.release_device_pages(pool, entry)  # hibernated again
+    return {"pages": n, "bytes": nbytes, "bit_equal": True, "arena_equal": True,
+            "restore_ms": restore_ms, "checksum_host_ms": checksum_ms,
+            "checksum_one_thread_ms": checksum_one_thread_ms, "hash_threads": HASH_THREADS,
+            "upload_device_ms": upload_ms, "pinned_copy_bound_ms": bound_ms,
+            "pinned_copy_gbps": nbytes / bound_ms / 1e6,
+            "spill_copy_ms": spill_copy_ms, "spill_copy_gbps": nbytes / spill_copy_ms / 1e6}
+
+
+def _spill_overlap(torch, engine) -> dict:
+    """A captured decode chunk's device ms a step alone, then with the
+    spill stream copying pool pages into free arena slots at the same time
+    (up to 256 pages, 4 times over, so the copies outlast the chunk), on a
+    stopped engine: the engine's copies (``_spill_copy``: one 2-D DMA a
+    page leaf), and the same pages through torch's strided ``copy_`` (each
+    page leaf staged contiguous on the device by a copy kernel, then
+    copied: the previous design)."""
+    from langstream_tpu_torch.serving.pagepool import pool_leaves
+
+    pool, tier, stream = engine._pagepool, engine._host_tier, engine._spill_stream
+
+    def chunk_ms() -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        engine._run_chunk((False, False))
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / engine.decode_chunk
+
+    def staged(pages, slots):
+        ready = torch.cuda.Event()
+        ready.record()
+        with torch.cuda.stream(stream):
+            stream.wait_event(ready)
+            for page, slot in zip(pages, slots):
+                for leaf, dst in zip(pool_leaves(pool.dev), tier.blocks(slot)):
+                    dst.copy_(leaf[:, page], non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        return done
+
+    torch.cuda.synchronize()
+    chunk_ms()  # warm
+    idle = sorted(chunk_ms() for _ in range(3))[1]
+    n = min(256, tier.free_slots, pool.num_pages)
+    if n <= 0:
+        raise AssertionError("tiered: no free arena slots to copy into")
+    slots = tier.alloc(n)
+    out = {"decode_step_ms_idle": idle, "spill_pages": n, "repeats": 4}
+    for label, copy in (("dma", engine._spill_copy), ("staged", staged)):
+        torch.cuda.synchronize()
+        s0 = torch.cuda.Event(enable_timing=True)
+        s0.record(stream)
+        for _ in range(4):
+            done = copy(list(range(n)), slots)
+        s1 = torch.cuda.Event(enable_timing=True)
+        s1.record(stream)
+        busy = chunk_ms()
+        done.synchronize()
+        copy_ms = s0.elapsed_time(s1)
+        out[label] = {"decode_step_ms_spill_in_flight": busy, "spill_copy_ms": copy_ms,
+                      "spill_copy_gbps": 4 * n * tier.bytes_per_page / copy_ms / 1e6,
+                      "chunk_ms_with_spill": busy * engine.decode_chunk}
+    pool.wait_fences(range(n))  # the engine's copies fenced the pages
+    tier.free(slots)
+    torch.cuda.empty_cache()  # the staged copies' temporaries are the phase's
+    out["decode_step_ms_spill_in_flight"] = out["dma"]["decode_step_ms_spill_in_flight"]
+    out["spill_copy_ms"] = out["dma"]["spill_copy_ms"]
+    return out
+
+
+def _restore_itl(ctx, torch, engine, prompts) -> dict:
+    """Concurrent sessions' decode while a returning session restores: 4
+    decoders (40-byte prompts, 128 new tokens) run on the tiered engine,
+    and once each has 32 tokens a hibernated session's next turn arrives —
+    once restoring from the arena, then again on the pages that restore
+    left (a device hit, with 4 other decoders). Decoder 0's tokens land a
+    chunk at a time: the gaps between its bursts before the arrival (p50)
+    and the largest after it, for each run; the difference between the
+    runs' largest gaps is what the restore itself held every decoder
+    back."""
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.serving.engine import GenerationRequest
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    engine._drain_spills()
+    pick = next((i for i, p in enumerate(prompts)
+                 if (e := _entry_for(engine, p)) is not None and e.tier == "host"), None)
+    if pick is None:
+        raise AssertionError("tiered itl: no hibernated session to restore")
+    tok = ByteTokenizer()
+    texts = _prompts([40] * 8, ctx["seed"] + 11)
+    dec_opts = GenerationOptions(max_new_tokens=128, temperature=0.0)
+    opts = GenerationOptions(max_new_tokens=TIERED_NEW, temperature=0.0)
+    out: dict = {"session": pick}
+    engine.start()
+    try:
+        for label, batch in (("restore", texts[:4]), ("device_hit", texts[4:])):
+            before = engine.stats()
+            stamps: list = [[] for _ in batch]
+            decs = [engine.submit(GenerationRequest(
+                prompt_tokens=tok.encode(t), options=dec_opts,
+                on_token=lambda _tok, got=got: got.append(time.monotonic())))
+                for t, got in zip(batch, stamps)]
+            deadline = time.monotonic() + 300
+            while min(len(got) for got in stamps) < 32:
+                if time.monotonic() > deadline:
+                    raise AssertionError("tiered itl: the decoders stalled")
+                time.sleep(0.0005)
+            arrive = time.monotonic()
+            back = engine.submit(GenerationRequest(prompt_tokens=prompts[pick], options=opts))
+            r = back.result(timeout=600)
+            for d in decs:
+                d.result(timeout=600)
+            after = engine.stats()
+            times = stamps[0]
+            gaps = [(b, (b - a) * 1e3) for a, b in zip(times, times[1:]) if b - a > 1e-3]
+            pre = sorted(g for t, g in gaps if t < arrive)
+            post = [g for t, g in gaps if t >= arrive]
+            restored = after["restored-hits-total"] - before["restored-hits-total"]
+            if restored != (1 if label == "restore" else 0) or r.error is not None:
+                raise AssertionError(f"tiered itl {label}: {restored} restores, {r.error}")
+            out[label] = {
+                "gap_p50_ms_before": pre[len(pre) // 2] if pre else None,
+                "gap_max_ms_after": max(post) if post else None,
+                "returning_ttft_s": r.ttft_s,
+                "restore_verify_ms": (after["restore-verify-s-total"]
+                                      - before["restore-verify-s-total"]) * 1e3,
+            }
+    finally:
+        engine.stop()
+    a, b = out["restore"]["gap_max_ms_after"], out["device_hit"]["gap_max_ms_after"]
+    out["restore_stall_ms"] = a - b if a is not None and b is not None else None
+    return out
+
+
+def _spill_drill(ctx, cfg, params, engine, prompts, reference: list) -> dict:
+    """``spill@1`` planted on a stopped tiered engine: a hibernated
+    session's next turn flips one arena byte before its restore reads it —
+    the checksum refuses it, the turn re-prefills cold and its tokens
+    equal the reference run's (or a one-ulp tie: the cold group's GEMM
+    shapes differ from a warm segment's)."""
+    from langstream_tpu_torch.serving.faultinject import FaultInjector
+
+    engine._drain_spills()
+    pick = next((i for i, p in enumerate(prompts)
+                 if (e := _entry_for(engine, p)) is not None and e.tier == "host"), None)
+    if pick is None:
+        raise AssertionError("tiered drill: no hibernated session to restore")
+    engine._injector = FaultInjector("spill@1")
+    before = engine.stats()
+    run = _serve(ctx, cfg, params, [], TIERED_NEW, prompts=[prompts[pick]], engine=engine,
+                 sequential=True)
+    after = engine.stats()
+    engine._injector = None
+    delta = {k: after[k] - before[k] for k in ("restore-failures-total",
+                                               "recompute-fallbacks-total",
+                                               "restored-hits-total")}
+    fired = after["fault-injection"]["spill"]
+    if fired != 1 or delta != {"restore-failures-total": 1, "recompute-fallbacks-total": 1,
+                               "restored-hits-total": 0}:
+        raise AssertionError(f"tiered drill: spill fired {fired}, counters {delta}")
+    same = _same_or_tie(ctx, cfg, params, "tiered spill drill vs reference", [prompts[pick]],
+                        run["_tokens"], [reference[pick]])
+    if not same["ok"]:
+        raise AssertionError(f"tiered drill: the cold fallback's tokens: {same}")
+    return {"session": pick, "fired": fired, **delta, "tokens": same}
+
+
+def _tiered_durable(ctx, cfg, histories, first, again, reference) -> dict:
+    """The durable tier through two providers on one directory: provider A
+    (``fault-injection: disk-corrupt@1``: its first checkpoint's data file
+    gets one byte flipped under a valid manifest) serves the first turns of
+    8 sessions, each spill checkpointed by the durable worker, then
+    ``hibernate()``; provider B, built in the same process on the same
+    directory, must rehydrate every session and serve their second turns
+    from disk: every session but the corrupted one a durable restore,
+    bit-equal to its checkpoint; the corrupted one a
+    ``durable-restore-failed`` dump and a cold prefill; every turn's tokens
+    those of the reference run (or one-ulp ties)."""
+    import gc
+    import shutil
+
+    import torch
+
+    from langstream_tpu_torch.ai.torch_serving import TorchServingProvider
+    from langstream_tpu_torch.serving.durable import DATA_SUFFIX, DurableStore
+    from langstream_tpu_torch.serving.pagepool import prefix_digest
+
+    n = TIERED_DURABLE_SESSIONS
+    root = ROOT / "build" / "durable"
+    shutil.rmtree(root, ignore_errors=True)
+    resource = {"model": "llama-3-8b", "seed": ctx["seed"], "max-seq-len": 2048,
+                "max-batch": 8, "decode-chunk": 16, "page-size": PAGE, "prefix-cache": "auto",
+                "host-kv-fraction": 2.0, "durable-dir": str(root)}
+    ctx.pop("params", None)  # each provider draws the seeded tree itself
+    gc.collect()
+    torch.cuda.empty_cache()
+    out: dict = {}
+    try:
+        holder = TorchServingProvider({**resource, "fault-injection": "disk-corrupt@1"}) \
+            .get_completions_service({})
+        engine = holder.engine()
+        params = holder.params()
+        round1 = _serve(ctx, cfg, params, [], TIERED_NEW, prompts=first[:n], engine=engine)
+        t0 = time.perf_counter()
+        ledger = engine.hibernate("replica-a")
+        hib_s = time.perf_counter() - t0
+        stats = engine.stats()
+        hist = stats["histograms"]["engine_durable_checkpoint_s"]
+        out["a"] = {
+            "hibernate": ledger, "hibernate_s": hib_s,
+            "checkpoints": stats["durable-checkpoints-total"],
+            "checkpoint_bytes": stats["durable-checkpoint-bytes-total"],
+            "checkpoint_failures": stats["durable-checkpoint-failures-total"],
+            "entries": stats["durable-entries"], "bytes_on_disk": stats["durable-bytes-on-disk"],
+            "checkpoint_s_sum": hist["sum"], "checkpoint_s_p50": hist["p50"],
+            "checkpoint_gbps": stats["durable-checkpoint-bytes-total"] / max(hist["sum"], 1e-9)
+            / 1e9,
+            "disk_corrupt_fired": stats["fault-injection"]["disk-corrupt"],
+        }
+        if stats["durable-entries"] != n or out["a"]["disk_corrupt_fired"] != 1:
+            raise AssertionError(f"durable: provider A checkpointed {out['a']}")
+        holder.close()
+        del holder, engine, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        holder = TorchServingProvider(resource).get_completions_service({})
+        t0 = time.perf_counter()
+        engine = holder.engine()
+        out["b_build_s"] = time.perf_counter() - t0
+        params = holder.params()
+        ctx["params"] = params
+        rehydrated = engine.stats()["durable-entries"]
+        if rehydrated != n:
+            raise AssertionError(f"durable: provider B rehydrated {rehydrated} of {n} sessions")
+        run = _serve(ctx, cfg, params, [], TIERED_NEW, prompts=again[:n], engine=engine,
+                     sequential=True)
+        stats = engine.stats()
+        dump = engine._obs.flight.last_dump
+        digests = [prefix_digest(h) for h in histories[:n]]
+        dead = dump["extra"]["entry-digest"] if dump else None
+        if (dump is None or dump["reason"] != "durable-restore-failed" or dead not in digests
+                or stats["durable-restored-hits-total"] != n - 1
+                or stats["durable-restore-failures-total"] != 1):
+            raise AssertionError(f"durable: B restored {stats['durable-restored-hits-total']}, "
+                                 f"failed {stats['durable-restore-failures-total']}, dump "
+                                 f"{dump and dump['reason']} {dead}")
+        same = _same_or_tie(ctx, cfg, params, "durable round 2 vs reference", again[:n],
+                            run["_tokens"], reference[:n])
+        if not same["ok"]:
+            raise AssertionError(f"durable: round-2 tokens {same}")
+        # bit-equal to the checkpoint: each restored session's pages as they
+        # lie now (device pages, else the arena's copy) against a fresh
+        # read of its checkpoint
+        reader = DurableStore(str(root))
+        reader.rehydrate()
+        checked = []
+        for i in range(n):
+            if digests[i] == dead or len(checked) == 2:
+                continue
+            entry = _entry_for(engine, again[i])
+            want = reader.restore(digests[i])["pages"]
+            if entry.pages:
+                got = _page_image(torch, engine, entry.pages[:len(want)])
+            else:
+                got = [engine._host_tier.page_bytes(s) for s in entry.host[:len(want)]]
+            if got != want:
+                raise AssertionError(f"durable: session {i}'s pages differ from its checkpoint")
+            checked.append({"session": i, "tier": entry.tier, "pages": len(want)})
+        data = root / f"{digests[0 if dead != digests[0] else 1]}{DATA_SUFFIX}"
+        t0 = time.perf_counter()
+        nbytes = len(data.read_bytes())
+        read_ms = (time.perf_counter() - t0) * 1e3
+        hist = stats["histograms"]["engine_durable_restore_s"]
+        out["b"] = {
+            "rehydrated": rehydrated, "durable_restored_hits": stats["durable-restored-hits-total"],
+            "restore_failures": stats["durable-restore-failures-total"],
+            "dead_entries": stats["durable-dead-entries-total"],
+            "restore_bytes": stats["durable-restore-bytes-total"],
+            "restore_ms_p50": hist["p50"] * 1e3,
+            "restore_ms_mean": hist["sum"] / max(1, hist["count"]) * 1e3,
+            "file_bytes": nbytes, "sequential_read_ms": read_ms,
+            "sequential_read_gbps": nbytes / read_ms / 1e6,
+            "reads_from": "the host's page cache (the file was just written)",
+            "ttft_p50_s": run["ttft_p50_s"], "ttft_max_s": run["ttft_max_s"],
+            "corrupted_session": digests.index(dead), "dump_error": dump["extra"]["error"],
+            "bit_equal_to_checkpoint": checked, "tokens": same,
+        }
+        holder.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del round1
+    return out
+
+
+def phase_tiered(ctx: dict) -> None:
+    """The host KV tier and the durable tier at llama-3-8b's full width and
+    depth (module docstring, phase 15): the reference, tier-off and tiered
+    engines over the two rounds, the restore check and its timings, the
+    decode step beside a spill, the ``spill@1`` drill, the int8 pass and the
+    durable pass."""
+    import torch
+
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    params = _llama_params(ctx)
+    histories, first, again = _tiered_prompts(ctx["seed"])
+    timer = Timer(torch)
+    # the reference: a pool no prefix is evicted from
+    ref = _tiered_engine(ctx, cfg, params, kv_pages=TIERED_BIG_POOL)
+    ref_logits = _capture_first_logits(ref)
+    ref1 = _tier_round(ctx, cfg, params, ref, first, sequential=False)
+    ref2 = _tier_round(ctx, cfg, params, ref, again, sequential=True)
+    if ref2["warm_admissions"] != TIERED_SESSIONS:
+        raise AssertionError(f"tiered reference: {ref2['warm_admissions']} warm admissions")
+    del ref
+    # the tier off: the same pool as the tiered engine's, evicted prefixes
+    # re-prefill
+    off = _tiered_engine(ctx, cfg, params, host_kv_fraction=0.0)
+    off_logits = _capture_first_logits(off)
+    off_routes = _admission_routes(off)
+    off1 = _tier_round(ctx, cfg, params, off, first, sequential=False)
+    off_routes.clear()
+    off2 = _tier_round(ctx, cfg, params, off, again, sequential=True)
+    del off
+    base_alloc, base_reserved = _fresh_base(torch)
+    engine = _tiered_engine(ctx, cfg, params, **TIERED_TIER)
+    tier = engine._host_tier
+    log(f"tiered arena: {tier.num_pages} slots of {tier.bytes_per_page} bytes = "
+        f"{tier.bytes_total} bytes ({tier.bytes_total / 2**30:.2f} GiB, pinned {tier.pinned}) "
+        f"allocated in {tier.alloc_s:.3f}s; pool {engine._pagepool.num_pages} pages")
+    logits = _capture_first_logits(engine)
+    routes = _admission_routes(engine)
+    r1 = _tier_round(ctx, cfg, params, engine, first, sequential=False)
+    if r1["tier"]["host-demotions-total"] <= 0:
+        raise AssertionError(f"tiered: round 1 demoted nothing: {r1['tier']}")
+    check = _restore_check(torch, engine, timer)
+    routes.clear()
+    r2 = _tier_round(ctx, cfg, params, engine, again, sequential=True)
+    if r2["tier"]["restored-hits-total"] <= 0 or r2["warm_admissions"] != TIERED_SESSIONS:
+        raise AssertionError(f"tiered: round 2 {r2['warm_admissions']} warm, {r2['tier']}")
+    overlap = _spill_overlap(torch, engine)
+    try:
+        memory, memory_error = _memory_reading(torch, engine, base_alloc, base_reserved), None
+    except AssertionError as e:  # raised once the phase's readings are printed
+        memory, memory_error = {"error": str(e)}, e
+    itl = _restore_itl(ctx, torch, engine, again)
+    stats = engine.stats()
+    same1 = _same_or_tie(ctx, cfg, params, "tiered round 1 vs reference", first,
+                         r1["_tokens"], ref1["_tokens"])
+    same2 = _same_or_tie(ctx, cfg, params, "tiered round 2 vs reference", again,
+                         r2["_tokens"], ref2["_tokens"])
+    # the restored turns' first-token logits against the no-eviction
+    # engine's (bit-equal) and the tier-off engine's cold admissions
+    restored = sorted(n for n, r in routes.items() if r == "restored")
+    both = [n for n in restored if off_routes.get(n) == "cold"]
+    if not both:
+        raise AssertionError("tiered: no prompt restored here and re-prefilled without the tier")
+    held = _restored_logits(logits, ref_logits, off_logits, restored, both)
+    drill = _spill_drill(ctx, cfg, params, engine, again, ref2["_tokens"])
+    spill_hist = stats["histograms"]["engine_spill_s"]
+    restore_hist = stats["histograms"]["engine_restore_s"]
+    totals = {k: stats[k] for k in (
+        "spill-pages-total", "spill-bytes-total", "host-demotions-total",
+        "restored-hits-total", "restore-failures-total", "recompute-fallbacks-total",
+        "restore-pages-total", "restore-bytes-total", "restore-verify-s-total",
+        "host-evictions-total", "host-pages-in-use", "spill-failures-total")}
+    log(f"tiered totals llama-3-8b bf16 {json.dumps(totals)}")
+    log(f"tiered spill worker: {spill_hist['count']} entries, {spill_hist['sum']:.3f}s "
+        f"(wait + checksum), {stats['spill-bytes-total'] / max(spill_hist['sum'], 1e-9) / 1e9:.3f}"
+        f" GB/s; p50 {spill_hist['p50'] * 1e3:.1f} ms an entry")
+    log(f"tiered restore (one entry, stopped engine) {json.dumps(check)}")
+    log(f"tiered restores in round 2: {restore_hist['count']}, p50 "
+        f"{restore_hist['p50'] * 1e3:.1f} ms, mean "
+        f"{restore_hist['sum'] / max(1, restore_hist['count']) * 1e3:.1f} ms an entry")
+    ttft = {"tier": [r2["ttft_p50_s"], r2["ttft_max_s"]],
+            "tier_off": [off2["ttft_p50_s"], off2["ttft_max_s"]],
+            "no_eviction": [ref2["ttft_p50_s"], ref2["ttft_max_s"]],
+            "tier_off_cold": sum(1 for r in off_routes.values() if r == "cold"),
+            "tier_restored": sum(1 for r in routes.values() if r == "restored")}
+    log(f"tiered round-2 TTFT p50/max s (one turn at a time) {json.dumps(ttft)}")
+    log(f"tiered decode step with a spill in flight {json.dumps(overlap)}")
+    log(f"tiered decoders beside a restore {json.dumps(itl)}")
+    log(f"tiered launches round 1 {json.dumps(r1['kernel_launches'])} round 2 "
+        f"{json.dumps(r2['kernel_launches'])} ({r2['warm_admissions']} warm admissions, "
+        f"{r2['decode_steps']} decode steps, {r2['decode_chunks']} chunks, "
+        f"{r2['graph_replays']} replays)")
+    log(f"tiered memory {json.dumps(memory)}")
+    log(f"tiered tokens {json.dumps({'round1': same1, 'round2': same2})}")
+    log(f"tiered restored vs cold logits {json.dumps(held)}")
+    log(f"tiered spill drill {json.dumps(drill)}")
+    brief = ("wall_s", "tokens_per_s", "ttft_p50_s", "ttft_max_s", "admit_groups",
+             "warm_admissions", "decode_steps", "decode_chunks", "graph_replays",
+             "graph_capture_s", "tier")
+    for label, run in (("round1", r1), ("round2", r2), ("off_round1", off1),
+                       ("off_round2", off2), ("ref_round2", ref2)):
+        log(f"tiered {label} {json.dumps({k: run.get(k) for k in brief})}")
+    for same in (same1, same2):
+        if not same["ok"]:
+            raise AssertionError(f"tiered tokens: {same}")
+    if memory_error is not None:
+        raise memory_error
+    engine.stop()
+    del engine, logits, off_logits, ref_logits
+    _fresh_base(torch)
+    # the int8 pass: 8 sessions one at a time through a 64-page int8 pool
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    k = TIERED_INT8_SESSIONS
+    ref8 = _tiered_engine(ctx, cfg8, params)
+    _tier_round(ctx, cfg8, params, ref8, first[:k], sequential=True)
+    ref8_2 = _tier_round(ctx, cfg8, params, ref8, again[:k], sequential=True)
+    del ref8
+    eng8 = _tiered_engine(ctx, cfg8, params, kv_pages=TIERED_INT8_POOL, **TIERED_TIER)
+    a8 = _tier_round(ctx, cfg8, params, eng8, first[:k], sequential=True)
+    check8 = _restore_check(torch, eng8, timer)
+    b8 = _tier_round(ctx, cfg8, params, eng8, again[:k], sequential=True)
+    same8 = _same_or_tie(ctx, cfg8, params, "tiered int8 round 2 vs reference", again[:k],
+                         b8["_tokens"], ref8_2["_tokens"])
+    drill8 = _spill_drill(ctx, cfg8, params, eng8, again[:k], ref8_2["_tokens"])
+    stats8 = eng8.stats()
+    bytes8 = eng8._pagepool.bytes_per_page
+    eng8.stop()
+    log(f"tiered int8: {bytes8} bytes a page (bf16 "
+        f"{tier.bytes_per_page}); totals "
+        f"{json.dumps({key: stats8[key] for key in totals})}; restore {json.dumps(check8)}; "
+        f"round 2 {json.dumps(b8['tier'])}; tokens {json.dumps(same8)}; drill {json.dumps(drill8)}")
+    if not same8["ok"] or b8["tier"]["restored-hits-total"] <= 0:
+        raise AssertionError(f"tiered int8: tokens {same8}, round 2 {b8['tier']}")
+    del eng8, a8
+    durable = _tiered_durable(ctx, cfg, histories, first, again, ref2["_tokens"])
+    log(f"tiered durable {json.dumps(durable)}")
+    launches: dict = {}
+    for run in (r1, r2, b8):
+        for name, count in run["kernel_launches"].items():
+            launches[name] = launches.get(name, 0) + count
+    ctx["tiered"] = {"kernel_launches": launches}
+    # the readings again, short: printed after every phase, where a reader
+    # of only the output's last lines still finds them
+    restore = ("restore_ms", "checksum_host_ms", "checksum_one_thread_ms", "upload_device_ms",
+               "pinned_copy_bound_ms", "spill_copy_ms")
+    ctx["summaries"] = ctx.get("summaries", []) + [("tiered", {
+        "arena": [tier.bytes_total, round(tier.alloc_s, 3)],
+        "totals": totals,
+        "spill_worker_gbps": stats["spill-bytes-total"] / max(spill_hist["sum"], 1e-9) / 1e9,
+        "spill_worker_ms_p50": spill_hist["p50"] * 1e3,
+        "restore_bf16": {k: check[k] for k in restore},
+        "restores_round2_ms": [restore_hist["p50"] * 1e3,
+                               restore_hist["sum"] / max(1, restore_hist["count"]) * 1e3],
+        "ttft_round2": ttft,
+        "decode_step_ms": [overlap["decode_step_ms_idle"],
+                           overlap["dma"]["decode_step_ms_spill_in_flight"],
+                           overlap["dma"]["spill_copy_ms"],
+                           overlap["staged"]["decode_step_ms_spill_in_flight"],
+                           overlap["staged"]["spill_copy_ms"]],
+        "itl_beside_restore": itl,
+        "memory": [memory.get("peak_allocated_bytes"), memory.get("peak_reserved_growth_bytes"),
+                   memory.get("plan_beyond_weights_bytes")],
+        "logits": held, "tokens_equal": [same1["equal"], same2["equal"]],
+        "int8": {"bytes_a_page": bytes8,
+                 "restore": {k: check8[k] for k in restore},
+                 "restored_hits": b8["tier"]["restored-hits-total"],
+                 "tokens_equal": same8["equal"]},
+        "durable": {"checkpoint_gbps": durable["a"]["checkpoint_gbps"],
+                    "hibernate_s": durable["a"]["hibernate_s"],
+                    "restore_ms": [durable["b"]["restore_ms_p50"], durable["b"]["restore_ms_mean"]],
+                    "file_read_ms": durable["b"]["sequential_read_ms"],
+                    "restored_hits": durable["b"]["durable_restored_hits"],
+                    "ttft": [durable["b"]["ttft_p50_s"], durable["b"]["ttft_max_s"]]},
+    })]
+    del timer
+
+
 def kernel_record(ctx: dict) -> dict:
     # kernel → (source, the TPU kernel it replaces, the phase whose path
     # counts its launches)
@@ -4616,8 +5363,8 @@ def kernel_record(ctx: dict) -> dict:
     }
     # every serving run's launches of each kernel (counts zeroed before each)
     served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "prefix",
-              "spec", "agentic", "dense_spec", "dense_prefix", "dense_prefix_int8", "load",
-              "moe")
+              "spec", "agentic", "dense_spec", "dense_prefix", "dense_prefix_int8", "tiered",
+              "load", "moe")
     out = []
     for name, (src, replaces, path) in sources.items():
         runs = ctx.get("kernel_runs", {}).get(name)
@@ -4714,6 +5461,8 @@ def main() -> int:
             globals()[f"phase_{phase}"](ctx)
             log(f"phase {phase}: {time.monotonic() - t0:.1f}s")
     log(f"all phases: {time.monotonic() - t_all:.1f}s")
+    for name, summary in ctx.get("summaries", []):
+        log(f"{name} summary {json.dumps(summary)}")
     complete = set(DEFAULT_PHASES) <= set(phases)
     record = kernel_record(ctx)
     if complete:

@@ -53,9 +53,28 @@ step key ``max-text-tokens``). The resource keys served:
     the cache's tokens, or `prefix-cache-entries`); every prefill copies its
     prompt's deepest boundary into a row, and a later prompt sharing it
     starts from a copy of that row and prefills only its suffix (a long
-    prompt reuses a full segment width). `host-kv-fraction` above 0 (a host-RAM
-    KV tier) raises NotImplementedError (ROADMAP item 5); `spill` takes
-    auto | off
+    prompt reuses a full segment width)
+  host-kv-fraction: the host KV tier (kv-layout paged with prefix-cache
+    auto only) — sizes a host-RAM page arena (pinned on the card) relative
+    to the page pool (2.0 = twice the pool's pages; 0, the default, turns
+    it off). Idle published prefixes spill into it off the hot loop
+    (`spill-idle-s`, default 0: as soon as published), and under pool
+    pressure the LRU eviction demotes an entry to its host copy instead of
+    dropping it, so a hibernated session's next turn restores its KV (every
+    page checksum-verified, then uploaded) instead of re-prefilling.
+    `spill: auto | off` (default auto) turns it off; a restore that blocks
+    an admission past `restore-stall-dump-s` (default 1.0) leaves a
+    `spill-stall` flight dump
+  durable: auto | on | off (default auto: on iff `durable-dir` is set) →
+    the durable session tier (paged with prefix-cache auto): hibernated
+    arenas checkpoint crash-safe into `durable-dir` (temp + fsync + rename,
+    the JAX package's format), a new engine on that directory rehydrates
+    them before its first admission, and an admission nothing live covers
+    restores the deepest checkpointed prefix (verified against the
+    manifest's checksums; any failure prefills cold).
+    `durable-max-bytes` caps the directory (0, the default: no cap; LRU
+    eviction past it), `durable-timeout-s` (default 5.0) bounds a restore.
+    ``close()`` hibernates every live session after the drain
   speculation: auto | off (default off) → self-speculative decoding on
     both layouts: a per-slot n-gram index over prompt and emitted tokens
     proposes drafts, and each decode iteration verifies them in one
@@ -120,9 +139,8 @@ step key ``max-text-tokens``). The resource keys served:
     (serving/faultinject.py; also through the LSTPU_FAULTS environment)
 
 Keys of the JAX provider this port refuses with NotImplementedError
-until their tiers are ported: ``durable*`` (ROADMAP item 5), ``fleet*``,
-``disagg`` and ``cancel-key`` (item 6), ``mesh`` (item 7) — each unless it
-is set to off. Keys of the JAX provider with no
+until their tiers are ported: ``fleet*``, ``disagg`` and ``cancel-key``
+(ROADMAP item 6), ``mesh`` (item 7) — each unless it is set to off. Keys of the JAX provider with no
 meaning here, which the port ignores:
 
   precompile: XLA's ahead-of-time compile of the decode ladder (the port
@@ -155,6 +173,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import logging
 import threading
 import uuid
 from typing import Any, Optional
@@ -184,11 +203,11 @@ from langstream_tpu_torch.serving.engine import PREFILL_BUCKETS, GenerationReque
 from langstream_tpu_torch.serving.faultinject import FaultInjector
 from langstream_tpu_torch.serving.tokenizer import get_tokenizer
 
+log = logging.getLogger(__name__)
+
 # provider keys of the JAX package whose tiers the port does not serve yet
 # (key or key prefix → the ROADMAP item that ports it)
-_REFUSED_KEYS = (
-    ("durable", 5), ("fleet", 6), ("disagg", 6), ("cancel-key", 6), ("mesh", 7),
-)
+_REFUSED_KEYS = (("fleet", 6), ("disagg", 6), ("cancel-key", 6), ("mesh", 7))
 
 
 def _asks_for(key: str, value: Any) -> bool:
@@ -310,12 +329,19 @@ class TorchCompletionsService(CompletionsService):
         spill = self.resource.get("spill", "auto")
         if not isinstance(spill, bool) and str(spill).lower() not in ("auto", "off"):
             raise ValueError(f"unknown spill {spill!r}; supported: auto, off")
-        spill_off = spill is False or str(spill).lower() == "off"
-        if float(self.resource.get("host-kv-fraction", 0.0)) > 0 and not spill_off:
-            raise NotImplementedError(
-                "host-kv-fraction: the host-RAM KV tier (spill, hibernation) is not "
-                "ported (ROADMAP item 5)"
-            )
+        self.spill = "off" if spill is False or str(spill).lower() == "off" else "auto"
+        self.host_kv_fraction = float(self.resource.get("host-kv-fraction", 0.0))
+        if self.host_kv_fraction < 0:
+            raise ValueError(f"host-kv-fraction must be >= 0, got {self.host_kv_fraction}")
+        durable = self.resource.get("durable", "auto")
+        if not isinstance(durable, bool) and str(durable).lower() not in (
+            "auto", "on", "true", "1", "off", "false", "0"
+        ):
+            raise ValueError(f"unknown durable {durable!r}; supported: auto, on, off")
+        self.durable = {True: "on", False: "off"}.get(durable, str(durable).lower())
+        self.durable_dir = (
+            str(self.resource["durable-dir"]) if self.resource.get("durable-dir") else None
+        )
         quant = str(self.resource.get("quantization", "") or "").lower()
         if quant not in ("", "none", "int8"):
             raise ValueError(f"unknown quantization {quant!r}; supported: int8, none")
@@ -462,6 +488,14 @@ class TorchCompletionsService(CompletionsService):
                     grammar_states=int(self.resource.get("grammar-states", 128)),
                     grammar_exceptions=int(self.resource.get("grammar-exceptions", 65536)),
                     grammar_tokenizer=self.tokenizer,
+                    host_kv_fraction=self.host_kv_fraction,
+                    spill=self.spill,
+                    spill_idle_s=float(self.resource.get("spill-idle-s", 0.0)),
+                    restore_stall_dump_s=float(self.resource.get("restore-stall-dump-s", 1.0)),
+                    durable=self.durable,
+                    durable_dir=self.durable_dir,
+                    durable_max_bytes=int(self.resource.get("durable-max-bytes", 0)),
+                    durable_timeout_s=float(self.resource.get("durable-timeout-s", 5.0)),
                 )
                 engine.start()
                 self._engine = engine
@@ -484,13 +518,19 @@ class TorchCompletionsService(CompletionsService):
         return self._engine.stats() if self._engine is not None else {}
 
     def close(self) -> None:
-        """Drain, then stop: new requests shed while the work in flight
-        finishes for up to ``drain-grace-s``; what is still running then
+        """Drain, hibernate, then stop: new requests shed while the work in
+        flight finishes for up to ``drain-grace-s``; with the durable tier
+        on every live session is then checkpointed (``hibernate``, while
+        the engine thread still serves it); what is still running then
         fails with the stop."""
         with self._lock:
             engine, self._engine = self._engine, None
         if engine is not None:
             engine.drain(self.drain_grace_s)
+            ledger = engine.hibernate()
+            if ledger:
+                log.info("engine hibernated: %s session prefix(es), %s bytes, %s failure(s)",
+                         ledger.get("entries"), ledger.get("bytes"), ledger.get("failures"))
             engine.stop()
 
     def _render_prompt(self, messages: list[ChatMessage]) -> str:

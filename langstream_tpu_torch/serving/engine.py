@@ -194,14 +194,51 @@ last ``flight_iterations`` iterations, dumped on a NaN or page quarantine,
 an engine restart, a shed burst, a brownout transition and
 ``stats(dump=True)``. Nothing is recorded inside a captured chunk.
 
-Not ported yet (later slices): the host-RAM KV tier and hibernation
-(ROADMAP item 5), the SPMD watchdog (item 7).
+The host KV tier (``host_kv_fraction`` > 0, paged layout with the prefix
+index), as the JAX engine runs it: a host arena of ``ceil(pages x
+fraction)`` page slots (``serving/pagepool.HostPageTier``, pinned on the
+card). Every published entry is a hibernation candidate; once idle past
+``spill_idle_s`` the sweep at the iteration top (``_spill_tick``: at most 2
+starts and 8 hops an iteration) queues its page copies — on the card on a
+spill stream of their own, one 2-D DMA a page leaf straight from the pool
+pages into the pinned slots, after the engine stream's work so far — and
+the spill worker waits for them and stamps every slot's blake2b checksum
+(the slots hashed in parallel). Under pool pressure the LRU eviction
+demotes an entry whose host copy is secured (its device pages freed, the
+entry kept) instead of dropping it; a page freed while its copy runs
+carries the copy's completion event, which every writer of a freed page
+(the allocator, a quarantine's zeroing) makes the engine stream wait on
+first. An admission's radix hit on a hibernated entry restores it
+(``_restore_entry``: pages allocated, every slot verified against its
+stamp, then each uploaded into its page in place on the engine stream —
+the pool is never rebound, the captured graphs hold its addresses); a
+failed restore falls back to a
+shallower candidate, then to a cold prefill. Restore, fallback and
+recompute gauges count once a request. A restart stops the spill worker
+before the pool resets and the graphs are captured again, resets the arena
+(or allocates a fresh one when the worker is wedged) and restarts the
+worker after the capture.
+
+The durable session tier (``durable_dir``; ``serving/durable.py``): a
+completed spill, and a host-only entry about to be evicted from the arena,
+queue a checkpoint (page byte images and their spill-time stamps) to the
+durable worker, which writes it crash-safe; ``hibernate()`` checkpoints
+every live entry on the engine thread and writes the replica's hibernation
+record. A new engine on the same directory rehydrates the index before its
+first admission, and an admission nothing live covers restores the
+deepest checkpointed boundary (``_durable_admit``: every page held against
+the manifest's stamp, then uploaded in place and published); any failure
+dumps ``durable-restore-failed`` and prefills cold.
+
+Not ported yet (later slices): KV migration and the durable tier's fleet
+surface (ROADMAP item 6), the SPMD watchdog (item 7).
 """
 
 from __future__ import annotations
 
 import gc
 import logging
+import math
 import queue
 import threading
 import time
@@ -242,6 +279,7 @@ from langstream_tpu_torch.serving.adapters import (
     rows_for_fraction,
 )
 from langstream_tpu_torch.serving.constrain import GrammarRegistry, verify_states
+from langstream_tpu_torch.serving.durable import DurableError, DurableStore
 from langstream_tpu_torch.serving.faultinject import FaultInjector
 from langstream_tpu_torch.serving.memory import plan_serving_memory, tree_bytes
 from langstream_tpu_torch.serving.observability import (
@@ -250,7 +288,21 @@ from langstream_tpu_torch.serving.observability import (
     load_score,
 )
 from langstream_tpu_torch.ops.kvcopy import gather_prefix_local, publish_prefix_rows
-from langstream_tpu_torch.serving.pagepool import PagePool, PrefixPageIndex, pages_for_fraction
+from langstream_tpu_torch.serving.pagepool import (
+    HostPageTier,
+    PagePool,
+    PrefixPageIndex,
+    host_block,
+    join_page_bytes,
+    page_checksums,
+    page_leaf_specs,
+    page_read,
+    page_write,
+    pages_for_fraction,
+    pool_leaves,
+    prefix_digest,
+    split_page_bytes,
+)
 from langstream_tpu_torch.serving.prefix_cache import (
     PrefixCachePool,
     PrefixEntry,
@@ -328,12 +380,6 @@ def _rows(entry, n: int):
     return entry[:, :n]
 
 
-def _leaves(tree: KVCache) -> list[torch.Tensor]:
-    return [
-        leaf for entry in tree.values()
-        for leaf in (entry.values() if isinstance(entry, dict) else (entry,))
-    ]
-
 
 @dataclass
 class GenerationRequest:
@@ -362,6 +408,15 @@ class GenerationRequest:
     # (adapter row, grammar row, initial DFA state) once resolved when the
     # request left the queue (a page-deferred retry resolves nothing again)
     _agentic_rows: Optional[tuple[int, int, int]] = None
+    # the tier's once-per-request flags (a page-deferred request re-binds
+    # every iteration): its hit was a restore, that restore was counted, a
+    # failed restore was counted, its cold bind was counted as a recompute
+    # fallback, a durable restore of it failed for good
+    _tier_restored: bool = field(default=False, repr=False)
+    _tier_restored_counted: bool = field(default=False, repr=False)
+    _tier_fallback_counted: bool = field(default=False, repr=False)
+    _tier_recompute_counted: bool = field(default=False, repr=False)
+    _durable_failed: bool = field(default=False, repr=False)
 
     def cancel(self) -> None:
         """Cancel from any thread: an active slot frees at the next chunk
@@ -542,6 +597,163 @@ class _TokenFetcher:
             handle._landed.set()
 
 
+class _Spill:
+    """One in-flight entry spill (device pages → host arena). Made on the
+    engine thread once the page copies are queued (on the card: on the
+    spill stream, after the engine stream's work so far, fenced by
+    ``fence``, the copies' completion event; on the CPU the copies already
+    ran); the spill worker waits for them and stamps each slot's checksum.
+    ``cancelled`` is set by the engine when the entry is dropped mid-spill —
+    the worker still finishes, and the drain frees the slots instead of
+    attaching them. ``gen`` fences crash recovery: a handle from before a
+    restart is discarded at the drain (the arena was reset)."""
+
+    __slots__ = ("entry", "slots", "fence", "gen", "cancelled", "error", "event")
+
+    def __init__(self, entry, slots: list, fence: Any, gen: int) -> None:
+        self.entry = entry
+        self.slots = slots
+        self.fence = fence
+        self.gen = gen
+        self.cancelled = False
+        self.error: Optional[BaseException] = None
+        self.event = threading.Event()
+
+
+class _QueueWorker:
+    """One daemon thread draining a FIFO queue through ``_handle`` (the
+    spill and the checkpoint threads): ``submit`` from the engine thread,
+    ``flush`` a barrier, ``stop`` a quiesce behind a sentinel."""
+
+    name = "serving-worker"
+
+    def __init__(self) -> None:
+        self._queue: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._thread: Optional[threading.Thread] = None
+
+    def alive(self) -> bool:
+        t = self._thread
+        return t is not None and t.is_alive()
+
+    def start(self) -> None:
+        if self.alive():
+            return
+        self._thread = threading.Thread(target=self._run, name=self.name, daemon=True)
+        self._thread.start()
+
+    def stop(self, timeout: float = 30.0) -> bool:
+        """Quiesce: jobs queued before the sentinel finish first, so after
+        True no thread touches what the jobs write. False — the thread left
+        registered, so ``alive()`` stays truthful — when it did not drain
+        within ``timeout`` (a wedged copy or volume): the caller must not
+        reuse what this thread may still write into."""
+        t = self._thread
+        if t is None:
+            return True
+        self._queue.put(None)
+        t.join(timeout=timeout)
+        if t.is_alive():
+            return False
+        self._thread = None
+        return True
+
+    def submit(self, job: Any) -> None:
+        self._queue.put(job)
+
+    def flush(self, timeout: float = 30.0) -> bool:
+        """Barrier: True once every job queued before this call was
+        handled."""
+        if not self.alive():
+            return True
+        ev = threading.Event()
+        self._queue.put(ev)
+        return ev.wait(timeout)
+
+    def _run(self) -> None:
+        while True:
+            job = self._queue.get()
+            if job is None:
+                return
+            if isinstance(job, threading.Event):
+                job.set()
+                continue
+            self._handle(job)
+
+    def _handle(self, job: Any) -> None:
+        raise NotImplementedError
+
+
+class _SpillWorker(_QueueWorker):
+    """The spill thread (the fetch thread's pattern): the engine thread
+    only queues the page copies and keeps the books; the wait for the
+    copies and the checksum of every slot — the slow, bandwidth-bound part
+    (blake2b runs without the GIL) — happen here, off the hot loop. One
+    FIFO queue; completions flow back through ``done`` and are folded in by
+    the engine at the iteration top (``_drain_spills``). It never collects
+    garbage nor synchronizes the device: it waits on one event a handle."""
+
+    name = "serving-spill"
+
+    def __init__(
+        self, tier: Any, done: "queue.SimpleQueue", obs: Optional[EngineObservability] = None,
+    ) -> None:
+        super().__init__()
+        self._tier = tier
+        self._done = done
+        self._obs = obs
+
+    def _handle(self, handle: _Spill) -> None:
+        try:
+            t0 = time.monotonic()
+            if handle.fence is not None:
+                handle.fence.synchronize()
+            self._tier.stamp_slots(handle.slots)
+            if self._obs is not None and self._obs.on:
+                self._obs.record("engine_spill_s", time.monotonic() - t0)
+        except BaseException as e:  # noqa: BLE001 — surfaced at the drain
+            handle.error = e
+        self._done.put(handle)
+        handle.event.set()
+
+
+class _DurableWorker(_QueueWorker):
+    """The checkpoint thread of the durable tier (the spill worker's
+    pattern one tier down): the engine thread materializes immutable jobs —
+    page byte images and their spill-time checksums, copied out of the
+    arena so a later drop cannot race the write — and the fsync-heavy temp
+    + rename write runs here. Failures are counted by the store and logged,
+    never raised: a failed checkpoint leaves the session restorable from
+    its owner. Hibernation ``flush``es before it walks the index, so no
+    session is checkpointed twice."""
+
+    name = "serving-durable"
+
+    def __init__(self, store: Any, obs: Optional[EngineObservability] = None) -> None:
+        super().__init__()
+        self._store = store
+        self._obs = obs
+
+    def _handle(self, job: dict) -> None:
+        t0 = time.monotonic()
+        try:
+            self._store.checkpoint(
+                job["digest"], job["length"], job["tokens"], job["pages_raw"],
+                job["checksums"], job["page_size"], job["bytes_per_page"],
+            )
+            if self._obs is not None and self._obs.on:
+                self._obs.record("engine_durable_checkpoint_s", time.monotonic() - t0)
+        except DurableError as e:
+            log.warning("durable checkpoint failed: %s", e)
+        except BaseException:  # noqa: BLE001 — degrade one entry only
+            log.exception("durable checkpoint crashed")
+
+
+class _PoolFull(RuntimeError):
+    """A durable restore found no room in the pool (or the index cap full
+    of pinned entries): the one retryable failure — a later iteration may
+    have room."""
+
+
 def _dfa_mask(pool: tuple, g: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
     """Each row's packed legality bits for one sample: the bitmask plane
     gathered by (grammar row, DFA state) → [B, ceil(V/32)] int32
@@ -657,6 +869,14 @@ class ServingEngine:
         grammar_states: int = 128,
         grammar_exceptions: int = 65536,
         grammar_tokenizer: Optional[Any] = None,
+        host_kv_fraction: float = 0.0,
+        spill: Any = "auto",
+        spill_idle_s: float = 0.0,
+        restore_stall_dump_s: float = 1.0,
+        durable: Any = "auto",
+        durable_dir: Optional[str] = None,
+        durable_max_bytes: int = 0,
+        durable_timeout_s: float = 5.0,
     ) -> None:
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; supported: paged, dense")
@@ -744,6 +964,78 @@ class ServingEngine:
                     self.max_batch, self.max_seq_len, pool_width, prefix_cache_fraction
                 )
             )
+        # -- the host KV tier: idle published prefixes spill into a host
+        # arena, demote to it under pool pressure, restore from it on a hit.
+        # host-kv-fraction sizes the arena relative to the pool (2.0 = twice
+        # the pool's pages in host RAM); 0 turns the tier off
+        if str(spill).lower() not in ("auto", "on", "true", "1", "off", "false", "0"):
+            raise ValueError(f"unknown spill {spill!r}; supported: auto, off")
+        spill_off = str(spill).lower() in ("off", "false", "0")
+        self.host_kv_fraction = max(0.0, float(host_kv_fraction))
+        self.spill_idle_s = max(0.0, float(spill_idle_s))
+        self._restore_stall_s = max(0.0, float(restore_stall_dump_s))
+        spill_on = self._paged and not spill_off and self.host_kv_fraction > 0
+        if spill_on and self._prefix_index is None:
+            # nothing to hibernate without the alias index: spilled pages
+            # are reachable only through prefix entries
+            log.warning(
+                "tiered KV host spill needs the prefix index "
+                "(prefix-cache on, prefix-cache-entries > 0); off"
+            )
+            spill_on = False
+        self._spill_on = spill_on
+        self._host_tier: Optional[HostPageTier] = None
+        self._spill_worker: Optional[_SpillWorker] = None
+        self._spill_stream: Optional[Any] = None
+        self._spill_done: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._spill_gen = 0
+        # device-only entries awaiting hibernation, oldest first (engine
+        # thread); entries join when published or restored
+        self._spill_candidates: deque = deque()
+        self.spill_pages_total = 0
+        self.spill_bytes_total = 0
+        self.spill_failures_total = 0
+        self.restore_pages_total = 0
+        self.restore_bytes_total = 0
+        self.restored_hits_total = 0
+        self.restore_failures_total = 0
+        self.recompute_fallbacks_total = 0
+        # host seconds a restore spent verifying checksums (the rest of its
+        # time is the upload's queueing); a restore's total is the
+        # engine_restore_s histogram
+        self.restore_verify_s_total = 0.0
+        # host ms of spill / restore bookkeeping this iteration (the flight
+        # frames' phase_ms)
+        self._spill_ms_iter = 0.0
+        self._restore_ms_iter = 0.0
+        # -- the durable session tier: crash-safe checkpoints on disk, so a
+        # session survives its replica's restart, drain or scale to zero
+        if str(durable).lower() not in ("auto", "on", "true", "1", "off", "false", "0"):
+            raise ValueError(f"unknown durable {durable!r}; supported: auto, off")
+        durable_off = str(durable).lower() in ("off", "false", "0")
+        durable_ask = str(durable).lower() in ("on", "true", "1")
+        self.durable_dir = str(durable_dir) if durable_dir else None
+        self.durable_timeout_s = max(0.1, float(durable_timeout_s))
+        self._durable_max_bytes = max(0, int(durable_max_bytes))
+        durable_on = self._paged and not durable_off and self.durable_dir is not None
+        if durable_ask and not durable_on:
+            log.warning(
+                "durable: on requested but unavailable (needs kv-layout: paged + "
+                "durable-dir) — tier stays off"
+            )
+        if durable_on and self._prefix_index is None:
+            log.warning("durable tier needs the prefix index (prefix-cache: auto) — off")
+            durable_on = False
+        self._durable_on = durable_on
+        self._durable: Optional[DurableStore] = None
+        self._durable_worker: Optional[_DurableWorker] = None
+        # admissions a durable restore served (the ladder's third rung)
+        self.durable_restored_hits_total = 0
+        # True while a durable restore serves an admission (``restoring``)
+        self._durable_restoring = False
+        # ``hibernate()`` calls served on the engine thread at the iteration
+        # top: (replica id, reply queue)
+        self._hibernations: "queue.SimpleQueue" = queue.SimpleQueue()
         # chunked-prefill streams: queued long requests, one held back when
         # that queue is full, and the active streams by slot (request, next
         # segment; dense: its local cache)
@@ -944,9 +1236,15 @@ class ServingEngine:
             grammar_exceptions=(
                 self._constrain_reg.max_exceptions if self._constrain_reg else 0
             ),
+            host_kv_fraction=self.host_kv_fraction if self._spill_on else 0.0,
+            durable_max_bytes=self._durable_max_bytes if self._durable_on else 0,
         )
         log.info("serving memory plan (%s, B=%d, T=%d, %s): %s", config.name, self.max_batch,
                  self.max_seq_len, self.kv_layout, self.memory_plan.summary())
+        if self._spill_on:
+            self._build_host_tier()
+        if self._durable_on:
+            self._build_durable()
         if pool_entries > 0:
             self._prefix_pool = PrefixCachePool(
                 config, pool_entries, pool_width, boundaries=self.prefill_buckets,
@@ -995,6 +1293,48 @@ class ServingEngine:
             )
             self._table_uploaded = np.full(pool.tables.shape, pool.oob, np.int32)
 
+    def _build_host_tier(self) -> None:
+        """The host arena (``ceil(pages x host-kv-fraction)`` slots, pinned
+        on the card), its spill worker and, on the card, the spill stream
+        the page copies run on."""
+        pool = self._pagepool
+        host_pages = max(1, math.ceil(pool.num_pages * self.host_kv_fraction))
+        self._host_tier = HostPageTier(pool.dev, host_pages)
+        self._prefix_index.host_tier = self._host_tier
+        self._spill_worker = _SpillWorker(self._host_tier, self._spill_done, self._obs)
+        if self.device.type == "cuda":
+            self._spill_stream = torch.cuda.Stream(self.device)
+        log.info(
+            "tiered KV host arena: %d host pages (%.2f GiB %s RAM in %.2fs, %.2fx the device "
+            "pool) — idle prefixes spill after %.1fs, LRU eviction demotes before dropping",
+            host_pages, self._host_tier.bytes_total / 1024**3,
+            "pinned" if self._host_tier.pinned else "host", self._host_tier.alloc_s,
+            self.host_kv_fraction, self.spill_idle_s,
+        )
+
+    def _build_durable(self) -> None:
+        """The durable store over ``durable-dir``, rehydrated (manifests
+        only) before the first admission, and its checkpoint worker. An
+        unusable directory turns the tier off, it never fails the build."""
+        try:
+            self._durable = DurableStore(
+                self.durable_dir, max_bytes=self._durable_max_bytes, injector=self._injector,
+            )
+            rehydrated = self._durable.rehydrate()
+        except OSError:
+            log.exception("durable tier unavailable (%s) — off", self.durable_dir)
+            self._durable = None
+            return
+        self._durable_worker = _DurableWorker(self._durable, self._obs)
+        log.info(
+            "durable KV tier: %s (%d checkpointed session prefix(es) rehydrated%s) — "
+            "hibernated arenas checkpoint crash-safe; sessions survive replica death and "
+            "scale-to-zero",
+            self.durable_dir, rehydrated,
+            f", cap {self._durable_max_bytes / 1024**3:.2f} GiB" if self._durable_max_bytes
+            else "",
+        )
+
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the device without a host sync: staged in pinned
         memory and copied asynchronously on the card (the caching host
@@ -1024,6 +1364,11 @@ class ServingEngine:
         self._dead = None
         self._stop.clear()
         self._fetcher.start()
+        # the tier's workers start after the capture (none runs during one)
+        if self._spill_worker is not None:
+            self._spill_worker.start()
+        if self._durable_worker is not None:
+            self._durable_worker.start()
         self._thread = threading.Thread(target=self._run, name="serving-engine", daemon=True)
         self._thread.start()
 
@@ -1033,6 +1378,10 @@ class ServingEngine:
             self._thread.join(timeout=30)
             self._thread = None
         self._fetcher.stop()
+        if self._spill_worker is not None:
+            self._spill_worker.stop()
+        if self._durable_worker is not None:
+            self._durable_worker.stop()
         # resolve everything still in flight so blocked callers return now
         self._fail_all(RuntimeError("serving engine stopped"))
 
@@ -1613,6 +1962,30 @@ class ServingEngine:
                 "warm-admissions-total": self.warm_admissions_total,
                 # copy-on-write page copies (one per mid-page prefix hit)
                 "page-copies-total": self.page_copies_total,
+                # the host KV tier (the JAX engine's keys; zeros with it off)
+                "host-tier": self._host_tier is not None,
+                "host-pages-total": self._host_tier.num_pages if self._host_tier else 0,
+                "host-pages-in-use": self._host_tier.slots_in_use if self._host_tier else 0,
+                "host-tier-bytes-total": self._host_tier.bytes_total if self._host_tier else 0,
+                "spill-pages-total": self.spill_pages_total,
+                "spill-bytes-total": self.spill_bytes_total,
+                "spill-failures-total": self.spill_failures_total,
+                "restore-pages-total": self.restore_pages_total,
+                "restore-bytes-total": self.restore_bytes_total,
+                # the restore-vs-recompute split of hits on hibernated
+                # entries: restored (an upload) or re-prefilled (a fault,
+                # a checksum, no room) — the tier's health gauge
+                "restored-hits-total": self.restored_hits_total,
+                "restore-failures-total": self.restore_failures_total,
+                "recompute-fallbacks-total": self.recompute_fallbacks_total,
+                "restore-verify-s-total": self.restore_verify_s_total,
+                "host-demotions-total": index.demotions if index else 0,
+                "host-evictions-total": index.host_evictions if index else 0,
+                # the durable session tier (zeros with it off)
+                "durable-tier": self._durable is not None,
+                "durable-restored-hits-total": self.durable_restored_hits_total,
+                **(self._durable.stats() if self._durable is not None
+                   else DurableStore.empty_stats()),
                 # self-speculative decoding (the JAX engine's keys, rounding
                 # and meanings; zeros with speculation off)
                 "speculation": self._spec_enabled,
@@ -1812,6 +2185,7 @@ class ServingEngine:
         self._graphs = {}
         self._decode_graphs = {}
         if self._paged:
+            self._reset_host_tier()
             self._pagepool.reset()
             if self._prefix_index is not None:
                 self._prefix_index.reset()
@@ -1825,6 +2199,38 @@ class ServingEngine:
                 self._prefix_pool.reset()
         self._alloc_decode_state()
         self._capture_graphs()
+        if self._spill_worker is not None:
+            self._spill_worker.start()
+
+    def _reset_host_tier(self) -> None:
+        """The tier's half of a restart, before the pool and the index
+        reset: stop the spill worker (in-flight copies finish first, so no
+        thread writes a slot the fresh free list re-issues, and none runs
+        during the capture that follows), fence stale handles off with the
+        generation bump, then reset the arena — or, when the worker is
+        wedged past its join timeout, abandon arena and worker for fresh
+        ones (a late write into a reset arena would land in a re-issued
+        slot with a valid checksum: wrong KV at a later restore)."""
+        quiesced = self._spill_worker.stop() if self._spill_worker is not None else True
+        self._spill_gen += 1
+        self._spill_candidates.clear()
+        while True:
+            try:
+                self._spill_done.get_nowait()
+            except queue.Empty:
+                break
+        if self._host_tier is None:
+            return
+        if quiesced:
+            self._host_tier.reset()
+            return
+        log.error(
+            "spill worker failed to quiesce — abandoning the host arena (%.2f GiB) and "
+            "allocating a fresh one", self._host_tier.bytes_total / 1024**3,
+        )
+        self._host_tier = HostPageTier(self._pagepool.dev, self._host_tier.num_pages)
+        self._prefix_index.host_tier = self._host_tier
+        self._spill_worker = _SpillWorker(self._host_tier, self._spill_done, self._obs)
 
     def _iterate(self, pending: deque) -> None:
         """One fused iteration: the quarantine's zeroing, the expiry sweep,
@@ -1841,6 +2247,14 @@ class ServingEngine:
             self._flush_row_resets()
         if self._pending_page_zero:
             self._flush_page_zeros()
+        # the host tier: fold completed spills in and start hibernation
+        # spills of idle prefixes (bounded per iteration, O(1) when idle);
+        # its restore half runs inside admission (_paged_bind)
+        self._spill_ms_iter = 0.0
+        self._restore_ms_iter = 0.0
+        if self._spill_on:
+            self._spill_tick()
+        self._drain_hibernations()
         self._sweep_waiting()
         if self._brownout is not None:
             self._brownout_tick()
@@ -1933,7 +2347,8 @@ class ServingEngine:
                 "dispatch": disp_kind,
                 "steps": disp_steps,
                 "kv_pages": self._pagepool.pages_in_use if self._pagepool else 0,
-                "host_pages": 0,  # no host KV tier in the port yet
+                # arena slots holding hibernated prefix pages (0, tier off)
+                "host_pages": self._host_tier.slots_in_use if self._host_tier else 0,
                 # distinct captured graphs (the JAX engine's compiled programs)
                 "programs": len(self._graphs) + len(self._decode_graphs),
                 "tenants": self._active_by_tenant(),
@@ -1944,8 +2359,8 @@ class ServingEngine:
                     "prefill": round((t_prefill - t_sweep) * 1e3, 3),
                     "dispatch": round((t_dispatch - t_prefill) * 1e3, 3),
                     "process": round((t_end - t_dispatch) * 1e3, 3),
-                    "spill": 0.0,
-                    "restore": 0.0,
+                    "spill": round(self._spill_ms_iter, 3),
+                    "restore": round(self._restore_ms_iter, 3),
                 },
             })
 
@@ -2136,7 +2551,7 @@ class ServingEngine:
         poisoned row never reaches a later request of that slot."""
         stale = sorted(set(self._pending_row_resets))
         self._pending_row_resets.clear()
-        for leaf in _leaves(self._cache):
+        for leaf in pool_leaves(self._cache):
             for idx in stale:
                 leaf[:, idx].zero_()
 
@@ -2144,10 +2559,493 @@ class ServingEngine:
         """Zero the physical pages a quarantine freed, at the top of the
         iteration: on the in-order stream this lands after the chunks that
         still held them and before any admission that reuses them."""
-        pages = self._upload(np.asarray(sorted(set(self._pending_page_zero)), np.int64))
+        freed = sorted(set(self._pending_page_zero))
         self._pending_page_zero = []
-        for leaf in _leaves(self._pagepool.dev):
+        # a freed page may still be read by a spill copy in flight (an
+        # entry demoted on it while a slot aliased it): zero it after
+        self._pagepool.wait_fences(freed)
+        pages = self._upload(np.asarray(freed, np.int64))
+        for leaf in pool_leaves(self._pagepool.dev):
             leaf.index_fill_(1, pages, 0)
+
+    # -- the host KV tier: spill, demotion, restore -----------------------------
+
+    def _drain_spills(self) -> None:
+        """Fold completed spills in (engine thread, iteration top): attach
+        the arena slots to their entry — or free them when the entry died
+        mid-copy, the copy failed, or the handle predates a restart (a
+        stale generation: the arena was reset, its free list owns them)."""
+        tier = self._host_tier
+        if tier is None:
+            return
+        while True:
+            try:
+                handle = self._spill_done.get_nowait()
+            except queue.Empty:
+                return
+            if handle.gen != self._spill_gen:
+                continue
+            entry = handle.entry
+            if handle.cancelled or entry.dropped:
+                tier.free(handle.slots)
+                continue
+            entry.spilling = None
+            if handle.error is not None:
+                log.warning("page spill failed: %s", handle.error)
+                tier.free(handle.slots)
+                self.spill_failures_total += 1
+                if not entry.pages:
+                    # demoted on the strength of this spill: with the copy
+                    # failed it holds neither device nor host pages — a
+                    # zombie a later hit would "restore" with zero pages
+                    self._prefix_index._drop(self._pagepool, entry)
+                continue
+            entry.host = tuple(handle.slots)
+            self._prefix_index._note_tier(entry)
+            self.spill_pages_total += len(handle.slots)
+            self.spill_bytes_total += len(handle.slots) * tier.bytes_per_page
+            # the durable tier: a completed spill is the checkpoint trigger
+            # (the arena bytes and their stamps are final now)
+            self._maybe_checkpoint(entry)
+
+    def _spill_copy(self, pages, slots) -> Optional[Any]:
+        """Queue the copies of ``pages`` into arena ``slots``. On the card
+        they run on the spill stream after the engine stream's work so far
+        (an event recorded now), one 2-D DMA a page leaf straight from the
+        pool pages into the pinned slots — no device snapshot, no device
+        temporaries — and every page carries the copies' completion event
+        as its fence, so a page freed while its copy runs is not written
+        before the copy read it (every writer of a freed page — the
+        allocator, a quarantine's zeroing — makes the engine stream wait on
+        the event first). The
+        same ordering protects the arena: a slot a restore uploads from is
+        rewritten only by a later spill, whose copies wait for this
+        stream's work, the upload included. Returns the completion event
+        (None on the CPU, where the copies ran)."""
+        pool, tier = self._pagepool, self._host_tier
+        if self.device.type != "cuda":
+            for page, slot in zip(pages, slots):
+                page_read(pool.dev, page, tier.blocks(slot))
+            return None
+        ready = torch.cuda.Event()
+        ready.record()
+        stream = self._spill_stream
+        with torch.cuda.stream(stream):
+            stream.wait_event(ready)
+            for leaf in pool_leaves(pool.dev):
+                # the pool's memory is not reused before this stream's
+                # reads finished (a restart frees the pool)
+                leaf.record_stream(stream)
+            for page, slot in zip(pages, slots):
+                page_read(pool.dev, page, tier.blocks(slot), non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+        pool.fence(pages, done)
+        return done
+
+    def _ensure_spilled(self, entry) -> bool:
+        """Secure a host copy for ``entry`` (the demote-before-drop gate):
+        True when one exists, is in flight, or was queued now. The engine
+        thread only queues the copies (``_spill_copy``) and keeps the books:
+        the entry's device pages may be freed the moment this returns; the
+        wait and the checksums run on the spill worker."""
+        if not self._spill_on or self._spill_worker is None:
+            return False
+        if entry.host or entry.spilling is not None:
+            return True
+        if not entry.pages or entry.dropped:
+            return False
+        tier = self._host_tier
+        slots = tier.alloc(len(entry.pages))
+        if slots is None:
+            self._evict_host_for(len(entry.pages), keep=entry)
+            slots = tier.alloc(len(entry.pages))
+            if slots is None:
+                return False
+        handle = _Spill(entry, slots, self._spill_copy(entry.pages, slots), self._spill_gen)
+        entry.spilling = handle
+        self._spill_worker.submit(handle)
+        return True
+
+    def _evict_host_for(self, need: int, keep=None) -> None:
+        """Make arena room: free host copies LRU-first (a ``both`` victim
+        loses its spare; a ``host``-only victim is checkpointed to the
+        durable tier when it is on, then dropped). Never touches ``keep``
+        (the entry the room is for) or pinned entries."""
+        index, tier = self._prefix_index, self._host_tier
+        while tier.free_slots < need:
+            victims = [e for e in index._live if e.host and e.pins == 0 and e is not keep]
+            if not victims:
+                return
+            victim = min(victims, key=lambda e: e.last_used)
+            if victim.pages:
+                tier.free(victim.host)
+                victim.host = ()
+                index._note_tier(victim)
+                # device-only again: a spill candidate once the arena has
+                # room (duplicates in the deque are skipped by the sweep)
+                self._spill_candidates.append(victim)
+            else:
+                # the job holds its own byte copies, so the drop below
+                # cannot race the disk write
+                self._maybe_checkpoint(victim)
+                index._drop(self._pagepool, victim)
+            index.host_evictions += 1
+
+    def _spill_tick(self) -> None:
+        """The hibernation sweep, once an iteration: drain completed spills,
+        then start at most 2 spills of entries idle past ``spill_idle_s``.
+        The deque is publish-ordered, not idle-ordered (a hit refreshes
+        ``last_used_t``): a candidate not idle yet rotates to the back, and
+        the scan is bounded to 8 hops a tick. O(1) when there is nothing to
+        do."""
+        if not self._spill_on:
+            return
+        t0 = time.monotonic()
+        self._drain_spills()
+        started = 0
+        now = time.monotonic()
+        scanned, limit = 0, min(len(self._spill_candidates), 8)
+        while self._spill_candidates and started < 2 and scanned < limit:
+            scanned += 1
+            entry = self._spill_candidates.popleft()
+            if entry.dropped or entry.host or entry.spilling is not None:
+                continue
+            if now - entry.last_used_t < self.spill_idle_s:
+                self._spill_candidates.append(entry)  # not idle: revisit
+                continue
+            if self._ensure_spilled(entry):
+                started += 1
+            else:
+                # arena full and nothing evictable this tick: keep the
+                # candidate (a live session's prefix never re-publishes)
+                # and stop — every further one meets the same full arena
+                self._spill_candidates.append(entry)
+                break
+        self._spill_ms_iter += (time.monotonic() - t0) * 1e3
+
+    def _restore_entry(self, entry, p: int, count_failures: bool = True) -> bool:
+        """Restore a hibernated entry for an admission: allocate device
+        pages, verify every arena slot against its spill-time checksum
+        (``HostPageTier.read``) and upload it into its page in place on the
+        engine stream (``page_write``), then re-attach the pages. False —
+        the entry intact (no device room: the caller falls back) or dropped
+        (checksum mismatch, the ``spill`` fault, a spill that never
+        completed: poison is not retried) — when the restore cannot serve
+        the hit. Synchronous on the engine thread: the admission needs the
+        pages before its suffix prefill. ``count_failures=False`` keeps a
+        deferred request's retries off the failure gauge."""
+        pool, index, tier = self._pagepool, self._prefix_index, self._host_tier
+        if entry.dropped:
+            return False
+        fail = 1 if count_failures else 0
+        t0 = time.monotonic()
+        handle = entry.spilling
+        if handle is not None:
+            # the hit raced the copy: wait, bounded by the stall threshold
+            # (this wait blocks every active session's decode); on expiry
+            # fall back without dropping — the copy is healthy, only queued
+            if not handle.event.wait(self._restore_stall_s):
+                self.restore_failures_total += fail
+                self._flight_dump("spill-stall", extra={
+                    "restore-wait-ms": round((time.monotonic() - t0) * 1e3, 3),
+                    "reuse-tokens": p,
+                })
+                return False
+            self._drain_spills()
+            if not entry.host or entry.dropped:
+                self.restore_failures_total += fail
+                if not entry.dropped:
+                    index._drop(pool, entry)
+                return False
+        n = len(entry.host)
+        if n == 0:
+            # neither device nor host pages: nothing to serve
+            self.restore_failures_total += fail
+            index._drop(pool, entry)
+            return False
+        # pinned across the eviction below: its spill_cb can cascade into
+        # _evict_host_for, whose LRU scan would otherwise pick this entry
+        index.acquire(entry)
+        try:
+            if pool.free_pages < n:
+                index.evict_for(pool, n, spill_cb=self._ensure_spilled)
+            pages = pool.alloc_pages(n)
+        finally:
+            index.release(entry)
+        if pages is None:
+            # no device room even after demotions: the entry stays
+            # hibernated and the admission recomputes (or defers)
+            self.restore_failures_total += fail
+            return False
+        if entry.dropped or len(entry.host) != n:
+            pool.decref(pages)
+            self.restore_failures_total += fail
+            if not entry.dropped:
+                index._drop(pool, entry)
+            return False
+        if self._injector is not None:
+            self._injector.corrupt_host_page(tier, entry.host)
+        cuda = self.device.type == "cuda"
+        # every slot verified against its stamp before any page is uploaded
+        t_v = time.monotonic()
+        slot_blocks = tier.read_slots(entry.host)  # None: a stamp does not match
+        self.restore_verify_s_total += time.monotonic() - t_v
+        if slot_blocks is None:
+            pool.decref(pages)
+            index._drop(pool, entry)  # frees the arena slots too
+            self.restore_failures_total += fail
+            log.warning("host-tier restore failed checksum (%d pages) — re-prefilling", n)
+            return False
+        for dst, blocks in zip(pages, slot_blocks):
+            page_write(pool.dev, dst, blocks, non_blocking=cuda)
+        index.attach_device_pages(pool, entry, pages)
+        self.restore_pages_total += n
+        self.restore_bytes_total += n * tier.bytes_per_page
+        took = time.monotonic() - t0
+        self._restore_ms_iter += took * 1e3
+        if self._obs.on:
+            self._obs.record("engine_restore_s", took)
+        if took > self._restore_stall_s:
+            self._flight_dump("spill-stall", extra={
+                "restore-ms": round(took * 1e3, 3),
+                "restore-pages": n,
+                "reuse-tokens": p,
+            })
+        return True
+
+    # -- the durable session tier ------------------------------------------------
+
+    def _durable_job(self, entry) -> Optional[dict]:
+        """One entry's checkpoint job (engine thread): page byte images and
+        their SPILL-TIME checksums. A host-resident entry ships the arena's
+        bytes and stored stamps as they are; a device-only entry (the
+        hibernation path) reads its pages to the host and stamps them here
+        — for a page that never spilled, this first hash is its spill-time
+        stamp. None when the entry holds nothing checkpointable (a spill in
+        flight, arena rot, no token path): the caller skips it."""
+        tier, pool, index = self._host_tier, self._pagepool, self._prefix_index
+        if entry.dropped or not entry.digest or entry.length <= 0:
+            return None
+        tokens = index.entry_tokens(entry)
+        if len(tokens) != entry.length:
+            return None
+        n = math.ceil(entry.length / self.page_size)
+        pages_raw: list[bytes] = []
+        sums: list[str] = []
+        if entry.host and entry.spilling is None and tier is not None and len(entry.host) >= n:
+            if tier.read_slots(entry.host[:n]) is None:
+                return None  # arena rot: the restore paths count it
+            for slot in entry.host[:n]:
+                pages_raw.append(tier.page_bytes(slot))
+                sums.append(tier.checksum(slot).hex())
+        elif entry.pages and len(entry.pages) >= n:
+            blocks = []
+            for pg in entry.pages[:n]:
+                out = [torch.empty((leaf.shape[0],) + tuple(leaf.shape[2:]), dtype=leaf.dtype)
+                       for leaf in pool_leaves(pool.dev)]
+                page_read(pool.dev, pg, out)  # DMA on the card, synchronous
+                blocks.append(out)
+            pages_raw = [join_page_bytes(b) for b in blocks]
+            sums = [d.hex() for d in page_checksums(blocks)]
+        else:
+            return None
+        return {
+            "digest": entry.digest, "length": int(entry.length), "tokens": tokens,
+            "pages_raw": pages_raw, "checksums": sums, "page_size": self.page_size,
+            "bytes_per_page": pool.bytes_per_page,
+        }
+
+    def _maybe_checkpoint(self, entry) -> None:
+        """Queue a durable checkpoint of ``entry`` when the tier is on and
+        none exists yet (the disk write runs on the durable worker).
+        Anything not checkpointable is skipped; a later trigger retries."""
+        if self._durable is None or self._durable_worker is None:
+            return
+        if self._durable.contains(entry.digest):
+            return
+        job = self._durable_job(entry)
+        if job is not None:
+            self._durable_worker.submit(job)
+
+    def _durable_bind(self, tokens: list[int], length: int, blocks: list) -> None:
+        """Bind a verified checkpoint's pages into the pool and the index
+        (engine thread): allocate pages (demoting LRU entries first),
+        upload each page into its page in place, publish the prefix. On any
+        failure nothing stays bound; ``_PoolFull`` when there is no room."""
+        pool, index = self._pagepool, self._prefix_index
+        if length not in index.boundaries:
+            raise DurableError(
+                f"checkpoint length {length} is not a prefix boundary here "
+                f"(boundaries {index.boundaries})"
+            )
+        if index.has(tokens, length):
+            return  # already resident
+        n = math.ceil(length / self.page_size)
+        if len(blocks) != n:
+            raise DurableError(f"checkpoint carries {len(blocks)} pages for {length} tokens")
+        if pool.free_pages < n:
+            index.evict_for(pool, n, spill_cb=self._ensure_spilled if self._spill_on else None)
+        pages = pool.alloc_pages(n)
+        if pages is None:
+            raise _PoolFull(f"pool exhausted ({pool.free_pages} free, {n} needed)")
+        cuda = self.device.type == "cuda"
+        dtypes = [leaf.dtype for leaf in pool_leaves(pool.dev)]
+        try:
+            for leaves, dst in zip(blocks, pages):
+                # pageable blocks: the CUDA driver stages each upload before the
+                # call returns, so they may go at once
+                host = [host_block(a, dt) for a, dt in zip(leaves, dtypes)]
+                page_write(pool.dev, dst, host, non_blocking=cuda)
+            entry = index.insert(pool, tokens, length, tuple(pages))
+        finally:
+            pool.decref(pages)  # the index holds the one reference, if any
+        if entry is None:
+            raise _PoolFull("prefix index at capacity with every entry pinned")
+        if self._spill_on:
+            self._spill_candidates.append(entry)
+
+    def _durable_admit(self, request: GenerationRequest, prompt: list[int]) -> Optional[tuple]:
+        """Resurrection on the admission path: no live candidate covered
+        the prompt, so look for a checkpoint at the deepest boundary,
+        restore and verify it (every page against the manifest's spill-time
+        stamp) and bind it inline. Returns ``(length, entry)`` as a radix
+        hit, or None — the request prefills cold. Every failure (torn file,
+        CRC or checksum mismatch, stale manifest, stalled volume) dumps
+        ``durable-restore-failed`` (token-content-free) and leaves the
+        entry dead, so it fires once; a full pool is the one retryable
+        failure."""
+        store, index = self._durable, self._prefix_index
+        if store is None or request._durable_failed:
+            return None
+        digest, length = None, 0
+        for b in reversed(index.boundaries):
+            if b <= len(prompt) - 1:
+                d = prefix_digest(prompt[:b])
+                if store.contains(d):
+                    digest, length = d, b
+                    break
+        if digest is None:
+            return None
+        t0 = time.monotonic()
+        self._durable_restoring = True
+        try:
+            rec = store.restore(digest, timeout_s=self.durable_timeout_s)
+            specs = page_leaf_specs(self._pagepool.dev)
+            blocks = [split_page_bytes(raw, specs) for raw in rec["pages"]]
+            for i, got in enumerate(page_checksums(blocks)):
+                if got.hex() != rec["checksums"][i]:
+                    # the manifest's stamp is the authority: poison is dead
+                    store.invalidate(digest, f"page {i} failed its spill-time checksum")
+                    raise DurableError(f"page {i} failed its spill-time checksum")
+            self._durable_bind(list(prompt[:length]), length, blocks)
+        except (DurableError, _PoolFull, ValueError) as e:
+            request._durable_failed = not isinstance(e, _PoolFull)
+            self._flight_dump("durable-restore-failed", extra={
+                "error": str(e),
+                "entry-digest": digest,
+                "reuse-tokens": length,
+                "total-ms": round((time.monotonic() - t0) * 1e3, 3),
+                "fallback": "local-cold-prefill",
+            }, force=True)
+            log.warning("durable restore of %s failed (%s); prefilling cold", digest, e)
+            return None
+        finally:
+            self._durable_restoring = False
+        took = time.monotonic() - t0
+        if self._obs.on:
+            self._obs.record("engine_durable_restore_s", took)
+        self.durable_restored_hits_total += 1
+        self._restore_ms_iter += took * 1e3
+        for p_cand, cand in reversed(index.candidates(prompt)):
+            if not cand.dropped and cand.pages:
+                return p_cand, cand
+        return None
+
+    def _hibernate_now(self, replica_id: str) -> dict:
+        """Checkpoint every live entry not checkpointed yet, synchronously,
+        then write the replica's hibernation record (engine thread, or the
+        caller's when the engine thread is not running)."""
+        store, index = self._durable, self._prefix_index
+        done, failures, total_bytes, digests = 0, 0, 0, []
+        for entry in list(index._live):
+            if entry.dropped or not entry.digest:
+                continue
+            if store.contains(entry.digest):
+                digests.append(entry.digest)
+                continue
+            job = self._durable_job(entry)
+            if job is None:
+                failures += 1
+                continue
+            t0 = time.monotonic()
+            try:
+                total_bytes += store.checkpoint(
+                    job["digest"], job["length"], job["tokens"], job["pages_raw"],
+                    job["checksums"], job["page_size"], job["bytes_per_page"],
+                )
+            except (DurableError, OSError) as e:
+                log.warning("hibernation checkpoint of %s failed: %s", entry.digest, e)
+                failures += 1
+                continue
+            if self._obs.on:
+                self._obs.record("engine_durable_checkpoint_s", time.monotonic() - t0)
+            done += 1
+            digests.append(entry.digest)
+        try:
+            store.write_hibernation(replica_id, digests)
+        except OSError as e:
+            log.warning("hibernation record write failed: %s", e)
+            failures += 1
+        return {"entries": done, "bytes": total_bytes, "failures": failures}
+
+    def _drain_hibernations(self) -> None:
+        """Serve queued ``hibernate()`` calls (iteration top): each replies
+        on its own queue, an exception included — a failed hibernation
+        never kills the loop."""
+        while True:
+            try:
+                replica_id, reply = self._hibernations.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                reply.put(("ok", self._hibernate_now(replica_id)))
+            except Exception as e:  # noqa: BLE001 — degrade the hibernation only
+                log.exception("hibernation failed")
+                reply.put(("err", e))
+
+    def hibernate(self, replica_id: str = "", timeout_s: float = 60.0) -> dict:
+        """Checkpoint EVERY live prefix entry to the durable tier and write
+        the replica's hibernation record — the drained replica's half of
+        scale to zero. Call after ``drain()`` and before ``stop()``. Returns
+        ``{"entries", "bytes", "failures"}`` (``{}`` with the tier off;
+        failures -1 when the engine did not serve it in ``timeout_s``).
+        Deadline-bounded: a wedged disk fails the hibernation, never the
+        shutdown."""
+        if self._durable is None:
+            return {}
+        if self._durable_worker is not None:
+            # spill-triggered checkpoints first, so the walk skips them
+            self._durable_worker.flush(timeout_s)
+        thread = self._thread
+        if thread is None or not thread.is_alive():
+            return self._hibernate_now(str(replica_id))
+        reply: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._hibernations.put((str(replica_id), reply))
+        try:
+            status, out = reply.get(timeout=max(0.05, float(timeout_s)))
+        except queue.Empty:
+            out, status = None, "err"
+        if status == "err":
+            log.warning("hibernation failed (%s) — sessions stay restorable from earlier "
+                        "checkpoints only", out)
+            return {"entries": 0, "bytes": 0, "failures": -1}
+        return out
+
+    @property
+    def restoring(self) -> bool:
+        """True while a durable restore serves an admission."""
+        return self._durable_restoring
 
     # -- admission -------------------------------------------------------------
 
@@ -2324,7 +3222,10 @@ class ServingEngine:
         prompt when the index has one: its full pages join the table by a
         refcount bump (no copy), a prefix that ends mid-page gets one
         copy-on-write page copy. The entry is pinned while this runs, and
-        under pool pressure the LRU unpinned entries are evicted first.
+        under pool pressure the LRU unpinned entries are evicted first
+        (with the host tier: demoted to their host copy). The hit is taken
+        down a ladder: a device-resident candidate, else a hibernated one
+        restored from the arena, else a durable checkpoint, else cold.
         Returns the reuse offset (0: cold), None — slot untouched — when
         the pool cannot cover the reservation now (the caller defers), or
         -1 when it never can (the request is resolved with ``ShedError``).
@@ -2344,17 +3245,43 @@ class ServingEngine:
                 ),
             ))
             return -1
-        p, entry = 0, None
+        hit = None
         if index is not None and not request.options.adapter:
-            # the deepest candidate still alive (an entry evicted since the
-            # list was built has no pages); an adapter request never aliases
-            # the shared prefixes — its K/V carry its wk / wv deltas
-            p, entry = next(
-                ((length, e) for length, e in reversed(index.candidates(prompt)) if e.pages),
-                (0, None),
-            )
+            # the deepest usable candidate wins (an adapter request never
+            # aliases the shared prefixes — its K/V carry its wk / wv
+            # deltas); a hibernated candidate (host tier, no device pages)
+            # is restored in place, and a failed restore (checksum, fault,
+            # no room) falls back to the next shallower candidate, then to
+            # a recompute
+            failed_restores = 0
+            counted = request._tier_fallback_counted
+            for p_cand, cand in reversed(index.candidates(prompt)):
+                if cand.dropped:
+                    # a deeper candidate's restore can evict a shallower one
+                    # out of this already-taken list: stale, not a hit
+                    continue
+                if cand.pages:
+                    hit = (p_cand, cand)
+                    break
+                if self._restore_entry(cand, p_cand, count_failures=not counted):
+                    hit = (p_cand, cand)
+                    request._tier_restored = True
+                    break
+                failed_restores += 1
+            if failed_restores:
+                # failures count once per request: a page-deferred request
+                # re-runs this loop every iteration; whether it ends as a
+                # recompute is decided at bind time below
+                request._tier_fallback_counted = True
+            if hit is None and self._durable is not None:
+                # the ladder's third rung: nothing live covers the prompt —
+                # a durable checkpoint may (any failure: cold prefill)
+                hit = self._durable_admit(request, prompt)
+                if hit is not None:
+                    request._tier_restored = True
         shared: tuple[int, ...] = ()
         cow_src = None
+        p, entry = hit if hit is not None else (0, None)
         if entry is not None:
             full = p // self.page_size
             shared = entry.pages[:full]
@@ -2364,10 +3291,28 @@ class ServingEngine:
         try:
             want_fresh = need - len(shared)
             if index is not None and pool.free_pages < want_fresh:
-                index.evict_for(pool, want_fresh)
+                # with the host tier, victims demote to their host copy (the
+                # pool is a cache over host RAM) before anything is dropped
+                index.evict_for(
+                    pool, want_fresh, spill_cb=self._ensure_spilled if self._spill_on else None
+                )
             cow_dst = pool.reserve(idx, need, shared)
             if cow_dst is None:
                 return None
+            # the restore-vs-recompute gauges are decided here, once a
+            # request and on one side only: a deferral is neither
+            if entry is not None and request._tier_restored and not request._tier_restored_counted:
+                self.restored_hits_total += 1
+                request._tier_restored_counted = True
+            elif (
+                entry is None
+                and request._tier_fallback_counted
+                and not request._tier_recompute_counted
+            ):
+                # bound cold after a failed restore (a shallower device
+                # candidate serving warm is not a recompute)
+                self.recompute_fallbacks_total += 1
+                request._tier_recompute_counted = True
             if index is not None:
                 index.record_lookup(entry)
             if entry is None:
@@ -2576,7 +3521,13 @@ class ServingEngine:
         n = -(-p // self.page_size)
         owned = self._pagepool.slot_pages(idx)
         if len(owned) >= n:
-            index.insert(self._pagepool, prompt, p, tuple(owned[:n]))
+            entry = index.insert(self._pagepool, prompt, p, tuple(owned[:n]))
+            if entry is not None and self._spill_on:
+                # a hibernation candidate: once idle past spill-idle-s the
+                # sweep spills its pages (published pages are stable —
+                # positions only grow — so the copy is valid while the
+                # publisher keeps decoding)
+                self._spill_candidates.append(entry)
 
     def _prefill_group(self, width: int, group: list[tuple[int, GenerationRequest]]) -> list[tuple]:
         """One admit group: every (slot, request) pair of one prompt bucket,

@@ -37,11 +37,20 @@ Sites the port's engine consults:
   adapter   bump one active slot's entry in the engine's dispatch-facing
             adapter-row array, leaving the authoritative copy intact: the
             pre-dispatch integrity check must quarantine that slot alone
+  spill     flip one byte of one host-arena slot a restore is about to
+            read (host-RAM rot): the slot's checksum must refuse it and
+            the admission re-prefill cold
+  disk-torn / disk-corrupt  consulted by the durable store right after a
+            checkpoint's data file is renamed: truncate it mid-frame / flip
+            one byte near its end (the manifest stays valid on purpose) —
+            a later restore must read a dead entry
+  disk-stall  sleep ``stall_s`` inside a checkpoint or a restore (a slow
+            volume: the restore's deadline must fire)
+  disk-full   raise before a checkpoint writes a byte (ENOSPC)
 
-The other sites of the grammar (spill, the durable disk sites,
-the fleet-wire net sites, migrate and the SPMD sites) are accepted so a
-spec written for the JAX package parses, but no part of the port consults
-them until their tiers are ported.
+The other sites of the grammar (the fleet-wire net sites, migrate and the
+SPMD sites) are accepted so a spec written for the JAX package parses, but
+no part of the port consults them until their tiers are ported.
 
 Every firing is kept in a ring of the last 32 (``events_snapshot``): the
 engine's flight dumps carry it, so a postmortem shows which injected fault
@@ -262,6 +271,18 @@ class FaultInjector:
         with self._lock:
             victim = snapshot[self._rng.randrange(len(snapshot))][0]
             pool.tables[victim, 0] = (pool.tables[victim, 0] + 1) % pool.num_pages
+        return victim
+
+    def corrupt_host_page(self, tier, slots):
+        """``spill`` site: flip one byte of one arena slot the restore is
+        about to read (drawn from the seeded RNG over the entry's slots) —
+        the host-memory-rot drill of the host KV tier. Returns the
+        corrupted slot or None."""
+        if tier is None or not slots or not self.fires("spill"):
+            return None
+        with self._lock:
+            victim = slots[self._rng.randrange(len(slots))]
+        tier.corrupt(victim)
         return victim
 
     def events_snapshot(self) -> list[dict]:

@@ -13,7 +13,8 @@ int8 weights the eager path's widened weights; the agentic tier's two
 pools (the multi-LoRA adapter pool, the packed grammar pool); on the
 dense layout with prefix reuse the prefix pool; and a flat workspace
 allowance (activations, cuBLAS workspace). The streamed weight load's
-host staging peak is host RAM and stays outside the device total.
+host staging peak, the host KV tier's arena (host RAM) and the durable
+tier's disk cap are reported and stay outside the device total.
 
 int8 weights are widened to the model dtype at every matmul
 (``models/quant.quantized_matmul``: the int8 codes to f32, times the
@@ -28,8 +29,8 @@ The JAX plan's XLA-only terms have no counterpart here: the port has no
 ``kv_bound`` compile ladder on the card (a captured decode chunk reads the
 dense cache at full width, the kernels read each row to its length), so
 there is no ``bound_slice_bytes``; and the layer loop updates the cache in
-place, so there is no ``scan_buffer_bytes``. The host KV tier, migration
-and the durable tier are not ported, so neither are their terms.
+place, so there is no ``scan_buffer_bytes``. Migration is not ported, so
+neither is its staging term.
 
 ``max_context_single_chip`` inverts the plan to the largest power-of-two
 context a device budget serves. The engine logs its plan when it is built.
@@ -37,6 +38,7 @@ context a device budget serves. The engine logs its plan when it is built.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -100,6 +102,13 @@ class ServingMemoryPlan:
     # ceil(V/32)] + defaults [G+1, S] + exception key / next [G+1, E],
     # int32; 0 with constrained decoding off
     grammar_pool_bytes: int = 0
+    # the host KV tier's arena (serving/pagepool.HostPageTier): ceil(pages
+    # x host-kv-fraction) slots of the pool's page bytes, pinned HOST RAM —
+    # reported, outside total_bytes; 0 with the tier off
+    host_spill_bytes: int = 0
+    # the durable tier's configured disk cap (durable-max-bytes): disk,
+    # reported, outside total_bytes; 0 with the tier off or uncapped
+    durable_disk_bytes: int = 0
 
     @property
     def total_bytes(self) -> int:
@@ -135,6 +144,10 @@ class ServingMemoryPlan:
             if self.weight_load_staging_bytes
             else ""
         )
+        if self.host_spill_bytes:
+            staging += f" [+ host KV tier {self.host_spill_bytes / gib:.2f}GiB RAM]"
+        if self.durable_disk_bytes:
+            staging += f" [+ durable KV tier ≤{self.durable_disk_bytes / gib:.2f}GiB disk]"
         agentic = "".join(
             f"{name} {n / gib:.2f}GiB + "
             for name, n in (("adapter-pool", self.adapter_pool_bytes),
@@ -180,6 +193,8 @@ def plan_serving_memory(
     grammar_slots: int = 0,
     grammar_states: int = 0,
     grammar_exceptions: int = 65536,
+    host_kv_fraction: float = 0.0,
+    durable_max_bytes: int = 0,
 ) -> ServingMemoryPlan:
     """Account a ServingEngine's device memory from tensor shapes; nothing
     is allocated.
@@ -204,7 +219,10 @@ def plan_serving_memory(
     ``adapter_pool_rows`` / ``adapter_rank``: the adapter pool's shape (0
     omits the term); ``grammar_slots`` / ``grammar_states`` /
     ``grammar_exceptions``: the grammar pool's (``grammar_slots`` 0 omits
-    it).
+    it). ``host_kv_fraction``: the host KV tier's arena relative to the
+    pool (paged only; host RAM, reported: the tier's page copies are DMA
+    between the pool and the arena, with no device temporaries).
+    ``durable_max_bytes``: the durable tier's disk cap (reported).
     """
     from langstream_tpu_torch.models.loader import expected_params
     from langstream_tpu_torch.models.transformer import make_kv_cache, make_page_pool
@@ -247,15 +265,20 @@ def plan_serving_memory(
         from langstream_tpu_torch.serving.pagepool import pages_for_fraction
 
         pages = kv_pages or pages_for_fraction(max_batch, max_seq_len, page_size, page_fraction)
+        pool_bytes = tree_bytes(make_page_pool(config, pages, page_size, device=meta))
+        page_bytes = pool_bytes // (pages + 1)  # the sink page included
+        tiered = host_kv_fraction > 0
         return ServingMemoryPlan(
             weights_bytes=weights,
             cache_bytes=0,
             long_cache_bytes=0,  # paged segments write straight into pages
             workspace_bytes=workspace_bytes,
             fused_prefill_bytes=fused,
-            page_pool_bytes=tree_bytes(make_page_pool(config, pages, page_size, device=meta)),
+            page_pool_bytes=pool_bytes,
             verify_chunk_bytes=verify,
             weight_load_staging_bytes=staging,
+            host_spill_bytes=math.ceil(pages * host_kv_fraction) * page_bytes if tiered else 0,
+            durable_disk_bytes=max(0, int(durable_max_bytes)),
             **extra,
         )
     long_bytes = (
@@ -279,6 +302,7 @@ def plan_serving_memory(
         fused_prefill_bytes=fused,
         verify_chunk_bytes=verify,
         weight_load_staging_bytes=staging,
+        durable_disk_bytes=max(0, int(durable_max_bytes)),
         **extra,
     )
 

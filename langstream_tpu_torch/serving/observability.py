@@ -7,8 +7,9 @@ request-lifecycle spans and the flight recorder.
   records TTFT, inter-token latency, queue wait, prefill dispatch, decode
   (or verify) step time, accepted tokens per verify and fetch latency
   where the JAX engine records them — every sample on the host, never
-  inside a captured chunk. The tiers the port does not serve yet (host
-  spill and restore, the durable tier) keep their histograms, empty.
+  inside a captured chunk — and the host KV tier's spill (on its worker)
+  and restore (on the admission path) and the durable tier's checkpoint
+  and restore.
 - **Load score** (``load_score``): queue-wait p90 + slot occupancy +
   page-pool pressure, the brownout controller's input.
 - **Request spans** (``emit_request_spans``): one ``engine.request`` span a
@@ -18,8 +19,9 @@ request-lifecycle spans and the flight recorder.
 - **Flight recorder** (``FlightRecorder``): a ring of the last N engine
   iterations, dumped as JSON (schema ``lstpu-flight-v1``, never token
   content: ``validate_flight_dump`` refuses a dump that carries it) when a
-  NaN or page quarantine, an engine restart, a shed burst or a brownout
-  transition fires, and on ``stats(dump=True)``. ``flight_dir`` (or
+  NaN or page quarantine, an engine restart, a shed burst, a brownout
+  transition, a stalled restore (``spill-stall``) or a failed durable
+  restore (``durable-restore-failed``) fires, and on ``stats(dump=True)``. ``flight_dir`` (or
   ``LSTPU_FLIGHT_DIR``) also writes each dump to a file. In the port an
   iteration's ``programs`` counts the engine's distinct captured graphs.
 

@@ -38,6 +38,8 @@ def test_port_files_exist():
         "langstream_tpu_torch/agents/vector/__init__.py",
         "langstream_tpu_torch/serving/prefix_cache.py",
         "langstream_tpu_torch/ops/kvcopy.py",
+        "langstream_tpu_torch/serving/wire.py",
+        "langstream_tpu_torch/serving/durable.py",
         "chip_smoke.py",
     ):
         assert mod in rel
@@ -165,11 +167,15 @@ def test_completions_service_refuses_what_it_cannot_serve():
                                  "kv-cache-quantization": "int4"})
     # the JAX provider's keys whose tiers are not ported, and an admit
     # group size the port's MoE padding cannot take
-    for key, value in (("mesh", {"model": 2}), ("durable", "auto"),
+    for key, value in (("mesh", {"model": 2}), ("fleet-role", "prefill"),
                        ("fleet", "auto"), ("disagg", True), ("cancel-key", "k"),
                        ("prefill-batch", 16)):
         with pytest.raises(NotImplementedError):
             TorchCompletionsService({"model": "tiny-test", "device": "cpu", key: value})
+    # the durable keys are served since the tier was ported
+    svc = TorchCompletionsService({"model": "tiny-test", "device": "cpu", "durable": "auto",
+                                   "durable-dir": "/d", "durable-max-bytes": 1 << 30})
+    assert svc.durable == "auto" and svc.durable_dir == "/d"
     with pytest.raises(ValueError, match="brownout"):
         TorchCompletionsService({"model": "tiny-test", "device": "cpu", "brownout": "maybe"})
     with pytest.raises(ValueError, match="constrained-decoding"):

@@ -543,7 +543,15 @@ def test_provider_prefix_keys():
                            prefix_cache="auto", prefix_cache_entries=7, max_seq_len=128)
     assert engine._prefix_pool.entries == 7 and engine._prefix_index is None
     engine.stop()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        TorchCompletionsService({**base, "prefix-cache": "auto", "host-kv-fraction": 2.0})
+    # the host KV tier is served since it was ported: the arena is planned
+    # (host RAM, outside the device total) and built
+    tiered = TorchCompletionsService({**base, "prefix-cache": "auto", "host-kv-fraction": 2.0})
+    try:
+        engine = tiered.engine()
+        plan = engine.memory_plan
+        assert plan.host_spill_bytes == 2 * engine._pagepool.num_pages * engine._pagepool.bytes_per_page
+        assert engine._host_tier.bytes_total == plan.host_spill_bytes
+    finally:
+        tiered.close()
     with pytest.raises(ValueError, match="spill"):
         TorchCompletionsService({**base, "spill": "sometimes"})
