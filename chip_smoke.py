@@ -267,11 +267,54 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    cold prefill, every turn's tokens the reference's (or ties); a
    restore's ms beside a sequential read of one checkpoint file (from the
    host's page cache, just written).
-16. ``load``    — serve a safetensors checkpoint: llama-3-8b at full width
-   and depth (the seeded tree, bf16, 16.06 GB) written by ``save_params_hf``
-   as 4 shards of at most 5 GB under ``build/ckpt/`` (with under 17 GiB
-   free there, the 4-layer ``llama-3-8b-shallow``, said in the output),
-   flushed and dropped from the page cache; loaded streamed with 4 workers
+16. ``fleet``   — KV-page migration and the in-process fleet at llama-3-8b's
+   full width and depth (bf16, paged, page 64, max_seq_len 4096,
+   max-batch 8, decode chunk 16, ``prefix-cache`` auto, buckets 32…2048 on
+   both engines): two port engines on ONE weight tree, "pre"
+   (``migrate_staging``) and "dec", started one after the other, behind a
+   ``FleetRouter`` of two ``InProcessReplica``s ("prefill" and "decode"
+   roles, ``prefill_route_threshold`` 2048), the router's refresh thread
+   running. Traffic: 8 requests of 2100, 2350 … 3850 byte tokens
+   (long-context RAG and agent prompts), 32 new tokens each, greedy, all
+   submitted at once, each through ``stream_generate`` on its own thread.
+   (1) The reference: the same router with ``migrate=False``, every
+   request decoded in place on "pre" (its prefixes then released). (2)
+   The disaggregated burst: prefill and the first token on "pre", the
+   published 2048-token prefix's 32 pages migrated (``serving/migrate.py``,
+   v1 frames) into "dec", the rest decoded warm there. Required: every
+   request served by pre then dec; tokens pass 1's (or one-ulp ties,
+   ``_same_or_tie``); 8 migrations and no fallback; dec's pages in = pre's
+   pages out = 8 x 32; pre holds no entry for any prompt; both pools leak-
+   free; no restart; launches exactly layers x (segments, decode steps) of
+   both engines, dec one warm segment a request, replays = chunks; dec's
+   migrated pages hashed against the sender's stamps; the peak of both
+   engines within their two plans beyond the one weight tree. (3) Drills:
+   ``migrate@1`` and ``net-cut@1`` through ``set_wire_injector``, one
+   request each: decoded in place on pre with pass 1's tokens, dec's free
+   pages unchanged, pre keeping its entry, one valid ``migrate-failed``
+   dump with ``fallback`` decode-in-place. (4) P2P: the two engines as
+   mixed replicas; a 1024-token preamble published on one, a prompt
+   sharing it routed to the other (the owner 5 load units worse at λ
+   256), whose ``_p2p_fetch`` copies the 16 pages: 1024 prefill tokens
+   saved, the owner keeps its entry, tokens a cold run's (or ties). (5)
+   From the host arena: "pre" again with ``host-kv-fraction`` 1.0 and
+   ``spill-idle-s`` 0 (a 128-page pool); once a published prefix spilled,
+   its migration reports tier host, ships the stored stamps, and dec's
+   pages are bit-equal to the arena's. Then, on the stopped dec, two
+   captured chunks with and without a 32-page bind between them. (6)
+   int8: 4 of the requests over int8 pools on both engines (the int8
+   segment and paged decode kernels), migrated as in (2); dec's int8 page
+   bytes equal the sender's frames. Printed: each
+   request's TTFT (on pre), handoff gap and total against pass 1's; each
+   migration's snapshot, copy, checksum, encode / decode, verify, upload
+   and bind ms, pages, bytes and GB/s beside one pinned host-to-device
+   copy of the same bytes; dec's decoders' gaps; the memory reading.
+17. ``load``    — serve a safetensors checkpoint: ``llama-3-8b-shallow``
+   (llama-3-8b's full width at 4 of its 32 layers: the depth is cut so the
+   default run keeps its time with the ``fleet`` phase; the seeded tree,
+   bf16, 3.85 GB) written by ``save_params_hf`` in shards of at most 5 GB
+   (the published checkpoint's shard size: one shard) under ``build/ckpt/``, flushed and dropped from the page
+   cache; loaded streamed with 4 workers
    (first, then again) and eagerly, each tree ``torch.equal`` to the
    written one, each load's total / read / transform / transfer seconds,
    staging peak and GB/s beside a plain sequential read of the shards
@@ -294,7 +337,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    ``fault-injection: weight-load@1`` through the provider must leave no
    engine and no params, the injector fired once. The checkpoint is
    deleted and both trees freed before ``moe``.
-17. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
+18. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
    experts, top-2) with int8 weights drawn on the card (46.9 GB; the
    llama weights are dropped first), paged bf16 KV, max_seq_len 4096: 9
    requests of 21..3001 tokens, 32 new each (the 3001-token prompt takes 2
@@ -303,7 +346,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    reference path (a 200-token prompt, 4 paged decode steps) and one
    layer's ``moe_ffn`` timed at decode (8 tokens) and at a 2048-token
    segment beside its weight-byte bound.
-18. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+19. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
    and int8 page pools and the bf16 dense cache (8192 wide), traced with
    torch.profiler: the device's busy share of the wall and the top
    kernels (no split-K decode kernel may appear).
@@ -332,14 +375,15 @@ import random
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
-          "prefix", "spec", "tenancy", "agentic", "embed", "dense_tiers", "tiered", "load", "moe",
-          "profile")
-DEFAULT_PHASES = PHASES[:17]
+          "prefix", "spec", "tenancy", "agentic", "embed", "dense_tiers", "tiered", "fleet", "load",
+          "moe", "profile")
+DEFAULT_PHASES = PHASES[:18]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -4094,8 +4138,10 @@ def phase_dense_tiers(ctx: dict) -> None:
     ctx["dense_prefix"], ctx["dense_prefix_int8"] = prefix["model"], prefix["int8"]
 
 
+# llama-3-8b's widths at 4 layers (3.85 GB): the depth is cut for the
+# run's time; the shard size is the published checkpoint's
+LOAD_MODEL = "llama-3-8b-shallow"
 LOAD_SHARD_BYTES = 5 * 10**9
-LOAD_FREE_BYTES = 17 * 2**30
 LOAD_INT8_NEW = 16
 LOAD_SERVE_KW = {"max-seq-len": 2048, "max-batch": 8, "decode-chunk": 16, "page-size": PAGE}
 
@@ -4118,10 +4164,11 @@ def _sequential_read(files) -> dict:
     return {"bytes": total, "s": s, "gb_per_s": total / s / 1e9}
 
 
-def _pinned_copy(torch) -> dict:
-    """The host-to-device bound: one pinned 1 GiB copy (median of 5)."""
-    host = torch.empty(2**30, dtype=torch.uint8, pin_memory=True)
-    dev = torch.empty(2**30, dtype=torch.uint8, device="cuda")
+def _pinned_copy(torch, nbytes: int = 2**30) -> dict:
+    """The host-to-device bound: one pinned copy of ``nbytes`` (1 GiB;
+    median of 5)."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
     times = []
     for _ in range(5):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -4132,7 +4179,7 @@ def _pinned_copy(torch) -> dict:
         times.append(a.elapsed_time(b) / 1e3)
     s = sorted(times)[2]
     del host, dev
-    return {"bytes": 2**30, "s": s, "gb_per_s": 2**30 / s / 1e9}
+    return {"bytes": nbytes, "s": s, "gb_per_s": nbytes / s / 1e9}
 
 
 def _trees_equal(torch, label: str, got, want) -> None:
@@ -4270,8 +4317,8 @@ def _served_from_disk(ctx, cfg, path, params, prompts, quantize: bool, new_token
 
 
 def phase_load(ctx: dict) -> None:
-    """Serve a safetensors checkpoint: write llama-3-8b (the seeded tree) in
-    4 shards of at most 5 GB, load it streamed (twice) and eagerly
+    """Serve a safetensors checkpoint: write ``LOAD_MODEL`` (the seeded
+    tree) in shards of at most 5 GB, load it streamed (twice) and eagerly
     (each bit-equal to the written tree) beside the read and copy bounds,
     load it int8 on load (bit-equal to ``quantize_params``, the device peak
     beside the int8 tree plus one bf16 layer), serve it through the
@@ -4299,17 +4346,13 @@ def phase_load(ctx: dict) -> None:
     root = ROOT / "build" / "ckpt"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
+    ctx.pop("params", None)  # the card holds one llama tree at a time
     usage = shutil.disk_usage(root)
-    full = usage.free >= LOAD_FREE_BYTES
     log(f"load: checkpoint under {root}: {usage.free / 2**30:.1f} GiB free of "
-        f"{usage.total / 2**30:.1f} GiB; {'full depth' if full else 'CUT to 4 layers'}")
-    if full:
-        cfg = MODEL_PRESETS["llama-3-8b"]
-        params = _llama_params(ctx)
-    else:
-        cfg = MODEL_PRESETS["llama-3-8b-shallow"]
-        g = torch.Generator(device="cuda").manual_seed(ctx["seed"])
-        params = init_params(cfg, g, device="cuda")
+        f"{usage.total / 2**30:.1f} GiB; {LOAD_MODEL}")
+    cfg = MODEL_PRESETS[LOAD_MODEL]
+    g = torch.Generator(device="cuda").manual_seed(ctx["seed"])
+    params = init_params(cfg, g, device="cuda")
     path = root / cfg.name
     nbytes = tree_bytes(params)
     t0 = time.monotonic()
@@ -5345,6 +5388,563 @@ def phase_tiered(ctx: dict) -> None:
     del timer
 
 
+FLEET_BYTES = tuple(2100 + 250 * i for i in range(8))  # 2100, 2350, ..., 3850 byte tokens
+FLEET_NEW = 32
+# both engines: the default buckets (32 ... 2048: a prompt binds at the
+# same boundary on either), page 64, 4096 wide; every prompt is longer
+# than the widest bucket, so it prefills in segments on "pre" and resumes
+# on "dec" as one warm segment past its 2048-token prefix
+FLEET_KW = {"max_seq_len": 4096, "prefix_cache": "auto"}
+FLEET_PREFIX = 2048
+FLEET_INT8_REQUESTS = 4
+FLEET_PREAMBLE = 1024
+FLEET_TURNS = (40, 60)
+
+
+def _fleet_engine(ctx, cfg, params, **kw):
+    """One port engine of the phase, started (engines are started one
+    after the other: each captures its graphs alone) and warmed up."""
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.serving.engine import ServingEngine
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    engine = ServingEngine(
+        cfg, params, max_batch=8, decode_chunk=16, page_size=PAGE, eos_token_id=tok.eos_token_id,
+        rng_seed=ctx["seed"], device="cuda", **{**FLEET_KW, **kw},
+    )
+    engine.start()
+    engine.generate(tok.encode("warm up"), GenerationOptions(max_new_tokens=4), timeout=600)
+    return engine
+
+
+def _fleet_router(pre, dec, migrate: bool = True, roles=("prefill", "decode"), **kw):
+    from langstream_tpu_torch.serving.fleet import FleetRouter, InProcessReplica
+
+    kw.setdefault("prefill_route_threshold", FLEET_PREFIX)
+    return FleetRouter([InProcessReplica("pre", pre, role=roles[0]),
+                        InProcessReplica("dec", dec, role=roles[1])], migrate=migrate, **kw)
+
+
+class _MigrationLog:
+    """Records each migration through ``serving/migrate.py``'s module
+    functions (the router's ``_migrate`` / ``_p2p_fetch`` and ``transfer``
+    call them): the start (the export's snapshot), the page frames'
+    stamps (``keep_bytes``: their bytes too), the ACK with both sides'
+    phases, and the end."""
+
+    def __init__(self, keep_bytes: bool = False) -> None:
+        from langstream_tpu_torch.serving import migrate
+
+        self.mig, self.keep_bytes = migrate, keep_bytes
+        self.export, self.bind = migrate.export_frames, migrate.bind_frames
+        self.records: list = []
+        self.starts: dict = {}
+        self.lock = threading.Lock()
+
+    def __enter__(self) -> "_MigrationLog":
+        import base64
+
+        def export(engine, tokens, *a, **kw):
+            if kw.get("phases") is None:
+                kw["phases"] = {}
+            self.starts[threading.get_ident()] = (time.perf_counter(), kw["phases"])
+            return self.export(engine, tokens, *a, **kw)
+
+        def bind(engine, frames, *a, **kw):
+            t0, sent = self.starts.pop(threading.get_ident(), (None, {}))
+            rec = {"t0": t0, "sent": sent, "stamps": [], "page_bytes": []}
+
+            def tap():
+                try:
+                    for f in frames:
+                        if f.get("kind") == "begin":
+                            rec["tokens"] = list(f["prompt_tokens"])
+                        elif f.get("kind") == "page":
+                            rec["stamps"].append(f["checksum"])
+                            if self.keep_bytes:
+                                rec["page_bytes"].append(
+                                    f["raw"] if f.get("raw") is not None
+                                    else b"".join(base64.b64decode(d) for d in f["data"]))
+                        yield f
+                finally:
+                    frames.close()
+
+            ack = self.bind(engine, tap(), *a, **kw)
+            rec["t1"] = time.perf_counter()
+            rec["ack"] = ack
+            with self.lock:
+                self.records.append(rec)
+            return ack
+
+        self.mig.export_frames, self.mig.bind_frames = export, bind
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.mig.export_frames, self.mig.bind_frames = self.export, self.bind
+
+    def phases(self, rec: dict) -> dict:
+        """One migration's phases (ms), pages, bytes and GB/s end to end."""
+        ack, sent = rec["ack"], rec["sent"]
+        total = (rec["t1"] - rec["t0"]) * 1e3 if rec["t0"] is not None else None
+        return {
+            "tier": sent.get("tier"), "pages": ack["pages"], "bytes": ack["bytes"],
+            "snapshot_ms": sent.get("snapshot_ms"), "copy_ms": sent.get("copy_ms"),
+            "checksum_ms": sent.get("checksum_ms"), "encode_ms": sent.get("encode_ms"),
+            "decode_ms": ack.get("decode_ms"), "verify_ms": ack.get("verify_ms"),
+            "upload_ms": ack.get("upload_ms"), "bind_ms": ack.get("bind_ms"),
+            "total_ms": total,
+            "gb_per_s": ack["bytes"] / total / 1e6 if total else None,
+        }
+
+
+def _fleet_burst(router, prompts, new: int) -> list:
+    """Every prompt through ``router.stream_generate`` at once, each on its
+    own thread, greedy: per request its tokens, the replicas that served
+    them, each token's arrival, the terminal frame and the submit time."""
+    out: list = [None] * len(prompts)
+    errors: list = []
+
+    def run(i: int) -> None:
+        try:
+            rec = {"t0": time.monotonic(), "tokens": [], "stamps": [], "served": [],
+                   "end": None}
+            for f in router.stream_generate(prompts[i], {"max-tokens": new, "temperature": 0.0}):
+                if f["kind"] == "tokens":
+                    now = time.monotonic()
+                    rec["tokens"].extend(f["tokens"])
+                    rec["stamps"].extend([now] * len(f["tokens"]))
+                    rec["served"].append(f["replica"])
+                elif f["kind"] == "end":
+                    rec["end"] = f
+                    rec["t_end"] = time.monotonic()
+            out[i] = rec
+        except BaseException as e:  # noqa: BLE001 — raised on the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"fleet burst: {errors or 'a stream did not end'}")
+    for p, r in zip(prompts, out):
+        if r["end"] is None or len(r["tokens"]) != new:
+            raise AssertionError(f"fleet: a {len(p)}-token request ended {r['end']} with "
+                                 f"{len(r['tokens'])} tokens")
+    return out
+
+
+def _fleet_times(runs: list) -> list:
+    """Each request's TTFT, handoff gap (first to second token) and total,
+    in seconds."""
+    return [[r["stamps"][0] - r["t0"], r["stamps"][1] - r["stamps"][0], r["t_end"] - r["t0"]]
+            for r in runs]
+
+
+def _fleet_leak_check(engine, label: str) -> None:
+    """Every page in use is held by the prefix index or a slot (JAX's
+    ``tests/test_migration.py`` leak check)."""
+    pool = engine._pagepool
+    slot_pages = sum(len(pool.slot_pages(i)) for i in range(engine.max_batch))
+    if pool.pages_in_use > engine._prefix_index.pages_held + slot_pages or (
+            pool.free_pages + pool.pages_in_use != pool.num_pages):
+        raise AssertionError(f"fleet {label}: pages leaked ({pool.pages_in_use} in use, "
+                             f"{engine._prefix_index.pages_held} held, {slot_pages} in slots)")
+
+
+FLEET_KEYS = ("prefill-segments-total", "decode-steps-total", "decode-chunks-total",
+              "graph-replays-total", "prefill-tokens-saved-total", "migrate-pages-in-total",
+              "migrate-pages-out-total", "engine-restarts-total")
+
+
+def _fleet_pass(ctx, cfg, router, engines: dict, prompts, keep_bytes: bool = False) -> dict:
+    """One routed burst with the kernel counts zeroed just before and read
+    just after: the runs, each engine's counter deltas, the launches (no
+    plain version may run), the router's stats and the migrations."""
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+
+    before = {name: e.stats() for name, e in engines.items()}
+    router.start()
+    try:
+        with _MigrationLog(keep_bytes) as mlog:
+            reset_kernel_counts()
+            runs = _fleet_burst(router, prompts, FLEET_NEW)
+            counts = kernel_counts()
+    finally:
+        router.stop()
+    plain = {k: v["cpu_calls"] for k, v in counts.items() if v["cpu_calls"]}
+    if plain:
+        raise AssertionError(f"fleet: plain versions ran on the card's main path: {plain}")
+    after = {name: e.stats() for name, e in engines.items()}
+    delta = {name: {k: after[name][k] - before[name][k] for k in FLEET_KEYS} for name in engines}
+    launches = {k: v["launches"] for k, v in counts.items()}
+    # every decode chunk of either engine is one graph replay, and the
+    # kernels ran exactly layers x the work each engine counts
+    for name, d in delta.items():
+        if d["graph-replays-total"] != d["decode-chunks-total"]:
+            raise AssertionError(f"fleet {name}: {d['decode-chunks-total']} chunks, "
+                                 f"{d['graph-replays-total']} replays")
+        if d["engine-restarts-total"]:
+            raise AssertionError(f"fleet {name}: {d['engine-restarts-total']} restarts")
+    segments = sum(d["prefill-segments-total"] for d in delta.values())
+    steps = sum(d["decode-steps-total"] for d in delta.values())
+    seg, dec = _kernel_name("flash_segment", cfg), _kernel_name("paged_decode", cfg)
+    if launches.get(seg, 0) != cfg.n_layers * segments or launches.get(dec, 0) != (
+            cfg.n_layers * steps) or steps <= 0:
+        raise AssertionError(f"fleet: launches {launches} against {segments} segments and "
+                             f"{steps} decode steps of {cfg.n_layers} layers")
+    return {"runs": runs, "delta": delta, "kernel_launches": launches,
+            "router": router.stats(), "migrations": mlog.records, "log": mlog}
+
+
+def _fleet_migrated(ctx, cfg, p2: dict, pre, dec, prompts, label: str) -> dict:
+    """Pass 2's (or the int8 pass's) handoff checks: every request served by
+    pre then dec, one migration each and no fallback, dec's pages in equal
+    to pre's pages out (a 2048-token prefix a request), pre holding no entry
+    for any prompt, dec one warm segment a request over its prefix, both
+    pools leak-free; and the migrated pages on dec against the sender's
+    stamps (``keep_bytes``: their bytes)."""
+    import hashlib
+
+    n = len(prompts)
+    pages = FLEET_PREFIX // PAGE
+    for p, r in zip(prompts, p2["runs"]):
+        if set(r["served"]) != {"pre", "dec"} or r["served"][0] != "pre":
+            raise AssertionError(f"fleet {label}: a {len(p)}-token request served by "
+                                 f"{r['served']}")
+    st, dp, dd = p2["router"], p2["delta"]["pre"], p2["delta"]["dec"]
+    if st["fleet-migrations-total"] != n or st["fleet-migrate-fallbacks-total"] != 0:
+        raise AssertionError(f"fleet {label}: router {st}")
+    if not dd["migrate-pages-in-total"] == dp["migrate-pages-out-total"] == n * pages:
+        raise AssertionError(f"fleet {label}: pages in {dd} out {dp}")
+    if dd["prefill-segments-total"] != n or dd["prefill-tokens-saved-total"] != n * FLEET_PREFIX:
+        raise AssertionError(f"fleet {label}: dec's warm resumes {dd}")
+    if any(pre._prefix_index.deepest_entry(p) is not None for p in prompts):
+        raise AssertionError(f"fleet {label}: pre kept an entry after the release")
+    _fleet_leak_check(pre, f"{label} pre")
+    _fleet_leak_check(dec, f"{label} dec")
+    import torch
+
+    held = 0
+    for rec in p2["migrations"]:
+        # the frames carry the prefix's tokens: one more makes it usable
+        hit = dec._prefix_index.deepest_entry(rec["tokens"] + [0])
+        if hit is None or hit[0] != FLEET_PREFIX:
+            raise AssertionError(f"fleet {label}: dec holds no {FLEET_PREFIX}-token entry")
+        image = _page_image(torch, dec, hit[1].pages[:pages])
+        sums = [hashlib.blake2b(b, digest_size=16).hexdigest() for b in image]
+        if sums != rec["stamps"] or (rec["page_bytes"] and image != rec["page_bytes"]):
+            raise AssertionError(f"fleet {label}: dec's migrated pages differ from the sender's")
+        held += len(sums)
+    return {"pages_held_to_sender": held, "bytes_compared": bool(p2["migrations"][0]["page_bytes"])}
+
+
+def _fleet_drill(ctx, cfg, params, pre, dec, spec: str, prompt, want) -> dict:
+    """One request with the wire site ``spec`` planted in its migration: it
+    decodes in place on pre with pass 1's tokens (or ties), dec's free pages
+    stay as they were, pre keeps its entry, and one valid ``migrate-failed``
+    dump says decode-in-place."""
+    from langstream_tpu_torch.serving.faultinject import FaultInjector
+    from langstream_tpu_torch.serving.fleet import set_wire_injector
+    from langstream_tpu_torch.serving.observability import recent_dumps, validate_flight_dump
+
+    router = _fleet_router(pre, dec)
+    dumps0 = len([d for d in recent_dumps() if d.get("reason") == "migrate-failed"])
+    free_dec = dec._pagepool.free_pages
+    set_wire_injector(FaultInjector(spec, seed=0))
+    try:
+        router.start()
+        run = _fleet_burst(router, [prompt], FLEET_NEW)[0]
+    finally:
+        router.stop()
+        set_wire_injector(None)
+    st = router.stats()
+    dumps = [d for d in recent_dumps() if d.get("reason") == "migrate-failed"]
+    same = _same_or_tie(ctx, cfg, params, f"fleet drill {spec}", [prompt], [run["tokens"]],
+                        [want])
+    out = {"served": sorted(set(run["served"])), "fallbacks": st["fleet-migrate-fallbacks-total"],
+           "dec_free_pages": [free_dec, dec._pagepool.free_pages],
+           "pre_retains": pre._prefix_index.deepest_entry(prompt) is not None,
+           "dumps": len(dumps) - dumps0, "tokens": same}
+    if (out["served"] != ["pre"] or out["fallbacks"] != 1 or free_dec != dec._pagepool.free_pages
+            or not out["pre_retains"] or out["dumps"] != 1 or not validate_flight_dump(dumps[-1])
+            or dumps[-1]["extra"].get("fallback") != "decode-in-place" or not same["ok"]):
+        raise AssertionError(f"fleet drill {spec}: {out}")
+    out["error"] = dumps[-1]["extra"].get("error")
+    return out
+
+
+def _fleet_p2p(ctx, cfg, params, a, b) -> dict:
+    """Two mixed engines: a 1024-token preamble published on ``a``; a
+    prompt sharing it, routed to ``b`` (``a`` made the worse route by its
+    load at λ 256), admits warm through the router's P2P fetch of ``a``'s
+    pages; ``a`` keeps its entry; the tokens are a cold run's (or ties)."""
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    texts = _prompts([FLEET_PREAMBLE - 1, *FLEET_TURNS], ctx["seed"] + 23)
+    preamble = tok.encode(texts[0])[:FLEET_PREAMBLE]
+    first, prompt = (preamble + list(t.encode()) for t in texts[1:])
+    greedy = GenerationOptions(max_new_tokens=FLEET_NEW, temperature=0.0)
+    cold = b.generate(prompt, greedy, timeout=600).tokens
+    b.migrate_release(prompt, FLEET_PREAMBLE)  # b forgets it: the fetch must bring it
+    a.generate(first, GenerationOptions(max_new_tokens=4), timeout=600)
+    router = _fleet_router(a, b, roles=("mixed", "mixed"), lam=256.0, p2p_threshold=256,
+                           refresh_interval_s=3600.0)
+    router.refresh_all()
+    with router._lock:
+        # the owner 5 load units above the other: 1024 - 256 x 5 < 0
+        other = router._replicas["dec"].beacon["load_score"]
+        router._replicas["pre"].beacon["load_score"] = other + 5.0
+    saved0 = b.stats()["prefill-tokens-saved-total"]
+    with _MigrationLog() as mlog:
+        run = _fleet_burst(router, [prompt], FLEET_NEW)[0]
+    st = router.stats()
+    same = _same_or_tie(ctx, cfg, params, "fleet p2p vs cold", [prompt], [run["tokens"]], [cold])
+    out = {"served": sorted(set(run["served"])), "p2p_fetch": st["fleet-p2p-fetch-total"],
+           "p2p_fallback": st["fleet-p2p-fetch-fallback-total"],
+           "p2p_bytes": st["fleet-p2p-bytes-in-total"],
+           "saved": b.stats()["prefill-tokens-saved-total"] - saved0,
+           "owner_keeps": a._prefix_index.deepest_entry(first) is not None,
+           "ttft_s": run["stamps"][0] - run["t0"],
+           "fetch": [mlog.phases(r) for r in mlog.records], "tokens": same}
+    if (out["served"] != ["dec"] or out["p2p_fetch"] != 1 or out["p2p_fallback"] != 0
+            or out["saved"] != FLEET_PREAMBLE or not out["owner_keeps"] or not same["ok"]):
+        raise AssertionError(f"fleet p2p: {out}")
+    return out
+
+
+def _fleet_host_arena(ctx, cfg, params, dec, prompt) -> dict:
+    """"pre" with the host tier (``host-kv-fraction`` 1.0, ``spill-idle-s``
+    0): once the prompt's published prefix has spilled, its migration
+    reports tier host and ships the stored stamps, and dec's pages are
+    bit-equal to the arena's."""
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.serving import migrate
+
+    import torch
+
+    # a 128-page pool (its arena 1 GiB pinned) holds the one request
+    pre = _fleet_engine(ctx, cfg, params, host_kv_fraction=1.0, spill_idle_s=0.0,
+                        migrate_staging=True, kv_pages=128)
+    try:
+        pre.generate(prompt, GenerationOptions(max_new_tokens=1), timeout=600)
+        pages = FLEET_PREFIX // PAGE
+        deadline = time.monotonic() + 120
+        while pre.stats()["spill-pages-total"] < pages:
+            if time.monotonic() > deadline:
+                raise AssertionError("fleet host: the prefix never spilled")
+            time.sleep(0.01)
+        time.sleep(0.05)  # the engine thread folds the finished spill in
+        _, entry = pre._prefix_index.deepest_entry(prompt)
+        tier = pre._host_tier
+        if len(entry.host) < pages or entry.spilling is not None:
+            raise AssertionError("fleet host: the entry holds no complete host copy")
+        slots = entry.host[:pages]
+        arena = [tier.page_bytes(s) for s in slots]
+        stamps = [tier.checksum(s).hex() for s in slots]
+        phases: dict = {}
+        with _MigrationLog() as mlog:
+            ack = migrate.transfer(pre, dec, prompt, phases=phases)
+        hit = dec._prefix_index.deepest_entry(prompt)
+        image = _page_image(torch, dec, hit[1].pages[:pages])
+        out = {"tier": phases["tier"], "pages": ack["pages"], "stamps_stored": mlog.records[0][
+            "stamps"] == stamps, "bit_equal": image == arena,
+            "migration": mlog.phases(mlog.records[0]), "arena_bytes": tier.bytes_total,
+            "arena_alloc_s": tier.alloc_s}
+        if out["tier"] != "host" or not out["stamps_stored"] or not out["bit_equal"]:
+            raise AssertionError(f"fleet host: {out}")
+        return out
+    finally:
+        pre.stop()
+
+
+def phase_fleet(ctx: dict) -> None:
+    """KV-page migration and the fleet on one card (module docstring, phase
+    16): the no-migration reference, the disaggregated burst, the two
+    drills, the P2P fetch between two mixed engines, the host-arena
+    migration and the int8 pass."""
+    import torch
+
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    params = _llama_params(ctx)
+    tok = ByteTokenizer()
+    prompts = [tok.encode(t) for t in _prompts(list(FLEET_BYTES), ctx["seed"] + 19)]
+    base_alloc, base_reserved = _fresh_base(torch)
+    # two engines on ONE weight tree (nothing copies it), started one after
+    # the other
+    pre = _fleet_engine(ctx, cfg, params, migrate_staging=True)
+    built = {"pre": torch.cuda.max_memory_allocated() - base_alloc}
+    torch.cuda.reset_peak_memory_stats()
+    base_dec = torch.cuda.memory_allocated()
+    dec = _fleet_engine(ctx, cfg, params)
+    built["dec"] = torch.cuda.max_memory_allocated() - base_dec
+    engines = {"pre": pre, "dec": dec}
+    # pass 1: every request decodes in place on pre
+    p1 = _fleet_pass(ctx, cfg, _fleet_router(pre, dec, migrate=False), engines, prompts)
+    if any(set(r["served"]) != {"pre"} for r in p1["runs"]):
+        raise AssertionError("fleet reference: a request left pre")
+    for p in prompts:
+        pre.migrate_release(p, FLEET_PREFIX)
+    # pass 2: prefill and the first token on pre, the pages to dec, the
+    # rest decoded warm on dec
+    p2 = _fleet_pass(ctx, cfg, _fleet_router(pre, dec), engines, prompts)
+    migrated = _fleet_migrated(ctx, cfg, p2, pre, dec, prompts, "burst")
+    # each engine's build and the burst's peak of both against their
+    # plans: the weights were on the card before the resets, so each plan
+    # is charged beyond its weights term and the one shared tree is
+    # counted once, in the baseline
+    plans = [e.memory_plan.total_bytes - e.memory_plan.weights_bytes for e in (pre, dec)]
+    memory = {"plans_beyond_weights_bytes": plans, "build_peak_bytes": built,
+              "plan_summaries": [e.memory_plan.summary() for e in (pre, dec)],
+              "peak_allocated_bytes": torch.cuda.max_memory_allocated() - base_alloc,
+              "peak_reserved_growth_bytes": torch.cuda.max_memory_reserved() - base_reserved}
+    for p in prompts:
+        dec.migrate_release(p, FLEET_PREFIX)
+    drills = [_fleet_drill(ctx, cfg, params, pre, dec, spec, prompts[i], p1["runs"][i]["tokens"])
+              for i, spec in enumerate(("migrate@1", "net-cut@1"))]
+    same = _same_or_tie(ctx, cfg, params, "fleet burst vs no migration", prompts,
+                        [r["tokens"] for r in p2["runs"]], [r["tokens"] for r in p1["runs"]])
+    p2p = _fleet_p2p(ctx, cfg, params, pre, dec)
+    pre.stop()
+    del pre, engines
+    host = _fleet_host_arena(ctx, cfg, params, dec, prompts[2])
+    dec.stop()
+    beside = _bind_beside_decode(torch, dec, prompts[2])
+    del dec
+    _fresh_base(torch)
+    # the int8 pass: 4 requests over int8 pools on both engines
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    k = FLEET_INT8_REQUESTS
+    pre8 = _fleet_engine(ctx, cfg8, params, migrate_staging=True)
+    dec8 = _fleet_engine(ctx, cfg8, params)
+    e8 = {"pre": pre8, "dec": dec8}
+    m8 = _fleet_pass(ctx, cfg8, _fleet_router(pre8, dec8), e8, prompts[:k], keep_bytes=True)
+    migrated8 = _fleet_migrated(ctx, cfg8, m8, pre8, dec8, prompts[:k], "int8")
+    bytes8 = pre8._pagepool.bytes_per_page
+    pre8.stop()
+    dec8.stop()
+    del pre8, dec8, e8
+    # the readings
+    mig_bytes = p2["migrations"][0]["ack"]["bytes"]
+    copy = _pinned_copy(torch, mig_bytes)
+    migrations = [p2["log"].phases(r) for r in p2["migrations"]]
+    times = {"no_migration": _fleet_times(p1["runs"]), "migrated": _fleet_times(p2["runs"])}
+    dec_step = _fleet_dec_gaps(p2, p1)
+    log(f"fleet requests (TTFT on pre, handoff gap, total s; prompt tokens "
+        f"{[len(p) for p in prompts]}) {json.dumps(times)}")
+    for i, m in enumerate(migrations):
+        log(f"fleet migration {i} {json.dumps(m)}")
+    log(f"fleet migration bytes {mig_bytes} beside one pinned host-to-device copy of them "
+        f"{json.dumps(copy)}")
+    log(f"fleet dec decode gaps {json.dumps(dec_step)}")
+    log(f"fleet dec decode step beside a bind {json.dumps(beside)}")
+    log(f"fleet burst {json.dumps({k: v for k, v in p2['router'].items() if k != 'histograms'})}")
+    log(f"fleet engines {json.dumps({'pass1': p1['delta'], 'pass2': p2['delta']})}")
+    log(f"fleet launches pass 1 {json.dumps(p1['kernel_launches'])} pass 2 "
+        f"{json.dumps(p2['kernel_launches'])} int8 {json.dumps(m8['kernel_launches'])}")
+    log(f"fleet migrated pages {json.dumps(migrated)} int8 {json.dumps(migrated8)} "
+        f"({bytes8} bytes an int8 page)")
+    log(f"fleet memory {json.dumps(memory)}")
+    log(f"fleet tokens {json.dumps(same)}")
+    for d in drills:
+        log(f"fleet drill {json.dumps(d)}")
+    log(f"fleet p2p {json.dumps(p2p)}")
+    log(f"fleet host arena {json.dumps(host)}")
+    if (memory["peak_allocated_bytes"] > sum(plans) or memory["peak_reserved_growth_bytes"] > (
+            sum(plans)) or built["pre"] > plans[0] or built["dec"] > plans[1]):
+        raise AssertionError(f"fleet memory: the peak passes both plans: {memory}")
+    if not same["ok"]:
+        raise AssertionError(f"fleet tokens: {same}")
+    launches: dict = {}
+    for run in (p2, m8):
+        for name, count in run["kernel_launches"].items():
+            launches[name] = launches.get(name, 0) + count
+    ctx["fleet"] = {"kernel_launches": launches}
+    mean = {key: sum(m[key] for m in migrations) / len(migrations)
+            for key in ("snapshot_ms", "copy_ms", "checksum_ms", "encode_ms", "decode_ms",
+                        "verify_ms", "upload_ms", "bind_ms", "total_ms", "gb_per_s")}
+    ctx["summaries"] = ctx.get("summaries", []) + [("fleet", {
+        "ttft_s": [[round(t[0], 4) for t in times[k]] for k in times],
+        "handoff_gap_s": [[round(t[1], 4) for t in times[k]] for k in times],
+        "total_s": [[round(t[2], 4) for t in times[k]] for k in times],
+        "migration_mean": mean, "pinned_copy_gbps": copy["gb_per_s"],
+        "dec_gaps": dec_step, "bind_beside_decode": beside, "ties": len(same["ties"]),
+        "memory": [memory["peak_allocated_bytes"], memory["peak_reserved_growth_bytes"], plans],
+        "drills": [d["served"] for d in drills], "p2p": [p2p["saved"], p2p["fetch"]],
+        "host": [host["tier"], host["bit_equal"], host["migration"]],
+        "int8_bytes_equal": migrated8["bytes_compared"],
+    })]
+
+
+def _fleet_dec_gaps(p2: dict, p1: dict) -> dict:
+    """Dec's decoders during the burst: the gaps between their token bursts
+    (a captured chunk of 16 steps each, past the handoff) at p50, and the
+    largest; beside pass 1's on pre (the same traffic, no migration binding
+    between its chunks)."""
+    def gaps(runs, skip: int):
+        out = []
+        for r in runs:
+            ts = sorted(set(r["stamps"][skip:]))
+            out.extend((b - a) * 1e3 for a, b in zip(ts, ts[1:]))
+        return sorted(out)
+
+    got, ref = gaps(p2["runs"], 1), gaps(p1["runs"], 1)
+    pick = (lambda g: [g[len(g) // 2], g[-1]] if g else [None, None])
+    return {"dec_gap_p50_max_ms": pick(got), "pre_in_place_gap_p50_max_ms": pick(ref)}
+
+
+def _bind_beside_decode(torch, dec, prompt) -> dict:
+    """On the stopped dec engine: two captured decode chunks back to back,
+    and the same two with a migration's bind of a 2048-token prefix
+    (``_bind_prefix``: 32 page uploads in place, on the engine's thread
+    and stream) between them — what one bind costs the decoders of the
+    engine it lands on: device and wall ms a step, and the bind's own host
+    ms."""
+    import random as _random
+
+    # the engine's own command, its staging slots held for the binds below
+    out = dec._migrate_cmd("snapshot", {"tokens": list(prompt), "ticket": threading.Event()})
+    if out.get("event") is not None:
+        out["event"].synchronize()
+    blocks = out["blocks"]
+    rng = _random.Random(5)
+    fake = [rng.randrange(256) for _ in range(FLEET_PREFIX)]
+
+    def two_chunks(bind: bool) -> tuple:
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.monotonic()
+        start.record()
+        dec._run_chunk((False, False))
+        bind_ms = None
+        if bind:
+            t1 = time.monotonic()
+            dec._bind_prefix(fake, FLEET_PREFIX, blocks)
+            bind_ms = (time.monotonic() - t1) * 1e3
+        dec._run_chunk((False, False))
+        end.record()
+        end.synchronize()
+        steps = 2 * dec.decode_chunk
+        if bind:
+            _, entry = dec._prefix_index.deepest_entry(fake + [0])
+            dec._prefix_index._drop(dec._pagepool, entry)
+        return (start.elapsed_time(end) / steps, (time.monotonic() - t0) * 1e3 / steps, bind_ms)
+
+    two_chunks(False)  # warm
+    idle = sorted(two_chunks(False) for _ in range(3))[1]
+    busy = sorted(two_chunks(True) for _ in range(3))[1]
+    return {"idle_device_ms_per_step": idle[0], "idle_wall_ms_per_step": idle[1],
+            "bind_device_ms_per_step": busy[0], "bind_wall_ms_per_step": busy[1],
+            "bind_host_ms": busy[2], "pages": len(blocks)}
+
+
 def kernel_record(ctx: dict) -> dict:
     # kernel → (source, the TPU kernel it replaces, the phase whose path
     # counts its launches)
@@ -5364,7 +5964,7 @@ def kernel_record(ctx: dict) -> dict:
     # every serving run's launches of each kernel (counts zeroed before each)
     served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "prefix",
               "spec", "agentic", "dense_spec", "dense_prefix", "dense_prefix_int8", "tiered",
-              "load", "moe")
+              "fleet", "load", "moe")
     out = []
     for name, (src, replaces, path) in sources.items():
         runs = ctx.get("kernel_runs", {}).get(name)

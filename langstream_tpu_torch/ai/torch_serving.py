@@ -140,7 +140,10 @@ step key ``max-text-tokens``). The resource keys served:
 
 Keys of the JAX provider this port refuses with NotImplementedError
 until their tiers are ported: ``fleet*``, ``disagg`` and ``cancel-key``
-(ROADMAP item 6), ``mesh`` (item 7) — each unless it is set to off. Keys of the JAX provider with no
+(ROADMAP item 6: the in-process fleet — ``serving/fleet.py``'s router,
+``serving/migrate.py``'s KV-page migration, ``serving/lifecycle.py``'s
+cancel registry — is ported, and the provider serves these keys once the
+fleet's HTTP hop is), ``mesh`` (item 7) — each unless it is set to off. Keys of the JAX provider with no
 meaning here, which the port ignores:
 
   precompile: XLA's ahead-of-time compile of the decode ladder (the port

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 from typing import Callable, Optional, Union
 
 import torch
@@ -51,6 +52,16 @@ from langstream_tpu_torch.models.configs import ModelConfig
 from langstream_tpu_torch.ops import _build
 
 _NEG = -1e30
+
+# launches and plain-version calls per kernel wrapper; several engines of
+# one process (a fleet of in-process replicas) count from their own
+# threads, so every update holds this lock
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(fn: Callable, field: str) -> None:
+    with _COUNT_LOCK:
+        setattr(fn, field, getattr(fn, field) + 1)
 # head dims and query heads per kv head the CUDA kernels are built for
 KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_GROUPS = (1, 2, 4, 8)
@@ -240,10 +251,10 @@ def flash_prefill_attention(
     if k.shape != (b, hkv, s, d) or v.shape != k.shape or h % hkv:
         raise ValueError(f"flash_prefill: q {tuple(q.shape)} vs k/v {tuple(k.shape)}")
     if q.device.type == "cpu":
-        flash_prefill_attention.cpu_calls += 1
+        _count(flash_prefill_attention, "cpu_calls")
         return flash_prefill_reference(q, k, v, config)
     out = _segment_launch(q, k, v, None, config, "flash_prefill")
-    flash_prefill_attention.launches += 1
+    _count(flash_prefill_attention, "launches")
     return out
 
 
@@ -434,10 +445,10 @@ def flash_segment_attention(
     itself → [B, S, H*D]; the CUDA kernel on CUDA tensors (bf16 q and
     cache, int32 offsets on the card), the plain version on the CPU."""
     if q.device.type == "cpu":
-        flash_segment_attention.cpu_calls += 1
+        _count(flash_segment_attention, "cpu_calls")
         return flash_segment_reference(q, k, v, offset, config)
     out = _segment_launch(q, k, v, offset, config, "flash_segment")
-    flash_segment_attention.launches += 1
+    _count(flash_segment_attention, "launches")
     return out
 
 
@@ -456,10 +467,10 @@ def flash_segment_attention_int8(
     int8 tiles are dequantized to bf16 on the chip, so no cache-sized bf16
     copy is ever made."""
     if q.device.type == "cpu":
-        flash_segment_attention_int8.cpu_calls += 1
+        _count(flash_segment_attention_int8, "cpu_calls")
         return flash_segment_int8_reference(q, k, v, offset, config)
     out = _segment_launch(q, k, v, offset, config, "flash_segment_int8")
-    flash_segment_attention_int8.launches += 1
+    _count(flash_segment_attention_int8, "launches")
     return out
 
 
@@ -766,10 +777,10 @@ def ragged_decode_attention(
     row r reads cache row ``r // queries_per_row`` (a flattened verify's
     k + 1 queries share their row; ``dense_verify_queries``)."""
     if q.device.type == "cpu":
-        ragged_decode_attention.cpu_calls += 1
+        _count(ragged_decode_attention, "cpu_calls")
         return ragged_decode_reference(q, k, v, lengths, config, queries_per_row)
     out = _dense_decode_launch(q, k, v, lengths, config, "dense_decode", queries_per_row)
-    ragged_decode_attention.launches += 1
+    _count(ragged_decode_attention, "launches")
     return out
 
 
@@ -789,11 +800,11 @@ def ragged_decode_attention_int8(
     dequantized to f32 in registers, as the TPU kernel does in VMEM. Query
     row r reads cache row ``r // queries_per_row``."""
     if q.device.type == "cpu":
-        ragged_decode_attention_int8.cpu_calls += 1
+        _count(ragged_decode_attention_int8, "cpu_calls")
         return ragged_decode_reference(q, k, v, lengths, config, queries_per_row)
     out = _dense_decode_launch(q, k, v, lengths, config, "dense_decode_int8",
                                queries_per_row)
-    ragged_decode_attention_int8.launches += 1
+    _count(ragged_decode_attention_int8, "launches")
     return out
 
 
@@ -880,12 +891,12 @@ def ragged_paged_decode_attention(
     """GQA paged decode attention → [B, H*D]; the CUDA kernel on CUDA
     tensors (bf16 q and pool), the plain version on CPU."""
     if q.device.type == "cpu":
-        ragged_paged_decode_attention.cpu_calls += 1
+        _count(ragged_paged_decode_attention, "cpu_calls")
         return paged_decode_reference(q, k, v, lengths, table, config, page_size)
     out = _paged_decode_launch(
         q, k, v, lengths, table, page_size, config, "paged_decode"
     )
-    ragged_paged_decode_attention.launches += 1
+    _count(ragged_paged_decode_attention, "launches")
     return out
 
 
@@ -905,12 +916,12 @@ def ragged_paged_decode_attention_int8(
     """GQA paged decode attention over the int8 page pool → [B, H*D]; pages
     are dequantized to f32 in registers, as the TPU kernel does in VMEM."""
     if q.device.type == "cpu":
-        ragged_paged_decode_attention_int8.cpu_calls += 1
+        _count(ragged_paged_decode_attention_int8, "cpu_calls")
         return paged_decode_reference(q, k, v, lengths, table, config, page_size)
     out = _paged_decode_launch(
         q, k, v, lengths, table, page_size, config, "paged_decode_int8"
     )
-    ragged_paged_decode_attention_int8.launches += 1
+    _count(ragged_paged_decode_attention_int8, "launches")
     return out
 
 
@@ -963,21 +974,24 @@ KERNELS: dict[str, Callable] = {
 
 def kernel_counts() -> dict[str, dict[str, int]]:
     """Per kernel: CUDA launches and CPU plain-version calls so far."""
-    return {
-        name: {"launches": fn.launches, "cpu_calls": fn.cpu_calls}
-        for name, fn in KERNELS.items()
-    }
+    with _COUNT_LOCK:
+        return {
+            name: {"launches": fn.launches, "cpu_calls": fn.cpu_calls}
+            for name, fn in KERNELS.items()
+        }
 
 
 def reset_kernel_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
-        fn.cpu_calls = 0
+    with _COUNT_LOCK:
+        for fn in KERNELS.values():
+            fn.launches = 0
+            fn.cpu_calls = 0
 
 
 def count_snapshot() -> dict[str, tuple[int, int]]:
     """Per kernel: (launches, plain-version calls) so far."""
-    return {name: (fn.launches, fn.cpu_calls) for name, fn in KERNELS.items()}
+    with _COUNT_LOCK:
+        return {name: (fn.launches, fn.cpu_calls) for name, fn in KERNELS.items()}
 
 
 def count_delta(
@@ -995,7 +1009,8 @@ def count_delta(
 def add_counts(delta: dict[str, tuple[int, int]], times: int = 1) -> None:
     """Add ``times`` x ``delta`` to the counts (negative ``times`` removes):
     a captured graph's launches, on each of its replays."""
-    for name, (launches, calls) in delta.items():
-        fn = KERNELS[name]
-        fn.launches += times * launches
-        fn.cpu_calls += times * calls
+    with _COUNT_LOCK:
+        for name, (launches, calls) in delta.items():
+            fn = KERNELS[name]
+            fn.launches += times * launches
+            fn.cpu_calls += times * calls

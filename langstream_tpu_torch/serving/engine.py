@@ -282,6 +282,7 @@ from langstream_tpu_torch.serving.constrain import GrammarRegistry, verify_state
 from langstream_tpu_torch.serving.durable import DurableError, DurableStore
 from langstream_tpu_torch.serving.faultinject import FaultInjector
 from langstream_tpu_torch.serving.memory import plan_serving_memory, tree_bytes
+from langstream_tpu_torch.serving.migrate import MigrationError
 from langstream_tpu_torch.serving.observability import (
     EngineObservability,
     emit_request_spans,
@@ -294,6 +295,7 @@ from langstream_tpu_torch.serving.pagepool import (
     PrefixPageIndex,
     host_block,
     join_page_bytes,
+    np_view,
     page_checksums,
     page_leaf_specs,
     page_read,
@@ -597,6 +599,76 @@ class _TokenFetcher:
             handle._landed.set()
 
 
+def _host_pages(pool: Any, n: int) -> list[list[torch.Tensor]]:
+    """Pageable host blocks for ``n`` pages of ``pool``: one list of
+    contiguous leaf blocks a page (``pool_leaves`` order), views of ONE
+    buffer the caller owns."""
+    leaves = pool_leaves(pool)
+    shapes = [(leaf.shape[0],) + tuple(leaf.shape[2:]) for leaf in leaves]
+    sizes = [math.prod(shape) * leaf.element_size() for shape, leaf in zip(shapes, leaves)]
+    buf = torch.empty(n * sum(sizes), dtype=torch.uint8)
+    out, off = [], 0
+    for _ in range(n):
+        page = []
+        for shape, size, leaf in zip(shapes, sizes, leaves):
+            page.append(buf[off:off + size].view(leaf.dtype).view(shape))
+            off += size
+        out.append(page)
+    return out
+
+
+class _StagingFull(Exception):
+    """A device snapshot found too few free staging slots (engine thread
+    only): the command waits for a later iteration."""
+
+
+class _PoolFull(MigrationError):
+    """A bind refused for room alone — the receiver's pool is exhausted or
+    its prefix index is full of pinned entries. The one retryable bind
+    failure: a later iteration may have room."""
+
+
+class _MigrateStaging:
+    """The host staging of device migration snapshots: one arena
+    (``HostPageTier``, pinned on the card) of one slot's page table,
+    allocated ONCE — at build with ``migrate_staging`` (the plan's
+    ``migrate_staging_bytes``), else at the first device snapshot. A
+    snapshot's page copies land in arena slots that stay held until BOTH
+    its copies completed (their done event) and its caller let go of them
+    (its ticket is set: the pages were copied out, or the caller gave up or
+    raised) — so a slot is never handed to another snapshot while a DMA may
+    still write it, whatever became of the reply. Engine thread only; the
+    caller's side is the ticket (a ``threading.Event``)."""
+
+    def __init__(self, dev_pool: Any, pages: int) -> None:
+        self.arena = HostPageTier(dev_pool, pages)
+        self._held: list[tuple[list[int], Optional[Any], threading.Event]] = []
+
+    def take(self, n: int, ticket: threading.Event) -> list[int]:
+        """``n`` free slots for one snapshot (raises _StagingFull)."""
+        self.reclaim()
+        slots = self.arena.alloc(n)
+        if slots is None:
+            raise _StagingFull
+        self._held.append((slots, None, ticket))
+        return slots
+
+    def fence(self, slots: list[int], event: Optional[Any]) -> None:
+        """The completion event of the copies into ``slots``."""
+        self._held = [(s, event if s is slots else e, t) for s, e, t in self._held]
+
+    def reclaim(self) -> None:
+        """Free every snapshot's slots whose caller let go and whose
+        copies landed."""
+        keep = []
+        for slots, event, ticket in self._held:
+            if ticket.is_set() and (event is None or event.query()):
+                self.arena.free(slots)
+            else:
+                keep.append((slots, event, ticket))
+        self._held = keep
+
+
 class _Spill:
     """One in-flight entry spill (device pages → host arena). Made on the
     engine thread once the page copies are queued (on the card: on the
@@ -748,12 +820,6 @@ class _DurableWorker(_QueueWorker):
             log.exception("durable checkpoint crashed")
 
 
-class _PoolFull(RuntimeError):
-    """A durable restore found no room in the pool (or the index cap full
-    of pinned entries): the one retryable failure — a later iteration may
-    have room."""
-
-
 def _dfa_mask(pool: tuple, g: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
     """Each row's packed legality bits for one sample: the bitmask plane
     gathered by (grammar row, DFA state) → [B, ceil(V/32)] int32
@@ -877,6 +943,7 @@ class ServingEngine:
         durable_dir: Optional[str] = None,
         durable_max_bytes: int = 0,
         durable_timeout_s: float = 5.0,
+        migrate_staging: bool = False,
     ) -> None:
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; supported: paged, dense")
@@ -986,7 +1053,12 @@ class ServingEngine:
         self._spill_on = spill_on
         self._host_tier: Optional[HostPageTier] = None
         self._spill_worker: Optional[_SpillWorker] = None
-        self._spill_stream: Optional[Any] = None
+        # page copies off the engine stream (spills, migration snapshots)
+        # run on this stream after an event the engine stream records
+        self._spill_stream: Optional[Any] = (
+            torch.cuda.Stream(self.device)
+            if self._paged and self.device.type == "cuda" else None
+        )
         self._spill_done: "queue.SimpleQueue" = queue.SimpleQueue()
         self._spill_gen = 0
         # device-only entries awaiting hibernation, oldest first (engine
@@ -1036,6 +1108,20 @@ class ServingEngine:
         # ``hibernate()`` calls served on the engine thread at the iteration
         # top: (replica id, reply queue)
         self._hibernations: "queue.SimpleQueue" = queue.SimpleQueue()
+        # KV-page migration commands (snapshot / bind / release) from other
+        # threads, served on the engine thread at the iteration top — the
+        # pool and the index are the engine thread's — each with its own
+        # reply queue; callers wait with a deadline, never forever
+        self._migrate_cmds: "queue.SimpleQueue" = queue.SimpleQueue()
+        # snapshot commands waiting for staging slots, oldest first, and the
+        # staging itself (``_MigrateStaging``; built by ``_staging``)
+        self._migrate_waiting: deque = deque()
+        self._mig_stage: Optional[_MigrateStaging] = None
+        self.migrate_pages_out_total = 0
+        self.migrate_bytes_out_total = 0
+        self.migrate_pages_in_total = 0
+        self.migrate_bytes_in_total = 0
+        self.migrate_failures_total = 0
         # chunked-prefill streams: queued long requests, one held back when
         # that queue is full, and the active streams by slot (request, next
         # segment; dense: its local cache)
@@ -1238,11 +1324,15 @@ class ServingEngine:
             ),
             host_kv_fraction=self.host_kv_fraction if self._spill_on else 0.0,
             durable_max_bytes=self._durable_max_bytes if self._durable_on else 0,
+            # a role-tagged replica's host staging of one in-flight migration
+            migrate_staging=bool(migrate_staging) and self._paged,
         )
         log.info("serving memory plan (%s, B=%d, T=%d, %s): %s", config.name, self.max_batch,
                  self.max_seq_len, self.kv_layout, self.memory_plan.summary())
         if self._spill_on:
             self._build_host_tier()
+        if self.memory_plan.migrate_staging_bytes and self._prefix_index is not None:
+            self._staging()
         if self._durable_on:
             self._build_durable()
         if pool_entries > 0:
@@ -1302,8 +1392,6 @@ class ServingEngine:
         self._host_tier = HostPageTier(pool.dev, host_pages)
         self._prefix_index.host_tier = self._host_tier
         self._spill_worker = _SpillWorker(self._host_tier, self._spill_done, self._obs)
-        if self.device.type == "cuda":
-            self._spill_stream = torch.cuda.Stream(self.device)
         log.info(
             "tiered KV host arena: %d host pages (%.2f GiB %s RAM in %.2fs, %.2fx the device "
             "pool) — idle prefixes spill after %.1fs, LRU eviction demotes before dropping",
@@ -1809,14 +1897,20 @@ class ServingEngine:
 
     def generate(
         self,
-        prompt_tokens: list[int],
+        prompt_tokens: Optional[list[int]] = None,
         options: Optional[GenerationOptions] = None,
         on_token: Optional[Callable[[int], None]] = None,
         timeout: float = 300.0,
+        request: Optional[GenerationRequest] = None,
     ) -> GenerationResult:
         """Blocking submit + wait; a wait timeout cancels the request, so
-        the engine does not keep decoding an orphan nobody reads."""
-        req = GenerationRequest(
+        the engine does not keep decoding an orphan nobody reads.
+        ``request``: submit a request the caller built instead (the fleet's
+        dispatch registers it for cancellation first); ``prompt_tokens``,
+        ``options`` and ``on_token`` are ignored then."""
+        if request is None and prompt_tokens is None:
+            raise ValueError("generate() needs prompt_tokens or request")
+        req = request if request is not None else GenerationRequest(
             prompt_tokens=list(prompt_tokens),
             options=options or GenerationOptions(),
             on_token=on_token,
@@ -1986,6 +2080,14 @@ class ServingEngine:
                 "durable-restored-hits-total": self.durable_restored_hits_total,
                 **(self._durable.stats() if self._durable is not None
                    else DurableStore.empty_stats()),
+                # KV-page migration: pages and bytes sent out of this pool
+                # (counted once the receiver's ACK released them) and bound
+                # in from a peer's (or a durable checkpoint's)
+                "migrate-pages-out-total": self.migrate_pages_out_total,
+                "migrate-bytes-out-total": self.migrate_bytes_out_total,
+                "migrate-pages-in-total": self.migrate_pages_in_total,
+                "migrate-bytes-in-total": self.migrate_bytes_in_total,
+                "migrate-failures-total": self.migrate_failures_total,
                 # self-speculative decoding (the JAX engine's keys, rounding
                 # and meanings; zeros with speculation off)
                 "speculation": self._spec_enabled,
@@ -2255,6 +2357,9 @@ class ServingEngine:
         if self._spill_on:
             self._spill_tick()
         self._drain_hibernations()
+        # migration commands cross into the engine thread here: O(1) when
+        # idle, and an idle loop turns every ~1 ms
+        self._drain_migrations()
         self._sweep_waiting()
         if self._brownout is not None:
             self._brownout_tick()
@@ -2609,23 +2714,27 @@ class ServingEngine:
             self._maybe_checkpoint(entry)
 
     def _spill_copy(self, pages, slots) -> Optional[Any]:
-        """Queue the copies of ``pages`` into arena ``slots``. On the card
-        they run on the spill stream after the engine stream's work so far
-        (an event recorded now), one 2-D DMA a page leaf straight from the
-        pool pages into the pinned slots — no device snapshot, no device
-        temporaries — and every page carries the copies' completion event
-        as its fence, so a page freed while its copy runs is not written
-        before the copy read it (every writer of a freed page — the
-        allocator, a quarantine's zeroing — makes the engine stream wait on
-        the event first). The
-        same ordering protects the arena: a slot a restore uploads from is
-        rewritten only by a later spill, whose copies wait for this
-        stream's work, the upload included. Returns the completion event
-        (None on the CPU, where the copies ran)."""
-        pool, tier = self._pagepool, self._host_tier
+        """Queue the copies of ``pages`` into arena ``slots``
+        (``_page_copies``). The ordering also protects the arena: a slot a
+        restore uploads from is rewritten only by a later spill, whose
+        copies wait for this stream's work, the upload included."""
+        return self._page_copies(pages, [self._host_tier.blocks(s) for s in slots])
+
+    def _page_copies(self, pages, outs: list) -> Optional[Any]:
+        """Queue the copies of ``pages`` into the host blocks ``outs`` (one
+        list of leaf blocks a page, pinned on the card). On the card they
+        run on the spill stream after the engine stream's work so far (an
+        event recorded now), one 2-D DMA a page leaf straight from the pool
+        pages — no device snapshot, no device temporaries — and every page
+        carries the copies' completion event as its fence, so a page freed
+        while its copy runs is not written before the copy read it (every
+        writer of a freed page — the allocator, a quarantine's zeroing —
+        makes the engine stream wait on the event first). Returns the
+        completion event (None on the CPU, where the copies ran)."""
+        pool = self._pagepool
         if self.device.type != "cuda":
-            for page, slot in zip(pages, slots):
-                page_read(pool.dev, page, tier.blocks(slot))
+            for page, out in zip(pages, outs):
+                page_read(pool.dev, page, out)
             return None
         ready = torch.cuda.Event()
         ready.record()
@@ -2636,8 +2745,8 @@ class ServingEngine:
                 # the pool's memory is not reused before this stream's
                 # reads finished (a restart frees the pool)
                 leaf.record_stream(stream)
-            for page, slot in zip(pages, slots):
-                page_read(pool.dev, page, tier.blocks(slot), non_blocking=True)
+            for page, out in zip(pages, outs):
+                page_read(pool.dev, page, out, non_blocking=True)
             done = torch.cuda.Event()
             done.record(stream)
         pool.fence(pages, done)
@@ -2868,53 +2977,16 @@ class ServingEngine:
         if job is not None:
             self._durable_worker.submit(job)
 
-    def _durable_bind(self, tokens: list[int], length: int, blocks: list) -> None:
-        """Bind a verified checkpoint's pages into the pool and the index
-        (engine thread): allocate pages (demoting LRU entries first),
-        upload each page into its page in place, publish the prefix. On any
-        failure nothing stays bound; ``_PoolFull`` when there is no room."""
-        pool, index = self._pagepool, self._prefix_index
-        if length not in index.boundaries:
-            raise DurableError(
-                f"checkpoint length {length} is not a prefix boundary here "
-                f"(boundaries {index.boundaries})"
-            )
-        if index.has(tokens, length):
-            return  # already resident
-        n = math.ceil(length / self.page_size)
-        if len(blocks) != n:
-            raise DurableError(f"checkpoint carries {len(blocks)} pages for {length} tokens")
-        if pool.free_pages < n:
-            index.evict_for(pool, n, spill_cb=self._ensure_spilled if self._spill_on else None)
-        pages = pool.alloc_pages(n)
-        if pages is None:
-            raise _PoolFull(f"pool exhausted ({pool.free_pages} free, {n} needed)")
-        cuda = self.device.type == "cuda"
-        dtypes = [leaf.dtype for leaf in pool_leaves(pool.dev)]
-        try:
-            for leaves, dst in zip(blocks, pages):
-                # pageable blocks: the CUDA driver stages each upload before the
-                # call returns, so they may go at once
-                host = [host_block(a, dt) for a, dt in zip(leaves, dtypes)]
-                page_write(pool.dev, dst, host, non_blocking=cuda)
-            entry = index.insert(pool, tokens, length, tuple(pages))
-        finally:
-            pool.decref(pages)  # the index holds the one reference, if any
-        if entry is None:
-            raise _PoolFull("prefix index at capacity with every entry pinned")
-        if self._spill_on:
-            self._spill_candidates.append(entry)
-
     def _durable_admit(self, request: GenerationRequest, prompt: list[int]) -> Optional[tuple]:
         """Resurrection on the admission path: no live candidate covered
         the prompt, so look for a checkpoint at the deepest boundary,
         restore and verify it (every page against the manifest's spill-time
-        stamp) and bind it inline. Returns ``(length, entry)`` as a radix
-        hit, or None — the request prefills cold. Every failure (torn file,
-        CRC or checksum mismatch, stale manifest, stalled volume) dumps
-        ``durable-restore-failed`` (token-content-free) and leaves the
-        entry dead, so it fires once; a full pool is the one retryable
-        failure."""
+        stamp) and bind it inline (``_bind_prefix``). Returns ``(length,
+        entry)`` as a radix hit, or None — the request prefills cold. Every
+        failure (torn file, CRC or checksum mismatch, stale manifest,
+        stalled volume) dumps ``durable-restore-failed`` (token-content-free)
+        and leaves the entry dead, so it fires once; a refused bind (a full
+        pool) is the one retryable failure."""
         store, index = self._durable, self._prefix_index
         if store is None or request._durable_failed:
             return None
@@ -2938,8 +3010,12 @@ class ServingEngine:
                     # the manifest's stamp is the authority: poison is dead
                     store.invalidate(digest, f"page {i} failed its spill-time checksum")
                     raise DurableError(f"page {i} failed its spill-time checksum")
-            self._durable_bind(list(prompt[:length]), length, blocks)
-        except (DurableError, _PoolFull, ValueError) as e:
+            # the bind core inline: a migration RPC from the engine thread
+            # would wait on the queue this thread serves
+            self._bind_prefix(list(prompt[:length]), length, blocks)
+        except (DurableError, MigrationError, ValueError) as e:
+            # a bind refused for room is the one retryable failure: a
+            # later iteration may have room
             request._durable_failed = not isinstance(e, _PoolFull)
             self._flight_dump("durable-restore-failed", extra={
                 "error": str(e),
@@ -2960,6 +3036,37 @@ class ServingEngine:
         for p_cand, cand in reversed(index.candidates(prompt)):
             if not cand.dropped and cand.pages:
                 return p_cand, cand
+        return None
+
+    def _durable_snapshot(self, tokens) -> Optional[dict]:
+        """A migration snapshot served from a durable checkpoint, for a
+        prefix that outlived its index entry (engine thread, under
+        ``_migrate_cmd``): the checkpoint's pages and spill-time stamps. None
+        when no checkpoint covers ``tokens`` or its read fails (the
+        caller's no-prefix error stands)."""
+        store, index = self._durable, self._prefix_index
+        if store is None:
+            return None
+        toks = list(tokens)
+        for b in reversed(index.boundaries):
+            if b > len(toks):
+                continue
+            digest = prefix_digest(toks[:b])
+            if not store.contains(digest):
+                continue
+            try:
+                rec = store.restore(digest, timeout_s=self.durable_timeout_s)
+                specs = page_leaf_specs(self._pagepool.dev)
+                blocks = [split_page_bytes(raw, specs) for raw in rec["pages"]]
+            except (DurableError, ValueError) as e:
+                log.warning("durable snapshot of %s failed (%s)", digest, e)
+                return None
+            return {
+                "tier": "durable", "length": b, "digest": digest, "blocks": blocks,
+                "checksums": [bytes.fromhex(c) for c in rec["checksums"]],
+                "page_size": int(rec["page_size"]),
+                "bytes_per_page": int(rec["bytes_per_page"]),
+            }
         return None
 
     def _hibernate_now(self, replica_id: str) -> dict:
@@ -3043,9 +3150,301 @@ class ServingEngine:
         return out
 
     @property
+    def recovering(self) -> bool:
+        """True inside the crash → rebuild → backoff window of a restart
+        (one attribute read: cheap enough for a health probe)."""
+        return self._recovering
+
+    @property
     def restoring(self) -> bool:
         """True while a durable restore serves an admission."""
         return self._durable_restoring
+
+    # -- KV-page migration ------------------------------------------------------
+
+    def prefix_advertisement(
+        self, top_k: int = 32,
+    ) -> tuple[tuple[int, ...], list[tuple[str, int, str]]]:
+        """The fleet beacon's affinity payload: the prefix index's boundaries
+        and its ``top_k`` most recently used prefixes as ``(digest, length,
+        tier)``, tier ``device`` | ``both`` | ``host`` — and, with the
+        durable tier on, checkpoints that outlived their live entry at tier
+        ``durable`` (a migration or a fetch reads them from disk). A probe
+        from any thread: it touches neither LRU recency nor token content."""
+        index = self._prefix_index if self._prefix_index is not None else self._prefix_pool
+        if index is None:
+            return (), []
+        ads = index.advertised(top_k)
+        if self._prefix_index is not None and self._durable is not None:
+            live = {d for d, _, _ in ads}
+            extra = top_k
+            for digest, length in self._durable.entries():
+                if extra <= 0:
+                    break
+                if digest in live:
+                    continue
+                ads.append((digest, length, "durable"))
+                extra -= 1
+        return tuple(index.boundaries), ads
+
+    def _staging(self) -> _MigrateStaging:
+        """The snapshot staging, built on first use: one slot's page table
+        of host pages (the plan's ``migrate_staging_bytes``)."""
+        if self._mig_stage is None:
+            pages = math.ceil(self.max_seq_len / self.page_size)
+            self._mig_stage = _MigrateStaging(self._pagepool.dev, pages)
+            log.info("migration staging: %d host pages (%.2f GiB %s RAM)", pages,
+                     self._mig_stage.arena.bytes_total / 1024**3,
+                     "pinned" if self._mig_stage.arena.pinned else "host")
+        return self._mig_stage
+
+    def _drain_migrations(self) -> None:
+        """Serve queued migration commands (engine thread, iteration top).
+        Each replies on its own queue; a failing command replies with its
+        error — a broken migration degrades ONE transfer, never the
+        engine. A snapshot that finds the staging full waits for a later
+        iteration, in order, until its caller gives up."""
+        if self._mig_stage is not None:
+            self._mig_stage.reclaim()
+        cmds, self._migrate_waiting = self._migrate_waiting, deque()
+        while True:
+            try:
+                cmds.append(self._migrate_cmds.get_nowait())
+            except queue.Empty:
+                break
+        for cmd in cmds:
+            kind, payload, reply = cmd
+            ticket = payload.get("ticket")
+            if ticket is not None and ticket.is_set():
+                continue  # its caller gave up waiting
+            if kind == "snapshot" and self._migrate_waiting:
+                self._migrate_waiting.append(cmd)  # behind an older one
+                continue
+            try:
+                reply.put(("ok", self._migrate_cmd(kind, payload)))
+            except _StagingFull:
+                self._migrate_waiting.append(cmd)
+            except MigrationError as e:
+                self.migrate_failures_total += 1
+                reply.put(("err", e))
+            except Exception as e:  # noqa: BLE001 — degrade the transfer only
+                log.exception("migration command %s failed", kind)
+                self.migrate_failures_total += 1
+                reply.put(("err", MigrationError(f"{kind}: {e}")))
+
+    def _migrate_cmd(self, kind: str, payload: dict) -> dict:
+        """One migration command on the engine thread: ``snapshot`` (the
+        deepest entry covering the tokens: a hibernated one's arena bytes
+        and stored stamps, a device one's page copies queued behind the
+        engine stream, else a durable checkpoint), ``bind`` (``_bind_prefix``)
+        or ``release`` (drop the migrated-out entry once the receiver ACKed
+        it, unless it is pinned or no longer the same entry)."""
+        pool, index = self._pagepool, self._prefix_index
+        if pool is None or index is None:
+            raise MigrationError(
+                "KV-page migration needs the paged layout with a prefix index "
+                "(kv-layout: paged, prefix-cache: auto)"
+            )
+        if kind == "snapshot":
+            tokens = list(payload["tokens"])
+            hit = index.deepest_entry(tokens)
+            if hit is None:
+                durable = self._durable_snapshot(tokens)
+                if durable is not None:
+                    return durable
+                raise MigrationError("no published prefix covers this prompt")
+            length, entry = hit
+            n = math.ceil(length / self.page_size)
+            out = {
+                "length": length, "digest": prefix_digest(tokens[:length]),
+                "page_size": self.page_size, "bytes_per_page": pool.bytes_per_page,
+            }
+            tier = self._host_tier
+            if entry.host and entry.spilling is None and tier is not None and len(entry.host) >= n:
+                # a hibernated (or spilled) entry ships straight from the
+                # arena with the stamps stored at spill time; the copies
+                # leave the engine thread, whose next spill may reuse a slot
+                slots = entry.host[:n]
+                return dict(
+                    out, tier="host",
+                    blocks=[[b.clone() for b in tier.blocks(s)] for s in slots],
+                    checksums=[tier.checksum(s) for s in slots],
+                )
+            if not entry.pages or len(entry.pages) < n:
+                raise MigrationError(
+                    "prefix entry holds no readable pages (a spill in flight and no "
+                    "device half)"
+                )
+            stage = self._staging()
+            slots = stage.take(n, payload["ticket"])
+            blocks = [stage.arena.blocks(s) for s in slots]
+            # the copies run off the engine thread's stream into staging
+            # slots held until they landed and the caller let go; each
+            # source page carries their completion event as its fence, so
+            # an eviction that frees the entry mid-copy cannot hand a page
+            # to a writer before its copy landed
+            done = self._page_copies(entry.pages[:n], blocks)
+            stage.fence(slots, done)
+            return dict(out, tier="device", blocks=blocks, checksums=None, event=done)
+        if kind == "bind":
+            return self._bind_prefix(
+                list(payload["tokens"]), int(payload["length"]), payload["blocks"]
+            )
+        if kind == "release":
+            tokens, length = payload["tokens"], int(payload["length"])
+            path = index._walk(tokens, limit=length)
+            entry = path[-1].entry if path else None
+            if entry is None or entry.length != length or entry.dropped or entry.pins > 0:
+                # gone, replaced, or read by an admission in flight: retained
+                # (refcounts keep its pages valid; LRU reclaims it)
+                return {"released": False, "pages": 0}
+            n = max(len(entry.pages), len(entry.host))
+            index._drop(pool, entry)
+            self.migrate_pages_out_total += n
+            self.migrate_bytes_out_total += n * pool.bytes_per_page
+            return {"released": True, "pages": n}
+        raise MigrationError(f"unknown migration command {kind!r}")
+
+    def _bind_prefix(self, tokens: list[int], length: int, blocks: list) -> dict:
+        """The one bind core, of a migration and of a durable restore
+        (engine thread): bind verified page blocks (``pool_leaves`` order,
+        numpy or host tensors) as the prefix ``tokens[:length]``. Allocates
+        pages (demoting LRU entries first), writes each block into its page
+        IN PLACE (``page_write``: the pool is never rebound, the captured
+        graphs hold its addresses), publishes the prefix. Idempotent: an
+        already-resident prefix binds nothing (``already``). On any
+        failure nothing stays bound — the receiver frees on abort — and
+        MigrationError says why."""
+        pool, index = self._pagepool, self._prefix_index
+        if length not in index.boundaries:
+            raise MigrationError(
+                f"migrated length {length} is not a prefix boundary here (boundaries "
+                f"{index.boundaries}) — sender and receiver disagree on buckets"
+            )
+        if index.has(tokens, length):
+            return {"pages": 0, "bytes": 0, "already": True}
+        n = math.ceil(length / self.page_size)
+        if len(blocks) != n:
+            raise MigrationError(
+                f"migration carries {len(blocks)} pages for a {length}-token prefix; "
+                f"expected {n}"
+            )
+        if pool.free_pages < n:
+            index.evict_for(pool, n, spill_cb=self._ensure_spilled if self._spill_on else None)
+        pages = pool.alloc_pages(n)
+        if pages is None:
+            raise _PoolFull(
+                f"receiver pool exhausted ({pool.free_pages} free, {n} needed) — nothing "
+                "was bound"
+            )
+        cuda = self.device.type == "cuda"
+        dtypes = [leaf.dtype for leaf in pool_leaves(pool.dev)]
+        t0 = time.perf_counter()
+        try:
+            for leaves, dst in zip(blocks, pages):
+                # pageable blocks: the driver stages each upload before the
+                # call returns, so they may go at once
+                host = [host_block(np_view(b), dt) for b, dt in zip(leaves, dtypes)]
+                page_write(pool.dev, dst, host, non_blocking=cuda)
+            upload_ms = round((time.perf_counter() - t0) * 1e3, 3)
+            entry = index.insert(pool, tokens, length, tuple(pages))
+        finally:
+            pool.decref(pages)  # the index holds the one reference, if any
+        if entry is None:
+            raise _PoolFull(
+                "receiver prefix index is at capacity with every entry pinned — not bound"
+            )
+        if self._spill_on:
+            self._spill_candidates.append(entry)  # hibernates like a published one
+        self.migrate_pages_in_total += n
+        self.migrate_bytes_in_total += n * pool.bytes_per_page
+        return {"pages": n, "bytes": n * pool.bytes_per_page, "upload_ms": upload_ms}
+
+    def _migrate_rpc(self, kind: str, payload: dict, timeout_s: float) -> dict:
+        """The caller's half of a migration command: enqueue, wait at most
+        ``timeout_s`` — a wedged engine fails the MIGRATION (the router
+        falls back), it never parks the caller."""
+        if self._dead is not None:
+            raise MigrationError("engine is stopped") from self._dead
+        if not self._paged:
+            raise MigrationError("KV-page migration requires kv-layout: paged")
+        reply: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._migrate_cmds.put((kind, payload, reply))
+        try:
+            status, out = reply.get(timeout=max(0.05, float(timeout_s)))
+        except queue.Empty:
+            raise MigrationError(
+                f"engine did not serve the {kind} command within {timeout_s:.1f}s"
+            ) from None
+        if status == "err":
+            raise out
+        return out
+
+    def migrate_snapshot(self, tokens, timeout_s: float = 30.0) -> dict:
+        """The deepest published prefix covering ``tokens``, for the
+        migration frames (any thread): ``{"tier", "length", "digest",
+        "blocks", "checksums", "page_size", "bytes_per_page", "copy_ms",
+        "checksum_ms"}``, ``blocks`` one list of host leaf blocks a page.
+        A device entry's pages are copied on the spill stream behind the
+        engine stream's work and waited for HERE, then stamped here
+        (``page_checksums``); a hibernated entry's arena copies carry their
+        spill-time stamps, checked here. Raises MigrationError on any
+        failure; nothing is freed (the sender retains until ACK). A device
+        snapshot's pages are copied out of the staging here; its slots go
+        back once this returns or raises AND the copies landed."""
+        ticket = threading.Event()
+        try:
+            out = self._migrate_rpc(
+                "snapshot", {"tokens": list(tokens), "ticket": ticket}, timeout_s
+            )
+            t0 = time.perf_counter()
+            event = out.pop("event", None)
+            if out["tier"] == "device":
+                if event is not None:
+                    event.synchronize()
+                staged = out["blocks"]
+                out["blocks"] = _host_pages(self._pagepool.dev, len(staged))
+                for dst, src in zip(out["blocks"], staged):
+                    for d, b in zip(dst, src):
+                        d.copy_(b)
+        finally:
+            ticket.set()
+        t1 = time.perf_counter()
+        sums = page_checksums(out["blocks"])
+        if out["checksums"] is None:
+            out["checksums"] = sums
+        elif sums != out["checksums"]:
+            raise MigrationError(
+                f"the {out['tier']} copy of the prefix failed its stored checksum"
+            )
+        out["copy_ms"] = round((t1 - t0) * 1e3, 3)
+        out["checksum_ms"] = round((time.perf_counter() - t1) * 1e3, 3)
+        return out
+
+    def migrate_bind(self, tokens, length: int, blocks: list, timeout_s: float = 30.0) -> dict:
+        """Bind already-VERIFIED migrated pages into this engine's pool and
+        prefix index (any thread; ``serving/migrate.py`` owns the checks).
+        On any failure nothing stays bound."""
+        return self._migrate_rpc(
+            "bind", {"tokens": list(tokens), "length": int(length), "blocks": blocks}, timeout_s
+        )
+
+    def migrate_release(self, tokens, length: int, timeout_s: float = 10.0) -> dict:
+        """Drop the migrated-out prefix entry (sender side, ONLY after the
+        receiver's ACK): pages still aliased by active slots survive by
+        their refcounts; a pinned entry is retained for LRU."""
+        return self._migrate_rpc(
+            "release", {"tokens": list(tokens), "length": int(length)}, timeout_s
+        )
+
+    def migrate_limits(self) -> dict:
+        """The pool's static geometry, which bounds what a migration
+        receiver reads: ``{"bytes_per_page", "pages_total"}``, or ``{}``
+        without a paged pool. Lock-free from any thread."""
+        pool = self._pagepool
+        if pool is None:
+            return {}
+        return {"bytes_per_page": int(pool.bytes_per_page), "pages_total": int(pool.num_pages)}
 
     # -- admission -------------------------------------------------------------
 

@@ -48,9 +48,18 @@ Sites the port's engine consults:
             volume: the restore's deadline must fire)
   disk-full   raise before a checkpoint writes a byte (ENOSPC)
 
-The other sites of the grammar (the fleet-wire net sites, migrate and the
-SPMD sites) are accepted so a spec written for the JAX package parses, but
-no part of the port consults them until their tiers are ported.
+  migrate   flip one byte of one page payload of an in-flight KV-page
+            migration (``serving/migrate.py``, v1 ``data`` and v2 ``raw``
+            alike), its stamped checksum left intact: the receiver's
+            per-page check must abort the bind and the sender retain
+  net-cut   consulted between the page frames of a migration's export
+            (``serving/migrate.py``, through ``serving/fleet.py``'s wire
+            injector): the stream ends mid-transfer, nothing is bound
+
+The other sites of the grammar (``net-connect``, ``net-stall``,
+``net-corrupt`` and the SPMD sites) are accepted so a spec written for the
+JAX package parses, but no part of the port consults them until the HTTP
+hop and the SPMD wire are ported.
 
 Every firing is kept in a ring of the last 32 (``events_snapshot``): the
 engine's flight dumps carry it, so a postmortem shows which injected fault
@@ -284,6 +293,29 @@ class FaultInjector:
             victim = slots[self._rng.randrange(len(slots))]
         tier.corrupt(victim)
         return victim
+
+    def corrupt_migration_frame(self, frame: dict) -> bool:
+        """``migrate`` site: damage one page payload of an in-flight KV-page
+        migration, its stamped checksum left INTACT, so the receiver's
+        per-page verification must catch it and abort the bind. A v2 ``raw``
+        payload gets its first byte flipped; a v1 ``data`` list its first
+        base64 character swapped for another valid one (the payload still
+        decodes, its bytes differ). Returns True when the site fired (the
+        frame was changed in place)."""
+        if frame.get("kind") != "page" or not self.fires("migrate"):
+            return False
+        raw = frame.get("raw")
+        if raw:
+            damaged = bytearray(raw)
+            damaged[0] ^= 0xFF
+            frame["raw"] = bytes(damaged)
+            return True
+        data = frame.get("data") or []
+        if not data or not data[0]:
+            return False
+        first = data[0][0]
+        data[0] = ("A" if first != "A" else "B") + data[0][1:]
+        return True
 
     def events_snapshot(self) -> list[dict]:
         """A copy of the recent-firings ring, taken under the lock (the

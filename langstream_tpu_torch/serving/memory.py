@@ -109,6 +109,10 @@ class ServingMemoryPlan:
     # the durable tier's configured disk cap (durable-max-bytes): disk,
     # reported, outside total_bytes; 0 with the tier off or uncapped
     durable_disk_bytes: int = 0
+    # the host-RAM staging of one in-flight KV-page migration (one slot's
+    # worst-case page set, on each end): host RAM, reported, outside
+    # total_bytes; 0 unless the engine was built with ``migrate_staging``
+    migrate_staging_bytes: int = 0
 
     @property
     def total_bytes(self) -> int:
@@ -146,6 +150,8 @@ class ServingMemoryPlan:
         )
         if self.host_spill_bytes:
             staging += f" [+ host KV tier {self.host_spill_bytes / gib:.2f}GiB RAM]"
+        if self.migrate_staging_bytes:
+            staging += f" [+ migrate staging {self.migrate_staging_bytes / gib:.2f}GiB RAM]"
         if self.durable_disk_bytes:
             staging += f" [+ durable KV tier ≤{self.durable_disk_bytes / gib:.2f}GiB disk]"
         agentic = "".join(
@@ -195,6 +201,7 @@ def plan_serving_memory(
     grammar_exceptions: int = 65536,
     host_kv_fraction: float = 0.0,
     durable_max_bytes: int = 0,
+    migrate_staging: bool = False,
 ) -> ServingMemoryPlan:
     """Account a ServingEngine's device memory from tensor shapes; nothing
     is allocated.
@@ -223,6 +230,9 @@ def plan_serving_memory(
     pool (paged only; host RAM, reported: the tier's page copies are DMA
     between the pool and the arena, with no device temporaries).
     ``durable_max_bytes``: the durable tier's disk cap (reported).
+    ``migrate_staging``: a role-tagged replica's host staging of one
+    in-flight KV-page migration, ``table_len_for(max_seq_len, page_size)``
+    pages (paged only; host RAM, reported).
     """
     from langstream_tpu_torch.models.loader import expected_params
     from langstream_tpu_torch.models.transformer import make_kv_cache, make_page_pool
@@ -262,7 +272,7 @@ def plan_serving_memory(
     )
     staging = max(0, int(weight_load_staging))
     if kv_layout == "paged":
-        from langstream_tpu_torch.serving.pagepool import pages_for_fraction
+        from langstream_tpu_torch.serving.pagepool import pages_for_fraction, table_len_for
 
         pages = kv_pages or pages_for_fraction(max_batch, max_seq_len, page_size, page_fraction)
         pool_bytes = tree_bytes(make_page_pool(config, pages, page_size, device=meta))
@@ -279,6 +289,9 @@ def plan_serving_memory(
             weight_load_staging_bytes=staging,
             host_spill_bytes=math.ceil(pages * host_kv_fraction) * page_bytes if tiered else 0,
             durable_disk_bytes=max(0, int(durable_max_bytes)),
+            migrate_staging_bytes=(
+                table_len_for(max_seq_len, page_size) * page_bytes if migrate_staging else 0
+            ),
             **extra,
         )
     long_bytes = (

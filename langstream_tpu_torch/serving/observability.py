@@ -121,6 +121,26 @@ ENGINE_HISTOGRAMS: dict[str, dict[str, Any]] = {
 }
 
 
+# the fleet router's distributions (serving/fleet.py): owned by the router,
+# not the engine — the same names, bucket bounds and help texts as the JAX
+# package's
+FLEET_HISTOGRAMS: dict[str, dict[str, Any]] = {
+    "fleet_hop_s": {
+        "help": "remote fleet hop wall time, dispatch to terminal frame "
+                "OR hop failure (s) — failed/wedged hops count, so the "
+                "tail moves during incidents",
+        "buckets": log_buckets(1e-3, 600.0, 4),
+    },
+    # one sample per attempted KV-page migration, snapshot to ACK or to the
+    # failure that sent the stream to decode in place
+    "fleet_migrate_s": {
+        "help": "KV-page migration wall time, snapshot dispatch to "
+                "receiver ACK or failure (s) — failed migrations count",
+        "buckets": log_buckets(1e-4, 120.0, 4),
+    },
+}
+
+
 def build_histograms() -> dict[str, Histogram]:
     return {
         name: Histogram(name, spec["help"], spec["buckets"])

@@ -812,6 +812,16 @@ class PrefixPageIndex:
         cands = self.candidates(tokens)
         return cands[-1][0] if cands else 0
 
+    def deepest_entry(self, tokens) -> Optional[tuple[int, PrefixPages]]:
+        """The deepest live entry usable for ``tokens`` that holds pages on
+        the device or the host, as ``(length, entry)``, or None: what a
+        migration exports. A probe, like ``match_len``: it touches neither
+        recency nor the counters."""
+        for p, entry in reversed(self.candidates(tokens)):
+            if not entry.dropped and (entry.pages or entry.host):
+                return p, entry
+        return None
+
     @staticmethod
     def entry_tokens(entry: PrefixPages) -> list[int]:
         """The token prefix behind ``entry``, rebuilt from its trie node's

@@ -45,7 +45,7 @@ from langstream_tpu_torch.serving.durable import (
     DurableError,
     DurableStore,
 )
-from langstream_tpu_torch.serving.engine import ServingEngine
+from langstream_tpu_torch.serving.engine import GenerationRequest, ServingEngine
 from langstream_tpu_torch.serving.faultinject import FaultInjector
 from langstream_tpu_torch.serving.memory import plan_serving_memory
 from langstream_tpu_torch.serving.pagepool import prefix_digest
@@ -433,6 +433,34 @@ def test_disk_corrupt_drill_degrades_to_cold_prefill_with_dump(tmp_path):
     assert "tokens" not in dump["extra"]
     assert after["durable-restore-failures-total"] == stats["durable-restore-failures-total"]
     assert_leak_free(b)
+
+
+def test_durable_bind_refusal_retries_only_for_room(tmp_path):
+    """A checkpoint the bind refuses for its shape (a page count that does
+    not match its length) fails the request's restore for good; a bind
+    refused for room (the pool exhausted) is retried and binds once pages
+    come back."""
+    engine = ServingEngine(configs()[1], weights()[1], device="cpu",
+                           **engine_kw(tmp_path, host_kv_fraction=0.0))
+    pool, store = engine._pagepool, engine._durable
+    rng = np.random.default_rng(0)
+    for prompt, n in ((PROMPT_A, 1), (PROMPT_B, 2)):  # A: 1 page for 32 tokens
+        pages = [rng.integers(0, 256, pool.bytes_per_page, np.uint8).tobytes()
+                 for _ in range(n)]
+        store.checkpoint(prefix_digest(prompt[:32]), 32, prompt[:32], pages,
+                         [hashlib.blake2b(p, digest_size=16).hexdigest() for p in pages],
+                         page_size=16, bytes_per_page=pool.bytes_per_page)
+    bad = GenerationRequest(prompt_tokens=list(PROMPT_A), options=GenerationOptions(**GREEDY))
+    assert engine._durable_admit(bad, list(PROMPT_A)) is None
+    assert bad._durable_failed
+    held = pool.alloc_pages(pool.free_pages)
+    req = GenerationRequest(prompt_tokens=list(PROMPT_B), options=GenerationOptions(**GREEDY))
+    assert engine._durable_admit(req, list(PROMPT_B)) is None
+    assert not req._durable_failed  # retryable
+    pool.decref(held)
+    hit = engine._durable_admit(req, list(PROMPT_B))
+    assert hit is not None and hit[0] == 32 and len(hit[1].pages) == 2
+    assert engine.stats()["durable-restored-hits-total"] == 1
 
 
 def test_disk_stall_deadline_fires_never_hangs(tmp_path):

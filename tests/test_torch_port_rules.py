@@ -40,6 +40,9 @@ def test_port_files_exist():
         "langstream_tpu_torch/ops/kvcopy.py",
         "langstream_tpu_torch/serving/wire.py",
         "langstream_tpu_torch/serving/durable.py",
+        "langstream_tpu_torch/serving/migrate.py",
+        "langstream_tpu_torch/serving/fleet.py",
+        "langstream_tpu_torch/serving/lifecycle.py",
         "chip_smoke.py",
     ):
         assert mod in rel
