@@ -309,7 +309,41 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    migration's snapshot, copy, checksum, encode / decode, verify, upload
    and bind ms, pages, bytes and GB/s beside one pinned host-to-device
    copy of the same bytes; dec's decoders' gaps; the memory reading.
-17. ``load``    — serve a safetensors checkpoint: ``llama-3-8b-shallow``
+17. ``fleet_http`` — the fleet across two processes on the one card, at
+   llama-3-8b's full width and depth (the ``fleet`` phase's engine settings:
+   bf16, paged, page 64, max_seq_len 4096, max-batch 8, decode chunk 16,
+   ``prefix-cache`` auto, buckets 32…2048): this process runs
+   ``TorchServingProvider`` with ``fleet: auto`` and ``fleet-role:
+   prefill``; one replica process (``python -m
+   langstream_tpu_torch.serving.fleet``, ``fleet-role: decode``) draws its
+   own tree from the same seed and serves its HTTP routes on a loopback
+   port. Traffic: the ``fleet`` phase's 8 prompts of 2100…3850 byte tokens,
+   32 new tokens each, greedy, all at once through the provider's
+   completions service. (1) The reference: the provider's router with
+   migration off (every request decodes in place here), and the drill's and
+   the weights check's prompts one at a time. (2) The drill: a prompt
+   prefilled here, its pages pushed to the replica, whose first stream frame
+   its ``wire-fault-injection: net-cut@1`` cuts: the stream fails over to
+   this process with the reference's tokens (or one-ulp ties). (3) The
+   weights check: one prompt served by the replica alone, its tokens this
+   process's (or ties). (4) The burst, disaggregated over HTTP with v2
+   negotiated (``lstpu-kvmig-v2`` pushes, ``lstpu-frames-v2`` streams):
+   prefill and the first token here, each 32-page prefix pushed to the
+   replica and decoded there. Required: tokens the reference's (or ties); 8
+   migrations and no fallback; this process's pages out 256, read back
+   from the replica's pool over ``POST /fleet/pages`` and held to the
+   sender's stamps; launches exactly layers x (segments, decode steps) here
+   (counts zeroed before the burst) and in the replica (its life, reported
+   on its exit line). (5) A cancel: a request under ``cancel-key``, decoded
+   on the replica, cancelled in this process after 3 chunks — the cancel
+   forwarded over ``POST /fleet/cancel``, the stream ends ``cancelled``, the
+   replica's slot freed. Then the provider closes, the replica's stdin
+   closes: it drains, exits 0 with its counters (pages in = this process's
+   out over the phase, its pool leak-free), and the card's free memory is
+   back. Printed: each request's TTFT, handoff gap and total against pass
+   1's (and the ``fleet`` phase's when it ran), each migration's phases,
+   bytes and GB/s beside one pinned copy, the wire bytes of each codec.
+18. ``load``    — serve a safetensors checkpoint: ``llama-3-8b-shallow``
    (llama-3-8b's full width at 4 of its 32 layers: the depth is cut so the
    default run keeps its time with the ``fleet`` phase; the seeded tree,
    bf16, 3.85 GB) written by ``save_params_hf`` in shards of at most 5 GB
@@ -337,7 +371,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    ``fault-injection: weight-load@1`` through the provider must leave no
    engine and no params, the injector fired once. The checkpoint is
    deleted and both trees freed before ``moe``.
-18. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
+19. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
    experts, top-2) with int8 weights drawn on the card (46.9 GB; the
    llama weights are dropped first), paged bf16 KV, max_seq_len 4096: 9
    requests of 21..3001 tokens, 32 new each (the 3001-token prompt takes 2
@@ -346,7 +380,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    reference path (a 200-token prompt, 4 paged decode steps) and one
    layer's ``moe_ffn`` timed at decode (8 tokens) and at a 2048-token
    segment beside its weight-byte bound.
-19. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+20. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
    and int8 page pools and the bf16 dense cache (8192 wide), traced with
    torch.profiler: the device's busy share of the wall and the top
    kernels (no split-K decode kernel may appear).
@@ -373,6 +407,7 @@ import json
 import math
 import random
 import re
+import socket
 import subprocess
 import sys
 import threading
@@ -381,9 +416,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
-          "prefix", "spec", "tenancy", "agentic", "embed", "dense_tiers", "tiered", "fleet", "load",
-          "moe", "profile")
-DEFAULT_PHASES = PHASES[:18]
+          "prefix", "spec", "tenancy", "agentic", "embed", "dense_tiers", "tiered", "fleet",
+          "fleet_http", "load", "moe", "profile")
+DEFAULT_PHASES = PHASES[:19]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -5945,6 +5980,466 @@ def _bind_beside_decode(torch, dec, prompt) -> dict:
             "bind_host_ms": busy[2], "pages": len(blocks)}
 
 
+# ---------------------------------------------------------------------------
+# fleet_http: the fleet across two processes on one card
+# ---------------------------------------------------------------------------
+
+FLEET_HTTP_MODEL = "llama-3-8b"
+FLEET_HTTP_DEVICE = "cuda"
+# the drill's prompt, the prompt that proves both processes hold the same
+# weights, and the cancelled request's (all past the prefill threshold,
+# none of them one of the burst's)
+FLEET_HTTP_EXTRA_BYTES = (2200, 2300, 2400)
+FLEET_HTTP_CANCEL_NEW = 1024
+FLEET_HTTP_CANCEL_KEY = "fleet-http-cancel"
+
+
+class _Lines:
+    """A child's stdout lines, read on a thread (``get`` with a timeout)."""
+
+    def __init__(self, stream) -> None:
+        import queue
+
+        self.q: "queue.Queue" = queue.Queue()
+        threading.Thread(target=self._pump, args=(stream,), daemon=True).start()
+
+    def _pump(self, stream) -> None:
+        for line in stream:
+            self.q.put(line)
+        self.q.put(None)
+
+    def get(self, timeout_s: float) -> dict:
+        import queue
+
+        deadline = time.monotonic() + timeout_s
+        while True:
+            try:
+                line = self.q.get(timeout=max(0.1, deadline - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(f"fleet_http: the replica printed nothing in {timeout_s}s")
+            if line is None:
+                raise AssertionError("fleet_http: the replica's stdout closed")
+            line = line.strip()
+            if line.startswith("{"):
+                return json.loads(line)
+
+
+class _RouterTap:
+    """Records what the provider's router does: each ``stream_generate``
+    call's frames (its tokens, their arrival, the replicas that served
+    them), each migration's ACK and span (``_migrate``), and the stamps of
+    the page frames the parent exported."""
+
+    def __init__(self, router, migrate_mod) -> None:
+        self.router, self.mig = router, migrate_mod
+        self.streams: dict = {}
+        self.migrations: list = []
+        self.stamps: dict = {}
+        self.lock = threading.Lock()
+        self._stream, self._migrate = router.stream_generate, router._migrate
+        self._export = migrate_mod.export_frames
+        tap = self
+
+        def stream_generate(tokens, *a, **kw):
+            rec = {"t0": time.monotonic(), "tokens": [], "stamps": [], "served": [], "end": None}
+            with tap.lock:
+                tap.streams[tuple(tokens)] = rec
+            gen = tap._stream(tokens, *a, **kw)
+            try:
+                for f in gen:
+                    if f["kind"] == "tokens":
+                        now = time.monotonic()
+                        rec["tokens"].extend(f["tokens"])
+                        rec["stamps"].extend([now] * len(f["tokens"]))
+                        rec["served"].append(f["replica"])
+                    elif f["kind"] == "end":
+                        rec["end"] = {k: v for k, v in f.items() if k != "decision"}
+                        rec["t_end"] = time.monotonic()
+                    yield f
+            finally:
+                gen.close()
+
+        def migrate(src, dst, prompt, state):
+            t0 = time.perf_counter()
+            ack = tap._migrate(src, dst, prompt, state)
+            with tap.lock:
+                tap.migrations.append({"tokens": list(prompt), "ack": ack,
+                                       "ms": (time.perf_counter() - t0) * 1e3})
+            return ack
+
+        def export(engine, tokens, *a, **kw):
+            frames = tap._export(engine, tokens, *a, **kw)
+            stamps: list = []
+            with tap.lock:
+                tap.stamps[tuple(tokens)] = stamps
+
+            def gen():
+                try:
+                    for f in frames:
+                        if f.get("kind") == "page":
+                            stamps.append(f["checksum"])
+                        yield f
+                finally:
+                    frames.close()
+            return gen()
+
+        router.stream_generate, router._migrate = stream_generate, migrate
+        migrate_mod.export_frames = export
+
+    def close(self) -> None:
+        self.router.stream_generate, self.router._migrate = self._stream, self._migrate
+        self.mig.export_frames = self._export
+
+    def runs(self, prompts) -> list:
+        return [self.streams[tuple(p)] for p in prompts]
+
+
+def _completions(svc, texts, opts, consumer=None) -> list:
+    """Every text through the provider's completions service at once."""
+    import asyncio
+
+    async def main():
+        return await asyncio.gather(*(
+            svc.get_text_completions([t], dict(opts), consumer) for t in texts
+        ))
+
+    return asyncio.run(main())
+
+
+def _replica_pages_held(migrate_mod, url: str, migrations: list, stamps: dict) -> dict:
+    """Each migrated prefix read back from the replica's pool over ``POST
+    /fleet/pages`` (a copy: the replica hashes the pages it holds on the
+    card, and keeps them), its stamps held against the ones the parent
+    shipped."""
+    held = 0
+    for m in migrations:
+        sent = stamps[tuple(m["tokens"])]
+        got = [f["checksum"] for f in migrate_mod.fetch_pages(url, m["tokens"] + [0], 120.0)
+               if f.get("kind") == "page"]
+        if not sent or got != sent:
+            raise AssertionError(f"fleet_http: the replica's pages of a {len(m['tokens'])}-token "
+                                 f"prompt differ from the sender's stamps ({len(got)} pages)")
+        held += len(got)
+    return {"pages_held_to_sender": held}
+
+
+def _wait_routable(router, n: int, timeout_s: float = 60.0) -> float:
+    t0 = time.monotonic()
+    while router.stats()["fleet-routable-replicas"] < n:
+        if time.monotonic() - t0 > timeout_s:
+            raise AssertionError(f"fleet_http: {router.stats()['fleet-routable-replicas']} of "
+                                 f"{n} replicas routable after {timeout_s}s")
+        time.sleep(0.1)
+    return time.monotonic() - t0
+
+
+def phase_fleet_http(ctx: dict) -> None:
+    """The fleet across two processes on one card (module docstring, phase
+    17): the provider with ``fleet: auto`` in this process (role prefill)
+    and one replica process (role decode) behind its HTTP server."""
+    import torch
+
+    from langstream_tpu_torch.ai.torch_serving import TorchServingProvider
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS, GenerationOptions
+    from langstream_tpu_torch.models.loader import expected_params
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+    from langstream_tpu_torch.serving import lifecycle
+    from langstream_tpu_torch.serving import migrate as migrate_mod
+    from langstream_tpu_torch.serving import wire
+    from langstream_tpu_torch.serving.fleet import HttpReplica
+    from langstream_tpu_torch.serving.memory import tree_bytes
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    cfg = MODEL_PRESETS[FLEET_HTTP_MODEL]
+    ctx.pop("params", None)  # each process draws the seeded tree itself
+    _fresh_base(torch)
+    free_before = torch.cuda.mem_get_info()[0]
+    tok = ByteTokenizer()
+    texts = _prompts(list(FLEET_BYTES), ctx["seed"] + 19)  # the fleet phase's prompts
+    drill_text, weights_text, cancel_text = _prompts(list(FLEET_HTTP_EXTRA_BYTES),
+                                                     ctx["seed"] + 23)
+    prompts = [tok.encode(t) for t in texts]
+    base = {"model": FLEET_HTTP_MODEL, "seed": ctx["seed"], "device": FLEET_HTTP_DEVICE,
+            "max-batch": 8, "decode-chunk": 16, "page-size": PAGE, "max-seq-len": 4096,
+            "prefix-cache": "auto", "drain-grace-s": 30}
+    # the replica: role decode, on a port chosen here; its wire cuts its
+    # first stream frame (the drill's: the first stream it serves)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    replica_cfg = dict(base, **{"fleet-role": "decode", "fleet-replica-id": "dec",
+                                "wire-fault-injection": "net-cut@1"})
+    log_path = ROOT / "build" / "fleet_http_replica.log"
+    log_path.parent.mkdir(parents=True, exist_ok=True)
+    t_spawn = time.monotonic()
+    with open(log_path, "w") as errlog:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "langstream_tpu_torch.serving.fleet", "--config",
+             json.dumps(replica_cfg), "--port", str(port)],
+            cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=errlog, text=True,
+        )
+    provider = None
+    tap = None
+    try:
+        lines = _Lines(proc.stdout)
+        # this process's provider builds while the replica builds
+        provider = TorchServingProvider(dict(base, **{
+            "fleet": "auto", "fleet-role": "prefill", "fleet-replica-id": "pre",
+            "fleet-replicas": [{"id": "dec", "url": url}],
+            "fleet-prefill-threshold": FLEET_PREFIX, "fleet-migrate-timeout-s": 120,
+        }))
+        svc = provider.get_completions_service({})
+        t0 = time.monotonic()
+        engine = svc.engine()
+        engine.generate(tok.encode("warm up"), GenerationOptions(max_new_tokens=4), timeout=600)
+        parent_build_s = time.monotonic() - t0
+        start = lines.get(600)
+        replica_start_s = time.monotonic() - t_spawn
+        if start["url"] != url:
+            raise AssertionError(f"fleet_http: the replica serves {start['url']}, not {url}")
+        router = svc.fleet_router()
+        _wait_routable(router, 2)
+        tap = _RouterTap(router, migrate_mod)
+        greedy = {"max-tokens": FLEET_NEW, "temperature": 0.0}
+        params = svc.params()
+        # pass 1, the reference: the provider's router with migration off
+        # (each request routes here, the prefill replica, and decodes in
+        # place: the provider would serve such a route natively, so the
+        # router is driven directly for its tokens); then the drill's and
+        # the weights check's prompts the same way, one at a time
+        router.migrate_enabled = False
+        t0 = time.monotonic()
+        p1 = _fleet_burst(router, prompts, FLEET_NEW)
+        p1_wall = time.monotonic() - t0
+        drill_prompt, weights_prompt = tok.encode(drill_text), tok.encode(weights_text)
+        ref_drill = _fleet_burst(router, [drill_prompt], FLEET_NEW)[0]["tokens"]
+        ref_weights = _fleet_burst(router, [weights_prompt], FLEET_NEW)[0]["tokens"]
+        router.migrate_enabled = True
+        if any(set(r["served"]) != {"pre"} for r in p1):
+            raise AssertionError("fleet_http reference: a request left this process")
+        for p in prompts + [drill_prompt, weights_prompt]:
+            engine.migrate_release(p, FLEET_PREFIX)
+        router.refresh_all()  # the router no longer sees those prefixes here
+        # the drill: prefill here, the pages to the replica, whose first
+        # stream frame is cut — the router fails over to this engine with
+        # prompt + delivered
+        st0 = router.stats()
+        _completions(svc, [drill_text], greedy)
+        drill = tap.runs([drill_prompt])[0]
+        st1 = router.stats()
+        drill_out = {
+            "served": drill["served"], "end_replica": drill["end"].get("replica"),
+            "failovers": st1["fleet-stream-failovers-total"] - st0["fleet-stream-failovers-total"],
+            "migrations": st1["fleet-migrations-total"] - st0["fleet-migrations-total"],
+            "tokens": _same_or_tie(ctx, cfg, params, "fleet_http drill", [drill_prompt],
+                                   [drill["tokens"]], [ref_drill]),
+            "readmitted_after_s": _wait_routable(router, 2),
+        }
+        if (drill_out["failovers"] != 1 or drill_out["migrations"] != 1
+                or drill_out["end_replica"] != "pre" or not drill_out["tokens"]["ok"]):
+            raise AssertionError(f"fleet_http drill: {drill_out}")
+        # the weights check: one request served by the replica alone, cold
+        replica = HttpReplica("dec", url)
+        replica.fetch_beacon()
+        got = replica.generate(weights_prompt, greedy)["tokens"]
+        weights_same = _same_or_tie(ctx, cfg, params, "fleet_http replica vs this process",
+                                    [weights_prompt], [got], [ref_weights])
+        if not weights_same["ok"]:
+            raise AssertionError(f"fleet_http: the replica's tokens {weights_same}")
+        # pass 2: disaggregated over HTTP, v2 negotiated
+        if not ({"kvmig2", "frames2"} <= router._replicas["dec"].caps):
+            raise AssertionError(f"fleet_http: the replica's caps {router._replicas['dec'].caps}")
+        tap.streams.clear()
+        tap.migrations.clear()
+        wire0 = wire.wire_stats()
+        before = engine.stats()
+        st0 = router.stats()
+        reset_kernel_counts()
+        t0 = time.monotonic()
+        _completions(svc, texts, greedy)
+        p2_wall = time.monotonic() - t0
+        counts = kernel_counts()
+        after = engine.stats()
+        st2 = router.stats()
+        wire2 = {k: v - wire0[k] for k, v in wire.wire_stats().items()}
+        p2 = tap.runs(prompts)
+        migrations = list(tap.migrations)
+        for p, r in zip(prompts, p2):
+            if r["served"][0] != "pre" or set(r["served"]) != {"pre", "dec"}:
+                raise AssertionError(f"fleet_http: a {len(p)}-token request served by "
+                                     f"{r['served']}")
+        routed = {k: st2[k] - st0[k] for k in (
+            "fleet-migrations-total", "fleet-migrate-fallbacks-total", "fleet-migrate-pages-total",
+            "fleet-migrate-bytes-total", "fleet-stream-failovers-total")}
+        delta = {k: after[k] - before[k] for k in FLEET_KEYS}
+        pages = len(prompts) * (FLEET_PREFIX // PAGE)
+        if (routed["fleet-migrations-total"] != len(prompts)
+                or routed["fleet-migrate-fallbacks-total"] or routed["fleet-stream-failovers-total"]
+                or delta["migrate-pages-out-total"] != pages or len(migrations) != len(prompts)
+                or any(m["ack"] is None for m in migrations)):
+            raise AssertionError(f"fleet_http burst: router {routed}, engine {delta}")
+        plain = {k: v["cpu_calls"] for k, v in counts.items() if v["cpu_calls"]}
+        launches = {k: v["launches"] for k, v in counts.items()}
+        seg, dec_k = _kernel_name("flash_segment", cfg), _kernel_name("paged_decode", cfg)
+        if plain or launches.get(seg, 0) != cfg.n_layers * delta["prefill-segments-total"] or (
+                launches.get(dec_k, 0) != cfg.n_layers * delta["decode-steps-total"]) or (
+                delta["graph-replays-total"] != delta["decode-chunks-total"]):
+            raise AssertionError(f"fleet_http parent: launches {launches} (plain {plain}) against "
+                                 f"{delta}")
+        same = _same_or_tie(ctx, cfg, params, "fleet_http burst vs no migration", prompts,
+                            [r["tokens"] for r in p2], [r["tokens"] for r in p1])
+        held = _replica_pages_held(migrate_mod, url, migrations, tap.stamps)
+        # pass 4: a cancel forwarded by cancel-key, once the replica has
+        # streamed 16 tokens of the request (random weights' tokens decode to
+        # no text, so no chunk can say when)
+        cancel_prompt = tok.encode(cancel_text)
+        fired: dict = {}
+
+        def canceller() -> None:
+            t1 = time.monotonic()
+            while time.monotonic() - t1 < 120:
+                rec = tap.streams.get(tuple(cancel_prompt))
+                if rec is not None and rec["served"].count("dec") and len(rec["tokens"]) >= 16:
+                    fired["at_tokens"] = len(rec["tokens"])
+                    fired["local"] = lifecycle.cancel(FLEET_HTTP_CANCEL_KEY)
+                    return
+                time.sleep(0.002)
+
+        watcher = threading.Thread(target=canceller)
+        watcher.start()
+        t0 = time.monotonic()
+        res = _completions(svc, [cancel_text], {
+            "max-tokens": FLEET_HTTP_CANCEL_NEW, "temperature": 0.0,
+            "cancel-key": FLEET_HTTP_CANCEL_KEY})[0]
+        watcher.join()
+        cancel = {"finish_reason": res.finish_reason, "completion_tokens": res.completion_tokens,
+                  "s": time.monotonic() - t0, **fired,
+                  "served": tap.runs([cancel_prompt])[0]["served"][-1]}
+        t1 = time.monotonic()
+        while replica.fetch_beacon()["active_slots"] and time.monotonic() - t1 < 30:
+            time.sleep(0.05)
+        cancel["slot_freed_after_s"] = time.monotonic() - t1
+        if (res.finish_reason != "cancelled" or res.completion_tokens >= FLEET_HTTP_CANCEL_NEW
+                or cancel["served"] != "dec" or cancel.get("local") != 0
+                or replica.fetch_beacon()["active_slots"] or lifecycle._remote_by_key):
+            raise AssertionError(f"fleet_http cancel: {cancel}")
+        # the pages this process migrated out over the phase (the engine's
+        # own counter also counts the releases after pass 1)
+        migrated_total = router.stats()["fleet-migrate-pages-total"]
+        _fleet_leak_check(engine, "parent")
+        tap.close()
+        tap = None
+        # both processes down: this one's provider, then the replica (stdin)
+        asyncio_close(provider)
+        provider = svc = engine = router = params = None
+        _fresh_base(torch)
+        free_replica = torch.cuda.mem_get_info()[0]
+        proc.stdin.close()
+        exit_line = lines.get(300)
+        code = proc.wait(timeout=120)
+    finally:
+        if tap is not None:
+            tap.close()
+        if provider is not None:
+            asyncio_close(provider)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    free_after = torch.cuda.mem_get_info()[0]
+    rs = exit_line["stats"]
+    r_launches = {k: v["launches"] for k, v in exit_line["kernels"].items()}
+    r_plain = {k: v["cpu_calls"] for k, v in exit_line["kernels"].items() if v["cpu_calls"]}
+    if code != 0 or r_plain or rs["engine-restarts-total"] or (
+            r_launches.get(seg, 0) != cfg.n_layers * rs["prefill-segments-total"]) or (
+            r_launches.get(dec_k, 0) != cfg.n_layers * rs["decode-steps-total"]) or (
+            rs["decode-steps-total"] <= 0 or rs["graph-replays-total"] != rs["decode-chunks-total"]):
+        raise AssertionError(f"fleet_http replica: exit {code}, launches {r_launches} (plain "
+                             f"{r_plain}) against {rs}")
+    # the replica's pages in = this process's pages out (the drill's, the
+    # burst's 256 and the cancelled request's), its pool leak-free
+    if rs["migrate-pages-in-total"] != migrated_total or migrated_total != pages + 2 * (
+            FLEET_PREFIX // PAGE) or rs["active-slots"] or (
+            rs["kv-pages-in-use"] * rs["kv-bytes-per-page"] != rs["prefix-pool-bytes-in-use"]) or (
+            rs["kv-pages-in-use"] + rs["kv-pages-free"] != rs["kv-pages-total"]):
+        raise AssertionError(f"fleet_http replica: pages in {rs}, this process's out "
+                             f"{migrated_total}")
+    # the readings
+    mig_bytes = migrations[0]["ack"]["bytes"]
+    copy = _pinned_copy(torch, mig_bytes)
+    phases = []
+    for m in migrations:
+        ack = m["ack"]
+        ph = ack.get("phases") or {}
+        phases.append({
+            "pages": ack["pages"], "bytes": ack["bytes"],
+            **{k: ph.get(k) for k in ("snapshot_ms", "copy_ms", "checksum_ms", "encode_ms",
+                                     "transfer_ms")},
+            **{k: ack.get(k) for k in ("decode_ms", "verify_ms", "upload_ms", "bind_ms")},
+            "total_ms": m["ms"], "gb_per_s": ack["bytes"] / m["ms"] / 1e6,
+        })
+    times = {"no_migration": _fleet_times(p1), "migrated": _fleet_times(p2)}
+    in_process = dict(ctx.get("summaries", [])).get("fleet")
+    log(f"fleet_http start: replica {replica_start_s:.1f}s to its start line, this process's "
+        f"provider {parent_build_s:.1f}s to warm")
+    log(f"fleet_http requests (TTFT on pre, handoff gap, total s; prompt tokens "
+        f"{[len(p) for p in prompts]}) {json.dumps(times)}")
+    if in_process is not None:
+        log(f"fleet_http beside the in-process fleet phase of this run (TTFT, handoff gap, total "
+            f"s: no migration, migrated) {json.dumps({k: in_process[k] for k in ('ttft_s', 'handoff_gap_s', 'total_s', 'migration_mean')})}")
+    for i, m in enumerate(phases):
+        log(f"fleet_http migration {i} {json.dumps(m)}")
+    log(f"fleet_http migration bytes {mig_bytes} beside one pinned host-to-device copy of them "
+        f"{json.dumps(copy)}")
+    log(f"fleet_http wire bytes: burst {json.dumps(wire2)}, this process "
+        f"{json.dumps(wire.wire_stats())}, the replica {json.dumps(exit_line['wire'])}")
+    log(f"fleet_http burst router {json.dumps(routed)} engine {json.dumps(delta)} walls "
+        f"{p1_wall:.3f}s / {p2_wall:.3f}s")
+    log(f"fleet_http launches: this process's burst {json.dumps(launches)}, the replica's life "
+        f"{json.dumps(r_launches)}")
+    log(f"fleet_http replica exit {json.dumps(rs)}")
+    log(f"fleet_http pages {json.dumps(held)} pages out {migrated_total} in "
+        f"{rs['migrate-pages-in-total']}")
+    log(f"fleet_http tokens {json.dumps(same)}")
+    log(f"fleet_http weights check {json.dumps(weights_same)}")
+    log(f"fleet_http drill {json.dumps(drill_out)}")
+    log(f"fleet_http cancel {json.dumps(cancel)}")
+    memory = {"free_before_bytes": free_before, "free_replica_alive_bytes": free_replica,
+              "free_after_bytes": free_after, "replica_released_bytes": free_after - free_replica,
+              "this_process_kept_bytes": free_before - free_after}
+    log(f"fleet_http memory {json.dumps(memory)}")
+    merged: dict = dict(launches)
+    for name, count in r_launches.items():
+        merged[name] = merged.get(name, 0) + count
+    ctx["fleet_http"] = {"kernel_launches": merged}
+    mean = {key: sum(m[key] or 0.0 for m in phases) / len(phases)
+            for key in ("snapshot_ms", "copy_ms", "checksum_ms", "encode_ms", "transfer_ms",
+                        "decode_ms", "verify_ms", "upload_ms", "bind_ms", "total_ms",
+                        "gb_per_s")}
+    ctx["summaries"] = ctx.get("summaries", []) + [("fleet_http", {
+        "ttft_s": [[round(t[0], 4) for t in times[k]] for k in times],
+        "handoff_gap_s": [[round(t[1], 4) for t in times[k]] for k in times],
+        "total_s": [[round(t[2], 4) for t in times[k]] for k in times],
+        "migration_mean": mean, "pinned_copy_gbps": copy["gb_per_s"], "wire": wire2,
+        "ties": len(same["ties"]), "drill": drill_out["served"], "cancel": cancel,
+        "starts_s": [replica_start_s, parent_build_s], "memory": memory,
+    })]
+    # the replica gave back at least its weight tree when it exited, and the
+    # card's free memory is within 1 GiB of what it was before the phase
+    # (what this process keeps: its engine's cuBLAS and graph leftovers)
+    tree = tree_bytes(expected_params(cfg))
+    if memory["replica_released_bytes"] < tree or memory["this_process_kept_bytes"] > (1 << 30):
+        raise AssertionError(f"fleet_http memory: {memory} (a tree is {tree} bytes)")
+    if not same["ok"]:
+        raise AssertionError(f"fleet_http tokens: {same}")
+
+
+def asyncio_close(provider) -> None:
+    import asyncio
+
+    asyncio.run(provider.close())
+
+
 def kernel_record(ctx: dict) -> dict:
     # kernel → (source, the TPU kernel it replaces, the phase whose path
     # counts its launches)
@@ -5964,7 +6459,7 @@ def kernel_record(ctx: dict) -> dict:
     # every serving run's launches of each kernel (counts zeroed before each)
     served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "prefix",
               "spec", "agentic", "dense_spec", "dense_prefix", "dense_prefix_int8", "tiered",
-              "fleet", "load", "moe")
+              "fleet", "fleet_http", "load", "moe")
     out = []
     for name, (src, replaces, path) in sources.items():
         runs = ctx.get("kernel_runs", {}).get(name)

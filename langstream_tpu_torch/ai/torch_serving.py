@@ -137,13 +137,42 @@ step key ``max-text-tokens``). The resource keys served:
     (0.1 s doubling to 30 s; 5 restarts)
   fault-injection / fault-seed / fault-stall-s: deterministic fault drills
     (serving/faultinject.py; also through the LSTPU_FAULTS environment)
+  fleet: auto | off (default off) → resolve each completion through the
+    fleet router (serving/fleet.py): prefix affinity first, load second,
+    across this engine (an ``InProcessReplica``: a local route pays no hop)
+    and the replicas in `fleet-replicas` (base URLs, or {id, url} dicts;
+    ``HttpReplica``s over their runtime HTTP servers). `fleet-lambda` (256)
+    trades warm-prefix tokens against load; `fleet-policy` (affinity |
+    round-robin | least-loaded); `fleet-replica-id` / `fleet-self-url` name
+    THIS replica in its beacon; `fleet-beacon-ttl-s` (10),
+    `fleet-refresh-interval-s` (0.5) and `fleet-sticky-ttl-s` (600) tune
+    health and session stickiness. The engine's beacon and dispatch
+    functions are registered in this process whatever this key says (a
+    runtime HTTP server serves them to routers in other processes).
+  fleet-role: prefill | decode | mixed (default mixed) → disaggregated
+    prefill/decode: the role rides the beacon; routers send admissions whose
+    estimated prefill reaches `fleet-prefill-threshold` (2048 tokens) to a
+    prefill replica, which prefills and samples the first token, then
+    MIGRATE the prompt's KV pages to a decode replica (``POST
+    /fleet/migrate``, v2 binary frames where the receiver advertises them,
+    per-page blake2b checksums), where the stream decodes warm. A role
+    other than mixed also builds the engine's migration staging arena.
+    `fleet-migrate: auto | off` turns the transfer off (roles still steer;
+    streams decode in place); `fleet-migrate-timeout-s` (30) bounds each
+    transfer — on any failure the stream decodes in place, token-exact.
+    `fleet-p2p: auto | off` with `fleet-p2p-threshold` (256) and
+    `fleet-p2p-min-gap` (0) copy a prefix a peer holds before dispatch
+    instead of re-prefilling it.
 
-Keys of the JAX provider this port refuses with NotImplementedError
-until their tiers are ported: ``fleet*``, ``disagg`` and ``cancel-key``
-(ROADMAP item 6: the in-process fleet — ``serving/fleet.py``'s router,
-``serving/migrate.py``'s KV-page migration, ``serving/lifecycle.py``'s
-cancel registry — is ported, and the provider serves these keys once the
-fleet's HTTP hop is), ``mesh`` (item 7) — each unless it is set to off. Keys of the JAX provider with no
+A request's ``cancel-key`` option registers it for cancellation by that
+key (``serving/lifecycle.py``); a fleet route to another process carries
+the key to the peer and records the peer, so ``lifecycle.cancel(key)``
+forwards ``POST /fleet/cancel`` there. ``begin_drain()`` is the graceful
+half of ``close()``: stop routing, unregister the beacon, drain the engine
+and hibernate, while a runtime HTTP server still serves.
+
+The JAX provider's ``mesh`` key (ROADMAP item 7) is refused with
+NotImplementedError unless it is off. Keys of the JAX provider with no
 meaning here, which the port ignores:
 
   precompile: XLA's ahead-of-time compile of the decode ladder (the port
@@ -167,9 +196,10 @@ than bfloat16 on the card, unless ``attention_impl`` is "jnp") raises
 ValueError when the service is built, before any request.
 
 Completions stream text through the tokenizer with the reference
-provider's growth batching (1, 2, 4, … tokens per chunk). Wiring into the
-pipeline runtime and the gateway waits until those modules exist in the
-port.
+provider's growth batching (1, 2, 4, … tokens per chunk); a fleet route to
+another process streams the peer's frames into the same chunk writer.
+Wiring into the pipeline runtime and the gateway waits until those modules
+exist in the port.
 """
 
 from __future__ import annotations
@@ -202,7 +232,14 @@ from langstream_tpu_torch.models.quant import init_random_quantized_params
 from langstream_tpu_torch.models.streamload import load_params_streamed
 from langstream_tpu_torch.models.transformer import encode
 from langstream_tpu_torch.ops.attention import kernel_path_ok
-from langstream_tpu_torch.serving.engine import PREFILL_BUCKETS, GenerationRequest, ServingEngine
+from langstream_tpu_torch.serving import fleet as fleet_mod
+from langstream_tpu_torch.serving import lifecycle
+from langstream_tpu_torch.serving.engine import (
+    PREFILL_BUCKETS,
+    GenerationRequest,
+    ServingEngine,
+    ShedError,
+)
 from langstream_tpu_torch.serving.faultinject import FaultInjector
 from langstream_tpu_torch.serving.tokenizer import get_tokenizer
 
@@ -210,17 +247,18 @@ log = logging.getLogger(__name__)
 
 # provider keys of the JAX package whose tiers the port does not serve yet
 # (key or key prefix → the ROADMAP item that ports it)
-_REFUSED_KEYS = (("fleet", 6), ("disagg", 6), ("cancel-key", 6), ("mesh", 7))
+_REFUSED_KEYS = (("mesh", 7),)
 
 
-def _asks_for(key: str, value: Any) -> bool:
+def _asks_for(value: Any) -> bool:
     """A refused key set to something other than off."""
     if value is None or value is False or value == 0 or value in ([], {}):
         return False
-    text = str(value).strip().lower()
-    return text not in ("", "off", "false", "none", "0") and not (
-        key == "fleet-role" and text == "mixed"
-    )
+    return str(value).strip().lower() not in ("", "off", "false", "none", "0")
+
+
+def _off(value: Any) -> bool:
+    return str(value).lower() in ("off", "false", "0", "none")
 
 
 def _int_or_none(value: Any) -> Optional[int]:
@@ -293,7 +331,7 @@ class TorchCompletionsService(CompletionsService):
         self.resource = dict(resource)
         for key, value in self.resource.items():
             item = next((n for k, n in _REFUSED_KEYS if key.startswith(k)), None)
-            if item is not None and _asks_for(key, value):
+            if item is not None and _asks_for(value):
                 raise NotImplementedError(
                     f"{key}: not served by the PyTorch port yet (ROADMAP item {item})"
                 )
@@ -384,6 +422,23 @@ class TorchCompletionsService(CompletionsService):
         off = constrained is False or str(constrained).lower() == "off"
         self.constrained = "off" if off else "auto"
         self.tokenizer = get_tokenizer(self.resource.get("tokenizer", "byte"))
+        # disaggregated serving: the role is validated here, so a bad knob
+        # fails before the engine builds
+        self.fleet_role = str(self.resource.get("fleet-role") or "mixed")
+        if self.fleet_role not in ("prefill", "decode", "mixed"):
+            raise ValueError(
+                f"unknown fleet-role {self.fleet_role!r}; supported: prefill, decode, mixed"
+            )
+        mode = self.resource.get("fleet", "off")
+        if mode is True or str(mode).lower() == "auto":
+            self.fleet = True
+        elif mode is False or str(mode).lower() in ("off", "false", "none", ""):
+            self.fleet = False
+        else:
+            raise ValueError(f"unknown fleet mode {mode!r}; supported: auto, off")
+        self._fleet_router: Any = None
+        self._fleet_replica_id: Optional[str] = None
+        self._drain_begun = False
         # the engine's build and the params' load, from any thread (the
         # engine's build loads the params under it)
         self._lock = threading.RLock()
@@ -499,10 +554,86 @@ class TorchCompletionsService(CompletionsService):
                     durable_dir=self.durable_dir,
                     durable_max_bytes=int(self.resource.get("durable-max-bytes", 0)),
                     durable_timeout_s=float(self.resource.get("durable-timeout-s", 5.0)),
+                    migrate_staging=self.fleet_role != "mixed",
                 )
                 engine.start()
+                self._register_replica(engine)
                 self._engine = engine
             return self._engine
+
+    def _register_replica(self, engine: ServingEngine) -> None:
+        """Publish the engine's beacon and fleet functions in this process's
+        registry (what a runtime HTTP server serves as ``/state`` and
+        ``/fleet/*``), whatever the ``fleet`` key says: a router in ANOTHER
+        process reads them."""
+        rid = str(self.resource.get("fleet-replica-id") or "local")
+        url = str(self.resource.get("fleet-self-url") or "")
+        role = self.fleet_role
+        self._fleet_replica_id = rid
+        fleet_mod.register_local(
+            rid,
+            beacon_fn=lambda: fleet_mod.beacon_from_engine(rid, engine, url=url, role=role),
+            generate_fn=lambda payload: fleet_mod.engine_generate(engine, payload),
+            generate_stream_fn=lambda payload: fleet_mod.engine_generate_stream(engine, payload),
+            migrate_bind_fn=lambda frames, timeout_s=30.0: fleet_mod.engine_migrate_bind(
+                engine, frames, timeout_s
+            ),
+            migrate_out_fn=lambda payload: fleet_mod.engine_migrate_out(engine, payload),
+            migrate_pages_fn=lambda payload: fleet_mod.engine_migrate_pages(engine, payload),
+            p2p_fetch_fn=lambda payload: fleet_mod.engine_p2p_fetch(engine, payload),
+            migrate_limits_fn=engine.migrate_limits,
+            reset_fn=engine.reset_histograms,
+            recovering_fn=lambda: engine.recovering,
+            restoring_fn=lambda: engine.restoring,
+        )
+
+    def fleet_router(self) -> Optional[fleet_mod.FleetRouter]:
+        """The fleet router with ``fleet: auto``, else None: this engine (an
+        ``InProcessReplica``) and every peer of ``fleet-replicas`` (an
+        ``HttpReplica``), its beacon refresher started with it."""
+        if not self.fleet:
+            return None
+        engine = self.engine()  # outside the lock: engine() takes it
+        with self._lock:
+            if self._fleet_router is None:
+                r = self.resource
+                replicas: list[Any] = [fleet_mod.InProcessReplica(
+                    self._fleet_replica_id or "local", engine,
+                    url=str(r.get("fleet-self-url") or ""), role=self.fleet_role,
+                )]
+                for peer in r.get("fleet-replicas") or []:
+                    if isinstance(peer, dict):
+                        replicas.append(fleet_mod.HttpReplica(
+                            str(peer.get("id") or peer["url"]), str(peer["url"])
+                        ))
+                    else:
+                        replicas.append(fleet_mod.HttpReplica(str(peer), str(peer)))
+                router = fleet_mod.FleetRouter(
+                    replicas,
+                    lam=float(r.get("fleet-lambda", 256.0)),
+                    policy=str(r.get("fleet-policy", "affinity")),
+                    beacon_ttl_s=float(r.get("fleet-beacon-ttl-s", 10.0)),
+                    refresh_interval_s=float(r.get("fleet-refresh-interval-s", 0.5)),
+                    sticky_ttl_s=float(r.get("fleet-sticky-ttl-s", 600.0)),
+                    prefill_route_threshold=int(r.get("fleet-prefill-threshold", 2048)),
+                    migrate=not _off(r.get("fleet-migrate", "auto")),
+                    migrate_timeout_s=float(r.get("fleet-migrate-timeout-s", 30.0)),
+                    p2p=not _off(r.get("fleet-p2p", "auto")),
+                    p2p_threshold=int(r.get("fleet-p2p-threshold", 256)),
+                    p2p_min_gap=int(r.get("fleet-p2p-min-gap", 0)),
+                )
+                router.start()
+                # the HTTP prefetch surface (POST /fleet/prefetch) reaches
+                # this router through the process registry
+                fleet_mod.register_local_router(router)
+                self._fleet_router = router
+            return self._fleet_router
+
+    def fleet_stats(self) -> dict[str, Any]:
+        """The router's counters (empty with ``fleet: off`` or before the
+        router is built — never builds one to report zeros)."""
+        router = self._fleet_router
+        return router.stats() if router is not None else {}
 
     def _fault_injector(self) -> Optional[FaultInjector]:
         """``fault-injection`` (with ``fault-seed`` / ``fault-stall-s``), else
@@ -520,20 +651,42 @@ class TorchCompletionsService(CompletionsService):
     def engine_stats(self) -> dict[str, Any]:
         return self._engine.stats() if self._engine is not None else {}
 
+    def begin_drain(self) -> None:
+        """The graceful half of ``close()``, callable while a runtime HTTP
+        server still serves: stop routing, unregister the fleet beacon
+        (peers see ``/state`` empty within one refresh instead of routing
+        into the drain), then drain the engine — new requests shed while
+        the work in flight finishes for up to ``drain-grace-s`` — and, with
+        the durable tier on, hibernate every live session (while the engine
+        thread still serves it). Idempotent: a second call returns at once
+        instead of waiting out the grace period again."""
+        with self._lock:
+            if self._drain_begun:
+                return
+            self._drain_begun = True
+            router, self._fleet_router = self._fleet_router, None
+            rid, self._fleet_replica_id = self._fleet_replica_id, None
+            engine = self._engine
+        if router is not None:
+            fleet_mod.unregister_local_router()
+            router.stop()
+        if rid is not None:
+            fleet_mod.unregister_local(rid)
+        if engine is not None:
+            engine.drain(self.drain_grace_s)
+            ledger = engine.hibernate(rid or "")
+            if ledger:
+                log.info("replica %s hibernated: %s session prefix(es), %s bytes, %s failure(s)",
+                         rid or "local", ledger.get("entries"), ledger.get("bytes"),
+                         ledger.get("failures"))
+
     def close(self) -> None:
-        """Drain, hibernate, then stop: new requests shed while the work in
-        flight finishes for up to ``drain-grace-s``; with the durable tier
-        on every live session is then checkpointed (``hibernate``, while
-        the engine thread still serves it); what is still running then
-        fails with the stop."""
+        """``begin_drain()``, then stop: what is still running fails with
+        the stop."""
+        self.begin_drain()
         with self._lock:
             engine, self._engine = self._engine, None
         if engine is not None:
-            engine.drain(self.drain_grace_s)
-            ledger = engine.hibernate()
-            if ledger:
-                log.info("engine hibernated: %s session prefix(es), %s bytes, %s failure(s)",
-                         ledger.get("entries"), ledger.get("bytes"), ledger.get("failures"))
             engine.stop()
 
     def _render_prompt(self, messages: list[ChatMessage]) -> str:
@@ -567,6 +720,128 @@ class TorchCompletionsService(CompletionsService):
     ) -> ChatCompletionsResult:
         return await self._generate("\n".join(prompt), options, chunks_consumer)
 
+    def _finish_result(
+        self, tokens: list[int], finish_reason: str, prompt_tokens: int, ttft_s: float,
+        total_s: float, options: dict[str, Any], stream: Optional[_StreamState],
+    ) -> ChatCompletionsResult:
+        if stream is not None:
+            stream.finish()
+        content = self.tokenizer.decode(tokens)
+        # string-level stop sequences (token-level stops are in-engine)
+        for stop in options.get("stop") or []:
+            cut = content.find(stop)
+            if cut >= 0:
+                content = content[:cut]
+        return ChatCompletionsResult(
+            content=content,
+            finish_reason=finish_reason,
+            prompt_tokens=prompt_tokens,
+            completion_tokens=len(tokens),
+            ttft_ms=ttft_s * 1000.0,
+            total_ms=total_s * 1000.0,
+        )
+
+    async def _fleet_dispatch(
+        self,
+        router: fleet_mod.FleetRouter,
+        prompt_tokens: list[int],
+        options: dict[str, Any],
+        chunks_consumer: Optional[StreamingChunksConsumer],
+    ) -> Optional[ChatCompletionsResult]:
+        """Resolve one request through the fleet router: None when the first
+        route lands on THIS replica (the caller then runs the native path),
+        else the completed result of a dispatch elsewhere. The router's
+        frames stream into the chunk writer as the peer delivers them, so a
+        remote route keeps local TTFT; a peer dying mid-stream fails over
+        inside the router (prompt + delivered tokens re-dispatched to a
+        survivor). The ``cancel-key`` rides to the peer, and the replica that
+        owns the stream is recorded under it (following the stream across
+        failovers), so ``lifecycle.cancel`` forwards there. A fleet shed
+        surfaces as the engine's ShedError."""
+        session_id = str(options.get("cancel-key") or "") or None
+        loop = asyncio.get_running_loop()
+        frames = router.stream_generate(
+            prompt_tokens, dict(options), session_id=session_id,
+            timeout_s=fleet_mod.hop_timeout_s(options),
+        )
+
+        def _next():
+            try:
+                return next(frames)
+            except StopIteration:
+                return None
+
+        delivered: list[int] = []
+        end: Optional[dict] = None
+        owner_url: Optional[str] = None
+        stream = None
+
+        def _point_cancel_at(url: str, is_local: bool) -> None:
+            # exactly one remote-owner registration, following the stream
+            nonlocal owner_url
+            if owner_url is not None and session_id:
+                lifecycle.unregister_remote(session_id, owner_url)
+            owner_url = None
+            if session_id and url and not is_local and not url.startswith("local:"):
+                lifecycle.register_remote(session_id, url)
+                owner_url = url
+
+        # ONE try/finally owns the stream: a cancellation at any await below
+        # closes the router's generator, which cancels the serving replica's
+        # request
+        try:
+            try:
+                first = await loop.run_in_executor(None, _next)
+            except fleet_mod.FleetShedError as e:
+                raise ShedError(str(e), retry_after_s=e.retry_after_s) from e
+            if first is None:
+                return None
+            if first.get("kind") == "route" and first.get("local") and not first.get("disagg"):
+                # the route landed HERE: the native path serves it. Not a
+                # disaggregated prefill handoff — the router owns that one
+                # (prefill here, migrate, decode elsewhere)
+                return None
+            if chunks_consumer is not None:
+                stream = _StreamState(
+                    self.tokenizer, chunks_consumer, int(options.get("min-chunks-per-message", 20))
+                )
+            frame: Optional[dict] = first
+            while frame is not None:
+                kind = frame.get("kind")
+                if kind == "route":
+                    _point_cancel_at(str(frame.get("url") or ""), bool(frame.get("local")))
+                elif kind == "tokens":
+                    for t in frame.get("tokens") or []:
+                        delivered.append(int(t))
+                        if stream is not None:
+                            stream.on_token(int(t))
+                elif kind == "end":
+                    end = frame
+                    break
+                try:
+                    frame = await loop.run_in_executor(None, _next)
+                except fleet_mod.FleetShedError as e:
+                    raise ShedError(str(e), retry_after_s=e.retry_after_s) from e
+        except fleet_mod.ReplicaError:
+            if delivered:
+                raise  # tokens already streamed: a local restart would repeat them
+            # every replica died before the first token (sheds raised
+            # above): serve locally, cold — this process's engine may be
+            # healthy even when the router has it quarantined
+            return None
+        finally:
+            if owner_url is not None and session_id:
+                lifecycle.unregister_remote(session_id, owner_url)
+            # an executor thread may still be inside next()
+            fleet_mod.close_frames(frames)
+        if end is None:
+            raise fleet_mod.ReplicaError("fleet stream ended without a terminal frame")
+        return self._finish_result(
+            delivered, str(end.get("finish_reason", "stop")),
+            int(end.get("prompt_tokens", len(prompt_tokens))), float(end.get("ttft_s", 0.0)),
+            float(end.get("total_s", 0.0)), options, stream,
+        )
+
     async def _generate(
         self,
         prompt: str,
@@ -575,6 +850,13 @@ class TorchCompletionsService(CompletionsService):
     ) -> ChatCompletionsResult:
         loop = asyncio.get_running_loop()
         engine = await loop.run_in_executor(None, self.engine)
+        prompt_tokens = self.tokenizer.encode(prompt)
+        gen_options = GenerationOptions.from_dict(options)
+        router = await loop.run_in_executor(None, self.fleet_router)
+        if router is not None:
+            remote = await self._fleet_dispatch(router, prompt_tokens, options, chunks_consumer)
+            if remote is not None:
+                return remote
         stream = None
         if chunks_consumer is not None:
             stream = _StreamState(
@@ -586,34 +868,31 @@ class TorchCompletionsService(CompletionsService):
             loop.call_soon_threadsafe(lambda: done.done() or done.set_result(res))
 
         request = GenerationRequest(
-            prompt_tokens=self.tokenizer.encode(prompt),
-            options=GenerationOptions.from_dict(options),
+            prompt_tokens=prompt_tokens,
+            options=gen_options,
             on_token=stream.on_token if stream is not None else None,
             on_done=on_done,
         )
-        await loop.run_in_executor(None, engine.submit, request)
+        # a disconnect cancels every request registered under the key
+        # (serving/lifecycle.py): the slot frees within one chunk
+        cancel_key = str(options.get("cancel-key") or "")
+        if cancel_key:
+            lifecycle.register(cancel_key, request)
         try:
-            result = await asyncio.wait_for(done, 600.0)
-        except (asyncio.TimeoutError, asyncio.CancelledError):
-            request.cancel()
-            raise
+            await loop.run_in_executor(None, engine.submit, request)
+            try:
+                result = await asyncio.wait_for(done, 600.0)
+            except (asyncio.TimeoutError, asyncio.CancelledError):
+                request.cancel()
+                raise
+        finally:
+            if cancel_key:
+                lifecycle.unregister(cancel_key, request)
         if result.error is not None:
             raise result.error
-        if stream is not None:
-            stream.finish()
-        content = self.tokenizer.decode(result.tokens)
-        # string-level stop sequences (token-level stops are in-engine)
-        for stop in options.get("stop") or []:
-            cut = content.find(stop)
-            if cut >= 0:
-                content = content[:cut]
-        return ChatCompletionsResult(
-            content=content,
-            finish_reason=result.finish_reason,
-            prompt_tokens=result.prompt_tokens,
-            completion_tokens=len(result.tokens),
-            ttft_ms=result.ttft_s * 1000.0,
-            total_ms=result.total_s * 1000.0,
+        return self._finish_result(
+            result.tokens, result.finish_reason, result.prompt_tokens, result.ttft_s,
+            result.total_s, options, stream,
         )
 
 

@@ -230,8 +230,7 @@ deepest checkpointed boundary (``_durable_admit``: every page held against
 the manifest's stamp, then uploaded in place and published); any failure
 dumps ``durable-restore-failed`` and prefills cold.
 
-Not ported yet (later slices): KV migration and the durable tier's fleet
-surface (ROADMAP item 6), the SPMD watchdog (item 7).
+Not ported yet (a later slice): the SPMD watchdog (ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -1166,8 +1165,11 @@ class ServingEngine:
         )
         # engine iterations, idle ones too (the flight recorder's clock)
         self._iterations_total = 0
-        # decode-step clock: the ready time of the last processed chunk
+        # decode-step clock: the ready time of the last processed chunk, and
+        # the EMA of one step's time (``decode-step-ms``, and the
+        # denominator of ``hbm-gbps-decode``)
         self._last_chunk_ready_t = 0.0
+        self._step_time_ema_s = 0.0
         # admissions popped from the queue but waiting for pool pages;
         # retried ahead of the queue every iteration
         self._page_deferred: deque[GenerationRequest] = deque()
@@ -1967,6 +1969,42 @@ class ServingEngine:
         """Zero the streaming histograms (their buckets stay)."""
         self._obs.reset_histograms()
 
+    def prefill_tps_estimate(self) -> float:
+        """Landed prefill throughput (tokens/s): the prefill tokens of
+        landed dispatches over the summed wall time of the prefill-dispatch
+        histogram, as the JAX engine estimates it. The fleet beacon ships it
+        for the router's fetch-vs-prefill cost model; 0.0 until a dispatch
+        lands or with observability off (the router then falls back to its
+        flat threshold)."""
+        if not self._obs.on:
+            return 0.0
+        h = self._obs.hist.get("engine_prefill_dispatch_s")
+        if h is None:
+            return 0.0
+        total_s = float(h.snapshot().get("sum", 0.0))
+        if total_s <= 0.0:
+            return 0.0
+        with self._stats_lock:
+            tokens = self.prefill_tokens_total
+        return round(tokens / total_s, 1)
+
+    def _achieved_hbm_gbps(self) -> float:
+        """The bytes one decode step reads by the memory plan (the weights,
+        and the pages covering each active slot's written prefix — paged —
+        or the cache columns up to the last bound — dense) over the step
+        time's EMA: the achieved-bandwidth gauge, as the JAX engine's."""
+        step_s = self._step_time_ema_s
+        if step_s <= 0:
+            return 0.0
+        weights = self.memory_plan.weights_bytes
+        if self._paged:
+            pages_read = sum(
+                -(-(s.position + 1) // self.page_size) for s in self._slots if s.active
+            )
+            return round((weights + self._pagepool.bytes_per_page * pages_read) / step_s / 1e9, 2)
+        cache = self.memory_plan.cache_bytes * self.max_seq_len // (self.max_seq_len + 1)
+        return round((weights + cache) / step_s / 1e9, 2)
+
     def stats(self, dump: bool = False) -> dict[str, Any]:
         """One consistent snapshot of the counters (read under the lock
         their writers hold), plain values only. ``dump=True`` also
@@ -2000,8 +2038,17 @@ class ServingEngine:
                 "decode-chunks-total": self.decode_chunks_total,
                 "decode-steps-total": self.decode_steps_total,
                 "kv-layout": self.kv_layout,
+                "long-prefill-active": bool(self._longs),
                 "long-prefill-queued": len(self._long_queue) + (self._held_back is not None),
                 "long-prefill-streams": len(self._longs),
+                # decode steps and verifies dispatched (a verify is one step:
+                # one read of the weights)
+                "busy-steps": self.decode_steps_total + self.spec_dispatches_total,
+                # the step-time EMA of landed chunks (dispatch to tokens on
+                # the host, a captured replay on the card) and the plan's
+                # bytes a step over it
+                "decode-step-ms": round(self._step_time_ema_s * 1e3, 3),
+                "hbm-gbps-decode": self._achieved_hbm_gbps(),
                 # request lifecycle (the JAX engine's names)
                 "draining": self._draining,
                 "recovering": self._recovering,
@@ -2136,6 +2183,9 @@ class ServingEngine:
                 "grammar-pool-bytes": reg.pool_bytes if reg else 0,
                 "constrain-overhead-ms": round(self._constrain_host_ema_ms, 4),
             }
+        # the JAX engine's name for the page size (0 on the dense layout),
+        # which the fleet beacon reads; ``kv-page-size`` is the port's
+        out["page-size"] = self.page_size if pool is not None else 0
         if pool is not None:
             out.update({
                 "kv-page-size": self.page_size,
@@ -2284,6 +2334,8 @@ class ServingEngine:
         self._pending_row_resets.clear()
         self._pending_page_zero.clear()
         self._spec_index.clear()
+        self._step_time_ema_s = 0.0
+        self._last_chunk_ready_t = 0.0
         self._graphs = {}
         self._decode_graphs = {}
         if self._paged:
@@ -4434,9 +4486,18 @@ class ServingEngine:
                 step_s = (now - self._last_chunk_ready_t) / max(1, steps)
             elif not pipelined:
                 step_s = (now - t_dispatch) / max(1, steps)
-        if step_s is not None and self._obs.on:
-            self._obs.record("engine_decode_step_s", step_s)
+        if step_s is not None:
+            self._note_step(step_s)
         self._last_chunk_ready_t = now
+
+    def _note_step(self, step_s: float) -> None:
+        """One decode-step sample: the step-time EMA (``decode-step-ms``)
+        and, with observability on, the step histogram."""
+        self._step_time_ema_s = (
+            step_s if self._step_time_ema_s == 0 else 0.9 * self._step_time_ema_s + 0.1 * step_s
+        )
+        if self._obs.on:
+            self._obs.record("engine_decode_step_s", step_s)
 
     def _record_intertoken(self, slot: _Slot, request: GenerationRequest, t_prev: float,
                            delivered: int) -> None:
@@ -4464,8 +4525,8 @@ class ServingEngine:
         # one verify is one read of the weights: one step sample (the host
         # drained everything before dispatching it)
         now = time.monotonic()
-        if snapshot and clean and self._obs.on:
-            self._obs.record("engine_decode_step_s", now - t_dispatch)
+        if snapshot and clean:
+            self._note_step(now - t_dispatch)
         self._last_chunk_ready_t = now
         out, accept = host[:, :-1], host[:, -1]
         for idx, request in snapshot:

@@ -37,16 +37,22 @@ KV-page migration, and the peer-to-peer prefix fetch.
 - **Autoscale hints** (``desired_replicas``, ``desired_replicas_by_role``).
 
 Transports are duck-typed: ``InProcessReplica`` serves an engine of this
-process. ``HttpReplica``, the HTTP branches of the migration and the fetch
-(``push_migration``, ``fetch_pages``, ``engine_p2p_fetch``) and the
-standalone replica server wait for the fleet's HTTP hop; where the router
-meets a replica that is not local it raises ``MigrationError("... HTTP
-transport is not ported")``, which it already turns into its counted
-decode-in-place or cold fallback.
+process, ``HttpReplica`` a replica in another process behind its runtime
+HTTP server (``runtime/http_server.py``; stdlib ``urllib`` on the client
+side). Between processes a migration is pushed over ``POST /fleet/migrate``
+and a P2P fetch pulled over ``POST /fleet/pages`` (``serving/migrate.py``);
+peers that advertise the ``kvmig2`` / ``frames2`` caps speak the v2 binary
+codecs (``serving/wire.py``), others v1 NDJSON.
+
+Run ``python -m langstream_tpu_torch.serving.fleet --config '<json>'`` to
+serve one replica (engine, ``/state``, ``/fleet/*``) as a standalone
+process: it prints ``{"url": ..., "replica": ...}`` once its engine is warm
+and serves until its stdin closes.
 """
 
 from __future__ import annotations
 
+import http.client
 import json
 import logging
 import math
@@ -54,6 +60,8 @@ import os
 import queue
 import threading
 import time
+import urllib.error
+import urllib.request
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterator, Optional
@@ -62,6 +70,7 @@ from langstream_tpu_torch.api.metrics import Histogram, log_buckets
 from langstream_tpu_torch.models.configs import GenerationOptions
 from langstream_tpu_torch.serving import lifecycle
 from langstream_tpu_torch.serving import migrate as migrate_mod
+from langstream_tpu_torch.serving import wire as wire_mod
 from langstream_tpu_torch.serving.engine import GenerationRequest, ShedError
 from langstream_tpu_torch.serving.faultinject import FaultInjector
 from langstream_tpu_torch.serving.migrate import MigrationError
@@ -115,11 +124,13 @@ def hop_timeout_s(
 
 # ---------------------------------------------------------------------------
 # Wire fault injector (docs/SERVING.md §17): ONE process-wide injector for
-# the wire's sites — in the port, the migration export's ``migrate`` (a
-# corrupted page payload) and ``net-cut`` (a stream cut between frames).
-# Separate from the engine's injector — the wire is a different failure
-# domain — but activated the same two ways: set_wire_injector() in tests,
-# or the LSTPU_FAULTS env spec.
+# the net-* sites, consulted by the HttpReplica transport (net-connect), the
+# /fleet/generate streaming handler (net-stall / net-cut / net-corrupt) and
+# the migration export (``migrate``: a corrupted page payload; ``net-cut``:
+# a stream cut between frames). Separate from the engine's injector — the
+# wire is a different failure domain — but activated the same two ways:
+# set_wire_injector() in tests / the replica server's config, or the
+# LSTPU_FAULTS env spec.
 # ---------------------------------------------------------------------------
 
 _WIRE_LOCK = threading.Lock()
@@ -328,10 +339,10 @@ def beacon_from_engine(
         "brownout_level": int(stats.get("brownout-level", 0) or 0),
         # wire capabilities (§18/§21): what this replica's VERSION
         # understands. "kvmig" = binds inbound KV-page migrations;
-        # "dfa-resume" = honors grammar-resume-state; "kvmig2" = binds
-        # lstpu-kvmig-v2 page frames; "p2p" = serves and fetches pages
-        # peer-to-peer on radix miss (the port has no lstpu-frames-v2
-        # codec, so no "frames2"). The router refuses to migrate to —
+        # "dfa-resume" = honors grammar-resume-state; "kvmig2"/"frames2"
+        # = speaks the v2 binary codecs (lstpu-kvmig-v2 /
+        # lstpu-frames-v2); "p2p" = serves and fetches pages
+        # peer-to-peer on radix miss. The router refuses to migrate to —
         # or resume a constrained stream on — a peer that does not
         # advertise the capability: a legacy peer would silently drop the
         # option and restart the DFA at state 0 (invalid output dressed
@@ -340,7 +351,7 @@ def beacon_from_engine(
         # senders emit v2 only toward peers that advertise it, so a
         # mixed-version fleet keeps exchanging byte-identical v1 NDJSON
         # with legacy members (rolling-upgrade safe).
-        "caps": ["kvmig", "kvmig2", "dfa-resume", "p2p"]
+        "caps": ["kvmig", "kvmig2", "dfa-resume", "p2p", "frames2"]
         + (
             # "durable" = crash-safe disk checkpoints (§23): the replica
             # can hibernate, serve P2P fetches from disk, and resurrect
@@ -446,10 +457,9 @@ def validate_beacon(doc: dict[str, Any]) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Local replica registry (what a runtime HTTP server's /state and
+# Local replica registry (what the runtime HTTP server's /state and
 # /fleet/* handlers read — the same process-global pattern as
-# observability.RECENT_DUMPS, so a server never holds an engine reference;
-# the port's server waits for the fleet's HTTP hop)
+# observability.RECENT_DUMPS, so the server never holds an engine reference)
 # ---------------------------------------------------------------------------
 
 _LOCAL_LOCK = threading.Lock()
@@ -732,39 +742,38 @@ def engine_migrate_bind(
     return migrate_mod.bind_frames(engine, frames, timeout_s=timeout_s)
 
 
-def _http_not_ported(what: str) -> MigrationError:
-    return MigrationError(f"{what} needs the fleet's HTTP transport, which is not ported")
-
-
 def engine_migrate_out(engine: Any, payload: dict) -> dict:
     """The canonical ``migrate_out_fn`` for ``register_local``: export the
-    prefix covering ``prompt_tokens`` from the local engine, bind it into
-    the ``dest`` replica and release the local copy on its ACK (never
-    before). Returns the receiver's ACK with the sender's phase timings.
-    ``dest`` is a replica registered in this process, by its
-    ``InProcessReplica`` url (``local:<replica id>``); a replica in another
-    process (an ``http`` url) raises MigrationError with nothing exported."""
+    prefix covering ``prompt_tokens`` from the local engine, push it to
+    the ``dest`` replica's ``POST /fleet/migrate`` — or, for a ``dest`` of
+    this process (an ``InProcessReplica`` url, ``local:<replica id>``), bind
+    it there — and release the local copy on its ACK (never before).
+    Returns the receiver's ACK with the sender's phase timings."""
     tokens = [int(t) for t in payload.get("prompt_tokens") or []]
     if not tokens:
         raise ValueError("migrate-out payload carries no prompt_tokens")
     dest = str(payload.get("dest") or "")
     if not dest:
         raise ValueError("migrate-out payload carries no dest url")
-    if not dest.startswith("local:"):
-        raise _http_not_ported(f"a migration to {dest}")
-    with _LOCAL_LOCK:
-        bind = (_LOCAL.get(dest[len("local:"):]) or {}).get("migrate_bind")
-    if bind is None:
-        raise MigrationError(f"no replica in this process binds migrations as {dest}")
+    bind = None
+    if dest.startswith("local:"):
+        with _LOCAL_LOCK:
+            bind = (_LOCAL.get(dest[len("local:"):]) or {}).get("migrate_bind")
+        if bind is None:
+            raise MigrationError(f"no replica in this process binds migrations as {dest}")
     timeout_s = float(payload.get("timeout-s") or 30.0)
+    wire = "v2" if payload.get("wire") == "v2" else "v1"
     phases: dict[str, Any] = {}
     frames = migrate_mod.export_frames(
         engine, tokens, timeout_s=timeout_s,
         state=payload.get("state") or {}, phases=phases,
-        raw=payload.get("wire") == "v2",
+        raw=wire == "v2",
     )
     t0 = time.monotonic()
-    ack = bind(frames, timeout_s)
+    if bind is not None:
+        ack = bind(frames, timeout_s)
+    else:
+        ack = migrate_mod.push_migration(dest, frames, timeout_s, wire=wire)
     phases["transfer_ms"] = round((time.monotonic() - t0) * 1e3, 3)
     migrate_mod._release_on_ack(engine, tokens, ack)  # noqa: SLF001
     ack["phases"] = dict(phases, **(ack.get("phases") or {}))
@@ -786,6 +795,25 @@ def engine_migrate_pages(engine: Any, payload: dict) -> Iterator[dict]:
         timeout_s=float(payload.get("timeout-s") or 30.0),
         raw=payload.get("wire") == "v2",
     )
+
+
+def engine_p2p_fetch(engine: Any, payload: dict) -> dict:
+    """The canonical ``p2p_fetch_fn`` for ``register_local``: pull the
+    prefix covering ``prompt_tokens`` from the ``source`` peer's ``POST
+    /fleet/pages`` and bind it into the local engine (§21). Failures
+    propagate as MigrationError — the commanding router degrades to the
+    local cold path; nothing here retries."""
+    tokens = [int(t) for t in payload.get("prompt_tokens") or []]
+    if not tokens:
+        raise ValueError("p2p-fetch payload carries no prompt_tokens")
+    source = str(payload.get("source") or "")
+    if not source:
+        raise ValueError("p2p-fetch payload carries no source url")
+    timeout_s = float(payload.get("timeout-s") or 30.0)
+    frames = migrate_mod.fetch_pages(
+        source, tokens, timeout_s, wire="v2" if payload.get("wire") == "v2" else "v1",
+    )
+    return migrate_mod.bind_frames(engine, frames, timeout_s=timeout_s)
 
 
 def local_reset() -> None:
@@ -1102,6 +1130,437 @@ class InProcessReplica:
 
     def reset_histograms(self) -> None:
         self.engine.reset_histograms()
+
+
+# ---------------------------------------------------------------------------
+# Router
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class HttpReplica:
+    """A replica behind its runtime HTTP server (entrypoint pods, the
+    bench's subprocess fleet). Uses stdlib urllib — these calls run on the
+    router's refresher thread and dispatch executors, never an event loop."""
+
+    is_local = False
+
+    def __init__(
+        self, replica_id: str, base_url: str,
+        beacon_timeout_s: float = 2.0,
+        generate_timeout_s: float = DEFAULT_HOP_TIMEOUT_S,
+        stream_idle_timeout_s: float = 20.0,
+    ) -> None:
+        self.replica_id = str(replica_id)
+        self.url = base_url.rstrip("/")
+        self.beacon_timeout_s = beacon_timeout_s
+        self.generate_timeout_s = generate_timeout_s
+        # dead-peer detection on an OPEN stream (§17): the peer heartbeats
+        # every ~idle/4 while decoding slowly, so a wire silent past this
+        # bound is a dead/stalled peer, not a slow one — the hop fails and
+        # the router's warm failover takes over. The request's deadline
+        # (when tighter) bounds the whole hop regardless.
+        self.stream_idle_timeout_s = float(stream_idle_timeout_s)
+        # wire capabilities from the peer's last beacon (§21 negotiation):
+        # dispatch asks for the v2 binary stream only once the peer has
+        # PROVEN it speaks it — before the first beacon lands (or toward
+        # a legacy peer) every hop stays v1 NDJSON
+        self.caps: frozenset = frozenset()
+
+    def _get(self, path: str, timeout_s: float) -> dict[str, Any]:
+        with urllib.request.urlopen(self.url + path, timeout=timeout_s) as r:
+            return json.loads(r.read().decode("utf-8"))
+
+    @staticmethod
+    def _tighten_read_timeout(resp: Any, timeout_s: float) -> None:
+        """Once the response HEADERS have arrived, drop the socket timeout
+        from the hop budget to the idle bound: from here on, silence
+        between frames longer than the heartbeat cadence means a dead
+        peer. Best-effort over stdlib internals (no public accessor for
+        the response's socket) — on failure the hop budget remains the
+        only bound, i.e. the pre-§17 behavior."""
+        try:
+            resp.fp.raw._sock.settimeout(  # noqa: SLF001
+                max(0.1, float(timeout_s))
+            )
+        except (AttributeError, OSError):
+            pass
+
+    def fetch_beacon(self) -> dict[str, Any]:
+        try:
+            doc = self._get("/state", self.beacon_timeout_s)
+        except (urllib.error.URLError, OSError, ValueError) as e:
+            raise ReplicaError(f"replica {self.replica_id}: {e}") from e
+        replicas = doc.get("replicas") or []
+        for b in replicas:
+            if b.get("id") == self.replica_id:
+                self.caps = frozenset(str(c) for c in b.get("caps") or ())
+                return b
+        if replicas:
+            self.caps = frozenset(
+                str(c) for c in replicas[0].get("caps") or ()
+            )
+            return replicas[0]
+        raise ReplicaError(f"replica {self.replica_id}: empty /state")
+
+    def generate(
+        self, tokens, options: Optional[dict] = None,
+        timeout_s: Optional[float] = None,
+    ) -> dict[str, Any]:
+        """Blocking dispatch: drain the streaming hop into the one-shot
+        result shape (back-compat surface for callers that want the whole
+        completion — the wire underneath always streams, §17)."""
+        out_tokens: list[int] = []
+        end: Optional[dict] = None
+        for frame in self.generate_stream(tokens, options, timeout_s=timeout_s):
+            kind = frame.get("kind")
+            if kind == "tokens":
+                out_tokens.extend(int(t) for t in frame.get("tokens") or [])
+            elif kind == "end":
+                end = frame
+        if end is None:  # generate_stream raises first; belt and braces
+            raise ReplicaError(
+                f"replica {self.replica_id}: stream ended without a "
+                "terminal frame"
+            )
+        return {
+            "tokens": out_tokens,
+            "finish_reason": str(end.get("finish_reason", "stop")),
+            "prompt_tokens": int(end.get("prompt_tokens", 0)),
+            "ttft_s": float(end.get("ttft_s", 0.0)),
+            "total_s": float(end.get("total_s", 0.0)),
+        }
+
+    def generate_stream(
+        self, tokens, options: Optional[dict] = None,
+        timeout_s: Optional[float] = None,
+        idle_timeout_s: Optional[float] = None,
+    ) -> Iterator[dict]:
+        """One streaming fleet hop (docs/SERVING.md §17): POST the request
+        with ``stream: true`` and yield validated frames as they arrive.
+        The request's deadline bounds CONNECT and every READ (hop budget =
+        remaining deadline + slack, never the flat default); the idle
+        timeout catches a silent peer between heartbeats. Frame validation
+        — contiguous seq, parseable JSON, terminal frame present — fails
+        the hop as ReplicaError, which is the router's failover signal;
+        tokens already yielded stay valid for a warm resume."""
+        options = dict(options or {})
+        injector = wire_injector()
+        if injector is not None and injector.fires("net-connect"):
+            raise ReplicaError(
+                f"replica {self.replica_id}: injected net-connect fault"
+            )
+        total_s = (
+            float(timeout_s) if timeout_s is not None
+            else hop_timeout_s(options, self.generate_timeout_s)
+        )
+        idle_s = float(
+            idle_timeout_s if idle_timeout_s is not None
+            else self.stream_idle_timeout_s
+        )
+        # urlopen's timeout is the SOCKET timeout: it bounds the connect
+        # and then every individual recv — exactly the per-read bound we
+        # want between frames
+        read_timeout = max(0.1, min(total_s, idle_s))
+        payload: dict[str, Any] = {
+            "prompt_tokens": list(map(int, tokens)),
+            "options": options,
+            "stream": True,
+            # ask the peer to heartbeat well inside our idle timeout
+            "heartbeat-s": round(max(0.05, read_timeout / 4.0), 3),
+        }
+        if "frames2" in self.caps:
+            # §21 negotiation: the peer's beacon advertised the binary
+            # token-stream codec — ask for it; its answer's Content-Type
+            # is authoritative (a restarted-as-v1 peer still answers
+            # NDJSON and the hop just reads v1)
+            payload["wire"] = "v2"
+        body = json.dumps(payload).encode("utf-8")
+        req = urllib.request.Request(
+            self.url + "/fleet/generate", data=body,
+            headers={"Content-Type": "application/json"}, method="POST",
+        )
+        hard_stop = time.monotonic() + total_s
+        try:
+            # the HOP BUDGET (not the idle bound) governs connect + time-
+            # to-headers: the peer's eager submit may legitimately block
+            # on admission backpressure (shed-policy "block") with no
+            # bytes flowing yet — quarantining a merely-busy replica
+            # after idle_s would flap the whole fleet under load. Once
+            # the stream opens, the socket timeout tightens to the idle
+            # bound below.
+            resp = urllib.request.urlopen(req, timeout=max(0.1, total_s))
+        except urllib.error.HTTPError as e:
+            if e.code == 429:
+                retry = float(e.headers.get("Retry-After") or 1.0)
+                raise FleetShedError(
+                    f"replica {self.replica_id} shed", retry_after_s=retry
+                ) from e
+            if 400 <= e.code < 500:
+                # the REQUEST is bad, not the replica: retrying it on the
+                # rest of the fleet would brown out every replica
+                raise ValueError(
+                    f"replica {self.replica_id} rejected request: "
+                    f"HTTP {e.code} {e.reason}"
+                ) from e
+            raise ReplicaError(
+                f"replica {self.replica_id}: HTTP {e.code}"
+            ) from e
+        except (urllib.error.URLError, OSError, ValueError) as e:
+            raise ReplicaError(f"replica {self.replica_id}: {e}") from e
+        self._tighten_read_timeout(resp, read_timeout)
+        ctype = str(resp.headers.get("Content-Type") or "")
+        if "lstpu-frames2" in ctype:
+            try:
+                with resp:
+                    yield from self._v2_frames(resp, hard_stop, total_s)
+            except GeneratorExit:
+                resp.close()
+                raise
+            return
+        expected_seq = 0
+        try:
+            with resp:
+                while True:
+                    if time.monotonic() >= hard_stop:
+                        raise ReplicaError(
+                            f"replica {self.replica_id}: hop budget "
+                            f"({total_s:.1f}s) exhausted mid-stream"
+                        )
+                    try:
+                        line = resp.readline()
+                    except (OSError, http.client.HTTPException, ValueError) as e:
+                        # socket timeout (idle peer), connection reset
+                        # (net-cut), chunked-decode garbage — all one
+                        # verdict: this hop is dead
+                        raise ReplicaError(
+                            f"replica {self.replica_id}: stream read failed "
+                            f"({e or type(e).__name__})"
+                        ) from e
+                    if not line:
+                        raise ReplicaError(
+                            f"replica {self.replica_id}: stream closed "
+                            "before terminal frame"
+                        )
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        frame = json.loads(line.decode("utf-8"))
+                    except (ValueError, UnicodeDecodeError) as e:
+                        raise ReplicaError(
+                            f"replica {self.replica_id}: corrupt stream "
+                            f"frame ({e})"
+                        ) from e
+                    if (
+                        expected_seq == 0
+                        and isinstance(frame, dict)
+                        and "seq" not in frame
+                        and ("tokens" in frame or "finish_reason" in frame)
+                    ):
+                        # a NOT-YET-UPGRADED peer ignored `stream: true`
+                        # and answered the legacy one-shot JSON body:
+                        # adapt it instead of quarantining a healthy
+                        # replica mid-rolling-upgrade
+                        try:
+                            adapted = list(result_frames(
+                                frame, prompt_len=len(list(tokens))
+                            ))
+                        except (TypeError, ValueError) as e:
+                            raise ReplicaError(
+                                f"replica {self.replica_id}: corrupt "
+                                f"legacy response body ({e})"
+                            ) from e
+                        for a in adapted:
+                            yield a
+                        return
+                    if (
+                        not isinstance(frame, dict)
+                        or frame.get("seq") != expected_seq
+                    ):
+                        got = (
+                            frame.get("seq") if isinstance(frame, dict)
+                            else None
+                        )
+                        raise ReplicaError(
+                            f"replica {self.replica_id}: stream sequence "
+                            f"broken (got {got!r}, want {expected_seq})"
+                        )
+                    expected_seq += 1
+                    kind = frame.get("kind")
+                    if kind == "error":
+                        raise ReplicaError(
+                            f"replica {self.replica_id}: "
+                            f"{frame.get('error')}"
+                        )
+                    if kind == "tokens":
+                        # the wire is untrusted: a parseable frame whose
+                        # token VALUES are garbage must fail the hop (the
+                        # failover signal), never leak a ValueError the
+                        # router would misread as a bad client request
+                        try:
+                            frame["tokens"] = [
+                                int(t) for t in frame.get("tokens") or []
+                            ]
+                        except (TypeError, ValueError) as e:
+                            raise ReplicaError(
+                                f"replica {self.replica_id}: corrupt "
+                                f"tokens frame ({e})"
+                            ) from e
+                    yield frame
+                    if kind == "end":
+                        return
+        except GeneratorExit:
+            # consumer abandoned the stream (local shortcut, failover of
+            # ANOTHER hop): close the socket so the peer's handler sees
+            # the disconnect and cancels its engine request
+            resp.close()
+            raise
+
+    def _v2_frames(
+        self, resp: Any, hard_stop: float, total_s: float,
+    ) -> Iterator[dict]:
+        """Read one ``lstpu-frames-v2`` binary stream body (§21) and yield
+        the same validated §17 frame dicts the NDJSON path yields — seq
+        contiguity, error→ReplicaError, terminal-frame-required and the
+        hop budget all enforced identically; only the bytes differ. Any
+        codec violation (truncated prelude, CRC mismatch, bad magic) is a
+        dead hop: ReplicaError, the router's failover signal, never a
+        hang (the socket timeout bounds every read underneath)."""
+        def read(n: int) -> bytes:
+            try:
+                return resp.read(n)
+            except (OSError, http.client.HTTPException, ValueError) as e:
+                raise ReplicaError(
+                    f"replica {self.replica_id}: stream read failed "
+                    f"({e or type(e).__name__})"
+                ) from e
+
+        expected_seq = 0
+        ended = False
+        try:
+            preamble = wire_mod.read_exact(
+                read, len(wire_mod.FRAMES2_PREAMBLE)
+            )
+            if preamble != wire_mod.FRAMES2_PREAMBLE:
+                raise wire_mod.WireError(
+                    f"bad frames2 preamble {preamble!r}"
+                )
+            for frame in wire_mod.decode_stream_frames(read):
+                if time.monotonic() >= hard_stop:
+                    raise ReplicaError(
+                        f"replica {self.replica_id}: hop budget "
+                        f"({total_s:.1f}s) exhausted mid-stream"
+                    )
+                if frame.get("seq") != expected_seq:
+                    raise ReplicaError(
+                        f"replica {self.replica_id}: stream sequence "
+                        f"broken (got {frame.get('seq')!r}, "
+                        f"want {expected_seq})"
+                    )
+                expected_seq += 1
+                kind = frame.get("kind")
+                if kind == "error":
+                    raise ReplicaError(
+                        f"replica {self.replica_id}: {frame.get('error')}"
+                    )
+                yield frame
+                if kind == "end":
+                    ended = True
+                    break
+        except wire_mod.WireError as e:
+            raise ReplicaError(
+                f"replica {self.replica_id}: corrupt v2 stream ({e})"
+            ) from e
+        if not ended:
+            raise ReplicaError(
+                f"replica {self.replica_id}: stream closed before "
+                "terminal frame"
+            )
+
+    def migrate_out(
+        self, tokens, dest_url: str, state: Optional[dict],
+        timeout_s: float, wire: str = "v1",
+    ) -> dict:
+        """Command this (remote) replica to push a KV-page migration to
+        ``dest_url``'s ``POST /fleet/migrate`` (§18). ``wire="v2"`` asks
+        the source to ship the binary codec — set only when the DEST
+        advertises ``kvmig2`` (the source falls back to v1 if its own
+        version predates the key). Returns the receiver's ACK as relayed
+        by the source. Failures raise MigrationError — the source retains
+        its pages (it frees only on the ACK it relays here)."""
+        body = json.dumps({
+            "prompt_tokens": [int(t) for t in tokens],
+            "dest": str(dest_url),
+            "state": dict(state or {}),
+            "timeout-s": float(timeout_s),
+            "wire": "v2" if wire == "v2" else "v1",
+        }).encode("utf-8")
+        req = urllib.request.Request(
+            self.url + "/fleet/migrate-out", data=body,
+            headers={"Content-Type": "application/json"}, method="POST",
+        )
+        try:
+            with urllib.request.urlopen(
+                req, timeout=max(0.1, float(timeout_s) + 2.0)
+            ) as r:
+                ack = json.loads(r.read().decode("utf-8"))
+        except (urllib.error.URLError, OSError, ValueError) as e:
+            raise MigrationError(
+                f"replica {self.replica_id} migrate-out failed: {e}"
+            ) from e
+        if not ack.get("ok"):
+            raise MigrationError(
+                f"replica {self.replica_id} migrate-out rejected: "
+                f"{ack.get('error')!r}"
+            )
+        return ack
+
+    def p2p_fetch(
+        self, tokens, source_url: str, timeout_s: float, wire: str = "v1",
+    ) -> dict:
+        """Command this (remote) replica to pull the pages covering
+        ``tokens`` from ``source_url``'s ``POST /fleet/pages`` and bind
+        them (§21). Returns the bind ACK. Failures raise MigrationError —
+        the commanding router falls back to the cold path; the owner
+        never released anything (a fetch copies)."""
+        body = json.dumps({
+            "prompt_tokens": [int(t) for t in tokens],
+            "source": str(source_url),
+            "timeout-s": float(timeout_s),
+            "wire": "v2" if wire == "v2" else "v1",
+        }).encode("utf-8")
+        req = urllib.request.Request(
+            self.url + "/fleet/fetch", data=body,
+            headers={"Content-Type": "application/json"}, method="POST",
+        )
+        try:
+            with urllib.request.urlopen(
+                req, timeout=max(0.1, float(timeout_s) + 2.0)
+            ) as r:
+                ack = json.loads(r.read().decode("utf-8"))
+        except (urllib.error.URLError, OSError, ValueError) as e:
+            raise MigrationError(
+                f"replica {self.replica_id} p2p fetch failed: {e}"
+            ) from e
+        if not ack.get("ok"):
+            raise MigrationError(
+                f"replica {self.replica_id} p2p fetch rejected: "
+                f"{ack.get('error')!r}"
+            )
+        return ack
+
+    def reset_histograms(self) -> None:
+        try:
+            urllib.request.urlopen(
+                urllib.request.Request(
+                    self.url + "/fleet/reset", data=b"{}", method="POST",
+                    headers={"Content-Type": "application/json"},
+                ),
+                timeout=self.beacon_timeout_s,
+            ).read()
+        except (urllib.error.URLError, OSError) as e:
+            raise ReplicaError(f"replica {self.replica_id}: {e}") from e
 
 
 # ---------------------------------------------------------------------------
@@ -2054,21 +2513,50 @@ class FleetRouter:
         t0 = time.perf_counter()
         phases: dict[str, Any] = {}
         try:
-            if not (
-                getattr(src.handle, "is_local", False)
-                and getattr(dst.handle, "is_local", False)
-            ):
-                raise _http_not_ported(
-                    f"a migration {src.replica_id} → {dst.replica_id} between processes"
+            # wire negotiation (§21): push the binary codec only toward a
+            # receiver that advertises it — everything else stays v1
+            # NDJSON, byte-identical to the pre-v2 wire
+            wire = "v2" if self._has_cap(dst.replica_id, "kvmig2") else "v1"
+            if getattr(src.handle, "is_local", False):
+                local_dst = getattr(dst.handle, "is_local", False)
+                frames = migrate_mod.export_frames(
+                    src.handle.engine, prompt,
+                    timeout_s=self.migrate_timeout_s, state=state, phases=phases,
+                    raw=not local_dst and wire == "v2",
                 )
-            frames = migrate_mod.export_frames(
-                src.handle.engine, prompt,
-                timeout_s=self.migrate_timeout_s, state=state, phases=phases,
-            )
-            ack = migrate_mod.bind_frames(
-                dst.handle.engine, frames, timeout_s=self.migrate_timeout_s,
-            )
-            migrate_mod._release_on_ack(src.handle.engine, prompt, ack)  # noqa: SLF001
+                if local_dst:
+                    ack = migrate_mod.bind_frames(
+                        dst.handle.engine, frames, timeout_s=self.migrate_timeout_s,
+                    )
+                else:
+                    t1 = time.perf_counter()
+                    ack = migrate_mod.push_migration(
+                        str(getattr(dst.handle, "url", "")), frames,
+                        self.migrate_timeout_s, wire=wire,
+                    )
+                    phases["transfer_ms"] = round((time.perf_counter() - t1) * 1e3, 3)
+                migrate_mod._release_on_ack(src.handle.engine, prompt, ack)  # noqa: SLF001
+            else:
+                migrate_out = getattr(src.handle, "migrate_out", None)
+                dst_url = str(getattr(dst.handle, "url", "") or "")
+                if migrate_out is None or not dst_url.startswith("http"):
+                    raise RuntimeError(
+                        "source replica cannot push a migration to this "
+                        "destination (no migrate-out transport / non-HTTP "
+                        "receiver)"
+                    )
+                if wire == "v2":
+                    try:
+                        ack = migrate_out(
+                            prompt, dst_url, state, self.migrate_timeout_s, wire="v2",
+                        )
+                    except TypeError:
+                        # a pre-v2 source handle: its NDJSON push is
+                        # still valid toward a v2 receiver
+                        ack = migrate_out(prompt, dst_url, state, self.migrate_timeout_s)
+                else:
+                    ack = migrate_out(prompt, dst_url, state, self.migrate_timeout_s)
+                phases.update(ack.get("phases") or {})
             ack["phases"] = phases
             took = time.perf_counter() - t0
             with self._hist_lock:
@@ -2129,19 +2617,27 @@ class FleetRouter:
             if src_state is None:
                 raise MigrationError(f"p2p owner {src_id} is not a fleet member")
             src = src_state.handle
-            if not (
-                getattr(decision.handle, "is_local", False)
-                and getattr(src, "is_local", False)
-            ):
-                raise _http_not_ported(
-                    f"a page fetch {src_id} → {decision.replica_id} between processes"
+            # codec negotiation rides the OWNER's caps here — it is the
+            # sender of the page bytes
+            wire = "v2" if "kvmig2" in src_state.caps else "v1"
+            timeout_s = self.migrate_timeout_s
+            if getattr(decision.handle, "is_local", False):
+                if getattr(src, "is_local", False):
+                    frames = migrate_mod.export_frames(src.engine, prompt, timeout_s=timeout_s)
+                else:
+                    src_url = str(getattr(src, "url", "") or "")
+                    if not src_url.startswith("http"):
+                        raise MigrationError(f"p2p owner {src_id} has no page-fetch transport")
+                    frames = migrate_mod.fetch_pages(src_url, prompt, timeout_s, wire=wire)
+                ack = migrate_mod.bind_frames(
+                    decision.handle.engine, frames, timeout_s=timeout_s
                 )
-            frames = migrate_mod.export_frames(
-                src.engine, prompt, timeout_s=self.migrate_timeout_s,
-            )
-            ack = migrate_mod.bind_frames(
-                decision.handle.engine, frames, timeout_s=self.migrate_timeout_s
-            )
+            else:
+                fetch = getattr(decision.handle, "p2p_fetch", None)
+                src_url = str(getattr(src, "url", "") or "")
+                if fetch is None or not src_url.startswith("http"):
+                    raise MigrationError("routed replica cannot run a p2p fetch (no transport)")
+                ack = fetch(prompt, src_url, timeout_s, wire=wire)
             elapsed = time.perf_counter() - t0
             with self._lock:
                 self.p2p_fetch_total += 1
@@ -2825,5 +3321,94 @@ class FleetRouter:
         out["fleet-desired-replicas-by-role"] = (
             self.desired_replicas_by_role()
         )
+        # process-wide wire byte accounting by protocol (§21): counted at
+        # each SENDING site of the wire — the v1-vs-v2 overhead's raw series
+        wb = wire_mod.wire_stats()
+        out["fleet-wire-bytes-v1-total"] = int(wb.get("v1", 0))
+        out["fleet-wire-bytes-v2-total"] = int(wb.get("v2", 0))
         return out
 
+
+# ---------------------------------------------------------------------------
+# Standalone replica server:
+#   python -m langstream_tpu_torch.serving.fleet --config '{"model": "tiny-test"}'
+# prints one JSON line {"url": ..., "replica": ...} once the engine is warm,
+# serves /state + /fleet/* until stdin closes, then one JSON line of its
+# engine's counters and the process's kernel counts.
+# ---------------------------------------------------------------------------
+
+# the engine counters the exit line reports (the kernels' work and the
+# pool's accounting)
+EXIT_STATS = (
+    "admit-groups-total", "prefill-segments-total", "prefill-tokens-total",
+    "prefill-tokens-saved-total", "decode-chunks-total", "decode-steps-total",
+    "graph-replays-total", "cancelled-total", "engine-restarts-total",
+    "migrate-pages-in-total", "migrate-bytes-in-total", "migrate-pages-out-total",
+    "migrate-failures-total", "kv-pages-total", "kv-pages-in-use", "kv-pages-free",
+    "kv-bytes-per-page", "prefix-pool-bytes-in-use", "active-slots",
+)
+
+
+def _serve(config: dict[str, Any], host: str, port: int) -> dict[str, Any]:
+    """Serve one replica until stdin closes; returns the exit line."""
+    import sys
+
+    from langstream_tpu_torch.ai.torch_serving import TorchCompletionsService
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+    from langstream_tpu_torch.runtime.http_server import RuntimeHttpServer
+
+    # wire-level fault drills (§17): the config may carry a net-* spec for
+    # THIS process's transport / handler sites — separate keys from the
+    # engine's fault-injection, so a drill can cut the wire of a healthy
+    # engine
+    wire_spec = str(config.get("wire-fault-injection") or "").strip()
+    if wire_spec:
+        set_wire_injector(FaultInjector(
+            wire_spec,
+            seed=int(config.get("wire-fault-seed", 0)),
+            stall_s=float(config.get("wire-fault-stall-s", 0.05)),
+        ))
+    holder = TorchCompletionsService(config)
+    engine = holder.engine()  # builds, starts and registers the beacon
+    replica_id = str(config.get("fleet-replica-id") or "replica-0")
+    server = RuntimeHttpServer(
+        metrics_text=lambda: "",
+        agents_info=lambda: [{"replica": replica_id, "role": "fleet-replica"}],
+        host=host, port=port,
+    )
+    server.start()
+    # the exit line's kernel counts are this replica's serving work only
+    reset_kernel_counts()
+    print(json.dumps({"url": server.url, "replica": replica_id}), flush=True)
+    # the parent closes our stdin to stop us (a portable subprocess lifecycle)
+    sys.stdin.read()
+    # teardown ORDER matters: unregister the beacon and drain the engine
+    # FIRST, while the HTTP server still serves — peers stop routing here
+    # within one refresh, and streams in flight finish over the open wire.
+    # Only then stop the server and the engine.
+    holder.begin_drain()
+    stats = engine.stats()
+    server.stop()
+    holder.close()
+    return {"replica": replica_id, "stats": {k: stats[k] for k in EXIT_STATS},
+            "kernels": kernel_counts(), "wire": wire_mod.wire_stats()}
+
+
+def main(argv: Optional[list[str]] = None) -> int:
+    import argparse
+
+    p = argparse.ArgumentParser(description="serve one fleet replica")
+    p.add_argument("--config", required=True, help="tpu-serving config JSON")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=0)
+    args = p.parse_args(argv)
+    print(json.dumps(_serve(json.loads(args.config), args.host, args.port)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":  # pragma: no cover — subprocess entry
+    # run the imported module's main, not this ``__main__`` copy's: the HTTP
+    # server reads the imported module's wire injector and registry
+    from langstream_tpu_torch.serving import fleet as _fleet
+
+    raise SystemExit(_fleet.main())

@@ -1,6 +1,5 @@
-"""Request cancellation by client session, within one process (the port's
-own copy of the local half of ``langstream_tpu/serving/lifecycle.py``;
-stdlib only).
+"""Request cancellation by client session (the port's own copy of
+``langstream_tpu/serving/lifecycle.py``; stdlib only).
 
 When a chat client disconnects, the work it started should stop at the
 next chunk boundary instead of decoding to ``max_new_tokens`` in a slot
@@ -12,14 +11,23 @@ by, or a fleet payload's ``cancel-key`` option, ``serving/fleet.py``),
 the disconnect path calls ``cancel(key)``, and the engine frees the
 cancelled slots at its next chunk boundary.
 
-Forwarding a cancel to a replica in another process (``register_remote``
-and ``POST /fleet/cancel``) waits for the fleet's HTTP hop.
+Across processes: when the fleet router dispatches a session's request to
+a replica in another process, the dispatching side records that replica's
+base URL (``register_remote``), the peer registers the request in ITS
+registry under the same key (the payload's ``cancel-key``), and
+``cancel(key)`` also POSTs ``/fleet/cancel`` to every recorded owner, so
+the remote decode stops at its next chunk boundary instead of at its
+deadline. Forwarding is best-effort, on a background thread: a dead peer
+must not stall the disconnect path (its request still ends by deadline).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import threading
+import urllib.error
+import urllib.request
 from typing import Any, Protocol
 
 log = logging.getLogger(__name__)
@@ -35,8 +43,58 @@ class Cancellable(Protocol):
 _lock = threading.Lock()
 # every mutation of the registry holds _lock: it is written from dispatch
 # threads and read from disconnect paths
-_GUARDED = {"_lock": ("_by_key",)}
+_GUARDED = {"_lock": ("_by_key", "_remote_by_key")}
 _by_key: dict[str, dict[int, Any]] = {}
+# session → {replica base URL: refcount}: the replicas in other processes
+# that hold in-flight work for the session (a session may have overlapping
+# requests on one peer)
+_remote_by_key: dict[str, dict[str, int]] = {}
+
+
+def register_remote(key: str, base_url: str) -> None:
+    """Record that session ``key`` has a request in flight on the replica at
+    ``base_url``; ``cancel`` forwards there."""
+    if not key or not base_url:
+        return
+    with _lock:
+        owners = _remote_by_key.setdefault(key, {})
+        owners[base_url] = owners.get(base_url, 0) + 1
+
+
+def unregister_remote(key: str, base_url: str) -> None:
+    if not key or not base_url:
+        return
+    with _lock:
+        owners = _remote_by_key.get(key)
+        if owners is None:
+            return
+        left = owners.get(base_url, 0) - 1
+        if left > 0:
+            owners[base_url] = left
+        else:
+            owners.pop(base_url, None)
+        if not owners:
+            _remote_by_key.pop(key, None)
+
+
+def _forward_cancel(key: str, urls: list[str]) -> None:
+    """POST /fleet/cancel to each owning replica, best-effort (a daemon
+    thread runs it: a peer's timeout never stalls the caller)."""
+    for url in urls:
+        try:
+            req = urllib.request.Request(
+                url.rstrip("/") + "/fleet/cancel",
+                data=json.dumps({"session": key}).encode("utf-8"),
+                headers={"Content-Type": "application/json"},
+                method="POST",
+            )
+            with urllib.request.urlopen(req, timeout=2.0) as r:
+                out = json.loads(r.read().decode("utf-8"))
+            log.info("forwarded cancel for session %r to %s (%s cancelled there)",
+                     key, url, out.get("cancelled"))
+        except (urllib.error.URLError, OSError, ValueError) as e:
+            log.warning("cancel forward to %s failed for session %r: %s "
+                        "(the deadline remains the backstop)", url, key, e)
 
 
 def register(key: str, request: Cancellable) -> None:
@@ -60,12 +118,21 @@ def unregister(key: str, request: Cancellable) -> None:
 
 def cancel(key: str) -> int:
     """Cancel every in-flight request registered under ``key``; returns how
-    many. Requests stay registered until their owner unregisters them (the
-    engine resolves a cancelled request, which ends the owner's wait)."""
+    many were cancelled in THIS process. Requests stay registered until
+    their owner unregisters them (the engine resolves a cancelled request,
+    which ends the owner's wait). A session with work on replicas in other
+    processes also gets the cancel forwarded to each (``POST
+    /fleet/cancel``, on a background thread)."""
     if not key:
         return 0
     with _lock:
         requests = list(_by_key.get(key, {}).values())
+        remote_urls = list(_remote_by_key.get(key, {}))
+    if remote_urls:
+        threading.Thread(
+            target=_forward_cancel, args=(key, remote_urls), name="fleet-cancel-forward",
+            daemon=True,
+        ).start()
     for request in requests:
         try:
             request.cancel()

@@ -29,8 +29,9 @@ The JAX plan's XLA-only terms have no counterpart here: the port has no
 ``kv_bound`` compile ladder on the card (a captured decode chunk reads the
 dense cache at full width, the kernels read each row to its length), so
 there is no ``bound_slice_bytes``; and the layer loop updates the cache in
-place, so there is no ``scan_buffer_bytes``. Migration is not ported, so
-neither is its staging term.
+place, so there is no ``scan_buffer_bytes``. A KV-page migration's staging
+(``migrate_staging_bytes``) is pinned host RAM, reported outside the total,
+as JAX reports it.
 
 ``max_context_single_chip`` inverts the plan to the largest power-of-two
 context a device budget serves. The engine logs its plan when it is built.

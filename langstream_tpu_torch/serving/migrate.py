@@ -1,5 +1,5 @@
-"""KV-page migration between serving engines (the port's own copy of the
-in-process half of ``langstream_tpu/serving/migrate.py``).
+"""KV-page migration between serving engines (the port's own copy of
+``langstream_tpu/serving/migrate.py``).
 
 Disaggregated prefill/decode and the peer-to-peer prefix fetch move one
 published prefix's KV PAGES from the engine that prefilled them to another
@@ -33,16 +33,22 @@ byte and the request still ends with the right tokens:
   (the wire injector, ``serving/fleet.py``): either way the router falls
   back (decode in place, or a cold prefill) with the right tokens.
 
-The HTTP clients (``push_migration``, ``fetch_pages``) wait for the fleet's
-HTTP hop; in-process transfer is a generator handed from one engine to the
-other.
+Transport: in process, a generator handed from one engine to the other
+(``transfer``); between processes, ``push_migration`` POSTs the frames
+chunked to the receiver's ``POST /fleet/migrate`` (``runtime/http_server.py``)
+and reads its ACK, and ``fetch_pages`` pulls an owner's frames from its
+``POST /fleet/pages`` — v1 NDJSON or the v2 binary body (``serving/wire.py``),
+stdlib ``http.client`` both.
 """
 
 from __future__ import annotations
 
 import base64
+import http.client
+import json
 import logging
 import time
+import urllib.parse
 from typing import Any, Iterator, Optional
 
 import numpy as np
@@ -54,6 +60,7 @@ from langstream_tpu_torch.serving.pagepool import (
     page_leaf_specs,
     split_page_bytes,
 )
+from langstream_tpu_torch.serving import wire as wire_mod
 from langstream_tpu_torch.serving.wire import MIG_SCHEMA_V2
 
 log = logging.getLogger(__name__)
@@ -285,3 +292,143 @@ def _release_on_ack(src_engine: Any, tokens, ack: dict) -> None:
         src_engine.migrate_release(tokens, int(ack["length"]))
     except Exception as e:  # noqa: BLE001 — an ACKed migration stands
         log.warning("post-ACK migration release failed (retained): %s", e)
+
+
+def _http_conn(url: str, timeout_s: float, what: str) -> http.client.HTTPConnection:
+    u = urllib.parse.urlsplit(url)
+    if u.scheme != "http" or not u.hostname:
+        raise MigrationError(f"unsupported {what} url {url!r}")
+    return http.client.HTTPConnection(u.hostname, u.port or 80, timeout=max(0.05, timeout_s))
+
+
+def push_migration(url: str, frames: Iterator[dict], timeout_s: float, wire: str = "v1") -> dict:
+    """HTTP sender: POST the frame stream chunked to the receiver's ``POST
+    /fleet/migrate`` and return its ACK. Any transport failure — a refused
+    connect, a reset mid-body, a non-JSON ACK — is a MigrationError; the
+    caller's release-on-ACK keeps the sender's copy. ``wire`` picks the
+    codec: ``"v1"`` NDJSON lines, ``"v2"`` the ``lstpu-kvmig-v2`` binary
+    body (pair it with ``export_frames(raw=True)``, so pages skip base64);
+    the caller negotiates it from the receiver's ``kvmig2`` cap."""
+    conn = _http_conn(url, timeout_s, "migration receiver")
+    v2 = wire == "v2"
+
+    def body() -> Iterator[bytes]:
+        if v2:
+            wire_mod.count_wire_bytes("v2", len(wire_mod.KVMIG2_PREAMBLE))
+            yield wire_mod.KVMIG2_PREAMBLE
+        for frame in frames:
+            if v2:
+                chunk = wire_mod.encode_mig_frame(frame)
+            else:
+                chunk = (json.dumps(frame) + "\n").encode("utf-8")
+            wire_mod.count_wire_bytes("v2" if v2 else "v1", len(chunk))
+            yield chunk
+
+    try:
+        try:
+            # the receiver binds under the SENDER's budget (clamped by its
+            # handler), so one timeout bounds the whole transfer
+            conn.request(
+                "POST", f"/fleet/migrate?timeout-s={max(0.05, timeout_s):.3f}", body=body(),
+                headers={"Content-Type": (
+                    "application/x-lstpu-kvmig2" if v2 else "application/x-ndjson"
+                )},
+                encode_chunked=True,
+            )
+            resp = conn.getresponse()
+            raw = resp.read()
+        except MigrationError:
+            raise
+        except Exception as e:  # noqa: BLE001 — one verdict: the hop failed
+            raise MigrationError(f"migration push to {url} failed: {e}") from e
+        if resp.status != 200:
+            raise MigrationError(
+                f"migration receiver {url} answered HTTP {resp.status}: {raw[:200]!r}"
+            )
+        try:
+            ack = json.loads(raw.decode("utf-8"))
+        except ValueError as e:
+            raise MigrationError(f"migration receiver {url} sent a non-JSON ACK") from e
+        if not ack.get("ok"):
+            raise MigrationError(
+                f"migration receiver {url} rejected the transfer: {ack.get('error')!r}"
+            )
+        return ack
+    finally:
+        conn.close()
+        close = getattr(frames, "close", None)
+        if close is not None:
+            try:
+                close()
+            except Exception:  # noqa: BLE001
+                log.exception("migration frame close failed")
+
+
+def fetch_pages(url: str, tokens, timeout_s: float, wire: str = "v2") -> Iterator[dict]:
+    """Peer-to-peer page fetch client: POST the owning peer's ``/fleet/pages``
+    and return an iterator of the migration frames covering the deepest
+    published prefix of ``tokens`` — what ``bind_frames`` consumes, so the
+    fetch admits warm through the one checked bind. The owner KEEPS its
+    pages (a fetch copies; only a migration moves). ``wire`` asks for the
+    codec (``"v2"`` when the owner advertises ``kvmig2``); the response's
+    content type decides. A refusal before the stream (no published prefix,
+    a dead engine) is a JSON error body, raised here as MigrationError like
+    every transport or codec failure, so the caller degrades to its cold
+    path."""
+    conn = _http_conn(url, timeout_s, "page-fetch source")
+    body = json.dumps({
+        "prompt_tokens": [int(t) for t in tokens],
+        "timeout-s": max(0.05, float(timeout_s)),
+        "wire": "v2" if wire == "v2" else "v1",
+    }).encode("utf-8")
+    try:
+        conn.request("POST", "/fleet/pages", body=body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+    except Exception as e:  # noqa: BLE001 — one verdict: no pages fetched
+        conn.close()
+        raise MigrationError(f"page fetch from {url} failed: {e}") from e
+    ctype = str(resp.getheader("Content-Type") or "")
+    # a refusal is one JSON document; a v1 stream is NDJSON, whose content
+    # type also names json (application/x-ndjson)
+    if resp.status != 200 or ctype.startswith("application/json"):
+        try:
+            raw = resp.read()
+        finally:
+            conn.close()
+        if resp.status != 200:
+            raise MigrationError(
+                f"page-fetch source {url} answered HTTP {resp.status}: {raw[:200]!r}"
+            )
+        try:
+            doc = json.loads(raw.decode("utf-8"))
+        except ValueError:
+            doc = {}
+        raise MigrationError(f"page-fetch source {url} refused: {doc.get('error')!r}")
+
+    def frames() -> Iterator[dict]:
+        try:
+            if "lstpu-kvmig2" in ctype:
+                preamble = wire_mod.read_exact(resp.read, len(wire_mod.KVMIG2_PREAMBLE))
+                if preamble != wire_mod.KVMIG2_PREAMBLE:
+                    raise wire_mod.WireError(f"bad kvmig2 preamble {preamble!r}")
+                # the decode bound does not trust the begin frame's own
+                # bytes_per_page: the flat transfer cap (the checksums
+                # still gate every bind)
+                yield from wire_mod.decode_mig_frames(resp.read, max_payload=64 << 20)
+                return
+            while True:
+                line = resp.readline()
+                if not line:
+                    return
+                line = line.strip()
+                if line:
+                    yield json.loads(line.decode("utf-8"))
+        except MigrationError:
+            raise
+        except Exception as e:  # noqa: BLE001 — a dead wire mid-fetch
+            raise MigrationError(f"page fetch from {url} died mid-stream: {e}") from e
+        finally:
+            conn.close()
+
+    return frames()

@@ -202,8 +202,34 @@ def _libcuda() -> Any:
     if _libcuda_handle is None:
         lib = ctypes.CDLL("libcuda.so.1")
         lib.cuMemcpy2DAsync_v2.argtypes = [ctypes.POINTER(_Memcpy2D), ctypes.c_void_p]
+        lib.cuCtxGetCurrent.argtypes = [ctypes.POINTER(ctypes.c_void_p)]
+        lib.cuCtxSetCurrent.argtypes = [ctypes.c_void_p]
+        lib.cuDeviceGet.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        lib.cuDevicePrimaryCtxRetain.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+        ]
         _libcuda_handle = lib
     return _libcuda_handle
+
+
+def _make_context_current(lib: Any, device: torch.device) -> None:
+    """Make the device's primary context (the one torch's runtime calls use)
+    current on the calling thread. A thread that has made no runtime call
+    yet has none — an idle engine thread whose first work is a migration's
+    bind, in a replica whose graphs were captured on another thread — and
+    libcuda's copy would fail with CUDA_ERROR_INVALID_CONTEXT."""
+    ctx = ctypes.c_void_p()
+    if lib.cuCtxGetCurrent(ctypes.byref(ctx)) == 0 and ctx.value:
+        return
+    dev = ctypes.c_int()
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    err = lib.cuDeviceGet(ctypes.byref(dev), index)
+    if err == 0:
+        err = lib.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), dev.value)
+    if err == 0:
+        err = lib.cuCtxSetCurrent(ctx)
+    if err != 0:
+        raise RuntimeError(f"making the primary context current failed with CUresult {err}")
 
 
 def _copy_page_leaf(leaf: torch.Tensor, page: int, block: torch.Tensor, to_host: bool) -> None:
@@ -226,10 +252,10 @@ def _copy_page_leaf(leaf: torch.Tensor, page: int, block: torch.Tensor, to_host:
     else:
         m.srcMemoryType, m.srcHost, m.srcPitch = _MEM_HOST, block.data_ptr(), width
         m.dstMemoryType, m.dstDevice, m.dstPitch = _MEM_DEVICE, dev_ptr, leaf.stride(0) * elt
-    # the calling thread already runs torch's CUDA work, so libcuda finds
-    # torch's context current
+    lib = _libcuda()
+    _make_context_current(lib, leaf.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(leaf.device).cuda_stream)
-    err = _libcuda().cuMemcpy2DAsync_v2(ctypes.byref(m), stream)
+    err = lib.cuMemcpy2DAsync_v2(ctypes.byref(m), stream)
     if err != 0:
         raise RuntimeError(f"cuMemcpy2DAsync failed with CUresult {err}")
 

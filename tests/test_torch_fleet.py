@@ -363,12 +363,39 @@ def engine():
     eng.stop()
 
 
+@pytest.fixture(scope="module")
+def jax_engine():
+    import jax
+
+    from langstream_tpu.models.configs import MODEL_PRESETS as JAX_PRESETS
+    from langstream_tpu.models.transformer import init_params as jax_init_params
+    from langstream_tpu.serving.engine import ServingEngine as JaxEngine
+
+    cfg = dataclasses.replace(JAX_PRESETS["tiny-test"], dtype="float32")
+    eng = JaxEngine(cfg, jax_init_params(cfg, jax.random.PRNGKey(0)), kv_layout="paged",
+                    max_batch=2, max_seq_len=128, decode_chunk=4, prefill_buckets=(16, 32, 64),
+                    page_size=16, prefix_cache="auto")
+    eng.start()
+    yield eng
+    eng.stop()
+
+
 @pytest.mark.parametrize("role", ["prefill", "decode", "mixed"])
-def test_port_beacon_validates_under_both_packages(engine, role):
+def test_port_beacon_validates_under_both_packages(engine, jax_engine, role):
+    from langstream_tpu.models.configs import GenerationOptions as JaxOptions
+
     prompt = [3 + (5 * i) % 90 for i in range(40)]
     engine.generate(prompt, GenerationOptions(max_new_tokens=2), timeout=60)
+    jax_engine.generate(prompt, JaxOptions(max_new_tokens=2), timeout=60)
     doc = tfleet.beacon_from_engine("r", engine, role=role)
     assert tfleet.validate_beacon(doc) and jfleet.validate_beacon(doc)
+    # the router's fetch-vs-prefill cost model reads these three: the page
+    # geometry equal to the JAX engine's, the landed prefill rate measured
+    # (a timing: only its presence is compared)
+    want = jfleet.beacon_from_engine("r", jax_engine, role=role)
+    assert (doc["page_size"], doc["bytes_per_page"]) == (want["page_size"], want["bytes_per_page"])
+    assert doc["page_size"] == 16 and doc["prefill_tps"] > 0 and want["prefill_tps"] > 0
+    assert set(doc) == set(want) and set(doc["caps"]) == set(want["caps"])
     assert doc["role"] == role and doc["prefixes"] == ads(prompt, 32)
     assert {"kvmig", "dfa-resume", "p2p"} <= set(doc["caps"])
     text = json.dumps(doc)

@@ -446,8 +446,10 @@ def test_engine_migrate_out_to_a_local_replica(pair):
     fleet.register_local(
         "b", lambda: {}, migrate_bind_fn=lambda frames, t: fleet.engine_migrate_bind(b, frames, t))
     try:
-        with pytest.raises(MigrationError, match="HTTP"):
-            fleet.engine_migrate_out(a, {"prompt_tokens": prompt, "dest": "http://peer:1"})
+        # a receiver in another process is pushed to over HTTP: nothing
+        # listens here, so the push fails and the sender keeps its copy
+        with pytest.raises(MigrationError, match="migration push to http://127.0.0.1:9"):
+            fleet.engine_migrate_out(a, {"prompt_tokens": prompt, "dest": "http://127.0.0.1:9"})
         assert a._prefix_index.deepest_entry(prompt) is not None
         ack = fleet.engine_migrate_out(a, {"prompt_tokens": prompt, "dest": "local:b"})
         assert ack["ok"] and "snapshot_ms" in ack["phases"]

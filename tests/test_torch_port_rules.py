@@ -1,5 +1,6 @@
 """Rules of the PyTorch port, checked statically and at its entry points:
-the package and chip_smoke.py import neither JAX nor the JAX package;
+the package and chip_smoke.py import neither JAX nor the JAX package nor
+aiohttp;
 asking for CUDA where there is none raises instead of running on the CPU;
 and the completions service streams text through the port's engine."""
 
@@ -43,6 +44,7 @@ def test_port_files_exist():
         "langstream_tpu_torch/serving/migrate.py",
         "langstream_tpu_torch/serving/fleet.py",
         "langstream_tpu_torch/serving/lifecycle.py",
+        "langstream_tpu_torch/runtime/http_server.py",
         "chip_smoke.py",
     ):
         assert mod in rel
@@ -65,6 +67,15 @@ def test_no_safetensors_or_ml_dtypes(path):
         assert name.split(".")[0] not in ("safetensors", "ml_dtypes"), (
             f"{path.name} imports {name}"
         )
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_aiohttp(path):
+    """The card's machine has no aiohttp: the replica server and every
+    client of the port are built on the stdlib (``http.server``,
+    ``http.client``, ``urllib``)."""
+    for name in imported_modules(path):
+        assert name.split(".")[0] != "aiohttp", f"{path.name} imports {name}"
 
 
 def test_no_cuda_raises(monkeypatch, tmp_path):
@@ -168,13 +179,15 @@ def test_completions_service_refuses_what_it_cannot_serve():
     with pytest.raises(ValueError):
         TorchCompletionsService({"model": "tiny-test", "device": "cpu",
                                  "kv-cache-quantization": "int4"})
-    # the JAX provider's keys whose tiers are not ported, and an admit
-    # group size the port's MoE padding cannot take
-    for key, value in (("mesh", {"model": 2}), ("fleet-role", "prefill"),
-                       ("fleet", "auto"), ("disagg", True), ("cancel-key", "k"),
-                       ("prefill-batch", 16)):
+    # the JAX provider's key whose tier is not ported, and an admit group
+    # size the port's MoE padding cannot take
+    for key, value in (("mesh", {"model": 2}), ("prefill-batch", 16)):
         with pytest.raises(NotImplementedError):
             TorchCompletionsService({"model": "tiny-test", "device": "cpu", key: value})
+    # the fleet keys are served since the fleet's HTTP hop was ported
+    svc = TorchCompletionsService({"model": "tiny-test", "device": "cpu", "fleet": "auto",
+                                   "fleet-role": "prefill", "fleet-replicas": []})
+    assert svc.fleet and svc.fleet_role == "prefill"
     # the durable keys are served since the tier was ported
     svc = TorchCompletionsService({"model": "tiny-test", "device": "cpu", "durable": "auto",
                                    "durable-dir": "/d", "durable-max-bytes": 1 << 30})

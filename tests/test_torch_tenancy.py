@@ -631,8 +631,6 @@ def test_provider_passes_the_tenancy_and_sizing_keys():
 
 @pytest.mark.parametrize("key, value, item", [
     ("mesh", {"model": 2}, 7), ("mesh", "auto", 7),
-    ("fleet-prefetch", "on", 6), ("fleet", "auto", 6), ("fleet-replicas", ["h:1"], 6),
-    ("fleet-role", "prefill", 6), ("disagg", True, 6), ("cancel-key", "x", 6),
     ("prefill-batch", 4, None),
 ])
 def test_provider_refuses_what_it_cannot_serve_yet(key, value, item):
