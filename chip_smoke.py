@@ -47,7 +47,12 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    T 8192 cache, bf16 and int8 — its planted faults include the row map
    off by one (query row q reading cache row q / 5 + 1), NaN past every
    row's longest query leaves it bit-equal, and it is timed beside the 8
-   first queries at qpr 1 and SDPA with a per-query length mask.
+   first queries at qpr 1 and SDPA with a per-query length mask. Then
+   the local shapes a TP-2 rank of llama-3-8b launches (H 16, Hkv 4, D
+   128: prefill S 1024 B 2, paged decode B 8 lengths 1..1500, the segment
+   S 2048 at offset 6144), each held against its plain version with the
+   same planted faults, timed beside its bound (``by_shape`` of the
+   decode row; the others' own ``kernel`` lines).
 3. ``e2e``     — the port's ``ServingEngine`` serving llama-3-8b at full
    width and depth (32 layers, bf16, random weights from ``--seed``) on the
    paged layout: 8 requests of 21..1501 byte tokens, greedy, 64 new tokens
@@ -343,7 +348,32 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    back. Printed: each request's TTFT, handoff gap and total against pass
    1's (and the ``fleet`` phase's when it ran), each migration's phases,
    bytes and GB/s beside one pinned copy, the wire bytes of each codec.
-18. ``load``    — serve a safetensors checkpoint: ``llama-3-8b-shallow``
+18. ``spmd``    — the SPMD plane at llama-3-8b's full width and depth
+   (bf16, random weights from ``--seed``), paged, prefix reuse and
+   speculation on, ``spmd-parity-echo`` on. (a) A leader engine and a
+   follower engine in this process over a loopback channel, one weight
+   tree (each graph set's capture announced as ``OP_WARMUP`` and the two
+   engines' captures serialised): the ``e2e`` prompts, 64 new tokens,
+   greedy, through the leader; every decode chunk and verify echoed and
+   held by the follower; launches exactly 2 x layers x (steps + verifies)
+   in the process (each engine's half); the line reports announces, wire
+   bytes a block and the mean announce ms. Then a dropped idle heartbeat
+   (``spmd-drop``) must resync once; an ``spmd-crash`` must recover once,
+   both sides rebuilding and capturing again, and the prompts served again
+   must give the same tokens (or one-ulp ties); a planted echo corruption
+   must end the follower with ``SpmdDivergenceError`` and an
+   ``spmd-divergence`` dump. (b) The provider, built through the port's
+   ``REGISTRY``, with ``mesh: {data: 2}``: this process is rank 0 and the
+   provider starts rank 1 on the same card (``python -m
+   langstream_tpu_torch.parallel.spmd_serving``; its log under
+   ``build/spmd/``); 8 requests through the completions service with echo
+   on; ``close()`` must see the follower exit 0, its exit line's launches
+   above 0, and the card's free memory back within 2 GiB. (c) The provider
+   with ``mesh: {model: 1}`` — a world-1 NCCL group, the TP collectives
+   inside the captured chunks — against one without a mesh on the same
+   weights, each request served alone: tokens bit-equal; each decode
+   step's device ms (back-to-back replays).
+19. ``load``    — serve a safetensors checkpoint: ``llama-3-8b-shallow``
    (llama-3-8b's full width at 4 of its 32 layers: the depth is cut so the
    default run keeps its time with the ``fleet`` phase; the seeded tree,
    bf16, 3.85 GB) written by ``save_params_hf`` in shards of at most 5 GB
@@ -371,7 +401,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    ``fault-injection: weight-load@1`` through the provider must leave no
    engine and no params, the injector fired once. The checkpoint is
    deleted and both trees freed before ``moe``.
-19. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
+20. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
    experts, top-2) with int8 weights drawn on the card (46.9 GB; the
    llama weights are dropped first), paged bf16 KV, max_seq_len 4096: 9
    requests of 21..3001 tokens, 32 new each (the 3001-token prompt takes 2
@@ -380,7 +410,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    reference path (a 200-token prompt, 4 paged decode steps) and one
    layer's ``moe_ffn`` timed at decode (8 tokens) and at a 2048-token
    segment beside its weight-byte bound.
-20. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+21. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
    and int8 page pools and the bf16 dense cache (8192 wide), traced with
    torch.profiler: the device's busy share of the wall and the top
    kernels (no split-K decode kernel may appear).
@@ -417,8 +447,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
           "prefix", "spec", "tenancy", "agentic", "embed", "dense_tiers", "tiered", "fleet",
-          "fleet_http", "load", "moe", "profile")
-DEFAULT_PHASES = PHASES[:19]
+          "fleet_http", "spmd", "load", "moe", "profile")
+DEFAULT_PHASES = PHASES[:20]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -637,7 +667,9 @@ def sass_mix(lib: Path, families: tuple) -> dict:
     return counts
 
 
-def _prefill_case(torch, ctx, timer, b: int, s: int) -> dict:
+def _prefill_case(torch, ctx, timer, b: int, s: int, cfg=None) -> dict:
+    """The prefill kernel at B x S, at ``cfg``'s head counts (default
+    llama-3-8b's)."""
     import torch.nn.functional as F
 
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
@@ -647,7 +679,8 @@ def _prefill_case(torch, ctx, timer, b: int, s: int) -> dict:
         flash_segment_reference,
     )
 
-    cfg = MODEL_PRESETS["llama-3-8b"]
+    cfg = cfg or MODEL_PRESETS["llama-3-8b"]
+    H, HKV = cfg.n_heads, cfg.n_kv_heads  # this case's head counts
     g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + s)
     q = torch.randn((b, s, H, D), generator=g, device="cuda").to(torch.bfloat16)
     k = torch.randn((b, HKV, s, D), generator=g, device="cuda").to(torch.bfloat16)
@@ -755,7 +788,9 @@ def _pool_entry(torch, g, shape, int8: bool):
     return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
 
 
-def _decode_case(torch, ctx, timer, int8: bool, lengths_list: tuple) -> dict:
+def _decode_case(torch, ctx, timer, int8: bool, lengths_list: tuple, cfg=None) -> dict:
+    """The paged decode kernel over rows of ``lengths_list``, at ``cfg``'s
+    head counts (default llama-3-8b's)."""
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
     from langstream_tpu_torch.ops.attention import (
         decode_launch_plan,
@@ -765,7 +800,8 @@ def _decode_case(torch, ctx, timer, int8: bool, lengths_list: tuple) -> dict:
         ragged_paged_decode_attention_int8,
     )
 
-    cfg = MODEL_PRESETS["llama-3-8b"]
+    cfg = cfg or MODEL_PRESETS["llama-3-8b"]
+    H, HKV = cfg.n_heads, cfg.n_kv_heads  # this case's head counts
     b = len(lengths_list)
     long = b > len(DECODE_LENGTHS)
     rng = random.Random(ctx["seed"] + (1 if int8 else 0) + (100 if long else 0))
@@ -951,8 +987,8 @@ def _sdpa(torch, q, k, v, mask):
         F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
         return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
     except TypeError:
-        ke = k.repeat_interleave(H // HKV, dim=1)
-        ve = v.repeat_interleave(H // HKV, dim=1)
+        ke = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+        ve = v.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
         return lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
 
 
@@ -974,23 +1010,25 @@ def _bf16(torch, entry):
     return entry
 
 
-def kv_stream_bytes(s: int, offsets, t: int, item: int, positions_per_item: int) -> float:
+def kv_stream_bytes(s: int, offsets, t: int, item: int, positions_per_item: int,
+                    hkv: int = HKV) -> float:
     """Bytes of K and V (and int8 scales) that a segment launch streams from
     L2 into shared memory, computed from its work items: every item of
     ``positions_per_item`` query positions of one kv head reads the keys up
     to its causal frontier min(T, offset + item end), once for its whole
-    group of heads."""
-    row = HKV * D * 2 * item + (HKV * 2 * 4 if item == 1 else 0)  # K, V (and scales) of a key
+    group of heads (``hkv`` kv heads)."""
+    row = hkv * D * 2 * item + (hkv * 2 * 4 if item == 1 else 0)  # K, V (and scales) of a key
     keys = sum(min(t, off + min(s, q0 + positions_per_item))
                for off in offsets for q0 in range(0, s, positions_per_item))
     return float(keys * row)
 
 
 def _segment_case(torch, ctx, timer, int8: bool, s: int, offsets: tuple,
-                  view: int | None = None) -> dict:
+                  view: int | None = None, cfg=None) -> dict:
     """The segment kernel against its plain version: rows of S queries at
     ``offsets`` in a T = 8192 cache (read through a [..., :view] view where
-    given), planted faults in the last row's mid-prefix, times, bound."""
+    given), planted faults in the last row's mid-prefix, times, bound; at
+    ``cfg``'s head counts (default llama-3-8b's)."""
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
     from langstream_tpu_torch.ops.attention import (
         flash_segment_attention,
@@ -1000,13 +1038,14 @@ def _segment_case(torch, ctx, timer, int8: bool, s: int, offsets: tuple,
         segment_launch_plan,
     )
 
-    cfg = MODEL_PRESETS["llama-3-8b"]
+    cfg = cfg or MODEL_PRESETS["llama-3-8b"]
+    H, HKV = cfg.n_heads, cfg.n_kv_heads  # this case's head counts
     b = len(offsets)
     seed = ctx["seed"] + 11 + s + int8 + (100 * b if b > 1 else 0)
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, s, H, D), generator=g, device="cuda").to(torch.bfloat16)
-    k = _dense_cache(torch, g, b, DENSE_T, int8)
-    v = _dense_cache(torch, g, b, DENSE_T, int8)
+    k = _dense_cache(torch, g, b, DENSE_T, int8, HKV)
+    v = _dense_cache(torch, g, b, DENSE_T, int8, HKV)
     t = view or DENSE_T
     if view:
         k, v = ({n: a[:, :, :view] for n, a in e.items()} if int8 else e[:, :, :view]
@@ -1058,7 +1097,7 @@ def _segment_case(torch, ctx, timer, int8: bool, s: int, offsets: tuple,
         ),
         "grid": plan["grid"],
         "work_items": plan["work_items"],
-        "l2_kv_gb": kv_stream_bytes(s, offsets, t, item, plan["positions_per_item"]) / 1e9,
+        "l2_kv_gb": kv_stream_bytes(s, offsets, t, item, plan["positions_per_item"], HKV) / 1e9,
     }
     _flash_rates(rec, flops)
     rec["l2_kv_tb_per_s"] = rec["l2_kv_gb"] / rec["ms"]  # GB per ms is TB/s
@@ -1475,9 +1514,27 @@ def phase_kernels(ctx: dict) -> None:
         ]
         # the dense verify's flattened shape (qpr 5), before the widest
         ctx["kernel_runs"][name].insert(-1, _dense_verify_case(torch, ctx, timer, int8))
+    # the local shapes a TP-2 rank of llama-3-8b launches (H 16, Hkv 4,
+    # D 128), before each kernel's widest shape (the record's)
+    tp2 = _tp2_config()
+    ctx["kernel_runs"]["flash_prefill"].insert(-1, _prefill_case(torch, ctx, timer, 2, 1024, tp2))
+    ctx["kernel_runs"]["paged_decode"].insert(
+        -1, _decode_case(torch, ctx, timer, False, DECODE_LENGTHS, tp2))
+    ctx["kernel_runs"]["flash_segment"].insert(
+        -1, _segment_case(torch, ctx, timer, False, 2048, (6144,), None, tp2))
     _nan_past_length(torch, ctx)
     _edge_cases(torch, ctx)
     del timer
+
+
+def _tp2_config():
+    """llama-3-8b as a TP-2 rank computes it (``parallel.sharding
+    .local_config`` over model 2): H 16, Hkv 4, D 128."""
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.parallel.sharding import local_config
+
+    mesh = type("Mesh", (), {"shape": {"data": 1, "expert": 1, "seq": 1, "model": 2}})()
+    return local_config(MODEL_PRESETS["llama-3-8b"], mesh)
 
 
 def _prompts(n_bytes: list[int], seed: int) -> list[str]:
@@ -2719,9 +2776,9 @@ def _verify_reference_check(ctx, cfg, params, prompts) -> dict:
     hidden = []  # each path's last hidden states, as the head takes them (for f32 gaps)
     unembed = tf._unembed
 
-    def keep(p, x, c):
+    def keep(p, x, c, *rest):
         hidden.append(x)
-        return unembed(p, x, c)
+        return unembed(p, x, c, *rest)
 
     tf._unembed = keep
     try:
@@ -4572,11 +4629,11 @@ def _moe_model_check(ctx, cfg, params) -> dict:
     routes = {"auto": [], "jnp": []}
     moe = tf.moe_ffn
 
-    def recording(x, lp, c):
+    def recording(x, lp, c, *rest):
         logits = torch.matmul(x.reshape(-1, x.shape[-1]), lp["router"]).float()
         top = torch.topk(logits, c.n_experts_per_tok, dim=-1).indices
         routes[c.attention_impl].append(top.sort(dim=-1).values)
-        return moe(x, lp, c)
+        return moe(x, lp, c, *rest)
 
     tf.moe_ffn = recording
     try:
@@ -6434,6 +6491,348 @@ def phase_fleet_http(ctx: dict) -> None:
         raise AssertionError(f"fleet_http tokens: {same}")
 
 
+SPMD_NEW = 64
+SPMD_KW = {"max_seq_len": 2048, "prefix_cache": "auto", "speculation": "auto",
+           "speculation_tokens": 4}
+SPMD_WATCHDOG_S = 2.0
+SPMD_SERVE = {"model": "llama-3-8b", "max-seq-len": 2048, "max-batch": 8, "decode-chunk": 16,
+              "page-size": PAGE}
+SPMD_PROC_NEW = 32
+SPMD_PROC_BYTES = (40, 80, 120, 160, 200, 240, 280, 320)
+
+
+def _spmd_wait(pred, timeout_s: float, what: str) -> float:
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout_s:
+            raise AssertionError(f"spmd: timed out after {timeout_s}s waiting for {what}")
+        time.sleep(0.01)
+    return time.monotonic() - t0
+
+
+def _spmd_loopback(ctx, cfg, params) -> dict:
+    """Part (a): a leader and a follower engine in this process over a
+    loopback channel, one weight tree, echo on. Returns the readings; raises
+    on any failed check."""
+    import numpy as np
+    import torch
+
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+    from langstream_tpu_torch.parallel import spmd_serving as wire
+    from langstream_tpu_torch.serving.engine import GenerationRequest, ServingEngine
+    from langstream_tpu_torch.serving.faultinject import FaultInjector
+    from langstream_tpu_torch.serving.observability import recent_dumps, validate_flight_dump
+    from langstream_tpu_torch.serving.pagepool import table_len_for
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    class Channel(wire.LoopbackChannel):
+        """The loopback wire, counting announcements by op and timing them."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.by_op: dict = {}
+            self.announce_s = 0.0
+
+        def announce(self, block):
+            t0 = time.perf_counter()
+            super().announce(block)
+            self.announce_s += time.perf_counter() - t0
+            self.by_op[block.op] = self.by_op.get(block.op, 0) + 1
+
+    tok = ByteTokenizer()
+    kw = dict(max_batch=8, decode_chunk=16, page_size=PAGE, eos_token_id=tok.eos_token_id,
+              rng_seed=ctx["seed"], device="cuda", prefill_batch=8, **SPMD_KW)
+    ch = Channel(prefill_batch=8, max_width=2048, max_batch=8,
+                 table_len=table_len_for(SPMD_KW["max_seq_len"], PAGE),
+                 spec_tokens=SPMD_KW["speculation_tokens"], echo=True, decode_chunk=16)
+    leader = ServingEngine(cfg, params, spmd=ch, **kw)
+    follower = ServingEngine(cfg, params, spmd=ch, **kw)
+    # each engine's dispatches, to wait for the follower to catch up
+    dispatched = {"leader": 0, "follower": 0}
+    for name, engine in (("leader", leader), ("follower", follower)):
+        for method in ("_dev_decode", "_dev_verify"):
+            real = getattr(engine, method)
+
+            def counted(*a, _real=real, _name=name, **k):
+                dispatched[_name] += 1
+                return _real(*a, **k)
+
+            setattr(engine, method, counted)
+    errors: list = []
+
+    def run():
+        try:
+            wire.follower_loop(follower, ch)
+        except BaseException as e:  # noqa: BLE001 — read below
+            errors.append(e)
+
+    thread = threading.Thread(target=run, name="spmd-follower", daemon=True)
+    thread.start()
+    t0 = time.monotonic()
+    leader.start()
+    sets = len(leader._graph_kinds())
+    _spmd_wait(lambda: follower.graph_captures_total >= 3 * sets or errors, 300,
+               "the follower's captures")
+    capture_s = time.monotonic() - t0
+    out: dict = {"pair_capture_s": capture_s, "graph_sets": list(leader._graph_kinds())}
+
+    def caught_up():
+        return errors or (ch._q.qsize() == 0 and dispatched["follower"] == dispatched["leader"])
+
+    def serve(prompts, label: str) -> tuple:
+        opts = GenerationOptions(max_new_tokens=SPMD_NEW, temperature=0.0)
+        before, a0, b0 = leader.stats(), ch.announces_total, ch.bytes_announced_total
+        s0, n0 = ch.announce_s, sum(ch.by_op.values())
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        t = time.monotonic()
+        reqs = [leader.submit(GenerationRequest(prompt_tokens=p, options=opts)) for p in prompts]
+        results = [r.result(timeout=900) for r in reqs]
+        wall = time.monotonic() - t
+        _spmd_wait(caught_up, 120, "the follower to replay the burst")
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        after = leader.stats()
+        if errors:
+            raise AssertionError(f"spmd {label}: the follower failed: {errors[0]!r}")
+        for p, r in zip(prompts, results):
+            if r.error is not None or len(r.tokens) != SPMD_NEW:
+                raise AssertionError(f"spmd {label}: request of {len(p)} tokens ended "
+                                     f"{r.finish_reason}: {r.error}")
+        steps = after["decode-steps-total"] - before["decode-steps-total"]
+        verifies = after["spec-verify-dispatches-total"] - before["spec-verify-dispatches-total"]
+        want = cfg.n_layers * (steps + verifies)
+        got = counts["paged_decode"]["launches"]
+        # the follower replays the leader's every dispatch: each engine
+        # launches layers x (decode steps + verifies), the process twice that
+        if got != 2 * want or want <= 0:
+            raise AssertionError(f"spmd {label}: paged_decode launches {got} != 2 x {want}")
+        if counts["flash_prefill"]["launches"] <= 0:
+            raise AssertionError(f"spmd {label}: flash_prefill never launched")
+        n = sum(ch.by_op.values()) - n0
+        run = {
+            "requests": len(results), "wall_s": wall,
+            "tokens_per_s": sum(len(r.tokens) for r in results) / wall,
+            "decode_steps": steps, "verifies": verifies,
+            "kernel_launches_per_engine": {k: v["launches"] // 2 for k, v in counts.items()},
+            "announces": ch.announces_total - a0,
+            "announce_bytes": ch.bytes_announced_total - b0,
+            "announce_ms_mean": (ch.announce_s - s0) * 1e3 / max(1, n),
+            "echoes": ch.by_op.get(wire.OP_ECHO, 0),
+            "_tokens": [r.tokens for r in results],
+        }
+        run["bytes_per_announce"] = run["announce_bytes"] / max(1, run["announces"])
+        return run
+
+    prompts = [tok.encode(p) for p in _prompts(E2E_BYTES, ctx["seed"])]
+    try:
+        first = serve(prompts, "burst")
+        dispatches = first["decode_steps"] // 16 + first["verifies"]
+        if ch.by_op.get(wire.OP_ECHO, 0) < dispatches:
+            raise AssertionError(f"spmd: {ch.by_op.get(wire.OP_ECHO, 0)} echoes for "
+                                 f"{dispatches} decode chunks and verifies")
+        out["burst"] = {k: v for k, v in first.items() if k != "_tokens"}
+        ctx["spmd"] = {"kernel_launches": first["kernel_launches_per_engine"]}
+        # a dropped idle heartbeat: the seq gap is reported, the leader
+        # answers OP_RESYNC, the follower verifies and rejoins
+        ch.watchdog_s = SPMD_WATCHDOG_S
+        time.sleep(SPMD_WATCHDOG_S / 2)
+        ch.injector = FaultInjector("spmd-drop@1", seed=0)
+        out["resync_s"] = _spmd_wait(lambda: leader.stats()["spmd-resyncs-total"] >= 1, 60,
+                                     "the resync")
+        out["spmd_resyncs"] = leader.stats()["spmd-resyncs-total"]
+        if out["spmd_resyncs"] != 1 or errors:
+            raise AssertionError(f"spmd: resyncs {out['spmd_resyncs']}, follower {errors}")
+        ch.watchdog_s = 0.0
+        # an spmd-crash at the leader's iteration top: OP_RECOVER, both sides
+        # rebuild and capture again, and serve on
+        captured = (leader.graph_captures_total, follower.graph_captures_total)
+        leader._injector = FaultInjector("spmd-crash@1", seed=0)
+        t = time.monotonic()
+        _spmd_wait(lambda: leader.stats()["spmd-recoveries-total"] >= 1, 60, "the recovery")
+        leader._injector = None
+        _spmd_wait(lambda: (leader.graph_captures_total >= captured[0] + 3 * sets
+                            and follower.graph_captures_total >= captured[1] + 3 * sets
+                            and not leader.recovering) or errors, 300,
+                   "both sides' captures after the recovery")
+        out["recover_s"] = time.monotonic() - t
+        out["spmd_recoveries"] = leader.stats()["spmd-recoveries-total"]
+        if out["spmd_recoveries"] != 1 or errors or not thread.is_alive():
+            raise AssertionError(f"spmd: recoveries {out['spmd_recoveries']}, follower {errors}")
+        second = serve(prompts, "after recovery")
+        out["after_recovery"] = {k: v for k, v in second.items() if k != "_tokens"}
+        out["tokens_after_recovery"] = _same_or_tie(ctx, cfg, params, "spmd recovery", prompts,
+                                                   second["_tokens"], first["_tokens"])
+        if not out["tokens_after_recovery"]["ok"]:
+            raise AssertionError(f"spmd: tokens after the recovery: "
+                                 f"{out['tokens_after_recovery']}")
+        # a planted echo corruption (every echoed token + 1): the follower
+        # must reject it — SpmdDivergenceError and an spmd-divergence dump
+        real_echo = leader._spmd_echo
+
+        def corrupt(kind, host):
+            real_echo(kind, np.asarray(host) + 1)
+
+        leader._spmd_echo = corrupt
+        leader.generate(prompts[0], GenerationOptions(max_new_tokens=32), timeout=300)
+        thread.join(timeout=60)
+        if not errors or not isinstance(errors[0], wire.SpmdDivergenceError):
+            raise AssertionError(f"spmd: the corrupted echo was not rejected: {errors}")
+        dumps = [d for d in recent_dumps() if d.get("reason") == "spmd-divergence"]
+        if not dumps:
+            raise AssertionError("spmd: no spmd-divergence dump")
+        validate_flight_dump(dumps[-1])
+        out["planted_echo"] = {"rejected": type(errors[0]).__name__, "why": str(errors[0])[:160]}
+    finally:
+        leader.stop()
+        thread.join(timeout=30)
+    return out
+
+
+def _spmd_two_processes(ctx, cfg, params) -> dict:
+    """Part (b): the provider with ``mesh: {data: 2}`` from the port's
+    registry — this process rank 0, the follower process on the same card —
+    serves 8 requests with echo on; each process launches layers x (the
+    leader's decode steps + verifies) paged decode kernels for them, exactly;
+    ``close()`` must see the follower exit 0 and the card's free memory come
+    back."""
+    import gc
+
+    import torch
+
+    from langstream_tpu_torch.core.registry import REGISTRY
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    resource = dict(SPMD_SERVE, seed=ctx["seed"], mesh={"data": 2}, **{
+        "spmd-parity-echo": True, "prefix-cache": "auto", "speculation": "auto"})
+    t0 = time.monotonic()
+    provider = REGISTRY.resource("tpu-serving").factory(resource)
+    provider.holder._params = params  # the seeded tree (the follower draws the same)
+    svc = provider.get_completions_service({})
+    try:
+        svc.engine()  # built, captured and started: the follower captures as announced
+        start_s = time.monotonic() - t0
+        texts = _prompts(list(SPMD_PROC_BYTES), ctx["seed"] + 3)
+        before = svc.engine_stats()
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        t = time.monotonic()
+        results = _completions(svc, texts, {"max-tokens": SPMD_PROC_NEW, "temperature": 0})
+        wall = time.monotonic() - t
+        _spmd_wait(lambda: svc.engine_stats()["active-slots"] == 0, 60, "the leader's idle")
+        torch.cuda.synchronize()
+        leader = {k: v["launches"] for k, v in kernel_counts().items()}
+        stats = svc.engine_stats()
+        peak_free = torch.cuda.mem_get_info()[0]
+    finally:
+        asyncio_close(provider)
+    codes, exit_lines, logs = svc.follower_exit_codes, svc.follower_exit_lines, svc.follower_logs
+    svc._engine = None
+    provider = svc = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    free1 = torch.cuda.mem_get_info()[0]
+    if codes != [0]:
+        raise AssertionError(f"spmd two processes: follower exit codes {codes} (logs {logs})")
+    if len(results) != 8 or any(r.completion_tokens != SPMD_PROC_NEW for r in results):
+        raise AssertionError(f"spmd two processes: {[r.completion_tokens for r in results]}")
+    steps = stats["decode-steps-total"] - before["decode-steps-total"]
+    verifies = stats["spec-verify-dispatches-total"] - before["spec-verify-dispatches-total"]
+    want = cfg.n_layers * (steps + verifies)
+    follower = (exit_lines[0] or {}).get("kernels", {}) if exit_lines else {}
+    # the follower zeroed its counts after its last announced capture, and
+    # replays every decode chunk and verify the leader dispatched
+    if want <= 0 or leader["paged_decode"] != want or follower.get("paged_decode") != want:
+        raise AssertionError(f"spmd two processes: paged_decode launches leader "
+                             f"{leader['paged_decode']}, follower {follower.get('paged_decode')}, "
+                             f"want {cfg.n_layers} x ({steps} + {verifies}) = {want}")
+    if leader["flash_prefill"] <= 0 or follower.get("flash_prefill", 0) != leader["flash_prefill"]:
+        raise AssertionError(f"spmd two processes: flash_prefill launches leader "
+                             f"{leader['flash_prefill']}, follower {follower.get('flash_prefill')}")
+    if free1 < free0 - 2 * 2**30:
+        raise AssertionError(f"spmd two processes: free memory {free1 / 2**30:.2f} GiB after "
+                             f"close vs {free0 / 2**30:.2f} GiB before")
+    ctx["spmd_leader"] = {"kernel_launches": leader}
+    ctx["spmd_follower"] = {"kernel_launches": follower}
+    return {
+        "requests": len(results), "wall_s": wall, "start_s": start_s,
+        "decode_steps": steps, "verifies": verifies,
+        "announces": stats["spmd-announces-total"],
+        "announce_bytes": stats["spmd-announce-bytes-total"],
+        "follower_exit_codes": codes, "leader_kernel_launches": leader,
+        "follower_kernel_launches": follower,
+        "free_gib_before": free0 / 2**30, "free_gib_serving": peak_free / 2**30,
+        "free_gib_after": free1 / 2**30,
+    }
+
+
+def _spmd_world1(ctx, cfg, params) -> dict:
+    """Part (c): the provider with ``mesh: {model: 1}`` — a world-1 NCCL
+    group, the TP collectives inside the captured chunks — against one
+    without a mesh on the same weights: each request served alone, tokens
+    bit-equal; the decode step's device ms of each."""
+    import torch
+
+    from langstream_tpu_torch.core.registry import REGISTRY
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    prompts = [tok.encode(p) for p in _prompts(list(SPMD_PROC_BYTES), ctx["seed"] + 5)]
+    runs = {}
+    for label, extra in (("no_mesh", {}), ("mesh_model1", {"mesh": {"model": 1}})):
+        provider = REGISTRY.resource("tpu-serving").factory(
+            dict(SPMD_SERVE, seed=ctx["seed"], **extra))
+        provider.holder._params = params
+        svc = provider.get_completions_service({})
+        try:
+            engine = svc.engine()
+            if extra and engine._tp is None:
+                raise AssertionError("spmd: mesh {model: 1} built no TP handle")
+            opts = GenerationOptions(max_new_tokens=SPMD_PROC_NEW, temperature=0.0)
+            tokens = [engine.generate(p, opts, timeout=600).tokens for p in prompts]
+            with torch.no_grad():
+                rate = _replay_rate(torch, engine)
+        finally:
+            asyncio_close(provider)
+        runs[label] = {"tokens": tokens, **rate}
+    if runs["mesh_model1"]["tokens"] != runs["no_mesh"]["tokens"]:
+        raise AssertionError("spmd: {model: 1} tokens differ from the no-mesh run")
+    return {label: {k: v for k, v in r.items() if k != "tokens"} for label, r in runs.items()}
+
+
+def phase_spmd(ctx: dict) -> None:
+    """The SPMD plane on the card at llama-3-8b's full width and depth."""
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    params = _llama_params(ctx)
+    t = time.monotonic()
+    pair = _spmd_loopback(ctx, cfg, params)
+    pair["part_s"] = time.monotonic() - t
+    log(f"spmd loopback llama-3-8b bf16 {json.dumps(pair)}")
+    t = time.monotonic()
+    procs = _spmd_two_processes(ctx, cfg, params)
+    procs["part_s"] = time.monotonic() - t
+    log(f"spmd two processes {{data: 2}} {json.dumps(procs)}")
+    t = time.monotonic()
+    world1 = _spmd_world1(ctx, cfg, params)
+    world1["part_s"] = time.monotonic() - t
+    log(f"spmd world-1 nccl {{model: 1}} {json.dumps(world1)}")
+    ctx.setdefault("summaries", []).append(("spmd", {
+        "announce_bytes_per_chunk": pair["burst"]["bytes_per_announce"],
+        "announce_ms_mean": pair["burst"]["announce_ms_mean"],
+        "pair_capture_s": pair["pair_capture_s"], "resyncs": pair["spmd_resyncs"],
+        "recoveries": pair["spmd_recoveries"], "follower_start_s": procs["start_s"],
+        "decode_ms_no_mesh": world1["no_mesh"]["device_ms_per_step"],
+        "decode_ms_model1": world1["mesh_model1"]["device_ms_per_step"],
+    }))
+
+
 def asyncio_close(provider) -> None:
     import asyncio
 
@@ -6459,7 +6858,7 @@ def kernel_record(ctx: dict) -> dict:
     # every serving run's launches of each kernel (counts zeroed before each)
     served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "prefix",
               "spec", "agentic", "dense_spec", "dense_prefix", "dense_prefix_int8", "tiered",
-              "fleet", "fleet_http", "load", "moe")
+              "fleet", "fleet_http", "spmd", "spmd_leader", "spmd_follower", "load", "moe")
     out = []
     for name, (src, replaces, path) in sources.items():
         runs = ctx.get("kernel_runs", {}).get(name)
@@ -6550,12 +6949,16 @@ def main() -> int:
         return 0
     ctx: dict = {"seed": args.seed}
     t_all = time.monotonic()
+    phase_s: dict = {}
     for phase in PHASES:
         if phase in phases:
             t0 = time.monotonic()
             globals()[f"phase_{phase}"](ctx)
-            log(f"phase {phase}: {time.monotonic() - t0:.1f}s")
-    log(f"all phases: {time.monotonic() - t_all:.1f}s")
+            phase_s[phase] = round(time.monotonic() - t0, 1)
+            log(f"phase {phase}: {phase_s[phase]:.1f}s")
+    # every phase's seconds again on one line (the tool keeps the output's
+    # tail, where the phase lines of a full run have scrolled away)
+    log(f"all phases: {time.monotonic() - t_all:.1f}s {json.dumps(phase_s)}")
     for name, summary in ctx.get("summaries", []):
         log(f"{name} summary {json.dumps(summary)}")
     complete = set(DEFAULT_PHASES) <= set(phases)

@@ -25,8 +25,13 @@ and reallocates it only when the capacity doubles. A search then reads the
 valid rows once, at the card's memory rate; the rows past them (JAX's
 ``-inf`` mask) are not read at all, which leaves the answers the same.
 
-The vector-db-sink writer (``LocalVectorWriter``) waits for the slice that
-ports the pipeline runtime (ROADMAP item 6).
+``LocalVectorWriter`` is the vector-db-sink writer of this store: each
+record's ``id`` / ``vector`` / field expressions evaluate through the
+port's expression language (``agents/genai/el.py``) and the row is
+upserted through the device copy. ``build_datasource`` resolves a
+``datasource`` / ``vector-database`` resource of service ``local-vector``
+(``in-memory``, ``tpu-vector``), and ``register`` puts both types in the
+port's ``core.registry.REGISTRY``, as the JAX package registers them.
 """
 
 from __future__ import annotations
@@ -264,3 +269,71 @@ def _substitute_params(obj: Any, params: list[Any]) -> Any:
     if obj == "?" and params:
         return params.pop(0)
     return obj
+
+
+class LocalVectorWriter:
+    """vector-db-sink writer for the local vector store (the JAX package's
+    ``LocalVectorWriter``): ``index-name`` (or ``table-name``, default
+    "default"), the ``id`` expression (default ``fn:uuid()``), the
+    ``vector`` expression (default ``value.embeddings``) and ``fields``
+    (``{name, expression}``) for the row's metadata."""
+
+    def __init__(self, datasource: LocalVectorDataSource, config: dict[str, Any]) -> None:
+        self.datasource = datasource
+        self.index = config.get("index-name", config.get("table-name", "default"))
+        self.id_expr = config.get("id", "fn:uuid()")
+        self.vector_expr = config.get("vector", "value.embeddings")
+        self.metadata_fields = list(config.get("fields", []))
+
+    async def upsert(self, record: Any, context: dict[str, Any]) -> None:
+        from langstream_tpu_torch.agents.genai import el
+        from langstream_tpu_torch.agents.genai.mutable import MutableRecord
+
+        ctx = MutableRecord.from_record(record)
+        id_ = str(el.evaluate(self.id_expr, ctx))
+        vector = el.evaluate(self.vector_expr, ctx)
+        if vector is None:
+            raise ValueError(f"vector expression {self.vector_expr!r} produced None")
+        meta = {
+            f["name"]: el.evaluate(f.get("expression", "value"), ctx)
+            for f in self.metadata_fields
+        }
+        self.datasource.upsert(self.index, id_, list(map(float, vector)), meta)
+
+
+def build_datasource(config: dict[str, Any]) -> LocalVectorDataSource:
+    """The datasource a resource's ``service`` names: the port serves the
+    local vector store (``local-vector``, ``in-memory``, ``tpu-vector``);
+    any other service raises ValueError."""
+    service = config.get("service", "jdbc")
+    if service in ("local-vector", "in-memory", "tpu-vector"):
+        return LocalVectorDataSource(config)
+    raise ValueError(
+        f"datasource service {service!r} is not served by the PyTorch port "
+        "(local-vector only)"
+    )
+
+
+def register() -> None:
+    """Register the ``datasource`` and ``vector-database`` resource types
+    (factory ``build_datasource``) in the port's registry."""
+    from langstream_tpu_torch.api.doc import ConfigModel, ConfigProperty, props
+    from langstream_tpu_torch.core.registry import REGISTRY, ResourceTypeInfo
+
+    for rtype in ("datasource", "vector-database"):
+        REGISTRY.register_resource(
+            ResourceTypeInfo(
+                type=rtype,
+                factory=build_datasource,
+                description="Vector datasource (local-vector, on the card).",
+                config_model=ConfigModel(
+                    type=rtype,
+                    properties=props(
+                        ConfigProperty("service", "backend service", required=True),
+                        ConfigProperty("path", "persistence dir (local-vector)"),
+                        ConfigProperty("device", "cuda (default) or cpu"),
+                    ),
+                    allow_unknown=True,
+                ),
+            )
+        )

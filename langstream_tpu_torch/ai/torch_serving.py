@@ -97,8 +97,8 @@ step key ``max-text-tokens``). The resource keys served:
   prefill-token-budget: prompt tokens admitted an iteration (default the
     widest bucket, floored at one full admit group); max-prefill-streams:
     chunked-prefill streams at once (default 2); prefill-batch: rows of an
-    admit group, 8 only (an MoE model's groups are padded to it, as the
-    JAX engine pads them; any other value raises NotImplementedError)
+    admit group (default 8; an MoE model's groups are padded to it, as the
+    JAX engine pads every group)
   tenants: a list of tenant specs (name, weight, max-slots, queue-share,
     token-rate, burst-s; serving/tenancy.TenantSpec): weighted fair share
     of the prefill budget and the slots, hard slot caps, queue shares and
@@ -171,9 +171,35 @@ forwards ``POST /fleet/cancel`` there. ``begin_drain()`` is the graceful
 half of ``close()``: stop routing, unregister the beacon, drain the engine
 and hibernate, while a runtime HTTP server still serves.
 
-The JAX provider's ``mesh`` key (ROADMAP item 7) is refused with
-NotImplementedError unless it is off. Keys of the JAX provider with no
-meaning here, which the port ignores:
+  mesh: {data: D, expert: E, model: M} → one rank a card (the SPMD
+    plane, ``parallel/``): the weights split over expert x model
+    (``parallel.sharding``; collectives inside the captured chunks), data
+    ranks hold the whole model. One host: the provider is rank 0 and
+    starts the other N − 1 ranks as follower processes (``python -m
+    langstream_tpu_torch.parallel.spmd_serving``), rank r on ``cuda:(r %
+    device_count)`` (or the CPU with ``device: cpu``, gloo for the
+    collectives); with ``LANGSTREAM_TPU_HOSTS`` > 1 each pod is one rank
+    (``parallel/multihost.py``) and the mesh product must equal the hosts.
+    The leader announces every device dispatch and the followers replay it
+    (``parallel/spmd_serving.py``); ``close()`` announces OP_STOP and
+    waits for every follower to exit. A model or expert axis above 1
+    where two ranks would share one card is refused (NCCL cannot put two
+    ranks of a communicator on one device); ``mesh.seq`` > 1 (ring
+    prefill) is refused (ROADMAP item 7b). A mesh on the card at world 1
+    ({model: 1}) runs the TP collectives over a world-1 NCCL group. A
+    multi-rank mesh turns the host KV tier, the durable tier, adapters and
+    constrained decoding off, as the JAX engine does under SPMD (the JAX
+    provider serves them on a single-process mesh; ROADMAP §3), and the
+    embeddings service is refused under tensor parallelism
+  spmd-parity-echo: false (default) → every processed decode / verify
+    chunk's tokens ride back out and the followers hold them against their
+    own (one extra broadcast a chunk)
+  spmd-watchdog-s: 30 (0 = off) → the followers' receive deadline (2x),
+    the leader's idle heartbeat (1/4 x) and its per-fetch bound (1x)
+  spmd-resync-window-s: 60 → a second divergence within this window of a
+    granted resync stays fatal
+
+Keys of the JAX provider with no meaning here, which the port ignores:
 
   precompile: XLA's ahead-of-time compile of the decode ladder (the port
     captures its graphs in ``start()`` instead)
@@ -206,12 +232,19 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import json
 import logging
+import os
+import subprocess
+import sys
+import tempfile
 import threading
+import time
 import uuid
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 import numpy as np
 
@@ -232,6 +265,10 @@ from langstream_tpu_torch.models.quant import init_random_quantized_params
 from langstream_tpu_torch.models.streamload import load_params_streamed
 from langstream_tpu_torch.models.transformer import encode
 from langstream_tpu_torch.ops.attention import kernel_path_ok
+from langstream_tpu_torch.parallel.mesh import axis_sizes, build_mesh
+from langstream_tpu_torch.parallel.multihost import DistributedConfig, bootstrap
+from langstream_tpu_torch.parallel.sharding import shard_params
+from langstream_tpu_torch.parallel.spmd_serving import SpmdChannel
 from langstream_tpu_torch.serving import fleet as fleet_mod
 from langstream_tpu_torch.serving import lifecycle
 from langstream_tpu_torch.serving.engine import (
@@ -241,14 +278,10 @@ from langstream_tpu_torch.serving.engine import (
     ShedError,
 )
 from langstream_tpu_torch.serving.faultinject import FaultInjector
+from langstream_tpu_torch.serving.pagepool import table_len_for
 from langstream_tpu_torch.serving.tokenizer import get_tokenizer
 
 log = logging.getLogger(__name__)
-
-# provider keys of the JAX package whose tiers the port does not serve yet
-# (key or key prefix → the ROADMAP item that ports it)
-_REFUSED_KEYS = (("mesh", 7),)
-
 
 def _asks_for(value: Any) -> bool:
     """A refused key set to something other than off."""
@@ -324,17 +357,52 @@ class _StreamState:
         self._flush(last=True)
 
 
-class TorchCompletionsService(CompletionsService):
-    """Completions from a local ``ServingEngine``, built lazily on first use."""
+def mesh_axes(resource: dict[str, Any]) -> Optional[dict[str, int]]:
+    """The resource's ``mesh`` as axis sizes (None when off); ``seq`` > 1
+    is refused."""
+    value = resource.get("mesh")
+    if not _asks_for(value):
+        return None
+    if not isinstance(value, dict):
+        raise ValueError(f"mesh must be a mapping of axis sizes, got {value!r}")
+    axes = {str(k): int(v) for k, v in value.items()}
+    axis_sizes(axes)  # unknown axes / sizes below 1 raise
+    if axes.get("seq", 1) > 1:
+        raise NotImplementedError(
+            "mesh.seq > 1: ring prefill over a sequence axis is not served by the PyTorch "
+            "port yet (ROADMAP item 7b)"
+        )
+    return axes
 
-    def __init__(self, resource: dict[str, Any]) -> None:
+
+def _exit_line(path: str) -> Optional[dict]:
+    """The exit line a follower process's log ends with (its ``main``
+    prints one JSON object with a ``follower`` key on a clean stop), or
+    None when the log has none."""
+    try:
+        with open(path) as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return None
+    for line in reversed(lines):
+        if line.startswith("{"):
+            try:
+                obj = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(obj, dict) and "follower" in obj:
+                return obj
+    return None
+
+
+class TorchCompletionsService(CompletionsService):
+    """Completions from a local ``ServingEngine``, built lazily on first use.
+    ``rank`` / ``world`` / ``init_method``: a follower rank's service
+    (``parallel.spmd_serving.main``); the provider itself is rank 0."""
+
+    def __init__(self, resource: dict[str, Any], rank: int = 0, world: Optional[int] = None,
+                 init_method: Optional[str] = None) -> None:
         self.resource = dict(resource)
-        for key, value in self.resource.items():
-            item = next((n for k, n in _REFUSED_KEYS if key.startswith(k)), None)
-            if item is not None and _asks_for(value):
-                raise NotImplementedError(
-                    f"{key}: not served by the PyTorch port yet (ROADMAP item {item})"
-                )
         self.weights = str(self.resource.get("weights", "random") or "random")
         if self.weights != "random":
             next(_iter_safetensor_files(self.weights))  # FileNotFoundError without shards
@@ -394,7 +462,33 @@ class TorchCompletionsService(CompletionsService):
         self.prefill_buckets = tuple(
             int(b) for b in self.resource.get("prefill-buckets", PREFILL_BUCKETS)
         )
-        self.device = resolve_device(self.resource.get("device", "cuda"))
+        # the mesh: its axes, this process's rank and the world (one rank a
+        # pod under LANGSTREAM_TPU_HOSTS, else rank 0 of the axis product)
+        self.mesh_axes = mesh_axes(self.resource)
+        self.dist_config = DistributedConfig.from_env()
+        size = int(np.prod(list(self.mesh_axes.values()))) if self.mesh_axes else 1
+        if self.dist_config.is_multihost:
+            rank, world = self.dist_config.process_index, self.dist_config.num_processes
+            if size != world:
+                raise ValueError(
+                    f"mesh {self.mesh_axes} has {size} ranks but LANGSTREAM_TPU_HOSTS is {world}"
+                )
+        self.rank = int(rank)
+        self.world = int(world) if world is not None else size
+        self.init_method = init_method
+        device = resolve_device(self.resource.get("device", "cuda"))
+        if device.type == "cuda" and self.mesh_axes is not None:
+            # one rank a card: rank r on cuda:(r % device_count)
+            count = torch.cuda.device_count()
+            tp = (self.mesh_axes or {}).get("model", 1) * (self.mesh_axes or {}).get("expert", 1)
+            if tp > 1 and not self.dist_config.is_multihost and self.world > count:
+                raise ValueError(
+                    f"mesh {self.mesh_axes}: {self.world} ranks on {count} card(s) would put two "
+                    "ranks of one model / expert group on one card, which NCCL cannot do; "
+                    "only a data axis may share a card"
+                )
+            device = torch.device("cuda", self.rank % count)
+        self.device = device
         kernel_path_ok(self.model_config, self.device)  # raises for what the kernels refuse
         depth = self.resource.get("queue-depth")
         self.queue_depth = int(depth) if depth is not None else None
@@ -404,11 +498,9 @@ class TorchCompletionsService(CompletionsService):
         self.restart_backoff_s = float(self.resource.get("engine-restart-backoff", 0.1))
         self.max_restarts = int(self.resource.get("engine-max-restarts", 5))
         batch = self.resource.get("prefill-batch")
-        if batch is not None and int(batch) != ServingEngine.PREFILL_BATCH:
-            raise NotImplementedError(
-                f"prefill-batch {batch}: the port's admit groups are "
-                f"{ServingEngine.PREFILL_BATCH} rows (an MoE model's groups are padded to it)"
-            )
+        self.prefill_batch = int(batch) if batch is not None else ServingEngine.PREFILL_BATCH
+        if self.prefill_batch < 1:
+            raise ValueError(f"prefill-batch must be >= 1, got {self.prefill_batch}")
         bo = self.resource.get("brownout", "auto")
         if not isinstance(bo, bool) and str(bo).lower() not in ("auto", "off"):
             raise ValueError(f"unknown brownout {bo!r}; supported: auto, off")
@@ -451,6 +543,115 @@ class TorchCompletionsService(CompletionsService):
         # the engine's sites share its seeded schedule and counters
         self._injector: Optional[FaultInjector] = None
         self._injector_built = False
+        # the SPMD plane: the mesh, the channel, the follower processes (the
+        # provider's own, rank 0 on one host), each one's log (its stdout
+        # and stderr), their exit codes and exit lines
+        self._mesh: Any = None
+        self._channel: Any = None
+        self._followers: list[subprocess.Popen] = []
+        self.follower_logs: list[str] = []
+        self.follower_exit_codes: list[Optional[int]] = []
+        self.follower_exit_lines: list[Optional[dict]] = []
+        self._joined = False
+
+    def mesh(self) -> Any:
+        """This rank's mesh (None without ``mesh``), joining the process
+        group first when the mesh needs one: more than one rank, or a mesh
+        on the card at world 1 (the world-1 NCCL group). Every rank calls
+        this at the same point of its build, so the groups are made in the
+        same order everywhere."""
+        if self.mesh_axes is None:
+            return None
+        if self._mesh is None:
+            cuda = self.device.type == "cuda"
+            tp = self.mesh_axes.get("model", 1) * self.mesh_axes.get("expert", 1)
+            if tp > 1:
+                backend = "nccl" if cuda else "gloo"
+            else:
+                backend = "nccl" if cuda and self.world == 1 else None
+            if (self.world > 1 or backend is not None) and not dist.is_initialized():
+                if cuda:
+                    torch.cuda.set_device(self.device)
+                if self.dist_config.is_multihost:
+                    bootstrap(self.dist_config, self.init_method)
+                else:
+                    if self.init_method is None:
+                        self.init_method = "file://" + os.path.join(
+                            tempfile.mkdtemp(prefix="lstpu-spmd-"), "store"
+                        )
+                    dist.init_process_group(
+                        "gloo", init_method=self.init_method, world_size=self.world,
+                        rank=self.rank,
+                    )
+                self._joined = True
+            self._mesh = build_mesh(self.mesh_axes, backend)
+            if backend is not None and cuda:
+                # a communicator initialises at its first collective: run
+                # one eagerly, before any capture
+                for group in {id(g): g for g in self._mesh.groups.values()}.values():
+                    dist.all_reduce(torch.zeros(1, device=self.device), group=group)
+                torch.cuda.synchronize(self.device)
+        return self._mesh
+
+    def spmd_channel(self) -> Any:
+        """The SPMD channel (None at world 1), built with the engine."""
+        return self._channel
+
+    def _start_followers(self) -> None:
+        """On one host, start ranks 1..N-1 as processes of their own: each
+        builds the same engine and replays this rank's announcements."""
+        if self.rank != 0 or self.world <= 1 or self.dist_config.is_multihost or self._followers:
+            return
+        if self.init_method is None:
+            self.init_method = "file://" + os.path.join(
+                tempfile.mkdtemp(prefix="lstpu-spmd-"), "store"
+            )
+        root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+        log_dir = tempfile.mkdtemp(prefix="lstpu-spmd-logs-")
+        self.follower_logs = []
+        for r in range(1, self.world):
+            path = os.path.join(log_dir, f"spmd-follower-{r}.log")
+            with open(path, "w") as out:
+                self._followers.append(subprocess.Popen(
+                    [sys.executable, "-m", "langstream_tpu_torch.parallel.spmd_serving",
+                     "--config", json.dumps(self.resource), "--rank", str(r),
+                     "--world", str(self.world), "--init-method", self.init_method],
+                    cwd=root, env=env, stdin=subprocess.DEVNULL, stdout=out,
+                    stderr=subprocess.STDOUT,
+                ))
+            self.follower_logs.append(path)
+
+    def _reap_followers(self, timeout_s: float = 120.0) -> None:
+        """Wait for every follower to exit (after OP_STOP); one that does
+        not within ``timeout_s`` is killed. Exit codes land in
+        ``follower_exit_codes``, each one's exit line (the JSON object its
+        ``main`` prints last, None when it printed none) in
+        ``follower_exit_lines``."""
+        deadline = time.monotonic() + timeout_s
+        codes = []
+        for proc in self._followers:
+            try:
+                codes.append(proc.wait(timeout=max(0.1, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                log.error("SPMD follower pid %d did not exit after OP_STOP; killing it", proc.pid)
+                proc.kill()
+                codes.append(proc.wait())
+        self._followers = []
+        self.follower_exit_codes = codes
+        self.follower_exit_lines = [_exit_line(path) for path in self.follower_logs]
+        if any(c != 0 for c in codes):
+            log.error("SPMD follower exit codes: %s (logs %s)", codes, self.follower_logs)
+
+    def release_follower(self) -> None:
+        """Leave the process group (a follower rank's, or the leader's,
+        last step)."""
+        self._channel = None
+        self._mesh = None
+        if self._joined and dist.is_initialized():
+            dist.destroy_process_group()
+        self._joined = False
 
     def params(self) -> dict:
         """The served params, loaded (or drawn) once — the one tree every
@@ -485,81 +686,120 @@ class TorchCompletionsService(CompletionsService):
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(self.resource.get("seed", 0)))
             init = init_random_quantized_params if self.quantize else init_params
-            return init(mc, gen, device=dev), None
-        return load_params_streamed(
-            self.weights, mc, workers=self.load_workers, quantize=self.quantize,
-            fault_injector=self._fault_injector(), block=False, device=dev,
-        )
+            params, report = init(mc, gen, device=dev), None
+        else:
+            params, report = load_params_streamed(
+                self.weights, mc, workers=self.load_workers, quantize=self.quantize,
+                fault_injector=self._fault_injector(), block=False, device=dev,
+            )
+        mesh = self.mesh()
+        if mesh is not None and mesh.tensor_parallel > 1:
+            # this rank's slices; the whole tree goes with the return
+            if report is not None and dev.type == "cuda":
+                report.wait(torch.cuda.current_stream(dev))
+            params = shard_params(params, mesh, mc)
+        return params, report
 
     def engine(self) -> ServingEngine:
         with self._lock:
             if self._engine is None:
-                params = self.params()
-                engine = ServingEngine(
-                    self.model_config,
-                    params,
-                    max_batch=int(self.resource.get("max-batch", 8)),
-                    max_seq_len=self.max_seq_len,
-                    eos_token_id=self.tokenizer.eos_token_id,
-                    prefill_buckets=self.prefill_buckets,
-                    decode_chunk=int(self.resource.get("decode-chunk", 16)),
-                    page_size=int(self.resource.get("page-size", 64)),
-                    kv_layout=self.kv_layout,
-                    device=self.device,
-                    queue_depth=self.queue_depth,
-                    shed_policy=self.shed_policy,
-                    restart_backoff_s=self.restart_backoff_s,
-                    max_restarts=self.max_restarts,
-                    fault_injector=self._fault_injector(),
-                    prefix_cache=self.prefix_cache,
-                    prefix_cache_fraction=float(self.resource.get("prefix-cache-fraction", 0.25)),
-                    prefix_cache_entries=(
-                        int(self.resource["prefix-cache-entries"])
-                        if self.resource.get("prefix-cache-entries") is not None
-                        else None
-                    ),
-                    speculation=self.speculation,
-                    speculation_tokens=self.speculation_tokens,
-                    weight_load_report=self._weight_load_report,
-                    kv_pages=_int_or_none(self.resource.get("kv-pages")),
-                    prefill_token_budget=_int_or_none(self.resource.get("prefill-token-budget")),
-                    max_prefill_streams=_int_or_none(self.resource.get("max-prefill-streams")),
-                    tenants=list(self.resource.get("tenants") or []),
-                    brownout=self.brownout,
-                    brownout_enter_load=float(self.resource.get("brownout-enter-load", 2.0)),
-                    brownout_exit_load=float(self.resource.get("brownout-exit-load", 1.0)),
-                    brownout_dwell_s=float(self.resource.get("brownout-dwell-s", 0.5)),
-                    observability=bool(self.resource.get("observability", True)),
-                    flight_iterations=int(self.resource.get("flight-recorder-iterations", 256)),
-                    flight_dir=(
-                        str(self.resource["flight-dir"]) if self.resource.get("flight-dir")
-                        else None
-                    ),
-                    adapters=list(self.resource.get("adapters") or []),
-                    adapter_pool_fraction=float(
-                        self.resource.get("adapter-pool-fraction", 0.1)
-                    ),
-                    adapter_rank=_int_or_none(self.resource.get("adapter-rank")),
-                    adapter_pool_rows=_int_or_none(self.resource.get("adapter-pool-rows")),
-                    constrained_decoding=self.constrained,
-                    grammar_slots=int(self.resource.get("grammar-slots", 64)),
-                    grammar_states=int(self.resource.get("grammar-states", 128)),
-                    grammar_exceptions=int(self.resource.get("grammar-exceptions", 65536)),
-                    grammar_tokenizer=self.tokenizer,
-                    host_kv_fraction=self.host_kv_fraction,
-                    spill=self.spill,
-                    spill_idle_s=float(self.resource.get("spill-idle-s", 0.0)),
-                    restore_stall_dump_s=float(self.resource.get("restore-stall-dump-s", 1.0)),
-                    durable=self.durable,
-                    durable_dir=self.durable_dir,
-                    durable_max_bytes=int(self.resource.get("durable-max-bytes", 0)),
-                    durable_timeout_s=float(self.resource.get("durable-timeout-s", 5.0)),
-                    migrate_staging=self.fleet_role != "mixed",
-                )
-                engine.start()
+                self._start_followers()
+                engine = self.build_engine(start=True)
                 self._register_replica(engine)
                 self._engine = engine
             return self._engine
+
+    def build_engine(self, start: bool = True) -> ServingEngine:
+        """Construct this rank's engine (with its mesh and, at world > 1,
+        its SPMD channel). ``start=False`` is the follower path: the caller
+        runs ``follower_loop`` over ``spmd_channel()`` instead."""
+        with self._lock:
+            mesh = self.mesh()
+            params = self.params()
+            if mesh is not None and self.world > 1:
+                self._channel = SpmdChannel(
+                    prefill_batch=self.prefill_batch,
+                    max_width=max(self.prefill_buckets),
+                    max_batch=int(self.resource.get("max-batch", 8)),
+                    table_len=(
+                        table_len_for(self.max_seq_len, int(self.resource.get("page-size", 64)))
+                        if self.kv_layout == "paged" else 0
+                    ),
+                    spec_tokens=self.speculation_tokens,
+                    echo=bool(self.resource.get("spmd-parity-echo", False)),
+                    decode_chunk=int(self.resource.get("decode-chunk", 16)),
+                    watchdog_s=float(self.resource.get("spmd-watchdog-s", 30.0)),
+                    resync_window_s=float(self.resource.get("spmd-resync-window-s", 60.0)),
+                    group=mesh.control_group,
+                    src=0,
+                )
+            engine = ServingEngine(
+                self.model_config,
+                params,
+                max_batch=int(self.resource.get("max-batch", 8)),
+                max_seq_len=self.max_seq_len,
+                eos_token_id=self.tokenizer.eos_token_id,
+                prefill_buckets=self.prefill_buckets,
+                decode_chunk=int(self.resource.get("decode-chunk", 16)),
+                page_size=int(self.resource.get("page-size", 64)),
+                kv_layout=self.kv_layout,
+                device=self.device,
+                queue_depth=self.queue_depth,
+                shed_policy=self.shed_policy,
+                restart_backoff_s=self.restart_backoff_s,
+                max_restarts=self.max_restarts,
+                fault_injector=self._fault_injector(),
+                prefix_cache=self.prefix_cache,
+                prefix_cache_fraction=float(self.resource.get("prefix-cache-fraction", 0.25)),
+                prefix_cache_entries=(
+                    int(self.resource["prefix-cache-entries"])
+                    if self.resource.get("prefix-cache-entries") is not None
+                    else None
+                ),
+                speculation=self.speculation,
+                speculation_tokens=self.speculation_tokens,
+                weight_load_report=self._weight_load_report,
+                kv_pages=_int_or_none(self.resource.get("kv-pages")),
+                prefill_token_budget=_int_or_none(self.resource.get("prefill-token-budget")),
+                max_prefill_streams=_int_or_none(self.resource.get("max-prefill-streams")),
+                tenants=list(self.resource.get("tenants") or []),
+                brownout=self.brownout,
+                brownout_enter_load=float(self.resource.get("brownout-enter-load", 2.0)),
+                brownout_exit_load=float(self.resource.get("brownout-exit-load", 1.0)),
+                brownout_dwell_s=float(self.resource.get("brownout-dwell-s", 0.5)),
+                observability=bool(self.resource.get("observability", True)),
+                flight_iterations=int(self.resource.get("flight-recorder-iterations", 256)),
+                flight_dir=(
+                    str(self.resource["flight-dir"]) if self.resource.get("flight-dir")
+                    else None
+                ),
+                adapters=list(self.resource.get("adapters") or []),
+                adapter_pool_fraction=float(
+                    self.resource.get("adapter-pool-fraction", 0.1)
+                ),
+                adapter_rank=_int_or_none(self.resource.get("adapter-rank")),
+                adapter_pool_rows=_int_or_none(self.resource.get("adapter-pool-rows")),
+                constrained_decoding=self.constrained,
+                grammar_slots=int(self.resource.get("grammar-slots", 64)),
+                grammar_states=int(self.resource.get("grammar-states", 128)),
+                grammar_exceptions=int(self.resource.get("grammar-exceptions", 65536)),
+                grammar_tokenizer=self.tokenizer,
+                host_kv_fraction=self.host_kv_fraction,
+                spill=self.spill,
+                spill_idle_s=float(self.resource.get("spill-idle-s", 0.0)),
+                restore_stall_dump_s=float(self.resource.get("restore-stall-dump-s", 1.0)),
+                durable=self.durable,
+                durable_dir=self.durable_dir,
+                durable_max_bytes=int(self.resource.get("durable-max-bytes", 0)),
+                durable_timeout_s=float(self.resource.get("durable-timeout-s", 5.0)),
+                migrate_staging=self.fleet_role != "mixed",
+                prefill_batch=self.prefill_batch,
+                mesh=mesh,
+                spmd=self._channel,
+            )
+            if start:
+                engine.start()
+            return engine
 
     def _register_replica(self, engine: ServingEngine) -> None:
         """Publish the engine's beacon and fleet functions in this process's
@@ -682,12 +922,18 @@ class TorchCompletionsService(CompletionsService):
 
     def close(self) -> None:
         """``begin_drain()``, then stop: what is still running fails with
-        the stop."""
+        the stop. Under SPMD the stop announces OP_STOP; every follower
+        process is then waited for (``follower_exit_codes``,
+        ``follower_exit_lines``) and the process group left."""
         self.begin_drain()
         with self._lock:
             engine, self._engine = self._engine, None
         if engine is not None:
             engine.stop()
+        if self._followers:
+            self._reap_followers()
+        if self._joined:
+            self.release_follower()
 
     def _render_prompt(self, messages: list[ChatMessage]) -> str:
         """The tokenizer's chat template when it has one (an HF tokenizer
@@ -938,8 +1184,16 @@ class TorchEmbeddingsService(EmbeddingsService):
     def embed(self, texts: list[str]) -> np.ndarray:
         """[n, d_model] f32 embeddings of ``texts``, computed on the calling
         thread (on the card: on the service's own stream)."""
-        tokens, lengths = self.batch(texts)
         holder = self.holder
+        if holder.mesh_axes is not None and (
+            holder.world > 1
+            or holder.mesh_axes.get("model", 1) * holder.mesh_axes.get("expert", 1) > 1
+        ):
+            raise NotImplementedError(
+                "embeddings are not served on a multi-rank or tensor-parallel mesh "
+                "(the JAX provider refuses them on a multi-host replica)"
+            )
+        tokens, lengths = self.batch(texts)
         params = holder.params()
         dev = holder.device
         if dev.type != "cuda":
@@ -980,3 +1234,20 @@ class TorchServingProvider(ServiceProvider):
         # close() drains for up to drain-grace-s: off the event loop
         loop = asyncio.get_running_loop()
         await loop.run_in_executor(None, self.holder.close)
+
+
+def register() -> None:
+    """Register the ``tpu-serving`` resource type with
+    ``TorchServingProvider`` as its factory (the JAX package's
+    ``tpu_serving.register``)."""
+    from langstream_tpu_torch.api.doc import ConfigModel
+    from langstream_tpu_torch.core.registry import REGISTRY, ResourceTypeInfo
+
+    REGISTRY.register_resource(
+        ResourceTypeInfo(
+            type="tpu-serving",
+            description="Local PyTorch / CUDA completions+embeddings serving engine.",
+            config_model=ConfigModel(type="tpu-serving", allow_unknown=True),
+            factory=TorchServingProvider,
+        )
+    )

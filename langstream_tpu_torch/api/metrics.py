@@ -3,8 +3,11 @@
 bounds, counts, sums and percentiles (Prometheus semantics: cumulative
 ``_bucket{le=...}`` counts plus ``_sum`` / ``_count``). The engine's
 latency distributions (``serving/observability.py``) are made of these.
-``Counter``, ``Gauge`` and the ``MetricsReporter`` wait for the provider's
-wiring into the pipeline runtime.
+The Prometheus side is the JAX module's too: ``Counter``, ``Gauge``,
+``Histogram.load`` / ``exposition`` and the ``MetricsReporter`` (``with_prefix``,
+``counter``, ``gauge``, ``histogram``, ``prometheus_text``) — what a runner
+hands its runtime HTTP server for ``/metrics`` (a standalone replica serves
+an empty text, as the JAX one does).
 """
 
 from __future__ import annotations
@@ -12,6 +15,56 @@ from __future__ import annotations
 import bisect
 import threading
 from typing import Optional, Sequence
+
+
+def _render_labels(labels: dict) -> str:
+    """Canonical ``{k="v",...}`` rendering (sorted keys) — used both as
+    the registry-key suffix and in the exposition line, so one (name,
+    labels) pair is always one series."""
+    inner = ",".join(f'{k}="{v}"' for k, v in sorted(labels.items()))
+    return "{" + inner + "}"
+
+
+class Counter:
+    __slots__ = ("name", "help", "labels", "_value", "_lock")
+
+    def __init__(
+        self, name: str, help_: str = "", labels: Optional[dict] = None,
+    ) -> None:
+        self.name = name
+        self.help = help_
+        # optional Prometheus labels: one Counter object IS one labeled
+        # series (``name{k="v"}``); unlabeled stays the common case
+        self.labels = dict(labels) if labels else None
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def count(self, n: float = 1) -> None:
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Gauge:
+    __slots__ = ("name", "help", "labels", "_value")
+
+    def __init__(
+        self, name: str, help_: str = "", labels: Optional[dict] = None,
+    ) -> None:
+        self.name = name
+        self.help = help_
+        self.labels = dict(labels) if labels else None
+        self._value = 0.0
+
+    def set(self, v: float) -> None:
+        self._value = v
+
+    @property
+    def value(self) -> float:
+        return self._value
 
 
 def log_buckets(lo: float, hi: float, per_decade: int = 4) -> tuple[float, ...]:
@@ -131,3 +184,122 @@ class Histogram:
             "p90": round(self._pct_from(counts, total, 0.90), 6),
             "p99": round(self._pct_from(counts, total, 0.99), 6),
         }
+
+    def load(self, snapshot: dict) -> None:
+        """Overwrite this histogram's state from a ``snapshot()`` dict with
+        the SAME bucket bounds — the exporter mirror path: the engine owns
+        the live histogram, the metrics reporter re-exposes it."""
+        cum = snapshot.get("buckets") or []
+        if len(cum) != len(self._bounds):
+            raise ValueError(
+                f"snapshot has {len(cum)} buckets, histogram {self.name} "
+                f"has {len(self._bounds)}"
+            )
+        counts = []
+        prev = 0
+        for _, acc in cum:
+            counts.append(int(acc) - prev)
+            prev = int(acc)
+        total = int(snapshot.get("count", prev))
+        counts.append(max(0, total - prev))  # +Inf bucket
+        with self._lock:
+            self._counts = counts
+            self._count = total
+            self._sum = float(snapshot.get("sum", 0.0))
+
+    def exposition(self, safe_name: str) -> list[str]:
+        """Prometheus text lines (TYPE/HELP emitted by the reporter)."""
+        with self._lock:
+            counts = list(self._counts)
+            total = self._count
+            s = self._sum
+        lines = []
+        acc = 0
+        for bound, c in zip(self._bounds, counts):
+            acc += c
+            le = f"{bound:g}"
+            lines.append(f'{safe_name}_bucket{{le="{le}"}} {acc}')
+        lines.append(f'{safe_name}_bucket{{le="+Inf"}} {total}')
+        lines.append(f"{safe_name}_sum {s}")
+        lines.append(f"{safe_name}_count {total}")
+        return lines
+
+
+class MetricsReporter:
+    """In-memory reporter; also the base class for exporters."""
+
+    def __init__(self, prefix: str = "", registry: Optional[dict] = None) -> None:
+        self._prefix = prefix
+        self._registry: dict[str, Counter | Gauge | Histogram] = (
+            registry if registry is not None else {}
+        )
+
+    def with_prefix(self, prefix: str) -> "MetricsReporter":
+        joined = f"{self._prefix}_{prefix}" if self._prefix else prefix
+        return MetricsReporter(joined, self._registry)
+
+    def _full(self, name: str) -> str:
+        return f"{self._prefix}_{name}" if self._prefix else name
+
+    def counter(
+        self, name: str, help_: str = "", labels: Optional[dict] = None,
+    ) -> Counter:
+        full = self._full(name)
+        key = full + _render_labels(labels) if labels else full
+        c = self._registry.get(key)
+        if not isinstance(c, Counter):
+            c = Counter(full, help_, labels)
+            self._registry[key] = c
+        return c
+
+    def gauge(
+        self, name: str, help_: str = "", labels: Optional[dict] = None,
+    ) -> Gauge:
+        full = self._full(name)
+        key = full + _render_labels(labels) if labels else full
+        g = self._registry.get(key)
+        if not isinstance(g, Gauge):
+            g = Gauge(full, help_, labels)
+            self._registry[key] = g
+        return g
+
+    def histogram(
+        self, name: str, help_: str = "", buckets: Optional[Sequence[float]] = None
+    ) -> Histogram:
+        full = self._full(name)
+        h = self._registry.get(full)
+        if not isinstance(h, Histogram):
+            h = Histogram(full, help_, buckets)
+            self._registry[full] = h
+        return h
+
+    def prometheus_text(self) -> str:
+        """Render all metrics in Prometheus text exposition format.
+        Labeled series of one metric share a single HELP/TYPE block (the
+        ``seen`` set dedupes by base name — registry keys carry the
+        rendered labels, metric ``name`` attributes do not)."""
+        lines: list[str] = []
+        seen: set[str] = set()
+        for _key, m in sorted(self._registry.items()):
+            safe = m.name.replace("-", "_").replace(".", "_")
+            if safe not in seen:
+                seen.add(safe)
+                if m.help:
+                    lines.append(f"# HELP {safe} {m.help}")
+                if isinstance(m, Histogram):
+                    lines.append(f"# TYPE {safe} histogram")
+                else:
+                    kind = "counter" if isinstance(m, Counter) else "gauge"
+                    lines.append(f"# TYPE {safe} {kind}")
+            if isinstance(m, Histogram):
+                lines.extend(m.exposition(safe))
+                continue
+            labels = m.labels
+            if labels:
+                lines.append(f"{safe}{_render_labels(labels)} {m.value}")
+            else:
+                lines.append(f"{safe} {m.value}")
+        return "\n".join(lines) + "\n"
+
+
+DISABLED = MetricsReporter()

@@ -75,7 +75,7 @@ Not ported yet: ring attention.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -369,13 +369,18 @@ def _lora_layer(lora: Optional[dict], rows: Optional[torch.Tensor], i: int) -> O
 
 
 def dense_ffn(x: torch.Tensor, lp: dict, config: ModelConfig,
-              lora: Optional[LayerLora] = None) -> torch.Tensor:
+              lora: Optional[LayerLora] = None, tp: Optional[Any] = None) -> torch.Tensor:
+    """Gated FFN. Under tensor parallelism (``tp``) the rank holds a column
+    slice of ``w_gate`` / ``w_up`` and the matching row slice of
+    ``w_down``: its output is a partial sum, all-reduced over the model
+    axis."""
     gate = _activation(
         _lora_proj(x, quantized_matmul(x, lp["w_gate"]), "w_gate", lora), config.activation
     )
     up = _lora_proj(x, quantized_matmul(x, lp["w_up"]), "w_up", lora)
     h = gate * up
-    return _lora_proj(h, quantized_matmul(h, lp["w_down"]), "w_down", lora)
+    out = _lora_proj(h, quantized_matmul(h, lp["w_down"]), "w_down", lora)
+    return out if tp is None else tp.all_reduce(out)
 
 
 def moe_capacity(tokens: int, config: ModelConfig) -> int:
@@ -400,7 +405,8 @@ def _expert_matmul(x: torch.Tensor, w) -> torch.Tensor:
     return torch.bmm(x, w)
 
 
-def moe_ffn(x: torch.Tensor, lp: dict, config: ModelConfig) -> torch.Tensor:
+def moe_ffn(x: torch.Tensor, lp: dict, config: ModelConfig,
+            tp: Optional[Any] = None) -> torch.Tensor:
     """Mixture of experts, the function of the JAX package's ``moe_ffn``:
     f32 router logits, top-k experts per token with a softmax over their k
     logits, and a capacity of ``moe_capacity(T)`` rows per expert filled in
@@ -410,10 +416,18 @@ def moe_ffn(x: torch.Tensor, lp: dict, config: ModelConfig) -> torch.Tensor:
     expert FFN runs as three batched matmuls over the experts, and each
     token sums its kept outputs weighted by their routing weights (in f32,
     rounded once). Linear in T; the same value as the JAX package's
-    one-hot einsums up to summation order."""
+    one-hot einsums up to summation order.
+
+    Under tensor parallelism (``tp``) routing, capacity and buffer places
+    are computed over all experts on every rank; the rank runs only its
+    experts ``[expert_start, expert_start + experts_local)`` (on "expert"),
+    the others' (token, slot)s going to the dropped row, over its slice of
+    ``d_ff`` (on "model"), so its f32 weighted sum is a partial one,
+    all-reduced over the expert and model axes and rounded once."""
     b, s, d = x.shape
     t = b * s
     e, k = config.n_experts, config.n_experts_per_tok
+    e0, el = (tp.expert_start, tp.experts_local) if tp is not None else (0, e)
     xf = x.reshape(t, d)
     logits = torch.matmul(xf, lp["router"]).float()  # [T, E]
     weights, chosen = torch.topk(logits, k, dim=-1)  # [T, k]
@@ -425,17 +439,23 @@ def moe_ffn(x: torch.Tensor, lp: dict, config: ModelConfig) -> torch.Tensor:
     onehot = torch.zeros((t * k, e), dtype=torch.int32, device=x.device).scatter_(1, flat, 1)
     pos = (onehot.cumsum(0) - 1).gather(1, flat).reshape(t, k).long()
     keep = pos < capacity
+    if tp is not None:
+        keep = keep & (chosen >= e0) & (chosen < e0 + el)
     slot = torch.where(keep, pos, torch.full_like(pos, capacity))  # dropped → row C
-    buf = xf.new_zeros((e, capacity + 1, d))
-    buf[chosen, slot] = xf[:, None, :].expand(t, k, d)
+    mine = chosen if tp is None else (chosen - e0).clamp(0, el - 1)
+    buf = xf.new_zeros((el, capacity + 1, d))
+    buf[mine, slot] = xf[:, None, :].expand(t, k, d)
     expert_in = buf[:, :capacity]
     gate = _activation(_expert_matmul(expert_in, lp["w_gate"]), config.activation)
     up = _expert_matmul(expert_in, lp["w_up"])
-    expert_out = _expert_matmul(gate * up, lp["w_down"])  # [E, C, D]
-    picked = expert_out[chosen, slot.clamp_max(capacity - 1)]  # [T, k, D]
+    expert_out = _expert_matmul(gate * up, lp["w_down"])  # [El, C, D]
+    picked = expert_out[mine, slot.clamp_max(capacity - 1)]  # [T, k, D]
     combine = weights.to(x.dtype).float()[..., None]  # the weights in the model dtype
     mixed = torch.where(keep[..., None], picked.float() * combine, torch.zeros((), device=x.device))
-    return mixed.sum(dim=1).to(x.dtype).reshape(b, s, d)
+    out = mixed.sum(dim=1)
+    if tp is not None:
+        out = tp.all_reduce(out, moe=True)
+    return out.to(x.dtype).reshape(b, s, d)
 
 
 # ---------------------------------------------------------------------------
@@ -643,6 +663,7 @@ def _layer(
     lengths: Optional[torch.Tensor] = None,
     lora: Optional[LayerLora] = None,
     verify: bool = False,
+    tp: Optional[Any] = None,
 ) -> torch.Tensor:
     """One transformer block. With ``cache_kv`` (a dense cache: an admit
     group's local cache, a long prompt's local cache or the big cache) K/V
@@ -660,7 +681,10 @@ def _layer(
     gathered table under ``mask``, V zeroed where no query of the row can
     see. The FFN is ``moe_ffn`` for an MoE config, else ``dense_ffn``.
     ``lora`` (``_lora_layer``) adds each row's adapter delta at every
-    adapted projection, before K/V are written."""
+    adapted projection, before K/V are written. Under tensor parallelism
+    (``tp``) ``config`` holds the rank's heads (``parallel.sharding
+    .local_config``): q/k/v run over them and the row-parallel ``wo``'s
+    partial sum is all-reduced over the model axis before the residual."""
     b, s, _ = x.shape
     hd = config.resolved_head_dim
 
@@ -712,20 +736,34 @@ def _layer(
         attn = _dispatch_attention(
             q, k_all, v_all, mask, config, causal, kv_offset, kv_bound, lengths, verify
         )
-    x = x + _lora_proj(attn, quantized_matmul(attn, lp["wo"]), "wo", lora)
+    out = _lora_proj(attn, quantized_matmul(attn, lp["wo"]), "wo", lora)
+    x = x + (out if tp is None else tp.all_reduce(out))
     ffn_in = rms_norm(x, lp["ffn_norm"], config.rms_norm_eps)
     if config.is_moe:
-        return x + moe_ffn(ffn_in, lp, config)
-    return x + dense_ffn(ffn_in, lp, config, lora)
+        return x + moe_ffn(ffn_in, lp, config, tp)
+    return x + dense_ffn(ffn_in, lp, config, lora, tp)
 
 
-def _embed(params: Params, tokens: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+def _embed(params: Params, tokens: torch.Tensor, config: ModelConfig,
+           tp: Optional[Any] = None) -> torch.Tensor:
+    """Embedding lookup; under tensor parallelism (``tp``) the rank holds
+    rows ``[vocab_start, vocab_start + vocab_local)``: it looks up the
+    tokens that fall there, zeroes the rest and all-reduces over the model
+    axis."""
     table = params["embed"]
     tokens = tokens.long()
+    valid = None
+    if tp is not None:
+        tokens = tokens - tp.vocab_start
+        valid = (tokens >= 0) & (tokens < tp.vocab_local)
+        tokens = tokens.clamp(0, tp.vocab_local - 1)
     if is_quantized(table):
         x = (table["q"][tokens].float() * table["s"][tokens]).to(torch_dtype(config.dtype))
     else:
         x = table[tokens]
+    if tp is not None:
+        x = tp.all_reduce(torch.where(valid[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                                        device=x.device)))
     if config.embedding_scale:
         key = (config.d_model, x.dtype, str(x.device))
         scale = _EMBED_SCALES.get(key)
@@ -739,7 +777,11 @@ def _embed(params: Params, tokens: torch.Tensor, config: ModelConfig) -> torch.T
     return x
 
 
-def _unembed(params: Params, x: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+def _unembed(params: Params, x: torch.Tensor, config: ModelConfig,
+             tp: Optional[Any] = None) -> torch.Tensor:
+    """Final norm and the vocabulary projection → f32 logits. Under tensor
+    parallelism (``tp``) the rank's vocabulary columns are gathered to the
+    full row before the soft cap (sampling and grammar masks read it)."""
     x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
     if config.tie_embeddings:
         table = params["embed"]
@@ -747,6 +789,8 @@ def _unembed(params: Params, x: torch.Tensor, config: ModelConfig) -> torch.Tens
         logits = (x @ head.T).float()
     else:
         logits = quantized_matmul(x, params["lm_head"]).float()
+    if tp is not None:
+        logits = tp.gather_vocab(logits)
     return softcap(logits, config.final_logit_softcap)
 
 
@@ -760,7 +804,8 @@ def _cache_layer(cache: KVCache, i: int) -> tuple:
 
 
 @torch.no_grad()
-def forward(params: Params, tokens: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+def forward(params: Params, tokens: torch.Tensor, config: ModelConfig,
+            tp: Optional[Any] = None) -> torch.Tensor:
     """Full-sequence causal forward → logits [B, S, V] (scoring)."""
     b, s = tokens.shape
     dev = tokens.device
@@ -769,10 +814,10 @@ def forward(params: Params, tokens: torch.Tensor, config: ModelConfig) -> torch.
     mask = None
     if not kernel_path_ok(config, dev) or s == 1:
         mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=dev))[None].expand(b, s, s)
-    x = _embed(params, tokens, config)
+    x = _embed(params, tokens, config, tp)
     for i in range(config.n_layers):
-        x = _layer(x, _layer_params(params["layers"], i), sin, cos, mask, config)
-    return _unembed(params, x, config)
+        x = _layer(x, _layer_params(params["layers"], i), sin, cos, mask, config, tp=tp)
+    return _unembed(params, x, config, tp)
 
 
 @torch.no_grad()
@@ -817,6 +862,7 @@ def prefill(
     config: ModelConfig,
     lora: Optional[dict] = None,  # the adapter pool (serving/adapters.py)
     adapter_rows: Optional[torch.Tensor] = None,  # [B] pool row per prompt
+    tp: Optional[Any] = None,  # tensor parallelism (parallel.sharding)
 ) -> tuple[torch.Tensor, KVCache]:
     """Process prompts, fill cache columns 0..S (in place), return logits at
     the last real token of each prompt ([B, V])."""
@@ -830,16 +876,17 @@ def prefill(
         kv_pos = torch.arange(t, device=dev)[None, None, :]
         mask = (kv_pos <= positions[:, :, None]) & (kv_pos < s)
     index = _dense_index(positions, cache_width(cache), config.n_kv_heads)
-    x = _embed(params, tokens, config)
+    x = _embed(params, tokens, config, tp)
     for i in range(config.n_layers):
         x = _layer(
             x, _layer_params(params["layers"], i), sin, cos, mask, config,
             cache_kv=_cache_layer(cache, i), cache_index=index,
             lora=_lora_layer(lora, adapter_rows, i),
+            tp=tp,
         )
     last = (lengths.long() - 1).clamp(0, s - 1)
     x_last = x[torch.arange(b, device=dev), last]  # [B, D]
-    logits = _unembed(params, x_last[:, None, :], config)[:, 0]
+    logits = _unembed(params, x_last[:, None, :], config, tp)[:, 0]
     return logits, cache
 
 
@@ -854,6 +901,7 @@ def prefill_segment(
     kv_bound: Optional[int] = None,  # readable cache columns (>= offset + W where it fits)
     lora: Optional[dict] = None,
     adapter_rows: Optional[torch.Tensor] = None,
+    tp: Optional[Any] = None,  # tensor parallelism (parallel.sharding)
 ) -> tuple[torch.Tensor, KVCache]:
     """Chunked prefill: one segment of a longer prompt against a dense cache
     whose columns [0, offsets) were written by earlier segments. Writes the
@@ -872,16 +920,17 @@ def prefill_segment(
         mask = torch.arange(view, device=dev)[None, None, :] <= positions[:, :, None]
     index = _dense_index(positions, t, config.n_kv_heads)
     kv_offset = offsets.to(torch.int32).contiguous()
-    x = _embed(params, tokens, config)
+    x = _embed(params, tokens, config, tp)
     for i in range(config.n_layers):
         x = _layer(
             x, _layer_params(params["layers"], i), sin, cos, mask, config,
             cache_kv=_cache_layer(cache, i), cache_index=index,
             kv_offset=kv_offset, kv_bound=kv_bound, lora=_lora_layer(lora, adapter_rows, i),
+            tp=tp,
         )
     last = (seg_lengths.long() - 1).clamp(0, s - 1)
     x_last = x[torch.arange(b, device=dev), last]  # [B, D]
-    logits = _unembed(params, x_last[:, None, :], config)[:, 0]
+    logits = _unembed(params, x_last[:, None, :], config, tp)[:, 0]
     return logits, cache
 
 
@@ -895,6 +944,7 @@ def decode_step_inplace(
     kv_bound: Optional[int] = None,  # readable cache columns
     lora: Optional[dict] = None,
     adapter_rows: Optional[torch.Tensor] = None,
+    tp: Optional[Any] = None,  # tensor parallelism (parallel.sharding)
 ) -> tuple[torch.Tensor, KVCache]:
     """One decode step over the dense cache → logits [B, V]; the cache is
     updated in place (positions past it land in its sink column). Each row
@@ -912,14 +962,15 @@ def decode_step_inplace(
     lengths = (pos2[:, 0] + 1).to(torch.int32)
     # one index per step serves every layer's K/V scatter
     index = _dense_index(pos2, t, config.n_kv_heads)
-    x = _embed(params, tokens[:, None], config)
+    x = _embed(params, tokens[:, None], config, tp)
     for i in range(config.n_layers):
         x = _layer(
             x, _layer_params(params["layers"], i), sin, cos, mask, config,
             cache_kv=_cache_layer(cache, i), cache_index=index,
             kv_bound=kv_bound, lengths=lengths, lora=_lora_layer(lora, adapter_rows, i),
+            tp=tp,
         )
-    return _unembed(params, x, config)[:, 0], cache
+    return _unembed(params, x, config, tp)[:, 0], cache
 
 
 def dense_verify_queries(positions: torch.Tensor, s: int, width: int) -> torch.Tensor:
@@ -944,6 +995,7 @@ def verify_step_inplace(
     kv_bound: Optional[int] = None,  # readable cache columns
     lora: Optional[dict] = None,
     adapter_rows: Optional[torch.Tensor] = None,  # [B]: a row's adapter serves all K+1
+    tp: Optional[Any] = None,  # tensor parallelism (parallel.sharding)
 ) -> tuple[torch.Tensor, KVCache]:
     """Multi-token speculative verify over the dense cache → logits at
     every position ``[B, K+1, V]``; the cache is updated in place. K/V of
@@ -976,14 +1028,15 @@ def verify_step_inplace(
         mask = torch.arange(view, device=dev)[None, None, :] <= pos[:, :, None]
     # one index per verify serves every layer's K/V scatter
     index = _dense_index(pos, t, config.n_kv_heads)
-    x = _embed(params, tokens, config)
+    x = _embed(params, tokens, config, tp)
     for i in range(config.n_layers):
         x = _layer(
             x, _layer_params(params["layers"], i), sin, cos, mask, config,
             cache_kv=_cache_layer(cache, i), cache_index=index, kv_bound=kv_bound,
             lengths=lengths, lora=_lora_layer(lora, adapter_rows, i), verify=True,
+            tp=tp,
         )
-    return _unembed(params, x, config), cache
+    return _unembed(params, x, config, tp), cache
 
 
 def decode_step(
@@ -1022,6 +1075,7 @@ def paged_decode_step_inplace(
     page_size: int,
     lora: Optional[dict] = None,
     adapter_rows: Optional[torch.Tensor] = None,
+    tp: Optional[Any] = None,  # tensor parallelism (parallel.sharding)
 ) -> tuple[torch.Tensor, KVCache]:
     """One decode step through the page table → logits [B, V]; the pool is
     updated in place. Each row reads exactly its mapped pages up to its
@@ -1037,14 +1091,15 @@ def paged_decode_step_inplace(
         mask = _paged_mask(table, page_size, pos2)
     # one page lookup per step serves every layer's K/V scatter
     index = _scatter_index(table, pos2, page_size, pool_pages(pool), config.n_kv_heads)
-    x = _embed(params, tokens[:, None], config)
+    x = _embed(params, tokens[:, None], config, tp)
     for i in range(config.n_layers):
         x = _layer(
             x, _layer_params(params["layers"], i), sin, cos, mask, config,
             cache_kv=_cache_layer(pool, i), paged=(table, page_size, lengths, index, None),
             lora=_lora_layer(lora, adapter_rows, i),
+            tp=tp,
         )
-    return _unembed(params, x, config)[:, 0], pool
+    return _unembed(params, x, config, tp)[:, 0], pool
 
 
 @torch.no_grad()
@@ -1058,6 +1113,7 @@ def paged_verify_step_inplace(
     page_size: int,
     lora: Optional[dict] = None,
     adapter_rows: Optional[torch.Tensor] = None,  # [B]: a row's adapter serves all K+1
+    tp: Optional[Any] = None,  # tensor parallelism (parallel.sharding)
 ) -> tuple[torch.Tensor, KVCache]:
     """Multi-token speculative verify through the page table → logits at
     every position ``[B, K+1, V]``; the pool is updated in place. K/V of all
@@ -1090,14 +1146,15 @@ def paged_verify_step_inplace(
         mask = _paged_mask(table, page_size, pos)
     # one page lookup per verify serves every layer's K/V scatter
     index = _scatter_index(table, pos, page_size, pool_pages(pool), config.n_kv_heads)
-    x = _embed(params, tokens, config)
+    x = _embed(params, tokens, config, tp)
     for i in range(config.n_layers):
         x = _layer(
             x, _layer_params(params["layers"], i), sin, cos, mask, config,
             cache_kv=_cache_layer(pool, i), paged=(read_table, page_size, lengths, index, None),
             lora=_lora_layer(lora, adapter_rows, i),
+            tp=tp,
         )
-    return _unembed(params, x, config), pool
+    return _unembed(params, x, config, tp), pool
 
 
 @torch.no_grad()
@@ -1113,6 +1170,7 @@ def paged_prefill_segment_inplace(
     kv_bound: Optional[int] = None,  # readable columns: max(offsets) + W when None
     lora: Optional[dict] = None,
     adapter_rows: Optional[torch.Tensor] = None,
+    tp: Optional[Any] = None,  # tensor parallelism (parallel.sharding)
 ) -> tuple[torch.Tensor, KVCache]:
     """Chunked prefill straight into the slots' pages: the segment's K/V
     scatter at global positions [offsets, offsets + W) through the table
@@ -1145,16 +1203,17 @@ def paged_prefill_segment_inplace(
     # one page lookup per segment serves every layer's K/V scatter
     index = _scatter_index(table, positions, page_size, sink, config.n_kv_heads)
     kv_offset = offsets.to(torch.int32).contiguous()
-    x = _embed(params, tokens, config)
+    x = _embed(params, tokens, config, tp)
     for i in range(config.n_layers):
         x = _layer(
             x, _layer_params(params["layers"], i), sin, cos, mask, config,
             cache_kv=_cache_layer(pool, i), paged=(table, page_size, None, index, segment),
             kv_offset=kv_offset, lora=_lora_layer(lora, adapter_rows, i),
+            tp=tp,
         )
     last = (seg_lengths.long() - 1).clamp(0, s - 1)
     x_last = x[torch.arange(b, device=dev), last]  # [B, D]
-    logits = _unembed(params, x_last[:, None, :], config)[:, 0]
+    logits = _unembed(params, x_last[:, None, :], config, tp)[:, 0]
     return logits, pool
 
 

@@ -8,6 +8,9 @@ package's clients talk to either package's server):
   GET  /state             the fleet beacons of this process's engine
   GET  /healthz           liveness, with ``recovering`` / ``restoring``
   GET  /metrics, /info    the two callbacks the server was built with
+  GET  /traces            the tracer's recent spans (``limit``, default
+                          200; not an integer: 400; 0 or less: ``[]``)
+  GET  /flight            the recent flight-recorder dumps, newest last
   POST /fleet/generate    dispatch; ``stream: true`` answers a chunked
                           frame stream — ``lstpu-frames-v1`` NDJSON, or
                           ``lstpu-frames-v2`` with ``wire: "v2"``; a shed
@@ -47,6 +50,8 @@ from langstream_tpu_torch.serving import fleet as fleet_mod
 from langstream_tpu_torch.serving import lifecycle
 from langstream_tpu_torch.serving import wire as wire_mod
 from langstream_tpu_torch.serving.migrate import MigrationError
+from langstream_tpu_torch.serving.observability import recent_dumps
+from langstream_tpu_torch.tracing import TRACER
 
 log = logging.getLogger(__name__)
 
@@ -179,6 +184,8 @@ class _Handler(BaseHTTPRequestHandler):
                 "text/plain; charset=utf-8",
             ),
             "/info": lambda: self._json(self.server.owner.agents_info()),
+            "/traces": self._traces,
+            "/flight": lambda: self._json(recent_dumps()),
         })
 
     def do_POST(self) -> None:  # noqa: N802
@@ -194,6 +201,14 @@ class _Handler(BaseHTTPRequestHandler):
         })
 
     # -- routes ---------------------------------------------------------------
+
+    def _traces(self) -> None:
+        query = urllib.parse.parse_qs(urllib.parse.urlsplit(self.path).query)
+        try:
+            limit = int(query.get("limit", ["200"])[0])
+        except ValueError:
+            raise _BadRequest("limit must be an integer") from None
+        self._json(TRACER.spans(limit) if limit > 0 else [])
 
     def _healthz(self) -> None:
         """Liveness stays OK through an engine restart (the replica rebuilds

@@ -104,7 +104,7 @@ only a full segment width, starting its stream's local cache from the
 pool row. A restart resets the pool.
 
 An MoE model's logits depend on the other rows of its batch (the experts'
-capacity is shared), so its admit groups are padded to ``PREFILL_BATCH``
+capacity is shared), so its admit groups are padded to ``prefill_batch``
 rows with the JAX engine's pad rows (token 0, length 1): the same groups
 give the same tokens.
 
@@ -230,7 +230,34 @@ deepest checkpointed boundary (``_durable_admit``: every page held against
 the manifest's stamp, then uploaded in place and published); any failure
 dumps ``durable-restore-failed`` and prefills cold.
 
-Not ported yet (a later slice): the SPMD watchdog (ROADMAP item 7).
+Tensor parallelism and the SPMD serving plane (``mesh``, ``spmd``; the
+JAX engine's ``_spmd_*`` side, ``parallel/spmd_serving.py``). With a mesh
+whose expert x model axes exceed 1 the engine holds this rank's slices of
+the weights (``parallel.sharding.shard_params``) and computes with the
+rank's shapes (``local_config``: its heads, kv heads, ``d_ff`` slice),
+every model call taking the mesh's ``TensorParallel`` handle (``tp``): the
+collectives sit inside the captured chunks. One process a card, so every
+rank must run the same dispatches in the same order: the leader (the
+engine given ``spmd``, a ``SpmdChannel``) announces each device dispatch
+as a fixed-shape control block before it runs it — admit groups
+(``OP_PREFILL``), segments and warm paged admissions (``OP_LONG_SEG``),
+dense warm admissions and publishes (``OP_PREFIX_ADMIT`` /
+``OP_PREFIX_PUBLISH``), page binds with their copy-on-write pair, frees and
+zeroing (``OP_PAGE_*``), dense row resets, decode chunks and verifies with
+the active-slot mask, the stale slots and the sampling branch, and each
+graph set's capture (``OP_WARMUP``) — and a follower engine (built the same
+way, never started) replays them through the same ``_dev_*`` methods
+(``follower_loop``). With ``echo`` every processed chunk's tokens ride
+back out for the follower to hold against its own. Slice resilience as the
+JAX engine runs it: a loop crash announces ``OP_RECOVER`` at a new epoch
+and both sides rebuild (the generator re-seeded from seed + epoch) and
+capture again; idle heartbeats (``OP_IDLE``) and a fetch wait bounded by
+``spmd-watchdog-s`` (``EngineWedgedError`` → recovery); a follower's
+divergence report is answered with ``OP_RESYNC``. Under SPMD the host KV
+tier, the durable tier, adapters and constrained decoding are off (with a
+warning when asked for), as the JAX engine turns them off; a failed
+prefill or segment crashes the replica into recovery instead of failing
+its request alone; KV-page migration commands are refused.
 """
 
 from __future__ import annotations
@@ -288,6 +315,8 @@ from langstream_tpu_torch.serving.observability import (
     load_score,
 )
 from langstream_tpu_torch.ops.kvcopy import gather_prefix_local, publish_prefix_rows
+from langstream_tpu_torch.parallel import spmd_serving as wire
+from langstream_tpu_torch.parallel.sharding import local_config, tensor_parallel
 from langstream_tpu_torch.serving.pagepool import (
     HostPageTier,
     PagePool,
@@ -332,6 +361,10 @@ PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 DECODE_BRANCHES = ((False, False), (True, False), (True, True))
 # each branch's name in the capture's part timings
 BRANCH_NAMES = {(False, False): "greedy", (True, False): "sampled", (True, True): "filtered"}
+# one graph capture at a time in a process (``_capture_set``)
+_CAPTURE_LOCK = threading.Lock()
+# each branch's code on the SPMD wire (its index in DECODE_BRANCHES)
+BRANCH_CODES = {b: i for i, b in enumerate(DECODE_BRANCHES)}
 
 
 def _tenant(request: "GenerationRequest") -> str:
@@ -358,6 +391,15 @@ class ShedError(RuntimeError):
 class DeadlineExceededError(TimeoutError):
     """The request's deadline or max-queue-wait expired while it was still
     queued: nothing was generated."""
+
+
+class EngineWedgedError(RuntimeError):
+    """A per-iteration device wait exceeded the SPMD watchdog bound
+    (``spmd-watchdog-s``): a dispatch hung past the deadline, which on a
+    multi-rank replica would otherwise hang every rank. Raised out of the
+    iteration so the loop supervisor escalates to a coordinated
+    OP_RECOVER instead of the slice wedging silently. A plain Exception:
+    the recovery path is the handler."""
 
 
 class LogitsNaNError(RuntimeError):
@@ -534,10 +576,19 @@ class _Fetch:
             self._event.synchronize()
         return self._host.numpy()
 
-    def result(self) -> np.ndarray:
-        while not self._landed.wait(0.5 if self._fetcher.alive() else 0):
+    def result(self, timeout_s: Optional[float] = None) -> np.ndarray:
+        """The host array; ``timeout_s`` (the SPMD watchdog) bounds the
+        wait: past it ``EngineWedgedError`` escalates to recovery."""
+        deadline = time.monotonic() + timeout_s if timeout_s else None
+        poll = 0.5 if deadline is None else min(0.5, max(0.01, timeout_s / 8))
+        while not self._landed.wait(poll if self._fetcher.alive() else 0):
             if not self._fetcher.alive():
                 return self._materialize()
+            if deadline is not None and time.monotonic() > deadline:
+                raise EngineWedgedError(
+                    f"device fetch exceeded the {timeout_s:.1f}s dispatch bound "
+                    "(spmd-watchdog-s); escalating to coordinated recovery"
+                )
         if isinstance(self._value, BaseException):
             raise self._value
         return self._value
@@ -943,6 +994,9 @@ class ServingEngine:
         durable_max_bytes: int = 0,
         durable_timeout_s: float = 5.0,
         migrate_staging: bool = False,
+        prefill_batch: Optional[int] = None,
+        mesh: Optional[Any] = None,
+        spmd: Optional[Any] = None,
     ) -> None:
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; supported: paged, dense")
@@ -951,10 +1005,24 @@ class ServingEngine:
         if shed_policy not in ("block", "reject"):
             raise ValueError(f"unknown shed_policy {shed_policy!r}; supported: block, reject")
         self.device = resolve_device(device)
+        # rows of an admit group (an MoE model's groups are padded to it)
+        self.prefill_batch = int(prefill_batch) if prefill_batch else self.PREFILL_BATCH
+        # tensor parallelism: the mesh's handle and this rank's shapes;
+        # ``full_config`` keeps the model's own
+        self.mesh = mesh
+        self._tp = tensor_parallel(mesh, config)
+        self.full_config = config
+        if self._tp is not None:
+            config = local_config(config, mesh)
         # a config the kernels cannot take on this device (a non-bf16 model
         # on the card) raises here, before anything is allocated
         kernel_path_ok(config, self.device)
         self.config = config
+        # the SPMD channel (None: single process); set True on a follower
+        # by ``follower_loop``
+        self._spmd = spmd
+        self._spmd_follower = False
+        self._rng_seed = int(rng_seed)
         self.params = params
         self.max_batch = int(max_batch)
         self.max_seq_len = int(max_seq_len or config.max_seq_len)
@@ -1041,6 +1109,13 @@ class ServingEngine:
         self.spill_idle_s = max(0.0, float(spill_idle_s))
         self._restore_stall_s = max(0.0, float(restore_stall_dump_s))
         spill_on = self._paged and not spill_off and self.host_kv_fraction > 0
+        if spmd is not None and spill_on:
+            # spill / demote / restore decisions are leader-side host state
+            # and a restore's upload is a dispatch the wire does not carry
+            log.warning(
+                "tiered KV host spill is not on the SPMD wire; off on this multi-rank replica"
+            )
+            spill_on = False
         if spill_on and self._prefix_index is None:
             # nothing to hibernate without the alias index: spilled pages
             # are reachable only through prefix entries
@@ -1097,6 +1172,12 @@ class ServingEngine:
         if durable_on and self._prefix_index is None:
             log.warning("durable tier needs the prefix index (prefix-cache: auto) — off")
             durable_on = False
+        if spmd is not None and durable_on:
+            log.warning(
+                "durable KV tier is not on the SPMD wire; off on this multi-rank replica "
+                "(durable-dir %s ignored)", self.durable_dir,
+            )
+            durable_on = False
         self._durable_on = durable_on
         self._durable: Optional[DurableStore] = None
         self._durable_worker: Optional[_DurableWorker] = None
@@ -1128,6 +1209,8 @@ class ServingEngine:
         self._held_back: Optional[GenerationRequest] = None
         self._longs: dict[int, dict] = {}
         self._long_rr = -1
+        # dense: each stream's batch-1 local cache by slot (a follower's too)
+        self._long_caches: dict[int, KVCache] = {}
         # decode steps dispatched but not yet processed on the host: device
         # positions lead host positions by this much
         self._inflight_steps = 0
@@ -1201,6 +1284,22 @@ class ServingEngine:
         self._constrain_host_ema_ms = 0.0
         specs = [a if isinstance(a, AdapterSpec) else AdapterSpec.from_dict(a)
                  for a in (adapters or [])]
+        explicit_constrain = constrained_decoding is True or str(constrained_decoding).lower() in (
+            "on", "true", "1"
+        )
+        if spmd is not None and (specs or str(constrained_decoding).lower() not in (
+            "off", "false", "0", "none"
+        )):
+            # neither the adapter rows nor the grammar pool ride the wire: a
+            # multi-rank replica serves base, free-form text only (auto
+            # degrades quietly, an explicit ask warns)
+            log.log(
+                logging.WARNING if specs or explicit_constrain else logging.INFO,
+                "adapters / constrained decoding are not on the SPMD wire; off on this "
+                "multi-rank replica",
+            )
+            specs = []
+            constrained_decoding = "off"
         if specs:
             rank = int(adapter_rank or max(s.rank for s in specs))
             rows = (
@@ -1244,6 +1343,11 @@ class ServingEngine:
         # the decode chunks a speculative engine serves at brownout level 2
         self._graphs: dict[tuple[bool, bool], tuple[Any, dict]] = {}
         self._decode_graphs: dict[tuple[bool, bool], tuple[Any, dict]] = {}
+        # the captures' side stream and shared pool (made at the first
+        # capture of a set, dropped with the graphs on a rebuild)
+        self._capture_pool: Any = None
+        self._capture_stream: Any = None
+        self._capture_reserved0: Optional[int] = None
         self.restart_backoff_s = max(0.01, float(restart_backoff_s))
         self.max_restarts = max(0, int(max_restarts))
         self._injector = (
@@ -1270,6 +1374,13 @@ class ServingEngine:
         self.deadline_decode_total = 0
         self.quarantined_slots_total = 0
         self.engine_restarts_total = 0
+        # SPMD slice resilience: the recovery epoch, the last divergence
+        # poll and the ledger
+        self._spmd_epoch = 0
+        self._spmd_div_checked_at = 0.0
+        self.spmd_recoveries_total = 0
+        self.spmd_resyncs_total = 0
+        self.spmd_watchdog_trips_total = 0
         self.graph_captures_total = 0
         self.graph_replays_total = 0
         self.graph_replays_by_kind = {"decode": 0, "verify": 0}
@@ -1306,7 +1417,7 @@ class ServingEngine:
         self.memory_plan = plan_serving_memory(
             config, self.max_batch, self.max_seq_len,
             params=params,
-            prefill_batch=self.PREFILL_BATCH,
+            prefill_batch=self.prefill_batch,
             prefill_bucket=self.prefill_buckets[-1],
             prefill_streams=self.MAX_PREFILL_STREAMS,
             speculation_tokens=self.spec_tokens,
@@ -1518,30 +1629,70 @@ class ServingEngine:
     def _capture_graphs(self) -> None:
         """Capture each graph set (``_graph_kinds``: the decode chunk, the
         verify, or both) once per sampling branch, in ``DECODE_BRANCHES``
-        order, into one shared pool — on the card with
-        ``torch.cuda.CUDAGraph`` after one warm-up call of every branch of
-        every set on the side stream, off the card only with a stand-in
+        order, into one shared pool (``_capture_set``). The SPMD leader
+        announces each set as ``OP_WARMUP`` right before capturing it, so
+        a follower captures the same set — with the same collectives
+        inside — at the same point of the wire. Raises when a capture
+        fails."""
+        self._graphs, self._decode_graphs = {}, {}
+        self._capture_pool = None
+        with self._stats_lock:
+            self.graph_capture_parts_s = {}
+        t0 = time.monotonic()
+        kinds = self._graph_kinds()
+        for kind in kinds:
+            if self._spmd is not None and not self._spmd_follower:
+                self._spmd.announce(wire.ControlBlock(
+                    op=wire.OP_WARMUP, count=self._warmup_code(kind)
+                ))
+            self._capture_set(kind)
+        if self._graphs or self._decode_graphs:
+            log.info("captured %d graphs (%s) in %.2fs: %s", len(self._graphs) + len(
+                self._decode_graphs), ", ".join(kinds), time.monotonic() - t0,
+                ", ".join(f"{k} {v:.2f}s" for k, v in self.graph_capture_parts_s.items()))
+
+    def _warmup_code(self, kind: str) -> int:
+        """The ``OP_WARMUP`` kind a graph set is announced as."""
+        if kind == "verify":
+            return wire.WARMUP_VERIFY_LADDER
+        return wire.WARMUP_PAGED if self._paged else wire.WARMUP_DECODE_LADDER
+
+    def _capture_set(self, kind: str) -> None:
+        """Capture one graph set, once per sampling branch — on the card
+        with ``torch.cuda.CUDAGraph`` after one warm-up call of every
+        branch on the side stream (cuBLAS handles, kernel attributes, the
+        rope table and, under a mesh, the NCCL communicator are set up
+        there, outside any capture), off the card only with a stand-in
         ``_graph_factory``. Each graph's kernel launches are counted at
         capture and removed from the totals (the capture launched nothing);
         each replay adds them back. The warm-up and each capture are timed
-        (``graph_capture_parts_s``). Raises when a capture fails."""
+        (``graph_capture_parts_s``: the warm-ups summed as "warmup")."""
         factory = self._graph_factory
         cuda = self.device.type == "cuda"
         if factory is None and not cuda:
             return  # the CPU calls the chunk function directly
+        # one capture at a time in a process: another engine's collection
+        # or launches during a capture would poison it or its counts (an
+        # SPMD loopback pair captures each set on both engines)
+        with _CAPTURE_LOCK:
+            self._capture_set_locked(kind, factory, cuda)
+
+    def _capture_set_locked(self, kind: str, factory: Any, cuda: bool) -> None:
         t0 = time.monotonic()
         parts: dict[str, float] = {}
-        reserved0 = 0
-        kinds = self._graph_kinds()
+        fn = self._chunk_fn(kind)
+        graphs: dict = {}
         with torch.no_grad():
             if factory is None:
-                stream = torch.cuda.Stream(self.device)
-                pool = torch.cuda.graph_pool_handle()
+                if self._capture_pool is None:
+                    self._capture_stream = torch.cuda.Stream(self.device)
+                    self._capture_pool = torch.cuda.graph_pool_handle()
+                    self._capture_reserved0 = None
+                stream, pool = self._capture_stream, self._capture_pool
                 stream.wait_stream(torch.cuda.current_stream(self.device))
                 with torch.cuda.stream(stream):
-                    for kind in kinds:
-                        for branch in DECODE_BRANCHES:
-                            self._chunk_fn(kind)(*branch)
+                    for branch in DECODE_BRANCHES:
+                        fn(*branch)
                 torch.cuda.current_stream(self.device).wait_stream(stream)
                 torch.cuda.synchronize(self.device)
                 # the graph pool's bytes: what stays reserved past the
@@ -1549,13 +1700,13 @@ class ServingEngine:
                 # of earlier engines too, or the difference goes negative)
                 gc.collect()
                 torch.cuda.empty_cache()
-                reserved0 = torch.cuda.memory_reserved(self.device)
+                if self._capture_reserved0 is None:
+                    self._capture_reserved0 = torch.cuda.memory_reserved(self.device)
 
                 def factory() -> _CudaGraph:
                     return _CudaGraph(pool, stream, self._generator)
 
             parts["warmup"] = time.monotonic() - t0
-            sets: dict[str, dict] = {kind: {} for kind in kinds}
             # a garbage collection inside a capture could destroy another
             # engine's unreachable graphs (and free their pool), which a
             # capturing stream refuses: collect first, none during
@@ -1563,37 +1714,40 @@ class ServingEngine:
             collecting = gc.isenabled()
             gc.disable()
             try:
-                for kind in kinds:
-                    fn = self._chunk_fn(kind)
-                    for branch in DECODE_BRANCHES:
-                        t_part = time.monotonic()
-                        graph = factory()
-                        before = count_snapshot()
-                        graph.capture(lambda f=fn, b=branch: f(*b))
-                        delta = count_delta(before, count_snapshot())
-                        add_counts(delta, -1)
-                        sets[kind][branch] = (graph, delta)
-                        if cuda:
-                            torch.cuda.synchronize(self.device)
-                        parts[f"{kind}-{BRANCH_NAMES[branch]}"] = time.monotonic() - t_part
+                for branch in DECODE_BRANCHES:
+                    t_part = time.monotonic()
+                    graph = factory()
+                    before = count_snapshot()
+                    graph.capture(lambda f=fn, b=branch: f(*b))
+                    delta = count_delta(before, count_snapshot())
+                    add_counts(delta, -1)
+                    graphs[branch] = (graph, delta)
+                    if cuda:
+                        torch.cuda.synchronize(self.device)
+                    parts[f"{kind}-{BRANCH_NAMES[branch]}"] = time.monotonic() - t_part
             finally:
                 if collecting:
                     gc.enable()
             if cuda:
                 torch.cuda.synchronize(self.device)
                 torch.cuda.empty_cache()
-        self._graphs = sets[kinds[0]]
-        self._decode_graphs = sets.get("decode", {}) if self._spec_enabled else {}
+        own = "verify" if self._spec_enabled else "decode"
+        if kind == own:
+            self._graphs = graphs
+        else:
+            self._decode_graphs = graphs
         took = time.monotonic() - t0
         with self._stats_lock:
-            self.graph_captures_total += len(self._graphs) + len(self._decode_graphs)
+            self.graph_captures_total += len(graphs)
             self.graph_capture_s += took
-            self.graph_capture_parts_s = parts
-            if cuda:
-                self.graph_pool_bytes = torch.cuda.memory_reserved(self.device) - reserved0
-        log.info("captured %d graphs (%s) in %.2fs: %s", len(self._graphs) + len(
-            self._decode_graphs), ", ".join(kinds), took,
-                 ", ".join(f"{k} {v:.2f}s" for k, v in parts.items()))
+            merged = dict(self.graph_capture_parts_s)
+            merged["warmup"] = merged.get("warmup", 0.0) + parts.pop("warmup")
+            merged.update(parts)
+            self.graph_capture_parts_s = merged
+            if cuda and getattr(self, "_capture_reserved0", None) is not None:
+                self.graph_pool_bytes = (
+                    torch.cuda.memory_reserved(self.device) - self._capture_reserved0
+                )
 
     def _decode_chunk(self, samples: bool, filters: bool, kv_bound: Optional[int] = None) -> None:
         """One decode chunk over the static buffers: ``decode_chunk`` x
@@ -1614,12 +1768,12 @@ class ServingEngine:
             if self._paged:
                 logits, _ = paged_decode_step_inplace(
                     self.params, self._tokens_dev, self._positions_dev, self._pagepool.dev,
-                    self._table_dev, self.config, self.page_size, **lora,
+                    self._table_dev, self.config, self.page_size, tp=self._tp, **lora,
                 )
             else:
                 logits, _ = decode_step_inplace(
                     self.params, self._tokens_dev, self._positions_dev, self._cache,
-                    self.config, kv_bound, **lora,
+                    self.config, kv_bound, tp=self._tp, **lora,
                 )
             allowed = (
                 _dfa_mask(reg.pool, self._g_rows_dev, self._dfa_state_dev) if reg else None
@@ -1662,12 +1816,12 @@ class ServingEngine:
         if self._paged:
             logits, _ = paged_verify_step_inplace(
                 self.params, inputs, self._positions_dev, self._pagepool.dev, self._table_dev,
-                self.config, self.page_size, **lora,
+                self.config, self.page_size, tp=self._tp, **lora,
             )
         else:
             logits, _ = verify_step_inplace(
                 self.params, inputs, self._positions_dev, self._cache, self.config,
-                self.max_seq_len if kv_bound is None else kv_bound, **lora,
+                self.max_seq_len if kv_bound is None else kv_bound, tp=self._tp, **lora,
             )
         allowed = reg.pool[0][self._g_rows_dev[:, None], self._vstates_dev] if reg else None
         out, accept = speculative_verify(
@@ -1692,17 +1846,37 @@ class ServingEngine:
         filters = any(o.temperature > 0 and (o.top_k > 0 or o.top_p < 1.0) for o in opts)
         return samples, filters
 
+    def _collect_stale(self) -> list[int]:
+        """Slots freed since the last dispatch and not re-admitted: their
+        device temperature is zeroed before the next chunk."""
+        stale = sorted(i for i in set(self._freed_slots) if not self._slots[i].active)
+        self._freed_slots.clear()
+        return stale
+
+    def _active_mask(self) -> np.ndarray:
+        return np.array([1 if s.active else 0 for s in self._slots], np.int32)
+
     def _prepare_chunk(self) -> None:
         """Host writes into the static buffers before a chunk: zero the
         temperature of slots freed since the last dispatch (and not
         re-admitted), copy up the masked page table and the slots' adapter
         and grammar rows when they changed."""
-        stale = [i for i in set(self._freed_slots) if not self._slots[i].active]
-        self._freed_slots.clear()
+        self._dev_prepare(self._collect_stale(), self._active_mask())
+        self._refresh_agentic()
+
+    def _dev_prepare(self, stale: list, mask: np.ndarray) -> None:
+        """Device writes into the static buffers before a chunk (leader and
+        SPMD follower alike): zero the temperature of the ``stale`` slots,
+        copy up the page table masked to the ``mask``'s active slots when it
+        changed."""
         for i in stale:
-            self._temp_dev[i] = 0.0
+            self._temp_dev[int(i)] = 0.0
         if self._paged:
-            self._refresh_table(self._dispatch_tables())
+            self._refresh_table(self._dispatch_tables(mask))
+
+    def _refresh_agentic(self) -> None:
+        """Copy up the slots' adapter and grammar rows when they changed
+        (the leader's; the tier is off under SPMD)."""
         if self._arows_dev is not None:
             self._refresh_rows(self._adapter_rows, self._arows_dev, self._arows_uploaded)
         if self._g_rows_dev is not None:
@@ -1734,24 +1908,32 @@ class ServingEngine:
         self._table_dev.copy_(self._upload(tables), non_blocking=True)
         self._table_uploaded = tables.copy()
 
-    def _run_chunk(self, branch: tuple[bool, bool], kind: Optional[str] = None) -> None:
+    def _chunk_kv_bound(self, kind: str) -> Optional[int]:
+        """The dense reference path's readable columns for a chunk (None on
+        the paged layout)."""
+        if self._paged:
+            return None
+        steps = self.spec_tokens + 1 if kind == "verify" else self.decode_chunk
+        return self._decode_kv_bound(steps)
+
+    def _run_chunk(self, branch: tuple[bool, bool], kind: Optional[str] = None,
+                   kv_bound: Optional[int] = None) -> None:
         """Run one decode chunk or one verify (``kind``; by default the
         engine's own: the verify with speculation, else the decode chunk):
         replay its captured graph and add the graph's launches to the
         kernel counts — or, on the CPU without a stand-in graph, call the
-        chunk function (dense: with the exact bound)."""
+        chunk function (dense: with the exact bound, ``kv_bound`` when the
+        caller computed it)."""
         own = "verify" if self._spec_enabled else "decode"
         kind = kind or own
         captured = (self._graphs if kind == own else self._decode_graphs).get(branch)
         if captured is None:
             if self.device.type == "cuda" or self._graph_factory is not None:
                 raise RuntimeError(f"no captured {kind} graph: start() captures them")
-            if kind == "verify":
-                kv_bound = None if self._paged else self._decode_kv_bound(self.spec_tokens + 1)
-                self._verify_chunk(*branch, kv_bound=kv_bound)
-                return
-            kv_bound = None if self._paged else self._decode_kv_bound(self.decode_chunk)
-            self._decode_chunk(*branch, kv_bound=kv_bound)
+            if kv_bound is None:
+                kv_bound = self._chunk_kv_bound(kind)
+            chunk = self._verify_chunk if kind == "verify" else self._decode_chunk
+            chunk(*branch, kv_bound=kv_bound)
             return
         graph, delta = captured
         graph.replay()
@@ -1959,6 +2141,9 @@ class ServingEngine:
                 "quarantined-slots": self.quarantined_slots_total,
                 "nan-guard": self.nan_guard_total,
                 "engine-restarts": self.engine_restarts_total,
+                "spmd-recoveries": self.spmd_recoveries_total,
+                "spmd-resyncs": self.spmd_resyncs_total,
+                "spmd-watchdog-trips": self.spmd_watchdog_trips_total,
                 "total-requests": self.total_requests,
                 "total-generated-tokens": self.total_generated,
                 "queued": self._queue.qsize(),
@@ -2060,6 +2245,16 @@ class ServingEngine:
                 "quarantined-slots-total": self.quarantined_slots_total,
                 "nan-guard-total": self.nan_guard_total,
                 "engine-restarts-total": self.engine_restarts_total,
+                # the SPMD wire's accounting (bytes a block are measured,
+                # not estimated) and the slice-resilience ledger; zeros
+                # without a channel
+                "spmd": self._spmd is not None,
+                "spmd-announces-total": getattr(self._spmd, "announces_total", 0),
+                "spmd-announce-bytes-total": getattr(self._spmd, "bytes_announced_total", 0),
+                "spmd-recovery-epoch": self._spmd_epoch,
+                "spmd-recoveries-total": self.spmd_recoveries_total,
+                "spmd-resyncs-total": self.spmd_resyncs_total,
+                "spmd-watchdog-trips-total": self.spmd_watchdog_trips_total,
                 "queue-wait-ema-s": round(self._queue_wait_ema_s, 4),
                 "fault-injection": (
                     self._injector.stats() if self._injector is not None else None
@@ -2249,6 +2444,9 @@ class ServingEngine:
                     recoverable = (
                         isinstance(e, Exception)
                         and not _is_sticky(e)
+                        # a PROVEN leader/follower divergence stays fatal:
+                        # half the mesh must never serve alone
+                        and not isinstance(e, wire.SpmdDivergenceError)
                         and restarts < self.max_restarts
                         and not self._stop.is_set()
                     )
@@ -2260,6 +2458,12 @@ class ServingEngine:
                     self._recovering = True
                     with self._stats_lock:
                         self.engine_restarts_total += 1
+                        if self._spmd is not None:
+                            self.spmd_recoveries_total += 1
+                        if isinstance(e, EngineWedgedError):
+                            # the leader-side watchdog caught a wedged
+                            # iteration and escalated it here
+                            self.spmd_watchdog_trips_total += 1
                     # dump before _recover clears state: the ring holds
                     # the iterations that led to the crash
                     self._flight_dump(
@@ -2271,17 +2475,59 @@ class ServingEngine:
                         sum(1 for s in self._slots if s.active) + len(self._longs),
                         backoff, restarts, self.max_restarts,
                     )
+                    if self._spmd is not None:
+                        # the epoch first (the rebuild re-seeds from it),
+                        # then the coordinated announce: the followers
+                        # start their identical rebuild, and the seq chain
+                        # restarts at the epoch base on both sides
+                        self._spmd_epoch += 1
+                        try:
+                            self._spmd.announce(wire.ControlBlock(
+                                op=wire.OP_RECOVER, count=self._spmd_epoch,
+                            ))
+                            self._spmd.reset_seq()
+                        except Exception:  # noqa: BLE001 — transport gone: the
+                            # followers' watchdogs end them
+                            log.exception("failed to announce OP_RECOVER to followers")
+                        self._flight_dump("spmd-recover", extra={
+                            "epoch": self._spmd_epoch, "error": type(e).__name__,
+                            "restart": restarts,
+                        })
                     try:
                         self._recover(e)
                     except BaseException as e2:  # noqa: BLE001 — recovery itself failed
                         log.exception("crash recovery failed; engine is dead")
                         self._fail_all(e2)
                         return
-                    if self._stop.wait(backoff):
+                    if self._backoff_wait(backoff):
                         return  # stop() raced the backoff; it fails the rest
                     backoff = min(backoff * 2, 30.0)
         finally:
             self._recovering = False
+            if self._spmd is not None:
+                # release the followers parked in recv(), on the crash path
+                # too; STOP is ordered after every dispatch (one thread)
+                try:
+                    self._spmd.announce(wire.ControlBlock(op=wire.OP_STOP))
+                except Exception:  # noqa: BLE001 — the transport may be gone too
+                    log.exception("failed to announce STOP to SPMD followers")
+
+    def _backoff_wait(self, backoff_s: float) -> bool:
+        """The restart-backoff sleep, sliced so SPMD followers keep seeing
+        idle heartbeats through it (their watchdog cannot tell a backoff
+        wait from a dead leader otherwise). True when stop() raced it."""
+        spmd = self._spmd
+        if spmd is None or getattr(spmd, "watchdog_s", 0) <= 0:
+            return self._stop.wait(backoff_s)
+        slice_s = max(0.05, spmd.watchdog_s / 4)
+        deadline = time.monotonic() + backoff_s
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return False
+            if self._stop.wait(min(slice_s, remaining)):
+                return True
+            self._spmd_heartbeat()
 
     def _run_once(self) -> None:
         # batches of deferred fetch entries, one per iteration, newest last
@@ -2320,6 +2566,11 @@ class ServingEngine:
             request._finish(result)
         self._inflight_steps = 0
         self._rebuild_device_state()
+        if isinstance(error, EngineWedgedError):
+            # the fetch thread may still be parked in the hung copy that
+            # tripped the watchdog: every later fetch would queue behind it
+            log.warning("abandoning the wedged fetch thread")
+            self._fetcher = _TokenFetcher(self._injector, self._obs)
         if not self._fetcher.alive():
             self._fetcher.start()
 
@@ -2329,8 +2580,13 @@ class ServingEngine:
         and tables or the dense cache are remade from scratch (the old
         ones released before the new ones are allocated), the decode
         buffers too, and the graphs are captured again. The generator
-        keeps its live state."""
+        keeps its live state — under SPMD it is re-seeded from the seed
+        plus the recovery epoch on every rank (the crashed dispatch may have
+        drawn on one side only). Shared by the leader's ``_recover`` and a
+        follower's ``OP_RECOVER`` (``_spmd_follower_recover``), whose
+        graphs are captured as the leader's ``OP_WARMUP`` replays."""
         self._freed_slots.clear()
+        self._long_caches.clear()
         self._pending_row_resets.clear()
         self._pending_page_zero.clear()
         self._spec_index.clear()
@@ -2352,7 +2608,13 @@ class ServingEngine:
                 # rows may hold prefixes published from the poisoned cache
                 self._prefix_pool.reset()
         self._alloc_decode_state()
-        self._capture_graphs()
+        if self._spmd is not None:
+            self._generator.manual_seed(self._rng_seed + self._spmd_epoch)
+        if self._spmd_follower:
+            self._graphs, self._decode_graphs = {}, {}
+            self._capture_pool = None
+        else:
+            self._capture_graphs()
         if self._spill_worker is not None:
             self._spill_worker.start()
 
@@ -2397,6 +2659,10 @@ class ServingEngine:
         obs_on = self._obs.on
         self._iterations_total += 1
         t0 = time.monotonic() if obs_on else 0.0
+        # SPMD slice resilience: the spmd-crash drill site, the divergence
+        # poll and the idle heartbeat, outside any dispatch's announces
+        if self._spmd is not None:
+            self._spmd_tick()
         if self._pending_row_resets:
             self._flush_row_resets()
         if self._pending_page_zero:
@@ -2708,6 +2974,13 @@ class ServingEngine:
         poisoned row never reaches a later request of that slot."""
         stale = sorted(set(self._pending_row_resets))
         self._pending_row_resets.clear()
+        if self._spmd is not None:
+            self._spmd.announce(wire.ControlBlock(
+                op=wire.OP_ROW_RESET, n_rows=len(stale), slots=np.asarray(stale, np.int32),
+            ))
+        self._dev_row_reset(stale)
+
+    def _dev_row_reset(self, stale) -> None:
         for leaf in pool_leaves(self._cache):
             for idx in stale:
                 leaf[:, idx].zero_()
@@ -2715,15 +2988,34 @@ class ServingEngine:
     def _flush_page_zeros(self) -> None:
         """Zero the physical pages a quarantine freed, at the top of the
         iteration: on the in-order stream this lands after the chunks that
-        still held them and before any admission that reuses them."""
+        still held them and before any admission that reuses them. Under
+        SPMD each table-wide batch of pages rides the wire
+        (``OP_PAGE_ZERO``)."""
         freed = sorted(set(self._pending_page_zero))
         self._pending_page_zero = []
+        width = self._pagepool.table_len
+        for i in range(0, len(freed), width):
+            chunk = freed[i : i + width]
+            if self._spmd is not None:
+                self._spmd.announce(wire.ControlBlock(
+                    op=wire.OP_PAGE_ZERO, count=len(chunk), pages=np.asarray(chunk, np.int32),
+                ))
+            self._dev_page_zero(chunk)
+
+    def _dev_page_zero(self, freed) -> None:
         # a freed page may still be read by a spill copy in flight (an
         # entry demoted on it while a slot aliased it): zero it after
         self._pagepool.wait_fences(freed)
         pages = self._upload(np.asarray(freed, np.int64))
         for leaf in pool_leaves(self._pagepool.dev):
             leaf.index_fill_(1, pages, 0)
+
+    def _free_slot_pages(self, idx: int) -> list[int]:
+        """Free slot ``idx``'s pages (``PagePool.free_slot``); under SPMD the
+        table clear rides the wire (``OP_PAGE_FREE``) when it had pages."""
+        if self._spmd is not None and self._pagepool.slot_pages(idx):
+            self._spmd.announce(wire.ControlBlock(op=wire.OP_PAGE_FREE, long_idx=idx))
+        return self._pagepool.free_slot(idx)
 
     # -- the host KV tier: spill, demotion, restore -----------------------------
 
@@ -3420,6 +3712,9 @@ class ServingEngine:
             raise MigrationError("engine is stopped") from self._dead
         if not self._paged:
             raise MigrationError("KV-page migration requires kv-layout: paged")
+        if self._spmd is not None:
+            # a bind's page writes are dispatches the SPMD wire does not carry
+            raise MigrationError("KV-page migration is not on the SPMD wire")
         reply: "queue.SimpleQueue" = queue.SimpleQueue()
         self._migrate_cmds.put((kind, payload, reply))
         try:
@@ -3497,6 +3792,117 @@ class ServingEngine:
         if pool is None:
             return {}
         return {"bytes_per_page": int(pool.bytes_per_page), "pages_total": int(pool.num_pages)}
+
+    # -- the SPMD plane: resilience and the follower's halves -----------------
+
+    def _fetch_bound(self) -> Optional[float]:
+        """The leader's per-fetch wait bound under SPMD (the channel's
+        ``watchdog_s``; None: unbounded)."""
+        wd = getattr(self._spmd, "watchdog_s", 0) if self._spmd is not None else 0
+        return wd if wd > 0 else None
+
+    def _spmd_tick(self) -> None:
+        """SPMD resilience at the iteration top (leader, engine thread):
+        fire the ``spmd-crash`` drill site (a raise here is a loop crash,
+        driving the coordinated OP_RECOVER end to end), answer at most one
+        pending divergence report (polled a few times a second), and keep
+        the followers' watchdogs fed with idle heartbeats."""
+        if self._injector is not None:
+            self._injector.fire("spmd-crash")
+        now = time.monotonic()
+        wd = getattr(self._spmd, "watchdog_s", 0)
+        if now - self._spmd_div_checked_at >= max(0.25, wd / 4):
+            self._spmd_div_checked_at = now
+            try:
+                req = self._spmd.poll_divergence()
+            except Exception:  # noqa: BLE001 — side channel gone is not a crash
+                req = None
+            if req is not None:
+                self._spmd_resync(req)
+        self._spmd_heartbeat()
+
+    def _spmd_heartbeat(self) -> None:
+        """Announce OP_IDLE when the wire has been quiet for a quarter of
+        the watchdog bound, so silence past it means a dead leader, not an
+        idle one. No-op with the watchdog off."""
+        ch = self._spmd
+        wd = getattr(ch, "watchdog_s", 0)
+        if ch is None or wd <= 0:
+            return
+        if time.monotonic() - ch.last_announce_t >= max(0.05, wd / 4):
+            try:
+                ch.announce(wire.ControlBlock(op=wire.OP_IDLE))
+            except Exception:  # noqa: BLE001 — heartbeats are best-effort
+                log.exception("SPMD idle heartbeat failed")
+
+    def _spmd_resync(self, req: dict) -> None:
+        """Answer a follower's divergence report with one OP_RESYNC: the
+        authoritative per-slot page tables and device positions at a new
+        epoch (and, in the block's mask, the slots active now), then the
+        seq chain restarts at its base. The follower verifies its own
+        against them and rejoins on a match; the leader only answers."""
+        pool = self._pagepool
+        b = self.max_batch
+        tl = pool.table_len if pool is not None else 0
+        parts = []
+        if tl:
+            parts.append(np.asarray(pool.tables[:b, :tl], np.int32).reshape(-1))
+        parts.append(self._positions_dev.cpu().numpy().astype(np.int32)[:b])
+        payload = np.concatenate(parts)
+        epoch = self._spmd_epoch + 1
+        log.warning("SPMD follower reported divergence (%s); answering with OP_RESYNC at "
+                    "epoch %d", req.get("why", "?"), epoch)
+        self._spmd.announce(wire.ControlBlock(
+            op=wire.OP_RESYNC, long_idx=epoch, count=len(payload), n_rows=b, width=tl,
+            echo=payload, mask=self._active_mask(),
+        ))
+        self._spmd.reset_seq()
+        self._spmd_epoch = epoch
+        with self._stats_lock:
+            self.spmd_resyncs_total += 1
+        self._flight_dump(
+            "spmd-recover", extra={"kind": "resync", "epoch": epoch, "requested": dict(req)},
+        )
+
+    def _spmd_echo(self, kind: int, host: np.ndarray) -> None:
+        """In echo mode, re-broadcast a processed chunk's fetched tokens:
+        the follower holds them against its own result for the same
+        dispatch."""
+        if self._spmd is None or not getattr(self._spmd, "echo", False):
+            return
+        flat = np.asarray(host, np.int32).reshape(-1)
+        self._spmd.announce(wire.ControlBlock(
+            op=wire.OP_ECHO, long_idx=kind, count=len(flat), echo=flat,
+        ))
+
+    def _echo_capacity(self, mask: np.ndarray) -> np.ndarray:
+        """Each slot's reserved columns for a dispatch with ``mask``: its
+        mapped pages x page size (paged), max_seq_len (dense) — what the
+        follower's echo check holds rows to (``spmd_serving._echo_valid``)."""
+        if not self._paged:
+            return np.full(self.max_batch, self.max_seq_len, np.int64)
+        tables = self._dispatch_tables(mask)
+        return (tables != self._pagepool.oob).sum(axis=1).astype(np.int64) * self.page_size
+
+    def _spmd_apply_bind(self, idx: int, pages: list, cow_src: Optional[int],
+                         cow_dst: Optional[int]) -> None:
+        """Follower half of OP_PAGE_BIND: the leader's reservation into this
+        rank's table and owned list (the only allocator state a follower
+        keeps), and the same copy-on-write copy in the same stream order."""
+        pool = self._pagepool
+        if pages:
+            pool.tables[idx, : len(pages)] = pages
+            pool.tables[idx, len(pages):] = pool.oob
+        if cow_src is not None and cow_dst is not None:
+            page_copy(pool.dev, cow_src, cow_dst)
+
+    def _spmd_follower_recover(self, epoch: int) -> None:
+        """Follower half of OP_RECOVER: adopt the leader's epoch and run the
+        same rebuild (its graphs come back with the leader's OP_WARMUP
+        announcements)."""
+        self._spmd_epoch = int(epoch)
+        self._long_caches.clear()
+        self._rebuild_device_state()
 
     # -- admission -------------------------------------------------------------
 
@@ -3587,7 +3993,7 @@ class ServingEngine:
         for idx in free:
             got = False
             while not got and self._held_back is None:
-                if admitted_tokens >= budget and len(pairs) >= self.PREFILL_BATCH:
+                if admitted_tokens >= budget and len(pairs) >= self.prefill_batch:
                     break
                 try:
                     request = self._pop_admission(
@@ -3653,17 +4059,17 @@ class ServingEngine:
                 (idx, request)
             )
         for width, group in sorted(groups.items()):
-            for start in range(0, len(group), self.PREFILL_BATCH):
-                sub = group[start:start + self.PREFILL_BATCH]
+            for start in range(0, len(group), self.prefill_batch):
+                sub = group[start:start + self.prefill_batch]
                 try:
                     entries.extend(self._prefill_group(width, sub))
                 except Exception as e:  # noqa: BLE001 — fail the group, not the engine
-                    if _is_sticky(e):
-                        raise
+                    if _is_sticky(e) or self._spmd is not None:
+                        raise  # multi-rank: crash the replica into a coordinated recovery
                     log.exception("prefill failed for a group of %d requests", len(sub))
                     for idx, request in sub:
                         if self._paged:
-                            self._pagepool.free_slot(idx)  # reserved above
+                            self._free_slot_pages(idx)  # reserved above
                         request._finish(self._result(request, [], "error", error=e))
         return entries
 
@@ -3764,6 +4170,18 @@ class ServingEngine:
                 # candidate serving warm is not a recompute)
                 self.recompute_fallbacks_total += 1
                 request._tier_recompute_counted = True
+            if self._spmd is not None:
+                # the reservation's RESULT rides the wire: followers bind the
+                # same pages to the same slot's table (aliased ones too) and
+                # make the same copy-on-write copy; the free list, refcounts
+                # and index stay the leader's
+                owned = pool.slot_pages(idx)
+                cow = entry is not None and cow_src is not None
+                self._spmd.announce(wire.ControlBlock(
+                    op=wire.OP_PAGE_BIND, long_idx=idx, count=len(owned),
+                    pages=np.asarray(owned, np.int32),
+                    cow_src=cow_src if cow else -1, cow_dst=cow_dst if cow else -1,
+                ))
             if index is not None:
                 index.record_lookup(entry)
             if entry is None:
@@ -3804,23 +4222,25 @@ class ServingEngine:
         try:
             if self._injector is not None:
                 self._injector.fire("segment")
-            logits, _ = paged_prefill_segment_inplace(
-                self.params, self._upload(tokens), self._upload(np.array([p], np.int64)),
-                self._upload(np.array([len(suffix)], np.int64)), self._pagepool.dev,
-                self._upload(self._pagepool.tables[idx : idx + 1]), self.config,
-                self.page_size, kv_bound=p + width,
-                **self._lora_kw(agentic[0] if agentic is not None else None),
-            )
-            first = self._seed_chain(
-                logits, slots, np.array([len(prompt)], np.int64),
-                np.array([opts.temperature], np.float32), np.array([opts.top_k], np.int64),
-                np.array([opts.top_p], np.float32), agentic,
+            if self._spmd is not None:
+                # one warm paged admission = one suffix segment over pages
+                # the preceding OP_PAGE_BIND aliased on every rank
+                self._spmd.announce(wire.ControlBlock(
+                    op=wire.OP_LONG_SEG, width=width, n_rows=1, tokens=tokens.astype(np.int32),
+                    s0=p, seg_len=len(suffix), long_idx=idx, long_final=True,
+                    prompt_len=len(prompt), temps=np.array([opts.temperature], np.float32),
+                    top_ks=np.array([opts.top_k], np.int32),
+                    top_ps=np.array([opts.top_p], np.float32),
+                ))
+            first = self._dev_paged_segment(
+                tokens, p, len(suffix), idx, opts.temperature, opts.top_k, opts.top_p,
+                final=True, prompt_len=len(prompt), agentic=agentic,
             )
         except Exception as e:  # noqa: BLE001 — fail the request, not the engine
-            if _is_sticky(e):
-                raise
+            if _is_sticky(e) or self._spmd is not None:
+                raise  # multi-rank: crash the replica into a coordinated recovery
             log.exception("warm prefix admission failed (p=%d)", p)
-            self._pagepool.free_slot(idx)
+            self._free_slot_pages(idx)
             request._finish(self._result(request, [], "error", error=e))
             return []
         if self._obs.on:
@@ -3841,6 +4261,30 @@ class ServingEngine:
         self._note_tenant_admitted(request)
         self._maybe_publish(idx, prompt)
         return [("prefill", self._fetcher.submit(first), [(idx, request)], 0)]
+
+    def _dev_paged_segment(self, tokens: np.ndarray, s0: int, seg_len: int, idx: int,
+                           temp: float, top_k: int, top_p: float, final: bool,
+                           prompt_len: int, agentic: Optional[np.ndarray] = None,
+                           ) -> Optional[torch.Tensor]:
+        """Device layer of one paged segment (a long prompt's, or a warm
+        admission's suffix): the segment forward straight into slot
+        ``idx``'s pages, reading ``s0 + width`` columns; the final one
+        samples the first token and seeds the chain (→ the first token)."""
+        width = tokens.shape[1]
+        logits, _ = paged_prefill_segment_inplace(
+            self.params, self._upload(tokens), self._upload(np.array([s0], np.int64)),
+            self._upload(np.array([seg_len], np.int64)), self._pagepool.dev,
+            self._upload(self._pagepool.tables[idx : idx + 1]), self.config,
+            self.page_size, kv_bound=s0 + width, tp=self._tp,
+            **self._lora_kw(agentic[0] if agentic is not None else None),
+        )
+        if not final:
+            return None
+        return self._seed_chain(
+            logits, np.array([idx], np.int64), np.array([prompt_len], np.int64),
+            np.array([temp], np.float32), np.array([top_k], np.int64),
+            np.array([top_p], np.float32), agentic,
+        )
 
     def _dense_prefix_lookup(
         self, prompt: list[int], full_width_only: bool = False
@@ -3888,21 +4332,21 @@ class ServingEngine:
         try:
             if self._injector is not None:
                 self._injector.fire("segment")
-            local = gather_prefix_local(pool.dev, entry.row, self.config, pool.width,
-                                        device=self.device)
-            logits, _ = prefill_segment(
-                self.params, self._upload(tokens), self._upload(np.array([p], np.int64)),
-                self._upload(np.array([len(suffix)], np.int64)), local, self.config,
-                kv_bound=p + width, **self._lora_kw(agentic[0] if agentic is not None else None),
-            )
-            dense_insert_cache(self._cache, local, self._upload(slots))
-            first = self._seed_chain(
-                logits, slots, np.array([len(prompt)], np.int64),
-                np.array([opts.temperature], np.float32), np.array([opts.top_k], np.int64),
-                np.array([opts.top_p], np.float32), agentic,
+            if self._spmd is not None:
+                self._spmd.announce(wire.ControlBlock(
+                    op=wire.OP_PREFIX_ADMIT, width=width, n_rows=1,
+                    tokens=tokens.astype(np.int32), s0=p, seg_len=len(suffix),
+                    kv_bound=p + width, entry_row=entry.row, long_idx=idx,
+                    prompt_len=len(prompt), temps=np.array([opts.temperature], np.float32),
+                    top_ks=np.array([opts.top_k], np.int32),
+                    top_ps=np.array([opts.top_p], np.float32),
+                ))
+            first = self._dev_prefix_admit(
+                tokens, p, len(suffix), p + width, entry.row, opts.temperature, opts.top_k,
+                opts.top_p, idx, len(prompt), agentic,
             )
         except Exception as e:  # noqa: BLE001 — fail the request, not the engine
-            if _is_sticky(e):
+            if _is_sticky(e) or self._spmd is not None:
                 raise
             log.exception("warm prefix admission failed (p=%d)", p)
             request._finish(self._result(request, [], "error", error=e))
@@ -3928,6 +4372,33 @@ class ServingEngine:
         self._note_tenant_admitted(request)
         self._maybe_publish(idx, prompt)
         return [("prefill", self._fetcher.submit(first), [(idx, request)], 0)]
+
+    def _dev_prefix_admit(self, tokens: np.ndarray, p: int, seg_len: int, kv_bound: int,
+                          row: int, temp: float, top_k: int, top_p: float, idx: int,
+                          prompt_len: int, agentic: Optional[np.ndarray] = None,
+                          ) -> torch.Tensor:
+        """Device layer of a dense warm admission: prefix-pool ``row`` → a
+        pool-width local cache, the suffix segment at offset ``p``, the
+        insert into slot ``idx``'s row, the first sample and the chain."""
+        pool = self._prefix_pool
+        local = gather_prefix_local(pool.dev, row, self.config, pool.width, device=self.device)
+        logits, _ = prefill_segment(
+            self.params, self._upload(tokens), self._upload(np.array([p], np.int64)),
+            self._upload(np.array([seg_len], np.int64)), local, self.config,
+            kv_bound=kv_bound, tp=self._tp,
+            **self._lora_kw(agentic[0] if agentic is not None else None),
+        )
+        slots = np.array([idx], np.int64)
+        dense_insert_cache(self._cache, local, self._upload(slots))
+        return self._seed_chain(
+            logits, slots, np.array([prompt_len], np.int64), np.array([temp], np.float32),
+            np.array([top_k], np.int64), np.array([top_p], np.float32), agentic,
+        )
+
+    def _dev_prefix_publish(self, idx: int, row: int) -> None:
+        """Device layer of a dense publish: slot ``idx``'s row into prefix
+        pool row ``row``."""
+        publish_prefix_rows(self._prefix_pool.dev, self._cache, idx, row)
 
     def _spec_admit(self, idx: int, prompt: list[int]) -> None:
         """Give an admitted slot its draft index, seeded with the whole
@@ -3960,7 +4431,11 @@ class ServingEngine:
             row = pool.allocate()
             if row is None:
                 return  # every row pinned: skip, never stall an admission
-            publish_prefix_rows(pool.dev, self._cache, idx, row)
+            if self._spmd is not None:
+                self._spmd.announce(wire.ControlBlock(
+                    op=wire.OP_PREFIX_PUBLISH, long_idx=idx, entry_row=row,
+                ))
+            self._dev_prefix_publish(idx, row)
             pool.insert(prompt, p, row)
             return
         index = self._prefix_index
@@ -3983,16 +4458,17 @@ class ServingEngine:
     def _prefill_group(self, width: int, group: list[tuple[int, GenerationRequest]]) -> list[tuple]:
         """One admit group: every (slot, request) pair of one prompt bucket,
         prompts right-padded with zeros to the bucket width. An MoE model's
-        group also gets pad rows (token 0, length 1) up to PREFILL_BATCH,
+        group also gets pad rows (token 0, length 1) up to ``prefill_batch``,
         as the JAX engine pads every group: the rows share the experts'
         capacity, so the same rows give the same logits."""
-        n = self.PREFILL_BATCH if self.config.is_moe else len(group)
+        n = self.prefill_batch if self.config.is_moe else len(group)
         tokens = np.zeros((n, width), np.int64)
         lengths = np.ones(n, np.int64)
         temps = np.zeros(n, np.float32)
         top_ks = np.zeros(n, np.int64)
         top_ps = np.ones(n, np.float32)
-        slots = np.zeros(n, np.int64)
+        # pad rows ride with the out-of-range slot max_batch
+        slots = np.full(n, self.max_batch, np.int64)
         started = time.monotonic()
         for j, (idx, request) in enumerate(group):
             prompt = request.prompt_tokens
@@ -4004,6 +4480,12 @@ class ServingEngine:
             slots[j] = idx
         # pad rows ride as base rows (adapter row 0, grammar row 0)
         agentic = self._row_agentic([r for _, r in group], n)
+        if self._spmd is not None:
+            self._spmd.announce(wire.ControlBlock(
+                op=wire.OP_PREFILL, width=width, n_rows=n, tokens=tokens.astype(np.int32),
+                lengths=lengths.astype(np.int32), slots=slots.astype(np.int32), temps=temps,
+                top_ks=top_ks.astype(np.int32), top_ps=top_ps,
+            ))
         first = self._dev_prefill(tokens, lengths, temps, top_ks, top_ps, slots, len(group),
                                   agentic)
         if self._obs.on:
@@ -4042,7 +4524,7 @@ class ServingEngine:
         local = make_kv_cache(self.config, n, width, device=dev)
         logits, local = prefill(
             self.params, self._upload(tokens), self._upload(lengths), local, self.config,
-            **self._lora_kw(agentic[0] if agentic is not None else None),
+            tp=self._tp, **self._lora_kw(agentic[0] if agentic is not None else None),
         )
         if rows < n:
             local = {name: _rows(entry, rows) for name, entry in local.items()}
@@ -4154,10 +4636,11 @@ class ServingEngine:
         idx = st["idx"]
         del self._longs[idx]
         if self._paged:
-            self._pagepool.free_slot(idx)
+            self._free_slot_pages(idx)
         entry = st.pop("prefix", None)
         if entry is not None:
             self._prefix_pool.release(entry)
+        self._long_caches.pop(idx, None)
         with self._stats_lock:
             if reason == "cancelled":
                 self.cancelled_total += 1
@@ -4188,7 +4671,6 @@ class ServingEngine:
         if deadline is not None and time.monotonic() >= deadline:
             self._end_stream(st, "deadline")
             return []
-        dev = self.device
         prompt = request.prompt_tokens
         width = self.prefill_buckets[-1]
         # a warm paged stream starts at its reuse offset ``base``
@@ -4197,38 +4679,44 @@ class ServingEngine:
         tokens = np.zeros((1, width), np.int64)
         tokens[0, : len(seg)] = seg
         agentic = self._row_agentic([request], 1)
-        lora = self._lora_kw(agentic[0] if agentic is not None else None)
+        opts = request.options
+        final = s0 + width >= len(prompt)
+        start = st["seg"] == 0
+        t_long = 0 if self._paged else self._long_width(len(prompt))
+        # readable columns: segment i never attends past s0 + width (the
+        # exact bound, as for decode chunks)
+        kv_bound = s0 + width if self._paged else min(s0 + width, t_long)
+        entry = st.get("prefix") if start else None
         started = time.monotonic()
         try:
             if self._injector is not None:
                 self._injector.fire("segment")
-            offsets = self._upload(np.array([s0], np.int64))
-            seg_len = self._upload(np.array([len(seg)], np.int64))
-            # readable columns: segment i never attends past s0 + width (the
-            # exact bound, as for decode chunks)
+            if self._spmd is not None:
+                self._spmd.announce(wire.ControlBlock(
+                    op=wire.OP_LONG_SEG, width=width, n_rows=1, tokens=tokens.astype(np.int32),
+                    s0=s0, seg_len=len(seg), kv_bound=kv_bound, t_long=t_long,
+                    long_start=start, long_final=final, long_idx=idx, prompt_len=len(prompt),
+                    # dense warm start: the follower seeds its local cache
+                    # from the same pool row
+                    entry_row=entry.row if entry is not None else -1,
+                    temps=np.array([opts.temperature], np.float32),
+                    top_ks=np.array([opts.top_k], np.int32),
+                    top_ps=np.array([opts.top_p], np.float32),
+                ))
             if self._paged:
-                table = self._upload(self._pagepool.tables[idx : idx + 1])
-                logits, _ = paged_prefill_segment_inplace(
-                    self.params, self._upload(tokens), offsets, seg_len, self._pagepool.dev,
-                    table, self.config, self.page_size, kv_bound=s0 + width, **lora,
+                first = self._dev_paged_segment(
+                    tokens, s0, len(seg), idx, opts.temperature, opts.top_k, opts.top_p,
+                    final=final, prompt_len=len(prompt), agentic=agentic,
                 )
             else:
-                t_long = self._long_width(len(prompt))
-                if st["seg"] == 0:
-                    entry = st.get("prefix")
-                    # a warm stream's local cache starts as its pool row
-                    st["cache"] = (
-                        make_kv_cache(self.config, 1, t_long + 1, device=dev) if entry is None
-                        else gather_prefix_local(self._prefix_pool.dev, entry.row, self.config,
-                                                 t_long + 1, device=dev)
-                    )
-                logits, _ = prefill_segment(
-                    self.params, self._upload(tokens), offsets, seg_len, st["cache"],
-                    self.config, kv_bound=min(s0 + width, t_long), **lora,
+                first = self._dev_long_segment(
+                    tokens, s0, len(seg), kv_bound, t_long, opts.temperature, opts.top_k,
+                    opts.top_p, start=start, final=final, idx=idx, prompt_len=len(prompt),
+                    prefix_row=entry.row if entry is not None else None, agentic=agentic,
                 )
         except Exception as e:  # noqa: BLE001 — fail the stream, not the engine
-            if _is_sticky(e):
-                raise
+            if _is_sticky(e) or self._spmd is not None:
+                raise  # multi-rank: crash the replica into a coordinated recovery
             log.exception("chunked prefill failed at segment %d", st["seg"])
             self._end_stream(st, "error", error=e)
             return []
@@ -4242,18 +4730,9 @@ class ServingEngine:
         with self._stats_lock:
             self.prefill_tokens_total += len(seg)
             self.prefill_segments_total += 1
-        if s0 + width < len(prompt):
+        if not final:
             return []  # more segments to go
         del self._longs[idx]
-        slots = np.array([idx], np.int64)
-        if not self._paged:
-            dense_insert_cache(self._cache, st["cache"], self._upload(slots))
-        opts = request.options
-        first = self._seed_chain(
-            logits, slots, np.array([len(prompt)], np.int64),
-            np.array([opts.temperature], np.float32), np.array([opts.top_k], np.int64),
-            np.array([opts.top_p], np.float32), agentic,
-        )
         slot = self._slots[idx]
         slot.request = request
         slot.position = len(prompt)
@@ -4269,6 +4748,40 @@ class ServingEngine:
         self._maybe_publish(idx, prompt)
         return [("prefill", self._fetcher.submit(first), [(idx, request)], 0)]
 
+    def _dev_long_segment(self, tokens: np.ndarray, s0: int, seg_len: int, kv_bound: int,
+                          t_long: int, temp: float, top_k: int, top_p: float, start: bool,
+                          final: bool, idx: int, prompt_len: int,
+                          prefix_row: Optional[int] = None,
+                          agentic: Optional[np.ndarray] = None) -> Optional[torch.Tensor]:
+        """Device layer of one dense segment: on the first, a fresh batch-1
+        local cache of ``t_long`` columns plus a sink column (a warm stream's
+        starts as prefix-pool row ``prefix_row``); the segment forward over
+        ``kv_bound`` columns; on the final, the insert into slot ``idx``'s
+        row, the first sample and the chain (→ the first token)."""
+        if start:
+            self._long_caches[idx] = (
+                make_kv_cache(self.config, 1, t_long + 1, device=self.device)
+                if prefix_row is None
+                else gather_prefix_local(self._prefix_pool.dev, prefix_row, self.config,
+                                         t_long + 1, device=self.device)
+            )
+        cache = self._long_caches[idx]
+        logits, _ = prefill_segment(
+            self.params, self._upload(tokens), self._upload(np.array([s0], np.int64)),
+            self._upload(np.array([seg_len], np.int64)), cache, self.config,
+            kv_bound=kv_bound, tp=self._tp,
+            **self._lora_kw(agentic[0] if agentic is not None else None),
+        )
+        if not final:
+            return None
+        del self._long_caches[idx]
+        slots = np.array([idx], np.int64)
+        dense_insert_cache(self._cache, cache, self._upload(slots))
+        return self._seed_chain(
+            logits, slots, np.array([prompt_len], np.int64), np.array([temp], np.float32),
+            np.array([top_k], np.int64), np.array([top_p], np.float32), agentic,
+        )
+
     # -- decode dispatch -------------------------------------------------------
 
     def _decode_kv_bound(self, steps: int) -> int:
@@ -4280,14 +4793,17 @@ class ServingEngine:
         highest = max((s.position for s in self._slots if s.active), default=0)
         return min(self.max_seq_len, highest + self._inflight_steps + steps)
 
-    def _dispatch_tables(self) -> np.ndarray:
+    def _dispatch_tables(self, mask: Optional[np.ndarray] = None) -> np.ndarray:
         """The page tables of a decode dispatch: every slot that is not
-        active gets the sentinel row, so a decode step never writes into a
-        stream's pages mid-prefill (or into pages a quarantine freed)."""
+        active (``mask``, the leader's slot liveness on the SPMD wire) gets
+        the sentinel row, so a decode step never writes into a stream's
+        pages mid-prefill (or into pages a quarantine freed)."""
         pool = self._pagepool
+        if mask is None:
+            mask = self._active_mask()
         tables = pool.tables.copy()
-        inactive = [i for i, s in enumerate(self._slots) if not s.active]
-        if inactive:
+        inactive = np.flatnonzero(np.asarray(mask) == 0)
+        if len(inactive):
             tables[inactive] = pool.oob
         return tables
 
@@ -4323,7 +4839,7 @@ class ServingEngine:
         pool = self._pagepool
         if self._prefix_index is not None:
             self._prefix_index.evict_touching(pool, pool.slot_pages(idx))
-        self._pending_page_zero.extend(pool.free_slot(idx))
+        self._pending_page_zero.extend(self._free_slot_pages(idx))
 
     def _dispatch_chunk(self, clean: bool = False, pipelined: bool = False) -> Optional[tuple]:
         """Queue one decode chunk: the page-table integrity check (paged),
@@ -4342,18 +4858,55 @@ class ServingEngine:
             self._injector.fire("decode")
         steps = self.decode_chunk
         branch = self._branch()
-        self._prepare_chunk()
+        stale, mask = self._collect_stale(), self._active_mask()
+        kv_bound = self._chunk_kv_bound("decode")
+        if self._spmd is not None:
+            self._spmd.announce(wire.ControlBlock(
+                op=wire.OP_DECODE, steps=steps, n_rows=len(stale),
+                slots=np.asarray(stale, np.int32), kv_bound=kv_bound or 0, mask=mask,
+                width=BRANCH_CODES[branch],
+            ))
+        self._refresh_agentic()
         t_dispatch = time.monotonic()
-        if self._spec_enabled:
-            self._run_chunk(branch, "decode")  # brownout level 2
-        else:
-            self._run_chunk(branch)
+        # on a speculative engine: brownout level 2
+        self._dev_decode(steps, stale, kv_bound, mask, BRANCH_CODES[branch])
         snapshot = [(i, s.request) for i, s in enumerate(self._slots) if s.active]
         with self._stats_lock:
             self.decode_chunks_total += 1
             self.decode_steps_total += steps
         return ("chunk", self._fetcher.submit(self._chunk_out), snapshot, steps, t_dispatch,
                 clean, pipelined)
+
+    def _dev_decode(self, steps: int, stale, kv_bound: Optional[int], mask: np.ndarray,
+                    branch: int) -> torch.Tensor:
+        """Device layer of a decode chunk (leader and SPMD follower): the
+        stale temperatures, the masked table, then the replay of the
+        ``branch``'s decode graph → the ``[steps, B]`` output buffer."""
+        self._dev_prepare(stale, mask)
+        branch = DECODE_BRANCHES[int(branch)]
+        if self._spmd_follower:
+            self._run_chunk(branch, "decode", kv_bound)  # the leader's bound
+        elif self._spec_enabled:
+            self._run_chunk(branch, "decode")  # brownout level 2
+        else:
+            self._run_chunk(branch)
+        return self._chunk_out
+
+    def _dev_verify(self, drafts: np.ndarray, stale, kv_bound: Optional[int],
+                    mask: np.ndarray, branch: int) -> torch.Tensor:
+        """Device layer of a verify (leader and SPMD follower): the drafts
+        into their static buffer, the stale temperatures, the masked table,
+        then the replay of the ``branch``'s verify graph → the packed ``[B,
+        k + 2]`` output buffer."""
+        if self._spmd_follower:
+            self._drafts_dev.copy_(self._upload(np.asarray(drafts, np.int64)),
+                                   non_blocking=True)
+            self._dev_prepare(stale, mask)
+            self._run_chunk(DECODE_BRANCHES[int(branch)], "verify", kv_bound)
+        else:  # the leader's drafts are in place (_propose_drafts)
+            self._dev_prepare(stale, mask)
+            self._run_chunk(DECODE_BRANCHES[int(branch)])
+        return self._verify_out
 
     def _propose_drafts(self) -> tuple[np.ndarray, np.ndarray]:
         """Up to k drafts per active slot from its n-gram index, counted
@@ -4419,9 +4972,19 @@ class ServingEngine:
         if self._injector is not None:
             self._injector.fire("decode")
         branch = self._branch()
-        self._prepare_chunk()
+        stale, mask = self._collect_stale(), self._active_mask()
+        kv_bound = self._chunk_kv_bound("verify")
+        if self._spmd is not None:
+            # the proposals ride the wire (steps = k); acceptance is decided
+            # on every rank's device alike
+            self._spmd.announce(wire.ControlBlock(
+                op=wire.OP_VERIFY, steps=self.spec_tokens, n_rows=len(stale),
+                slots=np.asarray(stale, np.int32), kv_bound=kv_bound or 0,
+                drafts=drafts.astype(np.int32), mask=mask, width=BRANCH_CODES[branch],
+            ))
+        self._refresh_agentic()
         t_dispatch = time.monotonic()
-        self._run_chunk(branch)
+        self._dev_verify(drafts, stale, kv_bound, mask, BRANCH_CODES[branch])
         snapshot = [(i, s.request) for i, s in enumerate(self._slots) if s.active]
         with self._stats_lock:
             self.spec_dispatches_total += 1
@@ -4436,7 +4999,7 @@ class ServingEngine:
             return
         if entry[0] == "prefill":
             _, fetch, group, _ = entry
-            first = fetch.result()
+            first = fetch.result(self._fetch_bound())
             now = time.monotonic()
             for j, (idx, request) in enumerate(group):
                 slot = self._slots[idx]
@@ -4451,10 +5014,13 @@ class ServingEngine:
                 self._deliver_token(idx, int(first[j]))
             return
         _, fetch, snapshot, steps, t_dispatch, clean, pipelined = entry
-        host = fetch.result()  # [steps, B]
+        host = fetch.result(self._fetch_bound())  # [steps, B]
         # the step time before delivery: a request finishing mid-chunk
         # wakes its waiter inside the loop below
         self._sample_step_time(snapshot, steps, t_dispatch, clean, pipelined)
+        # the echo is the device's truth, before the host-side corruption
+        # drill (which must not read as an SPMD divergence)
+        self._spmd_echo(wire.ECHO_DECODE, host)
         if self._injector is not None:
             host, _ = self._injector.corrupt_tokens(host, snapshot)
         for idx, request in snapshot:
@@ -4519,7 +5085,8 @@ class ServingEngine:
         proposal's length (zero drafts that match the model are luck, not
         drafts); emitted tokens count per token delivered."""
         _, fetch, snapshot, proposed, t_dispatch, clean = entry
-        host = fetch.result()
+        host = fetch.result(self._fetch_bound())
+        self._spmd_echo(wire.ECHO_VERIFY, host)
         if self._injector is not None:
             host = self._injector.corrupt_verify(host, snapshot)
         # one verify is one read of the weights: one step sample (the host
@@ -4843,7 +5410,7 @@ class ServingEngine:
         self._slot_clear_agentic(idx)
         self._freed_slots.append(idx)
         if self._paged:
-            self._pagepool.free_slot(idx)
+            self._free_slot_pages(idx)
         request._finish(result)
         if self._obs.on:
             # the request's lifecycle as one span tree, emitted once
@@ -4860,7 +5427,7 @@ class ServingEngine:
         doomed += [st["request"] for st in self._longs.values()]
         if self._paged:
             for idx in self._longs:
-                self._pagepool.free_slot(idx)
+                self._free_slot_pages(idx)
         if self._held_back is not None:
             doomed.append(self._held_back)
         self._page_deferred.clear()
@@ -4876,7 +5443,7 @@ class ServingEngine:
                 slot.position = 0
                 self._slot_clear_agentic(i)
                 if self._paged:
-                    self._pagepool.free_slot(i)
+                    self._free_slot_pages(i)
         while True:
             try:
                 doomed.append(self._queue.get_nowait())

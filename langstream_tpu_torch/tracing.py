@@ -6,9 +6,10 @@ Spans are in-process (contextvars parent propagation) and land in a
 bounded ring buffer; the serving engine's request-lifecycle spans
 (``serving/observability.emit_request_spans``) go to this module's
 ``TRACER``. A record carries its trace across agents in the
-``ls-trace-id`` header. Device-side profiling (the JAX package's
-``device_trace`` over ``jax.profiler``) is not ported yet: it moves onto
-``torch.profiler`` with the small leftovers of the roadmap.
+``ls-trace-id`` header. ``device_trace(log_dir)`` is the JAX package's
+device profiling moved onto ``torch.profiler``: the CPU activity, and the
+card's where CUDA is up, written into ``log_dir`` by
+``tensorboard_trace_handler`` (a Chrome / TensorBoard trace).
 """
 
 from __future__ import annotations
@@ -139,3 +140,18 @@ def record_trace_id(record: Any) -> Optional[str]:
         if h.key == TRACE_HEADER:
             return h.value_as_string()
     return None
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str) -> Iterator[None]:
+    """Profile the block with ``torch.profiler`` (CPU activity, plus CUDA
+    when it is available) and write the trace into ``log_dir``; view it
+    with TensorBoard or a Chrome trace viewer."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

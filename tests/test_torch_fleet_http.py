@@ -329,12 +329,9 @@ def test_push_migration_puts_jax_bytes_on_the_wire(engines, wire):
 # -- the engine's stats keys (F10) -------------------------------------------
 
 # JAX keys the port does not report: the fused-iteration switch of the XLA
-# engine (``overlap``; the port always fuses), the SPMD tier's (ROADMAP
-# item 7) and, on the dense layout, the page counts (the port reports the
-# cache's bytes there instead)
-NOT_PORTED = {"overlap", "spmd", "spmd-announce-bytes-total", "spmd-announces-total",
-              "spmd-recoveries-total", "spmd-recovery-epoch", "spmd-resyncs-total",
-              "spmd-watchdog-trips-total"}
+# engine (``overlap``; the port always fuses) and, on the dense layout, the
+# page counts (the port reports the cache's bytes there instead)
+NOT_PORTED = {"overlap"}
 DENSE_ONLY_JAX = {"kv-pages-total", "kv-pages-in-use"}
 
 
@@ -884,8 +881,8 @@ def test_provider_serves_the_fleet_keys(engines, port_server, f32_presets):
                               ("fleet", "sometimes", "fleet mode")):
         with pytest.raises(ValueError, match=match):
             tserving.TorchCompletionsService(dict(PROVIDER, device="cpu", **{key: value}))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        tserving.TorchCompletionsService(dict(PROVIDER, device="cpu", mesh={"model": 2}))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7b"):
+        tserving.TorchCompletionsService(dict(PROVIDER, device="cpu", mesh={"seq": 2}))
 
 
 def test_begin_drain_empties_state_before_the_engine_drains(port_server, f32_presets,

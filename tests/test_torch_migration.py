@@ -868,9 +868,12 @@ def test_constrained_stream_resumes_mid_derivation(constrained):
 
 def test_constrained_stream_refuses_without_state(constrained):
     a, b = constrained
+    # no replica holds this prompt's prefix, so an affinity route would
+    # balance on the replicas' measured queue waits: round-robin starts the
+    # stream on "a", the replica that dies, every time
     router = FleetRouter(
         [_DiesAfterFrames("a", a, fail_after=3, strip_state=True), InProcessReplica("b", b)],
-        refresh_interval_s=3600.0,
+        refresh_interval_s=3600.0, policy="round-robin",
     )
     router.refresh_all()
     opts = {"max-tokens": 16, "temperature": 0.0, "response-format": RF}

@@ -630,15 +630,24 @@ def test_provider_passes_the_tenancy_and_sizing_keys():
 
 
 @pytest.mark.parametrize("key, value, item", [
-    ("mesh", {"model": 2}, 7), ("mesh", "auto", 7),
+    ("mesh", {"seq": 2}, "7b"), ("mesh", {"model": 1}, None),
     ("prefill-batch", 4, None),
 ])
 def test_provider_refuses_what_it_cannot_serve_yet(key, value, item):
+    """Ring prefill over a ``seq`` axis is the one mesh the port refuses
+    (ROADMAP item 7b); a world-1 mesh and any admit-group size construct."""
     from langstream_tpu_torch.ai.torch_serving import TorchCompletionsService
 
-    match = f"ROADMAP item {item}" if item else "prefill-batch"
-    with pytest.raises(NotImplementedError, match=match):
-        TorchCompletionsService({**BASE, key: value})
+    if item:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+            TorchCompletionsService({**BASE, key: value})
+        return
+    svc = TorchCompletionsService({**BASE, key: value})
+    assert svc.resource[key] == value
+    if key == "prefill-batch":
+        assert svc.prefill_batch == value
+    else:
+        assert svc.mesh_axes == value and svc.world == 1
 
 
 def test_provider_refuses_refused_request_options():

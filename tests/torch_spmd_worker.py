@@ -1,0 +1,112 @@
+"""Rank bodies for the port's multi-process tests (``test_torch_tp.py``,
+``test_torch_spmd.py``): each spawned process joins a gloo process group
+over a ``FileStore`` under the test's ``tmp_path``, builds its mesh and
+this rank's slices of a weight tree the parent pickled as numpy, and runs
+one job; rank 0 pickles its result for the parent. No fixed port, nothing
+outside ``tmp_path``."""
+
+import dataclasses
+import os
+import pickle
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def spawn(job: dict, world: int, tmp_path, timeout_s: float = 240.0):
+    """Run ``job`` on ``world`` spawned ranks; rank 0's result."""
+    store = os.path.join(str(tmp_path), f"store-{job['name']}")
+    out = os.path.join(str(tmp_path), f"out-{job['name']}.pkl")
+    job = dict(job, out=out)
+    ctx = mp.start_processes(_rank, args=(world, store, job), nprocs=world, join=False,
+                             start_method="spawn")
+    while not ctx.join(timeout=timeout_s):
+        pass
+    with open(out, "rb") as f:
+        return pickle.load(f)
+
+
+def _rank(rank: int, world: int, store: str, job: dict) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank)
+    try:
+        result = JOBS[job["kind"]](rank, job)
+        dist.barrier()
+        if rank == 0:
+            with open(job["out"], "wb") as f:
+                pickle.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+_MESH: dict = {}
+
+
+def _setup(job: dict):
+    from langstream_tpu_torch.models.bridge import params_from_numpy
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.parallel.mesh import build_mesh
+    from langstream_tpu_torch.parallel.sharding import shard_params
+
+    cfg = dataclasses.replace(MODEL_PRESETS[job["model"]], **job.get("overrides", {}))
+    with open(job["params"], "rb") as f:
+        tree = pickle.load(f)
+    params = params_from_numpy(tree, cfg, device="cpu")
+    tp = job["axes"].get("model", 1) * job["axes"].get("expert", 1)
+    # device groups only where the weights split (a data axis needs none);
+    # one mesh a process, shared by the jobs of a "multi" run
+    key = tuple(sorted(job["axes"].items()))
+    if key not in _MESH:
+        _MESH[key] = build_mesh(job["axes"], "gloo" if tp > 1 else None)
+    mesh = _MESH[key]
+    return cfg, mesh, shard_params(params, mesh, cfg) if tp > 1 else params
+
+
+def _forward(rank: int, job: dict):
+    from langstream_tpu_torch.models.transformer import forward
+    from langstream_tpu_torch.parallel.sharding import local_config, tensor_parallel
+
+    cfg, mesh, params = _setup(job)
+    tp = tensor_parallel(mesh, cfg)
+    logits = forward(params, torch.from_numpy(job["tokens"]), local_config(cfg, mesh), tp=tp)
+    return {"logits": logits.numpy(), "coords": mesh.coords,
+            "shapes": {k: tuple(v.shape) for k, v in params["layers"].items()
+                       if isinstance(v, torch.Tensor)}}
+
+
+def _engine(rank: int, job: dict):
+    """Rank 0 leads a serving engine with an SPMD channel over the mesh's
+    control group, the other ranks follow it; every prompt is submitted
+    before ``start()``. → the greedy tokens and the leader's stats."""
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.parallel.spmd_serving import SpmdChannel, follower_loop
+    from langstream_tpu_torch.serving.engine import GenerationRequest, ServingEngine
+
+    cfg, mesh, params = _setup(job)
+    kw = dict(job["engine"])
+    channel = SpmdChannel(group=mesh.control_group, src=0, **job["channel"])
+    engine = ServingEngine(cfg, params, device="cpu", mesh=mesh, spmd=channel, **kw)
+    if rank != 0:
+        follower_loop(engine, channel)
+        return None
+    opts = GenerationOptions(max_new_tokens=job["new_tokens"], temperature=0.0)
+    reqs = [engine.submit(GenerationRequest(prompt_tokens=list(p), options=opts))
+            for p in job["prompts"]]
+    engine.start()
+    try:
+        tokens = [r.result(timeout=180).tokens for r in reqs]
+        stats = engine.stats()
+    finally:
+        engine.stop()
+    state = {"positions": engine._positions_dev.numpy().copy()}
+    return {"tokens": tokens, "stats": stats, "state": state}
+
+
+def _multi(rank: int, job: dict):
+    """Several jobs on the same ranks, one after the other (one spawn)."""
+    return [JOBS[sub["kind"]](rank, {**job, **sub}) for sub in job["jobs"]]
+
+
+JOBS = {"forward": _forward, "engine": _engine, "multi": _multi}
