@@ -52,7 +52,12 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    128: prefill S 1024 B 2, paged decode B 8 lengths 1..1500, the segment
    S 2048 at offset 6144), each held against its plain version with the
    same planted faults, timed beside its bound (``by_shape`` of the
-   decode row; the others' own ``kernel`` lines).
+   decode row; the others' own ``kernel`` lines). Last, the
+   ``fused_segment_decode_attention`` routing (no kernel of its own) over
+   one T 8192 cache of 4 rows, bf16 and int8: two segments of S 1024 at
+   offsets 0 and 5000 bit-equal to a direct segment kernel call on the
+   gathered rows, two decode rows of 1500 and 700 keys (a [..., :2048]
+   bound) bit-equal to the masked read.
 3. ``e2e``     — the port's ``ServingEngine`` serving llama-3-8b at full
    width and depth (32 layers, bf16, random weights from ``--seed``) on the
    paged layout: 8 requests of 21..1501 byte tokens, greedy, 64 new tokens
@@ -86,7 +91,10 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    planted past a segment's frontier and in the sink page (the kernel
    path's logits must stay bit-equal), and the page gather's time beside
    the segment kernel's for the 2048-token segment at offset 6144.
-8. ``graphs``  — the captured decode chunk at full width: for paged bf16,
+8. ``graphs``  — the captured decode chunk at full width and 8 of the 32
+   layers (``SHALLOW_LAYERS``: the depth is cut so the default run keeps
+   its time with the ``ring`` phase; nothing it checks depends on depth):
+   for paged bf16,
    paged int8 (max_seq_len 2048) and dense bf16 (8192 wide), 7 requests
    admitted by hand, one chunk, an 8th admitted, then one replay against
    a direct call of the same chunk function on a copy of the same state —
@@ -348,11 +356,11 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    back. Printed: each request's TTFT, handoff gap and total against pass
    1's (and the ``fleet`` phase's when it ran), each migration's phases,
    bytes and GB/s beside one pinned copy, the wire bytes of each codec.
-18. ``spmd``    — the SPMD plane at llama-3-8b's full width and depth
-   (bf16, random weights from ``--seed``), paged, prefix reuse and
-   speculation on, ``spmd-parity-echo`` on. (a) A leader engine and a
-   follower engine in this process over a loopback channel, one weight
-   tree (each graph set's capture announced as ``OP_WARMUP`` and the two
+18. ``spmd``    — the SPMD plane at llama-3-8b's full width (bf16, random
+   weights from ``--seed``), paged, prefix reuse and speculation on,
+   ``spmd-parity-echo`` on. (a) A leader engine and a follower engine in
+   this process over a loopback channel at 8 of the 32 layers
+   (``SHALLOW_LAYERS``, as ``graphs``), one weight tree (each graph set's capture announced as ``OP_WARMUP`` and the two
    engines' captures serialised): the ``e2e`` prompts, 64 new tokens,
    greedy, through the leader; every decode chunk and verify echoed and
    held by the follower; launches exactly 2 x layers x (steps + verifies)
@@ -373,7 +381,29 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    inside the captured chunks — against one without a mesh on the same
    weights, each request served alone: tokens bit-equal; each decode
    step's device ms (back-to-back replays).
-19. ``load``    — serve a safetensors checkpoint: ``llama-3-8b-shallow``
+19. ``ring``    — ring prefill over the seq axis at llama-3-8b's full
+   width and depth (bf16, random weights from ``--seed``). Two seq ranks
+   cannot share one card under NCCL, so the ring runs as an in-process
+   loopback pair (``spmd_serving.LoopbackRing``, two threads). (a)
+   ``ring_prefill`` of a 7001-token prompt padded to 8192 over the pair
+   against the port's dense chunked prefill (4 segments of 2048) on the
+   same weights: last-token logits within 5% of the largest, top-1 equal,
+   layer 0's K/V within ``RING_KV_TOL``; both timed, the ring's peak
+   memory. (b) A leader and a follower engine as the {seq: 2} pair
+   (``LoopbackChannel`` with echo), dense, max_seq_len 8192: the ``dense``
+   phase's 8 requests (21..7001 tokens), 32 new tokens each, greedy.
+   Required: the 3001- and 7001-token prompts ring-admitted (the
+   ``ring-admissions-total`` count, no segment), each engine's dense
+   decode launches exactly layers x decode steps, each engine's replays
+   = chunks, every request its 32 tokens, tokens equal to the ``dense``
+   phase's segment loop or one-ulp ties (``_same_or_tie``), and the
+   follower's tokens, positions and ring slots' cache rows bit-equal to
+   the leader's; the ring prompts' TTFT beside the segment loop's. Then
+   the ``dense_int8`` phase's 3001-token prompt over an int8 dense cache
+   (16 new tokens), the same checks against that phase's tokens. (The
+   segment loop's tokens come from ``dense`` / ``dense_int8`` when they
+   ran in the same process, else the phase serves them.) No gain is expected: both ranks share one card.
+20. ``load``    — serve a safetensors checkpoint: ``llama-3-8b-shallow``
    (llama-3-8b's full width at 4 of its 32 layers: the depth is cut so the
    default run keeps its time with the ``fleet`` phase; the seeded tree,
    bf16, 3.85 GB) written by ``save_params_hf`` in shards of at most 5 GB
@@ -401,7 +431,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    ``fault-injection: weight-load@1`` through the provider must leave no
    engine and no params, the injector fired once. The checkpoint is
    deleted and both trees freed before ``moe``.
-20. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
+21. ``moe``     — mixtral-8x7b at full width and depth (32 layers, 8
    experts, top-2) with int8 weights drawn on the card (46.9 GB; the
    llama weights are dropped first), paged bf16 KV, max_seq_len 4096: 9
    requests of 21..3001 tokens, 32 new each (the 3001-token prompt takes 2
@@ -410,7 +440,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    reference path (a 200-token prompt, 4 paged decode steps) and one
    layer's ``moe_ffn`` timed at decode (8 tokens) and at a 2048-token
    segment beside its weight-byte bound.
-21. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+22. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
    and int8 page pools and the bf16 dense cache (8192 wide), traced with
    torch.profiler: the device's busy share of the wall and the top
    kernels (no split-K decode kernel may appear).
@@ -447,8 +477,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
           "prefix", "spec", "tenancy", "agentic", "embed", "dense_tiers", "tiered", "fleet",
-          "fleet_http", "spmd", "load", "moe", "profile")
-DEFAULT_PHASES = PHASES[:20]
+          "fleet_http", "spmd", "ring", "load", "moe", "profile")
+DEFAULT_PHASES = PHASES[:21]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -1522,9 +1552,62 @@ def phase_kernels(ctx: dict) -> None:
         -1, _decode_case(torch, ctx, timer, False, DECODE_LENGTHS, tp2))
     ctx["kernel_runs"]["flash_segment"].insert(
         -1, _segment_case(torch, ctx, timer, False, 2048, (6144,), None, tp2))
+    for int8 in (False, True):
+        _fused_case(torch, ctx, int8)
     _nan_past_length(torch, ctx)
     _edge_cases(torch, ctx)
     del timer
+
+
+def _fused_case(torch, ctx, int8: bool) -> None:
+    """``fused_segment_decode_attention`` (a routing, no kernel of its own)
+    at the segment shapes above: two rows of S 1024 at offsets 0 and 5000
+    and two decode rows of 1500 and 700 keys read through a [..., :2048]
+    bound, in one T 8192 cache of 4 rows. Its segment half must be
+    bit-equal to a direct ``flash_segment_attention`` (``_int8``) call on
+    the gathered rows, its decode half to the masked read over them."""
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.models.transformer import attention
+    from langstream_tpu_torch.ops.attention import (
+        flash_segment_attention,
+        flash_segment_attention_int8,
+        fused_segment_decode_attention,
+    )
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 31 + int8)
+    k = _dense_cache(torch, g, 4, DENSE_T, int8, hkv, d)
+    v = _dense_cache(torch, g, 4, DENSE_T, int8, hkv, d)
+    q_seg = torch.randn((2, 1024, h, d), generator=g, device="cuda").to(torch.bfloat16)
+    q_dec = torch.randn((2, h, d), generator=g, device="cuda").to(torch.bfloat16)
+    seg_rows = torch.tensor([1, 3], device="cuda")
+    offsets = torch.tensor([0, 5000], dtype=torch.int32, device="cuda")
+    dec_rows = torch.tensor([0, 2], device="cuda")
+    dec_lengths = torch.tensor([1500, 700], device="cuda")
+    seg_out, dec_out = fused_segment_decode_attention(
+        q_seg, offsets, q_dec, k, v, seg_rows, dec_rows, dec_lengths, cfg, kv_bound=DENSE_VIEW)
+
+    def rows(entry, index, cols=DENSE_T):
+        if int8:
+            return {n: a[index, :, :cols] for n, a in entry.items()}
+        return entry[index, :, :cols]
+
+    kernel = flash_segment_attention_int8 if int8 else flash_segment_attention
+    direct = kernel(q_seg, rows(k, seg_rows), rows(v, seg_rows), offsets, cfg)
+    mask = torch.arange(DENSE_VIEW, device="cuda")[None, None, :] < dec_lengths[:, None, None]
+    read = attention(q_dec[:, None], rows(k, dec_rows, DENSE_VIEW), rows(v, dec_rows, DENSE_VIEW),
+                     mask, cfg)[:, 0]
+    rec = {"shape": f"segments B=2 S=1024 offsets=[0, 5000], decode B=2 lengths=[1500, 700] "
+                    f"kv_bound={DENSE_VIEW}, T={DENSE_T} H={h} Hkv={hkv} D={d} "
+                    + ("int8 cache" if int8 else "bf16"),
+           "segment_bit_equal": torch.equal(seg_out, direct),
+           "segment_max_abs_diff": (seg_out.float() - direct.float()).abs().max().item(),
+           "decode_bit_equal": torch.equal(dec_out, read),
+           "finite": bool(torch.isfinite(seg_out).all() and torch.isfinite(dec_out).all())}
+    log(f"fused routing {json.dumps(rec)}")
+    if not (rec["segment_bit_equal"] and rec["decode_bit_equal"] and rec["finite"]):
+        raise AssertionError(f"fused_segment_decode_attention: {rec}")
 
 
 def _tp2_config():
@@ -1660,6 +1743,7 @@ def _serve(ctx, cfg, params, n_bytes: list[int], new_tokens: int, prompts=None,
         **spec,
         **({"steady_replays": steady_replays} if steady else {}),
         **({"request_total_s": [r.total_s for r in results],
+            "ttft_s": [r.ttft_s for r in results],
             "_tokens": [r.tokens for r in results]} if keep else {}),
     }
 
@@ -1754,6 +1838,24 @@ def _llama_params(ctx):
     return ctx["params"]
 
 
+# the depth two phases whose checks do not depend on it run at (since the
+# ring phase joined the default run): replay against direct call and the
+# lifecycle drills (``graphs``), the SPMD loopback pair (``spmd`` (a))
+SHALLOW_LAYERS = 8
+
+
+def _shallow(cfg, params) -> tuple:
+    """llama-3-8b's full width at its first ``SHALLOW_LAYERS`` layers: the
+    config and the same tree's layers sliced (views: nothing is copied)."""
+    layers = SHALLOW_LAYERS
+    tree = dict(params)
+    tree["layers"] = {
+        k: ({n: a[:layers] for n, a in v.items()} if isinstance(v, dict) else v[:layers])
+        for k, v in params["layers"].items()
+    }
+    return dataclasses.replace(cfg, n_layers=layers), tree
+
+
 def phase_e2e(ctx: dict) -> None:
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
 
@@ -1818,14 +1920,21 @@ def _dense_model_check(ctx, cfg, params) -> dict:
 
 
 DENSE_KW = {"kv_layout": "dense", "max_seq_len": 8192}
+DENSE_BYTES = [20, 90, 300, 600, 1200, 1500, 3000, 7000]
+DENSE_INT8_BYTES = [40, 300, 1100, 3000]
 
 
 def phase_dense(ctx: dict) -> None:
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
 
     cfg = MODEL_PRESETS["llama-3-8b"]
     params = _llama_params(ctx)
-    run = _serve(ctx, cfg, params, [20, 90, 300, 600, 1200, 1500, 3000, 7000], 32, **DENSE_KW)
+    prompts = [ByteTokenizer().encode(p) for p in _prompts(DENSE_BYTES, ctx["seed"])]
+    run = _serve(ctx, cfg, params, [], 32, prompts=prompts, **DENSE_KW)
+    # the segment loop's tokens and TTFT: the ring phase's reference
+    ctx["dense_reference"] = {"prompts": prompts, "new": 32, "_tokens": run.pop("_tokens"),
+                              "ttft_s": run["ttft_s"]}
     _require_launches(run, "flash_prefill", "admit_groups", cfg.n_layers)
     _require_launches(run, "flash_segment", "segments", cfg.n_layers)
     _require_launches(run, "dense_decode", "decode_steps", cfg.n_layers)
@@ -1838,9 +1947,14 @@ def phase_dense(ctx: dict) -> None:
 def phase_dense_int8(ctx: dict) -> None:
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
 
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
     cfg = dataclasses.replace(MODEL_PRESETS["llama-3-8b"], kv_cache_dtype="int8")
     params = _llama_params(ctx)
-    run = _serve(ctx, cfg, params, [40, 300, 1100, 3000], 16, **DENSE_KW)
+    prompts = [ByteTokenizer().encode(p) for p in _prompts(DENSE_INT8_BYTES, ctx["seed"])]
+    run = _serve(ctx, cfg, params, [], 16, prompts=prompts, **DENSE_KW)
+    ctx["dense_int8_reference"] = {"prompts": prompts, "new": 16, "_tokens": run.pop("_tokens"),
+                                   "ttft_s": run["ttft_s"]}
     _require_launches(run, "flash_segment_int8", "segments", cfg.n_layers)
     _require_launches(run, "dense_decode_int8", "decode_steps", cfg.n_layers)
     log(f"dense llama-3-8b int8-kv {json.dumps(run)}")
@@ -2297,13 +2411,13 @@ def _nan_drill(ctx, cfg, params) -> dict:
 
 
 def phase_graphs(ctx: dict) -> None:
-    """Replay against direct call at full width (paged bf16 and int8 with a
-    planted stale table, dense bf16 at 8192), then the lifecycle drills on
-    the card (a decode fault's restart and re-capture, a NaN quarantine)."""
+    """Replay against direct call at full width and ``SHALLOW_LAYERS``
+    depth (paged bf16 and int8 with a planted stale table, dense bf16 at
+    8192), then the lifecycle drills on the card (a decode fault's restart
+    and re-capture, a NaN quarantine)."""
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
 
-    cfg = MODEL_PRESETS["llama-3-8b"]
-    params = _llama_params(ctx)
+    cfg, params = _shallow(MODEL_PRESETS["llama-3-8b"], _llama_params(ctx))
     int8_cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
     for label, c, kw, plant in (("paged bf16", cfg, GRAPHS_KW, True),
                                 ("paged int8", int8_cfg, GRAPHS_KW, True),
@@ -6510,6 +6624,42 @@ def _spmd_wait(pred, timeout_s: float, what: str) -> float:
     return time.monotonic() - t0
 
 
+def _counting_channel(**kw):
+    """A loopback wire counting its announcements by op (``by_op``) and
+    timing them (``announce_s``)."""
+    from langstream_tpu_torch.parallel import spmd_serving as wire
+
+    class Channel(wire.LoopbackChannel):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.by_op: dict = {}
+            self.announce_s = 0.0
+
+        def announce(self, block):
+            t0 = time.perf_counter()
+            super().announce(block)
+            self.announce_s += time.perf_counter() - t0
+            self.by_op[block.op] = self.by_op.get(block.op, 0) + 1
+
+    return Channel(**kw)
+
+
+def _count_dispatches(leader, follower, methods: tuple) -> dict:
+    """Count each engine's calls of ``methods`` (to wait for the follower
+    to catch up with the leader) → {"leader": n, "follower": n}, live."""
+    dispatched = {"leader": 0, "follower": 0}
+    for name, engine in (("leader", leader), ("follower", follower)):
+        for method in methods:
+            real = getattr(engine, method)
+
+            def counted(*a, _real=real, _name=name, **k):
+                dispatched[_name] += 1
+                return _real(*a, **k)
+
+            setattr(engine, method, counted)
+    return dispatched
+
+
 def _spmd_loopback(ctx, cfg, params) -> dict:
     """Part (a): a leader and a follower engine in this process over a
     loopback channel, one weight tree, echo on. Returns the readings; raises
@@ -6526,39 +6676,15 @@ def _spmd_loopback(ctx, cfg, params) -> dict:
     from langstream_tpu_torch.serving.pagepool import table_len_for
     from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
 
-    class Channel(wire.LoopbackChannel):
-        """The loopback wire, counting announcements by op and timing them."""
-
-        def __init__(self, **kw):
-            super().__init__(**kw)
-            self.by_op: dict = {}
-            self.announce_s = 0.0
-
-        def announce(self, block):
-            t0 = time.perf_counter()
-            super().announce(block)
-            self.announce_s += time.perf_counter() - t0
-            self.by_op[block.op] = self.by_op.get(block.op, 0) + 1
-
     tok = ByteTokenizer()
     kw = dict(max_batch=8, decode_chunk=16, page_size=PAGE, eos_token_id=tok.eos_token_id,
               rng_seed=ctx["seed"], device="cuda", prefill_batch=8, **SPMD_KW)
-    ch = Channel(prefill_batch=8, max_width=2048, max_batch=8,
-                 table_len=table_len_for(SPMD_KW["max_seq_len"], PAGE),
-                 spec_tokens=SPMD_KW["speculation_tokens"], echo=True, decode_chunk=16)
+    ch = _counting_channel(prefill_batch=8, max_width=2048, max_batch=8,
+                           table_len=table_len_for(SPMD_KW["max_seq_len"], PAGE),
+                           spec_tokens=SPMD_KW["speculation_tokens"], echo=True, decode_chunk=16)
     leader = ServingEngine(cfg, params, spmd=ch, **kw)
     follower = ServingEngine(cfg, params, spmd=ch, **kw)
-    # each engine's dispatches, to wait for the follower to catch up
-    dispatched = {"leader": 0, "follower": 0}
-    for name, engine in (("leader", leader), ("follower", follower)):
-        for method in ("_dev_decode", "_dev_verify"):
-            real = getattr(engine, method)
-
-            def counted(*a, _real=real, _name=name, **k):
-                dispatched[_name] += 1
-                return _real(*a, **k)
-
-            setattr(engine, method, counted)
+    dispatched = _count_dispatches(leader, follower, ("_dev_decode", "_dev_verify"))
     errors: list = []
 
     def run():
@@ -6806,13 +6932,14 @@ def _spmd_world1(ctx, cfg, params) -> dict:
 
 
 def phase_spmd(ctx: dict) -> None:
-    """The SPMD plane on the card at llama-3-8b's full width and depth."""
+    """The SPMD plane on the card at llama-3-8b's full width: (a) at
+    ``SHALLOW_LAYERS`` depth, (b) and (c) at full depth."""
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
 
     cfg = MODEL_PRESETS["llama-3-8b"]
     params = _llama_params(ctx)
     t = time.monotonic()
-    pair = _spmd_loopback(ctx, cfg, params)
+    pair = _spmd_loopback(ctx, *_shallow(cfg, params))
     pair["part_s"] = time.monotonic() - t
     log(f"spmd loopback llama-3-8b bf16 {json.dumps(pair)}")
     t = time.monotonic()
@@ -6830,6 +6957,315 @@ def phase_spmd(ctx: dict) -> None:
         "recoveries": pair["spmd_recoveries"], "follower_start_s": procs["start_s"],
         "decode_ms_no_mesh": world1["no_mesh"]["device_ms_per_step"],
         "decode_ms_model1": world1["mesh_model1"]["device_ms_per_step"],
+    }))
+
+
+RING_NEW = 32
+RING_INT8_NEW = 16
+RING_PREFILL_BYTES = 7000  # a 7001-token prompt, padded to 8192 over 2 seq ranks
+# layer 0's K/V, ring against the segment loop: the same projections at
+# other GEMM shapes (M 4096 a rank against 2048 a segment), so bf16
+# roundings one ulp apart: |diff| <= atol + rtol * |ref| element by element
+RING_KV_TOL = {"atol": 1e-2, "rtol": 1e-2}
+
+
+def _ring_ranks(fn, n: int = 2) -> list:
+    """``fn(rank)`` on ``n`` threads, one a seq rank of a loopback ring →
+    the results in rank order; a rank that raised fails the run."""
+    out: list = [None] * n
+    errors: list = []
+
+    def run(r):
+        try:
+            out[r] = fn(r)
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(r,), name=f"ring-rank-{r}") for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"ring: a rank failed or hung: {errors!r}")
+    return out
+
+
+def _ring_prefill_check(ctx, cfg, params) -> dict:
+    """Part (a): ``ring_prefill`` of a 7001-token prompt padded to 8192 over
+    a loopback pair (seq ranks 0 and 1 on two threads) against the port's
+    dense chunked prefill (4 segments of 2048, the engine's kv_bound rule)
+    on the same weights: last-token logits within MODEL_REL_TOL of the
+    largest, top-1 equal; layer 0's K/V within RING_KV_TOL. Times both and
+    the ring's peak memory."""
+    import torch
+
+    from langstream_tpu_torch.models import transformer as tf
+    from langstream_tpu_torch.parallel.sp import ring_prefill
+    from langstream_tpu_torch.parallel.spmd_serving import LoopbackRing
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    prompt = ByteTokenizer().encode(_prompts([RING_PREFILL_BYTES], ctx["seed"])[0])
+    n, s_pad, width = len(prompt), 8192, 2048
+    tokens = torch.zeros((1, s_pad), dtype=torch.long, device="cuda")
+    tokens[0, :n] = torch.tensor(prompt, device="cuda")
+    lengths = torch.tensor([n], device="cuda")
+    rings = LoopbackRing.ranks(2)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def rank(r):
+        logits, kv = ring_prefill(params, tokens, lengths, cfg, rings[r])
+        return logits, kv["k"][0].clone(), kv["v"][0].clone()  # layer 0 of this rank's block
+
+    t0 = time.monotonic()
+    outs = _ring_ranks(rank)
+    torch.cuda.synchronize()
+    ring_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    if not torch.equal(outs[0][0], outs[1][0]):
+        raise AssertionError("ring prefill: the two ranks' logits differ")
+    ring_k = torch.cat([o[1] for o in outs], dim=2)  # [B, Hkv, S_pad, D]
+    ring_v = torch.cat([o[2] for o in outs], dim=2)
+    cache = tf.make_kv_cache(cfg, 1, s_pad + 1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for s0 in range(0, n, width):
+        seg, real = _segment_tokens(torch, tokens[:, :n], s0, width)
+        dense, _ = tf.prefill_segment(params, seg, torch.tensor([s0], device="cuda"),
+                                      torch.tensor([real], device="cuda"), cache, cfg,
+                                      kv_bound=min(s0 + width, s_pad))
+    torch.cuda.synchronize()
+    dense_s = time.monotonic() - t0
+    check = _hold_logits("ring prefill", {"kernel": [outs[0][0].float()],
+                                          "reference": [dense.float()]})
+    if not check["step0_top1_equal"]:
+        raise AssertionError(f"ring prefill: top-1 differs from the segment loop's {check}")
+    kv = {name: hold(f"ring prefill layer-0 {name.upper()}", mine[..., :n, :],
+                     cache[name][0][..., :n, :], RING_KV_TOL)
+          for name, mine in (("k", ring_k), ("v", ring_v))}
+    return {"prompt_tokens": n, "padded": s_pad, "ranks": 2, "logits": check, "layer0_kv": kv,
+            "ring_s": ring_s, "segment_loop_s": dense_s, "peak_gib": peak / 2**30}
+
+
+def _ring_pair(ctx, cfg, params, prompts, new_tokens: int) -> dict:
+    """Part (b): a leader and a follower engine as the {seq: 2} pair of one
+    replica (loopback channel with echo, ``LoopbackRing``), dense layout,
+    max_seq_len 8192, serving ``prompts`` greedy after one warm-up request,
+    kernel counts zeroed just before. Raises unless every long prompt was
+    ring-admitted, no segment ran, each engine launched exactly layers x
+    decode steps dense decode kernels (the process twice that), each
+    engine's replays equal the leader's chunks, every request gave
+    ``new_tokens``, and the follower's tokens, positions and ring slots'
+    cache rows are bit-equal to the leader's afterwards."""
+    import torch
+
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+    from langstream_tpu_torch.parallel import spmd_serving as wire
+    from langstream_tpu_torch.serving.engine import GenerationRequest, ServingEngine
+    from langstream_tpu_torch.serving.pagepool import pool_leaves
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    kw = dict(max_batch=8, decode_chunk=16, eos_token_id=tok.eos_token_id,
+              rng_seed=ctx["seed"], device="cuda", prefill_batch=8, **DENSE_KW)
+    ch = _counting_channel(prefill_batch=8, max_width=2048, max_batch=8, table_len=0,
+                           echo=True, decode_chunk=16)
+    rings = wire.LoopbackRing.ranks(2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    leader = ServingEngine(cfg, params, spmd=ch, ring=rings[0], **kw)
+    follower = ServingEngine(cfg, params, spmd=ch, ring=rings[1], **kw)
+    ring_slots: list = []
+    real_ring = leader._dev_ring
+
+    def ring_counted(tokens, prompt_len, *a, **k):
+        ring_slots.append((a[3], tokens.shape[1]))  # (slot, padded width)
+        return real_ring(tokens, prompt_len, *a, **k)
+
+    leader._dev_ring = ring_counted
+    dispatched = _count_dispatches(leader, follower, ("_dev_decode",))
+    errors: list = []
+
+    def run():
+        try:
+            wire.follower_loop(follower, ch)
+        except BaseException as e:  # noqa: BLE001 — read below
+            errors.append(e)
+
+    thread = threading.Thread(target=run, name="ring-follower", daemon=True)
+    thread.start()
+    out: dict = {}
+    try:
+        t0 = time.monotonic()
+        leader.start()
+        _spmd_wait(lambda: follower.graph_captures_total >= 3 * len(leader._graph_kinds())
+                   or errors, 300, "the follower's captures")
+        out["pair_capture_s"] = time.monotonic() - t0
+        leader.generate(tok.encode("warm up"), GenerationOptions(max_new_tokens=4), timeout=600)
+        _spmd_wait(lambda: errors or (ch._q.qsize() == 0
+                                      and dispatched["follower"] == dispatched["leader"]),
+                   120, "the follower to replay the warm-up")
+        torch.cuda.synchronize()
+        before = leader.stats()
+        f_replays0 = follower.graph_replays_total
+        ring_slots.clear()
+        opts = GenerationOptions(max_new_tokens=new_tokens, temperature=0.0)
+        reset_kernel_counts()
+        t0 = time.monotonic()
+        reqs = [leader.submit(GenerationRequest(prompt_tokens=p, options=opts)) for p in prompts]
+        results = [r.result(timeout=900) for r in reqs]
+        out["wall_s"] = time.monotonic() - t0
+        _spmd_wait(lambda: errors or (ch._q.qsize() == 0
+                                      and dispatched["follower"] == dispatched["leader"]),
+                   120, "the follower to replay the burst")
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        after = leader.stats()
+        if errors:
+            raise AssertionError(f"ring pair: the follower failed: {errors[0]!r}")
+        f_replays = follower.graph_replays_total - f_replays0
+        # lockstep: the decode chain and the ring slots' cache rows (the
+        # sink column left out), every leaf (int8: values and scales)
+        cols = leader.max_seq_len
+        same = {
+            "tokens": torch.equal(leader._tokens_dev, follower._tokens_dev),
+            "positions": torch.equal(leader._positions_dev, follower._positions_dev),
+            "ring_rows": all(
+                torch.equal(a[:, i, :, :cols], b[:, i, :, :cols])
+                for a, b in zip(pool_leaves(leader._cache), pool_leaves(follower._cache))
+                for i, _ in ring_slots
+            ),
+        }
+    finally:
+        leader.stop()
+        thread.join(timeout=60)
+    widest = max(leader.prefill_buckets)
+    long_prompts = sum(len(p) > widest for p in prompts)
+    rings_admitted = after["ring-admissions-total"] - before["ring-admissions-total"]
+    segments = after["prefill-segments-total"] - before["prefill-segments-total"]
+    steps = after["decode-steps-total"] - before["decode-steps-total"]
+    chunks = after["decode-chunks-total"] - before["decode-chunks-total"]
+    groups = after["admit-groups-total"] - before["admit-groups-total"]
+    replays = after["graph-replays-total"] - before["graph-replays-total"]
+    decode = "dense_decode_int8" if cfg.kv_cache_dtype == "int8" else "dense_decode"
+    got = counts[decode]["launches"]
+    plain = {k: v["cpu_calls"] for k, v in counts.items() if v["cpu_calls"]}
+    problems = []
+    if plain:
+        problems.append(f"plain versions ran: {plain}")
+    if rings_admitted != long_prompts or len(ring_slots) != long_prompts or segments:
+        problems.append(f"{rings_admitted} ring admissions ({len(ring_slots)} dispatches) and "
+                        f"{segments} segments for {long_prompts} long prompts")
+    if got != 2 * cfg.n_layers * steps or steps <= 0:
+        problems.append(f"{decode} launches {got} != 2 x {cfg.n_layers} x {steps} steps")
+    if groups and counts["flash_prefill"]["launches"] < 2 * cfg.n_layers * groups:
+        problems.append(f"flash_prefill launches {counts['flash_prefill']['launches']} < "
+                        f"2 x {cfg.n_layers} x {groups} admit groups")
+    if counts["flash_segment"]["launches"] or counts["flash_segment_int8"]["launches"]:
+        problems.append("a segment kernel ran on the ring pair's path")
+    if replays != chunks or f_replays != chunks or chunks <= 0:
+        problems.append(f"{chunks} chunks, replays leader {replays} follower {f_replays}")
+    for p, r in zip(prompts, results):
+        if r.error is not None or len(r.tokens) != new_tokens:
+            problems.append(f"request of {len(p)} tokens ended {r.finish_reason}: {r.error}")
+    if not all(same.values()):
+        problems.append(f"follower not bit-equal to the leader: {same}")
+    if problems:
+        raise AssertionError("ring pair: " + "; ".join(problems))
+    widths = sorted({w for _, w in ring_slots})
+    out.update({
+        "requests": len(results), "prompt_tokens": [len(p) for p in prompts],
+        "ring_admissions": rings_admitted, "ring_padded_widths": widths,
+        "admit_groups": groups, "segments": segments, "decode_steps": steps,
+        "decode_chunks": chunks, "graph_replays": {"leader": replays, "follower": f_replays},
+        "kernel_launches": {k: v["launches"] // 2 for k, v in counts.items()},
+        "ring_announces": ch.by_op.get(wire.OP_RING, 0), "echoes": ch.by_op.get(wire.OP_ECHO, 0),
+        "ttft_s": [r.ttft_s for r in results],
+        "tokens_per_s": sum(len(r.tokens) for r in results) / out["wall_s"],
+        "lockstep": same, "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "_tokens": [r.tokens for r in results],
+    })
+    return out
+
+
+def _ring_reference(ctx, cfg, params, prompts, new_tokens: int, key: str) -> dict:
+    """A single engine's segment loop over ``prompts`` (dense, 8192) → their
+    tokens and TTFT: from the ``dense`` / ``dense_int8`` phase's run
+    (``key``) when it served them in this process, else served here. A
+    request's tokens do not depend on the other rows of its batch (decode
+    runs all max_batch rows whatever is active; a long prompt prefills
+    alone)."""
+    ref = ctx.get(key)
+    if ref is None or ref["new"] != new_tokens or any(p not in ref["prompts"] for p in prompts):
+        run = _serve(ctx, cfg, params, [], new_tokens, prompts=prompts, **DENSE_KW)
+        ref = ctx[key] = {"prompts": prompts, "new": new_tokens, "_tokens": run["_tokens"],
+                          "ttft_s": run["ttft_s"]}
+    at = [ref["prompts"].index(p) for p in prompts]
+    return {"_tokens": [ref["_tokens"][i] for i in at], "ttft_s": [ref["ttft_s"][i] for i in at]}
+
+
+def phase_ring(ctx: dict) -> None:
+    """Ring prefill over the seq axis at llama-3-8b's full width and depth
+    (bf16, random weights from ``--seed``): (a) ``ring_prefill`` over a
+    loopback pair against the segment loop; (b) the {seq: 2} loopback
+    pair of engines serving the ``dense`` phase's traffic against a single
+    engine's segment loop, then an int8 dense cache with a 3001-token
+    prompt. Both ranks share one card, so no gain is expected."""
+    import gc
+
+    import torch
+
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    cfg = MODEL_PRESETS["llama-3-8b"]
+    params = _llama_params(ctx)
+    smi = smi_line()
+    t = time.monotonic()
+    pre = _ring_prefill_check(ctx, cfg, params)
+    pre["part_s"] = time.monotonic() - t
+    log(f"ring prefill llama-3-8b bf16 ({smi}) {json.dumps(pre)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tok = ByteTokenizer()
+    prompts = [tok.encode(p) for p in _prompts(DENSE_BYTES, ctx["seed"])]
+    ref = _ring_reference(ctx, cfg, params, prompts, RING_NEW, "dense_reference")
+    t = time.monotonic()
+    pair = _ring_pair(ctx, cfg, params, prompts, RING_NEW)
+    pair["part_s"] = time.monotonic() - t
+    pair["tokens_vs_segment_loop"] = _same_or_tie(ctx, cfg, params, "ring pair", prompts,
+                                                  pair.pop("_tokens"), ref["_tokens"])
+    widest = 2048
+    pair["ring_ttft_s"] = {len(p): [a, b] for p, a, b in zip(prompts, pair["ttft_s"],
+                                                              ref["ttft_s"]) if len(p) > widest}
+    log(f"ring pair {{seq: 2}} llama-3-8b bf16 ({smi}; ring_ttft_s: prompt tokens -> "
+        f"[ring, segment loop]) {json.dumps(pair)}")
+    if not pair["tokens_vs_segment_loop"]["ok"]:
+        raise AssertionError(f"ring pair tokens: {pair['tokens_vs_segment_loop']}")
+    ctx["ring"] = {"kernel_launches": pair["kernel_launches"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    # the dense_int8 phase's 3001-token prompt
+    long8 = [tok.encode(_prompts(DENSE_INT8_BYTES, ctx["seed"])[-1])]
+    ref8 = _ring_reference(ctx, cfg8, params, long8, RING_INT8_NEW, "dense_int8_reference")
+    t = time.monotonic()
+    pair8 = _ring_pair(ctx, cfg8, params, long8, RING_INT8_NEW)
+    pair8["part_s"] = time.monotonic() - t
+    pair8["tokens_vs_segment_loop"] = _same_or_tie(ctx, cfg8, params, "ring pair int8", long8,
+                                                   pair8.pop("_tokens"), ref8["_tokens"])
+    log(f"ring pair {{seq: 2}} llama-3-8b int8-kv ({smi}) {json.dumps(pair8)}")
+    if not pair8["tokens_vs_segment_loop"]["ok"]:
+        raise AssertionError(f"ring pair int8 tokens: {pair8['tokens_vs_segment_loop']}")
+    ctx["ring_int8"] = {"kernel_launches": pair8["kernel_launches"]}
+    ctx.setdefault("summaries", []).append(("ring", {
+        "prefill_s": pre["ring_s"], "segment_loop_s": pre["segment_loop_s"],
+        "prefill_peak_gib": pre["peak_gib"], "logits_rel_err": pre["logits"]["step0_rel_err"],
+        "ring_ttft_s": pair["ring_ttft_s"], "pair_tokens_per_s": pair["tokens_per_s"],
+        "ties": len(pair["tokens_vs_segment_loop"]["ties"]),
     }))
 
 
@@ -6858,7 +7294,8 @@ def kernel_record(ctx: dict) -> dict:
     # every serving run's launches of each kernel (counts zeroed before each)
     served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "prefix",
               "spec", "agentic", "dense_spec", "dense_prefix", "dense_prefix_int8", "tiered",
-              "fleet", "fleet_http", "spmd", "spmd_leader", "spmd_follower", "load", "moe")
+              "fleet", "fleet_http", "spmd", "spmd_leader", "spmd_follower", "ring", "ring_int8",
+              "load", "moe")
     out = []
     for name, (src, replaces, path) in sources.items():
         runs = ctx.get("kernel_runs", {}).get(name)

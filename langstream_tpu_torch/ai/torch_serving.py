@@ -171,10 +171,15 @@ forwards ``POST /fleet/cancel`` there. ``begin_drain()`` is the graceful
 half of ``close()``: stop routing, unregister the beacon, drain the engine
 and hibernate, while a runtime HTTP server still serves.
 
-  mesh: {data: D, expert: E, model: M} → one rank a card (the SPMD
+  mesh: {data: D, expert: E, seq: S, model: M} → one rank a card (the SPMD
     plane, ``parallel/``): the weights split over expert x model
     (``parallel.sharding``; collectives inside the captured chunks), data
-    ranks hold the whole model. One host: the provider is rank 0 and
+    and seq ranks hold the whole model (of their model-axis slice). With
+    ``seq`` > 1 and ``kv-layout: dense`` a long prompt is admitted by ONE
+    ring prefill over the seq ranks (``parallel/sp.py``: each rank
+    prefills its block, ring attention rotates K/V between them, the
+    blocks are gathered into every rank's cache); on the paged layout long
+    prompts keep the segment loop, as the JAX engine does. One host: the provider is rank 0 and
     starts the other N − 1 ranks as follower processes (``python -m
     langstream_tpu_torch.parallel.spmd_serving``), rank r on ``cuda:(r %
     device_count)`` (or the CPU with ``device: cpu``, gloo for the
@@ -182,10 +187,11 @@ and hibernate, while a runtime HTTP server still serves.
     (``parallel/multihost.py``) and the mesh product must equal the hosts.
     The leader announces every device dispatch and the followers replay it
     (``parallel/spmd_serving.py``); ``close()`` announces OP_STOP and
-    waits for every follower to exit. A model or expert axis above 1
+    waits for every follower to exit. A model, expert or seq axis above 1
     where two ranks would share one card is refused (NCCL cannot put two
-    ranks of a communicator on one device); ``mesh.seq`` > 1 (ring
-    prefill) is refused (ROADMAP item 7b). A mesh on the card at world 1
+    ranks of a communicator on one device; on one card a seq ring runs
+    only as an in-process loopback pair, ``spmd_serving.LoopbackRing``,
+    which the provider never builds). A mesh on the card at world 1
     ({model: 1}) runs the TP collectives over a world-1 NCCL group. A
     multi-rank mesh turns the host KV tier, the durable tier, adapters and
     constrained decoding off, as the JAX engine does under SPMD (the JAX
@@ -266,6 +272,7 @@ from langstream_tpu_torch.models.streamload import load_params_streamed
 from langstream_tpu_torch.models.transformer import encode
 from langstream_tpu_torch.ops.attention import kernel_path_ok
 from langstream_tpu_torch.parallel.mesh import axis_sizes, build_mesh
+from langstream_tpu_torch.parallel.ring_attention import seq_ring
 from langstream_tpu_torch.parallel.multihost import DistributedConfig, bootstrap
 from langstream_tpu_torch.parallel.sharding import shard_params
 from langstream_tpu_torch.parallel.spmd_serving import SpmdChannel
@@ -358,8 +365,7 @@ class _StreamState:
 
 
 def mesh_axes(resource: dict[str, Any]) -> Optional[dict[str, int]]:
-    """The resource's ``mesh`` as axis sizes (None when off); ``seq`` > 1
-    is refused."""
+    """The resource's ``mesh`` as axis sizes (None when off)."""
     value = resource.get("mesh")
     if not _asks_for(value):
         return None
@@ -367,11 +373,6 @@ def mesh_axes(resource: dict[str, Any]) -> Optional[dict[str, int]]:
         raise ValueError(f"mesh must be a mapping of axis sizes, got {value!r}")
     axes = {str(k): int(v) for k, v in value.items()}
     axis_sizes(axes)  # unknown axes / sizes below 1 raise
-    if axes.get("seq", 1) > 1:
-        raise NotImplementedError(
-            "mesh.seq > 1: ring prefill over a sequence axis is not served by the PyTorch "
-            "port yet (ROADMAP item 7b)"
-        )
     return axes
 
 
@@ -480,12 +481,11 @@ class TorchCompletionsService(CompletionsService):
         if device.type == "cuda" and self.mesh_axes is not None:
             # one rank a card: rank r on cuda:(r % device_count)
             count = torch.cuda.device_count()
-            tp = (self.mesh_axes or {}).get("model", 1) * (self.mesh_axes or {}).get("expert", 1)
-            if tp > 1 and not self.dist_config.is_multihost and self.world > count:
+            if self._device_groups() and not self.dist_config.is_multihost and self.world > count:
                 raise ValueError(
                     f"mesh {self.mesh_axes}: {self.world} ranks on {count} card(s) would put two "
-                    "ranks of one model / expert group on one card, which NCCL cannot do; "
-                    "only a data axis may share a card"
+                    "ranks of one model / expert / seq group on one card, which NCCL cannot "
+                    "do; only a data axis may share a card"
                 )
             device = torch.device("cuda", self.rank % count)
         self.device = device
@@ -564,8 +564,7 @@ class TorchCompletionsService(CompletionsService):
             return None
         if self._mesh is None:
             cuda = self.device.type == "cuda"
-            tp = self.mesh_axes.get("model", 1) * self.mesh_axes.get("expert", 1)
-            if tp > 1:
+            if self._device_groups():
                 backend = "nccl" if cuda else "gloo"
             else:
                 backend = "nccl" if cuda and self.world == 1 else None
@@ -590,8 +589,19 @@ class TorchCompletionsService(CompletionsService):
                 # one eagerly, before any capture
                 for group in {id(g): g for g in self._mesh.groups.values()}.values():
                     dist.all_reduce(torch.zeros(1, device=self.device), group=group)
+                # the ring's send / receive may make a communicator of its
+                # own at its first use: warm it the same way
+                ring = seq_ring(self._mesh)
+                if ring is not None:
+                    ring.warm(self.device)
                 torch.cuda.synchronize(self.device)
         return self._mesh
+
+    def _device_groups(self) -> bool:
+        """Whether the mesh's axes need device process groups: the weights
+        split (expert x model above 1) or a seq ring."""
+        axes = self.mesh_axes or {}
+        return axes.get("model", 1) * axes.get("expert", 1) > 1 or axes.get("seq", 1) > 1
 
     def spmd_channel(self) -> Any:
         """The SPMD channel (None at world 1), built with the engine."""
@@ -1157,8 +1167,8 @@ class TorchEmbeddingsService(EmbeddingsService):
     device-wide synchronize) and calls no ``gc.collect()``, so it may run
     while the engine captures its graphs (a thread-local capture on
     another thread) or replays them. The JAX provider refuses embeddings on
-    a multi-host replica; the port has no multi-host tier (ROADMAP item 7),
-    so there is nothing to refuse."""
+    a multi-host replica; the port refuses them on any multi-rank or
+    tensor-parallel mesh (``get_embeddings_service``)."""
 
     def __init__(self, holder: TorchCompletionsService, step_config: dict[str, Any]) -> None:
         self.holder = holder

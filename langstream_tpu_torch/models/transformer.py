@@ -69,7 +69,10 @@ and N adapters share one call. K/V written to a cache include the
 ``wk`` / ``wv`` deltas; a verify applies a row's adapter to all k+1 of its
 queries before the kernel path flattens them.
 
-Not ported yet: ring attention.
+Sequence parallelism: ``forward`` and the layer take a ring handle
+(``ring``, ``parallel/ring_attention.py``) as they take ``tp``; with one
+and no cache, a layer's attention is ``ring_attention`` over the rank's
+block of the sequence at global positions (``parallel/sp.py``).
 """
 
 from __future__ import annotations
@@ -664,6 +667,8 @@ def _layer(
     lora: Optional[LayerLora] = None,
     verify: bool = False,
     tp: Optional[Any] = None,
+    ring: Optional[Any] = None,
+    kv_out: Optional[list] = None,
 ) -> torch.Tensor:
     """One transformer block. With ``cache_kv`` (a dense cache: an admit
     group's local cache, a long prompt's local cache or the big cache) K/V
@@ -684,7 +689,12 @@ def _layer(
     adapted projection, before K/V are written. Under tensor parallelism
     (``tp``) ``config`` holds the rank's heads (``parallel.sharding
     .local_config``): q/k/v run over them and the row-parallel ``wo``'s
-    partial sum is all-reduced over the model axis before the residual."""
+    partial sum is all-reduced over the model axis before the residual.
+    With ``ring`` (a ring handle, ``parallel.ring_attention``) and no cache
+    the rows are this rank's block of a sequence split over the ring, and
+    attention is ``ring_attention`` (never a kernel: causality comes from
+    the blocks' global positions); ``kv_out`` collects the layer's roped
+    head-major K/V."""
     b, s, _ = x.shape
     hd = config.resolved_head_dim
 
@@ -700,8 +710,14 @@ def _layer(
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)  # [B, Hkv, S, D]
+    if kv_out is not None:
+        kv_out.append((kt, vt))
 
-    if paged is not None:
+    if ring is not None and cache_kv is None and paged is None:
+        from langstream_tpu_torch.parallel.ring_attention import ring_attention
+
+        attn = ring_attention(q, k, v, config, ring)
+    elif paged is not None:
         table, page_size, lengths, index, segment = paged
         ck, cv = cache_kv
         _scatter_at(ck, kt, index)
@@ -805,19 +821,40 @@ def _cache_layer(cache: KVCache, i: int) -> tuple:
 
 @torch.no_grad()
 def forward(params: Params, tokens: torch.Tensor, config: ModelConfig,
-            tp: Optional[Any] = None) -> torch.Tensor:
-    """Full-sequence causal forward → logits [B, S, V] (scoring)."""
+            tp: Optional[Any] = None, ring: Optional[Any] = None) -> torch.Tensor:
+    """Full-sequence causal forward → logits [B, S, V] (scoring).
+
+    With ``ring`` (``parallel.sp``) ``tokens`` is this rank's block of the
+    sequence: RoPE positions are global (``ring.rank · S`` on) and the
+    causal mask lives inside ring attention."""
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, device=dev).expand(b, s)
+    if ring is not None:
+        positions = positions + ring.rank * s
     sin, cos = _rope_freqs(positions, config)
     mask = None
-    if not kernel_path_ok(config, dev) or s == 1:
+    if ring is None and (not kernel_path_ok(config, dev) or s == 1):
         mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=dev))[None].expand(b, s, s)
     x = _embed(params, tokens, config, tp)
-    for i in range(config.n_layers):
-        x = _layer(x, _layer_params(params["layers"], i), sin, cos, mask, config, tp=tp)
+    x, _ = _scan_layers(params, x, sin, cos, mask, config, tp=tp, ring=ring)
     return _unembed(params, x, config, tp)
+
+
+def _scan_layers(params: Params, x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,
+                 mask: Optional[torch.Tensor], config: ModelConfig, collect_kv: bool = False,
+                 tp: Optional[Any] = None, ring: Optional[Any] = None) -> tuple:
+    """The cache-less layer loop. With ``collect_kv`` each layer's roped
+    head-major K/V stack into ``{"k", "v"}`` of ``[L, B, Hkv, S, D]`` — the
+    makings of a serving cache (the JAX package's ``_scan_layers(...,
+    collect_kv=True)``); else the second result is None."""
+    kvs: Optional[list] = [] if collect_kv else None
+    for i in range(config.n_layers):
+        x = _layer(x, _layer_params(params["layers"], i), sin, cos, mask, config, tp=tp,
+                   ring=ring, kv_out=kvs)
+    if kvs is None:
+        return x, None
+    return x, {"k": torch.stack([k for k, _ in kvs]), "v": torch.stack([v for _, v in kvs])}
 
 
 @torch.no_grad()

@@ -21,6 +21,10 @@ Seven kernels, each a hand-written CUDA C++ kernel for Hopper
   (``csrc/ragged_decode.cu``; replaces ``_paged_decode_kernel`` /
   ``_paged_decode_int8_kernel``).
 
+``fused_segment_decode_attention`` routes a mixed batch of prefill
+segments and decode rows over one cache to those kernels and the
+reference read, as the JAX package's does; nothing serves through it.
+
 A wrapper takes its plain version only because the tensor it was given lies
 on the CPU; on a CUDA tensor it launches the kernel or raises — there is no
 fallback. Each wrapper counts its kernel launches in a plain int attribute
@@ -958,6 +962,62 @@ def multitoken_verify_attention(
     kernel = ragged_decode_attention_int8 if isinstance(k, dict) else ragged_decode_attention
     out = kernel(q.reshape(b * s, h, d).contiguous(), k, v, lengths, config, queries_per_row=s)
     return out.reshape(b, s, h * d)
+
+
+# ---------------------------------------------------------------------------
+# A mixed batch of prefill segments and decode rows over one cache: the
+# JAX package's ``fused_segment_decode_attention`` (a routing over the
+# kernels, not a kernel; no serving path calls it, there or here)
+# ---------------------------------------------------------------------------
+
+
+def fused_segment_decode_attention(
+    q_seg: torch.Tensor,  # [P, S, H, D] segment queries (prefill rows)
+    seg_offsets: torch.Tensor,  # [P] int32 global position of each segment start
+    q_dec: torch.Tensor,  # [Bd, H, D] one query per decode row
+    k: CacheEntry,  # [B, Hkv, T, D] shared head-major cache (or int8 {"q","s"})
+    v: CacheEntry,
+    seg_rows: torch.Tensor,  # [P] cache row of each prefill row
+    dec_rows: torch.Tensor,  # [Bd] cache row of each decode row
+    dec_lengths: torch.Tensor,  # [Bd] valid cache prefix per decode row
+    config: ModelConfig,
+    kv_bound: Optional[int] = None,  # cap on the decode rows' readable columns
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prefill-segment rows and single-token decode rows over ONE cache →
+    ([P, S, H*D] segment out, [Bd, H*D] decode out). The segment rows' own
+    K/V must already be in the cache at [offset, offset + S) (the
+    ``flash_segment_attention`` contract); decode rows attend to their
+    first ``dec_lengths`` columns. It only routes: the segment rows go to
+    ``flash_segment_attention`` (``_int8`` over an int8 cache) when the
+    kernel gate holds, else to the masked reference ``attention``; the
+    decode rows to the masked reference over the ``kv_bound``-sliced
+    cache — each half what its standalone path computes."""
+    from langstream_tpu_torch.models.transformer import attention
+
+    def each(entry: CacheEntry, fn: Callable) -> CacheEntry:
+        return {n: fn(a) for n, a in entry.items()} if isinstance(entry, dict) else fn(entry)
+
+    quantized = isinstance(k, dict)
+    t = (k["q"] if quantized else k).shape[2]
+    k_seg, v_seg = (each(e, lambda a: a[seg_rows.long()]) for e in (k, v))
+    s = q_seg.shape[1]
+    if kernel_path_ok(config, q_seg.device):
+        kernel = flash_segment_attention_int8 if quantized else flash_segment_attention
+        seg_out = kernel(q_seg.contiguous(), k_seg, v_seg,
+                         seg_offsets.to(torch.int32).contiguous(), config)
+    else:
+        positions = seg_offsets.long()[:, None] + torch.arange(s, device=q_seg.device)[None, :]
+        kv_pos = torch.arange(t, device=q_seg.device)[None, None, :]
+        seg_out = attention(q_seg, k_seg, v_seg, kv_pos <= positions[:, :, None], config)
+
+    t_dec = t if kv_bound is None else min(kv_bound, t)
+    k_dec, v_dec = (each(e, lambda a: a[dec_rows.long(), :, :t_dec]) for e in (k, v))
+    dec_mask = (
+        torch.arange(t_dec, device=q_dec.device)[None, None, :]
+        < dec_lengths.long()[:, None, None]
+    )  # [Bd, 1, T]
+    dec_out = attention(q_dec[:, None], k_dec, v_dec, dec_mask, config)
+    return seg_out, dec_out[:, 0]
 
 
 # name → wrapper, the set chip_smoke.py and stats() report

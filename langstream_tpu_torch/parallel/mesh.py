@@ -1,8 +1,10 @@
 """Rank meshes from axis dicts: the port's ``parallel/mesh.py``.
 
 Axes (any may be size 1): "data" (replicas of the whole model), "expert"
-(MoE experts), "seq" (sequence parallelism, not served yet) and "model"
-(tensor parallelism). The axis order is the JAX package's, "model"
+(MoE experts), "seq" (sequence parallelism: the ring prefill of long
+prompts, ``ring_attention.SeqRing`` over the axis's group; the weights
+and the serving cache are replicated over it) and "model" (tensor
+parallelism). The axis order is the JAX package's, "model"
 innermost: rank ``r`` sits where device ``r`` sits in the JAX mesh's
 device array for the same axes (``np.unravel_index`` over the axis sizes),
 so the ranks of one tensor-parallel group are consecutive — on one host,

@@ -231,8 +231,9 @@ class TensorParallel:
 
 
 def tensor_parallel(mesh: Optional[Any], config: ModelConfig) -> Optional[TensorParallel]:
-    """The TP handle a mesh needs: one when its device groups exist (expert
-    x model above 1, or a world-1 mesh on the card), else None."""
-    if mesh is None or not mesh.groups:
+    """The TP handle a mesh needs: one when its device groups exist for
+    expert x model above 1, or on a world-1 mesh on the card, else None (a
+    seq-only mesh's groups serve its ring)."""
+    if mesh is None or not mesh.groups or (mesh.tensor_parallel == 1 and mesh.world > 1):
         return None
     return TensorParallel(mesh, config)

@@ -105,7 +105,12 @@ graphs, with the same collectives inside, in the same order; the prefill
 and prefix families have nothing to capture in the port and replay as
 nothing. ``OP_DECODE`` / ``OP_VERIFY`` carry the sampling branch of the
 graph to replay in ``width`` (0 greedy, 1 sampled, 2 filtered). Ring
-prefill (``OP_RING``) is not served yet (ROADMAP item 7b).
+prefill (``OP_RING``): the leader streams a long prompt in chunks of
+``prefill_batch x max_width`` tokens, the follower gathers them and, at
+the final one, pads the prompt as the leader did (``_ring_pad``) and makes
+the same ``_dev_ring`` dispatch — each rank its own block of the ring. A
+loopback pair runs its ring through ``LoopbackRing``: two engines of one
+process (one card) as seq ranks 0 and 1.
 
 Fixed shapes: collectives require every process to present identical
 shapes, so the block is padded to (prefill_batch, max bucket width) and
@@ -758,6 +763,99 @@ class LoopbackChannel(SpmdChannel):
         return req
 
 
+class LoopbackRing:
+    """A ring handle (``parallel.ring_attention``) for ``n`` seq ranks in
+    ONE process: a loopback pair's leader and follower engines (one card,
+    or the CPU), each on its own thread. Used by tests and
+    ``chip_smoke.py`` — NCCL cannot put two ranks of one group on one card,
+    so this is how a seq ring runs on a single card; the provider never
+    builds it. ``LoopbackRing.ranks(n)`` makes the handles.
+
+    Every operation is an exchange: each rank deposits its tensors (and,
+    on the card, an event its stream recorded after making them), waits
+    until every rank has deposited, and reads the others'. A reader's
+    stream waits on the writer's event, and each tensor it reads is marked
+    in use by the reader's stream (``record_stream``), so the writer's
+    allocator cannot hand the memory out again before the reader is done.
+    Deposited tensors are never written again; the sum and the gather
+    return new tensors, made in rank order (bit-equal on every rank)."""
+
+    class _Hub:
+        def __init__(self, n: int, timeout_s: float) -> None:
+            import threading as _threading
+
+            self.n = n
+            self.timeout_s = timeout_s
+            self.cond = _threading.Condition()
+            self.calls = [0] * n
+            self.slots: dict = {}
+
+        def exchange(self, rank: int, value: tuple) -> list:
+            with self.cond:
+                key = self.calls[rank]
+                self.calls[rank] += 1
+                slot = self.slots.setdefault(key, {"values": [None] * self.n, "read": 0})
+                slot["values"][rank] = value
+                self.cond.notify_all()
+                if not self.cond.wait_for(
+                    lambda: all(v is not None for v in slot["values"]), self.timeout_s
+                ):
+                    raise RuntimeError(
+                        f"loopback ring: rank {rank} waited {self.timeout_s:.0f}s at exchange "
+                        f"{key} for the other ranks"
+                    )
+                slot["read"] += 1
+                if slot["read"] == self.n:
+                    del self.slots[key]
+                return list(slot["values"])
+
+    def __init__(self, hub: "LoopbackRing._Hub", rank: int) -> None:
+        self._hub = hub
+        self.n = hub.n
+        self.rank = rank
+
+    @classmethod
+    def ranks(cls, n: int = 2, timeout_s: float = 600.0) -> list["LoopbackRing"]:
+        hub = cls._Hub(n, timeout_s)
+        return [cls(hub, r) for r in range(n)]
+
+    def _exchange(self, tensors: tuple) -> list:
+        import torch
+
+        event = None
+        if tensors[0].device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        got = self._hub.exchange(self.rank, (tensors, event))
+        out = []
+        for r, (ts, ev) in enumerate(got):
+            if ev is not None and r != self.rank:
+                stream = torch.cuda.current_stream(ts[0].device)
+                stream.wait_event(ev)
+                for t in ts:
+                    t.record_stream(stream)
+            out.append(ts)
+        return out
+
+    def permute(self, *tensors):
+        """This rank's tensors to the next rank; the previous rank's back."""
+        return list(self._exchange(tensors)[(self.rank - 1) % self.n])
+
+    def all_reduce(self, x):
+        """The sum over the ranks, in rank order (a new tensor)."""
+        parts = [ts[0] for ts in self._exchange((x,))]
+        total = parts[0].clone()
+        for p in parts[1:]:
+            total += p
+        return total
+
+    def all_gather(self, x):
+        """``[n, *x.shape]``, rank order (a new tensor)."""
+        import torch
+
+        return torch.stack([ts[0] for ts in self._exchange((x,))])
+
+
 class SpmdDivergenceError(RuntimeError):
     """Leader and follower state provably disagree (echo mismatch, sequence
     gap, or an un-replayable block) and a resync was unavailable, already
@@ -1139,9 +1237,35 @@ def _replay(
     elif block.op == OP_ECHO:
         _check_echo(engine, block, pending_echo)
     elif block.op == OP_RING:
-        _fail_divergence(
-            engine, block, "OP_RING: ring prefill is not served by the port (ROADMAP item 7b)"
+        # the prompt streams in (prefill_batch x max_width)-token chunks;
+        # the final chunk fires the one-dispatch ring admit
+        if block.long_start:
+            engine._spmd_ring_buf.clear()
+        engine._spmd_ring_buf.append(
+            np.asarray(block.tokens, np.int32).reshape(-1)[: block.seg_len]
         )
+        if block.long_final:
+            prompt = np.concatenate(engine._spmd_ring_buf)
+            engine._spmd_ring_buf.clear()
+            # the leader's padding, derived from the shared config: only
+            # the prompt itself rides the wire
+            s_pad = engine._ring_pad(block.prompt_len) if engine._ring_admit else None
+            if s_pad is None or len(prompt) != block.prompt_len:
+                _fail_divergence(
+                    engine, block,
+                    f"OP_RING: {len(prompt)} of {block.prompt_len} prompt tokens, padding "
+                    f"{s_pad} (this rank has no ring admit, or lost a chunk)",
+                )
+            tokens = np.zeros((1, s_pad), np.int64)
+            tokens[0, : len(prompt)] = prompt
+            engine._dev_ring(
+                tokens,
+                block.prompt_len,
+                float(block.temps[0]),
+                int(block.top_ks[0]),
+                float(block.top_ps[0]),
+                block.long_idx,
+            )
     else:
         _fail_divergence(engine, block, f"unknown op {block.op}")
 

@@ -258,6 +258,18 @@ tier, the durable tier, adapters and constrained decoding are off (with a
 warning when asked for), as the JAX engine turns them off; a failed
 prefill or segment crashes the replica into recovery instead of failing
 its request alone; KV-page migration commands are refused.
+
+Ring prefill (a mesh whose "seq" axis is above 1, or a ``ring`` handle
+given; dense layout only, as in the JAX engine). A long prompt with no
+full-width prefix hit, no grammar and no adapter, whose pow2-block padding
+(``_ring_pad``) fits max_seq_len, is admitted in ONE dispatch instead of
+the segment loop: ``parallel.sp.ring_prefill`` over the seq ranks (each
+embeds its block, ring attention rotates K/V), the blocks gathered over
+the ring into the slot's row of the big cache (quantized for an int8
+cache), and the first sample (``_dev_ring``). The leader streams the
+prompt to the followers first (``OP_RING`` chunks) and every rank makes
+the same dispatch; its tokens count against the iteration's prefill
+budget, and its request's spans report the path ``ring``.
 """
 
 from __future__ import annotations
@@ -279,6 +291,7 @@ from langstream_tpu_torch.device import DeviceLike, resolve_device
 from langstream_tpu_torch.models.configs import GenerationOptions, ModelConfig
 from langstream_tpu_torch.models.transformer import (
     KVCache,
+    _quantize_kv,
     decode_step_inplace,
     dense_insert_cache,
     make_kv_cache,
@@ -316,6 +329,7 @@ from langstream_tpu_torch.serving.observability import (
 )
 from langstream_tpu_torch.ops.kvcopy import gather_prefix_local, publish_prefix_rows
 from langstream_tpu_torch.parallel import spmd_serving as wire
+from langstream_tpu_torch.parallel.ring_attention import seq_ring
 from langstream_tpu_torch.parallel.sharding import local_config, tensor_parallel
 from langstream_tpu_torch.serving.pagepool import (
     HostPageTier,
@@ -525,7 +539,7 @@ class _Slot:
     # observability: the inter-token clock and the request span's
     # attributes (host bookkeeping only)
     last_token_at: float = 0.0
-    path: str = "cold"  # cold | warm | long: the admission route
+    path: str = "cold"  # cold | warm | long | ring: the admission route
     prefill_chunks: int = 0
     decode_iters: int = 0
     verify_iters: int = 0
@@ -997,6 +1011,7 @@ class ServingEngine:
         prefill_batch: Optional[int] = None,
         mesh: Optional[Any] = None,
         spmd: Optional[Any] = None,
+        ring: Optional[Any] = None,
     ) -> None:
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; supported: paged, dense")
@@ -1086,6 +1101,15 @@ class ServingEngine:
             self._cache = make_kv_cache(
                 config, self.max_batch, self.max_seq_len + 1, device=self.device
             )
+        # ring prefill: a mesh whose seq axis is above 1 (or a ring handle
+        # given, ``spmd_serving.LoopbackRing``) admits long prompts in ONE
+        # sequence-split dispatch instead of the segment loop. Dense layout
+        # only: the ring admit splices into the big cache; on the paged
+        # layout long prompts keep the segment loop, as in the JAX engine
+        self._ring = ring if ring is not None else seq_ring(mesh)
+        self._ring_admit = self._ring is not None and self._ring.n > 1 and not self._paged
+        # a follower's OP_RING token chunks, until the final one
+        self._spmd_ring_buf: list = []
         # the dense prefix pool: rows of the widest bucket's columns, as
         # many as the fraction of the cache's tokens (an explicit entry
         # count wins, 0 disables it); allocated after the memory plan
@@ -1365,6 +1389,7 @@ class ServingEngine:
         self.admit_groups_total = 0
         self.prefill_tokens_total = 0
         self.prefill_segments_total = 0
+        self.ring_admissions_total = 0
         self.decode_chunks_total = 0
         self.decode_steps_total = 0
         self.nan_guard_total = 0
@@ -2220,6 +2245,7 @@ class ServingEngine:
                 "admit-groups-total": self.admit_groups_total,
                 "prefill-tokens-total": self.prefill_tokens_total,
                 "prefill-segments-total": self.prefill_segments_total,
+                "ring-admissions-total": self.ring_admissions_total,
                 "decode-chunks-total": self.decode_chunks_total,
                 "decode-steps-total": self.decode_steps_total,
                 "kv-layout": self.kv_layout,
@@ -2587,6 +2613,7 @@ class ServingEngine:
         graphs are captured as the leader's ``OP_WARMUP`` replays."""
         self._freed_slots.clear()
         self._long_caches.clear()
+        self._spmd_ring_buf.clear()
         self._pending_row_resets.clear()
         self._pending_page_zero.clear()
         self._spec_index.clear()
@@ -4616,6 +4643,23 @@ class ServingEngine:
                 if hit is not None:
                     base, st["prefix"] = hit
                     self._prefix_pool.acquire(st["prefix"])
+            if (
+                self._ring_admit
+                and "prefix" not in st
+                # the ring admit threads no adapter and no grammar: agentic
+                # requests take the segment loop, as in the JAX engine
+                and request._dfa is None
+                and not request.options.adapter
+                and self._ring_pad(len(request.prompt_tokens)) is not None
+            ):
+                # the whole prompt in ONE sequence-split dispatch: it never
+                # becomes a stream, but its tokens count against this
+                # iteration's prefill budget
+                entries.extend(self._ring_step(free, request))
+                spent += len(request.prompt_tokens)
+                if spent >= budget:
+                    return entries, spent
+                continue
             st["base"] = base
             self._longs[free] = st
         # round-robin, so two streams alternate when the budget covers one
@@ -4777,6 +4821,127 @@ class ServingEngine:
         del self._long_caches[idx]
         slots = np.array([idx], np.int64)
         dense_insert_cache(self._cache, cache, self._upload(slots))
+        return self._seed_chain(
+            logits, slots, np.array([prompt_len], np.int64), np.array([temp], np.float32),
+            np.array([top_k], np.int64), np.array([top_p], np.float32), agentic,
+        )
+
+    # -- ring prefill ------------------------------------------------------------
+
+    def _ring_pad(self, prompt_len: int) -> Optional[int]:
+        """Padded width for the ring path: seq-axis-many pow2 blocks of at
+        least 128 tokens (few distinct shapes). None when that padding
+        cannot fit max_seq_len — the prompt then takes the segment loop,
+        which has no divisibility constraint."""
+        n = self._ring.n
+        block = 128
+        while block * n < prompt_len:
+            block *= 2
+        s_pad = block * n
+        return s_pad if s_pad <= self.max_seq_len else None
+
+    def _ring_step(self, idx: int, request: GenerationRequest) -> list[tuple]:
+        """One-dispatch ring prefill of a long prompt into slot ``idx``,
+        which activates at once. Under SPMD the leader first streams the
+        prompt to the followers (``_announce_ring``), so every rank makes
+        the same dispatch. A failure fails the request on a single-rank
+        engine and crashes the replica into a coordinated recovery under
+        SPMD. A request cancelled or expired in the long queue resolves
+        here instead, with no dispatch."""
+        if self._resolve_if_dead(request, time.monotonic()):
+            return []
+        prompt = request.prompt_tokens
+        s_pad = self._ring_pad(len(prompt))
+        assert s_pad is not None  # the caller checked
+        tokens = np.zeros((1, s_pad), np.int64)
+        tokens[0, : len(prompt)] = prompt
+        opts = request.options
+        agentic = self._row_agentic([request], 1)
+        started = time.monotonic()
+        try:
+            if self._spmd is not None:
+                self._announce_ring(tokens, len(prompt), opts, idx)
+            first = self._dev_ring(tokens, len(prompt), opts.temperature, opts.top_k,
+                                   opts.top_p, idx, agentic)
+        except Exception as e:  # noqa: BLE001 — fail the request, not the engine
+            if _is_sticky(e) or self._spmd is not None:
+                raise  # multi-rank: crash the replica into a coordinated recovery
+            log.exception("ring prefill failed")
+            request._finish(self._result(request, [], "error", error=e))
+            return []
+        if self._obs.on:
+            self._obs.record("engine_prefill_dispatch_s", time.monotonic() - started)
+        slot = self._slots[idx]
+        slot.request = request
+        slot.position = len(prompt)
+        slot.generated = []
+        slot.started_at = time.monotonic()
+        slot.first_token_at = 0.0
+        slot.reset_obs("ring", 1)
+        self._slot_bind_agentic(idx, request)
+        self._spec_admit(idx, prompt)
+        with self._stats_lock:
+            self.total_requests += 1
+            self.prefill_tokens_total += len(prompt)
+            self.ring_admissions_total += 1
+        self._note_tenant_admitted(request)
+        self._maybe_publish(idx, prompt)
+        return [("prefill", self._fetcher.submit(first), [(idx, request)], 0)]
+
+    def _announce_ring(self, tokens: np.ndarray, prompt_len: int, opts, idx: int) -> None:
+        """Stream the PROMPT (not its padding: the follower derives the same
+        ``_ring_pad`` and zero-pads itself) over the fixed-shape channel in
+        chunks of prefill_batch x max_width tokens; the final chunk carries
+        the sampling params and fires the follower's ``_dev_ring``."""
+        flat = tokens.reshape(-1)[:prompt_len]
+        width = self._spmd.max_width
+        chunk_cap = self._spmd.prefill_batch * width
+        for start in range(0, prompt_len, chunk_cap):
+            piece = flat[start:start + chunk_cap]
+            rows = -(-len(piece) // width)
+            padded = np.zeros(rows * width, np.int32)
+            padded[: len(piece)] = piece
+            self._spmd.announce(wire.ControlBlock(
+                op=wire.OP_RING, width=width, n_rows=rows, tokens=padded.reshape(rows, width),
+                seg_len=len(piece), long_start=start == 0,
+                long_final=start + chunk_cap >= prompt_len, long_idx=idx,
+                prompt_len=prompt_len,
+                temps=np.asarray([opts.temperature], np.float32),
+                top_ks=np.asarray([opts.top_k], np.int32),
+                top_ps=np.asarray([opts.top_p], np.float32),
+            ))
+
+    def _dev_ring(self, tokens: np.ndarray, prompt_len: int, temp: float, top_k: int,
+                  top_p: float, idx: int,
+                  agentic: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Device layer of the ring admit (leader and followers alike): the
+        sequence-split prefill (``parallel.sp.ring_prefill``), the K/V
+        blocks gathered over the ring (the serving cache is replicated over
+        the seq axis, so every rank holds the whole prompt), quantized for
+        an int8 cache, written into ``[:, idx, :, :s_pad]`` of the big cache
+        in place (never the sink column; the captured graphs hold the
+        cache's address), then the first sample and the chain (→ the first
+        token, the same on every rank)."""
+        from langstream_tpu_torch.parallel.sp import ring_prefill
+
+        ring = self._ring
+        s_pad = tokens.shape[1]
+        sl = s_pad // ring.n
+        logits, kv = ring_prefill(
+            self.params, self._upload(tokens), self._upload(np.array([prompt_len], np.int64)),
+            self.config, ring, tp=self._tp,
+        )
+        for name in ("k", "v"):
+            big, small = self._cache[name], kv.pop(name)
+            if isinstance(big, dict):
+                q, scale = _quantize_kv(small)
+                leaves = [(big["q"], q), (big["s"], scale)]
+            else:
+                leaves = [(big, small)]
+            for dst, src in leaves:
+                blocks = ring.all_gather(src[:, 0].to(dst.dtype))  # [n, L, Hkv, Sl, ...]
+                dst[:, idx, :, :s_pad].unflatten(2, (ring.n, sl)).copy_(blocks.movedim(0, 2))
+        slots = np.array([idx], np.int64)
         return self._seed_chain(
             logits, slots, np.array([prompt_len], np.int64), np.array([temp], np.float32),
             np.array([top_k], np.int64), np.array([top_p], np.float32), agentic,

@@ -881,8 +881,10 @@ def test_provider_serves_the_fleet_keys(engines, port_server, f32_presets):
                               ("fleet", "sometimes", "fleet mode")):
         with pytest.raises(ValueError, match=match):
             tserving.TorchCompletionsService(dict(PROVIDER, device="cpu", **{key: value}))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7b"):
-        tserving.TorchCompletionsService(dict(PROVIDER, device="cpu", mesh={"seq": 2}))
+    # a seq mesh is served since ring prefill was ported (its ranks join
+    # when the engine is built)
+    svc = tserving.TorchCompletionsService(dict(PROVIDER, device="cpu", mesh={"seq": 2}))
+    assert svc.mesh_axes == {"seq": 2} and svc.world == 2
 
 
 def test_begin_drain_empties_state_before_the_engine_drains(port_server, f32_presets,

@@ -53,6 +53,8 @@ def test_port_files_exist():
         "langstream_tpu_torch/parallel/multihost.py",
         "langstream_tpu_torch/parallel/sharding.py",
         "langstream_tpu_torch/parallel/spmd_serving.py",
+        "langstream_tpu_torch/parallel/ring_attention.py",
+        "langstream_tpu_torch/parallel/sp.py",
         "chip_smoke.py",
     ):
         assert mod in rel
@@ -187,10 +189,12 @@ def test_completions_service_refuses_what_it_cannot_serve():
     with pytest.raises(ValueError):
         TorchCompletionsService({"model": "tiny-test", "device": "cpu",
                                  "kv-cache-quantization": "int4"})
-    # ring prefill over a sequence axis is not ported; any admit-group size
+    # ring prefill over a sequence axis is served since it was ported (the
+    # mesh joins its ranks when the engine is built); any admit-group size
     # is served (MoE groups are padded to it)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7b"):
-        TorchCompletionsService({"model": "tiny-test", "device": "cpu", "mesh": {"seq": 2}})
+    svc = TorchCompletionsService({"model": "tiny-test", "device": "cpu", "mesh": {"seq": 2},
+                                   "kv-layout": "dense"})
+    assert svc.mesh_axes == {"seq": 2} and svc.world == 2
     svc = TorchCompletionsService({"model": "tiny-test", "device": "cpu", "prefill-batch": 16})
     assert svc.prefill_batch == 16
     # the fleet keys are served since the fleet's HTTP hop was ported

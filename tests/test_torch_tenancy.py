@@ -629,25 +629,21 @@ def test_provider_passes_the_tenancy_and_sizing_keys():
         TorchCompletionsService({**BASE, "brownout": "sometimes"})
 
 
-@pytest.mark.parametrize("key, value, item", [
-    ("mesh", {"seq": 2}, "7b"), ("mesh", {"model": 1}, None),
-    ("prefill-batch", 4, None),
+@pytest.mark.parametrize("key, value", [
+    ("mesh", {"seq": 2}), ("mesh", {"model": 1}), ("prefill-batch", 4),
 ])
-def test_provider_refuses_what_it_cannot_serve_yet(key, value, item):
-    """Ring prefill over a ``seq`` axis is the one mesh the port refuses
-    (ROADMAP item 7b); a world-1 mesh and any admit-group size construct."""
+def test_provider_refuses_what_it_cannot_serve_yet(key, value):
+    """Every mesh the JAX provider takes constructs since ring prefill over
+    a ``seq`` axis was ported (its ranks join when the engine is built), as
+    do a world-1 mesh and any admit-group size."""
     from langstream_tpu_torch.ai.torch_serving import TorchCompletionsService
 
-    if item:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            TorchCompletionsService({**BASE, key: value})
-        return
     svc = TorchCompletionsService({**BASE, key: value})
     assert svc.resource[key] == value
     if key == "prefill-batch":
         assert svc.prefill_batch == value
     else:
-        assert svc.mesh_axes == value and svc.world == 1
+        assert svc.mesh_axes == value and svc.world == value.get("seq", 1)
 
 
 def test_provider_refuses_refused_request_options():
