@@ -440,7 +440,29 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    reference path (a 200-token prompt, 4 paged decode steps) and one
    layer's ``moe_ffn`` timed at decode (8 tokens) and at a 2048-token
    segment beside its weight-byte bound.
-22. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+22. ``app``     — the application plane on the card: the example app
+   ``examples/applications/tpu-completions`` copied under ``build/app/``
+   (its ``tpu-serving`` resource given ``max-seq-len`` 2048, room for the
+   longest question with the chat template and 256 new tokens, and this
+   run's ``seed``; an instance of its own sets ``serving-model``
+   llama-3-8b: full width and depth, bf16, random weights) run through the
+   code of ``python -m langstream_tpu_torch.cli run local`` (parser,
+   planner, memory broker, local runner, document-to-json and the
+   chat-completions step, the port's ``tpu-serving`` provider, the chat
+   gateway on a free port, ``/metrics``). 8 chat websockets, one
+   ``sessionId`` each, ask the ``e2e`` phase's prompt lengths at once
+   (greedy) and read answer messages until each one's last chunk. Every
+   answer's chunks must equal the text of its tokens, and its tokens the
+   same questions served directly through the provider's
+   ``get_chat_completions`` (equal, or a one-ulp tie as the fleet phases
+   hold them); the debug topic's final records carry the same answers;
+   the prefill and paged decode kernels' launches are exactly layers x
+   admit groups and layers x decode steps (no segment, no plain version,
+   every decode chunk a graph replay). It prints, per request, the
+   client's TTFT (websocket send to first answer message) beside the
+   engine's ``ttft_ms``, then the burst's seconds and answer tokens/s,
+   with the card's name and power limit.
+23. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
    and int8 page pools and the bf16 dense cache (8192 wide), traced with
    torch.profiler: the device's busy share of the wall and the top
    kernels (no split-K decode kernel may appear).
@@ -477,8 +499,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
           "prefix", "spec", "tenancy", "agentic", "embed", "dense_tiers", "tiered", "fleet",
-          "fleet_http", "spmd", "ring", "load", "moe", "profile")
-DEFAULT_PHASES = PHASES[:21]
+          "fleet_http", "spmd", "ring", "load", "moe", "app", "profile")
+DEFAULT_PHASES = PHASES[:22]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -4797,6 +4819,252 @@ def phase_moe(ctx: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# the app phase: the e2e phase's prompt lengths as chat questions, one
+# websocket each; the copied app's resource holds the longest with the chat
+# template and the step's 256 new tokens (the step forwards no max-tokens)
+APP_BYTES = [20, 90, 150, 300, 600, 900, 1200, 1500]
+APP_MAX_SEQ_LEN = 2048
+APP_NAME = "smoke-app"
+
+
+def _app_copy(ctx) -> tuple[Path, Path]:
+    """``build/app/``: the tpu-completions example with its resource's
+    ``max-seq-len`` raised to ``APP_MAX_SEQ_LEN`` and this run's seed, and
+    an instance of its own serving llama-3-8b (the files under
+    ``examples/`` stay as they are)."""
+    import shutil
+
+    dst = ROOT / "build" / "app"
+    shutil.rmtree(dst, ignore_errors=True)
+    app = dst / "tpu-completions"
+    shutil.copytree(ROOT / "examples" / "applications" / "tpu-completions", app)
+    conf = app / "configuration.yaml"
+    text = conf.read_text()
+    if "        max-seq-len: 512\n" not in text:
+        raise AssertionError("app: the example's configuration.yaml changed; update _app_copy")
+    conf.write_text(text.replace(
+        "        max-seq-len: 512\n",
+        f"        max-seq-len: {APP_MAX_SEQ_LEN}\n        weights: random\n"
+        f"        seed: {ctx['seed']}\n"))
+    instance = dst / "instance.yaml"
+    instance.write_text("instance:\n  streamingCluster:\n    type: memory\n  computeCluster:\n"
+                        "    type: local\n  globals:\n    serving-model: llama-3-8b\n")
+    return app, instance
+
+
+async def _app_chat(ws_url: str, session: str, question: str) -> dict:
+    """One chat websocket: ask, then read answer messages until the last
+    chunk; the client's TTFT is send to first message."""
+    import asyncio
+
+    from langstream_tpu_torch.gateway.websocket import connect
+
+    ws = await connect(f"{ws_url}/v1/chat/default/{APP_NAME}/chat?param:sessionId={session}")
+    t0 = time.monotonic()
+    await ws.send_str(json.dumps({"value": question}))
+    chunks, first, last = [], None, None
+    while True:
+        msg = await asyncio.wait_for(ws.receive(), 900)
+        if msg.kind != "text":
+            raise AssertionError(f"app: session {session}'s socket closed ({msg.data})")
+        if first is None:
+            first = time.monotonic() - t0
+        record = json.loads(msg.data)["record"]
+        headers = record["headers"]
+        if headers.get("langstream-client-session-id") != session:
+            raise AssertionError(f"app: session {session} got another session's chunk")
+        chunks.append((int(headers["stream-index"]), record["value"]))
+        if headers.get("stream-last-message") == "true":
+            last = time.monotonic()
+            break
+    total = last - t0
+    await ws.close()
+    if [i for i, _ in chunks] != list(range(len(chunks))):
+        raise AssertionError(f"app: session {session}'s chunk indices {[i for i, _ in chunks]}")
+    return {"ttft_s": first, "total_s": total, "messages": len(chunks), "sent_at": t0,
+            "last_at": last, "text": "".join(v for _, v in chunks), "first_text": chunks[0][1]}
+
+
+async def _app_run(ctx, app_dir: Path, instance: Path) -> dict:
+    import asyncio
+
+    import torch
+
+    from langstream_tpu_torch.ai.provider import ChatMessage
+    from langstream_tpu_torch.cli.main import start_local
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+
+    t0 = time.monotonic()
+    app = await start_local(app_dir, instance, name=APP_NAME, gateway_port=0, metrics_port=0)
+    deploy_s = time.monotonic() - t0
+    try:
+        svc = app.runner._service_registry.get_provider().holder
+        loop = asyncio.get_running_loop()
+        t0 = time.monotonic()
+        engine = await loop.run_in_executor(None, svc.engine)  # draws, builds, captures
+        engine_s = time.monotonic() - t0
+        cfg = svc.model_config
+        await svc.get_chat_completions([ChatMessage("user", "warm up")], {"max-tokens": 4})
+        # every request the engine takes, with its result (a tap on submit:
+        # the app's path and the direct path both go through it)
+        taps: list = []
+        submit = engine.submit
+
+        def tapped(request):
+            at = time.monotonic()
+            future = submit(request)
+            taps.append((request, future, at))
+            return future
+
+        engine.submit = tapped
+        questions = _prompts(APP_BYTES, ctx["seed"])
+        prompts = [svc.tokenizer.encode(svc._render_prompt([ChatMessage("user", q)]))
+                   for q in questions]
+        torch.cuda.synchronize()
+        before = engine.stats()
+        reset_kernel_counts()
+        t_run = time.monotonic()
+        chats = await asyncio.gather(*(
+            _app_chat(app.gateway.ws_url, f"s{i}", q) for i, q in enumerate(questions)))
+        wall = time.monotonic() - t_run
+        counts = kernel_counts()
+        after = engine.stats()
+        served = {tuple(r.prompt_tokens): f.result(timeout=60) for r, f, _ in taps}
+        submitted = {tuple(r.prompt_tokens): at for r, _, at in taps}
+        debug = await app.runner.consume("debug-topic", n=len(questions), timeout=120)
+        taps.clear()
+        direct = await asyncio.gather(*(
+            svc.get_chat_completions([ChatMessage("user", q)],
+                                     {"model": "llama-3-8b", "min-chunks-per-message": 10,
+                                      "tenant": "default"})
+            for q in questions))
+        direct_served = {tuple(r.prompt_tokens): f.result(timeout=60) for r, f, _ in taps}
+        metrics = app.metrics.metrics_text()
+        params = svc.params()
+        app_tokens = [served[tuple(p)].tokens for p in prompts]
+        want = [direct_served[tuple(p)].tokens for p in prompts]
+        same = _same_or_tie(ctx, cfg, params, "app", prompts, app_tokens, want)
+        texts = {"direct": [d.content for d in direct]}
+    finally:
+        await app.stop()
+    problems = []
+    for i, (chat, prompt) in enumerate(zip(chats, prompts)):
+        result = served[tuple(prompt)]
+        if result.finish_reason not in ("length", "stop") or result.error is not None:
+            problems.append(f"s{i} ended {result.finish_reason}: {result.error}")
+        if chat["text"] != svc.tokenizer.decode(result.tokens):
+            problems.append(f"s{i}: the chunks are not the text of the answer's tokens")
+        if result.tokens == want[i] and chat["text"] != texts["direct"][i]:
+            problems.append(f"s{i}: equal tokens but the text differs from the direct path's")
+    finals = {}
+    for record in debug:
+        value = json.loads(record.value)
+        session = {h.key: h.value for h in record.headers}["langstream-client-session-id"]
+        finals[session] = value
+    for i, (chat, q) in enumerate(zip(chats, questions)):
+        final = finals.get(f"s{i}")
+        if final is None or final["answer"] != chat["text"] or final["question"] != q:
+            problems.append(f"s{i}: the debug topic's final record does not carry the answer")
+    groups = after["admit-groups-total"] - before["admit-groups-total"]
+    steps = after["decode-steps-total"] - before["decode-steps-total"]
+    segments = after["prefill-segments-total"] - before["prefill-segments-total"]
+    chunks = after["decode-chunks-total"] - before["decode-chunks-total"]
+    replays = after["graph-replays-total"] - before["graph-replays-total"]
+    launches = {k: v["launches"] for k, v in counts.items()}
+    plain = {k: v["cpu_calls"] for k, v in counts.items() if v["cpu_calls"]}
+    layers = cfg.n_layers
+    if plain:
+        problems.append(f"plain versions ran: {plain}")
+    if groups <= 0 or launches["flash_prefill"] != layers * groups:
+        problems.append(f"flash_prefill launches {launches['flash_prefill']} != {layers} x "
+                        f"{groups} admit groups")
+    if steps <= 0 or launches["paged_decode"] != layers * steps:
+        problems.append(f"paged_decode launches {launches['paged_decode']} != {layers} x "
+                        f"{steps} decode steps")
+    others = {k: n for k, n in launches.items() if n and k not in ("flash_prefill",
+                                                                   "paged_decode")}
+    if segments or others:
+        problems.append(f"{segments} segments and other kernels launched: {others}")
+    if chunks <= 0 or replays != chunks:
+        problems.append(f"{chunks} decode chunks but {replays} graph replays")
+    if not same["ok"]:
+        problems.append(f"answers differ from the direct path beyond one-ulp ties: "
+                        f"{same['not_ties']}")
+    if "agent_" not in metrics or "completions_num_calls_total" not in metrics:
+        problems.append("/metrics lacks the completions step's counters")
+    tokens = sum(len(t) for t in app_tokens)
+    # the plane's own cost: websocket send to the engine's submit (gateway,
+    # broker, runner, document-to-json, the step), and the engine's end to
+    # the last answer message at the client (the chunk writer, broker,
+    # consume gateway, websocket)
+    inbound = [submitted[tuple(p)] - c["sent_at"] for c, p in zip(chats, prompts)]
+    outbound = [c["last_at"] - submitted[tuple(p)] - served[tuple(p)].total_s
+                for c, p in zip(chats, prompts)]
+    run = {
+        "requests": len(questions),
+        "prompt_tokens": [len(p) for p in prompts],
+        "answer_tokens": [len(t) for t in app_tokens],
+        "client_ttft_s": [c["ttft_s"] for c in chats],
+        "engine_ttft_ms": [served[tuple(p)].ttft_s * 1000.0 for p in prompts],
+        "client_total_s": [c["total_s"] for c in chats],
+        "engine_total_s": [served[tuple(p)].total_s for p in prompts],
+        "inbound_ms": [s * 1000.0 for s in inbound],
+        "outbound_ms": [s * 1000.0 for s in outbound],
+        "empty_answers": sum(1 for c in chats if not c["text"]),
+        "messages": [c["messages"] for c in chats],
+        "first_message_chars": [len(c["first_text"]) for c in chats],
+        "wall_s": wall,
+        "answer_tokens_per_s": tokens / wall,
+        "deploy_s": deploy_s,
+        "engine_build_s": engine_s,
+        "admit_groups": groups,
+        "decode_steps": steps,
+        "decode_chunks": chunks,
+        "graph_replays": replays,
+        "kernel_launches": launches,
+        "same_as_direct": {k: same[k] for k in ("agreement", "ties", "equal")},
+    }
+    if problems:
+        raise AssertionError("app: " + "; ".join(problems) + f" ({json.dumps(run)[:2000]})")
+    return run
+
+
+def phase_app(ctx: dict) -> None:
+    import gc
+
+    import torch
+
+    ctx.pop("params", None)  # the app's provider draws its own tree (the same seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    app_dir, instance = _app_copy(ctx)
+    run = _app_run_sync(ctx, app_dir, instance)
+    card = smi_line()
+    for i, (client, engine) in enumerate(zip(run["client_ttft_s"], run["engine_ttft_ms"])):
+        log(f"app ttft s{i} ({run['prompt_tokens'][i]} prompt tokens, "
+            f"{run['answer_tokens'][i]} answer tokens, {run['messages'][i]} messages): "
+            f"client {client * 1000.0:.1f} ms (send to first answer message), engine "
+            f"{engine:.1f} ms; send to submit {run['inbound_ms'][i]:.1f} ms, engine end to "
+            f"last message {run['outbound_ms'][i]:.1f} ms [{card}]")
+    log("app note: the provider sends a chunk after 1, 2, 4, 8 tokens, then every "
+        "min-chunks-per-message (10) tokens, and only when the text grew: tokens the byte "
+        f"tokenizer decodes to nothing send nothing ({run['empty_answers']} of "
+        f"{run['requests']} answers decode to empty text with random weights, so their "
+        "first message is their last)")
+    log(f"app burst: {run['wall_s']:.3f} s, {sum(run['answer_tokens'])} answer tokens, "
+        f"{run['answer_tokens_per_s']:.1f} tokens/s [{card}]")
+    log(f"app tpu-completions llama-3-8b {json.dumps(run)}")
+    ctx["app"] = run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _app_run_sync(ctx, app_dir: Path, instance: Path) -> dict:
+    import asyncio
+
+    return asyncio.run(_app_run(ctx, app_dir, instance))
+
+
 def _replay_rate(torch, engine, chunks: int = 4) -> dict:
     """Back-to-back replays of the greedy chunk (with speculation: the
     greedy verify) on a burst's engine (its slots idle by then): the card's
@@ -7295,7 +7563,7 @@ def kernel_record(ctx: dict) -> dict:
     served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "prefix",
               "spec", "agentic", "dense_spec", "dense_prefix", "dense_prefix_int8", "tiered",
               "fleet", "fleet_http", "spmd", "spmd_leader", "spmd_follower", "ring", "ring_int8",
-              "load", "moe")
+              "load", "moe", "app")
     out = []
     for name, (src, replaces, path) in sources.items():
         runs = ctx.get("kernel_runs", {}).get(name)

@@ -1,6 +1,5 @@
-"""Safe expression language — the port's own copy of the evaluator in
-``langstream_tpu/agents/genai/el.py``, as far as the vector writer uses it:
-its ``id`` / ``vector`` / field expressions go through ``evaluate``.
+"""Safe expression language for steps, filters and templates (the port's
+own copy of ``langstream_tpu/agents/genai/el.py``).
 
 Parity: reference `langstream-agents-commons` JSTL engine
 (`jstl/JstlEvaluator.java`, `JstlFunctions.java`) — the language used by
@@ -425,3 +424,20 @@ def scope_for(record: MutableRecord, extra: Optional[Mapping[str, Any]] = None) 
 def evaluate(expression: str, record: MutableRecord, extra: Optional[Mapping[str, Any]] = None) -> Any:
     """Evaluate an expression against a record's transform context."""
     return _Evaluator(scope_for(record, extra)).visit(_compile(expression))
+
+
+def evaluate_bool(expression: str, record: MutableRecord, extra: Optional[Mapping[str, Any]] = None) -> bool:
+    return bool(evaluate(expression, record, extra))
+
+
+_MUSTACHE = re.compile(r"\{\{\{?\s*(.*?)\s*\}?\}\}")
+
+
+def render_template(template: str, record: MutableRecord, extra: Optional[Mapping[str, Any]] = None) -> str:
+    """Render ``{{ expr }}`` placeholders (the prompt-template surface of
+    ChatCompletionsStep — reference renders Mustache over record fields)."""
+
+    def repl(m: re.Match) -> str:
+        return _to_str(evaluate(m.group(1), record, extra))
+
+    return _MUSTACHE.sub(repl, template)

@@ -1,10 +1,11 @@
-"""The record under transformation — the part of ``langstream_tpu/agents/
-genai/mutable.py`` the port's vector writer needs: ``MutableRecord`` and
-``from_record`` (key and value parsed into navigable structures — a JSON
-object or array becomes a dict or list —, headers as properties, the
-destination-topic header lifted out). Records are duck-typed: anything
-with ``key``, ``value``, ``headers`` (objects with ``key`` / ``value``),
-``origin`` and ``timestamp``, as the JAX package's ``Record`` is."""
+"""Mutable transform context for GenAI toolkit steps (the port's own copy
+of ``langstream_tpu/agents/genai/mutable.py``).
+
+Parity: reference `langstream-agents-commons` `MutableRecord.java` (the
+record-under-transformation that all steps mutate) — key/value parsed into
+navigable structures, headers as properties, destination-topic override, and
+a final materialisation back into a Record.
+"""
 
 from __future__ import annotations
 
@@ -12,15 +13,16 @@ import json
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
-# the header a record's destination-topic override rides in
-DESTINATION_HEADER = "langstream-destination-topic"
+from langstream_tpu_torch.api.record import Header, Record, SimpleRecord
 
 
 def _parse_side(raw: Any) -> tuple[Any, bool, Any]:
-    """Parse a record side (key or value) → (parsed, was_json, schema).
-    JSON objects / arrays become dicts / lists; an Avro value (an object
-    with ``data`` and ``schema``) becomes its datum, as far as it is plain
-    JSON data."""
+    """Parse a record side (key or value) → (parsed, was_json, avro_schema).
+    JSON objects/arrays become dicts/lists (was_json=True → serialised back
+    to JSON on materialise); an Avro value (an object with ``data`` and
+    ``schema``) becomes its datum with the schema remembered. The port has
+    no Avro codec (no broker of the port carries Avro yet): such a side
+    materialises as JSON."""
     if hasattr(raw, "schema") and hasattr(raw, "data"):
         return raw.data, False, raw.schema
     if isinstance(raw, (bytes, bytearray)):
@@ -49,11 +51,14 @@ class MutableRecord:
     dropped: bool = False
     _key_was_json: bool = False
     _value_was_json: bool = False
+    # Avro provenance (the side materialises as JSON: no Avro codec)
     _key_avro_schema: Any = None
     _value_avro_schema: Any = None
 
     @staticmethod
-    def from_record(record: Any) -> "MutableRecord":
+    def from_record(record: Record) -> "MutableRecord":
+        from langstream_tpu_torch.runtime.topic_adapters import DESTINATION_HEADER
+
         key, key_json, key_schema = _parse_side(record.key)
         value, value_json, value_schema = _parse_side(record.value)
         properties = {h.key: h.value for h in (record.headers or ())}
@@ -69,4 +74,116 @@ class MutableRecord:
             _value_was_json=value_json,
             _key_avro_schema=key_schema,
             _value_avro_schema=value_schema,
+        )
+
+    # -- field-path access ("value", "value.a.b", "key.x", "properties.p",
+    #    "destinationTopic", "origin", "timestamp") --------------------------
+
+    def _root(self, name: str) -> Any:
+        if name == "value":
+            return self.value
+        if name == "key":
+            return self.key
+        if name in ("properties", "headers"):
+            return self.properties
+        if name == "destinationTopic":
+            return self.destination_topic
+        if name == "origin":
+            return self.origin
+        if name in ("timestamp", "eventTime"):
+            return self.timestamp
+        raise KeyError(f"unknown record part {name!r}")
+
+    def get_field(self, path: str) -> Any:
+        parts = path.split(".")
+        current = self._root(parts[0])
+        for p in parts[1:]:
+            if current is None:
+                return None
+            if isinstance(current, dict):
+                current = current.get(p)
+            else:
+                current = getattr(current, p, None)
+        return current
+
+    def set_field(self, path: str, val: Any) -> None:
+        parts = path.split(".")
+        root = parts[0]
+        if len(parts) == 1:
+            if root == "value":
+                self.value = val
+            elif root == "key":
+                self.key = val
+            elif root == "destinationTopic":
+                self.destination_topic = val
+            elif root in ("timestamp", "eventTime"):
+                self.timestamp = val
+            else:
+                raise KeyError(f"cannot set record part {path!r}")
+            return
+        if root in ("properties", "headers"):
+            if len(parts) != 2:
+                raise KeyError(f"properties paths are flat: {path!r}")
+            self.properties[parts[1]] = val
+            return
+        if root == "value":
+            if not isinstance(self.value, dict):
+                self.value = {}
+                self._value_was_json = True
+            container: Any = self.value
+        elif root == "key":
+            if not isinstance(self.key, dict):
+                self.key = {}
+                self._key_was_json = True
+            container = self.key
+        else:
+            raise KeyError(f"cannot set into record part {root!r}")
+        for p in parts[1:-1]:
+            nxt = container.get(p)
+            if not isinstance(nxt, dict):
+                nxt = {}
+                container[p] = nxt
+            container = nxt
+        container[parts[-1]] = val
+
+    def drop_field(self, path: str) -> None:
+        parts = path.split(".")
+        root = parts[0]
+        if root in ("properties", "headers") and len(parts) == 2:
+            self.properties.pop(parts[1], None)
+            return
+        if len(parts) == 1:
+            # bare field name → drop from value (reference drop-fields default)
+            if isinstance(self.value, dict):
+                self.value.pop(parts[0], None)
+            return
+        container = self._root(root)
+        for p in parts[1:-1]:
+            if not isinstance(container, dict):
+                return
+            container = container.get(p)
+        if isinstance(container, dict):
+            container.pop(parts[-1], None)
+
+    # -- materialisation ----------------------------------------------------
+
+    def _serialise(self, side: Any, was_json: bool, avro_schema: Any) -> Any:
+        if (was_json or avro_schema is not None) and isinstance(side, (dict, list)):
+            return json.dumps(side)
+        return side
+
+    def to_record(self) -> SimpleRecord:
+        headers = [Header(k, v) for k, v in self.properties.items()]
+        if self.destination_topic:
+            from langstream_tpu_torch.runtime.topic_adapters import DESTINATION_HEADER
+
+            headers.append(Header(DESTINATION_HEADER, self.destination_topic))
+        return SimpleRecord(
+            key=self._serialise(self.key, self._key_was_json, self._key_avro_schema),
+            value=self._serialise(
+                self.value, self._value_was_json, self._value_avro_schema
+            ),
+            headers=tuple(headers),
+            origin=self.origin,
+            timestamp=self.timestamp,
         )

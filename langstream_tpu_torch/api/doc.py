@@ -1,6 +1,7 @@
-"""Config schemas of resource types — the part of ``langstream_tpu/api/
-doc.py`` that ``register()`` uses: ``ConfigProperty``, ``ConfigModel`` and
-``props``."""
+"""Self-describing config schemas of agent and resource types (the port's
+own copy of ``langstream_tpu/api/doc.py``): ``ConfigProperty``,
+``ConfigModel`` and ``props``. ``core.validator`` reads them to reject
+unknown fields and check types."""
 
 from __future__ import annotations
 
@@ -15,11 +16,12 @@ class ConfigProperty:
     type: str = "string"  # string|integer|number|boolean|object|array
     required: bool = False
     default: Any = None
+    extended_validation: Optional[str] = None
 
 
 @dataclass
 class ConfigModel:
-    """Schema for one resource type."""
+    """Schema for one agent or resource type."""
 
     type: str
     description: str = ""

@@ -1,7 +1,60 @@
-"""Pure-Python UTF-8 helpers of the port (own copy of the fallbacks in
-``langstream_tpu/native.py``; the port builds no host extension)."""
+"""Host-path utilities of the port: its own copy of the pure-Python
+fallbacks in ``langstream_tpu/native.py`` (the port builds no host
+extension), with the same semantics:
+
+- ``OffsetTracker`` — per-record contiguous-prefix commit bookkeeping on the
+  broker's consume path (at-least-once, ordered commit);
+- ``fnv1a64`` / ``key_partition`` — a stable key hash for partition routing
+  (Python's ``hash(str)`` is salted per process, so replicas would disagree
+  on a key's partition);
+- ``py_utf8_incomplete_tail_len`` — the undecodable tail a streaming
+  detokenizer holds back."""
 
 from __future__ import annotations
+
+
+class PyOffsetTracker:
+    """Contiguous-prefix offset commit tracker: ``ack`` marks one offset
+    done and returns the watermark, the first offset not yet acked."""
+
+    def __init__(self, start: int = 0) -> None:
+        self._watermark = int(start)
+        self._pending: set[int] = set()
+
+    def ack(self, offset: int) -> int:
+        if offset >= self._watermark:
+            self._pending.add(int(offset))
+            while self._watermark in self._pending:
+                self._pending.remove(self._watermark)
+                self._watermark += 1
+        return self._watermark
+
+    @property
+    def watermark(self) -> int:
+        return self._watermark
+
+    @property
+    def pending_count(self) -> int:
+        return len(self._pending)
+
+
+OffsetTracker = PyOffsetTracker
+
+
+def fnv1a64(data: bytes) -> int:
+    h = 14695981039346656037
+    for byte in bytes(data):
+        h ^= byte
+        h = (h * 1099511628211) % (1 << 64)
+    return h
+
+
+def key_partition(key: object, n_partitions: int) -> int:
+    """Stable key → partition routing shared by every broker runtime."""
+    if n_partitions <= 1:
+        return 0
+    data = str(key).encode("utf-8", "surrogatepass")
+    return fnv1a64(data) % n_partitions
 
 
 def _utf8_seq_len(c: int) -> int:

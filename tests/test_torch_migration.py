@@ -854,15 +854,21 @@ def test_constrained_stream_resumes_mid_derivation(constrained):
     want = jax_reference(prompt_for(18), opts, grammar_tokenizer=JaxByteTokenizer(),
                          eos_token_id=TOK.eos_token_id, decode_chunk=2)
     # this run also publishes the prompt's prefix on "a", which the route
-    # then prefers: the stream starts there and dies
+    # then prefers: the stream starts there and dies. The route scores
+    # affinity alone (lam 0): with the default weight of the measured load,
+    # a queue-wait p90 of 0.125 s or more on "a" from this run (a loaded
+    # host) outweighs the 32-token prefix match and the stream starts on
+    # "b", which never dies
     base = a.generate(prompt_for(18), GenerationOptions.from_dict(opts), timeout=WAIT)
     assert base.tokens == want
     router = FleetRouter([_DiesAfterFrames("a", a, fail_after=3), InProcessReplica("b", b)],
-                         refresh_interval_s=3600.0)
+                         refresh_interval_s=3600.0, lam=0.0)
     router.refresh_all()
-    _, toks, end = drain(router, prompt_for(18), opts)
+    frames, toks, end = drain(router, prompt_for(18), opts)
     assert toks == want
     assert end["finish_reason"] == "stop" and end["failovers"] == 1
+    served = [f["replica"] for f in frames if f["kind"] == "tokens"]
+    assert served[0] == "a" and served[-1] == "b"
     assert re.fullmatch(RF["regex"], TOK.decode(toks))
 
 

@@ -1,6 +1,6 @@
 """Rules of the PyTorch port, checked statically and at its entry points:
 the package and chip_smoke.py import neither JAX nor the JAX package nor
-aiohttp;
+aiohttp, PyYAML or click;
 asking for CUDA where there is none raises instead of running on the CPU;
 and the completions service streams text through the port's engine."""
 
@@ -55,6 +55,38 @@ def test_port_files_exist():
         "langstream_tpu_torch/parallel/spmd_serving.py",
         "langstream_tpu_torch/parallel/ring_attention.py",
         "langstream_tpu_torch/parallel/sp.py",
+        "langstream_tpu_torch/api/record.py",
+        "langstream_tpu_torch/api/topics.py",
+        "langstream_tpu_torch/api/agent.py",
+        "langstream_tpu_torch/api/model.py",
+        "langstream_tpu_torch/api/planner.py",
+        "langstream_tpu_torch/core/yaml_reader.py",
+        "langstream_tpu_torch/core/parser.py",
+        "langstream_tpu_torch/core/resolver.py",
+        "langstream_tpu_torch/core/validator.py",
+        "langstream_tpu_torch/core/planner.py",
+        "langstream_tpu_torch/core/deployer.py",
+        "langstream_tpu_torch/native.py",
+        "langstream_tpu_torch/messaging/memory.py",
+        "langstream_tpu_torch/messaging/registry.py",
+        "langstream_tpu_torch/runtime/errors.py",
+        "langstream_tpu_torch/runtime/tracker.py",
+        "langstream_tpu_torch/runtime/topic_adapters.py",
+        "langstream_tpu_torch/runtime/composite.py",
+        "langstream_tpu_torch/runtime/runner.py",
+        "langstream_tpu_torch/runtime/local_runner.py",
+        "langstream_tpu_torch/agents/builtin.py",
+        "langstream_tpu_torch/agents/text/__init__.py",
+        "langstream_tpu_torch/agents/genai/steps.py",
+        "langstream_tpu_torch/agents/genai/completions.py",
+        "langstream_tpu_torch/agents/genai/embeddings.py",
+        "langstream_tpu_torch/agents/genai/query.py",
+        "langstream_tpu_torch/agents/genai/agent.py",
+        "langstream_tpu_torch/gateway/core.py",
+        "langstream_tpu_torch/gateway/server.py",
+        "langstream_tpu_torch/gateway/websocket.py",
+        "langstream_tpu_torch/cli/__main__.py",
+        "langstream_tpu_torch/cli/main.py",
         "chip_smoke.py",
     ):
         assert mod in rel
@@ -88,6 +120,15 @@ def test_no_aiohttp(path):
         assert name.split(".")[0] != "aiohttp", f"{path.name} imports {name}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_yaml_or_click(path):
+    """The card's machine has neither PyYAML nor click: the port reads
+    application YAML with its own reader (``core/yaml_reader.py``) and its
+    command line is argparse."""
+    for name in imported_modules(path):
+        assert name.split(".")[0] not in ("yaml", "click"), f"{path.name} imports {name}"
+
+
 def test_no_cuda_raises(monkeypatch, tmp_path):
     """Every entry point that takes a device refuses "cuda" without a card."""
     from langstream_tpu_torch.ai.torch_serving import TorchCompletionsService
@@ -118,6 +159,22 @@ def test_no_cuda_raises(monkeypatch, tmp_path):
         make_page_pool(cfg, 4, 8, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TorchCompletionsService({"model": "tiny-test"})
+
+
+def test_no_cuda_raises_at_run_local(monkeypatch):
+    """``run local`` of an app whose ``tpu-serving`` resource names no
+    device refuses the card it does not have when it deploys."""
+    from langstream_tpu_torch.cli.main import start_local
+    from langstream_tpu_torch.messaging.memory import MemoryBroker
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        asyncio.run(start_local(
+            ROOT / "examples" / "applications" / "tpu-completions",
+            ROOT / "examples" / "instances" / "local-memory.yaml",
+            gateway_port=0, metrics_port=-1,
+        ))
+    MemoryBroker.reset()
 
 
 def test_no_cuda_raises_at_the_rag_entry_points(monkeypatch):
