@@ -148,7 +148,9 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    brownout on (the default) captures the decode set beside the verify
    set: 6 graphs.
 11. ``tenancy`` — multi-tenant overload control and observability at
-   llama-3-8b's full width and depth (bf16, paged, page 64, max-batch 8,
+   llama-3-8b's full width (since PR 20 at 8 of its 32 layers,
+   ``SHALLOW_LAYERS``, to keep the default run's time beside ``rag``)
+   (bf16, paged, page 64, max-batch 8,
    max_seq_len 2048, decode chunk 16, greedy, speculation k 4; the
    ``spec`` prompts, 32 new tokens a request). (1) 16 low-priority
    "aggressor" requests (max-slots 6, queue share 0.5) and 4 "victim"
@@ -169,8 +171,10 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    ``tenant-burst@1`` and ``nan@1`` planted in the phase's engine: the
    burst's sheds counted against "chaos-burst", one ``nan-quarantine``
    flight dump that validates and holds no token content.
-12. ``agentic`` — the agentic tier at llama-3-8b's full width and depth
-   (bf16, paged, page 64, max-batch 8, max_seq_len 2048, buckets up to
+12. ``agentic`` — the agentic tier at llama-3-8b's full width and 8 of
+   its 32 layers (``SHALLOW_LAYERS``: since PR 20 the depth is cut so the
+   default run keeps its time with the ``rag`` phase; the tier's checks
+   hold at any depth) (bf16, paged, page 64, max-batch 8, max_seq_len 2048, buckets up to
    512, decode chunk 16, greedy, 64 new tokens): three random rank-16
    adapters (scale 0.5) over a pool of base + 2 rows, 4 grammar slots. The ``e2e``
    prompt lengths (21..1501 byte tokens; past 512 they prefill in
@@ -218,7 +222,8 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    ``EMBED_CONCURRENT_TOL`` of the idle one, the tokens equal to the same
    wave served after.
 14. ``dense_tiers`` — the rest of the dense layout at llama-3-8b's full
-   width and depth (max_seq_len 8192): the ``spec`` traffic with
+   width (since PR 20 at 8 of its 32 layers, as ``tenancy``)
+   (max_seq_len 8192): the ``spec`` traffic with
    speculation on and off (acceptance, the verify step's device / wall ms
    against the decode step's from back-to-back replays, dense decode
    launches exactly layers x verifies, replays = verifies, tokens on vs
@@ -281,7 +286,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    restore's ms beside a sequential read of one checkpoint file (from the
    host's page cache, just written).
 16. ``fleet``   — KV-page migration and the in-process fleet at llama-3-8b's
-   full width and depth (bf16, paged, page 64, max_seq_len 4096,
+   full width (since PR 20 at 8 of its 32 layers, as ``tenancy``) (bf16, paged, page 64, max_seq_len 4096,
    max-batch 8, decode chunk 16, ``prefix-cache`` auto, buckets 32…2048 on
    both engines): two port engines on ONE weight tree, "pre"
    (``migrate_staging``) and "dec", started one after the other, behind a
@@ -462,7 +467,36 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    client's TTFT (websocket send to first answer message) beside the
    engine's ``ttft_ms``, then the burst's seconds and answer tokens/s,
    with the card's name and power limit.
-23. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+23. ``rag``     — the RAG app on the card: the example app
+   ``examples/applications/tpu-rag`` copied under ``build/rag/`` (its
+   ``tpu-serving`` resource given ``max-seq-len`` 2048, ``weights:
+   random`` and this run's seed; the crawl's ``seed-urls`` and
+   ``allowed-domains`` pointed at a site on the loopback, its politeness
+   delay lowered to ``RAG_MIN_TIME_MS``; the vector store's ``path`` under
+   ``build/rag/``; an instance serving llama-3-8b: full width and depth,
+   bf16), run through the code of ``run local``. The site
+   (``ThreadingHTTPServer`` on 127.0.0.1) has 50 seeded pages of ~3.5 KB of
+   text linking each other and another host, a path ``robots.txt``
+   disallows and a link that answers 404. The crawl pipeline (crawl,
+   extract, split at 400 / 50, embed on the card, index in the on-card
+   store) must emit exactly the pages a plain breadth-first crawl of the
+   site's own link lists gives (robots, domains, the 404, ``max-urls``
+   50), index as many rows as the port's splitter gives chunks over those
+   pages on the host, each stored vector within ``EMBED_TOL`` of the
+   provider's direct encode of its text. Then 8 questions at once through
+   the ``ask`` service gateway over HTTP: each one's top-10 must equal a
+   plain f64 cosine top-k over the saved ``.npz`` index (swaps only within
+   ``VECTOR_TIE``), its re-rank picks a plain f64 MMR over the hits (only
+   within ``RAG_MMR_TIE``), its answer the direct path's on the same
+   prompt (equal or a one-ulp tie), and the prefill and paged decode
+   launches exactly layers x admit groups and layers x decode steps (a
+   segment only for a chunked prompt, counted; no plain version, every
+   decode chunk a replay). It prints the crawl's pages/s, chunks embedded
+   a second and the embed's share of the write path, the top-k's time a
+   query, per question send to answer, engine TTFT and the time in embed /
+   search / re-rank / completion, the burst's answer tokens/s and the
+   phase's seconds, each with the card's name and power limit.
+24. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
    and int8 page pools and the bf16 dense cache (8192 wide), traced with
    torch.profiler: the device's busy share of the wall and the top
    kernels (no split-K decode kernel may appear).
@@ -499,8 +533,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
           "prefix", "spec", "tenancy", "agentic", "embed", "dense_tiers", "tiered", "fleet",
-          "fleet_http", "spmd", "ring", "load", "moe", "app", "profile")
-DEFAULT_PHASES = PHASES[:22]
+          "fleet_http", "spmd", "ring", "load", "moe", "app", "rag", "profile")
+DEFAULT_PHASES = PHASES[:23]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -3262,7 +3296,7 @@ def _observability_drill(engine) -> dict:
 
 def phase_tenancy(ctx: dict) -> None:
     """Multi-tenant overload control and observability at llama-3-8b's
-    full width and depth (bf16, paged, page 64, max-batch 8, max_seq_len
+    full width and SHALLOW_LAYERS of its depth (bf16, paged, page 64, max-batch 8, max_seq_len
     2048, decode chunk 16, greedy, speculation k 4; the ``spec`` phase's
     prompts, 32 new tokens a request):
 
@@ -3291,8 +3325,7 @@ def phase_tenancy(ctx: dict) -> None:
     from langstream_tpu_torch.serving.engine import GenerationRequest, ServingEngine
     from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
 
-    cfg = MODEL_PRESETS["llama-3-8b"]
-    params = _llama_params(ctx)
+    cfg, params = _shallow(MODEL_PRESETS["llama-3-8b"], _llama_params(ctx))
     prompts = _spec_prompts(ctx["seed"])
     tok = ByteTokenizer()
     kw = dict(max_batch=8, decode_chunk=16, page_size=PAGE, eos_token_id=tok.eos_token_id,
@@ -3672,8 +3705,8 @@ def _adapter_precision(ctx, cfg, params) -> dict:
 
 
 def phase_agentic(ctx: dict) -> None:
-    """The agentic tier at llama-3-8b's full width and depth (module
-    docstring, phase 12): the tier-on engine's two waves, its pools and
+    """The agentic tier at llama-3-8b's full width and SHALLOW_LAYERS of
+    its depth (module docstring, phase 12): the tier-on engine's two waves, its pools and
     memory against the plan, an adapter's model check, the ``adapter``
     drill and back-to-back replays; the same traffic with speculation on;
     an engine with the tier off for the replay and capture comparison.
@@ -3688,8 +3721,7 @@ def phase_agentic(ctx: dict) -> None:
     from langstream_tpu_torch.serving.memory import tree_bytes
     from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
 
-    cfg = MODEL_PRESETS["llama-3-8b"]
-    params = _llama_params(ctx)
+    cfg, params = _shallow(MODEL_PRESETS["llama-3-8b"], _llama_params(ctx))
     tok = ByteTokenizer()
     prompts = [tok.encode(p) for p in _prompts([20, 90, 150, 300, 600, 900, 1200, 1500],
                                                ctx["seed"] + 11)]
@@ -4302,15 +4334,14 @@ def _require_dense_prefix_run(run: dict, cfg, segment: str) -> None:
 
 
 def phase_dense_tiers(ctx: dict) -> None:
-    """The rest of the dense layout at llama-3-8b's full width and depth
-    (module docstring, phase 14): speculation (the spec traffic on and off,
+    """The rest of the dense layout at llama-3-8b's full width and
+    SHALLOW_LAYERS of its depth (module docstring, phase 14): speculation (the spec traffic on and off,
     the verify's model check, two constrained requests, brownout pinned at
     level 2) and prefix reuse (the prefix traffic on and off, bf16 and int8
     KV)."""
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
 
-    cfg = MODEL_PRESETS["llama-3-8b"]
-    params = _llama_params(ctx)
+    cfg, params = _shallow(MODEL_PRESETS["llama-3-8b"], _llama_params(ctx))
     prompts = _spec_prompts(ctx["seed"])
     spec = {"speculation_tokens": SPEC_KW["speculation_tokens"], **DENSE_KW}
     on = _serve(ctx, cfg, params, [], SPEC_NEW, prompts=prompts, steady=True,
@@ -5063,6 +5094,654 @@ def _app_run_sync(ctx, app_dir: Path, instance: Path) -> dict:
     import asyncio
 
     return asyncio.run(_app_run(ctx, app_dir, instance))
+
+
+# the rag phase: a seeded site on the loopback, crawled, indexed and asked
+RAG_NAME = "smoke-rag"
+RAG_PAGES = 50
+RAG_PARAGRAPHS, RAG_PARAGRAPH_WORDS = 5, 110  # ~3.5 KB of text a page
+RAG_QUESTIONS = 8
+# the crawler's politeness delay for a server on the loopback (the
+# example's own, 500 ms between requests, is for other people's sites)
+RAG_MIN_TIME_MS = 5
+# the example's own settings, held by the checks
+RAG_MAX_URLS, RAG_TOP_K, RAG_MMR_MAX, RAG_MMR_LAMBDA = 50, 10, 3, 0.5
+RAG_CHUNK_SIZE, RAG_CHUNK_OVERLAP = 400, 50
+# a re-rank pick may differ from the f64 plain MMR's only where the two
+# candidates' MMR scores lie this close (the agent computes in f32)
+RAG_MMR_TIE = 1e-6
+RAG_WORDS = (
+    "tensor core stream record topic agent pipeline vector index query answer memory cache "
+    "page kernel batch token embedding chunk crawl site schema latency throughput replica "
+    "gateway broker partition offset commit window state checkpoint router tenant quota "
+    "prompt context retrieval ranking model layer attention decode prefill graph card"
+).split()
+
+
+def _rag_site(seed: int) -> dict:
+    """The site: ``/doc/0.html`` .. ``/doc/49.html``, each RAG_PARAGRAPHS
+    paragraphs of seeded words with links to pages i+1, i+3 (relative), i+11
+    (with a fragment) and to another host (``localhost``, never allowed);
+    page 0 also links a path robots.txt disallows and one that answers 404.
+    path → {"body": html bytes, "links": the absolute urls its links name
+    (fragments dropped, as written by hand: the plain crawl below reads
+    these, not the HTML)}; the base url is filled in by ``{base}``."""
+    rng = random.Random(seed + 23)
+    site = {}
+    for i in range(RAG_PAGES):
+        paras = ["<p>" + " ".join(rng.choice(RAG_WORDS) for _ in range(RAG_PARAGRAPH_WORDS))
+                 + ".</p>" for _ in range(RAG_PARAGRAPHS)]
+        nxt, third, far = (i + 1) % RAG_PAGES, (i + 3) % RAG_PAGES, (i + 11) % RAG_PAGES
+        hrefs = [(f"/doc/{nxt}.html", f"{{base}}/doc/{nxt}.html"),
+                 (f"{third}.html", f"{{base}}/doc/{third}.html"),
+                 (f"/doc/{far}.html#part", f"{{base}}/doc/{far}.html"),
+                 (f"http://localhost:{{port}}/doc/{far}.html",
+                  f"http://localhost:{{port}}/doc/{far}.html")]
+        if i == 0:
+            hrefs += [("/private/notes.html", "{base}/private/notes.html"),
+                      ("/doc/missing.html", "{base}/doc/missing.html"),
+                      ("mailto:site@example.com", None)]
+        links = " ".join(f'<a href="{h}">link</a>' for h, _ in hrefs)
+        body = (f"<!DOCTYPE html><html><head><title>Document {i}</title>"
+                "<style>p { margin: 0 }</style></head><body>"
+                f"<h1>Document {i}</h1>{''.join(paras)}<nav>{links}</nav>"
+                f"<script>var page = {i};</script></body></html>")
+        site[f"/doc/{i}.html"] = {"body": body, "links": [a for _, a in hrefs if a]}
+    site["/private/notes.html"] = {"body": "<html><p>robots keep this out</p></html>",
+                                   "links": []}
+    return site
+
+
+class _RagServer:
+    """The site on a ``ThreadingHTTPServer`` at 127.0.0.1 (a free port):
+    ``/robots.txt`` disallows ``/private/``, a path not in the site answers
+    404; each request's path, status and time are logged."""
+
+    def __init__(self, site: dict) -> None:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.log: list = []
+        server = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_GET(self):
+                if self.path == "/robots.txt":
+                    status, ctype, data = 200, "text/plain", b"User-agent: *\nDisallow: /private/\n"
+                elif self.path in site:
+                    status, ctype = 200, "text/html; charset=utf-8"
+                    data = server.render(site[self.path]["body"]).encode()
+                else:
+                    status, ctype, data = 404, "text/html", b"<html>not found</html>"
+                server.log.append((self.path, status, time.monotonic()))
+                self.send_response(status)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.port = self.httpd.server_address[1]
+        self.base = f"http://127.0.0.1:{self.port}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, name="rag-site",
+                                       daemon=True)
+        self.thread.start()
+
+    def render(self, text: str) -> str:
+        return text.replace("{base}", self.base).replace("{port}", str(self.port))
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(30)
+
+
+def _rag_plain_crawl(site: dict, server: _RagServer) -> list[str]:
+    """The pages a breadth-first crawl of the example's settings emits, in
+    order, from the site's own link lists: only 127.0.0.1, nothing under
+    ``/private/``, a 404 visited (it counts toward ``max-urls``), at most
+    RAG_MAX_URLS urls visited or emitted."""
+    pending = [(f"{server.base}/doc/0.html", 0)]
+    seen, emitted = set(), []
+    while pending and len(seen) < RAG_MAX_URLS:
+        url, depth = pending.pop(0)
+        if url in seen or not url.startswith(server.base + "/"):
+            continue
+        path = url[len(server.base):]
+        if path.startswith("/private/"):
+            continue
+        seen.add(url)
+        if path not in site:
+            continue
+        pending += [(server.render(a), depth + 1) for a in site[path]["links"]
+                    if server.render(a) not in seen]
+        emitted.append(url)
+    return emitted
+
+
+def _rag_copy(ctx, server: _RagServer) -> tuple[Path, Path]:
+    """``build/rag/``: the tpu-rag example with its resource's ``max-seq-len``
+    raised to ``APP_MAX_SEQ_LEN``, ``weights: random`` and this run's seed,
+    the crawl pointed at the local site with the politeness delay lowered
+    to RAG_MIN_TIME_MS, the vector store's ``path`` under ``build/rag/``,
+    and an instance serving llama-3-8b (the files under ``examples/`` stay
+    as they are; everything else keeps the example's settings)."""
+    import shutil
+
+    dst = ROOT / "build" / "rag"
+    shutil.rmtree(dst, ignore_errors=True)
+    app = dst / "tpu-rag"
+    shutil.copytree(ROOT / "examples" / "applications" / "tpu-rag", app)
+    edits = {
+        "configuration.yaml": [
+            ("        max-seq-len: 512\n", f"        max-seq-len: {APP_MAX_SEQ_LEN}\n"
+             f"        weights: random\n        seed: {ctx['seed']}\n"),
+            ('        path: "${secrets.vector-database.path}"\n',
+             f'        path: "{dst / "vectors"}"\n'),
+        ],
+        "crawl.yaml": [
+            ('      seed-urls: ["https://example.com/"]\n      allowed-domains: ["example.com"]\n',
+             f'      seed-urls: ["{server.base}/doc/0.html"]\n'
+             '      allowed-domains: ["127.0.0.1"]\n'
+             f"      min-time-between-requests: {RAG_MIN_TIME_MS}\n"),
+        ],
+    }
+    for name, pairs in edits.items():
+        text = (app / name).read_text()
+        for old, new in pairs:
+            if old not in text:
+                raise AssertionError(f"rag: the example's {name} changed; update _rag_copy")
+            text = text.replace(old, new)
+        (app / name).write_text(text)
+    for name, want in (("crawl.yaml", f"max-urls: {RAG_MAX_URLS}"),
+                       ("crawl.yaml", f"chunk_size: {RAG_CHUNK_SIZE}"),
+                       ("crawl.yaml", f"chunk_overlap: {RAG_CHUNK_OVERLAP}"),
+                       ("query.yaml", f'"topK": {RAG_TOP_K}'),
+                       ("query.yaml", f"max: {RAG_MMR_MAX}"),
+                       ("query.yaml", "output-mode: text")):
+        if want not in (app / name).read_text():
+            raise AssertionError(f"rag: the example's {name} no longer says {want!r}")
+    instance = dst / "instance.yaml"
+    instance.write_text("instance:\n  streamingCluster:\n    type: memory\n  computeCluster:\n"
+                        "    type: local\n  globals:\n    serving-model: llama-3-8b\n")
+    return app, instance
+
+
+def _rag_chunks(bodies: list[bytes]) -> list[str]:
+    """The port's text-extractor and text-splitter at the example's
+    settings over each body, on the host."""
+    import asyncio
+
+    from langstream_tpu_torch.agents.text import TextExtractorAgent, TextSplitterAgent
+    from langstream_tpu_torch.api.record import SimpleRecord
+
+    async def run():
+        extract, split = TextExtractorAgent(), TextSplitterAgent()
+        await extract.init({})
+        await split.init({"chunk_size": RAG_CHUNK_SIZE, "chunk_overlap": RAG_CHUNK_OVERLAP})
+        out = []
+        for body in bodies:
+            text = (await extract.process_record(SimpleRecord.of(body)))[0]
+            out += [r.value for r in await split.process_record(text)]
+        return out
+
+    return asyncio.run(run())
+
+
+def _rag_questions(seed: int) -> list[str]:
+    """RAG_QUESTIONS distinct questions of the site's words."""
+    rng = random.Random(seed + 29)
+    out: list[str] = []
+    while len(out) < RAG_QUESTIONS:
+        q = (f"What does the site say about {rng.choice(RAG_WORDS)} and "
+             f"{rng.choice(RAG_WORDS)} for the {rng.choice(RAG_WORDS)}?")
+        if q not in out:
+            out.append(q)
+    return out
+
+
+def _rag_ask(url: str, question: str) -> dict:
+    """One question through the service gateway: POST, the reply record
+    (a blocking call for a worker thread)."""
+    import urllib.request
+
+    request = urllib.request.Request(url, data=json.dumps({"value": question}).encode(),
+                                     method="POST")
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    t0 = time.monotonic()
+    with opener.open(request, timeout=900) as resp:
+        reply = json.loads(resp.read())
+    return {"reply": reply, "sent_at": t0, "answered_at": time.monotonic()}
+
+
+def _plain_mmr(np, q, vectors, k: int, lam: float) -> tuple[list, list]:
+    """MMR in f64: (picked indices, each pick's margin over the runner-up)."""
+    def cos(a, b):
+        return float(a @ b) / (float(np.linalg.norm(a) * np.linalg.norm(b)) + 1e-9)
+
+    vecs = [np.asarray(v, np.float64) for v in vectors]
+    q = np.asarray(q, np.float64)
+    picked, margins, left = [], [], list(range(len(vecs)))
+    while left and len(picked) < k:
+        scores = [lam * cos(vecs[i], q) - (1 - lam) * max(
+            (cos(vecs[i], vecs[j]) for j in picked), default=0.0) for i in left]
+        order = sorted(range(len(left)), key=lambda j: (-scores[j], j))
+        best = left[order[0]]
+        margins.append(scores[order[0]] - scores[order[1]] if len(order) > 1 else math.inf)
+        picked.append(best)
+        left.remove(best)
+    return picked, margins
+
+
+def _rag_retrieval_check(np, store_dir: Path, replies: list) -> dict:
+    """Each question's top-k against a plain f64 cosine top-k over the
+    saved index (the lower row first among equal scores; a neighbour pair
+    in the other order only within VECTOR_TIE), and its re-rank picks
+    against a plain f64 MMR over the same hits (a pick may differ only
+    where the MMR scores lie within RAG_MMR_TIE)."""
+    matrix = np.load(store_dir / "docs.npz")["matrix"].astype(np.float64)
+    meta = json.loads((store_dir / "docs.json").read_text())
+    row_of = {id_: r for r, id_ in enumerate(meta["ids"])}
+    rows = matrix / (np.linalg.norm(matrix, axis=1, keepdims=True) + 1e-9)
+    swaps, mmr_ties = [], []
+    for qi, value in enumerate(replies):
+        q = np.asarray(value["embeddings"], np.float64)
+        scores = rows @ (q / (np.linalg.norm(q) + 1e-9))
+        want = _ranked_rows(np, scores[None], RAG_TOP_K)[0].tolist()
+        got = [row_of[hit["id"]] for hit in value["related"]]
+        if len(got) != RAG_TOP_K:
+            raise AssertionError(f"rag: question {qi} got {len(got)} hits, not {RAG_TOP_K}")
+        for j, (a, b) in enumerate(zip(got, want)):
+            if a != b:
+                gap = abs(scores[a] - scores[b])
+                swaps.append({"question": qi, "rank": j, "f64_gap": gap})
+                if gap > VECTOR_TIE:
+                    raise AssertionError(f"rag: question {qi} rank {j}: row {a}, the plain "
+                                         f"top-k's {b} (gap {gap})")
+        for hit in value["related"]:
+            if hit["vector"] != matrix[row_of[hit["id"]]].astype(np.float32).tolist():
+                raise AssertionError(f"rag: question {qi}: a hit's vector is not its stored row")
+        picked, margins = _plain_mmr(np, value["embeddings"],
+                                     [h["vector"] for h in value["related"]], RAG_MMR_MAX,
+                                     RAG_MMR_LAMBDA)
+        plain_texts = [value["related"][i]["text"] for i in picked]
+        if plain_texts != value["context"]:
+            close = [m for m in margins if m <= RAG_MMR_TIE]
+            if not close:
+                raise AssertionError(f"rag: question {qi}'s re-rank picks differ from the "
+                                     f"plain MMR's (margins {margins})")
+            mmr_ties.append({"question": qi, "margins": margins})
+    return {"rows": len(meta["ids"]), "topk_swapped_ties": swaps, "mmr_ties": mmr_ties}
+
+
+def _rag_embed_threads(torch, emb, holder, text: str, n: int = 8) -> dict:
+    """One text embedded ``n`` times: serially through the service, from
+    ``n`` threads at once through the service (its lock serializes the
+    device work), and from ``n`` threads each calling ``encode`` on a
+    stream of its own without the lock: the wall ms of each way."""
+    from langstream_tpu_torch.models import transformer as tf
+
+    tokens, lengths = emb.batch([text])
+    params = holder.params()
+
+    def unlocked():
+        with torch.cuda.stream(torch.cuda.Stream()):
+            tf.encode(params, torch.from_numpy(tokens).cuda(), torch.from_numpy(lengths).cuda(),
+                      holder.model_config).cpu()
+
+    def at_once(fn) -> float:
+        threads = [threading.Thread(target=fn) for _ in range(n)]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return (time.monotonic() - t0) * 1e3
+
+    emb.embed([text])
+    unlocked()
+    t0 = time.monotonic()
+    for _ in range(n):
+        emb.embed([text])
+    serial = (time.monotonic() - t0) * 1e3
+    return {"calls": n, "tokens": int(lengths[0]), "width": int(tokens.shape[1]),
+            "serial_ms": serial, "threads_locked_ms": at_once(lambda: emb.embed([text])),
+            "threads_unlocked_ms": at_once(unlocked)}
+
+
+async def _rag_run(ctx, app_dir: Path, instance: Path, server: _RagServer,
+                   expected_pages: list, chunks: list) -> dict:
+    from langstream_tpu_torch.agents.vector import (
+        LocalVectorDataSource,
+        QueryVectorDBAgent,
+        ReRankAgent,
+    )
+    from langstream_tpu_torch.ai.torch_serving import TorchEmbeddingsService
+    from langstream_tpu_torch.cli.main import start_local
+
+    # each stage's calls, timed where they run: (stage, key, start, end)
+    spans: list = []
+    patched = []
+
+    def timed(cls, name, stage, key):
+        original = getattr(cls, name)
+
+        async def wrapper(self, *args):
+            t0 = time.monotonic()
+            try:
+                return await original(self, *args)
+            finally:
+                spans.append((stage, key(*args), t0, time.monotonic()))
+
+        patched.append((cls, name, original))
+        setattr(cls, name, wrapper)
+
+    def question_of(record):
+        value = record.value
+        return (json.loads(value) if isinstance(value, (str, bytes)) else value).get("question")
+
+    timed(TorchEmbeddingsService, "compute_embeddings", "embed", lambda texts: tuple(texts))
+    timed(QueryVectorDBAgent, "process_record", "search", question_of)
+    timed(ReRankAgent, "process_record", "rerank", question_of)
+    search = LocalVectorDataSource.search
+    search_ms: list = []
+
+    def timed_search(self, *args, **kw):
+        t0 = time.monotonic()
+        out = search(self, *args, **kw)  # reads its results back: the card is done
+        search_ms.append((time.monotonic() - t0) * 1e3)
+        return out
+
+    LocalVectorDataSource.search = timed_search
+    try:
+        t_start = time.monotonic()
+        app = await start_local(app_dir, instance, name=RAG_NAME, gateway_port=0, metrics_port=0)
+        deploy_s = time.monotonic() - t_start
+        try:
+            return await _rag_serve(ctx, app, server, expected_pages, chunks, spans, search_ms,
+                                    t_start, deploy_s)
+        finally:
+            await app.stop()
+    finally:
+        for cls, name, original in patched:
+            setattr(cls, name, original)
+        LocalVectorDataSource.search = search
+
+
+async def _rag_serve(ctx, app, server, expected_pages, chunks, spans, search_ms, t_start,
+                     deploy_s) -> dict:
+    """The running app's checks: the write path (pages, chunks, stored
+    vectors), then the 8 questions through ``ask`` and the direct path."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from langstream_tpu_torch.agents.genai import el
+    from langstream_tpu_torch.agents.genai.mutable import MutableRecord
+    from langstream_tpu_torch.ai.provider import ChatMessage
+    from langstream_tpu_torch.api.record import SimpleRecord
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+
+    registry = app.runner._service_registry
+    svc = registry.get_provider().holder
+    store = registry.get_datasource("vdb")
+    loop = asyncio.get_running_loop()
+    t0 = time.monotonic()
+    await loop.run_in_executor(None, svc.params)  # drawn by the first embedding, or now
+    params_s = time.monotonic() - t0
+    # the write path: until the index holds every chunk of the site
+    deadline = time.monotonic() + 900
+    while True:
+        rows = len(store._indexes.get("docs", {}).get("ids", []))
+        if rows >= len(chunks):
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"rag: {rows} of {len(chunks)} chunks indexed after 900 s")
+        await asyncio.sleep(0.05)
+    t_indexed = time.monotonic()
+    await asyncio.sleep(1.0)  # nothing more may arrive
+    pages = [p for p, status, _ in server.log if status == 200 and p.startswith("/doc/")]
+    fetched = [p for p, _, _ in server.log if p != "/robots.txt"]
+    page_times = [t for p, status, t in server.log if status == 200 and p.startswith("/doc/")]
+    problems = []
+    want_pages = [u[len(server.base):] for u in expected_pages]
+    if pages != want_pages:
+        problems.append(f"pages crawled {pages} != the plain crawl's {want_pages}")
+    if "/private/notes.html" in fetched or fetched.count("/doc/missing.html") != 1:
+        problems.append(f"robots or the 404 not held: {fetched}")
+    idx = store._indexes["docs"]
+    stored_texts = [m["text"] for m in idx["meta"]]
+    if len(stored_texts) != len(chunks) or sorted(stored_texts) != sorted(chunks):
+        problems.append(f"index holds {len(stored_texts)} rows, the host's splitter gives "
+                        f"{len(chunks)} chunks (or other texts)")
+    # every stored vector against the provider's direct encode of its text,
+    # in batches of 64 texts of like lengths
+    emb = registry.get_provider().get_embeddings_service({})
+    order = sorted(range(len(stored_texts)), key=lambda i: len(stored_texts[i]))
+    direct = np.empty_like(idx["matrix"][:len(stored_texts)])
+    for a in range(0, len(order), 64):
+        rows = order[a:a + 64]
+        direct[rows] = emb.embed([stored_texts[i] for i in rows])
+    stored = idx["matrix"][:len(stored_texts)]
+    vec_err = np.linalg.norm(stored - direct, axis=1)
+    if vec_err.max() > EMBED_TOL:
+        problems.append(f"stored vectors differ from direct encodes by up to {vec_err.max()}")
+    write_embeds = [(t0, t1) for stage, _, t0, t1 in spans if stage == "embed"]
+    # the time at least one embedding call ran (the runner's records embed
+    # concurrently, in the event loop's executor)
+    embed_busy, reached = 0.0, -math.inf
+    for t0, t1 in sorted(write_embeds):
+        if t1 > reached:
+            embed_busy += t1 - max(t0, reached)
+            reached = t1
+    write = {
+        "pages": len(pages), "chunks": len(chunks), "deploy_s": deploy_s,
+        "weights_ready_s": params_s,
+        "crawl_wall_s": page_times[-1] - page_times[0] if len(page_times) > 1 else 0.0,
+        "write_path_s": t_indexed - t_start,
+        "embed_calls": len(write_embeds), "embed_busy_s": embed_busy,
+        "embed_share": embed_busy / (t_indexed - t_start),
+        "chunks_per_s_write_path": len(chunks) / (t_indexed - t_start),
+        "chunks_per_s_embedding": len(chunks) / embed_busy if embed_busy else None,
+        "stored_vs_direct_max_l2": float(vec_err.max()), "tolerance_l2": EMBED_TOL,
+    }
+    write["pages_per_s"] = (len(pages) / write["crawl_wall_s"]) if write["crawl_wall_s"] else None
+    write["embed_threads"] = _rag_embed_threads(torch, emb, svc, chunks[0])
+    if problems:
+        raise AssertionError("rag write path: " + "; ".join(problems)
+                             + f" ({json.dumps(write)[:2000]})")
+    spans.clear()
+    search_ms.clear()
+    # the read path: the engine built and warm, then the questions at once
+    t0 = time.monotonic()
+    engine = await loop.run_in_executor(None, svc.engine)
+    engine_s = time.monotonic() - t0
+    cfg = svc.model_config
+    await svc.get_chat_completions([ChatMessage("user", "warm up")], {"max-tokens": 4})
+    taps: list = []
+    submit = engine.submit
+
+    def tapped(request):
+        at = time.monotonic()
+        future = submit(request)
+        taps.append((request, future, at))
+        return future
+
+    engine.submit = tapped
+    questions = _rag_questions(ctx["seed"])
+    url = (f"{app.gateway.url}/api/gateways/service/default/{RAG_NAME}/ask"
+           "?option:timeout=900")
+    torch.cuda.synchronize()
+    before = engine.stats()
+    reset_kernel_counts()
+    t_run = time.monotonic()
+    asks = await asyncio.gather(*(asyncio.to_thread(_rag_ask, url, q) for q in questions))
+    wall = time.monotonic() - t_run
+    counts = kernel_counts()
+    after = engine.stats()
+    served = [(r, f.result(timeout=60), at) for r, f, at in taps]
+    taps.clear()
+    replies = [json.loads(a["reply"]["record"]["value"]) for a in asks]
+    by_question = {}
+    for (req, result, at) in served:
+        text = svc.tokenizer.decode(req.prompt_tokens)
+        owner = [q for q in questions if q in text]
+        if len(owner) != 1:
+            raise AssertionError(f"rag: a completion request names {len(owner)} questions")
+        by_question[owner[0]] = (req, result, at)
+    # the direct path: the same messages through the provider
+    messages = []
+    for value in replies:
+        record = MutableRecord.from_record(SimpleRecord.of(json.dumps(value)))
+        messages.append([
+            ChatMessage("system", el.render_template(
+                "Answer using this context: {{ value.context }}", record)),
+            ChatMessage("user", value["question"])])
+    await asyncio.gather(*(svc.get_chat_completions(m, {"model": "llama-3-8b",
+                                                        "tenant": "default"})
+                           for m in messages))
+    direct = {}
+    for req, future, _ in taps:
+        direct[tuple(req.prompt_tokens)] = future.result(timeout=60)
+    store.flush()
+    retrieval = _rag_retrieval_check(np, Path(store._path), replies)
+    params = svc.params()
+    prompts = [list(by_question[q][0].prompt_tokens) for q in questions]
+    app_tokens = [by_question[q][1].tokens for q in questions]
+    problems = []
+    missing = [i for i, p in enumerate(prompts) if tuple(p) not in direct]
+    if missing:
+        problems.append(f"questions {missing}: the direct path rendered another prompt")
+    want = [direct[tuple(p)].tokens if tuple(p) in direct else [] for p in prompts]
+    same = _same_or_tie(ctx, cfg, params, "rag", prompts, app_tokens, want)
+    for i, (q, value) in enumerate(zip(questions, replies)):
+        result = by_question[q][1]
+        if value["question"] != q or value["answer"] != svc.tokenizer.decode(result.tokens):
+            problems.append(f"question {i}: the reply does not carry its answer")
+        if result.finish_reason not in ("length", "stop") or result.error is not None:
+            problems.append(f"question {i} ended {result.finish_reason}: {result.error}")
+        if len(value["context"]) != RAG_MMR_MAX:
+            problems.append(f"question {i}: {len(value['context'])} context texts")
+    groups = after["admit-groups-total"] - before["admit-groups-total"]
+    steps = after["decode-steps-total"] - before["decode-steps-total"]
+    segments = after["prefill-segments-total"] - before["prefill-segments-total"]
+    chunks_n = after["decode-chunks-total"] - before["decode-chunks-total"]
+    replays = after["graph-replays-total"] - before["graph-replays-total"]
+    launches = {k: v["launches"] for k, v in counts.items()}
+    plain = {k: v["cpu_calls"] for k, v in counts.items() if v["cpu_calls"]}
+    layers = cfg.n_layers
+    if plain:
+        problems.append(f"plain versions ran: {plain}")
+    if groups <= 0 or launches["flash_prefill"] != layers * groups:
+        problems.append(f"flash_prefill launches {launches['flash_prefill']} != {layers} x "
+                        f"{groups} admit groups")
+    if steps <= 0 or launches["paged_decode"] != layers * steps:
+        problems.append(f"paged_decode launches {launches['paged_decode']} != {layers} x "
+                        f"{steps} decode steps")
+    if launches.get("flash_segment", 0) != layers * segments:
+        problems.append(f"flash_segment launches {launches.get('flash_segment')} != {layers} "
+                        f"x {segments} prefill segments")
+    others = {k: n for k, n in launches.items()
+              if n and k not in ("flash_prefill", "paged_decode", "flash_segment")}
+    if others:
+        problems.append(f"other kernels launched: {others}")
+    if chunks_n <= 0 or replays != chunks_n:
+        problems.append(f"{chunks_n} decode chunks but {replays} graph replays")
+    if not same["ok"]:
+        problems.append(f"answers differ from the direct path beyond one-ulp ties: "
+                        f"{same['not_ties']}")
+
+    def span(stage, key):
+        got = [(t1 - t0) * 1e3 for s, k, t0, t1 in spans if s == stage and k == key]
+        return got[0] if len(got) == 1 else None
+
+    per_question = []
+    for q, ask in zip(questions, asks):
+        req, result, at = by_question[q]
+        per_question.append({
+            "prompt_tokens": len(req.prompt_tokens), "answer_tokens": len(result.tokens),
+            "send_to_answer_ms": (ask["answered_at"] - ask["sent_at"]) * 1e3,
+            "engine_ttft_ms": result.ttft_s * 1e3,
+            "embed_ms": span("embed", (q,)), "search_ms": span("search", q),
+            "rerank_ms": span("rerank", q), "completion_ms": result.total_s * 1e3,
+            "send_to_submit_ms": (at - ask["sent_at"]) * 1e3,
+        })
+    tokens = sum(len(t) for t in app_tokens)
+    run = {
+        "write": write, "questions": len(questions), "per_question": per_question,
+        "topk_ms_per_query": list(search_ms), "wall_s": wall,
+        "answer_tokens_per_s": tokens / wall, "engine_build_s": engine_s,
+        "admit_groups": groups, "decode_steps": steps, "prefill_segments": segments,
+        "decode_chunks": chunks_n, "graph_replays": replays, "kernel_launches": launches,
+        "retrieval": retrieval,
+        "same_as_direct": {k: same[k] for k in ("agreement", "ties", "equal")},
+    }
+    if problems:
+        raise AssertionError("rag: " + "; ".join(problems) + f" ({json.dumps(run)[:2000]})")
+    return run
+
+
+def phase_rag(ctx: dict) -> None:
+    """The tpu-rag example on the card (module docstring, phase 23)."""
+    import asyncio
+    import gc
+
+    import torch
+
+    ctx.pop("params", None)  # the app's provider draws its own tree (the same seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.monotonic()
+    site = _rag_site(ctx["seed"])
+    server = _RagServer(site)
+    try:
+        expected = _rag_plain_crawl(site, server)
+        chunks = _rag_chunks([server.render(site[u[len(server.base):]]["body"]).encode()
+                              for u in expected])
+        app_dir, instance = _rag_copy(ctx, server)
+        log(f"rag: site of {len(site)} pages at {server.base}; the plain crawl emits "
+            f"{len(expected)} pages, {len(chunks)} chunks; min-time-between-requests "
+            f"{RAG_MIN_TIME_MS} ms (the example's: 500 ms)")
+        run = asyncio.run(_rag_run(ctx, app_dir, instance, server, expected, chunks))
+    finally:
+        server.close()
+    card = smi_line()
+    w = run["write"]
+    log(f"rag crawl: {w['pages']} pages in {w['crawl_wall_s']:.3f} s ({w['pages_per_s']:.2f} "
+        f"pages/s), {w['chunks']} chunks indexed {w['write_path_s']:.3f} s after the app "
+        f"started ({w['chunks_per_s_write_path']:.2f} chunks/s; "
+        f"{w['chunks_per_s_embedding']:.2f} chunks/s while an embedding ran; the share of the "
+        f"write path with an embedding running {w['embed_share']:.3f}) [{card}]")
+    th = w["embed_threads"]
+    log(f"rag embed calls: {th['calls']} of one {th['tokens']}-token text ({th['width']} wide) "
+        f"{th['serial_ms']:.1f} ms one after another, {th['threads_locked_ms']:.1f} ms from "
+        f"{th['calls']} threads through the service's lock, {th['threads_unlocked_ms']:.1f} "
+        f"ms from {th['calls']} threads without it [{card}]")
+    topk = run["topk_ms_per_query"]
+    log(f"rag top-k: {sum(topk) / len(topk):.3f} ms a query over {w['chunks']} rows "
+        f"(host wall of the store's search, the card's result read back) [{card}]")
+    for i, q in enumerate(run["per_question"]):
+        log(f"rag q{i} ({q['prompt_tokens']} prompt tokens, {q['answer_tokens']} answer "
+            f"tokens): send to answer {q['send_to_answer_ms']:.1f} ms, engine ttft "
+            f"{q['engine_ttft_ms']:.1f} ms; embed {q['embed_ms']:.1f} ms, search "
+            f"{q['search_ms']:.1f} ms, re-rank {q['rerank_ms']:.1f} ms, completion "
+            f"{q['completion_ms']:.1f} ms [{card}]")
+    log(f"rag burst: {run['wall_s']:.3f} s, {run['answer_tokens_per_s']:.1f} answer tokens/s "
+        f"[{card}]")
+    run["phase_s"] = time.monotonic() - t_phase
+    log(f"rag phase: {run['phase_s']:.1f} s [{card}]")
+    log(f"rag tpu-rag llama-3-8b {json.dumps(run)}")
+    ctx["rag"] = run
+    ctx.setdefault("summaries", []).append(("rag", {
+        "pages": w["pages"], "chunks": w["chunks"], "write_path_s": w["write_path_s"],
+        "embed_share": w["embed_share"], "burst_s": run["wall_s"],
+        "answer_tokens_per_s": run["answer_tokens_per_s"],
+        "launches": {k: n for k, n in run["kernel_launches"].items() if n}}))
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _replay_rate(torch, engine, chunks: int = 4) -> dict:
@@ -6246,8 +6925,7 @@ def phase_fleet(ctx: dict) -> None:
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
     from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
 
-    cfg = MODEL_PRESETS["llama-3-8b"]
-    params = _llama_params(ctx)
+    cfg, params = _shallow(MODEL_PRESETS["llama-3-8b"], _llama_params(ctx))
     tok = ByteTokenizer()
     prompts = [tok.encode(t) for t in _prompts(list(FLEET_BYTES), ctx["seed"] + 19)]
     base_alloc, base_reserved = _fresh_base(torch)
@@ -7563,7 +8241,7 @@ def kernel_record(ctx: dict) -> dict:
     served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "prefix",
               "spec", "agentic", "dense_spec", "dense_prefix", "dense_prefix_int8", "tiered",
               "fleet", "fleet_http", "spmd", "spmd_leader", "spmd_follower", "ring", "ring_int8",
-              "load", "moe", "app")
+              "load", "moe", "app", "rag")
     out = []
     for name, (src, replaces, path) in sources.items():
         runs = ctx.get("kernel_runs", {}).get(name)

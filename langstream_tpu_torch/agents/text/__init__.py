@@ -1,7 +1,8 @@
 """Text-processing agents.
 
 Parity: reference `langstream-agents-text-processing` (SURVEY §2.5):
-`text-extractor` (Tika-based there; stdlib/bs4-based here), `text-splitter`
+`text-extractor` (Tika-based there; stdlib-based here: HTML through
+``html.py``), `text-splitter`
 (`TextSplitter.java` / `RecursiveCharacterTextSplitter.java` — a recursive
 character splitter), `language-detector`, `text-normaliser`,
 `document-to-json`. Each registers into the agent registry on import.
@@ -15,6 +16,7 @@ import zipfile
 from io import BytesIO
 from typing import Any, Callable
 
+from langstream_tpu_torch.agents.text.html import html_text
 from langstream_tpu_torch.api.agent import ComponentType, SingleRecordProcessor
 from langstream_tpu_torch.api.doc import ConfigModel, ConfigProperty, props
 from langstream_tpu_torch.api.record import Record, SimpleRecord
@@ -195,16 +197,13 @@ def _extract_docx(data: bytes) -> str:
 
 
 def _extract_html(data: bytes | str) -> str:
-    from bs4 import BeautifulSoup
-
-    soup = BeautifulSoup(data, "html.parser")
-    for tag in soup(["script", "style", "noscript"]):
-        tag.decompose()
-    return re.sub(r"\n{3,}", "\n\n", soup.get_text("\n")).strip()
+    """The page's text, read on the stdlib (``html.html_text``: what the
+    JAX package's bs4 reading gives)."""
+    return html_text(data)
 
 
 class TextExtractorAgent(SingleRecordProcessor):
-    """`text-extractor` (reference uses Apache Tika; here: HTML via bs4,
+    """`text-extractor` (reference uses Apache Tika; here: HTML via html.parser,
     docx via stdlib zip+xml, plain/UTF-8 text passthrough).
     Unsupported binary formats raise → routed to the errors policy."""
 

@@ -534,6 +534,8 @@ class TorchCompletionsService(CompletionsService):
         # the engine's build and the params' load, from any thread (the
         # engine's build loads the params under it)
         self._lock = threading.RLock()
+        # one embedding call at a time on the card (``TorchEmbeddingsService``)
+        self.embed_lock = threading.Lock()
         self._engine: Optional[ServingEngine] = None
         self._params: Optional[dict] = None
         # the checkpoint load's WeightLoadReport, whose event the engine
@@ -1159,7 +1161,12 @@ class TorchEmbeddingsService(EmbeddingsService):
     padded to a power of two from 16 (a row's length ``max(1, len)``: an
     empty text pools its one pad token), and ``models/transformer.encode``
     gives one L2-normalised f32 vector a text. The call runs off the event
-    loop, in an executor.
+    loop, in an executor. On the card the calls take the provider's
+    ``embed_lock`` for their device work, one at a time: an eager
+    ``encode`` is some 1,700 kernel launches of host work under the GIL
+    (the JAX package's, one jitted dispatch), and a pipeline embeds its
+    records concurrently, where threads launching at once slow every call
+    (``chip_smoke.py``'s ``rag`` phase times both ways).
 
     It reads the weight tree of the completions service it was given (one
     load for both services). On the card it runs on a stream of its own —
@@ -1209,14 +1216,15 @@ class TorchEmbeddingsService(EmbeddingsService):
         if dev.type != "cuda":
             return encode(params, torch.from_numpy(tokens), torch.from_numpy(lengths),
                           holder.model_config).numpy()
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(dev)
-        stream = self._stream
-        with torch.cuda.stream(stream):
-            holder.wait_for_weights(stream)
-            out = encode(params, torch.from_numpy(tokens).to(dev),
-                         torch.from_numpy(lengths).to(dev), holder.model_config)
-            host = out.cpu()  # synchronizes this stream only
+        with holder.embed_lock:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(dev)
+            stream = self._stream
+            with torch.cuda.stream(stream):
+                holder.wait_for_weights(stream)
+                out = encode(params, torch.from_numpy(tokens).to(dev),
+                             torch.from_numpy(lengths).to(dev), holder.model_config)
+                host = out.cpu()  # synchronizes this stream only
         return host.numpy()
 
     async def compute_embeddings(self, texts: list[str]) -> list[list[float]]:

@@ -8,13 +8,14 @@
     fused into one processor by the planner);
   - for a ``configuration.resources`` entry: a factory (an AI service
     provider, a datasource client) and its config schema;
-  - for an asset: the factory of its manager (no asset type is ported
-    yet: the deployer skips assets it has no manager for, as JAX's does).
+  - for an asset: the factory of its manager (the deployer skips an
+    asset whose type has none, as JAX's does).
 
 The port's built-in types register on first lookup: the agents of
-``agents/`` (identity, list-source, collect-sink, the text agents and the
-GenAI steps), ``tpu-serving`` (``ai.register_providers``) and the
-``datasource`` / ``vector-database`` types served by the local vector store
+``agents/`` (identity, list-source, collect-sink, the text agents, the
+GenAI steps, ``webcrawler-source`` and the RAG agents), ``tpu-serving``
+(``ai.register_providers``), the ``datasource`` / ``vector-database``
+types with every service JAX resolves, and the asset types
 (``agents.vector``)."""
 
 from __future__ import annotations

@@ -255,7 +255,9 @@ def attention(
         scores = scores * k["s"][:, :, None, None, :]
     else:
         scores = torch.einsum("bshgd,bhtd->bhgst", qg, k).float()
-    scores = scores / torch.sqrt(torch.tensor(float(d), dtype=torch.float32, device=q.device))
+    # sqrt(d) computed on the device (a host value would be a blocking
+    # copy: one wait for the card per layer)
+    scores = scores / torch.full((), float(d), dtype=torch.float32, device=q.device).sqrt()
     scores = softcap(scores, config.attn_logit_softcap)
     scores = torch.where(mask[:, None, None, :, :], scores, torch.full_like(scores, _NEG))
     probs = torch.softmax(scores, dim=-1)

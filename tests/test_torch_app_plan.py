@@ -26,10 +26,12 @@ INSTANCE = EXAMPLES / "instances" / "local-memory.yaml"
 SECRETS = EXAMPLES / "secrets" / "secrets.yaml"
 # the apps the port plans: every agent type they use is ported
 PLANNED = {
-    "bedrock-text-completions", "chatbot-ui", "compute-tpu-embeddings", "docker-chatbot",
-    "gateway-authentication", "moe-chat", "ollama-chatbot", "query-astradb",
-    "query-postgresql-chat-history", "react-chatbot-ui", "text-completions",
-    "text-processing", "tpu-completions", "vertexai-text-completions",
+    "astradb-sink", "bedrock-text-completions", "chatbot-rag-memory", "chatbot-ui",
+    "compute-tpu-embeddings", "docker-chatbot", "flare", "gateway-authentication", "moe-chat",
+    "ollama-chatbot", "query-astradb", "query-milvus", "query-opensearch", "query-pinecone",
+    "query-postgresql-chat-history", "query-solr", "react-chatbot-ui", "text-completions",
+    "text-processing", "tpu-completions", "tpu-rag", "vertexai-text-completions",
+    "webcrawler-astra-vector-db", "webcrawler-source",
 }
 
 

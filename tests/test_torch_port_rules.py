@@ -1,6 +1,6 @@
 """Rules of the PyTorch port, checked statically and at its entry points:
 the package and chip_smoke.py import neither JAX nor the JAX package nor
-aiohttp, PyYAML or click;
+aiohttp, PyYAML, click or bs4;
 asking for CUDA where there is none raises instead of running on the CPU;
 and the completions service streams text through the port's engine."""
 
@@ -77,6 +77,14 @@ def test_port_files_exist():
         "langstream_tpu_torch/runtime/local_runner.py",
         "langstream_tpu_torch/agents/builtin.py",
         "langstream_tpu_torch/agents/text/__init__.py",
+        "langstream_tpu_torch/agents/text/html.py",
+        "langstream_tpu_torch/api/storage.py",
+        "langstream_tpu_torch/agents/web/__init__.py",
+        "langstream_tpu_torch/agents/vector/remote.py",
+        "langstream_tpu_torch/agents/vector/milvus.py",
+        "langstream_tpu_torch/agents/vector/cql_protocol.py",
+        "langstream_tpu_torch/agents/vector/cassandra.py",
+        "langstream_tpu_torch/agents/vector/cql_fake.py",
         "langstream_tpu_torch/agents/genai/steps.py",
         "langstream_tpu_torch/agents/genai/completions.py",
         "langstream_tpu_torch/agents/genai/embeddings.py",
@@ -127,6 +135,15 @@ def test_no_yaml_or_click(path):
     command line is argparse."""
     for name in imported_modules(path):
         assert name.split(".")[0] not in ("yaml", "click"), f"{path.name} imports {name}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_bs4(path):
+    """The card's machine has no BeautifulSoup: the port reads HTML on the
+    stdlib ``html.parser`` (``agents/text/html.py``), for the text extractor
+    and the crawler's links alike."""
+    for name in imported_modules(path):
+        assert name.split(".")[0] != "bs4", f"{path.name} imports {name}"
 
 
 def test_no_cuda_raises(monkeypatch, tmp_path):
