@@ -496,7 +496,46 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    query, per question send to answer, engine TTFT and the time in embed /
    search / re-rank / completion, the burst's answer tokens/s and the
    phase's seconds, each with the card's name and power limit.
-24. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+24. ``remote``  — the remote providers, gateway authentication and the
+   flow / HTTP / storage agents on the card: three example apps, each
+   copied under ``build/remote/`` (the files under ``examples/`` stay as
+   they are) and run through the code of ``run local`` with an instance
+   serving llama-3-8b (full width and depth, bf16, random weights from
+   this run's seed; each ``tpu-serving`` resource given ``max-seq-len``
+   2048). The outside services are stdlib stubs on the loopback.
+   (a) ``gateway-authentication``: Google sign-in (its ``certs-uri``
+   pointed at a JWKS stub, the example's ``client-id``) over the chat on
+   the card; the tokens are signed on the stdlib with a fixed RSA-2048 key
+   (``REMOTE_RSA_*``, test data). 8 chat websockets at once, each its own
+   ``sub``, ask the ``e2e`` phase's prompt lengths: each answer's
+   ``langstream-user`` header must be its token's subject, each answer its
+   request's tokens, the tokens the direct path's (the same requests
+   straight to the engine; equal or a one-ulp tie), the launches exact
+   (prefill layers x admit groups, paged decode layers x decode steps,
+   replays = chunks); five connects must be refused with 401 and reach no
+   engine (a tampered signature, an expired token, a wrong audience, an
+   unknown ``kid``, ``test-credentials`` with no test provider). It prints
+   each session's websocket connect to answer and the stdlib RSA check's
+   ms a token. (b) ``slack``: 8 pages of the ``e2e`` lengths into
+   ``pages-topic``; ``ai-text-completions`` on the card, then
+   ``http-request`` POSTs each summary to a webhook stub: the stub must
+   get 8 bodies, each ``{"text": "<its record's summary>"}``, each
+   ``notified-topic`` record the stub's answer in ``slack-response``, the
+   summaries the engine's tokens and the direct path's, the launches
+   exact. (c) ``rag-aws``: ``ingest.yaml`` reads 4 objects from an S3
+   stub (a ListObjectsV2 listing, then GETs; the copy keeps the objects,
+   structures each chunk with ``document-to-json`` and sizes the index to
+   the model's 4096), extracts, splits, embeds on the card and indexes in
+   the on-card store: the rows must be the host's chunks, each vector
+   within ``EMBED_TOL`` of a direct encode; then 2 questions through
+   ``chatbot.yaml`` (embed on the card, query the store, a Bedrock stub
+   answers): every S3 and Bedrock request signed SigV4 (the scope's region
+   and service, ``host`` and ``x-amz-date`` signed, a 64-hex signature),
+   the stub given each question's retrieved texts, each answer the stub's.
+   No attention kernel runs in (c): the embeddings are computed outside
+   any kernel, as in JAX. The build phase also prints whether ``grpc``,
+   ``google.protobuf`` and ``cryptography`` import on the machine.
+25. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
    and int8 page pools and the bf16 dense cache (8192 wide), traced with
    torch.profiler: the device's busy share of the wall and the top
    kernels (no split-K decode kernel may appear).
@@ -533,8 +572,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
           "prefix", "spec", "tenancy", "agentic", "embed", "dense_tiers", "tiered", "fleet",
-          "fleet_http", "spmd", "ring", "load", "moe", "app", "rag", "profile")
-DEFAULT_PHASES = PHASES[:23]
+          "fleet_http", "spmd", "ring", "load", "moe", "app", "rag", "remote", "profile")
+DEFAULT_PHASES = PHASES[:24]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -702,12 +741,29 @@ def phase_build(ctx: dict) -> None:
                     continue
                 log(f"  ptxas[{name}] {line.strip()[:220]}")
         _build.library(name)  # loads and binds every symbol
+    log(f"packages: {json.dumps(_package_versions())} (grpc and protobuf: a record for "
+        "the python agents' gRPC bridge, not yet ported; nothing depends on them)")
     for name, ops in SASS_OPS.items():
         mix = sass_mix(_build.library_path(name), ops)
         log(f"sass[{name}] {json.dumps(mix['all'])}")
         for kind in ("bf16", "int8"):  # the instantiations of each cache type
             log(f"sass[{name} {kind}] {json.dumps(mix[kind])}")
     log(f"card: {smi_line()}")
+
+
+def _package_versions() -> dict:
+    """Whether ``grpc``, ``google.protobuf`` and ``cryptography`` import on
+    this machine, with their versions."""
+    import importlib
+
+    out = {}
+    for name in ("grpc", "google.protobuf", "cryptography"):
+        try:
+            mod = importlib.import_module(name)
+            out[name] = getattr(mod, "__version__", "imported, no __version__")
+        except Exception as e:  # noqa: BLE001 — absent or broken: record which
+            out[name] = f"not importable: {type(e).__name__}: {e}"[:160]
+    return out
 
 
 def _template_args(mangled: str) -> str:
@@ -4916,6 +4972,36 @@ async def _app_chat(ws_url: str, session: str, question: str) -> dict:
             "last_at": last, "text": "".join(v for _, v in chunks), "first_text": chunks[0][1]}
 
 
+def _launch_check(cfg, counts, before: dict, after: dict, problems: list) -> dict:
+    """Exact launches over a window: the prefill kernel layers x admit
+    groups, the paged decode kernel layers x decode steps, every decode
+    chunk a graph replay, no segment, no other kernel, no plain version."""
+    groups = after["admit-groups-total"] - before["admit-groups-total"]
+    steps = after["decode-steps-total"] - before["decode-steps-total"]
+    segments = after["prefill-segments-total"] - before["prefill-segments-total"]
+    chunks = after["decode-chunks-total"] - before["decode-chunks-total"]
+    replays = after["graph-replays-total"] - before["graph-replays-total"]
+    launches = {k: v["launches"] for k, v in counts.items()}
+    plain = {k: v["cpu_calls"] for k, v in counts.items() if v["cpu_calls"]}
+    layers = cfg.n_layers
+    if plain:
+        problems.append(f"plain versions ran: {plain}")
+    if groups <= 0 or launches["flash_prefill"] != layers * groups:
+        problems.append(f"flash_prefill launches {launches['flash_prefill']} != "
+                        f"{layers} x {groups} admit groups")
+    if steps <= 0 or launches["paged_decode"] != layers * steps:
+        problems.append(f"paged_decode launches {launches['paged_decode']} != "
+                        f"{layers} x {steps} decode steps")
+    others = {k: n for k, n in launches.items() if n and k not in ("flash_prefill",
+                                                                   "paged_decode")}
+    if segments or others:
+        problems.append(f"{segments} segments and other kernels launched: {others}")
+    if chunks <= 0 or replays != chunks:
+        problems.append(f"{chunks} decode chunks but {replays} graph replays")
+    return {"layers": layers, "admit_groups": groups, "decode_steps": steps,
+            "decode_chunks": chunks, "graph_replays": replays, "kernel_launches": launches}
+
+
 async def _app_run(ctx, app_dir: Path, instance: Path) -> dict:
     import asyncio
 
@@ -4996,28 +5082,7 @@ async def _app_run(ctx, app_dir: Path, instance: Path) -> dict:
         final = finals.get(f"s{i}")
         if final is None or final["answer"] != chat["text"] or final["question"] != q:
             problems.append(f"s{i}: the debug topic's final record does not carry the answer")
-    groups = after["admit-groups-total"] - before["admit-groups-total"]
-    steps = after["decode-steps-total"] - before["decode-steps-total"]
-    segments = after["prefill-segments-total"] - before["prefill-segments-total"]
-    chunks = after["decode-chunks-total"] - before["decode-chunks-total"]
-    replays = after["graph-replays-total"] - before["graph-replays-total"]
-    launches = {k: v["launches"] for k, v in counts.items()}
-    plain = {k: v["cpu_calls"] for k, v in counts.items() if v["cpu_calls"]}
-    layers = cfg.n_layers
-    if plain:
-        problems.append(f"plain versions ran: {plain}")
-    if groups <= 0 or launches["flash_prefill"] != layers * groups:
-        problems.append(f"flash_prefill launches {launches['flash_prefill']} != {layers} x "
-                        f"{groups} admit groups")
-    if steps <= 0 or launches["paged_decode"] != layers * steps:
-        problems.append(f"paged_decode launches {launches['paged_decode']} != {layers} x "
-                        f"{steps} decode steps")
-    others = {k: n for k, n in launches.items() if n and k not in ("flash_prefill",
-                                                                   "paged_decode")}
-    if segments or others:
-        problems.append(f"{segments} segments and other kernels launched: {others}")
-    if chunks <= 0 or replays != chunks:
-        problems.append(f"{chunks} decode chunks but {replays} graph replays")
+    launch = _launch_check(cfg, counts, before, after, problems)
     if not same["ok"]:
         problems.append(f"answers differ from the direct path beyond one-ulp ties: "
                         f"{same['not_ties']}")
@@ -5048,11 +5113,8 @@ async def _app_run(ctx, app_dir: Path, instance: Path) -> dict:
         "answer_tokens_per_s": tokens / wall,
         "deploy_s": deploy_s,
         "engine_build_s": engine_s,
-        "admit_groups": groups,
-        "decode_steps": steps,
-        "decode_chunks": chunks,
-        "graph_replays": replays,
-        "kernel_launches": launches,
+        **{k: launch[k] for k in ("admit_groups", "decode_steps", "decode_chunks",
+                                  "graph_replays", "kernel_launches")},
         "same_as_direct": {k: same[k] for k in ("agreement", "ties", "equal")},
     }
     if problems:
@@ -5269,9 +5331,10 @@ def _rag_copy(ctx, server: _RagServer) -> tuple[Path, Path]:
     return app, instance
 
 
-def _rag_chunks(bodies: list[bytes]) -> list[str]:
+def _rag_chunks(bodies: list[bytes], size: int = RAG_CHUNK_SIZE,
+                overlap: int = RAG_CHUNK_OVERLAP) -> list[str]:
     """The port's text-extractor and text-splitter at the example's
-    settings over each body, on the host."""
+    settings (or ``size`` / ``overlap``) over each body, on the host."""
     import asyncio
 
     from langstream_tpu_torch.agents.text import TextExtractorAgent, TextSplitterAgent
@@ -5280,7 +5343,7 @@ def _rag_chunks(bodies: list[bytes]) -> list[str]:
     async def run():
         extract, split = TextExtractorAgent(), TextSplitterAgent()
         await extract.init({})
-        await split.init({"chunk_size": RAG_CHUNK_SIZE, "chunk_overlap": RAG_CHUNK_OVERLAP})
+        await split.init({"chunk_size": size, "chunk_overlap": overlap})
         out = []
         for body in bodies:
             text = (await extract.process_record(SimpleRecord.of(body)))[0]
@@ -5739,6 +5802,645 @@ def phase_rag(ctx: dict) -> None:
         "pages": w["pages"], "chunks": w["chunks"], "write_path_s": w["write_path_s"],
         "embed_share": w["embed_share"], "burst_s": run["wall_s"],
         "answer_tokens_per_s": run["answer_tokens_per_s"],
+        "launches": {k: n for k, n in run["kernel_launches"].items() if n}}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# the remote phase: gateway-authentication, slack and rag-aws, each a copy
+# under build/remote/ run through the code of ``run local`` (module
+# docstring, phase 24); the outside services are stdlib stubs on the loopback
+REMOTE_REGION = "us-east-1"
+REMOTE_OBJECTS, REMOTE_OBJECT_WORDS = 4, 150
+REMOTE_QUESTIONS = 2
+REMOTE_SPLIT = (400, 40)  # rag-aws's text-splitter: chunk_size, chunk_overlap
+# the phase's RSA-2048 key, fixed test data (modulus, public and private
+# exponents): the tokens are signed on the stdlib, EMSA-PKCS1-v1_5 then
+# pow(m, d, n); the card's machine has no ``cryptography`` to make one
+REMOTE_RSA_N = int(
+    "c62923a642248ac79cf00e855c135c3d2d0c6c03063ac7d7f40e0907e5ca07fe86ad5fc63e55d1ee3d6122e9"
+    "f6a3d38766b34cb520279ef66b442f5ac4a3a12c93156e7e6067edcf4ca57d8f9188ec67c83068d9630b814e"
+    "47213736f91e4b1cfdbc291aeae639fe8bfb4644d3a3e5c2d905634202c6c99daa1b726bc537973c655192af"
+    "cf0d1960edbd8dc89de7a5a0eeac7633566f6f24a17bcf2708788c4a1dba10956125738b86372b59a70a394b"
+    "9ef926ea5c509e007fdc852be953c3cccc214b25c68d1987b69d450fe5fd04b23a14f7cfb82bf9e82176f1d1"
+    "14e3021d9d587ae35440000a4d0b676dd690eef7fc8b8d2bc572fcd4603120d5ebb70a53", 16)
+REMOTE_RSA_E = 65537
+REMOTE_RSA_D = int(
+    "298423fa68c0242d47058a5d4959ab090c1f9e9f91960e198201d0c58d50a31521dd4004163a3fb5d4b93da9"
+    "dbe91ddfafd61fdb90c58c49df56553f84942da7db96f163dbc9da6a8489e5810742331959393f365048704a"
+    "589fae643f9427b386bb7db72c8098a4ea69f622645ee1bbcd61121719e2d109cdc25b5a15e31c358638ffc2"
+    "75df922ca2fde61cacaedd9d8178f1e846d90078806118aa07d258875324105985cb3ca4b790d81b189917ce"
+    "ca5becde37cd9585b365b54e83c47b7eaf14b60e7ba53679b457a0b0cfacedc5b64997bef4cdae08a98c91f8"
+    "f4c8869644900af4262eb5a592d7b2295524fa09084c95f09faa7d3c682b328abcf7e291", 16)
+REMOTE_KID = "smoke-key"
+SIGV4_AUTH = re.compile(
+    r"^AWS4-HMAC-SHA256 Credential=[^/]+/\d{8}/(?P<region>[^/]+)/(?P<service>[^/]+)/aws4_request, "
+    r"SignedHeaders=(?P<signed>[^,]+), Signature=(?P<signature>[0-9a-f]{64})$")
+
+
+class _Stub:
+    """A stdlib HTTP server at 127.0.0.1 (a free port) answering through
+    ``handler(method, path, query, headers, body) → (status, content type,
+    body bytes)``; every call is logged with its time."""
+
+    def __init__(self, handler) -> None:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import parse_qsl, urlsplit
+
+        self.calls: list = []
+        stub = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def _serve(self):
+                parts = urlsplit(self.path)
+                n = int(self.headers.get("Content-Length") or 0)
+                body = self.rfile.read(n) if n else b""
+                headers = {k.lower(): v for k, v in self.headers.items()}
+                call = {"method": self.command, "path": parts.path,
+                        "query": dict(parse_qsl(parts.query)), "headers": headers, "body": body,
+                        "at": time.monotonic()}
+                stub.calls.append(call)
+                status, ctype, data = handler(call)
+                self.send_response(status)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            do_GET = do_POST = do_DELETE = _serve
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        self.base = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, name="remote-stub",
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(30)
+
+
+def _b64u(data: bytes) -> str:
+    import base64
+
+    return base64.urlsafe_b64encode(data).rstrip(b"=").decode()
+
+
+def _rs256_token(claims: dict, kid: str = REMOTE_KID) -> str:
+    """A JWT signed RS256 with the phase's key on the stdlib."""
+    import hashlib
+
+    head = _b64u(json.dumps({"alg": "RS256", "typ": "JWT", "kid": kid}).encode())
+    signed = f"{head}.{_b64u(json.dumps(claims).encode())}"
+    k = (REMOTE_RSA_N.bit_length() + 7) // 8
+    t = bytes.fromhex("3031300d060960864801650304020105000420") + hashlib.sha256(
+        signed.encode()).digest()
+    em = b"\x00\x01" + b"\xff" * (k - len(t) - 3) + b"\x00" + t
+    sig = pow(int.from_bytes(em, "big"), REMOTE_RSA_D, REMOTE_RSA_N).to_bytes(k, "big")
+    return f"{signed}.{_b64u(sig)}"
+
+
+def _remote_copy(ctx, name: str, edits: dict, dst: Path) -> Path:
+    """``build/remote/<name>``: the example with ``edits`` ({file: [(old,
+    new)]}, every old text present) — the files under ``examples/`` stay
+    as they are."""
+    import shutil
+
+    app = dst / name
+    shutil.rmtree(app, ignore_errors=True)
+    shutil.copytree(ROOT / "examples" / "applications" / name, app)
+    for file, pairs in edits.items():
+        text = (app / file).read_text()
+        for old, new in pairs:
+            if old not in text:
+                raise AssertionError(f"remote: the example's {name}/{file} changed "
+                                     f"({old.strip()!r} not found); update the phase")
+            text = text.replace(old, new)
+        (app / file).write_text(text)
+    return app
+
+
+def _remote_files(ctx, dst: Path, secrets: dict) -> tuple[Path, Path]:
+    """The instance (llama-3-8b) and a secrets file: the example's
+    ``google`` client id and ``secrets`` ({id: {key: value}})."""
+    from langstream_tpu_torch.core.yaml_reader import safe_load
+
+    example = safe_load((ROOT / "examples" / "secrets" / "secrets.yaml").read_text())
+    google = next(s for s in example["secrets"] if s["id"] == "google")["data"]
+    lines = ["secrets:"]
+    for sid, data in {"google": google, **secrets}.items():
+        lines += [f"  - id: {sid}", "    data:"]
+        lines += [f"      {k}: {json.dumps(str(v))}" for k, v in data.items()]
+    (dst / "secrets.yaml").write_text("\n".join(lines) + "\n")
+    (dst / "instance.yaml").write_text(
+        "instance:\n  streamingCluster:\n    type: memory\n  computeCluster:\n"
+        "    type: local\n  globals:\n    serving-model: llama-3-8b\n")
+    return dst / "instance.yaml", dst / "secrets.yaml"
+
+
+def _serving_edit(ctx, old: str) -> tuple[str, str]:
+    """The tpu-serving resource's ``max-seq-len`` raised to
+    APP_MAX_SEQ_LEN, random weights from this run's seed."""
+    return (old, f"        max-seq-len: {APP_MAX_SEQ_LEN}\n        weights: random\n"
+                 f"        seed: {ctx['seed']}\n")
+
+
+def _tap(engine) -> list:
+    """Every request the engine takes, with its future and submit time."""
+    taps: list = []
+    submit = engine.submit
+
+    def tapped(request):
+        at = time.monotonic()
+        future = submit(request)
+        taps.append((request, future, at))
+        return future
+
+    engine.submit = tapped
+    return taps
+
+
+async def _direct_tokens(engine, requests: list) -> list:
+    """The direct path: the app's requests (prompt tokens and options)
+    submitted straight to the engine, all at once → each one's tokens."""
+    import asyncio
+
+    from langstream_tpu_torch.serving.engine import GenerationRequest
+
+    submitted = [engine.submit(GenerationRequest(prompt_tokens=list(r.prompt_tokens),
+                                                 options=r.options)) for r in requests]
+    results = await asyncio.get_running_loop().run_in_executor(
+        None, lambda: [s.result(timeout=900) for s in submitted])
+    return [r.tokens for r in results]
+
+
+async def _served_app(ctx, app_dir: Path, instance: Path, secrets: Path, name: str):
+    """``run local``'s code: the app started, its engine built and warm."""
+    import asyncio
+
+    from langstream_tpu_torch.ai.provider import ChatMessage
+    from langstream_tpu_torch.cli.main import start_local
+
+    t0 = time.monotonic()
+    app = await start_local(app_dir, instance, secrets, name=name, gateway_port=0,
+                            metrics_port=-1)
+    svc = app.runner._service_registry.get_provider().holder
+    engine = await asyncio.get_running_loop().run_in_executor(None, svc.engine)
+    await svc.get_chat_completions([ChatMessage("user", "warm up")], {"max-tokens": 4})
+    return app, svc, engine, time.monotonic() - t0
+
+
+async def _remote_auth(ctx, dst: Path) -> dict:
+    """(a) gateway-authentication: Google sign-in against a JWKS stub in
+    front of the chat on the card."""
+    import asyncio
+    import base64
+
+    import torch
+
+    from langstream_tpu_torch.auth import RsaPublicKey, _verify_rs256
+    from langstream_tpu_torch.core.yaml_reader import safe_load
+    from langstream_tpu_torch.gateway.websocket import HandshakeError, connect
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+
+    jwks = {"keys": [{"kty": "RSA", "kid": REMOTE_KID, "alg": "RS256",
+                      "n": _b64u(REMOTE_RSA_N.to_bytes(256, "big")),
+                      "e": _b64u(REMOTE_RSA_E.to_bytes(3, "big"))}]}
+    stub = _Stub(lambda call: (200, "application/json", json.dumps(jwks).encode()))
+    name = "smoke-auth"
+    try:
+        app_dir = _remote_copy(ctx, "gateway-authentication", {
+            "configuration.yaml": [_serving_edit(ctx, "        max-seq-len: 512\n")],
+            "gateways.yaml": [('        client-id: "${secrets.google.client-id}"\n',
+                               '        client-id: "${secrets.google.client-id}"\n'
+                               f'        certs-uri: "{stub.base}/certs"\n')],
+        }, dst)
+        instance, secrets = _remote_files(ctx, dst, {})
+        client_id = next(s for s in safe_load(secrets.read_text())["secrets"]
+                         if s["id"] == "google")["data"]["client-id"]
+        app, svc, engine, start_s = await _served_app(ctx, app_dir, instance, secrets, name)
+        try:
+            cfg = svc.model_config
+            now = time.time()
+
+            def claims(sub: str, **over) -> dict:
+                return {"sub": sub, "aud": client_id, "iss": "https://accounts.google.com",
+                        "email": f"{sub}@example.com", "exp": now + 900, **over}
+
+            good = _rs256_token(claims("user-0"))
+            head, body, sig = good.split(".")
+            tampered = f"{head}.{body}.{sig[:-4]}{'AAAA' if sig[-4:] != 'AAAA' else 'BBBB'}"
+            refused_queries = {
+                "tampered signature": f"credentials={tampered}",
+                "expired": f"credentials={_rs256_token(claims('user-x', exp=now - 60))}",
+                "wrong audience": f"credentials={_rs256_token(claims('user-x', aud='other'))}",
+                "unknown kid": f"credentials={_rs256_token(claims('user-x'), kid='other')}",
+                "test-credentials": "test-credentials=anything",
+            }
+            questions = _prompts(APP_BYTES, ctx["seed"] + 41)
+            subjects = [f"user-{i}" for i in range(len(questions))]
+            tokens = [_rs256_token(claims(s)) for s in subjects]
+            base = f"{app.gateway.ws_url}/v1/chat/default/{name}/chat"
+            taps = _tap(engine)
+            torch.cuda.synchronize()
+            before = engine.stats()
+            reset_kernel_counts()
+            refused = {}
+            for label, query in refused_queries.items():
+                try:
+                    ws = await connect(f"{base}?{query}")
+                    await ws.close()
+                    refused[label] = "open"
+                except HandshakeError as e:
+                    refused[label] = e.status
+            taps_after_refusals = len(taps)
+
+            async def ask(subject: str, token: str, question: str) -> dict:
+                t0 = time.monotonic()
+                ws = await connect(f"{base}?credentials={token}")
+                connected = time.monotonic()
+                await ws.send_str(json.dumps({"value": question}))
+                msg = await asyncio.wait_for(ws.receive(), 900)
+                first = time.monotonic()
+                await ws.close()
+                if msg.kind != "text":
+                    raise AssertionError(f"remote auth: {subject}'s socket closed ({msg.data})")
+                record = json.loads(msg.data)["record"]
+                return {"subject": subject, "headers": record["headers"],
+                        "value": json.loads(record["value"]), "connect_ms": (connected - t0) * 1e3,
+                        "connect_to_answer_s": first - t0, "question": question}
+
+            t_run = time.monotonic()
+            answers = await asyncio.gather(*(ask(s, t, q) for s, t, q in
+                                             zip(subjects, tokens, questions)))
+            wall = time.monotonic() - t_run
+            counts = kernel_counts()
+            after = engine.stats()
+            served = [(r, f.result(timeout=60)) for r, f, _ in taps]
+            taps.clear()
+            direct = await _direct_tokens(engine, [r for r, _ in served])
+            params = svc.params()
+            # the verifier's own cost: the stdlib RSA check of one token
+            key = RsaPublicKey(REMOTE_RSA_N, REMOTE_RSA_E)
+            signed, _, sig64 = good.rpartition(".")
+            signature = base64.urlsafe_b64decode(sig64 + "=" * (-len(sig64) % 4))
+            t0 = time.perf_counter()
+            for _ in range(200):
+                ok = _verify_rs256(key, signature, signed.encode())
+            verify_ms = (time.perf_counter() - t0) * 1e3 / 200
+        finally:
+            await app.stop()
+    finally:
+        stub.close()
+    problems = []
+    if not ok:
+        problems.append("the stdlib RSA check refused a good token")
+    if any(v != 401 for v in refused.values()) or taps_after_refusals:
+        problems.append(f"refused connects: {refused}, {taps_after_refusals} engine requests")
+    by_prompt = {svc.tokenizer.decode(req.prompt_tokens): (req, result)
+                 for req, result in served}
+    for a in answers:
+        if a["headers"].get("langstream-user") != a["subject"]:
+            problems.append(f"{a['subject']}: langstream-user {a['headers'].get('langstream-user')}")
+        owner = [k for k in by_prompt if a["question"] in k]
+        if len(owner) != 1:
+            problems.append(f"{a['subject']}: {len(owner)} engine requests carry its question")
+            continue
+        req, result = by_prompt[owner[0]]
+        if a["value"].get("answer") != svc.tokenizer.decode(result.tokens):
+            problems.append(f"{a['subject']}: the answer is not its request's tokens")
+        if result.finish_reason not in ("length", "stop") or result.error is not None:
+            problems.append(f"{a['subject']} ended {result.finish_reason}: {result.error}")
+    if len(served) != len(questions):
+        problems.append(f"{len(served)} engine requests for {len(questions)} questions")
+    prompts = [list(r.prompt_tokens) for r, _ in served]
+    got = [res.tokens for _, res in served]
+    same = _same_or_tie(ctx, cfg, params, "remote-auth", prompts, got, direct)
+    if not same["ok"]:
+        problems.append(f"answers differ from the direct path beyond one-ulp ties: "
+                        f"{same['not_ties']}")
+    run = _launch_check(cfg, counts, before, after, problems)
+    run.update({
+        "requests": len(questions), "refused": refused, "jwks_fetches": len(stub.calls),
+        "prompt_tokens": [len(p) for p in prompts], "answer_tokens": [len(t) for t in got],
+        "connect_ms": [a["connect_ms"] for a in answers],
+        "connect_to_answer_s": [a["connect_to_answer_s"] for a in answers],
+        "wall_s": wall, "answer_tokens_per_s": sum(len(t) for t in got) / wall,
+        "verify_ms_per_token": verify_ms, "start_s": start_s,
+        "same_as_direct": {k: same[k] for k in ("agreement", "ties", "equal")},
+    })
+    if problems:
+        raise AssertionError("remote auth: " + "; ".join(problems)
+                             + f" ({json.dumps(run)[:2000]})")
+    return run
+
+
+async def _remote_slack(ctx, dst: Path) -> dict:
+    """(b) slack: summaries on the card, posted to a webhook stub."""
+    import asyncio
+
+    import torch
+
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+
+    def webhook(call):
+        return 200, "text/plain", f"ok {len(call['body'])}".encode()
+
+    stub = _Stub(webhook)
+    name = "smoke-slack"
+    try:
+        app_dir = _remote_copy(ctx, "slack", {
+            "configuration.yaml": [_serving_edit(ctx, "        max-seq-len: 256\n")]}, dst)
+        instance, secrets = _remote_files(ctx, dst, {
+            "slack": {"webhook-url": f"{stub.base}/services/T/B/X"}})
+        app, svc, engine, start_s = await _served_app(ctx, app_dir, instance, secrets, name)
+        try:
+            cfg = svc.model_config
+            pages = _prompts(APP_BYTES, ctx["seed"] + 43)
+            taps = _tap(engine)
+            torch.cuda.synchronize()
+            before = engine.stats()
+            reset_kernel_counts()
+            t_run = time.monotonic()
+            for i, page in enumerate(pages):
+                await app.runner.produce("pages-topic", json.dumps({"text": page}),
+                                         key=f"page-{i}")
+            notified = await app.runner.consume("notified-topic", n=len(pages), timeout=900)
+            wall = time.monotonic() - t_run
+            counts = kernel_counts()
+            after = engine.stats()
+            served = [(r, f.result(timeout=60)) for r, f, _ in taps]
+            taps.clear()
+            direct = await _direct_tokens(engine, [r for r, _ in served])
+            params = svc.params()
+        finally:
+            await app.stop()
+    finally:
+        stub.close()
+    problems = []
+    bodies = [c["body"].decode("utf-8") for c in stub.calls]
+    records = [json.loads(r.value) for r in notified[:len(pages)]]
+    if len(bodies) != len(pages) or len(notified) != len(pages):
+        problems.append(f"{len(bodies)} webhook bodies, {len(notified)} notified records for "
+                        f"{len(pages)} pages")
+    for i, rec in enumerate(records):
+        body = '{"text": "' + rec.get("summary", "") + '"}'
+        if body not in bodies:
+            problems.append(f"record {i}: no webhook body carries its summary")
+        if rec.get("slack-response") != f"ok {len(body.encode())}":
+            problems.append(f"record {i}: slack-response {rec.get('slack-response')!r}")
+        if rec.get("text") not in pages:
+            problems.append(f"record {i}: not one of the pages")
+    if len(served) != len(pages):
+        problems.append(f"{len(served)} engine requests for {len(pages)} pages")
+    summaries = {svc.tokenizer.decode(res.tokens) for _, res in served}
+    if {r.get("summary") for r in records} != summaries:
+        problems.append("the summaries are not the engine's answers")
+    prompts = [list(r.prompt_tokens) for r, _ in served]
+    got = [res.tokens for _, res in served]
+    same = _same_or_tie(ctx, cfg, params, "remote-slack", prompts, got, direct)
+    if not same["ok"]:
+        problems.append(f"summaries differ from the direct path beyond one-ulp ties: "
+                        f"{same['not_ties']}")
+    run = _launch_check(cfg, counts, before, after, problems)
+    posted = [c["at"] for c in stub.calls]
+    run.update({
+        "pages": len(pages), "prompt_tokens": [len(p) for p in prompts],
+        "answer_tokens": [len(t) for t in got], "wall_s": wall,
+        "answer_tokens_per_s": sum(len(t) for t in got) / wall,
+        "first_post_s": min(posted) - t_run if posted else None,
+        "last_post_s": max(posted) - t_run if posted else None, "start_s": start_s,
+        "same_as_direct": {k: same[k] for k in ("agreement", "ties", "equal")},
+    })
+    if problems:
+        raise AssertionError("remote slack: " + "; ".join(problems)
+                             + f" ({json.dumps(run)[:2000]})")
+    return run
+
+
+def _sigv4_problems(calls: list, service: str) -> list:
+    """Each call's Authorization must be SigV4: the credential scope
+    ``…/<region>/<service>/aws4_request``, ``host`` and ``x-amz-date``
+    among the signed headers, a 64-hex signature."""
+    out = []
+    for c in calls:
+        m = SIGV4_AUTH.match(c["headers"].get("authorization", ""))
+        signed = m.group("signed").split(";") if m else []
+        if (not m or m.group("region") != REMOTE_REGION or m.group("service") != service
+                or "host" not in signed or "x-amz-date" not in signed
+                or not c["headers"].get("x-amz-date")):
+            out.append(f"{c['method']} {c['path']}: not SigV4 for {service}: "
+                       f"{c['headers'].get('authorization')!r}")
+    return out
+
+
+async def _remote_rag_aws(ctx, dst: Path) -> dict:
+    """(c) rag-aws: S3 ingest embedded on the card into the on-card store,
+    then questions answered by a Bedrock stub from the retrieved context."""
+    import asyncio
+    import shutil
+    from urllib.parse import unquote
+
+    import numpy as np
+
+    from langstream_tpu_torch.cli.main import start_local
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+
+    rng = random.Random(ctx["seed"] + 47)
+    objects = {f"docs/object-{i}.txt": " ".join(rng.choice(RAG_WORDS) for _ in range(
+        REMOTE_OBJECT_WORDS)).encode() + b"." for i in range(REMOTE_OBJECTS)}
+    chunks = await asyncio.to_thread(_rag_chunks, list(objects.values()), *REMOTE_SPLIT)
+
+    def s3(call):
+        if call["path"] == "/langstream-source" and call["query"].get("list-type") == "2":
+            keys = "".join(f"<Contents><Key>{k}</Key><Size>{len(v)}</Size></Contents>"
+                           for k, v in objects.items())
+            return 200, "application/xml", (
+                '<?xml version="1.0" encoding="UTF-8"?><ListBucketResult '
+                'xmlns="http://s3.amazonaws.com/doc/2006-03-01/"><Name>langstream-source</Name>'
+                f"{keys}</ListBucketResult>").encode()
+        key = unquote(call["path"][len("/langstream-source/"):])
+        if call["method"] == "GET" and key in objects:
+            return 200, "text/plain", objects[key]
+        return 404, "text/plain", b"no such key"
+
+    answer_text = "bedrock answer from the stub"
+
+    def bedrock(call):
+        body = json.loads(call["body"])
+        return 200, "application/json", json.dumps({
+            "content": [{"type": "text", "text": answer_text}], "stop_reason": "end_turn",
+            "usage": {"input_tokens": len(body.get("system", "")), "output_tokens": 5}}).encode()
+
+    s3_stub, bedrock_stub = _Stub(s3), _Stub(bedrock)
+    name = "smoke-rag-aws"
+    store_dir = dst / "rag-aws-vectors"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    try:
+        # the example's ingest embeds ``{{ value.text }}`` of the splitter's
+        # plain-string chunks (empty texts, the rows' text None, in both
+        # packages): the copy structures each chunk first, as tpu-rag's
+        # crawl does; the asset's dimension is the model's width (the
+        # example's 32 fits no served model); the objects stay in the
+        # bucket (a commit's DELETE between the source's listing and its
+        # GET fails the GET, in both packages' s3-source)
+        app_dir = _remote_copy(ctx, "rag-aws", {
+            "configuration.yaml": [_serving_edit(ctx, "        max-seq-len: 1024\n")],
+            "ingest.yaml": [
+                ("      dimension: 32\n", "      dimension: 4096\n"),
+                ('      secret-key: "${secrets.s3.secret-key}"\n',
+                 '      secret-key: "${secrets.s3.secret-key}"\n      delete-objects: false\n'),
+                ("      chunk_overlap: 40\n", "      chunk_overlap: 40\n"
+                 "  - name: to-structure\n    type: document-to-json\n    configuration:\n"
+                 "      text-field: text\n"),
+            ],
+        }, dst)
+        if f"chunk_size: {REMOTE_SPLIT[0]}" not in (app_dir / "ingest.yaml").read_text():
+            raise AssertionError("remote: rag-aws's chunk_size changed; update REMOTE_SPLIT")
+        instance, secrets = _remote_files(ctx, dst, {
+            "s3": {"bucket": "langstream-source", "endpoint": s3_stub.base,
+                   "access-key": "smoke-access", "secret-key": "smoke-secret"},
+            "bedrock": {"region": REMOTE_REGION, "endpoint": bedrock_stub.base,
+                        "access-key": "smoke-access", "secret-key": "smoke-secret"},
+            "vector-database": {"path": str(store_dir)},
+        })
+        reset_kernel_counts()
+        t_start = time.monotonic()
+        app = await start_local(app_dir, instance, secrets, name=name, gateway_port=0,
+                                metrics_port=-1)
+        try:
+            registry = app.runner._service_registry
+            store = registry.get_datasource("vdb")
+            deadline = time.monotonic() + 600
+            while len(store._indexes.get("aws-docs", {}).get("ids", [])) < len(chunks):
+                if time.monotonic() > deadline:
+                    raise AssertionError("remote rag-aws: the index never held every chunk")
+                await asyncio.sleep(0.05)
+            t_indexed = time.monotonic()
+            await asyncio.sleep(1.0)  # nothing more may arrive
+            idx = store._indexes["aws-docs"]
+            stored_texts = [m["text"] for m in idx["meta"]]
+            stored = idx["matrix"][:len(stored_texts)].copy()
+            emb = registry.get_provider().get_embeddings_service({})
+            direct = np.asarray(emb.embed(stored_texts))
+            answers = []
+            t_ask = time.monotonic()
+            questions = [f"What do the documents say about {rng.choice(RAG_WORDS)}?"
+                         for _ in range(REMOTE_QUESTIONS)]
+            for k, q in enumerate(questions):
+                await app.runner.produce("aws-questions", q,
+                                         headers=[("langstream-client-session-id", f"q{k}")])
+                got = await app.runner.consume("aws-answers", n=k + 1, timeout=300)
+                answers.append(json.loads(got[k].value))
+            ask_s = time.monotonic() - t_ask
+            counts = kernel_counts()
+        finally:
+            await app.stop()
+    finally:
+        s3_stub.close()
+        bedrock_stub.close()
+    problems = _sigv4_problems(s3_stub.calls, "s3") + _sigv4_problems(bedrock_stub.calls,
+                                                                       "bedrock")
+    if sorted(stored_texts) != sorted(chunks):
+        problems.append(f"the index holds {len(stored_texts)} rows, not the host's "
+                        f"{len(chunks)} chunks")
+    vec_err = float(np.linalg.norm(stored - direct, axis=1).max())
+    if vec_err > EMBED_TOL:
+        problems.append(f"stored vectors differ from direct encodes by up to {vec_err}")
+    gets = sorted(unquote(c["path"]) for c in s3_stub.calls if c["method"] == "GET"
+                  and c["path"] != "/langstream-source")
+    if gets != sorted(f"/langstream-source/{k}" for k in objects):
+        problems.append(f"objects fetched: {gets}")
+    systems = [json.loads(c["body"]).get("system", "") for c in bedrock_stub.calls]
+    if len(systems) != len(questions):
+        problems.append(f"{len(systems)} Bedrock calls for {len(questions)} questions")
+    for k, (q, value) in enumerate(zip(questions, answers)):
+        if value.get("answer") != answer_text or value.get("question") != q:
+            problems.append(f"question {k}: the answer is not the stub's")
+        context = value.get("context") or []
+        if not context or k >= len(systems) or not all(
+                hit.get("text") and hit["text"] in systems[k] for hit in context):
+            problems.append(f"question {k}: the Bedrock stub did not get its retrieved context")
+    launched = {n: c["launches"] for n, c in counts.items() if c["launches"] or c["cpu_calls"]}
+    if launched:
+        problems.append(f"kernels ran on a path that has none: {launched}")
+    run = {"objects": len(objects), "chunks": len(chunks),
+           "write_path_s": t_indexed - t_start, "chunks_per_s": len(chunks) / (
+               t_indexed - t_start), "questions": len(questions), "ask_s": ask_s,
+           "s3_calls": len(s3_stub.calls), "bedrock_calls": len(bedrock_stub.calls),
+           "stored_vs_direct_max_l2": vec_err, "tolerance_l2": EMBED_TOL,
+           "context_hits": [len(a.get("context") or []) for a in answers]}
+    if problems:
+        raise AssertionError("remote rag-aws: " + "; ".join(problems)
+                             + f" ({json.dumps(run)[:2000]})")
+    return run
+
+
+def phase_remote(ctx: dict) -> None:
+    """gateway-authentication, slack and rag-aws on the card (module
+    docstring, phase 24)."""
+    import asyncio
+    import gc
+
+    import torch
+
+    ctx.pop("params", None)  # each app's provider draws its own tree (the same seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.monotonic()
+    dst = ROOT / "build" / "remote"
+    dst.mkdir(parents=True, exist_ok=True)
+    runs = {}
+    for label, part in (("auth", _remote_auth), ("slack", _remote_slack),
+                        ("rag_aws", _remote_rag_aws)):
+        t0 = time.monotonic()
+        runs[label] = asyncio.run(part(ctx, dst))
+        runs[label]["part_s"] = time.monotonic() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    card = smi_line()
+    a, b, c = runs["auth"], runs["slack"], runs["rag_aws"]
+    for i, s in enumerate(a["connect_to_answer_s"]):
+        log(f"remote auth user-{i} ({a['prompt_tokens'][i]} prompt tokens, "
+            f"{a['answer_tokens'][i]} answer tokens): websocket connect to answer "
+            f"{s * 1000.0:.1f} ms (the handshake with the token's check {a['connect_ms'][i]:.1f} "
+            f"ms) [{card}]")
+    log(f"remote auth: refused {json.dumps(a['refused'])}; {a['jwks_fetches']} JWKS fetch(es); "
+        f"the stdlib RSA check {a['verify_ms_per_token']:.3f} ms a token (host); the burst "
+        f"{a['wall_s']:.3f} s, {a['answer_tokens_per_s']:.1f} answer tokens/s; launches "
+        f"{json.dumps({k: n for k, n in a['kernel_launches'].items() if n})} = "
+        f"{a['layers']} x {a['admit_groups']} admit groups, {a['layers']} x "
+        f"{a['decode_steps']} decode steps; "
+        f"{a['graph_replays']} replays = {a['decode_chunks']} chunks [{card}]")
+    log(f"remote slack: {b['pages']} pages summarized and posted in {b['wall_s']:.3f} s "
+        f"(first post {b['first_post_s']:.3f} s, last {b['last_post_s']:.3f} s after the "
+        f"first page), {b['answer_tokens_per_s']:.1f} summary tokens/s; launches "
+        f"{json.dumps({k: n for k, n in b['kernel_launches'].items() if n})} = "
+        f"{b['layers']} x {b['admit_groups']} admit groups, {b['layers']} x "
+        f"{b['decode_steps']} decode steps; "
+        f"{b['graph_replays']} replays = {b['decode_chunks']} chunks [{card}]")
+    log(f"remote rag-aws: {c['objects']} S3 objects, {c['chunks']} chunks indexed "
+        f"{c['write_path_s']:.3f} s after the app started ({c['chunks_per_s']:.2f} chunks/s); "
+        f"{c['questions']} questions answered by the Bedrock stub in {c['ask_s']:.3f} s; "
+        f"SigV4 on {c['s3_calls']} S3 and {c['bedrock_calls']} Bedrock calls; no attention "
+        "kernel on this path (embeddings are computed outside any kernel, as in JAX) "
+        f"[{card}]")
+    run = {"auth": a, "slack": b, "rag_aws": c, "phase_s": time.monotonic() - t_phase}
+    # the kernels the path launched: (a) and (b) (rag-aws launches none)
+    run["kernel_launches"] = {k: a["kernel_launches"].get(k, 0) + b["kernel_launches"].get(k, 0)
+                              for k in set(a["kernel_launches"]) | set(b["kernel_launches"])}
+    log(f"remote phase: {run['phase_s']:.1f} s [{card}]")
+    log(f"remote apps llama-3-8b {json.dumps(run)}")
+    ctx["remote"] = run
+    ctx.setdefault("summaries", []).append(("remote", {
+        "auth_burst_s": a["wall_s"], "auth_refused": a["refused"],
+        "verify_ms_per_token": a["verify_ms_per_token"], "slack_wall_s": b["wall_s"],
+        "rag_aws_write_path_s": c["write_path_s"], "phase_s": run["phase_s"],
         "launches": {k: n for k, n in run["kernel_launches"].items() if n}}))
     gc.collect()
     torch.cuda.empty_cache()
@@ -8241,7 +8943,7 @@ def kernel_record(ctx: dict) -> dict:
     served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "prefix",
               "spec", "agentic", "dense_spec", "dense_prefix", "dense_prefix_int8", "tiered",
               "fleet", "fleet_http", "spmd", "spmd_leader", "spmd_follower", "ring", "ring_int8",
-              "load", "moe", "app", "rag")
+              "load", "moe", "app", "rag", "remote")
     out = []
     for name, (src, replaces, path) in sources.items():
         runs = ctx.get("kernel_runs", {}).get(name)

@@ -17,45 +17,26 @@ string is a JSON document; positional ``fields`` values substitute
 
 from __future__ import annotations
 
-import asyncio
 import base64
 import json
-import urllib.error
-import urllib.request
 from typing import Any, Optional
 
 from langstream_tpu_torch.agents.genai import el
 from langstream_tpu_torch.agents.genai.mutable import MutableRecord
 from langstream_tpu_torch.agents.vector import _substitute_params
 from langstream_tpu_torch.api.storage import DataSource, VectorDatabaseWriter
-
-# aiohttp's default total timeout of a request
-HTTP_TIMEOUT_S = 300.0
-# no proxy from the environment (aiohttp's session default)
-_OPENER = urllib.request.build_opener(urllib.request.ProxyHandler({}))
-
-
-def _send(method: str, url: str, body: Optional[bytes],
-          headers: dict[str, str]) -> tuple[int, bytes]:
-    request = urllib.request.Request(url, data=body, headers=headers, method=method)
-    try:
-        with _OPENER.open(request, timeout=HTTP_TIMEOUT_S) as resp:
-            return resp.status, resp.read()
-    except urllib.error.HTTPError as e:  # a 4xx / 5xx answer: its status
-        with e:
-            return e.code, e.read()
+from langstream_tpu_torch.runtime import http_client
 
 
 async def http_request(method: str, url: str, body: Any = None,
                        headers: Optional[dict[str, str]] = None) -> tuple[int, bytes]:
     """One request off the event loop → (status, raw body). ``body``: a
     JSON value sent as aiohttp's ``json=`` sends it (None: no body)."""
-    headers = dict(headers or {})
     data = None
     if body is not None:
-        data = json.dumps(body).encode()
-        headers.setdefault("Content-Type", "application/json")
-    return await asyncio.to_thread(_send, method, url, data, headers)
+        data, headers = http_client.json_body(body, headers)
+    resp = await http_client.request(method, url, data, headers)
+    return resp.status, resp.body
 
 
 def _parse_query(query: str, params: list[Any]) -> dict[str, Any]:

@@ -287,6 +287,7 @@ from langstream_tpu_torch.serving.engine import (
 from langstream_tpu_torch.serving.faultinject import FaultInjector
 from langstream_tpu_torch.serving.pagepool import table_len_for
 from langstream_tpu_torch.serving.tokenizer import get_tokenizer
+from langstream_tpu_torch.tracing import TRACER
 
 log = logging.getLogger(__name__)
 
@@ -1125,11 +1126,17 @@ class TorchCompletionsService(CompletionsService):
         def on_done(res) -> None:  # engine thread → event loop
             loop.call_soon_threadsafe(lambda: done.done() or done.set_result(res))
 
+        # trace correlation: the record's propagated ls-trace-id (forwarded
+        # by the completions step) wins; else join whatever agent span is
+        # active so the engine's request spans stitch into the pipeline
+        # trace on /traces either way
+        trace_id = str(options.get("trace-id") or "") or TRACER.current_trace_id()
         request = GenerationRequest(
             prompt_tokens=prompt_tokens,
             options=gen_options,
             on_token=stream.on_token if stream is not None else None,
             on_done=on_done,
+            trace_id=trace_id,
         )
         # a disconnect cancels every request registered under the key
         # (serving/lifecycle.py): the slot frees within one chunk

@@ -10,7 +10,11 @@ It parses the application directory, deploys it on a local runner over the
 in-memory broker, starts the chat / produce / consume gateway and the
 ``/metrics`` + ``/info`` server, and serves until interrupted (``--once``:
 start, print the addresses, stop). A ``tpu-serving`` resource runs on the
-card unless its configuration says ``device: cpu``.
+card unless its configuration says ``device: cpu``. The application's
+``${secrets.*}`` / ``${globals.*}`` placeholders are resolved before the
+runner and the gateway take it, so a gateway's authentication settings
+(say ``client-id: "${secrets.google.client-id}"``) are the resolved values
+(JAX's ``run local`` hands its gateway the stored, unresolved application).
 """
 
 from __future__ import annotations
@@ -55,12 +59,14 @@ async def start_local(
     order of ``run local``; port 0 binds a free port (read back from the
     servers' ``port``), a metrics port below 0 disables that server."""
     from langstream_tpu_torch.core.parser import ModelBuilder
+    from langstream_tpu_torch.core.resolver import resolve_placeholders
     from langstream_tpu_torch.runtime.local_runner import LocalApplicationRunner
 
     package = ModelBuilder.build_application_from_path(
         app_dir, instance_path=instance, secrets_path=secrets
     )
-    runner = LocalApplicationRunner(name, package.application, tenant=TENANT)
+    application = resolve_placeholders(package.application)
+    runner = LocalApplicationRunner(name, application, tenant=TENANT)
     try:
         await runner.deploy()
         await runner.start()

@@ -13,10 +13,11 @@
 
 The port's built-in types register on first lookup: the agents of
 ``agents/`` (identity, list-source, collect-sink, the text agents, the
-GenAI steps, ``webcrawler-source`` and the RAG agents), ``tpu-serving``
-(``ai.register_providers``), the ``datasource`` / ``vector-database``
-types with every service JAX resolves, and the asset types
-(``agents.vector``)."""
+GenAI steps, ``webcrawler-source``, the RAG agents, the flow, HTTP and
+object-storage agents), the AI resource types (``ai.register_providers``:
+``tpu-serving``, the remote providers and the mock), the ``datasource`` /
+``vector-database`` types with every service JAX resolves, and the asset
+types (``agents.vector``)."""
 
 from __future__ import annotations
 

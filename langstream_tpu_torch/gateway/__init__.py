@@ -1,6 +1,7 @@
 """API gateway of the port (L6): websocket + HTTP surface onto application
 topics, on an asyncio stdlib server (the port's own copy of
-``langstream_tpu/gateway``, without the authentication providers).
+``langstream_tpu/gateway``; the authentication providers are
+``gateway/auth.py``).
 """
 
 from langstream_tpu_torch.gateway.core import (

@@ -1,7 +1,6 @@
-"""Gateway request handling core: params, produce/consume gateways (the
-port's own copy of ``langstream_tpu/gateway/core.py``). Authentication
-providers (``gateway/auth.py``) are not ported yet: a gateway that declares
-``authentication`` is refused, never served open.
+"""Gateway request handling core: auth + params, produce/consume gateways
+(the port's own copy of ``langstream_tpu/gateway/core.py``; the
+authentication providers are ``gateway/auth.py``).
 
 Parity: reference ``apigateway/gateways/`` — ``GatewayRequestHandler`` (query
 params split into ``param:<name>`` / ``option:<name>``, required-parameter
@@ -35,22 +34,23 @@ from langstream_tpu_torch.api.topics import (
     TopicProducer,
     TopicReader,
 )
+from langstream_tpu_torch.gateway.auth import GatewayAuthenticationRegistry
 
 log = logging.getLogger(__name__)
 
+# provider instances are cached per (name, config) so per-provider state —
+# notably the JwtVerifier's JWKS kid cache — survives across requests
+# instead of being rebuilt (and refetched) per WS connect / HTTP produce
+_auth_provider_cache: dict = {}
 
-def refuse_authentication(application: Application) -> None:
-    """Raise ``ValueError`` when a gateway of the application declares
-    ``authentication``: the providers (``gateway/auth.py``) are not ported,
-    and such a gateway must not be served open."""
-    for gateway in application.gateways:
-        auth = gateway.authentication
-        if auth is not None and auth.provider:
-            raise ValueError(
-                f"gateway {gateway.id!r} declares authentication (provider "
-                f"{auth.provider!r}), which langstream_tpu_torch does not serve yet: "
-                "gateway/auth.py is not ported"
-            )
+
+def _cached_auth_provider(name: str, configuration: dict):
+    key = (name, json.dumps(configuration or {}, sort_keys=True, default=str))
+    provider = _auth_provider_cache.get(key)
+    if provider is None:
+        provider = GatewayAuthenticationRegistry.load(name, configuration)
+        _auth_provider_cache[key] = provider
+    return provider
 
 class AuthFailedException(Exception):
     pass
@@ -107,17 +107,32 @@ def split_query_params(params: dict[str, str]) -> tuple[dict[str, str], dict[str
     return user, options, credentials, test_mode
 
 
+def test_mode_principal_values(credentials: str) -> dict[str, str]:
+    """Deterministic synthetic principal for test mode (reference
+    GatewayRequestHandler.getPrincipalValues:263-290 hashes the credential)."""
+    import hashlib
+
+    subject = hashlib.sha256(credentials.encode()).hexdigest()
+    return {
+        "subject": subject,
+        "email": f"{subject}@localhost",
+        "name": subject,
+        "login": subject,
+    }
+
+
 async def authenticate_and_validate(
     tenant: str,
     application_id: str,
     application: Application,
     gateway: Gateway,
     raw_params: dict[str, str],
+    test_auth_provider: Optional[Any] = None,
 ) -> GatewayRequestContext:
-    """Split and check the query parameters. A gateway with
-    ``authentication`` is refused (``AuthFailedException``); a gateway
-    without it ignores credentials, as JAX's does."""
-    user, options, _, test_mode = split_query_params(raw_params)
+    """``test_auth_provider`` is the server-level provider that validates
+    test credentials; test mode FAILS when the deployment configures none
+    (reference GatewayRequestHandler.authenticate:229-240)."""
+    user, options, credentials, test_mode = split_query_params(raw_params)
 
     for required in gateway.parameters:
         if required not in user:
@@ -126,12 +141,34 @@ async def authenticate_and_validate(
     if unknown:
         raise ValueError(f"unknown parameters {sorted(unknown)}")
 
+    principal: dict[str, str] = {}
     auth = gateway.authentication
     if auth is not None and auth.provider:
-        raise AuthFailedException(
-            f"gateway {gateway.id} declares authentication, which is not ported"
-        )
-    principal: dict[str, str] = {}
+        if credentials is None:
+            raise AuthFailedException("missing credentials")
+        if test_mode:
+            if not auth.allow_test_mode:
+                raise AuthFailedException(
+                    f"Gateway {gateway.id} does not allow test mode."
+                )
+            if test_auth_provider is None:
+                raise AuthFailedException("No test auth provider specified")
+            result = await test_auth_provider.authenticate(credentials)
+            if not result.authenticated:
+                raise AuthFailedException(result.reason or "authentication failed")
+            principal = test_mode_principal_values(credentials)
+            principal.update(result.principal_values)
+        else:
+            provider = _cached_auth_provider(auth.provider, auth.configuration)
+            try:
+                result = await provider.authenticate(credentials)
+            except Exception as e:  # noqa: BLE001 — IdP outages are auth
+                # failures (401 with a reason), never unhandled 500s
+                log.warning("auth provider %s errored: %s", auth.provider, e)
+                raise AuthFailedException(f"authentication error: {e}") from e
+            if not result.authenticated:
+                raise AuthFailedException(result.reason or "authentication failed")
+            principal = result.principal_values
 
     return GatewayRequestContext(
         tenant=tenant,

@@ -15,9 +15,10 @@ messages:
 
 The server is storage-agnostic: an ``ApplicationProvider`` resolves
 ``(tenant, application)`` → parsed Application + its topic-connections
-runtime (the local runner implements it). Gateway authentication is not
-ported yet: ``start()`` refuses an application whose gateway declares
-``authentication``, and such a gateway is never served open.
+runtime (the local runner implements it). A gateway that declares
+``authentication`` checks each request's ``credentials`` through its
+provider (``gateway/auth.py``); ``test-credentials`` pass only where the
+gateway allows test mode and the server was given a ``test_auth_provider``.
 """
 
 from __future__ import annotations
@@ -43,7 +44,6 @@ from langstream_tpu_torch.gateway.core import (
     ProduceGateway,
     authenticate_and_validate,
     build_message_filters,
-    refuse_authentication,
     resolve_common_headers,
 )
 from langstream_tpu_torch.gateway.websocket import (
@@ -107,10 +107,6 @@ class GatewayApplication:
 class ApplicationProvider(Protocol):
     async def get_application(self, tenant: str, application_id: str) -> GatewayApplication: ...
 
-    def applications(self) -> list[GatewayApplication]:
-        """Every application the provider holds now (checked at start)."""
-        return []
-
     def agent_service_uri(self, tenant: str, application_id: str, agent_id: str) -> Optional[str]:
         """Base URI of a deployed service agent (for service-gateway proxying);
         None when unknown (local mode without pods)."""
@@ -136,9 +132,6 @@ class DictApplicationProvider:
     def put_service_uri(self, tenant: str, application_id: str, agent_id: str, uri: str) -> None:
         self._service_uris[(tenant, application_id, agent_id)] = uri
 
-    def applications(self) -> list[GatewayApplication]:
-        return list(self._apps.values())
-
     async def get_application(self, tenant: str, application_id: str) -> GatewayApplication:
         key = (tenant, application_id)
         if key not in self._apps:
@@ -160,10 +153,15 @@ class GatewayServer:
         provider: ApplicationProvider,
         host: str = "127.0.0.1",
         port: int = 8091,
+        test_auth_provider: Optional[Any] = None,
     ) -> None:
+        """``test_auth_provider``: server-level provider validating
+        ``test-credentials``; when None (production default) test mode is
+        rejected (reference GatewayRequestHandler.authenticate:229-240)."""
         self.provider = provider
         self.host = host
         self.port = port
+        self.test_auth_provider = test_auth_provider
         self._server: Optional[asyncio.base_events.Server] = None
         self._connections: set[asyncio.Task] = set()
         seg = r"(?P<tenant>[^/]+)/(?P<application>[^/]+)/(?P<gateway>[^/]+)"
@@ -182,10 +180,6 @@ class GatewayServer:
     # -- lifecycle ----------------------------------------------------------
 
     async def start(self) -> None:
-        """Bind and serve. Refuses (``ValueError``) when an application the
-        provider holds has a gateway with ``authentication``."""
-        for gw_app in self.provider.applications():
-            refuse_authentication(gw_app.application)
         self._server = await asyncio.start_server(self._connection, self.host, self.port)
         if self.port == 0:
             self.port = self._server.sockets[0].getsockname()[1]
@@ -283,6 +277,7 @@ class GatewayServer:
                 gw_app.application,
                 gateway,
                 dict(request.query),
+                test_auth_provider=self.test_auth_provider,
             )
         except AuthFailedException as e:
             raise HttpError(401, str(e)) from e

@@ -26,6 +26,7 @@ from __future__ import annotations
 import json
 import logging
 import threading
+import time
 import urllib.error
 import urllib.request
 from typing import Any, Protocol
@@ -140,7 +141,37 @@ def cancel(key: str) -> int:
             log.exception("cancel() failed for a request under key %r", key)
     if requests:
         log.info("cancelled %d in-flight request(s) for session %r", len(requests), key)
+        _trace_disconnect(key, requests)
     return len(requests)
+
+
+def _trace_disconnect(key: str, requests: list) -> None:
+    """Mark the disconnect-driven cancellation on each request's trace —
+    an incident reader asking "why did this generation end early?" finds
+    the WebSocket disconnect next to the engine's cancelled span instead
+    of inferring it from a counter (docs/SERVING.md §12)."""
+    try:
+        import uuid
+
+        from langstream_tpu_torch.tracing import TRACER, Span
+
+        if not TRACER.enabled:
+            return
+        for request in requests:
+            trace_id = getattr(request, "trace_id", None)
+            if not trace_id:
+                continue
+            TRACER.emit(Span(
+                name="gateway.disconnect-cancel",
+                trace_id=trace_id,
+                span_id=uuid.uuid4().hex[:16],
+                parent_id=None,
+                start_s=time.time(),
+                duration_s=0.0,
+                attributes={"session": key},
+            ))
+    except Exception:  # noqa: BLE001 — tracing must never break teardown
+        log.exception("disconnect trace emission failed")
 
 
 def active_keys() -> list[str]:

@@ -4,7 +4,8 @@ the port's websocket client against JAX's server and aiohttp's client
 against the port's server, on the same app, give the same frames and
 produce answers. Then the websocket edges (masking, a 64-bit length,
 fragments with a ping between them, the close handshake, protocol faults),
-a gateway with ``authentication`` refused, and ``run local --once``."""
+a gateway with ``authentication`` refusing what it must, and ``run local
+--once``."""
 
 import asyncio
 import json
@@ -394,23 +395,48 @@ def test_port_client_masks_and_reads_64_bit_lengths():
 
 
 def test_gateway_with_authentication_is_refused():
-    async def main():
-        with pytest.raises(ValueError, match="authentication"):
-            await platform("port", GATEWAYS + SECURED)
-        runner, server = await platform("port")
+    """A gateway that declares ``authentication`` serves, and refuses a
+    request without credentials, with a bad token or with test credentials
+    (no test provider is set, as in ``run local``) with a 401, as JAX's does;
+    a good token is served."""
+    import base64
+    import hashlib
+    import hmac
+
+    def token(secret: str) -> str:
+        def b64(doc: dict) -> str:
+            return base64.urlsafe_b64encode(json.dumps(doc).encode()).rstrip(b"=").decode()
+
+        signed = f"{b64({'alg': 'HS256', 'typ': 'JWT'})}.{b64({'sub': 'alice'})}"
+        sig = hmac.new(secret.encode(), signed.encode(), hashlib.sha256).digest()
+        return f"{signed}.{base64.urlsafe_b64encode(sig).rstrip(b'=').decode()}"
+
+    async def main(package: str):
+        runner, server = await platform(package, GATEWAYS + SECURED)
+        client = PortClient()
+        base = f"{server.ws_url}/v1/produce/default/gw-test/secured"
         try:
+            out = [await client.ws(base), await client.ws(f"{base}?credentials={token('wrong')}"),
+                   await client.ws(f"{base}?test-credentials=anything")]
+            ws = await client.ws(f"{base}?credentials={token('s3cret')}")
+            await ws.send('{"value": "hi"}')
+            out.append(json.loads(await ws.recv()))
+            await ws.close()
             app = port_parser.ModelBuilder.build_application_from_files(
                 {"pipeline.yaml": PIPELINE, "gateways.yaml": GATEWAYS + SECURED},
                 INSTANCE, None).application
             secured = next(g for g in app.gateways if g.id == "secured")
-            with pytest.raises(AuthFailedException, match="not ported"):
+            with pytest.raises(AuthFailedException, match="malformed JWT"):
                 await authenticate_and_validate("default", "gw-test", app, secured,
                                                 {"credentials": "token"})
         finally:
             await server.stop()
             await runner.stop()
+        return out
 
-    asyncio.run(main())
+    got = asyncio.run(main("port"))
+    assert got == asyncio.run(main("jax"))
+    assert got == [("refused", 401)] * 3 + [{"status": "OK", "reason": None}]
 
 
 # -- run local ---------------------------------------------------------------
@@ -511,8 +537,11 @@ def test_chat_disconnect_cancels_the_sessions_generation():
     closing a chat websocket mid-stream cancels the session's generation
     (the JAX gateway test's end-to-end case). The engine's only slot frees
     within seconds and the engine counts the cancellation; decoding to the
-    2048-token cap would take far longer."""
+    2048-token cap would take far longer. With tracing on, the cancel marks
+    the request's trace with one ``gateway.disconnect-cancel`` span carrying
+    the session key (JAX's ``lifecycle._trace_disconnect``)."""
     from langstream_tpu_torch.serving import lifecycle
+    from langstream_tpu_torch.tracing import TRACER
 
     async def main():
         port_memory.MemoryBroker.reset()
@@ -523,6 +552,8 @@ def test_chat_disconnect_cancels_the_sessions_generation():
         await runner.deploy()
         await runner.start()
         server = await runner.serve_gateway()
+        assert TRACER.enabled
+        TRACER.clear()
         try:
             ws = await wsmod.connect(f"{server.ws_url}/v1/chat/default/gw-e2e/chat"
                                      "?param:sessionId=sess-e2e")
@@ -538,6 +569,11 @@ def test_chat_disconnect_cancels_the_sessions_generation():
             assert "sess-e2e" not in lifecycle.active_keys()
             engine = runner._service_registry.get_provider().holder._engine
             assert engine.stats()["cancelled-total"] >= 1
+            roots = TRACER.find("engine.request")
+            spans = TRACER.find("gateway.disconnect-cancel")
+            assert len(roots) == 1 and len(spans) == 1
+            assert spans[0].trace_id == roots[0].trace_id
+            assert spans[0].attributes == {"session": "sess-e2e"}
         finally:
             await server.stop()
             await runner.stop()

@@ -26,10 +26,12 @@ INSTANCE = EXAMPLES / "instances" / "local-memory.yaml"
 SECRETS = EXAMPLES / "secrets" / "secrets.yaml"
 # the apps the port plans: every agent type they use is ported
 PLANNED = {
-    "astradb-sink", "bedrock-text-completions", "chatbot-rag-memory", "chatbot-ui",
-    "compute-tpu-embeddings", "docker-chatbot", "flare", "gateway-authentication", "moe-chat",
-    "ollama-chatbot", "query-astradb", "query-milvus", "query-opensearch", "query-pinecone",
-    "query-postgresql-chat-history", "query-solr", "react-chatbot-ui", "text-completions",
+    "astradb-sink", "azure-document-ingestion", "bedrock-text-completions",
+    "chatbot-rag-memory", "chatbot-ui", "compute-tpu-embeddings", "docker-chatbot",
+    "event-routing", "flare", "gateway-authentication", "http-request-processor",
+    "langserve-invoke", "language-router", "moe-chat", "ollama-chatbot", "query-astradb",
+    "query-milvus", "query-opensearch", "query-pinecone", "query-postgresql-chat-history",
+    "query-solr", "rag-aws", "react-chatbot-ui", "s3-source", "slack", "text-completions",
     "text-processing", "tpu-completions", "tpu-rag", "vertexai-text-completions",
     "webcrawler-astra-vector-db", "webcrawler-source",
 }

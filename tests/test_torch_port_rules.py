@@ -1,6 +1,6 @@
 """Rules of the PyTorch port, checked statically and at its entry points:
 the package and chip_smoke.py import neither JAX nor the JAX package nor
-aiohttp, PyYAML, click or bs4;
+aiohttp, cryptography, PyYAML, click or bs4;
 asking for CUDA where there is none raises instead of running on the CPU;
 and the completions service streams text through the port's engine."""
 
@@ -95,6 +95,15 @@ def test_port_files_exist():
         "langstream_tpu_torch/gateway/websocket.py",
         "langstream_tpu_torch/cli/__main__.py",
         "langstream_tpu_torch/cli/main.py",
+        "langstream_tpu_torch/auth.py",
+        "langstream_tpu_torch/gateway/auth.py",
+        "langstream_tpu_torch/runtime/http_client.py",
+        "langstream_tpu_torch/ai/mock_provider.py",
+        "langstream_tpu_torch/ai/openai_compat.py",
+        "langstream_tpu_torch/ai/remote_cloud.py",
+        "langstream_tpu_torch/agents/storage/__init__.py",
+        "langstream_tpu_torch/agents/flow/__init__.py",
+        "langstream_tpu_torch/agents/http/__init__.py",
         "chip_smoke.py",
     ):
         assert mod in rel
@@ -126,6 +135,15 @@ def test_no_aiohttp(path):
     ``http.client``, ``urllib``)."""
     for name in imported_modules(path):
         assert name.split(".")[0] != "aiohttp", f"{path.name} imports {name}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_cryptography(path):
+    """The card's machine has no ``cryptography``: the port verifies RS256
+    on the stdlib (``auth.py``: ``pow`` and the EMSA-PKCS1-v1_5 block, a
+    minimal DER reader for PEM keys)."""
+    for name in imported_modules(path):
+        assert name.split(".")[0] != "cryptography", f"{path.name} imports {name}"
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -178,17 +196,20 @@ def test_no_cuda_raises(monkeypatch, tmp_path):
         TorchCompletionsService({"model": "tiny-test"})
 
 
-def test_no_cuda_raises_at_run_local(monkeypatch):
+@pytest.mark.parametrize("app", ["tpu-completions", "gateway-authentication"])
+def test_no_cuda_raises_at_run_local(monkeypatch, app):
     """``run local`` of an app whose ``tpu-serving`` resource names no
-    device refuses the card it does not have when it deploys."""
+    device refuses the card it does not have when it deploys — behind a
+    gateway with authentication too."""
     from langstream_tpu_torch.cli.main import start_local
     from langstream_tpu_torch.messaging.memory import MemoryBroker
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         asyncio.run(start_local(
-            ROOT / "examples" / "applications" / "tpu-completions",
+            ROOT / "examples" / "applications" / app,
             ROOT / "examples" / "instances" / "local-memory.yaml",
+            ROOT / "examples" / "secrets" / "secrets.yaml",
             gateway_port=0, metrics_port=-1,
         ))
     MemoryBroker.reset()

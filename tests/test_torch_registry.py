@@ -294,3 +294,82 @@ def test_device_trace_writes_a_trace_on_the_cpu(tmp_path):
         (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
     traces = list(tmp_path.glob("*.pt.trace.json"))
     assert traces and json.loads(traces[0].read_text())["traceEvents"]
+
+
+# -- F13: every AI resource type of the examples is built, as in JAX ---------------
+
+def _example_apps():
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1] / "examples"
+    return root, sorted(p for p in (root / "applications").iterdir() if p.is_dir())
+
+
+def _kinds(registry) -> dict:
+    """resource id → (provider or datasource, class name), the port's
+    serving provider named as JAX's."""
+    rename = {"TorchServingProvider": "TpuServingProvider"}
+    out = {rid: ("provider", rename.get(type(p).__name__, type(p).__name__))
+           for rid, p in registry._providers.items()}
+    out.update({rid: ("datasource", type(d).__name__)
+                for rid, d in registry._datasources.items()})
+    return out
+
+
+@pytest.mark.parametrize("app_dir", _example_apps()[1], ids=lambda p: p.name)
+def test_every_example_resource_builds_as_jax(app_dir):
+    """F13: the port's registry builds a provider or datasource of the same
+    kind as JAX's for every resource of every example app, and skips a
+    resource exactly where JAX's does (the port's ``tpu-serving`` and local
+    vector store take ``device: cpu`` here; JAX's ignore the key)."""
+    from langstream_tpu.core.resolver import resolve_placeholders as jax_resolve
+    from langstream_tpu_torch.core.parser import ModelBuilder as PortBuilder
+    from langstream_tpu_torch.core.resolver import resolve_placeholders
+
+    examples, _ = _example_apps()
+    paths = {"instance_path": examples / "instances" / "local-memory.yaml",
+             "secrets_path": examples / "secrets" / "secrets.yaml"}
+    jax_app = jax_resolve(ModelBuilder.build_application_from_path(app_dir, **paths).application)
+    port_app = resolve_placeholders(
+        PortBuilder.build_application_from_path(app_dir, **paths).application)
+    for resource in port_app.resources.values():
+        if resource.type == "tpu-serving" or resource.configuration.get("service") in (
+                "local-vector", None) and resource.type in ("vector-database", "datasource"):
+            resource.configuration["device"] = "cpu"
+    jreg, treg = JaxRegistry(jax_app), ServiceProviderRegistry(port_app)
+    try:
+        assert _kinds(treg) == _kinds(jreg)
+        assert set(_kinds(treg)) <= set(port_app.resources)
+    finally:
+        asyncio.run(treg.close())
+        asyncio.run(jreg.close())
+
+
+@pytest.mark.parametrize("rtype,config", [
+    ("mock-ai-configuration", {"response": "canned"}),
+    ("open-ai-configuration", {"url": "http://127.0.0.1:9/v1", "access-key": "k"}),
+    ("openai-compatible", {"url": "http://127.0.0.1:9/v1", "model": "llama3"}),
+    ("bedrock-configuration", {"region": "us-east-1", "access-key": "a", "secret-key": "s"}),
+    ("vertex-configuration", {"project": "p", "region": "us-central1", "token": "t"}),
+])
+def test_remote_provider_types_build_as_jax(tmp_path, rtype, config):
+    """F13's direct cases: each of the five types the port lacked is built
+    by the port's registry as a provider of JAX's class, and hands out its
+    services."""
+    app = tmp_path / "app"
+    app.mkdir()
+    (app / "pipeline.yaml").write_text(PIPELINE)
+    (app / "configuration.yaml").write_text(yaml.safe_dump({"configuration": {"resources": [
+        {"type": rtype, "name": "remote", "configuration": config}]}}))
+    instance = tmp_path / "instance.yaml"
+    instance.write_text(yaml.safe_dump({"instance": {
+        "streamingCluster": {"type": "memory"}, "computeCluster": {"type": "local"}}}))
+    application = ModelBuilder.build_application_from_path(app, instance_path=instance).application
+    jreg, treg = JaxRegistry(application), ServiceProviderRegistry(application)
+    assert _kinds(treg) == _kinds(jreg) == {"remote": ("provider", _kinds(jreg)["remote"][1])}
+    provider = treg.get_provider()
+    assert type(provider).__module__.startswith("langstream_tpu_torch.ai.")
+    assert provider.get_completions_service({}) is not None
+    assert provider.get_embeddings_service({}) is not None
+    asyncio.run(treg.close())
+    asyncio.run(jreg.close())
