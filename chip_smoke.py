@@ -535,7 +535,38 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    No attention kernel runs in (c): the embeddings are computed outside
    any kernel, as in JAX. The build phase also prints whether ``grpc``,
    ``google.protobuf`` and ``cryptography`` import on the machine.
-25. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+25. ``python``  — apps whose steps are user Python, each in a child process
+   over the gRPC bridge (``grpc_runtime/``), run through the code of ``run
+   local`` (the files under ``examples/`` stay as they are): (a)
+   ``python-agent`` as it stands, its user code included: 16 keyed records
+   in, each ``value + "!!"`` out with its key, in order; then the
+   ``process`` round trip to that child, one record (200 trips) and a
+   batch of 64 short records (50 trips), p50 / p99. (b)
+   ``python-source-sink`` with its sink's file under ``build/python/``:
+   the 10 ticks, shouted, in order. (c) a served app written under
+   ``build/python/served/``: a ``python-source`` emits 8 questions of the
+   ``e2e`` lengths (and records its commits), ``ai-chat-completions`` on
+   ``tpu-serving`` answers them (llama-3-8b, full width and depth, bf16,
+   random weights from this run's seed, paged, 64 new tokens), a
+   ``python-processor`` wraps each answer into an Avro record ``{question,
+   answer, n}``, ``compute`` adds 1000 to ``n`` (the Avro path of
+   ``MutableRecord``), a ``python-sink`` writes JSON lines: every answer
+   its request's tokens and the direct path's (equal or a one-ulp tie),
+   8 commits, the schema interned once a stream on the runtime side,
+   every sink row an Avro value of that schema with ``n`` edited, the
+   launches exact (prefill layers x admit groups, paged decode layers x
+   decode steps, replays = chunks, no segment, no plain version). (d) the
+   processor's child kills itself (``os._exit(13)``) at its first record,
+   once: the bridge restarts it mid-serve (a new pid), the batch fails and
+   comes back, every answer reaches the sink exactly once by key, the
+   launches stay exact. (e) every child reports no module of the JAX
+   package loaded (the source loads the two examples' user modules first)
+   and an empty ``CUDA_VISIBLE_DEVICES``; no child holds a ``/dev/nvidia*``
+   file, and ``nvidia-smi --query-compute-apps`` lists no process but
+   this one. It prints each child's spawn to banner, the round trips, the
+   burst's answer tokens/s, each request's engine TTFT and the phase's
+   seconds, each with the card's name and power limit.
+26. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
    and int8 page pools and the bf16 dense cache (8192 wide), traced with
    torch.profiler: the device's busy share of the wall and the top
    kernels (no split-K decode kernel may appear).
@@ -572,8 +603,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
           "prefix", "spec", "tenancy", "agentic", "embed", "dense_tiers", "tiered", "fleet",
-          "fleet_http", "spmd", "ring", "load", "moe", "app", "rag", "remote", "profile")
-DEFAULT_PHASES = PHASES[:24]
+          "fleet_http", "spmd", "ring", "load", "moe", "app", "rag", "remote", "python",
+          "profile")
+DEFAULT_PHASES = PHASES[:25]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -741,8 +773,8 @@ def phase_build(ctx: dict) -> None:
                     continue
                 log(f"  ptxas[{name}] {line.strip()[:220]}")
         _build.library(name)  # loads and binds every symbol
-    log(f"packages: {json.dumps(_package_versions())} (grpc and protobuf: a record for "
-        "the python agents' gRPC bridge, not yet ported; nothing depends on them)")
+    log(f"packages: {json.dumps(_package_versions())} (grpc and protobuf: the python "
+        "agents' gRPC bridge, driven by the python phase)")
     for name, ops in SASS_OPS.items():
         mix = sass_mix(_build.library_path(name), ops)
         log(f"sass[{name}] {json.dumps(mix['all'])}")
@@ -6446,6 +6478,556 @@ def phase_remote(ctx: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# the python phase: apps whose steps are user Python in child processes over
+# gRPC (module docstring, phase 25)
+PYTHON_NAME = "smoke-python"
+PYTHON_NEW = 64  # the served app's completions step asks for 64 new tokens
+PYTHON_RECORDS = 16  # python-agent's records
+PYTHON_TICKS = 10  # python-source-sink's countdown (the example's count)
+PYTHON_RTT_SINGLE = 200  # process round trips of one record
+PYTHON_RTT_BATCH = (50, 64)  # round trips of a batch of 64 short records
+PYTHON_CHILD_TIMEOUT_S = 60
+PYTHON_SCHEMA = {"type": "record", "name": "Answer", "namespace": "smoke", "fields": [
+    {"name": "question", "type": "string"}, {"name": "answer", "type": "string"},
+    {"name": "n", "type": "long"}]}
+PYTHON_N_EDIT = 1000  # the compute step adds this to ``n``
+# the served app's user code, written under build/python/served/python/ (it
+# imports the SDK under the JAX package's paths, as user code does: the port's
+# child answers them with the port's modules)
+PYTHON_STEPS = '''"""User steps of the python phase's served app (written by chip_smoke.py)."""
+
+import asyncio
+import importlib
+import json
+import os
+import sys
+
+from langstream_tpu.api.agent import AgentSink, AgentSource, SingleRecordProcessor
+from langstream_tpu.api.avro import AvroValue, parse_schema
+from langstream_tpu.api.record import SimpleRecord
+
+
+def probe(configuration, role):
+    """Append what this child has loaded to the probe file: the modules whose
+    file lies under the JAX package, torch, the card's visibility."""
+    jax_dir = configuration["jax-package"]
+    files = {n: getattr(m, "__file__", None) for n, m in list(sys.modules.items())}
+    row = {"role": role, "pid": os.getpid(),
+           "jax_package_modules": sorted(n for n, f in files.items()
+                                         if f and os.path.realpath(f).startswith(jax_dir)),
+           "torch": "torch" in sys.modules,
+           "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+    with open(configuration["probe-file"], "a") as f:
+        f.write(json.dumps(row) + "\\n")
+
+
+class Questions(AgentSource):
+    """Emits every question at once when the go file appears; records each
+    commit. Loads the examples' user modules first (the probe sees them)."""
+
+    async def init(self, configuration):
+        self.c = configuration
+        for path in configuration["example-paths"]:
+            sys.path.insert(0, path)
+        for name in configuration["example-modules"]:
+            importlib.import_module(name)
+        with open(configuration["questions-file"]) as f:
+            self.questions = json.load(f)
+        self.sent = False
+        probe(configuration, "source")
+
+    async def read(self):
+        if self.sent or not os.path.exists(self.c["go-file"]):
+            await asyncio.sleep(0.005)
+            return []
+        self.sent = True
+        return [SimpleRecord.of(json.dumps({"question": q}), key=f"q{i}")
+                for i, q in enumerate(self.questions)]
+
+    async def commit(self, records):
+        with open(self.c["commits-file"], "a") as f:
+            for r in records:
+                f.write(f"{r.key}\\n")
+
+
+class WrapAvro(SingleRecordProcessor):
+    """Wraps each answer into an Avro record; the first record it ever sees
+    kills its process (once: the marker file)."""
+
+    async def init(self, configuration):
+        self.c = configuration
+        self.schema = parse_schema(json.dumps(configuration["schema"]))
+        probe(configuration, "processor")
+
+    async def process_record(self, record):
+        if not os.path.exists(self.c["marker-file"]):
+            open(self.c["marker-file"], "w").close()
+            os._exit(13)
+        value = json.loads(record.value)
+        data = {"question": value["question"], "answer": value["answer"],
+                "n": int(record.key[1:])}
+        return [SimpleRecord.of(AvroValue(self.schema, data), key=record.key)]
+
+
+class JsonLines(AgentSink):
+    """Writes each record as a JSON line: its key, the value's type, schema
+    and datum."""
+
+    async def init(self, configuration):
+        self.path = configuration["path"]
+        probe(configuration, "sink")
+
+    async def write(self, record):
+        v = record.value
+        avro = isinstance(v, AvroValue)
+        row = {"key": record.key, "type": type(v).__name__,
+               "schema": v.schema.canonical() if avro else None,
+               "data": v.data if avro else v}
+        with open(self.path, "a") as f:
+            f.write(json.dumps(row) + "\\n")
+'''
+
+
+def _python_served_copy(ctx, dst: Path, files: dict, questions: list) -> Path:
+    """``build/python/served/``: the served app (a python-source, the chat on
+    ``tpu-serving``, a python-processor wrapping Avro, ``compute`` editing
+    ``n``, a python-sink) and its user code."""
+    import shutil
+
+    app = dst / "served"
+    shutil.rmtree(app, ignore_errors=True)
+    (app / "python").mkdir(parents=True)
+    (app / "python" / "served_steps.py").write_text(PYTHON_STEPS)
+    files["questions"].write_text(json.dumps(questions))
+    common = {"jax-package": str((ROOT / "langstream_tpu").resolve()) + "/",
+              "probe-file": str(files["probe"])}
+
+    def conf(extra: dict) -> str:
+        return "".join(f"      {k}: {json.dumps(v)}\n" for k, v in {**extra, **common}.items())
+
+    examples = ROOT / "examples" / "applications"
+    (app / "pipeline.yaml").write_text(
+        "module: default\nid: smoke-python\nname: python steps around the served model\n"
+        "topics:\n" + "".join(f"  - name: {t}\n    creation-mode: create-if-not-exists\n"
+                               for t in ("questions-topic", "answers-topic", "wrapped-topic",
+                                         "edited-topic"))
+        + "errors:\n  retries: 5\n  on-failure: fail\npipeline:\n"
+        "  - name: ask\n    type: python-source\n    output: questions-topic\n"
+        "    configuration:\n      className: served_steps.Questions\n"
+        + conf({"questions-file": str(files["questions"]), "go-file": str(files["go"]),
+                "commits-file": str(files["commits"]),
+                "example-paths": [str(examples / "python-agent" / "python"),
+                                  str(examples / "python-source-sink" / "python")],
+                "example-modules": ["example_agent", "trio"]})
+        + "  - name: answer\n    type: ai-chat-completions\n    input: questions-topic\n"
+        "    output: answers-topic\n    configuration:\n"
+        '      model: "${globals.serving-model}"\n      completion-field: value.answer\n'
+        f"      max-tokens: {PYTHON_NEW}\n      messages:\n        - role: user\n"
+        '          content: "{{ value.question }}"\n'
+        "  - name: wrap\n    type: python-processor\n    input: answers-topic\n"
+        "    output: wrapped-topic\n    configuration:\n      className: served_steps.WrapAvro\n"
+        + conf({"schema": PYTHON_SCHEMA, "marker-file": str(files["marker"])})
+        + "  - name: edit\n    type: compute\n    input: wrapped-topic\n    output: edited-topic\n"
+        "    configuration:\n      fields:\n        - name: value.n\n"
+        f'          expression: "value.n + {PYTHON_N_EDIT}"\n          type: INT64\n'
+        "  - name: write\n    type: python-sink\n    input: edited-topic\n"
+        "    configuration:\n      className: served_steps.JsonLines\n"
+        + conf({"path": str(files["sink"])}))
+    (app / "configuration.yaml").write_text(
+        "configuration:\n  resources:\n    - type: tpu-serving\n      name: tpu\n"
+        '      configuration:\n        model: "${globals.serving-model}"\n'
+        "        tokenizer: byte\n        max-batch: 8\n        decode-chunk: 16\n"
+        + _serving_edit(ctx, "")[1])
+    return app
+
+
+class _ChildLog:
+    """Every agent child the bridge starts (its class, pid, spawn to banner)
+    and every Avro schema the runtime side's codecs ship or receive, per
+    stream (a ``reset()`` starts a stream): patched into the port's bridge
+    and codec for the phase, restored after."""
+
+    def __init__(self) -> None:
+        from langstream_tpu_torch.grpc_runtime import bridge, convert
+
+        self.starts: list = []
+        # id(codec) → one {"schemas": [(direction, id, schema)], "avro": values} a stream
+        self.streams: dict = {}
+        server, codec = bridge.PythonGrpcServer, convert.SchemaCodec
+        self._saved = [(server, "start", server.start)] + [
+            (codec, name, getattr(codec, name))
+            for name in ("reset", "register", "to_value", "from_value")]
+        log_ = self
+        start, reset, register, to_value, from_value = (f for _, _, f in self._saved)
+
+        async def start_(server):
+            t0 = time.monotonic()
+            await start(server)  # spawn, then wait for the banner
+            log_.starts.append({"class": server.config["className"], "pid": server.process.pid,
+                                "ms": (time.monotonic() - t0) * 1e3})
+
+        def stream(codec) -> dict:
+            return log_.streams.setdefault(id(codec), [{"schemas": [], "avro": 0}])[-1]
+
+        def reset_(codec):
+            log_.streams.setdefault(id(codec), []).append({"schemas": [], "avro": 0})
+            return reset(codec)
+
+        def register_(codec, schemas):
+            schemas = list(schemas)
+            stream(codec)["schemas"] += [("in", s.schema_id, s.value.decode()) for s in schemas]
+            return register(codec, schemas)
+
+        def to_value_(codec, obj, new_schemas):
+            n = len(new_schemas)
+            out = to_value(codec, obj, new_schemas)
+            s = stream(codec)
+            s["schemas"] += [("out", m.schema_id, m.value.decode()) for m in new_schemas[n:]]
+            s["avro"] += out.WhichOneof("kind") == "avro_value"
+            return out
+
+        def from_value_(codec, value):
+            stream(codec)["avro"] += value.WhichOneof("kind") == "avro_value"
+            return from_value(codec, value)
+
+        for (cls, name, _), new in zip(self._saved, (start_, reset_, register_, to_value_,
+                                                     from_value_)):
+            setattr(cls, name, new)
+
+    def restore(self) -> None:
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+
+    def intern_problems(self) -> list:
+        """Each stream that carried Avro values carried each schema exactly
+        once; a stream that carried none carried no schema."""
+        problems = []
+        for codec, streams in self.streams.items():
+            for i, s in enumerate(streams):
+                texts = [t for _, _, t in s["schemas"]]
+                if s["avro"] and (not texts or len(texts) != len(set(texts))):
+                    problems.append(f"codec {codec} stream {i}: {s['avro']} Avro values, "
+                                    f"schemas {s['schemas']}")
+                if not s["avro"] and texts:
+                    problems.append(f"codec {codec} stream {i}: schemas without Avro values")
+        return problems
+
+
+async def _until_file(path: Path, lines: int, timeout_s: float, what: str, app) -> float:
+    """Poll ``path`` until it holds ``lines`` lines → the time it did; fail
+    at once when one of the app's agents has crashed."""
+    import asyncio
+
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout_s:
+        if path.exists() and len(path.read_text().splitlines()) >= lines:
+            return time.monotonic()
+        if app.runner._failed is not None:
+            raise AssertionError(f"python: {what}: an agent crashed: {app.runner._failed}")
+        await asyncio.sleep(0.005)
+    got = len(path.read_text().splitlines()) if path.exists() else 0
+    raise AssertionError(f"python: {what}: {got} of {lines} lines in {timeout_s} s")
+
+
+def _percentiles(values: list) -> dict:
+    values = sorted(values)
+    return {"p50": values[len(values) // 2], "p99": values[min(len(values) - 1,
+                                                                int(len(values) * 0.99))]}
+
+
+async def _python_agent(ctx, dst: Path, instance: Path) -> dict:
+    """(a) python-agent as it stands: 16 keyed records, each value + "!!";
+    then the ``process`` round trip through the bridge to the example's
+    child, one record and batches of 64."""
+    from langstream_tpu_torch.api.record import SimpleRecord
+    from langstream_tpu_torch.cli.main import start_local
+    from langstream_tpu_torch.grpc_runtime.bridge import GrpcAgentProcessor
+
+    example = ROOT / "examples" / "applications" / "python-agent"
+    app = await start_local(example, instance, name="smoke-python-agent", gateway_port=0,
+                            metrics_port=-1)
+    try:
+        t0 = time.monotonic()
+        for i in range(PYTHON_RECORDS):
+            await app.runner.produce("input-topic", f"record {i}", key=f"k{i}")
+        out = await app.runner.consume("output-topic", n=PYTHON_RECORDS,
+                                       timeout=PYTHON_CHILD_TIMEOUT_S)
+        wall = time.monotonic() - t0
+    finally:
+        await app.stop()
+    got = [(r.key, r.value) for r in out[:PYTHON_RECORDS]]
+    want = [(f"k{i}", f"record {i}!!") for i in range(PYTHON_RECORDS)]
+    if got != want:
+        raise AssertionError(f"python-agent: {got} != {want}")
+    agent = GrpcAgentProcessor()
+    await agent.init({"className": "example_agent.Exclaim", "suffix": "!!",
+                      "pythonPath": str(example / "python")})
+    await agent.start()
+    try:
+        single, batch = [], []
+        for i in range(PYTHON_RTT_SINGLE):
+            t = time.perf_counter()
+            (result,) = await agent.process([SimpleRecord.of(f"r{i}")])
+            single.append((time.perf_counter() - t) * 1e3)
+            if result.records[0].value != f"r{i}!!":
+                raise AssertionError(f"python-agent round trip: {result}")
+        rounds, size = PYTHON_RTT_BATCH
+        for i in range(rounds):
+            records = [SimpleRecord.of(f"b{i}.{j}") for j in range(size)]
+            t = time.perf_counter()
+            results = await agent.process(records)
+            batch.append((time.perf_counter() - t) * 1e3)
+            if [r.records[0].value for r in results] != [f"b{i}.{j}!!" for j in range(size)]:
+                raise AssertionError("python-agent batch round trip: wrong answers")
+    finally:
+        await agent.close()
+    return {"records": len(got), "wall_s": wall, "rtt_one_ms": _percentiles(single),
+            "rtt_batch64_ms": _percentiles(batch),
+            "batch_records_per_s": size / (_percentiles(batch)["p50"] / 1e3)}
+
+
+async def _python_source_sink(ctx, dst: Path, instance: Path) -> dict:
+    """(b) python-source-sink with its sink's file under build/python/."""
+    from langstream_tpu_torch.cli.main import start_local
+
+    out = dst / "python-trio-out.txt"
+    out.unlink(missing_ok=True)
+    app_dir = _remote_copy(ctx, "python-source-sink", {"pipeline.yaml": [
+        ('path: "/tmp/python-trio-out.txt"', f'path: "{out}"')]}, dst)
+    t0 = time.monotonic()
+    app = await start_local(app_dir, instance, name="smoke-python-trio", gateway_port=0,
+                            metrics_port=-1)
+    try:
+        done = await _until_file(out, PYTHON_TICKS, PYTHON_CHILD_TIMEOUT_S, "the trio's file",
+                                 app)
+    finally:
+        await app.stop()
+    want = "".join(f"TICK-{i}\n" for i in range(PYTHON_TICKS - 1, -1, -1))
+    if out.read_text() != want:
+        raise AssertionError(f"python-source-sink wrote {out.read_text()!r}, not {want!r}")
+    return {"ticks": PYTHON_TICKS, "start_to_last_tick_s": done - t0}
+
+
+def _smi_compute_pids() -> list:
+    run = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return [int(p) for p in run.stdout.split() if p.strip().isdigit()]
+
+
+def _card_files(pid: int) -> list:
+    """The NVIDIA device files a process holds open (a CUDA context opens
+    ``/dev/nvidia*``)."""
+    import os
+
+    out = []
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                out.append(target)
+    except OSError:
+        return ["unreadable"]
+    return sorted(set(out))
+
+
+async def _python_served(ctx, dst: Path, instance: Path, log_: "_ChildLog") -> dict:
+    """(c) the served app and (d) its crash drill; (e) read while its
+    children run."""
+    import asyncio
+    import os
+
+    import torch
+
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+
+    files = {k: dst / f"served-{k}" for k in ("questions", "go", "commits", "marker", "sink",
+                                            "probe")}
+    for path in files.values():
+        path.unlink(missing_ok=True)
+    questions = _prompts(APP_BYTES, ctx["seed"] + 47)
+    app_dir = _python_served_copy(ctx, dst, files, questions)
+    app, svc, engine, start_s = await _served_app(ctx, app_dir, instance, None, PYTHON_NAME)
+    try:
+        cfg = svc.model_config
+        taps = _tap(engine)
+        torch.cuda.synchronize()
+        before = engine.stats()
+        reset_kernel_counts()
+        t_go = time.monotonic()
+        files["go"].write_text("go\n")
+        t_last = await _until_file(files["sink"], len(questions), 300, "the sink's rows", app)
+        wall = t_last - t_go
+        counts = kernel_counts()
+        after = engine.stats()
+        await _until_file(files["commits"], len(questions), 60, "the source's commits", app)
+        probes = [json.loads(line) for line in files["probe"].read_text().splitlines()]
+        live = [p["pid"] for p in probes if os.path.exists(f"/proc/{p['pid']}")]
+        smi_pids = _smi_compute_pids()
+        card_files = {pid: _card_files(pid) for pid in live}
+        own_files = _card_files(os.getpid())
+        served = [(r, f.result(timeout=60)) for r, f, _ in taps]
+        taps.clear()
+        direct = await _direct_tokens(engine, [r for r, _ in served])
+        params = svc.params()
+    finally:
+        await app.stop()
+    problems = []
+    rows = [json.loads(line) for line in files["sink"].read_text().splitlines()]
+    keys = [r["key"] for r in rows]
+    if sorted(keys) != sorted(f"q{i}" for i in range(len(questions))):
+        problems.append(f"the sink's keys {keys}: not every question exactly once")
+    schema = json.dumps(PYTHON_SCHEMA, separators=(",", ":"))
+    from langstream_tpu_torch.api.avro import parse_schema
+
+    canonical = parse_schema(schema).canonical()
+    by_prompt = {svc.tokenizer.decode(req.prompt_tokens): (req, result)
+                 for req, result in served}
+    for row in rows:
+        i = int(row["key"][1:])
+        if row["type"] != "AvroValue" or row["schema"] != canonical:
+            problems.append(f"{row['key']}: a {row['type']} of schema {row['schema']}")
+            continue
+        data = row["data"]
+        if data["n"] != i + PYTHON_N_EDIT or data["question"] != questions[i]:
+            problems.append(f"{row['key']}: n {data['n']}, question {data['question'][:20]!r}")
+        owner = [k for k in by_prompt if questions[i] in k]
+        if len(owner) != 1:
+            problems.append(f"{row['key']}: {len(owner)} engine requests carry its question")
+            continue
+        req, result = by_prompt[owner[0]]
+        if data["answer"] != svc.tokenizer.decode(result.tokens):
+            problems.append(f"{row['key']}: the answer is not its request's tokens")
+        if result.finish_reason not in ("length", "stop") or result.error is not None:
+            problems.append(f"{row['key']} ended {result.finish_reason}: {result.error}")
+    commits = files["commits"].read_text().splitlines()
+    if sorted(commits) != sorted(f"q{i}" for i in range(len(questions))):
+        problems.append(f"source commits {commits}")
+    if len(served) != len(questions):
+        problems.append(f"{len(served)} engine requests for {len(questions)} questions")
+    prompts = [list(r.prompt_tokens) for r, _ in served]
+    got = [res.tokens for _, res in served]
+    same = _same_or_tie(ctx, cfg, params, "python", prompts, got, direct)
+    if not same["ok"]:
+        problems.append(f"answers differ from the direct path beyond one-ulp ties: "
+                        f"{same['not_ties']}")
+    run = _launch_check(cfg, counts, before, after, problems)
+    # (d) the crash drill: the processor's first child died, a new one answered
+    wraps = [p["pid"] for p in probes if p["role"] == "processor"]
+    if not files["marker"].exists() or len(wraps) != 2 or wraps[0] == wraps[1]:
+        problems.append(f"the crash drill: processor pids {wraps}, marker "
+                        f"{files['marker'].exists()}")
+    problems += log_.intern_problems()
+    # (e) no JAX and no card in the children
+    for p in probes:
+        if p["jax_package_modules"] or p["cuda_visible_devices"] != "":
+            problems.append(f"child {p['role']} {p['pid']}: JAX package modules "
+                            f"{p['jax_package_modules']}, CUDA_VISIBLE_DEVICES "
+                            f"{p['cuda_visible_devices']!r}")
+    if any(card_files.values()):
+        problems.append(f"children hold the card's device files: {card_files}")
+    # nvidia-smi lists pids of the host's namespace, which may not be this
+    # one's: then this process is the one entry it may list
+    own_listed = os.getpid() in smi_pids
+    extra = [p for p in smi_pids if p != os.getpid()] if own_listed else smi_pids[1:]
+    if set(smi_pids) & set(live) or extra:
+        problems.append(f"nvidia-smi's compute processes {smi_pids}: not only this one "
+                        f"({os.getpid()}; children {live})")
+    run.update({
+        "requests": len(questions), "prompt_tokens": [len(p) for p in prompts],
+        "answer_tokens": [len(t) for t in got], "wall_s": wall,
+        "answer_tokens_per_s": sum(len(t) for t in got) / wall,
+        "engine_ttft_ms": [res.ttft_s * 1000.0 for _, res in served],
+        "start_s": start_s, "commits": len(commits), "sink_rows": len(rows),
+        "processor_pids": wraps, "children_seen": probes, "live_children": live,
+        "smi_compute_pids": smi_pids, "own_pid": os.getpid(), "own_pid_listed": own_listed,
+        "own_card_files": own_files,
+        "children_card_files": card_files,
+        "schema_streams": [s for streams in log_.streams.values() for s in streams
+                           if s["avro"] or s["schemas"]],
+        "same_as_direct": {k: same[k] for k in ("agreement", "ties", "equal")},
+    })
+    if problems:
+        raise AssertionError("python served: " + "; ".join(problems)
+                             + f" ({json.dumps(run)[:3000]})")
+    return run
+
+
+def phase_python(ctx: dict) -> None:
+    """python-agent, python-source-sink and a served app whose other steps
+    are user Python (module docstring, phase 25)."""
+    import asyncio
+    import gc
+
+    import torch
+
+    from langstream_tpu_torch.messaging.memory import MemoryBroker
+
+    ctx.pop("params", None)  # the served app's provider draws its own tree (the same seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.monotonic()
+    dst = ROOT / "build" / "python"
+    dst.mkdir(parents=True, exist_ok=True)
+    instance = dst / "instance.yaml"
+    instance.write_text("instance:\n  streamingCluster:\n    type: memory\n  computeCluster:\n"
+                        "    type: local\n  globals:\n    serving-model: llama-3-8b\n")
+    log_ = _ChildLog()
+    runs = {}
+    try:
+        for label, part in (("agent", _python_agent), ("trio", _python_source_sink),
+                            ("served", lambda c, d, i: _python_served(c, d, i, log_))):
+            t0 = time.monotonic()
+            # each app starts on an empty broker, as `run local` does in a new
+            # process: the earlier phases' apps left records on topics of the
+            # same names (the app phase's answer chunks on answers-topic)
+            MemoryBroker.reset()
+            runs[label] = asyncio.run(part(ctx, dst, instance))
+            runs[label]["part_s"] = time.monotonic() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        log_.restore()
+    card = smi_line()
+    a, b, c = runs["agent"], runs["trio"], runs["served"]
+    for s in log_.starts:
+        log(f"python child {s['class']} pid {s['pid']}: spawn to banner {s['ms']:.1f} ms "
+            f"[{card}]")
+    log(f"python agent: {a['records']} records through python-agent in {a['wall_s']:.3f} s; "
+        f"process round trip of one record p50 {a['rtt_one_ms']['p50']:.3f} ms p99 "
+        f"{a['rtt_one_ms']['p99']:.3f} ms ({PYTHON_RTT_SINGLE} trips), of {PYTHON_RTT_BATCH[1]} "
+        f"records p50 {a['rtt_batch64_ms']['p50']:.3f} ms p99 {a['rtt_batch64_ms']['p99']:.3f} "
+        f"ms ({PYTHON_RTT_BATCH[0]} trips, {a['batch_records_per_s']:.0f} records/s) [{card}]")
+    log(f"python trio: {b['ticks']} ticks shouted into the sink's file "
+        f"{b['start_to_last_tick_s']:.3f} s after the app's start [{card}]")
+    for i, ms in enumerate(c["engine_ttft_ms"]):
+        log(f"python served request {i} ({c['prompt_tokens'][i]} prompt tokens, "
+            f"{c['answer_tokens'][i]} answer tokens): engine ttft {ms:.1f} ms [{card}]")
+    log(f"python served: {c['requests']} questions from a python-source to the python-sink "
+        f"in {c['wall_s']:.3f} s, {c['answer_tokens_per_s']:.1f} answer tokens/s, the "
+        f"processor's child killed once (pids {c['processor_pids']}); launches "
+        f"{json.dumps({k: n for k, n in c['kernel_launches'].items() if n})} = "
+        f"{c['layers']} x {c['admit_groups']} admit groups, {c['layers']} x "
+        f"{c['decode_steps']} decode steps; {c['graph_replays']} replays = "
+        f"{c['decode_chunks']} chunks; nvidia-smi compute pids {c['smi_compute_pids']} "
+        f"(this process {c['own_pid']}, children {c['live_children']}) [{card}]")
+    run = {"agent": a, "trio": b, "served": c, "children": log_.starts,
+           "phase_s": time.monotonic() - t_phase, "kernel_launches": c["kernel_launches"]}
+    log(f"python phase: {run['phase_s']:.1f} s [{card}]")
+    log(f"python apps llama-3-8b {json.dumps(run)}")
+    ctx["python"] = run
+    ctx.setdefault("summaries", []).append(("python", {
+        "spawn_to_banner_ms": [round(s["ms"], 1) for s in log_.starts],
+        "rtt_one_ms": a["rtt_one_ms"], "rtt_batch64_ms": a["rtt_batch64_ms"],
+        "served_wall_s": c["wall_s"], "answer_tokens_per_s": c["answer_tokens_per_s"],
+        "phase_s": run["phase_s"],
+        "launches": {k: n for k, n in run["kernel_launches"].items() if n}}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _replay_rate(torch, engine, chunks: int = 4) -> dict:
     """Back-to-back replays of the greedy chunk (with speculation: the
     greedy verify) on a burst's engine (its slots idle by then): the card's
@@ -8943,7 +9525,7 @@ def kernel_record(ctx: dict) -> dict:
     served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "prefix",
               "spec", "agentic", "dense_spec", "dense_prefix", "dense_prefix_int8", "tiered",
               "fleet", "fleet_http", "spmd", "spmd_leader", "spmd_follower", "ring", "ring_int8",
-              "load", "moe", "app", "rag", "remote")
+              "load", "moe", "app", "rag", "remote", "python")
     out = []
     for name, (src, replaces, path) in sources.items():
         runs = ctx.get("kernel_runs", {}).get(name)

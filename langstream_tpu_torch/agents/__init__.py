@@ -2,8 +2,9 @@
 the text agents, the GenAI toolkit steps, the web crawler, the vector
 stores and agents of the RAG pipelines, the flow-control agents
 (``dispatch``, ``timer-source``, ``trigger-event``, ``log-event``), the HTTP
-agents (``http-request``, ``langserve-invoke``) and the object-storage
-sources. ``register_builtins`` registers every type the port has into
+agents (``http-request``, ``langserve-invoke``), the object-storage
+sources and the ``python-*`` agents (user code in a child process over
+gRPC). ``register_builtins`` registers every type the port has into
 ``core.registry.REGISTRY`` (the registry calls it on first lookup)."""
 
 
@@ -13,6 +14,7 @@ def register_builtins() -> None:
     from langstream_tpu_torch.agents import flow  # noqa: F401
     from langstream_tpu_torch.agents import genai  # noqa: F401
     from langstream_tpu_torch.agents import http  # noqa: F401
+    from langstream_tpu_torch.agents import python_agents  # noqa: F401
     from langstream_tpu_torch.agents import storage  # noqa: F401
     from langstream_tpu_torch.agents import text  # noqa: F401
     from langstream_tpu_torch.agents import vector

@@ -19,12 +19,12 @@ from langstream_tpu_torch.api.record import Header, Record, SimpleRecord
 def _parse_side(raw: Any) -> tuple[Any, bool, Any]:
     """Parse a record side (key or value) → (parsed, was_json, avro_schema).
     JSON objects/arrays become dicts/lists (was_json=True → serialised back
-    to JSON on materialise); an Avro value (an object with ``data`` and
-    ``schema``) becomes its datum with the schema remembered. The port has
-    no Avro codec (no broker of the port carries Avro yet): such a side
-    materialises as JSON."""
-    if hasattr(raw, "schema") and hasattr(raw, "data"):
-        return raw.data, False, raw.schema
+    to JSON on materialise); Avro values become their JSON-compatible datum
+    with the schema remembered for re-encoding (AvroUtil analog)."""
+    from langstream_tpu_torch.api.avro import AvroValue, datum_to_json
+
+    if isinstance(raw, AvroValue):
+        return datum_to_json(raw.data), False, raw.schema
     if isinstance(raw, (bytes, bytearray)):
         try:
             raw = raw.decode("utf-8")
@@ -51,7 +51,8 @@ class MutableRecord:
     dropped: bool = False
     _key_was_json: bool = False
     _value_was_json: bool = False
-    # Avro provenance (the side materialises as JSON: no Avro codec)
+    # Avro provenance: the side re-encodes under this schema on materialise
+    # (falls back to JSON if the mutated shape no longer fits the schema)
     _key_avro_schema: Any = None
     _value_avro_schema: Any = None
 
@@ -168,7 +169,26 @@ class MutableRecord:
     # -- materialisation ----------------------------------------------------
 
     def _serialise(self, side: Any, was_json: bool, avro_schema: Any) -> Any:
-        if (was_json or avro_schema is not None) and isinstance(side, (dict, list)):
+        if avro_schema is not None:
+            from langstream_tpu_torch.api.avro import (
+                AvroError,
+                AvroValue,
+                encode,
+                json_to_datum,
+            )
+
+            try:
+                # strict: mutated-in fields the schema lacks must NOT be
+                # silently dropped — they force the JSON fallback below
+                datum = json_to_datum(avro_schema, side, strict=True)
+                encode(avro_schema, datum)  # validates the mutated shape
+                return AvroValue(avro_schema, datum)
+            except AvroError:
+                # schema no longer fits (field added/dropped): degrade to JSON
+                if isinstance(side, (dict, list)):
+                    return json.dumps(side)
+                return side
+        if was_json and isinstance(side, (dict, list)):
             return json.dumps(side)
         return side
 

@@ -29,11 +29,13 @@ PLANNED = {
     "astradb-sink", "azure-document-ingestion", "bedrock-text-completions",
     "chatbot-rag-memory", "chatbot-ui", "compute-tpu-embeddings", "docker-chatbot",
     "event-routing", "flare", "gateway-authentication", "http-request-processor",
-    "langserve-invoke", "language-router", "moe-chat", "ollama-chatbot", "query-astradb",
-    "query-milvus", "query-opensearch", "query-pinecone", "query-postgresql-chat-history",
-    "query-solr", "rag-aws", "react-chatbot-ui", "s3-source", "slack", "text-completions",
-    "text-processing", "tpu-completions", "tpu-rag", "vertexai-text-completions",
-    "webcrawler-astra-vector-db", "webcrawler-source",
+    "langchain-chat", "langchain-document-loader", "langchain-source", "langserve-invoke",
+    "language-router", "llamaindex-cassandra-sink", "moe-chat", "ollama-chatbot",
+    "python-agent", "python-source-sink", "query-astradb", "query-milvus", "query-opensearch",
+    "query-pinecone", "query-postgresql-chat-history", "query-solr", "rag-aws",
+    "react-chatbot-ui", "s3-source", "slack", "text-completions", "text-processing",
+    "tpu-completions", "tpu-rag", "vertexai-text-completions", "webcrawler-astra-vector-db",
+    "webcrawler-source",
 }
 
 
@@ -63,6 +65,8 @@ def both(app_dir):
 def test_every_example_app_is_covered():
     assert len(APPS) > 30
     assert PLANNED <= {p.name for p in APPS}
+    # 38 of the 40 plan; the two left wait for agent types not yet ported
+    assert {p.name for p in APPS} - PLANNED == {"camel-source", "kafka-connect"}
 
 
 @pytest.mark.parametrize("app_dir", APPS, ids=[p.name for p in APPS])

@@ -1,6 +1,7 @@
 """Rules of the PyTorch port, checked statically and at its entry points:
 the package and chip_smoke.py import neither JAX nor the JAX package nor
-aiohttp, cryptography, PyYAML, click or bs4;
+aiohttp, cryptography, PyYAML, click or bs4, and only the gRPC agent runtime
+imports grpc and protobuf;
 asking for CUDA where there is none raises instead of running on the CPU;
 and the completions service streams text through the port's engine."""
 
@@ -104,6 +105,14 @@ def test_port_files_exist():
         "langstream_tpu_torch/agents/storage/__init__.py",
         "langstream_tpu_torch/agents/flow/__init__.py",
         "langstream_tpu_torch/agents/http/__init__.py",
+        "langstream_tpu_torch/api/avro.py",
+        "langstream_tpu_torch/grpc_runtime/__init__.py",
+        "langstream_tpu_torch/grpc_runtime/__main__.py",
+        "langstream_tpu_torch/grpc_runtime/agent_pb2.py",
+        "langstream_tpu_torch/grpc_runtime/convert.py",
+        "langstream_tpu_torch/grpc_runtime/service.py",
+        "langstream_tpu_torch/grpc_runtime/bridge.py",
+        "langstream_tpu_torch/agents/python_agents.py",
         "chip_smoke.py",
     ):
         assert mod in rel
@@ -162,6 +171,19 @@ def test_no_bs4(path):
     and the crawler's links alike."""
     for name in imported_modules(path):
         assert name.split(".")[0] != "bs4", f"{path.name} imports {name}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_grpc_only_in_the_agent_runtime(path):
+    """``grpc`` and ``google.protobuf`` are imported only by the gRPC agent
+    runtime (``grpc_runtime/``) and the python agent types that register
+    it: every other module of the port imports without them."""
+    rel = path.relative_to(ROOT).as_posix()
+    allowed = rel.startswith("langstream_tpu_torch/grpc_runtime/") or (
+        rel == "langstream_tpu_torch/agents/python_agents.py")
+    for name in imported_modules(path):
+        if name.split(".")[0] == "grpc" or name.startswith("google.protobuf"):
+            assert allowed, f"{rel} imports {name}"
 
 
 def test_no_cuda_raises(monkeypatch, tmp_path):

@@ -373,3 +373,27 @@ def test_remote_provider_types_build_as_jax(tmp_path, rtype, config):
     assert provider.get_embeddings_service({}) is not None
     asyncio.run(treg.close())
     asyncio.run(jreg.close())
+
+
+PYTHON_TYPES = ["python-source", "python-processor", "python-sink", "python-service",
+                "experimental-python-source", "experimental-python-processor",
+                "experimental-python-sink", "experimental-python-service", "python-function"]
+
+
+@pytest.mark.parametrize("type_", PYTHON_TYPES)
+def test_python_agent_types_resolve_as_jax(type_):
+    """The nine ``python-*`` types resolve in the port's registry to the
+    port's gRPC bridge with JAX's component type, description and config
+    model (``className`` required, ``pythonPath``, unknown keys allowed)."""
+    from langstream_tpu.core.registry import REGISTRY as JAX_REGISTRY
+    from langstream_tpu_torch.core.registry import REGISTRY
+
+    jax_info, info = JAX_REGISTRY.agent(type_), REGISTRY.agent(type_)
+    assert info.type == jax_info.type and info.aliases == jax_info.aliases
+    assert info.component_type.value == jax_info.component_type.value
+    assert info.description == jax_info.description
+    assert info.composable == jax_info.composable
+    assert dataclasses.asdict(info.config_model) == dataclasses.asdict(jax_info.config_model)
+    assert info.factory.__module__ == "langstream_tpu_torch.grpc_runtime.bridge"
+    assert info.factory.__name__ == jax_info.factory.__name__
+    assert info.factory().component_type().value == info.component_type.value
