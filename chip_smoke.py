@@ -126,7 +126,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    page must leave a warm suffix's logits bit-equal; the warm admission
    is timed (device and host) beside a cold 1024-token prefill.
 10. ``spec``    — self-speculative decoding: llama-3-8b at full width and
-   depth, bf16, paged, page 64, max_seq_len 2048, max-batch 8, k 4. 8
+   8 of its 32 layers (``SHALLOW_LAYERS``), bf16, paged, page 64, max_seq_len 2048, max-batch 8, k 4. 8
    requests of 400 byte tokens — 4 built to repeat (a 24-byte span cycled)
    and 4 plain — 64 new tokens each, greedy, served with speculation on
    (every decode iteration one verify: one graph replay, its attention the
@@ -387,7 +387,7 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    weights, each request served alone: tokens bit-equal; each decode
    step's device ms (back-to-back replays).
 19. ``ring``    — ring prefill over the seq axis at llama-3-8b's full
-   width and depth (bf16, random weights from ``--seed``). Two seq ranks
+   width and 8 of its 32 layers (``SHALLOW_LAYERS``; bf16, random weights from ``--seed``). Two seq ranks
    cannot share one card under NCCL, so the ring runs as an in-process
    loopback pair (``spmd_serving.LoopbackRing``, two threads). (a)
    ``ring_prefill`` of a 7001-token prompt padded to 8192 over the pair
@@ -566,7 +566,31 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    this one. It prints each child's spawn to banner, the round trips, the
    burst's answer tokens/s, each request's engine TTFT and the phase's
    seconds, each with the card's name and power limit.
-26. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+26. ``control`` — the control plane on the card: ``ControlPlaneServer``
+   (``webservice/``) over ``make_local_service`` on a disk root under
+   ``build/control/``, a gateway serving the runner its runtime manager
+   holds, and the port's ``AdminClient``. The ``app`` phase's
+   tpu-completions copy (its step asking 64 new tokens, its resource's seed
+   read from the instance) is deployed over HTTP (a multipart zip and an
+   instance; llama-3-8b at full width and depth, bf16, random weights), 8
+   chat websockets ask the ``e2e`` lengths, ``apps get`` and ``apps list``
+   report it; two ``apps logs -f`` streams (one ``--filter`` to the chat
+   step's replica) must see a runner task's line tagged with its replica,
+   an engine build or capture line tagged ``app`` and no seq twice, and
+   end at the update. The update (``PATCH``, the instance's seed changed)
+   must stop the old engine's thread and release its tree before the new
+   one draws (the peak over the update and round 2 at most round 1's + 1
+   GiB), leave one engine serving, and answer at least one question
+   differently; the delete must bring allocated memory within 64 MiB of
+   the baseline before the deploy, answer ``apps get`` with 404 and end
+   the log stream. In each round every answer is the text of its
+   request's tokens and the launches are exact (prefill layers x admit
+   groups, paged decode layers x decode steps, replays = chunks). It
+   prints each round's client TTFTs, answer tokens/s, deploy (update) to
+   first token and the served decode step's wall with the log hub and
+   without, each HTTP call's seconds, the memory readings and the phase's
+   seconds, with the card's name and power limit.
+27. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
    and int8 page pools and the bf16 dense cache (8192 wide), traced with
    torch.profiler: the device's busy share of the wall and the top
    kernels (no split-K decode kernel may appear).
@@ -604,8 +628,8 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
           "prefix", "spec", "tenancy", "agentic", "embed", "dense_tiers", "tiered", "fleet",
           "fleet_http", "spmd", "ring", "load", "moe", "app", "rag", "remote", "python",
-          "profile")
-DEFAULT_PHASES = PHASES[:25]
+          "control", "profile")
+DEFAULT_PHASES = PHASES[:26]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -1982,9 +2006,10 @@ def _llama_params(ctx):
     return ctx["params"]
 
 
-# the depth two phases whose checks do not depend on it run at (since the
-# ring phase joined the default run): replay against direct call and the
-# lifecycle drills (``graphs``), the SPMD loopback pair (``spmd`` (a))
+# the depth the phases whose checks do not depend on it run at, to keep
+# the default run inside its limit: replay against direct call and the
+# lifecycle drills (``graphs``), the SPMD loopback pair (``spmd`` (a)),
+# ``tenancy``, ``agentic``, ``dense_tiers``, ``fleet``, ``spec`` and ``ring``
 SHALLOW_LAYERS = 8
 
 
@@ -2078,7 +2103,7 @@ def phase_dense(ctx: dict) -> None:
     run = _serve(ctx, cfg, params, [], 32, prompts=prompts, **DENSE_KW)
     # the segment loop's tokens and TTFT: the ring phase's reference
     ctx["dense_reference"] = {"prompts": prompts, "new": 32, "_tokens": run.pop("_tokens"),
-                              "ttft_s": run["ttft_s"]}
+                              "ttft_s": run["ttft_s"], "layers": cfg.n_layers}
     _require_launches(run, "flash_prefill", "admit_groups", cfg.n_layers)
     _require_launches(run, "flash_segment", "segments", cfg.n_layers)
     _require_launches(run, "dense_decode", "decode_steps", cfg.n_layers)
@@ -2098,7 +2123,7 @@ def phase_dense_int8(ctx: dict) -> None:
     prompts = [ByteTokenizer().encode(p) for p in _prompts(DENSE_INT8_BYTES, ctx["seed"])]
     run = _serve(ctx, cfg, params, [], 16, prompts=prompts, **DENSE_KW)
     ctx["dense_int8_reference"] = {"prompts": prompts, "new": 16, "_tokens": run.pop("_tokens"),
-                                   "ttft_s": run["ttft_s"]}
+                                   "ttft_s": run["ttft_s"], "layers": cfg.n_layers}
     _require_launches(run, "flash_segment_int8", "segments", cfg.n_layers)
     _require_launches(run, "dense_decode_int8", "decode_steps", cfg.n_layers)
     log(f"dense llama-3-8b int8-kv {json.dumps(run)}")
@@ -3101,15 +3126,14 @@ def _verify_reference_check(ctx, cfg, params, prompts) -> dict:
 
 
 def phase_spec(ctx: dict) -> None:
-    """Self-speculative decoding at llama-3-8b's full width and depth (bf16,
-    paged, page 64, max-batch 8, k 4): the 8 requests with speculation on
+    """Self-speculative decoding at llama-3-8b's full width and
+    ``SHALLOW_LAYERS`` of its layers (bf16, paged, page 64, max-batch 8, k 4): the 8 requests with speculation on
     and then off (fresh engines, a fresh sink), their steady replays, the
     agreement of their greedy tokens; then the replay, reference and
     planted-NaN checks of the verify."""
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
 
-    cfg = MODEL_PRESETS["llama-3-8b"]
-    params = _llama_params(ctx)
+    cfg, params = _shallow(MODEL_PRESETS["llama-3-8b"], _llama_params(ctx))
     prompts = _spec_prompts(ctx["seed"])
     on = _serve(ctx, cfg, params, [], SPEC_NEW, prompts=prompts, steady=True,
                 speculation="auto", **SPEC_KW)
@@ -7028,6 +7052,414 @@ def phase_python(ctx: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# the control phase: the tpu-completions app deployed, updated and deleted
+# through the control plane's REST API (webservice/) while it serves
+CONTROL_NEW = 64  # the copied step's max-tokens
+CONTROL_SEEDS = (0, 1)  # added to this run's seed: the deploy's and the update's trees
+CONTROL_PEAK_SLACK = 1 << 30  # the update's peak over round 1's
+CONTROL_BASE_SLACK = 64 << 20  # memory after the delete over the baseline
+CONTROL_FOLLOW_S = 120.0
+
+
+def _control_copy(ctx) -> tuple[Path, Path, Path]:
+    """``build/control/``: ``_app_copy``'s tpu-completions with its step
+    asking ``max-tokens`` 64 and its resource's seed read from the
+    instance's globals, and two instances: the deploy's and the update's
+    (another seed)."""
+    import shutil
+
+    src, _ = _app_copy(ctx)
+    dst = ROOT / "build" / "control"
+    shutil.rmtree(dst, ignore_errors=True)
+    app = dst / "tpu-completions"
+    shutil.copytree(src, app)
+    conf = app / "configuration.yaml"
+    seed_line = f"        seed: {ctx['seed']}\n"
+    text = conf.read_text()
+    if seed_line not in text:
+        raise AssertionError("control: _app_copy's configuration changed; update _control_copy")
+    conf.write_text(text.replace(seed_line, '        seed: "${globals.serving-seed}"\n'))
+    pipe = app / "pipeline.yaml"
+    text = pipe.read_text()
+    if "      max-new-tokens: 64\n" not in text:
+        raise AssertionError("control: the example's pipeline.yaml changed; update _control_copy")
+    pipe.write_text(text.replace("      max-new-tokens: 64\n",
+                                 f"      max-new-tokens: 64\n      max-tokens: {CONTROL_NEW}\n"))
+    instances = []
+    for i, add in enumerate(CONTROL_SEEDS):
+        inst = dst / f"instance-{i}.yaml"
+        inst.write_text("instance:\n  streamingCluster:\n    type: memory\n  computeCluster:\n"
+                        "    type: local\n  globals:\n    serving-model: llama-3-8b\n"
+                        f"    serving-seed: {ctx['seed'] + add}\n")
+        instances.append(inst)
+    return app, instances[0], instances[1]
+
+
+class _ManagedApps:
+    """The gateway's application provider over the control plane's runtime
+    manager: each connection takes the runner the manager holds then (after
+    an update, the new one; ``run local`` keeps the first deploy's)."""
+
+    def __init__(self, runtime) -> None:
+        self.runtime = runtime
+
+    async def get_application(self, tenant: str, application_id: str):
+        from langstream_tpu_torch.gateway.server import GatewayApplication
+
+        runner = self.runtime.get_runner(tenant, application_id)
+        if runner is None:
+            raise KeyError(f"application {tenant}/{application_id} not found")
+        return GatewayApplication(runner.application, runner.topic_runtime)
+
+    def agent_service_uri(self, tenant: str, application_id: str, agent_id: str):
+        return None
+
+
+class _Follower:
+    """``AdminClient.follow_logs`` read on a thread until its stream ends."""
+
+    def __init__(self, url: str, replica: str = "") -> None:
+        from langstream_tpu_torch.cli.client import AdminClient
+
+        self.entries: list = []
+        self.error: list = []
+        self._gen = AdminClient(url).follow_logs(APP_NAME, replica)
+        self._thread = threading.Thread(target=self._read, daemon=True)
+        self._thread.start()
+
+    def _read(self) -> None:
+        try:
+            for entry in self._gen:
+                self.entries.append(entry)
+        except Exception as e:  # noqa: BLE001 — reported by ended()
+            self.error.append(repr(e))
+
+    def ended(self, timeout: float) -> bool:
+        self._thread.join(timeout)
+        return not self._thread.is_alive()
+
+
+def _settled_bytes(torch) -> int:
+    """Allocated bytes once garbage is collected and the cuBLAS workspaces
+    are dropped: cuBLAS keeps one a (handle, stream) for the process, and a
+    new engine's streams add theirs (PyTorch's own leak check clears them
+    before it reads, as here)."""
+    import gc
+
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _live_blocks(torch, top: int = 8) -> list:
+    """The sizes of the largest blocks still allocated, largest first."""
+    sizes = [b["size"] for seg in torch.cuda.memory_snapshot() for b in seg["blocks"]
+             if b["state"] == "active_allocated"]
+    return sorted(sizes, reverse=True)[:top]
+
+
+def _served_step_ms(engine) -> float:
+    """The mean wall of the served decode steps since the histograms were
+    last reset (``engine_decode_step_s``)."""
+    h = engine.stats()["histograms"]["engine_decode_step_s"]
+    return h["sum"] / max(h["count"], 1) * 1000.0
+
+
+async def _control_round(ctx, runtime, gateway, questions, label: str, t_ref: float) -> dict:
+    """One deploy's serving: the provider's engine built (drawn and
+    captured) off the loop, then the 8 questions over chat websockets, the
+    launches exact, every answer the text of its request's tokens; then
+    the same questions sent straight to the provider with the log hub
+    attached and detached (the decode step's wall each way)."""
+    import asyncio
+
+    import torch
+
+    from langstream_tpu_torch.ai.provider import ChatMessage
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+    from langstream_tpu_torch.runtime.log_stream import install_hub, remove_hub
+
+    runner = runtime.get_runner("default", APP_NAME)
+    svc = runner._service_registry.get_provider().holder
+    loop = asyncio.get_running_loop()
+    t0 = time.monotonic()
+    engine = await loop.run_in_executor(None, svc.engine)  # draws, builds, captures
+    engine_s = time.monotonic() - t0
+    cfg = svc.model_config
+    taps: list = []
+    submit = engine.submit
+
+    def tapped(request):
+        future = submit(request)
+        taps.append((request, future))
+        return future
+
+    engine.submit = tapped
+    prompts = [svc.tokenizer.encode(svc._render_prompt([ChatMessage("user", q)]))
+               for q in questions]
+    problems: list = []
+    try:
+        torch.cuda.synchronize()
+        before = engine.stats()
+        reset_kernel_counts()
+        t_run = time.monotonic()
+        chats = await asyncio.gather(*(
+            _app_chat(gateway.ws_url, f"{label}{i}", q) for i, q in enumerate(questions)))
+        wall = time.monotonic() - t_run
+        counts = kernel_counts()
+        after = engine.stats()
+        served = {tuple(r.prompt_tokens): f.result(timeout=60) for r, f in taps}
+        taps.clear()
+        launch = _launch_check(cfg, counts, before, after, problems)
+        tokens = []
+        for i, (chat, prompt) in enumerate(zip(chats, prompts)):
+            result = served.get(tuple(prompt))
+            if result is None:
+                problems.append(f"{label}{i}: its prompt never reached the engine")
+                continue
+            if result.finish_reason not in ("length", "stop") or result.error is not None:
+                problems.append(f"{label}{i} ended {result.finish_reason}: {result.error}")
+            if chat["text"] != svc.tokenizer.decode(result.tokens):
+                problems.append(f"{label}{i}: the chunks are not the text of its tokens")
+            tokens.append(result.tokens)
+        # the decode step's wall with the app's log hub attached, then without
+        step_ms = {}
+        for hub in ("on", "off"):
+            if hub == "off":
+                remove_hub(runner._log_handler)
+            try:
+                engine.reset_histograms()
+                await asyncio.gather(*(
+                    svc.get_chat_completions([ChatMessage("user", q)],
+                                             {"max-tokens": CONTROL_NEW}) for q in questions))
+                step_ms[hub] = _served_step_ms(engine)
+            finally:
+                if hub == "off":
+                    runner._log_handler = install_hub(runner.log_hub)
+        taps.clear()
+    finally:
+        del engine.submit  # the class's method again
+    first_at = min(c["sent_at"] + c["ttft_s"] for c in chats)
+    n_tokens = sum(len(t) for t in tokens)
+    return {
+        "problems": problems,
+        "tokens": tokens,
+        "replica_tags": [f"{r.node.id}-{r.replica}" for r in runner.runners],
+        "engine_thread": engine._thread,
+        "run": {
+            "engine_build_s": engine_s,
+            "client_ttft_s": [c["ttft_s"] for c in chats],
+            "answer_tokens": [len(t) for t in tokens],
+            "wall_s": wall,
+            "answer_tokens_per_s": n_tokens / wall,
+            "to_first_token_s": first_at - t_ref,
+            "decode_step_ms_hub_on": step_ms["on"],
+            "decode_step_ms_hub_off": step_ms["off"],
+            **{k: launch[k] for k in ("layers", "admit_groups", "decode_steps",
+                                      "decode_chunks", "graph_replays", "kernel_launches")},
+        },
+    }
+
+
+def _log_problems(label: str, follower: _Follower, tags: list, problems: list) -> dict:
+    entries = follower.entries
+    seqs = [e["seq"] for e in entries]
+    runner_lines = [e for e in entries if e["replica"] in tags and "completion" in e["message"]]
+    ambient = [e for e in entries if e["replica"] == "app" and (
+        "serving memory plan" in e["message"] or "captured" in e["message"])]
+    if follower.error:
+        problems.append(f"{label} logs: the follow failed: {follower.error}")
+    if not runner_lines:
+        problems.append(f"{label} logs: no line of a runner task tagged {tags}")
+    if not ambient:
+        problems.append(f"{label} logs: no ambient engine build / capture line tagged app")
+    if len(set(seqs)) != len(seqs):
+        problems.append(f"{label} logs: duplicate seq")
+    return {"lines": len(entries), "runner_lines": len(runner_lines),
+            "ambient_engine_lines": len(ambient)}
+
+
+async def _control_run(ctx, app_dir: Path, instances: tuple, questions: list) -> dict:
+    import asyncio
+    import gc
+    import shutil
+    import weakref
+
+    import torch
+
+    from langstream_tpu_torch.cli.client import AdminClient, AdminClientError
+    from langstream_tpu_torch.gateway.server import GatewayServer
+    from langstream_tpu_torch.webservice.server import ControlPlaneServer
+    from langstream_tpu_torch.webservice.service import make_local_service
+
+    root = ROOT / "build" / "control" / "root"
+    shutil.rmtree(root, ignore_errors=True)
+    applications, tenants, runtime = make_local_service(str(root))
+    server = ControlPlaneServer(applications, tenants, port=0)
+    await server.start()
+    gateway = GatewayServer(_ManagedApps(runtime), port=0)
+    await gateway.start()
+    client = AdminClient(server.url)
+    loop = asyncio.get_running_loop()
+    problems: list = []
+    out: dict = {"memory": {}}
+    mem = out["memory"]
+    try:
+        mem["baseline_bytes"] = _settled_bytes(torch)
+        torch.cuda.reset_peak_memory_stats()
+        # 1. deploy over HTTP (a multipart zip with its instance)
+        t_deploy = time.monotonic()
+        body = await loop.run_in_executor(None, client.deploy, APP_NAME, app_dir, instances[0])
+        out["deploy_http_s"] = time.monotonic() - t_deploy
+        if body.get("application-id") != APP_NAME or not body.get("code-archive-id"):
+            problems.append(f"deploy answered {body}")
+        follow1 = _Follower(server.url)
+        r1 = await _control_round(ctx, runtime, gateway, questions, "d", t_deploy)
+        problems += [f"round 1: {p}" for p in r1["problems"]]
+        mem["round1_peak_bytes"] = torch.cuda.max_memory_allocated()
+        tags = r1["replica_tags"]
+        narrow = _Follower(server.url, replica=tags[0])
+        described = await loop.run_in_executor(None, client.get, APP_NAME)
+        listed = await loop.run_in_executor(None, client.list)
+        if described.get("status", {}).get("status") != "DEPLOYED":
+            problems.append(f"apps get: {json.dumps(described)[:300]}")
+        if [a["application-id"] for a in listed] != [APP_NAME]:
+            problems.append(f"apps list: {listed}")
+        old_engine = weakref.ref(runtime.get_runner("default", APP_NAME)._service_registry
+                                 .get_provider().holder._engine)
+        old_thread = r1.pop("engine_thread")
+        # 4. update: the same zip, another seed in the instance
+        torch.cuda.reset_peak_memory_stats()
+        t_update = time.monotonic()
+        body = await loop.run_in_executor(
+            None, lambda: client.deploy(APP_NAME, app_dir, instances[1], update=True))
+        out["update_http_s"] = time.monotonic() - t_update
+        if not follow1.ended(CONTROL_FOLLOW_S) or not narrow.ended(CONTROL_FOLLOW_S):
+            problems.append("the old run's log streams did not end at the update")
+        out["logs"] = _log_problems("round 1", follow1, tags, problems)
+        wrong = [e for e in narrow.entries if e["replica"] != tags[0]]
+        if wrong or not narrow.entries:
+            problems.append(f"--filter={tags[0]}: {len(narrow.entries)} lines, "
+                            f"{len(wrong)} of another replica")
+        out["logs"]["filtered_lines"] = len(narrow.entries)
+        if old_thread.is_alive():
+            problems.append("the old engine's thread still runs after the update")
+        if old_engine() is not None:
+            problems.append("the old engine is still referenced after the update")
+        follow2 = _Follower(server.url)
+        r2 = await _control_round(ctx, runtime, gateway, questions, "u", t_update)
+        problems += [f"round 2: {p}" for p in r2["problems"]]
+        mem["update_peak_bytes"] = torch.cuda.max_memory_allocated()
+        engines = [t for t in threading.enumerate() if t.name == "serving-engine"]
+        if len(engines) != 1:
+            problems.append(f"{len(engines)} engine threads serve after the update")
+        if r1["tokens"] == r2["tokens"]:
+            problems.append("every answer of the updated app equals round 1's: the old tree "
+                            "served")
+        if mem["update_peak_bytes"] > mem["round1_peak_bytes"] + CONTROL_PEAK_SLACK:
+            problems.append(f"the update peaked at {mem['update_peak_bytes']} bytes, over round "
+                            f"1's {mem['round1_peak_bytes']} + 1 GiB")
+        r2.pop("engine_thread")
+        # 5. delete
+        t0 = time.monotonic()
+        body = await loop.run_in_executor(None, client.delete, APP_NAME)
+        out["delete_http_s"] = time.monotonic() - t0
+        if body != {"deleted": APP_NAME}:
+            problems.append(f"delete answered {body}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem["after_delete_with_workspaces_bytes"] = torch.cuda.memory_allocated()
+        mem["after_delete_bytes"] = _settled_bytes(torch)
+        out["live_blocks_after_delete"] = _live_blocks(torch)
+        if abs(mem["after_delete_bytes"] - mem["baseline_bytes"]) > CONTROL_BASE_SLACK:
+            problems.append(f"{mem['after_delete_bytes']} bytes allocated after the delete, "
+                            f"{mem['baseline_bytes']} before the deploy (live blocks "
+                            f"{out['live_blocks_after_delete']})")
+        try:
+            await loop.run_in_executor(None, client.get, APP_NAME)
+            problems.append("apps get still answers after the delete")
+        except AdminClientError as e:
+            if e.status != 404:
+                problems.append(f"apps get after the delete: {e}")
+        if not follow2.ended(CONTROL_FOLLOW_S):
+            problems.append("the log stream did not end at the delete")
+        out["logs_round2"] = _log_problems("round 2", follow2, r2["replica_tags"], problems)
+        out["round1"], out["round2"] = r1["run"], r2["run"]
+        out["answers_differing"] = sum(a != b for a, b in zip(r1["tokens"], r2["tokens"]))
+    finally:
+        await gateway.stop()
+        await runtime.close()
+        await server.stop()
+    if problems:
+        raise AssertionError("control: " + "; ".join(problems) + f" ({json.dumps(out)[:2000]})")
+    return out
+
+
+def phase_control(ctx: dict) -> None:
+    """The tpu-completions app deployed, chatted with, followed, updated
+    and deleted through the control plane (module docstring, phase 26)."""
+    import asyncio
+    import gc
+
+    import torch
+
+    from langstream_tpu_torch.messaging.memory import MemoryBroker
+
+    ctx.pop("params", None)  # each deploy's provider draws its own tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.monotonic()
+    app_dir, first, second = _control_copy(ctx)
+    MemoryBroker.reset()  # an empty broker, as a new control plane process starts
+    run = asyncio.run(_control_run(ctx, app_dir, (first, second),
+                                   _prompts(APP_BYTES, ctx["seed"])))
+    run["phase_s"] = time.monotonic() - t_phase
+    card = smi_line()
+    gib = 1 << 30
+    m = run["memory"]
+    for label in ("round1", "round2"):
+        r = run[label]
+        log(f"control {label}: client ttft ms "
+            f"{[round(s * 1000.0, 1) for s in r['client_ttft_s']]}, {sum(r['answer_tokens'])} "
+            f"answer tokens in {r['wall_s']:.3f} s = {r['answer_tokens_per_s']:.1f} tokens/s; "
+            f"engine draw + capture {r['engine_build_s']:.2f} s; "
+            f"{'deploy' if label == 'round1' else 'update'} to first token "
+            f"{r['to_first_token_s']:.2f} s; decode step wall {r['decode_step_ms_hub_on']:.3f} ms "
+            f"with the log hub, {r['decode_step_ms_hub_off']:.3f} ms without; launches "
+            f"{json.dumps({k: n for k, n in r['kernel_launches'].items() if n})} = "
+            f"{r['layers']} x {r['admit_groups']} admit groups, {r['layers']} x "
+            f"{r['decode_steps']} decode steps; "
+            f"{r['graph_replays']} replays = {r['decode_chunks']} chunks [{card}]")
+    log(f"control http: deploy {run['deploy_http_s']:.3f} s, update {run['update_http_s']:.3f} "
+        f"s, delete {run['delete_http_s']:.3f} s [{card}]")
+    log(f"control memory: baseline {m['baseline_bytes'] / gib:.3f} GiB, round 1 peak "
+        f"{m['round1_peak_bytes'] / gib:.3f} GiB, update + round 2 peak "
+        f"{m['update_peak_bytes'] / gib:.3f} GiB, after the delete "
+        f"{m['after_delete_with_workspaces_bytes']} bytes with the cuBLAS workspaces, "
+        f"{m['after_delete_bytes']} without (baseline {m['baseline_bytes']}; largest live "
+        f"blocks {run['live_blocks_after_delete']}) [{card}]")
+    log(f"control logs: {json.dumps(run['logs'])}, after the update "
+        f"{json.dumps(run['logs_round2'])}; {run['answers_differing']} of {len(APP_BYTES)} "
+        "answers differ after the update")
+    log(f"control phase: {run['phase_s']:.1f} s [{card}]")
+    log(f"control tpu-completions llama-3-8b {json.dumps(run)}")
+    ctx["control"] = {**run, "kernel_launches": {
+        k: run["round1"]["kernel_launches"][k] + run["round2"]["kernel_launches"][k]
+        for k in run["round1"]["kernel_launches"]}}
+    ctx.setdefault("summaries", []).append(("control", {
+        "deploy_http_s": run["deploy_http_s"], "update_http_s": run["update_http_s"],
+        "deploy_to_first_token_s": run["round1"]["to_first_token_s"],
+        "update_to_first_token_s": run["round2"]["to_first_token_s"],
+        "tokens_per_s": [run["round1"]["answer_tokens_per_s"],
+                         run["round2"]["answer_tokens_per_s"]],
+        "decode_step_ms_hub_on_off": [run["round1"]["decode_step_ms_hub_on"],
+                                      run["round1"]["decode_step_ms_hub_off"]],
+        "memory_gib": {k: v / gib for k, v in m.items()}, "phase_s": run["phase_s"]}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _replay_rate(torch, engine, chunks: int = 4) -> dict:
     """Back-to-back replays of the greedy chunk (with speculation: the
     greedy verify) on a burst's engine (its slots idle by then): the card's
@@ -9424,22 +9856,23 @@ def _ring_pair(ctx, cfg, params, prompts, new_tokens: int) -> dict:
 def _ring_reference(ctx, cfg, params, prompts, new_tokens: int, key: str) -> dict:
     """A single engine's segment loop over ``prompts`` (dense, 8192) → their
     tokens and TTFT: from the ``dense`` / ``dense_int8`` phase's run
-    (``key``) when it served them in this process, else served here. A
-    request's tokens do not depend on the other rows of its batch (decode
-    runs all max_batch rows whatever is active; a long prompt prefills
-    alone)."""
+    (``key``) when it served them in this process at ``cfg``'s depth, else
+    served here. A request's tokens do not depend on the other rows of its
+    batch (decode runs all max_batch rows whatever is active; a long prompt
+    prefills alone)."""
     ref = ctx.get(key)
-    if ref is None or ref["new"] != new_tokens or any(p not in ref["prompts"] for p in prompts):
+    if (ref is None or ref["new"] != new_tokens or ref["layers"] != cfg.n_layers
+            or any(p not in ref["prompts"] for p in prompts)):
         run = _serve(ctx, cfg, params, [], new_tokens, prompts=prompts, **DENSE_KW)
         ref = ctx[key] = {"prompts": prompts, "new": new_tokens, "_tokens": run["_tokens"],
-                          "ttft_s": run["ttft_s"]}
+                          "ttft_s": run["ttft_s"], "layers": cfg.n_layers}
     at = [ref["prompts"].index(p) for p in prompts]
     return {"_tokens": [ref["_tokens"][i] for i in at], "ttft_s": [ref["ttft_s"][i] for i in at]}
 
 
 def phase_ring(ctx: dict) -> None:
-    """Ring prefill over the seq axis at llama-3-8b's full width and depth
-    (bf16, random weights from ``--seed``): (a) ``ring_prefill`` over a
+    """Ring prefill over the seq axis at llama-3-8b's full width and
+    ``SHALLOW_LAYERS`` of its layers (bf16, random weights from ``--seed``): (a) ``ring_prefill`` over a
     loopback pair against the segment loop; (b) the {seq: 2} loopback
     pair of engines serving the ``dense`` phase's traffic against a single
     engine's segment loop, then an int8 dense cache with a 3001-token
@@ -9451,8 +9884,7 @@ def phase_ring(ctx: dict) -> None:
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
     from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
 
-    cfg = MODEL_PRESETS["llama-3-8b"]
-    params = _llama_params(ctx)
+    cfg, params = _shallow(MODEL_PRESETS["llama-3-8b"], _llama_params(ctx))
     smi = smi_line()
     t = time.monotonic()
     pre = _ring_prefill_check(ctx, cfg, params)
@@ -9525,7 +9957,7 @@ def kernel_record(ctx: dict) -> dict:
     served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "prefix",
               "spec", "agentic", "dense_spec", "dense_prefix", "dense_prefix_int8", "tiered",
               "fleet", "fleet_http", "spmd", "spmd_leader", "spmd_follower", "ring", "ring_int8",
-              "load", "moe", "app", "rag", "remote", "python")
+              "load", "moe", "app", "rag", "remote", "python", "control")
     out = []
     for name, (src, replaces, path) in sources.items():
         runs = ctx.get("kernel_runs", {}).get(name)

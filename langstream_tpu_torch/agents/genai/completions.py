@@ -12,6 +12,7 @@ its TTFT), final answer into `completion-field`, request metadata into
 from __future__ import annotations
 
 import json
+import logging
 from typing import Any, Optional
 
 from langstream_tpu_torch.agents.genai import el
@@ -19,6 +20,8 @@ from langstream_tpu_torch.agents.genai.mutable import MutableRecord
 from langstream_tpu_torch.agents.genai.steps import Step
 from langstream_tpu_torch.ai.provider import ChatChunk, ChatMessage
 from langstream_tpu_torch.tracing import TRACE_HEADER, TRACER
+
+log = logging.getLogger(__name__)
 
 
 def _set_result_field(record: MutableRecord, field: Optional[str], content: str) -> None:
@@ -735,6 +738,11 @@ class _BaseCompletionsStep(Step):
             _set_result_field(record, self.completion_field, "")
             return
         self._record_metrics(result)
+        # one line a request, on the runner task (a follower of the app's
+        # logs sees it tagged with this agent's replica)
+        log.info("completion %s: %d prompt + %d completion tokens, %s",
+                 session_id or "-", result.prompt_tokens, result.completion_tokens,
+                 result.finish_reason)
         if chunk_futures:
             # all chunks reach the stream topic before the final record commits
             await asyncio.gather(*(asyncio.wrap_future(f) for f in chunk_futures))

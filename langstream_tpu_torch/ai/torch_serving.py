@@ -937,10 +937,14 @@ class TorchCompletionsService(CompletionsService):
         """``begin_drain()``, then stop: what is still running fails with
         the stop. Under SPMD the stop announces OP_STOP; every follower
         process is then waited for (``follower_exit_codes``,
-        ``follower_exit_lines``) and the process group left."""
+        ``follower_exit_lines``) and the process group left. The weight
+        tree is released with the engine: a control plane's update frees
+        the old tree before the new provider draws its own (a later
+        ``params()`` loads it again)."""
         self.begin_drain()
         with self._lock:
             engine, self._engine = self._engine, None
+            self._params, self._weight_load_report = None, None
         if engine is not None:
             engine.stop()
         if self._followers:

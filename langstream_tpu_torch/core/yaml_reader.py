@@ -755,3 +755,92 @@ def safe_load(text: str) -> Any:
     """The value of a one-document YAML text, as ``yaml.safe_load`` reads
     it; ``YamlError`` (with its ``line``) for anything outside the subset."""
     return _Reader(text).document()
+
+
+# characters a double-quoted scalar may hold as they are: YAML's printable
+# set minus the line breaks it would fold (NEL, LS, PS) and the BOM
+_DUMP_ESCAPES = {"\0": "\\0", "\x07": "\\a", "\x08": "\\b", "\t": "\\t", "\n": "\\n",
+                 "\x0b": "\\v", "\x0c": "\\f", "\r": "\\r", "\x1b": "\\e", '"': '\\"',
+                 "\\": "\\\\", "\x85": "\\N", "\xa0": "\\_", "\u2028": "\\L", "\u2029": "\\P"}
+
+
+def _dump_char(c: str) -> str:
+    if c in _DUMP_ESCAPES:
+        return _DUMP_ESCAPES[c]
+    o = ord(c)
+    if 0x20 <= o < 0x7F or 0xA0 <= o <= 0xD7FF or (0xE000 <= o <= 0xFFFD and o != 0xFEFF) \
+            or o >= 0x10000:
+        return c
+    return f"\\x{o:02x}" if o <= 0xFF else f"\\u{o:04x}"
+
+
+def _dump_scalar(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if value != value:
+            return ".nan"
+        if value in (float("inf"), float("-inf")):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value)
+        # YAML 1.1 reads a float only with a dot: 1e-05 would be a string
+        if "." not in text and "e" in text:
+            text = text.replace("e", ".0e")
+        return text
+    if isinstance(value, datetime.datetime):
+        return value.isoformat(" ")
+    if isinstance(value, datetime.date):
+        return value.isoformat()
+    if isinstance(value, str):
+        return '"' + "".join(_dump_char(c) for c in value) + '"'
+    raise TypeError(f"safe_dump cannot write a {type(value).__name__}")
+
+
+def _dump_block(value: Any, indent: int, out: list[str]) -> None:
+    """``value`` (a non-empty map or list) as block lines at ``indent``."""
+    pad = " " * indent
+    if isinstance(value, dict):
+        for key in sorted(value, key=lambda k: (str(type(k)), k)):
+            item = value[key]
+            head = f"{pad}{_dump_scalar(key)}:"
+            if isinstance(item, (dict, list)) and item:
+                out.append(head)
+                _dump_block(item, indent + 2, out)
+            else:
+                out.append(f"{head} {_dump_inline(item)}")
+        return
+    for item in value:
+        if isinstance(item, (dict, list)) and item:
+            # the compact forms "- key: v" and "- - x": the item's first
+            # line goes after the dash, the rest at the dash's column + 2
+            inner: list[str] = []
+            _dump_block(item, indent + 2, inner)
+            out.append(f"{pad}- {inner[0][indent + 2:]}")
+            out.extend(inner[1:])
+        else:
+            out.append(f"{pad}- {_dump_inline(item)}")
+
+
+def _dump_inline(value: Any) -> str:
+    if isinstance(value, dict):
+        return "{}"
+    if isinstance(value, list):
+        return "[]"
+    return _dump_scalar(value)
+
+
+def safe_dump(value: Any) -> str:
+    """A YAML text that ``safe_load`` (and ``yaml.safe_load``) reads back as
+    ``value``: null, bools, ints, floats, strings (always double-quoted),
+    dates, and maps and lists of them in block style, map keys sorted as
+    ``yaml.safe_dump`` sorts them. The control plane writes an archetype
+    instance's globals with it."""
+    if isinstance(value, (dict, list)) and value:
+        lines: list[str] = []
+        _dump_block(value, 0, lines)
+        return "\n".join(lines) + "\n"
+    return _dump_inline(value) + "\n"

@@ -51,8 +51,7 @@ from langstream_tpu_torch.gateway.websocket import (
     Request,
     Response,
     WebSocket,
-    read_request,
-    write_response,
+    serve_connection,
 )
 from langstream_tpu_torch.serving.tenancy import (
     RETRY_AFTER_PROPERTY,
@@ -206,34 +205,7 @@ class GatewayServer:
 
     async def _connection(self, reader: asyncio.StreamReader,
                           writer: asyncio.StreamWriter) -> None:
-        task = asyncio.current_task()
-        assert task is not None
-        self._connections.add(task)
-        try:
-            while True:
-                try:
-                    request = await read_request(reader, writer)
-                except HttpError as e:
-                    await write_response(writer, Response.error(e), keep_alive=False)
-                    return
-                if request is None:
-                    return
-                response = await self._dispatch(request)
-                if response is None:  # the connection was a websocket
-                    return
-                await write_response(writer, response, request.keep_alive)
-                if not request.keep_alive:
-                    return
-        except (ConnectionError, asyncio.IncompleteReadError):
-            pass
-        except asyncio.CancelledError:
-            pass
-        finally:
-            self._connections.discard(task)
-            try:
-                writer.close()
-            except (ConnectionError, RuntimeError):
-                pass
+        await serve_connection(reader, writer, self._dispatch, self._connections)
 
     async def _dispatch(self, request: Request) -> Optional[Response]:
         path = urllib.parse.unquote(request.path)

@@ -2,7 +2,9 @@
 gateway (the card's machine has no aiohttp).
 
 Server side: ``read_request`` parses one request (``Content-Length`` or
-chunked body), ``write_response`` answers it, and ``WebSocket.accept``
+chunked body), ``write_response`` answers it, ``serve_connection`` runs a
+keep-alive connection's requests through a server's dispatch, and
+``WebSocket.accept``
 upgrades it (``Sec-WebSocket-Accept``) into a socket whose ``receive()``
 yields whole text or binary messages: client frames must be masked,
 fragments are joined across continuation frames (control frames may come
@@ -169,6 +171,41 @@ async def write_response(writer: asyncio.StreamWriter, response: Response,
     head += [f"{k}: {v}" for k, v in response.headers.items()]
     writer.write(("\r\n".join(head) + "\r\n\r\n").encode("latin-1") + response.body)
     await writer.drain()
+
+
+async def serve_connection(reader: asyncio.StreamReader, writer: asyncio.StreamWriter,
+                           dispatch, connections: set) -> None:
+    """One HTTP/1.1 connection of a server: its requests in turn, each
+    answered by ``await dispatch(request)`` — or taken over by it (a
+    websocket, a stream) when it returns None, which ends the connection.
+    The task is kept in ``connections`` while it serves, for the server's
+    stop to cancel."""
+    task = asyncio.current_task()
+    assert task is not None
+    connections.add(task)
+    try:
+        while True:
+            try:
+                request = await read_request(reader, writer)
+            except HttpError as e:
+                await write_response(writer, Response.error(e), keep_alive=False)
+                return
+            if request is None:
+                return
+            response = await dispatch(request)
+            if response is None:
+                return
+            await write_response(writer, response, request.keep_alive)
+            if not request.keep_alive:
+                return
+    except (ConnectionError, asyncio.IncompleteReadError, asyncio.CancelledError):
+        pass
+    finally:
+        connections.discard(task)
+        try:
+            writer.close()
+        except (ConnectionError, RuntimeError):
+            pass
 
 
 def accept_key(key: str) -> str:

@@ -1,6 +1,6 @@
 """LocalApplicationRunner: the whole platform in one process (the port's
-own copy of ``langstream_tpu/runtime/local_runner.py``; the log hub waits
-for the control plane).
+own copy of ``langstream_tpu/runtime/local_runner.py``, with its log hub:
+``runtime/log_stream.py``).
 
 Parity: reference `langstream-runtime-tester/LocalApplicationRunner.java:58,
 125,175` — in-memory store, same planner path as production, one runner task
@@ -48,6 +48,10 @@ class LocalApplicationRunner:
         self._topic_runtime = None
         self._service_registry = None
         self._failed: Optional[BaseException] = None
+        from langstream_tpu_torch.runtime.log_stream import LogHub
+
+        self.log_hub = LogHub(application_id)
+        self._log_handler = None
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -129,13 +133,25 @@ class LocalApplicationRunner:
             r.stop()
 
     async def start(self) -> None:
-        log.info("application %s starting", self.application_id)
+        from langstream_tpu_torch.runtime.log_stream import install_hub
+
+        self.log_hub.attach_loop(asyncio.get_running_loop())
+        self._log_handler = install_hub(self.log_hub)
+        self.log_hub.emit("app", "INFO", f"application {self.application_id} starting")
         for runner in self.runners:
             await runner.start()
         for runner in self.runners:
             self._tasks.append(asyncio.create_task(self._run_guarded(runner)))
 
     async def _run_guarded(self, runner: AgentRunner) -> None:
+        from langstream_tpu_torch.runtime.log_stream import current_app_replica
+
+        # tag this task's log records with (app, replica) — what makes the
+        # control plane's /logs?filter=<replica> work without OS-level pods,
+        # and what keeps one app's records out of another app's hub
+        current_app_replica.set(
+            (self.application_id, f"{runner.node.id}-{runner.replica}")
+        )
         try:
             await runner.run()
         except asyncio.CancelledError:
@@ -164,6 +180,12 @@ class LocalApplicationRunner:
         await asyncio.gather(*self._tasks, return_exceptions=True)
         for runner in self.runners:
             await runner.close()
+        if self._log_handler is not None:
+            from langstream_tpu_torch.runtime.log_stream import remove_hub
+
+            remove_hub(self._log_handler)
+            self._log_handler = None
+        self.log_hub.close()  # every follow stream of this run ends
         if self._service_registry is not None:
             await self._service_registry.close()
         if self._topic_runtime is not None:

@@ -1,7 +1,7 @@
 """Rules of the PyTorch port, checked statically and at its entry points:
 the package and chip_smoke.py import neither JAX nor the JAX package nor
-aiohttp, cryptography, PyYAML, click or bs4, and only the gRPC agent runtime
-imports grpc and protobuf;
+aiohttp, requests, cryptography, PyYAML, click, cgi or bs4, and only the
+gRPC agent runtime imports grpc and protobuf;
 asking for CUDA where there is none raises instead of running on the CPU;
 and the completions service streams text through the port's engine."""
 
@@ -113,9 +113,31 @@ def test_port_files_exist():
         "langstream_tpu_torch/grpc_runtime/service.py",
         "langstream_tpu_torch/grpc_runtime/bridge.py",
         "langstream_tpu_torch/agents/python_agents.py",
+        "langstream_tpu_torch/runtime/log_stream.py",
+        "langstream_tpu_torch/webservice/__init__.py",
+        "langstream_tpu_torch/webservice/stores.py",
+        "langstream_tpu_torch/webservice/service.py",
+        "langstream_tpu_torch/webservice/docs.py",
+        "langstream_tpu_torch/webservice/ui.py",
+        "langstream_tpu_torch/webservice/server.py",
+        "langstream_tpu_torch/cli/config.py",
+        "langstream_tpu_torch/cli/client.py",
+        "langstream_tpu_torch/cli/mermaid.py",
         "chip_smoke.py",
     ):
         assert mod in rel
+
+
+def test_chip_smoke_defines_each_name_once():
+    """``chip_smoke.py`` is one long module of phases: a helper defined a
+    second time replaces the first for every phase, and the phase that
+    called the first fails only on the card."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = [n.name for n in tree.body
+             if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))]
+    names += [t.id for n in tree.body if isinstance(n, ast.Assign)
+              for t in n.targets if isinstance(t, ast.Name)]
+    assert sorted({n for n in names if names.count(n) > 1}) == []
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -144,6 +166,16 @@ def test_no_aiohttp(path):
     ``http.client``, ``urllib``)."""
     for name in imported_modules(path):
         assert name.split(".")[0] != "aiohttp", f"{path.name} imports {name}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_requests(path):
+    """The card's machine has no requests: the admin client and every other
+    client of the port are on ``urllib`` / ``http.client``; and no module
+    takes ``cgi`` (deprecated in 3.12, gone in 3.13): the control plane
+    reads multipart forms itself."""
+    for name in imported_modules(path):
+        assert name.split(".")[0] not in ("requests", "cgi"), f"{path.name} imports {name}"
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -234,6 +266,34 @@ def test_no_cuda_raises_at_run_local(monkeypatch, app):
             ROOT / "examples" / "secrets" / "secrets.yaml",
             gateway_port=0, metrics_port=-1,
         ))
+    MemoryBroker.reset()
+
+
+@pytest.mark.parametrize("app", ["tpu-completions", "gateway-authentication"])
+def test_no_cuda_raises_at_a_control_plane_deploy(monkeypatch, app):
+    """A deploy through the control plane of an app whose ``tpu-serving``
+    resource names no device answers an error naming the card it does not
+    have, and leaves no runner behind."""
+    import json
+
+    from langstream_tpu_torch.cli.client import AdminClient
+    from langstream_tpu_torch.messaging.memory import MemoryBroker
+    from torch_control_plane import Plane, http
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from langstream_tpu_torch.cli.client import multipart_body
+
+    examples = ROOT / "examples"
+    body, ctype = multipart_body({
+        "app": ("app.zip", AdminClient.zip_app_dir(examples / "applications" / app), None),
+        "instance": ("i.yaml", (examples / "instances" / "local-memory.yaml").read_bytes(), None),
+        "secrets": ("s.yaml", (examples / "secrets" / "secrets.yaml").read_bytes(), None),
+    })
+    with Plane() as plane:
+        status, _, data = http("POST", f"{plane.url}/api/applications/default/{app}", body,
+                               {"Content-Type": ctype})
+        assert status == 500 and "CUDA is not available" in json.loads(data)["error"]
+        assert plane.runtime.get_runner("default", app) is None
     MemoryBroker.reset()
 
 
