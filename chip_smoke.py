@@ -590,7 +590,28 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    first token and the served decode step's wall with the log hub and
    without, each HTTP call's seconds, the memory readings and the phase's
    seconds, with the card's name and power limit.
-27. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+27. ``brokers`` — the ``app`` phase's tpu-completions traffic over each
+   broker's wire: ``streamingCluster.type`` ``kafka``, ``pulsar`` and
+   ``pravega`` in turn, each against the port's own fake broker in a child
+   process of its own (``messaging/fake_process.py``: stdlib asyncio, no
+   torch, no card), through ``run local``'s code with the 8 chat
+   websockets at the ``APP_BYTES`` lengths and random weights from
+   ``--seed``. kafka (the production instance's broker) serves llama-3-8b
+   at full width and depth, pulsar and pravega at ``SHALLOW_LAYERS``. Each
+   run holds: every answer's messages once and in order, the answers'
+   tokens against the same prompts without a broker (the ``app`` phase's
+   answers for kafka at 32 layers, else the provider's direct path) equal
+   or one-ulp ties (``_same_or_tie``), launches exact (prefill layers x
+   admit groups, paged decode layers x decode steps, replays = chunks),
+   the debug topic's final records, and the completions step's committed
+   position on the questions topic at the broker equal to the questions
+   sent. The fake is stopped and its ports closed at the end of each run,
+   a failed one too. It prints each request's client TTFT, send-to-submit
+   and engine-end-to-last-message ms (the two broker hops) beside the
+   ``app`` phase's memory-broker figures, answer tokens/s, the host's
+   pure-Python CRC-32C per record batch, and the phase's seconds, with the
+   card's name and power limit.
+28. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
    and int8 page pools and the bf16 dense cache (8192 wide), traced with
    torch.profiler: the device's busy share of the wall and the top
    kernels (no split-K decode kernel may appear).
@@ -628,8 +649,8 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
           "prefix", "spec", "tenancy", "agentic", "embed", "dense_tiers", "tiered", "fleet",
           "fleet_http", "spmd", "ring", "load", "moe", "app", "rag", "remote", "python",
-          "control", "profile")
-DEFAULT_PHASES = PHASES[:26]
+          "control", "brokers", "profile")
+DEFAULT_PHASES = PHASES[:27]
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -4970,14 +4991,18 @@ APP_MAX_SEQ_LEN = 2048
 APP_NAME = "smoke-app"
 
 
-def _app_copy(ctx) -> tuple[Path, Path]:
-    """``build/app/``: the tpu-completions example with its resource's
-    ``max-seq-len`` raised to ``APP_MAX_SEQ_LEN`` and this run's seed, and
-    an instance of its own serving llama-3-8b (the files under
-    ``examples/`` stay as they are)."""
+def _app_copy(ctx, dst: Path | None = None, model: str = "llama-3-8b",
+              cluster: tuple[str, dict] = ("memory", {})) -> tuple[Path, Path]:
+    """``build/app/`` (or ``dst``): the tpu-completions example with its
+    resource's ``max-seq-len`` raised to ``APP_MAX_SEQ_LEN`` and this run's
+    seed, and an instance of its own serving ``model`` over the streaming
+    cluster ``cluster`` (type, configuration; the files under ``examples/``
+    stay as they are)."""
     import shutil
 
-    dst = ROOT / "build" / "app"
+    from langstream_tpu_torch.core.yaml_reader import safe_dump
+
+    dst = dst or ROOT / "build" / "app"
     shutil.rmtree(dst, ignore_errors=True)
     app = dst / "tpu-completions"
     shutil.copytree(ROOT / "examples" / "applications" / "tpu-completions", app)
@@ -4989,15 +5014,20 @@ def _app_copy(ctx) -> tuple[Path, Path]:
         "        max-seq-len: 512\n",
         f"        max-seq-len: {APP_MAX_SEQ_LEN}\n        weights: random\n"
         f"        seed: {ctx['seed']}\n"))
+    kind, config = cluster
+    streaming = {"type": kind, **({"configuration": config} if config else {})}
     instance = dst / "instance.yaml"
-    instance.write_text("instance:\n  streamingCluster:\n    type: memory\n  computeCluster:\n"
-                        "    type: local\n  globals:\n    serving-model: llama-3-8b\n")
+    instance.write_text(safe_dump({"instance": {
+        "streamingCluster": streaming, "computeCluster": {"type": "local"},
+        "globals": {"serving-model": model}}}))
     return app, instance
 
 
 async def _app_chat(ws_url: str, session: str, question: str) -> dict:
     """One chat websocket: ask, then read answer messages until the last
-    chunk; the client's TTFT is send to first message."""
+    chunk; the client's TTFT is send to first message. A message whose
+    value is null (Pulsar's runtime reads an empty payload, an empty
+    chunk's, as null: the JAX package's rule) adds no text and is counted."""
     import asyncio
 
     from langstream_tpu_torch.gateway.websocket import connect
@@ -5025,7 +5055,9 @@ async def _app_chat(ws_url: str, session: str, question: str) -> dict:
     if [i for i, _ in chunks] != list(range(len(chunks))):
         raise AssertionError(f"app: session {session}'s chunk indices {[i for i, _ in chunks]}")
     return {"ttft_s": first, "total_s": total, "messages": len(chunks), "sent_at": t0,
-            "last_at": last, "text": "".join(v for _, v in chunks), "first_text": chunks[0][1]}
+            "last_at": last, "text": "".join(v or "" for _, v in chunks),
+            "first_text": chunks[0][1] or "",
+            "null_messages": sum(1 for _, v in chunks if v is None)}
 
 
 def _launch_check(cfg, counts, before: dict, after: dict, problems: list) -> dict:
@@ -5058,7 +5090,15 @@ def _launch_check(cfg, counts, before: dict, after: dict, problems: list) -> dic
             "decode_chunks": chunks, "graph_replays": replays, "kernel_launches": launches}
 
 
-async def _app_run(ctx, app_dir: Path, instance: Path) -> dict:
+async def _app_run(ctx, app_dir: Path, instance: Path, label: str = "app",
+                   reference: dict | None = None, fake: "_FakeBroker | None" = None) -> dict:
+    """The app through ``run local``'s code: 8 chat websockets at the
+    ``APP_BYTES`` lengths, each answer's chunks once and in order, launches
+    exact, the answers against a broker-free reference (``reference``:
+    ``{"prompts", "tokens"}`` of an earlier run at this depth; else the
+    provider's direct path, run here), the debug topic's final records;
+    with ``fake`` (a broker in its own process) the completions step's
+    committed position on the questions topic at the broker."""
     import asyncio
 
     import torch
@@ -5105,19 +5145,26 @@ async def _app_run(ctx, app_dir: Path, instance: Path) -> dict:
         served = {tuple(r.prompt_tokens): f.result(timeout=60) for r, f, _ in taps}
         submitted = {tuple(r.prompt_tokens): at for r, _, at in taps}
         debug = await app.runner.consume("debug-topic", n=len(questions), timeout=120)
+        committed = await _committed_at_broker(fake, len(questions)) if fake else None
         taps.clear()
-        direct = await asyncio.gather(*(
-            svc.get_chat_completions([ChatMessage("user", q)],
-                                     {"model": "llama-3-8b", "min-chunks-per-message": 10,
-                                      "tenant": "default"})
-            for q in questions))
-        direct_served = {tuple(r.prompt_tokens): f.result(timeout=60) for r, f, _ in taps}
+        texts = {}
+        if reference is None:
+            direct = await asyncio.gather(*(
+                svc.get_chat_completions([ChatMessage("user", q)],
+                                         {"model": "llama-3-8b", "min-chunks-per-message": 10,
+                                          "tenant": "default"})
+                for q in questions))
+            direct_served = {tuple(r.prompt_tokens): f.result(timeout=60) for r, f, _ in taps}
+            want = [direct_served[tuple(p)].tokens for p in prompts]
+            texts["direct"] = [d.content for d in direct]
+        else:
+            if [list(p) for p in reference["prompts"]] != [list(p) for p in prompts]:
+                raise AssertionError(f"{label}: the reference was served other prompts")
+            want = reference["tokens"]
         metrics = app.metrics.metrics_text()
         params = svc.params()
         app_tokens = [served[tuple(p)].tokens for p in prompts]
-        want = [direct_served[tuple(p)].tokens for p in prompts]
-        same = _same_or_tie(ctx, cfg, params, "app", prompts, app_tokens, want)
-        texts = {"direct": [d.content for d in direct]}
+        same = _same_or_tie(ctx, cfg, params, label, prompts, app_tokens, want)
     finally:
         await app.stop()
     problems = []
@@ -5127,7 +5174,7 @@ async def _app_run(ctx, app_dir: Path, instance: Path) -> dict:
             problems.append(f"s{i} ended {result.finish_reason}: {result.error}")
         if chat["text"] != svc.tokenizer.decode(result.tokens):
             problems.append(f"s{i}: the chunks are not the text of the answer's tokens")
-        if result.tokens == want[i] and chat["text"] != texts["direct"][i]:
+        if texts and result.tokens == want[i] and chat["text"] != texts["direct"][i]:
             problems.append(f"s{i}: equal tokens but the text differs from the direct path's")
     finals = {}
     for record in debug:
@@ -5140,10 +5187,16 @@ async def _app_run(ctx, app_dir: Path, instance: Path) -> dict:
             problems.append(f"s{i}: the debug topic's final record does not carry the answer")
     launch = _launch_check(cfg, counts, before, after, problems)
     if not same["ok"]:
-        problems.append(f"answers differ from the direct path beyond one-ulp ties: "
+        problems.append(f"answers differ from the broker-free reference beyond one-ulp ties: "
                         f"{same['not_ties']}")
     if "agent_" not in metrics or "completions_num_calls_total" not in metrics:
         problems.append("/metrics lacks the completions step's counters")
+    nulls = sum(c["null_messages"] for c in chats)
+    if nulls and not (fake and fake.kind == "pulsar"):
+        problems.append(f"{nulls} answer messages arrived with a null value")
+    if committed is not None and not committed["ok"]:
+        problems.append(f"the questions topic's committed position at the broker: "
+                        f"{committed}")
     tokens = sum(len(t) for t in app_tokens)
     # the plane's own cost: websocket send to the engine's submit (gateway,
     # broker, runner, document-to-json, the step), and the engine's end to
@@ -5163,6 +5216,7 @@ async def _app_run(ctx, app_dir: Path, instance: Path) -> dict:
         "inbound_ms": [s * 1000.0 for s in inbound],
         "outbound_ms": [s * 1000.0 for s in outbound],
         "empty_answers": sum(1 for c in chats if not c["text"]),
+        "null_messages": nulls,
         "messages": [c["messages"] for c in chats],
         "first_message_chars": [len(c["first_text"]) for c in chats],
         "wall_s": wall,
@@ -5172,9 +5226,12 @@ async def _app_run(ctx, app_dir: Path, instance: Path) -> dict:
         **{k: launch[k] for k in ("admit_groups", "decode_steps", "decode_chunks",
                                   "graph_replays", "kernel_launches")},
         "same_as_direct": {k: same[k] for k in ("agreement", "ties", "equal")},
+        "layers": launch["layers"],
+        **({"committed": committed} if committed is not None else {}),
     }
     if problems:
-        raise AssertionError("app: " + "; ".join(problems) + f" ({json.dumps(run)[:2000]})")
+        raise AssertionError(f"{label}: " + "; ".join(problems) + f" ({json.dumps(run)[:2000]})")
+    run["_reference"] = {"prompts": prompts, "tokens": app_tokens}
     return run
 
 
@@ -5188,6 +5245,8 @@ def phase_app(ctx: dict) -> None:
     torch.cuda.empty_cache()
     app_dir, instance = _app_copy(ctx)
     run = _app_run_sync(ctx, app_dir, instance)
+    # the broker-free answers at this depth: the brokers phase's kafka reference
+    ctx["app_reference"] = {"layers": run["layers"], **run.pop("_reference")}
     card = smi_line()
     for i, (client, engine) in enumerate(zip(run["client_ttft_s"], run["engine_ttft_ms"])):
         log(f"app ttft s{i} ({run['prompt_tokens'][i]} prompt tokens, "
@@ -7458,6 +7517,221 @@ def phase_control(ctx: dict) -> None:
         "memory_gib": {k: v / gib for k, v in m.items()}, "phase_s": run["phase_s"]}))
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# the brokers phase: the app phase's traffic over each broker's wire, the
+# broker one of the port's fakes in a process of its own
+BROKER_KINDS = ("kafka", "pulsar", "pravega")
+# kafka, the production instance's broker, runs at full depth; pulsar and
+# pravega at SHALLOW_LAYERS (the default run's time; nothing the phase
+# checks depends on depth)
+BROKER_SHALLOW = ("pulsar", "pravega")
+BROKER_SHALLOW_MODEL = "llama-3-8b-8-layers"
+BROKER_START_S = 60.0  # the fake's process to its first line
+BROKER_STOP_S = 20.0  # stdin closed to its exit
+BROKER_COMMIT_S = 10.0  # the last debug record to the questions' last commit
+# record-batch sizes whose CRC-32C the phase times on the host
+CRC_BYTES = (256, 4096, 65536)
+
+
+class _FakeBroker:
+    """One of the port's fake brokers in a child process
+    (``python -m langstream_tpu_torch.messaging.fake_process``): its
+    instance configuration, the committed position of a topic at the
+    broker, and its stop. The child imports no torch and sees no card."""
+
+    def __init__(self, kind: str, log_path: Path) -> None:
+        import os
+        import queue
+
+        log_path.parent.mkdir(parents=True, exist_ok=True)
+        self.kind = kind
+        self._log = open(log_path, "w")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=os.pathsep.join(p for p in (str(ROOT),
+                                                          os.environ.get("PYTHONPATH")) if p))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "langstream_tpu_torch.messaging.fake_process", kind],
+            cwd=ROOT, env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=self._log, text=True)
+        self._lines: queue.Queue = queue.Queue()
+        threading.Thread(target=self._pump, name=f"{kind}-fake-out", daemon=True).start()
+        self.ports: list = []
+        t0 = time.monotonic()
+        try:
+            hello = self._line(BROKER_START_S)
+        except BaseException:
+            self.close()
+            raise
+        self.start_s = time.monotonic() - t0
+        self.configuration, self.ports, self.pid = (hello["configuration"], hello["ports"],
+                                                     hello["pid"])
+
+    def _pump(self) -> None:
+        for line in self.proc.stdout:
+            self._lines.put(line)
+        self._lines.put(None)
+
+    def _line(self, timeout: float) -> dict:
+        import queue
+
+        try:
+            line = self._lines.get(timeout=timeout)
+        except queue.Empty:
+            raise AssertionError(f"brokers: the {self.kind} fake said nothing in {timeout} s")
+        if line is None:
+            raise AssertionError(f"brokers: the {self.kind} fake exited "
+                                 f"({self.proc.poll()}); see {self._log.name}")
+        return json.loads(line)
+
+    def committed(self, topic: str) -> dict:
+        self.proc.stdin.write(f"committed {topic}\n")
+        self.proc.stdin.flush()
+        return self._line(BROKER_STOP_S)
+
+    def close(self) -> dict:
+        """Close its stdin (the fake stops its broker and exits); kill it
+        past ``BROKER_STOP_S``. Reports whether it stopped, its exit code,
+        and whether every port it listened on is closed."""
+        t0 = time.monotonic()
+        stopped = False
+        try:
+            self.proc.stdin.close()
+            while not stopped:
+                stopped = bool(self._line(BROKER_STOP_S).get("stopped"))
+        except (AssertionError, OSError, ValueError):
+            pass
+        try:
+            code = self.proc.wait(BROKER_STOP_S)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            code = self.proc.wait()
+        self._log.close()
+        open_ports = []
+        for port in self.ports:
+            try:
+                socket.create_connection(("127.0.0.1", port), timeout=1.0).close()
+                open_ports.append(port)
+            except OSError:
+                pass
+        return {"stopped": stopped, "exit": code, "ports": self.ports,
+                "open_ports": open_ports, "stop_s": time.monotonic() - t0,
+                "ok": stopped and code == 0 and not open_ports}
+
+
+async def _committed_at_broker(fake: _FakeBroker, n: int) -> dict:
+    """The questions topic at the broker once its ``n`` questions are
+    committed: its records, and the records each group (subscription)
+    committed; ``ok`` when one group committed exactly the ``n`` records
+    the topic holds. Polled for ``BROKER_COMMIT_S``: the step commits after
+    its final record is written."""
+    import asyncio
+
+    t0 = time.monotonic()
+    while True:
+        doc = await asyncio.to_thread(fake.committed, "questions-topic")
+        ok = doc.get("records") == n and list(doc.get("committed", {}).values()) == [n]
+        waited = time.monotonic() - t0
+        if ok or waited > BROKER_COMMIT_S:
+            return {**doc, "sent": n, "waited_s": waited, "ok": ok}
+        await asyncio.sleep(0.05)
+
+
+def _crc_cost() -> dict:
+    """Host ms of the pure-Python CRC-32C (``native.crc32c``) over a record
+    batch of each ``CRC_BYTES`` size."""
+    from langstream_tpu_torch.native import crc32c
+
+    rng = random.Random(0)
+    out = {}
+    for n in CRC_BYTES:
+        data = rng.randbytes(n)
+        reps = max(3, 200_000 // n)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            crc32c(data)
+        out[n] = (time.perf_counter() - t0) * 1000.0 / reps
+    return out
+
+
+def phase_brokers(ctx: dict) -> None:
+    """The tpu-completions app over Kafka, Pulsar and Pravega (module
+    docstring, phase 27)."""
+    import asyncio
+    import gc
+
+    import torch
+
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+
+    ctx.pop("params", None)  # each run's provider draws its own tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    MODEL_PRESETS.setdefault(BROKER_SHALLOW_MODEL, dataclasses.replace(
+        MODEL_PRESETS["llama-3-8b"], name=BROKER_SHALLOW_MODEL, n_layers=SHALLOW_LAYERS))
+    card = smi_line()
+    t_phase = time.monotonic()
+    crc = _crc_cost()
+    log(f"brokers crc32c on the host (pure Python): "
+        + ", ".join(f"{n} B {ms:.4f} ms" for n, ms in crc.items()))
+    memory = ctx.get("app")
+    runs = {}
+    for kind in BROKER_KINDS:
+        model = BROKER_SHALLOW_MODEL if kind in BROKER_SHALLOW else "llama-3-8b"
+        layers = MODEL_PRESETS[model].n_layers
+        t0 = time.monotonic()
+        fake = _FakeBroker(kind, ROOT / "build" / "brokers" / f"{kind}_fake.log")
+        try:
+            app_dir, instance = _app_copy(ctx, ROOT / "build" / "brokers" / kind, model,
+                                          (kind, fake.configuration))
+            ref = ctx.get("app_reference")
+            reference = ref if ref and ref["layers"] == layers else None
+            run = asyncio.run(_app_run(ctx, app_dir, instance, f"brokers {kind}", reference,
+                                       fake))
+        finally:
+            stop = fake.close()
+        if not stop["ok"]:
+            raise AssertionError(f"brokers {kind}: the fake did not stop cleanly: {stop}")
+        run.pop("_reference")
+        run.update(fake=stop, fake_start_s=fake.start_s, run_s=time.monotonic() - t0,
+                   reference="app phase" if reference else "direct path")
+        for i, (client, engine) in enumerate(zip(run["client_ttft_s"], run["engine_ttft_ms"])):
+            log(f"brokers {kind} s{i} ({run['prompt_tokens'][i]} prompt tokens, "
+                f"{run['answer_tokens'][i]} answer tokens, {run['messages'][i]} messages): "
+                f"client ttft {client * 1000.0:.1f} ms, engine ttft {engine:.1f} ms; send to "
+                f"submit {run['inbound_ms'][i]:.1f} ms, engine end to last message "
+                f"{run['outbound_ms'][i]:.1f} ms [{card}]")
+        vs = (f"; memory broker (app phase): send to submit p50 "
+              f"{_percentiles(memory['inbound_ms'])['p50']:.1f} ms, engine end to last "
+              f"message p50 {_percentiles(memory['outbound_ms'])['p50']:.1f} ms, "
+              f"{memory['answer_tokens_per_s']:.1f} tokens/s" if memory else "")
+        log(f"brokers {kind} ({layers} layers): {sum(run['answer_tokens'])} answer tokens in "
+            f"{run['wall_s']:.3f} s = {run['answer_tokens_per_s']:.1f} tokens/s; send to "
+            f"submit p50 {_percentiles(run['inbound_ms'])['p50']:.1f} ms, engine end to last "
+            f"message p50 {_percentiles(run['outbound_ms'])['p50']:.1f} ms{vs}; launches "
+            f"{json.dumps({k: n for k, n in run['kernel_launches'].items() if n})} = "
+            f"{layers} x {run['admit_groups']} admit groups, {layers} x "
+            f"{run['decode_steps']} decode steps; {run['graph_replays']} replays = "
+            f"{run['decode_chunks']} chunks; answers vs the {run['reference']} "
+            f"{json.dumps(run['same_as_direct'])}; committed at the broker "
+            f"{json.dumps(run['committed'])}; fake start {fake.start_s:.2f} s, stop "
+            f"{stop['stop_s']:.2f} s, ports {stop['ports']} closed; run {run['run_s']:.1f} s "
+            f"[{card}]")
+        log(f"brokers {kind} tpu-completions {model} {json.dumps(run)}")
+        ctx[f"brokers_{kind}"] = run
+        runs[kind] = run
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_s = time.monotonic() - t_phase
+    log(f"brokers phase: {phase_s:.1f} s [{card}]")
+    ctx.setdefault("summaries", []).append(("brokers", {
+        "crc32c_ms": crc, "phase_s": phase_s,
+        **{kind: {"layers": r["layers"], "tokens_per_s": r["answer_tokens_per_s"],
+                  "client_ttft_s": r["client_ttft_s"],
+                  "inbound_ms_p50": _percentiles(r["inbound_ms"])["p50"],
+                  "outbound_ms_p50": _percentiles(r["outbound_ms"])["p50"], "run_s": r["run_s"],
+                  "committed": r["committed"]["committed"]} for kind, r in runs.items()},
+    }))
 
 
 def _replay_rate(torch, engine, chunks: int = 4) -> dict:
@@ -9957,7 +10231,8 @@ def kernel_record(ctx: dict) -> dict:
     served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "prefix",
               "spec", "agentic", "dense_spec", "dense_prefix", "dense_prefix_int8", "tiered",
               "fleet", "fleet_http", "spmd", "spmd_leader", "spmd_follower", "ring", "ring_int8",
-              "load", "moe", "app", "rag", "remote", "python", "control")
+              "load", "moe", "app", "rag", "remote", "python", "control", "brokers_kafka",
+              "brokers_pulsar", "brokers_pravega")
     out = []
     for name, (src, replaces, path) in sources.items():
         runs = ctx.get("kernel_runs", {}).get(name)

@@ -2,10 +2,11 @@
 ``langstream_tpu/messaging/registry.py``; reference
 TopicConnectionsRuntimeRegistry).
 
-Maps ``instance.streamingCluster.type`` to a TopicConnectionsRuntime. The
-port serves the in-memory broker, the local transport; ``kafka``,
-``pulsar`` and ``pravega`` are known to the JAX package but not ported
-yet: asking for one raises an error that names it as not ported.
+Maps ``instance.streamingCluster.type`` to a TopicConnectionsRuntime. All
+four broker runtimes — kafka, pulsar, pravega, memory — are stdlib-only
+(asyncio wire-protocol clients, REST through ``runtime/http_client``, and
+the in-process broker) and always register; the memory broker is the
+default local transport. Any other type is refused by name.
 """
 
 from __future__ import annotations
@@ -13,9 +14,6 @@ from __future__ import annotations
 from typing import Callable
 
 from langstream_tpu_torch.api.topics import TopicConnectionsRuntime
-
-# broker types the JAX package serves and the port does not yet
-NOT_PORTED = ("kafka", "pulsar", "pravega")
 
 
 class TopicConnectionsRuntimeRegistry:
@@ -30,21 +28,30 @@ class TopicConnectionsRuntimeRegistry:
         cls._ensure_builtins()
         factory = cls._factories.get(type_)
         if factory is None:
-            if type_ in NOT_PORTED:
-                raise NotImplementedError(
-                    f"streaming cluster type {type_!r} is not ported to langstream_tpu_torch "
-                    "yet; the port serves: " + ", ".join(sorted(cls._factories))
-                )
             known = ", ".join(sorted(cls._factories))
             raise ValueError(f"unknown streaming cluster type {type_!r}; known: {known}")
         return factory()
 
     @classmethod
     def _ensure_builtins(cls) -> None:
+        # imported unconditionally: an import failure is a real bug and must
+        # surface, not read as "unknown streaming cluster type"
         if "memory" not in cls._factories:
             from langstream_tpu_torch.messaging.memory import MemoryTopicConnectionsRuntime
 
             cls._factories["memory"] = MemoryTopicConnectionsRuntime
+        if "kafka" not in cls._factories:
+            from langstream_tpu_torch.messaging.kafka import KafkaTopicConnectionsRuntime
+
+            cls._factories["kafka"] = KafkaTopicConnectionsRuntime
+        if "pulsar" not in cls._factories:
+            from langstream_tpu_torch.messaging.pulsar import PulsarTopicConnectionsRuntime
+
+            cls._factories["pulsar"] = PulsarTopicConnectionsRuntime
+        if "pravega" not in cls._factories:
+            from langstream_tpu_torch.messaging.pravega import PravegaTopicConnectionsRuntime
+
+            cls._factories["pravega"] = PravegaTopicConnectionsRuntime
 
 
 def get_topic_connections_runtime(type_: str) -> TopicConnectionsRuntime:

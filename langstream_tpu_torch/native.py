@@ -8,7 +8,9 @@ extension), with the same semantics:
   (Python's ``hash(str)`` is salted per process, so replicas would disagree
   on a key's partition);
 - ``py_utf8_incomplete_tail_len`` — the undecodable tail a streaming
-  detokenizer holds back."""
+  detokenizer holds back;
+- ``crc32c`` — the Kafka record-batch v2 checksum on the produce path
+  (``messaging/kafka_protocol.py``), table-driven."""
 
 from __future__ import annotations
 
@@ -39,6 +41,30 @@ class PyOffsetTracker:
 
 
 OffsetTracker = PyOffsetTracker
+
+
+def _make_crc32c_table() -> list:
+    table = []
+    for n in range(256):
+        c = n
+        for _ in range(8):
+            c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
+        table.append(c)
+    return table
+
+
+_CRC32C_TABLE = _make_crc32c_table()
+
+
+def py_crc32c(data: bytes) -> int:
+    crc = 0xFFFFFFFF
+    table = _CRC32C_TABLE
+    for b in bytes(data):
+        crc = table[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    return crc ^ 0xFFFFFFFF
+
+
+crc32c = py_crc32c
 
 
 def fnv1a64(data: bytes) -> int:

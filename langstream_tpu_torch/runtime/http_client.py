@@ -120,9 +120,14 @@ def build_opener(follow_redirects: bool = True, cookies: bool = False):
 def send(method: str, url: str, body: Optional[bytes] = None,
          headers: Optional[dict[str, str]] = None, timeout: float = TIMEOUT_S,
          opener=None) -> Response:
-    """One blocking request → its ``Response`` (a 4xx / 5xx too)."""
-    request = urllib.request.Request(url, data=body, headers=dict(headers or {}),
-                                     method=method)
+    """One blocking request → its ``Response`` (a 4xx / 5xx too). A POST,
+    PUT or PATCH without a body or a content type says
+    ``application/octet-stream``, as aiohttp's does."""
+    headers = dict(headers or {})
+    if (body is None and method in ("POST", "PUT", "PATCH")
+            and not any(k.lower() == "content-type" for k in headers)):
+        headers["Content-Type"] = "application/octet-stream"
+    request = urllib.request.Request(url, data=body, headers=headers, method=method)
     try:
         with (opener or OPENER).open(request, timeout=timeout) as resp:
             return Response(resp.status, resp.reason, resp.headers, resp.read(), url)

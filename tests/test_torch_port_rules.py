@@ -123,6 +123,18 @@ def test_port_files_exist():
         "langstream_tpu_torch/cli/config.py",
         "langstream_tpu_torch/cli/client.py",
         "langstream_tpu_torch/cli/mermaid.py",
+        "langstream_tpu_torch/messaging/kafka.py",
+        "langstream_tpu_torch/messaging/kafka_protocol.py",
+        "langstream_tpu_torch/messaging/kafka_fake.py",
+        "langstream_tpu_torch/messaging/pulsar.py",
+        "langstream_tpu_torch/messaging/pulsar_protocol.py",
+        "langstream_tpu_torch/messaging/pulsar_fake.py",
+        "langstream_tpu_torch/messaging/pravega.py",
+        "langstream_tpu_torch/messaging/pravega_protocol.py",
+        "langstream_tpu_torch/messaging/pravega_fake.py",
+        "langstream_tpu_torch/messaging/fake_rest.py",
+        "langstream_tpu_torch/messaging/fake_process.py",
+        "langstream_tpu_torch/agents/connect.py",
         "chip_smoke.py",
     ):
         assert mod in rel
@@ -267,6 +279,34 @@ def test_no_cuda_raises_at_run_local(monkeypatch, app):
             gateway_port=0, metrics_port=-1,
         ))
     MemoryBroker.reset()
+
+
+def test_no_cuda_raises_at_run_local_over_kafka(monkeypatch, tmp_path):
+    """``run local`` of tpu-completions with ``streamingCluster.type:
+    kafka`` (the production instance's broker, here the port's fake) refuses
+    the card it does not have instead of serving on the CPU."""
+    from langstream_tpu_torch.cli.main import start_local
+    from langstream_tpu_torch.messaging.kafka_fake import FakeKafkaBroker
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    async def main():
+        broker = await FakeKafkaBroker().start()
+        instance = tmp_path / "instance.yaml"
+        instance.write_text(
+            "instance:\n  streamingCluster:\n    type: kafka\n    configuration:\n"
+            f"      admin:\n        bootstrap.servers: {broker.bootstrap}\n"
+            "  computeCluster:\n    type: local\n"
+            "  globals:\n    serving-model: tiny-test\n")
+        try:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                await start_local(ROOT / "examples" / "applications" / "tpu-completions",
+                                  instance, ROOT / "examples" / "secrets" / "secrets.yaml",
+                                  gateway_port=0, metrics_port=-1)
+        finally:
+            await broker.stop()
+
+    asyncio.run(main())
 
 
 @pytest.mark.parametrize("app", ["tpu-completions", "gateway-authentication"])
