@@ -204,17 +204,17 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    each grammar's compile seconds (the first includes the 128256-entry
    token byte table) and the swaps' host seconds.
 13. ``embed``   — RAG on the card through ``TorchServingProvider``
-   (llama-3-8b drawn by the provider from ``--seed``, bf16; later phases
-   serve the same tree): 32 byte-tokenized texts of 16..512 tokens (one
-   of them twice) embedded by its embeddings service — wall and device ms
-   a call and the peak growth, each vector within ``EMBED_TOL`` (L2) of an
+   (llama-3-8b at full width and 8 of its 32 layers, ``SHALLOW_LAYERS``,
+   drawn by the provider from ``--seed``, bf16): 32 byte-tokenized texts
+   of 16..512 tokens (one of them twice) embedded by its embeddings
+   service — wall and device ms a call and the peak growth, each vector within ``EMBED_TOL`` (L2) of an
    f32 ``encode`` on the card (weights widened a layer at a time), unit
    norms, the duplicate's vectors equal; one layer's attention of the
    port beside SDPA with a key-padding mask (a yardstick). Then the
    ``local-vector`` store on the card: 262,144 seeded rows of 4096 f32
    plus the 32 embeddings, 64 queries (the embeddings and 32 seeded) at
-   top-k 5 and 64, each list held to a numpy f64 reference's (neighbours
-   within ``VECTOR_TIE`` may swap), each text ranking its own row first,
+   top-k 5 and 64, each list held to an f64 reference's (a plain f64
+   matmul on the card over the store's host rows; neighbours within ``VECTOR_TIE`` may swap), each text ranking its own row first,
    device and wall ms a query beside the byte bound of one read of the
    rows. Then one batch embedded again and again on another thread while
    the provider's engine is built, captures its graphs and serves the
@@ -238,7 +238,10 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    beside cold, warm first-token logits within 5% of the cold ones,
    top-1 equal.
 15. ``tiered``  — the host KV tier and the durable tier at llama-3-8b's
-   full width and depth (bf16, paged, page 64, max-batch 8, max_seq_len
+   full width and 8 of its 32 layers (``SHALLOW_LAYERS``: the default
+   run's time; the tree drawn from ``--seed`` as a provider of
+   that preset draws it, so the durable pass's providers serve the same
+   weights) (bf16, paged, page 64, max-batch 8, max_seq_len
    2048, ``prefix-cache`` auto). 24 sessions, each a seeded 1024-token
    history: round 1 (history + a 40-token turn, 16 new tokens, greedy, all
    24 queued at once) publishes 16 pages a session — 384 pages, more than
@@ -247,15 +250,15 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    pool of 640 pages nothing is evicted from (the tokens' reference), the
    default pool (320 pages) with the tier off (evicted prefixes
    re-prefill), and the default pool with ``host-kv-fraction`` 2.0 and
-   ``spill-idle-s`` 0 (a 5 GiB pinned arena; its bytes and allocation
+   ``spill-idle-s`` 0 (a 1.25 GiB pinned arena at 8 layers; its bytes and allocation
    seconds printed): every round of each ends with its tokens, no plain
    version, replays = chunks, paged decode launches = layers x steps and
    segment launches = layers x warm admissions. Between the rounds, on the
    stopped tiered engine, one entry's 16 pages read to the host are held
    against its arena copy, then demoted and restored by the engine and held
    bit-equal again; the restore's ms, its checksum's host ms (the
-   engine's threads, and one thread), its upload's device ms and a 128 MiB
-   pinned host-to-device copy (the bound), and the spill's copy of those
+   engine's threads, and one thread), its upload's device ms and a pinned
+   host-to-device copy of those bytes (the bound), and the spill's copy of those
    pages, are timed. Required: round 1 demotes,
    round 2 restores with no restore failure and no recompute fallback,
    both rounds' tokens the reference's (or one-ulp ties,
@@ -328,7 +331,8 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    and bind ms, pages, bytes and GB/s beside one pinned host-to-device
    copy of the same bytes; dec's decoders' gaps; the memory reading.
 17. ``fleet_http`` — the fleet across two processes on the one card, at
-   llama-3-8b's full width and depth (the ``fleet`` phase's engine settings:
+   llama-3-8b's full width and 4 layers (the package's ``llama-3-8b-shallow``
+   preset: the replica draws its tree by name; the ``fleet`` phase's engine settings:
    bf16, paged, page 64, max_seq_len 4096, max-batch 8, decode chunk 16,
    ``prefix-cache`` auto, buckets 32…2048): this process runs
    ``TorchServingProvider`` with ``fleet: auto`` and ``fleet-role:
@@ -375,7 +379,9 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    both sides rebuilding and capturing again, and the prompts served again
    must give the same tokens (or one-ulp ties); a planted echo corruption
    must end the follower with ``SpmdDivergenceError`` and an
-   ``spmd-divergence`` dump. (b) The provider, built through the port's
+   ``spmd-divergence`` dump. (b) and (c) serve the package's
+   ``llama-3-8b-shallow`` preset (full width, 4 layers), each process
+   drawing its tree from the seed. (b) The provider, built through the port's
    ``REGISTRY``, with ``mesh: {data: 2}``: this process is rank 0 and the
    provider starts rank 1 on the same card (``python -m
    langstream_tpu_torch.parallel.spmd_serving``; its log under
@@ -473,8 +479,8 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    random`` and this run's seed; the crawl's ``seed-urls`` and
    ``allowed-domains`` pointed at a site on the loopback, its politeness
    delay lowered to ``RAG_MIN_TIME_MS``; the vector store's ``path`` under
-   ``build/rag/``; an instance serving llama-3-8b: full width and depth,
-   bf16), run through the code of ``run local``. The site
+   ``build/rag/``; an instance serving llama-3-8b: full width and 8 of its
+   32 layers, ``SHALLOW_MODEL``, bf16), run through the code of ``run local``. The site
    (``ThreadingHTTPServer`` on 127.0.0.1) has 50 seeded pages of ~3.5 KB of
    text linking each other and another host, a path ``robots.txt``
    disallows and a link that answers 404. The crawl pipeline (crawl,
@@ -500,8 +506,8 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    flow / HTTP / storage agents on the card: three example apps, each
    copied under ``build/remote/`` (the files under ``examples/`` stay as
    they are) and run through the code of ``run local`` with an instance
-   serving llama-3-8b (full width and depth, bf16, random weights from
-   this run's seed; each ``tpu-serving`` resource given ``max-seq-len``
+   serving llama-3-8b (full width and 8 of its 32 layers, ``SHALLOW_MODEL``,
+   bf16, random weights from this run's seed; each ``tpu-serving`` resource given ``max-seq-len``
    2048). The outside services are stdlib stubs on the loopback.
    (a) ``gateway-authentication``: Google sign-in (its ``certs-uri``
    pointed at a JWKS stub, the example's ``client-id``) over the chat on
@@ -546,8 +552,8 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    the 10 ticks, shouted, in order. (c) a served app written under
    ``build/python/served/``: a ``python-source`` emits 8 questions of the
    ``e2e`` lengths (and records its commits), ``ai-chat-completions`` on
-   ``tpu-serving`` answers them (llama-3-8b, full width and depth, bf16,
-   random weights from this run's seed, paged, 64 new tokens), a
+   ``tpu-serving`` answers them (llama-3-8b, full width and 8 of its 32
+   layers, ``SHALLOW_MODEL``, bf16, random weights from this run's seed, paged, 64 new tokens), a
    ``python-processor`` wraps each answer into an Avro record ``{question,
    answer, n}``, ``compute`` adds 1000 to ``n`` (the Avro path of
    ``MutableRecord``), a ``python-sink`` writes JSON lines: every answer
@@ -572,7 +578,8 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    holds, and the port's ``AdminClient``. The ``app`` phase's
    tpu-completions copy (its step asking 64 new tokens, its resource's seed
    read from the instance) is deployed over HTTP (a multipart zip and an
-   instance; llama-3-8b at full width and depth, bf16, random weights), 8
+   instance; llama-3-8b at full width and 8 of its 32 layers,
+   ``SHALLOW_MODEL``, bf16, random weights), 8
    chat websockets ask the ``e2e`` lengths, ``apps get`` and ``apps list``
    report it; two ``apps logs -f`` streams (one ``--filter`` to the chat
    step's replica) must see a runner task's line tagged with its replica,
@@ -611,7 +618,48 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    ``app`` phase's memory-broker figures, answer tokens/s, the host's
    pure-Python CRC-32C per record batch, and the phase's seconds, with the
    card's name and power limit.
-28. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
+28. ``k8s`` — the production instance (``examples/instances/kubernetes.yaml``:
+   Kafka, ``computeCluster: kubernetes``, llama-3-8b) end to end, each role
+   a process of its own: the port's Kafka fake, the port's API-server fake
+   (``python -m langstream_tpu_torch.k8s.http_fake``), the ``operator`` and
+   ``gateway`` roles and every pod (``python -m
+   langstream_tpu_torch.entrypoint <role>``). The control plane runs in this
+   process over a disk store, its runtime ``KubernetesRuntimeManager`` on
+   the fake. The admin client deploys the ``app`` phase's tpu-completions
+   copy with one card on its chat step (``resources.tpu``) over REST; the
+   operator reconciles the Application CR through its setup and deployer
+   jobs into Agent CRs, Secrets, Services and StatefulSets. The script plays
+   the kubelet: for every StatefulSet replica it runs the init container's
+   command (with ``CONTROL_PLANE_URL`` and ``TARGET_DIR``, which a cluster
+   supplies), writes the config Secret where ``POD_CONFIGURATION`` points,
+   and starts the runtime container's command (``HOSTNAME`` the pod's name,
+   ``HTTP_PORT`` free) under a wrapper that reads the pod's own kernel
+   counts, engine counters and served requests when its stdin closes. A
+   warm-up question (the chat pod builds its engine at its first request),
+   then 8 chat websockets at the ``APP_BYTES`` lengths go through the
+   gateway role's port, 256 new tokens each, llama-3-8b at full width and
+   depth.
+   Then the app is deleted over REST and each pod whose StatefulSet is gone
+   gets SIGTERM. Checks: the Application CR DEPLOYED; the chat StatefulSet
+   requests ``nvidia.com/gpu: "1"`` on ``nvidia-h100-80gb`` with the config
+   checksum annotation; every Secret's pod configuration the port's
+   deployer's for the CR (the JAX deployer's, byte for byte, is held by the
+   CPU tests); only the chat pod holds the card's device files; launches
+   in the pod exact (prefill layers x admit groups, paged decode layers x
+   decode steps, replays = chunks, no plain version, one engine start, no
+   restart); answers equal to the ``app`` phase's at 32 layers (else the
+   direct path) or one-ulp ties; every answer's messages once and in order;
+   the 9 questions committed at the Kafka fake; after the delete no Agent
+   CR, StatefulSet, Service, Secret or Job of the app left, every process
+   exited, its ports closed, the card's free memory within 1 GiB of the
+   phase's start. It prints each REST call and step of the deploy, each
+   pod's start to ``/info``, the chat pod's draw and capture, deploy to
+   the first answer token, each request's client TTFT, send to submit and
+   engine end to last message, answer tokens/s beside the ``brokers``
+   phase's Kafka run, the operator's reconcile passes and watch events,
+   delete to the last pod's exit and the phase's seconds, with the card's
+   name and power limit.
+29. ``profile`` — (not run by default) three short llama-3-8b bursts, bf16
    and int8 page pools and the bf16 dense cache (8192 wide), traced with
    torch.profiler: the device's busy share of the wall and the top
    kernels (no split-K decode kernel may appear).
@@ -634,6 +682,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import faulthandler
 import json
 import math
 import random
@@ -649,8 +698,12 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "e2e", "int8", "dense", "dense_int8", "paged_long", "graphs",
           "prefix", "spec", "tenancy", "agentic", "embed", "dense_tiers", "tiered", "fleet",
           "fleet_http", "spmd", "ring", "load", "moe", "app", "rag", "remote", "python",
-          "control", "brokers", "profile")
-DEFAULT_PHASES = PHASES[:27]
+          "control", "brokers", "k8s", "profile")
+DEFAULT_PHASES = PHASES[:28]
+
+# a run still going this many seconds after its first phase began prints
+# every thread's stack to stderr: a run cut at a time limit shows where
+STACKS_AT_S = 1100.0
 
 # H100 SXM published peaks (dense), the denominators of every bound below
 PEAK_BF16_FLOPS = 989e12
@@ -2029,9 +2082,27 @@ def _llama_params(ctx):
 
 # the depth the phases whose checks do not depend on it run at, to keep
 # the default run inside its limit: replay against direct call and the
-# lifecycle drills (``graphs``), the SPMD loopback pair (``spmd`` (a)),
-# ``tenancy``, ``agentic``, ``dense_tiers``, ``fleet``, ``spec`` and ``ring``
+# lifecycle drills (``graphs``), the SPMD loopback pair and the world-1
+# group (``spmd`` (a), (c)), ``tenancy``, ``agentic``, ``embed``,
+# ``dense_tiers``, ``fleet``, ``spec``, ``ring``, ``tiered``, and the
+# apps of ``rag``, ``remote``, ``python``, ``control`` and ``brokers``
+# (pulsar, pravega). A phase whose engine also runs in a child process
+# (``spmd`` (b), ``fleet_http``) serves the package's own
+# ``llama-3-8b-shallow`` preset instead: a child knows no preset of this
+# process
 SHALLOW_LAYERS = 8
+SHALLOW_MODEL = "llama-3-8b-8-layers"
+
+
+def _shallow_model() -> str:
+    """The name of llama-3-8b at ``SHALLOW_LAYERS`` layers as a model
+    preset, registered in this process (a provider or an app's instance
+    names it; each draws its tree from the seed)."""
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+
+    MODEL_PRESETS.setdefault(SHALLOW_MODEL, dataclasses.replace(
+        MODEL_PRESETS["llama-3-8b"], name=SHALLOW_MODEL, n_layers=SHALLOW_LAYERS))
+    return SHALLOW_MODEL
 
 
 def _shallow(cfg, params) -> tuple:
@@ -4095,8 +4166,8 @@ def _ranked_rows(np, scores, k: int):
 def _vector_store_check(torch, ctx, vectors) -> dict:
     """The local-vector store on the card: VECTOR_ROWS seeded rows of
     4096 f32 plus the 32 embeddings, searched by the 32 embeddings and 32
-    seeded queries at top-k 5 and 64. Each list is held to a numpy f64
-    reference's (equal, but for neighbours within VECTOR_TIE); each
+    seeded queries at top-k 5 and 64. Each list is held to a plain f64
+    reference's (a matmul on the card; equal, but for neighbours within VECTOR_TIE); each
     embedded text ranks its own row first (a duplicate text: tied for
     first); the search's device time and wall a query beside the byte
     bound of one read of the rows."""
@@ -4107,7 +4178,10 @@ def _vector_store_check(torch, ctx, vectors) -> dict:
     dim = vectors.shape[1]
     rng = np.random.default_rng(ctx["seed"] + 11)
     t0 = time.monotonic()
-    data = rng.standard_normal((VECTOR_ROWS, dim), dtype=np.float32)
+    # the rows drawn on the card from the seed and read back (numpy's
+    # generator spends ~20 s of one host core on these 1.07 G values)
+    g = torch.Generator(device="cuda").manual_seed(ctx["seed"] + 11)
+    data = torch.randn((VECTOR_ROWS, dim), generator=g, device="cuda").cpu().numpy()
     gen_s = time.monotonic() - t0
     store = LocalVectorDataSource({})
     t0 = time.monotonic()
@@ -4121,15 +4195,18 @@ def _vector_store_check(torch, ctx, vectors) -> dict:
     n = len(idx["ids"])
     queries = np.concatenate([vectors, rng.standard_normal((VECTOR_QUERIES - len(vectors), dim),
                                                            dtype=np.float32)])
-    # the f64 reference over the same rows
+    # the f64 reference over the same rows (the store's host copy): a plain
+    # f64 matmul on the card, not the store's search
     t0 = time.monotonic()
-    qn = queries.astype(np.float64)
-    qn /= np.linalg.norm(qn, axis=1, keepdims=True) + 1e-9
-    scores = np.empty((len(queries), n))
+    qn = torch.from_numpy(queries).cuda().double()
+    qn /= qn.norm(dim=1, keepdim=True) + 1e-9
+    scores = torch.empty((len(queries), n), dtype=torch.float64, device="cuda")
     for a in range(0, n, 32768):
-        blk = idx["matrix"][a:min(a + 32768, n)].astype(np.float64)
-        blk /= np.linalg.norm(blk, axis=1, keepdims=True) + 1e-9
+        blk = torch.from_numpy(idx["matrix"][a:min(a + 32768, n)]).cuda().double()
+        blk /= blk.norm(dim=1, keepdim=True) + 1e-9
         scores[:, a:a + len(blk)] = qn @ blk.T
+    scores = scores.cpu().numpy()
+    del qn, blk
     ref_s = time.monotonic() - t0
     rec = {"rows": n, "dim": dim, "capacity": idx["matrix"].shape[0],
            "device_copy_bytes": idx["dev"].numel() * 4, "valid_bytes": n * dim * 4,
@@ -4202,22 +4279,22 @@ def phase_embed(ctx: dict) -> None:
     from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
     from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
 
-    cfg = MODEL_PRESETS["llama-3-8b"]
-    # the provider draws the tree itself (the same seed: the same tree as
-    # _llama_params); later phases serve it
+    # the provider draws the tree itself from the seed, at SHALLOW_LAYERS
+    # (nothing the phase checks depends on depth); a later phase draws the
+    # 32-layer tree again
+    cfg = MODEL_PRESETS[_shallow_model()]
     ctx.pop("params", None)
     gc.collect()
     torch.cuda.empty_cache()
     provider = TorchServingProvider({
-        "model": "llama-3-8b", "seed": ctx["seed"], "max-seq-len": 2048, "max-batch": 8,
+        "model": cfg.name, "seed": ctx["seed"], "max-seq-len": 2048, "max-batch": 8,
         "decode-chunk": 16, "page-size": PAGE,
     })
     holder = provider.get_completions_service({})
     svc = provider.get_embeddings_service({})  # max-text-tokens 512
     t0 = time.monotonic()
     params = holder.params()
-    ctx["params"] = params
-    log(f"embed: llama-3-8b drawn by the provider in {time.monotonic() - t0:.1f}s")
+    log(f"embed: {cfg.name} drawn by the provider in {time.monotonic() - t0:.1f}s")
     texts = _embed_texts(ctx["seed"])
     tokens, lengths = svc.batch(texts)
     sizes = list(EMBED_SIZES)
@@ -4274,7 +4351,7 @@ def phase_embed(ctx: dict) -> None:
     timer = Timer(torch)
     rec["one_layer_attention"] = _attention_yardstick(torch, ctx, cfg, timer)
     del timer, out, tok_t, len_t
-    log(f"embed llama-3-8b bf16 {json.dumps(rec)}")
+    log(f"embed {cfg.name} bf16 {json.dumps(rec)}")
     store = _vector_store_check(torch, ctx, idle)
     log(f"embed local-vector store {json.dumps(store)}")
     gc.collect()
@@ -4989,6 +5066,10 @@ def phase_moe(ctx: dict) -> None:
 APP_BYTES = [20, 90, 150, 300, 600, 900, 1200, 1500]
 APP_MAX_SEQ_LEN = 2048
 APP_NAME = "smoke-app"
+# the longest wait for a chat's next answer message (the first one waits
+# for an engine's draw and capture): a message lost fails the phase
+# within the run's limit
+APP_MESSAGE_S = 180.0
 
 
 def _app_copy(ctx, dst: Path | None = None, model: str = "llama-3-8b",
@@ -5037,7 +5118,7 @@ async def _app_chat(ws_url: str, session: str, question: str) -> dict:
     await ws.send_str(json.dumps({"value": question}))
     chunks, first, last = [], None, None
     while True:
-        msg = await asyncio.wait_for(ws.receive(), 900)
+        msg = await asyncio.wait_for(ws.receive(), APP_MESSAGE_S)
         if msg.kind != "text":
             raise AssertionError(f"app: session {session}'s socket closed ({msg.data})")
         if first is None:
@@ -5442,7 +5523,7 @@ def _rag_copy(ctx, server: _RagServer) -> tuple[Path, Path]:
             raise AssertionError(f"rag: the example's {name} no longer says {want!r}")
     instance = dst / "instance.yaml"
     instance.write_text("instance:\n  streamingCluster:\n    type: memory\n  computeCluster:\n"
-                        "    type: local\n  globals:\n    serving-model: llama-3-8b\n")
+                        f"    type: local\n  globals:\n    serving-model: {_shallow_model()}\n")
     return app, instance
 
 
@@ -5911,7 +5992,7 @@ def phase_rag(ctx: dict) -> None:
         f"[{card}]")
     run["phase_s"] = time.monotonic() - t_phase
     log(f"rag phase: {run['phase_s']:.1f} s [{card}]")
-    log(f"rag tpu-rag llama-3-8b {json.dumps(run)}")
+    log(f"rag tpu-rag {SHALLOW_MODEL} {json.dumps(run)}")
     ctx["rag"] = run
     ctx.setdefault("summaries", []).append(("rag", {
         "pages": w["pages"], "chunks": w["chunks"], "write_path_s": w["write_path_s"],
@@ -6054,7 +6135,7 @@ def _remote_files(ctx, dst: Path, secrets: dict) -> tuple[Path, Path]:
     (dst / "secrets.yaml").write_text("\n".join(lines) + "\n")
     (dst / "instance.yaml").write_text(
         "instance:\n  streamingCluster:\n    type: memory\n  computeCluster:\n"
-        "    type: local\n  globals:\n    serving-model: llama-3-8b\n")
+        f"    type: local\n  globals:\n    serving-model: {_shallow_model()}\n")
     return dst / "instance.yaml", dst / "secrets.yaml"
 
 
@@ -6180,7 +6261,7 @@ async def _remote_auth(ctx, dst: Path) -> dict:
                 ws = await connect(f"{base}?credentials={token}")
                 connected = time.monotonic()
                 await ws.send_str(json.dumps({"value": question}))
-                msg = await asyncio.wait_for(ws.receive(), 900)
+                msg = await asyncio.wait_for(ws.receive(), APP_MESSAGE_S)
                 first = time.monotonic()
                 await ws.close()
                 if msg.kind != "text":
@@ -6550,7 +6631,7 @@ def phase_remote(ctx: dict) -> None:
     run["kernel_launches"] = {k: a["kernel_launches"].get(k, 0) + b["kernel_launches"].get(k, 0)
                               for k in set(a["kernel_launches"]) | set(b["kernel_launches"])}
     log(f"remote phase: {run['phase_s']:.1f} s [{card}]")
-    log(f"remote apps llama-3-8b {json.dumps(run)}")
+    log(f"remote apps {SHALLOW_MODEL} {json.dumps(run)}")
     ctx["remote"] = run
     ctx.setdefault("summaries", []).append(("remote", {
         "auth_burst_s": a["wall_s"], "auth_refused": a["refused"],
@@ -7056,7 +7137,7 @@ def phase_python(ctx: dict) -> None:
     dst.mkdir(parents=True, exist_ok=True)
     instance = dst / "instance.yaml"
     instance.write_text("instance:\n  streamingCluster:\n    type: memory\n  computeCluster:\n"
-                        "    type: local\n  globals:\n    serving-model: llama-3-8b\n")
+                        f"    type: local\n  globals:\n    serving-model: {_shallow_model()}\n")
     log_ = _ChildLog()
     runs = {}
     try:
@@ -7099,7 +7180,7 @@ def phase_python(ctx: dict) -> None:
     run = {"agent": a, "trio": b, "served": c, "children": log_.starts,
            "phase_s": time.monotonic() - t_phase, "kernel_launches": c["kernel_launches"]}
     log(f"python phase: {run['phase_s']:.1f} s [{card}]")
-    log(f"python apps llama-3-8b {json.dumps(run)}")
+    log(f"python apps {SHALLOW_MODEL} {json.dumps(run)}")
     ctx["python"] = run
     ctx.setdefault("summaries", []).append(("python", {
         "spawn_to_banner_ms": [round(s["ms"], 1) for s in log_.starts],
@@ -7148,7 +7229,7 @@ def _control_copy(ctx) -> tuple[Path, Path, Path]:
     for i, add in enumerate(CONTROL_SEEDS):
         inst = dst / f"instance-{i}.yaml"
         inst.write_text("instance:\n  streamingCluster:\n    type: memory\n  computeCluster:\n"
-                        "    type: local\n  globals:\n    serving-model: llama-3-8b\n"
+                        f"    type: local\n  globals:\n    serving-model: {_shallow_model()}\n"
                         f"    serving-seed: {ctx['seed'] + add}\n")
         instances.append(inst)
     return app, instances[0], instances[1]
@@ -7502,7 +7583,7 @@ def phase_control(ctx: dict) -> None:
         f"{json.dumps(run['logs_round2'])}; {run['answers_differing']} of {len(APP_BYTES)} "
         "answers differ after the update")
     log(f"control phase: {run['phase_s']:.1f} s [{card}]")
-    log(f"control tpu-completions llama-3-8b {json.dumps(run)}")
+    log(f"control tpu-completions {SHALLOW_MODEL} {json.dumps(run)}")
     ctx["control"] = {**run, "kernel_launches": {
         k: run["round1"]["kernel_launches"][k] + run["round2"]["kernel_launches"][k]
         for k in run["round1"]["kernel_launches"]}}
@@ -7526,7 +7607,6 @@ BROKER_KINDS = ("kafka", "pulsar", "pravega")
 # pravega at SHALLOW_LAYERS (the default run's time; nothing the phase
 # checks depends on depth)
 BROKER_SHALLOW = ("pulsar", "pravega")
-BROKER_SHALLOW_MODEL = "llama-3-8b-8-layers"
 BROKER_START_S = 60.0  # the fake's process to its first line
 BROKER_STOP_S = 20.0  # stdin closed to its exit
 BROKER_COMMIT_S = 10.0  # the last debug record to the questions' last commit
@@ -7667,8 +7747,6 @@ def phase_brokers(ctx: dict) -> None:
     ctx.pop("params", None)  # each run's provider draws its own tree
     gc.collect()
     torch.cuda.empty_cache()
-    MODEL_PRESETS.setdefault(BROKER_SHALLOW_MODEL, dataclasses.replace(
-        MODEL_PRESETS["llama-3-8b"], name=BROKER_SHALLOW_MODEL, n_layers=SHALLOW_LAYERS))
     card = smi_line()
     t_phase = time.monotonic()
     crc = _crc_cost()
@@ -7677,7 +7755,7 @@ def phase_brokers(ctx: dict) -> None:
     memory = ctx.get("app")
     runs = {}
     for kind in BROKER_KINDS:
-        model = BROKER_SHALLOW_MODEL if kind in BROKER_SHALLOW else "llama-3-8b"
+        model = _shallow_model() if kind in BROKER_SHALLOW else "llama-3-8b"
         layers = MODEL_PRESETS[model].n_layers
         t0 = time.monotonic()
         fake = _FakeBroker(kind, ROOT / "build" / "brokers" / f"{kind}_fake.log")
@@ -7732,6 +7810,689 @@ def phase_brokers(ctx: dict) -> None:
                   "outbound_ms_p50": _percentiles(r["outbound_ms"])["p50"], "run_s": r["run_s"],
                   "committed": r["committed"]["committed"]} for kind, r in runs.items()},
     }))
+
+
+# the k8s phase: the production instance (examples/instances/kubernetes.yaml:
+# Kafka, computeCluster kubernetes, llama-3-8b) from a REST deploy through the
+# operator to pods, every role a process of its own
+K8S_NAMESPACE = "langstream-default"  # the default tenant's (crds.tenant_namespace)
+K8S_START_S = 120.0  # a role's process to its first line or open port
+K8S_DEPLOYED_S = 120.0  # the REST deploy to the Application CR's DEPLOYED
+K8S_POD_S = 180.0  # a pod's start to its /info (the chat pod imports torch)
+K8S_STOP_S = 30.0  # SIGTERM (or stdin closed) to the process's exit
+K8S_MEMORY_SLACK = 1 << 30  # the card's free memory after the delete against before
+K8S_WARM_UP = "warm up"  # the first question, its own session, before the burst
+# how the kubelet stand-in starts a container: this interpreter runs the
+# container's command (``python -m <module> <args>``) under a wrapper that,
+# when its stdin closes, prints one ``ROLE_REPORT <json>`` line read from the
+# process itself: in a pod the kernel counts since its engine's capture, the
+# engine's counters then and now, its draw and capture, and every request it
+# served; in the operator its reconcile passes and watch events. The entry
+# point gains nothing for it.
+K8S_ROLE_WRAPPER = r'''
+import json, runpy, sys, threading, time
+
+mode, module, args = sys.argv[1], sys.argv[3], sys.argv[4:]
+report = {"starts": 0}
+KEYS = ("admit-groups-total", "decode-steps-total", "prefill-segments-total",
+        "decode-chunks-total", "graph-replays-total", "engine-restarts-total")
+if mode == "pod":
+    from langstream_tpu_torch.ai.torch_serving import TorchCompletionsService
+    from langstream_tpu_torch.ops import attention
+    from langstream_tpu_torch.serving.engine import ServingEngine
+
+    engines, served = [], []
+    build, start, submit = (TorchCompletionsService.engine, ServingEngine.start,
+                            ServingEngine.submit)
+
+    def engine(self):
+        first = self._engine is None
+        t0 = time.monotonic()
+        out = build(self)
+        if first:
+            report["draw_and_capture_s"] = time.monotonic() - t0
+        return out
+
+    def started(self):
+        start(self)
+        attention.reset_kernel_counts()
+        report["starts"] += 1
+        engines.append((self, {k: self.stats()[k] for k in KEYS}))
+
+    def submitted(self, request):
+        at = time.monotonic()
+        future = submit(self, request)
+        served.append((request, future, at))
+        return future
+
+    TorchCompletionsService.engine = engine
+    ServingEngine.start, ServingEngine.submit = started, submitted
+
+    def read():
+        out = {"kernels": attention.kernel_counts(), "served": []}
+        if engines:
+            engine, before = engines[0]
+            stats = engine.stats()
+            out.update(before=before, after={k: stats[k] for k in KEYS})
+        for request, future, at in served:
+            r = future.result(timeout=60)
+            out["served"].append({
+                "prompt": list(request.prompt_tokens), "tokens": list(r.tokens),
+                "submit_at": at, "ttft_s": r.ttft_s, "total_s": r.total_s,
+                "finish_reason": r.finish_reason, "error": repr(r.error) if r.error else None})
+        return out
+elif mode == "operator":
+    from langstream_tpu_torch.k8s.client import KubeApiClient
+
+    report.update(passes=0, watch_events=0)
+    listed, watched = KubeApiClient.list, KubeApiClient.watch
+
+    def counted_list(self, kind, namespace=None):
+        if kind == "Application":
+            report["passes"] += 1
+        return listed(self, kind, namespace)
+
+    def counted_watch(self, *a, **k):
+        for event in watched(self, *a, **k):
+            report["watch_events"] += 1
+            yield event
+
+    KubeApiClient.list, KubeApiClient.watch = counted_list, counted_watch
+
+    def read():
+        return {}
+
+
+def on_eof():
+    sys.stdin.read()
+    print("ROLE_REPORT " + json.dumps({**report, **read()}), flush=True)
+
+
+threading.Thread(target=on_eof, name="role-report", daemon=True).start()
+sys.argv = [module, *args]
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+'''
+
+
+class _Role:
+    """One role of the deployment in a process of its own: a container's
+    ``command`` (``python`` is this interpreter) with its env, optionally
+    under ``K8S_ROLE_WRAPPER`` in ``wrap`` mode; its stderr in ``log_path``,
+    its stdout lines on a queue."""
+
+    def __init__(self, name: str, command: list, env: dict, log_path: Path,
+                 wrap: str | None = None) -> None:
+        import os
+        import queue
+
+        log_path.parent.mkdir(parents=True, exist_ok=True)
+        self.name = name
+        self._log = open(log_path, "w")
+        argv = [sys.executable if command[0] == "python" else command[0], *command[1:]]
+        if wrap is not None:
+            if argv[1] != "-m":
+                raise AssertionError(f"k8s: {name}'s command {command} runs no module")
+            argv = [sys.executable, "-c", K8S_ROLE_WRAPPER, wrap, *argv[1:]]
+        path = os.pathsep.join(p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(argv, cwd=ROOT, env={**os.environ, "PYTHONPATH": path,
+                                                          **env},
+                                     stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                     stderr=self._log, text=True)
+        self.pid = self.proc.pid
+        self._lines: queue.Queue = queue.Queue()
+        threading.Thread(target=self._pump, name=f"{name}-out", daemon=True).start()
+
+    def _pump(self) -> None:
+        for line in self.proc.stdout:
+            self._lines.put(line)
+        self._lines.put(None)
+
+    def line(self, timeout: float, prefix: str = "") -> str:
+        import queue
+
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                line = self._lines.get(timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(f"k8s: {self.name} printed no {prefix!r} line in "
+                                     f"{timeout} s; see {self._log.name}")
+            if line is None:
+                raise AssertionError(f"k8s: {self.name} exited ({self.proc.poll()}); see "
+                                     f"{self._log.name}")
+            if line.startswith(prefix):
+                return line[len(prefix):]
+
+    def report(self) -> dict:
+        """Close its stdin: the wrapper prints its report line."""
+        self.proc.stdin.close()
+        return json.loads(self.line(K8S_STOP_S, "ROLE_REPORT "))
+
+    def stop(self) -> dict:
+        """SIGTERM, as a kubelet stops a container; killed past
+        ``K8S_STOP_S``. The exit code and the seconds to the exit."""
+        t0 = time.monotonic()
+        if self.proc.poll() is None:
+            self.proc.terminate()
+        try:
+            code = self.proc.wait(K8S_STOP_S)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            code = self.proc.wait()
+            code = f"killed after {K8S_STOP_S} s ({code})"
+        if not self._log.closed:
+            self._log.close()
+        return {"exit": code, "stop_s": time.monotonic() - t0}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _port_open(port: int) -> bool:
+    try:
+        socket.create_connection(("127.0.0.1", port), timeout=1.0).close()
+        return True
+    except OSError:
+        return False
+
+
+def _wait(pred, timeout: float, what: str, role: "_Role | None" = None) -> float:
+    """Seconds until ``pred()``; fails past ``timeout`` or when ``role``'s
+    process has exited."""
+    t0 = time.monotonic()
+    while not pred():
+        if role is not None and role.proc.poll() is not None:
+            raise AssertionError(f"k8s: {role.name} exited ({role.proc.poll()}) before {what}")
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"k8s: {what} not within {timeout} s")
+        time.sleep(0.05)
+    return time.monotonic() - t0
+
+
+def _k8s_copy(ctx, fake: "_FakeBroker") -> tuple[Path, Path]:
+    """``build/k8s/``: the ``app`` phase's tpu-completions copy with one card
+    (``resources.tpu``) on its chat step, and the production instance's
+    shape: ``streamingCluster`` Kafka (the fake), ``computeCluster``
+    kubernetes, llama-3-8b."""
+    from langstream_tpu_torch.core.yaml_reader import safe_dump
+
+    app, instance = _app_copy(ctx, ROOT / "build" / "k8s", "llama-3-8b",
+                              ("kafka", fake.configuration))
+    pipeline = app / "pipeline.yaml"
+    step = "  - name: chat\n    type: ai-chat-completions\n"
+    if step not in pipeline.read_text():
+        raise AssertionError("k8s: the example's pipeline.yaml changed; update _k8s_copy")
+    pipeline.write_text(pipeline.read_text().replace(
+        step, step + '    resources:\n      tpu:\n        topology: "1"\n'))
+    instance.write_text(safe_dump({"instance": {
+        "streamingCluster": {"type": "kafka", "configuration": fake.configuration},
+        "computeCluster": {"type": "kubernetes"},
+        "globals": {"serving-model": "llama-3-8b"}}}))
+    return app, instance
+
+
+def _app_objects(kube) -> dict:
+    """The app's objects at the API server, by kind."""
+    return {kind: sorted(m["metadata"]["name"] for m in kube.list(kind, K8S_NAMESPACE))
+            for kind in ("Application", "Agent", "StatefulSet", "Service", "Secret", "Job")}
+
+
+def _container_env(container: dict) -> dict:
+    return {e["name"]: e["value"] for e in container.get("env", []) if "value" in e}
+
+
+def _start_pods(kube, control_url: str, sts: dict, pods_dir: Path) -> list:
+    """The kubelet stand-in for one StatefulSet: for each replica ordinal,
+    the init container's command to its end (with the two values a cluster
+    supplies: ``CONTROL_PLANE_URL`` and ``TARGET_DIR`` on a directory of
+    its own), the config Secret written where the runtime container's
+    ``POD_CONFIGURATION`` points (its volume under ``pods_dir``), then the
+    runtime container's command as a process with ``HOSTNAME`` the pod's
+    name and ``HTTP_PORT`` a free port; a container whose limits name no
+    ``nvidia.com/gpu`` sees no card (``CUDA_VISIBLE_DEVICES`` empty), as the
+    NVIDIA device plugin leaves it none."""
+    name = sts["metadata"]["name"]
+    spec = sts["spec"]["template"]["spec"]
+    (init,), (runtime,) = spec["initContainers"], spec["containers"]
+    (secret_volume,) = [v for v in spec["volumes"] if "secret" in v]
+    secret = kube.get("Secret", K8S_NAMESPACE, secret_volume["secret"]["secretName"])
+    pods = []
+    for ordinal in range(int(sts["spec"]["replicas"])):
+        pod = f"{name}-{ordinal}"
+        root = pods_dir / pod
+        mounts = {m["name"]: root / m["name"] for m in runtime["volumeMounts"]}
+        for path in mounts.values():
+            path.mkdir(parents=True, exist_ok=True)
+        for key, text in secret["stringData"].items():
+            (mounts[secret_volume["name"]] / key).write_text(text)
+        paths = {m["mountPath"]: mounts[m["name"]] for m in runtime["volumeMounts"]}
+        t0 = time.monotonic()
+        env = {**_container_env(init), "CONTROL_PLANE_URL": control_url,
+               "TARGET_DIR": str(paths["/app-code-download"]), "HOSTNAME": pod}
+        init_role = _Role(f"{pod} init", init["command"], env, root / "init.log")
+        code = init_role.proc.wait(K8S_START_S)
+        init_role.stop()
+        if code != 0:
+            raise AssertionError(f"k8s: {pod}'s init container exited {code}; see "
+                                 f"{root / 'init.log'}")
+        init_s = time.monotonic() - t0
+        env = _container_env(runtime)
+        if not runtime["resources"]["limits"].get("nvidia.com/gpu"):
+            # the device plugin gives a container that asks for no card none
+            env["CUDA_VISIBLE_DEVICES"] = ""
+        config = env["POD_CONFIGURATION"]
+        mount = next(m for m in paths if config.startswith(m + "/"))
+        env["POD_CONFIGURATION"] = str(paths[mount] / config[len(mount) + 1:])
+        port = _free_port()
+        env.update(HOSTNAME=pod, HTTP_PORT=str(port))
+        role = _Role(pod, runtime["command"], env, root / "runtime.log", wrap="pod")
+        pods.append({"name": pod, "statefulset": name, "role": role, "port": port,
+                     "init_s": init_s, "gpus": runtime["resources"]["limits"].get(
+                         "nvidia.com/gpu")})
+    return pods
+
+
+def _info(port: int) -> list | None:
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/info", timeout=2) as resp:
+            return json.loads(resp.read())
+    except OSError:
+        return None
+
+
+async def _k8s_direct(svc, questions: list, prompts: list) -> list:
+    """The provider's direct path on this process's card (the tokens each
+    prompt gets without a broker), for a run without the ``app`` phase's
+    reference."""
+    import asyncio
+
+    from langstream_tpu_torch.ai.provider import ChatMessage
+
+    loop = asyncio.get_running_loop()
+    engine = await loop.run_in_executor(None, svc.engine)
+    taps = []
+    submit = engine.submit
+    engine.submit = lambda request: taps.append((request, submit(request))) or taps[-1][1]
+    await asyncio.gather(*(svc.get_chat_completions(
+        [ChatMessage("user", q)], {"model": "llama-3-8b", "min-chunks-per-message": 10,
+                                   "tenant": "default"}) for q in questions))
+    served = {tuple(r.prompt_tokens): f.result(timeout=60).tokens for r, f in taps}
+    return [served[tuple(p)] for p in prompts]
+
+
+async def _k8s_run(ctx) -> dict:
+    import asyncio
+    import shutil
+
+    import torch
+
+    from langstream_tpu_torch.ai.provider import ChatMessage
+    from langstream_tpu_torch.ai.torch_serving import TorchCompletionsService
+    from langstream_tpu_torch.cli.client import AdminClient
+    from langstream_tpu_torch.k8s.client import KubeApiClient
+    from langstream_tpu_torch.k8s.controllers import InProcessJobExecutor
+    from langstream_tpu_torch.k8s.crds import ApplicationCustomResource
+    from langstream_tpu_torch.k8s.fake import FakeKubeServer
+    from langstream_tpu_torch.k8s.runtime_manager import KubernetesRuntimeManager
+    from langstream_tpu_torch.models.configs import MODEL_PRESETS
+    from langstream_tpu_torch.webservice.server import ControlPlaneServer
+    from langstream_tpu_torch.webservice.service import ApplicationService, TenantService
+    from langstream_tpu_torch.webservice.stores import (
+        LocalDiskApplicationStore,
+        LocalDiskCodeStorage,
+        LocalDiskGlobalMetadataStore,
+    )
+
+    loop = asyncio.get_running_loop()
+    base = ROOT / "build" / "k8s"
+    shutil.rmtree(base, ignore_errors=True)
+    problems: list = []
+    out: dict = {"memory": {}}
+    roles: list = []  # every process this phase started, stopped in its finally
+    pods: list = []
+    server = None
+    _settled_bytes(torch)
+    out["memory"]["free_before_bytes"] = torch.cuda.mem_get_info()[0]
+    fake = _FakeBroker("kafka", base / "logs" / "kafka_fake.log")
+    try:
+        app_dir, instance = _k8s_copy(ctx, fake)
+        api = _Role("api-server fake", ["python", "-m", "langstream_tpu_torch.k8s.http_fake"],
+                    {"CUDA_VISIBLE_DEVICES": ""}, base / "logs" / "api_fake.log")
+        roles.append(api)
+        api_url = json.loads(api.line(K8S_START_S))["url"]
+        api_port = int(api_url.rsplit(":", 1)[1])
+        kube = KubeApiClient(api_url)
+        operator_log = base / "logs" / "operator.log"
+        operator = _Role("operator", ["python", "-m", "langstream_tpu_torch.entrypoint",
+                                      "operator"],
+                         {"KUBE_API_SERVER": api_url, "OPERATOR_POLL_SECONDS": "2"},
+                         operator_log, wrap="operator")
+        roles.append(operator)
+        # the control plane in this process, its runtime the operator's CRs
+        root = base / "root"
+        store = LocalDiskApplicationStore(f"{root}/apps")
+        applications = ApplicationService(store, LocalDiskCodeStorage(f"{root}/code"),
+                                          KubernetesRuntimeManager(kube, store))
+        tenants = TenantService(LocalDiskGlobalMetadataStore(str(root)))
+        tenants.put("default")
+        server = ControlPlaneServer(applications, tenants, port=0)
+        await server.start()
+        gw_port = _free_port()
+        gateway = _Role("gateway", ["python", "-m", "langstream_tpu_torch.entrypoint",
+                                    "gateway"],
+                        {"STORAGE_ROOT": str(root), "GATEWAY_PORT": str(gw_port)},
+                        base / "logs" / "gateway.log")
+        roles.append(gateway)
+        await loop.run_in_executor(None, _wait, lambda: _port_open(gw_port), K8S_START_S,
+                                   "the gateway's port", gateway)
+        # the operator's first pass runs as it comes up, before the deploy
+        await loop.run_in_executor(None, _wait, lambda: "operator up against" in
+                                   operator_log.read_text(), K8S_START_S, "the operator",
+                                   operator)
+        client = AdminClient(server.url)
+        # 2. the deploy over REST, 3. the operator's reconcile
+        t_deploy = time.monotonic()
+        body = await loop.run_in_executor(None, client.deploy, APP_NAME, app_dir, instance)
+        out["deploy_http_s"] = time.monotonic() - t_deploy
+        if body.get("application-id") != APP_NAME:
+            problems.append(f"the deploy answered {body}")
+
+        def deployed():
+            cr = kube.get("Application", K8S_NAMESPACE, APP_NAME)
+            return (cr or {}).get("status", {}).get("phase") == "DEPLOYED"
+
+        await loop.run_in_executor(None, _wait, deployed, K8S_DEPLOYED_S,
+                                   "the Application CR's DEPLOYED", operator)
+        t_deployed = time.monotonic()
+        out["deploy_to_deployed_s"] = t_deployed - t_deploy
+
+        def all_statefulsets():
+            agents = kube.list("Agent", K8S_NAMESPACE)
+            sets = kube.list("StatefulSet", K8S_NAMESPACE)
+            return agents and len(sets) == len(agents)
+
+        await loop.run_in_executor(None, _wait, all_statefulsets, K8S_DEPLOYED_S,
+                                   "a StatefulSet for every Agent CR", operator)
+        out["deployed_to_statefulsets_s"] = time.monotonic() - t_deployed
+        statefulsets = kube.list("StatefulSet", K8S_NAMESPACE)
+        agents = {a["metadata"]["name"]: a for a in kube.list("Agent", K8S_NAMESPACE)}
+        chat = [s for s in statefulsets if agents[s["metadata"]["name"]]["spec"]["resources"]
+                .get("tpu")]
+        if len(chat) != 1 or len(statefulsets) != 2:
+            raise AssertionError(f"k8s: StatefulSets {[s['metadata']['name'] for s in statefulsets]}, "
+                                 f"{len(chat)} with a card; want the converter and the chat")
+        (chat,) = chat
+        chat_name = chat["metadata"]["name"]
+        pod_spec = chat["spec"]["template"]["spec"]
+        limits = pod_spec["containers"][0]["resources"]["limits"]
+        if limits.get("nvidia.com/gpu") != "1" or pod_spec["containers"][0]["resources"][
+                "requests"].get("nvidia.com/gpu") != "1":
+            problems.append(f"the chat StatefulSet's resources {limits}")
+        if pod_spec.get("nodeSelector") != {"cloud.google.com/gke-accelerator":
+                                            "nvidia-h100-80gb"}:
+            problems.append(f"the chat StatefulSet's node selector {pod_spec.get('nodeSelector')}")
+        checksum = chat["metadata"]["annotations"].get("langstream.tpu/config-checksum")
+        if not checksum or checksum != agents[chat_name]["spec"]["configChecksum"] or \
+                chat["spec"]["template"]["metadata"]["annotations"].get(
+                    "langstream.tpu/config-checksum") != checksum:
+            problems.append(f"the chat StatefulSet's checksum annotation {checksum}")
+        # the operator's Secret against the port's executor on the same CR
+        # (the JAX executor's JSON, byte for byte: tests/test_torch_k8s.py)
+        cr = kube.get("Application", K8S_NAMESPACE, APP_NAME)
+        local = FakeKubeServer()
+        local.apply({**cr, "status": {}})
+        InProcessJobExecutor(local).run_deployer(ApplicationCustomResource.from_manifest(cr))
+        for sts in statefulsets:
+            ref = agents[sts["metadata"]["name"]]["spec"]["configSecretRef"]
+            got = kube.get("Secret", K8S_NAMESPACE, ref)["stringData"]["pod-configuration"]
+            want = local.get("Secret", K8S_NAMESPACE, ref)["stringData"]["pod-configuration"]
+            if got != want:
+                problems.append(f"{ref}'s pod configuration differs from the executor's")
+        pod_config = json.loads(kube.get("Secret", K8S_NAMESPACE, agents[chat_name]["spec"]
+                                         ["configSecretRef"])["stringData"]["pod-configuration"])
+        (resource,) = [r["configuration"] for r in pod_config["resources"].values()
+                       if r["type"] == "tpu-serving"]
+        # 4. the kubelet stand-in: the converter's pod, then the chat's
+        for sts in sorted(statefulsets, key=lambda s: s is chat):
+            # off this loop: the init containers download from its control plane
+            started = await loop.run_in_executor(None, _start_pods, kube, server.url, sts,
+                                                 base / "pods")
+            pods += started
+            roles += [p["role"] for p in started]
+        def all_info() -> bool:
+            for pod in pods:
+                if pod["role"].proc.poll() is not None:
+                    raise AssertionError(f"k8s: {pod['name']} exited "
+                                         f"({pod['role'].proc.poll()}) before its /info")
+                if "info_s" not in pod and _info(pod["port"]) is not None:
+                    pod["info_s"] = time.monotonic() - pod["role"].t0
+            return all("info_s" in pod for pod in pods)
+
+        await loop.run_in_executor(None, _wait, all_info, K8S_POD_S, "every pod's /info")
+        (chat_pod,) = [p for p in pods if p["statefulset"] == chat_name]
+        # 5. the chat: 8 websockets through the gateway role
+        questions = _prompts(APP_BYTES, ctx["seed"])
+        svc = TorchCompletionsService(resource)  # resolved only: the prompts' tokens
+        prompts = [svc.tokenizer.encode(svc._render_prompt([ChatMessage("user", q)]))
+                   for q in questions]
+        # the first question after the deploy: the chat pod builds its engine
+        # (draw and capture) at its first request, as a pod does in a cluster
+        warm = await _app_chat(f"ws://127.0.0.1:{gw_port}", "warm-up", K8S_WARM_UP)
+        out["deploy_to_first_token_s"] = warm["sent_at"] + warm["ttft_s"] - t_deploy
+        out["warm_up_client_ttft_s"] = warm["ttft_s"]
+        t_run = time.monotonic()
+        chats = await asyncio.gather(*(
+            _app_chat(f"ws://127.0.0.1:{gw_port}", f"s{i}", q) for i, q in enumerate(questions)))
+        wall = time.monotonic() - t_run
+        committed = await _committed_at_broker(fake, len(questions) + 1)  # and the warm-up
+        if not committed["ok"]:
+            problems.append(f"the questions topic's committed position at the broker: {committed}")
+        # who holds the card, while every process lives
+        holders = {r.name: _card_files(r.pid) for r in roles if r.proc.poll() is None}
+        holders["kafka fake"] = _card_files(fake.pid)
+        out["card_files"] = holders
+        out["smi_compute_pids"] = _smi_compute_pids()
+        if not holders.get(chat_pod["name"]):
+            problems.append(f"the chat pod holds no card file: {holders}")
+        others = {k: v for k, v in holders.items() if v and k != chat_pod["name"]}
+        if others:
+            problems.append(f"processes other than the chat pod hold the card: {others}")
+        # the pods' and the operator's own readings, before they stop
+        reports = {p["name"]: await loop.run_in_executor(None, p["role"].report) for p in pods}
+        report = reports[chat_pod["name"]]
+        out["operator"] = await loop.run_in_executor(None, operator.report)
+        cfg = MODEL_PRESETS["llama-3-8b"]
+        counts = {k: {"launches": v["launches"], "cpu_calls": v["cpu_calls"]}
+                  for k, v in report["kernels"].items()}
+        launch = _launch_check(cfg, counts, report["before"], report["after"], problems)
+        restarts = report["after"]["engine-restarts-total"] - report["before"][
+            "engine-restarts-total"]
+        if report["starts"] != 1 or restarts:
+            problems.append(f"the engine started {report['starts']} times, {restarts} restarts")
+        for name, r in reports.items():
+            if name != chat_pod["name"] and (r["served"] or any(
+                    v["launches"] or v["cpu_calls"] for v in r["kernels"].values())):
+                problems.append(f"{name} served or launched: {r}")
+        served = {tuple(s["prompt"]): s for s in report["served"]}
+        missing = [i for i, p in enumerate(prompts) if tuple(p) not in served]
+        if missing or len(served) != len(prompts) + 1:
+            raise AssertionError(f"k8s: the chat pod served {len(served)} prompts, not the "
+                                 f"warm-up and the 8 questions (missing {missing})")
+        got = [served[tuple(p)]["tokens"] for p in prompts]
+        for i, (c, p) in enumerate(zip(chats, prompts)):
+            s = served[tuple(p)]
+            if s["finish_reason"] not in ("length", "stop") or s["error"]:
+                problems.append(f"s{i} ended {s['finish_reason']}: {s['error']}")
+            if c["text"] != svc.tokenizer.decode(s["tokens"]):
+                problems.append(f"s{i}: the chunks are not the text of the answer's tokens")
+            if c["null_messages"]:
+                problems.append(f"s{i}: {c['null_messages']} answer messages with a null value")
+        # 6. the delete over REST; the stand-in stops each pod whose
+        # StatefulSet is gone with SIGTERM
+        t_delete = time.monotonic()
+        body = await loop.run_in_executor(None, client.delete, APP_NAME)
+        out["delete_http_s"] = time.monotonic() - t_delete
+        if body != {"deleted": APP_NAME}:
+            problems.append(f"the delete answered {body}")
+        running = list(pods)
+        while running:
+            names = {s["metadata"]["name"] for s in kube.list("StatefulSet", K8S_NAMESPACE)}
+            for pod in [p for p in running if p["statefulset"] not in names]:
+                pod["stop"] = await loop.run_in_executor(None, pod["role"].stop)
+                pod["exited_after_delete_s"] = time.monotonic() - t_delete
+                running.remove(pod)
+            if running and time.monotonic() - t_delete > K8S_DEPLOYED_S:
+                raise AssertionError(f"k8s: StatefulSets {sorted(names)} outlived the delete")
+            await asyncio.sleep(0.05)
+        out["delete_to_last_pod_exit_s"] = time.monotonic() - t_delete
+        left = await loop.run_in_executor(None, _app_objects, kube)
+        if any(left.values()):
+            problems.append(f"left at the API server after the delete: {left}")
+        # the card's free memory back where the phase found it
+        t0 = time.monotonic()
+        while True:
+            free = torch.cuda.mem_get_info()[0]
+            if abs(free - out["memory"]["free_before_bytes"]) <= K8S_MEMORY_SLACK or \
+                    time.monotonic() - t0 > K8S_STOP_S:
+                break
+            await asyncio.sleep(0.2)
+        out["memory"]["free_after_bytes"] = free
+        if abs(free - out["memory"]["free_before_bytes"]) > K8S_MEMORY_SLACK:
+            problems.append(f"the card's free memory {free} after the delete, "
+                            f"{out['memory']['free_before_bytes']} before")
+        # the answers against the app phase's at this depth, or the direct path
+        ref = ctx.get("app_reference")
+        if ref and ref["layers"] == cfg.n_layers:
+            if [list(p) for p in ref["prompts"]] != [list(p) for p in prompts]:
+                raise AssertionError("k8s: the app phase's reference was served other prompts")
+            want, out["reference"] = ref["tokens"], "app phase"
+        else:
+            want, out["reference"] = await _k8s_direct(svc, questions, prompts), \
+                "direct path"
+        if got != want:
+            same = _same_or_tie(ctx, svc.model_config, svc.params(), "k8s", prompts, got, want)
+        else:
+            same = {"agreement": [1.0] * len(got), "ties": [], "equal": True, "ok": True}
+        if not same["ok"]:
+            problems.append(f"answers differ from the {out['reference']} beyond one-ulp ties: "
+                            f"{same['not_ties']}")
+        svc.close()
+        # the other roles stop; every process exits and its ports close
+        for role in (operator, gateway, api):
+            out[f"{role.name}_stop"] = await loop.run_in_executor(None, role.stop)
+        out["kafka_fake_stop"] = fake.close()
+        if not out["kafka_fake_stop"]["ok"]:
+            problems.append(f"the kafka fake did not stop cleanly: {out['kafka_fake_stop']}")
+        alive = [r.name for r in roles if r.proc.poll() is None]
+        ports = [p["port"] for p in pods] + [gw_port, api_port]
+        open_ports = [p for p in ports if _port_open(p)]
+        if alive or open_ports:
+            problems.append(f"still running: {alive}; ports still open: {open_ports}")
+        inbound = [served[tuple(p)]["submit_at"] - c["sent_at"] for c, p in zip(chats, prompts)]
+        outbound = [c["last_at"] - served[tuple(p)]["submit_at"] - served[tuple(p)]["total_s"]
+                    for c, p in zip(chats, prompts)]
+        tokens = sum(len(t) for t in got)
+        out.update({
+            "requests": len(questions), "layers": launch["layers"],
+            "prompt_tokens": [len(p) for p in prompts], "answer_tokens": [len(t) for t in got],
+            "client_ttft_s": [c["ttft_s"] for c in chats],
+            "engine_ttft_ms": [served[tuple(p)]["ttft_s"] * 1000.0 for p in prompts],
+            "inbound_ms": [s * 1000.0 for s in inbound],
+            "outbound_ms": [s * 1000.0 for s in outbound],
+            "messages": [c["messages"] for c in chats],
+            "wall_s": wall, "answer_tokens_per_s": tokens / wall,
+            "draw_and_capture_s": report.get("draw_and_capture_s"),
+            "pods": {p["name"]: {"init_s": p["init_s"], "start_to_info_s": p["info_s"],
+                                 "gpus": p["gpus"], "stop": p["stop"],
+                                 "exited_after_delete_s": p["exited_after_delete_s"]}
+                     for p in pods},
+            "committed": committed,
+            **{k: launch[k] for k in ("admit_groups", "decode_steps", "decode_chunks",
+                                      "graph_replays", "kernel_launches")},
+            "same_as_reference": {k: same[k] for k in ("agreement", "ties", "equal")},
+        })
+    finally:
+        for role in roles:
+            if role.proc.poll() is None:
+                role.stop()
+        fake.close()
+        if server is not None:
+            await server.stop()
+    if problems:
+        raise AssertionError("k8s: " + "; ".join(problems) + f" ({json.dumps(out)[:3000]})")
+    return out
+
+
+def phase_k8s(ctx: dict) -> None:
+    """The production instance on the card: a REST deploy reconciled by the
+    operator into StatefulSets, an operator-made pod serving llama-3-8b
+    over Kafka (module docstring, phase 28)."""
+    import asyncio
+    import gc
+
+    import torch
+
+    ctx.pop("params", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.monotonic()
+    run = asyncio.run(_k8s_run(ctx))
+    run["phase_s"] = time.monotonic() - t_phase
+    card = smi_line()
+    for i, (client, engine) in enumerate(zip(run["client_ttft_s"], run["engine_ttft_ms"])):
+        log(f"k8s s{i} ({run['prompt_tokens'][i]} prompt tokens, {run['answer_tokens'][i]} "
+            f"answer tokens, {run['messages'][i]} messages): client ttft {client * 1000.0:.1f} "
+            f"ms, engine ttft {engine:.1f} ms; send to submit {run['inbound_ms'][i]:.1f} ms, "
+            f"engine end to last message {run['outbound_ms'][i]:.1f} ms [{card}]")
+    kafka = ctx.get("brokers_kafka")
+    vs = (f" (brokers phase over kafka: {kafka['answer_tokens_per_s']:.1f} tokens/s, send to "
+          f"submit p50 {_percentiles(kafka['inbound_ms'])['p50']:.1f} ms)" if kafka else "")
+    pods = "; ".join(f"{name}: init {p['init_s']:.2f} s, start to /info "
+                     f"{p['start_to_info_s']:.2f} s, cards {p['gpus']}, exit {p['stop']['exit']}"
+                     for name, p in run["pods"].items())
+    log(f"k8s deploy: REST deploy {run['deploy_http_s']:.3f} s, deploy to Application "
+        f"DEPLOYED {run['deploy_to_deployed_s']:.3f} s, DEPLOYED to every StatefulSet "
+        f"{run['deployed_to_statefulsets_s']:.3f} s; {pods}; the chat pod's draw and capture "
+        f"{run['draw_and_capture_s']:.2f} s; deploy to the first answer token (the warm-up "
+        f"question's) {run['deploy_to_first_token_s']:.2f} s, its client ttft "
+        f"{run['warm_up_client_ttft_s']:.2f} s [{card}]")
+    log(f"k8s chat: {sum(run['answer_tokens'])} answer tokens in {run['wall_s']:.3f} s = "
+        f"{run['answer_tokens_per_s']:.1f} tokens/s{vs}; send to submit p50 "
+        f"{_percentiles(run['inbound_ms'])['p50']:.1f} ms, engine end to last message p50 "
+        f"{_percentiles(run['outbound_ms'])['p50']:.1f} ms; launches in the pod "
+        f"{json.dumps({k: n for k, n in run['kernel_launches'].items() if n})} = "
+        f"{run['layers']} x {run['admit_groups']} admit groups, {run['layers']} x "
+        f"{run['decode_steps']} decode steps; {run['graph_replays']} replays = "
+        f"{run['decode_chunks']} chunks; answers vs the {run['reference']} "
+        f"{json.dumps(run['same_as_reference'])}; committed at the broker "
+        f"{json.dumps(run['committed']['committed'])} [{card}]")
+    log(f"k8s operator: {run['operator']['passes']} reconcile passes, "
+        f"{run['operator']['watch_events']} watch events; delete over REST "
+        f"{run['delete_http_s']:.3f} s, delete to the last pod's exit "
+        f"{run['delete_to_last_pod_exit_s']:.3f} s; card files {json.dumps(run['card_files'])}, "
+        f"nvidia-smi compute pids {run['smi_compute_pids']}; free memory "
+        f"{run['memory']['free_before_bytes']} bytes before, "
+        f"{run['memory']['free_after_bytes']} after [{card}]")
+    log(f"k8s phase: {run['phase_s']:.1f} s [{card}]")
+    log(f"k8s tpu-completions llama-3-8b {json.dumps(run)}")
+    ctx["k8s"] = run
+    ctx.setdefault("summaries", []).append(("k8s", {
+        "deploy_to_deployed_s": run["deploy_to_deployed_s"],
+        "deployed_to_statefulsets_s": run["deployed_to_statefulsets_s"],
+        "pod_start_to_info_s": {n: p["start_to_info_s"] for n, p in run["pods"].items()},
+        "draw_and_capture_s": run["draw_and_capture_s"],
+        "deploy_to_first_token_s": run["deploy_to_first_token_s"],
+        "tokens_per_s": run["answer_tokens_per_s"], "operator": run["operator"],
+        "delete_to_last_pod_exit_s": run["delete_to_last_pod_exit_s"],
+        "phase_s": run["phase_s"]}))
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _replay_rate(torch, engine, chunks: int = 4) -> dict:
@@ -7838,8 +8599,8 @@ TIERED_FIRST_TURN = 40
 TIERED_SECOND_TURNS = (20, 120)  # the shortest and the longest second turn
 TIERED_NEW = 16
 TIERED_KW = {"max_seq_len": 2048, "prefix_cache": "auto"}
-# the arena: twice the pool's pages (320 at llama-3-8b's default: 5 GiB
-# pinned), every published prefix hibernating as soon as it is idle
+# the arena: twice the pool's pages (320 at the default: 1.25 GiB pinned at
+# SHALLOW_LAYERS), every published prefix hibernating as soon as it is idle
 TIERED_TIER = {"host_kv_fraction": 2.0, "spill_idle_s": 0.0}
 # a pool no session's prefix is ever evicted from (24 x 16 + 8 x 19 pages)
 TIERED_BIG_POOL = 640
@@ -7992,8 +8753,8 @@ def _restore_check(torch, engine, timer) -> dict:
     timed) and its new pages held against the first read; then the
     restore's parts timed alone: the checksum of the 16 slots (host; the
     engine's parallel ``read_slots``, and one slot after another on one
-    thread), their upload into free pages (device), and a 128 MiB pinned
-    host-to-device copy (the bound); and the spill's copy of the same pages
+    thread), their upload into free pages (device), and a pinned
+    host-to-device copy of the same bytes (the bound); and the spill's copy of the same pages
     (device). The entry is left hibernated."""
     from langstream_tpu_torch.serving.pagepool import HASH_THREADS, page_write
 
@@ -8249,10 +9010,9 @@ def _tiered_durable(ctx, cfg, histories, first, again, reference) -> dict:
     n = TIERED_DURABLE_SESSIONS
     root = ROOT / "build" / "durable"
     shutil.rmtree(root, ignore_errors=True)
-    resource = {"model": "llama-3-8b", "seed": ctx["seed"], "max-seq-len": 2048,
+    resource = {"model": cfg.name, "seed": ctx["seed"], "max-seq-len": 2048,
                 "max-batch": 8, "decode-chunk": 16, "page-size": PAGE, "prefix-cache": "auto",
                 "host-kv-fraction": 2.0, "durable-dir": str(root)}
-    ctx.pop("params", None)  # each provider draws the seeded tree itself
     gc.collect()
     torch.cuda.empty_cache()
     out: dict = {}
@@ -8289,7 +9049,6 @@ def _tiered_durable(ctx, cfg, histories, first, again, reference) -> dict:
         engine = holder.engine()
         out["b_build_s"] = time.perf_counter() - t0
         params = holder.params()
-        ctx["params"] = params
         rehydrated = engine.stats()["durable-entries"]
         if rehydrated != n:
             raise AssertionError(f"durable: provider B rehydrated {rehydrated} of {n} sessions")
@@ -8355,16 +9114,26 @@ def _tiered_durable(ctx, cfg, histories, first, again, reference) -> dict:
 
 def phase_tiered(ctx: dict) -> None:
     """The host KV tier and the durable tier at llama-3-8b's full width and
-    depth (module docstring, phase 15): the reference, tier-off and tiered
+    ``SHALLOW_LAYERS`` of its depth (module docstring, phase 15): the reference, tier-off and tiered
     engines over the two rounds, the restore check and its timings, the
     decode step beside a spill, the ``spill@1`` drill, the int8 pass and the
     durable pass."""
+    import gc
+
     import torch
 
+    from langstream_tpu_torch.models.bridge import init_params
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
 
-    cfg = MODEL_PRESETS["llama-3-8b"]
-    params = _llama_params(ctx)
+    # SHALLOW_LAYERS of llama-3-8b, drawn from the seed as the
+    # durable pass's providers of the same preset draw it: their tokens are
+    # held to this tree's reference
+    cfg = MODEL_PRESETS[_shallow_model()]
+    ctx.pop("params", None)  # the 32-layer tree; a later phase draws it again
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(ctx["seed"]),
+                         device="cuda")
     histories, first, again = _tiered_prompts(ctx["seed"])
     timer = Timer(torch)
     # the reference: a pool no prefix is evicted from
@@ -9091,7 +9860,7 @@ def _bind_beside_decode(torch, dec, prompt) -> dict:
 # fleet_http: the fleet across two processes on one card
 # ---------------------------------------------------------------------------
 
-FLEET_HTTP_MODEL = "llama-3-8b"
+FLEET_HTTP_MODEL = "llama-3-8b-shallow"  # 4 layers at full width: the default run's time
 FLEET_HTTP_DEVICE = "cuda"
 # the drill's prompt, the prompt that proves both processes hold the same
 # weights, and the cancelled request's (all past the prefill threshold,
@@ -9545,7 +10314,9 @@ SPMD_NEW = 64
 SPMD_KW = {"max_seq_len": 2048, "prefix_cache": "auto", "speculation": "auto",
            "speculation_tokens": 4}
 SPMD_WATCHDOG_S = 2.0
-SPMD_SERVE = {"model": "llama-3-8b", "max-seq-len": 2048, "max-batch": 8, "decode-chunk": 16,
+# (b) and (c): the package's 4-layer preset at llama-3-8b's width (the
+# follower process draws its tree by name; the default run's time)
+SPMD_SERVE = {"model": "llama-3-8b-shallow", "max-seq-len": 2048, "max-batch": 8, "decode-chunk": 16,
               "page-size": PAGE}
 SPMD_PROC_NEW = 32
 SPMD_PROC_BYTES = (40, 80, 120, 160, 200, 240, 280, 320)
@@ -9752,7 +10523,7 @@ def _spmd_loopback(ctx, cfg, params) -> dict:
     return out
 
 
-def _spmd_two_processes(ctx, cfg, params) -> dict:
+def _spmd_two_processes(ctx, cfg) -> dict:
     """Part (b): the provider with ``mesh: {data: 2}`` from the port's
     registry — this process rank 0, the follower process on the same card —
     serves 8 requests with echo on; each process launches layers x (the
@@ -9773,8 +10544,7 @@ def _spmd_two_processes(ctx, cfg, params) -> dict:
         "spmd-parity-echo": True, "prefix-cache": "auto", "speculation": "auto"})
     t0 = time.monotonic()
     provider = REGISTRY.resource("tpu-serving").factory(resource)
-    provider.holder._params = params  # the seeded tree (the follower draws the same)
-    svc = provider.get_completions_service({})
+    svc = provider.get_completions_service({})  # both ranks draw the seeded tree
     try:
         svc.engine()  # built, captured and started: the follower captures as announced
         start_s = time.monotonic() - t0
@@ -9832,7 +10602,7 @@ def _spmd_two_processes(ctx, cfg, params) -> dict:
     }
 
 
-def _spmd_world1(ctx, cfg, params) -> dict:
+def _spmd_world1(ctx) -> dict:
     """Part (c): the provider with ``mesh: {model: 1}`` — a world-1 NCCL
     group, the TP collectives inside the captured chunks — against one
     without a mesh on the same weights: each request served alone, tokens
@@ -9848,8 +10618,7 @@ def _spmd_world1(ctx, cfg, params) -> dict:
     runs = {}
     for label, extra in (("no_mesh", {}), ("mesh_model1", {"mesh": {"model": 1}})):
         provider = REGISTRY.resource("tpu-serving").factory(
-            dict(SPMD_SERVE, seed=ctx["seed"], **extra))
-        provider.holder._params = params
+            dict(SPMD_SERVE, seed=ctx["seed"], **extra))  # both draw the seeded tree
         svc = provider.get_completions_service({})
         try:
             engine = svc.engine()
@@ -9869,7 +10638,7 @@ def _spmd_world1(ctx, cfg, params) -> dict:
 
 def phase_spmd(ctx: dict) -> None:
     """The SPMD plane on the card at llama-3-8b's full width: (a) at
-    ``SHALLOW_LAYERS`` depth, (b) and (c) at full depth."""
+    ``SHALLOW_LAYERS`` depth, (b) and (c) at ``SPMD_SERVE``'s 4 layers."""
     from langstream_tpu_torch.models.configs import MODEL_PRESETS
 
     cfg = MODEL_PRESETS["llama-3-8b"]
@@ -9879,11 +10648,15 @@ def phase_spmd(ctx: dict) -> None:
     pair["part_s"] = time.monotonic() - t
     log(f"spmd loopback llama-3-8b bf16 {json.dumps(pair)}")
     t = time.monotonic()
-    procs = _spmd_two_processes(ctx, cfg, params)
+    # (b) and (c) draw SPMD_SERVE's tree (part (b) collects this one); a
+    # later phase draws it again
+    ctx.pop("params", None)
+    params = None
+    procs = _spmd_two_processes(ctx, MODEL_PRESETS[SPMD_SERVE["model"]])
     procs["part_s"] = time.monotonic() - t
     log(f"spmd two processes {{data: 2}} {json.dumps(procs)}")
     t = time.monotonic()
-    world1 = _spmd_world1(ctx, cfg, params)
+    world1 = _spmd_world1(ctx)
     world1["part_s"] = time.monotonic() - t
     log(f"spmd world-1 nccl {{model: 1}} {json.dumps(world1)}")
     ctx.setdefault("summaries", []).append(("spmd", {
@@ -10232,7 +11005,7 @@ def kernel_record(ctx: dict) -> dict:
               "spec", "agentic", "dense_spec", "dense_prefix", "dense_prefix_int8", "tiered",
               "fleet", "fleet_http", "spmd", "spmd_leader", "spmd_follower", "ring", "ring_int8",
               "load", "moe", "app", "rag", "remote", "python", "control", "brokers_kafka",
-              "brokers_pulsar", "brokers_pravega")
+              "brokers_pulsar", "brokers_pravega", "k8s")
     out = []
     for name, (src, replaces, path) in sources.items():
         runs = ctx.get("kernel_runs", {}).get(name)
@@ -10323,6 +11096,7 @@ def main() -> int:
         return 0
     ctx: dict = {"seed": args.seed}
     t_all = time.monotonic()
+    faulthandler.dump_traceback_later(STACKS_AT_S, exit=False)
     phase_s: dict = {}
     for phase in PHASES:
         if phase in phases:
@@ -10330,6 +11104,11 @@ def main() -> int:
             globals()[f"phase_{phase}"](ctx)
             phase_s[phase] = round(time.monotonic() - t0, 1)
             log(f"phase {phase}: {phase_s[phase]:.1f}s")
+            # on stderr as well, beside the phases' own warnings: the
+            # progress of a run that was cut
+            print(f"phase {phase}: {phase_s[phase]:.1f}s after "
+                  f"{time.monotonic() - t_all:.1f}s", file=sys.stderr, flush=True)
+    faulthandler.cancel_dump_traceback_later()
     # every phase's seconds again on one line (the tool keeps the output's
     # tail, where the phase lines of a full run have scrolled away)
     log(f"all phases: {time.monotonic() - t_all:.1f}s {json.dumps(phase_s)}")

@@ -98,24 +98,54 @@ class ServiceProviderRegistry:
     (the JAX package's ``ServiceProviderRegistry``): every resource whose
     type the registry knows is built by its factory — a ``ServiceProvider``
     is a provider, anything else a datasource. Agents ask by resource id,
-    or take the first one declared."""
+    or take the first one declared.
 
-    def __init__(self, application: Optional[Any] = None) -> None:
+    ``lazy``: build each resource when an agent first asks for it (or for
+    the first one declared), not all at once. A pod runs one agent of the
+    application but carries every resource, and the ``tpu-serving``
+    provider resolves its card when it is built: a pod that asks for no card
+    must not build it (the JAX provider touches no device until its engine
+    is built)."""
+
+    def __init__(self, application: Optional[Any] = None, lazy: bool = False) -> None:
         self._providers: dict[str, ServiceProvider] = {}
         self._datasources: dict[str, Any] = {}
         self._resources: dict[str, Any] = {}
+        # resource id → (factory, resource) not built yet, in declaration order
+        self._pending: dict[str, tuple[Callable[[dict], Any], Any]] = {}
+        self._order: list[str] = []
         if application is not None:
             from langstream_tpu_torch.core.registry import REGISTRY
 
             for rid, resource in application.resources.items():
                 info = REGISTRY.resource(resource.type)
                 if info is not None and info.factory is not None:
-                    provider = info.factory(resource.configuration)
-                    if isinstance(provider, ServiceProvider):
-                        self._providers[rid] = provider
-                    else:
-                        self._datasources[rid] = provider
-                    self._resources[rid] = resource
+                    self._pending[rid] = (info.factory, resource)
+                    self._order.append(rid)
+            if not lazy:
+                for rid in self._order:
+                    self._build(rid)
+
+    def _build(self, rid: str) -> None:
+        entry = self._pending.pop(rid, None)
+        if entry is None:
+            return
+        factory, resource = entry
+        provider = factory(resource.configuration)
+        if isinstance(provider, ServiceProvider):
+            self._providers[rid] = provider
+        else:
+            self._datasources[rid] = provider
+        self._resources[rid] = resource
+
+    def _first(self, built: dict) -> Any:
+        """The first resource declared among ``built``'s kind, building the
+        pending ones before it in declaration order."""
+        for rid in self._order:
+            self._build(rid)
+            if rid in built:
+                return built[rid]
+        return next(iter(built.values())) if built else None
 
     def register(self, resource_id: str, provider: ServiceProvider) -> None:
         self._providers[resource_id] = provider
@@ -125,33 +155,37 @@ class ServiceProviderRegistry:
 
     def get_datasource(self, resource_id: Optional[str] = None) -> Any:
         if resource_id is not None:
+            self._build(resource_id)
             if resource_id not in self._datasources:
                 raise ValueError(
                     f"no datasource for resource {resource_id!r}; "
                     f"known: {sorted(self._datasources)}"
                 )
             return self._datasources[resource_id]
-        if not self._datasources:
+        first = self._first(self._datasources)
+        if first is None:
             raise ValueError(
                 "no datasource configured; declare a configuration.resources "
                 "entry of type datasource/vector-database"
             )
-        return next(iter(self._datasources.values()))
+        return first
 
     def get_provider(self, resource_id: Optional[str] = None) -> ServiceProvider:
         if resource_id is not None:
+            self._build(resource_id)
             if resource_id not in self._providers:
                 raise ValueError(
                     f"no AI service provider for resource {resource_id!r}; "
                     f"known: {sorted(self._providers)}"
                 )
             return self._providers[resource_id]
-        if not self._providers:
+        first = self._first(self._providers)
+        if first is None:
             raise ValueError(
                 "no AI service provider configured; declare a configuration.resources "
                 "entry (e.g. type tpu-serving)"
             )
-        return next(iter(self._providers.values()))
+        return first
 
     async def close(self) -> None:
         import logging

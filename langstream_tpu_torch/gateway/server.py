@@ -146,6 +146,47 @@ class UnsupportedTopologyError(Exception):
     this process (maps to HTTP 400, not 404)."""
 
 
+class StoreApplicationProvider:
+    """Resolves applications from a control-plane ApplicationStore (the
+    standalone-gateway deployment: gateway pod + control plane share the
+    store; reference gateway resolves via the k8s application store). A
+    broker-backed application gets one topic runtime, made once from the
+    port's ``messaging/registry.py``; the in-memory broker is refused."""
+
+    def __init__(self, store: Any) -> None:
+        self.store = store
+        self._runtimes: dict[tuple[str, str], TopicConnectionsRuntime] = {}
+
+    async def get_application(self, tenant: str, application_id: str) -> GatewayApplication:
+        stored = self.store.get(tenant, application_id)
+        if stored is None:
+            raise KeyError(f"application {tenant}/{application_id} not found")
+        key = (tenant, application_id)
+        runtime = self._runtimes.get(key)
+        if runtime is None:
+            from langstream_tpu_torch.messaging.registry import get_topic_connections_runtime
+
+            streaming = stored.application.instance.streaming_cluster
+            if streaming.type == "memory":
+                # the in-memory broker is process-local: a standalone gateway
+                # cannot reach the agents' broker in another process — this
+                # topology needs a real broker (kafka/pulsar/pravega)
+                raise UnsupportedTopologyError(
+                    f"application {tenant}/{application_id} uses the in-memory "
+                    "broker, which a standalone gateway process cannot reach; "
+                    "use `run local` (embedded gateway) or a broker-backed "
+                    "streamingCluster"
+                )
+            runtime = get_topic_connections_runtime(streaming.type)
+            await runtime.init(streaming.configuration)
+            # another request may have made one while this one awaited
+            runtime = self._runtimes.setdefault(key, runtime)
+        return GatewayApplication(stored.application, runtime)
+
+    def agent_service_uri(self, tenant: str, application_id: str, agent_id: str) -> Optional[str]:
+        return None
+
+
 class GatewayServer:
     def __init__(
         self,

@@ -294,7 +294,10 @@ class ControlPlaneServer:
     async def _get(self, request: Request) -> Response:
         tenant = request.match_info["tenant"]
         self._check_tenant(tenant)
-        return _json(self.applications.describe(tenant, request.match_info["name"]))
+        # the status may come from a Kubernetes API server (a blocking
+        # client): read it on a worker thread, never on this loop
+        return _json(await asyncio.to_thread(
+            self.applications.describe, tenant, request.match_info["name"]))
 
     async def _delete(self, request: Request) -> Response:
         tenant = request.match_info["tenant"]
@@ -315,7 +318,7 @@ class ControlPlaneServer:
         follow = request.query.get("follow") in ("1", "true", "yes")
         replica = request.query.get("filter") or None
         if not follow:
-            lines = self.applications.logs(tenant, name)
+            lines = await asyncio.to_thread(self.applications.logs, tenant, name)
             if replica:
                 lines = [ln for ln in lines if ln.startswith(f"{replica}:")]
             return Response(200, "\n".join(lines).encode(), "text/plain; charset=utf-8")

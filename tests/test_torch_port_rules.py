@@ -135,6 +135,17 @@ def test_port_files_exist():
         "langstream_tpu_torch/messaging/fake_rest.py",
         "langstream_tpu_torch/messaging/fake_process.py",
         "langstream_tpu_torch/agents/connect.py",
+        "langstream_tpu_torch/k8s/__init__.py",
+        "langstream_tpu_torch/k8s/crds.py",
+        "langstream_tpu_torch/k8s/differ.py",
+        "langstream_tpu_torch/k8s/fake.py",
+        "langstream_tpu_torch/k8s/client.py",
+        "langstream_tpu_torch/k8s/http_fake.py",
+        "langstream_tpu_torch/k8s/resources.py",
+        "langstream_tpu_torch/k8s/controllers.py",
+        "langstream_tpu_torch/k8s/runtime_manager.py",
+        "langstream_tpu_torch/k8s/helm_render.py",
+        "langstream_tpu_torch/entrypoint.py",
         "chip_smoke.py",
     ):
         assert mod in rel
@@ -334,6 +345,37 @@ def test_no_cuda_raises_at_a_control_plane_deploy(monkeypatch, app):
                                {"Content-Type": ctype})
         assert status == 500 and "CUDA is not available" in json.loads(data)["error"]
         assert plane.runtime.get_runner("default", app) is None
+    MemoryBroker.reset()
+
+
+def test_no_cuda_raises_at_the_agent_runtime_role(monkeypatch):
+    """The pod role ``agent-runtime``, booted from the pod configuration
+    that the port's deployer writes for tpu-completions' chat agent (its
+    ``tpu-serving`` resource names no device), refuses the card it does not
+    have instead of serving on the CPU."""
+    import json
+
+    from langstream_tpu_torch.entrypoint import run_agent_runtime
+    from langstream_tpu_torch.k8s.controllers import Operator
+    from langstream_tpu_torch.k8s.crds import ApplicationCustomResource
+    from langstream_tpu_torch.k8s.fake import FakeKubeServer
+    from langstream_tpu_torch.messaging.memory import MemoryBroker
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("HTTP_HOST", "127.0.0.1")
+    app = ROOT / "examples" / "applications" / "tpu-completions"
+    kube = FakeKubeServer()
+    Operator(kube)
+    kube.apply(ApplicationCustomResource(
+        name="app", namespace="ns", tenant="default",
+        package_files={p.name: p.read_text() for p in app.glob("*.yaml")},
+        instance_text=(ROOT / "examples" / "instances" / "local-memory.yaml").read_text(),
+    ).to_manifest())
+    (secret,) = kube.list("Secret", "ns")
+    pod = json.loads(secret["stringData"]["pod-configuration"])
+    assert "device" not in pod["resources"]["tpu"]["configuration"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        asyncio.run(run_agent_runtime({**pod, "httpPort": 0}))
     MemoryBroker.reset()
 
 
