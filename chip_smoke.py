@@ -669,6 +669,20 @@ checkout (say the parent commit, unpacked with ``git archive <commit> | tar
 -x -C build/parent``) with this one's, running ``--phases build,kernels``
 from each in the order parent, change, change, parent.
 
+Every run (the default one, a partial one, ``--ab``) runs under the port's
+lock-order recorder (``langstream_tpu_torch.analysis.lockorder``), armed
+right after the arguments are parsed and before any module of the port is
+imported (a module-level lock made earlier would go untracked): every
+``threading.Lock`` made in a ``langstream_tpu_torch`` frame in this process
+records which lock its thread held when it took it, across every phase at
+that phase's own width and depth. Before the kernels record the run prints
+``lockorder {...}``: the lock sites tracked, the locks made, the distinct
+edges, the tracked acquisitions, the cycles, and the host cost of one
+tracked acquire beside a real one (a loop of 1e5 on the host); any cycle in
+the edge graph fails the run with the recorder's report. Child processes
+(the SPMD follower, the ``fleet_http`` replica, the gRPC child, the broker
+fakes, the ``k8s`` pods) run their own ``threading`` and are not watched.
+
 Every check raises on failure, so any failure exits non-zero. On success
 the last three lines are the ``{"kernels": [...]}`` record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``;
@@ -11040,6 +11054,40 @@ def kernel_record(ctx: dict) -> dict:
     return {"kernels": out}
 
 
+def arm_lockorder():
+    """Install the port's lock-order recorder before any module of the port
+    is imported (a lock made at import before the factory is in place goes
+    untracked) → the recorder. Importing it loads the package's
+    ``__init__`` (no lock, no torch) and the stdlib-only ``analysis``
+    package, nothing else of the port."""
+    early = sorted(m for m in sys.modules if m.split(".")[0] == "langstream_tpu_torch")
+    if early:
+        raise AssertionError(f"port modules imported before the recorder: {early}")
+    from langstream_tpu_torch.analysis import lockorder
+
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] == "langstream_tpu_torch"
+                    and m != "langstream_tpu_torch"
+                    and not m.startswith("langstream_tpu_torch.analysis"))
+    if loaded:
+        raise AssertionError(f"arming the recorder imported port modules: {loaded}")
+    return lockorder.activate()
+
+
+def lockorder_line(rec) -> dict:
+    """What the recorder saw over the run, and the host cost of one tracked
+    acquire against a real one; raises with the report on any cycle."""
+    from langstream_tpu_torch.analysis import lockorder
+
+    out = rec.summary()
+    cost = lockorder.acquire_cost_ns(100_000)
+    out.update(tracked_acquire_ns=round(cost["tracked_ns"], 1),
+               real_acquire_ns=round(cost["real_ns"], 1), cost_loop=cost["n"],
+               edge_list=[[a, b, n] for (a, b), n in sorted(rec.edges().items())])
+    if out["cycles"]:
+        raise AssertionError(f"lock-order cycle(s) in the port:\n{rec.report()}")
+    return out
+
+
 def ab_times(parent: Path) -> dict[str, list]:
     """Kernel times of another checkout (``parent``) and this one on one
     card: ``chip_smoke.py --phases build,kernels`` run from each, in the
@@ -11079,18 +11127,20 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository "
               "(langstream_tpu_torch/ not found beside this script)", file=sys.stderr)
         return 2
+    sys.path.insert(0, str(ROOT))
+    recorder = arm_lockorder()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     if args.ab is not None:
         for key, runs in ab_times(args.ab.resolve()).items():
             log(f"ab {key}: " + " ".join(f"{label}={ms:.5f}" for label, ms in runs))
+        log(f"lockorder {json.dumps(lockorder_line(recorder))}")
         print(smi_line())
         print(json.dumps({"partial": True, "ab": str(args.ab)}))
         return 0
@@ -11115,6 +11165,7 @@ def main() -> int:
     for name, summary in ctx.get("summaries", []):
         log(f"{name} summary {json.dumps(summary)}")
     complete = set(DEFAULT_PHASES) <= set(phases)
+    log(f"lockorder {json.dumps(lockorder_line(recorder))}")
     record = kernel_record(ctx)
     if complete:
         for k in record["kernels"]:

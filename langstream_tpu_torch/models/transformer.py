@@ -150,12 +150,13 @@ def _rope_inv_freqs(config: ModelConfig, device: torch.device) -> torch.Tensor:
         # f32 pow correctly rounded (as XLA computes it): PyTorch's f32 pow
         # can land 1 ulp off, which moves angles at long positions by p * ulp
         freqs = torch.pow(
-            torch.tensor(config.rope_theta, dtype=torch.float64, device=device),
+            torch.full((), config.rope_theta, dtype=torch.float64, device=device),
             exponent.double(),
         ).float()
         if config.rope_scaling_factor:
             freqs = _llama3_rope_scale(freqs, config)
         if freqs.device.type == "cuda":
+            # lstpu: ignore[LSA302] — a cache miss: the warm-up before every capture fills it
             torch.cuda.current_stream(freqs.device).synchronize()
         freqs = _ROPE_FREQS.setdefault(key, freqs)
     return freqs
@@ -175,7 +176,7 @@ def _llama3_rope_scale(freqs: torch.Tensor, config: ModelConfig) -> torch.Tensor
     the transition wavelength band."""
 
     def f32(x: float) -> torch.Tensor:
-        return torch.tensor(x, dtype=torch.float32, device=freqs.device)
+        return torch.full((), x, dtype=torch.float32, device=freqs.device)
 
     factor = f32(config.rope_scaling_factor)
     low = f32(config.rope_scaling_low_freq_factor)
@@ -786,9 +787,10 @@ def _embed(params: Params, tokens: torch.Tensor, config: ModelConfig,
         key = (config.d_model, x.dtype, str(x.device))
         scale = _EMBED_SCALES.get(key)
         if scale is None:  # cached for capture, as the rope frequencies
-            scale = torch.sqrt(torch.tensor(float(config.d_model), dtype=torch.float32))
+            scale = torch.sqrt(torch.full((), float(config.d_model), dtype=torch.float32))
             scale = scale.to(x.dtype).to(x.device)
             if scale.device.type == "cuda":  # read by other threads' streams too
+                # lstpu: ignore[LSA302] — a cache miss: the warm-up before every capture fills it
                 torch.cuda.current_stream(scale.device).synchronize()
             scale = _EMBED_SCALES.setdefault(key, scale)
         x = x * scale

@@ -118,7 +118,7 @@ def ring_attention(
     group = h // hkv
     b, sl, _, d = q.shape
     dev = q.device
-    scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32, device=dev))
+    scale = 1.0 / torch.sqrt(torch.full((), d, dtype=torch.float32, device=dev))
 
     qg = q.reshape(b, sl, hkv, group, d)
     q_pos = my * sl + torch.arange(sl, device=dev)  # global positions of local queries
@@ -137,7 +137,7 @@ def ring_attention(
             r1 = min(sl, r0 + tile)
             scores = torch.einsum("bshgd,bthd->bhgst", qg[:, r0:r1], k_blk).float() * scale
             if config.attn_logit_softcap is not None:
-                cap = torch.tensor(config.attn_logit_softcap, dtype=torch.float32, device=dev)
+                cap = torch.full((), config.attn_logit_softcap, dtype=torch.float32, device=dev)
                 scores = torch.tanh(scores / cap) * cap
             causal = kv_pos[None, :] <= q_pos[r0:r1, None]  # [rows, T]
             scores = torch.where(causal[None, None, None], scores, _NEG)

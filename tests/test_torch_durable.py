@@ -13,7 +13,8 @@ CPU (tiny-test, f32).
 - The engine: a session checkpointed by one engine and restored by a new
   engine on the same directory gives the JAX engine's tokens (replica
   death and resurrection); ``hibernate`` checkpoints every live session;
-  the ``disk-corrupt`` / ``disk-stall`` / ``disk-full`` drills end in a cold
+  the ``disk-corrupt`` / ``disk-torn`` / ``disk-stall`` / ``disk-full`` drills
+  (``disk-torn`` also held against the JAX store under the same spec) end in a cold
   prefill (or an unaffected serve) with the right tokens, the
   ``durable-restore-failed`` dump and both free lists full; the plan's disk
   term; the provider's durable keys and its hibernating ``close()``.
@@ -432,6 +433,77 @@ def test_disk_corrupt_drill_degrades_to_cold_prefill_with_dump(tmp_path):
     assert validate_flight_dump(dump) and dump["extra"]["fallback"] == "local-cold-prefill"
     assert "tokens" not in dump["extra"]
     assert after["durable-restore-failures-total"] == stats["durable-restore-failures-total"]
+    assert_leak_free(b)
+
+
+def test_disk_torn_store_reads_as_dead_as_jax(tmp_path):
+    """``disk-torn`` truncates the data file after the write under a valid
+    manifest: the port's store and the JAX store, each under the same
+    injector spec, leave the same torn bytes and manifest; the writer's own
+    restore fails (DurableError, the entry and its files gone, one failure)
+    and a fresh store's rehydrate reads the size mismatch as a dead entry,
+    in both packages alike."""
+    from langstream_tpu.serving.faultinject import FaultInjector as JaxInjector
+
+    pages, sums = _raw_pages(n=3, nbytes=512, seed=11)
+    injectors = {"jax": lambda: JaxInjector("disk-torn@1", seed=0),
+                 "port": lambda: FaultInjector("disk-torn@1", seed=0)}
+    classes = {"jax": jdur.DurableStore, "port": DurableStore}
+    seen = {}
+    for name, cls in classes.items():
+        for phase in ("restore", "rehydrate"):
+            root = str(tmp_path / name / phase)
+            store = cls(root, injector=injectors[name]())
+            nbytes = store.checkpoint("cd" * 8, 48, list(range(48)), pages, sums, 16, 512)
+            assert store._fault.fired["disk-torn"] == 1
+            data = os.path.join(root, "cd" * 8 + DATA_SUFFIX)
+            with open(data, "rb") as f:
+                body = f.read()
+            with open(os.path.join(root, "cd" * 8 + MANIFEST_SUFFIX)) as f:
+                manifest = json.load(f)
+            manifest.pop("created")
+            assert 0 < len(body) < nbytes == manifest["bytes"]
+            seen.setdefault(name, (body, manifest))
+            if phase == "restore":
+                with pytest.raises(cls.__module__ == DurableStore.__module__
+                                   and DurableError or jdur.DurableError):
+                    store.restore("cd" * 8)
+                reader = store
+                assert reader.stats()["durable-restore-failures-total"] == 1
+            else:
+                reader = cls(root)
+                assert reader.rehydrate() == 0
+                assert reader.stats()["durable-dead-entries-total"] == 1
+            assert not reader.contains("cd" * 8) and not os.path.exists(data)
+    assert seen["port"] == seen["jax"]
+
+
+def test_disk_torn_drill_starts_the_session_cold(tmp_path):
+    """A torn checkpoint (the data file cut short after its write, the
+    manifest valid): the new engine's rehydrate reads it as dead, and the
+    session starts cold with the JAX engine's tokens — no restore tried, no
+    restart, both free lists full."""
+    want_a, _ = jax_tokens()
+    a = port_engine(durable_dir=tmp_path, fault_injector=FaultInjector("disk-torn@1", seed=0))
+    try:
+        assert a.generate(list(PROMPT_A), GenerationOptions(**GREEDY), timeout=WAIT).tokens \
+            == want_a
+        wait_stat(a, "durable-checkpoints-total", 1)
+        assert a._injector.fired["disk-torn"] == 1
+    finally:
+        a.stop()
+    b = port_engine(durable_dir=tmp_path)
+    try:
+        boot = b.stats()
+        booted = b._durable.contains(prefix_digest(PROMPT_A[:32]))
+        got = b.generate(list(PROMPT_A), GenerationOptions(**GREEDY), timeout=WAIT).tokens
+        stats = b.stats()
+    finally:
+        b.stop()
+    assert boot["durable-dead-entries-total"] >= 1 and not booted
+    assert got == want_a, "the cold start after a torn checkpoint diverged"
+    assert stats["durable-restored-hits-total"] == 0 and stats["durable-restores-total"] == 0
+    assert stats["engine-restarts-total"] == 0
     assert_leak_free(b)
 
 

@@ -20,7 +20,9 @@ against the JAX package's, on the CPU (tiny-test, f32, page 16).
   ``page_size``); the owner keeps its entry.
 - Drills: ``net-connect``, ``net-cut``, ``net-stall``, ``net-corrupt`` fail
   the hop as JAX's do; a migration cut mid-body leaves the sender's copy and
-  the receiver's free pages as they were.
+  the receiver's free pages as they were; a stream cut mid-way over HTTP
+  resumes warm on an in-process survivor with one contiguous seq and the
+  JAX engine's tokens, and the router's failover dump validates.
 - Cancel: a ``cancel-key`` cancelled in the router's process frees the
   remote slot (``POST /fleet/cancel``).
 - The provider: ``fleet: auto`` with one peer gives the JAX provider's
@@ -69,6 +71,7 @@ from langstream_tpu_torch.serving import migrate as tmig
 from langstream_tpu_torch.serving import wire as twire
 from langstream_tpu_torch.serving.engine import ServingEngine
 from langstream_tpu_torch.serving.faultinject import FaultInjector
+from langstream_tpu_torch.serving.observability import validate_flight_dump
 from langstream_tpu_torch.serving.pagepool import np_view, page_checksum, pool_leaves
 from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
 
@@ -684,6 +687,61 @@ def _slot_freed(engine) -> None:
     while time.monotonic() < deadline and engine.stats()["active-slots"]:
         time.sleep(0.05)
     assert engine.stats()["active-slots"] == 0, "an abandoned stream kept its slot"
+
+
+def test_mid_stream_net_cut_warm_failover_drill(engines, port_server):
+    """Cut the wire after 8 or more streamed tokens on a two-replica fleet
+    (the victim behind the port's server, the survivor in process): the
+    client gets one complete stream with one contiguous seq, the JAX
+    engine's uninterrupted tokens; the survivor resumes WARM (prefix reuse);
+    the router dumps ``fleet-failover`` with the hop's frame trace and no
+    token content; no restart; the victim frees its slot (JAX's
+    ``tests/test_fleet_wire.py::test_mid_stream_net_cut_warm_failover_drill``)."""
+    budget = 24
+    victim, survivor = engines["slow"], engines["port"]
+    ref = reference(engines, PROMPT, budget)
+    # the survivor publishes the prompt's prefix (what makes the resume warm)
+    assert survivor.generate(list(PROMPT), GenerationOptions(max_new_tokens=budget),
+                             timeout=WAIT).tokens == ref
+    # the victim holds the same warm prefix, so affinity routes there first
+    victim.generate(list(PROMPT), GenerationOptions(max_new_tokens=2), timeout=WAIT)
+    saved_before = survivor.stats()["prefill-tokens-saved-total"]
+    restarts_before = (victim.stats()["engine-restarts-total"],
+                       survivor.stats()["engine-restarts-total"])
+    tfleet.set_wire_injector(FaultInjector("net-cut@12", seed=0))
+    with serving(tfleet, victim, "victim"):
+        router = tfleet.FleetRouter(
+            [tfleet.HttpReplica("victim", port_server.url),
+             tfleet.InProcessReplica("survivor", survivor)],
+            refresh_interval_s=3600.0, lam=16.0, fail_cooldown_s=3600.0)
+        router.refresh_all()
+        # the first route lands on the victim: both advertise the same
+        # match, so the survivor reads as loaded
+        router._replicas["survivor"].beacon["load_score"] = 5.0
+        frames, tokens = drain_frames(router.stream_generate(
+            PROMPT, {"max-tokens": budget, "temperature": 0.0}))
+    by_replica: dict = {}
+    for f in frames:
+        if f["kind"] == "tokens":
+            by_replica.setdefault(f["replica"], []).extend(f["tokens"])
+    assert len(by_replica.get("victim", [])) >= 8, by_replica
+    assert by_replica.get("survivor"), "no failover happened"
+    assert tokens == ref, "the resumed stream diverged from the uninterrupted reference"
+    end = frames[-1]
+    assert end["kind"] == "end" and end["failovers"] == 1 and end["replica"] == "survivor"
+    assert end["completion_tokens"] == len(tokens)
+    assert survivor.stats()["prefill-tokens-saved-total"] > saved_before  # warm
+    assert router.stream_failover_total == 1 and router.failover_total == 1
+    dump = router._flight.last_dump
+    assert dump is not None and dump["reason"] == "fleet-failover"
+    assert validate_flight_dump(dump)
+    assert dump["extra"]["victim"] == "victim" and dump["extra"]["delivered"] >= 8
+    assert dump["extra"]["frames"], "the dump carries no frame trace"
+    assert all("tokens" not in f for f in dump["extra"]["frames"])
+    assert (victim.stats()["engine-restarts-total"],
+            survivor.stats()["engine-restarts-total"]) == restarts_before
+    _slot_freed(victim)
+    assert router.stats()["fleet-hop-p50-ms"] > 0
 
 
 @pytest.mark.parametrize("client, wire", [("port", "v1"), ("port", "v2"), ("jax", "v2")])

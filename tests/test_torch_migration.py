@@ -18,7 +18,9 @@ reference attention, "jnp", as the other int8 engine tests).
   "dec") gives the JAX engine's unmigrated greedy tokens, repoints the
   sticky session, and both drills decode in place with a valid
   ``migrate-failed`` dump; a P2P fetch copies an owner's pages and the
-  routed engine admits warm; a constrained stream resumes mid-derivation
+  routed engine admits warm, and a fetch that fails (a corrupt page, a cut
+  wire, a vanished owner) falls back to a cold prefill with its counter
+  and its dump; a constrained stream resumes mid-derivation
   from the DFA state its frames carried, and is refused without one.
 - Across packages: frames a JAX engine exports (v1 ``data`` and v2
   ``raw``) bind into a port engine, and the port's into a JAX engine; each
@@ -54,6 +56,7 @@ from langstream_tpu_torch.serving.fleet import (
     FleetRouter,
     InProcessReplica,
     ReplicaError,
+    RouteDecision,
     set_wire_injector,
 )
 from langstream_tpu_torch.serving.memory import plan_serving_memory
@@ -799,6 +802,67 @@ def test_p2p_fetch_admits_warm_and_the_owner_keeps_its_pages(pair, jax_pair):
     assert st["fleet-p2p-bytes-in-total"] == 2 * a._pagepool.bytes_per_page
     assert b.stats()["prefill-tokens-saved-total"] - saved0 == 32
     assert a._prefix_index.deepest_entry(prompt) is not None  # a fetch copies
+    leak_assert(a)
+    leak_assert(b)
+
+
+def test_p2p_fetch_failures_fall_back_to_a_cold_prefill(pair, jax_pair):
+    """Every failed P2P fetch — a page corrupted on the wire (``migrate@1``:
+    its checksum fails), the wire cut mid-fetch (``net-cut@1``), an owner
+    that left the fleet between route and fetch — counts one fallback and
+    dumps ``p2p-fetch-failed`` (a valid dump, no token content), and the
+    request prefills cold with the JAX engine's tokens; no restart, no page
+    leaked on either side (JAX's ``tests/test_wire_v2.py`` drill)."""
+    a, b = pair
+    restarts0 = (a.stats()["engine-restarts-total"], b.stats()["engine-restarts-total"])
+    router = FleetRouter([InProcessReplica("a", a), InProcessReplica("b", b)],
+                         refresh_interval_s=3600.0, p2p_threshold=16, lam=256.0,
+                         fail_cooldown_s=3600.0)
+
+    def reroute(prompt):
+        # "a" publishes the prefix, then reads as loaded: the route lands
+        # on "b", the miss replica, with "a" as the page source
+        router.refresh_all()
+        with router._lock:
+            other = router._replicas["b"].beacon["load_score"]
+            router._replicas["a"].beacon["load_score"] = other + 1.0
+        d = router.route(prompt)
+        assert (d.replica_id, d.p2p_source) == ("b", "a"), d
+
+    for n, (spec, error) in enumerate((("migrate@1", "checksum"), ("net-cut@1", "net-cut")),
+                                      start=1):
+        preamble = prompt_for(70 + n, 32)  # a preamble no other test serves
+        prompt = preamble + [11, 12, 13, 14, 15]
+        a.generate(preamble + [7, 8, 9], greedy(2), timeout=WAIT)
+        reroute(prompt)
+        saved0 = b.stats()["prefill-tokens-saved-total"]
+        set_wire_injector(FaultInjector(spec, seed=0))
+        try:
+            frames, toks, end = drain(router, prompt, {"max-tokens": NEW, "temperature": 0.0})
+        finally:
+            set_wire_injector(None)
+        assert end["replica"] == "b"
+        assert toks == jax_solo(jax_pair, prompt), f"{spec}: the cold fallback diverged"
+        assert b.stats()["prefill-tokens-saved-total"] == saved0  # cold, not warm
+        assert router.p2p_fetch_fallback_total == n and router.p2p_fetch_total == 0
+        dump = router._flight.last_dump
+        assert dump is not None and dump["reason"] == "p2p-fetch-failed"
+        assert validate_flight_dump(dump)
+        assert error in dump["extra"]["error"], dump["extra"]
+        assert dump["extra"]["fallback"] == "local-cold-prefill"
+        assert (dump["extra"]["src"], dump["extra"]["dst"]) == ("a", "b")
+        assert "tokens" not in dump["extra"]
+        assert a._prefix_index.deepest_entry(prompt) is not None  # the owner keeps its pages
+    decision = RouteDecision(
+        replica_id="b", handle=router._replicas["b"].handle, kind="balanced",
+        expected_match=0, score=0.0, p2p_source="ghost", p2p_match=32,
+    )
+    assert router._p2p_fetch(decision, prompt) is False
+    assert router.p2p_fetch_fallback_total == 3
+    assert "ghost" in router._flight.last_dump["extra"]["error"]
+    st = router.stats()
+    assert st["fleet-p2p-fetch-fallback-total"] == 3 and st["fleet-p2p-fetch-total"] == 0
+    assert (a.stats()["engine-restarts-total"], b.stats()["engine-restarts-total"]) == restarts0
     leak_assert(a)
     leak_assert(b)
 

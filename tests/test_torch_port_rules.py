@@ -146,9 +146,38 @@ def test_port_files_exist():
         "langstream_tpu_torch/k8s/runtime_manager.py",
         "langstream_tpu_torch/k8s/helm_render.py",
         "langstream_tpu_torch/entrypoint.py",
+        "langstream_tpu_torch/analysis/__init__.py",
+        "langstream_tpu_torch/analysis/__main__.py",
+        "langstream_tpu_torch/analysis/core.py",
+        "langstream_tpu_torch/analysis/locks.py",
+        "langstream_tpu_torch/analysis/threads.py",
+        "langstream_tpu_torch/analysis/redaction.py",
+        "langstream_tpu_torch/analysis/registry_drift.py",
+        "langstream_tpu_torch/analysis/compile_surface.py",
+        "langstream_tpu_torch/analysis/lockorder.py",
         "chip_smoke.py",
     ):
         assert mod in rel
+
+
+ANALYSIS_FILES = sorted((ROOT / "langstream_tpu_torch" / "analysis").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", ANALYSIS_FILES, ids=lambda p: p.name)
+def test_analysis_imports_only_the_stdlib(path):
+    """The port's lint suite parses source and never executes it: it imports
+    the stdlib and its own package only — no torch, no numpy, nothing of the
+    rest of the port, and nothing of the JAX package."""
+    import sys
+
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.ImportFrom) and node.level:
+            raise AssertionError(f"{path.name}: relative import")
+    for name in imported_modules(path):
+        if name.split(".")[0] == "langstream_tpu_torch":
+            assert name.startswith("langstream_tpu_torch.analysis"), f"{path.name} imports {name}"
+        else:
+            assert name.split(".")[0] in sys.stdlib_module_names, f"{path.name} imports {name}"
 
 
 def test_chip_smoke_defines_each_name_once():
