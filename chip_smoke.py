@@ -391,7 +391,25 @@ Phases (``--phases`` picks a subset, comma-separated, for a partial run):
    with ``mesh: {model: 1}`` — a world-1 NCCL group, the TP collectives
    inside the captured chunks — against one without a mesh on the same
    weights, each request served alone: tokens bit-equal; each decode
-   step's device ms (back-to-back replays).
+   step's device ms (back-to-back replays). (a) and (b) keep the tiers
+   off (``constrained-decoding: off``) and each gains a tier pass with
+   them on: two seeded adapters at scale 0.5, constrained decoding, and
+   the host KV tier over a 40-page pool where a 1641-token chat history
+   demotes the other session's hibernated prefix. 8 requests one at a
+   time (session A, session B, an adapter, a grammar, an adapter with a
+   grammar, a plain turn, A returning — restored —, B returning with
+   ``spmd-restore`` planted): (a) on a new loopback pair with echo on,
+   (b) through the provider with ``mesh: {data: 2}`` and its follower
+   process. Each fails unless the follower replays every chunk (echo)
+   and stops cleanly, every constrained output ends inside its grammar,
+   the tokens equal a no-mesh engine's (or provider's) on the same tree
+   (one-ulp ties excepted), A's return restores with every restored page
+   read back bit-equal to its arena blocks on each rank, the drill falls
+   back on both ranks (one counted recompute), and each engine launches
+   exactly layers x decode steps paged decode kernels, layers x cold
+   groups prefill kernels and layers x warm admissions segment kernels
+   (the follower process's from its exit line, which also carries its
+   restores, swaps and arena bytes).
 19. ``ring``    — ring prefill over the seq axis at llama-3-8b's full
    width and 8 of its 32 layers (``SHALLOW_LAYERS``; bf16, random weights from ``--seed``). Two seq ranks
    cannot share one card under NCCL, so the ring runs as an in-process
@@ -10398,8 +10416,10 @@ def _spmd_loopback(ctx, cfg, params) -> dict:
     from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
 
     tok = ByteTokenizer()
+    # the tiers off (the tier pass builds its own pair with them on)
     kw = dict(max_batch=8, decode_chunk=16, page_size=PAGE, eos_token_id=tok.eos_token_id,
-              rng_seed=ctx["seed"], device="cuda", prefill_batch=8, **SPMD_KW)
+              rng_seed=ctx["seed"], device="cuda", prefill_batch=8, constrained_decoding="off",
+              **SPMD_KW)
     ch = _counting_channel(prefill_batch=8, max_width=2048, max_batch=8,
                            table_len=table_len_for(SPMD_KW["max_seq_len"], PAGE),
                            spec_tokens=SPMD_KW["speculation_tokens"], echo=True, decode_chunk=16)
@@ -10555,7 +10575,8 @@ def _spmd_two_processes(ctx, cfg) -> dict:
     torch.cuda.empty_cache()
     free0 = torch.cuda.mem_get_info()[0]
     resource = dict(SPMD_SERVE, seed=ctx["seed"], mesh={"data": 2}, **{
-        "spmd-parity-echo": True, "prefix-cache": "auto", "speculation": "auto"})
+        "spmd-parity-echo": True, "prefix-cache": "auto", "speculation": "auto",
+        "constrained-decoding": "off"})
     t0 = time.monotonic()
     provider = REGISTRY.resource("tpu-serving").factory(resource)
     svc = provider.get_completions_service({})  # both ranks draw the seeded tree
@@ -10650,6 +10671,356 @@ def _spmd_world1(ctx) -> dict:
     return {label: {k: v for k, v in r.items() if k != "tokens"} for label, r in runs.items()}
 
 
+# The tier pass (F15): a multi-rank replica with two seeded adapters at
+# scale 0.5, constrained decoding and the host KV tier over a pool of 40
+# pages of 64, where a 1641-token chat history (27 pages, 16 published)
+# demotes the other session's hibernated prefix. The mix, one request at a
+# time: session A, session B (A's prefix demoted), an adapter, a grammar, an
+# adapter with a grammar, a plain turn, A returning (restored), B returning
+# with ``spmd-restore`` planted (the agreed fallback on every rank). Chunks
+# of 8 steps and 32 new tokens keep the pass near 40 s; both grammars end
+# within 32 bytes.
+SPMD_TIER_NEW = 32
+SPMD_TIER_CHUNK = 8
+SPMD_TIER_HISTORY = 1600
+SPMD_TIER_PUBLISHED = 1024  # the histories' published prefix (16 pages)
+SPMD_TIER_FORMATS = {"verdict": AGENTIC_FORMATS["verdict"],
+                     "words": {"type": "regex", "regex": "[a-z]{2,6}( [a-z]{2,6}){1,2}\\."}}
+SPMD_TIER_ENGINE = {"max_seq_len": 2048, "prefix_cache": "auto", "kv_pages": 40,
+                    "host_kv_fraction": 2.0, "spill_idle_s": 0.0, "speculation": "off",
+                    "brownout": "off", "adapters": AGENTIC_ADAPTERS[:2], "adapter_pool_rows": 3,
+                    "constrained_decoding": "on", "grammar_slots": 4}
+SPMD_TIER_RESOURCE = {"prefix-cache": "auto", "kv-pages": 40, "host-kv-fraction": 2.0,
+                      "spill-idle-s": 0.0, "speculation": "off", "brownout": "off",
+                      "adapters": AGENTIC_ADAPTERS[:2], "adapter-pool-rows": 3,
+                      "constrained-decoding": "auto", "grammar-slots": 4,
+                      "decode-chunk": SPMD_TIER_CHUNK}
+
+
+def _spmd_tier_mix(seed: int) -> list:
+    """The tier pass's 8 requests (byte tokens, BOS first)."""
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    hist = _prompts([SPMD_TIER_HISTORY] * 2, seed + 21)
+    turns = _prompts([40, 40, 60, 60, 60, 60, 30, 30], seed + 22)
+    a, b = hist[0] + turns[0], hist[1] + turns[1]
+    return [
+        {"prompt": tok.encode(a)},
+        {"prompt": tok.encode(b), "hibernated": 1},
+        {"prompt": tok.encode(turns[2]), "adapter": "tenant-a"},
+        {"prompt": tok.encode(turns[3]), "format": "verdict"},
+        {"prompt": tok.encode(turns[4]), "adapter": "tenant-b", "format": "words"},
+        {"prompt": tok.encode(turns[5])},
+        {"prompt": tok.encode(a + turns[6]), "hibernated": 2},
+        {"prompt": tok.encode(b + turns[7]), "drill": True},
+    ]
+
+
+def _hibernated(engine) -> int:
+    """Live prefix entries of a session history holding a host copy."""
+    return sum(1 for e in list(engine._prefix_index._live)
+               if e.length >= SPMD_TIER_PUBLISHED and e.host and e.spilling is None)
+
+
+def _serve_tier_mix(engine, mix: list, drill=None) -> dict:
+    """Serve the mix one request at a time through ``engine`` (waiting for
+    the session prefixes' host copies where a request needs one, and
+    ``drill()`` before the drilled request) → its tokens and stats delta;
+    every constrained output must end "stop" inside its grammar, every
+    other one run to its tokens."""
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    before = engine.stats()
+    results = []
+    t0 = time.monotonic()
+    for r in mix:
+        if r.get("hibernated"):
+            _spmd_wait(lambda: _hibernated(engine) >= r["hibernated"], 60,
+                       "a session prefix's host copy")
+        if r.get("drill") and drill is not None:
+            drill()
+        fmt = r.get("format")
+        opts = GenerationOptions(max_new_tokens=SPMD_TIER_NEW, temperature=0.0,
+                                 adapter=r.get("adapter"),
+                                 response_format=SPMD_TIER_FORMATS[fmt] if fmt else None)
+        res = engine.generate(r["prompt"], opts, timeout=600)
+        text = tok.decode(res.tokens)
+        if fmt is not None:
+            if res.finish_reason != "stop" or not _in_grammar(SPMD_TIER_FORMATS[fmt], text):
+                raise AssertionError(f"spmd tiers: {fmt} output {text!r} ({res.finish_reason}) "
+                                     "is not in its grammar")
+        elif res.error is not None or len(res.tokens) != SPMD_TIER_NEW:
+            raise AssertionError(f"spmd tiers: a {len(r['prompt'])}-token request ended "
+                                 f"{res.finish_reason}: {res.error}")
+        results.append(res)
+    wall = time.monotonic() - t0
+    after = engine.stats()
+    keys = ("admit-groups-total", "warm-admissions-total", "prefill-segments-total",
+            "decode-steps-total", "spill-pages-total", "host-demotions-total",
+            "restored-hits-total", "restore-pages-total", "restore-failures-total",
+            "recompute-fallbacks-total", "adapter-swaps-total", "constrained-requests-total")
+    return {"wall_s": wall, "tokens": [res.tokens for res in results],
+            "delta": {k: after[k] - before[k] for k in keys}}
+
+
+def _tier_launches(label: str, got: dict, layers: int, delta: dict, engines: int = 1) -> dict:
+    """Each engine's launches of the mix: paged decode exactly layers x
+    decode steps, the prefill kernel layers x cold groups, the segment
+    kernel layers x (warm admissions + segments)."""
+    want = {
+        "paged_decode": layers * delta["decode-steps-total"],
+        "flash_prefill": layers * delta["admit-groups-total"],
+        "flash_segment": layers * (delta["warm-admissions-total"]
+                                   + delta["prefill-segments-total"]),
+    }
+    for name, n in want.items():
+        if got.get(name) != engines * n or n <= 0:
+            raise AssertionError(f"spmd tiers {label}: {name} launches {got.get(name)} != "
+                                 f"{engines} x {n}")
+    return want
+
+
+def _tier_restores(label: str, delta: dict) -> None:
+    """One restore served (A's return), the drill the one fallback."""
+    if (delta["restored-hits-total"] < 1 or delta["recompute-fallbacks-total"] != 1
+            or delta["restore-failures-total"] < 1 or delta["host-demotions-total"] < 1):
+        raise AssertionError(f"spmd tiers {label}: restores and fallbacks {delta}")
+
+
+def _checked_restores(engine, record: list) -> None:
+    """Read every page a restore uploads back from the card and hold it
+    against the arena blocks it came from (verified against their
+    spill-time stamps first)."""
+    import torch
+
+    from langstream_tpu_torch.serving.pagepool import pool_leaves
+
+    upload = engine._restore_pages
+
+    def checked(pages, blocks):
+        upload(pages, blocks)
+        leaves = pool_leaves(engine._pagepool.dev)
+        for page, page_blocks in zip(pages, blocks):
+            record.append(all(torch.equal(leaf[:, int(page)].cpu(), b.cpu())
+                              for leaf, b in zip(leaves, page_blocks)))
+
+    engine._restore_pages = checked
+
+
+def _swap_ms(engine) -> dict:
+    out = {}
+    for name, reg in (("adapter", engine._adapters), ("grammar", engine._constrain_reg)):
+        out[f"{name}_swaps"] = reg.swaps_total
+        out[f"{name}_swap_ms"] = reg.swap_s_total * 1e3 / max(1, reg.swaps_total)
+    return out
+
+
+def _spmd_tier_pair(ctx, cfg, params) -> dict:
+    """The tier pass of part (a): a leader and a follower with the tiers on
+    over a loopback channel (echo on) serve the mix; then a no-mesh engine
+    on the same tree serves it for the tokens."""
+    import torch
+
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+    from langstream_tpu_torch.parallel import spmd_serving as wire
+    from langstream_tpu_torch.serving.engine import ServingEngine
+    from langstream_tpu_torch.serving.faultinject import FaultInjector
+    from langstream_tpu_torch.serving.pagepool import table_len_for
+    from langstream_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    kw = dict(max_batch=8, decode_chunk=SPMD_TIER_CHUNK, page_size=PAGE,
+              eos_token_id=tok.eos_token_id, rng_seed=ctx["seed"], device="cuda",
+              prefill_batch=8, grammar_tokenizer=tok, **SPMD_TIER_ENGINE)
+    ch = _counting_channel(prefill_batch=8, max_width=2048, max_batch=8,
+                           table_len=table_len_for(2048, PAGE), echo=True,
+                           decode_chunk=SPMD_TIER_CHUNK)
+    leader = ServingEngine(cfg, params, spmd=ch, **kw)
+    follower = ServingEngine(cfg, params, spmd=ch, **kw)
+    checks = {"leader": [], "follower": []}
+    _checked_restores(leader, checks["leader"])
+    _checked_restores(follower, checks["follower"])
+    dispatched = _count_dispatches(leader, follower, ("_dev_decode",))
+    errors: list = []
+
+    def run():
+        try:
+            wire.follower_loop(follower, ch)
+        except BaseException as e:  # noqa: BLE001 — read below
+            errors.append(e)
+
+    thread = threading.Thread(target=run, name="spmd-tier-follower", daemon=True)
+    thread.start()
+    t0 = time.monotonic()
+    leader.start()
+    sets = len(leader._graph_kinds())
+    _spmd_wait(lambda: follower.graph_captures_total >= 3 * sets or errors, 300,
+               "the follower's captures")
+    out: dict = {"pair_capture_s": time.monotonic() - t0}
+    mix = _spmd_tier_mix(ctx["seed"])
+
+    def drill():
+        leader._injector = FaultInjector("spmd-restore@1", seed=0)
+
+    try:
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        a0, b0 = ch.announces_total, ch.bytes_announced_total
+        served = _serve_tier_mix(leader, mix, drill)
+        _spmd_wait(lambda: errors or (ch._q.qsize() == 0
+                                      and dispatched["follower"] == dispatched["leader"]),
+                   120, "the follower to replay the mix")
+        torch.cuda.synchronize()
+        counts = {k: v["launches"] for k, v in kernel_counts().items()}
+        if errors:
+            raise AssertionError(f"spmd tiers: the follower failed: {errors[0]!r}")
+        chunks = dispatched["leader"]
+        out.update({
+            "wall_s": served["wall_s"], "stats": served["delta"],
+            "announces": ch.announces_total - a0, "announce_bytes": ch.bytes_announced_total - b0,
+            "announce_bytes_per_chunk": (ch.bytes_announced_total - b0) / max(1, chunks),
+            "by_op": {str(k): v for k, v in sorted(ch.by_op.items())},
+            "echoes": ch.by_op.get(wire.OP_ECHO, 0), "agreements": ch.agreements_total,
+            "kernel_launches": counts,
+        })
+        out["launches_per_engine"] = _tier_launches("(a)", counts, cfg.n_layers,
+                                                    served["delta"], engines=2)
+        _tier_restores("(a)", served["delta"])
+        out["restores"] = {}
+        for name, engine in (("leader", leader), ("follower", follower)):
+            rec = checks[name]
+            out["restores"][name] = {
+                "pages_checked": len(rec), "bit_equal": all(rec),
+                "restore_pages": engine.restore_pages_total,
+                "restore_failures": engine.restore_failures_total,
+                "restore_ms": engine.restore_s_total * 1e3,
+                "arena_bytes": engine._host_tier.bytes_total, **_swap_ms(engine),
+            }
+            if not rec or not all(rec) or engine.restore_failures_total < 1:
+                raise AssertionError(f"spmd tiers: {name}'s restores {out['restores'][name]}")
+        if checks["follower"] != checks["leader"] or follower.restore_pages_total != (
+                served["delta"]["restore-pages-total"]):
+            raise AssertionError(f"spmd tiers: the ranks restored different pages: "
+                                 f"{out['restores']}")
+        if out["echoes"] < chunks:
+            raise AssertionError(f"spmd tiers: {out['echoes']} echoes for {chunks} chunks")
+        ctx["spmd_tiers"] = {"kernel_launches": {k: v // 2 for k, v in counts.items()}}
+    finally:
+        leader.stop()
+        thread.join(timeout=60)
+    if errors or thread.is_alive():
+        raise AssertionError(f"spmd tiers: the follower did not stop cleanly: {errors}")
+    ref_kw = {k: v for k, v in kw.items()}
+    reference = ServingEngine(cfg, params, **ref_kw)
+    t = time.monotonic()
+    reference.start()
+    out["reference_capture_s"] = time.monotonic() - t
+    try:
+        want = _serve_tier_mix(reference, mix)
+        rows = [reference._adapters._by_name[r["adapter"]].row if r.get("adapter") else 0
+                for r in mix]
+        out["same_as_no_mesh"] = _same_or_tie(ctx, cfg, params, "spmd tiers (a)",
+                                              [r["prompt"] for r in mix], served["tokens"],
+                                              want["tokens"], lora=reference._adapters.pool,
+                                              rows=rows)
+    finally:
+        reference.stop()
+    if not out["same_as_no_mesh"]["ok"]:
+        raise AssertionError(f"spmd tiers (a): tokens against no mesh {out['same_as_no_mesh']}")
+    return out
+
+
+def _spmd_tier_provider(ctx, cfg) -> dict:
+    """The tier pass of part (b): the provider with ``mesh: {data: 2}`` and
+    the tier keys (this process rank 0, the follower process on the card,
+    echo on) serves the mix; each process launches exactly what the mix
+    needs, the follower exits 0 with its share of the tiers in its exit
+    line; then a provider without a mesh on the same drawn tree serves the
+    mix for the tokens."""
+    import gc
+
+    import torch
+
+    from langstream_tpu_torch.core.registry import REGISTRY
+    from langstream_tpu_torch.ops.attention import kernel_counts, reset_kernel_counts
+    from langstream_tpu_torch.serving.faultinject import FaultInjector
+
+    mix = _spmd_tier_mix(ctx["seed"] + 1)
+    resource = dict(SPMD_SERVE, seed=ctx["seed"], **SPMD_TIER_RESOURCE)
+    out: dict = {}
+    t0 = time.monotonic()
+    provider = REGISTRY.resource("tpu-serving").factory(
+        dict(resource, mesh={"data": 2}, **{"spmd-parity-echo": True}))
+    svc = provider.get_completions_service({})
+    record: list = []
+    try:
+        engine = svc.engine()
+        out["start_s"] = time.monotonic() - t0
+        out["leader_capture_s"] = engine.graph_capture_s
+        _checked_restores(engine, record)
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+
+        def drill():
+            engine._injector = FaultInjector("spmd-restore@1", seed=0)
+
+        served = _serve_tier_mix(engine, mix, drill)
+        _spmd_wait(lambda: svc.engine_stats()["active-slots"] == 0, 60, "the leader's idle")
+        torch.cuda.synchronize()
+        leader = {k: v["launches"] for k, v in kernel_counts().items()}
+        stats = svc.engine_stats()
+        out["leader"] = {"restore_ms": engine.restore_s_total * 1e3,
+                         "arena_bytes": engine._host_tier.bytes_total, **_swap_ms(engine)}
+    finally:
+        asyncio_close(provider)
+    codes, exit_lines = svc.follower_exit_codes, svc.follower_exit_lines
+    svc._engine = None
+    provider = svc = engine = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    if codes != [0] or not exit_lines:
+        raise AssertionError(f"spmd tiers (b): follower exit codes {codes}")
+    follower = exit_lines[0].get("kernels", {})
+    out.update({"wall_s": served["wall_s"], "stats": served["delta"],
+                "announces": stats["spmd-announces-total"],
+                "announce_bytes": stats["spmd-announce-bytes-total"],
+                "leader_kernel_launches": leader, "follower_kernel_launches": follower,
+                "follower_tier": exit_lines[0].get("tier", {}),
+                "leader_pages_checked": len(record), "leader_bit_equal": all(record)})
+    _tier_launches("(b) leader", leader, cfg.n_layers, served["delta"])
+    _tier_launches("(b) follower", follower, cfg.n_layers, served["delta"])
+    _tier_restores("(b)", served["delta"])
+    tier = out["follower_tier"]
+    if (not record or not all(record) or tier.get("restore-failures", 0) < 1
+            or tier.get("restore-pages") != served["delta"]["restore-pages-total"]):
+        raise AssertionError(f"spmd tiers (b): restores leader {record}, follower {tier}")
+    ctx["spmd_tiers_leader"] = {"kernel_launches": leader}
+    ctx["spmd_tiers_follower"] = {"kernel_launches": follower}
+    provider = REGISTRY.resource("tpu-serving").factory(resource)
+    svc = provider.get_completions_service({})
+    try:
+        engine = svc.engine()
+        want = _serve_tier_mix(engine, mix)
+        rows = [engine._adapters._by_name[r["adapter"]].row if r.get("adapter") else 0
+                for r in mix]
+        out["same_as_no_mesh"] = _same_or_tie(ctx, cfg, svc.params(), "spmd tiers (b)",
+                                              [r["prompt"] for r in mix], served["tokens"],
+                                              want["tokens"], lora=engine._adapters.pool,
+                                              rows=rows)
+    finally:
+        asyncio_close(provider)
+    svc._engine = None
+    provider = svc = engine = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not out["same_as_no_mesh"]["ok"]:
+        raise AssertionError(f"spmd tiers (b): tokens against no mesh {out['same_as_no_mesh']}")
+    return out
+
+
 def phase_spmd(ctx: dict) -> None:
     """The SPMD plane on the card at llama-3-8b's full width: (a) at
     ``SHALLOW_LAYERS`` depth, (b) and (c) at ``SPMD_SERVE``'s 4 layers."""
@@ -10658,9 +11029,15 @@ def phase_spmd(ctx: dict) -> None:
     cfg = MODEL_PRESETS["llama-3-8b"]
     params = _llama_params(ctx)
     t = time.monotonic()
-    pair = _spmd_loopback(ctx, *_shallow(cfg, params))
+    shallow = _shallow(cfg, params)
+    pair = _spmd_loopback(ctx, *shallow)
     pair["part_s"] = time.monotonic() - t
     log(f"spmd loopback llama-3-8b bf16 {json.dumps(pair)}")
+    t = time.monotonic()
+    tier_pair = _spmd_tier_pair(ctx, *shallow)
+    tier_pair["part_s"] = time.monotonic() - t
+    shallow = None
+    log(f"spmd tiers (a) loopback llama-3-8b bf16 {json.dumps(tier_pair)}")
     t = time.monotonic()
     # (b) and (c) draw SPMD_SERVE's tree (part (b) collects this one); a
     # later phase draws it again
@@ -10669,6 +11046,10 @@ def phase_spmd(ctx: dict) -> None:
     procs = _spmd_two_processes(ctx, MODEL_PRESETS[SPMD_SERVE["model"]])
     procs["part_s"] = time.monotonic() - t
     log(f"spmd two processes {{data: 2}} {json.dumps(procs)}")
+    t = time.monotonic()
+    tier_procs = _spmd_tier_provider(ctx, MODEL_PRESETS[SPMD_SERVE["model"]])
+    tier_procs["part_s"] = time.monotonic() - t
+    log(f"spmd tiers (b) two processes {{data: 2}} {json.dumps(tier_procs)}")
     t = time.monotonic()
     world1 = _spmd_world1(ctx)
     world1["part_s"] = time.monotonic() - t
@@ -10680,6 +11061,10 @@ def phase_spmd(ctx: dict) -> None:
         "recoveries": pair["spmd_recoveries"], "follower_start_s": procs["start_s"],
         "decode_ms_no_mesh": world1["no_mesh"]["device_ms_per_step"],
         "decode_ms_model1": world1["mesh_model1"]["device_ms_per_step"],
+        "tiers_pair_capture_s": {"off": pair["pair_capture_s"], "on": tier_pair["pair_capture_s"]},
+        "tiers_announce_bytes_per_chunk": tier_pair["announce_bytes_per_chunk"],
+        "tiers_part_a_s": tier_pair["part_s"], "tiers_part_b_s": tier_procs["part_s"],
+        "tiers_follower_start_s": {"off": procs["start_s"], "on": tier_procs["start_s"]},
     }))
 
 
@@ -11017,7 +11402,8 @@ def kernel_record(ctx: dict) -> dict:
     # every serving run's launches of each kernel (counts zeroed before each)
     served = ("e2e", "int8", "dense", "dense_int8", "paged_long", "paged_long_int8", "prefix",
               "spec", "agentic", "dense_spec", "dense_prefix", "dense_prefix_int8", "tiered",
-              "fleet", "fleet_http", "spmd", "spmd_leader", "spmd_follower", "ring", "ring_int8",
+              "fleet", "fleet_http", "spmd", "spmd_leader", "spmd_follower", "spmd_tiers",
+              "spmd_tiers_leader", "spmd_tiers_follower", "ring", "ring_int8",
               "load", "moe", "app", "rag", "remote", "python", "control", "brokers_kafka",
               "brokers_pulsar", "brokers_pravega", "k8s")
     out = []

@@ -193,9 +193,14 @@ and hibernate, while a runtime HTTP server still serves.
     only as an in-process loopback pair, ``spmd_serving.LoopbackRing``,
     which the provider never builds). A mesh on the card at world 1
     ({model: 1}) runs the TP collectives over a world-1 NCCL group. A
-    multi-rank mesh turns the host KV tier, the durable tier, adapters and
-    constrained decoding off, as the JAX engine does under SPMD (the JAX
-    provider serves them on a single-process mesh; ROADMAP §3), and the
+    multi-rank replica in one pod serves adapters, constrained decoding
+    and the host KV tier, as the JAX provider's single-process mesh does:
+    their swaps, admission rows, spills and restores ride the SPMD wire,
+    and each rank keeps its slices of the adapter pool and its shard of
+    every spilled page. On a multi-host replica (``LANGSTREAM_TPU_HOSTS``
+    > 1) those tiers stay off with a warning, as the JAX engine keeps them
+    off under multi-host SPMD. The durable tier stays off on every
+    multi-rank replica, KV-page migration is refused there, and the
     embeddings service is refused under tensor parallelism
   spmd-parity-echo: false (default) → every processed decode / verify
     chunk's tokens ride back out and the followers hold them against their
@@ -809,6 +814,7 @@ class TorchCompletionsService(CompletionsService):
                 prefill_batch=self.prefill_batch,
                 mesh=mesh,
                 spmd=self._channel,
+                multihost=self.dist_config.is_multihost,
             )
             if start:
                 engine.start()

@@ -358,7 +358,12 @@ def _lora_proj(x: torch.Tensor, base: torch.Tensor, proj: str,
                lora: Optional[LayerLora]) -> torch.Tensor:
     """``base`` (x's projection) plus its adapter delta; ``base`` alone
     without adapters or when the pool has no such projection (MoE layers
-    carry attention-only adapters)."""
+    carry attention-only adapters). Under tensor parallelism the pool holds
+    the rank's slices (``parallel.sharding.shard_lora``): a column-parallel
+    projection's ``B`` columns, so the delta comes out at the rank's width,
+    and a row-parallel projection's ``A`` rows over the rank's slice of
+    ``x``, so the delta is the rank's partial sum, which the projection's
+    all-reduce adds exactly once."""
     if lora is None or proj not in lora[0]:
         return base
     entries, scale, rows = lora
@@ -831,6 +836,13 @@ def forward(params: Params, tokens: torch.Tensor, config: ModelConfig,
     With ``ring`` (``parallel.sp``) ``tokens`` is this rank's block of the
     sequence: RoPE positions are global (``ring.rank · S`` on) and the
     causal mask lives inside ring attention."""
+    return _forward(params, tokens, config, tp, ring)
+
+
+def _forward(params: Params, tokens: torch.Tensor, config: ModelConfig,
+             tp: Optional[Any] = None, ring: Optional[Any] = None) -> torch.Tensor:
+    """``forward`` without its ``no_grad`` (``causal_lm_loss`` differentiates
+    it)."""
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, device=dev).expand(b, s)
@@ -843,6 +855,21 @@ def forward(params: Params, tokens: torch.Tensor, config: ModelConfig,
     x = _embed(params, tokens, config, tp)
     x, _ = _scan_layers(params, x, sin, cos, mask, config, tp=tp, ring=ring)
     return _unembed(params, x, config, tp)
+
+
+def causal_lm_loss(params: Params, tokens: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy over a ``[B, S]`` batch, pad id 0 masked out
+    (the JAX package's ``causal_lm_loss``): the mean over the unmasked
+    targets of ``-log softmax(logits[:, :-1])[target]``. Differentiable
+    through ``torch.autograd`` where the forward runs the plain attention
+    (the CPU, or ``attention_impl`` "jnp"); the card's attention kernels
+    have no backward."""
+    logits = _forward(params, tokens, config)[:, :-1].float()  # [B, S - 1, V]
+    targets = tokens[:, 1:].long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    mask = (targets != 0).float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 def _scan_layers(params: Params, x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor,

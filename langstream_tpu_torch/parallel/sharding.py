@@ -19,6 +19,11 @@ local experts over its slice of ``d_ff`` then one all-reduce over the
 expert and model axes together, and vocabulary-parallel logits gathered
 to the full vocabulary before sampling.
 
+An adapter's factors split like the weight each adapts (``shard_lora``):
+``B`` of a column-parallel projection on its output columns, ``A`` of a
+row-parallel one on its input rows, so a rank's delta comes out at its
+width or as its partial sum, added once by the projection's all-reduce.
+
 The kv-head fallback: when the model axis does not divide the kv heads
 (GQA at high TP) the JAX package replicates the cache over the model axis
 (``serving_cache_specs``); the port keeps on each rank the kv head its
@@ -30,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from langstream_tpu_torch.models.configs import ModelConfig
@@ -189,6 +195,43 @@ def shard_params(params: Params, mesh: Any, config: ModelConfig) -> Params:
         return _slice(tree, spec, mesh).contiguous()
 
     return walk(params, specs, "")
+
+
+# which factor of an adapter's projection splits, and on which of its axes
+# (host factors ``{"a": [L, din, r], "b": [L, r, dout]}``): a column-parallel
+# projection's ``B`` on its output columns, a row-parallel one's ``A`` on its
+# input rows — the delta then comes out at the rank's width (column) or as
+# the rank's partial sum, which the projection's all-reduce adds once (row)
+LORA_SPLITS = {
+    "wq": ("b", 2), "wk": ("b", 2), "wv": ("b", 2), "w_gate": ("b", 2), "w_up": ("b", 2),
+    "wo": ("a", 1), "w_down": ("a", 1),
+}
+
+
+def shard_lora(host: dict, mesh: Any, config: ModelConfig) -> dict:
+    """This rank's slices of one adapter's host factors (numpy, drawn or
+    loaded at the full model's shapes), split like the base weight each
+    adapts (``param_specs``; the model axis only, as attention and the
+    dense FFN split). ``wk`` / ``wv`` under the kv-head fallback keep the
+    columns of the kv head this rank's queries read, as ``shard_params``."""
+    ways = int(mesh.shape.get("model", 1))
+    if ways <= 1:
+        return host
+    rank = int(mesh.coords.get("model", 0))
+    fallback = config.n_kv_heads % ways != 0
+    kv = kv_heads_of_rank(config, ways, rank)
+    hd = config.resolved_head_dim
+    out = {}
+    for proj, ab in host.items():
+        factor, axis = LORA_SPLITS[proj]
+        x = ab[factor]
+        if fallback and proj in ("wk", "wv"):
+            x = x[..., kv.start * hd:(kv.start + len(kv)) * hd]
+        else:
+            per = x.shape[axis] // ways
+            x = np.take(x, np.arange(rank * per, (rank + 1) * per), axis=axis)
+        out[proj] = {**ab, factor: np.ascontiguousarray(x)}
+    return out
 
 
 class TensorParallel:

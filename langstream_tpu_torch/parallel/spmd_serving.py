@@ -112,6 +112,20 @@ the same ``_dev_ring`` dispatch — each rank its own block of the ring. A
 loopback pair runs its ring through ``LoopbackRing``: two engines of one
 process (one card) as seq ranks 0 and 1.
 
+The tiers (the port's ops 17–23; JAX keeps these tiers off under SPMD
+and serves them only on a single-process mesh): a swap-in's row and the
+adapter's spec or the grammar's key (``OP_ADAPTER_SWAP`` /
+``OP_GRAMMAR_SWAP``: each rank loads its slices of the factors, or
+compiles the same planes), an admission's adapter / grammar rows and DFA
+start states when one is not base (``OP_ADMIT_ROWS``), the per-slot rows
+before a chunk that reads changed ones (``OP_SLOT_ROWS``), a verify's
+per-position DFA states (``OP_VERIFY_STATES``), and the host KV tier's
+spills and restores (``OP_HOST_SPILL`` / ``OP_HOST_RESTORE``: page ids and
+arena slots; every rank copies its own shard into its own arena). A
+restore's checksum verdict is agreed over the group (``agree``, a MIN of
+the ranks' ok flags) before any rank uploads, so every rank takes the
+same branch: the upload, or the counted recompute fallback.
+
 Fixed shapes: collectives require every process to present identical
 shapes, so the block is padded to (prefill_batch, max bucket width) and
 sliced host-side after receipt. The page/draft/echo payloads get their own
@@ -121,6 +135,7 @@ construction — identical on every process because the engine config is).
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
@@ -147,6 +162,39 @@ OP_WARMUP = 14  # replay a whole precompile family (count = WARMUP_* kind)
 OP_RECOVER = 15  # leader loop crashed: both sides rebuild (count = epoch)
 OP_RESYNC = 16  # leader's authoritative tables/positions/mask (divergence
 #                 resync; long_idx = epoch, count = payload elements)
+# The port's own ops: the agentic tier and the host KV tier on the wire
+# (JAX's 17 ops above pack byte-equal to the JAX channel's; these ride the
+# same block, their state in the echo payload or the phase-1 vectors, never
+# in a wider head). A payload longer than the echo buffer spans consecutive
+# blocks of one op (``long_start`` / ``long_final``, ``s0`` = its total
+# elements, ``announce_payload``); the follower acts on the last.
+OP_ADAPTER_SWAP = 17  # long_idx = adapter pool row; payload = the spec's JSON
+OP_GRAMMAR_SWAP = 18  # long_idx = grammar pool row; payload = the grammar key
+OP_ADMIT_ROWS = 19  # the next admission's [adapter rows, grammar rows, DFA
+#                     start states] (n_rows rows; only when one is not base)
+OP_SLOT_ROWS = 20  # per-slot adapter rows (slots) and grammar rows (mask),
+#                    phase 1 only; announced when they changed
+OP_VERIFY_STATES = 21  # the verify's per-position DFA states [n_rows, width]
+OP_HOST_SPILL = 22  # device pages → arena slots (payload [pages, slots])
+OP_HOST_RESTORE = 23  # arena slots → device pages (payload [pages, slots]),
+#                       the checksum verdict agreed over the group;
+#                       width = 1 plants the follower-corruption drill
+
+# the port's ops whose state rides the echo payload (``announce_payload``)
+PAYLOAD_OPS = (OP_ADAPTER_SWAP, OP_GRAMMAR_SWAP, OP_ADMIT_ROWS, OP_VERIFY_STATES,
+               OP_HOST_SPILL, OP_HOST_RESTORE)
+
+
+def text_words(text: str) -> np.ndarray:
+    """UTF-8 text as int32 words (4 bytes a word, zero-padded) for a
+    payload; ``words_text`` inverts it given the byte length."""
+    raw = text.encode()
+    return np.frombuffer(raw + b"\0" * (-len(raw) % 4), np.int32).copy()
+
+
+def words_text(words: np.ndarray, nbytes: int) -> str:
+    return np.ascontiguousarray(words, np.int32).view(np.uint8)[:nbytes].tobytes().decode()
+
 
 # OP_WARMUP kinds (ControlBlock.count)
 WARMUP_DECODE_LADDER = 0
@@ -306,6 +354,8 @@ class SpmdChannel:
         # — the measured ControlBlock overhead per engine iteration
         self.announces_total = 0
         self.bytes_announced_total = 0
+        # verdicts agreed over the group (``agree``: the host tier's restores)
+        self.agreements_total = 0
         self._seq = 0
         # immutable zero templates: _pack copies ONLY the arrays an op
         # actually writes (head/slots/mask + its payload kind) and passes
@@ -490,9 +540,10 @@ class SpmdChannel:
             return "drafts"
         if op in (OP_PAGE_BIND, OP_PAGE_ZERO):
             return "pages"
-        if op in (OP_ECHO, OP_RESYNC):
+        if op in (OP_ECHO, OP_RESYNC) or op in PAYLOAD_OPS:
             # OP_RESYNC reuses the echo buffer (tables ++ positions ++
-            # mask, flattened; sized into echo_pad at construction)
+            # mask, flattened; sized into echo_pad at construction), and
+            # so do the port's payload ops
             return "echo"
         return None
 
@@ -654,6 +705,43 @@ class SpmdChannel:
             sum(a.nbytes for a in payload) if payload is not None else 0
         )
 
+    def announce_payload(self, block: ControlBlock, data: np.ndarray) -> None:
+        """Leader: announce ``block`` with ``data`` (int32, flattened) as
+        its payload, over as many consecutive blocks as the echo buffer
+        needs (``long_start`` on the first, ``long_final`` on the last,
+        ``s0`` = the payload's elements on each)."""
+        flat = np.asarray(data, np.int32).reshape(-1)
+        cap = self.echo_pad
+        n = max(1, -(-len(flat) // cap))
+        for i in range(n):
+            piece = flat[i * cap:(i + 1) * cap]
+            self.announce(dataclasses.replace(
+                block, echo=piece, count=len(piece), s0=len(flat),
+                long_start=i == 0, long_final=i == n - 1,
+            ))
+
+    def agree(self, ok: bool, leader: bool = True) -> bool:
+        """Every rank's verdict on one announced operation → True only when
+        all are True (a MIN over the control group; each rank calls it in
+        the same place of the block order). Bounded by the watchdog when it
+        is armed (``SpmdTimeout``)."""
+        import datetime
+
+        import torch
+        import torch.distributed as dist
+
+        t = torch.tensor([1 if ok else 0], dtype=torch.int32)
+        work = dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.group, async_op=True)
+        if self.watchdog_s > 0:
+            try:
+                work.wait(timeout=datetime.timedelta(seconds=2 * self.watchdog_s))
+            except RuntimeError as e:
+                raise SpmdTimeout(f"no verdict from every rank: {e}") from None
+        else:
+            work.wait()
+        self.agreements_total += 1
+        return bool(t.item())
+
     def _send(self, packed: tuple, phase1: tuple, payload) -> None:
         """Transport hook: put the announcement on the wire."""
         self._broadcast(phase1)
@@ -726,6 +814,8 @@ class LoopbackChannel(SpmdChannel):
         import threading as _threading
 
         self._q: Any = _queue.Queue()
+        # the leader's and the follower's verdicts (``agree``)
+        self._verdicts = (_queue.Queue(), _queue.Queue())
         # same-process resync side channel (report_/poll_divergence)
         self._div_lock = _threading.Lock()
         self._div_req: Optional[dict] = None
@@ -751,6 +841,19 @@ class LoopbackChannel(SpmdChannel):
                 "(spmd-watchdog-s)"
             ) from None
         return self._unpack(packed)
+
+    def agree(self, ok: bool, leader: bool = True) -> bool:
+        import queue as _queue
+
+        # the pair's verdicts cross through one queue each way
+        mine, theirs = self._verdicts if leader else self._verdicts[::-1]
+        mine.put(bool(ok))
+        try:
+            other = theirs.get(timeout=2 * self.watchdog_s if self.watchdog_s > 0 else None)
+        except _queue.Empty:
+            raise SpmdTimeout("no verdict from the other rank") from None
+        self.agreements_total += 1
+        return bool(ok) and other
 
     def report_divergence(self, seq: int, op: int, why: str) -> bool:
         with self._div_lock:
@@ -1007,6 +1110,9 @@ def follower_loop(
             last_seq = block.seq
             expected_seq = block.seq % SpmdChannel.SEQ_MOD + 1  # wrap rule
         if block.op == OP_STOP:
+            stop = getattr(engine, "_spmd_follower_stop", None)  # a stand-in engine has none
+            if stop is not None:
+                stop()
             channel.close()
             return
         if block.op == OP_IDLE:
@@ -1142,6 +1248,7 @@ def _replay(
             np.asarray(block.top_ps, np.float32),
             _i64(block.slots),
             rows,
+            engine._spmd_take_admit_rows(block.n_rows),
         )
     elif block.op == OP_LONG_SEG:
         if engine._paged:
@@ -1157,6 +1264,7 @@ def _replay(
                 float(block.top_ps[0]),
                 final=block.long_final,
                 prompt_len=block.prompt_len,
+                agentic=engine._spmd_take_admit_rows(1),
             )
         else:
             engine._dev_long_segment(
@@ -1173,6 +1281,7 @@ def _replay(
                 idx=block.long_idx,
                 prompt_len=block.prompt_len,
                 prefix_row=block.entry_row if block.entry_row >= 0 else None,
+                agentic=engine._spmd_take_admit_rows(1),
             )
     elif block.op == OP_DECODE:
         if channel.echo:
@@ -1214,6 +1323,7 @@ def _replay(
             float(block.top_ps[0]),
             block.long_idx,
             block.prompt_len,
+            engine._spmd_take_admit_rows(1),
         )
     elif block.op == OP_PREFIX_PUBLISH:
         engine._dev_prefix_publish(block.long_idx, block.entry_row)
@@ -1265,9 +1375,50 @@ def _replay(
                 int(block.top_ks[0]),
                 float(block.top_ps[0]),
                 block.long_idx,
+                engine._spmd_take_admit_rows(1),
             )
+    elif block.op == OP_SLOT_ROWS:
+        engine._spmd_apply_slot_rows(block.slots, block.mask)
+    elif block.op in PAYLOAD_OPS:
+        data = _gather_payload(engine, block)
+        if data is not None:
+            _replay_payload(engine, block, data)
     else:
         _fail_divergence(engine, block, f"unknown op {block.op}")
+
+
+def _gather_payload(engine: Any, block: ControlBlock) -> Optional[np.ndarray]:
+    """A payload op's elements once its last block arrived (None before)."""
+    buf = engine._spmd_payload_buf
+    if block.long_start:
+        buf.clear()
+    buf.append(np.asarray(block.echo[: block.count], np.int32).copy())
+    if not block.long_final:
+        return None
+    data = np.concatenate(buf)
+    buf.clear()
+    if len(data) != block.s0:
+        _fail_divergence(
+            engine, block, f"payload of {len(data)} of {block.s0} elements (a block was lost)",
+        )
+    return data
+
+
+def _replay_payload(engine: Any, block: ControlBlock, data: np.ndarray) -> None:
+    """The port's payload ops (the agentic tier and the host KV tier)."""
+    op, n = block.op, block.n_rows
+    if op == OP_ADAPTER_SWAP:
+        engine._spmd_adapter_swap(block.long_idx, words_text(data, block.prompt_len))
+    elif op == OP_GRAMMAR_SWAP:
+        engine._spmd_grammar_swap(block.long_idx, words_text(data, block.prompt_len))
+    elif op == OP_ADMIT_ROWS:
+        engine._spmd_admit_rows = data.reshape(3, n).astype(np.int64)
+    elif op == OP_VERIFY_STATES:
+        engine._spmd_verify_states(data.reshape(n, block.width))
+    elif op == OP_HOST_SPILL:
+        engine._spmd_host_spill(data[:n], data[n:])
+    else:  # OP_HOST_RESTORE
+        engine._spmd_host_restore(data[:n], data[n:], drill=bool(block.width))
 
 
 def _replay_warmup(engine: Any, block: ControlBlock) -> None:
@@ -1387,9 +1538,19 @@ def main(argv: Optional[list] = None) -> int:
         follower_loop(engine, service.spmd_channel(), on_warmup=reset_kernel_counts)
     finally:
         service.release_follower()
-    # the exit line: this rank's kernel launches since its last capture
+    # the exit line: this rank's kernel launches since its last capture,
+    # and its share of the tiers (host-tier pages, swaps, its arena)
     launches = {k: v["launches"] for k, v in kernel_counts().items()}
-    print(json.dumps({"follower": args.rank, "exit": "stop", "kernels": launches}), flush=True)
+    tier = {
+        "spill-pages": engine.spill_pages_total, "restore-pages": engine.restore_pages_total,
+        "restore-failures": engine.restore_failures_total, "restore-s": engine.restore_s_total,
+        "arena-bytes": engine._host_tier.bytes_total if engine._host_tier is not None else 0,
+    }
+    for name, reg in (("adapter", engine._adapters), ("grammar", engine._constrain_reg)):
+        if reg is not None:
+            tier[f"{name}-swaps"], tier[f"{name}-swap-s"] = reg.swaps_total, reg.swap_s_total
+    print(json.dumps({"follower": args.rank, "exit": "stop", "kernels": launches,
+                      "tier": tier}), flush=True)
     return 0
 
 

@@ -33,7 +33,7 @@ import math
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -198,6 +198,8 @@ class AdapterRegistry:
         rank: int,
         dtype: Any = None,
         device: DeviceLike = "cuda",
+        full_config: Optional[ModelConfig] = None,
+        shard: Optional[Callable[[dict], dict]] = None,
     ) -> None:
         if rows < 2 or rank < 1:
             raise ValueError(
@@ -205,6 +207,14 @@ class AdapterRegistry:
                 f"got rows={rows} rank={rank}"
             )
         self.config = config
+        # under tensor parallelism ``config`` is the rank's shapes: factors
+        # are drawn or loaded at the model's own (``full_config``) and cut
+        # to the rank's slices by ``shard`` (``parallel.sharding.shard_lora``)
+        self.full_config = full_config or config
+        self._shard = shard
+        # called after a swap-in with (row, spec): the SPMD leader announces
+        # it (``OP_ADAPTER_SWAP``) and each follower loads the same row
+        self.on_swap: Optional[Callable[[int, AdapterSpec], None]] = None
         self.rows = int(rows)
         self.rank = int(rank)
         self.device = resolve_device(device)
@@ -239,12 +249,14 @@ class AdapterRegistry:
         if spec.path:
             from langstream_tpu_torch.models.loader import load_lora_params
 
-            host = load_lora_params(spec.path, self.config, spec.rank)
+            host = load_lora_params(spec.path, self.full_config, spec.rank)
         else:
             host = init_random_lora(
-                self.config, spec.rank, spec.seed if spec.seed is not None else 0
+                self.full_config, spec.rank, spec.seed if spec.seed is not None else 0
             )
         host = self._pad_rank(host, spec.rank)
+        if self._shard is not None:
+            host = self._shard(host)
         old = self._by_name.get(spec.name)
         if old is not None and old.row is not None:
             # replaced while resident: drop the stale row (a pinned adapter
@@ -322,6 +334,15 @@ class AdapterRegistry:
                 )
             self._evict_state(min(victims, key=lambda s: s.last_used))
         row = self._free_rows.pop()
+        self._write_row(row, state)
+        self.swaps_total += 1
+        self.swap_s_total += time.monotonic() - t0
+        if self.on_swap is not None:
+            self.on_swap(row, state.spec)
+
+    def _write_row(self, row: int, state: _AdapterState) -> None:
+        """Upload ``state``'s factors into pool row ``row`` on the caller's
+        stream and make it the row's owner."""
         for proj, ab in state.host.items():
             for factor, host in ab.items():
                 dst = self.pool[proj][factor]
@@ -335,9 +356,30 @@ class AdapterRegistry:
         state.row = row
         state.loads += 1
         self._row_owner[row] = state
+        self._refresh_advertised()
+
+    def load_row(self, row: int, spec: AdapterSpec) -> None:
+        """An SPMD follower's half of a leader's swap-in: ``spec``'s factors
+        (this rank's slices; registered first when this registry does not
+        hold the same spec) into pool row ``row``, whoever held it — the
+        leader's LRU chose the row. Pinning is the leader's: a follower
+        keeps no refcounts."""
+        t0 = time.monotonic()
+        state = self._by_name.get(spec.name)
+        if state is None or state.spec != spec:
+            self.register(spec)
+            state = self._by_name[spec.name]
+        if state.row is not None and state.row != row:
+            self._evict_state(state)
+        old = self._row_owner.get(row)
+        if old is not None and old is not state:
+            old.refs = 0
+            self._evict_state(old)
+        if row in self._free_rows:
+            self._free_rows.remove(row)
+        self._write_row(row, state)
         self.swaps_total += 1
         self.swap_s_total += time.monotonic() - t0
-        self._refresh_advertised()
 
     def _evict_state(self, state: _AdapterState) -> None:
         assert state.refs == 0

@@ -50,7 +50,7 @@ import logging
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Iterable, Optional
+from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -792,6 +792,10 @@ class GrammarRegistry:
         self.compiled_total = 0
         self.swaps_total = 0
         self.swap_s_total = 0.0
+        # called after a swap-in with (row, grammar key), outside the lock:
+        # the SPMD leader announces it (``OP_GRAMMAR_SWAP``) and each
+        # follower loads the same row
+        self.on_swap: Optional[Callable[[int, str], None]] = None
 
     # -- compile cache (any thread: submit() compiles on the caller's) ------
 
@@ -835,10 +839,14 @@ class GrammarRegistry:
                 self._by_key[dfa.key] = state
             self._tick += 1
             state.last_used = self._tick
-            if state.row is None:
+            swapped = state.row is None
+            if swapped:
                 self._swap_in_locked(state)
             state.refs += 1
-            return state.row
+            row = state.row
+        if swapped and self.on_swap is not None:
+            self.on_swap(row, dfa.key)
+        return row
 
     def release(self, dfa: TokenDFA) -> None:
         with self._lock:
@@ -861,9 +869,7 @@ class GrammarRegistry:
             self._free_rows.append(victim.row)
             self._row_owner.pop(victim.row, None)
             victim.row = None
-        bits, defaults, exc_key, exc_next = state.dfa.packed()
-        n = state.dfa.n_states
-        n_exc = exc_key.shape[0]
+        n_exc = state.dfa.n_exceptions
         if n_exc > self.max_exceptions:  # acquire() bypassing compile()
             raise GrammarError(
                 f"grammar needs {n_exc} transition exceptions but the "
@@ -871,6 +877,16 @@ class GrammarRegistry:
                 "grammar-exceptions"
             )
         row = self._free_rows.pop()
+        self._write_row_locked(row, state)
+        self.swaps_total += 1
+        self.swap_s_total += time.monotonic() - t0
+
+    def _write_row_locked(self, row: int, state: _GrammarState) -> None:
+        """Upload ``state``'s four planes into pool row ``row`` on the
+        caller's stream and make it the row's owner."""
+        bits, defaults, exc_key, exc_next = state.dfa.packed()
+        n = state.dfa.n_states
+        n_exc = exc_key.shape[0]
         pb = np.zeros((self.max_states, self.n_words), np.uint32)
         pb[:n] = bits
         pd = np.zeros(self.max_states, np.int32)
@@ -884,8 +900,28 @@ class GrammarRegistry:
             plane[row].copy_(_staged(host, plane.device), non_blocking=True)
         state.row = row
         self._row_owner[row] = state
-        self.swaps_total += 1
-        self.swap_s_total += time.monotonic() - t0
+
+    def load_row(self, row: int, key: str) -> None:
+        """An SPMD follower's half of a leader's swap-in: the grammar of
+        ``key`` (its ``response_format`` JSON; compiled here, or from the
+        cache) into pool row ``row``, whoever held it — the leader's LRU
+        chose the row, and the same compile gives bit-equal planes. A
+        follower keeps no refcounts."""
+        t0 = time.monotonic()
+        dfa = self.compile(json.loads(key))
+        with self._lock:
+            state = self._by_key[dfa.key]
+            if state.row is not None and state.row != row:
+                self._row_owner.pop(state.row, None)
+                self._free_rows.append(state.row)
+            old = self._row_owner.get(row)
+            if old is not None and old is not state:
+                old.row = None
+            if row in self._free_rows:
+                self._free_rows.remove(row)
+            self._write_row_locked(row, state)
+            self.swaps_total += 1
+            self.swap_s_total += time.monotonic() - t0
 
     def warmup(self) -> None:
         """Nothing to warm: the JAX registry compiles its row-upload

@@ -253,11 +253,25 @@ JAX engine runs it: a loop crash announces ``OP_RECOVER`` at a new epoch
 and both sides rebuild (the generator re-seeded from seed + epoch) and
 capture again; idle heartbeats (``OP_IDLE``) and a fetch wait bounded by
 ``spmd-watchdog-s`` (``EngineWedgedError`` → recovery); a follower's
-divergence report is answered with ``OP_RESYNC``. Under SPMD the host KV
-tier, the durable tier, adapters and constrained decoding are off (with a
-warning when asked for), as the JAX engine turns them off; a failed
-prefill or segment crashes the replica into recovery instead of failing
-its request alone; KV-page migration commands are refused.
+divergence report is answered with ``OP_RESYNC``. A multi-rank replica in
+one pod serves adapters, constrained decoding and the host KV tier, as the
+JAX engine's single-process mesh does: the leader announces each adapter
+and grammar swap-in (``OP_ADAPTER_SWAP`` / ``OP_GRAMMAR_SWAP``: the row and
+the spec or the grammar's key; each rank loads its slices of the factors,
+``shard_lora``, or compiles the same planes), an admission's rows when one
+is not base (``OP_ADMIT_ROWS``), the per-slot rows before a chunk when they
+changed (``OP_SLOT_ROWS``), a verify's DFA states (``OP_VERIFY_STATES``),
+and every spill and restore (``OP_HOST_SPILL`` / ``OP_HOST_RESTORE``: page
+ids and arena slots). The tier's decisions stay the leader's; every rank
+copies its own shard of the pages into its own arena and keeps its own
+fences, and a restore uploads only when every rank's shard passed its
+checksum (the verdict agreed over the group, ``SpmdChannel.agree``), else
+every rank takes the counted fallback. On a multi-host replica
+(``multihost``) those tiers stay off with a warning, as the JAX engine
+keeps them off under multi-host SPMD. The durable tier stays off on every
+multi-rank replica (with a warning), KV-page migration commands are
+refused, and a failed prefill or segment crashes the replica into recovery
+instead of failing its request alone.
 
 Ring prefill (a mesh whose "seq" axis is above 1, or a ``ring`` handle
 given; dense layout only, as in the JAX engine). A long prompt with no
@@ -274,7 +288,9 @@ budget, and its request's spans report the path ``ring``.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
+import json
 import logging
 import math
 import queue
@@ -330,7 +346,7 @@ from langstream_tpu_torch.serving.observability import (
 from langstream_tpu_torch.ops.kvcopy import gather_prefix_local, publish_prefix_rows
 from langstream_tpu_torch.parallel import spmd_serving as wire
 from langstream_tpu_torch.parallel.ring_attention import seq_ring
-from langstream_tpu_torch.parallel.sharding import local_config, tensor_parallel
+from langstream_tpu_torch.parallel.sharding import local_config, shard_lora, tensor_parallel
 from langstream_tpu_torch.serving.pagepool import (
     HostPageTier,
     PagePool,
@@ -1012,6 +1028,7 @@ class ServingEngine:
         mesh: Optional[Any] = None,
         spmd: Optional[Any] = None,
         ring: Optional[Any] = None,
+        multihost: bool = False,
     ) -> None:
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; supported: paged, dense")
@@ -1037,6 +1054,18 @@ class ServingEngine:
         # by ``follower_loop``
         self._spmd = spmd
         self._spmd_follower = False
+        # a replica whose ranks span pods (``LANGSTREAM_TPU_HOSTS`` > 1):
+        # the tiers stay off there, as the JAX engine keeps them off under
+        # its multi-host SPMD; a multi-rank replica in one pod serves them
+        self.multihost = bool(multihost)
+        # a follower's pending admission rows (``OP_ADMIT_ROWS``) and the
+        # pieces of a payload spanning blocks; the leader's last announced
+        # per-slot rows (``OP_SLOT_ROWS``); a follower's spills in flight by
+        # arena slot
+        self._spmd_admit_rows: Optional[np.ndarray] = None
+        self._spmd_payload_buf: list = []
+        self._spmd_rows_sent: Optional[tuple] = None
+        self._spmd_spills: dict[int, Any] = {}
         self._rng_seed = int(rng_seed)
         self.params = params
         self.max_batch = int(max_batch)
@@ -1133,11 +1162,13 @@ class ServingEngine:
         self.spill_idle_s = max(0.0, float(spill_idle_s))
         self._restore_stall_s = max(0.0, float(restore_stall_dump_s))
         spill_on = self._paged and not spill_off and self.host_kv_fraction > 0
-        if spmd is not None and spill_on:
-            # spill / demote / restore decisions are leader-side host state
-            # and a restore's upload is a dispatch the wire does not carry
+        if spmd is not None and self.multihost and spill_on:
+            # a multi-rank replica in one pod carries the tier on the wire
+            # (``OP_HOST_SPILL`` / ``OP_HOST_RESTORE``); across pods it stays
+            # off, as the JAX engine keeps it off under multi-host SPMD
             log.warning(
-                "tiered KV host spill is not on the SPMD wire; off on this multi-rank replica"
+                "tiered KV host spill is not on the SPMD wire yet; off on this multi-host "
+                "replica (host-kv-fraction %.2f ignored)", self.host_kv_fraction,
             )
             spill_on = False
         if spill_on and self._prefix_index is None:
@@ -1174,6 +1205,8 @@ class ServingEngine:
         # time is the upload's queueing); a restore's total is the
         # engine_restore_s histogram
         self.restore_verify_s_total = 0.0
+        # host seconds of the restores that uploaded (verify, upload queueing)
+        self.restore_s_total = 0.0
         # host ms of spill / restore bookkeeping this iteration (the flight
         # frames' phase_ms)
         self._spill_ms_iter = 0.0
@@ -1311,16 +1344,16 @@ class ServingEngine:
         explicit_constrain = constrained_decoding is True or str(constrained_decoding).lower() in (
             "on", "true", "1"
         )
-        if spmd is not None and (specs or str(constrained_decoding).lower() not in (
-            "off", "false", "0", "none"
-        )):
-            # neither the adapter rows nor the grammar pool ride the wire: a
-            # multi-rank replica serves base, free-form text only (auto
-            # degrades quietly, an explicit ask warns)
+        if spmd is not None and self.multihost and (specs or str(constrained_decoding).lower()
+                                                      not in ("off", "false", "0", "none")):
+            # a multi-rank replica in one pod carries the tier on the wire
+            # (swaps, admission rows, slot rows, verify states); a multi-host
+            # one serves base, free-form text only, as the JAX engine does
+            # (auto degrades quietly, an explicit ask warns)
             log.log(
                 logging.WARNING if specs or explicit_constrain else logging.INFO,
-                "adapters / constrained decoding are not on the SPMD wire; off on this "
-                "multi-rank replica",
+                "adapters / constrained decoding are not on the SPMD wire yet; off on this "
+                "multi-host replica",
             )
             specs = []
             constrained_decoding = "off"
@@ -1331,7 +1364,13 @@ class ServingEngine:
                 else rows_for_fraction(config, rank, tree_bytes(params), adapter_pool_fraction,
                                        n_registered=len(specs))
             )
-            self._adapters = AdapterRegistry(config, rows, rank, device=self.device)
+            # under tensor parallelism each rank draws or loads the model's
+            # factors and keeps the slices of its weights (``shard_lora``)
+            self._adapters = AdapterRegistry(
+                config, rows, rank, device=self.device, full_config=self.full_config,
+                shard=(lambda host: shard_lora(host, mesh, self.full_config))
+                if self._tp is not None else None,
+            )
             for spec in specs:
                 self._adapters.register(spec)
         constrain_on = constrained_decoding is True or str(constrained_decoding).lower() in (
@@ -1351,6 +1390,13 @@ class ServingEngine:
                 device=self.device,
             )
         self._agentic = self._adapters is not None or self._constrain_reg is not None
+        if spmd is not None:
+            # the leader's swap-ins ride the wire (a follower loads rows
+            # through ``load_row``, which calls no hook)
+            if self._adapters is not None:
+                self._adapters.on_swap = self._announce_adapter_swap
+            if self._constrain_reg is not None:
+                self._constrain_reg.on_swap = self._announce_grammar_swap
         # the device-resident decode state the graphs read and write
         # (_alloc_decode_state): chain, sampling params, table, output
         self._alloc_decode_state()
@@ -1901,7 +1947,7 @@ class ServingEngine:
 
     def _refresh_agentic(self) -> None:
         """Copy up the slots' adapter and grammar rows when they changed
-        (the leader's; the tier is off under SPMD)."""
+        (a follower's arrive in ``OP_SLOT_ROWS``)."""
         if self._arows_dev is not None:
             self._refresh_rows(self._adapter_rows, self._arows_dev, self._arows_uploaded)
         if self._g_rows_dev is not None:
@@ -2614,6 +2660,14 @@ class ServingEngine:
         self._freed_slots.clear()
         self._long_caches.clear()
         self._spmd_ring_buf.clear()
+        self._spmd_payload_buf.clear()
+        self._spmd_admit_rows = None
+        # the fresh row buffers are zeros: the leader announces its rows
+        # again at the next dispatch, a follower starts from base rows
+        self._spmd_rows_sent = None
+        if self._spmd_follower:
+            self._adapter_rows[:] = 0
+            self._g_rows[:] = 0
         self._pending_row_resets.clear()
         self._pending_page_zero.clear()
         self._spec_index.clear()
@@ -2657,6 +2711,7 @@ class ServingEngine:
         quiesced = self._spill_worker.stop() if self._spill_worker is not None else True
         self._spill_gen += 1
         self._spill_candidates.clear()
+        self._spmd_spills.clear()
         while True:
             try:
                 self._spill_done.get_nowait()
@@ -3142,6 +3197,12 @@ class ServingEngine:
             slots = tier.alloc(len(entry.pages))
             if slots is None:
                 return False
+        if self._spmd is not None:
+            # every rank copies its shard of the same pages into the same
+            # arena slots of its own arena
+            self._spmd.announce_payload(wire.ControlBlock(
+                op=wire.OP_HOST_SPILL, n_rows=len(slots),
+            ), np.concatenate([np.asarray(entry.pages, np.int32), np.asarray(slots, np.int32)]))
         handle = _Spill(entry, slots, self._spill_copy(entry.pages, slots), self._spill_gen)
         entry.spilling = handle
         self._spill_worker.submit(handle)
@@ -3264,12 +3325,23 @@ class ServingEngine:
             if not entry.dropped:
                 index._drop(pool, entry)
             return False
+        if self._spmd is not None:
+            # every rank verifies its own shard of the same slots and uploads
+            # it into the same pages; the ``spmd-restore`` drill rots one
+            # follower slot before its verify
+            drill = self._injector is not None and self._injector.fires("spmd-restore")
+            self._spmd.announce_payload(wire.ControlBlock(
+                op=wire.OP_HOST_RESTORE, n_rows=n, width=int(drill),
+            ), np.concatenate([np.asarray(pages, np.int32), np.asarray(entry.host, np.int32)]))
         if self._injector is not None:
             self._injector.corrupt_host_page(tier, entry.host)
-        cuda = self.device.type == "cuda"
         # every slot verified against its stamp before any page is uploaded
         t_v = time.monotonic()
         slot_blocks = tier.read_slots(entry.host)  # None: a stamp does not match
+        if self._spmd is not None and not self._spmd.agree(slot_blocks is not None):
+            # one rank's shard failed its stamp: every rank takes the same
+            # branch, the fallback (a bad page is a recompute, not a crash)
+            slot_blocks = None
         self.restore_verify_s_total += time.monotonic() - t_v
         if slot_blocks is None:
             pool.decref(pages)
@@ -3277,12 +3349,12 @@ class ServingEngine:
             self.restore_failures_total += fail
             log.warning("host-tier restore failed checksum (%d pages) — re-prefilling", n)
             return False
-        for dst, blocks in zip(pages, slot_blocks):
-            page_write(pool.dev, dst, blocks, non_blocking=cuda)
+        self._restore_pages(pages, slot_blocks)
         index.attach_device_pages(pool, entry, pages)
         self.restore_pages_total += n
         self.restore_bytes_total += n * tier.bytes_per_page
         took = time.monotonic() - t0
+        self.restore_s_total += took
         self._restore_ms_iter += took * 1e3
         if self._obs.on:
             self._obs.record("engine_restore_s", took)
@@ -3917,11 +3989,156 @@ class ServingEngine:
         rank's table and owned list (the only allocator state a follower
         keeps), and the same copy-on-write copy in the same stream order."""
         pool = self._pagepool
+        # a bound page may still be read by this rank's spill copy in
+        # flight (the leader demoted an entry on it): its new holder writes
+        # it only after (each rank keeps its own fences)
+        pool.wait_fences(pages)
         if pages:
             pool.tables[idx, : len(pages)] = pages
             pool.tables[idx, len(pages):] = pool.oob
         if cow_src is not None and cow_dst is not None:
             page_copy(pool.dev, cow_src, cow_dst)
+
+    def _restore_pages(self, pages: list, slot_blocks: list) -> None:
+        """Upload verified arena blocks into their pages in place on the
+        engine stream (a restore's last step, leader and follower alike)."""
+        cuda = self.device.type == "cuda"
+        for dst, blocks in zip(pages, slot_blocks):
+            page_write(self._pagepool.dev, int(dst), blocks, non_blocking=cuda)
+
+    # -- the tiers on the SPMD wire ---------------------------------------------
+
+    def _announce_adapter_swap(self, row: int, spec: AdapterSpec) -> None:
+        """Leader: a swap-in's row and the adapter's spec (``OP_ADAPTER_SWAP``),
+        announced before any admission reads the row."""
+        text = json.dumps(dataclasses.asdict(spec), sort_keys=True)
+        self._spmd.announce_payload(wire.ControlBlock(
+            op=wire.OP_ADAPTER_SWAP, long_idx=row, prompt_len=len(text.encode()),
+        ), wire.text_words(text))
+
+    def _announce_grammar_swap(self, row: int, key: str) -> None:
+        """Leader: a swap-in's row and the grammar's key, its
+        ``response_format`` JSON (``OP_GRAMMAR_SWAP``)."""
+        self._spmd.announce_payload(wire.ControlBlock(
+            op=wire.OP_GRAMMAR_SWAP, long_idx=row, prompt_len=len(key.encode()),
+        ), wire.text_words(key))
+
+    def _announce_admit_rows(self, agentic: Optional[np.ndarray]) -> None:
+        """Leader: the next admission's ``[3, n]`` (adapter row, grammar
+        row, DFA start state) when a row is not base (``OP_ADMIT_ROWS``);
+        a follower replays base rows otherwise."""
+        if agentic is None or not agentic.any():
+            return
+        self._spmd.announce_payload(wire.ControlBlock(
+            op=wire.OP_ADMIT_ROWS, n_rows=agentic.shape[1],
+        ), agentic)
+
+    def _announce_slot_rows(self) -> None:
+        """Leader, before a decode or verify: the per-slot adapter and
+        grammar rows (``OP_SLOT_ROWS``) when they changed since the last
+        announcement."""
+        if not self._agentic:
+            return
+        rows = (self._adapter_rows, self._g_rows)
+        sent = self._spmd_rows_sent
+        if sent is not None and all(np.array_equal(a, b) for a, b in zip(rows, sent)):
+            return
+        self._spmd.announce(wire.ControlBlock(
+            op=wire.OP_SLOT_ROWS, n_rows=self.max_batch,
+            slots=rows[0].astype(np.int32), mask=rows[1].astype(np.int32),
+        ))
+        self._spmd_rows_sent = (rows[0].copy(), rows[1].copy())
+
+    def _spmd_take_admit_rows(self, n: int) -> Optional[np.ndarray]:
+        """Follower: the announced rows of the admission being replayed, or
+        base rows (None with the tier off)."""
+        if not self._agentic:
+            return None
+        rows, self._spmd_admit_rows = self._spmd_admit_rows, None
+        return rows if rows is not None else np.zeros((3, n), np.int64)
+
+    def _spmd_adapter_swap(self, row: int, text: str) -> None:
+        """Follower half of ``OP_ADAPTER_SWAP``: this rank's slices of the
+        same adapter into the same row, on this thread's stream behind every
+        replayed chunk that may still read the old row."""
+        self._adapters.load_row(row, AdapterSpec(**json.loads(text)))
+
+    def _spmd_grammar_swap(self, row: int, key: str) -> None:
+        """Follower half of ``OP_GRAMMAR_SWAP``: the same planes into the
+        same row (the pool is replicated: every rank masks the gathered
+        vocabulary)."""
+        self._constrain_reg.load_row(row, key)
+
+    def _spmd_apply_slot_rows(self, adapter_rows: np.ndarray, grammar_rows: np.ndarray) -> None:
+        """Follower half of ``OP_SLOT_ROWS``: the leader's per-slot rows into
+        this rank's static buffers."""
+        b = self.max_batch
+        self._adapter_rows[:] = np.asarray(adapter_rows[:b], np.int64)
+        self._g_rows[:] = np.asarray(grammar_rows[:b], np.int64)
+        self._refresh_agentic()
+
+    def _spmd_verify_states(self, states: np.ndarray) -> None:
+        """Follower half of ``OP_VERIFY_STATES``: the leader's per-position
+        DFA states into the verify's static buffer."""
+        self._vstates_dev.copy_(self._upload(np.asarray(states, np.int64)), non_blocking=True)
+
+    def _spmd_host_spill(self, pages: np.ndarray, slots: np.ndarray) -> None:
+        """Follower half of ``OP_HOST_SPILL``: this rank's shard of the
+        pages into the same slots of its own arena — on the spill stream
+        after everything replayed so far, each page fenced — and the slots
+        stamped by this rank's spill worker."""
+        self._spmd_reap_spills()
+        if self._spill_worker is not None and not self._spill_worker.alive():
+            self._spill_worker.start()
+        pages, slots = [int(p) for p in pages], [int(x) for x in slots]
+        handle = _Spill(None, slots, self._spill_copy(pages, slots), self._spill_gen)
+        for slot in slots:
+            self._spmd_spills[slot] = handle
+        self._spill_worker.submit(handle)
+        self.spill_pages_total += len(slots)
+
+    def _spmd_reap_spills(self) -> None:
+        """Follower: forget finished spills (their completions are the
+        leader's to fold in)."""
+        while True:
+            try:
+                self._spill_done.get_nowait()
+            except queue.Empty:
+                break
+        done = [s for s, h in self._spmd_spills.items() if h.event.is_set()]
+        for slot in done:
+            del self._spmd_spills[slot]
+
+    def _spmd_host_restore(self, pages: np.ndarray, slots: np.ndarray, drill: bool) -> None:
+        """Follower half of ``OP_HOST_RESTORE``: wait for this rank's spills
+        of the slots and for the pages' fences, verify its shard of every
+        slot against its own stamp (the drill rots one first), agree on the
+        verdict with every rank, then upload — or, when any rank's shard
+        failed, take the same fallback (counted)."""
+        t0 = time.monotonic()
+        pages, slots = [int(p) for p in pages], [int(x) for x in slots]
+        tier = self._host_tier
+        ok = tier is not None
+        for slot in slots:
+            handle = self._spmd_spills.get(slot)
+            if ok and handle is not None:
+                ok = handle.event.wait(max(self._restore_stall_s, 1.0)) and handle.error is None
+        self._pagepool.wait_fences(pages)
+        if ok and drill:
+            tier.corrupt(slots[0])
+        blocks = tier.read_slots(slots) if ok else None
+        if not self._spmd.agree(blocks is not None, leader=False):
+            self.restore_failures_total += 1
+            return
+        self._restore_pages(pages, blocks)
+        self.restore_pages_total += len(pages)
+        self.restore_bytes_total += len(pages) * tier.bytes_per_page
+        self.restore_s_total += time.monotonic() - t0
+
+    def _spmd_follower_stop(self) -> None:
+        """Follower at OP_STOP: its spill worker quiesces."""
+        if self._spill_worker is not None:
+            self._spill_worker.stop()
 
     def _spmd_follower_recover(self, epoch: int) -> None:
         """Follower half of OP_RECOVER: adopt the leader's epoch and run the
@@ -4252,6 +4469,7 @@ class ServingEngine:
             if self._spmd is not None:
                 # one warm paged admission = one suffix segment over pages
                 # the preceding OP_PAGE_BIND aliased on every rank
+                self._announce_admit_rows(agentic)
                 self._spmd.announce(wire.ControlBlock(
                     op=wire.OP_LONG_SEG, width=width, n_rows=1, tokens=tokens.astype(np.int32),
                     s0=p, seg_len=len(suffix), long_idx=idx, long_final=True,
@@ -4360,6 +4578,7 @@ class ServingEngine:
             if self._injector is not None:
                 self._injector.fire("segment")
             if self._spmd is not None:
+                self._announce_admit_rows(agentic)
                 self._spmd.announce(wire.ControlBlock(
                     op=wire.OP_PREFIX_ADMIT, width=width, n_rows=1,
                     tokens=tokens.astype(np.int32), s0=p, seg_len=len(suffix),
@@ -4508,6 +4727,7 @@ class ServingEngine:
         # pad rows ride as base rows (adapter row 0, grammar row 0)
         agentic = self._row_agentic([r for _, r in group], n)
         if self._spmd is not None:
+            self._announce_admit_rows(agentic)
             self._spmd.announce(wire.ControlBlock(
                 op=wire.OP_PREFILL, width=width, n_rows=n, tokens=tokens.astype(np.int32),
                 lengths=lengths.astype(np.int32), slots=slots.astype(np.int32), temps=temps,
@@ -4736,6 +4956,7 @@ class ServingEngine:
             if self._injector is not None:
                 self._injector.fire("segment")
             if self._spmd is not None:
+                self._announce_admit_rows(agentic)
                 self._spmd.announce(wire.ControlBlock(
                     op=wire.OP_LONG_SEG, width=width, n_rows=1, tokens=tokens.astype(np.int32),
                     s0=s0, seg_len=len(seg), kv_bound=kv_bound, t_long=t_long,
@@ -5026,6 +5247,7 @@ class ServingEngine:
         stale, mask = self._collect_stale(), self._active_mask()
         kv_bound = self._chunk_kv_bound("decode")
         if self._spmd is not None:
+            self._announce_slot_rows()
             self._spmd.announce(wire.ControlBlock(
                 op=wire.OP_DECODE, steps=steps, n_rows=len(stale),
                 slots=np.asarray(stale, np.int32), kv_bound=kv_bound or 0, mask=mask,
@@ -5115,6 +5337,10 @@ class ServingEngine:
             if slot.active and dfa is not None:
                 vstates[i] = verify_states(dfa, self._dfa_host_state.get(i, 0), drafts[i])
         self._note_constrain_host((time.monotonic() - t0) * 1e3)
+        if self._spmd is not None:
+            self._spmd.announce_payload(wire.ControlBlock(
+                op=wire.OP_VERIFY_STATES, n_rows=vstates.shape[0], width=vstates.shape[1],
+            ), vstates)
         self._vstates_dev.copy_(self._upload(vstates), non_blocking=True)
 
     def _dispatch_verify(self, clean: bool = False) -> Optional[tuple]:
@@ -5142,6 +5368,7 @@ class ServingEngine:
         if self._spmd is not None:
             # the proposals ride the wire (steps = k); acceptance is decided
             # on every rank's device alike
+            self._announce_slot_rows()
             self._spmd.announce(wire.ControlBlock(
                 op=wire.OP_VERIFY, steps=self.spec_tokens, n_rows=len(stale),
                 slots=np.asarray(stale, np.int32), kv_bound=kv_bound or 0,

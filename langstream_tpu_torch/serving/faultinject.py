@@ -52,6 +52,11 @@ Sites the port's engine consults:
             migration (``serving/migrate.py``, v1 ``data`` and v2 ``raw``
             alike), its stamped checksum left intact: the receiver's
             per-page check must abort the bind and the sender retain
+  spmd-restore  consulted by the SPMD leader at a host-tier restore: the
+            announcement tells every follower to flip one byte of its
+            first arena slot before it verifies, so one rank's shard fails
+            its stamp — the agreed verdict must fall back on every rank (a
+            counted recompute), never upload on some ranks only
   net-cut   consulted between the page frames of a migration's export
             (``serving/migrate.py``, through ``serving/fleet.py``'s wire
             injector): the stream ends mid-transfer, nothing is bound
@@ -102,6 +107,8 @@ SITES = (
     "spmd-crash", "spmd-wedge", "spmd-drop",
     "weight-load",
     "disk-torn", "disk-corrupt", "disk-stall", "disk-full",
+    # the port's own site (the JAX package has no multi-rank host tier)
+    "spmd-restore",
 )
 
 # the NaN-guard sentinel sampling.sample() emits for a non-finite logits

@@ -16,6 +16,12 @@ allowance (activations, cuBLAS workspace). The streamed weight load's
 host staging peak, the host KV tier's arena (host RAM) and the durable
 tier's disk cap are reported and stay outside the device total.
 
+On a rank of a tensor-parallel replica the engine plans with the rank's
+shapes (``parallel.sharding.local_config``) and tree: the plan is that
+rank's peak — its weight slices, its kv heads' pool and arena, its slice
+of the adapter pool and the whole grammar pool (replicated: every rank
+masks the gathered vocabulary).
+
 int8 weights are widened to the model dtype at every matmul
 (``models/quant.quantized_matmul``: the int8 codes to f32, times the
 scales, then the model dtype). Inside a captured chunk those temporaries

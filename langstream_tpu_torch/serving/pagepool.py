@@ -516,6 +516,11 @@ class HostPageTier:
     spill's device-to-host copies and the restore's uploads are
     asynchronous. int8 pools spill int8 + scales, as the device side.
 
+    On a rank of a tensor-parallel replica the pool, and so the arena,
+    holds the rank's kv heads: the slots and their stamps are of the
+    rank's own bytes, and the leader's free list names the slots every
+    rank uses (a follower's own list stays unused).
+
     Thread contract: the free list and alloc / free are engine-thread-only;
     ``stamp`` (and ``write``) run on the spill worker, only ever against
     slots the engine allocated to an in-flight spill and will not read or

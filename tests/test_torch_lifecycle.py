@@ -658,7 +658,8 @@ def test_fault_injector_matches_the_jax_injector():
     from langstream_tpu.serving import faultinject as jax_fi
     from langstream_tpu_torch.serving import faultinject as port_fi
 
-    assert port_fi.SITES == jax_fi.SITES
+    # the port adds one site of its own (the multi-rank host tier's drill)
+    assert port_fi.SITES == jax_fi.SITES + ("spmd-restore",)
     spec = "decode@2:3,nan~0.4,fetch@1+"
     a, b = port_fi.FaultInjector(spec, seed=11), jax_fi.FaultInjector(spec, seed=11)
     for site in ("decode", "nan", "fetch", "prefill") * 8:

@@ -29,6 +29,7 @@ f32 tiny-test; tokens are compared exactly."""
 
 import asyncio
 import dataclasses
+import logging
 import threading
 import time
 
@@ -445,17 +446,21 @@ def test_loopback_pair_tokens_equal_jax_pair(weights, layout, fast):
 
 
 def test_multi_rank_turns_the_unwired_tiers_off(weights, caplog):
-    """Under SPMD the host KV tier, the durable tier, adapters and
-    constrained decoding are off, as the JAX engine turns them off."""
+    """Under SPMD the tiers the wire does not carry stay off: the durable
+    tier (with its warning) and KV-page migration (refused). The host KV
+    tier, adapters and constrained decoding ride the wire on a replica in
+    one pod."""
     ch = wire.LoopbackChannel(**channel_kw(fast=True))
-    engine = ServingEngine(CFG, weights[1], device="cpu", spmd=ch,
-                           host_kv_fraction=1.0, durable_dir="/nonexistent-dir",
-                           adapters=[{"name": "a", "rank": 4, "seed": 1}],
-                           constrained_decoding="on", **kw(fast=True))
-    assert not engine._spill_on and not engine._durable_on
-    assert engine._adapters is None and engine._constrain_reg is None
+    with caplog.at_level(logging.WARNING):
+        engine = ServingEngine(CFG, weights[1], device="cpu", spmd=ch,
+                               host_kv_fraction=1.0, durable_dir="/nonexistent-dir",
+                               adapters=[{"name": "a", "rank": 4, "seed": 1}],
+                               constrained_decoding="on", **kw(fast=True))
+    assert not engine._durable_on and engine._durable is None
+    assert "durable KV tier is not on the SPMD wire" in caplog.text
+    assert engine._spill_on and engine._adapters is not None and engine._constrain_reg is not None
     with pytest.raises(Exception, match="SPMD"):
-        engine.migrate_limits() if False else engine._migrate_rpc("snapshot", {}, 0.1)
+        engine._migrate_rpc("snapshot", {}, 0.1)
 
 
 # -- two processes over gloo --------------------------------------------------

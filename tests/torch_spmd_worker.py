@@ -17,15 +17,25 @@ import torch.multiprocessing as mp
 
 def spawn(job: dict, world: int, tmp_path, timeout_s: float = 240.0):
     """Run ``job`` on ``world`` spawned ranks; rank 0's result."""
+    return spawn_async(job, world, tmp_path, timeout_s)()
+
+
+def spawn_async(job: dict, world: int, tmp_path, timeout_s: float = 240.0):
+    """Start ``job`` on ``world`` spawned ranks → a call that waits for
+    them and returns rank 0's result (the caller works meanwhile)."""
     store = os.path.join(str(tmp_path), f"store-{job['name']}")
     out = os.path.join(str(tmp_path), f"out-{job['name']}.pkl")
     job = dict(job, out=out)
     ctx = mp.start_processes(_rank, args=(world, store, job), nprocs=world, join=False,
                              start_method="spawn")
-    while not ctx.join(timeout=timeout_s):
-        pass
-    with open(out, "rb") as f:
-        return pickle.load(f)
+
+    def result():
+        while not ctx.join(timeout=timeout_s):
+            pass
+        with open(out, "rb") as f:
+            return pickle.load(f)
+
+    return result
 
 
 def _rank(rank: int, world: int, store: str, job: dict) -> None:
@@ -173,10 +183,110 @@ def _engine(rank: int, job: dict):
     return out
 
 
+def _tiers(rank: int, job: dict):
+    """The agentic and host KV tiers on a multi-rank replica: rank 0 leads
+    an engine with an SPMD channel (echo on), the others follow; the
+    requests (``job["requests"]``: prompt, adapter, grammar, the spill
+    pages to wait for first) are served one at a time, or all submitted
+    before ``start()`` (``job["batch"]``). Every rank checks each restored
+    page against the arena blocks it was uploaded from (verified against
+    their spill-time stamps) and reports its restore counters and memory
+    plan; ``job["faults"]`` plants a spec on the leader. → the tokens, the
+    leader's stats and every rank's report."""
+    import time
+
+    from langstream_tpu_torch.models.configs import GenerationOptions
+    from langstream_tpu_torch.parallel.spmd_serving import SpmdChannel, follower_loop
+    from langstream_tpu_torch.serving.engine import GenerationRequest, ServingEngine
+    from langstream_tpu_torch.serving.faultinject import FaultInjector
+    from langstream_tpu_torch.serving.pagepool import pool_leaves
+
+    cfg, mesh, params = _setup(job)
+    channel = SpmdChannel(group=mesh.control_group, src=0, **job["channel"])
+    injector = FaultInjector(job["faults"]) if rank == 0 and job.get("faults") else None
+    engine = ServingEngine(cfg, params, device="cpu", mesh=mesh, spmd=channel,
+                           fault_injector=injector, **job["engine"])
+    restored: list = []
+    upload = engine._restore_pages
+
+    def checked_upload(pages, blocks):
+        upload(pages, blocks)
+        leaves = pool_leaves(engine._pagepool.dev)
+        for page, page_blocks in zip(pages, blocks):
+            restored.append(all(torch.equal(leaf[:, int(page)], b)
+                                for leaf, b in zip(leaves, page_blocks)))
+
+    engine._restore_pages = checked_upload
+    if rank != 0:
+        follower_loop(engine, channel)
+        out = None
+    else:
+        def options(r):
+            return GenerationOptions(max_new_tokens=r.get("new", job["new_tokens"]),
+                                     temperature=0.0, adapter=r.get("adapter"),
+                                     response_format=r.get("grammar"))
+
+        def request(r):
+            return engine.submit(GenerationRequest(prompt_tokens=list(r["prompt"]),
+                                                   options=options(r)))
+
+        try:
+            if job.get("batch"):
+                reqs = [request(r) for r in job["requests"]]
+                engine.start()
+                tokens = [q.result(timeout=180).tokens for q in reqs]
+            else:
+                engine.start()
+                tokens = []
+                for r in job["requests"]:
+                    deadline = time.monotonic() + 60
+                    while (engine.stats()["spill-pages-total"] < r.get("wait_spilled", 0)
+                           and time.monotonic() < deadline):
+                        time.sleep(0.01)
+                    tokens.append(request(r).result(timeout=180).tokens)
+            stats = engine.stats()
+            try:
+                engine._migrate_rpc("snapshot", {}, 0.1)
+                refused = ""
+            except Exception as e:  # noqa: BLE001 — the refusal is the result
+                refused = str(e)
+        finally:
+            engine.stop()
+        out = {"tokens": tokens, "stats": stats, "migrate_refused": refused,
+               "durable_on": engine._durable_on, "bytes": channel.bytes_announced_total,
+               "announces": channel.announces_total, "agreements": channel.agreements_total}
+    plan = engine.memory_plan
+    report = {"coords": dict(mesh.coords), "restored": restored,
+              "restore_failures": engine.restore_failures_total,
+              "restore_pages": engine.restore_pages_total,
+              "adapter_pool_bytes": plan.adapter_pool_bytes,
+              "host_spill_bytes": plan.host_spill_bytes,
+              "arena_bytes": engine._host_tier.bytes_total if engine._host_tier else 0,
+              "grammar_rows": _grammar_rows(engine), "adapter_rows": _adapter_rows(engine)}
+    reports = [None] * mesh.world
+    dist.all_gather_object(reports, report, group=mesh.control_group)
+    return None if out is None else dict(out, ranks=reports)
+
+
+def _grammar_rows(engine) -> list:
+    """The grammar pool's four planes of every swapped-in row, as bytes."""
+    reg = engine._constrain_reg
+    if reg is None:
+        return []
+    rows = sorted(reg._row_owner)
+    return [(r, [plane[r].numpy().tobytes() for plane in reg.pool]) for r in rows]
+
+
+def _adapter_rows(engine) -> list:
+    """(row, name) of every resident adapter row."""
+    reg = engine._adapters
+    return [] if reg is None else sorted((r, s.spec.name) for r, s in reg._row_owner.items())
+
+
 def _multi(rank: int, job: dict):
     """Several jobs on the same ranks, one after the other (one spawn)."""
     return [JOBS[sub["kind"]](rank, {**job, **sub}) for sub in job["jobs"]]
 
 
 JOBS = {"forward": _forward, "engine": _engine, "multi": _multi, "sp_forward": _sp_forward,
-        "ring_prefill": _ring_prefill, "probe": _probe}
+        "ring_prefill": _ring_prefill, "probe": _probe, "tiers": _tiers}
